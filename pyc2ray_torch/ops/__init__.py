@@ -1,0 +1,8 @@
+from .chemistry import global_pass, doric, ChemistryParams
+from .raytrace import RaytraceConfig
+from .raytrace_cheb import ChebRaytracer, ChebTables
+
+__all__ = [
+    "global_pass", "doric", "ChemistryParams",
+    "RaytraceConfig", "ChebRaytracer", "ChebTables",
+]

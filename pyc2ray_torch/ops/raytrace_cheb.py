@@ -1,0 +1,255 @@
+"""Chebyshev-face raytracing engine, PyTorch port.
+
+Twin of pyc2ray_tpu/ops/raytrace_cheb.py::ChebRaytracer on its main path
+(per-source scan accumulate, no lane packing, no shell segmentation). Per
+batch of B sources:
+
+  1. cut the (Dc, Dc, Dc) HI-density box of every source out of the
+     wrap-padded grid (``_extract_boxes``);
+  2. sweep the cube shells to the coldensh_out box (``sweep.cheb_sweep``:
+     the CUDA kernel on the GPU, its plain version on the CPU);
+  3. evaluate the spectral-bin photoionization rates densely over the
+     central rates subbox (``_rates``);
+  4. add each source's rate box into the padded Gamma grid, source by
+     source in batch order (the JAX engine's scan accumulate).
+
+After the last batch the padding is folded back onto the periodic grid
+(``_fold_padding``).
+
+The JAX engine's window accumulate (one-hot matmul placement, its tuner
+and ``PackedPositions``), its multi-source lane packing and its stack fold
+are layout devices of the TPU and are not copied: on the GPU the
+accumulate is a slice add, and the sweep kernel writes the cartesian box
+directly.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constants import S_STAR_REF, MAX_COLDENSH
+from ..device import resolve_device
+from ..radiation.spectral_bins import SpectralBins
+from .cheb_geometry import ChebGeometry, build_cheb_geometry
+from .geometry import max_q_for
+from .raytrace import RaytraceConfig
+from .sweep import cheb_sweep
+
+__all__ = ["ChebRaytracer", "ChebTables"]
+
+FOURPI = 12.566370614359172463991853874177
+
+
+class ChebTables(NamedTuple):
+    """Device tables of the engine (see ops/cheb_geometry.py)."""
+    sw: torch.Tensor        # (3, 4, R1, Dc, Dc) corner weights
+    path: torch.Tensor      # (3, R1, Dc, Dc)
+    diag: torch.Tensor      # (3, R1, Dc, Dc)
+    mask_p: torch.Tensor    # (3, R1, Dc, Dc) bool
+    mask_m: torch.Tensor    # (3, R1, Dc, Dc) bool
+    rt_sub: torch.Tensor    # (3, Ds, Ds, Ds) rates-subbox channels
+                            # (path3, geominv, valid), see _build_rt_sub
+    bins_s: torch.Tensor    # (E,) spectral bins
+    bins_w: torch.Tensor
+    bins_wh: torch.Tensor
+
+    def to(self, device, dtype):
+        """Move to ``device``; float tables become ``dtype``."""
+        return ChebTables(*[
+            t.to(device=device,
+                 dtype=(torch.bool if t.dtype == torch.bool else dtype))
+            for t in self])
+
+
+class ChebRaytracer:
+    """Batched multi-source raytracer, Chebyshev-face formulation.
+
+    Same ``trace`` contract as the JAX engine. ``device`` defaults to the
+    GPU; ``device="cpu"`` runs the plain PyTorch sweep."""
+
+    def __init__(self, N, R_max_LLS, sig, bins: SpectralBins,
+                 batch_size=8, dtype=torch.float32, device="cuda"):
+        self.N = int(N)
+        self.R_max_LLS = float(R_max_LLS)
+        self.sig = float(sig)
+        self.batch_size = int(batch_size)
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.config = RaytraceConfig(
+            N=self.N, R_max_LLS=self.R_max_LLS, sig=self.sig,
+            batch_size=self.batch_size, dtype=dtype,
+            grey_analytic=(bins.num_bins == 1), do_heating=False)
+        # Box half-extent: ceil(R) in Chebyshev metric (every rated cell
+        # and all its stencil parents live inside); the L1 octahedron
+        # membership bound stays at the reference's sqrt(3)R.
+        r_cube = int(np.ceil(min(float(R_max_LLS), float(N))))
+        self.geom: ChebGeometry = build_cheb_geometry(
+            self.N, max_q_for(R_max_LLS, N), r_cube=r_cube)
+        g = self.geom
+        self.num_bins = bins.num_bins
+        # Rates subbox: every rated cell (Euclidean dist <= R) lies in the
+        # central (2 ceil(R)+1)^3 cube; the rate pass runs there only when
+        # that is a real saving over the full box (the JAX engine's rule,
+        # kept so both evaluate the same cells).
+        rs = int(np.ceil(min(float(R_max_LLS), float(N))))
+        b0 = max(0, g.c - rs)
+        b1 = min(g.Dc, g.c + rs + 1)
+        if (b1 - b0) ** 3 > 0.7 * g.Dc ** 3:
+            b0, b1 = 0, g.Dc
+        self._rb0 = b0
+        self._rb1 = b1
+        self.Ds = b1 - b0
+        self.tables = ChebTables(
+            sw=torch.from_numpy(g.sw),
+            path=torch.from_numpy(g.path),
+            diag=torch.from_numpy(g.diag),
+            mask_p=torch.from_numpy(g.mask_p),
+            mask_m=torch.from_numpy(g.mask_m),
+            rt_sub=torch.from_numpy(self._build_rt_sub()),
+            bins_s=torch.from_numpy(np.asarray(bins.s, np.float64)),
+            bins_w=torch.from_numpy(np.asarray(bins.w_photo, np.float64)),
+            bins_wh=torch.from_numpy(np.asarray(bins.w_heat, np.float64)),
+        ).to(self.device, dtype)
+
+    def _build_rt_sub(self):
+        """Host-side build of the stacked rates-subbox tables: channels
+        (path3, geominv, valid) where geominv = 1/(4 pi dist2 path3) with
+        the source cell set to 1 and valid folds the octahedron/clip mask
+        and the R_max_LLS cutoff. Built in float64."""
+        g = self.geom
+        sub3 = (slice(self._rb0, self._rb1),) * 3
+        path3 = np.asarray(g.path3[sub3], np.float64)
+        dist2 = np.asarray(g.dist2[sub3], np.float64)
+        valid = (np.asarray(g.rate_valid[sub3])
+                 & (dist2 <= float(self.R_max_LLS) ** 2))
+        cs = g.c - self._rb0
+        with np.errstate(divide="ignore"):
+            geominv = 1.0 / (dist2 * path3 * FOURPI)
+        geominv[cs, cs, cs] = 1.0     # source cell: vol = dr^3, tau_in=0
+        return np.stack([path3, geominv, valid]).astype(np.float64)
+
+    # ------------------------------------------------------------------
+    def prepare_sources(self, src_pos, src_flux):
+        """Pad the catalog to whole batches (zero-flux sources at the
+        origin). Returns (pos_b, flux_b): int64 CPU positions (nb, B, 3)
+        and fluxes (nb, B) on the engine's device."""
+        B = self.batch_size
+        ns = np.asarray(src_flux).shape[0]
+        nb = -(-ns // B)
+        pos = np.zeros((nb * B, 3), dtype=np.int64)
+        flx = np.zeros((nb * B,), dtype=np.float64)
+        pos[:ns] = np.asarray(src_pos, dtype=np.int64)
+        flx[:ns] = np.asarray(src_flux, dtype=np.float64)
+        return (torch.from_numpy(pos.reshape(nb, B, 3)),
+                torch.from_numpy(flx.reshape(nb, B)).to(self.device,
+                                                        self.dtype))
+
+    def _extract_boxes(self, padded, pos):
+        """(B, Dc, Dc, Dc) boxes of ``padded`` starting at ``pos`` (B, 3)."""
+        ar = torch.arange(self.geom.Dc, device=padded.device)
+        i, j, k = (pos[:, ax, None] + ar for ax in range(3))
+        return padded[i[:, :, None, None], j[:, None, :, None],
+                      k[:, None, None, :]]
+
+    def _rates(self, cd, nhi_box, flux, dr):
+        """Dense spectral-bin rate pass over the central rates subbox.
+
+        Inputs are full (B, Dc, Dc, Dc) boxes and ``dr`` a 0-dim tensor of
+        the engine's dtype; returns phi (B, Ds, Ds, Ds), to be accumulated
+        at box position + rb0."""
+        tb = self.tables
+        dt, dev = self.dtype, self.device
+        sig = torch.tensor(self.sig, dtype=dt).to(dev)
+        b0, b1 = self._rb0, self._rb1
+        cd = cd[:, b0:b1, b0:b1, b0:b1]
+        nhi_box = nhi_box[:, b0:b1, b0:b1, b0:b1]
+        path3, geominv = tb.rt_sub[0], tb.rt_sub[1]
+        dcol = nhi_box * (path3[None] * dr)
+        cdin = cd - dcol
+        tau_in = cdin * sig
+        dtau = dcol * sig
+
+        s_over_dr3 = torch.exp(
+            torch.tensor(np.log(S_STAR_REF), dtype=dt).to(dev)
+            - 3.0 * torch.log(dr))
+        prefact = flux[:, None, None, None] * s_over_dr3 * geominv[None]
+
+        acc = torch.zeros_like(cd)
+        for e in range(self.num_bins):
+            se = tb.bins_s[e]
+            core = torch.exp(-tau_in * se) * (-torch.expm1(-dtau * se))
+            acc = acc + tb.bins_w[e] * core
+
+        mask = ((tb.rt_sub[2] > 0.5)[None]
+                & (cdin <= torch.tensor(MAX_COLDENSH, dtype=dt).to(dev)))
+        # Guard the photon-conserving division: a zero-density cell
+        # absorbs nothing (acc = 0), so Gamma-per-atom is 0, not 0/0. The
+        # floor is the smallest normal float, a no-op for any physical
+        # density.
+        nhi_safe = torch.clamp(nhi_box, min=torch.finfo(dt).tiny)
+        return torch.where(mask, prefact * acc / nhi_safe,
+                           torch.zeros_like(acc))
+
+    def _fold_padding(self, padded):
+        """Fold the wrap padding of the extended grid back onto the
+        periodic N^3 grid (low pad onto the top, high pad onto the bottom,
+        one axis after the other)."""
+        g = self.geom
+        N = self.N
+        padL = g.c
+        padR = g.Dc - 1 - g.c
+        out = padded
+        for axis in range(3):
+            core = out.narrow(axis, padL, N).clone()
+            if padR > 0:
+                core.narrow(axis, 0, padR).add_(
+                    out.narrow(axis, padL + N, padR))
+            if padL > 0:
+                core.narrow(axis, N - padL, padL).add_(
+                    out.narrow(axis, 0, padL))
+            out = core
+        return out
+
+    def trace_extended(self, nhi_pad, pos_b, flux_b, dr):
+        """Batched sweep over the wrap-padded field; returns Gamma
+        accumulated in the same extended frame."""
+        g = self.geom
+        tb = self.tables
+        phi_pad = torch.zeros_like(nhi_pad)
+        D, shift = self.Ds, self._rb0
+        dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
+        for pos, flux in zip(pos_b, flux_b):
+            boxes = self._extract_boxes(nhi_pad, pos.to(self.device))
+            cd = cheb_sweep(boxes, tb.sw, tb.path, tb.diag, tb.mask_m,
+                            tb.mask_p, dr, g.c, self.sig)
+            phi_box = self._rates(cd, boxes, flux, dr_t)
+            for (p0, p1, p2), box in zip(pos.tolist(), phi_box):
+                p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
+                phi_pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
+        return phi_pad
+
+    def trace_batches(self, nd, xh, pos_b, flux_b, dr):
+        """Batched trace on prepared sources with flat-grid IO; returns
+        (phi, None) — the second slot is the heating channel, which this
+        engine does not compute."""
+        g = self.geom
+        N = self.N
+        nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
+        wrap = torch.arange(-g.c, N + g.Dc - 1 - g.c,
+                            device=nhi3.device) % N
+        nhi_pad = nhi3[wrap][:, wrap][:, :, wrap]
+        phi_pad = self.trace_extended(nhi_pad, pos_b, flux_b, float(dr))
+        return self._fold_padding(phi_pad).reshape(-1), None
+
+    def trace(self, ndens, xh_av, src_pos, src_flux, dr):
+        """Public API (0-indexed positions, (NumSrc, 3)); returns the
+        (N, N, N) photoionization rate on the engine's device."""
+        sh = (self.N,) * 3
+        nd = torch.as_tensor(np.asarray(ndens), dtype=self.dtype,
+                             device=self.device).reshape(sh)
+        xh = torch.as_tensor(np.asarray(xh_av), dtype=self.dtype,
+                             device=self.device).reshape(sh)
+        pos_b, flux_b = self.prepare_sources(src_pos, src_flux)
+        phi, _ = self.trace_batches(nd, xh, pos_b, flux_b, dr)
+        return phi.reshape(sh)
