@@ -18,10 +18,10 @@ __all__ = ["state_from_jax"]
 def state_from_jax(tables_np, bins_np, chem_dict):
     """Build the port's state from the JAX engine's.
 
-    tables_np : dict of the JAX ``ChebTables`` fields (numpy arrays); the
-        fields the port has no use for (the packed kernel geometry
-        ``geom_*``, ``rt_tab``, the dense ``path3``/``dist2``/
-        ``rate_valid``) are ignored.
+    tables_np : dict of the JAX ``ChebTables`` fields (numpy arrays),
+        including the fused modes' rates table ``rt_tab``; the fields the
+        port has no use for (the packed kernel geometry ``geom_*``, the
+        dense ``path3``/``dist2``/``rate_valid``) are ignored.
     bins_np : dict with ``s``, ``w_photo`` and ``w_heat``.
     chem_dict : dict of the ``ChemistryParams`` fields.
 

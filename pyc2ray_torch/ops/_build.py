@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface. At first use they are
-compiled by nvcc into one shared library under ``build/torch_kernels/`` at
-the repository root (``PYC2RAY_TORCH_BUILD`` overrides the directory) and
-loaded with ctypes. The library's name carries a hash of the sources and
-the flags, so an edited source is rebuilt and a stale library never loads.
+Each source in ``csrc/`` has a plain C interface. At first use every
+source is compiled by its own nvcc process, all started together, into a
+shared library under ``build/torch_kernels/`` at the repository root
+(``PYC2RAY_TORCH_BUILD`` overrides the directory), and loaded with ctypes.
+A library's name carries a hash of its source, the shared header and the
+flags, so an edited source is rebuilt and a stale library never loads.
 """
 
 import ctypes
@@ -15,15 +16,30 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "NVCC_FLAGS"]
+__all__ = ["load", "NVCC_FLAGS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cheb_sweep.cu",)
+SOURCES = ("cheb_sweep", "cheb_sweep_rates")      # csrc/<name>.cu
+HEADERS = ("cheb_sweep.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_lib = None
-build_log = ""      # nvcc's output of the last build in this process
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# exported function -> argtypes, per library; every function returns the
+# cudaError_t of its launches as an int
+_SIGNATURES = {
+    "cheb_sweep": {
+        "cheb_sweep": [_P] * 8 + [_I] * 4 + [_D, _D, _I, _P],
+        "cheb_sweep_gamma": [_P] * 11 + [_I] * 5 + [_D] * 4 + [_I, _P],
+        "cheb_sweep_seg": [_P] * 10 + [_I] * 6 + [_D, _D, _I, _P],
+    },
+    "cheb_sweep_rates": {
+        "cheb_sweep_rates": [_P] * 14 + [_I] * 5 + [_D] * 3 + [_I, _I, _P],
+    },
+}
+
+_libs = {}
+build_log = ""      # nvcc's output of the builds in this process
 
 
 def _nvcc():
@@ -44,44 +60,60 @@ def _build_dir():
     return Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
-def _bind(lib):
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("cheb_sweep_f32", "cheb_sweep_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 8 + [i32] * 4 + [f64, f64, i32, ptr]
-        fn.restype = i32
-    lib.cheb_sweep_error_string.argtypes = [i32]
-    lib.cheb_sweep_error_string.restype = ctypes.c_char_p
+def _so_path(name):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in HEADERS + (f"{name}.cu",):
+        h.update((CSRC / f).read_bytes())
+    return _build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _bind(name, lib):
+    for fn, argtypes in _SIGNATURES[name].items():
+        for sfx in ("f32", "f64"):
+            f = getattr(lib, f"{fn}_{sfx}")
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    lib.error_string = err
     return lib
 
 
-def load():
-    """Return the kernel library, compiling it first if needed. A build
-    keeps nvcc's output, with ptxas's report of registers, shared memory
-    and spills per kernel, in ``build_log``."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    srcs = [CSRC / s for s in SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    out_dir = _build_dir()
-    so = out_dir / f"libpyc2ray_torch_{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
+def load(name=None):
+    """Return the library of ``csrc/<name>.cu`` (all of them, as a dict,
+    when ``name`` is None), compiling what is missing first, one nvcc
+    process per source, in parallel. ``build_log`` keeps nvcc's output,
+    with ptxas's report of registers, shared memory and spills per
+    kernel."""
+    global build_log
+    names = SOURCES if name is None else (name,)
+    todo = {n: _so_path(n) for n in names if n not in _libs}
+    procs = {}
+    for n, so in todo.items():
+        if so.exists():
+            continue
+        so.parent.mkdir(parents=True, exist_ok=True)
         # build under a temporary name, then rename: concurrent builders
         # never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-               *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
+               str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, cmd)
+    failed = []
+    for n, (proc, tmp, cmd) in procs.items():
+        out, _ = proc.communicate()
+        build_log += f"== {n}.cu\n{out}"
+        if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, so)
-    _lib = _bind(ctypes.CDLL(str(so)))
-    return _lib
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, todo[n])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for n, so in todo.items():
+        _libs[n] = _bind(n, ctypes.CDLL(str(so)))
+    return dict(_libs) if name is None else _libs[name]

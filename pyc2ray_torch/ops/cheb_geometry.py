@@ -35,7 +35,8 @@ import numpy as np
 
 from .geometry import _corner_tables
 
-__all__ = ["ChebGeometry", "build_cheb_geometry"]
+__all__ = ["ChebGeometry", "box_dims", "build_cheb_geometry",
+           "pack_rates_tables"]
 
 
 class ChebGeometry(NamedTuple):
@@ -57,18 +58,10 @@ class ChebGeometry(NamedTuple):
     rate_valid: np.ndarray  # (Dc, Dc, Dc) bool (octahedron & clip)
 
 
-@lru_cache(maxsize=8)
-def build_cheb_geometry(N: int, max_q: int, r_cube: int = None) -> ChebGeometry:
-    """Build the cube-shell traversal tables.
-
-    ``max_q`` is the L1 octahedron bound (reference semantics,
-    raytracing.cu:101: sized so the Euclidean rate sphere R fits inside).
-    ``r_cube`` is the Chebyshev (L(inf)) half-extent of the swept box. In
-    the cube-shell formulation every cell that can receive a rate
-    (Euclidean dist <= R) has L(inf) <= R, and every stencil parent has
-    strictly smaller L(inf), so r_cube = ceil(R) suffices — ~(sqrt3)^3 x
-    less box volume than the octahedral bound. Defaults to max_q (the
-    conservative original behavior)."""
+def box_dims(N, max_q, r_cube=None):
+    """(lo, hi, c, Dc, r_max) of the swept box of ``build_cheb_geometry``:
+    the offsets of its first and last cells from the source, the source
+    index, the box side and the largest cube shell."""
     last_r = N // 2 - 1 + (N % 2)
     last_l = -(N // 2)
     rc = max_q if r_cube is None else int(r_cube)
@@ -81,7 +74,22 @@ def build_cheb_geometry(N: int, max_q: int, r_cube: int = None) -> ChebGeometry:
     Dc = -(-(hi - lo + 1) // 8) * 8
     if Dc - 1 - c > N:
         Dc = hi - lo + 1
-    r_max = min(max_q, max(c, hi))
+    return lo, hi, c, Dc, min(max_q, max(c, hi))
+
+
+@lru_cache(maxsize=8)
+def build_cheb_geometry(N: int, max_q: int, r_cube: int = None) -> ChebGeometry:
+    """Build the cube-shell traversal tables.
+
+    ``max_q`` is the L1 octahedron bound (reference semantics,
+    raytracing.cu:101: sized so the Euclidean rate sphere R fits inside).
+    ``r_cube`` is the Chebyshev (L(inf)) half-extent of the swept box. In
+    the cube-shell formulation every cell that can receive a rate
+    (Euclidean dist <= R) has L(inf) <= R, and every stencil parent has
+    strictly smaller L(inf), so r_cube = ceil(R) suffices — ~(sqrt3)^3 x
+    less box volume than the octahedral bound. Defaults to max_q (the
+    conservative original behavior)."""
+    lo, hi, c, Dc, r_max = box_dims(N, max_q, r_cube)
 
     ab = np.arange(Dc, dtype=np.int64) - c
     A = np.broadcast_to(ab[:, None], (Dc, Dc)).ravel()
@@ -141,3 +149,19 @@ def build_cheb_geometry(N: int, max_q: int, r_cube: int = None) -> ChebGeometry:
         N=N, max_q=max_q, Dc=Dc, c=c, r_max=r_max,
         sw=sw, path=path, diag=diag, mask_p=mask_p, mask_m=mask_m,
         path3=path3, dist2=dist2, rate_valid=rate_valid)
+
+
+def pack_rates_tables(g, R2, dtype=np.float32):
+    """Per-box-plane tables of the fused rate passes: (Dc, 2, Dc, Dc) with
+    channels (dist2, valid). valid excludes the source cell (its rate has
+    a closed form, applied by the caller) and applies the octahedron/clip
+    mask and the Euclidean R_max_LLS cutoff (raytracing.f90:474), as the
+    unfused rate pass masks. A copy of the JAX package's function of the
+    same name."""
+    Dc, c = g.Dc, g.c
+    out = np.zeros((Dc, 2, Dc, Dc), dtype=dtype)
+    valid = np.asarray(g.rate_valid) & (np.asarray(g.dist2) <= R2)
+    valid[c, c, c] = False
+    out[:, 0] = g.dist2
+    out[:, 1] = valid
+    return out

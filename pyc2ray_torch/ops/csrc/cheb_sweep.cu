@@ -1,255 +1,229 @@
-// Chebyshev-face column-density sweep for NVIDIA Hopper (sm_90a).
+// Chebyshev-face column-density sweep for NVIDIA Hopper (sm_90a): three
+// entry points over the sweep of cheb_sweep.cuh. Plain versions:
+// pyc2ray_torch/ops/sweep.py.
 //
-// Replaces pyc2ray_tpu/ops/pallas_sweep.py::cheb_sweep_pallas (K1; body
-// _kernel, _shell_update, _face_update), followed by the stack-to-box fold
-// of raytrace_cheb.py::_fold_stacks_packed. Plain version:
-// pyc2ray_torch/ops/sweep.py::cheb_sweep_ref.
-//
-// What it computes, per source b of a batch: a loop over cube shells
-// r = 1..R1-1, each with three face sub-steps x -> y -> z. A face cell
-// (sign s, plane coordinates a, b) reads four cells of its stencil plane P
-// (the plane at distance r-1, stitched from the other faces' planes):
-//   cdin = diag * sum_i w_i P_i / sum_i w_i,  w_i = s_i / max(0.6, P_i sig)
-//   out  = mask ? cdin + nHI * path * dr : 0
-// and the masked value is written straight into the cartesian box
-// (x face -> box[c-+r, a, b], y -> box[a, c-+r, b], z -> box[a, b, c-+r]).
-// Face memberships are disjoint, so this equals the fold of the face
-// stacks exactly; the source cell gets nHI_c * dr / 2.
+// K1   cheb_sweep_f32/f64 replaces pyc2ray_tpu/ops/pallas_sweep.py::
+//      cheb_sweep_pallas with bins=None (body _kernel, _shell_update,
+//      _face_update), followed by the stack-to-box fold of
+//      raytrace_cheb.py::_fold_stacks_packed. It writes the coldensh_out
+//      box; the source cell gets nHI_c * dr / 2.
+// K1f  cheb_sweep_gamma_f32/f64 replaces the same kernel with static bins
+//      (_kernel's fused rate pass, fuse_rates=True). It writes, in place
+//      of the cd, the flux-less Gamma of every valid face cell
+//        S*/(dr^3 4 pi d2 path max(nHI, tiny)) sum_e w_e e^{-tau_in s_e}
+//        (-expm1(-dtau s_e)),  masked by d2 <= R^2 and cdin <= 2e30,
+//      with d2 the cell's true squared distance (the dist2 channel of the
+//      rates table at its cartesian position) and the source cell 0. The
+//      planes still carry the cd. Two faults of the TPU kernel are not
+//      copied: it divides by nHI without a floor (0/0 at a zero-density
+//      cell), and its d2 comes from the plane min(c+r, Dc-1) for both
+//      signs, which is wrong for the minus face of a clipped box.
+// K2   cheb_sweep_seg_f32/f64 replaces cheb_sweep_seg_pallas (_kernel_seg):
+//      shells r0 .. r1-1 from the carried planes of shell r0-1, storing
+//      their face cells into a box the caller zeroed once, and handing the
+//      last shell's planes back. It is K1's loop with a shell range and an
+//      in/out plane buffer; the TPU segment stacks and their fold have no
+//      counterpart, since the kernel stores the cartesian box directly.
 //
 // Design. The TPU kernel's lane packing, rolls and masked-select stitches
-// are register devices of that machine and are not copied: here a thread
-// computes the stitched stencil value of any plane cell by a direct
-// lookup in the r-1 planes (and the same shell's x/y planes), with the
-// stitch precedence of the reference written as an if-chain. One block per
-// source (the two signs of a face are coupled by the stitches, so they
-// share a block); the block's threads sweep the 2*Dc*Dc cells of one face
-// pair, then __syncthreads() before the next sub-step, which reads them.
-// The X/Y/Z planes of shells r-1 and r live in a per-block global scratch
-// buffer (ping-pong by shell parity; 12 planes, 196 KB in f32 at Dc = 64),
-// small enough to stay in the 50 MB L2.
+// are register devices of that machine and are not copied: a thread
+// computes the stitched stencil value of any plane cell by a direct lookup
+// in the r-1 planes (and the same shell's x/y planes), with the stitch
+// precedence of the reference written as an if-chain. One block per source
+// (the two signs of a face are coupled by the stitches, so they share a
+// block); the block's threads sweep the 2*Dc*Dc cells of one face pair,
+// then __syncthreads() before the next sub-step, which reads them. The
+// planes of shells r-1 and r live in a per-block global scratch (12
+// planes, 196 KB in f32 at Dc = 64), small enough to stay in the 50 MB L2.
+// K1f keeps the spectral bins in shared memory, loaded once per block.
 //
-// Bound. The function reads the nHI box and the geometry tables once and
-// writes the cd box once: at B = 8, Dc = 64, R1 = 31 in f32 that is
-// 8 MB + 8 MB + ~10 MB, about 8 us at 3.35 TB/s; its arithmetic (~30
-// flops per face cell) is below that. This kernel is far from the bound:
-// its 3 (R1 - 1) dependent sub-steps run on only B blocks of 132 SMs, and
-// each sub-step is L2-latency-bound. Shared-memory planes, several blocks
-// per source and fusing the rate pass are the next steps.
-//
-// Arithmetic uses the explicitly rounded intrinsics (no FMA contraction),
-// so every operation rounds as in the plain version.
+// Bound. Each reads the nHI box and the geometry tables once and writes
+// one box: at B = 8, Dc = 64, R1 = 31 in f32, 8 MB + 10 MB + 8 MB, about
+// 8 us at 3.35 TB/s. K1's arithmetic (~27 flops per face cell) is below
+// that; K1f adds 2 transcendentals and ~5 flops per bin and valid cell,
+// which bounds it by operations at 14 bins. The kernels are far from the
+// bound: 3 (R1 - 1) dependent sub-steps run on only B blocks of 132 SMs,
+// and each sub-step is L2-latency-bound. Shared-memory planes and several
+// blocks per source are the next steps.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cheb_sweep.cuh"
 
 namespace {
 
-template <typename T> struct Arith;
+using namespace cheb;
 
-template <> struct Arith<float> {
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+// K1 and K2: keep the cd of a valid face cell.
+template <typename T>
+struct StoreCd {
+  T* box;
+  __device__ void operator()(const FaceCell<T>& f) const { box[f.o] = f.out; }
 };
 
-template <> struct Arith<double> {
-  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-};
-
-// max(lim, x) with NaN in x propagated, as torch.maximum does.
+// K1f: keep the flux-less Gamma of a valid face cell.
 template <typename T>
-__device__ __forceinline__ T max_lim(T lim, T x) { return x < lim ? lim : x; }
-
-// Per-shell constants shared by the three sub-steps.
-struct Shell {
-  int r, c, Dc, alo, ahi;
-  bool ok_lo, ok_hi;
-  __device__ int pos(int s) const { return s ? ahi : alo; }
-};
-
-// Stencil planes of the x faces: X[r-1]; rows j = alo/ahi from Y[r-1];
-// cols k = alo/ahi from Z[r-1] (later writes of the reference win).
-template <typename T>
-__device__ __forceinline__ T stencil_x(const Shell& S, const T* Xp, const T* Yp,
-                                       const T* Zp, int s, int a, int b) {
-  const int D = S.Dc, D2 = D * D;
-  if (b == S.ahi) return Zp[1 * D2 + S.pos(s) * D + a];
-  if (b == S.alo) return Zp[0 * D2 + S.pos(s) * D + a];
-  if (a == S.ahi) return Yp[1 * D2 + S.pos(s) * D + b];
-  if (a == S.alo) return Yp[0 * D2 + S.pos(s) * D + b];
-  return Xp[s * D2 + a * D + b];
-}
-
-// y faces: Y[r-1]; cols k = alo/ahi from Z[r-1]; rows i = c-+r from X[r].
-template <typename T>
-__device__ __forceinline__ T stencil_y(const Shell& S, const T* Yp, const T* Zp,
-                                       const T* Xn, int s, int a, int b) {
-  const int D = S.Dc, D2 = D * D;
-  if (S.ok_hi && a == S.c + S.r) return Xn[1 * D2 + S.pos(s) * D + b];
-  if (S.ok_lo && a == S.c - S.r) return Xn[0 * D2 + S.pos(s) * D + b];
-  if (b == S.ahi) return Zp[1 * D2 + a * D + S.pos(s)];
-  if (b == S.alo) return Zp[0 * D2 + a * D + S.pos(s)];
-  return Yp[s * D2 + a * D + b];
-}
-
-// z faces: Z[r-1]; rows i = c-+r from X[r]; cols j = c-+r from Y[r].
-template <typename T>
-__device__ __forceinline__ T stencil_z(const Shell& S, const T* Zp, const T* Xn,
-                                       const T* Yn, int s, int a, int b) {
-  const int D = S.Dc, D2 = D * D;
-  if (S.ok_hi && b == S.c + S.r) return Yn[1 * D2 + a * D + S.pos(s)];
-  if (S.ok_lo && b == S.c - S.r) return Yn[0 * D2 + a * D + S.pos(s)];
-  if (S.ok_hi && a == S.c + S.r) return Xn[1 * D2 + b * D + S.pos(s)];
-  if (S.ok_lo && a == S.c - S.r) return Xn[0 * D2 + b * D + S.pos(s)];
-  return Zp[s * D2 + a * D + b];
-}
-
-// One face pair of shell r: face f (0 = x, 1 = y, 2 = z). Writes the new
-// (masked) plane to `out` and the valid cells into the box.
-template <typename T, int F>
-__device__ void face_step(const Shell& S, const T* __restrict__ nhi,
-                          const T* __restrict__ sw, const T* __restrict__ path,
-                          const T* __restrict__ diag,
-                          const uint8_t* __restrict__ mask_m,
-                          const uint8_t* __restrict__ mask_p,
-                          const T* P0, const T* P1, const T* P2, T* out,
-                          T* box, int R1, T dr, T sig) {
-  using A = Arith<T>;
-  const int D = S.Dc, D2 = D * D;
-  const T lim = T(0.6);
-  const int lo = max(S.c - S.r, 0), hi = min(S.c + S.r, D - 1);
-  const size_t g = (size_t(F) * R1 + S.r) * D2;       // (f, r) plane offset
-  const size_t gs = size_t(R1) * D2;                   // stride of sw's k
-  for (int idx = threadIdx.x; idx < 2 * D2; idx += blockDim.x) {
-    const int s = idx / D2, a = (idx / D) % D, b = idx % D;
-    const int a1 = a >= S.c ? max(a - 1, 0) : min(a + 1, D - 1);
-    const int b1 = b >= S.c ? max(b - 1, 0) : min(b + 1, D - 1);
-    T P, Pa, Pb, Pab;
-    if (F == 0) {
-      P = stencil_x(S, P0, P1, P2, s, a, b);
-      Pa = stencil_x(S, P0, P1, P2, s, a1, b);
-      Pb = stencil_x(S, P0, P1, P2, s, a, b1);
-      Pab = stencil_x(S, P0, P1, P2, s, a1, b1);
-    } else if (F == 1) {
-      P = stencil_y(S, P0, P1, P2, s, a, b);
-      Pa = stencil_y(S, P0, P1, P2, s, a1, b);
-      Pb = stencil_y(S, P0, P1, P2, s, a, b1);
-      Pab = stencil_y(S, P0, P1, P2, s, a1, b1);
-    } else {
-      P = stencil_z(S, P0, P1, P2, s, a, b);
-      Pa = stencil_z(S, P0, P1, P2, s, a1, b);
-      Pb = stencil_z(S, P0, P1, P2, s, a, b1);
-      Pab = stencil_z(S, P0, P1, P2, s, a1, b1);
+struct StoreGamma {
+  T* box;
+  const T* rt;          // (Dc, 2, Dc, Dc): dist2, valid
+  const T* bins;        // shared memory: s[E], w[E]
+  int E, Dc;
+  T R2, sdr3;           // R^2; S* / dr^3
+  T sig;
+  __device__ void operator()(const FaceCell<T>& f) const {
+    using A = Arith<T>;
+    const size_t D2 = size_t(Dc) * Dc;
+    const T d2 = rt[f.o + (f.o / D2) * D2];            // channel 0 of plane i
+    T g = T(0);
+    if (d2 <= R2 && f.cdin <= T(kMaxColdensH)) {
+      const T acc = bin_sum(A::mul(f.cdin, sig), A::mul(f.dcol, sig), bins, E);
+      const T pref = A::div(sdr3, A::mul(A::mul(d2, f.path), T(kFourPi)));
+      g = A::div(A::mul(pref, acc), max_lim(Arith<T>::tiny, f.nhi));
     }
-    const size_t ab = size_t(a) * D + b;
-    const size_t gk = size_t(F) * 4 * gs + size_t(S.r) * D2 + ab;
-    const T w1 = A::div(sw[gk + 0 * gs], max_lim(lim, A::mul(Pab, sig)));
-    const T w2 = A::div(sw[gk + 1 * gs], max_lim(lim, A::mul(Pb, sig)));
-    const T w3 = A::div(sw[gk + 2 * gs], max_lim(lim, A::mul(Pa, sig)));
-    const T w4 = A::div(sw[gk + 3 * gs], max_lim(lim, A::mul(P, sig)));
-    T num = A::add(A::add(A::add(A::mul(Pab, w1), A::mul(Pb, w2)),
-                          A::mul(Pa, w3)), A::mul(P, w4));
-    T den = A::add(A::add(A::add(w1, w2), w3), w4);
-    const T cdin = A::div(A::mul(diag[g + ab], num), den);
-    const int plane = s ? hi : lo;                     // clamped nHI plane
-    T n;
-    if (F == 0) n = nhi[size_t(plane) * D2 + ab];
-    else if (F == 1) n = nhi[size_t(a) * D2 + size_t(plane) * D + b];
-    else n = nhi[size_t(a) * D2 + size_t(b) * D + plane];
-    const bool m = (s ? mask_p : mask_m)[g + ab] != 0;
-    const T v = m ? A::add(cdin, A::mul(n, A::mul(path[g + ab], dr))) : T(0);
-    out[idx] = v;
-    if (m) {                      // valid cells lie inside the box
-      const int q = s ? S.c + S.r : S.c - S.r;
-      size_t o;
-      if (F == 0) o = size_t(q) * D2 + ab;
-      else if (F == 1) o = size_t(a) * D2 + size_t(q) * D + b;
-      else o = size_t(a) * D2 + size_t(b) * D + q;
-      box[o] = v;
-    }
+    box[f.o] = g;
   }
-}
+};
 
 template <typename T>
-__global__ void cheb_sweep_kernel(const T* __restrict__ nhi_all,
-                                  const T* __restrict__ sw,
-                                  const T* __restrict__ path,
-                                  const T* __restrict__ diag,
-                                  const uint8_t* __restrict__ mask_m,
-                                  const uint8_t* __restrict__ mask_p,
-                                  T* box_all, T* scratch_all,
-                                  int Dc, int c, int R1, T dr, T sig) {
-  using A = Arith<T>;
-  const size_t D2 = size_t(Dc) * Dc, D3 = D2 * Dc;
+__global__ void cheb_sweep_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
+                                  T* box_all, T* scratch_all) {
+  const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
   const T* nhi = nhi_all + blockIdx.x * D3;
   T* box = box_all + blockIdx.x * D3;
-  T* sc = scratch_all + blockIdx.x * 12 * D2;   // [parity][face][sign][a][b]
-  const T src_cd = A::mul(nhi[c * D2 + size_t(c) * Dc + c], A::mul(T(0.5), dr));
-
-  for (size_t i = threadIdx.x; i < D3; i += blockDim.x) box[i] = T(0);
-  for (size_t i = threadIdx.x; i < 6 * D2; i += blockDim.x) sc[i] = T(0);
-  __syncthreads();
-  for (int p = threadIdx.x; p < 6; p += blockDim.x)   // face x sign
-    sc[p * D2 + size_t(c) * Dc + c] = src_cd;
-  __syncthreads();
-
-  for (int r = 1; r < R1; ++r) {
-    Shell S;
-    S.r = r; S.c = c; S.Dc = Dc;
-    S.alo = c - r + 1; S.ahi = c + r - 1;
-    S.ok_lo = c - r >= 0; S.ok_hi = c + r <= Dc - 1;
-    const T* prev = sc + ((r - 1) & 1) * 6 * D2;
-    T* cur = sc + (r & 1) * 6 * D2;
-    const T *Xp = prev, *Yp = prev + 2 * D2, *Zp = prev + 4 * D2;
-    T *Xn = cur, *Yn = cur + 2 * D2, *Zn = cur + 4 * D2;
-    face_step<T, 0>(S, nhi, sw, path, diag, mask_m, mask_p, Xp, Yp, Zp, Xn,
-                    box, R1, dr, sig);
-    __syncthreads();
-    face_step<T, 1>(S, nhi, sw, path, diag, mask_m, mask_p, Yp, Zp, Xn, Yn,
-                    box, R1, dr, sig);
-    __syncthreads();
-    face_step<T, 2>(S, nhi, sw, path, diag, mask_m, mask_p, Zp, Xn, Yn, Zn,
-                    box, R1, dr, sig);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) box[c * D2 + size_t(c) * Dc + c] = src_cd;
+  T* sc = scratch_all + blockIdx.x * 12 * D2;
+  const T src_cd = source_cd(tb, nhi);
+  fill_zero(box, D3);
+  init_planes(tb, sc, src_cd);
+  sweep_shells(tb, nhi, sc, 1, tb.R1, StoreCd<T>{box});
+  if (threadIdx.x == 0) box[(size_t(tb.c) * tb.Dc + tb.c) * tb.Dc + tb.c] = src_cd;
 }
 
 template <typename T>
-int launch(const void* nhi, const void* sw, const void* path, const void* diag,
-           const void* mask_m, const void* mask_p, void* box, void* scratch,
-           int B, int Dc, int c, int R1, double dr, double sig, int threads,
-           void* stream) {
-  cheb_sweep_kernel<T><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(nhi), static_cast<const T*>(sw),
-      static_cast<const T*>(path), static_cast<const T*>(diag),
-      static_cast<const uint8_t*>(mask_m), static_cast<const uint8_t*>(mask_p),
-      static_cast<T*>(box), static_cast<T*>(scratch), Dc, c, R1,
-      static_cast<T>(dr), static_cast<T>(sig));
-  return static_cast<int>(cudaGetLastError());
+__global__ void cheb_sweep_gamma_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
+                                        const T* __restrict__ rt,
+                                        const T* __restrict__ bins_s,
+                                        const T* __restrict__ bins_w, int E,
+                                        T R2, T sdr3, T* box_all, T* scratch_all) {
+  const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
+  const T* nhi = nhi_all + blockIdx.x * D3;
+  T* box = box_all + blockIdx.x * D3;
+  T* sc = scratch_all + blockIdx.x * 12 * D2;
+  T* bins = shared_bins<T>();
+  load_bins(bins_s, bins_w, E, bins);
+  fill_zero(box, D3);                 // the source cell stays 0
+  init_planes(tb, sc, source_cd(tb, nhi));
+  sweep_shells(tb, nhi, sc, 1, tb.R1,
+               StoreGamma<T>{box, rt, bins, E, tb.Dc, R2, sdr3, tb.sig});
+}
+
+template <typename T>
+__global__ void cheb_sweep_seg_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
+                                      const T* __restrict__ planes_in,
+                                      T* planes_out, int r0, int r1,
+                                      T* box_all, T* scratch_all) {
+  const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
+  const T* nhi = nhi_all + blockIdx.x * D3;
+  T* box = box_all + blockIdx.x * D3;
+  T* sc = scratch_all + blockIdx.x * 12 * D2;
+  const T* pin = planes_in + blockIdx.x * 6 * D2;
+  T* pout = planes_out + blockIdx.x * 6 * D2;
+  T* carry = sc + ((r0 - 1) & 1) * 6 * D2;
+  for (size_t i = threadIdx.x; i < 6 * D2; i += blockDim.x) carry[i] = pin[i];
+  __syncthreads();
+  sweep_shells(tb, nhi, sc, r0, r1, StoreCd<T>{box});
+  const T* last = sc + ((max(r1, r0) - 1) & 1) * 6 * D2;
+  for (size_t i = threadIdx.x; i < 6 * D2; i += blockDim.x) pout[i] = last[i];
+}
+
+template <typename T>
+Tables<T> tables(const void* sw, const void* path, const void* diag,
+                 const void* mask_m, const void* mask_p, int Dc, int c, int R1,
+                 double dr, double sig) {
+  return Tables<T>{static_cast<const T*>(sw), static_cast<const T*>(path),
+                   static_cast<const T*>(diag),
+                   static_cast<const uint8_t*>(mask_m),
+                   static_cast<const uint8_t*>(mask_p), Dc, c, R1,
+                   static_cast<T>(dr), static_cast<T>(sig)};
 }
 
 }  // namespace
 
+#define CHEB_TABLES_ARGS                                                      \
+  const void *nhi, const void *sw, const void *path, const void *diag,      \
+      const void *mask_m, const void *mask_p
+
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() after the launch.
-int cheb_sweep_f32(const void* nhi, const void* sw, const void* path,
-                   const void* diag, const void* mask_m, const void* mask_p,
-                   void* box, void* scratch, int B, int Dc, int c, int R1,
-                   double dr, double sig, int threads, void* stream) {
-  return launch<float>(nhi, sw, path, diag, mask_m, mask_p, box, scratch, B,
-                       Dc, c, R1, dr, sig, threads, stream);
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// after the launch.
+
+int cheb_sweep_f32(CHEB_TABLES_ARGS, void* box, void* scratch, int B, int Dc,
+                   int c, int R1, double dr, double sig, int threads,
+                   void* stream) {
+  cheb_sweep_kernel<float><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tables<float>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
+      static_cast<const float*>(nhi), static_cast<float*>(box),
+      static_cast<float*>(scratch));
+  return static_cast<int>(cudaGetLastError());
 }
 
-int cheb_sweep_f64(const void* nhi, const void* sw, const void* path,
-                   const void* diag, const void* mask_m, const void* mask_p,
-                   void* box, void* scratch, int B, int Dc, int c, int R1,
-                   double dr, double sig, int threads, void* stream) {
-  return launch<double>(nhi, sw, path, diag, mask_m, mask_p, box, scratch, B,
-                        Dc, c, R1, dr, sig, threads, stream);
+int cheb_sweep_f64(CHEB_TABLES_ARGS, void* box, void* scratch, int B, int Dc,
+                   int c, int R1, double dr, double sig, int threads,
+                   void* stream) {
+  cheb_sweep_kernel<double><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tables<double>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
+      static_cast<const double*>(nhi), static_cast<double*>(box),
+      static_cast<double*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cheb_sweep_gamma_f32(CHEB_TABLES_ARGS, const void* rt, const void* bins_s,
+                         const void* bins_w, void* box, void* scratch, int B,
+                         int Dc, int c, int R1, int E, double dr, double sig,
+                         double R2, double sdr3, int threads, void* stream) {
+  cheb_sweep_gamma_kernel<float>
+      <<<B, threads, 2 * E * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+          tables<float>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
+          static_cast<const float*>(nhi), static_cast<const float*>(rt),
+          static_cast<const float*>(bins_s), static_cast<const float*>(bins_w),
+          E, static_cast<float>(R2), static_cast<float>(sdr3),
+          static_cast<float*>(box), static_cast<float*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cheb_sweep_gamma_f64(CHEB_TABLES_ARGS, const void* rt, const void* bins_s,
+                         const void* bins_w, void* box, void* scratch, int B,
+                         int Dc, int c, int R1, int E, double dr, double sig,
+                         double R2, double sdr3, int threads, void* stream) {
+  cheb_sweep_gamma_kernel<double>
+      <<<B, threads, 2 * E * sizeof(double), static_cast<cudaStream_t>(stream)>>>(
+          tables<double>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
+          static_cast<const double*>(nhi), static_cast<const double*>(rt),
+          static_cast<const double*>(bins_s), static_cast<const double*>(bins_w),
+          E, R2, sdr3, static_cast<double*>(box), static_cast<double*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cheb_sweep_seg_f32(CHEB_TABLES_ARGS, const void* planes_in,
+                       void* planes_out, void* box, void* scratch, int B,
+                       int Dc, int c, int R1, int r0, int r1, double dr,
+                       double sig, int threads, void* stream) {
+  cheb_sweep_seg_kernel<float><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tables<float>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
+      static_cast<const float*>(nhi), static_cast<const float*>(planes_in),
+      static_cast<float*>(planes_out), r0, r1, static_cast<float*>(box),
+      static_cast<float*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cheb_sweep_seg_f64(CHEB_TABLES_ARGS, const void* planes_in,
+                       void* planes_out, void* box, void* scratch, int B,
+                       int Dc, int c, int R1, int r0, int r1, double dr,
+                       double sig, int threads, void* stream) {
+  cheb_sweep_seg_kernel<double><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tables<double>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
+      static_cast<const double*>(nhi), static_cast<const double*>(planes_in),
+      static_cast<double*>(planes_out), r0, r1, static_cast<double*>(box),
+      static_cast<double*>(scratch));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* cheb_sweep_error_string(int err) {

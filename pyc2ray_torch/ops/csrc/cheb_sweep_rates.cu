@@ -1,0 +1,160 @@
+// Fused Chebyshev-face sweep + box assembly + spectral-bin rates for NVIDIA
+// Hopper (sm_90a).
+//
+// Replaces pyc2ray_tpu/ops/pallas_sweep.py::cheb_sweep_rates_pallas (K3;
+// body _kernel_fold_rates) without its heating output. Plain version:
+// pyc2ray_torch/ops/sweep.py::cheb_sweep_rates_ref.
+//
+// Phase A is K1's sweep (cheb_sweep.cuh): the cdin and the dcol of every
+// valid face cell are stored at the cell's cartesian position in two
+// scratch boxes (face memberships are disjoint, so these are stores, not
+// the TPU kernel's read-modify-write adds). Phase B evaluates, per box cell,
+//   phi = flux S* dr / (dr^3 4 pi d2) sum_e w_e e^{-tau_in s_e}
+//         (-expm1(-dtau s_e)) / max(dcol, tiny),
+// masked by the rates table's valid channel (octahedron, clip, R^2 cut,
+// source cell excluded) and cdin <= 2e30. The source cell is 0; the caller
+// sets its closed form. The TPU kernel divides by dcol without a floor
+// (0/0 at a zero-density cell); here dcol is floored at the type's
+// smallest normal, as the unfused rate pass floors nHI.
+//
+// Design. Phase B of a source depends only on its own box, and one block
+// per source would leave 124 of the 132 SMs idle during the arithmetic of
+// E bins x 2 transcendentals per cell. So phase B is a second __global__
+// on the same stream over a grid of B x Dc box planes; the stream order
+// makes phase A's stores visible to it. Phase B reads a scratch cell only
+// where the valid channel is set: every such cell is a valid face cell of
+// exactly one shell, so the scratch boxes need no zeroing. The bins sit in
+// shared memory, loaded once per block; exp/expm1 are the accurate expf /
+// expm1f, not the fast __expf.
+//
+// Bound. The function reads the nHI box, the geometry tables and the rates
+// table once and writes the phi box once (B = 8, Dc = 64, R1 = 31, f32:
+// 8 + 10 + 2 + 8 MB, about 8.5 us at 3.35 TB/s); its arithmetic is the
+// sweep's ~27 flops per face cell plus ~7 operations per bin and valid
+// cell. Phase A carries K1's latency bound (3 (R1 - 1) dependent
+// sub-steps on B blocks); phase B is a dense pass over the card.
+
+#include "cheb_sweep.cuh"
+
+namespace {
+
+using namespace cheb;
+
+// Phase A: keep cdin and dcol of a valid face cell.
+template <typename T>
+struct StoreFold {
+  T* ci;
+  T* dc;
+  __device__ void operator()(const FaceCell<T>& f) const {
+    ci[f.o] = f.cdin;
+    dc[f.o] = f.dcol;
+  }
+};
+
+template <typename T>
+__global__ void sweep_fold_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
+                                  T* ci_all, T* dc_all, T* scratch_all) {
+  const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
+  const T* nhi = nhi_all + blockIdx.x * D3;
+  T* sc = scratch_all + blockIdx.x * 12 * D2;
+  init_planes(tb, sc, source_cd(tb, nhi));
+  sweep_shells(tb, nhi, sc, 1, tb.R1,
+               StoreFold<T>{ci_all + blockIdx.x * D3, dc_all + blockIdx.x * D3});
+}
+
+// Phase B: block (b, i) evaluates plane i of source b's box.
+template <typename T>
+__global__ void box_rates_kernel(const T* __restrict__ ci_all,
+                                 const T* __restrict__ dc_all,
+                                 const T* __restrict__ rt,
+                                 const T* __restrict__ flux,
+                                 const T* __restrict__ bins_s,
+                                 const T* __restrict__ bins_w, int E, int Dc,
+                                 T sig, T s_fac, T* phi_all) {
+  using A = Arith<T>;
+  const int b = blockIdx.x / Dc, i = blockIdx.x % Dc;
+  const size_t D2 = size_t(Dc) * Dc;
+  const size_t plane = (size_t(b) * Dc + i) * D2;        // (b, i) in a box
+  const T* d2_tab = rt + size_t(i) * 2 * D2;             // channel 0
+  const T* valid = d2_tab + D2;                          // channel 1
+  T* bins = shared_bins<T>();
+  load_bins(bins_s, bins_w, E, bins);
+  const T fs = A::mul(flux[b], s_fac);
+  for (size_t jk = threadIdx.x; jk < D2; jk += blockDim.x) {
+    T phi = T(0);
+    if (valid[jk] > T(0.5)) {
+      const T cdin = ci_all[plane + jk];
+      const T dcol = dc_all[plane + jk];
+      if (cdin <= T(kMaxColdensH)) {
+        const T acc = bin_sum(A::mul(cdin, sig), A::mul(dcol, sig), bins, E);
+        const T pref = A::div(fs, A::mul(d2_tab[jk], T(kFourPi)));
+        phi = A::div(A::mul(pref, acc), max_lim(Arith<T>::tiny, dcol));
+      }
+    }
+    phi_all[plane + jk] = phi;
+  }
+}
+
+template <typename T>
+int launch(const void* nhi, const void* sw, const void* path, const void* diag,
+           const void* mask_m, const void* mask_p, const void* rt,
+           const void* bins_s, const void* bins_w, const void* flux, void* phi,
+           void* ci, void* dc, void* scratch, int B, int Dc, int c, int R1,
+           int E, double dr, double sig, double s_fac, int threads_a,
+           int threads_b, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Tables<T> tb{static_cast<const T*>(sw), static_cast<const T*>(path),
+                     static_cast<const T*>(diag),
+                     static_cast<const uint8_t*>(mask_m),
+                     static_cast<const uint8_t*>(mask_p), Dc, c, R1,
+                     static_cast<T>(dr), static_cast<T>(sig)};
+  sweep_fold_kernel<T><<<B, threads_a, 0, st>>>(
+      tb, static_cast<const T*>(nhi), static_cast<T*>(ci), static_cast<T*>(dc),
+      static_cast<T*>(scratch));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  box_rates_kernel<T><<<B * Dc, threads_b, 2 * E * sizeof(T), st>>>(
+      static_cast<const T*>(ci), static_cast<const T*>(dc),
+      static_cast<const T*>(rt), static_cast<const T*>(flux),
+      static_cast<const T*>(bins_s), static_cast<const T*>(bins_w), E, Dc,
+      static_cast<T>(sig), static_cast<T>(s_fac), static_cast<T*>(phi));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches phase A then phase B on `stream`; returns the first
+// cudaGetLastError() that is not cudaSuccess, else cudaSuccess.
+int cheb_sweep_rates_f32(const void* nhi, const void* sw, const void* path,
+                         const void* diag, const void* mask_m,
+                         const void* mask_p, const void* rt,
+                         const void* bins_s, const void* bins_w,
+                         const void* flux, void* phi, void* ci, void* dc,
+                         void* scratch, int B, int Dc, int c, int R1, int E,
+                         double dr, double sig, double s_fac, int threads_a,
+                         int threads_b, void* stream) {
+  return launch<float>(nhi, sw, path, diag, mask_m, mask_p, rt, bins_s, bins_w,
+                       flux, phi, ci, dc, scratch, B, Dc, c, R1, E, dr, sig,
+                       s_fac, threads_a, threads_b, stream);
+}
+
+int cheb_sweep_rates_f64(const void* nhi, const void* sw, const void* path,
+                         const void* diag, const void* mask_m,
+                         const void* mask_p, const void* rt,
+                         const void* bins_s, const void* bins_w,
+                         const void* flux, void* phi, void* ci, void* dc,
+                         void* scratch, int B, int Dc, int c, int R1, int E,
+                         double dr, double sig, double s_fac, int threads_a,
+                         int threads_b, void* stream) {
+  return launch<double>(nhi, sw, path, diag, mask_m, mask_p, rt, bins_s, bins_w,
+                        flux, phi, ci, dc, scratch, B, Dc, c, R1, E, dr, sig,
+                        s_fac, threads_a, threads_b, stream);
+}
+
+const char* cheb_sweep_rates_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,16 +1,26 @@
 """Chebyshev-face raytracing engine, PyTorch port.
 
-Twin of pyc2ray_tpu/ops/raytrace_cheb.py::ChebRaytracer on its main path
-(per-source scan accumulate, no lane packing, no shell segmentation). Per
-batch of B sources:
+Twin of pyc2ray_tpu/ops/raytrace_cheb.py::ChebRaytracer with the Pallas
+sweep (per-source scan accumulate, no lane packing). Per batch of B
+sources:
 
   1. cut the (Dc, Dc, Dc) HI-density box of every source out of the
      wrap-padded grid (``_extract_boxes``);
-  2. sweep the cube shells to the coldensh_out box (``sweep.cheb_sweep``:
-     the CUDA kernel on the GPU, its plain version on the CPU);
-  3. evaluate the spectral-bin photoionization rates densely over the
-     central rates subbox (``_rates``);
-  4. add each source's rate box into the padded Gamma grid, source by
+  2. compute the rate box, by one of the JAX engine's four sweep modes
+     (each a CUDA kernel on the GPU and its plain version on the CPU, see
+     ops/sweep.py):
+       - default: sweep the cube shells to the coldensh_out box (K1,
+         ``sweep.cheb_sweep``), then evaluate the spectral-bin
+         photoionization rates densely over the central rates subbox
+         (``_rates``);
+       - ``shell_segment``: the same sweep as K segments of S shells with
+         carried planes (K2, ``_sweep_segmented``), then ``_rates``;
+       - ``fuse_rates``: the sweep evaluates the flux-less Gamma of every
+         face cell (K1f), times the flux, source cell by its closed form
+         (``_source_cell_rate``);
+       - ``fuse_fold``: sweep, box assembly and rates with the flux in one
+         kernel (K3), source cell by ``_source_cell_rate``;
+  3. add each source's rate box into the padded Gamma grid, source by
      source in batch order (the JAX engine's scan accumulate).
 
 After the last batch the padding is folded back onto the periodic grid
@@ -31,14 +41,49 @@ import torch
 from ..constants import S_STAR_REF, MAX_COLDENSH
 from ..device import resolve_device
 from ..radiation.spectral_bins import SpectralBins
-from .cheb_geometry import ChebGeometry, build_cheb_geometry
+from .cheb_geometry import (ChebGeometry, box_dims, build_cheb_geometry,
+                            pack_rates_tables)
 from .geometry import max_q_for
 from .raytrace import RaytraceConfig
-from .sweep import cheb_sweep
+from .sweep import cheb_sweep, cheb_sweep_rates, cheb_sweep_seg, init_planes
 
-__all__ = ["ChebRaytracer", "ChebTables"]
+__all__ = ["ChebRaytracer", "ChebTables", "shell_segmentation"]
 
 FOURPI = 12.566370614359172463991853874177
+
+
+def shell_segmentation(N, R_max_LLS, batch_size, dtype,
+                       shell_segment="auto", fused=False):
+    """(seg_S, seg_K): shells per segment and segments per batch of the
+    sweep, by the JAX engine's rule. "auto" segments when the JAX
+    kernel's face stacks, 3 B (r_max+1) Dc 2Dc words, would exceed
+    768 MB, at S shells per segment that keep a segment's stacks within
+    192 MB (at least 8); an int forces S; 0 disables; S >= r_max+1 turns
+    segmentation off. The port's sweep keeps two shells of planes, not
+    stacks, so on the card this rule is about parity, not memory: the
+    configuration that makes the JAX engine launch its segmented kernel
+    launches this port's (K2).
+
+    Unlike the JAX engine, "auto" resolves to 0 with a fused mode (there
+    it raises at large R); an explicit S with a fused mode raises, as
+    there."""
+    r_cube = int(np.ceil(min(float(R_max_LLS), float(N))))
+    _, _, _, Dc, r_max = box_dims(int(N), max_q_for(R_max_LLS, N), r_cube)
+    stack_bytes = (3 * batch_size * (r_max + 1) * Dc * 2 * Dc
+                   * (torch.finfo(dtype).bits // 8))
+    if shell_segment == "auto":
+        seg_S = 0
+        if not fused and stack_bytes > 768 * 1024 * 1024:
+            per_shell = stack_bytes // (r_max + 1)
+            seg_S = max(8, int((192 * 1024 * 1024) // per_shell))
+    else:
+        seg_S = int(shell_segment or 0)
+    if seg_S >= r_max + 1:
+        seg_S = 0
+    if seg_S and fused:
+        raise ValueError("shell segmentation does not compose with "
+                         "fuse_rates/fuse_fold")
+    return seg_S, (-(-r_max // seg_S) if seg_S else 0)
 
 
 class ChebTables(NamedTuple):
@@ -50,6 +95,8 @@ class ChebTables(NamedTuple):
     mask_m: torch.Tensor    # (3, R1, Dc, Dc) bool
     rt_sub: torch.Tensor    # (3, Ds, Ds, Ds) rates-subbox channels
                             # (path3, geominv, valid), see _build_rt_sub
+    rt_tab: torch.Tensor    # (Dc, 2, Dc, Dc) per-plane (dist2, valid) of
+                            # the fused modes (pack_rates_tables)
     bins_s: torch.Tensor    # (E,) spectral bins
     bins_w: torch.Tensor
     bins_wh: torch.Tensor
@@ -66,16 +113,28 @@ class ChebRaytracer:
     """Batched multi-source raytracer, Chebyshev-face formulation.
 
     Same ``trace`` contract as the JAX engine. ``device`` defaults to the
-    GPU; ``device="cpu"`` runs the plain PyTorch sweep."""
+    GPU; ``device="cpu"`` runs the plain PyTorch sweep. ``fuse_rates``,
+    ``fuse_fold`` and ``shell_segment`` select the sweep mode with the JAX
+    engine's names and defaults (see the module docstring); ``fuse_fold``
+    wins over ``fuse_rates``. The heating channel is not ported."""
 
     def __init__(self, N, R_max_LLS, sig, bins: SpectralBins,
-                 batch_size=8, dtype=torch.float32, device="cuda"):
+                 batch_size=8, dtype=torch.float32, device="cuda",
+                 do_heating=False, fuse_rates=False, fuse_fold=False,
+                 shell_segment="auto"):
+        if do_heating:
+            raise NotImplementedError(
+                "the heating channel (do_heating, with or without "
+                "fuse_rates/fuse_fold) is not ported yet: it arrives with "
+                "the heating/thermal slice of the port")
         self.N = int(N)
         self.R_max_LLS = float(R_max_LLS)
         self.sig = float(sig)
         self.batch_size = int(batch_size)
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.fuse_rates = bool(fuse_rates)
+        self.fuse_fold = bool(fuse_fold)
         self.config = RaytraceConfig(
             N=self.N, R_max_LLS=self.R_max_LLS, sig=self.sig,
             batch_size=self.batch_size, dtype=dtype,
@@ -100,6 +159,9 @@ class ChebRaytracer:
         self._rb0 = b0
         self._rb1 = b1
         self.Ds = b1 - b0
+        self.seg_S, self.seg_K = shell_segmentation(
+            self.N, self.R_max_LLS, self.batch_size, dtype, shell_segment,
+            fused=self.fuse_rates or self.fuse_fold)
         self.tables = ChebTables(
             sw=torch.from_numpy(g.sw),
             path=torch.from_numpy(g.path),
@@ -107,6 +169,8 @@ class ChebRaytracer:
             mask_p=torch.from_numpy(g.mask_p),
             mask_m=torch.from_numpy(g.mask_m),
             rt_sub=torch.from_numpy(self._build_rt_sub()),
+            rt_tab=torch.from_numpy(pack_rates_tables(
+                g, self.R_max_LLS ** 2, np.float64)),
             bins_s=torch.from_numpy(np.asarray(bins.s, np.float64)),
             bins_w=torch.from_numpy(np.asarray(bins.w_photo, np.float64)),
             bins_wh=torch.from_numpy(np.asarray(bins.w_heat, np.float64)),
@@ -191,6 +255,60 @@ class ChebRaytracer:
         return torch.where(mask, prefact * acc / nhi_safe,
                            torch.zeros_like(acc))
 
+    def _source_cell_rate(self, nhi_box, flux, dr):
+        """Gamma of the source cell itself (tau_in = 0, vol = dr^3;
+        raytracing.cu:285-294), with the nHI floor of ``_rates``. ``dr``
+        is a 0-dim tensor of the engine's dtype."""
+        c, tb = self.geom.c, self.tables
+        sig = torch.tensor(self.sig, dtype=self.dtype).to(self.device)
+        nhi_src = nhi_box[:, c, c, c]
+        dtau = nhi_src * (0.5 * dr) * sig
+        acc = torch.zeros_like(dtau)
+        for se, we in zip(tb.bins_s, tb.bins_w):
+            acc = acc + we * -torch.expm1(-dtau * se)
+        sdr3 = torch.exp(
+            torch.tensor(np.log(S_STAR_REF), dtype=self.dtype).to(self.device)
+            - 3.0 * torch.log(dr))
+        tiny = torch.finfo(self.dtype).tiny
+        return flux * sdr3 * acc / torch.clamp(nhi_src, min=tiny)
+
+    def _sweep_segmented(self, boxes, dr):
+        """The coldensh_out box by K segments of seg_S shells, each
+        starting from the previous segment's last planes, all storing into
+        one box; then the source cell."""
+        g, tb = self.geom, self.tables
+        planes = init_planes(boxes, g.c, dr)
+        src_cd = planes[:, 0, 0, g.c, g.c].clone()
+        box = torch.zeros_like(boxes)
+        for k in range(self.seg_K):
+            box, planes = cheb_sweep_seg(
+                boxes, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, dr,
+                g.c, self.sig, planes, 1 + k * self.seg_S, self.seg_S, box)
+        box[:, g.c, g.c, g.c] = src_cd
+        return box
+
+    def _batch_rates(self, boxes, flux, dr, dr_t):
+        """One batch's rate boxes by the engine's sweep mode: the (Dc)^3
+        box for the fused modes, else the (Ds)^3 rates subbox."""
+        g, tb = self.geom, self.tables
+        geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+        if self.fuse_fold:
+            phi = cheb_sweep_rates(boxes, *geo, tb.rt_tab, flux, dr, g.c,
+                                   self.sig, tb.bins_s, tb.bins_w)
+        elif self.fuse_rates:
+            phi = cheb_sweep(boxes, *geo, dr, g.c, self.sig,
+                             bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
+                             R2=self.R_max_LLS ** 2)
+            phi = phi * flux[:, None, None, None]
+        else:
+            if self.seg_S:
+                cd = self._sweep_segmented(boxes, dr)
+            else:
+                cd = cheb_sweep(boxes, *geo, dr, g.c, self.sig)
+            return self._rates(cd, boxes, flux, dr_t)
+        phi[:, g.c, g.c, g.c] = self._source_cell_rate(boxes, flux, dr_t)
+        return phi
+
     def _fold_padding(self, padded):
         """Fold the wrap padding of the extended grid back onto the
         periodic N^3 grid (low pad onto the top, high pad onto the bottom,
@@ -214,16 +332,13 @@ class ChebRaytracer:
     def trace_extended(self, nhi_pad, pos_b, flux_b, dr):
         """Batched sweep over the wrap-padded field; returns Gamma
         accumulated in the same extended frame."""
-        g = self.geom
-        tb = self.tables
         phi_pad = torch.zeros_like(nhi_pad)
-        D, shift = self.Ds, self._rb0
         dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
         for pos, flux in zip(pos_b, flux_b):
             boxes = self._extract_boxes(nhi_pad, pos.to(self.device))
-            cd = cheb_sweep(boxes, tb.sw, tb.path, tb.diag, tb.mask_m,
-                            tb.mask_p, dr, g.c, self.sig)
-            phi_box = self._rates(cd, boxes, flux, dr_t)
+            phi_box = self._batch_rates(boxes, flux, dr, dr_t)
+            D = phi_box.shape[-1]
+            shift = self._rb0 if D == self.Ds else 0
             for (p0, p1, p2), box in zip(pos.tolist(), phi_box):
                 p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
                 phi_pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box

@@ -1,38 +1,66 @@
-"""The Chebyshev-face column-density sweep: CUDA kernel and plain version.
+"""The Chebyshev-face sweep kernels and their plain versions.
 
-Counterpart of pyc2ray_tpu/ops/pallas_sweep.py::cheb_sweep_pallas (K1).
-For a batch of B sources, each with its (Dc, Dc, Dc) box of HI density
-centred at box index c, the sweep runs sequentially over the cube shells
+Counterparts of the TPU kernels of pyc2ray_tpu/ops/pallas_sweep.py. For a
+batch of B sources, each with its (Dc, Dc, Dc) box of HI density centred
+at box index c, the sweep runs sequentially over the cube shells
 r = 1..R1-1. Each shell updates its x faces, then its y faces, then its z
-faces; a face cell interpolates the incoming column density from four
+faces; a face cell interpolates the incoming column density cdin from four
 cells of the parallel plane at distance r-1 (with line stitches from the
-other faces, see ``cheb_sweep_ref``) and adds its own nHI * path * dr.
+other faces, see ``_sweep_shells``) and adds its own dcol = nHI * path * dr.
 
-The result is the cartesian box of outgoing column densities
-(coldensh_out) with the source cell set to nHI_c * dr / 2 — the box the JAX
-engine assembles from the kernel's face stacks in _fold_stacks_packed.
+  ``cheb_sweep``        K1: the cartesian box of outgoing column densities
+                        (coldensh_out), source cell nHI_c * dr / 2 — the box
+                        the JAX engine assembles from the kernel's face
+                        stacks in _fold_stacks_packed. With ``bins`` (K1f,
+                        fuse_rates) the box holds the flux-less Gamma of
+                        every face cell instead, source cell 0.
+  ``cheb_sweep_seg``    K2: shells r0 .. r0+S-1 from carried planes
+                        (shell_segment).
+  ``cheb_sweep_rates``  K3: sweep, box assembly and the spectral-bin rate
+                        pass with the flux, source cell 0 (fuse_fold).
 
-``cheb_sweep`` dispatches on the device of its input: a CPU tensor runs
-``cheb_sweep_ref``; a CUDA tensor launches the kernel of
-csrc/cheb_sweep.cu or raises. ``launches`` counts the kernel launches.
+Each wrapper dispatches on the device of its input: a CPU tensor runs the
+plain PyTorch version (``*_ref``); a CUDA tensor launches the kernel of
+csrc/ or raises. ``launches`` counts the kernel launches per kernel.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
-__all__ = ["cheb_sweep", "cheb_sweep_ref", "launches", "reset_launches"]
+from ..constants import MAX_COLDENSH, S_STAR_REF
+
+__all__ = ["cheb_sweep", "cheb_sweep_ref", "cheb_sweep_seg",
+           "cheb_sweep_seg_ref", "cheb_sweep_rates", "cheb_sweep_rates_ref",
+           "init_planes", "s_over_dr3", "launches", "reset_launches"]
 
 LIM = 0.6          # floor of the tau weighting (raytracing.f90 cinterp)
-THREADS = 512      # threads per block of the CUDA kernel
+FOURPI = 12.566370614359172463991853874177
+THREADS = 512      # threads per block of the sweep kernels
+THREADS_RATES = 256   # threads per block of K3's rate phase
 
-launches = 0
+# kernel name -> launches since the last reset_launches()
+launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
+            "cheb_sweep_seg": 0, "cheb_sweep_rates": 0}
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    for k in launches:
+        launches[k] = 0
 
+
+def s_over_dr3(dr, dtype):
+    """S* / dr^3 as a 0-dim CPU tensor of ``dtype``, computed as the rate
+    passes do (exp(log S* - 3 log dr))."""
+    dr = torch.as_tensor(dr, dtype=dtype)
+    return torch.exp(torch.tensor(np.log(S_STAR_REF), dtype=dtype)
+                     - 3.0 * torch.log(dr))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def _shift(P, dim, c):
     """One-cell shift toward the source along ``dim``: index a >= c reads
@@ -48,7 +76,8 @@ def _shift(P, dim, c):
 
 def _face_update(P, nhi, sw, path, diag, mask, dr, sig, c):
     """Interpolate the stencil planes P (B, 2, Dc, Dc) and advance one
-    face pair; sw is (4, Dc, Dc), path/diag (Dc, Dc), mask (2, Dc, Dc)."""
+    face pair; sw is (4, Dc, Dc), path/diag (Dc, Dc), mask (2, Dc, Dc).
+    Returns (cdin, dcol, out) with out = mask ? cdin + dcol : 0."""
     Pa = _shift(P, 2, c)
     Pb = _shift(P, 3, c)
     Pab = _shift(Pa, 3, c)
@@ -59,50 +88,61 @@ def _face_update(P, nhi, sw, path, diag, mask, dr, sig, c):
     w4 = sw[3] / torch.maximum(lim, P * sig)
     cdin = diag * (Pab * w1 + Pb * w2 + Pa * w3 + P * w4) \
         / (w1 + w2 + w3 + w4)
-    cdout = cdin + nhi * (path * dr)
-    return torch.where(mask, cdout, torch.zeros_like(cdout))
+    dcol = nhi * (path * dr)
+    return cdin, dcol, torch.where(mask, cdin + dcol, torch.zeros_like(cdin))
 
 
-def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig):
-    """Plain PyTorch sweep, twin of raytrace_cheb._sweep.
+def init_planes(nhi_box, c, dr):
+    """The planes of shell 0, (B, 3, 2, Dc, Dc) as (face, sign): zero, with
+    the source cell of every face and sign at nHI_c * dr / 2."""
+    B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
+    dr = torch.as_tensor(dr, dtype=nhi_box.dtype, device=nhi_box.device)
+    planes = torch.zeros((B, 3, 2, Dc, Dc), dtype=nhi_box.dtype,
+                         device=nhi_box.device)
+    planes[:, :, :, c, c] = (nhi_box[:, c, c, c] * (0.5 * dr))[:, None, None]
+    return planes
 
-    nhi_box: (B, Dc, Dc, Dc); sw: (3, 4, R1, Dc, Dc); path, diag: (3, R1,
-    Dc, Dc); mask_m, mask_p: (3, R1, Dc, Dc) bool (face cell valid on the
-    minus / plus face). Face planes are (B, 2, Dc, Dc) with the sign
-    (minus, plus) second and the two non-face axes in axis order: x faces
-    (j, k), y faces (i, k), z faces (i, j).
 
+def _put(box, f, r, c, plane):
+    """Add the face-pair plane (B, 2, Dc, Dc) of face f (0 = x, 1 = y,
+    2 = z), shell r, at its box planes c -+ r that lie inside the box. The
+    planes are masked and face memberships disjoint, so this is a store."""
+    Dc = box.shape[-1]
+    for s, q in ((0, c - r), (1, c + r)):
+        if 0 <= q < Dc:
+            box.select(f + 1, q).add_(plane[:, s])
+
+
+def _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr, sig, c,
+                  planes, r0, r1, emit):
+    """Shells r0 .. r1-1 of the sweep from ``planes``, the (B, 3, 2, Dc, Dc)
+    planes of shell r0-1. For each face pair calls
+    ``emit(f, r, mask, cdin, dcol, nhi, out)`` (planes (B, 2, Dc, Dc), the
+    mask (2, Dc, Dc)) and returns the planes of shell r1-1.
+
+    Face planes have the sign (minus, plus) second and the two non-face
+    axes in axis order: x faces (j, k), y faces (i, k), z faces (i, j).
     Stencil-plane composition (plane at distance r-1 from the source,
     read by face cells of shell r; alo/ahi = c -+ (r-1); later writes win):
       x: X[r-1]; rows j = alo/ahi from Y[r-1]; cols k = alo/ahi from Z[r-1].
       y: Y[r-1]; cols k = alo/ahi from Z[r-1]; rows i = c-+r from X[r].
       z: Z[r-1]; rows i = c-+r from X[r]; cols j = c-+r from Y[r].
     The rows/cols at c-+r are written only where they lie inside the box
-    (a mesh smaller than the box clips it).
-
-    Returns the (B, Dc, Dc, Dc) coldensh_out box: each face plane is added
-    at its box position (face memberships are disjoint, so this is the
-    fold of the face stacks) and the source cell holds nhi_c * dr / 2.
-    """
-    dt, dev = nhi_box.dtype, nhi_box.device
-    B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
-    R1 = sw.shape[2]
-    dr = torch.as_tensor(dr, dtype=dt, device=dev)
-    sig = torch.as_tensor(sig, dtype=dt, device=dev)
-    src_cd = nhi_box[:, c, c, c] * (0.5 * dr)
-    init = torch.zeros((B, 2, Dc, Dc), dtype=dt, device=dev)
-    init[:, :, c, c] = src_cd[:, None]
-    Xp, Yp, Zp = init, init, init
-    box = torch.zeros_like(nhi_box)
-    for r in range(1, R1):
+    (a mesh smaller than the box clips it)."""
+    Dc = nhi_box.shape[-1]
+    Xp, Yp, Zp = planes.unbind(1)
+    for r in range(r0, r1):
         alo, ahi = c - r + 1, c + r - 1
         ok_lo, ok_hi = c - r >= 0, c + r <= Dc - 1
         pos = [alo, ahi]                    # stencil-plane index per sign
         lo, hi = max(c - r, 0), min(c + r, Dc - 1)
 
-        def geom(f):
+        def face(f, P, nhi):
             mask = torch.stack([mask_m[f, r], mask_p[f, r]])
-            return sw[f, :, r], path[f, r], diag[f, r], mask
+            cdin, dcol, out = _face_update(P, nhi, sw[f, :, r], path[f, r],
+                                           diag[f, r], mask, dr, sig, c)
+            emit(f, r, mask, cdin, dcol, nhi, out)
+            return out
 
         # ---- x faces (plane (j, k)); stencil from X/Y/Z[r-1]
         P = Xp.clone()
@@ -110,8 +150,7 @@ def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig):
         P[:, :, ahi, :] = Yp[:, 1, pos, :]
         P[:, :, :, alo] = Zp[:, 0, pos, :]
         P[:, :, :, ahi] = Zp[:, 1, pos, :]
-        nhi = nhi_box[:, [lo, hi], :, :]
-        Xn = _face_update(P, nhi, *geom(0), dr, sig, c)
+        Xn = face(0, P, nhi_box[:, [lo, hi], :, :])
 
         # ---- y faces (plane (i, k)); stencil Y[r-1] + Z[r-1] + X[r]
         P = Yp.clone()
@@ -121,8 +160,7 @@ def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig):
             P[:, :, c - r, :] = Xn[:, 0, pos, :]
         if ok_hi:
             P[:, :, c + r, :] = Xn[:, 1, pos, :]
-        nhi = nhi_box[:, :, [lo, hi], :].transpose(1, 2)
-        Yn = _face_update(P, nhi, *geom(1), dr, sig, c)
+        Yn = face(1, P, nhi_box[:, :, [lo, hi], :].transpose(1, 2))
 
         # ---- z faces (plane (i, j)); stencil Z[r-1] + X[r] + Y[r]
         P = Zp.clone()
@@ -134,70 +172,303 @@ def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig):
             P[:, :, :, c - r] = Yn[:, 0][:, :, pos].transpose(1, 2)
         if ok_hi:
             P[:, :, :, c + r] = Yn[:, 1][:, :, pos].transpose(1, 2)
-        nhi = nhi_box[:, :, :, [lo, hi]].permute(0, 3, 1, 2)
-        Zn = _face_update(P, nhi, *geom(2), dr, sig, c)
-
-        if ok_lo:
-            box[:, c - r, :, :] += Xn[:, 0]
-            box[:, :, c - r, :] += Yn[:, 0]
-            box[:, :, :, c - r] += Zn[:, 0]
-        if ok_hi:
-            box[:, c + r, :, :] += Xn[:, 1]
-            box[:, :, c + r, :] += Yn[:, 1]
-            box[:, :, :, c + r] += Zn[:, 1]
+        Zn = face(2, P, nhi_box[:, :, :, [lo, hi]].permute(0, 3, 1, 2))
         Xp, Yp, Zp = Xn, Yn, Zn
-    box[:, c, c, c] = src_cd
+    return torch.stack([Xp, Yp, Zp], 1)
+
+
+def _bin_sum(tau_in, dtau, bins_s, bins_w):
+    """sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e))."""
+    acc = torch.zeros_like(tau_in)
+    for se, we in zip(bins_s, bins_w):
+        core = torch.exp(-tau_in * se) * (-torch.expm1(-dtau * se))
+        acc = acc + we * core
+    return acc
+
+
+def _face_d2(d2box, f, r, c):
+    """(2, Dc, Dc) squared distances of face f's cells at box planes c -+ r
+    (clamped into the box: a plane outside it has no valid cell)."""
+    Dc = d2box.shape[-1]
+    qs = [min(max(q, 0), Dc - 1) for q in (c - r, c + r)]
+    return torch.stack([d2box.select(f, q) for q in qs])
+
+
+def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
+                   bins=None, rt_tab=None, R2=0.0):
+    """Plain PyTorch sweep, twin of raytrace_cheb._sweep (K1).
+
+    nhi_box: (B, Dc, Dc, Dc); sw: (3, 4, R1, Dc, Dc); path, diag: (3, R1,
+    Dc, Dc); mask_m, mask_p: (3, R1, Dc, Dc) bool (face cell valid on the
+    minus / plus face).
+
+    Returns the (B, Dc, Dc, Dc) coldensh_out box: each face plane is stored
+    at its box position and the source cell holds nhi_c * dr / 2.
+
+    With ``bins`` = (bins_s, bins_w), the fused-rates mode of the TPU
+    kernel (K1f): the box holds the flux-less Gamma of every valid face
+    cell, S*/(dr^3 4 pi d2 path max(nHI, tiny)) * sum_e w_e
+    exp(-tau_in s_e) (-expm1(-dtau s_e)), masked by d2 <= R2 and
+    cdin <= MAX_COLDENSH, and the source cell is 0. d2 is the cell's
+    squared distance, channel 0 of ``rt_tab`` ((Dc, 2, Dc, Dc), see
+    cheb_geometry.pack_rates_tables) at the cell's cartesian position.
+    """
+    dt = nhi_box.dtype
+    R1 = sw.shape[2]
+    dr = torch.as_tensor(dr, dtype=dt, device=nhi_box.device)
+    sig = torch.as_tensor(sig, dtype=dt, device=nhi_box.device)
+    planes = init_planes(nhi_box, c, dr)
+    box = torch.zeros_like(nhi_box)
+    if bins is None:
+        def emit(f, r, mask, cdin, dcol, nhi, out):
+            _put(box, f, r, c, out)
+    else:
+        bins_s, bins_w = bins
+        d2box = rt_tab[:, 0]
+        sdr3 = s_over_dr3(dr.cpu(), dt).to(nhi_box.device)
+        max_cd = torch.tensor(MAX_COLDENSH, dtype=dt, device=nhi_box.device)
+        tiny = torch.finfo(dt).tiny
+
+        def emit(f, r, mask, cdin, dcol, nhi, out):
+            d2 = _face_d2(d2box, f, r, c)
+            acc = _bin_sum(cdin * sig, dcol * sig, bins_s, bins_w)
+            pref = sdr3 / (d2 * path[f, r] * FOURPI)
+            ok = mask & (d2 <= R2) & (cdin <= max_cd)
+            gam = pref * acc / torch.clamp(nhi, min=tiny)
+            _put(box, f, r, c, torch.where(ok, gam, torch.zeros_like(gam)))
+    _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr, sig, c,
+                  planes, 1, R1, emit)
+    box[:, c, c, c] = planes[:, 0, 0, c, c] if bins is None else 0.0
     return box
 
 
-_FN = {torch.float32: "cheb_sweep_f32", torch.float64: "cheb_sweep_f64"}
+def cheb_sweep_seg_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
+                       planes, r0, S, box=None):
+    """Plain version of one segment of the shell-segmented sweep (K2).
 
-
-def cheb_sweep(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig):
-    """The sweep on the device of ``nhi_box`` (see ``cheb_sweep_ref`` for
-    the arguments): the plain version for a CPU tensor, the CUDA kernel for
-    a CUDA tensor. ``dr`` and ``sig`` are floats."""
-    if nhi_box.device.type == "cpu":
-        return cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr,
-                              c, sig)
-    if nhi_box.device.type != "cuda":
-        raise ValueError(f"cheb_sweep: unsupported device {nhi_box.device}")
+    Shells r0 .. r0+S-1 (those past r_max = R1-1 are overrun and write
+    nothing) from ``planes``, the (B, 3, 2, Dc, Dc) planes of shell r0-1
+    (``init_planes`` for r0 = 1). Stores the segment's valid face cells
+    into ``box`` (zeros of nhi_box's shape when None; the caller zeroes it
+    once and hands it to every segment) and returns (box, the planes of
+    the segment's last shell). Chained over r0 = 1, 1+S, ... with the
+    source cell set afterwards, it gives ``cheb_sweep_ref``'s box."""
     dt = nhi_box.dtype
-    if dt not in _FN:
-        raise TypeError(f"cheb_sweep: dtype {dt} (float32 or float64)")
-    B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
+    r1 = min(r0 + S, sw.shape[2])
+    dr = torch.as_tensor(dr, dtype=dt, device=nhi_box.device)
+    sig = torch.as_tensor(sig, dtype=dt, device=nhi_box.device)
+    if box is None:
+        box = torch.zeros_like(nhi_box)
+
+    def emit(f, r, mask, cdin, dcol, nhi, out):
+        _put(box, f, r, c, out)
+    planes = _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr, sig,
+                           c, planes, r0, r1, emit)
+    return box, planes
+
+
+def _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w):
+    """K3's rate phase over whole boxes: phi = flux S* dr / (dr^3 4 pi d2)
+    * sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e)) / max(dcol, tiny),
+    masked by the valid channel of rt_tab and cdin <= MAX_COLDENSH. ``dr``
+    is a 0-dim CPU tensor of the boxes' dtype."""
+    dt = ci.dtype
+    d2, valid = rt_tab[:, 0], rt_tab[:, 1] > 0.5
+    s_fac = (s_over_dr3(dr, dt) * dr).to(ci.device)
+    acc = _bin_sum(ci * sig, dc * sig, bins_s, bins_w)
+    pref = (flux[:, None, None, None] * s_fac) / (d2 * FOURPI)
+    ok = valid[None] & (ci <= torch.tensor(MAX_COLDENSH, dtype=dt,
+                                           device=ci.device))
+    phi = pref * acc / torch.clamp(dc, min=torch.finfo(dt).tiny)
+    return torch.where(ok, phi, torch.zeros_like(phi))
+
+
+def cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab,
+                         flux, dr, c, sig, bins_s, bins_w):
+    """Plain version of the fused sweep + box + rates kernel (K3).
+
+    Phase A is the sweep, storing the masked cdin and dcol of every face
+    cell at its cartesian position; phase B evaluates the spectral-bin
+    rates per box cell with the per-source ``flux`` (B,) (``_box_rates``).
+    Returns the (B, Dc, Dc, Dc) phi box with the source cell 0."""
+    dt, dev = nhi_box.dtype, nhi_box.device
     R1 = sw.shape[2]
-    if nhi_box.shape != (B, Dc, Dc, Dc) or not 0 <= c < Dc:
-        raise ValueError(f"cheb_sweep: nhi_box {tuple(nhi_box.shape)}, c={c}")
-    expect = {"sw": (sw, (3, 4, R1, Dc, Dc), dt),
-              "path": (path, (3, R1, Dc, Dc), dt),
-              "diag": (diag, (3, R1, Dc, Dc), dt),
-              "mask_m": (mask_m, (3, R1, Dc, Dc), torch.bool),
-              "mask_p": (mask_p, (3, R1, Dc, Dc), torch.bool)}
-    for name, (t, shape, tdt) in expect.items():
-        if (tuple(t.shape) != shape or t.dtype != tdt
+    dr = torch.as_tensor(dr, dtype=dt)              # on the CPU
+    sig = torch.as_tensor(sig, dtype=dt, device=dev)
+    ci = torch.zeros_like(nhi_box)
+    dc = torch.zeros_like(nhi_box)
+
+    def emit(f, r, mask, cdin, dcol, nhi, out):
+        zero = torch.zeros_like(cdin)
+        _put(ci, f, r, c, torch.where(mask, cdin, zero))
+        _put(dc, f, r, c, torch.where(mask, dcol, zero))
+    _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr.to(dev), sig,
+                  c, init_planes(nhi_box, c, dr), 1, R1, emit)
+    return _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check(name, nhi_box, tensors):
+    """Validate the inputs of a kernel: nhi_box (B, Dc, Dc, Dc) on CUDA in
+    float32/float64, and ``tensors`` {name: (tensor, shape, dtype)} on the
+    same device, contiguous. Returns the function suffix."""
+    if nhi_box.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {nhi_box.device}")
+    dt = nhi_box.dtype
+    if dt not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {dt} (float32 or float64)")
+    B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
+    if tuple(nhi_box.shape) != (B, Dc, Dc, Dc):
+        raise ValueError(f"{name}: nhi_box {tuple(nhi_box.shape)}")
+    for tname, (t, shape, tdt) in tensors.items():
+        if (tuple(t.shape) != tuple(shape) or t.dtype != tdt
                 or t.device != nhi_box.device):
             raise ValueError(
-                f"cheb_sweep: {name} is {tuple(t.shape)} {t.dtype} on "
-                f"{t.device}, expected {shape} {tdt} on {nhi_box.device}")
-    tensors = [nhi_box, sw, path, diag, mask_m, mask_p]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("cheb_sweep: inputs must be contiguous")
+                f"{name}: {tname} is {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}, expected {tuple(shape)} {tdt} on "
+                f"{nhi_box.device}")
+    if not all(t.is_contiguous() for t in [nhi_box] + [
+            v[0] for v in tensors.values()]):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return _SUFFIX[dt]
+
+
+def _geom(nhi_box, sw, path, diag, mask_m, mask_p, c):
+    """The shape checks of the sweep tables; returns (B, Dc, R1)."""
+    B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
+    R1 = sw.shape[2]
+    if not 0 <= c < Dc:
+        raise ValueError(f"sweep: source index c={c} outside the box {Dc}")
+    dt = nhi_box.dtype
+    return (B, Dc, R1), {
+        "sw": (sw, (3, 4, R1, Dc, Dc), dt),
+        "path": (path, (3, R1, Dc, Dc), dt),
+        "diag": (diag, (3, R1, Dc, Dc), dt),
+        "mask_m": (mask_m, (3, R1, Dc, Dc), torch.bool),
+        "mask_p": (mask_p, (3, R1, Dc, Dc), torch.bool)}
+
+
+def _bins_spec(Dc, bins_s, bins_w, rt_tab, dt):
+    """The number of bins E (kept in the kernel's shared memory, 2 E
+    values) and the shape checks of the rate inputs."""
+    E = bins_s.shape[0]
+    return E, {"rt_tab": (rt_tab, (Dc, 2, Dc, Dc), dt),
+               "bins_s": (bins_s, (E,), dt), "bins_w": (bins_w, (E,), dt)}
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(lib, fn, name, *args):
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({lib.error_string(err)!r})")
+    launches[name] += 1
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def cheb_sweep(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
+               bins=None, rt_tab=None, R2=0.0):
+    """The sweep on the device of ``nhi_box`` (see ``cheb_sweep_ref`` for
+    the arguments): the plain version for a CPU tensor, the CUDA kernel
+    (K1, or K1f with ``bins``) for a CUDA tensor. ``dr``, ``sig`` and
+    ``R2`` are floats."""
+    if nhi_box.device.type == "cpu":
+        return cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr,
+                              c, sig, bins=bins, rt_tab=rt_tab, R2=R2)
+    (B, Dc, R1), spec = _geom(nhi_box, sw, path, diag, mask_m, mask_p, c)
+    dt = nhi_box.dtype
+    if bins is not None:
+        E, more = _bins_spec(Dc, bins[0], bins[1], rt_tab, dt)
+        spec.update(more)
+    sfx = _check("cheb_sweep", nhi_box, spec)
     from ._build import load
-    lib = load()
+    lib = load("cheb_sweep")
     box = torch.empty_like(nhi_box)
     # per block: two parities x three faces x two signs of (Dc, Dc) planes
     scratch = torch.empty((B, 12, Dc, Dc), dtype=dt, device=nhi_box.device)
-    stream = torch.cuda.current_stream(nhi_box.device).cuda_stream
-    fn = getattr(lib, _FN[dt])
-    err = fn(*[ctypes.c_void_p(t.data_ptr()) for t in tensors],
-             ctypes.c_void_p(box.data_ptr()),
-             ctypes.c_void_p(scratch.data_ptr()),
-             B, Dc, c, R1, float(dr), float(sig), THREADS,
-             ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"cheb_sweep kernel launch failed: CUDA error "
-                           f"{err} ({lib.cheb_sweep_error_string(err)!r})")
-    global launches
-    launches += 1
+    geo = [_ptr(t) for t in (nhi_box, sw, path, diag, mask_m, mask_p)]
+    if bins is None:
+        _launch(lib, f"cheb_sweep_{sfx}", "cheb_sweep", *geo, _ptr(box),
+                _ptr(scratch), B, Dc, c, R1, float(dr), float(sig), THREADS,
+                _stream(nhi_box))
+    else:
+        sdr3 = float(s_over_dr3(float(dr), dt))
+        _launch(lib, f"cheb_sweep_gamma_{sfx}", "cheb_sweep_fused_rates",
+                *geo, _ptr(rt_tab), _ptr(bins[0]), _ptr(bins[1]), _ptr(box),
+                _ptr(scratch), B, Dc, c, R1, E, float(dr), float(sig),
+                float(R2), sdr3, THREADS, _stream(nhi_box))
     return box
+
+
+def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
+                   planes, r0, S, box=None):
+    """One segment of the shell-segmented sweep on the device of
+    ``nhi_box`` (see ``cheb_sweep_seg_ref``): the plain version for a CPU
+    tensor, the CUDA kernel (K2) for a CUDA tensor. Returns (box, planes);
+    ``box`` is updated in place when given."""
+    if nhi_box.device.type == "cpu":
+        return cheb_sweep_seg_ref(nhi_box, sw, path, diag, mask_m, mask_p,
+                                  dr, c, sig, planes, r0, S, box)
+    (B, Dc, R1), spec = _geom(nhi_box, sw, path, diag, mask_m, mask_p, c)
+    dt = nhi_box.dtype
+    if box is None:
+        box = torch.zeros_like(nhi_box)
+    if not 1 <= r0 < R1 or S < 1:
+        raise ValueError(f"cheb_sweep_seg: r0={r0}, S={S} (1 <= r0 < {R1})")
+    spec["planes"] = (planes, (B, 3, 2, Dc, Dc), dt)
+    spec["box"] = (box, (B, Dc, Dc, Dc), dt)
+    sfx = _check("cheb_sweep_seg", nhi_box, spec)
+    from ._build import load
+    lib = load("cheb_sweep")
+    out = torch.empty_like(planes)
+    scratch = torch.empty((B, 12, Dc, Dc), dtype=dt, device=nhi_box.device)
+    _launch(lib, f"cheb_sweep_seg_{sfx}", "cheb_sweep_seg",
+            *[_ptr(t) for t in (nhi_box, sw, path, diag, mask_m, mask_p,
+                                planes, out, box, scratch)],
+            B, Dc, c, R1, r0, min(r0 + S, R1), float(dr), float(sig),
+            THREADS, _stream(nhi_box))
+    return box, out
+
+
+def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
+                     dr, c, sig, bins_s, bins_w):
+    """The fused sweep + box + rates on the device of ``nhi_box`` (see
+    ``cheb_sweep_rates_ref``): the plain version for a CPU tensor, the CUDA
+    kernel (K3: two __global__ launches on the stream, counted as one) for
+    a CUDA tensor. ``dr`` and ``sig`` are floats."""
+    if nhi_box.device.type == "cpu":
+        return cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p,
+                                    rt_tab, flux, dr, c, sig, bins_s, bins_w)
+    (B, Dc, R1), spec = _geom(nhi_box, sw, path, diag, mask_m, mask_p, c)
+    dt = nhi_box.dtype
+    E, more = _bins_spec(Dc, bins_s, bins_w, rt_tab, dt)
+    spec.update(more)
+    spec["flux"] = (flux, (B,), dt)
+    sfx = _check("cheb_sweep_rates", nhi_box, spec)
+    from ._build import load
+    lib = load("cheb_sweep_rates")
+    phi = torch.empty_like(nhi_box)
+    ci = torch.empty_like(nhi_box)        # phase A's cdin and dcol boxes
+    dc = torch.empty_like(nhi_box)
+    scratch = torch.empty((B, 12, Dc, Dc), dtype=dt, device=nhi_box.device)
+    dr_t = torch.tensor(float(dr), dtype=dt)
+    s_fac = float(s_over_dr3(dr_t, dt) * dr_t)     # as in _box_rates
+    _launch(lib, f"cheb_sweep_rates_{sfx}", "cheb_sweep_rates",
+            *[_ptr(t) for t in (nhi_box, sw, path, diag, mask_m, mask_p,
+                                rt_tab, bins_s, bins_w, flux, phi, ci, dc,
+                                scratch)],
+            B, Dc, c, R1, E, float(dr), float(sig), s_fac, THREADS,
+            THREADS_RATES, _stream(nhi_box))
+    return phi

@@ -65,7 +65,7 @@ def test_sweep_wrapper_dispatch_on_device():
     sweep.reset_launches()
     out = sweep.cheb_sweep(*args)
     assert torch.equal(out, sweep.cheb_sweep_ref(*args))
-    assert sweep.launches == 0
+    assert sum(sweep.launches.values()) == 0
     with pytest.raises(ValueError, match="unsupported device"):
         sweep.cheb_sweep(args[0].to("meta"), *args[1:])
 
@@ -81,8 +81,8 @@ def test_sweep_kernel_matches_plain_on_cuda():
         box = torch.from_numpy(_box(tr, 4)).to("cuda", dt)
         args = (box, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, DR,
                 tr.geom.c, SIG)
-        n0 = sweep.launches
+        n0 = sweep.launches["cheb_sweep"]
         got = sweep.cheb_sweep(*args)
-        assert sweep.launches == n0 + 1
+        assert sweep.launches["cheb_sweep"] == n0 + 1
         torch.testing.assert_close(got, sweep.cheb_sweep_ref(*args),
                                    rtol=rtol, atol=0)

@@ -1,6 +1,7 @@
 """Host-side inputs of the PyTorch port: spectral bins, compressed bins,
-the cube-shell geometry and the rates-subbox tables are bit-equal to the
-JAX package's; state_from_jax carries the JAX engine's state over."""
+the cube-shell geometry, the rates-subbox tables and the fused modes'
+rates tables are bit-equal to the JAX package's; state_from_jax carries
+the JAX engine's state over."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ from pyc2ray_tpu.constants import ev2fr
 from pyc2ray_tpu.ops.cheb_geometry import build_cheb_geometry as j_geometry
 from pyc2ray_tpu.ops.chemistry import ChemistryParams as JChem
 from pyc2ray_tpu.ops.geometry import max_q_for as j_max_q
+from pyc2ray_tpu.ops.pallas_sweep import pack_rates_tables as j_rates_tables
 from pyc2ray_tpu.ops.raytrace_box import grey_bins
 from pyc2ray_tpu.ops.raytrace_cheb import ChebRaytracer as JRaytracer
 from pyc2ray_tpu.radiation import BlackBodySource as JBlackBody
@@ -19,7 +21,8 @@ from pyc2ray_tpu.radiation.bins_compress import compress_bins as j_compress
 from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins as j_bins
 
 from pyc2ray_torch.convert import state_from_jax
-from pyc2ray_torch.ops.cheb_geometry import build_cheb_geometry
+from pyc2ray_torch.ops.cheb_geometry import (box_dims, build_cheb_geometry,
+                                             pack_rates_tables)
 from pyc2ray_torch.ops.geometry import max_q_for
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 from pyc2ray_torch.radiation import BlackBodySource, make_tau_table
@@ -69,10 +72,26 @@ def test_cheb_geometry_bit_equal(N, R):
                                       np.asarray(getattr(jg, f)), err_msg=f)
 
 
+# (16, 8.0): the mesh clips the box; (12, 1e9): the whole mesh
+@pytest.mark.parametrize("N,R", [(16, 3.0), (16, 8.0), (12, 1e9)])
+def test_rates_tables_bit_equal(N, R):
+    r_cube = int(np.ceil(min(R, N)))
+    jg = j_geometry(N, j_max_q(R, N), r_cube=r_cube)
+    tg = build_cheb_geometry(N, max_q_for(R, N), r_cube=r_cube)
+    assert box_dims(N, max_q_for(R, N), r_cube)[2:] == (jg.c, jg.Dc,
+                                                       jg.r_max)
+    for dt in (np.float64, np.float32):
+        want = j_rates_tables(jg, R * R, dt)
+        got = pack_rates_tables(tg, R * R, dt)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("N,R", [(16, 3.0), (64, 8.0)])
 def test_engine_tables_bit_equal(N, R):
-    """The port's device tables (incl. the rates subbox rt_sub) equal the
-    JAX engine's, in float64 and in float32."""
+    """The port's device tables (incl. the rates subbox rt_sub and the
+    fused modes' rt_tab) equal the JAX engine's, in float64 and in
+    float32."""
     for jdt, tdt in ((jnp.float64, torch.float64),
                      (jnp.float32, torch.float32)):
         jr = JRaytracer(N, R, SIG, grey_bins(), batch_size=2, dtype=jdt)
