@@ -17,6 +17,10 @@ Phases (any failure raises and the script exits non-zero):
    kernels K1f (fuse_rates) and K3 (fuse_fold) at the bench shape with
    compressed bins in float32 and at a small clipped shape in float64 that
    holds a zero-density cell.
+2c. The fused kernel with the heating output, K3h (fuse_fold with
+   do_heating), at the bench shape in float32 and at the small clipped
+   float64 shape with a zero-density cell: both outputs against the plain
+   version, and its Gamma bit for bit against K3's.
 3. The full-width main path: ChebRaytracer.trace_batches + global_pass at
    N=256, R=30, Ns=2048, B=8, compressed black-body bins, float32 (the
    configuration of bench.py, positions from seed 100). Prints ns per
@@ -29,17 +33,32 @@ Phases (any failure raises and the script exits non-zero):
    B=8, Ns=100 from seed 100, compressed bins, float32) auto-segmented
    (K2) and with shell_segment=0 (K1), held against each other. Each run
    prints ns per cell-update and its launch counts, which are asserted.
+3c. The non-isothermal path at full width: the bench configuration with
+   do_heating=True and fuse_fold=True (K3h, one launch per batch) and with
+   do_heating=True alone (K1 + the rate pass with the heat channel); each
+   Gamma held against phase 3's, the two heat fields against each other,
+   the per-batch stage times of both; then update_temperature over the
+   256^3 cells from 100 K with that heat.
 4. One evolve3D timestep to convergence at N=64, R=8, 16 sources, float32,
    held against the same call on the CPU.
-5. A ``kernels`` JSON line, then the result line
+4b. One non-isothermal evolve3D timestep (thermal=ThermalParams) at the
+   same size with fuse_fold=True, GPU against CPU: xh, Gamma and T.
+4c. The entry point: C2Ray_Test(<the heating example's parameters as a
+   dict>, 48, device="cuda"), six timesteps in float64 with engine cheb
+   as examples/heating_test/run_test.py runs them, then that script's five
+   checks of the temperature and ionization profiles.
+5. The script's wall time, a ``kernels`` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
 """
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,11 +78,46 @@ RATE_OPS_PER_BIN = 7             # per bin and rated cell: tau_in*s,
                                  # transcendental counted as one op)
 RATE_OPS_PER_CELL = 7            # tau_in, dtau, prefactor (2 muls, div),
                                  # result (mul, div)
+HEAT_OPS_PER_BIN = 2             # K3h, beside the above: w_heat*core, add
+HEAT_OPS_PER_CELL = 2            # and the second result (mul, div)
 N_R100, R_R100, NS_R100 = 250, 100.0, 100   # raytracing harness, R=100 row
+N_EVOLVE, R_EVOLVE, NS_EVOLVE = 64, 8.0, 16  # the evolve3D steps of 4, 4b
+N_HEATING, STEPS_HEATING = 48, 6             # examples/heating_test defaults
+T_START = time.time()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def heating_params(results_basename):
+    """The parameters of examples/heating_test/run_test.py as a parsed
+    mapping: examples/single_source_test/parameters.yml with NumTau 500,
+    the heating rates on, a cold start at 100 K, Material.isothermal false
+    and Raytracing.engine cheb (tests/test_torch_models.py holds this dict
+    equal to the YAML that the example writes)."""
+    return {
+        "Grid": {"boxsize": 0.014, "resume": 0},
+        "Material": {"isothermal": False, "temp0": 1e2, "xh0": 1.2e-3,
+                     "avg_dens": 1.0e-6},
+        "CGS": {"albpow": -0.7, "bh00": 2.59e-13, "alcpow": -0.672,
+                "eth0": 13.598, "ethe0": 24.587, "ethe1": 54.416,
+                "xih0": 1.0, "fh0": 0.83, "colh0_fact": 1.3e-8},
+        "Abundances": {"abu_h": 0.926, "abu_he": 0.074, "abu_c": 7.1e-7},
+        "Photo": {"sigma_HI_at_ion_freq": 6.30e-18, "minlogtau": -20,
+                  "maxlogtau": 4, "NumTau": 500, "grey": 0,
+                  "SourceType": "blackbody", "compute_heating_rates": 1,
+                  "R_max_cMpc": 0.01640625},
+        "BlackBodySource": {"Teff": 5e4, "cross_section_pl_index": 2.8},
+        "Cosmology": {"cosmological": 0, "h": 1.0, "Omega0": 0.27,
+                      "Omega_B": 0.044, "cmbtemp": 2.726, "zred_0": 9.0},
+        "Output": {"results_basename": results_basename,
+                   "logfile": "pyC2Ray.log"},
+        "Raytracing": {"loss_fraction": 1e-2, "subboxsize": 150,
+                       "max_subbox": 1000, "source_batch_size": 1,
+                       "convergence_fraction": 1e-4, "dtype": "float64",
+                       "engine": "cheb"},
+    }
 
 
 def cuda_ms(fn, reps):
@@ -274,18 +328,65 @@ def check_fused(N, R, B, dtype, rtol, floor, seed, reps, bins,
     return out
 
 
+def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
+               zero_cell=False):
+    """K3h vs its plain version (both outputs, each with its own floor at
+    its peak) and its Gamma vs K3's; returns its numbers."""
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    rt = ChebRaytracer(N, R, SIG, bins, batch_size=B, dtype=dtype,
+                       do_heating=True, fuse_fold=True)
+    g, tb = rt.geom, rt.tables
+    nhi = random_nhi(rt, B, dtype, seed, zero_cell)
+    flux = torch.linspace(0.5, 2.0, B, dtype=dtype, device="cuda")
+    rates = (nhi, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, tb.rt_tab,
+             flux, DR, g.c, SIG, tb.bins_s, tb.bins_w)
+
+    def kern():
+        return sweep.cheb_sweep_rates(*rates, bins_wh=tb.bins_wh)
+
+    def plain():
+        return sweep.cheb_sweep_rates_ref(*rates, bins_wh=tb.bins_wh)
+
+    log(f"K3h N={N} R={R} B={B} Dc={g.Dc} R1={g.r_max + 1} "
+        f"E={bins.num_bins} {str(dtype).split('.')[-1]}"
+        f"{' (one zero-density cell)' if zero_cell else ''}:")
+    (phi, heat), (phi_r, heat_r) = kern(), plain()
+    err_phi = compare("K3h Gamma vs plain", phi, phi_r, rtol, floor)
+    err_heat = compare("K3h heat vs plain", heat, heat_r, rtol, floor)
+    if not float(heat_r.max()) > 0.0:
+        raise RuntimeError("K3h: the plain version's heat is all zero")
+    if zero_cell and float(heat[1, g.c, g.c + 1, g.c]) != 0.0:
+        raise RuntimeError("K3h: heat at the zero-density cell is not 0")
+    if not torch.equal(phi, sweep.cheb_sweep_rates(*rates)):
+        raise RuntimeError("K3h: Gamma differs from K3's")
+    log("  K3h Gamma equals K3 Gamma bit for bit")
+    isz = torch.finfo(dtype).bits // 8
+    nbytes, ops = sweep_work(B, g.Dc, g.r_max + 1, dtype)
+    n_rated = B * int((tb.rt_tab[:, 1] > 0.5).sum())
+    ops += n_rated * ((RATE_OPS_PER_BIN + HEAT_OPS_PER_BIN) * bins.num_bins
+                      + RATE_OPS_PER_CELL + HEAT_OPS_PER_CELL)
+    # K3's bytes (rates table, flux) plus the heating weights and one more
+    # output box
+    nbytes += (2 * g.Dc ** 3 * isz + B * isz + bins.num_bins * isz
+               + B * g.Dc ** 3 * isz)
+    return dict(max_abs_err=max(err_phi, err_heat),
+                heat_max_abs_err=err_heat,
+                **timing("K3h", kern, plain, reps, nbytes, ops, dtype))
+
+
 def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
     """A warm-up trace, then one trace_batches (and global_pass with
     ``chem``) with the launch counts set to 0 just before and read just
     after; asserts the counts equal ``expect`` (others 0) and the output
-    finite. Returns (phi, counts)."""
+    finite. Returns (phi, heat, counts), heat None without do_heating."""
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.chemistry import global_pass
     rt.trace_batches(nd, xh, pos_b, flux_b, DR)
     torch.cuda.synchronize()
     sweep.reset_launches()
     t0 = time.time()
-    phi, _ = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
+    phi, heat = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
     torch.cuda.synchronize()
     t_ray = time.time() - t0
     counts = dict(sweep.launches)
@@ -293,8 +394,12 @@ def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
     if counts != want:
         raise RuntimeError(f"{label}: kernel launches {counts}, expected "
                            f"{want}")
-    if not bool(torch.isfinite(phi).all()) or not float(phi.max()) > 0.0:
-        raise RuntimeError(f"{label}: Gamma is not finite and positive")
+    for name, t in (("Gamma", phi), ("heat", heat)):
+        if (t is None) != (name == "heat" and not rt.do_heating):
+            raise RuntimeError(f"{label}: {name} is {type(t).__name__}")
+        if t is not None and (not bool(torch.isfinite(t).all())
+                              or not float(t.max()) > 0.0):
+            raise RuntimeError(f"{label}: {name} is not finite and positive")
     msg = ""
     if chem is not None:
         dt_d = torch.tensor(DT, dtype=rt.dtype).to("cuda")
@@ -310,33 +415,50 @@ def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
     log(f"{label}: raytrace {t_ray:.4f} s = {ns_cell:.4f} ns/cell-update"
         f"{msg}, launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
-    return phi, counts
+    return phi, heat, counts
 
 
 def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     """Device time per batch of each stage of trace_extended, over the
-    first ``nbatch`` batches (CUDA events around each stage)."""
-    from pyc2ray_torch.ops.sweep import cheb_sweep
+    first ``nbatch`` batches (CUDA events around each stage), for the
+    default mode and for fuse_fold, with or without do_heating. "sweep" is
+    the kernel (K1, or K3/K3h with its rate phase), "rates" what follows
+    it (the rate pass, or the fused mode's source-cell closed forms),
+    "accumulate" the per-source slice adds of Gamma and, with do_heating,
+    of the heat."""
+    from pyc2ray_torch.ops.sweep import cheb_sweep, cheb_sweep_rates
     g, tb, N = rt.geom, rt.tables, rt.N
     nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
     wrap = torch.arange(-g.c, N + g.Dc - 1 - g.c, device="cuda") % N
     nhi_pad = nhi3[wrap][:, wrap][:, :, wrap]
-    phi_pad = torch.zeros_like(nhi_pad)
+    pads = [torch.zeros_like(nhi_pad) for _ in range(1 + rt.do_heating)]
     dr_t = torch.tensor(DR, dtype=rt.dtype).to("cuda")
-    D, sh = rt.Ds, rt._rb0
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+    c = g.c
     tot = dict(extract=0.0, sweep=0.0, rates=0.0, accumulate=0.0)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     for pos, flux in list(zip(pos_b, flux_b))[:nbatch]:
         ev[0].record()
         boxes = rt._extract_boxes(nhi_pad, pos.to("cuda"))
         ev[1].record()
-        cd = cheb_sweep(boxes, tb.sw, tb.path, tb.diag, tb.mask_m,
-                        tb.mask_p, DR, g.c, rt.sig)
-        ev[2].record()
-        phi_box = rt._rates(cd, boxes, flux, dr_t)
+        if rt.fuse_fold:
+            out = cheb_sweep_rates(
+                boxes, *geo, tb.rt_tab, flux, DR, c, rt.sig, tb.bins_s,
+                tb.bins_w, bins_wh=tb.bins_wh if rt.do_heating else None)
+            ev[2].record()
+            out = out if rt.do_heating else (out,)
+            for box, w in zip(out, (None, tb.bins_wh)):
+                box[:, c, c, c] = rt._source_cell_rate(boxes, flux, dr_t, w)
+        else:
+            cd = cheb_sweep(boxes, *geo, DR, c, rt.sig)
+            ev[2].record()
+            out = rt._rates(cd, boxes, flux, dr_t)[:1 + rt.do_heating]
         ev[3].record()
-        for (p0, p1, p2), box in zip(pos.tolist(), phi_box):
-            phi_pad[p0 + sh:p0 + sh + D, p1 + sh:p1 + sh + D,
+        D = out[0].shape[-1]
+        sh = rt._rb0 if D == rt.Ds else 0
+        for pad, rate_box in zip(pads, out):
+            for (p0, p1, p2), box in zip(pos.tolist(), rate_box):
+                pad[p0 + sh:p0 + sh + D, p1 + sh:p1 + sh + D,
                     p2 + sh:p2 + sh + D] += box
         ev[4].record()
         torch.cuda.synchronize()
@@ -345,13 +467,40 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     return {k: v / nbatch for k, v in tot.items()}
 
 
+def heating_checks(temp, xh, N):
+    """The five checks of examples/heating_test/run_test.py on the final
+    temperature and ionized-fraction fields; returns {name: bool} and the
+    binned profiles."""
+    c = N // 2
+    i, j, k = np.indices((N, N, N))
+    r = np.sqrt((i - c) ** 2 + (j - c) ** 2 + (k - c) ** 2)
+    rb = np.arange(0, N // 2)
+    t_prof = np.array([temp[(r >= a) & (r < a + 1)].mean() for a in rb])
+    x_prof = np.array([xh[(r >= a) & (r < a + 1)].mean() for a in rb])
+    r_front = int(np.argmin(np.abs(x_prof - 0.5)))
+    post = t_prof[r_front:]
+    return {
+        "core photoheated above 5e3 K": bool(t_prof[1] > 5e3),
+        "distant gas within 3x of initial 100 K": bool(t_prof[-1] < 300.0),
+        "T profile monotone non-increasing beyond the I-front (tol 1%)":
+            bool(np.all(np.diff(post) <= 0.01 * post[:-1] + 1e-9)),
+        "T peak sits at/inside the I-front":
+            int(np.argmax(t_prof)) <= r_front + 1,
+        "ionized gas (x>0.9) is photoheated (median T > 5e3 K)":
+            bool(np.any(xh > 0.9))
+            and float(np.median(temp[xh > 0.9])) > 5e3,
+    }, t_prof, x_prof
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
+    from pyc2ray_torch import C2Ray_Test
     from pyc2ray_torch.evolve import evolve3D
     from pyc2ray_torch.ops import _build, sweep
+    from pyc2ray_torch.ops.thermal import ThermalParams, update_temperature
     from pyc2ray_torch.ops.chemistry import global_pass
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 
@@ -393,6 +542,12 @@ def main():
                           rtol=1e-4, floor=1e-6, seed=5, reps=10, bins=bins)
     check_fused(16, 8.0, 2, torch.float64, rtol=1e-10, floor=0.0, seed=6,
                 reps=3, bins=bins, zero_cell=True)
+
+    # ---- 2c. K3h (fuse_fold with the heating output) vs its plain version
+    k_heat = check_heat(N_BENCH, R_BENCH, B_BENCH, torch.float32, rtol=1e-4,
+                        floor=1e-6, seed=5, reps=10, bins=bins)
+    check_heat(16, 8.0, 2, torch.float64, rtol=1e-10, floor=0.0, seed=6,
+               reps=3, bins=bins, zero_cell=True)
 
     # ---- 3. full-width main path -------------------------------------
     chem = chem_params()
@@ -463,7 +618,7 @@ def main():
                         ("fuse_rates", "cheb_sweep_fused_rates")):
         rtf = ChebRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
                             dtype=dt, **{mode: True})
-        phi_f, counts = run_path(
+        phi_f, _, counts = run_path(
             rtf, ndens, xh, pos_b, flux_b, NS_BENCH, R_BENCH, {kname: nbatch},
             f"{mode} N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32",
             chem)
@@ -472,6 +627,10 @@ def main():
         # cancels where dcol >> cdin: compare above a floor at the peak
         compare(f"{mode} Gamma vs the unfused Gamma", phi_f, phi, 1e-4,
                 1e-6)
+        if mode == "fuse_fold":
+            br = stage_breakdown(rtf, ndens, xh, pos_b, flux_b, 16)
+            log("  per-batch device ms: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in br.items()))
         del rtf, phi_f
     nh = N_R100
     rng = np.random.RandomState(100)
@@ -488,7 +647,7 @@ def main():
         nb = hp.shape[0]
         expect = ({"cheb_sweep_seg": rth.seg_K * nb} if rth.seg_S
                   else {"cheb_sweep": nb})
-        h_phi[seg], counts = run_path(
+        h_phi[seg], _, counts = run_path(
             rth, h_nd, h_xh, hp, hf, NS_R100, R_R100, expect,
             f"R=100 harness N={nh} Ns={NS_R100} B={B_BENCH} float32 "
             f"shell_segment={seg!r} (S={rth.seg_S}, K={rth.seg_K})")
@@ -500,8 +659,53 @@ def main():
         f"{torch.equal(h_phi['auto'], h_phi[0])}")
     del h_phi, h_nd, h_xh
 
+    # ---- 3c. the non-isothermal path at full width ------------------------
+    heat_f = {}
+    for fold, kname in ((True, "cheb_sweep_rates_heat"),
+                        (False, "cheb_sweep")):
+        rth = ChebRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
+                            dtype=dt, do_heating=True, fuse_fold=fold)
+        label = (f"do_heating{' + fuse_fold' if fold else ''} N={N} "
+                 f"R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32")
+        phi_h, heat_f[fold], counts = run_path(
+            rth, ndens, xh, pos_b, flux_b, NS_BENCH, R_BENCH,
+            {kname: nbatch}, label, chem)
+        if fold:
+            heat_launches = counts[kname]
+        compare(f"{'K3h' if fold else 'K1 + rate pass'} Gamma vs phase 3's",
+                phi_h, phi, 1e-4, 1e-6)
+        br = stage_breakdown(rth, ndens, xh, pos_b, flux_b, 16)
+        log("  per-batch device ms: " + ", ".join(f"{k} {v:.4f}"
+                                                 for k, v in br.items()))
+        del rth, phi_h
+    # the unfused heat inherits the float32 cancellation of cd - dcol
+    compare("K3h heat vs the rate pass's heat", heat_f[True], heat_f[False],
+            1e-4, 1e-6)
+    thermal = ThermalParams(bh00=chem.bh00, albpow=chem.albpow,
+                            colh0=chem.colh0, temph0=chem.temph0,
+                            abu_c=chem.abu_c)
+    t_cold = grid(100.0)
+    update_temperature(dt_d, t_cold, ndens, xh, heat_f[True], thermal,
+                       z=9.0, nsub=1)                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    t_new = update_temperature(dt_d, t_cold, ndens, xh, heat_f[True],
+                               thermal, z=9.0)
+    torch.cuda.synchronize()
+    t_therm = time.time() - t0
+    t_lo, t_hi = float(t_new.min()), float(t_new.max())
+    if (t_new.shape != (N ** 3,) or not bool(torch.isfinite(t_new).all())
+            or t_lo < thermal.t_floor or t_hi > thermal.t_cap
+            or not t_hi > 100.0):
+        raise RuntimeError(f"update_temperature: T range {t_lo}..{t_hi}")
+    log(f"update_temperature N={N} float32, 16 substeps from 100 K: "
+        f"{t_therm:.4f} s = {1e9 * t_therm / N ** 3:.3f} ns/cell, T range "
+        f"{t_lo:.1f}..{t_hi:.1f} K, "
+        f"{int((t_new > 1e3).sum())} cells above 1e3 K")
+    del heat_f, t_new, t_cold
+
     # ---- 4. one evolve3D timestep, GPU vs CPU ---------------------------
-    Ne, Re, nse = 64, 8.0, 16
+    Ne, Re, nse = N_EVOLVE, R_EVOLVE, NS_EVOLVE
     rng = np.random.RandomState(7)
     e_pos = rng.randint(0, Ne, size=(nse, 3))
     e_flux = rng.uniform(0.5, 2.0, nse)
@@ -532,10 +736,83 @@ def main():
         f"{np.max(np.abs(xh_g - xh_c) / np.abs(xh_c)):.3e}, phi max abs "
         f"{np.max(np.abs(phi_g - phi_c)):.3e} of max {phi_c.max():.3e}")
 
+    # ---- 4b. one non-isothermal evolve3D timestep, GPU vs CPU -------------
+    e_cold = np.full((Ne,) * 3, 1e2)
+    out = {}
+    for devname in ("cuda", "cpu"):
+        rte = ChebRaytracer(Ne, Re, SIG, bins, batch_size=B_BENCH, dtype=dt,
+                            device=devname, do_heating=True, fuse_fold=True)
+        sweep.reset_launches()
+        t0 = time.time()
+        out[devname] = evolve3D(DT, DR, e_flux, e_pos, rte, chem, e_cold,
+                                e_nd, e_xh, quiet=True, thermal=thermal,
+                                zred=9.0)
+        n_k3h = sweep.launches["cheb_sweep_rates_heat"]
+        log(f"evolve3D(thermal) N={Ne} R={Re} {nse} sources fuse_fold on "
+            f"{devname}: {time.time() - t0:.2f} s, K3h launches {n_k3h}")
+        if (n_k3h > 0) != (devname == "cuda"):
+            raise RuntimeError(f"evolve3D(thermal) on {devname}: {n_k3h} "
+                               f"K3h launches")
+    (xh_g, phi_g, t_g), (xh_c, phi_c, t_c) = out["cuda"], out["cpu"]
+    for a in (xh_g, phi_g, t_g):
+        if a.shape != (Ne,) * 3 or not np.all(np.isfinite(a)):
+            raise RuntimeError("evolve3D(thermal): non-finite output")
+    if not t_g.max() > 1e3:
+        raise RuntimeError("evolve3D(thermal): nothing was heated")
+    np.testing.assert_allclose(xh_g, xh_c, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(phi_g, phi_c, rtol=1e-4,
+                               atol=1e-6 * np.abs(phi_c).max())
+    np.testing.assert_allclose(t_g, t_c, rtol=1e-3, atol=0)
+    log(f"evolve3D(thermal) GPU vs CPU: xh max rel "
+        f"{np.max(np.abs(xh_g - xh_c) / np.abs(xh_c)):.3e}, phi max abs "
+        f"{np.max(np.abs(phi_g - phi_c)):.3e} of max {phi_c.max():.3e}, T "
+        f"max rel {np.max(np.abs(t_g - t_c) / t_c):.3e} (T range "
+        f"{t_g.min():.1f}..{t_g.max():.1f} K)")
+
+    # ---- 4c. the entry point: the heating example through C2Ray_Test ------
+    Nh, steps = N_HEATING, STEPS_HEATING
+    with tempfile.TemporaryDirectory() as tmp:
+        quiet_log = io.StringIO()
+        sweep.reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(quiet_log):
+            sim = C2Ray_Test(heating_params(tmp + "/"), Nh, device="cuda")
+            sim.ndens = 1e-3 * np.ones((Nh,) * 3)
+            srcpos = np.array([[Nh // 2 + 1]] * 3, dtype=float)
+            srcflux = np.array([50.0])
+            zreds = sim.generate_redshift_array(2, 2e6)
+            dt_h = sim.set_timestep(zreds[0], zreds[1], steps)
+            for _ in range(steps):
+                sim.evolve3D(dt_h, srcflux, srcpos)
+        t_sim = time.time() - t0
+    n_iter = quiet_log.getvalue().count("Raytracing took")
+    n_k1 = sweep.launches["cheb_sweep"]
+    g_h = sim.raytracer.geom
+    log(f"C2Ray_Test heating example N={Nh} (float64, engine cheb, "
+        f"Dc={g_h.Dc}, R1={g_h.r_max + 1}, "
+        f"{sim.raytracer.num_bins} bins): {steps} timesteps, {n_iter} "
+        f"raytrace iterations, {t_sim:.2f} s with set-up, K1 launches "
+        f"{n_k1}")
+    if n_k1 == 0 or n_k1 != n_iter:
+        raise RuntimeError(f"heating example: {n_k1} K1 launches for "
+                           f"{n_iter} single-source iterations")
+    temp_h, xh_h = np.asarray(sim.temp), np.asarray(sim.xh)
+    if not (np.all(np.isfinite(temp_h)) and np.all(np.isfinite(xh_h))):
+        raise RuntimeError("heating example: non-finite temp or xh")
+    checks, t_prof, x_prof = heating_checks(temp_h, xh_h, Nh)
+    log("  r [cells]: <T> [K], <x>: " + "; ".join(
+        f"{a}: {t_prof[a]:.1f}, {x_prof[a]:.3e}"
+        for a in range(0, Nh // 2, 3)))
+    for name, passed in checks.items():
+        log(f"  {name}: {'PASSED' if passed else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError("heating example: " + ", ".join(
+            k for k, v in checks.items() if not v) + " FAILED")
+
     # ---- 5. kernels line and result -----------------------------------
     # launches: each kernel's count over its own path's run (phase 3 for
-    # K1, 3b for the others); the other numbers from phases 2 and 2b at
-    # that path's shapes. No single PyTorch call computes any of them.
+    # K1, 3b for K1f, K2 and K3, 3c for K3h); the other numbers from phases
+    # 2, 2b and 2c at that path's shapes. No single PyTorch call computes any of them.
     src = "pyc2ray_torch/ops/csrc/"
     tpu = "pyc2ray_tpu/ops/pallas_sweep.py:"
     kernels = [
@@ -549,9 +826,12 @@ def main():
              replaces=tpu + "455", launches=seg_launches, **k_seg),
         dict(name="cheb_sweep_rates", source=src + "cheb_sweep_rates.cu",
              replaces=tpu + "669",
-             launches=fused_launches["cheb_sweep_rates"], **k_fused["K3"])]
+             launches=fused_launches["cheb_sweep_rates"], **k_fused["K3"]),
+        dict(name="cheb_sweep_rates_heat", source=src + "cheb_sweep_rates.cu",
+             replaces=tpu + "669", launches=heat_launches, **k_heat)]
     kernels = [dict(name=k.pop("name"), route="cuda", **k, library_ms=None)
                for k in kernels]
+    log(f"chip_smoke wall time: {time.time() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

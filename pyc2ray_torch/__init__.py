@@ -1,25 +1,40 @@
 """pyc2ray_torch: the PyTorch/CUDA port of pyc2ray-tpu for NVIDIA Hopper.
 
-This first slice runs the single-device, hydrogen-only, isothermal
-timestep: the Chebyshev-face raytracer (``ops.raytrace_cheb``) whose
-cube-shell sweep is a hand-written CUDA kernel (``ops/csrc``), the
-time-averaged chemistry pass (``ops.chemistry``) and the convergence loop
-(``evolve.evolve3D``). The package imports torch, numpy and scipy only.
+A run starts as in the JAX package: ``C2Ray_Test(paramfile, N)`` builds the
+simulation from a YAML parameter file (or its parsed mapping) and
+``sim.evolve3D(dt, srcflux, srcpos)`` advances it by one timestep. Ported
+so far: the single-device hydrogen path, isothermal or with the
+photoheating channel and the thermal update (``Material.isothermal:
+false``), on the Chebyshev-face raytracer (``ops.raytrace_cheb``,
+``Raytracing.engine: cheb``) whose sweep modes are hand-written CUDA
+kernels (``ops/csrc``), the time-averaged chemistry pass
+(``ops.chemistry``) and the convergence loop (``evolve.evolve3D``). The
+package imports torch, numpy and scipy only (PyYAML only to read a
+parameter file).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which selects the plain PyTorch versions of every kernel.
 """
 
 from . import constants
+from .chemistry_api import hydrogenODE
+from .cosmology import FlatLambdaCDM
 from .device import resolve_device
 from .evolve import evolve3D
-from .ops import ChebRaytracer, ChemistryParams, doric, global_pass
+from .models import C2RaySimulation, C2Ray_Test
+from .ops import (ChebRaytracer, ChemistryParams, RaytraceConfig, doric,
+                  global_pass)
 from .radiation import BlackBodySource, make_tau_table
+from .utils import (printlog, format_sources, read_test_sources,
+                    generate_test_sourcefile)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "constants", "resolve_device", "evolve3D", "ChebRaytracer",
-    "ChemistryParams", "doric", "global_pass",
+    "constants", "hydrogenODE", "FlatLambdaCDM", "resolve_device",
+    "evolve3D", "C2RaySimulation", "C2Ray_Test", "ChebRaytracer",
+    "ChemistryParams", "RaytraceConfig", "doric", "global_pass",
     "BlackBodySource", "make_tau_table",
+    "printlog", "format_sources", "read_test_sources",
+    "generate_test_sourcefile",
 ]

@@ -10,9 +10,10 @@ import torch
 
 from .ops.chemistry import ChemistryParams
 from .ops.raytrace_cheb import ChebTables
+from .ops.thermal import ThermalParams
 from .radiation.spectral_bins import SpectralBins
 
-__all__ = ["state_from_jax"]
+__all__ = ["state_from_jax", "thermal_from_jax"]
 
 
 def state_from_jax(tables_np, bins_np, chem_dict):
@@ -38,3 +39,11 @@ def state_from_jax(tables_np, bins_np, chem_dict):
                         num_bins=len(s))
     chem = ChemistryParams(**{k: float(v) for k, v in chem_dict.items()})
     return tables, bins, chem
+
+
+def thermal_from_jax(thermal_dict):
+    """The port's ``ThermalParams`` from the fields of the JAX package's
+    (``ThermalParams._asdict()``): floats, and ``compton`` a bool."""
+    kw = {k: (bool(v) if k == "compton" else float(v))
+          for k, v in thermal_dict.items()}
+    return ThermalParams(**kw)

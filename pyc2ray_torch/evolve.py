@@ -1,9 +1,10 @@
 """Timestep evolution: the raytrace/chemistry convergence loop.
 
-PyTorch twin of pyc2ray_tpu/evolve.py::evolve3D on the hydrogen-only,
-isothermal path (reference: pyc2ray/evolve.py:38-245). Iterate (raytrace
--> chemistry -> global convergence test) until the time-averaged
-ionization field stops changing. All grid state lives on the raytracer's
+PyTorch twin of pyc2ray_tpu/evolve.py::evolve3D on the hydrogen-only path
+(reference: pyc2ray/evolve.py:38-245). Iterate (raytrace -> chemistry ->
+global convergence test) until the time-averaged ionization field stops
+changing; in the non-isothermal mode the temperature then advances over
+the timestep with the converged photoheating rates. All grid state lives on the raytracer's
 device for the duration of the loop; only the scalar convergence metrics
 come back to the host each iteration.
 """
@@ -18,7 +19,7 @@ from .evolve_loop import IterationResult, force, run_convergence_loop
 from .ops.chemistry import ChemistryParams, global_pass
 from .utils.logutils import printlog
 
-__all__ = ["evolve3D"]
+__all__ = ["evolve3D", "prepare_for_engine"]
 
 
 def _absorbed_rate(phi_ion, ndens, xh_av):
@@ -30,10 +31,19 @@ def _absorbed_rate(phi_ion, ndens, xh_av):
     return (phi_ion.reshape(-1) * nhi.reshape(-1)).to(torch.float32).sum()
 
 
+def prepare_for_engine(raytracer, src_pos, src_flux, dr, ndens_d):
+    """Uniform source staging. The port's engines all trace at a fixed
+    radius and take (pos, flux); ``dr`` and ``ndens_d`` are what a
+    flux-bucketing engine would need besides (the JAX package's adaptive
+    engine, not ported)."""
+    return raytracer.prepare_sources(src_pos, src_flux)
+
+
 def evolve3D(dt, dr, src_flux, src_pos, raytracer,
              chem: ChemistryParams, temp, ndens, xh,
              convergence_fraction=1e-4, logfile=None, quiet=False,
-             max_iterations=100, thermal=None):
+             max_iterations=100, thermal=None, zred=0.0,
+             loss_fraction=None):
     """Evolve the ionized fraction over one timestep until convergence.
 
     Parameters
@@ -48,18 +58,22 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
     temp, ndens, xh : (N,N,N) grids (K, cm^-3, ionized fraction)
     convergence_fraction : fraction of cells allowed to remain unconverged
         (reference evolve.py:127)
-    thermal : must be None; the non-isothermal mode is not ported yet
+    thermal : ops.thermal.ThermalParams, optional
+        Non-isothermal mode: after the ionization convergence loop the
+        temperature advances over dt using the converged photoheating
+        rates (requires a raytracer built with do_heating). zred enters
+        the Compton cooling term.
+    loss_fraction : float, optional
+        Raytracing.loss_fraction: a per-iteration photon loss above it
+        logs a warning.
 
     Returns
     -------
     xh_new : (N,N,N) numpy array, updated ionized fraction
     phi_ion : (N,N,N) numpy array, photoionization rates of the last
         iteration
+    temp_new : (N,N,N) numpy array, only when ``thermal`` is given
     """
-    if thermal is not None:
-        raise NotImplementedError(
-            "thermal evolution is not ported yet: it arrives with the "
-            "heating/thermal slice of the port")
     cfg = raytracer.config
     N = cfg.N
     num_cells = N ** 3
@@ -72,7 +86,8 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
                                device=dev).reshape(-1)
 
     temp_d, ndens_d, xh_d = grid(temp), grid(ndens), grid(xh)
-    pos_b, flux_b = raytracer.prepare_sources(src_pos, src_flux)
+    pos_b, flux_b = prepare_for_engine(raytracer, src_pos, src_flux, dr,
+                                       ndens_d)
     dt_d = torch.tensor(dt, dtype=dtype).to(dev)
     emitted = float(np.sum(np.asarray(src_flux, dtype=np.float64))) \
         * S_STAR_REF
@@ -83,16 +98,21 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
     printlog(f"Running on {num_src:n} source(s), total normalized flux: "
              f"{float(np.sum(src_flux)):.2e}", logfile, quiet)
 
-    state = {"xh_av": xh_d, "xh_intermed": xh_d, "phi_ion": None}
+    if thermal is not None and not cfg.do_heating:
+        raise ValueError("thermal evolution requires a raytracer with "
+                         "do_heating=True (Photo.compute_heating_rates)")
+
+    state = {"xh_av": xh_d, "xh_intermed": xh_d,
+             "phi_ion": None, "phi_heat": None}
 
     def iteration(niter):
         t0 = time.time()
         xh_av_seen = state["xh_av"]
-        phi_ion, _ = raytracer.trace_batches(ndens_d, xh_av_seen, pos_b,
-                                             flux_b, dr)
+        phi_ion, phi_heat = raytracer.trace_batches(
+            ndens_d, xh_av_seen, pos_b, flux_b, dr)
         force(phi_ion)
         printlog(f"Raytracing took {time.time()-t0:.3f} s.", logfile, quiet)
-        state["phi_ion"] = phi_ion
+        state["phi_ion"], state["phi_heat"] = phi_ion, phi_heat
 
         t0 = time.time()
         xh_intermed, xh_av, conv_flag = global_pass(
@@ -110,8 +130,20 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
 
     run_convergence_loop(iteration, num_cells, num_src,
                          convergence_fraction, max_iterations,
-                         logfile, quiet)
+                         logfile, quiet, loss_fraction=loss_fraction)
 
     shape3 = (N, N, N)
-    return (state["xh_intermed"].cpu().numpy().reshape(shape3),
-            state["phi_ion"].cpu().numpy().reshape(shape3))
+    out = (state["xh_intermed"].cpu().numpy().reshape(shape3),
+           state["phi_ion"].cpu().numpy().reshape(shape3))
+    if thermal is not None:
+        from .ops.thermal import update_temperature
+        t0 = time.time()
+        temp_new = update_temperature(dt_d, temp_d, ndens_d, state["xh_av"],
+                                      state["phi_heat"], thermal,
+                                      z=float(zred))
+        temp_np = temp_new.cpu().numpy().reshape(shape3)
+        printlog(f"Thermal update took {time.time()-t0:.3f} s "
+                 f"(T range {temp_np.min():.1f}..{temp_np.max():.1f} K).",
+                 logfile, quiet)
+        out = out + (temp_np,)
+    return out

@@ -42,7 +42,7 @@ def conv_criterion_for(num_cells, num_src, convergence_fraction):
 
 def run_convergence_loop(iteration, num_cells, num_src,
                          convergence_fraction=1e-4, max_iterations=100,
-                         logfile=None, quiet=False):
+                         logfile=None, quiet=False, loss_fraction=None):
     """Iterate ``iteration(niter)`` until global convergence.
 
     ``iteration`` performs one (raytrace -> chemistry) pass, updating its
@@ -50,6 +50,12 @@ def run_convergence_loop(iteration, num_cells, num_src,
     (reference evolve.py:216-232): the non-converged cell count drops
     below the criterion OR the relative change of both sum(xh) and
     sum(1-xh) drops below convergence_fraction.
+
+    When ``iteration`` reports photon_loss and ``loss_fraction`` is set
+    (Raytracing.loss_fraction), a loss above the bound logs a WARNING: the
+    adaptive-radius engine's contract is that its truncation stays below
+    this bound (the role of the reference's subbox early-exit,
+    raytracing.f90:193-221).
 
     Returns the number of iterations executed.
     """
@@ -92,6 +98,12 @@ def run_convergence_loop(iteration, num_cells, num_src,
                 msg += " (absorbed > emitted: spectral-bin quadrature " \
                        "bias, bounded by the bins' accuracy target)"
         printlog(msg, logfile, quiet)
+        if (res.photon_loss is not None and loss_fraction is not None
+                and res.photon_loss > loss_fraction):
+            printlog(f"WARNING: photon loss {res.photon_loss:.3e} exceeds "
+                     f"Raytracing.loss_fraction = {loss_fraction:.1e}; "
+                     f"raise the adaptive safety factor or R_max",
+                     logfile, quiet)
         converged = (res.conv_flag < criterion) or (
             (rel1 < convergence_fraction) and (rel0 < convergence_fraction))
         prev_sum_xh1, prev_sum_xh0 = res.sum_xh1, res.sum_xh0

@@ -1,0 +1,458 @@
+"""Abstract simulation base class.
+
+PyTorch twin of pyc2ray_tpu/models/base.py, itself the equivalent of the
+reference's ``C2Ray`` base class (pyc2ray/c2ray_base.py:83-512): owns
+parameters, grid, cosmology, radiation tables, the raytracer and the
+time-evolution methods. Concrete simulations subclass it and override the
+``_*_init`` hooks, like the reference's template pattern
+(c2ray_base.py:466-484).
+
+Differences from the JAX package:
+* ``device`` selects where the raytracer and the evolve loop run ("cuda"
+  by default; "cpu" runs the plain PyTorch versions of the kernels).
+* ``paramfile`` may be an already-parsed mapping instead of the path of a
+  YAML file (PyYAML is imported only to read a file).
+* ``Raytracing.engine``: ``cheb`` and ``pallas`` both build the port's
+  ``ChebRaytracer`` (on the GPU there is one implementation of the
+  Chebyshev-face engine: the sweep is a CUDA kernel on a CUDA device and
+  its plain version on the CPU). The engines and options that are not
+  ported yet (``flat``, which is the YAML default, ``adaptive``, ``he``,
+  ``box``, a device mesh, the window accumulate) raise
+  ``NotImplementedError`` naming the ROADMAP.md item that brings them;
+  none is mapped onto another.
+"""
+
+import numpy as np
+import torch
+
+from ..constants import Mpc, YEAR, ev2fr, ev2k
+from ..cosmology import FlatLambdaCDM
+from ..device import resolve_device
+from ..evolve import evolve3D
+from ..ops.chemistry import ChemistryParams
+from ..radiation import BlackBodySource, make_tau_table
+from ..utils.logutils import printlog
+from ..utils.paramutils import read_paramfile
+from ..utils.sourceutils import format_sources
+
+__all__ = ["C2RaySimulation"]
+
+# Defaults for optional YAML keys (reference requires every key; missing ->
+# KeyError, TODO noted at c2ray_base.py:64-67)
+_DEFAULTS = {
+    "Grid": {"resume": 0},
+    "Photo": {"compute_heating_rates": 0, "grey": 0,
+              "SourceType": "blackbody", "secondary_ionization": 0,
+              "secondary_ramp": 0, "recombination_photons": 0},
+    "Raytracing": {"source_batch_size": 8, "convergence_fraction": 1e-4,
+                   "loss_fraction": 1e-2, "subboxsize": 150,
+                   "max_subbox": 1000, "dtype": "float64",
+                   "engine": "flat"},
+    "Output": {"logfile": "pyC2Ray.log"},
+}
+
+# Raytracing.engine values of the schema that the port does not build yet,
+# with the ROADMAP.md item that brings each.
+_ENGINES_TO_PORT = {
+    "flat": "ROADMAP.md section 1 item 7 (the table-exact flat engine, "
+            "ops/raytrace.py)",
+    "adaptive": "ROADMAP.md section 1 item 6 (ops/adaptive.py::"
+                "AdaptiveRaytracer)",
+    "he": "ROADMAP.md section 1 item 9 (helium: ops/raytrace_he.py, "
+          "ops/chemistry_he.py, evolve3D_he)",
+    "box": "ROADMAP.md section 1 item 12 (ops/raytrace_box.py, the "
+           "octahedral sheet engine)",
+}
+
+
+class C2RaySimulation:
+    """Base class for a C2Ray-style reionization simulation in PyTorch."""
+
+    def __init__(self, paramfile, Nmesh, use_gpu=True, use_mpi=None,
+                 mesh=None, device="cuda"):
+        """
+        Parameters
+        ----------
+        paramfile : str or mapping
+            YAML parameter file (same schema as the reference pyc2ray), or
+            the parsed parameters as a nested dict.
+        Nmesh : int
+            Mesh size.
+        use_gpu, use_mpi :
+            Accepted for API compatibility with the reference constructor
+            signature (c2ray_base.py:84); ignored (see ``device``).
+        mesh : must be None
+            The JAX package takes a device mesh here; multi-GPU execution
+            is not ported yet.
+        device : str or torch.device
+            Where the raytracer and the evolve loop run: "cuda" (default)
+            or "cpu".
+        """
+        del use_gpu, use_mpi
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (source-parallel or domain-decomposed "
+                "execution) is not ported yet: ROADMAP.md section 1 item "
+                "11 (parallel/)")
+        self.rank = 0
+        self.mesh = None
+        self.device = resolve_device(device)
+
+        self._read_paramfile(paramfile)
+        self.N = Nmesh
+        self.shape = (Nmesh, Nmesh, Nmesh)
+
+        self._param_init()
+        self._output_init()
+        self._grid_init()
+        self._cosmology_init()
+        self._redshift_init()
+        self._material_init()
+        self._sources_init()
+        self._radiation_init()
+        self._raytracer_init()
+        self.printlog("Starting simulation... \n\n")
+
+    # ==================================================================
+    # TIME-EVOLUTION METHODS (c2ray_base.py:147-257)
+    # ==================================================================
+    def set_timestep(self, z1, z2, num_timesteps):
+        """Timestep between two redshift slices, in seconds
+        (c2ray_base.py:147-168)."""
+        t1 = self.cosmology.lookback_time(z1)
+        t2 = self.cosmology.lookback_time(z2)
+        return (t1 - t2) / num_timesteps
+
+    def evolve3D(self, dt, src_flux, src_pos):
+        """Evolve the grid over one timestep (c2ray_base.py:170-226).
+
+        src_pos is (3, NumSrc) 1-indexed (reference convention). Updates
+        ``xh`` and ``phi_ion``, and ``temp`` in the non-isothermal mode."""
+        pos, flux = format_sources(src_pos, src_flux)
+        out = evolve3D(
+            dt, self.dr, flux, pos, self.raytracer, self.chem,
+            self.temp, self.ndens, self.xh,
+            convergence_fraction=self.convergence_fraction,
+            logfile=self.logfile, quiet=False,
+            thermal=self.thermal, zred=self.zred,
+            loss_fraction=self.loss_fraction)
+        if self.thermal is not None:
+            self.xh, self.phi_ion, self.temp = out
+        else:
+            self.xh, self.phi_ion = out
+
+    def cosmo_evolve(self, dt):
+        """Dilute density / contract cell size over a timestep using the
+        half-step redshift convention (c2ray_base.py:229-257)."""
+        t_now = self.time
+        t_half = t_now + 0.5 * dt
+        t_after = t_now + dt
+        z_half = self.time2zred(t_half)
+        if self.cosmological:
+            dilution = ((1 + z_half) / (1 + self.zred)) ** 3
+            self.ndens = self.ndens * dilution
+            self.dr = self.dr_c * self.cosmology.scale_factor(z_half)
+            if not getattr(self, "isothermal", True):
+                # adiabatic cooling of the expanding gas: T ~ rho^(2/3)
+                self.temp = self.temp * dilution ** (2.0 / 3.0)
+        self.zred = z_half
+        self.time = t_after
+
+    def do_raytracing(self, src_flux, src_pos, stats=False):
+        """Standalone Gamma computation (c2ray_base.py:300-323).
+
+        With ``stats=True`` also returns a diagnostics dict with the
+        photon-loss fraction (the analog of the reference's
+        ``do_raytracing(..., stats=True) -> (phi, nsubbox, photonloss)``,
+        reference raytracing.py:105-108)."""
+        pos, flux = format_sources(src_pos, src_flux)
+        out = self.raytracer.trace(self.ndens, self.xh, pos, flux, self.dr)
+        if self.raytracer.config.do_heating:
+            self.phi_ion = out[0].cpu().numpy()
+            self.phi_heat = out[1].cpu().numpy()
+        else:
+            self.phi_ion = out.cpu().numpy()
+        if stats:
+            from ..diagnostics import photon_budget
+            st = photon_budget(self.phi_ion, self.ndens, self.xh,
+                               flux, self.dr)
+            return self.phi_ion, st
+        return self.phi_ion
+
+    # ==================================================================
+    # UTILITY METHODS
+    # ==================================================================
+    def time2zred(self, t):
+        return self.cosmology.z_at_age(t)
+
+    def zred2time(self, z, unit="s"):
+        t = self.cosmology.age(z)
+        return t / YEAR if unit in ("yr", "yrs") else t
+
+    def printlog(self, s, quiet=False):
+        if self.logfile is None:
+            raise RuntimeError("Please set the log file in _output_init")
+        printlog(s, self.logfile, quiet)
+
+    def write_output(self, z):
+        pass
+
+    # ==================================================================
+    # INITIALIZATION (private; template hooks as in c2ray_base.py:466-484)
+    # ==================================================================
+    def _param_init(self):
+        """CGS constants & misc parameters -> attributes
+        (c2ray_base.py:329-352)."""
+        ld = self._ld
+        self.eth0 = ld["CGS"]["eth0"]
+        self.ethe0 = ld["CGS"]["ethe0"]
+        self.ethe1 = ld["CGS"]["ethe1"]
+        self.bh00 = ld["CGS"]["bh00"]
+        self.fh0 = ld["CGS"]["fh0"]
+        self.xih0 = ld["CGS"]["xih0"]
+        self.albpow = ld["CGS"]["albpow"]
+        self.abu_h = ld["Abundances"]["abu_h"]
+        self.abu_he = ld["Abundances"]["abu_he"]
+        self.mean_molecular = self.abu_h + 4.0 * self.abu_he
+        self.abu_c = ld["Abundances"]["abu_c"]
+        self.colh0 = ld["CGS"]["colh0_fact"] * self.fh0 * self.xih0 / self.eth0 ** 2
+        self.temph0 = self.eth0 * ev2k
+        self.sig = ld["Photo"]["sigma_HI_at_ion_freq"]
+        self.loss_fraction = ld["Raytracing"]["loss_fraction"]
+        self.convergence_fraction = ld["Raytracing"]["convergence_fraction"]
+        self.max_subbox = ld["Raytracing"]["max_subbox"]
+        self.subboxsize = ld["Raytracing"]["subboxsize"]
+        self.chem = ChemistryParams(
+            bh00=self.bh00, albpow=self.albpow, colh0=self.colh0,
+            temph0=self.temph0, abu_c=self.abu_c)
+        # Non-isothermal mode (beyond reference; the reference declares
+        # the thermal chemistry TODO, README.md:81-87): Material.isothermal
+        # defaults to true = reference behavior. When false, evolve3D
+        # advances the temperature with the photoheating rates.
+        self.isothermal = bool(ld["Material"].get("isothermal", True))
+        if not self.isothermal:
+            from ..ops.thermal import ThermalParams
+            self.thermal = ThermalParams(
+                bh00=self.bh00, albpow=self.albpow, colh0=self.colh0,
+                temph0=self.temph0, abu_c=self.abu_c)
+        else:
+            self.thermal = None
+
+    def _cosmology_init(self):
+        """(c2ray_base.py:354-373)"""
+        ld = self._ld
+        h = ld["Cosmology"]["h"]
+        self.cosmology = FlatLambdaCDM(
+            100 * h, ld["Cosmology"]["Omega0"],
+            Tcmb0=ld["Cosmology"]["cmbtemp"], Ob0=ld["Cosmology"]["Omega_B"])
+        self.cosmological = bool(ld["Cosmology"]["cosmological"])
+        self.zred_0 = ld["Cosmology"]["zred_0"]
+        self.age_0 = self.zred2time(self.zred_0)
+        if self.cosmological:
+            self.printlog(
+                f"Cosmology is on, scaling comoving quantities to the "
+                f"initial redshift, which is z0 = {self.zred_0:.3f}...")
+            self.dr = self.cosmology.scale_factor(self.zred_0) * self.dr_c
+        else:
+            self.printlog("Cosmology is off.")
+
+    def _radiation_init(self):
+        """Radiation tables (c2ray_base.py:375-443)."""
+        ld = self._ld
+        self.minlogtau = ld["Photo"]["minlogtau"]
+        self.maxlogtau = ld["Photo"]["maxlogtau"]
+        self.NumTau = ld["Photo"]["NumTau"]
+        self.SourceType = ld["Photo"]["SourceType"]
+        self.grey = bool(ld["Photo"]["grey"])
+        self.compute_heating_rates = bool(ld["Photo"]["compute_heating_rates"])
+        self.secondary_ionization = bool(
+            ld["Photo"]["secondary_ionization"])
+        self.secondary_ramp = bool(ld["Photo"]["secondary_ramp"])
+        self.recombination_photons = bool(
+            ld["Photo"]["recombination_photons"])
+
+        self.tau, self.dlogtau = make_tau_table(
+            self.minlogtau, self.maxlogtau, self.NumTau)
+
+        ion_freq_HI = ev2fr * self.eth0
+        ion_freq_HeII = ev2fr * self.ethe1
+
+        if self.SourceType == "blackbody":
+            freq_min = ion_freq_HI
+            freq_max = 10 * ion_freq_HeII
+            self.bb_Teff = ld["BlackBodySource"]["Teff"]
+            self.cs_pl_idx_h = ld["BlackBodySource"]["cross_section_pl_index"]
+            radsource = BlackBodySource(self.bb_Teff, self.grey,
+                                        ion_freq_HI, self.cs_pl_idx_h)
+            self.printlog(
+                f"Using Black-Body sources with effective temperature "
+                f"T = {radsource.temp:.1e} K")
+            self.printlog("Integrating photoionization rates tables...")
+            self.photo_thin_table, self.photo_thick_table = \
+                radsource.make_photo_table(self.tau, freq_min, freq_max, 1e48)
+            if self.compute_heating_rates:
+                self.printlog("Integrating photoheating rates tables...")
+                self.heat_thin_table, self.heat_thick_table = \
+                    radsource.make_heat_table(self.tau, freq_min, freq_max, 1e48)
+            else:
+                self.heat_thin_table = np.zeros(self.NumTau + 1)
+                self.heat_thick_table = np.zeros(self.NumTau + 1)
+        else:
+            raise NameError("Unknown source type: " + str(self.SourceType))
+
+    def _raytracer_init(self):
+        """Build the raytracer (replaces device_init + table upload,
+        asora_core.py:20-58)."""
+        ld = self._ld
+        batch = int(ld["Raytracing"]["source_batch_size"])
+        dtype_name = str(ld["Raytracing"].get("dtype", "float64"))
+        dtype = {"float64": torch.float64, "f64": torch.float64,
+                 "float32": torch.float32, "f32": torch.float32}[dtype_name]
+        engine = str(ld["Raytracing"].get("engine", "flat"))
+        valid_engines = ("flat", "cheb", "pallas", "adaptive", "he", "box")
+        if engine not in valid_engines:
+            raise ValueError(
+                f"Unknown Raytracing.engine: {engine!r}. Valid engines: "
+                f"{', '.join(valid_engines)} (flat = reference-exact "
+                f"octahedral f64 tables; cheb = Chebyshev-face sweep; "
+                f"pallas = the same engine, the name of its TPU-kernel "
+                f"variant in the JAX package; adaptive = flux-bucketed "
+                f"per-source radii; he = three-species H+He; box = "
+                f"octahedral sheet-batched formulation). This package "
+                f"builds cheb and pallas.")
+        # The reference's CPU subbox knobs (parameters.yml Raytracing:
+        # subboxsize/max_subbox; raytracing.f90:183-226) only act on the
+        # adaptive engine, and only when the USER sets them; on any other
+        # engine a user-set value is announced as unused, not silent.
+        user_subbox = ({"subboxsize", "max_subbox"}
+                       & set(self._user_keys.get("Raytracing", ())))
+        if user_subbox and engine != "adaptive":
+            self.printlog(
+                f"NOTE: Raytracing.{'/'.join(sorted(user_subbox))} "
+                f"configure the reference's CPU subbox machinery; here "
+                f"only Raytracing.engine: adaptive consumes them "
+                f"(subboxsize -> minimum bucket radius, max_subbox -> "
+                f"radius cap). engine: {engine} traces every source at "
+                f"R_max_LLS and ignores them, matching the reference's "
+                f"own GPU path.")
+        self.multi_species = False
+        if self.secondary_ionization and engine != "he":
+            raise ValueError(
+                "Photo.secondary_ionization: 1 requires Raytracing."
+                "engine: he (the Shull & van Steenberg redistribution "
+                "needs the three-species photoelectron energy channel)")
+        if self.recombination_photons and engine != "he":
+            raise ValueError(
+                "Photo.recombination_photons: 1 requires Raytracing."
+                "engine: he (recycling redistributes HELIUM "
+                "recombination radiation; the hydrogen-only engines "
+                "already assume case-B on-the-spot for H)")
+        if engine in _ENGINES_TO_PORT:
+            raise NotImplementedError(
+                f"Raytracing.engine: {engine} is not ported to PyTorch yet: "
+                f"{_ENGINES_TO_PORT[engine]}. This package builds engine: "
+                f"cheb (or pallas, the same engine); the YAML default is "
+                f"flat, so name the engine in the parameter file.")
+        # The JAX engine's window accumulate is a placement by one-hot
+        # matmuls; the port adds each source's box with a slice add, which
+        # is what "scan" names and what "auto" may resolve to there.
+        accumulate = str(ld["Raytracing"].get("accumulate", "auto"))
+        window_size = ld["Raytracing"].get("window_size", None)
+        if accumulate not in ("auto", "scan") or window_size is not None:
+            raise NotImplementedError(
+                f"Raytracing.accumulate: {accumulate} / window_size: "
+                f"{window_size} select the JAX engine's window accumulate, "
+                f"which the port does not have (ROADMAP.md section 1 item "
+                f"3: a layout device of the TPU; the port accumulates per "
+                f"source). Leave both at their defaults.")
+
+        # production fast path: Chebyshev-face sweep + spectral bins
+        from ..ops.raytrace_cheb import ChebRaytracer
+        from ..radiation.spectral_bins import make_spectral_bins
+        ion_freq_HI = ev2fr * self.eth0
+        # quadrature resolution knobs (4 x 8 = 32 Gauss-Legendre bins when
+        # the compression is off)
+        panels = int(ld["Raytracing"].get("bins_panels", 4))
+        nodes = int(ld["Raytracing"].get("bins_nodes", 8))
+        # Raytracing.bins_compress: sum-of-exponentials compression
+        # (radiation/bins_compress.py). "auto"/true (default) compresses
+        # a dense 768-bin quadrature to a ~14-node sum at 1e-3 uniform
+        # relative error; a float sets the target; 0/false keeps the
+        # Gauss-Legendre bins.
+        comp = ld["Raytracing"].get("bins_compress", "auto")
+        if comp in ("auto", True):
+            comp = 1e-3
+        comp = 0.0 if comp in (False, None) else float(comp)
+        source = BlackBodySource(self.bb_Teff, self.grey, ion_freq_HI,
+                                 self.cs_pl_idx_h)
+        if comp > 0:
+            from ..radiation.bins_compress import compress_bins
+            dense = make_spectral_bins(source, ion_freq_HI,
+                                       10 * ev2fr * self.ethe1,
+                                       panels=48, nodes=16)
+            bins = compress_bins(dense, target_rel=comp)
+            self.printlog(
+                f"Spectral bins: compressed {dense.num_bins} dense "
+                f"-> {bins.num_bins} nodes (target {comp:g})")
+        else:
+            bins = make_spectral_bins(source, ion_freq_HI,
+                                      10 * ev2fr * self.ethe1,
+                                      panels=panels, nodes=nodes)
+        self.raytracer = ChebRaytracer(
+            self.N, float(self.R_max_LLS), float(self.sig), bins,
+            batch_size=batch, dtype=dtype, device=self.device,
+            do_heating=self.compute_heating_rates)
+        self.printlog(
+            f"Using PyTorch Chebyshev-face raytracing on {self.device} "
+            f"(engine: {engine}; cheb and pallas are one implementation "
+            f"here: the sweep is a CUDA kernel on a GPU and plain PyTorch "
+            f"on the CPU; r_max = {self.raytracer.geom.r_max:n}, "
+            f"{bins.num_bins} spectral bins, batch = {batch:n}, "
+            f"dtype = {dtype_name})")
+
+    def _grid_init(self):
+        """(c2ray_base.py:445-462)"""
+        ld = self._ld
+        self.boxsize_c = ld["Grid"]["boxsize"] * Mpc
+        self.dr_c = self.boxsize_c / self.N
+        self.printlog(f"Welcome! Mesh size is N = {self.N:n}.")
+        self.printlog(f"Simulation box size (comoving Mpc): "
+                      f"{self.boxsize_c/Mpc:.3e}")
+        self.dr = self.dr_c
+        self.R_max_LLS = (ld["Photo"]["R_max_cMpc"] * self.N
+                          / ld["Grid"]["boxsize"])
+        self.printlog(f"Maximum comoving distance for photons from source "
+                      f"(type 3 LLS): {ld['Photo']['R_max_cMpc']:.3e} cMpc "
+                      f"= {self.R_max_LLS:.3f} grid cells.")
+
+    # -- subclass hooks -------------------------------------------------
+    def _output_init(self):
+        pass
+
+    def _redshift_init(self):
+        pass
+
+    def _material_init(self):
+        pass
+
+    def _sources_init(self):
+        pass
+
+    # ==================================================================
+    # PRIVATE
+    # ==================================================================
+    def _read_paramfile(self, paramfile):
+        """The parameters (a YAML file with the scientific-notation float
+        resolver of c2ray_base.py:490-507, or a parsed mapping) + the
+        defaults layer."""
+        self._ld = read_paramfile(paramfile)
+        # remember which keys the USER set before the defaults layer fills
+        # the rest: some reference keys (subboxsize/max_subbox) are only
+        # meaningful when explicitly configured and must not act, or
+        # warn, at their defaulted values
+        self._user_keys = {sec: frozenset(self._ld.get(sec) or ())
+                           for sec in _DEFAULTS}
+        for section, defaults in _DEFAULTS.items():
+            sec = self._ld.setdefault(section, {})
+            for key, val in defaults.items():
+                sec.setdefault(key, val)

@@ -34,7 +34,7 @@ _SIGNATURES = {
         "cheb_sweep_seg": [_P] * 10 + [_I] * 6 + [_D, _D, _I, _P],
     },
     "cheb_sweep_rates": {
-        "cheb_sweep_rates": [_P] * 14 + [_I] * 5 + [_D] * 3 + [_I, _I, _P],
+        "cheb_sweep_rates": [_P] * 16 + [_I] * 5 + [_D] * 3 + [_I, _I, _P],
     },
 }
 

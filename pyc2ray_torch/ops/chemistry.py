@@ -77,11 +77,14 @@ def doric(xh_old, dt, temp, rhe, phi, p: ChemistryParams):
     return xh, xh_av
 
 
-def global_pass(dt, ndens, temp, xh, xh_av, phi_ion, p: ChemistryParams):
+def global_pass(dt, ndens, temp, xh, xh_av, phi_ion, p: ChemistryParams,
+                mask=None):
     """Chemistry pass over the whole grid (chemistry.f90:13-110).
 
     All tensor arguments are same-shape (treated elementwise); ``dt`` is a
-    float or a 0-dim tensor.
+    float or a 0-dim tensor. ``mask`` (optional bool tensor, same shape)
+    excludes cells from the non-convergence count (the dead padding rows
+    of a non-divisible domain shard).
 
     Returns
     -------
@@ -115,4 +118,6 @@ def global_pass(dt, ndens, temp, xh, xh_av, phi_ion, p: ChemistryParams):
     not_conv = ((torch.abs(delta) > MIN_FRACTIONAL_CHANGE)
                 & (torch.abs(delta / yh_entry) > MIN_FRACTIONAL_CHANGE)
                 & (yh_entry > MIN_FRACTION_OF_ATOMS))
+    if mask is not None:
+        not_conv = not_conv & mask
     return xh_int, xh_av_cur, not_conv.sum()

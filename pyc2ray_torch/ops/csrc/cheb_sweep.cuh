@@ -1,5 +1,5 @@
 // Device code shared by the Chebyshev-face sweep kernels for NVIDIA Hopper:
-// cheb_sweep.cu (K1, K1f, K2) and cheb_sweep_rates.cu (K3).
+// cheb_sweep.cu (K1, K1f, K2) and cheb_sweep_rates.cu (K3, K3h).
 //
 // The sweep runs, per source of a batch, over cube shells r with three face
 // sub-steps x -> y -> z. A face cell (sign s, plane coordinates a, b) reads
@@ -233,27 +233,42 @@ __device__ void init_planes(const Tables<T>& tb, T* sc, T src_cd) {
   __syncthreads();
 }
 
-// The E spectral bins (s, then w) into shared memory `sm` (2E values).
-// Ends with a __syncthreads().
+// The E spectral bins into shared memory `sm`: s, then w, then (when `wh` is
+// not null) the heating weights w_heat; 2E or 3E values. Ends with a
+// __syncthreads().
 template <typename T>
-__device__ void load_bins(const T* s, const T* w, int E, T* sm) {
+__device__ void load_bins(const T* s, const T* w, int E, T* sm,
+                          const T* wh = nullptr) {
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     sm[e] = s[e];
     sm[E + e] = w[e];
+    if (wh != nullptr) sm[2 * E + e] = wh[e];
   }
   __syncthreads();
+}
+
+// acc = sum_e w_e core_e and, with HEAT, acc_h = sum_e w_heat_e core_e over
+// the same core_e = exp(-tau_in s_e) (-expm1(-dtau s_e)): one exp and one
+// expm1 per bin feed both sums. Bins in `sm` as load_bins lays them out.
+template <typename T, bool HEAT>
+__device__ __forceinline__ void bin_sums(T tau_in, T dtau, const T* sm, int E,
+                                         T& acc, T& acc_h) {
+  using A = Arith<T>;
+  acc = T(0);
+  acc_h = T(0);
+  for (int e = 0; e < E; ++e) {
+    const T core = A::mul(A::exp(-A::mul(tau_in, sm[e])),
+                          -A::expm1(-A::mul(dtau, sm[e])));
+    acc = A::add(acc, A::mul(sm[E + e], core));
+    if (HEAT) acc_h = A::add(acc_h, A::mul(sm[2 * E + e], core));
+  }
 }
 
 // sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e)), bins in `sm` as above.
 template <typename T>
 __device__ __forceinline__ T bin_sum(T tau_in, T dtau, const T* sm, int E) {
-  using A = Arith<T>;
-  T acc = T(0);
-  for (int e = 0; e < E; ++e) {
-    const T core = A::mul(A::exp(-A::mul(tau_in, sm[e])),
-                          -A::expm1(-A::mul(dtau, sm[e])));
-    acc = A::add(acc, A::mul(sm[E + e], core));
-  }
+  T acc, acc_h;
+  bin_sums<T, false>(tau_in, dtau, sm, E, acc, acc_h);
   return acc;
 }
 

@@ -1,16 +1,18 @@
 // Fused Chebyshev-face sweep + box assembly + spectral-bin rates for NVIDIA
 // Hopper (sm_90a).
 //
-// Replaces pyc2ray_tpu/ops/pallas_sweep.py::cheb_sweep_rates_pallas (K3;
-// body _kernel_fold_rates) without its heating output. Plain version:
-// pyc2ray_torch/ops/sweep.py::cheb_sweep_rates_ref.
+// Replaces pyc2ray_tpu/ops/pallas_sweep.py::cheb_sweep_rates_pallas (body
+// _kernel_fold_rates): K3 with the photoionization output alone, K3h with
+// the photoheating output beside it (the TPU kernel's heat_bins). Plain
+// version: pyc2ray_torch/ops/sweep.py::cheb_sweep_rates_ref.
 //
 // Phase A is K1's sweep (cheb_sweep.cuh): the cdin and the dcol of every
 // valid face cell are stored at the cell's cartesian position in two
 // scratch boxes (face memberships are disjoint, so these are stores, not
 // the TPU kernel's read-modify-write adds). Phase B evaluates, per box cell,
-//   phi = flux S* dr / (dr^3 4 pi d2) sum_e w_e e^{-tau_in s_e}
-//         (-expm1(-dtau s_e)) / max(dcol, tiny),
+//   phi  = flux S* dr / (dr^3 4 pi d2) sum_e w_e core_e / max(dcol, tiny)
+//   heat = the same with the heating weights w_heat_e         (K3h only)
+//   core_e = e^{-tau_in s_e} (-expm1(-dtau s_e)),
 // masked by the rates table's valid channel (octahedron, clip, R^2 cut,
 // source cell excluded) and cdin <= 2e30. The source cell is 0; the caller
 // sets its closed form. The TPU kernel divides by dcol without a floor
@@ -25,14 +27,18 @@
 // where the valid channel is set: every such cell is a valid face cell of
 // exactly one shell, so the scratch boxes need no zeroing. The bins sit in
 // shared memory, loaded once per block; exp/expm1 are the accurate expf /
-// expm1f, not the fast __expf.
+// expm1f, not the fast __expf. The heating output is a template flag of
+// phase B, chosen by a non-null heat pointer: each bin's exp and expm1 are
+// evaluated once and feed both accumulators (bin_sums), so phi is the same
+// bits with and without the heat output.
 //
 // Bound. The function reads the nHI box, the geometry tables and the rates
 // table once and writes the phi box once (B = 8, Dc = 64, R1 = 31, f32:
-// 8 + 10 + 2 + 8 MB, about 8.5 us at 3.35 TB/s); its arithmetic is the
-// sweep's ~27 flops per face cell plus ~7 operations per bin and valid
-// cell. Phase A carries K1's latency bound (3 (R1 - 1) dependent
-// sub-steps on B blocks); phase B is a dense pass over the card.
+// 8 + 10 + 2 + 8 MB, about 8.5 us at 3.35 TB/s; K3h writes 8 MB more); its
+// arithmetic is the sweep's ~27 flops per face cell plus ~7 operations per
+// bin and valid cell (K3h: 2 more per bin, and 2 more per cell). Phase A
+// carries K1's latency bound (3 (R1 - 1) dependent sub-steps on B blocks);
+// phase B is a dense pass over the card.
 
 #include "cheb_sweep.cuh"
 
@@ -62,15 +68,17 @@ __global__ void sweep_fold_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
                StoreFold<T>{ci_all + blockIdx.x * D3, dc_all + blockIdx.x * D3});
 }
 
-// Phase B: block (b, i) evaluates plane i of source b's box.
-template <typename T>
+// Phase B: block (b, i) evaluates plane i of source b's box. With HEAT the
+// bins hold w_heat too and heat_all receives the photoheating rate.
+template <typename T, bool HEAT>
 __global__ void box_rates_kernel(const T* __restrict__ ci_all,
                                  const T* __restrict__ dc_all,
                                  const T* __restrict__ rt,
                                  const T* __restrict__ flux,
                                  const T* __restrict__ bins_s,
-                                 const T* __restrict__ bins_w, int E, int Dc,
-                                 T sig, T s_fac, T* phi_all) {
+                                 const T* __restrict__ bins_w,
+                                 const T* __restrict__ bins_wh, int E, int Dc,
+                                 T sig, T s_fac, T* phi_all, T* heat_all) {
   using A = Arith<T>;
   const int b = blockIdx.x / Dc, i = blockIdx.x % Dc;
   const size_t D2 = size_t(Dc) * Dc;
@@ -78,30 +86,36 @@ __global__ void box_rates_kernel(const T* __restrict__ ci_all,
   const T* d2_tab = rt + size_t(i) * 2 * D2;             // channel 0
   const T* valid = d2_tab + D2;                          // channel 1
   T* bins = shared_bins<T>();
-  load_bins(bins_s, bins_w, E, bins);
+  load_bins(bins_s, bins_w, E, bins, HEAT ? bins_wh : nullptr);
   const T fs = A::mul(flux[b], s_fac);
   for (size_t jk = threadIdx.x; jk < D2; jk += blockDim.x) {
-    T phi = T(0);
+    T phi = T(0), heat = T(0);
     if (valid[jk] > T(0.5)) {
       const T cdin = ci_all[plane + jk];
       const T dcol = dc_all[plane + jk];
       if (cdin <= T(kMaxColdensH)) {
-        const T acc = bin_sum(A::mul(cdin, sig), A::mul(dcol, sig), bins, E);
+        T acc, acc_h;
+        bin_sums<T, HEAT>(A::mul(cdin, sig), A::mul(dcol, sig), bins, E, acc,
+                          acc_h);
         const T pref = A::div(fs, A::mul(d2_tab[jk], T(kFourPi)));
-        phi = A::div(A::mul(pref, acc), max_lim(Arith<T>::tiny, dcol));
+        const T dsafe = max_lim(Arith<T>::tiny, dcol);
+        phi = A::div(A::mul(pref, acc), dsafe);
+        if (HEAT) heat = A::div(A::mul(pref, acc_h), dsafe);
       }
     }
     phi_all[plane + jk] = phi;
+    if (HEAT) heat_all[plane + jk] = heat;
   }
 }
 
 template <typename T>
 int launch(const void* nhi, const void* sw, const void* path, const void* diag,
            const void* mask_m, const void* mask_p, const void* rt,
-           const void* bins_s, const void* bins_w, const void* flux, void* phi,
-           void* ci, void* dc, void* scratch, int B, int Dc, int c, int R1,
-           int E, double dr, double sig, double s_fac, int threads_a,
-           int threads_b, void* stream) {
+           const void* bins_s, const void* bins_w, const void* bins_wh,
+           const void* flux, void* phi, void* heat, void* ci, void* dc,
+           void* scratch, int B, int Dc, int c, int R1, int E, double dr,
+           double sig, double s_fac, int threads_a, int threads_b,
+           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Tables<T> tb{static_cast<const T*>(sw), static_cast<const T*>(path),
                      static_cast<const T*>(diag),
@@ -113,11 +127,15 @@ int launch(const void* nhi, const void* sw, const void* path, const void* diag,
       static_cast<T*>(scratch));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  box_rates_kernel<T><<<B * Dc, threads_b, 2 * E * sizeof(T), st>>>(
+  const bool with_heat = heat != nullptr;
+  const auto phase_b = with_heat ? box_rates_kernel<T, true>
+                                 : box_rates_kernel<T, false>;
+  phase_b<<<B * Dc, threads_b, (with_heat ? 3 : 2) * E * sizeof(T), st>>>(
       static_cast<const T*>(ci), static_cast<const T*>(dc),
       static_cast<const T*>(rt), static_cast<const T*>(flux),
-      static_cast<const T*>(bins_s), static_cast<const T*>(bins_w), E, Dc,
-      static_cast<T>(sig), static_cast<T>(s_fac), static_cast<T*>(phi));
+      static_cast<const T*>(bins_s), static_cast<const T*>(bins_w),
+      static_cast<const T*>(bins_wh), E, Dc, static_cast<T>(sig),
+      static_cast<T>(s_fac), static_cast<T*>(phi), static_cast<T*>(heat));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -126,32 +144,24 @@ int launch(const void* nhi, const void* sw, const void* path, const void* diag,
 extern "C" {
 
 // Launches phase A then phase B on `stream`; returns the first
-// cudaGetLastError() that is not cudaSuccess, else cudaSuccess.
-int cheb_sweep_rates_f32(const void* nhi, const void* sw, const void* path,
-                         const void* diag, const void* mask_m,
-                         const void* mask_p, const void* rt,
-                         const void* bins_s, const void* bins_w,
-                         const void* flux, void* phi, void* ci, void* dc,
-                         void* scratch, int B, int Dc, int c, int R1, int E,
-                         double dr, double sig, double s_fac, int threads_a,
-                         int threads_b, void* stream) {
-  return launch<float>(nhi, sw, path, diag, mask_m, mask_p, rt, bins_s, bins_w,
-                       flux, phi, ci, dc, scratch, B, Dc, c, R1, E, dr, sig,
-                       s_fac, threads_a, threads_b, stream);
-}
+// cudaGetLastError() that is not cudaSuccess, else cudaSuccess. `heat` and
+// `bins_wh` are null for K3 and both set for K3h.
+#define CHEB_SWEEP_RATES_ENTRY(NAME, TYPE)                                     \
+  int NAME(const void* nhi, const void* sw, const void* path,                 \
+           const void* diag, const void* mask_m, const void* mask_p,          \
+           const void* rt, const void* bins_s, const void* bins_w,            \
+           const void* bins_wh, const void* flux, void* phi, void* heat,      \
+           void* ci, void* dc, void* scratch, int B, int Dc, int c, int R1,   \
+           int E, double dr, double sig, double s_fac, int threads_a,         \
+           int threads_b, void* stream) {                                     \
+    return launch<TYPE>(nhi, sw, path, diag, mask_m, mask_p, rt, bins_s,      \
+                        bins_w, bins_wh, flux, phi, heat, ci, dc, scratch, B, \
+                        Dc, c, R1, E, dr, sig, s_fac, threads_a, threads_b,   \
+                        stream);                                              \
+  }
 
-int cheb_sweep_rates_f64(const void* nhi, const void* sw, const void* path,
-                         const void* diag, const void* mask_m,
-                         const void* mask_p, const void* rt,
-                         const void* bins_s, const void* bins_w,
-                         const void* flux, void* phi, void* ci, void* dc,
-                         void* scratch, int B, int Dc, int c, int R1, int E,
-                         double dr, double sig, double s_fac, int threads_a,
-                         int threads_b, void* stream) {
-  return launch<double>(nhi, sw, path, diag, mask_m, mask_p, rt, bins_s, bins_w,
-                        flux, phi, ci, dc, scratch, B, Dc, c, R1, E, dr, sig,
-                        s_fac, threads_a, threads_b, stream);
-}
+CHEB_SWEEP_RATES_ENTRY(cheb_sweep_rates_f32, float)
+CHEB_SWEEP_RATES_ENTRY(cheb_sweep_rates_f64, double)
 
 const char* cheb_sweep_rates_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -26,6 +26,12 @@ sources:
 After the last batch the padding is folded back onto the periodic grid
 (``_fold_padding``).
 
+With ``do_heating`` every mode also returns the photoheating rate per HI
+atom: the rate pass and ``fuse_fold`` (K3h) sum the heating weights
+``bins_wh`` over the same per-bin attenuation factors, a second padded
+grid accumulates the heat boxes, and ``fuse_rates`` falls back to the
+default mode (its kernel has no heat output, as in the JAX engine).
+
 The JAX engine's window accumulate (one-hot matmul placement, its tuner
 and ``PackedPositions``), its multi-source lane packing and its stack fold
 are layout devices of the TPU and are not copied: on the GPU the
@@ -116,29 +122,26 @@ class ChebRaytracer:
     GPU; ``device="cpu"`` runs the plain PyTorch sweep. ``fuse_rates``,
     ``fuse_fold`` and ``shell_segment`` select the sweep mode with the JAX
     engine's names and defaults (see the module docstring); ``fuse_fold``
-    wins over ``fuse_rates``. The heating channel is not ported."""
+    wins over ``fuse_rates``. ``do_heating`` adds the photoheating channel:
+    ``trace`` then returns (phi, heat)."""
 
     def __init__(self, N, R_max_LLS, sig, bins: SpectralBins,
                  batch_size=8, dtype=torch.float32, device="cuda",
                  do_heating=False, fuse_rates=False, fuse_fold=False,
                  shell_segment="auto"):
-        if do_heating:
-            raise NotImplementedError(
-                "the heating channel (do_heating, with or without "
-                "fuse_rates/fuse_fold) is not ported yet: it arrives with "
-                "the heating/thermal slice of the port")
         self.N = int(N)
         self.R_max_LLS = float(R_max_LLS)
         self.sig = float(sig)
         self.batch_size = int(batch_size)
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.do_heating = bool(do_heating)
         self.fuse_rates = bool(fuse_rates)
         self.fuse_fold = bool(fuse_fold)
         self.config = RaytraceConfig(
             N=self.N, R_max_LLS=self.R_max_LLS, sig=self.sig,
             batch_size=self.batch_size, dtype=dtype,
-            grey_analytic=(bins.num_bins == 1), do_heating=False)
+            grey_analytic=(bins.num_bins == 1), do_heating=self.do_heating)
         # Box half-extent: ceil(R) in Chebyshev metric (every rated cell
         # and all its stencil parents live inside); the L1 octahedron
         # membership bound stays at the reference's sqrt(3)R.
@@ -220,8 +223,9 @@ class ChebRaytracer:
         """Dense spectral-bin rate pass over the central rates subbox.
 
         Inputs are full (B, Dc, Dc, Dc) boxes and ``dr`` a 0-dim tensor of
-        the engine's dtype; returns phi (B, Ds, Ds, Ds), to be accumulated
-        at box position + rb0."""
+        the engine's dtype; returns (phi, heat) of shape (B, Ds, Ds, Ds), to
+        be accumulated at box position + rb0; heat is None without
+        ``do_heating``."""
         tb = self.tables
         dt, dev = self.dtype, self.device
         sig = torch.tensor(self.sig, dtype=dt).to(dev)
@@ -240,10 +244,13 @@ class ChebRaytracer:
         prefact = flux[:, None, None, None] * s_over_dr3 * geominv[None]
 
         acc = torch.zeros_like(cd)
+        acc_h = torch.zeros_like(cd) if self.do_heating else None
         for e in range(self.num_bins):
             se = tb.bins_s[e]
             core = torch.exp(-tau_in * se) * (-torch.expm1(-dtau * se))
             acc = acc + tb.bins_w[e] * core
+            if self.do_heating:
+                acc_h = acc_h + tb.bins_wh[e] * core
 
         mask = ((tb.rt_sub[2] > 0.5)[None]
                 & (cdin <= torch.tensor(MAX_COLDENSH, dtype=dt).to(dev)))
@@ -252,19 +259,25 @@ class ChebRaytracer:
         # floor is the smallest normal float, a no-op for any physical
         # density.
         nhi_safe = torch.clamp(nhi_box, min=torch.finfo(dt).tiny)
-        return torch.where(mask, prefact * acc / nhi_safe,
-                           torch.zeros_like(acc))
+        zero = torch.zeros_like(acc)
+        phi = torch.where(mask, prefact * acc / nhi_safe, zero)
+        heat = (torch.where(mask, prefact * acc_h / nhi_safe, zero)
+                if self.do_heating else None)
+        return phi, heat
 
-    def _source_cell_rate(self, nhi_box, flux, dr):
+    def _source_cell_rate(self, nhi_box, flux, dr, weights=None):
         """Gamma of the source cell itself (tau_in = 0, vol = dr^3;
         raytracing.cu:285-294), with the nHI floor of ``_rates``. ``dr``
-        is a 0-dim tensor of the engine's dtype."""
+        is a 0-dim tensor of the engine's dtype. ``weights`` defaults to
+        the photo weights; pass ``tables.bins_wh`` for the heating rate."""
         c, tb = self.geom.c, self.tables
+        if weights is None:
+            weights = tb.bins_w
         sig = torch.tensor(self.sig, dtype=self.dtype).to(self.device)
         nhi_src = nhi_box[:, c, c, c]
         dtau = nhi_src * (0.5 * dr) * sig
         acc = torch.zeros_like(dtau)
-        for se, we in zip(tb.bins_s, tb.bins_w):
+        for se, we in zip(tb.bins_s, weights):
             acc = acc + we * -torch.expm1(-dtau * se)
         sdr3 = torch.exp(
             torch.tensor(np.log(S_STAR_REF), dtype=self.dtype).to(self.device)
@@ -288,26 +301,35 @@ class ChebRaytracer:
         return box
 
     def _batch_rates(self, boxes, flux, dr, dr_t):
-        """One batch's rate boxes by the engine's sweep mode: the (Dc)^3
-        box for the fused modes, else the (Ds)^3 rates subbox."""
+        """One batch's (phi, heat) rate boxes by the engine's sweep mode:
+        the (Dc)^3 box for the fused modes, else the (Ds)^3 rates subbox.
+        heat is None without ``do_heating``; with it, ``fuse_rates`` takes
+        the unfused path."""
         g, tb = self.geom, self.tables
         geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+        c = g.c
         if self.fuse_fold:
-            phi = cheb_sweep_rates(boxes, *geo, tb.rt_tab, flux, dr, g.c,
-                                   self.sig, tb.bins_s, tb.bins_w)
-        elif self.fuse_rates:
-            phi = cheb_sweep(boxes, *geo, dr, g.c, self.sig,
+            out = cheb_sweep_rates(
+                boxes, *geo, tb.rt_tab, flux, dr, c, self.sig, tb.bins_s,
+                tb.bins_w, bins_wh=tb.bins_wh if self.do_heating else None)
+            phi, heat = out if self.do_heating else (out, None)
+            phi[:, c, c, c] = self._source_cell_rate(boxes, flux, dr_t)
+            if self.do_heating:
+                heat[:, c, c, c] = self._source_cell_rate(
+                    boxes, flux, dr_t, tb.bins_wh)
+            return phi, heat
+        if self.fuse_rates and not self.do_heating:
+            phi = cheb_sweep(boxes, *geo, dr, c, self.sig,
                              bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
                              R2=self.R_max_LLS ** 2)
             phi = phi * flux[:, None, None, None]
+            phi[:, c, c, c] = self._source_cell_rate(boxes, flux, dr_t)
+            return phi, None
+        if self.seg_S:
+            cd = self._sweep_segmented(boxes, dr)
         else:
-            if self.seg_S:
-                cd = self._sweep_segmented(boxes, dr)
-            else:
-                cd = cheb_sweep(boxes, *geo, dr, g.c, self.sig)
-            return self._rates(cd, boxes, flux, dr_t)
-        phi[:, g.c, g.c, g.c] = self._source_cell_rate(boxes, flux, dr_t)
-        return phi
+            cd = cheb_sweep(boxes, *geo, dr, c, self.sig)
+        return self._rates(cd, boxes, flux, dr_t)
 
     def _fold_padding(self, padded):
         """Fold the wrap padding of the extended grid back onto the
@@ -330,41 +352,52 @@ class ChebRaytracer:
         return out
 
     def trace_extended(self, nhi_pad, pos_b, flux_b, dr):
-        """Batched sweep over the wrap-padded field; returns Gamma
-        accumulated in the same extended frame."""
+        """Batched sweep over the wrap-padded field; returns (phi, heat)
+        accumulated in the same extended frame, heat None without
+        ``do_heating``."""
         phi_pad = torch.zeros_like(nhi_pad)
+        heat_pad = torch.zeros_like(nhi_pad) if self.do_heating else None
         dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
         for pos, flux in zip(pos_b, flux_b):
             boxes = self._extract_boxes(nhi_pad, pos.to(self.device))
-            phi_box = self._batch_rates(boxes, flux, dr, dr_t)
+            phi_box, heat_box = self._batch_rates(boxes, flux, dr, dr_t)
             D = phi_box.shape[-1]
             shift = self._rb0 if D == self.Ds else 0
-            for (p0, p1, p2), box in zip(pos.tolist(), phi_box):
-                p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
-                phi_pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
-        return phi_pad
+            for pad, rate_box in ((phi_pad, phi_box), (heat_pad, heat_box)):
+                if pad is None:
+                    continue
+                for (p0, p1, p2), box in zip(pos.tolist(), rate_box):
+                    p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
+                    pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
+        return phi_pad, heat_pad
 
     def trace_batches(self, nd, xh, pos_b, flux_b, dr):
         """Batched trace on prepared sources with flat-grid IO; returns
-        (phi, None) — the second slot is the heating channel, which this
-        engine does not compute."""
+        (phi, heat), heat None without ``do_heating``."""
         g = self.geom
         N = self.N
         nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
         wrap = torch.arange(-g.c, N + g.Dc - 1 - g.c,
                             device=nhi3.device) % N
         nhi_pad = nhi3[wrap][:, wrap][:, :, wrap]
-        phi_pad = self.trace_extended(nhi_pad, pos_b, flux_b, float(dr))
-        return self._fold_padding(phi_pad).reshape(-1), None
+        phi_pad, heat_pad = self.trace_extended(nhi_pad, pos_b, flux_b,
+                                                float(dr))
+        phi = self._fold_padding(phi_pad).reshape(-1)
+        if heat_pad is None:
+            return phi, None
+        return phi, self._fold_padding(heat_pad).reshape(-1)
 
     def trace(self, ndens, xh_av, src_pos, src_flux, dr):
         """Public API (0-indexed positions, (NumSrc, 3)); returns the
-        (N, N, N) photoionization rate on the engine's device."""
+        (N, N, N) photoionization rate on the engine's device, and with
+        ``do_heating`` the pair (phi, heat)."""
         sh = (self.N,) * 3
         nd = torch.as_tensor(np.asarray(ndens), dtype=self.dtype,
                              device=self.device).reshape(sh)
         xh = torch.as_tensor(np.asarray(xh_av), dtype=self.dtype,
                              device=self.device).reshape(sh)
         pos_b, flux_b = self.prepare_sources(src_pos, src_flux)
-        phi, _ = self.trace_batches(nd, xh, pos_b, flux_b, dr)
+        phi, heat = self.trace_batches(nd, xh, pos_b, flux_b, dr)
+        if self.do_heating:
+            return phi.reshape(sh), heat.reshape(sh)
         return phi.reshape(sh)

@@ -17,7 +17,9 @@ other faces, see ``_sweep_shells``) and adds its own dcol = nHI * path * dr.
   ``cheb_sweep_seg``    K2: shells r0 .. r0+S-1 from carried planes
                         (shell_segment).
   ``cheb_sweep_rates``  K3: sweep, box assembly and the spectral-bin rate
-                        pass with the flux, source cell 0 (fuse_fold).
+                        pass with the flux, source cell 0 (fuse_fold). With
+                        ``bins_wh`` (K3h) also the photoheating box, from
+                        the same per-bin attenuation factors.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (``*_ref``); a CUDA tensor launches the kernel of
@@ -42,7 +44,8 @@ THREADS_RATES = 256   # threads per block of K3's rate phase
 
 # kernel name -> launches since the last reset_launches()
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
-            "cheb_sweep_seg": 0, "cheb_sweep_rates": 0}
+            "cheb_sweep_seg": 0, "cheb_sweep_rates": 0,
+            "cheb_sweep_rates_heat": 0}
 
 
 def reset_launches():
@@ -177,13 +180,18 @@ def _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr, sig, c,
     return torch.stack([Xp, Yp, Zp], 1)
 
 
-def _bin_sum(tau_in, dtau, bins_s, bins_w):
-    """sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e))."""
+def _bin_sum(tau_in, dtau, bins_s, bins_w, bins_wh=None):
+    """(acc, acc_h): sum_e w_e core_e and, with ``bins_wh``, sum_e
+    w_heat_e core_e (else None) over the same core_e = exp(-tau_in s_e)
+    (-expm1(-dtau s_e)), evaluated once per bin."""
     acc = torch.zeros_like(tau_in)
-    for se, we in zip(bins_s, bins_w):
+    acc_h = None if bins_wh is None else torch.zeros_like(tau_in)
+    for e, (se, we) in enumerate(zip(bins_s, bins_w)):
         core = torch.exp(-tau_in * se) * (-torch.expm1(-dtau * se))
         acc = acc + we * core
-    return acc
+        if bins_wh is not None:
+            acc_h = acc_h + bins_wh[e] * core
+    return acc, acc_h
 
 
 def _face_d2(d2box, f, r, c):
@@ -231,7 +239,7 @@ def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
 
         def emit(f, r, mask, cdin, dcol, nhi, out):
             d2 = _face_d2(d2box, f, r, c)
-            acc = _bin_sum(cdin * sig, dcol * sig, bins_s, bins_w)
+            acc, _ = _bin_sum(cdin * sig, dcol * sig, bins_s, bins_w)
             pref = sdr3 / (d2 * path[f, r] * FOURPI)
             ok = mask & (d2 <= R2) & (cdin <= max_cd)
             gam = pref * acc / torch.clamp(nhi, min=tiny)
@@ -267,30 +275,38 @@ def cheb_sweep_seg_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
     return box, planes
 
 
-def _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w):
+def _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w, bins_wh=None):
     """K3's rate phase over whole boxes: phi = flux S* dr / (dr^3 4 pi d2)
     * sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e)) / max(dcol, tiny),
     masked by the valid channel of rt_tab and cdin <= MAX_COLDENSH. ``dr``
-    is a 0-dim CPU tensor of the boxes' dtype."""
+    is a 0-dim CPU tensor of the boxes' dtype. With ``bins_wh`` returns
+    (phi, heat), heat being the same expression with the heating weights
+    (K3h)."""
     dt = ci.dtype
     d2, valid = rt_tab[:, 0], rt_tab[:, 1] > 0.5
     s_fac = (s_over_dr3(dr, dt) * dr).to(ci.device)
-    acc = _bin_sum(ci * sig, dc * sig, bins_s, bins_w)
+    acc, acc_h = _bin_sum(ci * sig, dc * sig, bins_s, bins_w, bins_wh)
     pref = (flux[:, None, None, None] * s_fac) / (d2 * FOURPI)
     ok = valid[None] & (ci <= torch.tensor(MAX_COLDENSH, dtype=dt,
                                            device=ci.device))
-    phi = pref * acc / torch.clamp(dc, min=torch.finfo(dt).tiny)
-    return torch.where(ok, phi, torch.zeros_like(phi))
+    dsafe = torch.clamp(dc, min=torch.finfo(dt).tiny)
+    zero = torch.zeros_like(acc)
+    phi = torch.where(ok, pref * acc / dsafe, zero)
+    if bins_wh is None:
+        return phi
+    return phi, torch.where(ok, pref * acc_h / dsafe, zero)
 
 
 def cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab,
-                         flux, dr, c, sig, bins_s, bins_w):
-    """Plain version of the fused sweep + box + rates kernel (K3).
+                         flux, dr, c, sig, bins_s, bins_w, bins_wh=None):
+    """Plain version of the fused sweep + box + rates kernel (K3, and K3h
+    with ``bins_wh``).
 
     Phase A is the sweep, storing the masked cdin and dcol of every face
     cell at its cartesian position; phase B evaluates the spectral-bin
     rates per box cell with the per-source ``flux`` (B,) (``_box_rates``).
-    Returns the (B, Dc, Dc, Dc) phi box with the source cell 0."""
+    Returns the (B, Dc, Dc, Dc) phi box with the source cell 0, or with
+    ``bins_wh`` the pair (phi, heat) of such boxes."""
     dt, dev = nhi_box.dtype, nhi_box.device
     R1 = sw.shape[2]
     dr = torch.as_tensor(dr, dtype=dt)              # on the CPU
@@ -304,7 +320,7 @@ def cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab,
         _put(dc, f, r, c, torch.where(mask, dcol, zero))
     _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr.to(dev), sig,
                   c, init_planes(nhi_box, c, dr), 1, R1, emit)
-    return _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w)
+    return _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w, bins_wh)
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +372,8 @@ def _geom(nhi_box, sw, path, diag, mask_m, mask_p, c):
 
 def _bins_spec(Dc, bins_s, bins_w, rt_tab, dt):
     """The number of bins E (kept in the kernel's shared memory, 2 E
-    values) and the shape checks of the rate inputs."""
+    values, 3 E with the heating weights) and the shape checks of the rate
+    inputs."""
     E = bins_s.shape[0]
     return E, {"rt_tab": (rt_tab, (Dc, 2, Dc, Dc), dt),
                "bins_s": (bins_s, (E,), dt), "bins_w": (bins_w, (E,), dt)}
@@ -443,20 +460,28 @@ def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
 
 
 def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
-                     dr, c, sig, bins_s, bins_w):
+                     dr, c, sig, bins_s, bins_w, bins_wh=None):
     """The fused sweep + box + rates on the device of ``nhi_box`` (see
     ``cheb_sweep_rates_ref``): the plain version for a CPU tensor, the CUDA
-    kernel (K3: two __global__ launches on the stream, counted as one) for
-    a CUDA tensor. ``dr`` and ``sig`` are floats."""
+    kernel (two __global__ launches on the stream, counted as one) for a
+    CUDA tensor: K3, counted as "cheb_sweep_rates", or with ``bins_wh``
+    K3h, counted as "cheb_sweep_rates_heat", which returns (phi, heat).
+    ``dr`` and ``sig`` are floats."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p,
-                                    rt_tab, flux, dr, c, sig, bins_s, bins_w)
+                                    rt_tab, flux, dr, c, sig, bins_s, bins_w,
+                                    bins_wh)
     (B, Dc, R1), spec = _geom(nhi_box, sw, path, diag, mask_m, mask_p, c)
     dt = nhi_box.dtype
     E, more = _bins_spec(Dc, bins_s, bins_w, rt_tab, dt)
     spec.update(more)
     spec["flux"] = (flux, (B,), dt)
-    sfx = _check("cheb_sweep_rates", nhi_box, spec)
+    heat = None
+    if bins_wh is not None:
+        spec["bins_wh"] = (bins_wh, (E,), dt)
+        heat = torch.empty_like(nhi_box)
+    name = "cheb_sweep_rates" if heat is None else "cheb_sweep_rates_heat"
+    sfx = _check(name, nhi_box, spec)
     from ._build import load
     lib = load("cheb_sweep_rates")
     phi = torch.empty_like(nhi_box)
@@ -465,10 +490,12 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
     scratch = torch.empty((B, 12, Dc, Dc), dtype=dt, device=nhi_box.device)
     dr_t = torch.tensor(float(dr), dtype=dt)
     s_fac = float(s_over_dr3(dr_t, dt) * dr_t)     # as in _box_rates
-    _launch(lib, f"cheb_sweep_rates_{sfx}", "cheb_sweep_rates",
+    null = ctypes.c_void_p(None)
+    _launch(lib, f"cheb_sweep_rates_{sfx}", name,
             *[_ptr(t) for t in (nhi_box, sw, path, diag, mask_m, mask_p,
-                                rt_tab, bins_s, bins_w, flux, phi, ci, dc,
-                                scratch)],
-            B, Dc, c, R1, E, float(dr), float(sig), s_fac, THREADS,
-            THREADS_RATES, _stream(nhi_box))
-    return phi
+                                rt_tab, bins_s, bins_w)],
+            null if heat is None else _ptr(bins_wh), _ptr(flux), _ptr(phi),
+            null if heat is None else _ptr(heat), _ptr(ci), _ptr(dc),
+            _ptr(scratch), B, Dc, c, R1, E, float(dr), float(sig), s_fac,
+            THREADS, THREADS_RATES, _stream(nhi_box))
+    return phi if heat is None else (phi, heat)

@@ -77,3 +77,26 @@ def test_global_pass_conv_flag_matches_jax_far_from_sources():
     assert int(got[2]) == int(want[2]) > 0
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-8)
+
+
+def test_global_pass_mask_matches_jax():
+    """The optional cell mask only removes cells from the non-convergence
+    count: the fields are those of the unmasked pass."""
+    f = _fields(3, log_phi=(-14, -10), log_ndens=(-3, -1))
+    dt = 1e13
+    mask = np.random.RandomState(4).uniform(size=f["xh"].shape) > 0.4
+    want = j_global_pass(jnp.asarray(dt), jnp.asarray(f["ndens"]),
+                         jnp.asarray(f["temp"]), jnp.asarray(f["xh"]),
+                         jnp.asarray(f["xh_av"]), jnp.asarray(f["phi"]),
+                         JChem(**PARAMS), mask=jnp.asarray(mask))
+    t = {k: torch.from_numpy(v) for k, v in f.items()}
+    args = (torch.tensor(dt, dtype=torch.float64), t["ndens"], t["temp"],
+            t["xh"], t["xh_av"], t["phi"], ChemistryParams(**PARAMS))
+    got = global_pass(*args, mask=torch.from_numpy(mask))
+    full = global_pass(*args)
+    assert 0 < int(got[2]) == int(want[2]) < int(full[2])
+    assert int(global_pass(*args, mask=torch.zeros_like(t["xh"],
+                                                        dtype=torch.bool))[2]) == 0
+    for g, u, w in zip(got[:2], full[:2], want[:2]):
+        assert torch.equal(g, u)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12)

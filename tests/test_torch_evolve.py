@@ -14,7 +14,9 @@ from pyc2ray_tpu.ops.raytrace_cheb import ChebRaytracer as JRaytracer
 
 from pyc2ray_torch.convert import state_from_jax
 from pyc2ray_torch.evolve import evolve3D
+from pyc2ray_torch.ops.chemistry import ChemistryParams
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+from pyc2ray_torch.ops.thermal import ThermalParams
 
 SIG = 6.30e-18
 DR = 6.7e20
@@ -61,9 +63,20 @@ def test_evolve3D_matches_jax(tmp_path):
 
 
 def test_evolve3D_thermal_not_ported():
+    """``thermal`` is ported (it raised NotImplementedError before): with
+    a do_heating raytracer evolve3D returns (xh, phi, temp); what is left
+    of the refusal is the ValueError without do_heating."""
+    thermal, chem = ThermalParams(**CHEM), ChemistryParams(**CHEM)
+    one = np.ones((8, 8, 8))
+    args = (1e13, DR, np.ones(1), np.array([[4, 4, 4]]))
+    grids = (100.0 * one, 1e-3 * one, 1.2e-3 * one)
     tr = ChebRaytracer(8, 3.0, SIG, grey_bins(), batch_size=2,
                        dtype=torch.float64, device="cpu")
-    one = np.ones((8, 8, 8))
-    with pytest.raises(NotImplementedError, match="heating/thermal slice"):
-        evolve3D(1e13, DR, np.ones(1), np.zeros((1, 3), int), tr,
-                 None, one, one, one, thermal=object())
+    with pytest.raises(ValueError, match="do_heating=True"):
+        evolve3D(*args, tr, chem, *grids, quiet=True, thermal=thermal)
+    tr = ChebRaytracer(8, 3.0, SIG, grey_bins(), batch_size=2,
+                       dtype=torch.float64, device="cpu", do_heating=True)
+    xh, phi, temp = evolve3D(*args, tr, chem, *grids, quiet=True,
+                             thermal=thermal, zred=9.0)
+    assert temp.shape == (8, 8, 8) and np.all(np.isfinite(temp))
+    assert xh.max() > 1.2e-3 and phi.max() > 0

@@ -137,9 +137,23 @@ def test_zero_density_cell_gives_zero(mode):
 
 
 def test_fused_with_heating_raises():
+    """A fused mode with do_heating builds and traces (it raised
+    NotImplementedError before the heating channel was ported): fuse_fold
+    returns (phi, heat) with phi the bits of the heat-less trace. What
+    still raises is an explicit shell_segment beside a fused mode."""
+    N, R = 8, 3.0
+    ndens, xh, src, flux = _inputs(N, seed=28, ns=2)
     for mode in MODES:
-        with pytest.raises(NotImplementedError, match="heating"):
-            _port(8, 3.0, grey_bins(), do_heating=True, **{mode: True})
+        tr = _port(N, R, _bb_bins(), do_heating=True, **{mode: True})
+        assert tr.config.do_heating
+        phi, heat = tr.trace(ndens, xh, src, flux, DR)
+        assert bool(torch.isfinite(heat).all()) and float(heat.max()) > 0
+        if mode == "fuse_fold":
+            assert torch.equal(phi, _port(N, R, _bb_bins(), fuse_fold=True)
+                               .trace(ndens, xh, src, flux, DR))
+        with pytest.raises(ValueError, match="does not compose"):
+            _port(N, R, _bb_bins(), do_heating=True, shell_segment=2,
+                  **{mode: True})
 
 
 def test_fused_wrappers_dispatch_on_device():
