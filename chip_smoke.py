@@ -6,13 +6,23 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Device and build: the card's name and power limit, and the build of the
-   CUDA kernels (nvcc, into build/torch_kernels/) with its time.
+   CUDA kernels (nvcc, into build/torch_kernels/) with its time and ptxas's
+   registers, shared memory and spills per kernel; the cost of one cluster
+   barrier per cluster size (the link of the sweep's chain).
 2. Each kernel against its plain PyTorch version on the card, with kernel,
    plain and bound times. The sweep K1 at the bench shape (N=256, R=30:
-   Dc=64, B=8) in float32 and at a small clipped-box shape in float64.
+   Dc=64, B=8) in float32, at a small clipped-box shape in float64 and at
+   the heating example's shape (N=48: Dc=48, B=1) in float64, bit for bit,
+   each with the launch plan the host rule chose (cluster size, plane
+   placement, cudaOccupancyMaxActiveClusters) and with the planes forced
+   into the other placement; K1's time per design step (one block per
+   source; clusters of 4, 8, 16 with the planes in the global scratch;
+   planes in distributed shared memory), per block size, and over
+   B = 1, 8, 32, 128 at Dc=64.
 2b. The shell-segmented sweep K2 at the R=100 row of the raytracing
    benchmark harness (N=250, R=100, B=8: Dc=208, S=24 by the auto rule,
-   K=5), against the plain version and bit for bit against K1, and at a
+   K=5), against the plain version and bit for bit against K1, in both
+   plane placements and per design step as K1, and at a
    small clipped shape in float64 with a ragged last segment; the fused
    kernels K1f (fuse_rates) and K3 (fuse_fold) at the bench shape with
    compressed bins in float32 and at a small clipped shape in float64 that
@@ -51,11 +61,14 @@ Phases (any failure raises and the script exits non-zero):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
+``python3 chip_smoke.py --kernels`` stops after phase 2c (the kernels
+against their plain versions and their times) and prints no result line.
 """
 
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -174,35 +187,120 @@ def sweep_bound_ms(B, Dc, R1, dtype):
     return least_ms(*sweep_work(B, Dc, R1, dtype), dtype)
 
 
-def check_sweep(N, R, B, dtype, rtol, seed, reps):
-    """Kernel vs plain version on CUDA tensors at the engine's shapes."""
+def plan_text(name):
+    """The plan of kernel ``name``'s last launch and what the card said it
+    holds of such clusters at once (asked only where the rule chose)."""
+    from pyc2ray_torch.ops import sweep
+    p = sweep.last_plan[name]
+    held = [n for (_, q), n in sweep.occupancy.items() if q == p]
+    return (f"C={p.cluster} planes="
+            f"{'shared' if p.shared_planes else 'scratch'} "
+            f"threads={p.threads} smem={p.smem} B"
+            + (f" max_active_clusters={held[0]}" if held else ""))
+
+
+def design_steps(label, call, name, Dc, dtype, reps, calls=1):
+    """Time ``call(plan)`` per design step of the sweep loop (the shell
+    window on one block per source; clusters of 4, 8, 16 on the global
+    scratch; the planes in distributed shared memory), then with the host
+    rule's plan per block size. A step that does not fit the shared memory
+    at this shape is said so. ``calls`` kernel calls per ``call``."""
+    from pyc2ray_torch.ops import sweep
+    isz = torch.finfo(dtype).bits // 8
+    steps = [("step 1 shell window, one block per source",
+              dict(cluster=1, shared_planes=False))]
+    steps += [(f"step 2 cluster of {C}, planes in scratch",
+               dict(cluster=C, shared_planes=False)) for C in (4, 8, 16)]
+    steps += [(f"step 3 cluster of {C}, planes shared",
+               dict(cluster=C, shared_planes=True)) for C in (4, 8, 16)]
+    steps += [(f"with {threads} threads per block", dict(threads=threads))
+              for threads in (128, 256, 512)]
+    for text, plan in steps:
+        smem = sweep.plan_sizes(Dc, isz, plan.get("cluster", 1),
+                                plan.get("shared_planes", False))[0]
+        if smem > sweep.SMEM_MAX:
+            log(f"  {label} {text}: does not fit ({smem} B of shared "
+                f"memory per block)")
+            continue
+        ms = cuda_ms(lambda: call(plan), reps) / calls
+        log(f"  {label} {text}: {ms:.4f} ms per call ({plan_text(name)})")
+
+
+def barrier_costs(B, n=2000):
+    """us per cluster barrier, for B clusters of each size: a launch of n
+    barriers against a launch of none. Returns {cluster size: us}."""
+    from pyc2ray_torch.ops import sweep
+    out = {}
+    for C in (1, 2, 4, 8, 16):
+        t0 = cuda_ms(lambda: sweep.cluster_barriers(B, C, 0), 20)
+        t1 = cuda_ms(lambda: sweep.cluster_barriers(B, C, n), 20)
+        out[C] = 1e3 * (t1 - t0) / n
+    return out
+
+
+def check_sweep(N, R, B, dtype, seed, reps, steps=False):
+    """K1 vs its plain version on CUDA tensors at the engine's shapes, bit
+    for bit, with the plan the host rule chose and with the planes forced
+    into the other placement."""
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
-    from pyc2ray_torch.radiation.spectral_bins import SpectralBins
-    grey = SpectralBins(s=np.array([1.0]), w_photo=np.array([1.0]),
-                        w_heat=np.array([0.0]), num_bins=1)
-    rt = ChebRaytracer(N, R, SIG, grey, batch_size=B, dtype=dtype)
+    rt = ChebRaytracer(N, R, SIG, grey_bins(), batch_size=B, dtype=dtype)
     g, tb = rt.geom, rt.tables
-    rng = np.random.RandomState(seed)
-    nhi = torch.from_numpy(
-        10 ** rng.uniform(-4, -2, (B, g.Dc, g.Dc, g.Dc))).to("cuda", dtype)
+    nhi = random_nhi(rt, B, dtype, seed)
     args = (nhi, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, DR, g.c, SIG)
     out = sweep.cheb_sweep(*args)
     ref = sweep.cheb_sweep_ref(*args)
     torch.cuda.synchronize()
-    err = (out - ref).abs()
-    max_abs = float(err.max())
-    max_rel = float((err / ref.abs().clamp_min(torch.finfo(dtype).tiny)).max())
-    torch.testing.assert_close(out, ref, rtol=rtol, atol=0.0)
+    chosen = sweep.last_plan["cheb_sweep"]
+    max_abs = float((out - ref).abs().max())
+    log(f"sweep N={N} R={R} B={B} Dc={g.Dc} c={g.c} R1={g.r_max + 1} "
+        f"{str(dtype).split('.')[-1]}: plan {plan_text('cheb_sweep')}, "
+        f"max_abs_err={max_abs:.3e}")
+    if not torch.equal(out, ref):
+        raise RuntimeError("K1 differs from its plain version")
+    other = sweep.cheb_sweep(*args, plan=dict(
+        shared_planes=not chosen.shared_planes))
+    torch.cuda.synchronize()
+    if not torch.equal(other, ref):
+        raise RuntimeError("K1 in the other plane placement differs from "
+                           "its plain version")
+    log(f"  other placement ({plan_text('cheb_sweep')}): bit-equal")
     ms = cuda_ms(lambda: sweep.cheb_sweep(*args), reps)
     plain_ms = cuda_ms(lambda: sweep.cheb_sweep_ref(*args), 3)
     bound_ms, bound_by = sweep_bound_ms(B, g.Dc, g.r_max + 1, dtype)
-    log(f"sweep N={N} R={R} B={B} Dc={g.Dc} c={g.c} R1={g.r_max + 1} "
-        f"{str(dtype).split('.')[-1]}: max_abs_err={max_abs:.3e} "
-        f"max_rel_err={max_rel:.3e} (rtol {rtol:g}) kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+    log(f"  K1: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by})")
+    # what the host spends to enqueue one call (checks, plan lookup, output
+    # allocation, the launch): the device is not waited for inside the loop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sweep.cheb_sweep(*args)
+    host_ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    log(f"  K1: host_ms={host_ms:.4f} per call to enqueue")
+    if steps:
+        design_steps("K1", lambda plan: sweep.cheb_sweep(*args, plan=plan),
+                     "cheb_sweep", g.Dc, dtype, reps)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, cluster=chosen.cluster)
+
+
+def batch_scan(N, R, dtype, seed, reps):
+    """K1's time per call over the batch size at one box shape, each with
+    the plan the host rule chose for it."""
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    rt = ChebRaytracer(N, R, SIG, grey_bins(), batch_size=1, dtype=dtype)
+    g, tb = rt.geom, rt.tables
+    for B in (1, 8, 32, 128):
+        nhi = random_nhi(rt, B, dtype, seed)
+        args = (nhi, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, DR, g.c,
+                SIG)
+        ms = cuda_ms(lambda: sweep.cheb_sweep(*args), reps)
+        log(f"  K1 batch scan Dc={g.Dc} R1={g.r_max + 1} B={B}: {ms:.4f} ms "
+            f"per call = {ms / B:.4f} ms per source "
+            f"({plan_text('cheb_sweep')})")
 
 
 def grey_bins():
@@ -241,19 +339,25 @@ def compare(name, out, ref, rtol, floor=0.0):
     return max_abs
 
 
-def timing(name, kernel, plain, reps, nbytes, ops, dtype, calls=1):
-    """Kernel and plain ms per call (``calls`` calls per ``kernel()``)
-    and the bound of one call from its bytes and operations."""
+def timing(name, kernel, plain, reps, nbytes, ops, dtype, kname, calls=1):
+    """Kernel and plain ms per call (``calls`` calls per ``kernel()``),
+    the bound of one call from its bytes and operations, and the cluster
+    size of the launches of kernel ``kname`` that were timed."""
+    from pyc2ray_torch.ops import sweep
     ms = cuda_ms(kernel, reps) / calls
+    cluster = sweep.last_plan[kname].cluster
     plain_ms = cuda_ms(plain, 1) / calls
     b_ms, b_by = least_ms(nbytes / calls, ops / calls, dtype)
     log(f"  {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({b_by}) per call")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        f"bound_ms={b_ms:.5f} ({b_by}) per call, {plan_text(kname)}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                cluster=cluster)
 
 
-def check_seg(N, R, B, dtype, rtol, seed, reps, shell_segment="auto"):
-    """K2 chained over its K segments vs the plain sweep and vs K1."""
+def check_seg(N, R, B, dtype, rtol, seed, reps, shell_segment="auto",
+              steps=False):
+    """K2 chained over its K segments vs the plain sweep (bit for bit, in
+    both plane placements) and vs K1."""
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     rt = ChebRaytracer(N, R, SIG, grey_bins(), batch_size=B, dtype=dtype,
@@ -265,12 +369,12 @@ def check_seg(N, R, B, dtype, rtol, seed, reps, shell_segment="auto"):
     nhi = random_nhi(rt, B, dtype, seed)
     geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
 
-    def chain(seg=sweep.cheb_sweep_seg):
+    def chain(seg=sweep.cheb_sweep_seg, **kw):
         planes = sweep.init_planes(nhi, g.c, DR)
         box = torch.zeros_like(nhi)
         for k in range(K):
             box, planes = seg(nhi, *geo, DR, g.c, SIG, planes, 1 + k * S, S,
-                              box)
+                              box, **kw)
         box[:, g.c, g.c, g.c] = nhi[:, g.c, g.c, g.c] * (0.5 * torch.tensor(
             DR, dtype=dtype, device="cuda"))
         return box
@@ -278,18 +382,31 @@ def check_seg(N, R, B, dtype, rtol, seed, reps, shell_segment="auto"):
     log(f"K2 cheb_sweep_seg N={N} R={R} B={B} Dc={g.Dc} R1={g.r_max + 1} "
         f"S={S} K={K} {str(dtype).split('.')[-1]}:")
     out = chain()
+    chosen = sweep.last_plan["cheb_sweep_seg"]
+    log(f"  plan {plan_text('cheb_sweep_seg')}")
     k1 = sweep.cheb_sweep(nhi, *geo, DR, g.c, SIG)
     torch.cuda.synchronize()
     if not torch.equal(out, k1):
         raise RuntimeError("K2: the segmented box differs from K1's")
     log("  K2 box equals K1 box bit for bit")
-    max_abs = compare("K2 vs plain", out, chain(sweep.cheb_sweep_seg_ref),
-                      rtol)
+    ref = chain(sweep.cheb_sweep_seg_ref)
+    max_abs = compare("K2 vs plain", out, ref, rtol)
+    # the other plane placement: shared planes need the largest cluster at
+    # this box side
+    other = dict(shared_planes=not chosen.shared_planes)
+    if other["shared_planes"]:
+        other["cluster"] = 16
+    if not (torch.equal(out, ref) and torch.equal(chain(plan=other), ref)):
+        raise RuntimeError("K2 differs from its plain version")
+    log(f"  other placement ({plan_text('cheb_sweep_seg')}): bit-equal")
     isz = torch.finfo(dtype).bits // 8
     nbytes, ops = sweep_work(B, g.Dc, g.r_max + 1, dtype)
     nbytes += K * 2 * B * 6 * g.Dc ** 2 * isz       # carried planes in, out
     t = timing("K2", chain, lambda: chain(sweep.cheb_sweep_seg_ref), reps,
-               nbytes, ops, dtype, calls=K)
+               nbytes, ops, dtype, "cheb_sweep_seg", calls=K)
+    if steps:
+        design_steps("K2", lambda plan: chain(plan=plan), "cheb_sweep_seg",
+                     g.Dc, dtype, reps, calls=K)
     return dict(max_abs_err=max_abs, **t)
 
 
@@ -321,10 +438,12 @@ def check_fused(N, R, B, dtype, rtol, floor, seed, reps, bins,
         f"E={bins.num_bins} {str(dtype).split('.')[-1]}"
         f"{' (one zero-density cell)' if zero_cell else ''}:")
     out = {}
+    knames = {"K1f": "cheb_sweep_fused_rates", "K3": "cheb_sweep_rates"}
     for name, (kern, plain) in kernels.items():
         max_abs = compare(f"{name} vs plain", kern(), plain(), rtol, floor)
         out[name] = dict(max_abs_err=max_abs, **timing(
-            name, kern, plain, reps, nbytes + extra[name], ops, dtype))
+            name, kern, plain, reps, nbytes + extra[name], ops, dtype,
+            knames[name]))
     return out
 
 
@@ -372,7 +491,8 @@ def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
                + B * g.Dc ** 3 * isz)
     return dict(max_abs_err=max(err_phi, err_heat),
                 heat_max_abs_err=err_heat,
-                **timing("K3h", kern, plain, reps, nbytes, ops, dtype))
+                **timing("K3h", kern, plain, reps, nbytes, ops, dtype,
+                         "cheb_sweep_rates_heat"))
 
 
 def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
@@ -520,21 +640,38 @@ def main():
     t0 = time.time()
     _build.load()
     log(f"build: {time.time() - t0:.2f} s")
+    # per kernel <element type, planes shared>: registers, spills, static
+    # shared memory (the sweeps' shared memory is dynamic, see the plans)
+    kernel = ""
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+        m = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)"
+                      r"(?:I([fd])Lb([01])E)?", line)
+        if m:
+            kernel = m.group(2) + (
+                f"<{'float' if m.group(3) == 'f' else 'double'}, "
+                f"{'true' if m.group(4) == '1' else 'false'}>"
+                if m.group(3) else "")
+        elif "spill" in line or "registers" in line:
+            log(f"  ptxas {kernel}: "
+                + line.replace("ptxas info    :", "").strip())
+    barrier_us = barrier_costs(B_BENCH)
+    log(f"cluster barrier, {B_BENCH} clusters of 512 threads per block: "
+        + ", ".join(f"C={C} {us:.4f} us" for C, us in barrier_us.items()))
 
     # ---- 2. kernel vs plain version on the card -------------------------
-    k_bench = check_sweep(N_BENCH, R_BENCH, B_BENCH, torch.float32,
-                          rtol=1e-5, seed=1, reps=20)
-    check_sweep(8, 6.0, 2, torch.float64, rtol=1e-12, seed=2, reps=20)
+    k_bench = check_sweep(N_BENCH, R_BENCH, B_BENCH, torch.float32, seed=1,
+                          reps=20, steps=True)
+    batch_scan(N_BENCH, R_BENCH, torch.float32, seed=1, reps=10)
+    check_sweep(8, 6.0, 2, torch.float64, seed=2, reps=20)
+    # the heating example's sweep: R beyond the mesh, one source
+    k_f64 = check_sweep(N_HEATING, 56.25, 1, torch.float64, seed=8, reps=20)
     t0 = time.time()
     bins = make_bins()
     log(f"bins: {bins.num_bins} compressed nodes ({time.time() - t0:.1f} s)")
 
     # ---- 2b. the kernels of the other sweep modes vs their plain versions
     k_seg = check_seg(N_R100, R_R100, B_BENCH, torch.float32, rtol=1e-5,
-                      seed=3, reps=3)
+                      seed=3, reps=3, steps=True)
     # N=16, R=8 clips the box; S=3 leaves a ragged last segment of r_max=8
     check_seg(16, 8.0, 2, torch.float64, rtol=1e-12, seed=4, reps=3,
               shell_segment=3)
@@ -548,6 +685,22 @@ def main():
                         floor=1e-6, seed=5, reps=10, bins=bins)
     check_heat(16, 8.0, 2, torch.float64, rtol=1e-10, floor=0.0, seed=6,
                reps=3, bins=bins, zero_cell=True)
+    # the chain floor: 3 (R1 - 1) sub-steps, each at least one cluster
+    # barrier at the cluster size the kernel ran with
+    for name, res, n_sub in (
+            ("K1 bench", k_bench, 3 * 30),
+            ("K1 float64 heating shape", k_f64, 3 * 24),
+            ("K2 R=100, per call of 24 shells", k_seg, 3 * 100 / 5),
+            ("K1f", k_fused["K1f"], 3 * 30), ("K3", k_fused["K3"], 3 * 30),
+            ("K3h", k_heat, 3 * 30)):
+        C = res["cluster"]
+        log(f"chain floor {name}: {n_sub:g} sub-steps x {barrier_us[C]:.4f} "
+            f"us (C={C}) = {1e-3 * n_sub * barrier_us[C]:.5f} ms; measured "
+            f"{res['ms']:.4f} ms, byte/operation bound "
+            f"{res['bound_ms']:.5f} ms")
+    if "--kernels" in sys.argv[1:]:
+        log(f"chip_smoke --kernels wall time: {time.time() - T_START:.1f} s")
+        return 0
 
     # ---- 3. full-width main path -------------------------------------
     chem = chem_params()
@@ -599,6 +752,11 @@ def main():
     br = stage_breakdown(rt, ndens, xh, pos_b, flux_b, 16)
     log("per-batch device ms: " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in br.items()))
+    # the sweep between rate passes (its tables may have left the L2)
+    log(f"  K1 in the pipeline {br['sweep']:.4f} ms per batch (the device "
+        f"is drained before each batch, so this holds the host's time to "
+        f"enqueue), alone {k_bench['ms']:.4f} ms per call "
+        f"({plan_text('cheb_sweep')})")
 
     # the same trace of the first 16 sources on the GPU and on the CPU
     rt_cpu = ChebRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,

@@ -25,16 +25,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# the launch arguments every entry point ends with: B, Dc, c, R1; dr, sig;
+# threads, cluster, shared_planes, smem; max_clusters; stream
+_LAUNCH = [_I] * 4 + [_D] * 2 + [_I] * 4 + [ctypes.POINTER(_I), _P]
 # exported function -> argtypes, per library; every function returns the
 # cudaError_t of its launches as an int
 _SIGNATURES = {
     "cheb_sweep": {
-        "cheb_sweep": [_P] * 8 + [_I] * 4 + [_D, _D, _I, _P],
-        "cheb_sweep_gamma": [_P] * 11 + [_I] * 5 + [_D] * 4 + [_I, _P],
-        "cheb_sweep_seg": [_P] * 10 + [_I] * 6 + [_D, _D, _I, _P],
+        "cheb_sweep": [_P] * 8 + _LAUNCH,
+        "cheb_sweep_gamma": [_P] * 11 + [_I, _D, _D] + _LAUNCH,
+        "cheb_sweep_seg": [_P] * 10 + [_I, _I] + _LAUNCH,
     },
     "cheb_sweep_rates": {
-        "cheb_sweep_rates": [_P] * 16 + [_I] * 5 + [_D] * 3 + [_I, _I, _P],
+        "cheb_sweep_rates": [_P] * 16 + [_I, _D, _I] + _LAUNCH,
     },
 }
 
@@ -73,6 +76,9 @@ def _bind(name, lib):
             f = getattr(lib, f"{fn}_{sfx}")
             f.argtypes = argtypes
             f.restype = ctypes.c_int
+    if name == "cheb_sweep":
+        lib.cheb_cluster_barriers.argtypes = [_I] * 4 + [_P]
+        lib.cheb_cluster_barriers.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p

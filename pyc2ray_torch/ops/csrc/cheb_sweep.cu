@@ -29,22 +29,34 @@
 // are register devices of that machine and are not copied: a thread
 // computes the stitched stencil value of any plane cell by a direct lookup
 // in the r-1 planes (and the same shell's x/y planes), with the stitch
-// precedence of the reference written as an if-chain. One block per source
-// (the two signs of a face are coupled by the stitches, so they share a
-// block); the block's threads sweep the 2*Dc*Dc cells of one face pair,
-// then __syncthreads() before the next sub-step, which reads them. The
-// planes of shells r-1 and r live in a per-block global scratch (12
-// planes, 196 KB in f32 at Dc = 64), small enough to stay in the 50 MB L2.
-// K1f keeps the spectral bins in shared memory, loaded once per block.
+// precedence of the reference written as an if-chain. The loop over the
+// shells is struct Sweep of cheb_sweep.cuh, shared by all kernels: a
+// thread-block cluster per source (grid B x C, the cluster's blocks dealing
+// out each sub-step's shell window evenly), one hardware cluster barrier
+// per sub-step, the 12 planes of shells r-1 and r in the cluster's
+// distributed shared memory where 12 ceil(Dc/C) Dc values fit (else in a
+// global scratch through L2). The operands that do not depend on the chain
+// (corner weights, diag, path, nHI) are loaded where they are used; staging
+// them ahead by cp.async was built, measured slower on the H100 and taken
+// out (PERF.md). C and the placement are chosen on the host by
+// ops/sweep.py::sweep_plan from (B, Dc, dtype) and
+// cudaOccupancyMaxActiveClusters; a launch the card refuses returns its
+// error and nothing runs in its place. K1f keeps the
+// spectral bins at the start of shared memory, loaded once per block.
 //
 // Bound. Each reads the nHI box and the geometry tables once and writes
 // one box: at B = 8, Dc = 64, R1 = 31 in f32, 8 MB + 10 MB + 8 MB, about
 // 8 us at 3.35 TB/s. K1's arithmetic (~27 flops per face cell) is below
 // that; K1f adds 2 transcendentals and ~5 flops per bin and valid cell,
-// which bounds it by operations at 14 bins. The kernels are far from the
-// bound: 3 (R1 - 1) dependent sub-steps run on only B blocks of 132 SMs,
-// and each sub-step is L2-latency-bound. Shared-memory planes and several
-// blocks per source are the next steps.
+// which bounds it by operations at 14 bins. The byte bound leaves out the
+// chain: 3 (R1 - 1) sub-steps follow each other, each at least one cluster
+// barrier and one read-compute-write of the planes, so the floor of this
+// algorithm is 3 (R1 - 1) times the barrier's cost (PERF.md has both). What
+// is left above that floor: a sub-step's loads (an L2 hit for the operands
+// and the mask, a remote shared-memory read for the planes), five
+// dependent divisions and the barrier's release; the z faces read nHI and
+// store the box with stride Dc (one 32-byte sector per value); K1f
+// evaluates its bins inside the dependent sub-step.
 
 #include "cheb_sweep.cuh"
 
@@ -82,148 +94,162 @@ struct StoreGamma {
   }
 };
 
-template <typename T>
-__global__ void cheb_sweep_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
-                                  T* box_all, T* scratch_all) {
+template <typename T, bool SH>
+__global__ void cheb_sweep_kernel(Tables<T> tb, Plan pl,
+                                  const T* __restrict__ nhi_all, T* box_all,
+                                  T* scratch_all) {
   const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
-  const T* nhi = nhi_all + blockIdx.x * D3;
-  T* box = box_all + blockIdx.x * D3;
-  T* sc = scratch_all + blockIdx.x * 12 * D2;
+  const size_t src = blockIdx.x >> pl.lgC;
+  const T* nhi = nhi_all + src * D3;
+  T* box = box_all + src * D3;
+  const Sweep<T, SH> sweep(tb, pl, nhi, SH ? nullptr : scratch_all + src * 12 * D2);
   const T src_cd = source_cd(tb, nhi);
-  fill_zero(box, D3);
-  init_planes(tb, sc, src_cd);
-  sweep_shells(tb, nhi, sc, 1, tb.R1, StoreCd<T>{box});
-  if (threadIdx.x == 0) box[(size_t(tb.c) * tb.Dc + tb.c) * tb.Dc + tb.c] = src_cd;
+  sweep.fill_zero(box, D3);
+  sweep.init(nullptr, 0, src_cd);
+  sweep.run(1, tb.R1, StoreCd<T>{box});
+  if (sweep.rank == 0 && threadIdx.x == 0)
+    box[(size_t(tb.c) * tb.Dc + tb.c) * tb.Dc + tb.c] = src_cd;
 }
 
-template <typename T>
-__global__ void cheb_sweep_gamma_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
+template <typename T, bool SH>
+__global__ void cheb_sweep_gamma_kernel(Tables<T> tb, Plan pl,
+                                        const T* __restrict__ nhi_all,
                                         const T* __restrict__ rt,
                                         const T* __restrict__ bins_s,
                                         const T* __restrict__ bins_w, int E,
-                                        T R2, T sdr3, T* box_all, T* scratch_all) {
+                                        T R2, T sdr3, T* box_all,
+                                        T* scratch_all) {
   const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
-  const T* nhi = nhi_all + blockIdx.x * D3;
-  T* box = box_all + blockIdx.x * D3;
-  T* sc = scratch_all + blockIdx.x * 12 * D2;
-  T* bins = shared_bins<T>();
+  const size_t src = blockIdx.x >> pl.lgC;
+  const T* nhi = nhi_all + src * D3;
+  T* box = box_all + src * D3;
+  T* bins = shared_mem<T>();
   load_bins(bins_s, bins_w, E, bins);
-  fill_zero(box, D3);                 // the source cell stays 0
-  init_planes(tb, sc, source_cd(tb, nhi));
-  sweep_shells(tb, nhi, sc, 1, tb.R1,
-               StoreGamma<T>{box, rt, bins, E, tb.Dc, R2, sdr3, tb.sig});
+  const Sweep<T, SH> sweep(tb, pl, nhi, SH ? nullptr : scratch_all + src * 12 * D2);
+  sweep.fill_zero(box, D3);           // the source cell stays 0
+  sweep.init(nullptr, 0, source_cd(tb, nhi));
+  sweep.run(1, tb.R1,
+            StoreGamma<T>{box, rt, bins, E, tb.Dc, R2, sdr3, tb.sig});
 }
 
-template <typename T>
-__global__ void cheb_sweep_seg_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
+template <typename T, bool SH>
+__global__ void cheb_sweep_seg_kernel(Tables<T> tb, Plan pl,
+                                      const T* __restrict__ nhi_all,
                                       const T* __restrict__ planes_in,
                                       T* planes_out, int r0, int r1,
                                       T* box_all, T* scratch_all) {
   const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
-  const T* nhi = nhi_all + blockIdx.x * D3;
-  T* box = box_all + blockIdx.x * D3;
-  T* sc = scratch_all + blockIdx.x * 12 * D2;
-  const T* pin = planes_in + blockIdx.x * 6 * D2;
-  T* pout = planes_out + blockIdx.x * 6 * D2;
-  T* carry = sc + ((r0 - 1) & 1) * 6 * D2;
-  for (size_t i = threadIdx.x; i < 6 * D2; i += blockDim.x) carry[i] = pin[i];
-  __syncthreads();
-  sweep_shells(tb, nhi, sc, r0, r1, StoreCd<T>{box});
-  const T* last = sc + ((max(r1, r0) - 1) & 1) * 6 * D2;
-  for (size_t i = threadIdx.x; i < 6 * D2; i += blockDim.x) pout[i] = last[i];
+  const size_t src = blockIdx.x >> pl.lgC;
+  const Sweep<T, SH> sweep(tb, pl, nhi_all + src * D3,
+                           SH ? nullptr : scratch_all + src * 12 * D2);
+  sweep.init(planes_in + src * 6 * D2, (r0 - 1) & 1, T(0));
+  sweep.run(r0, r1, StoreCd<T>{box_all + src * D3});
+  sweep.export_planes(planes_out + src * 6 * D2, (max(r1, r0) - 1) & 1);
 }
 
-template <typename T>
-Tables<T> tables(const void* sw, const void* path, const void* diag,
-                 const void* mask_m, const void* mask_p, int Dc, int c, int R1,
-                 double dr, double sig) {
-  return Tables<T>{static_cast<const T*>(sw), static_cast<const T*>(path),
-                   static_cast<const T*>(diag),
-                   static_cast<const uint8_t*>(mask_m),
-                   static_cast<const uint8_t*>(mask_p), Dc, c, R1,
-                   static_cast<T>(dr), static_cast<T>(sig)};
+// `n` cluster barriers and nothing else: what one link of the sweep's chain
+// costs at the least (timed by chip_smoke.py).
+__global__ void cluster_barriers_kernel(int n) {
+  for (int i = 0; i < n; ++i) {
+    cluster_arrive();
+    cluster_wait();
+  }
 }
+
+// The launches of the three kernels for one element type.
+template <typename T>
+struct Entry {
+  static int sweep(const Tables<T>& tb, const LaunchSpec& spec, const void* nhi,
+                   void* box, void* scratch) {
+    Plan pl;
+    const cudaError_t err = make_plan<T>(spec, tb.Dc, 0, &pl);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_cluster(
+        pl.rows ? cheb_sweep_kernel<T, true> : cheb_sweep_kernel<T, false>,
+        spec, tb, pl, static_cast<const T*>(nhi), static_cast<T*>(box),
+        static_cast<T*>(scratch));
+  }
+
+  static int gamma(const Tables<T>& tb, const LaunchSpec& spec, const void* nhi,
+                   const void* rt, const void* bins_s, const void* bins_w,
+                   int E, double R2, double sdr3, void* box, void* scratch) {
+    Plan pl;
+    const cudaError_t err = make_plan<T>(spec, tb.Dc, 2 * E, &pl);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_cluster(
+        pl.rows ? cheb_sweep_gamma_kernel<T, true>
+                : cheb_sweep_gamma_kernel<T, false>,
+        spec, tb, pl, static_cast<const T*>(nhi), static_cast<const T*>(rt),
+        static_cast<const T*>(bins_s), static_cast<const T*>(bins_w), E,
+        static_cast<T>(R2), static_cast<T>(sdr3), static_cast<T*>(box),
+        static_cast<T*>(scratch));
+  }
+
+  static int seg(const Tables<T>& tb, const LaunchSpec& spec, const void* nhi,
+                 const void* planes_in, void* planes_out, int r0, int r1,
+                 void* box, void* scratch) {
+    Plan pl;
+    const cudaError_t err = make_plan<T>(spec, tb.Dc, 0, &pl);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_cluster(
+        pl.rows ? cheb_sweep_seg_kernel<T, true>
+                : cheb_sweep_seg_kernel<T, false>,
+        spec, tb, pl, static_cast<const T*>(nhi),
+        static_cast<const T*>(planes_in), static_cast<T*>(planes_out), r0, r1,
+        static_cast<T*>(box), static_cast<T*>(scratch));
+  }
+};
 
 }  // namespace
 
-#define CHEB_TABLES_ARGS                                                      \
+// The arguments every entry point starts and ends with: the sweep's inputs,
+// and the launch as the caller planned it (LaunchSpec, in its order).
+#define CHEB_IN_ARGS                                                          \
   const void *nhi, const void *sw, const void *path, const void *diag,      \
       const void *mask_m, const void *mask_p
+#define CHEB_LAUNCH_ARGS                                                      \
+  int B, int Dc, int c, int R1, double dr, double sig, int threads,         \
+      int cluster, int shared_planes, int smem, int *max_clusters,           \
+      void *stream
+#define CHEB_TABLES(T)                                                        \
+  make_tables<T>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig)
+#define CHEB_SPEC                                                             \
+  LaunchSpec { B, threads, cluster, shared_planes, smem, max_clusters,       \
+               stream }
 
 extern "C" {
 
-// Each entry point launches on `stream` and returns cudaGetLastError()
-// after the launch.
+// Each entry point launches on `stream` and returns the cudaError_t of the
+// launch (0: launched), or with `max_clusters` set launches nothing and
+// writes there how many clusters of that launch are resident at once.
+#define CHEB_SWEEP_ENTRIES(SFX, T)                                            \
+  int cheb_sweep_##SFX(CHEB_IN_ARGS, void* box, void* scratch,                \
+                       CHEB_LAUNCH_ARGS) {                                    \
+    return Entry<T>::sweep(CHEB_TABLES(T), CHEB_SPEC, nhi, box, scratch);     \
+  }                                                                           \
+  int cheb_sweep_gamma_##SFX(CHEB_IN_ARGS, const void* rt,                    \
+                             const void* bins_s, const void* bins_w,          \
+                             void* box, void* scratch, int E, double R2,      \
+                             double sdr3, CHEB_LAUNCH_ARGS) {                 \
+    return Entry<T>::gamma(CHEB_TABLES(T), CHEB_SPEC, nhi, rt, bins_s,        \
+                           bins_w, E, R2, sdr3, box, scratch);                \
+  }                                                                           \
+  int cheb_sweep_seg_##SFX(CHEB_IN_ARGS, const void* planes_in,               \
+                           void* planes_out, void* box, void* scratch,        \
+                           int r0, int r1, CHEB_LAUNCH_ARGS) {                \
+    return Entry<T>::seg(CHEB_TABLES(T), CHEB_SPEC, nhi, planes_in,           \
+                         planes_out, r0, r1, box, scratch);                   \
+  }
 
-int cheb_sweep_f32(CHEB_TABLES_ARGS, void* box, void* scratch, int B, int Dc,
-                   int c, int R1, double dr, double sig, int threads,
-                   void* stream) {
-  cheb_sweep_kernel<float><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tables<float>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
-      static_cast<const float*>(nhi), static_cast<float*>(box),
-      static_cast<float*>(scratch));
-  return static_cast<int>(cudaGetLastError());
-}
+CHEB_SWEEP_ENTRIES(f32, float)
+CHEB_SWEEP_ENTRIES(f64, double)
 
-int cheb_sweep_f64(CHEB_TABLES_ARGS, void* box, void* scratch, int B, int Dc,
-                   int c, int R1, double dr, double sig, int threads,
-                   void* stream) {
-  cheb_sweep_kernel<double><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tables<double>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
-      static_cast<const double*>(nhi), static_cast<double*>(box),
-      static_cast<double*>(scratch));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int cheb_sweep_gamma_f32(CHEB_TABLES_ARGS, const void* rt, const void* bins_s,
-                         const void* bins_w, void* box, void* scratch, int B,
-                         int Dc, int c, int R1, int E, double dr, double sig,
-                         double R2, double sdr3, int threads, void* stream) {
-  cheb_sweep_gamma_kernel<float>
-      <<<B, threads, 2 * E * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-          tables<float>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
-          static_cast<const float*>(nhi), static_cast<const float*>(rt),
-          static_cast<const float*>(bins_s), static_cast<const float*>(bins_w),
-          E, static_cast<float>(R2), static_cast<float>(sdr3),
-          static_cast<float*>(box), static_cast<float*>(scratch));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int cheb_sweep_gamma_f64(CHEB_TABLES_ARGS, const void* rt, const void* bins_s,
-                         const void* bins_w, void* box, void* scratch, int B,
-                         int Dc, int c, int R1, int E, double dr, double sig,
-                         double R2, double sdr3, int threads, void* stream) {
-  cheb_sweep_gamma_kernel<double>
-      <<<B, threads, 2 * E * sizeof(double), static_cast<cudaStream_t>(stream)>>>(
-          tables<double>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
-          static_cast<const double*>(nhi), static_cast<const double*>(rt),
-          static_cast<const double*>(bins_s), static_cast<const double*>(bins_w),
-          E, R2, sdr3, static_cast<double*>(box), static_cast<double*>(scratch));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int cheb_sweep_seg_f32(CHEB_TABLES_ARGS, const void* planes_in,
-                       void* planes_out, void* box, void* scratch, int B,
-                       int Dc, int c, int R1, int r0, int r1, double dr,
-                       double sig, int threads, void* stream) {
-  cheb_sweep_seg_kernel<float><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tables<float>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
-      static_cast<const float*>(nhi), static_cast<const float*>(planes_in),
-      static_cast<float*>(planes_out), r0, r1, static_cast<float*>(box),
-      static_cast<float*>(scratch));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int cheb_sweep_seg_f64(CHEB_TABLES_ARGS, const void* planes_in,
-                       void* planes_out, void* box, void* scratch, int B,
-                       int Dc, int c, int R1, int r0, int r1, double dr,
-                       double sig, int threads, void* stream) {
-  cheb_sweep_seg_kernel<double><<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tables<double>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig),
-      static_cast<const double*>(nhi), static_cast<const double*>(planes_in),
-      static_cast<double*>(planes_out), r0, r1, static_cast<double*>(box),
-      static_cast<double*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+// `n` barriers in each of B clusters of `cluster` blocks.
+int cheb_cluster_barriers(int B, int threads, int cluster, int n,
+                          void* stream) {
+  return launch_cluster(cluster_barriers_kernel,
+                        LaunchSpec{B, threads, cluster, 0, 0, nullptr, stream},
+                        n);
 }
 
 const char* cheb_sweep_error_string(int err) {

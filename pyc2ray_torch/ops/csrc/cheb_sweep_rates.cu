@@ -37,8 +37,9 @@
 // 8 + 10 + 2 + 8 MB, about 8.5 us at 3.35 TB/s; K3h writes 8 MB more); its
 // arithmetic is the sweep's ~27 flops per face cell plus ~7 operations per
 // bin and valid cell (K3h: 2 more per bin, and 2 more per cell). Phase A
-// carries K1's latency bound (3 (R1 - 1) dependent sub-steps on B blocks);
-// phase B is a dense pass over the card.
+// is K1's loop (a cluster per source, see cheb_sweep.cuh) and carries its
+// chain of 3 (R1 - 1) dependent sub-steps; phase B is a dense pass over
+// the card.
 
 #include "cheb_sweep.cuh"
 
@@ -57,15 +58,16 @@ struct StoreFold {
   }
 };
 
-template <typename T>
-__global__ void sweep_fold_kernel(Tables<T> tb, const T* __restrict__ nhi_all,
-                                  T* ci_all, T* dc_all, T* scratch_all) {
+template <typename T, bool SH>
+__global__ void sweep_fold_kernel(Tables<T> tb, Plan pl,
+                                  const T* __restrict__ nhi_all, T* ci_all,
+                                  T* dc_all, T* scratch_all) {
   const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
-  const T* nhi = nhi_all + blockIdx.x * D3;
-  T* sc = scratch_all + blockIdx.x * 12 * D2;
-  init_planes(tb, sc, source_cd(tb, nhi));
-  sweep_shells(tb, nhi, sc, 1, tb.R1,
-               StoreFold<T>{ci_all + blockIdx.x * D3, dc_all + blockIdx.x * D3});
+  const size_t src = blockIdx.x >> pl.lgC;
+  const T* nhi = nhi_all + src * D3;
+  const Sweep<T, SH> sweep(tb, pl, nhi, SH ? nullptr : scratch_all + src * 12 * D2);
+  sweep.init(nullptr, 0, source_cd(tb, nhi));
+  sweep.run(1, tb.R1, StoreFold<T>{ci_all + src * D3, dc_all + src * D3});
 }
 
 // Phase B: block (b, i) evaluates plane i of source b's box. With HEAT the
@@ -85,7 +87,7 @@ __global__ void box_rates_kernel(const T* __restrict__ ci_all,
   const size_t plane = (size_t(b) * Dc + i) * D2;        // (b, i) in a box
   const T* d2_tab = rt + size_t(i) * 2 * D2;             // channel 0
   const T* valid = d2_tab + D2;                          // channel 1
-  T* bins = shared_bins<T>();
+  T* bins = shared_mem<T>();
   load_bins(bins_s, bins_w, E, bins, HEAT ? bins_wh : nullptr);
   const T fs = A::mul(flux[b], s_fac);
   for (size_t jk = threadIdx.x; jk < D2; jk += blockDim.x) {
@@ -113,20 +115,20 @@ int launch(const void* nhi, const void* sw, const void* path, const void* diag,
            const void* mask_m, const void* mask_p, const void* rt,
            const void* bins_s, const void* bins_w, const void* bins_wh,
            const void* flux, void* phi, void* heat, void* ci, void* dc,
-           void* scratch, int B, int Dc, int c, int R1, int E, double dr,
-           double sig, double s_fac, int threads_a, int threads_b,
-           void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Tables<T> tb{static_cast<const T*>(sw), static_cast<const T*>(path),
-                     static_cast<const T*>(diag),
-                     static_cast<const uint8_t*>(mask_m),
-                     static_cast<const uint8_t*>(mask_p), Dc, c, R1,
-                     static_cast<T>(dr), static_cast<T>(sig)};
-  sweep_fold_kernel<T><<<B, threads_a, 0, st>>>(
-      tb, static_cast<const T*>(nhi), static_cast<T*>(ci), static_cast<T*>(dc),
-      static_cast<T*>(scratch));
-  const cudaError_t err = cudaGetLastError();
+           void* scratch, int E, double s_fac, int threads_b, int Dc, int c,
+           int R1, double dr, double sig, const LaunchSpec& spec) {
+  const cudaStream_t st = static_cast<cudaStream_t>(spec.stream);
+  const int B = spec.B;
+  const Tables<T> tb = make_tables<T>(sw, path, diag, mask_m, mask_p, Dc, c,
+                                      R1, dr, sig);
+  Plan pl;
+  cudaError_t err = make_plan<T>(spec, Dc, 0, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = launch_cluster(
+      pl.rows ? sweep_fold_kernel<T, true> : sweep_fold_kernel<T, false>, spec,
+      tb, pl, static_cast<const T*>(nhi), static_cast<T*>(ci),
+      static_cast<T*>(dc), static_cast<T*>(scratch));
+  if (rc != 0 || spec.max_clusters != nullptr) return rc;
   const bool with_heat = heat != nullptr;
   const auto phase_b = with_heat ? box_rates_kernel<T, true>
                                  : box_rates_kernel<T, false>;
@@ -143,21 +145,26 @@ int launch(const void* nhi, const void* sw, const void* path, const void* diag,
 
 extern "C" {
 
-// Launches phase A then phase B on `stream`; returns the first
-// cudaGetLastError() that is not cudaSuccess, else cudaSuccess. `heat` and
-// `bins_wh` are null for K3 and both set for K3h.
+// Launches phase A (as clusters, planned by the caller like the sweeps of
+// cheb_sweep.cu) then phase B on `stream`; returns the first cudaError_t
+// that is not cudaSuccess, else cudaSuccess. With `max_clusters` set it
+// launches nothing and writes there how many of phase A's clusters are
+// resident at once. `heat` and `bins_wh` are null for K3 and both set for
+// K3h.
 #define CHEB_SWEEP_RATES_ENTRY(NAME, TYPE)                                     \
   int NAME(const void* nhi, const void* sw, const void* path,                 \
            const void* diag, const void* mask_m, const void* mask_p,          \
            const void* rt, const void* bins_s, const void* bins_w,            \
            const void* bins_wh, const void* flux, void* phi, void* heat,      \
-           void* ci, void* dc, void* scratch, int B, int Dc, int c, int R1,   \
-           int E, double dr, double sig, double s_fac, int threads_a,         \
-           int threads_b, void* stream) {                                     \
+           void* ci, void* dc, void* scratch, int E, double s_fac,            \
+           int threads_b, int B, int Dc, int c, int R1, double dr,            \
+           double sig, int threads, int cluster, int shared_planes,           \
+           int smem, int* max_clusters, void* stream) {                       \
     return launch<TYPE>(nhi, sw, path, diag, mask_m, mask_p, rt, bins_s,      \
-                        bins_w, bins_wh, flux, phi, heat, ci, dc, scratch, B, \
-                        Dc, c, R1, E, dr, sig, s_fac, threads_a, threads_b,   \
-                        stream);                                              \
+                        bins_w, bins_wh, flux, phi, heat, ci, dc, scratch, E, \
+                        s_fac, threads_b, Dc, c, R1, dr, sig,                 \
+                        LaunchSpec{B, threads, cluster, shared_planes, smem,  \
+                                   max_clusters, stream});                    \
   }
 
 CHEB_SWEEP_RATES_ENTRY(cheb_sweep_rates_f32, float)

@@ -24,9 +24,16 @@ other faces, see ``_sweep_shells``) and adds its own dcol = nHI * path * dr.
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (``*_ref``); a CUDA tensor launches the kernel of
 csrc/ or raises. ``launches`` counts the kernel launches per kernel.
+
+On the card every sweep is launched as thread-block clusters, one cluster
+of C blocks per source. ``sweep_plan`` is the host rule that picks C and
+where the shell planes live (the cluster's distributed shared memory, or a
+global scratch); ``last_plan`` keeps the plan of each kernel's last launch and ``occupancy``
+what cudaOccupancyMaxActiveClusters answered for every plan it was asked.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,11 +42,15 @@ from ..constants import MAX_COLDENSH, S_STAR_REF
 
 __all__ = ["cheb_sweep", "cheb_sweep_ref", "cheb_sweep_seg",
            "cheb_sweep_seg_ref", "cheb_sweep_rates", "cheb_sweep_rates_ref",
-           "init_planes", "s_over_dr3", "launches", "reset_launches"]
+           "init_planes", "s_over_dr3", "launches", "reset_launches",
+           "SweepPlan", "sweep_plan", "plan_sizes", "last_plan", "occupancy",
+           "cluster_barriers"]
 
 LIM = 0.6          # floor of the tau weighting (raytracing.f90 cinterp)
 FOURPI = 12.566370614359172463991853874177
-THREADS = 512      # threads per block of the sweep kernels
+THREADS = 512      # threads per block of the sweep kernels, unless forced
+SMEM_MAX = 232448  # dynamic shared memory one block may have on sm_90, bytes
+CLUSTERS = (16, 8, 4, 2, 1)   # cluster sizes, in the order they are tried
 THREADS_RATES = 256   # threads per block of K3's rate phase
 
 # kernel name -> launches since the last reset_launches()
@@ -48,9 +59,72 @@ launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "cheb_sweep_rates_heat": 0}
 
 
+# kernel name -> SweepPlan of its last launch
+last_plan = {}
+# (entry point, SweepPlan) -> cudaOccupancyMaxActiveClusters for that launch
+occupancy = {}
+_plans = {}        # the plan chosen per (entry point, shapes, forced parts)
+
+
 def reset_launches():
     for k in launches:
         launches[k] = 0
+
+
+class SweepPlan(NamedTuple):
+    """How one launch lays the sweep onto the card."""
+    cluster: int          # blocks per source (the cluster's size)
+    shared_planes: bool   # planes in distributed shared memory, else scratch
+    threads: int          # threads per block
+    smem: int             # dynamic shared memory per block, bytes
+    rows: int             # plane rows per block (0 with the scratch)
+
+
+def plan_sizes(Dc, itemsize, cluster, shared_planes, head=0):
+    """(smem bytes, rows) of a placement; the launch code of
+    csrc/cheb_sweep.cuh (make_plan) computes the same and refuses a launch
+    that disagrees. Row a of each of the 12 planes lives in block
+    a mod cluster, so a block holds ceil(Dc / cluster) rows. ``head``:
+    values of the kernel's own at the start of shared memory."""
+    rows = -(-Dc // cluster) if shared_planes else 0
+    return itemsize * (head + 12 * rows * Dc), rows
+
+
+def sweep_plan(B, Dc, itemsize, max_active, head=0, cluster=None,
+               shared_planes=None, threads=THREADS):
+    """The plan of a sweep of B sources with (Dc, Dc, Dc) boxes in a type
+    of ``itemsize`` bytes.
+
+    For a cluster size the planes go into the cluster's shared memory
+    where they fit SMEM_MAX, else into the global scratch. The cluster size
+    is the largest of CLUSTERS of which the card holds B at once, so that
+    every source's chain runs from the start, ``max_active(plan)`` being
+    cudaOccupancyMaxActiveClusters for that launch; one block per source
+    when no size does. ``cluster``, ``shared_planes`` and ``threads`` force
+    a part of the plan (a forced placement that does not fit raises)."""
+    def place(C):
+        for sh in (True, False):
+            if shared_planes is not None and sh != bool(shared_planes):
+                continue
+            smem, rows = plan_sizes(Dc, itemsize, C, sh, head)
+            if smem <= SMEM_MAX:
+                return SweepPlan(C, sh, int(threads), smem, rows)
+        return None
+
+    sizes = CLUSTERS if cluster is None else (int(cluster),)
+    if any(C not in CLUSTERS for C in sizes):
+        raise ValueError(f"sweep_plan: cluster size {cluster} not in "
+                         f"{CLUSTERS}")
+    plans = [p for p in map(place, sizes) if p is not None]
+    if not plans:
+        raise ValueError(
+            f"sweep_plan: no placement with cluster={cluster}, "
+            f"shared_planes={shared_planes} fits {SMEM_MAX} bytes at "
+            f"Dc={Dc}, itemsize={itemsize}")
+    for plan in plans:
+        if max_active(plan) >= B:
+            return plan
+    return plans[-1]
 
 
 def s_over_dr3(dr, dtype):
@@ -383,24 +457,73 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(lib, fn, name, *args):
-    err = getattr(lib, fn)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({lib.error_string(err)!r})")
+def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
+            head=0, plan=None):
+    """Plan and launch entry point ``fn`` of ``lib`` for the sweep of
+    ``nhi_box``: ``tensors`` are its pointer arguments up to the scratch
+    (None for a null pointer), ``scalars`` those between the scratch and
+    the launch arguments, ``head`` the kernel's own values at the start of
+    shared memory, ``plan`` a dict of forced parts of the plan (see
+    ``sweep_plan``). The plan is made once per shape. Raises when the card
+    refuses the launch; counts it otherwise."""
+    B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
+    dt, dev = nhi_box.dtype, nhi_box.device
+    call = getattr(lib, fn)
+    ptrs = [ctypes.c_void_p(None) if t is None else _ptr(t) for t in tensors]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def invoke(p, scratch, query):
+        err = call(*ptrs, scratch, *scalars, B, Dc, c, R1, float(dr),
+                   float(sig), p.threads, p.cluster, int(p.shared_planes),
+                   p.smem, query, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{name} kernel launch failed: CUDA error {err} "
+                f"({lib.error_string(err)!r}) with {p}")
+
+    def max_active(p):
+        n = ctypes.c_int(0)
+        invoke(p, ctypes.c_void_p(None), ctypes.byref(n))
+        occupancy[fn, p] = n.value
+        return n.value
+
+    forced = tuple(sorted((plan or {}).items()))
+    key = (fn, B, Dc, head, dev, forced)
+    if key not in _plans:
+        _plans[key] = sweep_plan(B, Dc, dt.itemsize, max_active, head,
+                                 **dict(forced))
+    p = _plans[key]
+    # without shared planes: two parities x three faces x two signs of
+    # (Dc, Dc) planes per source, zeroed by the kernel
+    scratch = None if p.shared_planes else torch.empty(
+        (B, 12, Dc, Dc), dtype=dt, device=dev)
+    invoke(p, ctypes.c_void_p(None) if scratch is None else _ptr(scratch),
+           None)
     launches[name] += 1
+    last_plan[name] = p
 
 
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def cluster_barriers(B, cluster, n, device="cuda"):
+    """Launch B clusters of ``cluster`` blocks that do nothing but ``n``
+    cluster barriers: timed, the least cost of one sub-step of the sweep's
+    chain. Not counted in ``launches``."""
+    from ._build import load
+    lib = load("cheb_sweep")
+    stream = torch.cuda.current_stream(torch.device(device)).cuda_stream
+    err = lib.cheb_cluster_barriers(B, THREADS, cluster, n,
+                                    ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"cluster_barriers launch failed: CUDA error "
+                           f"{err} ({lib.error_string(err)!r})")
 
 
 def cheb_sweep(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
-               bins=None, rt_tab=None, R2=0.0):
+               bins=None, rt_tab=None, R2=0.0, plan=None):
     """The sweep on the device of ``nhi_box`` (see ``cheb_sweep_ref`` for
     the arguments): the plain version for a CPU tensor, the CUDA kernel
     (K1, or K1f with ``bins``) for a CUDA tensor. ``dr``, ``sig`` and
-    ``R2`` are floats."""
+    ``R2`` are floats. ``plan`` forces parts of the kernel's launch plan
+    (a dict of ``sweep_plan``'s cluster, shared_planes, threads)."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr,
                               c, sig, bins=bins, rt_tab=rt_tab, R2=R2)
@@ -413,28 +536,24 @@ def cheb_sweep(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
     from ._build import load
     lib = load("cheb_sweep")
     box = torch.empty_like(nhi_box)
-    # per block: two parities x three faces x two signs of (Dc, Dc) planes
-    scratch = torch.empty((B, 12, Dc, Dc), dtype=dt, device=nhi_box.device)
-    geo = [_ptr(t) for t in (nhi_box, sw, path, diag, mask_m, mask_p)]
+    geo = (nhi_box, sw, path, diag, mask_m, mask_p)
     if bins is None:
-        _launch(lib, f"cheb_sweep_{sfx}", "cheb_sweep", *geo, _ptr(box),
-                _ptr(scratch), B, Dc, c, R1, float(dr), float(sig), THREADS,
-                _stream(nhi_box))
+        _launch(lib, f"cheb_sweep_{sfx}", "cheb_sweep", nhi_box, R1, c, dr,
+                sig, (*geo, box), plan=plan)
     else:
         sdr3 = float(s_over_dr3(float(dr), dt))
         _launch(lib, f"cheb_sweep_gamma_{sfx}", "cheb_sweep_fused_rates",
-                *geo, _ptr(rt_tab), _ptr(bins[0]), _ptr(bins[1]), _ptr(box),
-                _ptr(scratch), B, Dc, c, R1, E, float(dr), float(sig),
-                float(R2), sdr3, THREADS, _stream(nhi_box))
+                nhi_box, R1, c, dr, sig, (*geo, rt_tab, bins[0], bins[1], box),
+                (E, float(R2), sdr3), head=2 * E, plan=plan)
     return box
 
 
 def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
-                   planes, r0, S, box=None):
+                   planes, r0, S, box=None, plan=None):
     """One segment of the shell-segmented sweep on the device of
     ``nhi_box`` (see ``cheb_sweep_seg_ref``): the plain version for a CPU
     tensor, the CUDA kernel (K2) for a CUDA tensor. Returns (box, planes);
-    ``box`` is updated in place when given."""
+    ``box`` is updated in place when given. ``plan`` as in ``cheb_sweep``."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_seg_ref(nhi_box, sw, path, diag, mask_m, mask_p,
                                   dr, c, sig, planes, r0, S, box)
@@ -450,12 +569,9 @@ def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
     from ._build import load
     lib = load("cheb_sweep")
     out = torch.empty_like(planes)
-    scratch = torch.empty((B, 12, Dc, Dc), dtype=dt, device=nhi_box.device)
-    _launch(lib, f"cheb_sweep_seg_{sfx}", "cheb_sweep_seg",
-            *[_ptr(t) for t in (nhi_box, sw, path, diag, mask_m, mask_p,
-                                planes, out, box, scratch)],
-            B, Dc, c, R1, r0, min(r0 + S, R1), float(dr), float(sig),
-            THREADS, _stream(nhi_box))
+    _launch(lib, f"cheb_sweep_seg_{sfx}", "cheb_sweep_seg", nhi_box, R1, c,
+            dr, sig, (nhi_box, sw, path, diag, mask_m, mask_p, planes, out,
+                      box), (r0, min(r0 + S, R1)), plan=plan)
     return box, out
 
 
@@ -463,10 +579,11 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
                      dr, c, sig, bins_s, bins_w, bins_wh=None):
     """The fused sweep + box + rates on the device of ``nhi_box`` (see
     ``cheb_sweep_rates_ref``): the plain version for a CPU tensor, the CUDA
-    kernel (two __global__ launches on the stream, counted as one) for a
-    CUDA tensor: K3, counted as "cheb_sweep_rates", or with ``bins_wh``
-    K3h, counted as "cheb_sweep_rates_heat", which returns (phi, heat).
-    ``dr`` and ``sig`` are floats."""
+    kernel (two __global__ launches on the stream, the first as clusters
+    like K1, counted as one) for a CUDA tensor: K3, counted as
+    "cheb_sweep_rates", or with ``bins_wh`` K3h, counted as
+    "cheb_sweep_rates_heat", which returns (phi, heat). ``dr`` and ``sig``
+    are floats."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p,
                                     rt_tab, flux, dr, c, sig, bins_s, bins_w,
@@ -487,15 +604,9 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
     phi = torch.empty_like(nhi_box)
     ci = torch.empty_like(nhi_box)        # phase A's cdin and dcol boxes
     dc = torch.empty_like(nhi_box)
-    scratch = torch.empty((B, 12, Dc, Dc), dtype=dt, device=nhi_box.device)
     dr_t = torch.tensor(float(dr), dtype=dt)
     s_fac = float(s_over_dr3(dr_t, dt) * dr_t)     # as in _box_rates
-    null = ctypes.c_void_p(None)
-    _launch(lib, f"cheb_sweep_rates_{sfx}", name,
-            *[_ptr(t) for t in (nhi_box, sw, path, diag, mask_m, mask_p,
-                                rt_tab, bins_s, bins_w)],
-            null if heat is None else _ptr(bins_wh), _ptr(flux), _ptr(phi),
-            null if heat is None else _ptr(heat), _ptr(ci), _ptr(dc),
-            _ptr(scratch), B, Dc, c, R1, E, float(dr), float(sig), s_fac,
-            THREADS, THREADS_RATES, _stream(nhi_box))
+    _launch(lib, f"cheb_sweep_rates_{sfx}", name, nhi_box, R1, c, dr, sig,
+            (nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, bins_s, bins_w,
+             bins_wh, flux, phi, heat, ci, dc), (E, s_fac, THREADS_RATES))
     return phi if heat is None else (phi, heat)
