@@ -26,11 +26,17 @@ Phases (any failure raises and the script exits non-zero):
    small clipped shape in float64 with a ragged last segment; the fused
    kernels K1f (fuse_rates) and K3 (fuse_fold) at the bench shape with
    compressed bins in float32 and at a small clipped shape in float64 that
-   holds a zero-density cell.
+   holds a zero-density cell: complete rate boxes, the per-source flux and
+   the source cell's closed form included, K1f with its rate threads and
+   without; their time per design step (K1f: the bins inside the sub-step,
+   128 and 256 rate threads, a small ring, fewer chain threads; K3: the
+   cluster size of its first launch).
 2c. The fused kernel with the heating output, K3h (fuse_fold with
    do_heating), at the bench shape in float32 and at the small clipped
    float64 shape with a zero-density cell: both outputs against the plain
-   version, and its Gamma bit for bit against K3's.
+   version, and its Gamma bit for bit against K3's. Then the chain floor
+   of every kernel, a dense pass of the bin sums over the card and the
+   rate floor it sets for K1f, K3 and K3h.
 3. The full-width main path: ChebRaytracer.trace_batches + global_pass at
    N=256, R=30, Ns=2048, B=8, compressed black-body bins, float32 (the
    configuration of bench.py, positions from seed 100). Prints ns per
@@ -42,7 +48,9 @@ Phases (any failure raises and the script exits non-zero):
    held against phase 3's; the R=100 harness configuration (N=250, R=100,
    B=8, Ns=100 from seed 100, compressed bins, float32) auto-segmented
    (K2) and with shell_segment=0 (K1), held against each other. Each run
-   prints ns per cell-update and its launch counts, which are asserted.
+   prints ns per cell-update, its launch counts, which are asserted, and
+   for the fused modes the per-batch stage times (one kernel call per
+   batch and nothing after it but the accumulate).
 3c. The non-isothermal path at full width: the bench configuration with
    do_heating=True and fuse_fold=True (K3h, one launch per batch) and with
    do_heating=True alone (K1 + the rate pass with the heat channel); each
@@ -224,6 +232,58 @@ def design_steps(label, call, name, Dc, dtype, reps, calls=1):
             continue
         ms = cuda_ms(lambda: call(plan), reps) / calls
         log(f"  {label} {text}: {ms:.4f} ms per call ({plan_text(name)})")
+
+
+def fused_steps(label, call, name, reps):
+    """Time ``call(plan)`` of a fused kernel per design step. K1f, its
+    rates: every cell's bins evaluated by its chain thread inside the
+    dependent sub-step (no rate threads, clusters of 8 and 16); handed
+    through the ring to 128 or 256 rate threads per block; a ring of 64
+    slots per buffer, whose overflow the chain threads evaluate; 256 chain
+    threads. K3 and K3h, whose rates are a second launch: the cluster size
+    of the first."""
+    if label == "K1f":
+        steps = [("rates inside the sub-step (no rate threads)",
+                  dict(rate_threads=0)),
+                 ("rates inside the sub-step, cluster of 8",
+                  dict(rate_threads=0, cluster=8)),
+                 ("128 rate threads", dict(rate_threads=128)),
+                 ("256 rate threads", dict(rate_threads=256)),
+                 ("256 rate threads, ring of 64 slots",
+                  dict(rate_threads=256, ring=64)),
+                 ("256 rate threads, 256 chain threads",
+                  dict(rate_threads=256, threads=256))]
+    else:
+        steps = [(f"cluster of {C}, planes shared",
+                  dict(cluster=C, shared_planes=True)) for C in (8, 16)]
+    for text, plan in steps:
+        ms = cuda_ms(lambda: call(plan), reps)
+        log(f"  {label} {text}: {ms:.4f} ms per call ({plan_text(name)})")
+
+
+def rate_floor(bins, n_cells, dtype, reps=10):
+    """ns per cell and bin of a dense pass of the fused kernels' bin sums
+    (sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e))) over ``n_cells``
+    cells on the whole card, where nothing waits for it."""
+    from pyc2ray_torch.ops import sweep
+    rng = np.random.RandomState(11)
+    tau = torch.from_numpy(rng.uniform(0.0, 3.0, n_cells)).to("cuda", dtype)
+    dtau = torch.from_numpy(rng.uniform(0.0, 0.1, n_cells)).to("cuda", dtype)
+    bs = torch.from_numpy(np.asarray(bins.s)).to("cuda", dtype)
+    bw = torch.from_numpy(np.asarray(bins.w_photo)).to("cuda", dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = sweep.dense_bin_sums(tau, dtau, bs, bw, 8 * sms)
+    ref = sweep._bin_sum(tau, dtau, bs, bw)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise RuntimeError("dense bin sums differ from their plain version")
+    ms = cuda_ms(lambda: sweep.dense_bin_sums(tau, dtau, bs, bw, 8 * sms),
+                 reps)
+    ns = 1e6 * ms / (n_cells * bins.num_bins)
+    log(f"dense bin sums, {n_cells} cells x {bins.num_bins} bins "
+        f"{str(dtype).split('.')[-1]}: {ms:.4f} ms = {ns:.6f} ns per cell "
+        f"and bin over the card (bit-equal to the plain version)")
+    return ns
 
 
 def barrier_costs(B, n=2000):
@@ -411,8 +471,11 @@ def check_seg(N, R, B, dtype, rtol, seed, reps, shell_segment="auto",
 
 
 def check_fused(N, R, B, dtype, rtol, floor, seed, reps, bins,
-                zero_cell=False):
-    """K1f and K3 vs their plain versions; returns {name: numbers}."""
+                zero_cell=False, steps=False):
+    """K1f and K3 (complete boxes: the flux and the source cell inside) vs
+    their plain versions, K1f with its rate threads and with every cell
+    kept inside its sub-step; returns {name: numbers}, with the number of
+    rated cells of a call."""
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     rt = ChebRaytracer(N, R, SIG, bins, batch_size=B, dtype=dtype)
@@ -421,12 +484,13 @@ def check_fused(N, R, B, dtype, rtol, floor, seed, reps, bins,
     flux = torch.linspace(0.5, 2.0, B, dtype=dtype, device="cuda")
     geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
     kw = dict(bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
-              R2=rt.R_max_LLS ** 2)
+              R2=rt.R_max_LLS ** 2, flux=flux)
     rates = (nhi, *geo, tb.rt_tab, flux, DR, g.c, SIG, tb.bins_s, tb.bins_w)
     kernels = {
-        "K1f": (lambda: sweep.cheb_sweep(nhi, *geo, DR, g.c, SIG, **kw),
+        "K1f": (lambda plan=None: sweep.cheb_sweep(nhi, *geo, DR, g.c, SIG,
+                                                   plan=plan, **kw),
                 lambda: sweep.cheb_sweep_ref(nhi, *geo, DR, g.c, SIG, **kw)),
-        "K3": (lambda: sweep.cheb_sweep_rates(*rates),
+        "K3": (lambda plan=None: sweep.cheb_sweep_rates(*rates, plan=plan),
                lambda: sweep.cheb_sweep_rates_ref(*rates))}
     isz = torch.finfo(dtype).bits // 8
     nbytes, ops = sweep_work(B, g.Dc, g.r_max + 1, dtype)
@@ -440,15 +504,24 @@ def check_fused(N, R, B, dtype, rtol, floor, seed, reps, bins,
     out = {}
     knames = {"K1f": "cheb_sweep_fused_rates", "K3": "cheb_sweep_rates"}
     for name, (kern, plain) in kernels.items():
-        max_abs = compare(f"{name} vs plain", kern(), plain(), rtol, floor)
-        out[name] = dict(max_abs_err=max_abs, **timing(
+        ref = plain()
+        max_abs = compare(f"{name} vs plain", kern(), ref, rtol, floor)
+        if not float(ref[:, g.c, g.c, g.c].min()) > 0.0:
+            raise RuntimeError(f"{name}: the plain version's source cell is "
+                               f"not positive")
+        if name == "K1f":
+            compare("K1f without rate threads vs plain",
+                    kern(dict(rate_threads=0)), ref, rtol, floor)
+        out[name] = dict(max_abs_err=max_abs, n_rated=n_rated, **timing(
             name, kern, plain, reps, nbytes + extra[name], ops, dtype,
             knames[name]))
+        if steps:
+            fused_steps(name, kern, knames[name], reps)
     return out
 
 
 def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
-               zero_cell=False):
+               zero_cell=False, steps=False):
     """K3h vs its plain version (both outputs, each with its own floor at
     its peak) and its Gamma vs K3's; returns its numbers."""
     from pyc2ray_torch.ops import sweep
@@ -461,8 +534,8 @@ def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
     rates = (nhi, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, tb.rt_tab,
              flux, DR, g.c, SIG, tb.bins_s, tb.bins_w)
 
-    def kern():
-        return sweep.cheb_sweep_rates(*rates, bins_wh=tb.bins_wh)
+    def kern(plan=None):
+        return sweep.cheb_sweep_rates(*rates, bins_wh=tb.bins_wh, plan=plan)
 
     def plain():
         return sweep.cheb_sweep_rates_ref(*rates, bins_wh=tb.bins_wh)
@@ -473,8 +546,9 @@ def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
     (phi, heat), (phi_r, heat_r) = kern(), plain()
     err_phi = compare("K3h Gamma vs plain", phi, phi_r, rtol, floor)
     err_heat = compare("K3h heat vs plain", heat, heat_r, rtol, floor)
-    if not float(heat_r.max()) > 0.0:
-        raise RuntimeError("K3h: the plain version's heat is all zero")
+    if not float(heat_r[:, g.c, g.c, g.c].min()) > 0.0:
+        raise RuntimeError("K3h: the plain version's source-cell heat is not "
+                           "positive")
     if zero_cell and float(heat[1, g.c, g.c + 1, g.c]) != 0.0:
         raise RuntimeError("K3h: heat at the zero-density cell is not 0")
     if not torch.equal(phi, sweep.cheb_sweep_rates(*rates)):
@@ -489,10 +563,13 @@ def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
     # output box
     nbytes += (2 * g.Dc ** 3 * isz + B * isz + bins.num_bins * isz
                + B * g.Dc ** 3 * isz)
-    return dict(max_abs_err=max(err_phi, err_heat),
-                heat_max_abs_err=err_heat,
-                **timing("K3h", kern, plain, reps, nbytes, ops, dtype,
-                         "cheb_sweep_rates_heat"))
+    res = dict(max_abs_err=max(err_phi, err_heat), heat_max_abs_err=err_heat,
+               n_rated=n_rated,
+               **timing("K3h", kern, plain, reps, nbytes, ops, dtype,
+                        "cheb_sweep_rates_heat"))
+    if steps:
+        fused_steps("K3h", kern, "cheb_sweep_rates_heat", reps)
+    return res
 
 
 def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
@@ -541,11 +618,11 @@ def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
 def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     """Device time per batch of each stage of trace_extended, over the
     first ``nbatch`` batches (CUDA events around each stage), for the
-    default mode and for fuse_fold, with or without do_heating. "sweep" is
-    the kernel (K1, or K3/K3h with its rate phase), "rates" what follows
-    it (the rate pass, or the fused mode's source-cell closed forms),
-    "accumulate" the per-source slice adds of Gamma and, with do_heating,
-    of the heat."""
+    default mode, fuse_rates and fuse_fold, with or without do_heating.
+    "sweep" is the kernel (K1, or one call of K1f, K3 or K3h, which
+    returns complete rate boxes), "rates" what follows it (the rate pass;
+    nothing in a fused mode), "accumulate" the per-source slice adds of
+    Gamma and, with do_heating, of the heat."""
     from pyc2ray_torch.ops.sweep import cheb_sweep, cheb_sweep_rates
     g, tb, N = rt.geom, rt.tables, rt.N
     nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
@@ -567,8 +644,11 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
                 tb.bins_w, bins_wh=tb.bins_wh if rt.do_heating else None)
             ev[2].record()
             out = out if rt.do_heating else (out,)
-            for box, w in zip(out, (None, tb.bins_wh)):
-                box[:, c, c, c] = rt._source_cell_rate(boxes, flux, dr_t, w)
+        elif rt.fuse_rates and not rt.do_heating:
+            out = (cheb_sweep(boxes, *geo, DR, c, rt.sig,
+                              bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
+                              R2=rt.R_max_LLS ** 2, flux=flux),)
+            ev[2].record()
         else:
             cd = cheb_sweep(boxes, *geo, DR, c, rt.sig)
             ev[2].record()
@@ -640,16 +720,18 @@ def main():
     t0 = time.time()
     _build.load()
     log(f"build: {time.time() - t0:.2f} s")
-    # per kernel <element type, planes shared>: registers, spills, static
-    # shared memory (the sweeps' shared memory is dynamic, see the plans)
+    # per kernel <element type, planes shared(, heat output)>: registers,
+    # spills, static shared memory (the sweeps' shared memory is dynamic,
+    # see the plans)
     kernel = ""
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)"
-                      r"(?:I([fd])Lb([01])E)?", line)
+                      r"(?:I([fd])((?:Lb[01]E)+))?", line)
         if m:
             kernel = m.group(2) + (
                 f"<{'float' if m.group(3) == 'f' else 'double'}, "
-                f"{'true' if m.group(4) == '1' else 'false'}>"
+                + ", ".join("true" if b == "1" else "false" for b in
+                            re.findall(r"Lb([01])E", m.group(4))) + ">"
                 if m.group(3) else "")
         elif "spill" in line or "registers" in line:
             log(f"  ptxas {kernel}: "
@@ -676,13 +758,14 @@ def main():
     check_seg(16, 8.0, 2, torch.float64, rtol=1e-12, seed=4, reps=3,
               shell_segment=3)
     k_fused = check_fused(N_BENCH, R_BENCH, B_BENCH, torch.float32,
-                          rtol=1e-4, floor=1e-6, seed=5, reps=10, bins=bins)
+                          rtol=1e-4, floor=1e-6, seed=5, reps=10, bins=bins,
+                          steps=True)
     check_fused(16, 8.0, 2, torch.float64, rtol=1e-10, floor=0.0, seed=6,
                 reps=3, bins=bins, zero_cell=True)
 
     # ---- 2c. K3h (fuse_fold with the heating output) vs its plain version
     k_heat = check_heat(N_BENCH, R_BENCH, B_BENCH, torch.float32, rtol=1e-4,
-                        floor=1e-6, seed=5, reps=10, bins=bins)
+                        floor=1e-6, seed=5, reps=10, bins=bins, steps=True)
     check_heat(16, 8.0, 2, torch.float64, rtol=1e-10, floor=0.0, seed=6,
                reps=3, bins=bins, zero_cell=True)
     # the chain floor: 3 (R1 - 1) sub-steps, each at least one cluster
@@ -698,6 +781,16 @@ def main():
             f"us (C={C}) = {1e-3 * n_sub * barrier_us[C]:.5f} ms; measured "
             f"{res['ms']:.4f} ms, byte/operation bound "
             f"{res['bound_ms']:.5f} ms")
+    # the rate floor of the fused kernels: their rated cells x bins x what
+    # a cell and bin cost in a dense pass over the whole card
+    ns_bin = rate_floor(bins, B_BENCH * 64 ** 3, torch.float32)
+    for name, res in (("K1f", k_fused["K1f"]), ("K3", k_fused["K3"]),
+                      ("K3h", k_heat)):
+        res["rate_floor_ms"] = 1e-6 * res.pop("n_rated") * bins.num_bins \
+            * ns_bin
+        log(f"rate floor {name}: {res['rate_floor_ms']:.5f} ms "
+            f"({ns_bin:.6f} ns per cell and bin), measured "
+            f"{res['ms']:.4f} ms")
     if "--kernels" in sys.argv[1:]:
         log(f"chip_smoke --kernels wall time: {time.time() - T_START:.1f} s")
         return 0
@@ -785,10 +878,9 @@ def main():
         # cancels where dcol >> cdin: compare above a floor at the peak
         compare(f"{mode} Gamma vs the unfused Gamma", phi_f, phi, 1e-4,
                 1e-6)
-        if mode == "fuse_fold":
-            br = stage_breakdown(rtf, ndens, xh, pos_b, flux_b, 16)
-            log("  per-batch device ms: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in br.items()))
+        br = stage_breakdown(rtf, ndens, xh, pos_b, flux_b, 16)
+        log("  per-batch device ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in br.items()))
         del rtf, phi_f
     nh = N_R100
     rng = np.random.RandomState(100)

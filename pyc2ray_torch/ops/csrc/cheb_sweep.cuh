@@ -1,5 +1,5 @@
 // Device code shared by the Chebyshev-face sweep kernels for NVIDIA Hopper:
-// cheb_sweep.cu (K1, K1f, K2) and cheb_sweep_rates.cu (K3, K3h).
+// cheb_sweep.cu (K1, K1f, K2) and cheb_sweep_rates.cu (phase A of K3, K3h).
 //
 // The sweep runs, per source of a batch, over cube shells r with three face
 // sub-steps x -> y -> z. A face cell (sign s, plane coordinates a, b) reads
@@ -9,7 +9,7 @@
 //   dcol = nHI * (path * dr)
 //   out  = mask ? cdin + dcol : 0
 // `out` enters the shell state. What a kernel keeps of a valid face cell
-// (its cd, its Gamma, or its cdin and dcol) is decided by a Store functor
+// (its cd, its Gamma, or its cdin and dcol) is decided by a Keep functor
 // handed to the sweep, so the sweep itself is written once. A valid face
 // cell lies inside the box, at its cartesian position
 // (x face -> [c-+r, a, b], y -> [a, c-+r, b], z -> [a, b, c-+r]); face
@@ -35,6 +35,25 @@
 //     corner weights, diag, path, nHI) are loaded where they are used: their
 //     loads overlap the stencil reads, and a cp.async stage that fetched
 //     them two sub-steps ahead was slower on the H100 (PERF.md).
+//   - What a Keep does with a cell is either part of the sub-step (the cd
+//     of K1 and K2, the cdin and dcol of K3's phase A: one or two stores)
+//     or deferred (Keep::kDeferred, the spectral-bin rates of K1f: two
+//     transcendentals per bin, which nothing in the chain waits for). A
+//     deferred Keep runs on rate threads: the last Plan::rate_threads
+//     threads of every block compute no face cell. The chain threads write
+//     each cell of their share (its box offset, cdin, dcol, nHI, path) into
+//     a ring of kRingBufs buffers in the block's shared memory, slot = the
+//     cell's index in the block's share, buffer = sub-step mod kRingBufs (a
+//     masked cell leaves kNoCell in its slot); the rate threads evaluate the
+//     ring of sub-step n-1 while the chain threads work on sub-steps n and
+//     n+1, in the instruction slots the chain leaves idle. The hand-over is
+//     the cluster barrier itself: a rate thread waits for barrier n (which
+//     publishes ring n-1), arrives at once for barrier n+1 and then drains,
+//     so it holds the chain back only when it lags by two sub-steps; it has
+//     finished ring n-1 before it arrives for barrier n+3, after which that
+//     buffer is written again. A cell whose slot lies beyond the ring (a
+//     share larger than Plan::ring, or no rate threads) is evaluated by its
+//     chain thread inside the sub-step.
 // The placement is a rule of (B, Dc, dtype) computed on the host
 // (ops/sweep.py::sweep_plan) and checked by the launch code here.
 //
@@ -58,6 +77,10 @@ namespace cg = cooperative_groups;
 constexpr double kFourPi = 12.566370614359172463991853874177;
 constexpr double kMaxColdensH = 2.0e30;   // rates are zeroed above this cdin
 constexpr int kOperands = 7;              // chain-independent operands of a cell
+constexpr int kRingBufs = 3;              // ring buffers of deferred cells
+constexpr int kRingValues = 4;            // values per slot beside the offset
+constexpr unsigned kNoCell = 0xffffffffu; // ring slot of a masked face cell
+constexpr int kMaxThreads = 768;          // per block, with rate threads
 
 template <typename T> struct Arith;
 
@@ -90,6 +113,7 @@ __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
@@ -113,6 +137,9 @@ struct Plan {
                 // planes live in the global scratch
   int head;     // values of T at the start of dynamic shared memory that
                 // belong to the kernel (the spectral bins)
+  int rate_threads;   // threads at the end of a block that compute no face
+                      // cell and run a deferred Keep
+  int ring;     // slots per ring buffer (0: every cell is kept in its sub-step)
 };
 
 // Per-shell constants shared by the three sub-steps.
@@ -150,12 +177,47 @@ struct Share {
   }
 };
 
-// A valid face cell handed to a Store: its cartesian offset in the box and
-// its values.
+// A valid face cell handed to a Keep: its cartesian offset in the box and
+// its values (`out` is not set for a cell that went through the ring).
 template <typename T>
 struct FaceCell {
   size_t o;
   T cdin, dcol, nhi, path, out;
+};
+
+// The ring of deferred face cells in a block's shared memory: kRingBufs
+// buffers of `cap` slots, the values ahead of the offsets.
+template <typename T>
+struct Ring {
+  T* v;          // [kRingValues][kRingBufs][cap]
+  unsigned* o;   // [kRingBufs][cap]: box offset, kNoCell for a masked cell
+  int cap;
+  __device__ __forceinline__ void put(int buf, int k, unsigned off, T cdin,
+                                      T dcol, T nhi, T path) const {
+    const int slot = buf * cap + k, n = kRingBufs * cap;
+    o[slot] = off;
+    v[slot] = cdin;
+    v[n + slot] = dcol;
+    v[2 * n + slot] = nhi;
+    v[3 * n + slot] = path;
+  }
+  // Slot k holds a masked cell.
+  __device__ __forceinline__ void skip(int buf, int k) const {
+    o[buf * cap + k] = kNoCell;
+  }
+  // False for a masked cell.
+  __device__ __forceinline__ bool get(int buf, int k, FaceCell<T>& f) const {
+    const int slot = buf * cap + k, n = kRingBufs * cap;
+    const unsigned off = o[slot];
+    if (off == kNoCell) return false;
+    f.o = off;
+    f.cdin = v[slot];
+    f.dcol = v[n + slot];
+    f.nhi = v[2 * n + slot];
+    f.path = v[3 * n + slot];
+    f.out = T(0);
+    return true;
+  }
 };
 
 // Dynamic shared memory as an array of T (one extern declaration for all
@@ -176,11 +238,20 @@ struct Sweep {
                      // memory; else the source's [12][Dc][Dc] scratch
   int lgC, rows;
   unsigned rank;     // of this block in its cluster
+  int nchain, nrate; // threads of a block that compute face cells (the
+                     // first), and that run a deferred Keep (the rest)
+  Ring<T> ring;
 
   __device__ Sweep(const Tables<T>& tb_, const Plan& pl, const T* nhi_, T* sc)
       : tb(tb_), nhi(nhi_), lgC(pl.lgC), rows(pl.rows),
-        rank(cg::this_cluster().block_rank()) {
-    planes = SH ? shared_mem<T>() + pl.head : sc;
+        rank(cg::this_cluster().block_rank()),
+        nchain(int(blockDim.x) - pl.rate_threads), nrate(pl.rate_threads) {
+    T* own = shared_mem<T>() + pl.head;
+    planes = SH ? own : sc;
+    ring.v = own + size_t(12) * pl.rows * tb.Dc;
+    ring.o = reinterpret_cast<unsigned*>(
+        ring.v + size_t(kRingValues) * kRingBufs * pl.ring);
+    ring.cap = pl.ring;
   }
 
   // Cell (a, b) of plane p = parity * 6 + face * 2 + sign.
@@ -255,17 +326,22 @@ struct Sweep {
   }
 
   // This block's share of one face pair of shell S: face F (0 = x, 1 = y,
-  // 2 = z). Writes the new (masked) plane cells and hands every valid cell
-  // to `store`.
-  template <int F, class Store>
-  __device__ void face_step(const Shell& S, const Store& store) const {
+  // 2 = z), by the chain threads. Writes the new (masked) plane cells and
+  // hands every valid cell to `keep`, a deferred Keep through ring buffer
+  // `buf` where the cell's slot lies inside the ring.
+  template <int F, class Keep>
+  __device__ void face_step(const Shell& S, int buf, const Keep& keep) const {
     using A = Arith<T>;
     const int D = S.Dc;
     const size_t D2 = size_t(D) * D;
     const T lim = T(0.6);
     const Share w = share(S);
     const size_t g = (size_t(F) * tb.R1 + S.r) * D2;    // (f, r) plane offset
-    for (int i = w.i0 + threadIdx.x; i < w.i1; i += blockDim.x) {
+    // (unsigned, as blockDim.x: with an int stride K1's float kernel with
+    // shared planes takes 66 registers, not 64, and loses its second block
+    // per SM and with it the clusters of 16)
+    const unsigned stride = Keep::kDeferred ? unsigned(nchain) : blockDim.x;
+    for (int i = w.i0 + threadIdx.x; i < w.i1; i += stride) {
       int s, a, b;
       w.cell(i, s, a, b);
       const size_t ab = size_t(a) * D + b;
@@ -290,36 +366,66 @@ struct Sweep {
       const T dcol = A::mul(op[6], A::mul(op[5], tb.dr));
       const T v = m ? A::add(cdin, dcol) : T(0);
       st(S.cu + 2 * F + s, a, b, v);
+      const bool ringed = Keep::kDeferred && i - w.i0 < ring.cap;
       if (m) {                      // valid cells lie inside the box
         const int q = s ? S.c + S.r : S.c - S.r;
         size_t o;
         if (F == 0) o = size_t(q) * D2 + ab;
         else if (F == 1) o = size_t(a) * D2 + size_t(q) * D + b;
         else o = size_t(a) * D2 + size_t(b) * D + q;
-        store(FaceCell<T>{o, cdin, dcol, op[6], op[5], v});
+        if (ringed)
+          ring.put(buf, i - w.i0, unsigned(o), cdin, dcol, op[6], op[5]);
+        else
+          keep(FaceCell<T>{o, cdin, dcol, op[6], op[5], v});
+      } else if (ringed) {
+        ring.skip(buf, i - w.i0);
       }
+    }
+  }
+
+  // Slots first, first + stride, ... of the ring of sub-step n (counted
+  // from shell r0) to the deferred `keep`.
+  template <class Keep>
+  __device__ void drain(int r0, int n, const Keep& keep, int first,
+                        int stride) const {
+    const Share w = share(make_shell(r0 + n / 3, tb.c, tb.Dc));
+    const int count = min(w.i1 - w.i0, ring.cap), buf = n % kRingBufs;
+    for (int k = first; k < count; k += stride) {
+      FaceCell<T> f;
+      if (ring.get(buf, k, f)) keep(f);
     }
   }
 
   // Shells r0 .. r1-1 from the planes of shell r0-1, which every block has
   // written (init) but not yet published: the first barrier here does that,
   // and it orders any other store made before the call. After the return
-  // the planes of shell r1-1 and all stores of `store` are visible to the
-  // whole cluster, and no block touches another's shared memory again.
-  template <class Store>
-  __device__ void run(int r0, int r1, const Store& store) const {
+  // the planes of shell r1-1 are visible to the whole cluster, every cell
+  // has been handed to `keep` (whose stores the kernel's end publishes), and
+  // no block touches another's shared memory again. Every thread of the
+  // cluster arrives and waits once per sub-step; a rate thread arrives
+  // before it drains (see the head of this file).
+  template <class Keep>
+  __device__ void run(int r0, int r1, const Keep& keep) const {
     const int nsub = 3 * max(r1 - r0, 0);
+    const bool rater = Keep::kDeferred && int(threadIdx.x) >= nchain;
     cluster_arrive();
     for (int n = 0; n < nsub; ++n) {
-      const Shell S = make_shell(r0 + n / 3, tb.c, tb.Dc);
-      const int f = n % 3;
       cluster_wait();
-      if (f == 0) face_step<0>(S, store);
-      else if (f == 1) face_step<1>(S, store);
-      else face_step<2>(S, store);
+      if (rater) {
+        cluster_arrive();
+        if (n > 0) drain(r0, n - 1, keep, int(threadIdx.x) - nchain, nrate);
+        continue;
+      }
+      const Shell S = make_shell(r0 + n / 3, tb.c, tb.Dc);
+      const int f = n % 3, buf = n % kRingBufs;
+      if (f == 0) face_step<0>(S, buf, keep);
+      else if (f == 1) face_step<1>(S, buf, keep);
+      else face_step<2>(S, buf, keep);
       cluster_arrive();
     }
     cluster_wait();
+    if (rater && nsub > 0)
+      drain(r0, nsub - 1, keep, int(threadIdx.x) - nchain, nrate);
   }
 
   // p[0 .. n) = 0, dealt out over the cluster's threads.
@@ -382,6 +488,21 @@ __device__ T source_cd(const Tables<T>& tb, const T* nhi) {
   return Arith<T>::mul(nhi[(c * D + c) * D + c], Arith<T>::mul(T(0.5), tb.dr));
 }
 
+// The rate of the source cell itself per unit flux weight set `w` (tau_in =
+// 0, volume dr^3): flux S*/dr^3 sum_e w_e (-expm1(-dtau s_e)) / max(nHI_c,
+// tiny) with dtau = nHI_c dr / 2 sig = src_cd sig; ops/sweep.py::
+// source_cell_rate in the same order of operations.
+template <typename T>
+__device__ T source_rate(T nhi_c, T src_cd, T flux, T sdr3, T sig, const T* s,
+                         const T* w, int E) {
+  using A = Arith<T>;
+  const T dtau = A::mul(src_cd, sig);
+  T acc = T(0);
+  for (int e = 0; e < E; ++e)
+    acc = A::add(acc, A::mul(w[e], -A::expm1(-A::mul(dtau, s[e]))));
+  return A::div(A::mul(A::mul(flux, sdr3), acc), max_lim(A::tiny, nhi_c));
+}
+
 // The E spectral bins into shared memory `sm`: s, then w, then (when `wh` is
 // not null) the heating weights w_heat; 2E or 3E values. Ends with a
 // __syncthreads().
@@ -442,24 +563,37 @@ struct LaunchSpec {
   int cluster;         // blocks per source: 1, 2, 4, 8 or 16
   int shared_planes;   // planes in distributed shared memory (else scratch)
   int smem;            // dynamic shared memory per block, bytes
+  int rate_threads;    // threads per block beside `threads` (Plan)
+  int ring;            // slots per ring buffer (Plan)
   int* max_clusters;   // not null: launch nothing, write here how many
                        // clusters of this launch the card holds at once
   void* stream;
 };
 
 // The Plan of `spec` for a sweep of (Dc, Dc, Dc) boxes with `head` values of T of the
-// kernel's own at the start of shared memory. Fails where the caller's
-// sizes are not the ones this code uses.
+// kernel's own at the start of shared memory; `deferred`: the kernel's Keep
+// is deferred (only then may there be rate threads and a ring). Fails where
+// the caller's sizes are not the ones this code uses.
 template <typename T>
-cudaError_t make_plan(const LaunchSpec& spec, int Dc, int head, Plan* pl) {
+cudaError_t make_plan(const LaunchSpec& spec, int Dc, int head, bool deferred,
+                      Plan* pl) {
   const int C = spec.cluster;
   int lgC = 0;
   while ((1 << lgC) < C) ++lgC;
   if (C < 1 || C > 16 || (1 << lgC) != C) return cudaErrorInvalidValue;
+  // rate threads only for a deferred Keep, a ring only with rate threads
+  if (spec.rate_threads < 0 || spec.ring < 0 || spec.threads < 1 ||
+      (spec.rate_threads && !deferred) || (spec.ring && !spec.rate_threads) ||
+      (deferred && spec.threads + spec.rate_threads > kMaxThreads))
+    return cudaErrorInvalidValue;
   pl->lgC = lgC;
   pl->rows = spec.shared_planes ? (Dc + C - 1) / C : 0;
   pl->head = head;
-  const size_t smem = sizeof(T) * (size_t(head) + size_t(12) * pl->rows * Dc);
+  pl->rate_threads = spec.rate_threads;
+  pl->ring = spec.ring;
+  const size_t slot = kRingValues * sizeof(T) + sizeof(unsigned);
+  const size_t smem = sizeof(T) * (size_t(head) + size_t(12) * pl->rows * Dc) +
+                      slot * kRingBufs * spec.ring;
   return smem == size_t(spec.smem) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -502,7 +636,7 @@ int launch_cluster(void (*kernel)(Params...), const LaunchSpec& spec,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(spec.B * spec.cluster);
-  cfg.blockDim = dim3(spec.threads);
+  cfg.blockDim = dim3(spec.threads + spec.rate_threads);
   cfg.dynamicSmemBytes = spec.smem;
   cfg.stream = static_cast<cudaStream_t>(spec.stream);
   cudaLaunchAttribute attr;

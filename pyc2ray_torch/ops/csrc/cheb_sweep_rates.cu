@@ -3,8 +3,9 @@
 //
 // Replaces pyc2ray_tpu/ops/pallas_sweep.py::cheb_sweep_rates_pallas (body
 // _kernel_fold_rates): K3 with the photoionization output alone, K3h with
-// the photoheating output beside it (the TPU kernel's heat_bins). Plain
-// version: pyc2ray_torch/ops/sweep.py::cheb_sweep_rates_ref.
+// the photoheating output beside it (the TPU kernel's heat_bins), and the
+// source cell's closed form that the engine set afterwards. Plain version:
+// pyc2ray_torch/ops/sweep.py::cheb_sweep_rates_ref.
 //
 // Phase A is K1's sweep (cheb_sweep.cuh): the cdin and the dcol of every
 // valid face cell are stored at the cell's cartesian position in two
@@ -14,10 +15,12 @@
 //   heat = the same with the heating weights w_heat_e         (K3h only)
 //   core_e = e^{-tau_in s_e} (-expm1(-dtau s_e)),
 // masked by the rates table's valid channel (octahedron, clip, R^2 cut,
-// source cell excluded) and cdin <= 2e30. The source cell is 0; the caller
-// sets its closed form. The TPU kernel divides by dcol without a floor
-// (0/0 at a zero-density cell); here dcol is floored at the type's
-// smallest normal, as the unfused rate pass floors nHI.
+// source cell excluded) and cdin <= 2e30. The source cell gets its closed
+// form (source_rate of cheb_sweep.cuh; with the heating weights for the heat
+// box) from the thread of phase B that owns it, so the boxes are complete.
+// The TPU kernel divides by dcol without a floor (0/0 at a zero-density
+// cell); here dcol is floored at the type's smallest normal, as the unfused
+// rate pass floors nHI.
 //
 // Design. Phase B of a source depends only on its own box, and one block
 // per source would leave 124 of the 132 SMs idle during the arithmetic of
@@ -30,16 +33,23 @@
 // expm1f, not the fast __expf. The heating output is a template flag of
 // phase B, chosen by a non-null heat pointer: each bin's exp and expm1 are
 // evaluated once and feed both accumulators (bin_sums), so phi is the same
-// bits with and without the heat output.
+// bits with and without the heat output. A one-kernel form (phase A's
+// threads handing their cells through a ring in shared memory to rate
+// threads of the same block, as K1f does) was built and measured behind
+// this one on the H100 and taken out (PERF.md): the rate threads cost the
+// block its second place on an SM, so the sweep runs in clusters of 8, not
+// 16, and they share the chain's instruction slots, where phase B has the
+// whole card to itself for a few microseconds.
 //
 // Bound. The function reads the nHI box, the geometry tables and the rates
 // table once and writes the phi box once (B = 8, Dc = 64, R1 = 31, f32:
 // 8 + 10 + 2 + 8 MB, about 8.5 us at 3.35 TB/s; K3h writes 8 MB more); its
 // arithmetic is the sweep's ~27 flops per face cell plus ~7 operations per
-// bin and valid cell (K3h: 2 more per bin, and 2 more per cell). Phase A
-// is K1's loop (a cluster per source, see cheb_sweep.cuh) and carries its
-// chain of 3 (R1 - 1) dependent sub-steps; phase B is a dense pass over
-// the card.
+// bin and valid cell (K3h: 2 more per bin, and 2 more per cell), whose
+// floor on this card is rated cells x bins x the measured time per cell
+// and bin of a dense pass (PERF.md). Phase A is K1's loop (a cluster per
+// source, see cheb_sweep.cuh) and carries its chain of 3 (R1 - 1) dependent
+// sub-steps; phase B is a dense pass over the card.
 
 #include "cheb_sweep.cuh"
 
@@ -47,9 +57,10 @@ namespace {
 
 using namespace cheb;
 
-// Phase A: keep cdin and dcol of a valid face cell.
+// Phase A: keep cdin and dcol of a valid face cell, inside the sub-step.
 template <typename T>
-struct StoreFold {
+struct KeepFold {
+  static constexpr bool kDeferred = false;
   T* ci;
   T* dc;
   __device__ void operator()(const FaceCell<T>& f) const {
@@ -67,20 +78,23 @@ __global__ void sweep_fold_kernel(Tables<T> tb, Plan pl,
   const T* nhi = nhi_all + src * D3;
   const Sweep<T, SH> sweep(tb, pl, nhi, SH ? nullptr : scratch_all + src * 12 * D2);
   sweep.init(nullptr, 0, source_cd(tb, nhi));
-  sweep.run(1, tb.R1, StoreFold<T>{ci_all + src * D3, dc_all + src * D3});
+  sweep.run(1, tb.R1, KeepFold<T>{ci_all + src * D3, dc_all + src * D3});
 }
 
 // Phase B: block (b, i) evaluates plane i of source b's box. With HEAT the
-// bins hold w_heat too and heat_all receives the photoheating rate.
+// bins hold w_heat too and heat_all receives the photoheating rate. The
+// source cell (plane c, position (c, c)) gets its closed form.
 template <typename T, bool HEAT>
-__global__ void box_rates_kernel(const T* __restrict__ ci_all,
+__global__ void box_rates_kernel(const T* __restrict__ nhi_all,
+                                 const T* __restrict__ ci_all,
                                  const T* __restrict__ dc_all,
                                  const T* __restrict__ rt,
                                  const T* __restrict__ flux,
                                  const T* __restrict__ bins_s,
                                  const T* __restrict__ bins_w,
                                  const T* __restrict__ bins_wh, int E, int Dc,
-                                 T sig, T s_fac, T* phi_all, T* heat_all) {
+                                 int c, T dr, T sig, T s_fac, T sdr3,
+                                 T* phi_all, T* heat_all) {
   using A = Arith<T>;
   const int b = blockIdx.x / Dc, i = blockIdx.x % Dc;
   const size_t D2 = size_t(Dc) * Dc;
@@ -105,6 +119,13 @@ __global__ void box_rates_kernel(const T* __restrict__ ci_all,
         if (HEAT) heat = A::div(A::mul(pref, acc_h), dsafe);
       }
     }
+    if (i == c && jk == size_t(c) * Dc + c) {              // the source cell
+      const T n = nhi_all[plane + jk];
+      const T cd = A::mul(n, A::mul(T(0.5), dr));          // as source_cd
+      phi = source_rate(n, cd, flux[b], sdr3, sig, bins, bins + E, E);
+      if (HEAT)
+        heat = source_rate(n, cd, flux[b], sdr3, sig, bins, bins + 2 * E, E);
+    }
     phi_all[plane + jk] = phi;
     if (HEAT) heat_all[plane + jk] = heat;
   }
@@ -115,14 +136,15 @@ int launch(const void* nhi, const void* sw, const void* path, const void* diag,
            const void* mask_m, const void* mask_p, const void* rt,
            const void* bins_s, const void* bins_w, const void* bins_wh,
            const void* flux, void* phi, void* heat, void* ci, void* dc,
-           void* scratch, int E, double s_fac, int threads_b, int Dc, int c,
-           int R1, double dr, double sig, const LaunchSpec& spec) {
+           void* scratch, int E, double s_fac, double sdr3, int threads_b,
+           int Dc, int c, int R1, double dr, double sig,
+           const LaunchSpec& spec) {
   const cudaStream_t st = static_cast<cudaStream_t>(spec.stream);
   const int B = spec.B;
   const Tables<T> tb = make_tables<T>(sw, path, diag, mask_m, mask_p, Dc, c,
                                       R1, dr, sig);
   Plan pl;
-  cudaError_t err = make_plan<T>(spec, Dc, 0, &pl);
+  cudaError_t err = make_plan<T>(spec, Dc, 0, false, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rc = launch_cluster(
       pl.rows ? sweep_fold_kernel<T, true> : sweep_fold_kernel<T, false>, spec,
@@ -133,11 +155,12 @@ int launch(const void* nhi, const void* sw, const void* path, const void* diag,
   const auto phase_b = with_heat ? box_rates_kernel<T, true>
                                  : box_rates_kernel<T, false>;
   phase_b<<<B * Dc, threads_b, (with_heat ? 3 : 2) * E * sizeof(T), st>>>(
-      static_cast<const T*>(ci), static_cast<const T*>(dc),
-      static_cast<const T*>(rt), static_cast<const T*>(flux),
-      static_cast<const T*>(bins_s), static_cast<const T*>(bins_w),
-      static_cast<const T*>(bins_wh), E, Dc, static_cast<T>(sig),
-      static_cast<T>(s_fac), static_cast<T*>(phi), static_cast<T*>(heat));
+      static_cast<const T*>(nhi), static_cast<const T*>(ci),
+      static_cast<const T*>(dc), static_cast<const T*>(rt),
+      static_cast<const T*>(flux), static_cast<const T*>(bins_s),
+      static_cast<const T*>(bins_w), static_cast<const T*>(bins_wh), E, Dc, c,
+      static_cast<T>(dr), static_cast<T>(sig), static_cast<T>(s_fac),
+      static_cast<T>(sdr3), static_cast<T*>(phi), static_cast<T*>(heat));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,21 +173,24 @@ extern "C" {
 // that is not cudaSuccess, else cudaSuccess. With `max_clusters` set it
 // launches nothing and writes there how many of phase A's clusters are
 // resident at once. `heat` and `bins_wh` are null for K3 and both set for
-// K3h.
+// K3h. `s_fac` is S* dr / dr^3 and `sdr3` S* / dr^3, both rounded to the
+// element type by the caller.
 #define CHEB_SWEEP_RATES_ENTRY(NAME, TYPE)                                     \
   int NAME(const void* nhi, const void* sw, const void* path,                 \
            const void* diag, const void* mask_m, const void* mask_p,          \
            const void* rt, const void* bins_s, const void* bins_w,            \
            const void* bins_wh, const void* flux, void* phi, void* heat,      \
            void* ci, void* dc, void* scratch, int E, double s_fac,            \
-           int threads_b, int B, int Dc, int c, int R1, double dr,            \
-           double sig, int threads, int cluster, int shared_planes,           \
-           int smem, int* max_clusters, void* stream) {                       \
+           double sdr3, int threads_b, int B, int Dc, int c, int R1,          \
+           double dr, double sig, int threads, int cluster,                   \
+           int shared_planes, int smem, int rate_threads, int ring,           \
+           int* max_clusters, void* stream) {                                 \
     return launch<TYPE>(nhi, sw, path, diag, mask_m, mask_p, rt, bins_s,      \
                         bins_w, bins_wh, flux, phi, heat, ci, dc, scratch, E, \
-                        s_fac, threads_b, Dc, c, R1, dr, sig,                 \
+                        s_fac, sdr3, threads_b, Dc, c, R1, dr, sig,           \
                         LaunchSpec{B, threads, cluster, shared_planes, smem,  \
-                                   max_clusters, stream});                    \
+                                   rate_threads, ring, max_clusters,          \
+                                   stream});                                  \
   }
 
 CHEB_SWEEP_RATES_ENTRY(cheb_sweep_rates_f32, float)

@@ -15,11 +15,11 @@ sources:
          (``_rates``);
        - ``shell_segment``: the same sweep as K segments of S shells with
          carried planes (K2, ``_sweep_segmented``), then ``_rates``;
-       - ``fuse_rates``: the sweep evaluates the flux-less Gamma of every
-         face cell (K1f), times the flux, source cell by its closed form
-         (``_source_cell_rate``);
-       - ``fuse_fold``: sweep, box assembly and rates with the flux in one
-         kernel (K3), source cell by ``_source_cell_rate``;
+       - ``fuse_rates``: the sweep evaluates the Gamma of every face cell
+         (K1f), the source cell by its closed form
+         (``sweep.source_cell_rate``), in one call;
+       - ``fuse_fold``: sweep, box assembly and rates with the flux and the
+         source cell's closed form in one kernel (K3);
   3. add each source's rate box into the padded Gamma grid, source by
      source in batch order (the JAX engine's scan accumulate).
 
@@ -265,26 +265,6 @@ class ChebRaytracer:
                 if self.do_heating else None)
         return phi, heat
 
-    def _source_cell_rate(self, nhi_box, flux, dr, weights=None):
-        """Gamma of the source cell itself (tau_in = 0, vol = dr^3;
-        raytracing.cu:285-294), with the nHI floor of ``_rates``. ``dr``
-        is a 0-dim tensor of the engine's dtype. ``weights`` defaults to
-        the photo weights; pass ``tables.bins_wh`` for the heating rate."""
-        c, tb = self.geom.c, self.tables
-        if weights is None:
-            weights = tb.bins_w
-        sig = torch.tensor(self.sig, dtype=self.dtype).to(self.device)
-        nhi_src = nhi_box[:, c, c, c]
-        dtau = nhi_src * (0.5 * dr) * sig
-        acc = torch.zeros_like(dtau)
-        for se, we in zip(tb.bins_s, weights):
-            acc = acc + we * -torch.expm1(-dtau * se)
-        sdr3 = torch.exp(
-            torch.tensor(np.log(S_STAR_REF), dtype=self.dtype).to(self.device)
-            - 3.0 * torch.log(dr))
-        tiny = torch.finfo(self.dtype).tiny
-        return flux * sdr3 * acc / torch.clamp(nhi_src, min=tiny)
-
     def _sweep_segmented(self, boxes, dr):
         """The coldensh_out box by K segments of seg_S shells, each
         starting from the previous segment's last planes, all storing into
@@ -312,19 +292,11 @@ class ChebRaytracer:
             out = cheb_sweep_rates(
                 boxes, *geo, tb.rt_tab, flux, dr, c, self.sig, tb.bins_s,
                 tb.bins_w, bins_wh=tb.bins_wh if self.do_heating else None)
-            phi, heat = out if self.do_heating else (out, None)
-            phi[:, c, c, c] = self._source_cell_rate(boxes, flux, dr_t)
-            if self.do_heating:
-                heat[:, c, c, c] = self._source_cell_rate(
-                    boxes, flux, dr_t, tb.bins_wh)
-            return phi, heat
+            return out if self.do_heating else (out, None)
         if self.fuse_rates and not self.do_heating:
-            phi = cheb_sweep(boxes, *geo, dr, c, self.sig,
-                             bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
-                             R2=self.R_max_LLS ** 2)
-            phi = phi * flux[:, None, None, None]
-            phi[:, c, c, c] = self._source_cell_rate(boxes, flux, dr_t)
-            return phi, None
+            return cheb_sweep(boxes, *geo, dr, c, self.sig,
+                              bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
+                              R2=self.R_max_LLS ** 2, flux=flux), None
         if self.seg_S:
             cd = self._sweep_segmented(boxes, dr)
         else:

@@ -11,15 +11,20 @@ other faces, see ``_sweep_shells``) and adds its own dcol = nHI * path * dr.
   ``cheb_sweep``        K1: the cartesian box of outgoing column densities
                         (coldensh_out), source cell nHI_c * dr / 2 — the box
                         the JAX engine assembles from the kernel's face
-                        stacks in _fold_stacks_packed. With ``bins`` (K1f,
-                        fuse_rates) the box holds the flux-less Gamma of
-                        every face cell instead, source cell 0.
+                        stacks in _fold_stacks_packed. With ``bins`` and
+                        ``flux`` (K1f, fuse_rates) the box holds the Gamma
+                        of every face cell instead, the source cell its
+                        closed form (``source_cell_rate``).
   ``cheb_sweep_seg``    K2: shells r0 .. r0+S-1 from carried planes
                         (shell_segment).
   ``cheb_sweep_rates``  K3: sweep, box assembly and the spectral-bin rate
-                        pass with the flux, source cell 0 (fuse_fold). With
-                        ``bins_wh`` (K3h) also the photoheating box, from
-                        the same per-bin attenuation factors.
+                        pass with the flux, the source cell by its closed
+                        form (fuse_fold). With ``bins_wh`` (K3h) also the
+                        photoheating box, from the same per-bin attenuation
+                        factors.
+
+The fused kernels return complete rate boxes: the engine does nothing to
+them but add them into the grid.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (``*_ref``); a CUDA tensor launches the kernel of
@@ -28,8 +33,10 @@ csrc/ or raises. ``launches`` counts the kernel launches per kernel.
 On the card every sweep is launched as thread-block clusters, one cluster
 of C blocks per source. ``sweep_plan`` is the host rule that picks C and
 where the shell planes live (the cluster's distributed shared memory, or a
-global scratch); ``last_plan`` keeps the plan of each kernel's last launch and ``occupancy``
-what cudaOccupancyMaxActiveClusters answered for every plan it was asked.
+global scratch) and, for K1f, how many rate threads a block has beside its
+chain threads and how large their ring is; ``last_plan`` keeps the plan of
+each kernel's last launch and ``occupancy`` what
+cudaOccupancyMaxActiveClusters answered for every plan it was asked.
 """
 
 import ctypes
@@ -42,16 +49,24 @@ from ..constants import MAX_COLDENSH, S_STAR_REF
 
 __all__ = ["cheb_sweep", "cheb_sweep_ref", "cheb_sweep_seg",
            "cheb_sweep_seg_ref", "cheb_sweep_rates", "cheb_sweep_rates_ref",
-           "init_planes", "s_over_dr3", "launches", "reset_launches",
+           "init_planes", "s_over_dr3", "source_cell_rate", "launches",
+           "reset_launches",
            "SweepPlan", "sweep_plan", "plan_sizes", "last_plan", "occupancy",
-           "cluster_barriers"]
+           "cluster_barriers", "dense_bin_sums"]
 
 LIM = 0.6          # floor of the tau weighting (raytracing.f90 cinterp)
 FOURPI = 12.566370614359172463991853874177
 THREADS = 512      # threads per block of the sweep kernels, unless forced
 SMEM_MAX = 232448  # dynamic shared memory one block may have on sm_90, bytes
 CLUSTERS = (16, 8, 4, 2, 1)   # cluster sizes, in the order they are tried
-THREADS_RATES = 256   # threads per block of K3's rate phase
+THREADS_RATES = 1024  # threads per block of K3's rate phase: a thread
+                      # evaluates at most a few cells of its box plane
+RATE_THREADS = 256    # rate threads per block of K1f beside its THREADS
+                      # chain threads
+RING_MAX = 1024       # most slots per ring buffer of K1f's deferred cells
+RING_BUFS = 3         # ring buffers, and values per slot beside the offset
+RING_VALUES = 4       # (kRingBufs, kRingValues of csrc/cheb_sweep.cuh)
+MAX_THREADS = 768     # most threads per block of a kernel with rate threads
 
 # kernel name -> launches since the last reset_launches()
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
@@ -75,23 +90,30 @@ class SweepPlan(NamedTuple):
     """How one launch lays the sweep onto the card."""
     cluster: int          # blocks per source (the cluster's size)
     shared_planes: bool   # planes in distributed shared memory, else scratch
-    threads: int          # threads per block
+    threads: int          # chain threads per block
     smem: int             # dynamic shared memory per block, bytes
     rows: int             # plane rows per block (0 with the scratch)
+    rate_threads: int = 0   # threads per block beside ``threads`` that
+                            # evaluate K1f's rates off the chain
+    ring: int = 0         # slots per ring buffer handed to them
 
 
-def plan_sizes(Dc, itemsize, cluster, shared_planes, head=0):
+def plan_sizes(Dc, itemsize, cluster, shared_planes, head=0, ring=0):
     """(smem bytes, rows) of a placement; the launch code of
     csrc/cheb_sweep.cuh (make_plan) computes the same and refuses a launch
     that disagrees. Row a of each of the 12 planes lives in block
     a mod cluster, so a block holds ceil(Dc / cluster) rows. ``head``:
-    values of the kernel's own at the start of shared memory."""
+    values of the kernel's own at the start of shared memory. ``ring``:
+    slots per ring buffer of K1f's deferred cells, RING_BUFS
+    buffers of RING_VALUES values and one 4-byte offset per slot."""
     rows = -(-Dc // cluster) if shared_planes else 0
-    return itemsize * (head + 12 * rows * Dc), rows
+    return (itemsize * (head + 12 * rows * Dc)
+            + RING_BUFS * ring * (RING_VALUES * itemsize + 4)), rows
 
 
 def sweep_plan(B, Dc, itemsize, max_active, head=0, cluster=None,
-               shared_planes=None, threads=THREADS):
+               shared_planes=None, threads=THREADS, rate_threads=0,
+               ring=None):
     """The plan of a sweep of B sources with (Dc, Dc, Dc) boxes in a type
     of ``itemsize`` bytes.
 
@@ -100,15 +122,31 @@ def sweep_plan(B, Dc, itemsize, max_active, head=0, cluster=None,
     is the largest of CLUSTERS of which the card holds B at once, so that
     every source's chain runs from the start, ``max_active(plan)`` being
     cudaOccupancyMaxActiveClusters for that launch; one block per source
-    when no size does. ``cluster``, ``shared_planes`` and ``threads`` force
-    a part of the plan (a forced placement that does not fit raises)."""
+    when no size does. With ``rate_threads`` (K1f) a block has
+    that many threads more, and a ring of a block's largest share of a
+    sub-step, 2 Dc^2 / cluster cells, but at most RING_MAX slots per
+    buffer (the cells beyond it are evaluated by the chain threads); the
+    ring counts toward SMEM_MAX like the planes. ``cluster``,
+    ``shared_planes``, ``threads``, ``rate_threads`` and ``ring`` force a
+    part of the plan (a forced placement that does not fit raises)."""
+    threads, rate_threads = int(threads), int(rate_threads)
+    if (threads < 1 or rate_threads < 0 or threads + rate_threads
+            > (MAX_THREADS if rate_threads else 1024)
+            or rate_threads and (threads % 32 or rate_threads % 32)):
+        raise ValueError(f"sweep_plan: {threads} chain and {rate_threads} "
+                         f"rate threads per block")
+
     def place(C):
+        slots = ring
+        if slots is None:
+            slots = min(-(-2 * Dc * Dc // C), RING_MAX) if rate_threads else 0
         for sh in (True, False):
             if shared_planes is not None and sh != bool(shared_planes):
                 continue
-            smem, rows = plan_sizes(Dc, itemsize, C, sh, head)
+            smem, rows = plan_sizes(Dc, itemsize, C, sh, head, slots)
             if smem <= SMEM_MAX:
-                return SweepPlan(C, sh, int(threads), smem, rows)
+                return SweepPlan(C, sh, threads, smem, rows, rate_threads,
+                                 int(slots))
         return None
 
     sizes = CLUSTERS if cluster is None else (int(cluster),)
@@ -138,6 +176,25 @@ def s_over_dr3(dr, dtype):
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+def source_cell_rate(nhi_src, flux, dr, sig, bins_s, weights):
+    """The rate of the source cell itself (tau_in = 0, volume dr^3;
+    raytracing.cu:285-294): flux S*/dr^3 sum_e w_e (-expm1(-dtau s_e))
+    / max(nHI_c, tiny) with dtau = nHI_c dr / 2 sig, the nHI floor of the
+    rate pass. ``nhi_src`` and ``flux`` are (B,), ``weights`` the photo
+    weights for Gamma or the heating weights for the heating rate; ``dr``
+    and ``sig`` are floats. The closed form of every fused kernel, in the
+    kernels' order of operations (csrc/cheb_sweep.cuh::source_rate)."""
+    dt, dev = nhi_src.dtype, nhi_src.device
+    dr = torch.as_tensor(dr, dtype=dt)              # on the CPU
+    sig = torch.as_tensor(sig, dtype=dt, device=dev)
+    dtau = nhi_src * (0.5 * dr).to(dev) * sig
+    acc = torch.zeros_like(dtau)
+    for se, we in zip(bins_s, weights):
+        acc = acc + we * -torch.expm1(-dtau * se)
+    sdr3 = s_over_dr3(dr, dt).to(dev)
+    return flux * sdr3 * acc / torch.clamp(nhi_src, min=torch.finfo(dt).tiny)
+
 
 def _shift(P, dim, c):
     """One-cell shift toward the source along ``dim``: index a >= c reads
@@ -277,7 +334,7 @@ def _face_d2(d2box, f, r, c):
 
 
 def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
-                   bins=None, rt_tab=None, R2=0.0):
+                   bins=None, rt_tab=None, R2=0.0, flux=None):
     """Plain PyTorch sweep, twin of raytrace_cheb._sweep (K1).
 
     nhi_box: (B, Dc, Dc, Dc); sw: (3, 4, R1, Dc, Dc); path, diag: (3, R1,
@@ -287,12 +344,13 @@ def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
     Returns the (B, Dc, Dc, Dc) coldensh_out box: each face plane is stored
     at its box position and the source cell holds nhi_c * dr / 2.
 
-    With ``bins`` = (bins_s, bins_w), the fused-rates mode of the TPU
-    kernel (K1f): the box holds the flux-less Gamma of every valid face
-    cell, S*/(dr^3 4 pi d2 path max(nHI, tiny)) * sum_e w_e
-    exp(-tau_in s_e) (-expm1(-dtau s_e)), masked by d2 <= R2 and
-    cdin <= MAX_COLDENSH, and the source cell is 0. d2 is the cell's
-    squared distance, channel 0 of ``rt_tab`` ((Dc, 2, Dc, Dc), see
+    With ``bins`` = (bins_s, bins_w) and the per-source ``flux`` (B,),
+    the fused-rates mode of the TPU kernel (K1f) with what its engine did
+    afterwards: the box holds the Gamma of every valid face cell, flux *
+    [S*/(dr^3 4 pi d2 path max(nHI, tiny)) * sum_e w_e exp(-tau_in s_e)
+    (-expm1(-dtau s_e))], masked by d2 <= R2 and cdin <= MAX_COLDENSH, and
+    the source cell ``source_cell_rate``. d2 is the cell's squared
+    distance, channel 0 of ``rt_tab`` ((Dc, 2, Dc, Dc), see
     cheb_geometry.pack_rates_tables) at the cell's cartesian position.
     """
     dt = nhi_box.dtype
@@ -305,7 +363,10 @@ def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
         def emit(f, r, mask, cdin, dcol, nhi, out):
             _put(box, f, r, c, out)
     else:
+        if flux is None:
+            raise ValueError("cheb_sweep: bins need the per-source flux")
         bins_s, bins_w = bins
+        fl = flux[:, None, None, None]
         d2box = rt_tab[:, 0]
         sdr3 = s_over_dr3(dr.cpu(), dt).to(nhi_box.device)
         max_cd = torch.tensor(MAX_COLDENSH, dtype=dt, device=nhi_box.device)
@@ -316,11 +377,15 @@ def cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
             acc, _ = _bin_sum(cdin * sig, dcol * sig, bins_s, bins_w)
             pref = sdr3 / (d2 * path[f, r] * FOURPI)
             ok = mask & (d2 <= R2) & (cdin <= max_cd)
-            gam = pref * acc / torch.clamp(nhi, min=tiny)
+            gam = pref * acc / torch.clamp(nhi, min=tiny) * fl
             _put(box, f, r, c, torch.where(ok, gam, torch.zeros_like(gam)))
     _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr, sig, c,
                   planes, 1, R1, emit)
-    box[:, c, c, c] = planes[:, 0, 0, c, c] if bins is None else 0.0
+    if bins is None:
+        box[:, c, c, c] = planes[:, 0, 0, c, c]
+    else:
+        box[:, c, c, c] = source_cell_rate(nhi_box[:, c, c, c], flux,
+                                           float(dr), float(sig), *bins)
     return box
 
 
@@ -350,7 +415,7 @@ def cheb_sweep_seg_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
 
 
 def _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w, bins_wh=None):
-    """K3's rate phase over whole boxes: phi = flux S* dr / (dr^3 4 pi d2)
+    """K3's rates over whole boxes: phi = flux S* dr / (dr^3 4 pi d2)
     * sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e)) / max(dcol, tiny),
     masked by the valid channel of rt_tab and cdin <= MAX_COLDENSH. ``dr``
     is a 0-dim CPU tensor of the boxes' dtype. With ``bins_wh`` returns
@@ -376,13 +441,14 @@ def cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab,
     """Plain version of the fused sweep + box + rates kernel (K3, and K3h
     with ``bins_wh``).
 
-    Phase A is the sweep, storing the masked cdin and dcol of every face
-    cell at its cartesian position; phase B evaluates the spectral-bin
-    rates per box cell with the per-source ``flux`` (B,) (``_box_rates``).
-    Returns the (B, Dc, Dc, Dc) phi box with the source cell 0, or with
-    ``bins_wh`` the pair (phi, heat) of such boxes."""
+    The sweep stores the masked cdin and dcol of every face cell at its
+    cartesian position; ``_box_rates`` evaluates the spectral-bin rates
+    per box cell with the per-source ``flux`` (B,), and the source cell
+    gets ``source_cell_rate``. Returns the (B, Dc, Dc, Dc) phi box, or
+    with ``bins_wh`` the pair (phi, heat) of such boxes."""
     dt, dev = nhi_box.dtype, nhi_box.device
     R1 = sw.shape[2]
+    dr_f, sig_f = float(dr), float(sig)
     dr = torch.as_tensor(dr, dtype=dt)              # on the CPU
     sig = torch.as_tensor(sig, dtype=dt, device=dev)
     ci = torch.zeros_like(nhi_box)
@@ -394,7 +460,13 @@ def cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab,
         _put(dc, f, r, c, torch.where(mask, dcol, zero))
     _sweep_shells(nhi_box, sw, path, diag, mask_m, mask_p, dr.to(dev), sig,
                   c, init_planes(nhi_box, c, dr), 1, R1, emit)
-    return _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w, bins_wh)
+    out = _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w, bins_wh)
+    nhi_src = nhi_box[:, c, c, c]
+    for box, weights in zip((out,) if bins_wh is None else out,
+                            (bins_w, bins_wh)):
+        box[:, c, c, c] = source_cell_rate(nhi_src, flux, dr_f, sig_f,
+                                           bins_s, weights)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -458,12 +530,13 @@ def _ptr(t):
 
 
 def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
-            head=0, plan=None):
+            head=0, plan=None, rate_threads=0):
     """Plan and launch entry point ``fn`` of ``lib`` for the sweep of
     ``nhi_box``: ``tensors`` are its pointer arguments up to the scratch
     (None for a null pointer), ``scalars`` those between the scratch and
     the launch arguments, ``head`` the kernel's own values at the start of
-    shared memory, ``plan`` a dict of forced parts of the plan (see
+    shared memory, ``rate_threads`` the rate threads per block of K1f,
+    ``plan`` a dict of forced parts of the plan (see
     ``sweep_plan``). The plan is made once per shape. Raises when the card
     refuses the launch; counts it otherwise."""
     B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
@@ -475,7 +548,7 @@ def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
     def invoke(p, scratch, query):
         err = call(*ptrs, scratch, *scalars, B, Dc, c, R1, float(dr),
                    float(sig), p.threads, p.cluster, int(p.shared_planes),
-                   p.smem, query, stream)
+                   p.smem, p.rate_threads, p.ring, query, stream)
         if err != 0:
             raise RuntimeError(
                 f"{name} kernel launch failed: CUDA error {err} "
@@ -487,7 +560,8 @@ def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
         occupancy[fn, p] = n.value
         return n.value
 
-    forced = tuple(sorted((plan or {}).items()))
+    forced = tuple(sorted({"rate_threads": rate_threads,
+                           **(plan or {})}.items()))
     key = (fn, B, Dc, head, dev, forced)
     if key not in _plans:
         _plans[key] = sweep_plan(B, Dc, dt.itemsize, max_active, head,
@@ -517,21 +591,47 @@ def cluster_barriers(B, cluster, n, device="cuda"):
                            f"{err} ({lib.error_string(err)!r})")
 
 
+def dense_bin_sums(tau_in, dtau, bins_s, bins_w, blocks, threads=256):
+    """sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e)) per element of the
+    CUDA tensors ``tau_in`` and ``dtau`` by a kernel that does nothing
+    else, on ``blocks`` x ``threads`` threads: timed, what the bins of a
+    cell cost where nothing waits for them. Not counted in ``launches``."""
+    from ._build import load
+    lib = load("cheb_sweep")
+    sfx = _SUFFIX[tau_in.dtype]
+    out = torch.empty_like(tau_in)
+    stream = torch.cuda.current_stream(tau_in.device).cuda_stream
+    err = getattr(lib, f"cheb_bin_sums_{sfx}")(
+        _ptr(tau_in), _ptr(dtau), _ptr(bins_s), _ptr(bins_w), _ptr(out),
+        bins_s.shape[0], tau_in.numel(), blocks, threads,
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"dense_bin_sums launch failed: CUDA error {err} "
+                           f"({lib.error_string(err)!r})")
+    return out
+
+
 def cheb_sweep(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
-               bins=None, rt_tab=None, R2=0.0, plan=None):
+               bins=None, rt_tab=None, R2=0.0, flux=None, plan=None):
     """The sweep on the device of ``nhi_box`` (see ``cheb_sweep_ref`` for
     the arguments): the plain version for a CPU tensor, the CUDA kernel
-    (K1, or K1f with ``bins``) for a CUDA tensor. ``dr``, ``sig`` and
-    ``R2`` are floats. ``plan`` forces parts of the kernel's launch plan
-    (a dict of ``sweep_plan``'s cluster, shared_planes, threads)."""
+    (K1, or K1f with ``bins`` and ``flux``) for a CUDA tensor. ``dr``,
+    ``sig`` and ``R2`` are floats. ``plan`` forces parts of the kernel's
+    launch plan (a dict of ``sweep_plan``'s cluster, shared_planes, threads
+    and, for K1f, rate_threads and ring; without rate threads K1f's chain
+    threads evaluate every cell's bins inside the sub-step)."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr,
-                              c, sig, bins=bins, rt_tab=rt_tab, R2=R2)
+                              c, sig, bins=bins, rt_tab=rt_tab, R2=R2,
+                              flux=flux)
     (B, Dc, R1), spec = _geom(nhi_box, sw, path, diag, mask_m, mask_p, c)
     dt = nhi_box.dtype
     if bins is not None:
+        if flux is None:
+            raise ValueError("cheb_sweep: bins need the per-source flux")
         E, more = _bins_spec(Dc, bins[0], bins[1], rt_tab, dt)
         spec.update(more)
+        spec["flux"] = (flux, (B,), dt)
     sfx = _check("cheb_sweep", nhi_box, spec)
     from ._build import load
     lib = load("cheb_sweep")
@@ -543,8 +643,10 @@ def cheb_sweep(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
     else:
         sdr3 = float(s_over_dr3(float(dr), dt))
         _launch(lib, f"cheb_sweep_gamma_{sfx}", "cheb_sweep_fused_rates",
-                nhi_box, R1, c, dr, sig, (*geo, rt_tab, bins[0], bins[1], box),
-                (E, float(R2), sdr3), head=2 * E, plan=plan)
+                nhi_box, R1, c, dr, sig,
+                (*geo, rt_tab, flux, bins[0], bins[1], box),
+                (E, float(R2), sdr3), head=2 * E, plan=plan,
+                rate_threads=RATE_THREADS)
     return box
 
 
@@ -576,14 +678,15 @@ def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
 
 
 def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
-                     dr, c, sig, bins_s, bins_w, bins_wh=None):
+                     dr, c, sig, bins_s, bins_w, bins_wh=None, plan=None):
     """The fused sweep + box + rates on the device of ``nhi_box`` (see
     ``cheb_sweep_rates_ref``): the plain version for a CPU tensor, the CUDA
     kernel (two __global__ launches on the stream, the first as clusters
     like K1, counted as one) for a CUDA tensor: K3, counted as
     "cheb_sweep_rates", or with ``bins_wh`` K3h, counted as
     "cheb_sweep_rates_heat", which returns (phi, heat). ``dr`` and ``sig``
-    are floats."""
+    are floats; ``plan`` forces parts of the first launch's plan as in
+    ``cheb_sweep``."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p,
                                     rt_tab, flux, dr, c, sig, bins_s, bins_w,
@@ -605,8 +708,11 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
     ci = torch.empty_like(nhi_box)        # phase A's cdin and dcol boxes
     dc = torch.empty_like(nhi_box)
     dr_t = torch.tensor(float(dr), dtype=dt)
-    s_fac = float(s_over_dr3(dr_t, dt) * dr_t)     # as in _box_rates
+    sdr3 = s_over_dr3(dr_t, dt)
+    s_fac = float(sdr3 * dr_t)                     # as in _box_rates
     _launch(lib, f"cheb_sweep_rates_{sfx}", name, nhi_box, R1, c, dr, sig,
             (nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, bins_s, bins_w,
-             bins_wh, flux, phi, heat, ci, dc), (E, s_fac, THREADS_RATES))
+             bins_wh, flux, phi, heat, ci, dc),
+            (E, s_fac, float(sdr3), THREADS_RATES), plan=plan)
     return phi if heat is None else (phi, heat)
+

@@ -1,8 +1,9 @@
 // Host stand-in for the CUDA device environment, for rehearsing the port's
 // kernels on the CPU (tests/test_torch_rehearsal.py): every thread of every
 // block of a cluster is a std::thread, __syncthreads() a barrier of the
-// block's threads, the cluster barrier one of all the cluster's threads, and
-// dynamic shared memory a buffer per block.
+// block's threads, the cluster barrier a split barrier of all the cluster's
+// threads (arrive and wait apart, as on the card, so a block's rate threads
+// run beside its chain threads), and dynamic shared memory a buffer per block.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -10,14 +11,16 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <optional>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __launch_bounds__(n)
 #define __align__(n) __attribute__((aligned(n)))
 struct uint3_ { unsigned x, y, z; };
-extern thread_local uint3_ threadIdx, blockIdx, blockDim;
+extern thread_local uint3_ threadIdx, blockIdx, blockDim, gridDim;
 struct EmuCluster {
   int C, T; size_t smem;
   std::vector<std::vector<unsigned char>> bufs;    // per block
@@ -29,9 +32,14 @@ extern thread_local int emu_rank;
 inline unsigned char* emu_smem() { return emu_cl->bufs[emu_rank].data(); }
 inline void __syncthreads() { emu_cl->block_bar[emu_rank]->arrive_and_wait(); }
 inline void __syncwarp() {}
-// the split barrier: arrive does nothing, wait is the whole barrier
-inline void emu_cluster_arrive() {}
-inline void emu_cluster_wait() { emu_cl->cluster_bar->arrive_and_wait(); }
+// the split barrier: arrive returns at once, wait blocks until every thread
+// of the cluster has arrived
+extern thread_local std::optional<std::barrier<>::arrival_token> emu_token;
+inline void emu_cluster_arrive() { emu_token.emplace(emu_cl->cluster_bar->arrive()); }
+inline void emu_cluster_wait() {
+  emu_cl->cluster_bar->wait(std::move(*emu_token));
+  emu_token.reset();
+}
 using std::min; using std::max;
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }

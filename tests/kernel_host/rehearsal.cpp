@@ -2,13 +2,16 @@
 // the device parts of cheb_sweep.cu and cheb_sweep_rates.cu as
 // tests/test_torch_rehearsal.py cuts them out, compiled against the stand-in
 // headers of this directory. One cluster (source) runs at a time, its
-// C blocks x T threads as std::threads.
+// C blocks x T threads as std::threads: the chain threads and, behind them,
+// the rate threads of K1f. K3's phase B is a plain grid: its blocks run one
+// after the other, each as T std::threads.
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
-thread_local uint3_ threadIdx, blockIdx, blockDim;
+thread_local uint3_ threadIdx, blockIdx, blockDim, gridDim;
 thread_local EmuCluster* emu_cl;
 thread_local int emu_rank;
+thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "k_sweep.inc"
 #include "k_rates.inc"
 using namespace cheb;
@@ -33,6 +36,7 @@ void emu_launch(int B, int C, int T, size_t smem, F f) {
           threadIdx = {unsigned(t), 0, 0};
           blockIdx = {unsigned(src * C + k), 0, 0};
           blockDim = {unsigned(T), 1, 1};
+          gridDim = {unsigned(B * C), 1, 1};
           f();
         });
     for (auto& x : th) x.join();
@@ -40,53 +44,63 @@ void emu_launch(int B, int C, int T, size_t smem, F f) {
   }
 }
 
-// kind 0: K1, 1: K1f, 2: K2, 3: phase A of K3 (box = cdin, box2 = dcol).
-// Returns 1 where make_plan refuses the caller's sizes.
+// What a rehearsal takes: the kernels' tensors (null where a kind has none)
+// and scalars, and the launch plan.
+struct Args {
+  const void *nhi, *sw, *path, *diag, *mm, *mp, *rt, *bs, *bw, *bwh, *flux,
+      *pin;
+  void *pout, *box, *box2, *ci, *dc, *scratch;
+  int B, Dc, c, R1, E, r0, r1;
+  double dr, sig, R2, sdr3, s_fac;
+  int threads, C, sh, smem, rate_threads, ring;
+};
+
+// kind 0: K1, 1: K1f, 2: K2, 3: K3 (box = phi), 4: K3h (box = phi, box2 =
+// heat), both through ci and dc. Returns 1 where make_plan refuses the
+// caller's sizes.
 template <class T>
-int run(int kind, const void* nhi, const void* sw, const void* path,
-        const void* diag, const void* mm, const void* mp, const void* rt,
-        const void* bs, const void* bw, const void* pin, void* pout, void* box,
-        void* box2, void* scratch, int B, int Dc, int c, int R1, int E, int r0,
-        int r1, double dr, double sig, double R2, double sdr3, int threads,
-        int C, int sh, int smem) {
-  const Tables<T> tb = make_tables<T>(sw, path, diag, mm, mp, Dc, c, R1, dr, sig);
-  const LaunchSpec spec{B, threads, C, sh, smem, nullptr, nullptr};
+int run(int kind, const Args& a) {
+  const Tables<T> tb = make_tables<T>(a.sw, a.path, a.diag, a.mm, a.mp, a.Dc,
+                                      a.c, a.R1, a.dr, a.sig);
+  const LaunchSpec spec{a.B, a.threads, a.C, a.sh, a.smem, a.rate_threads,
+                        a.ring, nullptr, nullptr};
   Plan pl;
-  if (make_plan<T>(spec, Dc, kind == 1 ? 2 * E : 0, &pl) != cudaSuccess)
+  if (make_plan<T>(spec, a.Dc, kind == 1 ? 2 * a.E : 0, kind == 1, &pl) !=
+      cudaSuccess)
     return 1;
-  auto N = static_cast<const T*>(nhi);
-  auto S = static_cast<T*>(scratch);
+  auto N = static_cast<const T*>(a.nhi);
+  auto S = static_cast<T*>(a.scratch);
   auto call = [&](auto shared) {
     constexpr bool SH = decltype(shared)::value;
-    emu_launch(B, C, threads, smem, [&] {
+    emu_launch(a.B, a.C, a.threads + a.rate_threads, a.smem, [&] {
       if (kind == 0)
-        cheb_sweep_kernel<T, SH>(tb, pl, N, (T*)box, S);
+        cheb_sweep_kernel<T, SH>(tb, pl, N, (T*)a.box, S);
       else if (kind == 1)
-        cheb_sweep_gamma_kernel<T, SH>(tb, pl, N, (const T*)rt, (const T*)bs,
-                                       (const T*)bw, E, T(R2), T(sdr3),
-                                       (T*)box, S);
+        cheb_sweep_gamma_kernel<T, SH>(tb, pl, N, (const T*)a.rt,
+                                       (const T*)a.flux, (const T*)a.bs,
+                                       (const T*)a.bw, a.E, T(a.R2), T(a.sdr3),
+                                       (T*)a.box, S);
       else if (kind == 2)
-        cheb_sweep_seg_kernel<T, SH>(tb, pl, N, (const T*)pin, (T*)pout, r0, r1,
-                                     (T*)box, S);
+        cheb_sweep_seg_kernel<T, SH>(tb, pl, N, (const T*)a.pin, (T*)a.pout,
+                                     a.r0, a.r1, (T*)a.box, S);
       else
-        rates::sweep_fold_kernel<T, SH>(tb, pl, N, (T*)box, (T*)box2, S);
+        rates::sweep_fold_kernel<T, SH>(tb, pl, N, (T*)a.ci, (T*)a.dc, S);
     });
   };
-  if (sh) call(std::true_type{}); else call(std::false_type{});
+  if (a.sh) call(std::true_type{}); else call(std::false_type{});
+  if (kind >= 3) {               // phase B: B x Dc blocks, the bins shared
+    const size_t smem = (kind == 4 ? 3 : 2) * a.E * sizeof(T);
+    emu_launch(a.B * a.Dc, 1, a.threads, smem, [&] {
+      auto phase_b = kind == 4 ? rates::box_rates_kernel<T, true>
+                               : rates::box_rates_kernel<T, false>;
+      phase_b(N, (const T*)a.ci, (const T*)a.dc, (const T*)a.rt,
+              (const T*)a.flux, (const T*)a.bs, (const T*)a.bw,
+              (const T*)a.bwh, a.E, a.Dc, a.c, T(a.dr), T(a.sig), T(a.s_fac),
+              T(a.sdr3), (T*)a.box, (T*)a.box2);
+    });
+  }
   return 0;
 }
 
-#define REHEARSE(SFX, T)                                                       \
-  extern "C" int rehearse_##SFX(                                               \
-      int kind, const void* nhi, const void* sw, const void* path,            \
-      const void* diag, const void* mm, const void* mp, const void* rt,       \
-      const void* bs, const void* bw, const void* pin, void* pout, void* box, \
-      void* box2, void* scratch, int B, int Dc, int c, int R1, int E, int r0, \
-      int r1, double dr, double sig, double R2, double sdr3, int threads,     \
-      int C, int sh, int smem) {                                               \
-    return run<T>(kind, nhi, sw, path, diag, mm, mp, rt, bs, bw, pin, pout,   \
-                  box, box2, scratch, B, Dc, c, R1, E, r0, r1, dr, sig, R2,   \
-                  sdr3, threads, C, sh, smem);                                 \
-  }
-REHEARSE(f32, float)
-REHEARSE(f64, double)
+extern "C" int rehearse_f32(int kind, const Args* a) { return run<float>(kind, *a); }
+extern "C" int rehearse_f64(int kind, const Args* a) { return run<double>(kind, *a); }

@@ -132,6 +132,56 @@ def test_sweep_plan_forced_parts():
         sweep.sweep_plan(8, 64, 4, ask, cluster=3)
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("Dc", [48, 64, 208, 9])
+@pytest.mark.parametrize("B", [1, 8, 128])
+def test_sweep_plan_with_rate_threads(B, Dc, itemsize):
+    """A fused kernel's plan: rate threads beside the chain threads, and a
+    ring of a block's largest share of a sub-step, at most RING_MAX slots,
+    that counts toward the shared memory like the planes."""
+    ask = _max_active()
+    p = sweep.sweep_plan(B, Dc, itemsize, ask, head=28,
+                         rate_threads=sweep.RATE_THREADS)
+    C = p.cluster
+    assert p.rate_threads == sweep.RATE_THREADS and p.threads == sweep.THREADS
+    assert p.threads + p.rate_threads <= sweep.MAX_THREADS
+    assert p.ring == min(-(-2 * Dc * Dc // C), sweep.RING_MAX) > 0
+    assert (p.smem, p.rows) == sweep.plan_sizes(Dc, itemsize, C,
+                                                p.shared_planes, 28, p.ring)
+    slot = sweep.RING_VALUES * itemsize + 4
+    assert p.smem == (itemsize * (28 + 12 * p.rows * Dc)
+                      + sweep.RING_BUFS * p.ring * slot) <= sweep.SMEM_MAX
+    # the largest share of a sub-step fits the ring unless RING_MAX cuts it
+    assert p.ring == sweep.RING_MAX or p.ring * C >= 2 * Dc * Dc
+    # without rate threads there is no ring
+    q = sweep.sweep_plan(B, Dc, itemsize, ask, head=28, rate_threads=0)
+    assert (q.rate_threads, q.ring) == (0, 0)
+    assert q.smem == sweep.plan_sizes(Dc, itemsize, q.cluster,
+                                      q.shared_planes, 28)[0]
+
+
+def test_sweep_plan_rate_threads_forced_and_refused():
+    ask = _max_active()
+    p = sweep.sweep_plan(8, 64, 4, ask, head=28, rate_threads=128, ring=64)
+    assert (p.cluster, p.shared_planes, p.rate_threads, p.ring) == (
+        16, True, 128, 64)
+    assert p.smem == 4 * 28 + 12288 + 3 * 64 * 20
+    # the ring can push the planes out of the shared memory: R = 100 shape,
+    # float32, 16 blocks, planes 129 792 bytes
+    big = sweep.sweep_plan(8, 208, 4, ask, cluster=16, rate_threads=256,
+                           ring=2048)
+    assert not big.shared_planes and big.rows == 0 and big.ring == 2048
+    with pytest.raises(ValueError, match="fits"):
+        sweep.sweep_plan(8, 208, 4, ask, cluster=16, shared_planes=True,
+                         rate_threads=256, ring=2048)
+    for bad in (dict(threads=512, rate_threads=512),
+                dict(threads=500, rate_threads=128),
+                dict(threads=512, rate_threads=100),
+                dict(threads=0), dict(threads=2048)):
+        with pytest.raises(ValueError, match="threads per block"):
+            sweep.sweep_plan(8, 64, 4, ask, **bad)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -224,3 +274,61 @@ def test_refused_cluster_launch_raises_on_cuda():
     finally:
         sweep.sweep_plan = real
         sweep._plans.clear()
+
+
+# rate threads, ring slots: none (every cell kept inside its sub-step); a
+# ring smaller than most shares, whose overflow the chain threads evaluate;
+# the rule's
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rate", [dict(rate_threads=0),
+                                  dict(rate_threads=128, ring=5),
+                                  dict(rate_threads=256)])
+@pytest.mark.parametrize("cluster,shared_planes", [(1, False), (4, True),
+                                                   (8, False), (16, True)])
+def test_fused_kernels_with_rate_threads_match_plain_on_cuda(
+        cluster, shared_planes, rate, dt):
+    """K1f with and without rate threads, and K3 and K3h at the same
+    cluster size and placement, against the plain versions within their
+    exp/expm1; a plan with rate threads is refused for K3, whose first
+    launch defers nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyc2ray_torch.radiation.spectral_bins import SpectralBins
+    bins = SpectralBins(s=np.array([1.0, 0.5, 0.2]),
+                        w_photo=np.array([0.5, 0.3, 0.2]),
+                        w_heat=np.array([0.1, 0.2, 0.3]), num_bins=3)
+    tr = ChebRaytracer(16, 8.0, SIG, bins, batch_size=3, dtype=dt,
+                       device="cuda")
+    g, tb = tr.geom, tr.tables
+    rng = np.random.RandomState(51)
+    box = torch.from_numpy(
+        10 ** rng.uniform(-4, -2, (3,) + (g.Dc,) * 3)).to("cuda", dt)
+    flux = torch.tensor([0.7, 0.0, 1.9], dtype=dt, device="cuda")
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+    kw = dict(bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab, R2=64.0,
+              flux=flux)
+    rates = (box, *geo, tb.rt_tab, flux, DR, g.c, SIG, tb.bins_s, tb.bins_w)
+    place = dict(cluster=cluster, shared_planes=shared_planes)
+    plan = dict(**place, **rate)
+    got = (sweep.cheb_sweep(box, *geo, DR, g.c, SIG, plan=plan, **kw),
+           sweep.cheb_sweep_rates(*rates, plan=place),
+           *sweep.cheb_sweep_rates(*rates, bins_wh=tb.bins_wh, plan=place))
+    torch.cuda.synchronize()
+    p = sweep.last_plan["cheb_sweep_fused_rates"]
+    assert (p.cluster, p.shared_planes, p.rate_threads) == (
+        cluster, shared_planes, rate["rate_threads"])
+    if rate["rate_threads"]:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            sweep.cheb_sweep_rates(*rates, plan=plan)
+    want = (sweep.cheb_sweep_ref(box, *geo, DR, g.c, SIG, **kw),
+            sweep.cheb_sweep_rates_ref(*rates),
+            *sweep.cheb_sweep_rates_ref(*rates, bins_wh=tb.bins_wh))
+    rtol = 1e-4 if dt == torch.float32 else 1e-10
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all()) and bool((a[1] == 0).all())
+        assert float(a[0, g.c, g.c, g.c]) > 0
+        torch.testing.assert_close(a, w, rtol=rtol,
+                                   atol=1e-6 * float(w.abs().max())
+                                   if dt == torch.float32 else 0.0)
+    assert torch.equal(got[1], got[2])

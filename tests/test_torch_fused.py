@@ -113,9 +113,51 @@ def test_source_cell_rate_matches_jax():
     want = np.asarray(jr._source_cell_rate(jnp.asarray(box),
                                            jnp.asarray(flux),
                                            jnp.asarray(DR)))
-    got = tr._source_cell_rate(torch.from_numpy(box), torch.from_numpy(flux),
-                               torch.tensor(DR, dtype=torch.float64))
+    c, tb = tr.geom.c, tr.tables
+    got = sweep.source_cell_rate(torch.from_numpy(box)[:, c, c, c],
+                                 torch.from_numpy(flux), DR, SIG, tb.bins_s,
+                                 tb.bins_w)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_box_holds_flux_and_source_cell(mode):
+    """The fused wrappers return complete boxes: with distinct fluxes, one
+    of them 0, each source's box is its unit-flux box times its flux (K1f's
+    flux is applied inside the kernel), the source cell is the closed form,
+    equal to the JAX engine's, and the box of the zero-flux source is 0."""
+    bins = _bb_bins()
+    tr = _port(12, 4.0, bins)
+    jr = JRaytracer(12, 4.0, SIG, bins, batch_size=3, dtype=jnp.float64)
+    g, tb = tr.geom, tr.tables
+    c = g.c
+    rng = np.random.RandomState(29)
+    box = torch.from_numpy(10 ** rng.uniform(-4, -2, (3,) + (g.Dc,) * 3))
+    flux = torch.tensor([0.7, 0.0, 1.9], dtype=torch.float64)
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+
+    def call(fl):
+        if mode == "fuse_rates":
+            return sweep.cheb_sweep(box, *geo, DR, c, SIG,
+                                    bins=(tb.bins_s, tb.bins_w),
+                                    rt_tab=tb.rt_tab, R2=16.0, flux=fl)
+        return sweep.cheb_sweep_rates(box, *geo, tb.rt_tab, fl, DR, c, SIG,
+                                      tb.bins_s, tb.bins_w)
+    got, unit = call(flux), call(torch.ones_like(flux))
+    assert float(unit.min()) >= 0 and float(unit[1].max()) > 0
+    torch.testing.assert_close(got, unit * flux[:, None, None, None],
+                               rtol=1e-14, atol=0)
+    assert bool((got[1] == 0).all())
+    want = np.asarray(jr._source_cell_rate(
+        jnp.asarray(box.numpy()), jnp.asarray(flux.numpy()), jnp.asarray(DR)))
+    assert want[0] > 0
+    np.testing.assert_allclose(got[:, c, c, c].numpy(), want, rtol=1e-12,
+                               atol=0)
+    if mode == "fuse_rates":
+        with pytest.raises(ValueError, match="need the per-source flux"):
+            sweep.cheb_sweep(box, *geo, DR, c, SIG,
+                             bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
+                             R2=16.0)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -163,7 +205,8 @@ def test_fused_wrappers_dispatch_on_device():
     box = torch.from_numpy(10 ** rng.uniform(-4, -2, (2,) + (g.Dc,) * 3))
     geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
     flux = torch.tensor([1.0, 2.0], dtype=torch.float64)
-    kw = dict(bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab, R2=9.0)
+    kw = dict(bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab, R2=9.0,
+              flux=flux)
     sweep.reset_launches()
     assert torch.equal(sweep.cheb_sweep(box, *geo, DR, g.c, SIG, **kw),
                        sweep.cheb_sweep_ref(box, *geo, DR, g.c, SIG, **kw))
@@ -186,6 +229,7 @@ def test_fused_kernels_match_plain_on_cuda():
     # underflows toward denormals and the exp rounding dominates
     for dt, rtol, floor in ((torch.float32, 1e-4, 1e-6),
                             (torch.float64, 1e-10, 0.0)):
+        # K1f's and K3's boxes are complete: flux and source cell inside
         tr = _port(16, 8.0, _bb_bins(), dtype=dt, device="cuda")
         g, tb = tr.geom, tr.tables
         rng = np.random.RandomState(27)
@@ -194,7 +238,8 @@ def test_fused_kernels_match_plain_on_cuda():
         box[1, g.c, g.c + 1, g.c] = 0.0
         geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
         flux = torch.tensor([1.0, 2.0], dtype=dt, device="cuda")
-        kw = dict(bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab, R2=64.0)
+        kw = dict(bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab, R2=64.0,
+                  flux=flux)
         rates = (box, *geo, tb.rt_tab, flux, DR, g.c, SIG, tb.bins_s,
                  tb.bins_w)
         n0 = dict(sweep.launches)

@@ -188,9 +188,10 @@ def test_source_cell_heat_matches_jax():
     want = np.asarray(jr._source_cell_rate(
         jnp.asarray(box), jnp.asarray(flux), jnp.asarray(DR),
         jr._bins_heat_static))
-    got = tr._source_cell_rate(torch.from_numpy(box), torch.from_numpy(flux),
-                               torch.tensor(DR, dtype=torch.float64),
-                               tr.tables.bins_wh)
+    c, tb = tr.geom.c, tr.tables
+    got = sweep.source_cell_rate(torch.from_numpy(box)[:, c, c, c],
+                                 torch.from_numpy(flux), DR, SIG, tb.bins_s,
+                                 tb.bins_wh)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=0)
 
 
@@ -229,7 +230,10 @@ def test_heat_wrapper_dispatches_on_device():
     ref = sweep.cheb_sweep_rates_ref(*rates, bins_wh=tb.bins_wh)
     assert torch.equal(phi, ref[0]) and torch.equal(heat, ref[1])
     assert torch.equal(phi, sweep.cheb_sweep_rates(*rates))
-    assert float(heat[0, g.c, g.c, g.c]) == 0.0 and float(heat.max()) > 0
+    # the source cell holds its closed form with the heating weights
+    src = sweep.source_cell_rate(box[:, g.c, g.c, g.c], flux, DR, SIG,
+                                 tb.bins_s, tb.bins_wh)
+    assert torch.equal(heat[:, g.c, g.c, g.c], src) and float(src.min()) > 0
     assert "cheb_sweep_rates_heat" in sweep.launches
     assert sum(sweep.launches.values()) == 0
     with pytest.raises(ValueError, match="unsupported device"):

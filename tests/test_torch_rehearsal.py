@@ -7,11 +7,12 @@ compiled with g++ against the stand-in headers of ``tests/kernel_host/``
 barrier and the mapping of shared memory between blocks are emulated;
 arithmetic is compiled without contraction) and held
 against the plain PyTorch versions: K1, K2 and phase A of K3 bit for bit,
-K1f within the tolerance of its exp/expm1. This checks the kernels' logic
+K1f, K3 and K3h within the tolerance of their exp/expm1, and K1f with rate
+threads bit for bit against itself without. This checks the kernels' logic
 (shell windows, the dealing of cells to blocks, plane ownership, stitches,
-carried planes) for every cluster size and placement; that the
-sources build for the card and run there is shown by chip_smoke.py and the
-``cuda`` tests."""
+carried planes, the ring that hands K1f's cells to the rate threads) for
+every cluster size and placement; that the sources build for the card and
+run there is shown by chip_smoke.py and the ``cuda`` tests."""
 
 import ctypes
 import shutil
@@ -76,11 +77,22 @@ def lib(tmp_path_factory):
     done = subprocess.run(cmd, capture_output=True, text=True)
     assert done.returncode == 0, done.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for f in (lib.rehearse_f32, lib.rehearse_f64):
-        f.argtypes = [I] + [P] * 14 + [I] * 7 + [D] * 4 + [I] * 4
-        f.restype = I
+        f.argtypes = [ctypes.c_int, ctypes.POINTER(_Args)]
+        f.restype = ctypes.c_int
     return lib
+
+
+class _Args(ctypes.Structure):
+    """struct Args of kernel_host/rehearsal.cpp."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "nhi", "sw", "path", "diag", "mm", "mp", "rt", "bs", "bw", "bwh",
+            "flux", "pin", "pout", "box", "box2", "ci", "dc", "scratch")]
+        + [(n, ctypes.c_int) for n in ("B", "Dc", "c", "R1", "E", "r0", "r1")]
+        + [(n, ctypes.c_double) for n in ("dr", "sig", "R2", "sdr3", "s_fac")]
+        + [(n, ctypes.c_int) for n in ("threads", "C", "sh", "smem",
+                                       "rate_threads", "ring")])
 
 
 def _bins():
@@ -89,11 +101,16 @@ def _bins():
                         w_heat=np.array([0.1, 0.2, 0.3]), num_bins=3)
 
 
-class _Case:
-    """One engine shape with random densities, and the kernels on the
-    host under a launch plan."""
+K1, K1F, K2, K3, K3H = range(5)
 
-    def __init__(self, lib, N, R, B, dt, plan, threads):
+
+class _Case:
+    """One engine shape with random densities and fluxes (with B > 1 the
+    last flux is 0),
+    and the kernels on the host under a launch plan (cluster size, planes
+    shared, chain threads, rate threads, ring slots)."""
+
+    def __init__(self, lib, N, R, B, dt, plan):
         self.rt = ChebRaytracer(N, R, SIG, _bins(), batch_size=B, dtype=dt,
                                 device="cpu")
         self.g, self.tb = self.rt.geom, self.rt.tables
@@ -101,37 +118,52 @@ class _Case:
         rng = np.random.RandomState(N + B)
         self.nhi = torch.from_numpy(
             10 ** rng.uniform(-4, -2, (B, Dc, Dc, Dc))).to(dt)
+        self.flux = torch.from_numpy(rng.uniform(0.5, 2.0, B)).to(dt)
+        if B > 1:
+            self.flux[-1] = 0.0
         self.geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
         self.fn = lib.rehearse_f32 if dt == torch.float32 else lib.rehearse_f64
-        self.dt, self.plan, self.threads = dt, plan, threads
+        self.dt, self.plan = dt, plan
 
-    def run(self, kind, rt_tab=None, bins=(None, None), planes=None, r0=0,
-            r1=0, R2=0.0, sdr3=0.0, box=None):
-        """Kernel ``kind`` (0 K1, 1 K1f, 2 K2, 3 K3's phase A); returns
-        (box, second box, planes out). Every output starts as NaN."""
+    def run(self, kind, planes=None, r0=0, r1=0, box=None, plan=None,
+            smem=None):
+        """Kernel ``kind``; returns (box, second box, planes out), or the
+        launch code's refusal; K3 and K3h also leave phase A's boxes in
+        ``self.ci`` and ``self.dc``. Every output starts as NaN."""
         nhi, tb, g = self.nhi, self.tb, self.g
         B, Dc, R1 = nhi.shape[0], g.Dc, tb.sw.shape[2]
-        E = 0 if bins[0] is None else bins[0].shape[0]
-        C, sh = self.plan
-        smem = sweep.plan_sizes(Dc, nhi.element_size(), C, sh,
-                                2 * E if kind == 1 else 0)[0]
+        E = tb.bins_s.shape[0] if kind in (K1F, K3, K3H) else 0
+        C, sh, threads, rate_threads, ring = plan or self.plan
+        if kind != K1F and plan is None:
+            rate_threads = ring = 0
+        if smem is None:
+            smem = sweep.plan_sizes(Dc, nhi.element_size(), C, sh,
+                                    2 * E if kind == K1F else 0, ring)[0]
 
         def nan(*shape):
             return torch.full(shape, float("nan"), dtype=self.dt)
         box = nan(*nhi.shape) if box is None else box
         box2, pout = nan(*nhi.shape), nan(B, 3, 2, Dc, Dc)
+        self.ci, self.dc = nan(*nhi.shape), nan(*nhi.shape)
         scratch = nan(B, 12, Dc, Dc)
-        ptrs = [None if t is None else t.data_ptr() for t in (
-            nhi, *self.geo, rt_tab, *bins, planes, pout, box, box2, scratch)]
-        rc = self.fn(kind, *ptrs, B, Dc, g.c, R1, E, r0, r1, DR, SIG, R2,
-                     sdr3, self.threads, C, int(sh), smem)
-        assert rc == 0
-        return box, box2, pout
+        dr_t = torch.tensor(DR, dtype=self.dt)
+        sdr3 = sweep.s_over_dr3(dr_t, self.dt)
+        keep = (nhi, *self.geo, tb.rt_tab, tb.bins_s, tb.bins_w, tb.bins_wh,
+                self.flux, planes, pout, box, box2, self.ci, self.dc, scratch)
+        args = _Args(*[None if t is None else t.data_ptr() for t in keep],
+                     B, Dc, g.c, R1, E, r0, r1, DR, SIG,
+                     self.rt.R_max_LLS ** 2, float(sdr3),
+                     float(sdr3 * dr_t), threads, C, int(sh), smem,
+                     rate_threads, ring)
+        rc = self.fn(kind, ctypes.byref(args))
+        return (box, box2, pout) if rc == 0 else rc
 
 
-# (cluster size, planes shared, threads per block)
-PLANS = [(1, False, 2), (4, False, 3), (4, True, 2), (8, True, 3),
-         (2, False, 5), (16, True, 1)]
+# (cluster size, planes shared, chain threads, rate threads, ring slots): a
+# ring as large as any share; one smaller than most shares, whose overflow
+# the chain threads evaluate; more rate threads than chain threads
+PLANS = [(1, False, 2, 1, 512), (4, False, 3, 2, 7), (4, True, 2, 3, 64),
+         (8, True, 3, 1, 3), (2, False, 5, 2, 40), (16, True, 1, 1, 16)]
 
 
 # (16, 6): an unclipped box; (8, 6) and (16, 8): clipped by the mesh (the
@@ -142,10 +174,10 @@ PLANS = [(1, False, 2), (4, False, 3), (4, True, 2), (8, True, 3),
                                    (9, 8.0, 1), (16, 3.0, 2)])
 def test_kernels_on_the_host_match_plain(lib, N, R, B, dt):
     for plan in PLANS:
-        case = _Case(lib, N, R, B, dt, plan[:2], plan[2])
+        case = _Case(lib, N, R, B, dt, plan)
         nhi, geo, g, tb = case.nhi, case.geo, case.g, case.tb
         # K1
-        k1, _, _ = case.run(0)
+        k1, _, _ = case.run(K1)
         want = sweep.cheb_sweep_ref(nhi, *geo, DR, g.c, SIG)
         assert torch.equal(k1, want), plan
         # K2 chained over ragged segments: box and carried planes
@@ -153,26 +185,46 @@ def test_kernels_on_the_host_match_plain(lib, N, R, B, dt):
         planes_ref = planes.clone()
         box, box_ref = torch.zeros_like(nhi), torch.zeros_like(nhi)
         for r0 in range(1, g.r_max + 1, 3):
-            box, _, planes = case.run(2, planes=planes, r0=r0,
+            box, _, planes = case.run(K2, planes=planes, r0=r0,
                                       r1=min(r0 + 3, g.r_max + 1), box=box)
             box_ref, planes_ref = sweep.cheb_sweep_seg_ref(
                 nhi, *geo, DR, g.c, SIG, planes_ref, r0, 3, box_ref)
             assert torch.equal(planes, planes_ref), (plan, r0)
             assert torch.equal(box, box_ref), (plan, r0)
-        # K1f
-        R2 = case.rt.R_max_LLS ** 2
-        got, _, _ = case.run(1, rt_tab=tb.rt_tab,
-                             bins=(tb.bins_s, tb.bins_w), R2=R2,
-                             sdr3=float(sweep.s_over_dr3(float(DR), dt)))
-        want = sweep.cheb_sweep_ref(nhi, *geo, DR, g.c, SIG,
-                                    bins=(tb.bins_s, tb.bins_w),
-                                    rt_tab=tb.rt_tab, R2=R2)
-        # libm's exp/expm1 against torch's: a few ulp per bin
-        torch.testing.assert_close(
-            got, want, rtol=1e-5 if dt == torch.float32 else 1e-12, atol=0)
-        # K3's phase A: cdin and dcol of every valid cell, against the
-        # plain version's emit
-        ci, dc, _ = case.run(3)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,R,B", [(16, 6.0, 2), (8, 6.0, 2), (16, 8.0, 1),
+                                   (9, 8.0, 1), (16, 3.0, 2)])
+def test_fused_kernels_on_the_host_match_plain(lib, N, R, B, dt):
+    """K1f with rate threads and a ring: bit for bit against the same
+    kernel without them (every cell evaluated by its chain thread inside
+    the sub-step). K3's and K3h's phase A: cdin and dcol of every rated
+    cell bit for bit. All three against their plain versions within libm's
+    exp/expm1 against torch's, a few ulp per bin; the source cell and the
+    flux (one of them 0) included."""
+    rtol = 1e-5 if dt == torch.float32 else 1e-12
+    for plan in PLANS:
+        case = _Case(lib, N, R, B, dt, plan)
+        nhi, geo, g, tb = case.nhi, case.geo, case.g, case.tb
+        rates = (nhi, *geo, tb.rt_tab, case.flux, DR, g.c, SIG, tb.bins_s,
+                 tb.bins_w)
+
+        def check(got, refs):
+            for a, ref in zip(got, refs):
+                torch.testing.assert_close(a, ref, rtol=rtol, atol=0)
+                assert float(ref[0, g.c, g.c, g.c]) > 0
+                assert B == 1 or bool((a[-1] == 0).all())        # flux 0
+        want = sweep.cheb_sweep_ref(
+            nhi, *geo, DR, g.c, SIG, bins=(tb.bins_s, tb.bins_w),
+            rt_tab=tb.rt_tab, R2=case.rt.R_max_LLS ** 2, flux=case.flux)
+        got = case.run(K1F)[0]
+        assert torch.equal(got, case.run(K1F, plan=plan[:3] + (0, 0))[0]), plan
+        check((got,), (want,))
+        check(case.run(K3)[:1], (sweep.cheb_sweep_rates_ref(*rates),))
+        check(case.run(K3H)[:2],
+              sweep.cheb_sweep_rates_ref(*rates, bins_wh=tb.bins_wh))
+        # phase A against the plain version's emit
         ci_ref, dc_ref = torch.zeros_like(nhi), torch.zeros_like(nhi)
 
         def emit(f, r, mask, cdin, dcol, nhi_f, out):
@@ -184,18 +236,22 @@ def test_kernels_on_the_host_match_plain(lib, N, R, B, dt):
                             g.c, sweep.init_planes(nhi, g.c, dr_t), 1,
                             g.r_max + 1, emit)
         valid = tb.rt_tab[:, 1] > 0.5
-        assert torch.equal(ci[:, valid], ci_ref[:, valid]), plan
-        assert torch.equal(dc[:, valid], dc_ref[:, valid]), plan
+        assert torch.equal(case.ci[:, valid], ci_ref[:, valid]), plan
+        assert torch.equal(case.dc[:, valid], dc_ref[:, valid]), plan
 
 
 def test_host_launch_code_refuses_other_sizes(lib):
     """make_plan computes the shared-memory size itself and refuses a
-    caller whose size differs (the launch then never happens)."""
-    case = _Case(lib, 8, 6.0, 1, torch.float64, (4, True), 1)
-    nhi, tb, g = case.nhi, case.tb, case.g
-    smem = sweep.plan_sizes(g.Dc, 8, 4, True)[0]
-    ptrs = [nhi.data_ptr(), *[t.data_ptr() for t in case.geo]] + [None] * 8
-    args = (nhi.shape[0], g.Dc, g.c, tb.sw.shape[2], 0, 0, 0, DR, SIG, 0.0,
-            0.0, 1)
-    assert lib.rehearse_f64(0, *ptrs, *args, 4, 1, smem + 8) == 1
-    assert lib.rehearse_f64(0, *ptrs, *args, 3, 1, smem) == 1
+    caller whose size differs (the launch then never happens), a cluster
+    size that is no power of two, rate threads or a ring for a kernel
+    that defers nothing, and a ring that no thread drains."""
+    case = _Case(lib, 8, 6.0, 1, torch.float64, (4, True, 1, 0, 0))
+    smem = sweep.plan_sizes(case.g.Dc, 8, 4, True)[0]
+    assert case.run(K1, smem=smem + 8) == 1
+    assert case.run(K1, plan=(3, True, 1, 0, 0), smem=smem) == 1
+    assert isinstance(case.run(K1), tuple)
+    smem = sweep.plan_sizes(case.g.Dc, 8, 4, True, 6, 5)[0]
+    assert case.run(K1F, plan=(4, True, 1, 2, 5), smem=smem + 4) == 1
+    assert case.run(K1F, plan=(4, True, 1, 0, 5)) == 1
+    assert case.run(K3, plan=(4, True, 1, 2, 5)) == 1
+    assert isinstance(case.run(K1F, plan=(4, True, 1, 2, 5)), tuple)
