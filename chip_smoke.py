@@ -30,7 +30,10 @@ Phases (any failure raises and the script exits non-zero):
    the source cell's closed form included, K1f with its rate threads and
    without; their time per design step (K1f: the bins inside the sub-step,
    128 and 256 rate threads, a small ring, fewer chain threads; K3: the
-   cluster size of its first launch).
+   cluster size of its first launch); K3 at the shapes of the EoR run's
+   buckets (N=250, B=16, R=7.68 and 15.37: Dc=24 and 40) and of the
+   adaptive bench mix's smaller buckets (N=256, B=8, R=7.5 and 15), in
+   float32, with the plans the host rule chose.
 2c. The fused kernel with the heating output, K3h (fuse_fold with
    do_heating), at the bench shape in float32 and at the small clipped
    float64 shape with a zero-density cell: both outputs against the plain
@@ -59,12 +62,34 @@ Phases (any failure raises and the script exits non-zero):
    256^3 cells from 100 K with that heat.
 4. One evolve3D timestep to convergence at N=64, R=8, 16 sources, float32,
    held against the same call on the CPU.
+   Then where the two part: Gamma of one trace on equal inputs, global_pass
+   on equal Gamma (and the inner iterations each cell took), doric's terms
+   and update_temperature on equal inputs.
 4b. One non-isothermal evolve3D timestep (thermal=ThermalParams) at the
    same size with fuse_fold=True, GPU against CPU: xh, Gamma and T.
 4c. The entry point: C2Ray_Test(<the heating example's parameters as a
    dict>, 48, device="cuda"), six timesteps in float64 with engine cheb
-   as examples/heating_test/run_test.py runs them, then that script's five
-   checks of the temperature and ionization profiles.
+   as examples/heating_test/run_test.py runs them (the model layer builds
+   its engines with fuse_fold: one K3h launch per raytrace iteration), then
+   that script's five checks of the temperature and ionization profiles.
+4d. The adaptive engine at the bench mix: N=256, R_max=30 (buckets 7.5, 15,
+   30), 12288 sources at positions from seed 100 with fluxes over three
+   decades, B=8, float32, fuse_fold. Its Gamma equals the sum of one
+   fuse_fold ChebRaytracer per bucket bit for bit, each bucket launching K3
+   once per batch; ns per cell-update, the per-batch stage times of the
+   smallest bucket, and the GPU trace of the first 16 sources against the
+   CPU.
+4e. The production EoR run, examples/eor_simulation/run_test.py's loop:
+   C2Ray_CubeP3M(<its parameters.yml>, 250, device="cuda") (engine
+   adaptive, float32, B=16) on the committed inputs, both slices
+   (21.062 -> 20.134 -> 19.284) with one timestep each. Per slice the
+   bucket counts, raytrace iterations, K3 launches (asserted: iterations x
+   batches), s per trace and per chemistry pass, Mcell-updates/s and the
+   photon loss; xh finite in [0, 1] and changed, the outputs read back
+   equal to the state. Then one trace under torch.profiler: its top device
+   kernels and the device's idle share; and the Gamma of the first 16
+   sources against the CPU. The catalogs are read without h5py
+   (``read_catalog``).
 5. The script's wall time, a ``kernels`` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -76,6 +101,7 @@ against their plain versions and their times) and prints no result line.
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -104,6 +130,19 @@ HEAT_OPS_PER_CELL = 2            # and the second result (mul, div)
 N_R100, R_R100, NS_R100 = 250, 100.0, 100   # raytracing harness, R=100 row
 N_EVOLVE, R_EVOLVE, NS_EVOLVE = 64, 8.0, 16  # the evolve3D steps of 4, 4b
 N_HEATING, STEPS_HEATING = 48, 6             # examples/heating_test defaults
+NS_ADAPT, B_ADAPT = 12288, 8                 # the adaptive bench mix (4d)
+EOR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "eor_simulation")
+EOR_ZLIST = (21.062, 20.134, 19.284)         # run_test.py's first slices
+N_EOR, B_EOR = 250, 16                       # its mesh; parameters.yml's B
+# the adaptive ladder of parameters.yml at N=250: R_max_LLS = 15 cMpc x
+# 250 / 244 cells and half of it (a quarter is below R_min = 4)
+R_EOR = (15.0 * N_EOR / 244.0 / 2.0, 15.0 * N_EOR / 244.0)
+# the committed halo catalogs: HDF5 files whose two datasets are contiguous
+# and uncompressed (h5py's get_offset())
+HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
+CATALOG_NSRC = 20000
+CATALOG_POS_AT, CATALOG_MASS_AT = 2048, 482048
 T_START = time.time()
 
 
@@ -471,11 +510,11 @@ def check_seg(N, R, B, dtype, rtol, seed, reps, shell_segment="auto",
 
 
 def check_fused(N, R, B, dtype, rtol, floor, seed, reps, bins,
-                zero_cell=False, steps=False):
+                zero_cell=False, steps=False, names=("K1f", "K3")):
     """K1f and K3 (complete boxes: the flux and the source cell inside) vs
     their plain versions, K1f with its rate threads and with every cell
     kept inside its sub-step; returns {name: numbers}, with the number of
-    rated cells of a call."""
+    rated cells of a call. ``names`` selects the kernels."""
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     rt = ChebRaytracer(N, R, SIG, bins, batch_size=B, dtype=dtype)
@@ -498,12 +537,13 @@ def check_fused(N, R, B, dtype, rtol, floor, seed, reps, bins,
     ops += n_rated * (RATE_OPS_PER_BIN * bins.num_bins + RATE_OPS_PER_CELL)
     extra = {"K1f": g.Dc ** 3 * isz,                    # the dist2 channel
              "K3": 2 * g.Dc ** 3 * isz + B * isz}       # rates table, flux
-    log(f"K1f/K3 N={N} R={R} B={B} Dc={g.Dc} R1={g.r_max + 1} "
+    log(f"{'/'.join(names)} N={N} R={R:g} B={B} Dc={g.Dc} R1={g.r_max + 1} "
         f"E={bins.num_bins} {str(dtype).split('.')[-1]}"
         f"{' (one zero-density cell)' if zero_cell else ''}:")
     out = {}
     knames = {"K1f": "cheb_sweep_fused_rates", "K3": "cheb_sweep_rates"}
-    for name, (kern, plain) in kernels.items():
+    for name in names:
+        kern, plain = kernels[name]
         ref = plain()
         max_abs = compare(f"{name} vs plain", kern(), ref, rtol, floor)
         if not float(ref[:, g.c, g.c, g.c].min()) > 0.0:
@@ -572,7 +612,13 @@ def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
     return res
 
 
-def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
+def cell_updates(ns, R):
+    """Cell-updates of a trace of ``ns`` sources at radius R (the
+    reference's normalisation, Ns 4/3 pi R^3)."""
+    return ns * 4.0 / 3.0 * np.pi * R ** 3
+
+
+def run_path(rt, nd, xh, pos_b, flux_b, updates, expect, label, chem=None):
     """A warm-up trace, then one trace_batches (and global_pass with
     ``chem``) with the launch counts set to 0 just before and read just
     after; asserts the counts equal ``expect`` (others 0) and the output
@@ -608,7 +654,7 @@ def run_path(rt, nd, xh, pos_b, flux_b, ns, R, expect, label, chem=None):
         if not (bool(torch.isfinite(xi).all())
                 and bool(torch.isfinite(xa).all())):
             raise RuntimeError(f"{label}: chemistry output is not finite")
-    ns_cell = 1e9 * t_ray / (ns * 4.0 / 3.0 * np.pi * R ** 3)
+    ns_cell = 1e9 * t_ray / updates
     log(f"{label}: raytrace {t_ray:.4f} s = {ns_cell:.4f} ns/cell-update"
         f"{msg}, launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
@@ -692,6 +738,387 @@ def heating_checks(temp, xh, N):
     }, t_prof, x_prof
 
 
+def read_catalog(sim, file):
+    """A halo catalog of examples/eor_simulation/inputs/sources as
+    ``sim.read_sources(file)`` returns it, read without h5py (the card's
+    machine has none): sources_positions (20000, 3) int64 and sources_mass
+    (20000,) float64, little-endian, at their byte offsets. Raises on any
+    other layout; tests/test_torch_cubep3m.py holds it against
+    read_sources."""
+    with open(file, "rb") as f:
+        raw = f.read()
+    if (raw[:len(HDF5_SIGNATURE)] != HDF5_SIGNATURE
+            or len(raw) != CATALOG_MASS_AT + 8 * CATALOG_NSRC):
+        raise ValueError(f"{file}: not a {CATALOG_NSRC}-source HDF5 catalog "
+                         f"of the committed layout")
+    pos = np.frombuffer(raw, "<i8", 3 * CATALOG_NSRC, CATALOG_POS_AT)
+    mass = np.frombuffer(raw, "<f8", CATALOG_NSRC, CATALOG_MASS_AT)
+    if pos.min() < 1 or not (np.all(np.isfinite(mass)) and mass.min() > 0):
+        raise ValueError(f"{file}: positions or masses out of range")
+    return sim._sources_from_catalog(pos.reshape(CATALOG_NSRC, 3).copy(),
+                                     mass.copy(), file)
+
+
+def inner_iterations(dt, nd, temp, xh, phi, chem, doric=None):
+    """global_pass's loop (ops/chemistry.py) with a count of the doric
+    iterations each cell took before it froze; ``doric`` replaces
+    ops/chemistry.py::doric."""
+    from pyc2ray_torch.ops import chemistry as ch
+    doric = doric or ch.doric
+    xh_av = xh
+    active = torch.ones(xh.shape, dtype=torch.bool, device=xh.device)
+    its = torch.zeros(xh.shape, dtype=torch.int32, device=xh.device)
+    for _ in range(ch.MAX_INNER_ITER):
+        if not bool(active.any()):
+            break
+        _, xh_av_new = doric(xh, dt, temp, nd * (xh_av + chem.abu_c), phi,
+                             chem)
+        rel = torch.abs((xh_av_new - xh_av) / (1.0 - xh_av_new))
+        done = (rel < ch.MIN_FRACTIONAL_CHANGE) | (
+            (1.0 - xh_av_new) < ch.MIN_FRACTION_OF_ATOMS)
+        xh_av = torch.where(active, xh_av_new, xh_av)
+        its = its + active.to(torch.int32)
+        active = active & ~done
+    return its, xh_av
+
+
+def doric_reference_form(xh, dt, temp, rhe, phi, p):
+    """ops/chemistry.py::doric with the reference's time average
+    (1 - ee) / deltht in every dtype, where doric's float32 form takes
+    -expm1(-deltht): the other side of the inner-iteration comparison."""
+    from pyc2ray_torch.constants import EPSILON
+    brech0 = p.clumping * p.bh00 * (temp / 1e4) ** p.albpow
+    acolh0 = p.colh0 * torch.sqrt(temp) * torch.exp(-p.temph0 / temp)
+    aih0 = phi + rhe * acolh0
+    delth = aih0 + rhe * brech0
+    eqxh = aih0 / delth
+    deltht = delth * dt
+    ee = torch.exp(-deltht)
+    x = torch.clamp((xh - eqxh) * ee + eqxh, min=EPSILON)
+    avg = torch.where(deltht < 1.0e-8, torch.ones_like(deltht),
+                      (1.0 - ee) / deltht)
+    return x, torch.clamp(eqxh + (xh - eqxh) * avg, min=EPSILON)
+
+
+def doric_terms(xh, dt, temp, rhe, phi, p):
+    """ops/chemistry.py::doric's intermediate terms and results, by name."""
+    from pyc2ray_torch.ops.chemistry import doric
+    brech0 = p.clumping * p.bh00 * (temp / 1e4) ** p.albpow
+    acolh0 = p.colh0 * torch.sqrt(temp) * torch.exp(-p.temph0 / temp)
+    deltht = (phi + rhe * acolh0 + rhe * brech0) * dt
+    ee = torch.exp(-deltht)
+    x, x_av = doric(xh, dt, temp, rhe, phi, p)
+    return {"brech0 (pow)": brech0, "acolh0 (sqrt, exp)": acolh0,
+            "ee = exp(-delth dt)": ee,
+            "(1 - ee) / (delth dt), the reference's form":
+            (1.0 - ee) / deltht,
+            "-expm1(-delth dt) / (delth dt), doric's float32 form":
+            -torch.expm1(-deltht) / deltht, "xh": x, "xh_av": x_av}
+
+
+def max_rel(a, b, floor=0.0):
+    """max |a - b| / |b| over the cells where |b| > floor * max|b|, both
+    on the CPU in float64."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    big = b.abs() > floor * float(b.abs().max())
+    return float(((a - b).abs()[big] / b.abs()[big]).max()) \
+        if bool(big.any()) else 0.0
+
+
+def bisect_gap(bins, chem, thermal, pos, flux, nd, xh):
+    """Where the card and the CPU part in phase 4's float32 timestep, one
+    stage at a time on equal inputs: Gamma of one trace (the engine of
+    phase 4); global_pass on the CPU's Gamma, with the doric iterations
+    each cell took; doric's terms on the inputs of its first iteration;
+    update_temperature on equal heat."""
+    from pyc2ray_torch.ops.chemistry import global_pass
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    from pyc2ray_torch.ops.thermal import update_temperature
+    dt = torch.float32
+    Ne = nd.shape[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rt = ChebRaytracer(Ne, R_EVOLVE, SIG, bins, batch_size=B_BENCH,
+                           dtype=dt, device=dev, do_heating=True,
+                           fuse_fold=True)
+        out[dev] = [t.cpu() for t in rt.trace(nd, xh, pos, flux, DR)]
+    (phi_g, heat_g), (phi_c, heat_c) = out["cuda"], out["cpu"]
+    log(f"gap bisection N={Ne} float32: Gamma of one trace card vs CPU max "
+        f"rel {max_rel(phi_g, phi_c, 1e-6):.3e} (above 1e-6 of the peak), "
+        f"heat {max_rel(heat_g, heat_c, 1e-6):.3e}")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        def f(a):
+            return torch.as_tensor(a, dtype=dt).reshape(-1).to(dev)
+        dt_d = torch.tensor(DT, dtype=dt).to(dev)
+        temp = torch.full((Ne ** 3,), 1e4, dtype=dt, device=dev)
+        x0 = f(xh)
+        xi, xa, cf = global_pass(dt_d, f(nd), temp, x0, x0, f(phi_c), chem)
+        its, _ = inner_iterations(dt_d, f(nd), temp, x0, f(phi_c), chem)
+        terms = doric_terms(x0, dt_d, temp, f(nd) * (x0 + chem.abu_c),
+                            f(phi_c), chem)
+        t_new = update_temperature(dt_d, torch.full_like(temp, 100.0),
+                                   f(nd), x0, f(heat_c), thermal, z=9.0)
+        res[dev] = dict(xi=xi.cpu(), xa=xa.cpu(), cf=int(cf), its=its.cpu(),
+                        terms={k: v.cpu() for k, v in terms.items()},
+                        T=t_new.cpu())
+    g, c = res["cuda"], res["cpu"]
+    diff_its = g["its"] != c["its"]
+    d_xa = (g["xa"].double() - c["xa"].double()).abs() \
+        / c["xa"].double().abs()
+    log(f"  global_pass on equal Gamma: xh max rel "
+        f"{max_rel(g['xi'], c['xi']):.3e}, xh_av {max_rel(g['xa'], c['xa']):.3e}"
+        f", conv_flag {g['cf']} / {c['cf']}; cells whose doric iterations "
+        f"differ: {int(diff_its.sum())} of {diff_its.numel()} (xh_av max "
+        f"rel there {float(d_xa[diff_its].max()) if bool(diff_its.any()) else 0.0:.3e}, "
+        f"elsewhere {float(d_xa[~diff_its].max()):.3e}); iterations "
+        f"{int(c['its'].min())}..{int(c['its'].max())}")
+    for name in g["terms"]:
+        log(f"  doric on equal inputs, {name}: max rel "
+            f"{max_rel(g['terms'][name], c['terms'][name]):.3e}")
+    log(f"  update_temperature on equal inputs (16 substeps from 100 K): T "
+        f"max rel {max_rel(g['T'], c['T']):.3e}")
+
+
+def adaptive_bench(bins):
+    """Phase 4d: the adaptive engine at the bench mix against one fuse_fold
+    engine per bucket; returns the K3 launches of its trace."""
+    from pyc2ray_torch.ops.adaptive import AdaptiveRaytracer
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    N, dt = N_BENCH, torch.float32
+    rng = np.random.RandomState(100)
+    pos = rng.randint(0, N, size=(NS_ADAPT, 3))
+    flux = 10 ** rng.uniform(-3.0, 0.0, NS_ADAPT)
+    ada = AdaptiveRaytracer(N, R_BENCH, SIG, bins, batch_size=B_ADAPT,
+                            dtype=dt, fuse_fold=True)
+    nd = torch.full((N ** 3,), 1e-3, dtype=dt, device="cuda")
+    xh = torch.full((N ** 3,), 1.2e-3, dtype=dt, device="cuda")
+    avg = float(nd.mean())
+    batches, _ = ada.prepare_sources(pos, flux, dr=DR, avg_dens=avg)
+    counts = list(batches.counts)
+    nb = [p.shape[0] for p in batches.pos]
+    log(f"adaptive bench mix N={N} R_max={R_BENCH:g} Ns={NS_ADAPT} "
+        f"B={B_ADAPT} float32: {ada.describe_buckets(batches)}; batches "
+        f"{nb}; Dc {[e.geom.Dc for e in ada.engines]}")
+    if ada.radii != [7.5, 15.0, 30.0] or min(counts) == 0 \
+            or counts[0] != max(counts):
+        raise RuntimeError(f"adaptive bench mix: buckets {ada.radii} "
+                           f"{counts}, expected every bucket of [7.5, 15, "
+                           f"30] used and the smallest the largest")
+    updates = sum(cell_updates(c, r) for c, r in zip(counts, ada.radii))
+    phi, _, launches = run_path(ada, nd, xh, batches, None, updates,
+                                {"cheb_sweep_rates": sum(nb)},
+                                "adaptive bench mix, all buckets")
+    sel_b = ada.assign_buckets(flux, DR, avg)
+    total = None
+    for k, r in enumerate(ada.radii):
+        eng = ChebRaytracer(N, r, SIG, bins, batch_size=B_ADAPT, dtype=dt,
+                            fuse_fold=True)
+        sel = np.nonzero(sel_b == k)[0]
+        pb, fb = eng.prepare_sources(pos[sel], flux[sel])
+        p_k, _, _ = run_path(
+            eng, nd, xh, pb, fb, cell_updates(sel.size, r),
+            {"cheb_sweep_rates": pb.shape[0]},
+            f"  bucket R={r:g} alone ({sel.size} sources, {pb.shape[0]} "
+            f"batches, Dc={eng.geom.Dc})")
+        total = p_k if total is None else total + p_k
+    if not torch.equal(phi, total):
+        raise RuntimeError("adaptive Gamma differs from the sum of its "
+                           "buckets' engines")
+    log("  adaptive Gamma equals the sum of the per-bucket engines bit for "
+        "bit")
+    br = stage_breakdown(ada.engines[0], nd, xh, batches.pos[0],
+                         batches.flux[0], 16)
+    log(f"  per-batch device ms, bucket R={ada.radii[0]:g}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in br.items()))
+    ada_cpu = AdaptiveRaytracer(N, R_BENCH, SIG, bins, batch_size=B_ADAPT,
+                                dtype=dt, device="cpu", fuse_fold=True)
+    nd_np = np.full((N,) * 3, 1e-3)
+    xh_np = np.full((N,) * 3, 1.2e-3)
+    phi_g = ada.trace(nd_np, xh_np, pos[:16], flux[:16], DR,
+                      avg_dens=avg).cpu()
+    phi_c = ada_cpu.trace(nd_np, xh_np, pos[:16], flux[:16], DR,
+                          avg_dens=avg)
+    floor = 1e-6 * float(phi_c.max())
+    torch.testing.assert_close(phi_g, phi_c, rtol=1e-4, atol=floor)
+    log(f"  adaptive, 16 sources: GPU vs CPU max abs diff "
+        f"{float((phi_g - phi_c).abs().max()):.3e} (floor {floor:.3e})")
+    return launches["cheb_sweep_rates"]
+
+
+def eor_slice(sim, k):
+    """One slice of examples/eor_simulation/run_test.py's loop with one
+    timestep, the launch counts set to 0 just before evolve3D and read just
+    after; returns the catalog and the numbers parsed from the log."""
+    from pyc2ray_torch.ops import sweep
+    zi, zf = EOR_ZLIST[k], EOR_ZLIST[k + 1]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        sim.read_density(zi)
+        srcpos, flux = read_catalog(
+            sim, os.path.join(EOR_DIR, "inputs", "sources",
+                              f"{zi:.3f}-sources.hdf5"))
+        dt = sim.set_timestep(zi, zf, 1)
+        sim.cosmo_evolve(dt)
+        sweep.reset_launches()
+        t0 = time.time()
+        sim.evolve3D(dt, flux, srcpos)
+        torch.cuda.synchronize()
+        t_step = time.time() - t0
+        launches = dict(sweep.launches)
+        sim.write_output(zf)
+    text = text.getvalue()
+    counts = [int(c) for c in re.findall(
+        r"R=[\d.]+: (\d+)", text.split("Adaptive radii")[1].splitlines()[0])]
+    return srcpos, flux, dict(
+        zi=zi, zf=zf, t_step=t_step, launches=launches, counts=counts,
+        t_ray=[float(t) for t in re.findall(r"Raytracing took ([\d.]+) s",
+                                            text)],
+        t_chem=[float(t) for t in re.findall(r"Chemistry took ([\d.]+) s",
+                                             text)],
+        loss=[float(v) for v in re.findall(
+            r"photon loss fraction: ([-+\d.e]+)", text)],
+        converged="Multiple source convergence reached." in text)
+
+
+def eor_run(bins):
+    """Phase 4e: the production EoR run on the committed inputs; returns
+    the K3 launches of its timesteps and K3's device ms per call in the
+    profiled trace. ``bins`` are make_bins(), the bins the model builds
+    from parameters.yml (asserted)."""
+    from pyc2ray_torch import C2Ray_CubeP3M
+    from pyc2ray_torch.diagnostics import (device_idle_share,
+                                           device_op_times, profile_trace)
+    from pyc2ray_torch.io import read_cbin
+    from pyc2ray_torch.ops.adaptive import AdaptiveRaytracer
+    from pyc2ray_torch.utils import format_sources
+    from pyc2ray_torch.utils.paramutils import read_paramfile
+    params = read_paramfile(os.path.join(EOR_DIR, "parameters.yml"))
+    k3 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        params["Output"]["results_basename"] = tmp + "/"
+        params["Output"]["inputs_basename"] = \
+            os.path.join(EOR_DIR, "inputs") + "/"
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim = C2Ray_CubeP3M(params, N_EOR, device="cuda")
+        rt = sim.raytracer
+        log(f"EoR run: C2Ray_CubeP3M(examples/eor_simulation/parameters.yml, "
+            f"{N_EOR}, device='cuda') in {time.time() - t0:.2f} s: "
+            f"buckets R = {rt.radii}, Dc {[e.geom.Dc for e in rt.engines]}, "
+            f"B = {rt.engines[0].batch_size}, {rt.dtype}, "
+            f"{rt.engines[0].num_bins} bins, fuse_fold")
+        if (type(rt) is not AdaptiveRaytracer or rt.radii != list(R_EOR)
+                or rt.dtype != torch.float32
+                or rt.engines[0].batch_size != B_EOR):
+            raise RuntimeError("EoR run: the model did not build the "
+                               "adaptive engine of parameters.yml")
+        xh0 = np.array(sim.xh)
+        for k in range(2):
+            srcpos, flux, r = eor_slice(sim, k)
+            n_it = len(r["t_ray"])
+            nbatch = sum(-(-c // B_EOR) for c in r["counts"])
+            want = {name: 0 for name in r["launches"]}
+            want["cheb_sweep_rates"] = n_it * nbatch
+            if r["launches"] != want or not r["converged"] or n_it == 0:
+                raise RuntimeError(f"EoR slice {k}: launches "
+                                   f"{r['launches']}, expected {want}; "
+                                   f"converged {r['converged']}")
+            k3 += r["launches"]["cheb_sweep_rates"]
+            updates = sum(cell_updates(c, R) for c, R
+                          in zip(r["counts"], rt.radii))
+            t_ray, t_chem = np.mean(r["t_ray"]), np.mean(r["t_chem"])
+            log(f"EoR slice z = {r['zi']:.3f} -> {r['zf']:.3f}: buckets "
+                f"{dict(zip(rt.radii, r['counts']))} ({nbatch} batches), "
+                f"{n_it} raytrace iterations, K3 launches "
+                f"{r['launches']['cheb_sweep_rates']}, {r['t_step']:.2f} s "
+                f"per timestep; per iteration raytrace {t_ray:.3f} s "
+                f"({1e9 * t_ray / updates:.3f} ns/cell-update), chemistry "
+                f"{t_chem:.3f} s, {updates / (t_ray + t_chem) / 1e6:.2f} "
+                f"Mcell-updates/s; photon loss {r['loss'][-1]:.3e} (bound "
+                f"loss_fraction {sim.loss_fraction:g}); <n> "
+                f"{sim.ndens.mean():.4e} cm^-3")
+            if r["loss"][-1] > sim.loss_fraction:
+                raise RuntimeError("EoR run: photon loss above "
+                                   "loss_fraction")
+            xh = np.asarray(sim.xh)
+            if (xh.shape != (N_EOR,) * 3 or not np.all(np.isfinite(xh))
+                    or xh.min() < 0.0 or xh.max() > 1.0
+                    or np.array_equal(xh, xh0)):
+                raise RuntimeError(f"EoR slice {k}: xh not finite in [0, 1] "
+                                   f"or unchanged")
+            suffix = f"_{r['zf']:.3f}.dat"
+            back = read_cbin(f"{tmp}/xfrac{suffix}", bits=64, order="F")
+            rates = read_cbin(f"{tmp}/IonRates{suffix}", bits=32, order="F")
+            if not (np.array_equal(back, xh) and np.array_equal(
+                    rates, np.asarray(sim.phi_ion, np.float32))):
+                raise RuntimeError(f"EoR slice {k}: outputs differ from the "
+                                   f"state")
+            log(f"  xh {xh.min():.3e}..{xh.max():.3e}, mean {xh.mean():.4e}; "
+                f"cells with xh > 0.5: {int((xh > 0.5).sum())}; outputs read "
+                f"back equal to the state")
+            xh0 = np.array(xh)
+
+        # one trace of the last slice's state under the profiler
+        pos, fl = format_sources(srcpos, flux)
+        nd = torch.as_tensor(sim.ndens, dtype=rt.dtype,
+                             device="cuda").reshape(-1)
+        xh_d = torch.as_tensor(sim.xh, dtype=rt.dtype,
+                               device="cuda").reshape(-1)
+        avg = float(nd.mean())
+        batches, _ = rt.prepare_sources(pos, fl, dr=sim.dr, avg_dens=avg)
+        phi = rt.trace_batches(nd, xh_d, batches, None, sim.dr)[0]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        phi = rt.trace_batches(nd, xh_d, batches, None, sim.dr)[0]
+        torch.cuda.synchronize()
+        t_plain = time.time() - t0
+        prof = os.path.join(tmp, "profile")
+        t0 = time.time()
+        with profile_trace(prof) as p:
+            p["sync"] = rt.trace_batches(nd, xh_d, batches, None, sim.dr)[0]
+        t_prof = time.time() - t0
+        if not torch.equal(p["sync"], phi):
+            raise RuntimeError("EoR run: the profiled trace differs")
+        idle = device_idle_share(prof)
+        top = device_op_times(prof)
+        busy = sum(top.values())
+        nbatch = sum(b.shape[0] for b in batches.pos if b is not None)
+        # K3's two launches per call: the sweep (phase A), the rates (B)
+        k3_ms = {ph: sum(ms for name, ms in top.items() if kern in name)
+                 / nbatch for ph, kern in (("A", "sweep_fold_kernel"),
+                                           ("B", "box_rates_kernel"))}
+        log(f"EoR trace under torch.profiler: {t_prof:.3f} s (unprofiled "
+            f"{t_plain:.3f} s), trace file "
+            f"{os.path.getsize(p['path']) / 2 ** 20:.1f} MiB; device idle "
+            f"share {idle:.4f} of the profiled trace, "
+            f"{1.0 - 1e-3 * busy / t_plain:.4f} of the unprofiled one "
+            f"(device busy {busy:.2f} ms in {len(top)} kinds of "
+            f"operation); K3 on the device {k3_ms['A']:.4f} + "
+            f"{k3_ms['B']:.4f} ms per call ({nbatch} calls); top: "
+            + "; ".join(f"{name[:70]} {ms:.2f} ms" for name, ms
+                        in list(top.items())[:8]))
+
+        # the first 16 sources, GPU against the plain CPU path
+        rt_cpu = AdaptiveRaytracer(N_EOR, rt.R_max, rt.engines[0].sig,
+                                   bins, radii=rt.radii,
+                                   batch_size=B_EOR, dtype=rt.dtype,
+                                   device="cpu", fuse_fold=True)
+        for a, b in zip(rt.engines[0].tables, rt_cpu.engines[0].tables):
+            if not torch.equal(a.cpu(), b):
+                raise RuntimeError("EoR run: the CPU engine's tables differ")
+        p16, f16 = pos[:16], fl[:16]
+        phi_g = rt.trace(nd, xh_d, p16, f16, sim.dr, avg_dens=avg).cpu()
+        phi_c = rt_cpu.trace(sim.ndens, sim.xh, p16, f16, sim.dr,
+                             avg_dens=avg)
+        floor = 1e-6 * float(phi_c.max())
+        torch.testing.assert_close(phi_g, phi_c, rtol=1e-4, atol=floor)
+        log(f"  first batch (16 sources): GPU vs CPU max abs diff "
+            f"{float((phi_g - phi_c).abs().max()):.3e} (floor {floor:.3e}, "
+            f"peak {float(phi_c.max()):.3e})")
+    return k3, k3_ms["A"] + k3_ms["B"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -701,7 +1128,7 @@ def main():
     from pyc2ray_torch.evolve import evolve3D
     from pyc2ray_torch.ops import _build, sweep
     from pyc2ray_torch.ops.thermal import ThermalParams, update_temperature
-    from pyc2ray_torch.ops.chemistry import global_pass
+    from pyc2ray_torch.ops.chemistry import MAX_INNER_ITER, global_pass
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -762,6 +1189,15 @@ def main():
                           steps=True)
     check_fused(16, 8.0, 2, torch.float64, rtol=1e-10, floor=0.0, seed=6,
                 reps=3, bins=bins, zero_cell=True)
+    # K3 at the shapes of the adaptive paths (4d, 4e): many small boxes
+    k_eor = check_fused(N_EOR, R_EOR[0], B_EOR, torch.float32, rtol=1e-4,
+                        floor=1e-6, seed=9, reps=20, bins=bins,
+                        names=("K3",))["K3"]
+    check_fused(N_EOR, R_EOR[1], B_EOR, torch.float32, rtol=1e-4,
+                floor=1e-6, seed=9, reps=10, bins=bins, names=("K3",))
+    for r in (7.5, 15.0):
+        check_fused(N_BENCH, r, B_ADAPT, torch.float32, rtol=1e-4,
+                    floor=1e-6, seed=10, reps=10, bins=bins, names=("K3",))
 
     # ---- 2c. K3h (fuse_fold with the heating output) vs its plain version
     k_heat = check_heat(N_BENCH, R_BENCH, B_BENCH, torch.float32, rtol=1e-4,
@@ -785,7 +1221,7 @@ def main():
     # a cell and bin cost in a dense pass over the whole card
     ns_bin = rate_floor(bins, B_BENCH * 64 ** 3, torch.float32)
     for name, res in (("K1f", k_fused["K1f"]), ("K3", k_fused["K3"]),
-                      ("K3h", k_heat)):
+                      ("K3h", k_heat), ("K3 EoR shape", k_eor)):
         res["rate_floor_ms"] = 1e-6 * res.pop("n_rated") * bins.num_bins \
             * ns_bin
         log(f"rate floor {name}: {res['rate_floor_ms']:.5f} ms "
@@ -822,6 +1258,18 @@ def main():
     xi, xa, cf = global_pass(dt_d, ndens, temp, xh, xh, phi, chem)
     torch.cuda.synchronize()
     t_chem = time.time() - t0
+    # the inner loop's iterations per cell on this field, with doric and
+    # with the reference's float32 time average (which cancels)
+    for form, fn in (("doric", None), ("the reference's float32 time "
+                                       "average", doric_reference_form)):
+        t0 = time.time()
+        its, _ = inner_iterations(dt_d, ndens, temp, xh, phi, chem, fn)
+        torch.cuda.synchronize()
+        log(f"bench chemistry, {form}: inner iterations up to "
+            f"{int(its.max())}, mean {float(its.double().mean()):.3f}, cells "
+            f"at the cap of {MAX_INNER_ITER} "
+            f"{int((its == MAX_INNER_ITER).sum())}; "
+            f"{time.time() - t0:.4f} s")
     counts = dict(sweep.launches)
     launches = counts.pop("cheb_sweep")
     if launches != nbatch or any(counts.values()):
@@ -834,7 +1282,7 @@ def main():
                                f"({N ** 3},)")
     if not float(phi.max()) > 0.0:
         raise RuntimeError("main path: no cell received photons")
-    updates = NS_BENCH * 4.0 / 3.0 * np.pi * R_BENCH ** 3
+    updates = cell_updates(NS_BENCH, R_BENCH)
     ns_cell = 1e9 * t_ray / updates
     mcell = updates / (t_ray + t_chem) / 1e6
     log(f"main path N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32 "
@@ -870,7 +1318,8 @@ def main():
         rtf = ChebRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
                             dtype=dt, **{mode: True})
         phi_f, _, counts = run_path(
-            rtf, ndens, xh, pos_b, flux_b, NS_BENCH, R_BENCH, {kname: nbatch},
+            rtf, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
+            {kname: nbatch},
             f"{mode} N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32",
             chem)
         fused_launches[kname] = counts[kname]
@@ -898,7 +1347,7 @@ def main():
         expect = ({"cheb_sweep_seg": rth.seg_K * nb} if rth.seg_S
                   else {"cheb_sweep": nb})
         h_phi[seg], _, counts = run_path(
-            rth, h_nd, h_xh, hp, hf, NS_R100, R_R100, expect,
+            rth, h_nd, h_xh, hp, hf, cell_updates(NS_R100, R_R100), expect,
             f"R=100 harness N={nh} Ns={NS_R100} B={B_BENCH} float32 "
             f"shell_segment={seg!r} (S={rth.seg_S}, K={rth.seg_K})")
         if seg == "auto":
@@ -918,7 +1367,7 @@ def main():
         label = (f"do_heating{' + fuse_fold' if fold else ''} N={N} "
                  f"R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32")
         phi_h, heat_f[fold], counts = run_path(
-            rth, ndens, xh, pos_b, flux_b, NS_BENCH, R_BENCH,
+            rth, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
             {kname: nbatch}, label, chem)
         if fold:
             heat_launches = counts[kname]
@@ -985,6 +1434,7 @@ def main():
     log(f"evolve3D GPU vs CPU: xh max rel "
         f"{np.max(np.abs(xh_g - xh_c) / np.abs(xh_c)):.3e}, phi max abs "
         f"{np.max(np.abs(phi_g - phi_c)):.3e} of max {phi_c.max():.3e}")
+    bisect_gap(bins, chem, thermal, e_pos, e_flux, e_nd, e_xh)
 
     # ---- 4b. one non-isothermal evolve3D timestep, GPU vs CPU -------------
     e_cold = np.full((Ne,) * 3, 1e2)
@@ -1036,16 +1486,18 @@ def main():
                 sim.evolve3D(dt_h, srcflux, srcpos)
         t_sim = time.time() - t0
     n_iter = quiet_log.getvalue().count("Raytracing took")
-    n_k1 = sweep.launches["cheb_sweep"]
+    counts = dict(sweep.launches)
+    n_k3h = counts.pop("cheb_sweep_rates_heat")
     g_h = sim.raytracer.geom
     log(f"C2Ray_Test heating example N={Nh} (float64, engine cheb, "
-        f"Dc={g_h.Dc}, R1={g_h.r_max + 1}, "
+        f"fuse_fold, Dc={g_h.Dc}, R1={g_h.r_max + 1}, "
         f"{sim.raytracer.num_bins} bins): {steps} timesteps, {n_iter} "
-        f"raytrace iterations, {t_sim:.2f} s with set-up, K1 launches "
-        f"{n_k1}")
-    if n_k1 == 0 or n_k1 != n_iter:
-        raise RuntimeError(f"heating example: {n_k1} K1 launches for "
-                           f"{n_iter} single-source iterations")
+        f"raytrace iterations, {t_sim:.2f} s with set-up, K3h launches "
+        f"{n_k3h}")
+    if n_k3h == 0 or n_k3h != n_iter or any(counts.values()):
+        raise RuntimeError(f"heating example: {n_k3h} K3h launches for "
+                           f"{n_iter} single-source iterations, other "
+                           f"kernels {counts}")
     temp_h, xh_h = np.asarray(sim.temp), np.asarray(sim.xh)
     if not (np.all(np.isfinite(temp_h)) and np.all(np.isfinite(xh_h))):
         raise RuntimeError("heating example: non-finite temp or xh")
@@ -1059,10 +1511,21 @@ def main():
         raise RuntimeError("heating example: " + ", ".join(
             k for k, v in checks.items() if not v) + " FAILED")
 
+    # ---- 4d. the adaptive engine at the bench mix ------------------------
+    adaptive_bench(bins)
+
+    # ---- 4e. the production EoR run on the committed inputs --------------
+    eor_launches, eor_device_ms = eor_run(bins)
+    k_eor.update(ms=eor_device_ms, ms_back_to_back=k_eor["ms"])
+
     # ---- 5. kernels line and result -----------------------------------
     # launches: each kernel's count over its own path's run (phase 3 for
-    # K1, 3b for K1f, K2 and K3, 3c for K3h); the other numbers from phases
-    # 2, 2b and 2c at that path's shapes. No single PyTorch call computes any of them.
+    # K1, 3b for K1f and K2, 3c for K3h, 4e for K3: the EoR run's timesteps);
+    # the other numbers from phases 2, 2b and 2c at that path's shapes (K3:
+    # the EoR run's small bucket, B=16, Dc=24, where back-to-back calls are
+    # bounded by the host's enqueue: its ms is the device time per call in
+    # 4e's profiled trace, ms_back_to_back the CUDA-event time). No single
+    # PyTorch call computes any of them.
     src = "pyc2ray_torch/ops/csrc/"
     tpu = "pyc2ray_tpu/ops/pallas_sweep.py:"
     kernels = [
@@ -1075,8 +1538,7 @@ def main():
         dict(name="cheb_sweep_seg", source=src + "cheb_sweep.cu",
              replaces=tpu + "455", launches=seg_launches, **k_seg),
         dict(name="cheb_sweep_rates", source=src + "cheb_sweep_rates.cu",
-             replaces=tpu + "669",
-             launches=fused_launches["cheb_sweep_rates"], **k_fused["K3"]),
+             replaces=tpu + "669", launches=eor_launches, **k_eor),
         dict(name="cheb_sweep_rates_heat", source=src + "cheb_sweep_rates.cu",
              replaces=tpu + "669", launches=heat_launches, **k_heat)]
     kernels = [dict(name=k.pop("name"), route="cuda", **k, library_ms=None)

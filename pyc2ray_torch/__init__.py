@@ -2,15 +2,20 @@
 
 A run starts as in the JAX package: ``C2Ray_Test(paramfile, N)`` builds the
 simulation from a YAML parameter file (or its parsed mapping) and
-``sim.evolve3D(dt, srcflux, srcpos)`` advances it by one timestep. Ported
-so far: the single-device hydrogen path, isothermal or with the
-photoheating channel and the thermal update (``Material.isothermal:
-false``), on the Chebyshev-face raytracer (``ops.raytrace_cheb``,
-``Raytracing.engine: cheb``) whose sweep modes are hand-written CUDA
-kernels (``ops/csrc``), the time-averaged chemistry pass
-(``ops.chemistry``) and the convergence loop (``evolve.evolve3D``). The
-package imports torch, numpy and scipy only (PyYAML only to read a
-parameter file).
+``sim.evolve3D(dt, srcflux, srcpos)`` advances it by one timestep; the
+production EoR run is ``C2Ray_CubeP3M`` (or ``C2Ray_244Test``) on N-body
+density fields and halo catalogs, as examples/eor_simulation/run_test.py
+drives the JAX package. Ported so far: the single-device hydrogen path,
+isothermal or with the photoheating channel and the thermal update
+(``Material.isothermal: false``), on the Chebyshev-face raytracer
+(``ops.raytrace_cheb``, ``Raytracing.engine: cheb``) whose sweep modes are
+hand-written CUDA kernels (``ops/csrc``), and on the flux-bucketed adaptive
+engine (``ops.adaptive``, ``engine: adaptive``) built from it; the
+time-averaged chemistry pass (``ops.chemistry``), the convergence loop
+(``evolve.evolve3D``), the C2Ray binary and checkpoint IO (``io``) and the
+profiler helpers (``diagnostics``). The package imports torch, numpy and
+scipy only (PyYAML only to read a parameter file, h5py only to read a halo
+catalog).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which selects the plain PyTorch versions of every kernel.
@@ -21,9 +26,10 @@ from .chemistry_api import hydrogenODE
 from .cosmology import FlatLambdaCDM
 from .device import resolve_device
 from .evolve import evolve3D
-from .models import C2RaySimulation, C2Ray_Test
-from .ops import (ChebRaytracer, ChemistryParams, RaytraceConfig, doric,
-                  global_pass)
+from .models import (C2RaySimulation, C2Ray_Test, C2Ray_CubeP3M,
+                     C2Ray_244Test)
+from .ops import (AdaptiveRaytracer, ChebRaytracer, ChemistryParams,
+                  RaytraceConfig, doric, global_pass)
 from .radiation import BlackBodySource, make_tau_table
 from .utils import (printlog, format_sources, read_test_sources,
                     generate_test_sourcefile)
@@ -32,7 +38,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "constants", "hydrogenODE", "FlatLambdaCDM", "resolve_device",
-    "evolve3D", "C2RaySimulation", "C2Ray_Test", "ChebRaytracer",
+    "evolve3D", "C2RaySimulation", "C2Ray_Test", "C2Ray_CubeP3M",
+    "C2Ray_244Test", "AdaptiveRaytracer", "ChebRaytracer",
     "ChemistryParams", "RaytraceConfig", "doric", "global_pass",
     "BlackBodySource", "make_tau_table",
     "printlog", "format_sources", "read_test_sources",

@@ -6,12 +6,17 @@
   but exact and grid-global.
 * ``stage_timer``: context manager timing a device computation with a
   device synchronization, optionally appending to a log.
-
-The JAX package's profiler helpers (``profile_trace``, ``trace_annotated``,
-``device_op_times``) have no counterpart here yet.
+* Profiling with ``torch.profiler``: ``trace_annotated`` names a function's
+  calls in a trace, ``profile_trace`` captures a block into a Chrome trace,
+  ``device_op_times`` sums its device time per kernel and
+  ``device_idle_share`` gives the share of the captured window in which the
+  device ran nothing.
 """
 
 import contextlib
+import glob
+import json
+import os
 import time
 
 import numpy as np
@@ -20,7 +25,8 @@ import torch
 from .constants import S_STAR_REF
 from .utils.logutils import printlog
 
-__all__ = ["photon_budget", "stage_timer"]
+__all__ = ["photon_budget", "stage_timer", "trace_annotated", "profile_trace",
+           "device_op_times", "device_idle_share"]
 
 
 def _host(a):
@@ -80,3 +86,100 @@ def stage_timer(name, logfile=None, quiet=False):
         tag = "" if synced else " (dispatch only: no sync tensor given)"
         printlog(f"{name} took {result['seconds']:.3f} s.{tag}",
                  logfile, quiet)
+
+
+# Chrome-trace categories of the operations the device runs (kernels and
+# the copies and fills of the copy engines)
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_annotated(name, fn):
+    """Wrap fn so that its calls appear as ranges named ``name`` in
+    ``profile_trace`` captures."""
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+@contextlib.contextmanager
+def profile_trace(outdir):
+    """Capture a profile of the enclosed block into a Chrome trace (JSON)
+    in ``outdir``: the host's operations and, where a GPU is present, its
+    kernels and copies. Put the block's result tensor(s) into the yielded
+    dict under "sync", as with ``stage_timer``, so that the capture waits
+    for the device work::
+
+        with profile_trace(outdir) as p:
+            phi, _ = rt.trace_batches(...)
+            p["sync"] = phi
+        times = device_op_times(outdir)
+
+    The trace's path is stored under "path" of the dict.
+    """
+    from torch.profiler import ProfilerActivity, profile
+    from .evolve_loop import force
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(outdir, exist_ok=True)
+    result = {}
+    with profile(activities=activities) as prof:
+        yield result
+        sync = result.get("sync")
+        if sync is not None:
+            force(*(sync if isinstance(sync, (tuple, list)) else (sync,)))
+    result["path"] = os.path.join(
+        str(outdir), f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(result["path"])
+
+
+def _trace_events(outdir):
+    """The complete events ("ph": "X") of every Chrome trace in
+    ``outdir``, one list per file."""
+    out = []
+    for f in sorted(glob.glob(os.path.join(str(outdir), "**", "*.json"),
+                              recursive=True)):
+        with open(f) as fh:
+            data = json.load(fh)
+        events = data["traceEvents"] if isinstance(data, dict) else data
+        out.append([e for e in events
+                    if e.get("ph") == "X" and "dur" in e and "ts" in e])
+    return out
+
+
+def device_op_times(outdir, top=None):
+    """Device time (ms) per kernel or copy name over the ``profile_trace``
+    captures in ``outdir``, sorted in descending order; the ``top`` first
+    with ``top``. Empty when no operation ran on a device."""
+    agg = {}
+    for events in _trace_events(outdir):
+        for e in events:
+            if e.get("cat") in _DEVICE_CATS:
+                agg[e["name"]] = agg.get(e["name"], 0.0) + e["dur"] / 1e3
+    items = sorted(agg.items(), key=lambda kv: -kv[1])
+    return dict(items[:top] if top else items)
+
+
+def device_idle_share(outdir):
+    """Share of the captured window in which the device ran nothing:
+    1 - (the union of the device operations' intervals) / (the window),
+    the window of a capture being its first event's start to its last
+    event's end (host or device), summed over the captures in ``outdir``.
+    Raises ValueError when no operation ran on a device."""
+    busy = window = 0.0
+    for events in _trace_events(outdir):
+        if not events:
+            continue
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in _DEVICE_CATS)
+        window += (max(e["ts"] + e["dur"] for e in events)
+                   - min(e["ts"] for e in events))
+        end = -np.inf
+        for t0, t1 in spans:
+            if t1 > end:
+                busy += t1 - max(t0, end)
+                end = t1
+    if busy == 0.0:
+        raise ValueError(f"no device operation in the traces of {outdir}")
+    return 1.0 - busy / window

@@ -4,9 +4,9 @@ PyTorch twin of pyc2ray_tpu/evolve.py::evolve3D on the hydrogen-only path
 (reference: pyc2ray/evolve.py:38-245). Iterate (raytrace -> chemistry ->
 global convergence test) until the time-averaged ionization field stops
 changing; in the non-isothermal mode the temperature then advances over
-the timestep with the converged photoheating rates. All grid state lives on the raytracer's
-device for the duration of the loop; only the scalar convergence metrics
-come back to the host each iteration.
+the timestep with the converged photoheating rates. All grid state lives on
+the raytracer's device for the duration of the loop; only the scalar
+convergence metrics come back to the host, in one transfer per iteration.
 """
 
 import time
@@ -31,11 +31,20 @@ def _absorbed_rate(phi_ion, ndens, xh_av):
     return (phi_ion.reshape(-1) * nhi.reshape(-1)).to(torch.float32).sum()
 
 
+def _host_scalars(*scalars):
+    """The 0-dim tensors ``scalars`` as Python floats, in one transfer from
+    their device."""
+    return torch.stack([s.to(torch.float64) for s in scalars]).tolist()
+
+
 def prepare_for_engine(raytracer, src_pos, src_flux, dr, ndens_d):
-    """Uniform source staging. The port's engines all trace at a fixed
-    radius and take (pos, flux); ``dr`` and ``ndens_d`` are what a
-    flux-bucketing engine would need besides (the JAX package's adaptive
-    engine, not ported)."""
+    """Uniform source staging: fixed-radius engines take (pos, flux);
+    flux-bucketing engines (ops/adaptive.py) also need the cell size and the
+    mean density for the Stromgren-radius policy."""
+    if getattr(raytracer, "needs_flux_bucketing", False):
+        avg_dens = float(ndens_d.mean())
+        return raytracer.prepare_sources(src_pos, src_flux, dr=float(dr),
+                                         avg_dens=avg_dens)
     return raytracer.prepare_sources(src_pos, src_flux)
 
 
@@ -52,8 +61,9 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
     dr : proper cell size in cm
     src_flux : (NumSrc,) normalized fluxes (units of S_star)
     src_pos : (NumSrc, 3) int 0-indexed grid positions
-    raytracer : configured ops.raytrace_cheb.ChebRaytracer; the loop runs
-        on its device and in its dtype
+    raytracer : configured ops.raytrace_cheb.ChebRaytracer or
+        ops.adaptive.AdaptiveRaytracer; the loop runs on its device and in
+        its dtype
     chem : ChemistryParams
     temp, ndens, xh : (N,N,N) grids (K, cm^-3, ionized fraction)
     convergence_fraction : fraction of cells allowed to remain unconverged
@@ -82,8 +92,7 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
     dtype, dev = cfg.dtype, raytracer.device
 
     def grid(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=dev).reshape(-1)
+        return torch.as_tensor(a, dtype=dtype, device=dev).reshape(-1)
 
     temp_d, ndens_d, xh_d = grid(temp), grid(ndens), grid(xh)
     pos_b, flux_b = prepare_for_engine(raytracer, src_pos, src_flux, dr,
@@ -97,6 +106,8 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
     printlog(f"dt [years]: {dt/3.15576e7:.3e}", logfile, quiet)
     printlog(f"Running on {num_src:n} source(s), total normalized flux: "
              f"{float(np.sum(src_flux)):.2e}", logfile, quiet)
+    if getattr(raytracer, "needs_flux_bucketing", False):
+        printlog(raytracer.describe_buckets(pos_b), logfile, quiet)
 
     if thermal is not None and not cfg.do_heating:
         raise ValueError("thermal evolution requires a raytracer with "
@@ -117,15 +128,14 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
         t0 = time.time()
         xh_intermed, xh_av, conv_flag = global_pass(
             dt_d, ndens_d, temp_d, xh_d, xh_av_seen, phi_ion, chem)
-        sum_xh1 = float(xh_intermed.sum())
-        sum_xh0 = float((1.0 - xh_intermed).sum())
-        absorbed = float(_absorbed_rate(phi_ion, ndens_d, xh_av_seen))
-        conv_flag = int(conv_flag)
+        conv_flag, sum_xh1, sum_xh0, absorbed = _host_scalars(
+            conv_flag, xh_intermed.sum(), (1.0 - xh_intermed).sum(),
+            _absorbed_rate(phi_ion, ndens_d, xh_av_seen))
         printlog(f"Chemistry took {time.time()-t0:.3f} s.", logfile, quiet)
         state["xh_av"], state["xh_intermed"] = xh_av, xh_intermed
         absorbed_rate = absorbed * float(dr) ** 3
         loss = (1.0 - absorbed_rate / emitted) if emitted > 0 else 0.0
-        return IterationResult(conv_flag, sum_xh1, sum_xh0,
+        return IterationResult(int(conv_flag), sum_xh1, sum_xh0,
                                photon_loss=loss)
 
     run_convergence_loop(iteration, num_cells, num_src,

@@ -15,11 +15,15 @@ Differences from the JAX package:
 * ``Raytracing.engine``: ``cheb`` and ``pallas`` both build the port's
   ``ChebRaytracer`` (on the GPU there is one implementation of the
   Chebyshev-face engine: the sweep is a CUDA kernel on a CUDA device and
-  its plain version on the CPU). The engines and options that are not
-  ported yet (``flat``, which is the YAML default, ``adaptive``, ``he``,
-  ``box``, a device mesh, the window accumulate) raise
-  ``NotImplementedError`` naming the ROADMAP.md item that brings them;
-  none is mapped onto another.
+  its plain version on the CPU); ``adaptive`` builds ``AdaptiveRaytracer``,
+  one such engine per flux bucket. Every Chebyshev engine the model layer
+  builds runs the fused mode ``fuse_fold`` (sweep, box and rates in one
+  kernel per batch, K3, or K3h with the heating rates) on both devices:
+  it computes the same Gamma as the default mode, several times faster on
+  the card. The engines and options that are not ported yet (``flat``,
+  which is the YAML default, ``he``, ``box``, a device mesh, the window
+  accumulate) raise ``NotImplementedError`` naming the ROADMAP.md item
+  that brings them; none is mapped onto another.
 """
 
 import numpy as np
@@ -56,8 +60,6 @@ _DEFAULTS = {
 _ENGINES_TO_PORT = {
     "flat": "ROADMAP.md section 1 item 7 (the table-exact flat engine, "
             "ops/raytrace.py)",
-    "adaptive": "ROADMAP.md section 1 item 6 (ops/adaptive.py::"
-                "AdaptiveRaytracer)",
     "he": "ROADMAP.md section 1 item 9 (helium: ops/raytrace_he.py, "
           "ops/chemistry_he.py, evolve3D_he)",
     "box": "ROADMAP.md section 1 item 12 (ops/raytrace_box.py, the "
@@ -162,12 +164,20 @@ class C2RaySimulation:
         """Standalone Gamma computation (c2ray_base.py:300-323).
 
         With ``stats=True`` also returns a diagnostics dict with the
-        photon-loss fraction (the analog of the reference's
+        photon-loss fraction and, for the adaptive engine, the bucket
+        assignment (the analog of the reference's
         ``do_raytracing(..., stats=True) -> (phi, nsubbox, photonloss)``,
-        reference raytracing.py:105-108)."""
+        reference raytracing.py:105-108; bucket counts play nsubbox's
+        role)."""
         pos, flux = format_sources(src_pos, src_flux)
-        out = self.raytracer.trace(self.ndens, self.xh, pos, flux, self.dr)
-        if self.raytracer.config.do_heating:
+        bucket_stats = None
+        if getattr(self.raytracer, "needs_flux_bucketing", False):
+            out, bucket_stats = self.raytracer.trace(
+                self.ndens, self.xh, pos, flux, self.dr, stats=True)
+        else:
+            out = self.raytracer.trace(self.ndens, self.xh, pos, flux,
+                                       self.dr)
+        if self.raytracer.config.do_heating and bucket_stats is None:
             self.phi_ion = out[0].cpu().numpy()
             self.phi_heat = out[1].cpu().numpy()
         else:
@@ -176,6 +186,8 @@ class C2RaySimulation:
             from ..diagnostics import photon_budget
             st = photon_budget(self.phi_ion, self.ndens, self.xh,
                                flux, self.dr)
+            if bucket_stats is not None:
+                st.update(bucket_stats)
             return self.phi_ion, st
         return self.phi_ion
 
@@ -319,7 +331,7 @@ class C2RaySimulation:
                 f"variant in the JAX package; adaptive = flux-bucketed "
                 f"per-source radii; he = three-species H+He; box = "
                 f"octahedral sheet-batched formulation). This package "
-                f"builds cheb and pallas.")
+                f"builds cheb, pallas and adaptive.")
         # The reference's CPU subbox knobs (parameters.yml Raytracing:
         # subboxsize/max_subbox; raytracing.f90:183-226) only act on the
         # adaptive engine, and only when the USER sets them; on any other
@@ -351,8 +363,9 @@ class C2RaySimulation:
             raise NotImplementedError(
                 f"Raytracing.engine: {engine} is not ported to PyTorch yet: "
                 f"{_ENGINES_TO_PORT[engine]}. This package builds engine: "
-                f"cheb (or pallas, the same engine); the YAML default is "
-                f"flat, so name the engine in the parameter file.")
+                f"cheb (or pallas, the same engine) and adaptive; the YAML "
+                f"default is flat, so name the engine in the parameter "
+                f"file.")
         # The JAX engine's window accumulate is a placement by one-hot
         # matmuls; the port adds each source's box with a slice add, which
         # is what "scan" names and what "auto" may resolve to there.
@@ -398,17 +411,44 @@ class C2RaySimulation:
             bins = make_spectral_bins(source, ion_freq_HI,
                                       10 * ev2fr * self.ethe1,
                                       panels=panels, nodes=nodes)
+        if engine == "adaptive":
+            # flux-bucketed per-source radii, the production answer to the
+            # reference's subbox machinery (Raytracing.loss_fraction bounds
+            # the truncation through the evolve loop's photon-loss log).
+            # User-set subbox keys steer the bucket policy (cells):
+            # subboxsize = smallest per-source radius, max_subbox = radius
+            # cap; both clamp to R_max_LLS as the reference clamps its
+            # subbox to the grid.
+            from ..ops.adaptive import AdaptiveRaytracer
+            safety = float(ld["Raytracing"].get("adaptive_safety", 2.0))
+            radii = ld["Raytracing"].get("adaptive_radii", None)
+            r_cap = float(self.R_max_LLS)
+            if "max_subbox" in user_subbox:
+                r_cap = min(r_cap, float(self.max_subbox))
+            r_min = (min(float(self.subboxsize), r_cap)
+                     if "subboxsize" in user_subbox else 4.0)
+            self.raytracer = AdaptiveRaytracer(
+                self.N, r_cap, float(self.sig), bins, radii=radii,
+                batch_size=batch, dtype=dtype, device=self.device,
+                safety=safety, R_min=r_min,
+                do_heating=self.compute_heating_rates, fuse_fold=True)
+            self.printlog(
+                f"Using PyTorch adaptive-radius raytracing on {self.device} "
+                f"(buckets R = {self.raytracer.radii}, safety = "
+                f"{safety:g}, fuse_fold, {bins.num_bins} spectral bins, "
+                f"batch = {batch:n}, dtype = {dtype_name})")
+            return
         self.raytracer = ChebRaytracer(
             self.N, float(self.R_max_LLS), float(self.sig), bins,
             batch_size=batch, dtype=dtype, device=self.device,
-            do_heating=self.compute_heating_rates)
+            do_heating=self.compute_heating_rates, fuse_fold=True)
         self.printlog(
             f"Using PyTorch Chebyshev-face raytracing on {self.device} "
             f"(engine: {engine}; cheb and pallas are one implementation "
             f"here: the sweep is a CUDA kernel on a GPU and plain PyTorch "
-            f"on the CPU; r_max = {self.raytracer.geom.r_max:n}, "
-            f"{bins.num_bins} spectral bins, batch = {batch:n}, "
-            f"dtype = {dtype_name})")
+            f"on the CPU; fuse_fold, r_max = "
+            f"{self.raytracer.geom.r_max:n}, {bins.num_bins} spectral "
+            f"bins, batch = {batch:n}, dtype = {dtype_name})")
 
     def _grid_init(self):
         """(c2ray_base.py:445-462)"""

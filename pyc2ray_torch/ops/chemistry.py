@@ -69,9 +69,18 @@ def doric(xh_old, dt, temp, rhe, phi, p: ChemistryParams):
     xh = (xh_old - eqxh) * ee + eqxh
     xh = torch.clamp(xh, min=EPSILON)
 
-    # (1-ee)/deltht -> 1 for small deltht; guard precision (chemistry.f90:299-306)
+    # (1-ee)/deltht -> 1 for small deltht; guard precision (chemistry.f90:299-306).
+    # 1 - ee cancels where deltht is small. The reference computes it in
+    # float64; in float32 it keeps only ~6e-8/deltht of relative precision,
+    # so a 1-ulp difference of exp between two libraries moved <x> by up
+    # to 100% (the card against the CPU), and there -expm1(-deltht), exact
+    # to an ulp at every deltht, takes its place.
+    if deltht.dtype == torch.float64:
+        one_minus_ee = 1.0 - ee
+    else:
+        one_minus_ee = -torch.expm1(-deltht)
     avg_factor = torch.where(deltht < 1.0e-8, torch.ones_like(deltht),
-                             (1.0 - ee) / deltht)
+                             one_minus_ee / deltht)
     xh_av = eqxh + (xh_old - eqxh) * avg_factor
     xh_av = torch.clamp(xh_av, min=EPSILON)
     return xh, xh_av

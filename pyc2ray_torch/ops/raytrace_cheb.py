@@ -362,11 +362,13 @@ class ChebRaytracer:
     def trace(self, ndens, xh_av, src_pos, src_flux, dr):
         """Public API (0-indexed positions, (NumSrc, 3)); returns the
         (N, N, N) photoionization rate on the engine's device, and with
-        ``do_heating`` the pair (phi, heat)."""
+        ``do_heating`` the pair (phi, heat). ``ndens`` and ``xh_av`` are
+        numpy arrays or tensors; a tensor already on the engine's device is
+        used where it is."""
         sh = (self.N,) * 3
-        nd = torch.as_tensor(np.asarray(ndens), dtype=self.dtype,
+        nd = torch.as_tensor(ndens, dtype=self.dtype,
                              device=self.device).reshape(sh)
-        xh = torch.as_tensor(np.asarray(xh_av), dtype=self.dtype,
+        xh = torch.as_tensor(xh_av, dtype=self.dtype,
                              device=self.device).reshape(sh)
         pos_b, flux_b = self.prepare_sources(src_pos, src_flux)
         phi, heat = self.trace_batches(nd, xh, pos_b, flux_b, dr)

@@ -100,3 +100,32 @@ def test_global_pass_mask_matches_jax():
     for g, u, w in zip(got[:2], full[:2], want[:2]):
         assert torch.equal(g, u)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12)
+
+
+def test_doric_float32_time_average_is_not_cancelled():
+    """Where delta_t = (Gamma + n_e(A_col + alpha_B)) dt is small, the time
+    average (1 - e^-delta_t) / delta_t cancels; in float32 doric evaluates
+    it without the cancellation, so <x> stays within float32 rounding of
+    the float64 result (1 - e^-delta_t in float32 put it 1e-2 off here,
+    and up to 100% off at delta_t ~ 1e-7)."""
+    f = _fields(2, log_phi=(-20, -16), log_ndens=(-4, -3))
+    dt = 3.15e13
+    rhe = f["ndens"] * (f["xh_av"] + PARAMS["abu_c"])
+    temp = np.random.RandomState(3).uniform(5e3, 1.2e4, rhe.size)
+    delth = (f["phi"] + rhe * PARAMS["colh0"] * np.sqrt(temp)
+             * np.exp(-PARAMS["temph0"] / temp)
+             + rhe * PARAMS["bh00"] * (temp / 1e4) ** PARAMS["albpow"])
+    assert 1e-8 < (delth * dt).min() and (delth * dt).max() < 0.05
+    p = ChemistryParams(**PARAMS)
+    arrays = (f["xh"], temp, rhe, f["phi"])
+    x64, av64 = doric(*(torch.from_numpy(a) for a in arrays[:1]), dt,
+                      *(torch.from_numpy(a) for a in arrays[1:]), p)
+    x32, av32 = doric(*(torch.from_numpy(a).float() for a in arrays[:1]), dt,
+                      *(torch.from_numpy(a).float() for a in arrays[1:]), p)
+    assert av32.dtype == torch.float32
+    # float32 rounding: a few ulps relative, and ~2 ulps of 1 absolute
+    # where xh = eqxh + (x0 - eqxh) ... is small beside its terms
+    np.testing.assert_allclose(av32.numpy(), av64.numpy(), rtol=2e-6,
+                               atol=1.2e-7)
+    np.testing.assert_allclose(x32.numpy(), x64.numpy(), rtol=2e-6,
+                               atol=1.2e-7)

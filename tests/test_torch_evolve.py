@@ -80,3 +80,48 @@ def test_evolve3D_thermal_not_ported():
                              thermal=thermal, zred=9.0)
     assert temp.shape == (8, 8, 8) and np.all(np.isfinite(temp))
     assert xh.max() > 1.2e-3 and phi.max() > 0
+
+
+def test_evolve3D_reads_scalars_in_one_transfer(tmp_path, monkeypatch):
+    """Each iteration reads its four scalars (conv_flag, the two sums, the
+    absorbed rate) back in one transfer, ``_host_scalars``; evolve.py reads
+    no other tensor into a Python number but the mean density that the
+    adaptive engine's bucketing takes once per timestep."""
+    import sys
+    import pyc2ray_torch.evolve as ev
+    from pyc2ray_torch.ops.adaptive import AdaptiveRaytracer
+    sizes, direct = [], []
+    host_scalars = ev._host_scalars
+
+    def counting(*scalars):
+        sizes.append(len(scalars))
+        return host_scalars(*scalars)
+
+    def watch(name):
+        base = getattr(torch.Tensor, name)
+
+        def method(self, *a, **kw):
+            caller = sys._getframe(1).f_code
+            if (caller.co_filename == ev.__file__
+                    and caller.co_name != "_host_scalars"):
+                direct.append((caller.co_name, name))
+            return base(self, *a, **kw)
+        return method
+
+    monkeypatch.setattr(ev, "_host_scalars", counting)
+    for name in ("__float__", "__int__", "__bool__", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, watch(name))
+    N = 8
+    rt = AdaptiveRaytracer(N, 6.0, SIG, grey_bins(), batch_size=2,
+                           dtype=torch.float64, device="cpu")
+    one = np.ones((N, N, N))
+    log = str(tmp_path / "evolve.log")
+    xh, phi = evolve3D(1e13, DR, np.array([1.0, 1e-3]),
+                       np.array([[4, 4, 4], [1, 2, 3]]), rt,
+                       ChemistryParams(**CHEM), 1e4 * one, 1e-3 * one,
+                       1.2e-3 * one, logfile=log, quiet=True)
+    n_iter = _iterations(log)
+    assert n_iter >= 2 and sizes == [4] * n_iter
+    assert direct == [("prepare_for_engine", "__float__")]
+    assert xh.max() > 1.2e-3 and phi.max() > 0
+    assert "Adaptive radii (Stromgren policy" in open(log).read()

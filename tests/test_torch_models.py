@@ -295,7 +295,6 @@ def test_chip_smoke_heating_dict_equals_example_yaml(tmp_path):
 
 
 @pytest.mark.parametrize("engine,item", [("flat", "item 7"),
-                                         ("adaptive", "item 6"),
                                          ("he", "item 9"),
                                          ("box", "item 12")])
 def test_unported_engines_raise(tmp_path, engine, item):
@@ -354,7 +353,7 @@ def test_cheb_and_pallas_build_the_same_engine(tmp_path, engine):
     assert type(rt) is ChebRaytracer and rt.device.type == "cpu"
     assert rt.batch_size == 4 and rt.dtype == torch.float32
     assert rt.num_bins == 8 and rt.do_heating
-    assert not (rt.fuse_fold or rt.fuse_rates)
+    assert rt.fuse_fold and not rt.fuse_rates
     jsim = jpc.C2Ray_Test(_write(tmp_path, engine + "j", engine="cheb"), 8)
     assert sim.R_max_LLS == jsim.R_max_LLS and sim.thermal == tuple(jsim.thermal)
     assert sim.chem == tuple(jsim.chem)
@@ -410,8 +409,45 @@ def test_import_and_dict_run_without_yaml(tmp_path):
 
 def test_package_exports():
     want = set(jpc.__all__) - {
-        "C2Ray_CubeP3M", "C2Ray_244Test",          # ROADMAP section 1 item 10
         "OctaGeometry", "build_geometry", "Raytracer"}   # item 7 (flat)
     assert want <= set(tpc.__all__)
     for name in tpc.__all__:
         assert hasattr(tpc, name), name
+
+
+def test_adaptive_engine_is_built(tmp_path):
+    """engine: adaptive (ROADMAP item 6) builds the port's AdaptiveRaytracer
+    on the model's device, every bucket's engine in fuse_fold with the heat
+    channel; the log names the buckets."""
+    from pyc2ray_torch.ops.adaptive import AdaptiveRaytracer
+    ld = read_paramfile(_write(tmp_path, "a", engine="adaptive"))
+    ld["Raytracing"]["subboxsize"] = 2
+    sim = tpc.C2Ray_Test(ld, 12, device="cpu")
+    rt = sim.raytracer
+    assert type(rt) is AdaptiveRaytracer and rt.device.type == "cpu"
+    assert len(rt.radii) > 1 and rt.R_min == 2.0 and rt.do_heating
+    assert all(e.fuse_fold and e.do_heating for e in rt.engines)
+    assert "adaptive-radius raytracing" in open(sim.logfile).read()
+
+
+def test_fuse_fold_model_matches_default_mode(tmp_path, monkeypatch):
+    """The model layer's engines run fuse_fold (K3h here); two heating
+    timesteps through C2Ray_Test hold against the port's default mode (the
+    sweep, then the rate pass) in float64 at rtol 1e-9."""
+    from pyc2ray_torch.ops import raytrace_cheb
+    got = _drive(tpc, _write(tmp_path, "fused"), 0, device="cpu")
+
+    class DefaultMode(raytrace_cheb.ChebRaytracer):
+        def __init__(self, *args, fuse_fold=False, **kw):
+            super().__init__(*args, fuse_fold=False, **kw)
+
+    monkeypatch.setattr(raytrace_cheb, "ChebRaytracer", DefaultMode)
+    want = _drive(tpc, _write(tmp_path, "default"), 0, device="cpu")
+    assert not np.array_equal(got["phi0"], want["phi0"])   # two paths ran
+    np.testing.assert_allclose(got["phi0"], want["phi0"], rtol=1e-9, atol=0)
+    np.testing.assert_allclose(got["heat0"], want["heat0"], rtol=1e-9,
+                               atol=0)
+    for g, w in zip(got["steps"], want["steps"]):
+        for k in ("xh", "phi_ion", "temp"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-9, atol=0,
+                                       err_msg=k)
