@@ -90,11 +90,34 @@ Phases (any failure raises and the script exits non-zero):
    kernels and the device's idle share; and the Gamma of the first 16
    sources against the CPU. The catalogs are read without h5py
    (``read_catalog``).
+2d. (after 2c) K1 at the helium engine's three threshold cross sections
+   (sigma_HI, sigma_HeI, sigma_HeII of make_spectral_bins_he) at the bench
+   shape in float32, bit for bit against its plain version, with its time.
+3d. (after 3c) The table-exact flat engine (ops/raytrace.py) at the bench
+   configuration in float64 with the model layer's black-body tables: ns per
+   cell-update, device launches per batch and the device idle share of a
+   profiled window, and the trace of the first 16 sources against the CPU.
+3e. The helium engine (HeRaytracer, 72 default bins) at the bench fields in
+   float32: ns per cell-update, its K1 launches (three per batch, asserted),
+   one global_pass_he, the per-batch device ms of the three sweeps, the rate
+   pass and the accumulate; Gamma_HI of a helium-free field against the
+   hydrogen engine at the same bins.
+4f. (after 4e) The golden: examples/single_source_test at its full
+   configuration (N=128, 2 slices x 10 timesteps, parameters.yml unchanged:
+   engine flat, float64) through C2Ray_Test on the card against the
+   sequential C++ oracle's evolve loop (native_ext, built with g++ into
+   build/torch_kernels/); the eight statistics of run_test.py, each held to
+   its tolerance; the wall time of the port's part and of the oracle's.
+4g. One evolve3D_he timestep at N=64 with 16 sources in float64 with
+   secondary ionizations and recombination photons, GPU against CPU; then
+   C2Ray_Test with engine he, the heating rates and isothermal false for two
+   timesteps at N=128 on the card: iterations, K1 launches (three per
+   iteration, asserted) and the photon loss of each timestep.
 5. The script's wall time, a ``kernels`` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
-``python3 chip_smoke.py --kernels`` stops after phase 2c (the kernels
+``python3 chip_smoke.py --kernels`` stops after phase 2d (the kernels
 against their plain versions and their times) and prints no result line.
 """
 
@@ -135,6 +158,8 @@ EOR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "examples", "eor_simulation")
 EOR_ZLIST = (21.062, 20.134, 19.284)         # run_test.py's first slices
 N_EOR, B_EOR = 250, 16                       # its mesh; parameters.yml's B
+ABU_HE = 0.074                               # parameters.yml's abu_he
+N_GOLDEN, STEPS_GOLDEN = 128, 10             # run_test.py --full
 # the adaptive ladder of parameters.yml at N=250: R_max_LLS = 15 cMpc x
 # 250 / 244 cells and half of it (a quarter is below R_min = 4)
 R_EOR = (15.0 * N_EOR / 244.0 / 2.0, 15.0 * N_EOR / 244.0)
@@ -671,9 +696,7 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     Gamma and, with do_heating, of the heat."""
     from pyc2ray_torch.ops.sweep import cheb_sweep, cheb_sweep_rates
     g, tb, N = rt.geom, rt.tables, rt.N
-    nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
-    wrap = torch.arange(-g.c, N + g.Dc - 1 - g.c, device="cuda") % N
-    nhi_pad = nhi3[wrap][:, wrap][:, :, wrap]
+    nhi_pad = rt.wrap_pad(nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3)))
     pads = [torch.zeros_like(nhi_pad) for _ in range(1 + rt.do_heating)]
     dr_t = torch.tensor(DR, dtype=rt.dtype).to("cuda")
     geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
@@ -700,12 +723,8 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
             ev[2].record()
             out = rt._rates(cd, boxes, flux, dr_t)[:1 + rt.do_heating]
         ev[3].record()
-        D = out[0].shape[-1]
-        sh = rt._rb0 if D == rt.Ds else 0
         for pad, rate_box in zip(pads, out):
-            for (p0, p1, p2), box in zip(pos.tolist(), rate_box):
-                pad[p0 + sh:p0 + sh + D, p1 + sh:p1 + sh + D,
-                    p2 + sh:p2 + sh + D] += box
+            rt.add_boxes(pad, rate_box, pos)
         ev[4].record()
         torch.cuda.synchronize()
         for k, name in enumerate(tot):
@@ -1119,6 +1138,411 @@ def eor_run(bins):
     return k3, k3_ms["A"] + k3_ms["B"]
 
 
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "single_source_test")
+# examples/single_source_test/run_test.py:200-210: name, tolerance
+GOLDEN_TOLERANCES = (("Absolute mean", 1e-8), ("Absolute std", 3e-7),
+                     ("Absolute max", 5e-6), ("Absolute min", 5e-6),
+                     ("Relative mean", 1e-7), ("Relative std", 3e-6),
+                     ("Relative max", 2e-5), ("Relative min", 2e-5))
+
+
+def golden_run(N, numzred, steps, device, results_basename):
+    """examples/single_source_test/run_test.py through the port:
+    C2Ray_Test on that example's parameters.yml (read unchanged; only the
+    output directory is ``results_basename``), one 1e49 photons/s
+    black-body source, ``numzred - 1`` slices of ``steps`` timesteps, each
+    timestep also run by the sequential C++ oracle's evolve loop as
+    run_test.py:104-128 writes it. Returns the simulation, the eight
+    statistics {name: (value, tolerance)} of run_test.py:200-210 and the
+    wall seconds of the port's part and of the oracle's part."""
+    from pyc2ray_torch import C2Ray_Test
+    from pyc2ray_torch.native_ext import (chemistry_global_native,
+                                          oracle_sweep_native)
+    from pyc2ray_torch.utils import format_sources
+    from pyc2ray_torch.utils.paramutils import read_paramfile
+    params = read_paramfile(os.path.join(GOLDEN_DIR, "parameters.yml"))
+    params["Output"]["results_basename"] = results_basename
+    with contextlib.redirect_stdout(io.StringIO()):
+        sim = C2Ray_Test(params, N, device=device)
+    zred_array = sim.generate_redshift_array(numzred, 1e7)
+    srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]], dtype=float)
+    srcflux = np.array([1e49 / 1e48])
+    sim.ndens = 1e-3 * np.ones((N, N, N))
+    pos0, flux0 = format_sources(srcpos, srcflux)
+    tables = (sim.photo_thin_table, sim.photo_thick_table,
+              sim.heat_thin_table, sim.heat_thick_table, sim.minlogtau,
+              sim.dlogtau)
+
+    def oracle_evolve_loop(dt, dr, xh, ndens, temp):
+        num_cells = N ** 3
+        conv_criterion = min(int(1e-4 * num_cells), 0)
+        prev1 = prev0 = 2.0 * num_cells
+        xh_av = xh.copy()
+        converged = False
+        while not converged:
+            phi, _, _ = oracle_sweep_native(ndens, xh_av, pos0, flux0, dr,
+                                            sim.sig, sim.R_max_LLS,
+                                            tables=tables)
+            xh_int, xh_av, conv_flag = chemistry_global_native(
+                dt, ndens, temp, xh, xh_av, phi, sim.bh00, sim.albpow,
+                sim.colh0, sim.temph0, sim.abu_c)
+            s1, s0 = xh_int.sum(), (1 - xh_int).sum()
+            rel1 = abs((s1 - prev1) / s1) if s1 > 0 else 1.0
+            rel0 = abs((s0 - prev0) / s0) if s0 > 0 else 1.0
+            converged = (conv_flag < conv_criterion) or (rel1 < 1e-4
+                                                         and rel0 < 1e-4)
+            prev1, prev0 = s1, s0
+        return xh_int
+
+    xh_oracle = sim.xh.copy()
+    xh_initial = sim.xh.copy()
+    temp = sim.temp.copy()
+    t_port = t_oracle = 0.0
+    for k in range(len(zred_array) - 1):
+        dt = sim.set_timestep(zred_array[k], zred_array[k + 1], steps)
+        for _ in range(steps):
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                sim.cosmo_evolve(dt)
+                sim.evolve3D(dt, srcflux, srcpos)
+            t_port += time.time() - t0
+            t0 = time.time()
+            xh_oracle = oracle_evolve_loop(dt, sim.dr, xh_oracle, sim.ndens,
+                                           temp)
+            t_oracle += time.time() - t0
+    if np.array_equal(np.asarray(sim.xh), xh_initial):
+        raise RuntimeError("golden: the ionized fraction did not change")
+    abserr = sim.xh - xh_oracle
+    relerr = abserr / xh_oracle
+    values = (abserr.mean(), abserr.std(), abserr.max(), abserr.min(),
+              relerr.mean(), relerr.std(), relerr.max(), relerr.min())
+    stats = {name: (float(v), tol)
+             for (name, tol), v in zip(GOLDEN_TOLERANCES, values)}
+    return sim, stats, t_port, t_oracle
+
+
+def he_bins():
+    """The three-species bins at make_spectral_bins_he's defaults (3 panels
+    x 8 nodes per band, 72 bins), for the parameters.yml black body."""
+    from pyc2ray_torch.constants import ev2fr
+    from pyc2ray_torch.radiation import BlackBodySource
+    from pyc2ray_torch.radiation.helium import make_spectral_bins_he
+    return make_spectral_bins_he(
+        BlackBodySource(5e4, False, ev2fr * 13.598, 2.8))
+
+
+def check_sweep_he(bins_he, reps):
+    """Phase 2d: K1 at the bench shape at each species' threshold cross
+    section (the helium engine sweeps each absorber at its own), bit for
+    bit against its plain version, with its time per call."""
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    dt = torch.float32
+    rt = HeRaytracer(N_BENCH, R_BENCH, bins_he, ABU_HE, batch_size=B_BENCH,
+                     dtype=dt)
+    g, tb = rt.geom, rt.eng.tables
+    nhi = random_nhi(rt.eng, B_BENCH, dt, seed=12)
+    out = {}
+    for name, sig in zip(("HI", "HeI", "HeII"), rt.sigma_th):
+        args = (nhi, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, DR, g.c,
+                sig)
+        got = sweep.cheb_sweep(*args)
+        ref = sweep.cheb_sweep_ref(*args)
+        torch.cuda.synchronize()
+        max_abs = float((got - ref).abs().max())
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"K1 at sigma_{name} differs from its plain "
+                               f"version (max abs {max_abs:.3e})")
+        ms = cuda_ms(lambda: sweep.cheb_sweep(*args), reps)
+        out[name] = dict(sig=sig, ms=ms, max_abs_err=max_abs)
+        log(f"K1 at sigma_{name} = {sig:.4e} cm^2, B={B_BENCH} Dc={g.Dc} "
+            f"R1={g.r_max + 1} float32: max_abs_err={max_abs:.3e} "
+            f"(bit-equal), kernel_ms={ms:.4f} ({plan_text('cheb_sweep')})")
+    return out
+
+
+def launches_in(prof):
+    """Device kernels in the profile_trace captures of ``prof``."""
+    from pyc2ray_torch.diagnostics import _trace_events
+    return sum(e.get("cat") == "kernel" for events in _trace_events(prof)
+               for e in events)
+
+
+def flat_bench(src_pos, tmp):
+    """Phase 3d: the table-exact flat engine at the bench configuration in
+    float64 with the black-body tables of the model layer (NumTau 2000):
+    ns per cell-update, device launches per batch and the device idle share
+    of a profiled window of 16 batches, and the trace of the first 16
+    sources on the card against the CPU."""
+    from pyc2ray_torch.constants import ev2fr
+    from pyc2ray_torch.diagnostics import device_idle_share, profile_trace
+    from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
+    from pyc2ray_torch.radiation import BlackBodySource, make_tau_table
+    N, dt = N_BENCH, torch.float64
+    tau, dlogtau = make_tau_table(-20.0, 4.0, 2000)
+    fmin, fmax = ev2fr * 13.598, 10 * ev2fr * 54.416
+    thin, thick = BlackBodySource(5e4, False, fmin, 2.8).make_photo_table(
+        tau, fmin, fmax, 1e48)
+    cfg = RaytraceConfig(N=N, R_max_LLS=R_BENCH, sig=SIG,
+                         batch_size=B_BENCH, dtype=dt)
+    t0 = time.time()
+    rt = Raytracer(cfg, thin, thick, -20.0, dlogtau, device="cuda")
+    t_build = time.time() - t0
+    flux = np.ones(NS_BENCH)
+    pos_b, flux_b = rt.prepare_sources(src_pos, flux)
+    nbatch = pos_b.shape[0]
+    nd = torch.full((N ** 3,), 1e-3, dtype=dt, device="cuda")
+    xh = torch.full((N ** 3,), 1.2e-3, dtype=dt, device="cuda")
+    rt.trace_batches(nd, xh, pos_b[:2], flux_b[:2], DR)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    phi, _ = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
+    torch.cuda.synchronize()
+    t_ray = time.time() - t0
+    if not (bool(torch.isfinite(phi).all()) and float(phi.max()) > 0.0):
+        raise RuntimeError("flat engine: Gamma not finite and positive")
+    nwin = 16
+    t0 = time.time()
+    with profile_trace(os.path.join(tmp, "flat")) as p:
+        p["sync"] = rt.trace_batches(nd, xh, pos_b[:nwin], flux_b[:nwin],
+                                     DR)[0]
+    t_prof = time.time() - t0
+    idle = device_idle_share(os.path.join(tmp, "flat"))
+    per_batch = launches_in(os.path.join(tmp, "flat")) / nwin
+    log(f"flat engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float64 "
+        f"(q_max {rt.geom_np.max_q}, {rt.geom_np.num_cells} cells, "
+        f"{len(rt.shells)} shells, tables {t_build:.1f} s): {nbatch} "
+        f"batches in {t_ray:.4f} s = "
+        f"{1e9 * t_ray / cell_updates(NS_BENCH, R_BENCH):.4f} "
+        f"ns/cell-update, {1e3 * t_ray / nbatch:.3f} ms per batch; "
+        f"{per_batch:.1f} device launches per batch, device idle share "
+        f"{idle:.4f} of a profiled window of {nwin} batches ({t_prof:.2f} s)")
+    rt_cpu = Raytracer(cfg, thin, thick, -20.0, dlogtau, device="cpu")
+    nd_np, xh_np = np.full((N,) * 3, 1e-3), np.full((N,) * 3, 1.2e-3)
+    phi_g = rt.trace(nd_np, xh_np, src_pos[:16], flux[:16], DR).cpu()
+    phi_c = rt_cpu.trace(nd_np, xh_np, src_pos[:16], flux[:16], DR)
+    # the thick-cell table difference amplifies a last-bit log10
+    # difference where dtau ~ 1e-7: an absolute floor at 1e-12 of the peak
+    floor = 1e-12 * float(phi_c.max())
+    torch.testing.assert_close(phi_g, phi_c, rtol=1e-12, atol=floor)
+    log(f"  flat engine, 16 sources, float64: GPU vs CPU max rel "
+        f"{max_rel(phi_g, phi_c, 1e-12):.3e} (above 1e-12 of the peak), "
+        f"max abs {float((phi_g - phi_c).abs().max()):.3e}")
+    return dict(t_ray=t_ray, per_batch=per_batch, idle=idle)
+
+
+def helium_bench(bins_he, src_pos, chem):
+    """Phase 3e: the helium engine at the bench fields in float32 with the
+    72 default bins, one trace (K1 three times per batch, counted) and one
+    global_pass_he; per-batch device ms of its stages; Gamma_HI of a
+    helium-free field against the hydrogen engine at the same bins.
+    Returns the K1 launches of the trace."""
+    from pyc2ray_torch.ops import chemistry_he, sweep
+    from pyc2ray_torch.ops.chemistry_he import (HeChemistryParams,
+                                                global_pass_he)
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    from pyc2ray_torch.radiation.spectral_bins import SpectralBins
+    N, dt = N_BENCH, torch.float32
+    rt = HeRaytracer(N, R_BENCH, bins_he, ABU_HE, batch_size=B_BENCH,
+                     dtype=dt)
+    pos_b, flux_b = rt.prepare_sources(src_pos, np.ones(NS_BENCH))
+    nbatch = pos_b.shape[0]
+
+    def grid(v):
+        return torch.full((N,) * 3, v, dtype=dt, device="cuda")
+    nd, xh, y1, y2 = grid(1e-3), grid(1.2e-3), grid(1e-3), grid(0.0)
+    rt.trace_batches(nd, xh, y1, y2, pos_b[:1], flux_b[:1], DR)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sweep.reset_launches()
+    t0 = time.time()
+    g = rt.trace_batches(nd, xh, y1, y2, pos_b, flux_b, DR)
+    torch.cuda.synchronize()
+    t_ray = time.time() - t0
+    counts = dict(sweep.launches)
+    want = {k: 0 for k in counts}
+    want["cheb_sweep"] = 3 * nbatch
+    if counts != want:
+        raise RuntimeError(f"helium trace: launches {counts}, expected "
+                           f"{want}")
+    for name, t in zip(("G_HI", "G_HeI", "G_HeII"), g):
+        if not (bool(torch.isfinite(t).all()) and float(t.max()) > 0.0):
+            raise RuntimeError(f"helium trace: {name} not finite and "
+                               f"positive")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    phe = HeChemistryParams(chem=chem, abu_he=ABU_HE)
+    dt_d = torch.tensor(DT, dtype=dt).to("cuda")
+    temp = grid(1e4)
+    t0 = time.time()
+    out = global_pass_he(dt_d, nd, temp, xh, xh, y1, y1, y2, y2, *g, phe)
+    torch.cuda.synchronize()
+    t_chem = time.time() - t0
+    if not all(bool(torch.isfinite(t).all()) for t in out[:6]):
+        raise RuntimeError("global_pass_he: output not finite")
+    # converged within 8 inner iterations: the same outputs with that cap
+    cap = chemistry_he.MAX_INNER_ITER
+    chemistry_he.MAX_INNER_ITER = 8
+    try:
+        out8 = global_pass_he(dt_d, nd, temp, xh, xh, y1, y1, y2, y2, *g, phe)
+    finally:
+        chemistry_he.MAX_INNER_ITER = cap
+    within8 = all(torch.equal(a, b) for a, b in zip(out, out8))
+    log(f"helium engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32 "
+        f"{bins_he.num_bins} bins: raytrace {t_ray:.4f} s = "
+        f"{1e9 * t_ray / cell_updates(NS_BENCH, R_BENCH):.4f} "
+        f"ns/cell-update, K1 launches {counts['cheb_sweep']} (3 x {nbatch} "
+        f"batches), peak device memory {peak_gb:.2f} GiB; global_pass_he "
+        f"{t_chem:.4f} s, conv_flag {int(out[6])}, converged within 8 "
+        f"inner iterations: {within8}")
+
+    # per-batch device ms of each stage, CUDA events, first 16 batches
+    eng = rt.eng
+    pads = [eng.wrap_pad(f) for f in rt.species_fields(nd, xh, y1, y2)]
+    acc = [torch.zeros_like(pads[0]) for _ in range(3)]
+    dr_t = torch.tensor(DR, dtype=dt).to("cuda")
+    tot = dict(extract=0.0, K1_HI=0.0, K1_HeI=0.0, K1_HeII=0.0,
+               rates_he=0.0, accumulate=0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(tot) + 1)]
+    nwin = 16
+    for pos, flux in list(zip(pos_b, flux_b))[:nwin]:
+        ev[0].record()
+        boxes = [eng._extract_boxes(p, pos.to("cuda")) for p in pads]
+        ev[1].record()
+        cds = []
+        for s in range(3):
+            cds.append(eng.sweep_box(boxes[s], DR, rt.sigma_th[s]))
+            ev[2 + s].record()
+        rates = rt._rates_he(cds, boxes, flux, dr_t)
+        ev[5].record()
+        for pad, box in zip(acc, rates):
+            eng.add_boxes(pad, box, pos)
+        ev[6].record()
+        torch.cuda.synchronize()
+        for k, name in enumerate(tot):
+            tot[name] += ev[k].elapsed_time(ev[k + 1])
+    log("  per-batch device ms: " + ", ".join(
+        f"{k} {v / nwin:.4f}" for k, v in tot.items()))
+
+    # a helium-free field: Gamma_HI equals the hydrogen engine's at the
+    # same bins (the HI row of the helium bins)
+    rt0 = HeRaytracer(N, R_BENCH, bins_he, 0.0, batch_size=B_BENCH,
+                      dtype=dt)
+    zero = grid(0.0)
+    g0 = rt0.trace_batches(nd, xh, zero, zero, pos_b[:2], flux_b[:2], DR)
+    h_bins = SpectralBins(s=bins_he.s[0], w_photo=bins_he.w_photo,
+                          w_heat=bins_he.w_heat[0],
+                          num_bins=bins_he.num_bins)
+    rth = ChebRaytracer(N, R_BENCH, rt.sigma_th[0], h_bins,
+                        batch_size=B_BENCH, dtype=dt)
+    phi_h, _ = rth.trace_batches(nd, xh, pos_b[:2], flux_b[:2], DR)
+    compare("helium engine Gamma_HI without helium vs the hydrogen engine "
+            "(16 sources)", g0[0].reshape(-1), phi_h, 1e-4, 1e-6)
+    if float(g0[1].abs().max()) != 0.0 or float(g0[2].abs().max()) != 0.0:
+        raise RuntimeError("helium-free field: helium rates not zero")
+    return counts["cheb_sweep"]
+
+
+def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
+    """Phase 4g: one evolve3D_he timestep at N=64 with 16 sources, float64,
+    secondary ionizations and recombination photons on, GPU against CPU;
+    then C2Ray_Test with engine he and the heating channel on for two
+    timesteps at N=128 on the card. Returns its K1 launches."""
+    from pyc2ray_torch import C2Ray_Test
+    from pyc2ray_torch.evolve import evolve3D_he
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.chemistry_he import HeChemistryParams
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    from pyc2ray_torch.utils.paramutils import read_paramfile
+    Ne = e_nd.shape[0]
+    phe = HeChemistryParams(chem=chem, abu_he=ABU_HE, secondary=True,
+                            recombination_photons=True)
+    grid0 = (np.full((Ne,) * 3, 1e4), e_nd, np.full((Ne,) * 3, 1.2e-3),
+             np.full((Ne,) * 3, 1e-3), np.zeros((Ne,) * 3))
+    out = {}
+    for devname in ("cuda", "cpu"):
+        rte = HeRaytracer(Ne, R_EVOLVE, bins_he, ABU_HE, batch_size=B_BENCH,
+                          dtype=torch.float64, device=devname,
+                          do_heating=True)
+        sweep.reset_launches()
+        t0 = time.time()
+        out[devname] = evolve3D_he(DT, DR, e_flux, e_pos, rte, phe, *grid0,
+                                   quiet=True)
+        log(f"evolve3D_he N={Ne} R={R_EVOLVE} {len(e_flux)} sources float64 "
+            f"(secondary ionizations, recombination photons) on {devname}: "
+            f"{time.time() - t0:.2f} s, K1 launches "
+            f"{sweep.launches['cheb_sweep']}")
+        if (sweep.launches["cheb_sweep"] > 0) != (devname == "cuda"):
+            raise RuntimeError(f"evolve3D_he on {devname}: K1 launches "
+                               f"{sweep.launches['cheb_sweep']}")
+    names = ("xh", "G_HI", "y1", "y2", "G_HeI", "G_HeII")
+    for name, g, c in zip(names, out["cuda"], out["cpu"]):
+        if g.shape != (Ne,) * 3 or not np.all(np.isfinite(g)):
+            raise RuntimeError(f"evolve3D_he: {name} not finite")
+        np.testing.assert_allclose(g, c, rtol=1e-7, atol=0, err_msg=name)
+    log("  evolve3D_he GPU vs CPU, max rel: " + ", ".join(
+        f"{n} {max_rel(torch.from_numpy(g), torch.from_numpy(c)):.3e}"
+        for n, g, c in zip(names, out["cuda"], out["cpu"])))
+
+    N = N_GOLDEN
+    params = read_paramfile(os.path.join(GOLDEN_DIR, "parameters.yml"))
+    params["Raytracing"]["engine"] = "he"
+    params["Photo"]["compute_heating_rates"] = 1
+    params["Material"]["isothermal"] = False
+    with tempfile.TemporaryDirectory() as tmp:
+        params["Output"]["results_basename"] = tmp + "/"
+        text = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(text):
+            sim = C2Ray_Test(params, N, device="cuda")
+            sim.ndens = 1e-3 * np.ones((N,) * 3)
+            zreds = sim.generate_redshift_array(2, 1e7)
+            dt = sim.set_timestep(zreds[0], zreds[1], STEPS_GOLDEN)
+            srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]],
+                              dtype=float)
+            steps = []
+            sweep.reset_launches()
+            for _ in range(2):
+                mark = len(text.getvalue())
+                sim.cosmo_evolve(dt)
+                sim.evolve3D(dt, np.array([10.0]), srcpos)
+                steps.append(text.getvalue()[mark:])
+            torch.cuda.synchronize()
+        t_sim = time.time() - t0
+    k1 = sweep.launches["cheb_sweep"]
+    iters = [s.count("Raytracing (3 species) took") for s in steps]
+    loss = [[float(v) for v in re.findall(
+        r"photon loss fraction: ([-+\d.e]+)", s)] for s in steps]
+    g = sim.raytracer.geom
+    log(f"C2Ray_Test engine he N={N} float64 (heating, non-isothermal, "
+        f"{sim.raytracer.bins.num_bins} bins, Dc={g.Dc}, B=1): 2 timesteps "
+        f"in {t_sim:.2f} s with set-up; raytrace iterations {iters}, K1 "
+        f"launches {k1}; photon loss at convergence "
+        + ", ".join(f"{ls[-1]:.3e}" for ls in loss)
+        + f" (bound loss_fraction {sim.loss_fraction:g}); T "
+        f"{sim.temp.min():.1f}..{sim.temp.max():.1f} K, xh max "
+        f"{sim.xh.max():.4f}, xHeII+xHeIII max "
+        f"{(sim.xhe1 + sim.xhe2).max():.4f}")
+    if k1 != 3 * sum(iters) or min(iters) == 0:
+        raise RuntimeError(f"helium model: {k1} K1 launches for {iters} "
+                           f"iterations")
+    # the first timestep's loss is the resolution's: in the flat engine at
+    # this configuration it halves with every doubling of N (9.2%, 5.0%,
+    # 2.1% at N = 16, 32, 64); the converged second timestep's is held
+    if loss[-1][-1] > sim.loss_fraction:
+        raise RuntimeError("helium model: photon loss of the second timestep "
+                           "above loss_fraction")
+    for name in ("xh", "xhe1", "xhe2", "temp"):
+        a = np.asarray(getattr(sim, name))
+        if a.shape != (N,) * 3 or not np.all(np.isfinite(a)):
+            raise RuntimeError(f"helium model: {name} not finite")
+    if not (sim.xh.max() > 10 * 1.2e-3 and sim.temp.std() > 0.0):
+        raise RuntimeError("helium model: the source ionized or heated "
+                           "nothing")
+    return k1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1227,6 +1651,10 @@ def main():
         log(f"rate floor {name}: {res['rate_floor_ms']:.5f} ms "
             f"({ns_bin:.6f} ns per cell and bin), measured "
             f"{res['ms']:.4f} ms")
+
+    # ---- 2d. K1 at the helium engine's three cross sections -------------
+    bins_he = he_bins()
+    k_he = check_sweep_he(bins_he, reps=20)
     if "--kernels" in sys.argv[1:]:
         log(f"chip_smoke --kernels wall time: {time.time() - T_START:.1f} s")
         return 0
@@ -1403,6 +1831,13 @@ def main():
         f"{int((t_new > 1e3).sum())} cells above 1e3 K")
     del heat_f, t_new, t_cold
 
+    # ---- 3d. the table-exact flat engine at the bench configuration -------
+    with tempfile.TemporaryDirectory() as tmp:
+        flat_bench(src_pos, tmp)
+
+    # ---- 3e. the helium engine at full width ------------------------------
+    he_launches = helium_bench(bins_he, src_pos, chem)
+
     # ---- 4. one evolve3D timestep, GPU vs CPU ---------------------------
     Ne, Re, nse = N_EVOLVE, R_EVOLVE, NS_EVOLVE
     rng = np.random.RandomState(7)
@@ -1518,9 +1953,33 @@ def main():
     eor_launches, eor_device_ms = eor_run(bins)
     k_eor.update(ms=eor_device_ms, ms_back_to_back=k_eor["ms"])
 
+    # ---- 4f. the golden: examples/single_source_test at N=128 -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        sim, stats, t_port, t_oracle = golden_run(
+            N_GOLDEN, 2, STEPS_GOLDEN, "cuda", tmp + "/")
+    rt_g = sim.raytracer
+    log(f"golden examples/single_source_test N={N_GOLDEN}, 2 slices x "
+        f"{STEPS_GOLDEN} timesteps, engine {type(rt_g).__name__} on "
+        f"{rt_g.device} ({rt_g.config.dtype}, q_max "
+        f"{rt_g.geom_np.max_q}): the port {t_port:.2f} s, the C++ oracle "
+        f"{t_oracle:.2f} s; mean xh {float(np.mean(sim.xh)):.12e}")
+    failed = []
+    for name, (value, tol) in stats.items():
+        ok = bool(np.isfinite(value)) and abs(value) <= tol
+        log(f"  {name:16s}: {value: .7e}   (tolerance {tol:g}) "
+            f"{'PASSED' if ok else 'FAILED'}")
+        failed += [] if ok else [name]
+    if failed or type(rt_g).__name__ != "Raytracer" \
+            or rt_g.device.type != "cuda":
+        raise RuntimeError(f"golden: {', '.join(failed) or 'engine'} FAILED")
+
+    # ---- 4g. helium end to end ---------------------------------------------
+    helium_evolve(e_pos, e_flux, e_nd, bins_he, chem)
+
     # ---- 5. kernels line and result -----------------------------------
-    # launches: each kernel's count over its own path's run (phase 3 for
-    # K1, 3b for K1f and K2, 3c for K3h, 4e for K3: the EoR run's timesteps);
+    # launches: each kernel's count over its own path's run (phases 3 and
+    # 3e for K1: the hydrogen and the helium trace at the bench shape, 3b
+    # for K1f and K2, 3c for K3h, 4e for K3: the EoR run's timesteps);
     # the other numbers from phases 2, 2b and 2c at that path's shapes (K3:
     # the EoR run's small bucket, B=16, Dc=24, where back-to-back calls are
     # bounded by the host's enqueue: its ms is the device time per call in
@@ -1530,7 +1989,9 @@ def main():
     tpu = "pyc2ray_tpu/ops/pallas_sweep.py:"
     kernels = [
         dict(name="cheb_sweep", source=src + "cheb_sweep.cu",
-             replaces=tpu + "353", launches=launches, **k_bench),
+             replaces=tpu + "353", launches=launches + he_launches,
+             ms_at_sigma_he={k: v["ms"] for k, v in k_he.items()},
+             **k_bench),
         dict(name="cheb_sweep_fused_rates", source=src + "cheb_sweep.cu",
              replaces=tpu + "325",
              launches=fused_launches["cheb_sweep_fused_rates"],

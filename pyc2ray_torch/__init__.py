@@ -9,12 +9,16 @@ drives the JAX package. Ported so far: the single-device hydrogen path,
 isothermal or with the photoheating channel and the thermal update
 (``Material.isothermal: false``), on the Chebyshev-face raytracer
 (``ops.raytrace_cheb``, ``Raytracing.engine: cheb``) whose sweep modes are
-hand-written CUDA kernels (``ops/csrc``), and on the flux-bucketed adaptive
-engine (``ops.adaptive``, ``engine: adaptive``) built from it; the
+hand-written CUDA kernels (``ops/csrc``), on the flux-bucketed adaptive
+engine (``ops.adaptive``, ``engine: adaptive``) built from it and on the
+table-exact octahedral engine (``ops.raytrace``, ``engine: flat``, the
+YAML default); the three-species helium path (``ops.raytrace_he``,
+``ops.chemistry_he``, ``evolve.evolve3D_he``, ``engine: he``); the
 time-averaged chemistry pass (``ops.chemistry``), the convergence loop
-(``evolve.evolve3D``), the C2Ray binary and checkpoint IO (``io``) and the
-profiler helpers (``diagnostics``). The package imports torch, numpy and
-scipy only (PyYAML only to read a parameter file, h5py only to read a halo
+(``evolve.evolve3D``), the C2Ray binary and checkpoint IO (``io``), the
+profiler helpers (``diagnostics``) and a loader of the sequential C++
+oracle (``native_ext``). The package imports torch, numpy and scipy only
+(PyYAML only to read a parameter file, h5py only to read a halo
 catalog).
 
 Entry points run on ``device="cuda"`` unless the caller passes
@@ -25,11 +29,13 @@ from . import constants
 from .chemistry_api import hydrogenODE
 from .cosmology import FlatLambdaCDM
 from .device import resolve_device
-from .evolve import evolve3D
+from .evolve import evolve3D, evolve3D_he
 from .models import (C2RaySimulation, C2Ray_Test, C2Ray_CubeP3M,
                      C2Ray_244Test)
 from .ops import (AdaptiveRaytracer, ChebRaytracer, ChemistryParams,
-                  RaytraceConfig, doric, global_pass)
+                  HeRaytracer, RaytraceConfig, Raytracer, doric,
+                  global_pass)
+from .ops.geometry import OctaGeometry, build_geometry
 from .radiation import BlackBodySource, make_tau_table
 from .utils import (printlog, format_sources, read_test_sources,
                     generate_test_sourcefile)
@@ -38,9 +44,10 @@ __version__ = "0.1.0"
 
 __all__ = [
     "constants", "hydrogenODE", "FlatLambdaCDM", "resolve_device",
-    "evolve3D", "C2RaySimulation", "C2Ray_Test", "C2Ray_CubeP3M",
-    "C2Ray_244Test", "AdaptiveRaytracer", "ChebRaytracer",
-    "ChemistryParams", "RaytraceConfig", "doric", "global_pass",
+    "evolve3D", "evolve3D_he", "C2RaySimulation", "C2Ray_Test",
+    "C2Ray_CubeP3M", "C2Ray_244Test", "AdaptiveRaytracer", "ChebRaytracer",
+    "ChemistryParams", "HeRaytracer", "RaytraceConfig", "Raytracer",
+    "doric", "global_pass", "OctaGeometry", "build_geometry",
     "BlackBodySource", "make_tau_table",
     "printlog", "format_sources", "read_test_sources",
     "generate_test_sourcefile",

@@ -19,7 +19,7 @@ from .evolve_loop import IterationResult, force, run_convergence_loop
 from .ops.chemistry import ChemistryParams, global_pass
 from .utils.logutils import printlog
 
-__all__ = ["evolve3D", "prepare_for_engine"]
+__all__ = ["evolve3D", "evolve3D_he", "prepare_for_engine"]
 
 
 def _absorbed_rate(phi_ion, ndens, xh_av):
@@ -29,6 +29,19 @@ def _absorbed_rate(phi_ion, ndens, xh_av):
     float32."""
     nhi = ndens * (1.0 - xh_av)
     return (phi_ion.reshape(-1) * nhi.reshape(-1)).to(torch.float32).sum()
+
+
+def _absorbed_rate_he(gh, ghe1, ghe2, ndens, xh_av, y1_av, y2_av, abu_he):
+    """Three-species sum(Gamma_s * n_s) over HI, HeI, HeII, without the
+    dr^3 factor (applied on the host in float64, see _absorbed_rate).
+    ndens is the hydrogen density; n_He = abu_he * n_H."""
+    def r(a):
+        return a.reshape(-1).to(torch.float32)
+    nhi = r(ndens) * (1.0 - r(xh_av))
+    nhe = abu_he * r(ndens)
+    nhe1 = nhe * (1.0 - r(y1_av) - r(y2_av))
+    nhe2 = nhe * r(y1_av)
+    return (r(gh) * nhi + r(ghe1) * nhe1 + r(ghe2) * nhe2).sum()
 
 
 def _host_scalars(*scalars):
@@ -156,4 +169,106 @@ def evolve3D(dt, dr, src_flux, src_pos, raytracer,
                  f"(T range {temp_np.min():.1f}..{temp_np.max():.1f} K).",
                  logfile, quiet)
         out = out + (temp_np,)
+    return out
+
+
+def evolve3D_he(dt, dr, src_flux, src_pos, raytracer, phe,
+                temp, ndens, xh, y1, y2, convergence_fraction=1e-4,
+                logfile=None, quiet=False, max_iterations=100,
+                thermal=None, zred=0.0, loss_fraction=None):
+    """Coupled H+He evolve loop (beyond the reference, where helium is
+    TODO, README.md:81-87).
+
+    The convergence structure of evolve3D, with the three-species
+    ops.raytrace_he.HeRaytracer and the coupled
+    ops.chemistry_he.global_pass_he. Convergence is tested on the hydrogen
+    field (the reference criterion); helium shares the iteration through
+    the electron density. The scalars of an iteration come to the host in
+    one transfer.
+
+    With ``thermal`` (requires HeRaytracer(do_heating=True)) the
+    temperature advances after convergence with the total three-species
+    photoheating (scaled by the secondary-ionization heat fraction where
+    secondary ionizations are on), and temp_new is appended.
+
+    Returns (xh, phi_HI, y1, y2, phi_HeI, phi_HeII[, temp_new]), (N,N,N)
+    numpy arrays.
+    """
+    from .ops.chemistry_he import (global_pass_he, secondary_enabled,
+                                   thermal_heat_rate)
+
+    N = raytracer.N
+    num_cells = N ** 3
+    num_src = int(np.asarray(src_flux).shape[0])
+    dtype, dev = raytracer.dtype, raytracer.device
+    sh3 = (N, N, N)
+
+    def grid(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev).reshape(sh3)
+
+    temp_d, ndens_d = grid(temp), grid(ndens)
+    xh_d, y1_d, y2_d = grid(xh), grid(y1), grid(y2)
+    pos_b, flux_b = raytracer.prepare_sources(src_pos, src_flux)
+    dt_d = torch.tensor(dt, dtype=dtype).to(dev)
+    emitted = float(np.sum(np.asarray(src_flux, dtype=np.float64))) \
+        * S_STAR_REF
+
+    printlog(f"Calling evolve3D_he (H+He) on {num_src:n} source(s)...",
+             logfile, quiet)
+    if thermal is not None and not raytracer.do_heating:
+        raise ValueError("thermal evolution requires HeRaytracer("
+                         "do_heating=True) (Photo.compute_heating_rates)")
+    secondary = secondary_enabled(phe, raytracer.do_heating)
+    state = {"xh_av": xh_d, "y1_av": y1_d, "y2_av": y2_d,
+             "xh_int": xh_d, "y1_int": y1_d, "y2_int": y2_d,
+             "g": (None,) * 3}
+
+    def iteration(niter):
+        t0 = time.time()
+        xh_av_seen = state["xh_av"]
+        g = raytracer.trace_batches(ndens_d, xh_av_seen, state["y1_av"],
+                                    state["y2_av"], pos_b, flux_b, dr)
+        force(g[0])
+        printlog(f"Raytracing (3 species) took {time.time()-t0:.3f} s.",
+                 logfile, quiet)
+        state["g"] = g
+        t0 = time.time()
+        (xh_int, xh_av, y1_int, y1_av, y2_int, y2_av,
+         conv_flag) = global_pass_he(
+            dt_d, ndens_d, temp_d, xh_d, xh_av_seen,
+            y1_d, state["y1_av"], y2_d, state["y2_av"],
+            g[0], g[1], g[2], phe,
+            heat=g[3] if secondary else None,
+            recombination_photons=bool(phe.recombination_photons))
+        conv_flag, sum1, sum0, absorbed = _host_scalars(
+            conv_flag, xh_int.sum(), (1.0 - xh_int).sum(),
+            _absorbed_rate_he(g[0], g[1], g[2], ndens_d, xh_av_seen,
+                              state["y1_av"], state["y2_av"], phe.abu_he))
+        printlog(f"Chemistry (H+He) took {time.time()-t0:.3f} s.",
+                 logfile, quiet)
+        state.update(xh_av=xh_av, y1_av=y1_av, y2_av=y2_av,
+                     xh_int=xh_int, y1_int=y1_int, y2_int=y2_int)
+        absorbed_rate = absorbed * float(dr) ** 3
+        loss = (1.0 - absorbed_rate / emitted) if emitted > 0 else None
+        return IterationResult(int(conv_flag), sum1, sum0,
+                               photon_loss=loss)
+
+    run_convergence_loop(iteration, num_cells, num_src,
+                         convergence_fraction, max_iterations,
+                         logfile, quiet, loss_fraction=loss_fraction)
+
+    g = state["g"]
+
+    def host(t):
+        return t.cpu().numpy().reshape(sh3)
+    out = (host(state["xh_int"]), host(g[0]), host(state["y1_int"]),
+           host(state["y2_int"]), host(g[1]), host(g[2]))
+    if thermal is not None:
+        from .ops.thermal import update_temperature
+        heat_rate = thermal_heat_rate(phe, g[3].reshape(-1),
+                                      state["xh_av"].reshape(-1), secondary)
+        temp_new = update_temperature(
+            dt_d, temp_d.reshape(-1), ndens_d.reshape(-1),
+            state["xh_av"].reshape(-1), heat_rate, thermal, z=float(zred))
+        out = out + (host(temp_new),)
     return out

@@ -20,10 +20,14 @@ Differences from the JAX package:
   builds runs the fused mode ``fuse_fold`` (sweep, box and rates in one
   kernel per batch, K3, or K3h with the heating rates) on both devices:
   it computes the same Gamma as the default mode, several times faster on
-  the card. The engines and options that are not ported yet (``flat``,
-  which is the YAML default, ``he``, ``box``, a device mesh, the window
-  accumulate) raise ``NotImplementedError`` naming the ROADMAP.md item
-  that brings them; none is mapped onto another.
+  the card. ``flat`` (the YAML default) builds the table-exact octahedral
+  ``Raytracer`` (ops/raytrace.py), the engine of the 2e-5 golden
+  (examples/single_source_test); ``he`` builds the three-species
+  ``HeRaytracer`` (ops/raytrace_he.py) and evolves hydrogen and helium
+  together (``evolve3D_he``). The engine and options that are not ported
+  yet (``box``, a device mesh, the window accumulate) raise
+  ``NotImplementedError`` naming the ROADMAP.md item that brings them;
+  none is mapped onto another.
 """
 
 import numpy as np
@@ -32,7 +36,7 @@ import torch
 from ..constants import Mpc, YEAR, ev2fr, ev2k
 from ..cosmology import FlatLambdaCDM
 from ..device import resolve_device
-from ..evolve import evolve3D
+from ..evolve import evolve3D, evolve3D_he
 from ..ops.chemistry import ChemistryParams
 from ..radiation import BlackBodySource, make_tau_table
 from ..utils.logutils import printlog
@@ -58,10 +62,6 @@ _DEFAULTS = {
 # Raytracing.engine values of the schema that the port does not build yet,
 # with the ROADMAP.md item that brings each.
 _ENGINES_TO_PORT = {
-    "flat": "ROADMAP.md section 1 item 7 (the table-exact flat engine, "
-            "ops/raytrace.py)",
-    "he": "ROADMAP.md section 1 item 9 (helium: ops/raytrace_he.py, "
-          "ops/chemistry_he.py, evolve3D_he)",
     "box": "ROADMAP.md section 1 item 12 (ops/raytrace_box.py, the "
            "octahedral sheet engine)",
 }
@@ -131,13 +131,23 @@ class C2RaySimulation:
         src_pos is (3, NumSrc) 1-indexed (reference convention). Updates
         ``xh`` and ``phi_ion``, and ``temp`` in the non-isothermal mode."""
         pos, flux = format_sources(src_pos, src_flux)
+        common = dict(convergence_fraction=self.convergence_fraction,
+                      logfile=self.logfile, quiet=False,
+                      thermal=self.thermal, zred=self.zred,
+                      loss_fraction=self.loss_fraction)
+        if self.multi_species:
+            out = evolve3D_he(
+                dt, self.dr, flux, pos, self.raytracer, self.chem_he,
+                self.temp, self.ndens, self.xh, self.xhe1, self.xhe2,
+                **common)
+            (self.xh, self.phi_ion, self.xhe1, self.xhe2,
+             self.phi_he1, self.phi_he2) = out[:6]
+            if self.thermal is not None:
+                self.temp = out[6]
+            return
         out = evolve3D(
             dt, self.dr, flux, pos, self.raytracer, self.chem,
-            self.temp, self.ndens, self.xh,
-            convergence_fraction=self.convergence_fraction,
-            logfile=self.logfile, quiet=False,
-            thermal=self.thermal, zred=self.zred,
-            loss_fraction=self.loss_fraction)
+            self.temp, self.ndens, self.xh, **common)
         if self.thermal is not None:
             self.xh, self.phi_ion, self.temp = out
         else:
@@ -170,6 +180,16 @@ class C2RaySimulation:
         reference raytracing.py:105-108; bucket counts play nsubbox's
         role)."""
         pos, flux = format_sources(src_pos, src_flux)
+        if self.multi_species:
+            g = self.raytracer.trace(self.ndens, self.xh, self.xhe1,
+                                     self.xhe2, pos, flux, self.dr)
+            self.phi_ion, self.phi_he1, self.phi_he2 = (
+                t.cpu().numpy() for t in g[:3])
+            if stats:
+                from ..diagnostics import photon_budget
+                return self.phi_ion, photon_budget(
+                    self.phi_ion, self.ndens, self.xh, flux, self.dr)
+            return self.phi_ion
         bucket_stats = None
         if getattr(self.raytracer, "needs_flux_bucketing", False):
             out, bucket_stats = self.raytracer.trace(
@@ -331,7 +351,7 @@ class C2RaySimulation:
                 f"variant in the JAX package; adaptive = flux-bucketed "
                 f"per-source radii; he = three-species H+He; box = "
                 f"octahedral sheet-batched formulation). This package "
-                f"builds cheb, pallas and adaptive.")
+                f"builds every engine but box.")
         # The reference's CPU subbox knobs (parameters.yml Raytracing:
         # subboxsize/max_subbox; raytracing.f90:183-226) only act on the
         # adaptive engine, and only when the USER sets them; on any other
@@ -347,7 +367,7 @@ class C2RaySimulation:
                 f"radius cap). engine: {engine} traces every source at "
                 f"R_max_LLS and ignores them, matching the reference's "
                 f"own GPU path.")
-        self.multi_species = False
+        self.multi_species = (engine == "he")
         if self.secondary_ionization and engine != "he":
             raise ValueError(
                 "Photo.secondary_ionization: 1 requires Raytracing."
@@ -363,9 +383,8 @@ class C2RaySimulation:
             raise NotImplementedError(
                 f"Raytracing.engine: {engine} is not ported to PyTorch yet: "
                 f"{_ENGINES_TO_PORT[engine]}. This package builds engine: "
-                f"cheb (or pallas, the same engine) and adaptive; the YAML "
-                f"default is flat, so name the engine in the parameter "
-                f"file.")
+                f"flat (the YAML default), cheb (or pallas, the same "
+                f"engine), adaptive and he.")
         # The JAX engine's window accumulate is a placement by one-hot
         # matmuls; the port adds each source's box with a slice add, which
         # is what "scan" names and what "auto" may resolve to there.
@@ -378,6 +397,12 @@ class C2RaySimulation:
                 f"which the port does not have (ROADMAP.md section 1 item "
                 f"3: a layout device of the TPU; the port accumulates per "
                 f"source). Leave both at their defaults.")
+        if engine == "flat":
+            self._flat_init(batch, dtype, dtype_name)
+            return
+        if engine == "he":
+            self._he_init(batch, dtype)
+            return
 
         # production fast path: Chebyshev-face sweep + spectral bins
         from ..ops.raytrace_cheb import ChebRaytracer
@@ -449,6 +474,110 @@ class C2RaySimulation:
             f"on the CPU; fuse_fold, r_max = "
             f"{self.raytracer.geom.r_max:n}, {bins.num_bins} spectral "
             f"bins, batch = {batch:n}, dtype = {dtype_name})")
+
+    def _flat_init(self, batch, dtype, dtype_name):
+        """The table-exact octahedral engine on the reference's tables
+        (the schema's default engine)."""
+        from ..ops.raytrace import RaytraceConfig, Raytracer
+        cfg = RaytraceConfig(
+            N=self.N, R_max_LLS=float(self.R_max_LLS), sig=float(self.sig),
+            batch_size=batch, dtype=dtype,
+            do_heating=self.compute_heating_rates)
+        self.raytracer = Raytracer(
+            cfg, self.photo_thin_table, self.photo_thick_table,
+            self.minlogtau, self.dlogtau, self.heat_thin_table,
+            self.heat_thick_table, device=self.device)
+        self.printlog(
+            f"Using PyTorch octahedral raytracing on {self.device} (q_max = "
+            f"{self.raytracer.geom_np.max_q:n}, batch = {batch:n}, dtype = "
+            f"{dtype_name})")
+
+    def _he_init(self, batch, dtype):
+        """The three-species engine and the coupled H+He chemistry (beyond
+        the reference; see ops/raytrace_he.py)."""
+        from ..ops.chemistry_he import HeChemistryParams
+        from ..ops.raytrace_he import HeRaytracer
+        from ..radiation.helium import (DEFAULT_PL, HE_EDGES_EV,
+                                        cross_section, make_spectral_bins_he,
+                                        secondary_ramps,
+                                        verner_cross_section)
+        ld = self._ld
+        # 3 x 8 = 72 bins over 3 bands; the He rate pass scales linearly
+        # with the bin count
+        panels = int(ld["Raytracing"].get("bins_panels", 3))
+        nodes = int(ld["Raytracing"].get("bins_nodes", 8))
+        # the configured HI cross-section slope; HeI/HeII keep the defaults
+        pl = (float(self.cs_pl_idx_h), DEFAULT_PL[1], DEFAULT_PL[2])
+        # Raytracing.cross_sections: powerlaw (the reference's family,
+        # default) or verner (Verner et al. 1996 fits)
+        cs_model = str(ld["Raytracing"].get("cross_sections", "powerlaw"))
+        if cs_model == "verner" and float(self.cs_pl_idx_h) != 2.8:
+            raise ValueError(
+                "BlackBodySource.cross_section_pl_index = "
+                f"{self.cs_pl_idx_h!r} conflicts with Raytracing."
+                "cross_sections: verner — the Verner fits fix the "
+                "frequency dependence and would silently ignore the "
+                "configured slope; drop one of the two settings")
+        bins = make_spectral_bins_he(
+            BlackBodySource(self.bb_Teff, self.grey, ev2fr * self.eth0,
+                            self.cs_pl_idx_h),
+            panels_per_band=panels, nodes=nodes, pl=pl,
+            cross_section_model=cs_model)
+        self.raytracer = HeRaytracer(
+            self.N, float(self.R_max_LLS), bins, self.abu_he,
+            batch_size=batch, dtype=dtype, device=self.device,
+            do_heating=self.compute_heating_rates)
+        if self.thermal is not None and not self.compute_heating_rates:
+            raise ValueError(
+                "Material.isothermal: false with engine: he requires "
+                "Photo.compute_heating_rates: 1 (the He engine "
+                "accumulates heating only when asked)")
+        if self.secondary_ionization and not self.compute_heating_rates:
+            raise ValueError(
+                "Photo.secondary_ionization: 1 requires "
+                "Photo.compute_heating_rates: 1 (the heat channel "
+                "carries the photoelectron energy being "
+                "redistributed into HI/HeI collisional ionizations)")
+        # the recycling's cross sections from the model the bins use
+        if cs_model == "verner":
+            cs = verner_cross_section
+        else:
+            def cs(nu, s):
+                return cross_section(nu, s, pl=pl[s])
+        nu_he1 = ev2fr * HE_EDGES_EV[1]
+        nu_lya2 = ev2fr * 40.8
+        # opt-in energy ramps on the SvS secondary fractions
+        ramps = (1.0, 1.0)
+        if self.secondary_ramp:
+            if not self.secondary_ionization:
+                raise ValueError(
+                    "Photo.secondary_ramp: 1 modifies the secondary-"
+                    "ionization channel; set Photo."
+                    "secondary_ionization: 1 too (or drop the ramp)")
+            ramps = secondary_ramps(bins, self.abu_he)
+            self.printlog(
+                f"Secondary-ionization energy ramps (SED-averaged "
+                f"threshold interpolation): f_ion,HI x {ramps[0]:.3f}, "
+                f"f_ion,HeI x {ramps[1]:.3f}")
+        self.chem_he = HeChemistryParams(
+            chem=self.chem, abu_he=self.abu_he,
+            secondary=self.secondary_ionization,
+            recombination_photons=self.recombination_photons,
+            sig_h_he1=float(cs(nu_he1, 0)),
+            sig_he1_he1=float(cs(nu_he1, 1)),
+            sig_h_lya2=float(cs(nu_lya2, 0)),
+            sig_he1_lya2=float(cs(nu_lya2, 1)),
+            sec_ramp_hi=float(ramps[0]),
+            sec_ramp_hei=float(ramps[1]))
+        # He ionization state (xHeII, xHeIII fractions), unless a resume
+        # loaded it
+        if not hasattr(self, "xhe1"):
+            self.xhe1 = np.full(self.shape, 1e-3)
+            self.xhe2 = np.zeros(self.shape)
+        self.printlog(
+            f"Using three-species (H+He) raytracing on {self.device} "
+            f"({bins.num_bins} bins over 3 bands, abu_he = "
+            f"{self.abu_he:.3g}, batch = {batch:n})")
 
     def _grid_init(self):
         """(c2ray_base.py:445-462)"""

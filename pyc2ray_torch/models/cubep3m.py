@@ -5,9 +5,9 @@ reference's ``C2Ray_CubeP3M`` (pyc2ray/c2ray_cubep3m.py:17-226): reads
 N-body halo catalogs (HDF5) and coarse density fields, converts halo mass to
 ionizing flux, writes C2Ray-compatible binary outputs, and resumes from the
 latest output redshift. tools21cm is replaced by the readers of io/cbin.py;
-h5py is imported only to read a catalog. The helium channels of the JAX
-class (xfracHe1/xfracHe2) come with the helium engine (ROADMAP.md section 1
-item 9).
+h5py is imported only to read a catalog. Beyond the reference, a
+non-isothermal run also writes and reloads its temperature (Temper), and a
+helium run (engine: he) its helium fractions (xfracHe1, xfracHe2).
 """
 
 import glob
@@ -108,7 +108,8 @@ class C2Ray_CubeP3M(C2RaySimulation):
     def write_output(self, z):
         """C2Ray-compatible binary outputs (c2ray_cubep3m.py:128-143).
         Non-isothermal runs also write Temper, so that they resume with
-        their temperature (the reference resets it, SURVEY.md section 5)."""
+        their temperature (the reference resets it, SURVEY.md section 5),
+        and helium runs xfracHe1/xfracHe2."""
         suffix = f"_{z:.3f}.dat"
         save_cbin(self.results_basename + "xfrac" + suffix, self.xh,
                   bits=64, order="F")
@@ -117,6 +118,11 @@ class C2Ray_CubeP3M(C2RaySimulation):
         if not self.isothermal:
             save_cbin(self.results_basename + "Temper" + suffix, self.temp,
                       bits=64, order="F")
+        if self.multi_species:
+            save_cbin(self.results_basename + "xfracHe1" + suffix,
+                      self.xhe1, bits=64, order="F")
+            save_cbin(self.results_basename + "xfracHe2" + suffix,
+                      self.xhe2, bits=64, order="F")
         self.printlog("\n--- Reionization History ----")
         self.printlog(" min, mean, max xHII : %.3e  %.3e  %.3e"
                       % (self.xh.min(), self.xh.mean(), self.xh.max()))
@@ -145,7 +151,8 @@ class C2Ray_CubeP3M(C2RaySimulation):
 
     def _material_init(self):
         """(c2ray_cubep3m.py:170-190); a non-isothermal run's Temper output
-        is reloaded where it exists."""
+        and a helium run's xfracHe1/xfracHe2 are reloaded where they
+        exist."""
         temp0 = self._ld["Material"]["temp0"]
         if self.resume:
             self.ndens = (DensityFile(
@@ -160,6 +167,17 @@ class C2Ray_CubeP3M(C2RaySimulation):
                 self.temp = read_cbin(tfile, bits=64, order="F")
             else:
                 self.temp = temp0 * np.ones(self.shape)
+            h1 = "%sxfracHe1_%.3f.dat" % (self.results_basename, self.zred)
+            h2 = "%sxfracHe2_%.3f.dat" % (self.results_basename, self.zred)
+            if os.path.exists(h1) and os.path.exists(h2):
+                self.xhe1 = read_cbin(h1, bits=64, order="F")
+                self.xhe2 = read_cbin(h2, bits=64, order="F")
+            elif os.path.exists(h1) != os.path.exists(h2):
+                raise FileNotFoundError(
+                    "incomplete helium checkpoint: exactly one of "
+                    f"{h1} / {h2} exists (run interrupted mid-output?); "
+                    "remove the stray file to resume with default He "
+                    "fractions or restore the pair")
             self.phi_ion = read_cbin(
                 "%sIonRates_%.3f.dat" % (self.results_basename, self.zred),
                 bits=32, order="F")

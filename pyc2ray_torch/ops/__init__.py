@@ -1,9 +1,12 @@
 from .adaptive import AdaptiveRaytracer
 from .chemistry import global_pass, doric, ChemistryParams
-from .raytrace import RaytraceConfig
+from .chemistry_he import HeChemistryParams, global_pass_he
+from .raytrace import RaytraceConfig, Raytracer
 from .raytrace_cheb import ChebRaytracer, ChebTables
+from .raytrace_he import HeRaytracer
 
 __all__ = [
     "AdaptiveRaytracer", "global_pass", "doric", "ChemistryParams",
-    "RaytraceConfig", "ChebRaytracer", "ChebTables",
+    "HeChemistryParams", "global_pass_he", "RaytraceConfig", "Raytracer",
+    "ChebRaytracer", "ChebTables", "HeRaytracer",
 ]

@@ -22,6 +22,7 @@ iteration semantics exactly. The loop runs on the tensors' device; its
 exit test reads one flag per iteration back to the host.
 """
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -65,24 +66,61 @@ def doric(xh_old, dt, temp, rhe, phi, p: ChemistryParams):
     delth = aih0 + rhe * brech0
     eqxh = aih0 / delth
     deltht = delth * dt
-    ee = torch.exp(-deltht)
-    xh = (xh_old - eqxh) * ee + eqxh
-    xh = torch.clamp(xh, min=EPSILON)
-
-    # (1-ee)/deltht -> 1 for small deltht; guard precision (chemistry.f90:299-306).
-    # 1 - ee cancels where deltht is small. The reference computes it in
-    # float64; in float32 it keeps only ~6e-8/deltht of relative precision,
-    # so a 1-ulp difference of exp between two libraries moved <x> by up
-    # to 100% (the card against the CPU), and there -expm1(-deltht), exact
-    # to an ulp at every deltht, takes its place.
     if deltht.dtype == torch.float64:
-        one_minus_ee = 1.0 - ee
+        xh, xh_av = _closed_form_reference(xh_old, eqxh, deltht)
     else:
-        one_minus_ee = -torch.expm1(-deltht)
+        xh, xh_av = _closed_form_float32(xh_old, eqxh, deltht)
+    return torch.clamp(xh, min=EPSILON), torch.clamp(xh_av, min=EPSILON)
+
+
+def _closed_form_reference(x0, eqxh, deltht):
+    """x(t) and <x> as the reference writes them (chemistry.f90:285-306),
+    with its guard: (1 - ee)/deltht -> 1 below deltht = 1e-8."""
+    ee = torch.exp(-deltht)
+    xh = (x0 - eqxh) * ee + eqxh
     avg_factor = torch.where(deltht < 1.0e-8, torch.ones_like(deltht),
+                             (1.0 - ee) / deltht)
+    return xh, eqxh + (x0 - eqxh) * avg_factor
+
+
+# g(z) = 1 - (1 - e^-z)/z = sum_{k>=1} (-1)^(k+1) z^k / (k+1)!; below
+# _G_SERIES_BELOW its first ten terms are exact to float32 rounding (the
+# eleventh is below 2e-10 of the sum at z = 0.5).
+_G_SERIES_BELOW = 0.5
+_G_COEFFS = tuple((-1.0) ** (k + 1) / math.factorial(k + 1)
+                  for k in range(1, 11))
+
+
+def _closed_form_float32(x0, eqxh, deltht):
+    """The reference's closed form rewritten so that, in float32, each
+    result is a sum of two non-negative terms: no cancellation.
+
+    The reference's x(t) = eqxh + (x0 - eqxh) e^-z and <x> = eqxh +
+    (x0 - eqxh) (1 - e^-z)/z cancel where x0 << eqxh (an ionizing cell):
+    the result is then much smaller than eqxh and keeps only ~6e-8 eqxh/x
+    of relative precision, so a one-ulp difference of exp between two
+    libraries moved x by 5e-5 at x = 1e-3. Where x0 <= eqxh this writes
+        x(t) = x0 + (eqxh - x0) (-expm1(-z)),
+        <x>  = x0 + (eqxh - x0) g(z),  g(z) = 1 - (1 - e^-z)/z,
+    with g by its series below z = 0.5 (1 - (1 - e^-z)/z cancels there)
+    and from -expm1(-z) above; where x0 > eqxh (a recombining cell) the
+    reference's form is already a sum of non-negative terms, with
+    (1 - e^-z)/z taken as -expm1(-z)/z. The reference's guard stays: below
+    z = 1e-8 the average factor is 1 (g = 0), as in float64."""
+    one_minus_ee = -torch.expm1(-deltht)
+    tiny = deltht < 1.0e-8
+    avg_factor = torch.where(tiny, torch.ones_like(deltht),
                              one_minus_ee / deltht)
-    xh_av = eqxh + (xh_old - eqxh) * avg_factor
-    xh_av = torch.clamp(xh_av, min=EPSILON)
+    g = torch.full_like(deltht, _G_COEFFS[-1])
+    for coeff in reversed(_G_COEFFS[:-1]):
+        g = coeff + deltht * g
+    g = torch.where(deltht < _G_SERIES_BELOW, deltht * g, 1.0 - avg_factor)
+    g = torch.where(tiny, torch.zeros_like(g), g)
+    d = eqxh - x0
+    up = d >= 0
+    xh = torch.where(up, x0 + d * one_minus_ee,
+                     eqxh - d * torch.exp(-deltht))
+    xh_av = torch.where(up, x0 + d * g, eqxh - d * avg_factor)
     return xh, xh_av
 
 

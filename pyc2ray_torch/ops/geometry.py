@@ -1,15 +1,24 @@
-"""Cell geometry of the short-characteristics interpolation.
+"""Octahedral short-characteristics traversal geometry.
 
-``_corner_tables`` is the vectorized cinterp geometry of C2Ray
-(raytracing.f90:576-815): for each cell offset from the source it gives the
-four interpolation corners, their geometric weights, the path length through
-the cell and the diagonal correction factor. ``max_q_for`` sizes the L1
-octahedron for a raytracing radius. Host-side numpy, built once per engine.
+Numpy copy of pyc2ray_tpu/ops/geometry.py. ``_corner_tables`` is the
+vectorized cinterp geometry of C2Ray (raytracing.f90:576-815): for each cell
+offset from the source it gives the four interpolation corners, their
+geometric weights, the path length through the cell and the diagonal
+correction factor. ``max_q_for`` sizes the L1 octahedron for a raytracing
+radius. ``build_geometry`` lays out the cells of that octahedron inside the
+periodic clip cube, sorted by shell (constant L1 distance q from the
+source), with each cell's 4 interpolation corners as indices into the same
+flat layout: the tables of the flat engine (ops/raytrace.py). Host-side
+numpy, built once per (N, max_q); the C++ builder of native/ is held
+bit-equal to it in the tests, and never used in its place.
 """
+
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import numpy as np
 
-__all__ = ["max_q_for"]
+__all__ = ["OctaGeometry", "build_geometry", "max_q_for"]
 
 SQRT2 = np.float64(1.41421356237)   # value used by raytracing.cu:439
 SQRT3 = np.float64(1.73205080757)   # value used by raytracing.cu:435
@@ -22,6 +31,27 @@ def max_q_for(R: float, N: int) -> int:
     radius R fits inside it, capped at the full periodic box.
     """
     return int(np.ceil(1.73205080757 * min(float(R), 1.73205080757 * N / 2.0)))
+
+
+class OctaGeometry(NamedTuple):
+    """Precomputed octahedral traversal tables (numpy, host side).
+
+    C = number of in-clip cells; Cp = padded length (C + max bucket pad).
+    """
+    N: int                    # mesh size
+    max_q: int                # largest shell index
+    num_cells: int            # C
+    offsets: np.ndarray       # (3, Cp) int32 cell offsets from source
+    nbr: np.ndarray           # (4, Cp) int32 flat indices of interpolation corners
+    sw: np.ndarray            # (4, Cp) f64 geometric corner weights s1..s4
+    path: np.ndarray          # (Cp,) f64 path length through cell, in cell units
+                              #   (cell 0 stores 0.5: the source half-cell path,
+                              #    raytracing.f90:434)
+    diag: np.ndarray          # (Cp,) f64 diagonal correction (1, sqrt2, sqrt3)
+    dist2: np.ndarray         # (Cp,) f64 squared distance to source, cell units
+    shell_start: np.ndarray   # (max_q+2,) int32 flat offset of each shell
+    shell_size: np.ndarray    # (max_q+1,) int32 number of cells in each shell
+    buckets: Tuple[Tuple[int, int, int], ...]  # (q_lo, q_hi, S_pad) runs
 
 
 def _corner_tables(di, dj, dk):
@@ -122,3 +152,113 @@ def _corner_tables(di, dj, dk):
         diag = np.where(in_x, dgx, diag)
 
     return corners, s, path, diag
+
+
+def _bucket_plan(shell_size, lane=128):
+    """Group consecutive shells into runs sharing a padded size (multiple of
+    ``lane``, power-of-two scaled) so the device sweep uses a handful of
+    fixed-shape loops."""
+    def pad_of(n):
+        p = lane
+        while p < n:
+            p *= 2
+        return p
+
+    buckets = []
+    q = 1
+    nq = len(shell_size) - 1  # shell_size[0] is the source cell
+    while q <= nq:
+        p = pad_of(max(int(shell_size[q]), 1))
+        q_hi = q + 1
+        while q_hi <= nq and pad_of(max(int(shell_size[q_hi]), 1)) == p:
+            q_hi += 1
+        buckets.append((q, q_hi, p))
+        q = q_hi
+    return tuple(buckets)
+
+
+@lru_cache(maxsize=8)
+def build_geometry(N: int, max_q: int) -> OctaGeometry:
+    """The octahedral traversal tables for an N^3 periodic grid, cached
+    per (N, max_q)."""
+    return _build_geometry_numpy(N, max_q)
+
+
+def _build_geometry_numpy(N: int, max_q: int) -> OctaGeometry:
+    """Pure-numpy geometry builder."""
+    # periodic clip cube (raytracing.cu:122-123)
+    last_r = N // 2 - 1 + (N % 2)
+    last_l = -(N // 2)
+    lo = max(last_l, -max_q)
+    hi = min(last_r, max_q)
+    side = hi - lo + 1
+
+    # enumerate candidate offsets and keep those within the octahedron
+    rng = np.arange(lo, hi + 1, dtype=np.int64)
+    DI, DJ, DK = np.meshgrid(rng, rng, rng, indexing="ij")
+    q_all = np.abs(DI) + np.abs(DJ) + np.abs(DK)
+    keep = q_all <= max_q
+    di, dj, dk = DI[keep], DJ[keep], DK[keep]
+    q = q_all[keep]
+
+    order = np.argsort(q, kind="stable")
+    di, dj, dk, q = di[order], dj[order], dk[order], q[order]
+    C = di.shape[0]
+
+    shell_size = np.bincount(q, minlength=max_q + 1).astype(np.int32)
+    shell_start = np.zeros(max_q + 2, dtype=np.int64)
+    np.cumsum(shell_size, out=shell_start[1:])
+    assert shell_start[1] == 1 and shell_size[0] == 1
+
+    # inverse map offset -> flat index
+    inv = np.full((side, side, side), -1, dtype=np.int64)
+    inv[di - lo, dj - lo, dk - lo] = np.arange(C, dtype=np.int64)
+
+    # corner geometry for all cells beyond the source cell
+    corners, s, path, diag = _corner_tables(di[1:], dj[1:], dk[1:])
+
+    # resolve corner offsets to flat indices; out-of-table corners must have
+    # zero geometric weight (see module docstring) and are clamped to 0.
+    nbr = np.zeros((4, C), dtype=np.int64)
+    for c in range(4):
+        ci, cj, ck = corners[c, 0], corners[c, 1], corners[c, 2]
+        inside = ((ci >= lo) & (ci <= hi) & (cj >= lo) & (cj <= hi)
+                  & (ck >= lo) & (ck <= hi))
+        idx = np.zeros(C - 1, dtype=np.int64)
+        idx[inside] = inv[ci[inside] - lo, cj[inside] - lo, ck[inside] - lo]
+        missing = ~inside | (idx < 0)
+        if np.any(missing):
+            assert np.all(s[c][missing] == 0.0), \
+                "corner outside table carries nonzero weight"
+            idx[missing] = 0
+        # causality: corners must live in strictly earlier shells
+        assert np.all(idx[s[c] > 0] < shell_start[q[1:]][s[c] > 0]), \
+            "corner with weight in same/later shell"
+        nbr[c] = np.concatenate([[0], idx])
+
+    sw = np.concatenate([np.zeros((4, 1)), s], axis=1)
+    path_full = np.concatenate([[0.5], path])       # source half-cell path
+    diag_full = np.concatenate([[1.0], diag])
+    dist2 = (di * di + dj * dj + dk * dk).astype(np.float64)
+
+    buckets = _bucket_plan(shell_size)
+    pad = max((b[2] for b in buckets), default=128)
+    Cp = C + pad
+
+    def padded(a, fill=0):
+        out = np.full(a.shape[:-1] + (Cp,), fill, dtype=a.dtype)
+        out[..., :C] = a
+        return out
+
+    return OctaGeometry(
+        N=N, max_q=max_q, num_cells=C,
+        offsets=padded(np.stack([di, dj, dk])).astype(np.int32),
+        nbr=padded(nbr).astype(np.int32),
+        sw=padded(sw),
+        path=padded(path_full),
+        diag=padded(diag_full, fill=1.0),
+        dist2=padded(dist2),
+        shell_start=shell_start.astype(np.int32),
+        shell_size=shell_size,
+        buckets=buckets,
+    )

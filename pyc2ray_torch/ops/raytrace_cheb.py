@@ -265,7 +265,7 @@ class ChebRaytracer:
                 if self.do_heating else None)
         return phi, heat
 
-    def _sweep_segmented(self, boxes, dr):
+    def _sweep_segmented(self, boxes, dr, sig):
         """The coldensh_out box by K segments of seg_S shells, each
         starting from the previous segment's last planes, all storing into
         one box; then the source cell."""
@@ -276,9 +276,20 @@ class ChebRaytracer:
         for k in range(self.seg_K):
             box, planes = cheb_sweep_seg(
                 boxes, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, dr,
-                g.c, self.sig, planes, 1 + k * self.seg_S, self.seg_S, box)
+                g.c, sig, planes, 1 + k * self.seg_S, self.seg_S, box)
         box[:, g.c, g.c, g.c] = src_cd
         return box
+
+    def sweep_box(self, boxes, dr, sig):
+        """The coldensh_out box of (B, Dc, Dc, Dc) absorber boxes at the
+        threshold cross section ``sig``: K1, or K2 in seg_K segments where
+        the engine segments (the helium engine sweeps each species
+        through this)."""
+        if self.seg_S:
+            return self._sweep_segmented(boxes, dr, sig)
+        tb = self.tables
+        return cheb_sweep(boxes, tb.sw, tb.path, tb.diag, tb.mask_m,
+                          tb.mask_p, dr, self.geom.c, sig)
 
     def _batch_rates(self, boxes, flux, dr, dr_t):
         """One batch's (phi, heat) rate boxes by the engine's sweep mode:
@@ -297,11 +308,8 @@ class ChebRaytracer:
             return cheb_sweep(boxes, *geo, dr, c, self.sig,
                               bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
                               R2=self.R_max_LLS ** 2, flux=flux), None
-        if self.seg_S:
-            cd = self._sweep_segmented(boxes, dr)
-        else:
-            cd = cheb_sweep(boxes, *geo, dr, c, self.sig)
-        return self._rates(cd, boxes, flux, dr_t)
+        return self._rates(self.sweep_box(boxes, dr, self.sig), boxes, flux,
+                           dr_t)
 
     def _fold_padding(self, padded):
         """Fold the wrap padding of the extended grid back onto the
@@ -333,27 +341,36 @@ class ChebRaytracer:
         for pos, flux in zip(pos_b, flux_b):
             boxes = self._extract_boxes(nhi_pad, pos.to(self.device))
             phi_box, heat_box = self._batch_rates(boxes, flux, dr, dr_t)
-            D = phi_box.shape[-1]
-            shift = self._rb0 if D == self.Ds else 0
-            for pad, rate_box in ((phi_pad, phi_box), (heat_pad, heat_box)):
-                if pad is None:
-                    continue
-                for (p0, p1, p2), box in zip(pos.tolist(), rate_box):
-                    p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
-                    pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
+            self.add_boxes(phi_pad, phi_box, pos)
+            if heat_pad is not None:
+                self.add_boxes(heat_pad, heat_box, pos)
         return phi_pad, heat_pad
+
+    def add_boxes(self, pad, rate_boxes, pos):
+        """Add each source's rate box into the padded grid ``pad``, source
+        by source in batch order: the (Dc)^3 box at the source's box
+        corner ``pos`` (B, 3), a (Ds)^3 rates subbox rb0 further in."""
+        D = rate_boxes.shape[-1]
+        shift = self._rb0 if D == self.Ds else 0
+        for (p0, p1, p2), box in zip(pos.tolist(), rate_boxes):
+            p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
+            pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
+
+    def wrap_pad(self, field3):
+        """The (N, N, N) field wrap-padded to the extended frame of the
+        boxes: c cells below, Dc - 1 - c above, on every axis."""
+        g = self.geom
+        wrap = torch.arange(-g.c, self.N + g.Dc - 1 - g.c,
+                            device=field3.device) % self.N
+        return field3[wrap][:, wrap][:, :, wrap]
 
     def trace_batches(self, nd, xh, pos_b, flux_b, dr):
         """Batched trace on prepared sources with flat-grid IO; returns
         (phi, heat), heat None without ``do_heating``."""
-        g = self.geom
         N = self.N
         nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
-        wrap = torch.arange(-g.c, N + g.Dc - 1 - g.c,
-                            device=nhi3.device) % N
-        nhi_pad = nhi3[wrap][:, wrap][:, :, wrap]
-        phi_pad, heat_pad = self.trace_extended(nhi_pad, pos_b, flux_b,
-                                                float(dr))
+        phi_pad, heat_pad = self.trace_extended(self.wrap_pad(nhi3), pos_b,
+                                                flux_b, float(dr))
         phi = self._fold_padding(phi_pad).reshape(-1)
         if heat_pad is None:
             return phi, None

@@ -129,3 +129,89 @@ def test_doric_float32_time_average_is_not_cancelled():
                                atol=1.2e-7)
     np.testing.assert_allclose(x32.numpy(), x64.numpy(), rtol=2e-6,
                                atol=1.2e-7)
+
+
+# float32 rounding unit (one ulp of a number in [1, 2))
+_ULP32 = 2.0 ** -24
+
+
+def _doric_grid():
+    """float32 (deltht, x0, eqxh) over deltht in [1e-10, 1e3], x0 in
+    [1e-8, 1 - 1e-6] and eqxh on both sides of x0, with the exact values of
+    the reference's closed form (chemistry.f90:285-306, its guard included)
+    at 40 digits: x(t) = eqxh + (x0 - eqxh) e^-z and <x> = eqxh + (x0 -
+    eqxh) (1 - e^-z)/z, the average factor 1 below z = 1e-8 (the guard's
+    threshold as float32 compares it)."""
+    import mpmath
+    mpmath.mp.dps = 40
+    z = np.logspace(-10, 3, 40).astype(np.float32)
+    x0 = np.concatenate([np.logspace(-8, -1, 12),
+                         1 - np.logspace(-1, -6, 8)]).astype(np.float32)
+    rows = [(zi, xi, e) for zi in z for xi in x0
+            for e in np.concatenate([xi * np.logspace(-6, -0.01, 6),
+                                     xi + (1 - xi) * np.logspace(-6, -1e-4,
+                                                                 7)])]
+    grid = np.array(rows, dtype=np.float32)
+    guard = mpmath.mpf(float(np.float32(1e-8)))
+
+    def exact(z, x, e):
+        z, x, e = (mpmath.mpf(float(v)) for v in (z, x, e))
+        ee = mpmath.exp(-z)
+        avg = 1 if z < guard else (1 - ee) / z
+        return float(e + (x - e) * ee), float(e + (x - e) * avg)
+    return grid, np.array([exact(*r) for r in grid])
+
+
+def _parent_float32_form(x0, eqxh, z):
+    """doric's float32 closed form before it was rewritten: the
+    reference's x(t) and <x>, with -expm1(-z) in the average factor."""
+    x = (x0 - eqxh) * torch.exp(-z) + eqxh
+    avg = torch.where(z < 1.0e-8, torch.ones_like(z), -torch.expm1(-z) / z)
+    return x, eqxh + (x0 - eqxh) * avg
+
+
+def test_doric_float32_closed_form_within_ulps_of_exact():
+    """doric's float32 closed form (x0 + (eqxh - x0)(-expm1(-z)) and x0 +
+    (eqxh - x0) g(z)) is within 4 float32 ulps, relative, of the exact
+    values over the whole grid, both outputs. The parent's float32 form
+    cancels where x0 << eqxh and fails the same bound there by orders of
+    magnitude (the card and the CPU parted by 4.6e-5 in xh through it)."""
+    from pyc2ray_torch.ops.chemistry import _closed_form_float32
+    grid, want = _doric_grid()
+    z, x0, eqxh = (torch.from_numpy(grid[:, k].copy()) for k in (0, 1, 2))
+    bound = 4 * _ULP32
+    for form in (_closed_form_float32, _parent_float32_form):
+        got = form(x0, eqxh, z)
+        rel = [np.abs(g.double().numpy() - w) / np.abs(w)
+               for g, w in zip(got, want.T)]
+        if form is _closed_form_float32:
+            assert got[0].dtype == torch.float32
+            for r in rel:
+                assert r.max() <= bound, r.max() / _ULP32
+        else:
+            small = (grid[:, 1] < 1e-3 * grid[:, 2])
+            for r in rel:
+                assert r[small].max() > 100 * bound
+
+
+def test_doric_float64_is_the_reference_expression():
+    """In float64 doric evaluates the reference's expression itself, bit
+    for bit (so global_pass's float64 results do not move)."""
+    f = _fields(5)
+    dt = 3.15e13
+    p = ChemistryParams(**PARAMS)
+    t = {k: torch.from_numpy(v) for k, v in f.items()}
+    rhe = t["ndens"] * (t["xh_av"] + p.abu_c)
+    brech0 = p.clumping * p.bh00 * (t["temp"] / 1e4) ** p.albpow
+    acolh0 = p.colh0 * torch.sqrt(t["temp"]) * torch.exp(-p.temph0
+                                                          / t["temp"])
+    aih0 = t["phi"] + rhe * acolh0
+    delth = aih0 + rhe * brech0
+    eqxh = aih0 / delth
+    z = delth * dt
+    ee = torch.exp(-z)
+    x_ref = torch.clamp((t["xh"] - eqxh) * ee + eqxh, min=1e-14)
+    avg = torch.where(z < 1e-8, torch.ones_like(z), (1.0 - ee) / z)
+    av_ref = torch.clamp(eqxh + (t["xh"] - eqxh) * avg, min=1e-14)
+    x, av = doric(t["xh"], dt, t["temp"], rhe, t["phi"], p)
+    assert torch.equal(x, x_ref) and torch.equal(av, av_ref)
