@@ -113,12 +113,31 @@ Phases (any failure raises and the script exits non-zero):
    C2Ray_Test with engine he, the heating rates and isothermal false for two
    timesteps at N=128 on the card: iterations, K1 launches (three per
    iteration, asserted) and the photon loss of each timestep.
-5. The script's wall time, a ``kernels`` JSON line, then the result line
+5. The multi-GPU paths (pyc2ray_torch.parallel) as a world of 2 ranks
+   spawned on the one card over gloo, both on cuda:0 (and again with one
+   rank per card over nccl where the machine has two cards or more; with
+   one, a line says that branch did not run). Every rank: 5a the bench
+   configuration with fuse_fold (K3) through trace_sharded, Gamma held
+   against 3b's single-rank K3 Gamma at 1e-5 above 1e-6 of the peak; 5b
+   the EoR run's first slice with one timestep through
+   C2Ray_CubeP3M(mesh=make_mesh()), 5c the same under a domain mesh
+   di = 2 (owner-local adaptive buckets), each held against 4e's first
+   slice (raytrace iterations within one, xh within 1e-5 absolute, photon
+   loss within loss_fraction), with s per timestep and per iteration and per
+   rank the K3 launches, ms and bytes in collectives per iteration, the
+   halo bytes (5c) and the device idle share of one trace of the rank's
+   share; 5d phase 4g's helium model for its first timestep under a source
+   and a domain mesh of 2, xh and T held to 1e-10 and the helium fractions
+   to 1e-9 of 4g's. A rank's exception fails the phase.
+6. The script's wall time, a ``kernels`` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
 ``python3 chip_smoke.py --kernels`` stops after phase 2d (the kernels
 against their plain versions and their times) and prints no result line.
+``python3 chip_smoke.py --nccl``, on a machine with two cards or more, runs
+after phase 1 only phase 5's nccl world with its single-rank references
+(``nccl_branch``) and prints no result line.
 """
 
 import contextlib
@@ -1002,9 +1021,10 @@ def eor_slice(sim, k):
 
 def eor_run(bins):
     """Phase 4e: the production EoR run on the committed inputs; returns
-    the K3 launches of its timesteps and K3's device ms per call in the
-    profiled trace. ``bins`` are make_bins(), the bins the model builds
-    from parameters.yml (asserted)."""
+    the K3 launches of its timesteps, K3's device ms per call in the
+    profiled trace and the first slice's iterations, photon loss and xh.
+    ``bins`` are make_bins(), the bins the model builds from parameters.yml
+    (asserted)."""
     from pyc2ray_torch import C2Ray_CubeP3M
     from pyc2ray_torch.diagnostics import (device_idle_share,
                                            device_op_times, profile_trace)
@@ -1077,6 +1097,10 @@ def eor_run(bins):
                 f"cells with xh > 0.5: {int((xh > 0.5).sum())}; outputs read "
                 f"back equal to the state")
             xh0 = np.array(xh)
+            if k == 0:
+                # phase 5b/5c's single-rank reference
+                first = dict(iterations=n_it, loss=r["loss"][-1], xh=xh0,
+                             t_step=r["t_step"], t_ray=float(t_ray))
 
         # one trace of the last slice's state under the profiler
         pos, fl = format_sources(srcpos, flux)
@@ -1135,7 +1159,7 @@ def eor_run(bins):
         log(f"  first batch (16 sources): GPU vs CPU max abs diff "
             f"{float((phi_g - phi_c).abs().max()):.3e} (floor {floor:.3e}, "
             f"peak {float(phi_c.max()):.3e})")
-    return k3, k3_ms["A"] + k3_ms["B"]
+    return k3, k3_ms["A"] + k3_ms["B"], first
 
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1235,7 +1259,7 @@ def he_bins():
 def check_sweep_he(bins_he, reps):
     """Phase 2d: K1 at the bench shape at each species' threshold cross
     section (the helium engine sweeps each absorber at its own), bit for
-    bit against its plain version, with its time per call."""
+    bit against its plain version, with the time per call of both."""
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.raytrace_he import HeRaytracer
     dt = torch.float32
@@ -1255,10 +1279,13 @@ def check_sweep_he(bins_he, reps):
             raise RuntimeError(f"K1 at sigma_{name} differs from its plain "
                                f"version (max abs {max_abs:.3e})")
         ms = cuda_ms(lambda: sweep.cheb_sweep(*args), reps)
-        out[name] = dict(sig=sig, ms=ms, max_abs_err=max_abs)
+        plain_ms = cuda_ms(lambda: sweep.cheb_sweep_ref(*args), 2)
+        out[name] = dict(sig=sig, ms=ms, plain_ms=plain_ms,
+                         max_abs_err=max_abs)
         log(f"K1 at sigma_{name} = {sig:.4e} cm^2, B={B_BENCH} Dc={g.Dc} "
             f"R1={g.r_max + 1} float32: max_abs_err={max_abs:.3e} "
-            f"(bit-equal), kernel_ms={ms:.4f} ({plan_text('cheb_sweep')})")
+            f"(bit-equal), kernel_ms={ms:.4f}, plain_ms={plain_ms:.4f} "
+            f"({plan_text('cheb_sweep')})")
     return out
 
 
@@ -1448,7 +1475,9 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
     """Phase 4g: one evolve3D_he timestep at N=64 with 16 sources, float64,
     secondary ionizations and recombination photons on, GPU against CPU;
     then C2Ray_Test with engine he and the heating channel on for two
-    timesteps at N=128 on the card. Returns its K1 launches."""
+    timesteps at N=128 on the card. Returns its K1 launches and the state
+    after its first timestep (xh, xhe1, xhe2, temp) with its raytrace
+    iterations."""
     from pyc2ray_torch import C2Ray_Test
     from pyc2ray_torch.evolve import evolve3D_he
     from pyc2ray_torch.ops import sweep
@@ -1503,11 +1532,15 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
                               dtype=float)
             steps = []
             sweep.reset_launches()
-            for _ in range(2):
+            for n in range(2):
                 mark = len(text.getvalue())
                 sim.cosmo_evolve(dt)
                 sim.evolve3D(dt, np.array([10.0]), srcpos)
                 steps.append(text.getvalue()[mark:])
+                if n == 0:
+                    # phase 5d's single-rank reference
+                    first = {k: np.array(getattr(sim, k))
+                             for k in HE_STATE}
             torch.cuda.synchronize()
         t_sim = time.time() - t0
     k1 = sweep.launches["cheb_sweep"]
@@ -1540,7 +1573,382 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
     if not (sim.xh.max() > 10 * 1.2e-3 and sim.temp.std() > 0.0):
         raise RuntimeError("helium model: the source ionized or heated "
                            "nothing")
-    return k1
+    first["iterations"] = iters[0]
+    return k1, first
+
+
+# ---- phase 5: the port's multi-GPU paths as a world of ranks ---------------
+
+HE_STATE = ("xh", "xhe1", "xhe2", "temp")
+P5_RANKS = 2
+
+
+def _p5_bins(wd):
+    from pyc2ray_torch.radiation.spectral_bins import SpectralBins
+    with np.load(os.path.join(wd, "bins.npz")) as f:
+        return SpectralBins(s=f["s"], w_photo=f["w_photo"],
+                            w_heat=f["w_heat"], num_bins=int(f["num_bins"]))
+
+
+def _p5_traffic(mesh, n_iter):
+    """ms in collectives and bytes sent per iteration, by kind; the domain
+    path's gather of the outputs ("output") once per timestep."""
+    return {k: dict(ms=1e3 * v["seconds"] / n, bytes=v["bytes"] / n)
+            for k, v in mesh.traffic.items()
+            for n in [1 if k == "output" else max(n_iter, 1)]}
+
+
+def p5_bench_trace(mesh, wd):
+    """5a: the bench configuration (fuse_fold: K3) through trace_sharded;
+    rank 0 saves Gamma."""
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    from pyc2ray_torch.parallel import trace_sharded
+    N = N_BENCH
+    rt = ChebRaytracer(N, R_BENCH, SIG, _p5_bins(wd), batch_size=B_BENCH,
+                       dtype=torch.float32, device=mesh.device,
+                       fuse_fold=True)
+    rng = np.random.RandomState(100)
+    src_pos = rng.randint(0, N, size=(NS_BENCH, 3))
+    src_flux = np.ones(NS_BENCH)
+    nd = torch.full((N,) * 3, 1e-3, dtype=torch.float32, device=mesh.device)
+    xh = torch.full((N,) * 3, 1.2e-3, dtype=torch.float32,
+                    device=mesh.device)
+    trace_sharded(rt, mesh, nd, xh, src_pos, src_flux, DR)     # warm-up
+    torch.cuda.synchronize()
+    sweep.reset_launches()
+    mesh.reset_traffic()
+    t0 = time.time()
+    phi = trace_sharded(rt, mesh, nd, xh, src_pos, src_flux, DR)
+    torch.cuda.synchronize()
+    t = time.time() - t0
+    launches = dict(sweep.launches)
+    if mesh.rank == 0:
+        np.save(os.path.join(wd, "5a_phi.npy"), phi.cpu().numpy())
+    return dict(seconds=t, launches=launches,
+                traffic=_p5_traffic(mesh, 1))
+
+
+def p5_eor(mesh, wd, label):
+    """5b / 5c: examples/eor_simulation's first slice with one timestep
+    through C2Ray_CubeP3M(mesh=); rank 0 saves xh. Then one trace of the
+    rank's share of the catalog under torch.profiler."""
+    from pyc2ray_torch import C2Ray_CubeP3M
+    from pyc2ray_torch.diagnostics import (device_idle_share,
+                                           device_op_times, profile_trace)
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.parallel import prepare_sources_sharded
+    from pyc2ray_torch.utils import format_sources
+    from pyc2ray_torch.utils.paramutils import read_paramfile
+    rank = mesh.rank
+    params = read_paramfile(os.path.join(EOR_DIR, "parameters.yml"))
+    results = os.path.join(wd, f"{label}_r{rank}") + "/"
+    os.makedirs(results)
+    params["Output"]["results_basename"] = results
+    params["Output"]["inputs_basename"] = \
+        os.path.join(EOR_DIR, "inputs") + "/"
+    zi, zf = EOR_ZLIST[0], EOR_ZLIST[1]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        sim = C2Ray_CubeP3M(params, N_EOR, mesh=mesh)
+        sim.read_density(zi)
+        srcpos, flux = read_catalog(sim, os.path.join(
+            EOR_DIR, "inputs", "sources", f"{zi:.3f}-sources.hdf5"))
+        dt = sim.set_timestep(zi, zf, 1)
+        sim.cosmo_evolve(dt)
+        torch.cuda.synchronize()
+        sweep.reset_launches()
+        mesh.reset_traffic()
+        t0 = time.time()
+        sim.evolve3D(dt, flux, srcpos)
+        torch.cuda.synchronize()
+        t_step = time.time() - t0
+        launches = dict(sweep.launches)
+        n_iter = mesh.traffic["scalars"]["calls"]
+        traffic = _p5_traffic(mesh, n_iter)
+        sim.write_output(zf)
+    log_text = text.getvalue()
+    if rank == 0:
+        np.save(os.path.join(wd, f"{label}_xh.npy"), np.asarray(sim.xh))
+    # one trace of this rank's share under the profiler (the domain path's
+    # includes its halo exchange)
+    rt = sim.raytracer
+    pos, fl = format_sources(srcpos, flux)
+    nd = torch.as_tensor(sim.ndens, dtype=rt.dtype, device=rt.device)
+    xh = torch.as_tensor(sim.xh, dtype=rt.dtype, device=rt.device)
+    avg = float(nd.mean())
+    if label == "source":
+        nd, xh = nd.reshape(-1), xh.reshape(-1)
+        pos_b, flux_b = prepare_sources_sharded(rt, mesh, pos, fl,
+                                                dr=sim.dr, avg_dens=avg)
+
+        def trace():
+            return rt.shard_trace(nd, xh, pos_b, flux_b, sim.dr)[0]
+    else:
+        dd = sim._decomposition()
+        srcs = dd.prepare_sources(pos, fl, dr=sim.dr, avg_dens=avg)
+        nd_b, xh_b = dd.local_block(nd, 1.0), dd.local_block(xh, 0.5)
+
+        def trace():
+            return dd._trace_shard(nd_b, xh_b, srcs, sim.dr)[0]
+    trace()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trace()
+    torch.cuda.synchronize()
+    t_plain = time.time() - t0
+    prof = os.path.join(wd, f"{label}_profile_r{rank}")
+    with profile_trace(prof) as p:
+        p["sync"] = trace()
+    busy = sum(device_op_times(prof).values())
+    return dict(iterations=n_iter, t_step=t_step, launches=launches,
+                traffic=traffic,
+                t_iter=[float(v) for v in re.findall(
+                    r"Iteration \d+ took ([\d.]+) s", log_text)],
+                loss=[float(v) for v in re.findall(
+                    r"photon loss fraction: ([-+\d.e]+)", log_text)],
+                converged="Multiple source convergence reached." in log_text,
+                files=sorted(os.listdir(results)),
+                idle=device_idle_share(prof),
+                idle_unprofiled=1.0 - 1e-3 * busy / t_plain,
+                t_rank_trace=t_plain, loss_fraction=sim.loss_fraction)
+
+
+def p5_helium(mesh, wd, label):
+    """5d: C2Ray_Test with engine he, the heating rates and isothermal
+    false at N=128 for one timestep (phase 4g's first); rank 0 saves the
+    state."""
+    from pyc2ray_torch import C2Ray_Test
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.utils.paramutils import read_paramfile
+    N = N_GOLDEN
+    params = read_paramfile(os.path.join(GOLDEN_DIR, "parameters.yml"))
+    params["Raytracing"]["engine"] = "he"
+    params["Photo"]["compute_heating_rates"] = 1
+    params["Material"]["isothermal"] = False
+    results = os.path.join(wd, f"he_{label}_r{mesh.rank}") + "/"
+    os.makedirs(results)
+    params["Output"]["results_basename"] = results
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        sim = C2Ray_Test(params, N, mesh=mesh)
+        sim.ndens = 1e-3 * np.ones((N,) * 3)
+        zreds = sim.generate_redshift_array(2, 1e7)
+        dt = sim.set_timestep(zreds[0], zreds[1], STEPS_GOLDEN)
+        srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]],
+                          dtype=float)
+        torch.cuda.synchronize()
+        sweep.reset_launches()
+        mesh.reset_traffic()
+        t0 = time.time()
+        sim.cosmo_evolve(dt)
+        sim.evolve3D(dt, np.array([10.0]), srcpos)
+        torch.cuda.synchronize()
+        t_step = time.time() - t0
+    if mesh.rank == 0:
+        np.savez(os.path.join(wd, f"he_{label}.npz"),
+                 **{k: np.asarray(getattr(sim, k)) for k in HE_STATE})
+    n_iter = mesh.traffic["scalars"]["calls"]
+    return dict(iterations=n_iter, t_step=t_step,
+                launches=dict(sweep.launches),
+                traffic=_p5_traffic(mesh, n_iter))
+
+
+def phase5_rank(rank, n_ranks, init, backend, wd):
+    """One rank of phase 5's world: 5a-5d in order; the numbers go to
+    rank<r>.json, the fields of rank 0 to .npy / .npz files."""
+    import torch.distributed as dist
+    from pyc2ray_torch.parallel import make_domain_mesh, make_mesh, multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // n_ranks))
+    # gloo's ranks share cuda:0, nccl's have a card each
+    multihost.initialize(init_method="file://" + init, world_size=n_ranks,
+                         rank=rank, backend=backend,
+                         local_rank=rank if backend == "nccl" else 0,
+                         timeout_s=300)
+    smesh = make_mesh()
+    dmesh = make_domain_mesh(n_ranks, 1, 1)
+    res = {"device": str(smesh.device), "backend": smesh.backend}
+    res["5a"] = p5_bench_trace(smesh, wd)
+    res["5b"] = p5_eor(smesh, wd, "source")
+    res["5c"] = p5_eor(dmesh, wd, "domain")
+    res["5d_source"] = p5_helium(smesh, wd, "source")
+    res["5d_domain"] = p5_helium(dmesh, wd, "domain")
+    with open(os.path.join(wd, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def multi_rank(bins, smi, refs):
+    """Phase 5: a world of P5_RANKS ranks on the one card over gloo (and,
+    with two or more cards, one rank per card over nccl) runs 5a-5d; each
+    held against its single-rank phase (``refs``: see run_world). Returns
+    the K3 launches of each rank of the gloo world's 5b."""
+    torch.cuda.empty_cache()
+    k3_5b = run_world("gloo", bins, smi, refs)
+    if torch.cuda.device_count() >= P5_RANKS:
+        run_world("nccl", bins, smi, refs)
+    else:
+        log(f"phase 5 nccl branch (one rank per card): not run, the machine "
+            f"has {torch.cuda.device_count()} card (NCCL refuses two ranks "
+            f"on one device)")
+    return k3_5b
+
+
+def run_world(backend, bins, smi, refs):
+    """5a-5d on a spawned world of P5_RANKS ranks: over gloo all on
+    cuda:0, over nccl one per card. ``refs``: 3b's single-rank K3 Gamma
+    ("k3_phi") and phase 3's ("phi3"), 4e's first slice ("eor") and 4g's
+    first timestep ("he"). Returns each rank's K3 launches in 5b."""
+    import torch.multiprocessing as mp
+    where = ("one rank per card" if backend == "nccl"
+             else f"{P5_RANKS} ranks sharing cuda:0")
+    with tempfile.TemporaryDirectory() as wd:
+        np.savez(os.path.join(wd, "bins.npz"), s=bins.s,
+                 w_photo=bins.w_photo, w_heat=bins.w_heat,
+                 num_bins=bins.num_bins)
+        t0 = time.time()
+        mp.spawn(phase5_rank, args=(P5_RANKS, os.path.join(
+            wd, "rendezvous"), backend, wd), nprocs=P5_RANKS, join=True)
+        t_world = time.time() - t0
+        ranks = []
+        for r in range(P5_RANKS):
+            with open(os.path.join(wd, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        tag = f"[{backend}, {where}; {smi}]"
+        log(f"phase 5 {tag}: the world ran 5a-5d in {t_world:.1f} s "
+            f"(spawn included); rank devices "
+            f"{[r['device'] for r in ranks]}")
+        p5_check_trace(wd, ranks, tag, refs["k3_phi"], refs["phi3"])
+        for label, sub in (("source", "5b"), ("domain", "5c")):
+            p5_check_eor(wd, ranks, tag, label, sub, refs["eor"])
+        for label in ("source", "domain"):
+            p5_check_helium(wd, ranks, tag, label, refs["he"])
+    return [r["5b"]["launches"]["cheb_sweep_rates"] for r in ranks]
+
+
+def nccl_branch(smi):
+    """``--nccl``: phase 5's world with one rank per card over nccl, alone,
+    after the single-rank references it is held against: the bench trace
+    by K3 (3b) and by the default mode (3), the EoR run (4e) and the helium
+    model (4g)."""
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    if torch.cuda.device_count() < P5_RANKS:
+        raise RuntimeError(f"--nccl needs {P5_RANKS} cards; the machine has "
+                           f"{torch.cuda.device_count()}")
+    bins = make_bins()
+    N = N_BENCH
+    rng = np.random.RandomState(100)
+    src_pos = rng.randint(0, N, size=(NS_BENCH, 3))
+    nd = torch.full((N ** 3,), 1e-3, dtype=torch.float32, device="cuda")
+    xh = torch.full((N ** 3,), 1.2e-3, dtype=torch.float32, device="cuda")
+    phi = {}
+    for fold in (False, True):
+        rt = ChebRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
+                           dtype=torch.float32, fuse_fold=fold)
+        pos_b, flux_b = rt.prepare_sources(src_pos, np.ones(NS_BENCH))
+        phi[fold] = rt.trace_batches(nd, xh, pos_b, flux_b, DR)[0].cpu()
+        del rt
+    eor_first = eor_run(bins)[2]
+    # phase 4's fields, which 4g's first part takes
+    rng = np.random.RandomState(7)
+    e_pos = rng.randint(0, N_EVOLVE, size=(NS_EVOLVE, 3))
+    e_flux = rng.uniform(0.5, 2.0, NS_EVOLVE)
+    e_nd = 10 ** rng.uniform(-3.5, -2.5, (N_EVOLVE,) * 3)
+    he_first = helium_evolve(e_pos, e_flux, e_nd, he_bins(), chem_params())[1]
+    torch.cuda.empty_cache()
+    run_world("nccl", bins, smi, dict(k3_phi=phi[True], phi3=phi[False],
+                                      eor=eor_first, he=he_first))
+
+
+def _ms(traffic):
+    return ", ".join(f"{k} {v['ms']:.2f} ms / {v['bytes'] / 2 ** 20:.2f} MiB"
+                     + (" (once per timestep)" if k == "output" else "")
+                     for k, v in sorted(traffic.items()))
+
+
+def p5_check_trace(wd, ranks, tag, k3_phi, phi3):
+    phi = torch.from_numpy(np.load(os.path.join(wd, "5a_phi.npy")))
+    phi = phi.reshape(-1)
+    err = max_rel(phi, k3_phi, 1e-6)
+    err3 = max_rel(phi, phi3, 1e-6)
+    updates = cell_updates(NS_BENCH, R_BENCH)
+    for r, res in enumerate(ranks):
+        a = res["5a"]
+        k3 = a["launches"]["cheb_sweep_rates"]
+        log(f"5a {tag} rank {r}: trace_sharded N={N_BENCH} R={R_BENCH} "
+            f"Ns={NS_BENCH} B={B_BENCH} float32 fuse_fold: "
+            f"{a['seconds']:.4f} s = "
+            f"{1e9 * a['seconds'] / updates:.4f} ns/cell-update, K3 "
+            f"launches {k3}; collectives {_ms(a['traffic'])}")
+        if k3 != NS_BENCH // B_BENCH // P5_RANKS or any(
+                v for k, v in a["launches"].items()
+                if k != "cheb_sweep_rates"):
+            raise RuntimeError(f"5a rank {r}: launches {a['launches']}")
+    log(f"5a {tag}: Gamma against phase 3b's single-rank K3 Gamma: max "
+        f"rel {err:.3e} above 1e-6 of the peak (bound 1e-5); against "
+        f"phase 3's unfused Gamma {err3:.3e}")
+    if not (err <= 1e-5 and err3 <= 1e-4):
+        raise RuntimeError("5a: the sharded Gamma differs from the "
+                           "single-rank Gamma")
+
+
+def p5_check_eor(wd, ranks, tag, label, sub, first):
+    xh = np.load(os.path.join(wd, f"{label}_xh.npy"))
+    res = [r[sub] for r in ranks]
+    r0 = res[0]
+    d_xh = float(np.max(np.abs(xh - first["xh"])))
+    loss = r0["loss"][-1]
+    n_it = r0["iterations"]
+    t_it = np.mean(r0["t_iter"]) if r0["t_iter"] else float("nan")
+    log(f"{sub} {tag} EoR slice {EOR_ZLIST[0]} -> {EOR_ZLIST[1]} under the "
+        f"{label} mesh: {n_it} raytrace iterations (4e: "
+        f"{first['iterations']}), {r0['t_step']:.2f} s per timestep (4e: "
+        f"{first['t_step']:.2f}), {t_it:.3f} s per iteration (4e raytrace "
+        f"{first['t_ray']:.3f}); photon loss {loss:.3e} (4e "
+        f"{first['loss']:.3e}, bound {r0['loss_fraction']:g}); xh against "
+        f"4e max abs {d_xh:.3e} (bound 1e-5); converged {r0['converged']}")
+    for r, rr in enumerate(res):
+        log(f"  {sub} rank {r}: K3 launches "
+            f"{rr['launches']['cheb_sweep_rates']}, collectives per "
+            f"iteration {_ms(rr['traffic'])}; device idle share of the "
+            f"rank's trace {rr['idle']:.4f} profiled, "
+            f"{rr['idle_unprofiled']:.4f} unprofiled "
+            f"({rr['t_rank_trace']:.3f} s); output files "
+            f"{len(rr['files'])}")
+        if rr["launches"]["cheb_sweep_rates"] == 0:
+            raise RuntimeError(f"{sub} rank {r}: K3 never launched")
+        if (len(rr["files"]) > 0) != (r == 0):
+            raise RuntimeError(f"{sub} rank {r}: output files {rr['files']}")
+    if label == "domain":
+        halo = res[0]["traffic"].get("halo", {}).get("bytes", 0)
+        log(f"  {sub}: halo exchange {halo / 2 ** 20:.3f} MiB sent per "
+            f"iteration per rank")
+    if not (abs(n_it - first["iterations"]) <= 1 and d_xh <= 1e-5
+            and loss <= r0["loss_fraction"] and r0["converged"]):
+        raise RuntimeError(f"{sub}: the {label} mesh's timestep differs "
+                           f"from 4e's")
+
+
+def p5_check_helium(wd, ranks, tag, label, first):
+    with np.load(os.path.join(wd, f"he_{label}.npz")) as f:
+        got = {k: f[k] for k in f.files}
+    res = [r[f"5d_{label}"] for r in ranks]
+    errs = {k: max_rel(torch.from_numpy(got[k]), torch.from_numpy(first[k]))
+            for k in HE_STATE}
+    log(f"5d {tag} helium model N={N_GOLDEN} float64 (heating, "
+        f"non-isothermal), one timestep under the {label} mesh: "
+        f"{res[0]['iterations']} iterations (4g: {first['iterations']}), "
+        f"{res[0]['t_step']:.2f} s; max rel against 4g: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; K1 launches per rank "
+        + str([rr["launches"]["cheb_sweep"] for rr in res]))
+    bounds = dict(xh=1e-10, xhe1=1e-9, xhe2=1e-9, temp=1e-10)
+    if any(errs[k] > bounds[k] for k in HE_STATE) or any(
+            rr["launches"]["cheb_sweep"] == 0 for rr in res):
+        raise RuntimeError(f"5d: the {label} mesh's helium timestep "
+                           f"differs from 4g's")
 
 
 def main():
@@ -1571,6 +1979,10 @@ def main():
     t0 = time.time()
     _build.load()
     log(f"build: {time.time() - t0:.2f} s")
+    if "--nccl" in sys.argv[1:]:
+        nccl_branch(smi)
+        log(f"chip_smoke --nccl wall time: {time.time() - T_START:.1f} s")
+        return 0
     # per kernel <element type, planes shared(, heat output)>: registers,
     # spills, static shared memory (the sweeps' shared memory is dynamic,
     # see the plans)
@@ -1736,6 +2148,7 @@ def main():
     phi_c = rt_cpu.trace(nd_np, xh_np, src_pos[:16], src_flux[:16], DR)
     floor = 1e-6 * float(phi_c.max())
     torch.testing.assert_close(phi_g, phi_c, rtol=1e-4, atol=floor)
+    phi_cpu = phi.cpu()                 # phase 5a prints its distance
     log(f"main path, 16 sources: GPU vs CPU max abs diff "
         f"{float((phi_g - phi_c).abs().max()):.3e} (floor {floor:.3e})")
 
@@ -1755,6 +2168,8 @@ def main():
         # cancels where dcol >> cdin: compare above a floor at the peak
         compare(f"{mode} Gamma vs the unfused Gamma", phi_f, phi, 1e-4,
                 1e-6)
+        if mode == "fuse_fold":
+            k3_phi = phi_f.cpu()        # phase 5a's single-rank reference
         br = stage_breakdown(rtf, ndens, xh, pos_b, flux_b, 16)
         log("  per-batch device ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in br.items()))
@@ -1950,7 +2365,7 @@ def main():
     adaptive_bench(bins)
 
     # ---- 4e. the production EoR run on the committed inputs --------------
-    eor_launches, eor_device_ms = eor_run(bins)
+    eor_launches, eor_device_ms, eor_first = eor_run(bins)
     k_eor.update(ms=eor_device_ms, ms_back_to_back=k_eor["ms"])
 
     # ---- 4f. the golden: examples/single_source_test at N=128 -------------
@@ -1974,9 +2389,14 @@ def main():
         raise RuntimeError(f"golden: {', '.join(failed) or 'engine'} FAILED")
 
     # ---- 4g. helium end to end ---------------------------------------------
-    helium_evolve(e_pos, e_flux, e_nd, bins_he, chem)
+    _, he_first = helium_evolve(e_pos, e_flux, e_nd, bins_he, chem)
 
-    # ---- 5. kernels line and result -----------------------------------
+    # ---- 5. the multi-GPU paths: a world of ranks ----------------------
+    del sim
+    k3_5b = multi_rank(bins, smi, dict(k3_phi=k3_phi, phi3=phi_cpu,
+                                       eor=eor_first, he=he_first))
+
+    # ---- 6. kernels line and result -----------------------------------
     # launches: each kernel's count over its own path's run (phases 3 and
     # 3e for K1: the hydrogen and the helium trace at the bench shape, 3b
     # for K1f and K2, 3c for K3h, 4e for K3: the EoR run's timesteps);
@@ -1991,6 +2411,8 @@ def main():
         dict(name="cheb_sweep", source=src + "cheb_sweep.cu",
              replaces=tpu + "353", launches=launches + he_launches,
              ms_at_sigma_he={k: v["ms"] for k, v in k_he.items()},
+             plain_ms_at_sigma_he={k: v["plain_ms"]
+                                   for k, v in k_he.items()},
              **k_bench),
         dict(name="cheb_sweep_fused_rates", source=src + "cheb_sweep.cu",
              replaces=tpu + "325",
@@ -1999,7 +2421,8 @@ def main():
         dict(name="cheb_sweep_seg", source=src + "cheb_sweep.cu",
              replaces=tpu + "455", launches=seg_launches, **k_seg),
         dict(name="cheb_sweep_rates", source=src + "cheb_sweep_rates.cu",
-             replaces=tpu + "669", launches=eor_launches, **k_eor),
+             replaces=tpu + "669", launches=eor_launches,
+             launches_per_rank_5b=k3_5b, **k_eor),
         dict(name="cheb_sweep_rates_heat", source=src + "cheb_sweep_rates.cu",
              replaces=tpu + "669", launches=heat_launches, **k_heat)]
     kernels = [dict(name=k.pop("name"), route="cuda", **k, library_ms=None)

@@ -24,10 +24,15 @@ Differences from the JAX package:
   ``Raytracer`` (ops/raytrace.py), the engine of the 2e-5 golden
   (examples/single_source_test); ``he`` builds the three-species
   ``HeRaytracer`` (ops/raytrace_he.py) and evolves hydrogen and helium
-  together (``evolve3D_he``). The engine and options that are not ported
-  yet (``box``, a device mesh, the window accumulate) raise
-  ``NotImplementedError`` naming the ROADMAP.md item that brings them;
-  none is mapped onto another.
+  together (``evolve3D_he``). The engine and option that are not ported
+  (``box``, the window accumulate) raise ``NotImplementedError`` naming the
+  ROADMAP.md item; none is mapped onto another.
+* ``mesh`` is a mesh of ranks of ``pyc2ray_torch.parallel`` (one process
+  per rank on torch.distributed, every rank building the same simulation):
+  a ("src", "space") mesh runs the source-parallel path, a ("di", "dj",
+  "dk") mesh the domain-decomposed one, as the JAX model layer switches on
+  its device mesh. Only the primary rank writes the log and the output
+  files.
 """
 
 import numpy as np
@@ -71,7 +76,7 @@ class C2RaySimulation:
     """Base class for a C2Ray-style reionization simulation in PyTorch."""
 
     def __init__(self, paramfile, Nmesh, use_gpu=True, use_mpi=None,
-                 mesh=None, device="cuda"):
+                 mesh=None, device=None):
         """
         Parameters
         ----------
@@ -83,21 +88,20 @@ class C2RaySimulation:
         use_gpu, use_mpi :
             Accepted for API compatibility with the reference constructor
             signature (c2ray_base.py:84); ignored (see ``device``).
-        mesh : must be None
-            The JAX package takes a device mesh here; multi-GPU execution
-            is not ported yet.
-        device : str or torch.device
-            Where the raytracer and the evolve loop run: "cuda" (default)
-            or "cpu".
+        mesh : pyc2ray_torch.parallel mesh, optional
+            A mesh of ranks for multi-GPU execution: ``make_mesh`` (source
+            parallel) or ``make_domain_mesh`` (domain decomposition).
+        device : str or torch.device, optional
+            Where the raytracer and the evolve loop run: "cuda" (the
+            default; under a mesh the rank's card, ``mesh.device``) or
+            "cpu".
         """
         del use_gpu, use_mpi
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (source-parallel or domain-decomposed "
-                "execution) is not ported yet: ROADMAP.md section 1 item "
-                "11 (parallel/)")
-        self.rank = 0
-        self.mesh = None
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
+        self.primary = self.rank == 0
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
         self.device = resolve_device(device)
 
         self._read_paramfile(paramfile)
@@ -132,26 +136,64 @@ class C2RaySimulation:
         ``xh`` and ``phi_ion``, and ``temp`` in the non-isothermal mode."""
         pos, flux = format_sources(src_pos, src_flux)
         common = dict(convergence_fraction=self.convergence_fraction,
-                      logfile=self.logfile, quiet=False,
+                      logfile=self.logfile, quiet=not self.primary,
                       thermal=self.thermal, zred=self.zred,
                       loss_fraction=self.loss_fraction)
+        # the JAX model layer's switch (its models/base.py:113-175): a
+        # ("di", ...) mesh decomposes the grid, any other mesh splits the
+        # sources
+        domain = self.mesh is not None and "di" in self.mesh.axis_names
         if self.multi_species:
-            out = evolve3D_he(
-                dt, self.dr, flux, pos, self.raytracer, self.chem_he,
-                self.temp, self.ndens, self.xh, self.xhe1, self.xhe2,
-                **common)
+            args = (self.chem_he, self.temp, self.ndens, self.xh, self.xhe1,
+                    self.xhe2)
+            if domain:
+                from ..parallel.domain import evolve3D_he_domain
+                out = evolve3D_he_domain(dt, self.dr, flux, pos,
+                                         self._decomposition(), *args,
+                                         **common)
+            elif self.mesh is not None:
+                from ..parallel.source_parallel import evolve3D_he_sharded
+                out = evolve3D_he_sharded(dt, self.dr, flux, pos,
+                                          self.raytracer, self.mesh, *args,
+                                          **common)
+            else:
+                out = evolve3D_he(dt, self.dr, flux, pos, self.raytracer,
+                                  *args, **common)
             (self.xh, self.phi_ion, self.xhe1, self.xhe2,
              self.phi_he1, self.phi_he2) = out[:6]
             if self.thermal is not None:
                 self.temp = out[6]
             return
-        out = evolve3D(
-            dt, self.dr, flux, pos, self.raytracer, self.chem,
-            self.temp, self.ndens, self.xh, **common)
+        if self.mesh is not None and not domain \
+                and not hasattr(self.raytracer, "shard_trace"):
+            raise NotImplementedError(
+                f"engine {type(self.raytracer).__name__} does not support "
+                "the source-parallel mesh (no shard_trace); use engine: "
+                "cheb, pallas or flat under a mesh")
+        args = (self.chem, self.temp, self.ndens, self.xh)
+        if domain:
+            from ..parallel.domain import evolve3D_domain
+            out = evolve3D_domain(dt, self.dr, flux, pos,
+                                  self._decomposition(), *args, **common)
+        elif self.mesh is not None:
+            from ..parallel.source_parallel import evolve3D_sharded
+            out = evolve3D_sharded(dt, self.dr, flux, pos, self.raytracer,
+                                   self.mesh, *args, **common)
+        else:
+            out = evolve3D(dt, self.dr, flux, pos, self.raytracer, *args,
+                           **common)
         if self.thermal is not None:
             self.xh, self.phi_ion, self.temp = out
         else:
             self.xh, self.phi_ion = out
+
+    def _decomposition(self):
+        """The domain decomposition of the raytracer over the mesh, made
+        once."""
+        if getattr(self, "_decomp", None) is None:
+            from ..parallel.domain import DomainDecomposition
+            self._decomp = DomainDecomposition(self.raytracer, self.mesh)
+        return self._decomp
 
     def cosmo_evolve(self, dt):
         """Dilute density / contract cell size over a timestep using the
@@ -222,9 +264,11 @@ class C2RaySimulation:
         return t / YEAR if unit in ("yr", "yrs") else t
 
     def printlog(self, s, quiet=False):
+        """Log ``s``: on the primary rank only."""
         if self.logfile is None:
             raise RuntimeError("Please set the log file in _output_init")
-        printlog(s, self.logfile, quiet)
+        if self.primary:
+            printlog(s, self.logfile, quiet)
 
     def write_output(self, z):
         pass

@@ -45,7 +45,7 @@ class C2Ray_CubeP3M(C2RaySimulation):
     ``device`` as in ``C2RaySimulation``."""
 
     def __init__(self, paramfile, Nmesh, use_gpu=True, mesh=None,
-                 device="cuda"):
+                 device=None):
         super().__init__(paramfile, Nmesh, use_gpu, mesh=mesh, device=device)
         self.printlog('Running: "C2Ray CubeP3M"')
 
@@ -109,7 +109,9 @@ class C2Ray_CubeP3M(C2RaySimulation):
         """C2Ray-compatible binary outputs (c2ray_cubep3m.py:128-143).
         Non-isothermal runs also write Temper, so that they resume with
         their temperature (the reference resets it, SURVEY.md section 5),
-        and helium runs xfracHe1/xfracHe2."""
+        and helium runs xfracHe1/xfracHe2. The primary rank's only."""
+        if not self.primary:
+            return
         suffix = f"_{z:.3f}.dat"
         save_cbin(self.results_basename + "xfrac" + suffix, self.xh,
                   bits=64, order="F")
@@ -194,6 +196,8 @@ class C2Ray_CubeP3M(C2RaySimulation):
         self.results_basename = self._ld["Output"]["results_basename"]
         self.inputs_basename = self._ld["Output"]["inputs_basename"]
         self.logfile = self.results_basename + self._ld["Output"]["logfile"]
+        if not self.primary:
+            return
         if self._ld["Grid"]["resume"]:
             with open(self.logfile, "a") as f:
                 f.write("\n\nResuming pyC2Ray (torch) run\n\n")

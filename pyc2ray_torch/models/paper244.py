@@ -23,7 +23,7 @@ class C2Ray_244Test(C2RaySimulation):
     (c2ray_244paper.py:29). ``device`` as in ``C2RaySimulation``."""
 
     def __init__(self, paramfile, Nmesh, use_gpu=True, mesh=None,
-                 device="cuda"):
+                 device=None):
         super().__init__(paramfile, Nmesh, use_gpu, mesh=mesh, device=device)
         self.printlog('Running: "C2Ray 244Mpc paper test"')
 
@@ -136,6 +136,8 @@ class C2Ray_244Test(C2RaySimulation):
             self.prev_zdens = high_z
 
     def write_output(self, z):
+        if not self.primary:
+            return
         suffix = f"_{z:.3f}.dat"
         save_cbin(self.results_basename + "xfrac" + suffix, self.xh,
                   bits=64, order="F")
@@ -190,5 +192,7 @@ class C2Ray_244Test(C2RaySimulation):
         self.inputs_basename = self._ld["Output"].get("inputs_basename", "./")
         self.logfile = self.results_basename + self._ld["Output"]["logfile"]
         mode = "a" if self._ld["Grid"]["resume"] else "w"
-        with open(self.logfile, mode) as f:
-            f.write("\nLog file for pyC2Ray (torch, 244Mpc paper variant)\n\n")
+        if self.primary:
+            with open(self.logfile, mode) as f:
+                f.write("\nLog file for pyC2Ray (torch, 244Mpc paper "
+                        "variant)\n\n")

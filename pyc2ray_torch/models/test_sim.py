@@ -28,7 +28,7 @@ class C2Ray_Test(C2RaySimulation):
     """A C2Ray test-case simulation (c2ray_test.py:14)."""
 
     def __init__(self, paramfile, Nmesh, use_gpu=True, use_mpi=None,
-                 mesh=None, device="cuda"):
+                 mesh=None, device=None):
         super().__init__(paramfile, Nmesh, use_gpu, use_mpi, mesh=mesh,
                          device=device)
         self.printlog('Running: "C2Ray Test"')
@@ -41,7 +41,9 @@ class C2Ray_Test(C2RaySimulation):
         self.set_constant_average_density(self.avg_dens, z)
 
     def write_output(self, z):
-        """Pickle outputs (c2ray_test.py:77-89)."""
+        """Pickle outputs (c2ray_test.py:77-89); the primary rank's."""
+        if not self.primary:
+            return
         suffix = f"_{z:.3f}.pkl"
         with open(self.results_basename + "xfrac" + suffix, "wb") as f:
             pkl.dump(self.xh, f)
@@ -49,6 +51,8 @@ class C2Ray_Test(C2RaySimulation):
             pkl.dump(self.phi_ion, f)
 
     def write_output_numbered(self, n):
+        if not self.primary:
+            return
         suffix = f"_{n:n}.pkl"
         with open(self.results_basename + "xfrac" + suffix, "wb") as f:
             pkl.dump(self.xh, f)
@@ -84,6 +88,7 @@ class C2Ray_Test(C2RaySimulation):
     def _output_init(self):
         self.results_basename = self._ld["Output"]["results_basename"]
         self.logfile = self.results_basename + self._ld["Output"]["logfile"]
-        with open(self.logfile, "w") as f:
-            f.write("\nLog file for pyC2Ray (PyTorch)\n\n")
+        if self.primary:
+            with open(self.logfile, "w") as f:
+                f.write("\nLog file for pyC2Ray (PyTorch)\n\n")
         self.printlog(_BANNER)

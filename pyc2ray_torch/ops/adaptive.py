@@ -18,11 +18,11 @@ The mean density of the Stromgren policy is that of the density grid being
 traced (passed by the evolve loop / ``prepare_sources``), not a constant
 fixed at construction.
 
-Not ported here: the JAX engine's multi-device API (``tables``,
-``shard_trace``) waits for ROADMAP.md section 1 item 11 (parallel/), and its
-window accumulate, whose batch-size rule (``bucket_batch``) therefore does
-not apply: every bucket keeps ``batch_size``, as the JAX engine does with
-``accumulate="scan"``.
+Under a source mesh the engine traces bucket-major (``shard_trace``, staged
+by parallel/source_parallel.py), under a domain mesh owner-local
+(parallel/domain.py). Not ported: the JAX engine's window accumulate, whose
+batch-size rule (``bucket_batch``) therefore does not apply: every bucket
+keeps ``batch_size``, as the JAX engine does with ``accumulate="scan"``.
 """
 
 from typing import NamedTuple
@@ -160,6 +160,24 @@ class AdaptiveRaytracer:
             phi = torch.zeros(self.N ** 3, dtype=self.dtype,
                               device=self.device)
             heat = torch.zeros_like(phi) if self.do_heating else None
+        return phi, heat
+
+    def shard_trace(self, nd, xh, pos_b, flux_b, dr):
+        """A rank's partial Gamma (and heat) bucket-MAJOR, with no reduce.
+
+        ``pos_b``/``flux_b`` are per-bucket tuples staged by
+        parallel.source_parallel.prepare_sources_sharded: every bucket is
+        padded to a whole number of batches per rank (zero-flux padding,
+        one batch for an empty bucket), so all ranks sweep the same radius
+        bucket in lockstep and per-rank batches never mix radii. Summed
+        over the buckets in ascending order; the caller all-reduces."""
+        phi = None
+        heat = None
+        for eng, pk, fk in zip(self.engines, pos_b, flux_b):
+            p, h = eng.shard_trace(nd, xh, pk, fk, dr)
+            phi = p if phi is None else phi + p
+            if self.do_heating:
+                heat = h if heat is None else heat + h
         return phi, heat
 
     def trace(self, ndens, xh_av, src_pos, src_flux, dr, avg_dens=None,

@@ -255,7 +255,7 @@ class Raytracer:
         phi_grid = torch.zeros_like(nhi_flat)
         heat_grid = torch.zeros_like(nhi_flat) if cfg.do_heating else None
         for pos, flux in zip(pos_b, flux_b):
-            lin = self._lin_idx(pos)
+            lin = self._lin_idx(pos.to(self.device))
             nhi_octa = nhi_flat[lin]
             cdo = self._sweep(nhi_octa, dr_t)
             phi, heat = self._rates(cdo, nhi_octa, flux, dr_t)
@@ -264,6 +264,14 @@ class Raytracer:
                 if heat_grid is not None:
                     heat_grid.index_add_(0, lin[b], heat[b])
         return phi_grid, heat_grid
+
+    def shard_trace(self, nd, xh, pos_b, flux_b, dr):
+        """A rank's partial Gamma (and heat) over its own batches, on the
+        whole grid with flat IO and no reduce: the body of the
+        source-parallel step (parallel/source_parallel.py), which
+        all-reduces it. Returns (phi, heat), heat None without
+        do_heating."""
+        return self.trace_batches(nd, xh, pos_b, flux_b, dr)
 
     def prepare_sources(self, src_pos, src_flux):
         """Pad the catalog to whole batches (zero-flux sources at the

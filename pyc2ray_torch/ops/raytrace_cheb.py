@@ -376,6 +376,14 @@ class ChebRaytracer:
             return phi, None
         return phi, self._fold_padding(heat_pad).reshape(-1)
 
+    def shard_trace(self, nd, xh, pos_b, flux_b, dr):
+        """A rank's partial Gamma (and heat) over its own batches, folded
+        onto the whole grid with flat IO and no reduce: the body of the
+        source-parallel step (parallel/source_parallel.py), which
+        all-reduces it. Returns (phi, heat), heat None without
+        ``do_heating``."""
+        return self.trace_batches(nd, xh, pos_b, flux_b, dr)
+
     def trace(self, ndens, xh_av, src_pos, src_flux, dr):
         """Public API (0-indexed positions, (NumSrc, 3)); returns the
         (N, N, N) photoionization rate on the engine's device, and with

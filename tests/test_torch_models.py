@@ -338,9 +338,21 @@ def test_window_accumulate_raises(tmp_path, extra):
 
 
 def test_mesh_and_bad_engine_and_photo_checks(tmp_path):
+    """A mesh of parallel/ is taken (a world of one rank here); under a
+    source mesh an engine without shard_trace is refused with the JAX
+    model layer's message; unknown engines and he-only options raise."""
+    from pyc2ray_torch.parallel import make_mesh
     pfile = _write(tmp_path, "m")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpc.C2Ray_Test(pfile, 8, mesh=object(), device="cpu")
+    mesh = make_mesh(device="cpu")
+    sim = tpc.C2Ray_Test(pfile, 8, mesh=mesh, device="cpu")
+    assert sim.mesh is mesh and sim.primary and sim.rank == 0
+
+    class NoShardTrace:
+        config = sim.raytracer.config
+    sim.raytracer = NoShardTrace()
+    with pytest.raises(NotImplementedError,
+                       match="does not support the source-parallel mesh"):
+        sim.evolve3D(1e13, SRCFLUX, SRCPOS)
     ld = read_paramfile(pfile)
     ld["Raytracing"]["engine"] = "octa"
     with pytest.raises(ValueError, match="Unknown Raytracing.engine"):

@@ -2,6 +2,11 @@
 against the numpy builder, the Python oracle and the JAX package's loader of
 the same C++ file."""
 
+import os
+import re
+import shlex
+import subprocess
+
 import numpy as np
 import pytest
 
@@ -59,8 +64,39 @@ def test_native_geometry_equals_numpy_builder(N, R):
         assert np.array_equal(got, want)
 
 
+@pytest.fixture(scope="module")
+def jax_native_lib(tmp_path_factory):
+    """The JAX package's loader pointed at a private build of
+    native/c2ray_native.cpp.
+
+    That loader runs ``make -C native`` when native/libc2ray_native.so is
+    missing, and the Makefile links straight into that path: with several
+    test processes, one may dlopen the file while another's linker is
+    still writing it ("file too short"), and the loader then gives up for
+    the life of the process. Here the library is compiled with the
+    Makefile's own flags into a directory of this module's, under a
+    temporary name and then renamed, and the loader's path and state are
+    restored afterwards."""
+    native_dir = native_ext.SOURCE.parent
+    makefile = (native_dir / "Makefile").read_text()
+    cxx = re.search(r"^CXX \?= (.+)$", makefile, re.M).group(1).strip()
+    flags = re.search(r"^CXXFLAGS \?= (.+)$", makefile, re.M).group(1)
+    out = tmp_path_factory.mktemp("native") / "libc2ray_native.so"
+    tmp = out.with_suffix(".so.tmp")
+    subprocess.run([cxx, *shlex.split(flags), "-shared", "-o", str(tmp),
+                    str(native_ext.SOURCE)], check=True,
+                   capture_output=True, timeout=300)
+    os.replace(tmp, out)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_native, "_SO_PATH", str(out))
+        mp.setattr(j_native, "_LIB", None)
+        mp.setattr(j_native, "_TRIED", False)
+        yield j_native.load_native()
+
+
 @pytest.mark.parametrize("grey", [True, False], ids=["grey", "tables"])
-def test_native_sweep_equals_jax_loader_and_python_oracle(grey):
+def test_native_sweep_equals_jax_loader_and_python_oracle(grey,
+                                                          jax_native_lib):
     """oracle_sweep_native: bit for bit the JAX package's loader of the
     same C++ code, and the Python oracle at 1e-13 (grey) / 1e-11."""
     from test_torch_flat import TABLES
@@ -75,6 +111,8 @@ def test_native_sweep_equals_jax_loader_and_python_oracle(grey):
                                          **kw)
     want = j_native.oracle_sweep_native(nd, xh, src, flux, DR, SIG, 1e9,
                                         **kw)
+    assert jax_native_lib is not None and want is not None, \
+        f"the JAX loader did not load {j_native._SO_PATH}"
     ref = oracle_raytrace(nd, xh, src, flux, DR, SIG, 1e9, **kw)
     for g, w, r in zip(got, want, ref):
         assert np.array_equal(g, w)
