@@ -102,6 +102,15 @@ Phases (any failure raises and the script exits non-zero):
    one global_pass_he, the per-batch device ms of the three sweeps, the rate
    pass and the accumulate; Gamma_HI of a helium-free field against the
    hydrogen engine at the same bins.
+3f. The octahedral sheet engine (BoxRaytracer, engine: box, plain PyTorch)
+   at the bench configuration in float32 with the compressed bins: ns per
+   cell-update (Ns cut only where 2048 sources would outrun
+   BOX_BUDGET_S), device launches per batch and per shell, the device idle
+   share and busy ms of 16 profiled batches, per-stage ms, the cost of the
+   box side's alignment to 8, the trace of the first 16 sources against the
+   CPU (1e-5 above 1e-6 of the peak); the grey spectrum in float64 at N=64
+   with 8 sources, R beyond the mesh, against the flat engine (rtol 2e-7).
+   It launches none of the five kernels (asserted).
 4f. (after 4e) The golden: examples/single_source_test at its full
    configuration (N=128, 2 slices x 10 timesteps, parameters.yml unchanged:
    engine flat, float64) through C2Ray_Test on the card against the
@@ -113,6 +122,8 @@ Phases (any failure raises and the script exits non-zero):
    C2Ray_Test with engine he, the heating rates and isothermal false for two
    timesteps at N=128 on the card: iterations, K1 launches (three per
    iteration, asserted) and the photon loss of each timestep.
+4h. The heating example of 4c with Raytracing.engine box: its five checks,
+   no kernel launched (asserted), xh and T against 4c's cheb run.
 5. The multi-GPU paths (pyc2ray_torch.parallel) as a world of 2 ranks
    spawned on the one card over gloo, both on cuda:0 (and again with one
    rank per card over nccl where the machine has two cards or more; with
@@ -179,6 +190,9 @@ EOR_ZLIST = (21.062, 20.134, 19.284)         # run_test.py's first slices
 N_EOR, B_EOR = 250, 16                       # its mesh; parameters.yml's B
 ABU_HE = 0.074                               # parameters.yml's abu_he
 N_GOLDEN, STEPS_GOLDEN = 128, 10             # run_test.py --full
+BOX_BUDGET_S = 20.0          # 3f's timed trace: the batches of Ns = 2048
+                             # that fit at the pace of 16 unprofiled ones
+N_BOX_GREY, NS_BOX_GREY = 64, 8              # 3f's grey check
 # the adaptive ladder of parameters.yml at N=250: R_max_LLS = 15 cMpc x
 # 250 / 244 cells and half of it (a quarter is below R_min = 4)
 R_EOR = (15.0 * N_EOR / 244.0 / 2.0, 15.0 * N_EOR / 244.0)
@@ -386,6 +400,7 @@ def check_sweep(N, R, B, dtype, seed, reps, steps=False):
     for bit, with the plan the host rule chose and with the planes forced
     into the other placement."""
     from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace_box import grey_bins
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     rt = ChebRaytracer(N, R, SIG, grey_bins(), batch_size=B, dtype=dtype)
     g, tb = rt.geom, rt.tables
@@ -433,6 +448,7 @@ def batch_scan(N, R, dtype, seed, reps):
     """K1's time per call over the batch size at one box shape, each with
     the plan the host rule chose for it."""
     from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace_box import grey_bins
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     rt = ChebRaytracer(N, R, SIG, grey_bins(), batch_size=1, dtype=dtype)
     g, tb = rt.geom, rt.tables
@@ -444,12 +460,6 @@ def batch_scan(N, R, dtype, seed, reps):
         log(f"  K1 batch scan Dc={g.Dc} R1={g.r_max + 1} B={B}: {ms:.4f} ms "
             f"per call = {ms / B:.4f} ms per source "
             f"({plan_text('cheb_sweep')})")
-
-
-def grey_bins():
-    from pyc2ray_torch.radiation.spectral_bins import SpectralBins
-    return SpectralBins(s=np.array([1.0]), w_photo=np.array([1.0]),
-                        w_heat=np.array([0.0]), num_bins=1)
 
 
 def random_nhi(rt, B, dtype, seed, zero_cell=False):
@@ -502,6 +512,7 @@ def check_seg(N, R, B, dtype, rtol, seed, reps, shell_segment="auto",
     """K2 chained over its K segments vs the plain sweep (bit for bit, in
     both plane placements) and vs K1."""
     from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace_box import grey_bins
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     rt = ChebRaytracer(N, R, SIG, grey_bins(), batch_size=B, dtype=dtype,
                        shell_segment=shell_segment)
@@ -1359,6 +1370,248 @@ def flat_bench(src_pos, tmp):
     return dict(t_ray=t_ray, per_batch=per_batch, idle=idle)
 
 
+def box_bench(src_pos, bins, tmp):
+    """Phase 3f: the octahedral sheet engine (ops/raytrace_box.py, plain
+    PyTorch) at the bench configuration in float32 with the compressed
+    bins: ns per cell-update over the batches of the Ns = 2048 sources that
+    fit BOX_BUDGET_S at the pace of 16 unprofiled batches (all of them
+    unless the engine is slower than that), device launches per batch and
+    the device idle share of a profiled window of 16 batches, and the trace
+    of the first 16 sources against the CPU (relative 1e-5 above 1e-6 of
+    the peak); per batch the device's busy ms and each stage's ms, and the
+    cost of the box side's alignment to 8 (``unaligned_box``: the same 16
+    batches, Gamma bit-equal). Then the grey spectrum in float64 at N = 64,
+    8 sources, R beyond the mesh, on the card against the flat engine's
+    analytic grey rates at rtol 2e-7. None of the five kernels runs
+    (asserted)."""
+    from pyc2ray_torch.diagnostics import (device_idle_share,
+                                           device_op_times, profile_trace)
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
+    from pyc2ray_torch.ops.raytrace_box import BoxRaytracer, grey_bins
+    from pyc2ray_torch.ops.raytrace_cheb import wrap_pad
+    N, dt = N_BENCH, torch.float32
+    sweep.reset_launches()
+    rt = BoxRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH, dtype=dt)
+    g = rt.geom
+    flux = np.ones(NS_BENCH)
+    pos_b, flux_b = rt.prepare_sources(src_pos, flux)
+    nd = torch.full((N ** 3,), 1e-3, dtype=dt, device="cuda")
+    xh = torch.full((N ** 3,), 1.2e-3, dtype=dt, device="cuda")
+    rt.trace_batches(nd, xh, pos_b[:1], flux_b[:1], DR)          # warm-up
+    nwin = 16
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rt.trace_batches(nd, xh, pos_b[:nwin], flux_b[:nwin], DR)
+    torch.cuda.synchronize()
+    t_win = time.time() - t0
+    nb = min(pos_b.shape[0], max(nwin, int(BOX_BUDGET_S * nwin / t_win)))
+    t0 = time.time()
+    phi, _ = rt.trace_batches(nd, xh, pos_b[:nb], flux_b[:nb], DR)
+    torch.cuda.synchronize()
+    t_ray = time.time() - t0
+    if not (bool(torch.isfinite(phi).all()) and float(phi.max()) > 0.0):
+        raise RuntimeError("box engine: Gamma not finite and positive")
+    t0 = time.time()
+    with profile_trace(os.path.join(tmp, "box")) as p:
+        p["sync"] = rt.trace_batches(nd, xh, pos_b[:nwin], flux_b[:nwin],
+                                     DR)[0]
+    t_prof = time.time() - t0
+    idle = device_idle_share(os.path.join(tmp, "box"))
+    per_batch = launches_in(os.path.join(tmp, "box")) / nwin
+    cut = ("" if nb == pos_b.shape[0] else
+           f" (cut to the first {nb} of {pos_b.shape[0]} batches, "
+           f"{nb * B_BENCH} sources: BOX_BUDGET_S)")
+    log(f"box engine N={N} R={R_BENCH} Ns={nb * B_BENCH} B={B_BENCH} "
+        f"float32 {rt.num_bins} bins (Q {g.Q}, Dc {g.Dc}, c {g.c}; sheet "
+        f"stacks of {B_BENCH * 2 * g.Q * g.Dc ** 2} cells){cut}: {nb} "
+        f"batches in {t_ray:.4f} s = "
+        f"{1e9 * t_ray / cell_updates(nb * B_BENCH, R_BENCH):.4f} "
+        f"ns/cell-update, {1e3 * t_ray / nb:.3f} ms per batch (16 "
+        f"unprofiled: {1e3 * t_win / nwin:.3f}); {per_batch:.1f} device "
+        f"launches per batch, device idle share {idle:.4f} of a profiled "
+        f"window of {nwin} batches ({t_prof:.2f} s)")
+    dev_ms = sum(device_op_times(os.path.join(tmp, "box")).values()) / nwin
+    stages = box_stages(rt, nd, xh, pos_b, flux_b, nwin)
+    # the sweep body's device launches per shell, from one batch's sweep
+    H = rt._sheets(wrap_pad(nd.reshape((N,) * 3), g.c, g.Dc), pos_b[0])
+    pathdr = rt.tables.path * torch.tensor(DR, dtype=dt).to("cuda")
+    with profile_trace(os.path.join(tmp, "box_sweep")) as p:
+        p["sync"] = rt._sweep(H, pathdr, DR)
+    per_shell = launches_in(os.path.join(tmp, "box_sweep")) / (g.Q - 1)
+    del H
+    log(f"  box engine per batch: device busy {dev_ms:.3f} ms (profiled "
+        f"window); stages " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in stages.items())
+        + f" ms (CUDA events); the sweep {per_shell:.2f} device launches "
+        f"per shell over {g.Q - 1} shells")
+    # the cost of the box side's alignment: the same 16 batches on the
+    # unaligned geometry, in turns with the aligned one
+    rt_u = unaligned_box(rt)
+    if rt_u is not None:
+        ms, phis = {}, {}
+        for eng, tag in ((rt, "aligned"), (rt_u, "unaligned"),
+                         (rt_u, "unaligned"), (rt, "aligned")):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            phis[tag] = eng.trace_batches(nd, xh, pos_b[:nwin],
+                                          flux_b[:nwin], DR)[0]
+            torch.cuda.synchronize()
+            ms.setdefault(tag, []).append(1e3 * (time.time() - t0) / nwin)
+        if not torch.equal(phis["aligned"], phis["unaligned"]):
+            raise RuntimeError("box engine: the unaligned geometry's Gamma "
+                               "differs")
+        gu = rt_u.geom
+        log(f"  box side aligned Dc={g.Dc} against unaligned {gu.Dc} (Gamma "
+            f"bit-equal; sheet cells x{(g.Dc / gu.Dc) ** 2:.4f}, box cells "
+            f"x{(g.Dc / gu.Dc) ** 3:.4f}): ms per batch over {nwin} "
+            f"batches, in turns A U U A: "
+            + " / ".join(f"{v:.3f}" for v in ms["aligned"][:1]
+                         + ms["unaligned"] + ms["aligned"][1:]))
+        del rt_u
+    rt_cpu = BoxRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
+                          dtype=dt, device="cpu")
+    nd_np, xh_np = np.full((N,) * 3, 1e-3), np.full((N,) * 3, 1.2e-3)
+    phi_g = rt.trace(nd_np, xh_np, src_pos[:16], flux[:16], DR).cpu()
+    phi_c = rt_cpu.trace(nd_np, xh_np, src_pos[:16], flux[:16], DR)
+    torch.testing.assert_close(phi_g, phi_c, rtol=1e-5,
+                               atol=1e-6 * float(phi_c.max()))
+    log(f"  box engine, 16 sources, float32: GPU vs CPU max rel "
+        f"{max_rel(phi_g, phi_c, 1e-6):.3e} (above 1e-6 of the peak; "
+        f"bound 1e-5), max abs {float((phi_g - phi_c).abs().max()):.3e}")
+    # the grey spectrum against the flat engine on the card
+    Ng = N_BOX_GREY
+    rng = np.random.RandomState(64)
+    nd_g = 10 ** rng.uniform(-4, -2, (Ng,) * 3)
+    xh_g = rng.uniform(0.0, 0.9, (Ng,) * 3)
+    pos_g = rng.randint(0, Ng, size=(NS_BOX_GREY, 3))
+    flux_g = rng.uniform(0.5, 2.0, NS_BOX_GREY)
+    box = BoxRaytracer(Ng, 1e9, SIG, grey_bins(), batch_size=B_BENCH,
+                       dtype=torch.float64)
+    flat = Raytracer(RaytraceConfig(N=Ng, R_max_LLS=1e9, sig=SIG,
+                                    batch_size=B_BENCH, dtype=torch.float64,
+                                    grey_analytic=True), device="cuda")
+    t0 = time.time()
+    phi_b = box.trace(nd_g, xh_g, pos_g, flux_g, DR)
+    torch.cuda.synchronize()
+    t_box = time.time() - t0
+    phi_f = flat.trace(nd_g, xh_g, pos_g, flux_g, DR)
+    torch.testing.assert_close(phi_b, phi_f, rtol=2e-7, atol=0.0)
+    log(f"  box engine grey float64 N={Ng} R=1e9 (Q {box.geom.Q}, Dc "
+        f"{box.geom.Dc}), {NS_BOX_GREY} sources in {t_box:.3f} s: against "
+        f"the flat engine's analytic grey rates max rel "
+        f"{max_rel(phi_b, phi_f):.3e} (rtol 2e-7)")
+    if any(sweep.launches.values()):
+        raise RuntimeError(f"box engine launched kernels {sweep.launches}")
+    log("  box engine: none of the five kernels launched (launch counts "
+        "all 0; no TPU kernel lies on this path)")
+    return dict(t_ray=t_ray, per_batch=per_batch, idle=idle)
+
+
+def box_stages(rt, nd, xh, pos_b, flux_b, nbatch):
+    """Per-batch ms of the box engine's stages over the first ``nbatch``
+    batches (CUDA events, a synchronize after each batch: the engine is
+    launch-bound, so a stage's time is mostly its host's enqueue)."""
+    from pyc2ray_torch.ops.raytrace_cheb import add_boxes, wrap_pad
+    from pyc2ray_torch.ops.sweep import s_over_dr3
+    g, N = rt.geom, rt.N
+    nhi_pad = wrap_pad(nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3)),
+                       g.c, g.Dc)
+    pad = torch.zeros_like(nhi_pad)
+    pathdr = rt.tables.path * torch.tensor(DR, dtype=rt.dtype).to("cuda")
+    s_dr3 = s_over_dr3(DR, rt.dtype).to("cuda")
+    tot = dict.fromkeys(("sheets", "sweep", "rates", "unshear",
+                         "accumulate"), 0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    for pos, flux in list(zip(pos_b, flux_b))[:nbatch]:
+        ev[0].record()
+        H = rt._sheets(nhi_pad, pos)
+        ev[1].record()
+        cdin = rt._sweep(H, pathdr, DR)
+        ev[2].record()
+        phi, _ = rt._rates(cdin, H, pathdr, flux, s_dr3)
+        ev[3].record()
+        box = rt._unshear(phi)
+        ev[4].record()
+        add_boxes(pad, box, pos)
+        ev[5].record()
+        torch.cuda.synchronize()
+        for k, name in enumerate(tot):
+            tot[name] += ev[k].elapsed_time(ev[k + 1])
+    return {k: v / nbatch for k, v in tot.items()}
+
+
+def unaligned_box(rt):
+    """A copy of box engine ``rt`` on its sheet geometry with the box side
+    hi - lo + 1 instead of the next multiple of 8 (the JAX package's
+    alignment, which the port keeps for bit-equal tables): the same cells
+    in smaller stacks. None where the side is aligned already."""
+    import copy
+    from pyc2ray_torch.ops.raytrace_box import build_box_tables
+    g, N = rt.geom, rt.N
+    D = min(N // 2 - 1 + N % 2, g.max_q) + g.c + 1
+    if D == g.Dc:
+        return None
+    cut = {}
+    for name, a in g._asdict().items():
+        if name == "zidx":
+            cut[name] = np.minimum(a[:D, :D], D - 1)
+        elif name in ("qidx", "unshear_valid", "k_nonneg"):
+            cut[name] = a[:D, :D, :D]
+        elif isinstance(a, np.ndarray):
+            cut[name] = a[..., :D, :D]
+    u = copy.copy(rt)
+    u.geom = g._replace(Dc=D, **cut)
+    u.tables = rt.tables._replace(**{
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            "cuda", rt.dtype if v.dtype == np.float64 else None)
+        for k, v in build_box_tables(u.geom, N, rt.R_max_LLS).items()})
+    return u
+
+
+def heating_example(engine):
+    """examples/heating_test/run_test.py through C2Ray_Test(<its parameters
+    as a dict>, 48, device="cuda") with Raytracing.engine ``engine``: six
+    timesteps in float64, then that script's five checks, each printed;
+    raises if one fails. Returns the simulation, its raytrace iterations,
+    the kernel launch counts of the run and its wall time."""
+    from pyc2ray_torch import C2Ray_Test
+    from pyc2ray_torch.ops import sweep
+    Nh, steps = N_HEATING, STEPS_HEATING
+    with tempfile.TemporaryDirectory() as tmp:
+        params = heating_params(tmp + "/")
+        params["Raytracing"]["engine"] = engine
+        quiet_log = io.StringIO()
+        sweep.reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(quiet_log):
+            sim = C2Ray_Test(params, Nh, device="cuda")
+            sim.ndens = 1e-3 * np.ones((Nh,) * 3)
+            srcpos = np.array([[Nh // 2 + 1]] * 3, dtype=float)
+            srcflux = np.array([50.0])
+            zreds = sim.generate_redshift_array(2, 2e6)
+            dt_h = sim.set_timestep(zreds[0], zreds[1], steps)
+            for _ in range(steps):
+                sim.evolve3D(dt_h, srcflux, srcpos)
+        t_sim = time.time() - t0
+    n_iter = quiet_log.getvalue().count("Raytracing took")
+    counts = dict(sweep.launches)
+    temp_h, xh_h = np.asarray(sim.temp), np.asarray(sim.xh)
+    if not (np.all(np.isfinite(temp_h)) and np.all(np.isfinite(xh_h))):
+        raise RuntimeError(f"heating example ({engine}): non-finite temp or "
+                           f"xh")
+    checks, t_prof, x_prof = heating_checks(temp_h, xh_h, Nh)
+    log(f"  {engine}: r [cells]: <T> [K], <x>: " + "; ".join(
+        f"{a}: {t_prof[a]:.1f}, {x_prof[a]:.3e}"
+        for a in range(0, Nh // 2, 3)))
+    for name, passed in checks.items():
+        log(f"  {name}: {'PASSED' if passed else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"heating example ({engine}): " + ", ".join(
+            k for k, v in checks.items() if not v) + " FAILED")
+    return sim, n_iter, counts, t_sim
+
+
 def helium_bench(bins_he, src_pos, chem):
     """Phase 3e: the helium engine at the bench fields in float32 with the
     72 default bins, one trace (K1 three times per batch, counted) and one
@@ -1956,7 +2209,6 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
-    from pyc2ray_torch import C2Ray_Test
     from pyc2ray_torch.evolve import evolve3D
     from pyc2ray_torch.ops import _build, sweep
     from pyc2ray_torch.ops.thermal import ThermalParams, update_temperature
@@ -2253,6 +2505,10 @@ def main():
     # ---- 3e. the helium engine at full width ------------------------------
     he_launches = helium_bench(bins_he, src_pos, chem)
 
+    # ---- 3f. the octahedral sheet engine at the bench configuration -------
+    with tempfile.TemporaryDirectory() as tmp:
+        box_bench(src_pos, bins, tmp)
+
     # ---- 4. one evolve3D timestep, GPU vs CPU ---------------------------
     Ne, Re, nse = N_EVOLVE, R_EVOLVE, NS_EVOLVE
     rng = np.random.RandomState(7)
@@ -2320,46 +2576,19 @@ def main():
         f"{t_g.min():.1f}..{t_g.max():.1f} K)")
 
     # ---- 4c. the entry point: the heating example through C2Ray_Test ------
-    Nh, steps = N_HEATING, STEPS_HEATING
-    with tempfile.TemporaryDirectory() as tmp:
-        quiet_log = io.StringIO()
-        sweep.reset_launches()
-        t0 = time.time()
-        with contextlib.redirect_stdout(quiet_log):
-            sim = C2Ray_Test(heating_params(tmp + "/"), Nh, device="cuda")
-            sim.ndens = 1e-3 * np.ones((Nh,) * 3)
-            srcpos = np.array([[Nh // 2 + 1]] * 3, dtype=float)
-            srcflux = np.array([50.0])
-            zreds = sim.generate_redshift_array(2, 2e6)
-            dt_h = sim.set_timestep(zreds[0], zreds[1], steps)
-            for _ in range(steps):
-                sim.evolve3D(dt_h, srcflux, srcpos)
-        t_sim = time.time() - t0
-    n_iter = quiet_log.getvalue().count("Raytracing took")
-    counts = dict(sweep.launches)
+    sim, n_iter, counts, t_sim = heating_example("cheb")
     n_k3h = counts.pop("cheb_sweep_rates_heat")
     g_h = sim.raytracer.geom
-    log(f"C2Ray_Test heating example N={Nh} (float64, engine cheb, "
+    log(f"C2Ray_Test heating example N={N_HEATING} (float64, engine cheb, "
         f"fuse_fold, Dc={g_h.Dc}, R1={g_h.r_max + 1}, "
-        f"{sim.raytracer.num_bins} bins): {steps} timesteps, {n_iter} "
-        f"raytrace iterations, {t_sim:.2f} s with set-up, K3h launches "
-        f"{n_k3h}")
+        f"{sim.raytracer.num_bins} bins): {STEPS_HEATING} timesteps, "
+        f"{n_iter} raytrace iterations, {t_sim:.2f} s with set-up, K3h "
+        f"launches {n_k3h}")
     if n_k3h == 0 or n_k3h != n_iter or any(counts.values()):
         raise RuntimeError(f"heating example: {n_k3h} K3h launches for "
                            f"{n_iter} single-source iterations, other "
                            f"kernels {counts}")
-    temp_h, xh_h = np.asarray(sim.temp), np.asarray(sim.xh)
-    if not (np.all(np.isfinite(temp_h)) and np.all(np.isfinite(xh_h))):
-        raise RuntimeError("heating example: non-finite temp or xh")
-    checks, t_prof, x_prof = heating_checks(temp_h, xh_h, Nh)
-    log("  r [cells]: <T> [K], <x>: " + "; ".join(
-        f"{a}: {t_prof[a]:.1f}, {x_prof[a]:.3e}"
-        for a in range(0, Nh // 2, 3)))
-    for name, passed in checks.items():
-        log(f"  {name}: {'PASSED' if passed else 'FAILED'}")
-    if not all(checks.values()):
-        raise RuntimeError("heating example: " + ", ".join(
-            k for k, v in checks.items() if not v) + " FAILED")
+    heat_4c = (np.asarray(sim.xh), np.asarray(sim.temp))
 
     # ---- 4d. the adaptive engine at the bench mix ------------------------
     adaptive_bench(bins)
@@ -2390,6 +2619,25 @@ def main():
 
     # ---- 4g. helium end to end ---------------------------------------------
     _, he_first = helium_evolve(e_pos, e_flux, e_nd, bins_he, chem)
+
+    # ---- 4h. the heating example on the octahedral sheet engine -----------
+    sim, n_iter, counts, t_sim = heating_example("box")
+    g_b = sim.raytracer.geom
+    log(f"C2Ray_Test heating example N={N_HEATING} (float64, engine box, "
+        f"Q={g_b.Q}, Dc={g_b.Dc}, {sim.raytracer.num_bins} bins): "
+        f"{STEPS_HEATING} timesteps, {n_iter} raytrace iterations, "
+        f"{t_sim:.2f} s with set-up; kernel launches {counts}")
+    if type(sim.raytracer).__name__ != "BoxRaytracer" \
+            or any(counts.values()):
+        raise RuntimeError(f"heating example (box): engine "
+                           f"{type(sim.raytracer).__name__}, launches "
+                           f"{counts}")
+    for name, got, want in (("xh", sim.xh, heat_4c[0]),
+                            ("T", sim.temp, heat_4c[1])):
+        got = np.asarray(got)
+        log(f"  box against 4c's cheb run: {name} max rel "
+            f"{np.max(np.abs(got - want) / np.abs(want)):.3e}, mean "
+            f"{got.mean():.6e} against {want.mean():.6e}")
 
     # ---- 5. the multi-GPU paths: a world of ranks ----------------------
     del sim

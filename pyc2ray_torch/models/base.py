@@ -24,9 +24,11 @@ Differences from the JAX package:
   ``Raytracer`` (ops/raytrace.py), the engine of the 2e-5 golden
   (examples/single_source_test); ``he`` builds the three-species
   ``HeRaytracer`` (ops/raytrace_he.py) and evolves hydrogen and helium
-  together (``evolve3D_he``). The engine and option that are not ported
-  (``box``, the window accumulate) raise ``NotImplementedError`` naming the
-  ROADMAP.md item; none is mapped onto another.
+  together (``evolve3D_he``); ``box`` builds the octahedral sheet engine
+  ``BoxRaytracer`` (ops/raytrace_box.py) on the spectral bins of ``cheb``.
+  The window accumulate, a layout device of the TPU, is not ported and
+  raises ``NotImplementedError`` naming the ROADMAP.md item; no engine is
+  mapped onto another.
 * ``mesh`` is a mesh of ranks of ``pyc2ray_torch.parallel`` (one process
   per rank on torch.distributed, every rank building the same simulation):
   a ("src", "space") mesh runs the source-parallel path, a ("di", "dj",
@@ -63,14 +65,6 @@ _DEFAULTS = {
                    "engine": "flat"},
     "Output": {"logfile": "pyC2Ray.log"},
 }
-
-# Raytracing.engine values of the schema that the port does not build yet,
-# with the ROADMAP.md item that brings each.
-_ENGINES_TO_PORT = {
-    "box": "ROADMAP.md section 1 item 12 (ops/raytrace_box.py, the "
-           "octahedral sheet engine)",
-}
-
 
 class C2RaySimulation:
     """Base class for a C2Ray-style reionization simulation in PyTorch."""
@@ -394,8 +388,7 @@ class C2RaySimulation:
                 f"pallas = the same engine, the name of its TPU-kernel "
                 f"variant in the JAX package; adaptive = flux-bucketed "
                 f"per-source radii; he = three-species H+He; box = "
-                f"octahedral sheet-batched formulation). This package "
-                f"builds every engine but box.")
+                f"octahedral sheet-batched formulation)")
         # The reference's CPU subbox knobs (parameters.yml Raytracing:
         # subboxsize/max_subbox; raytracing.f90:183-226) only act on the
         # adaptive engine, and only when the USER sets them; on any other
@@ -423,12 +416,6 @@ class C2RaySimulation:
                 "engine: he (recycling redistributes HELIUM "
                 "recombination radiation; the hydrogen-only engines "
                 "already assume case-B on-the-spot for H)")
-        if engine in _ENGINES_TO_PORT:
-            raise NotImplementedError(
-                f"Raytracing.engine: {engine} is not ported to PyTorch yet: "
-                f"{_ENGINES_TO_PORT[engine]}. This package builds engine: "
-                f"flat (the YAML default), cheb (or pallas, the same "
-                f"engine), adaptive and he.")
         # The JAX engine's window accumulate is a placement by one-hot
         # matmuls; the port adds each source's box with a slice add, which
         # is what "scan" names and what "auto" may resolve to there.
@@ -448,7 +435,8 @@ class C2RaySimulation:
             self._he_init(batch, dtype)
             return
 
-        # production fast path: Chebyshev-face sweep + spectral bins
+        # the spectral-bin engines: Chebyshev-face (cheb, pallas, adaptive)
+        # and octahedral sheet (box)
         from ..ops.raytrace_cheb import ChebRaytracer
         from ..radiation.spectral_bins import make_spectral_bins
         ion_freq_HI = ev2fr * self.eth0
@@ -480,6 +468,19 @@ class C2RaySimulation:
             bins = make_spectral_bins(source, ion_freq_HI,
                                       10 * ev2fr * self.ethe1,
                                       panels=panels, nodes=nodes)
+        if engine == "box":
+            # the octahedral sheet formulation, plain PyTorch on either
+            # device (no shard_trace: refused under a mesh, as in JAX)
+            from ..ops.raytrace_box import BoxRaytracer
+            self.raytracer = BoxRaytracer(
+                self.N, float(self.R_max_LLS), float(self.sig), bins,
+                batch_size=batch, dtype=dtype,
+                do_heating=self.compute_heating_rates, device=self.device)
+            self.printlog(
+                f"Using PyTorch octahedral sheet raytracing on {self.device} "
+                f"({bins.num_bins} spectral bins, batch = {batch:n}, dtype "
+                f"= {dtype_name})")
+            return
         if engine == "adaptive":
             # flux-bucketed per-source radii, the production answer to the
             # reference's subbox machinery (Raytracing.loss_fraction bounds

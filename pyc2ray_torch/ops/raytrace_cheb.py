@@ -53,9 +53,50 @@ from .geometry import max_q_for
 from .raytrace import RaytraceConfig
 from .sweep import cheb_sweep, cheb_sweep_rates, cheb_sweep_seg, init_planes
 
-__all__ = ["ChebRaytracer", "ChebTables", "shell_segmentation"]
+__all__ = ["ChebRaytracer", "ChebTables", "shell_segmentation",
+           "wrap_pad", "add_boxes", "fold_padding"]
 
 FOURPI = 12.566370614359172463991853874177
+
+
+# The extended frame of a box engine: every source's (Dc)^3 box starts at
+# its position in the (N, N, N) grid wrap-padded by c cells below and
+# Dc - 1 - c above on every axis (c: the source's index in its box). The
+# Chebyshev and the octahedral sheet engines share it.
+
+def wrap_pad(field3, c, Dc):
+    """The (N, N, N) field wrap-padded to the extended frame."""
+    N = field3.shape[0]
+    wrap = torch.arange(-c, N + Dc - 1 - c, device=field3.device) % N
+    return field3[wrap][:, wrap][:, :, wrap]
+
+
+def add_boxes(pad, boxes, pos, shift=0):
+    """Add each source's box of ``boxes`` (B, D, D, D) into the extended
+    grid ``pad`` at its box corner ``pos`` (B, 3) plus ``shift`` on every
+    axis, source by source in batch order (a fixed order of the adds on
+    either device)."""
+    D = boxes.shape[-1]
+    for (p0, p1, p2), box in zip(pos.tolist(), boxes):
+        p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
+        pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
+
+
+def fold_padding(padded, c, Dc):
+    """Fold the padding of the extended frame back onto the periodic
+    (N, N, N) grid (low pad onto the top, high pad onto the bottom, one
+    axis after the other)."""
+    N = padded.shape[0] - (Dc - 1)
+    padL, padR = c, Dc - 1 - c
+    out = padded
+    for axis in range(3):
+        core = out.narrow(axis, padL, N).clone()
+        if padR > 0:
+            core.narrow(axis, 0, padR).add_(out.narrow(axis, padL + N, padR))
+        if padL > 0:
+            core.narrow(axis, N - padL, padL).add_(out.narrow(axis, 0, padL))
+        out = core
+    return out
 
 
 def shell_segmentation(N, R_max_LLS, batch_size, dtype,
@@ -312,24 +353,8 @@ class ChebRaytracer:
                            dr_t)
 
     def _fold_padding(self, padded):
-        """Fold the wrap padding of the extended grid back onto the
-        periodic N^3 grid (low pad onto the top, high pad onto the bottom,
-        one axis after the other)."""
-        g = self.geom
-        N = self.N
-        padL = g.c
-        padR = g.Dc - 1 - g.c
-        out = padded
-        for axis in range(3):
-            core = out.narrow(axis, padL, N).clone()
-            if padR > 0:
-                core.narrow(axis, 0, padR).add_(
-                    out.narrow(axis, padL + N, padR))
-            if padL > 0:
-                core.narrow(axis, N - padL, padL).add_(
-                    out.narrow(axis, 0, padL))
-            out = core
-        return out
+        """The extended grid folded onto the periodic N^3 grid."""
+        return fold_padding(padded, self.geom.c, self.geom.Dc)
 
     def trace_extended(self, nhi_pad, pos_b, flux_b, dr):
         """Batched sweep over the wrap-padded field; returns (phi, heat)
@@ -350,19 +375,12 @@ class ChebRaytracer:
         """Add each source's rate box into the padded grid ``pad``, source
         by source in batch order: the (Dc)^3 box at the source's box
         corner ``pos`` (B, 3), a (Ds)^3 rates subbox rb0 further in."""
-        D = rate_boxes.shape[-1]
-        shift = self._rb0 if D == self.Ds else 0
-        for (p0, p1, p2), box in zip(pos.tolist(), rate_boxes):
-            p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
-            pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
+        shift = self._rb0 if rate_boxes.shape[-1] == self.Ds else 0
+        add_boxes(pad, rate_boxes, pos, shift)
 
     def wrap_pad(self, field3):
-        """The (N, N, N) field wrap-padded to the extended frame of the
-        boxes: c cells below, Dc - 1 - c above, on every axis."""
-        g = self.geom
-        wrap = torch.arange(-g.c, self.N + g.Dc - 1 - g.c,
-                            device=field3.device) % self.N
-        return field3[wrap][:, wrap][:, :, wrap]
+        """The (N, N, N) field wrap-padded to the extended frame."""
+        return wrap_pad(field3, self.geom.c, self.geom.Dc)
 
     def trace_batches(self, nd, xh, pos_b, flux_b, dr):
         """Batched trace on prepared sources with flat-grid IO; returns

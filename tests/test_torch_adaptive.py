@@ -17,7 +17,6 @@ import pyc2ray_tpu as jpc
 from pyc2ray_tpu.constants import ev2fr
 from pyc2ray_tpu.ops.adaptive import (AdaptiveRaytracer as JAdaptive,
                                       stromgren_radius_cells as j_stromgren)
-from pyc2ray_tpu.ops.raytrace_box import grey_bins
 from pyc2ray_tpu.radiation import BlackBodySource
 from pyc2ray_tpu.radiation.bins_compress import compress_bins
 from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins
@@ -26,6 +25,7 @@ import pyc2ray_torch as tpc
 from pyc2ray_torch.ops import sweep
 from pyc2ray_torch.ops.adaptive import (AdaptiveRaytracer,
                                         stromgren_radius_cells)
+from pyc2ray_torch.ops.raytrace_box import grey_bins
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 
 SIG = 6.30e-18

@@ -147,6 +147,21 @@ def test_cubep3m_resume_thermal_channel(tmp_path, inputs):
     np.testing.assert_allclose(sim2.xh, tsim.xh, rtol=1e-12)
 
 
+def test_cubep3m_box_engine(tmp_path, inputs):
+    """C2Ray_CubeP3M with engine: box builds the port's BoxRaytracer; one
+    slice against the JAX model on its BoxRaytracer."""
+    from pyc2ray_torch.ops.raytrace_box import BoxRaytracer
+    (tsim, _, _), (jsim, _, _) = _models(
+        tmp_path, inputs, "C2Ray_CubeP3M", (("engine: adaptive",
+                                             "engine: box"),))
+    assert type(tsim.raytracer) is BoxRaytracer
+    assert type(jsim.raytracer).__name__ == "BoxRaytracer"
+    assert tsim.xh.max() > 1.2e-3 and np.all(np.isfinite(tsim.phi_ion))
+    np.testing.assert_allclose(tsim.xh, jsim.xh, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(tsim.phi_ion, jsim.phi_ion, rtol=RTOL, atol=0)
+    _same_outputs(tsim, jsim)
+
+
 def test_paper244_model_end_to_end(tmp_path, inputs):
     """C2Ray_244Test: Mpc/h units, EdS analytic time<->z, incremental
     dilution, catch-up, outputs and resume, against the JAX model."""

@@ -9,12 +9,12 @@ import torch
 
 from pyc2ray_tpu.evolve import evolve3D as j_evolve3D
 from pyc2ray_tpu.ops.chemistry import ChemistryParams as JChem
-from pyc2ray_tpu.ops.raytrace_box import grey_bins
 from pyc2ray_tpu.ops.raytrace_cheb import ChebRaytracer as JRaytracer
 
 from pyc2ray_torch.convert import state_from_jax
 from pyc2ray_torch.evolve import evolve3D
 from pyc2ray_torch.ops.chemistry import ChemistryParams
+from pyc2ray_torch.ops.raytrace_box import grey_bins
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 from pyc2ray_torch.ops.thermal import ThermalParams
 

@@ -15,13 +15,13 @@ from pyc2ray_tpu.constants import ev2fr
 from pyc2ray_tpu.ops import geometry as j_geometry
 from pyc2ray_tpu.ops.raytrace import RaytraceConfig as JConfig
 from pyc2ray_tpu.ops.raytrace import Raytracer as JRaytracer
-from pyc2ray_tpu.oracle import oracle_raytrace
 from pyc2ray_tpu.radiation import BlackBodySource, make_tau_table
 
 import pyc2ray_torch as tpc
 from pyc2ray_torch.ops import geometry
 from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
 from pyc2ray_torch.native_ext import oracle_sweep_native
+from pyc2ray_torch.oracle import oracle_raytrace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SIG = 6.30e-18
@@ -131,7 +131,7 @@ def test_flat_matches_native_oracle():
                                    (11, [10, 10, 10])])
 def test_sweep_coldens_matches_oracle(N, src):
     """The outgoing column density of one source over the full box against
-    pyc2ray_tpu.oracle.oracle_raytrace."""
+    pyc2ray_torch.oracle.oracle_raytrace."""
     nd, xh = _fields(N, seed=N + 1)
     _, tr = _engines(N, 1e9, B=1, grey=True)
     cd = tr.sweep_coldens(nd, xh, np.array(src), DR)

@@ -10,13 +10,13 @@ import pytest
 import torch
 
 from pyc2ray_tpu.constants import ev2fr
-from pyc2ray_tpu.ops.raytrace_box import grey_bins
 from pyc2ray_tpu.ops.raytrace_cheb import ChebRaytracer as JRaytracer
 from pyc2ray_tpu.radiation import BlackBodySource
 from pyc2ray_tpu.radiation.bins_compress import compress_bins
 from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins
 
 from pyc2ray_torch.ops import sweep
+from pyc2ray_torch.ops.raytrace_box import grey_bins
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 
 SIG = 6.30e-18

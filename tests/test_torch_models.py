@@ -298,21 +298,82 @@ def test_chip_smoke_heating_dict_equals_example_yaml(tmp_path):
                                          ("he", "item 9"),
                                          ("box", "item 12")])
 def test_unported_engines_raise(tmp_path, engine, item):
-    """An engine whose ROADMAP.md item is still open raises naming it; the
-    items done since (7: flat, 9: he) build their engine."""
-    from pyc2ray_torch.models.base import _ENGINES_TO_PORT
+    """The engines of ROADMAP.md section 1 items 7 (flat), 9 (he) and 12
+    (box) are ported: each builds its engine, and the model layer has no
+    table of engines left to port."""
+    from pyc2ray_torch.models import base
     from pyc2ray_torch.ops.raytrace import Raytracer
+    from pyc2ray_torch.ops.raytrace_box import BoxRaytracer
     from pyc2ray_torch.ops.raytrace_he import HeRaytracer
     pfile = _write(tmp_path, engine, engine=engine)
-    if engine in _ENGINES_TO_PORT:
-        with pytest.raises(NotImplementedError, match=item) as exc:
-            tpc.C2Ray_Test(pfile, 8, device="cpu")
-        assert "ROADMAP.md" in str(exc.value) and engine in str(exc.value)
+    built = {"flat": Raytracer, "he": HeRaytracer, "box": BoxRaytracer}
+    rt = tpc.C2Ray_Test(pfile, 8, device="cpu").raytracer
+    assert type(rt) is built[engine], f"ROADMAP.md section 1 {item}"
+    assert not hasattr(base, "_ENGINES_TO_PORT")
+
+
+def test_box_engine_evolves_as_jax(tmp_path):
+    """C2Ray_Test with engine: box, as tests/test_models.py's
+    test_c2ray_test_sim_evolves[box] drives the JAX package (N = 16, one
+    source, one timestep, compressed bins, float64), against that run:
+    xh and Gamma at rtol 1e-8; the outputs are written."""
+    from pyc2ray_torch.ops.raytrace_box import BoxRaytracer
+    n = 16
+    text = BASE_YML.read_text().replace("NumTau: 2000", "NumTau: 300")
+    text = text.replace("dtype: float64", "dtype: float64\n  engine: box")
+    sims = []
+    for mod, name, kw in ((tpc, "torch", dict(device="cpu")),
+                          (jpc, "jax", {})):
+        d = tmp_path / name
+        d.mkdir()
+        (d / "parameters.yml").write_text(text.replace(
+            "results_basename: ./results/", f"results_basename: {d}/"))
+        sim = mod.C2Ray_Test(str(d / "parameters.yml"), n, **kw)
+        sim.ndens = 1e-3 * np.ones((n, n, n))
+        srcpos = np.array([[n // 2], [n // 2], [n // 2]], dtype=float)
+        zreds = sim.generate_redshift_array(2, 1e6)
+        xh0_mean = sim.xh.mean()
+        sim.evolve3D(sim.set_timestep(zreds[0], zreds[1], 2),
+                     np.array([10.0]), srcpos)
+        assert sim.xh.mean() > xh0_mean
+        sim.write_output(sim.zred)
+        assert any(f.startswith("xfrac") for f in os.listdir(d))
+        sims.append(sim)
+    got, want = sims
+    assert type(got.raytracer) is BoxRaytracer
+    assert got.raytracer.num_bins == want.raytracer.num_bins
+    assert np.all(np.isfinite(got.phi_ion)) and got.phi_ion.max() > 0
+    np.testing.assert_allclose(got.xh, np.asarray(want.xh), rtol=1e-8)
+    np.testing.assert_allclose(got.phi_ion, np.asarray(want.phi_ion),
+                               rtol=1e-8,
+                               atol=1e-12 * float(np.max(want.phi_ion)))
+
+
+@pytest.mark.parametrize("kind", ["source", "domain"])
+def test_box_engine_refused_under_a_mesh(tmp_path, kind):
+    """The box engine has no shard_trace and no trace_extended: under a
+    source mesh evolve3D raises NotImplementedError, under a domain mesh
+    TypeError, each with the JAX package's message (a mesh of one rank
+    here, of one device there)."""
+    import jax
+    from pyc2ray_tpu import parallel as jpar
+    from pyc2ray_torch import parallel as tpar
+    pfile = _write(tmp_path, "box", engine="box")
+    if kind == "source":
+        meshes = (tpar.make_mesh(device="cpu"),
+                  jpar.make_mesh(devices=jax.devices()[:1]))
+        exc = NotImplementedError
     else:
-        built = {"flat": Raytracer, "he": HeRaytracer}[engine]
-        assert type(tpc.C2Ray_Test(pfile, 8, device="cpu").raytracer) \
-            is built
-    assert set(_ENGINES_TO_PORT) == {"box"}
+        meshes = (tpar.make_domain_mesh(device="cpu"),
+                  jpar.make_domain_mesh(1, devices=jax.devices()[:1]))
+        exc = TypeError
+    msgs = []
+    for mod, mesh, kw in zip((tpc, jpc), meshes, (dict(device="cpu"), {})):
+        sim = mod.C2Ray_Test(pfile, 8, mesh=mesh, **kw)
+        with pytest.raises(exc) as err:
+            sim.evolve3D(1e13, SRCFLUX, np.array([[4.0], [4.0], [4.0]]))
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] and "BoxRaytracer" in msgs[0]
 
 
 def test_default_engine_is_not_remapped(tmp_path):
