@@ -44,8 +44,11 @@ Phases (any failure raises and the script exits non-zero):
    N=256, R=30, Ns=2048, B=8, compressed black-body bins, float32 (the
    configuration of bench.py, positions from seed 100). Prints ns per
    cell-update, the chemistry time, the combined Mcell-updates/s and the
-   sweep's launch count, which must equal the number of batches. The GPU
-   trace of the first 16 sources is held against the CPU (plain) trace.
+   launch counts of the sweep and of the box extract and accumulate, which
+   must each equal the number of batches; the per-batch device ms of the
+   loop's stages, the box kernels beside the plain gather and slice adds
+   they replaced (bit-equal). The GPU trace of the first 16 sources is held
+   against the CPU (plain) trace.
 3b. The engine's other sweep modes at full width: the bench configuration
    with fuse_fold=True (K3) and with fuse_rates=True (K1f), each Gamma
    held against phase 3's; the R=100 harness configuration (N=250, R=100,
@@ -53,7 +56,11 @@ Phases (any failure raises and the script exits non-zero):
    (K2) and with shell_segment=0 (K1), held against each other. Each run
    prints ns per cell-update, its launch counts, which are asserted, and
    for the fused modes the per-batch stage times (one kernel call per
-   batch and nothing after it but the accumulate).
+   batch and nothing after it but the accumulate). The fuse_fold trace
+   (one call of the C++ trace loop) also with the batch loop as it was
+   issued before (``plain_loop``: trace_extended_plain), Gamma bit-equal:
+   per trace the wall s, device launches and host-to-device copies per
+   batch, device busy ms and idle share, before and after.
 3c. The non-isothermal path at full width: the bench configuration with
    do_heating=True and fuse_fold=True (K3h, one launch per batch) and with
    do_heating=True alone (K1 + the rate pass with the heat channel); each
@@ -70,26 +77,32 @@ Phases (any failure raises and the script exits non-zero):
 4c. The entry point: C2Ray_Test(<the heating example's parameters as a
    dict>, 48, device="cuda"), six timesteps in float64 with engine cheb
    as examples/heating_test/run_test.py runs them (the model layer builds
-   its engines with fuse_fold: one K3h launch per raytrace iteration), then
+   its engines with fuse_fold: one trace loop, one K3h launch, one extract
+   and one accumulate per raytrace iteration), then
    that script's five checks of the temperature and ionization profiles.
 4d. The adaptive engine at the bench mix: N=256, R_max=30 (buckets 7.5, 15,
    30), 12288 sources at positions from seed 100 with fluxes over three
    decades, B=8, float32, fuse_fold. Its Gamma equals the sum of one
    fuse_fold ChebRaytracer per bucket bit for bit, each bucket launching K3
    once per batch; ns per cell-update, the per-batch stage times of the
-   smallest bucket, and the GPU trace of the first 16 sources against the
-   CPU.
+   smallest bucket, the trace before and after the trace loop as in 3b,
+   and the GPU trace of the first 16 sources against the CPU.
 4e. The production EoR run, examples/eor_simulation/run_test.py's loop:
    C2Ray_CubeP3M(<its parameters.yml>, 250, device="cuda") (engine
    adaptive, float32, B=16) on the committed inputs, both slices
-   (21.062 -> 20.134 -> 19.284) with one timestep each. Per slice the
-   bucket counts, raytrace iterations, K3 launches (asserted: iterations x
-   batches), s per trace and per chemistry pass, Mcell-updates/s and the
-   photon loss; xh finite in [0, 1] and changed, the outputs read back
-   equal to the state. Then one trace under torch.profiler: its top device
-   kernels and the device's idle share; and the Gamma of the first 16
-   sources against the CPU. The catalogs are read without h5py
-   (``read_catalog``).
+   (21.062 -> 20.134 -> 19.284) with one timestep each. First the first
+   slice on a model of its own with the batch loop before the trace loop
+   (``plain_loop``). Per slice the bucket counts, raytrace iterations,
+   launches (asserted: K3, extract and accumulate iterations x batches, one
+   trace loop per iteration and used bucket), s per trace and per
+   chemistry pass, Mcell-updates/s and the photon loss; xh finite in
+   [0, 1] and changed, the outputs read back equal to the state; the first
+   slice's iterations, xh and photon loss bit-equal to the run before.
+   Then one trace before and after the trace loop, each unprofiled and
+   under torch.profiler (as in 3b), with the card's name and power limit:
+   the top device kernels, the device ms per call of K3's phases and of the
+   box kernels; and the Gamma of the first 16 sources against the CPU.
+   The catalogs are read without h5py (``read_catalog``).
 2d. (after 2c) K1 at the helium engine's three threshold cross sections
    (sigma_HI, sigma_HeI, sigma_HeII of make_spectral_bins_he) at the bench
    shape in float32, bit for bit against its plain version, with its time.
@@ -98,10 +111,13 @@ Phases (any failure raises and the script exits non-zero):
    cell-update, device launches per batch and the device idle share of a
    profiled window, and the trace of the first 16 sources against the CPU.
 3e. The helium engine (HeRaytracer, 72 default bins) at the bench fields in
-   float32: ns per cell-update, its K1 launches (three per batch, asserted),
-   one global_pass_he, the per-batch device ms of the three sweeps, the rate
-   pass and the accumulate; Gamma_HI of a helium-free field against the
-   hydrogen engine at the same bins.
+   float32: ns per cell-update, its launches (K1 three per batch, one
+   extract of the three species and one accumulate of the three channels
+   per batch, asserted), one global_pass_he, the per-batch device ms of the
+   extract, the three sweeps, the rate pass and the accumulate, beside the
+   plain gathers and slice adds (16 batches, the frames bit-equal to the
+   plain loop's and to trace_extended's); Gamma_HI of a helium-free field
+   against the hydrogen engine at the same bins.
 3f. The octahedral sheet engine (BoxRaytracer, engine: box, plain PyTorch)
    at the bench configuration in float32 with the compressed bins: ns per
    cell-update (Ns cut only where 2048 sources would outrun
@@ -110,7 +126,18 @@ Phases (any failure raises and the script exits non-zero):
    box side's alignment to 8, the trace of the first 16 sources against the
    CPU (1e-5 above 1e-6 of the peak); the grey spectrum in float64 at N=64
    with 8 sources, R beyond the mesh, against the flat engine (rtol 2e-7).
-   It launches none of the five kernels (asserted).
+   It launches none of the five sweep kernels, and accumulate_boxes once
+   per batch (asserted; its frame bit-equal to the plain slice adds').
+3g. (after 3f) The trace loop's kernels against their plain versions, bit
+   for bit (max_abs_err 0): extract_boxes and accumulate_boxes at the bench
+   shape (B=8, Dc=64), the EoR run's (B=16, Dc=24) and on a non-cubic
+   frame, each on a batch of boxes spread over the frame and on a batch
+   clustered within two cells (two at one cell), with kernel, plain,
+   library (torch.take, index_add_) and bound ms; then the C++ loop
+   (trace_extended with fuse_fold) against trace_extended_plain on random
+   fields: the bench configuration with K3 and with K3h, and the EoR run's
+   small bucket over 128 batches, the first clustered, timed against the
+   plain loop.
 4f. (after 4e) The golden: examples/single_source_test at its full
    configuration (N=128, 2 slices x 10 timesteps, parameters.yml unchanged:
    engine flat, float64) through C2Ray_Test on the card against the
@@ -123,7 +150,8 @@ Phases (any failure raises and the script exits non-zero):
    timesteps at N=128 on the card: iterations, K1 launches (three per
    iteration, asserted) and the photon loss of each timestep.
 4h. The heating example of 4c with Raytracing.engine box: its five checks,
-   no kernel launched (asserted), xh and T against 4c's cheb run.
+   no sweep kernel launched and one accumulate_boxes per iteration
+   (asserted), xh and T against 4c's cheb run.
 5. The multi-GPU paths (pyc2ray_torch.parallel) as a world of 2 ranks
    spawned on the one card over gloo, both on cuda:0 (and again with one
    rank per card over nccl where the machine has two cards or more; with
@@ -140,7 +168,9 @@ Phases (any failure raises and the script exits non-zero):
    share; 5d phase 4g's helium model for its first timestep under a source
    and a domain mesh of 2, xh and T held to 1e-10 and the helium fractions
    to 1e-9 of 4g's. A rank's exception fails the phase.
-6. The script's wall time, a ``kernels`` JSON line, then the result line
+6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
+   then the trace loop's extract_boxes, accumulate_boxes and
+   cheb_trace_rates at the EoR run's shape), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
@@ -716,26 +746,114 @@ def run_path(rt, nd, xh, pos_b, flux_b, updates, expect, label, chem=None):
     return phi, heat, counts
 
 
+def loop_counts(nbatch, loops=0):
+    """The launches of the trace loop's kernels in a Chebyshev trace of
+    ``nbatch`` batches: one extract and one accumulate per batch, and
+    ``loops`` calls of the fuse_fold loop (one per engine trace)."""
+    return {"extract_boxes": nbatch, "accumulate_boxes": nbatch,
+            "cheb_trace_rates": int(loops)}
+
+
+@contextlib.contextmanager
+def plain_loop(engines):
+    """Within the block every ChebRaytracer of ``engines`` traces by its
+    ``trace_extended_plain``: the batch loop as the port issued it before
+    the trace loop (a pageable copy of the positions, PyTorch's gather, the
+    sweep mode and one slice add per source, per batch)."""
+    for e in engines:
+        e.trace_extended = e.trace_extended_plain
+    try:
+        yield
+    finally:
+        for e in engines:
+            del e.trace_extended
+
+
+def device_counts(prof):
+    """(device kernels, host-to-device copies) in the captures of
+    ``prof``."""
+    from pyc2ray_torch.diagnostics import _trace_events
+    kern = copies = 0
+    for events in _trace_events(prof):
+        for e in events:
+            kern += e.get("cat") == "kernel"
+            copies += (e.get("cat") == "gpu_memcpy"
+                       and "HtoD" in e.get("name", ""))
+    return kern, copies
+
+
+def loop_before_after(label, engines, trace, nbatch, tmp):
+    """One trace (``trace()`` returns its Gamma) with the batch loop before
+    the trace loop (``plain_loop(engines)``) and after it, each once
+    unprofiled after a warm-up and once under torch.profiler: wall s,
+    device kernels and host-to-device copies per batch, device busy ms and
+    the idle share of the profiled window and of the unprofiled trace.
+    Asserts the two Gammas equal bit for bit; returns {tag: numbers}."""
+    from pyc2ray_torch.diagnostics import (device_idle_share,
+                                           device_op_times, profile_trace)
+    res = {}
+    for tag in ("before", "after"):
+        with plain_loop(engines if tag == "before" else ()):
+            trace()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            phi = trace()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            prof = os.path.join(tmp, f"{label.split()[0]}_{tag}")
+            with profile_trace(prof) as p:
+                p["sync"] = trace()
+        kern, copies = device_counts(prof)
+        busy = sum(device_op_times(prof).values())
+        res[tag] = dict(s=wall, launches_per_batch=kern / nbatch,
+                        copies_per_batch=copies / nbatch, busy_ms=busy,
+                        idle_profiled=device_idle_share(prof),
+                        idle=1.0 - 1e-3 * busy / wall, phi=phi, prof=prof)
+    if not torch.equal(res["before"]["phi"], res["after"]["phi"]):
+        raise RuntimeError(f"{label}: the trace loop's Gamma differs from "
+                           f"the loop before it")
+    for tag, r in res.items():
+        log(f"  {label}, loop {tag}: {r['s']:.4f} s per trace, "
+            f"{r['launches_per_batch']:.2f} device launches and "
+            f"{r['copies_per_batch']:.2f} host-to-device copies per batch "
+            f"({nbatch} batches), device busy {r['busy_ms']:.2f} ms, idle "
+            f"share {r['idle']:.4f} unprofiled, {r['idle_profiled']:.4f} "
+            f"profiled")
+    log(f"  {label}: Gamma after equals before bit for bit; per trace "
+        f"{res['before']['s'] / res['after']['s']:.2f}x faster")
+    return res
+
+
 def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
-    """Device time per batch of each stage of trace_extended, over the
-    first ``nbatch`` batches (CUDA events around each stage), for the
-    default mode, fuse_rates and fuse_fold, with or without do_heating.
-    "sweep" is the kernel (K1, or one call of K1f, K3 or K3h, which
-    returns complete rate boxes), "rates" what follows it (the rate pass;
-    nothing in a fused mode), "accumulate" the per-source slice adds of
-    Gamma and, with do_heating, of the heat."""
+    """Device time per batch of each stage of the batch loop over the first
+    ``nbatch`` batches (CUDA events around each stage, a synchronize after
+    each batch), for the default mode, fuse_rates and fuse_fold, with or
+    without do_heating. "extract" is the extract_boxes kernel, "sweep" the
+    kernel (K1, or one call of K1f, K3 or K3h, which returns complete rate
+    boxes), "rates" what follows it (the rate pass; nothing in a fused
+    mode), "accumulate" the accumulate_boxes kernel (Gamma and, with
+    do_heating, the heat in one launch); beside them on the same batch the
+    plain gather and slice adds that the loop issued before
+    ("extract_plain", "accumulate_plain"), whose frames are asserted equal
+    to the kernels' bit for bit."""
     from pyc2ray_torch.ops.sweep import cheb_sweep, cheb_sweep_rates
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, extract_boxes,
+                                              stage_positions)
     g, tb, N = rt.geom, rt.tables, rt.N
     nhi_pad = rt.wrap_pad(nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3)))
     pads = [torch.zeros_like(nhi_pad) for _ in range(1 + rt.do_heating)]
+    plain = [torch.zeros_like(nhi_pad) for _ in pads]
+    pos = stage_positions(pos_b[:nbatch], nhi_pad.shape, g.Dc, "cuda")
     dr_t = torch.tensor(DR, dtype=rt.dtype).to("cuda")
     geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
     c = g.c
-    tot = dict(extract=0.0, sweep=0.0, rates=0.0, accumulate=0.0)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    for pos, flux in list(zip(pos_b, flux_b))[:nbatch]:
+    tot = dict.fromkeys(("extract", "sweep", "rates", "accumulate",
+                         "extract_plain", "accumulate_plain"), 0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    for k in range(nbatch):
+        flux = flux_b[k]
         ev[0].record()
-        boxes = rt._extract_boxes(nhi_pad, pos.to("cuda"))
+        boxes = extract_boxes(nhi_pad, pos, k, g.Dc)
         ev[1].record()
         if rt.fuse_fold:
             out = cheb_sweep_rates(
@@ -753,13 +871,256 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
             ev[2].record()
             out = rt._rates(cd, boxes, flux, dr_t)[:1 + rt.do_heating]
         ev[3].record()
-        for pad, rate_box in zip(pads, out):
-            rt.add_boxes(pad, rate_box, pos)
+        accumulate_boxes(pads, out, pos, k, rt.box_shift(out[0]))
         ev[4].record()
+        boxes_plain = rt._extract_boxes(nhi_pad, pos_b[k].to("cuda"))
+        ev[5].record()
+        for pad, rate_box in zip(plain, out):
+            rt.add_boxes(pad, rate_box, pos_b[k])
+        ev[6].record()
         torch.cuda.synchronize()
-        for k, name in enumerate(tot):
-            tot[name] += ev[k].elapsed_time(ev[k + 1])
+        if not torch.equal(boxes, boxes_plain):
+            raise RuntimeError("stage_breakdown: extract_boxes differs from "
+                               "the plain gather")
+        for i, name in enumerate(tot):
+            tot[name] += ev[i].elapsed_time(ev[i + 1])
+    if not all(torch.equal(a, b) for a, b in zip(pads, plain)):
+        raise RuntimeError("stage_breakdown: accumulate_boxes differs from "
+                           "the plain slice adds")
     return {k: v / nbatch for k, v in tot.items()}
+
+
+def box_kernel_work(pos, frame_shape, B, D, dtype):
+    """(extract bytes, accumulate bytes) of one batch at corners ``pos``
+    (B, 3): the extract reads the union of the boxes' frame cells once and
+    writes B D^3 values; the accumulate reads the boxes and reads and writes
+    that union (what this data needs, overlaps counted once)."""
+    cover = torch.zeros(frame_shape, dtype=torch.bool)
+    for p in pos.tolist():
+        cover[p[0]:p[0] + D, p[1]:p[1] + D, p[2]:p[2] + D] = True
+    union, isz = int(cover.sum()), torch.finfo(dtype).bits // 8
+    return (union + B * D ** 3) * isz, (B * D ** 3 + 2 * union) * isz
+
+
+def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
+    """extract_boxes and accumulate_boxes in a frame of ``frame_shape`` at
+    (B, D) against their plain versions (the gather, the slice adds) on two
+    batches, the second clustered (every box within two cells of one
+    corner, two at the same cell): max_abs_err must be 0. Times the
+    clustered batch: the kernel's device ms per call (torch.profiler) and
+    its back-to-back ms (CUDA events, the Python wrapper's enqueue
+    included), the plain version's, the bound from its bytes, and one
+    PyTorch call that computes the same function on precomputed flat
+    indices (torch.take; index_add_, which adds in no fixed order).
+    Returns {"extract": ..., "accumulate": ...}."""
+    from pyc2ray_torch.diagnostics import device_op_times, profile_trace
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
+                                              extract_boxes,
+                                              extract_boxes_ref,
+                                              stage_positions)
+    rng = np.random.RandomState(seed)
+    hi = np.array(frame_shape) - D
+    pos = rng.randint(0, hi + 1, size=(2, B, 3))
+    pos[1] = rng.randint(0, hi - 1, 3) + rng.randint(0, 3, (B, 3))
+    pos[1, 1] = pos[1, 0]
+    pos_b = torch.from_numpy(pos)
+    pos_d = stage_positions(pos_b, frame_shape, D, "cuda")
+    frame = torch.from_numpy(rng.standard_normal(frame_shape)).to("cuda",
+                                                                  dtype)
+    boxes = torch.from_numpy(rng.standard_normal((B,) + (D,) * 3)).to(
+        "cuda", dtype)
+    err = dict(extract=0.0, accumulate=0.0)
+    for k in range(2):
+        got = extract_boxes(frame, pos_d, k, D)
+        want = extract_boxes_ref(frame, pos_d[k], D)
+        err["extract"] = max(err["extract"],
+                             float((got - want).abs().max()))
+        f_k, f_p = frame.clone(), frame.clone()
+        accumulate_boxes(f_k, boxes, pos_d, k)
+        add_boxes(f_p, boxes, pos_b[k])
+        err["accumulate"] = max(err["accumulate"],
+                                float((f_k - f_p).abs().max()))
+    torch.cuda.synchronize()
+    if any(err.values()):
+        raise RuntimeError(f"{label}: the box kernels differ from their "
+                           f"plain versions: {err}")
+    ar = torch.arange(D, device="cuda")
+    i, j, k = (pos_d[1][:, ax, None].long() + ar for ax in range(3))
+    F1, F2 = frame_shape[1], frame_shape[2]
+    idx = ((i[:, :, None, None] * F1 + j[:, None, :, None]) * F2
+           + k[:, None, None, :])
+    f_k, f_p, f_l = frame.clone(), frame.clone(), frame.clone()
+    calls = {
+        "extract": (lambda: extract_boxes(frame, pos_d, 1, D),
+                    lambda: extract_boxes_ref(frame, pos_d[1], D),
+                    lambda: torch.take(frame, idx)),
+        "accumulate": (lambda: accumulate_boxes(f_k, boxes, pos_d, 1),
+                       lambda: add_boxes(f_p, boxes, pos_b[1]),
+                       lambda: f_l.view(-1).index_add_(0, idx.reshape(-1),
+                                                       boxes.reshape(-1)))}
+    nbytes = dict(zip(calls, box_kernel_work(pos_b[1], frame_shape, B, D,
+                                             dtype)))
+    out = {}
+    for name, (kern, plain, lib) in calls.items():
+        b2b, plain_ms, lib_ms = (cuda_ms(kern, reps), cuda_ms(plain, reps),
+                                 cuda_ms(lib, reps))
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile_trace(tmp) as p:
+                for _ in range(reps):
+                    kern()
+                p["sync"] = f_k
+            ms = sum(t for op, t in device_op_times(tmp).items()
+                     if f"{name}_boxes_kernel" in op) / reps
+        b_ms, b_by = least_ms(nbytes[name], B * D ** 3, dtype)
+        out[name] = dict(max_abs_err=err[name], ms=ms, ms_back_to_back=b2b,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms)
+        log(f"  {label} {name}_boxes: max_abs_err={err[name]:.1e} "
+            f"(bit-equal), kernel_ms={ms:.4f} on the device "
+            f"({b2b:.4f} back to back) plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+            f"{nbytes[name] / 2 ** 20:.2f} MiB) per call")
+    return out
+
+
+def k3_work(rt, B, dtype):
+    """(bytes, operations) of one K3 call of engine ``rt`` at B sources,
+    as phase 2b counts them (check_fused)."""
+    g, tb = rt.geom, rt.tables
+    isz = torch.finfo(dtype).bits // 8
+    nbytes, ops = sweep_work(B, g.Dc, g.r_max + 1, dtype)
+    n_rated = B * int((tb.rt_tab[:, 1] > 0.5).sum())
+    ops += n_rated * (RATE_OPS_PER_BIN * rt.num_bins + RATE_OPS_PER_CELL)
+    return nbytes + 2 * g.Dc ** 3 * isz + B * isz, ops
+
+
+def check_trace_loop(bins, src_pos):
+    """Phase 3g: the trace loop's kernels and the C++ loop against their
+    plain versions. extract_boxes and accumulate_boxes at the bench shape
+    (B = 8, Dc = 64), the EoR run's (B = 16, Dc = 24) and on a non-cubic
+    halo-extended block of a domain of 2 at the EoR shape; then
+    ChebRaytracer.trace_extended (fuse_fold: one cheb_trace_rates call)
+    against trace_extended_plain on a random field, bit for bit: at the
+    bench configuration with K3 and K3h, and at the EoR run's small bucket
+    over 128 batches, the first clustered. Returns the numbers of the
+    kernels line: the box kernels and the loop at the EoR shape."""
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    dt = torch.float32
+    log("trace loop kernels, float32 (max_abs_err must be 0):")
+    for B, Dc, tag in ((B_BENCH, 64, "bench"), (B_EOR, 24, "EoR")):
+        side = (N_BENCH if tag == "bench" else N_EOR) + Dc - 1
+        res = check_box_kernels(f"{tag} B={B} Dc={Dc} frame {side}^3",
+                                (side,) * 3, B, Dc, dt, seed=12, reps=20)
+        if tag == "EoR":
+            out = res
+    # a frame whose extents differ per axis, as a domain decomposition's
+    # halo-extended block is, at the EoR shape
+    check_box_kernels("EoR non-cubic block (203, 273, 251)",
+                      (203, 273, 251), B_EOR, 24, dt, seed=13, reps=5)
+
+    def field(N, seed):
+        rng = np.random.RandomState(seed)
+        return torch.from_numpy(10 ** rng.uniform(-4, -2, (N,) * 3)).to(
+            "cuda", dt)
+    nhi = field(N_BENCH, 14)
+    flux = 10 ** np.random.RandomState(15).uniform(-1, 0, NS_BENCH)
+    for heat in (False, True):
+        rt = ChebRaytracer(N_BENCH, R_BENCH, SIG, bins, batch_size=B_BENCH,
+                           dtype=dt, fuse_fold=True, do_heating=heat)
+        pad = rt.wrap_pad(nhi)
+        pos_b, flux_b = rt.prepare_sources(src_pos, flux)
+        loop_against_plain(f"bench {'K3h' if heat else 'K3'}", rt, pad,
+                           pos_b, flux_b)
+        del rt, pad
+    # the EoR run's small bucket at a random field, 128 batches
+    rt = ChebRaytracer(N_EOR, R_EOR[0], SIG, bins, batch_size=B_EOR,
+                       dtype=dt, fuse_fold=True)
+    rng = np.random.RandomState(16)
+    nb = 128
+    pos = rng.randint(0, N_EOR, size=(nb * B_EOR, 3))
+    pos[:B_EOR] = (pos[0] + rng.randint(0, 3, (B_EOR, 3))) % N_EOR
+    pad = rt.wrap_pad(field(N_EOR, 17))
+    pos_b, flux_b = rt.prepare_sources(pos, 10 ** rng.uniform(
+        -1, 0, nb * B_EOR))
+    err, ms, plain_ms = loop_against_plain(
+        f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} Dc={rt.geom.Dc}, {nb} "
+        f"batches", rt, pad, pos_b, flux_b, timed=True)
+    loop_kernel_gaps(rt, pad, pos_b, flux_b)
+    e_bytes = a_bytes = 0
+    for k in range(nb):
+        eb, ab = box_kernel_work(pos_b[k], tuple(pad.shape), B_EOR,
+                                 rt.geom.Dc, dt)
+        e_bytes, a_bytes = e_bytes + eb, a_bytes + ab
+    kb, kops = k3_work(rt, B_EOR, dt)
+    b_ms, b_by = least_ms(e_bytes + a_bytes + nb * kb, nb * kops, dt)
+    log(f"  the loop over {nb} batches: bound_ms={b_ms:.4f} ({b_by}: "
+        f"{nb} x (extract + K3 + accumulate))")
+    out["loop"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       batches_per_call=nb)
+    del rt, pad
+    return out
+
+
+def loop_kernel_gaps(rt, pad, pos_b, flux_b):
+    """One trace of the C++ loop under torch.profiler: per kind of kernel
+    its median device time and the median idle gap on the device before
+    it (from the previous kernel's end), in us."""
+    from pyc2ray_torch.diagnostics import _trace_events, profile_trace
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as p:
+            p["sync"] = rt.trace_extended(pad, pos_b, flux_b, DR)[0]
+        ev = sorted((e for events in _trace_events(tmp) for e in events
+                     if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    kinds = {}
+    for prev, e in zip(ev, ev[1:]):
+        name = next((k for k in ("extract_boxes", "sweep_fold",
+                                 "box_rates", "accumulate_boxes")
+                     if k in e["name"]), "other")
+        gap = e["ts"] - (prev["ts"] + prev["dur"])
+        kinds.setdefault(name, []).append((e["dur"], gap))
+    log("  the loop on the device, per kernel: " + "; ".join(
+        f"{k} {np.median([d for d, _ in v]):.2f} us after a gap of "
+        f"{np.median([g for _, g in v]):.2f} us (median of {len(v)})"
+        for k, v in kinds.items()))
+
+
+def loop_against_plain(label, rt, pad, pos_b, flux_b, timed=False):
+    """``rt.trace_extended`` (the C++ loop: one cheb_trace_rates call)
+    against ``rt.trace_extended_plain`` on the frame ``pad``: bit for bit,
+    with the loop's launch counts. Returns max_abs_err, and with ``timed``
+    also the ms per trace of both (CUDA events, 3 traces each)."""
+    from pyc2ray_torch.ops import sweep
+    nb = pos_b.shape[0]
+    sweep.reset_launches()
+    got = rt.trace_extended(pad, pos_b, flux_b, DR)
+    counts = dict(sweep.launches)
+    want = rt.trace_extended_plain(pad, pos_b, flux_b, DR)
+    torch.cuda.synchronize()
+    k3 = "cheb_sweep_rates_heat" if rt.do_heating else "cheb_sweep_rates"
+    expect = {k: 0 for k in counts}
+    expect.update(loop_counts(nb, 1), **{k3: nb})
+    if counts != expect:
+        raise RuntimeError(f"{label}: loop launches {counts}, expected "
+                           f"{expect}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want)
+              if w is not None)
+    if err != 0.0 or not float(want[0].max()) > 0.0:
+        raise RuntimeError(f"{label}: the loop differs from the plain "
+                           f"loop: max_abs_err {err}")
+    msg = ""
+    if timed:
+        ms = cuda_ms(lambda: rt.trace_extended(pad, pos_b, flux_b, DR), 3)
+        plain_ms = cuda_ms(
+            lambda: rt.trace_extended_plain(pad, pos_b, flux_b, DR), 3)
+        msg = (f"; per trace: the loop {ms:.3f} ms, the plain loop "
+               f"{plain_ms:.3f} ms ({ms / nb:.4f} / {plain_ms / nb:.4f} ms "
+               f"per batch)")
+    log(f"  {label}: trace_extended (C++ loop) vs trace_extended_plain: "
+        f"max_abs_err={err:.1e} (bit-equal"
+        f"{', Gamma and heat' if rt.do_heating else ''}), launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v) + msg)
+    return (err, ms, plain_ms) if timed else err
 
 
 def heating_checks(temp, xh, N):
@@ -956,7 +1317,8 @@ def adaptive_bench(bins):
                            f"30] used and the smallest the largest")
     updates = sum(cell_updates(c, r) for c, r in zip(counts, ada.radii))
     phi, _, launches = run_path(ada, nd, xh, batches, None, updates,
-                                {"cheb_sweep_rates": sum(nb)},
+                                {"cheb_sweep_rates": sum(nb),
+                                 **loop_counts(sum(nb), len(nb))},
                                 "adaptive bench mix, all buckets")
     sel_b = ada.assign_buckets(flux, DR, avg)
     total = None
@@ -967,7 +1329,7 @@ def adaptive_bench(bins):
         pb, fb = eng.prepare_sources(pos[sel], flux[sel])
         p_k, _, _ = run_path(
             eng, nd, xh, pb, fb, cell_updates(sel.size, r),
-            {"cheb_sweep_rates": pb.shape[0]},
+            {"cheb_sweep_rates": pb.shape[0], **loop_counts(pb.shape[0], 1)},
             f"  bucket R={r:g} alone ({sel.size} sources, {pb.shape[0]} "
             f"batches, Dc={eng.geom.Dc})")
         total = p_k if total is None else total + p_k
@@ -980,6 +1342,11 @@ def adaptive_bench(bins):
                          batches.flux[0], 16)
     log(f"  per-batch device ms, bucket R={ada.radii[0]:g}: " + ", ".join(
         f"{k} {v:.4f}" for k, v in br.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_before_after(
+            f"adaptive bench mix ({sum(nb)} batches)", ada.engines,
+            lambda: ada.trace_batches(nd, xh, batches, None, DR)[0],
+            sum(nb), tmp)
     ada_cpu = AdaptiveRaytracer(N, R_BENCH, SIG, bins, batch_size=B_ADAPT,
                                 dtype=dt, device="cpu", fuse_fold=True)
     nd_np = np.full((N,) * 3, 1e-3)
@@ -1030,21 +1397,23 @@ def eor_slice(sim, k):
         converged="Multiple source convergence reached." in text)
 
 
-def eor_run(bins):
+def eor_run(bins, smi):
     """Phase 4e: the production EoR run on the committed inputs; returns
-    the K3 launches of its timesteps, K3's device ms per call in the
-    profiled trace and the first slice's iterations, photon loss and xh.
-    ``bins`` are make_bins(), the bins the model builds from parameters.yml
-    (asserted)."""
+    the kernel launches of its timesteps, the device ms per call of K3's two
+    phases and of the box kernels in the profiled trace, and the first
+    slice's iterations, photon loss and xh. ``bins`` are make_bins(), the
+    bins the model builds from parameters.yml (asserted); ``smi`` the
+    card's name and power limit. The first slice runs first on a model of
+    its own with the batch loop before the trace loop (``plain_loop``):
+    its iterations, xh and photon loss are held bit-equal to the run's."""
     from pyc2ray_torch import C2Ray_CubeP3M
-    from pyc2ray_torch.diagnostics import (device_idle_share,
-                                           device_op_times, profile_trace)
+    from pyc2ray_torch.diagnostics import device_op_times
     from pyc2ray_torch.io import read_cbin
     from pyc2ray_torch.ops.adaptive import AdaptiveRaytracer
     from pyc2ray_torch.utils import format_sources
     from pyc2ray_torch.utils.paramutils import read_paramfile
     params = read_paramfile(os.path.join(EOR_DIR, "parameters.yml"))
-    k3 = 0
+    run_counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         params["Output"]["results_basename"] = tmp + "/"
         params["Output"]["inputs_basename"] = \
@@ -1064,17 +1433,26 @@ def eor_run(bins):
             raise RuntimeError("EoR run: the model did not build the "
                                "adaptive engine of parameters.yml")
         xh0 = np.array(sim.xh)
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim_plain = C2Ray_CubeP3M(params, N_EOR, device="cuda")
+        with plain_loop(sim_plain.raytracer.engines):
+            _, _, before = eor_slice(sim_plain, 0)
+        xh_before = np.array(sim_plain.xh)
+        del sim_plain
         for k in range(2):
             srcpos, flux, r = eor_slice(sim, k)
             n_it = len(r["t_ray"])
             nbatch = sum(-(-c // B_EOR) for c in r["counts"])
             want = {name: 0 for name in r["launches"]}
             want["cheb_sweep_rates"] = n_it * nbatch
+            want.update(loop_counts(n_it * nbatch,
+                                    n_it * sum(c > 0 for c in r["counts"])))
             if r["launches"] != want or not r["converged"] or n_it == 0:
                 raise RuntimeError(f"EoR slice {k}: launches "
                                    f"{r['launches']}, expected {want}; "
                                    f"converged {r['converged']}")
-            k3 += r["launches"]["cheb_sweep_rates"]
+            for name, n in r["launches"].items():
+                run_counts[name] = run_counts.get(name, 0) + n
             updates = sum(cell_updates(c, R) for c, R
                           in zip(r["counts"], rt.radii))
             t_ray, t_chem = np.mean(r["t_ray"]), np.mean(r["t_chem"])
@@ -1112,6 +1490,25 @@ def eor_run(bins):
                 # phase 5b/5c's single-rank reference
                 first = dict(iterations=n_it, loss=r["loss"][-1], xh=xh0,
                              t_step=r["t_step"], t_ray=float(t_ray))
+                n_b = len(before["t_ray"])
+                want_b = {name: 0 for name in before["launches"]}
+                want_b["cheb_sweep_rates"] = n_b * nbatch
+                log(f"  first slice ({smi}), the loop before the trace loop "
+                    f"(trace_extended_plain): {n_b} raytrace iterations, "
+                    f"per iteration raytrace "
+                    f"{np.mean(before['t_ray']):.3f} s, "
+                    f"{before['t_step']:.2f} s per timestep, photon loss "
+                    f"{before['loss'][-1]:.3e}; after: {n_it}, "
+                    f"{t_ray:.3f} s, {r['t_step']:.2f} s, "
+                    f"{r['loss'][-1]:.3e}; xh bit-equal "
+                    f"{np.array_equal(xh_before, xh)}")
+                if (n_b != n_it or before["loss"] != r["loss"]
+                        or not np.array_equal(xh_before, xh)
+                        or before["launches"] != want_b):
+                    raise RuntimeError(
+                        f"EoR first slice: the trace loop's run differs "
+                        f"from the loop before it (launches before "
+                        f"{before['launches']})")
 
         # one trace of the last slice's state under the profiler
         pos, fl = format_sources(srcpos, flux)
@@ -1121,37 +1518,31 @@ def eor_run(bins):
                                device="cuda").reshape(-1)
         avg = float(nd.mean())
         batches, _ = rt.prepare_sources(pos, fl, dr=sim.dr, avg_dens=avg)
-        phi = rt.trace_batches(nd, xh_d, batches, None, sim.dr)[0]
-        torch.cuda.synchronize()
-        t0 = time.time()
-        phi = rt.trace_batches(nd, xh_d, batches, None, sim.dr)[0]
-        torch.cuda.synchronize()
-        t_plain = time.time() - t0
-        prof = os.path.join(tmp, "profile")
-        t0 = time.time()
-        with profile_trace(prof) as p:
-            p["sync"] = rt.trace_batches(nd, xh_d, batches, None, sim.dr)[0]
-        t_prof = time.time() - t0
-        if not torch.equal(p["sync"], phi):
-            raise RuntimeError("EoR run: the profiled trace differs")
-        idle = device_idle_share(prof)
-        top = device_op_times(prof)
-        busy = sum(top.values())
         nbatch = sum(b.shape[0] for b in batches.pos if b is not None)
-        # K3's two launches per call: the sweep (phase A), the rates (B)
+        log(f"EoR trace of the last slice's state ({smi}), the batch loop "
+            f"before and after the trace loop:")
+        ba = loop_before_after(
+            "EoR trace", rt.engines,
+            lambda: rt.trace_batches(nd, xh_d, batches, None, sim.dr)[0],
+            nbatch, tmp)
+        phi = ba["after"]["phi"]
+        for tag in ("before", "after"):
+            top = device_op_times(ba[tag]["prof"])
+            log(f"  EoR trace, loop {tag}, top device operations: "
+                + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms
+                            in list(top.items())[:8]))
+        # per call on the device: K3's two launches (the sweep, phase A;
+        # the rates, phase B) and the two box kernels
         k3_ms = {ph: sum(ms for name, ms in top.items() if kern in name)
                  / nbatch for ph, kern in (("A", "sweep_fold_kernel"),
-                                           ("B", "box_rates_kernel"))}
-        log(f"EoR trace under torch.profiler: {t_prof:.3f} s (unprofiled "
-            f"{t_plain:.3f} s), trace file "
-            f"{os.path.getsize(p['path']) / 2 ** 20:.1f} MiB; device idle "
-            f"share {idle:.4f} of the profiled trace, "
-            f"{1.0 - 1e-3 * busy / t_plain:.4f} of the unprofiled one "
-            f"(device busy {busy:.2f} ms in {len(top)} kinds of "
-            f"operation); K3 on the device {k3_ms['A']:.4f} + "
-            f"{k3_ms['B']:.4f} ms per call ({nbatch} calls); top: "
-            + "; ".join(f"{name[:70]} {ms:.2f} ms" for name, ms
-                        in list(top.items())[:8]))
+                                           ("B", "box_rates_kernel"),
+                                           ("extract", "extract_boxes"),
+                                           ("accumulate",
+                                            "accumulate_boxes"))}
+        log(f"  EoR trace, loop after: per call on the device K3 "
+            f"{k3_ms['A']:.4f} + {k3_ms['B']:.4f} ms, extract_boxes "
+            f"{k3_ms['extract']:.4f} ms, accumulate_boxes "
+            f"{k3_ms['accumulate']:.4f} ms ({nbatch} calls each)")
 
         # the first 16 sources, GPU against the plain CPU path
         rt_cpu = AdaptiveRaytracer(N_EOR, rt.R_max, rt.engines[0].sig,
@@ -1170,7 +1561,7 @@ def eor_run(bins):
         log(f"  first batch (16 sources): GPU vs CPU max abs diff "
             f"{float((phi_g - phi_c).abs().max()):.3e} (floor {floor:.3e}, "
             f"peak {float(phi_c.max()):.3e})")
-    return k3, k3_ms["A"] + k3_ms["B"], first
+    return run_counts, k3_ms, first
 
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1382,14 +1773,15 @@ def box_bench(src_pos, bins, tmp):
     cost of the box side's alignment to 8 (``unaligned_box``: the same 16
     batches, Gamma bit-equal). Then the grey spectrum in float64 at N = 64,
     8 sources, R beyond the mesh, on the card against the flat engine's
-    analytic grey rates at rtol 2e-7. None of the five kernels runs
-    (asserted)."""
+    analytic grey rates at rtol 2e-7. None of the five sweep kernels runs;
+    the timed trace launches accumulate_boxes once per batch and nothing
+    else (asserted)."""
     from pyc2ray_torch.diagnostics import (device_idle_share,
                                            device_op_times, profile_trace)
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
     from pyc2ray_torch.ops.raytrace_box import BoxRaytracer, grey_bins
-    from pyc2ray_torch.ops.raytrace_cheb import wrap_pad
+    from pyc2ray_torch.ops.trace_loop import wrap_pad
     N, dt = N_BENCH, torch.float32
     sweep.reset_launches()
     rt = BoxRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH, dtype=dt)
@@ -1406,10 +1798,17 @@ def box_bench(src_pos, bins, tmp):
     torch.cuda.synchronize()
     t_win = time.time() - t0
     nb = min(pos_b.shape[0], max(nwin, int(BOX_BUDGET_S * nwin / t_win)))
+    sweep.reset_launches()
     t0 = time.time()
     phi, _ = rt.trace_batches(nd, xh, pos_b[:nb], flux_b[:nb], DR)
     torch.cuda.synchronize()
     t_ray = time.time() - t0
+    counts = dict(sweep.launches)
+    want = {k: 0 for k in counts}
+    want["accumulate_boxes"] = nb
+    if counts != want:
+        raise RuntimeError(f"box engine: launches {counts}, expected "
+                           f"{want}")
     if not (bool(torch.isfinite(phi).all()) and float(phi.max()) > 0.0):
         raise RuntimeError("box engine: Gamma not finite and positive")
     t0 = time.time()
@@ -1434,7 +1833,8 @@ def box_bench(src_pos, bins, tmp):
     dev_ms = sum(device_op_times(os.path.join(tmp, "box")).values()) / nwin
     stages = box_stages(rt, nd, xh, pos_b, flux_b, nwin)
     # the sweep body's device launches per shell, from one batch's sweep
-    H = rt._sheets(wrap_pad(nd.reshape((N,) * 3), g.c, g.Dc), pos_b[0])
+    H = rt._sheets(wrap_pad(nd.reshape((N,) * 3), g.c, g.Dc),
+                   pos_b[0].to("cuda"))
     pathdr = rt.tables.path * torch.tensor(DR, dtype=dt).to("cuda")
     with profile_trace(os.path.join(tmp, "box_sweep")) as p:
         p["sync"] = rt._sweep(H, pathdr, DR)
@@ -1501,43 +1901,59 @@ def box_bench(src_pos, bins, tmp):
         f"{box.geom.Dc}), {NS_BOX_GREY} sources in {t_box:.3f} s: against "
         f"the flat engine's analytic grey rates max rel "
         f"{max_rel(phi_b, phi_f):.3e} (rtol 2e-7)")
-    if any(sweep.launches.values()):
-        raise RuntimeError(f"box engine launched kernels {sweep.launches}")
-    log("  box engine: none of the five kernels launched (launch counts "
-        "all 0; no TPU kernel lies on this path)")
+    swept = {k: v for k, v in sweep.launches.items()
+             if k != "accumulate_boxes" and v}
+    if swept:
+        raise RuntimeError(f"box engine launched kernels {swept}")
+    log(f"  box engine: none of the five sweep kernels launched (no TPU "
+        f"kernel lies on this path); the timed trace's launches {counts}")
     return dict(t_ray=t_ray, per_batch=per_batch, idle=idle)
 
 
 def box_stages(rt, nd, xh, pos_b, flux_b, nbatch):
     """Per-batch ms of the box engine's stages over the first ``nbatch``
     batches (CUDA events, a synchronize after each batch: the engine is
-    launch-bound, so a stage's time is mostly its host's enqueue)."""
-    from pyc2ray_torch.ops.raytrace_cheb import add_boxes, wrap_pad
+    launch-bound, so a stage's time is mostly its host's enqueue): the
+    accumulate is the accumulate_boxes kernel, and beside it the plain slice
+    adds of the loop before ("accumulate_plain"); the two frames, and the
+    plain one folded against trace_batches over the same batches, are
+    asserted bit-equal."""
     from pyc2ray_torch.ops.sweep import s_over_dr3
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
+                                              fold_padding, stage_positions,
+                                              wrap_pad)
     g, N = rt.geom, rt.N
     nhi_pad = wrap_pad(nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3)),
                        g.c, g.Dc)
-    pad = torch.zeros_like(nhi_pad)
+    pad, plain = torch.zeros_like(nhi_pad), torch.zeros_like(nhi_pad)
     pathdr = rt.tables.path * torch.tensor(DR, dtype=rt.dtype).to("cuda")
     s_dr3 = s_over_dr3(DR, rt.dtype).to("cuda")
+    pos = stage_positions(pos_b[:nbatch], nhi_pad.shape, g.Dc, "cuda")
     tot = dict.fromkeys(("sheets", "sweep", "rates", "unshear",
-                         "accumulate"), 0.0)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    for pos, flux in list(zip(pos_b, flux_b))[:nbatch]:
+                         "accumulate", "accumulate_plain"), 0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    for k in range(nbatch):
         ev[0].record()
-        H = rt._sheets(nhi_pad, pos)
+        H = rt._sheets(nhi_pad, pos[k])
         ev[1].record()
         cdin = rt._sweep(H, pathdr, DR)
         ev[2].record()
-        phi, _ = rt._rates(cdin, H, pathdr, flux, s_dr3)
+        phi, _ = rt._rates(cdin, H, pathdr, flux_b[k], s_dr3)
         ev[3].record()
         box = rt._unshear(phi)
         ev[4].record()
-        add_boxes(pad, box, pos)
+        accumulate_boxes(pad, box, pos, k)
         ev[5].record()
+        add_boxes(plain, box, pos_b[k])
+        ev[6].record()
         torch.cuda.synchronize()
-        for k, name in enumerate(tot):
-            tot[name] += ev[k].elapsed_time(ev[k + 1])
+        for i, name in enumerate(tot):
+            tot[name] += ev[i].elapsed_time(ev[i + 1])
+    whole = rt.trace_batches(nd, xh, pos_b[:nbatch], flux_b[:nbatch], DR)[0]
+    if not (torch.equal(pad, plain) and torch.equal(
+            fold_padding(plain, g.c, g.Dc).reshape(-1), whole)):
+        raise RuntimeError("box engine: accumulate_boxes differs from the "
+                           "plain slice adds")
     return {k: v / nbatch for k, v in tot.items()}
 
 
@@ -1643,7 +2059,7 @@ def helium_bench(bins_he, src_pos, chem):
     t_ray = time.time() - t0
     counts = dict(sweep.launches)
     want = {k: 0 for k in counts}
-    want["cheb_sweep"] = 3 * nbatch
+    want.update(loop_counts(nbatch), cheb_sweep=3 * nbatch)
     if counts != want:
         raise RuntimeError(f"helium trace: launches {counts}, expected "
                            f"{want}")
@@ -1673,37 +2089,62 @@ def helium_bench(bins_he, src_pos, chem):
         f"{bins_he.num_bins} bins: raytrace {t_ray:.4f} s = "
         f"{1e9 * t_ray / cell_updates(NS_BENCH, R_BENCH):.4f} "
         f"ns/cell-update, K1 launches {counts['cheb_sweep']} (3 x {nbatch} "
-        f"batches), peak device memory {peak_gb:.2f} GiB; global_pass_he "
+        f"batches), extract and accumulate {counts['extract_boxes']} each "
+        f"(one per batch for all species and channels), peak device memory "
+        f"{peak_gb:.2f} GiB; global_pass_he "
         f"{t_chem:.4f} s, conv_flag {int(out[6])}, converged within 8 "
         f"inner iterations: {within8}")
 
-    # per-batch device ms of each stage, CUDA events, first 16 batches
+    # per-batch device ms of each stage, CUDA events, first 16 batches:
+    # the box kernels (three species in one extract, the three channels in
+    # one accumulate) and, on the same batch, the plain gathers and slice
+    # adds the loop issued before; the frames bit-equal to the plain ones
+    # and to trace_extended's over the same batches
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes,
+                                              extract_boxes, stage_positions)
     eng = rt.eng
     pads = [eng.wrap_pad(f) for f in rt.species_fields(nd, xh, y1, y2)]
     acc = [torch.zeros_like(pads[0]) for _ in range(3)]
+    acc_plain = [torch.zeros_like(pads[0]) for _ in range(3)]
     dr_t = torch.tensor(DR, dtype=dt).to("cuda")
-    tot = dict(extract=0.0, K1_HI=0.0, K1_HeI=0.0, K1_HeII=0.0,
-               rates_he=0.0, accumulate=0.0)
+    tot = dict.fromkeys(("extract", "K1_HI", "K1_HeI", "K1_HeII",
+                         "rates_he", "accumulate", "extract_plain",
+                         "accumulate_plain"), 0.0)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(tot) + 1)]
     nwin = 16
-    for pos, flux in list(zip(pos_b, flux_b))[:nwin]:
+    pos_d = stage_positions(pos_b[:nwin], pads[0].shape, eng.geom.Dc, "cuda")
+    for k in range(nwin):
         ev[0].record()
-        boxes = [eng._extract_boxes(p, pos.to("cuda")) for p in pads]
+        boxes = extract_boxes(pads, pos_d, k, eng.geom.Dc)
         ev[1].record()
         cds = []
         for s in range(3):
             cds.append(eng.sweep_box(boxes[s], DR, rt.sigma_th[s]))
             ev[2 + s].record()
-        rates = rt._rates_he(cds, boxes, flux, dr_t)
+        rates = rt._rates_he(cds, boxes, flux_b[k], dr_t)
         ev[5].record()
-        for pad, box in zip(acc, rates):
-            eng.add_boxes(pad, box, pos)
+        accumulate_boxes(acc, rates, pos_d, k, eng.box_shift(rates[0]))
         ev[6].record()
+        plain = [eng._extract_boxes(p, pos_b[k].to("cuda")) for p in pads]
+        ev[7].record()
+        for pad, box in zip(acc_plain, rates):
+            eng.add_boxes(pad, box, pos_b[k])
+        ev[8].record()
         torch.cuda.synchronize()
-        for k, name in enumerate(tot):
-            tot[name] += ev[k].elapsed_time(ev[k + 1])
+        if not all(torch.equal(a, b) for a, b in zip(boxes, plain)):
+            raise RuntimeError("helium: extract_boxes differs from the "
+                               "plain gather")
+        for i, name in enumerate(tot):
+            tot[name] += ev[i].elapsed_time(ev[i + 1])
+    whole = rt.trace_extended(pads, pos_b[:nwin], flux_b[:nwin], DR)
+    if not all(torch.equal(a, b) and torch.equal(a, w)
+               for a, b, w in zip(acc, acc_plain, whole)):
+        raise RuntimeError("helium: the accumulated rates differ from the "
+                           "plain slice adds")
     log("  per-batch device ms: " + ", ".join(
-        f"{k} {v / nwin:.4f}" for k, v in tot.items()))
+        f"{k} {v / nwin:.4f}" for k, v in tot.items())
+        + f"; over {nwin} batches the three rate frames bit-equal to the "
+        f"plain loop's and to trace_extended's")
 
     # a helium-free field: Gamma_HI equals the hydrogen engine's at the
     # same bins (the HI row of the helium bins)
@@ -2135,10 +2576,11 @@ def p5_check_trace(wd, ranks, tag, k3_phi, phi3):
             f"{a['seconds']:.4f} s = "
             f"{1e9 * a['seconds'] / updates:.4f} ns/cell-update, K3 "
             f"launches {k3}; collectives {_ms(a['traffic'])}")
-        if k3 != NS_BENCH // B_BENCH // P5_RANKS or any(
-                v for k, v in a["launches"].items()
-                if k != "cheb_sweep_rates"):
-            raise RuntimeError(f"5a rank {r}: launches {a['launches']}")
+        want = {k: 0 for k in a["launches"]}
+        want.update(loop_counts(k3, 1), cheb_sweep_rates=k3)
+        if k3 != NS_BENCH // B_BENCH // P5_RANKS or a["launches"] != want:
+            raise RuntimeError(f"5a rank {r}: launches {a['launches']}, "
+                               f"expected {want}")
     log(f"5a {tag}: Gamma against phase 3b's single-rank K3 Gamma: max "
         f"rel {err:.3e} above 1e-6 of the peak (bound 1e-5); against "
         f"phase 3's unfused Gamma {err3:.3e}")
@@ -2364,10 +2806,14 @@ def main():
             f"{time.time() - t0:.4f} s")
     counts = dict(sweep.launches)
     launches = counts.pop("cheb_sweep")
-    if launches != nbatch or any(counts.values()):
+    boxes_launches = [counts.pop(k) for k in ("extract_boxes",
+                                               "accumulate_boxes")]
+    if (launches != nbatch or boxes_launches != [nbatch] * 2
+            or any(counts.values())):
         raise RuntimeError(f"sweep kernel launched {launches} times on the "
-                           f"main path, expected one per batch ({nbatch}); "
-                           f"other kernels {counts}")
+                           f"main path, extract and accumulate "
+                           f"{boxes_launches}, expected one per batch "
+                           f"({nbatch}); other kernels {counts}")
     for name, t in (("phi", phi), ("xh", xi), ("xh_av", xa)):
         if t.shape != (N ** 3,) or not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"main path: {name} is not finite of shape "
@@ -2380,8 +2826,9 @@ def main():
     log(f"main path N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32 "
         f"bins={bins.num_bins}: raytrace {t_ray:.4f} s = {ns_cell:.4f} "
         f"ns/cell-update, chemistry {t_chem:.4f} s, raytrace+chem "
-        f"{mcell:.2f} Mcell-updates/s, sweep launches {launches} "
-        f"(batches {nbatch}), conv_flag {int(cf)}")
+        f"{mcell:.2f} Mcell-updates/s, sweep launches {launches}, extract "
+        f"and accumulate {boxes_launches[0]} each (batches {nbatch}), "
+        f"conv_flag {int(cf)}")
     br = stage_breakdown(rt, ndens, xh, pos_b, flux_b, 16)
     log("per-batch device ms: " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in br.items()))
@@ -2412,7 +2859,7 @@ def main():
                             dtype=dt, **{mode: True})
         phi_f, _, counts = run_path(
             rtf, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
-            {kname: nbatch},
+            {kname: nbatch, **loop_counts(nbatch, mode == "fuse_fold")},
             f"{mode} N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32",
             chem)
         fused_launches[kname] = counts[kname]
@@ -2422,6 +2869,11 @@ def main():
                 1e-6)
         if mode == "fuse_fold":
             k3_phi = phi_f.cpu()        # phase 5a's single-rank reference
+            with tempfile.TemporaryDirectory() as tmp:
+                loop_before_after(
+                    f"fuse_fold bench N={N} B={B_BENCH}", [rtf],
+                    lambda: rtf.trace_batches(ndens, xh, pos_b, flux_b,
+                                              DR)[0], nbatch, tmp)
         br = stage_breakdown(rtf, ndens, xh, pos_b, flux_b, 16)
         log("  per-batch device ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in br.items()))
@@ -2441,6 +2893,7 @@ def main():
         nb = hp.shape[0]
         expect = ({"cheb_sweep_seg": rth.seg_K * nb} if rth.seg_S
                   else {"cheb_sweep": nb})
+        expect.update(loop_counts(nb))
         h_phi[seg], _, counts = run_path(
             rth, h_nd, h_xh, hp, hf, cell_updates(NS_R100, R_R100), expect,
             f"R=100 harness N={nh} Ns={NS_R100} B={B_BENCH} float32 "
@@ -2463,7 +2916,7 @@ def main():
                  f"R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32")
         phi_h, heat_f[fold], counts = run_path(
             rth, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
-            {kname: nbatch}, label, chem)
+            {kname: nbatch, **loop_counts(nbatch, fold)}, label, chem)
         if fold:
             heat_launches = counts[kname]
         compare(f"{'K3h' if fold else 'K1 + rate pass'} Gamma vs phase 3's",
@@ -2508,6 +2961,9 @@ def main():
     # ---- 3f. the octahedral sheet engine at the bench configuration -------
     with tempfile.TemporaryDirectory() as tmp:
         box_bench(src_pos, bins, tmp)
+
+    # ---- 3g. the trace loop's kernels and the C++ loop vs plain ----------
+    k_loop = check_trace_loop(bins, src_pos)
 
     # ---- 4. one evolve3D timestep, GPU vs CPU ---------------------------
     Ne, Re, nse = N_EVOLVE, R_EVOLVE, NS_EVOLVE
@@ -2578,14 +3034,19 @@ def main():
     # ---- 4c. the entry point: the heating example through C2Ray_Test ------
     sim, n_iter, counts, t_sim = heating_example("cheb")
     n_k3h = counts.pop("cheb_sweep_rates_heat")
+    n_loop = counts.pop("cheb_trace_rates")
+    n_box = [counts.pop(k) for k in ("extract_boxes", "accumulate_boxes")]
     g_h = sim.raytracer.geom
     log(f"C2Ray_Test heating example N={N_HEATING} (float64, engine cheb, "
         f"fuse_fold, Dc={g_h.Dc}, R1={g_h.r_max + 1}, "
         f"{sim.raytracer.num_bins} bins): {STEPS_HEATING} timesteps, "
         f"{n_iter} raytrace iterations, {t_sim:.2f} s with set-up, K3h "
-        f"launches {n_k3h}")
-    if n_k3h == 0 or n_k3h != n_iter or any(counts.values()):
-        raise RuntimeError(f"heating example: {n_k3h} K3h launches for "
+        f"launches {n_k3h}, trace loops {n_loop}, extract and accumulate "
+        f"{n_box}")
+    if (n_k3h == 0 or n_k3h != n_iter or n_loop != n_iter
+            or n_box != [n_iter] * 2 or any(counts.values())):
+        raise RuntimeError(f"heating example: {n_k3h} K3h launches, "
+                           f"{n_loop} loops and {n_box} box launches for "
                            f"{n_iter} single-source iterations, other "
                            f"kernels {counts}")
     heat_4c = (np.asarray(sim.xh), np.asarray(sim.temp))
@@ -2594,8 +3055,9 @@ def main():
     adaptive_bench(bins)
 
     # ---- 4e. the production EoR run on the committed inputs --------------
-    eor_launches, eor_device_ms, eor_first = eor_run(bins)
-    k_eor.update(ms=eor_device_ms, ms_back_to_back=k_eor["ms"])
+    eor_counts, eor_device_ms, eor_first = eor_run(bins, smi)
+    k_eor.update(ms=eor_device_ms["A"] + eor_device_ms["B"],
+                 ms_back_to_back=k_eor["ms"])
 
     # ---- 4f. the golden: examples/single_source_test at N=128 -------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2627,11 +3089,13 @@ def main():
         f"Q={g_b.Q}, Dc={g_b.Dc}, {sim.raytracer.num_bins} bins): "
         f"{STEPS_HEATING} timesteps, {n_iter} raytrace iterations, "
         f"{t_sim:.2f} s with set-up; kernel launches {counts}")
+    n_acc = counts.pop("accumulate_boxes")
     if type(sim.raytracer).__name__ != "BoxRaytracer" \
-            or any(counts.values()):
+            or n_acc != n_iter or any(counts.values()):
         raise RuntimeError(f"heating example (box): engine "
-                           f"{type(sim.raytracer).__name__}, launches "
-                           f"{counts}")
+                           f"{type(sim.raytracer).__name__}, "
+                           f"accumulate_boxes {n_acc} for {n_iter} "
+                           f"iterations, other launches {counts}")
     for name, got, want in (("xh", sim.xh, heat_4c[0]),
                             ("T", sim.temp, heat_4c[1])):
         got = np.asarray(got)
@@ -2652,9 +3116,11 @@ def main():
     # the EoR run's small bucket, B=16, Dc=24, where back-to-back calls are
     # bounded by the host's enqueue: its ms is the device time per call in
     # 4e's profiled trace, ms_back_to_back the CUDA-event time). No single
-    # PyTorch call computes any of them.
+    # PyTorch call computes any of the five sweep kernels; the box kernels'
+    # library_ms is torch.take / index_add_ on precomputed indices (3g).
     src = "pyc2ray_torch/ops/csrc/"
     tpu = "pyc2ray_tpu/ops/pallas_sweep.py:"
+    jax_rt = "pyc2ray_tpu/ops/raytrace_cheb.py:"
     kernels = [
         dict(name="cheb_sweep", source=src + "cheb_sweep.cu",
              replaces=tpu + "353", launches=launches + he_launches,
@@ -2669,12 +3135,30 @@ def main():
         dict(name="cheb_sweep_seg", source=src + "cheb_sweep.cu",
              replaces=tpu + "455", launches=seg_launches, **k_seg),
         dict(name="cheb_sweep_rates", source=src + "cheb_sweep_rates.cu",
-             replaces=tpu + "669", launches=eor_launches,
+             replaces=tpu + "669", launches=eor_counts["cheb_sweep_rates"],
              launches_per_rank_5b=k3_5b, **k_eor),
         dict(name="cheb_sweep_rates_heat", source=src + "cheb_sweep_rates.cu",
-             replaces=tpu + "669", launches=heat_launches, **k_heat)]
-    kernels = [dict(name=k.pop("name"), route="cuda", **k, library_ms=None)
-               for k in kernels]
+             replaces=tpu + "669", launches=heat_launches, **k_heat),
+        # the port's own kernels (no TPU kernel: XLA's gather,
+        # dynamic_update_slice scan and jit + lax.scan batch loop in the
+        # JAX engine), at the EoR run's shape, launches over its timesteps;
+        # as for K3 there, ms is the device time per call in 4e's profiled
+        # trace; 3g's device and CUDA-event (back-to-back) times beside it
+        dict(name="extract_boxes", source=src + "trace_loop.cu",
+             replaces=jax_rt + "1082",
+             launches=eor_counts["extract_boxes"],
+             **{**k_loop["extract"], "ms": eor_device_ms["extract"],
+                "ms_device_3g": k_loop["extract"]["ms"]}),
+        dict(name="accumulate_boxes", source=src + "trace_loop.cu",
+             replaces=jax_rt + "1223",
+             launches=eor_counts["accumulate_boxes"],
+             **{**k_loop["accumulate"], "ms": eor_device_ms["accumulate"],
+                "ms_device_3g": k_loop["accumulate"]["ms"]}),
+        dict(name="cheb_trace_rates", source=src + "trace_loop.cu",
+             replaces=jax_rt + "346",
+             launches=eor_counts["cheb_trace_rates"], **k_loop["loop"])]
+    kernels = [dict(name=k.pop("name"), route="cuda",
+                    **{"library_ms": None, **k}) for k in kernels]
     log(f"chip_smoke wall time: {time.time() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,8 +19,8 @@ from pathlib import Path
 __all__ = ["load", "NVCC_FLAGS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cheb_sweep", "cheb_sweep_rates")      # csrc/<name>.cu
-HEADERS = ("cheb_sweep.cuh",)
+SOURCES = ("cheb_sweep", "cheb_sweep_rates", "trace_loop")  # csrc/<name>.cu
+HEADERS = ("cheb_sweep.cuh", "cheb_sweep_rates.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -39,6 +39,12 @@ _SIGNATURES = {
     },
     "cheb_sweep_rates": {
         "cheb_sweep_rates": [_P] * 16 + [_I, _D, _D, _I] + _LAUNCH,
+    },
+    "trace_loop": {
+        # extract (else accumulate), frames, boxes, channels, pos, batch,
+        # B, D, shift, F0, F1, F2, stream
+        "boxes": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P],
+        "cheb_trace_rates": [_P] * 20 + [_I, _D, _D] + [_I] * 5 + _LAUNCH,
     },
 }
 

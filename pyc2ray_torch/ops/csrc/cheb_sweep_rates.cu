@@ -51,85 +51,11 @@
 // source, see cheb_sweep.cuh) and carries its chain of 3 (R1 - 1) dependent
 // sub-steps; phase B is a dense pass over the card.
 
-#include "cheb_sweep.cuh"
+#include "cheb_sweep_rates.cuh"
 
 namespace {
 
 using namespace cheb;
-
-// Phase A: keep cdin and dcol of a valid face cell, inside the sub-step.
-template <typename T>
-struct KeepFold {
-  static constexpr bool kDeferred = false;
-  T* ci;
-  T* dc;
-  __device__ void operator()(const FaceCell<T>& f) const {
-    ci[f.o] = f.cdin;
-    dc[f.o] = f.dcol;
-  }
-};
-
-template <typename T, bool SH>
-__global__ void sweep_fold_kernel(Tables<T> tb, Plan pl,
-                                  const T* __restrict__ nhi_all, T* ci_all,
-                                  T* dc_all, T* scratch_all) {
-  const size_t D2 = size_t(tb.Dc) * tb.Dc, D3 = D2 * tb.Dc;
-  const size_t src = blockIdx.x >> pl.lgC;
-  const T* nhi = nhi_all + src * D3;
-  const Sweep<T, SH> sweep(tb, pl, nhi, SH ? nullptr : scratch_all + src * 12 * D2);
-  sweep.init(nullptr, 0, source_cd(tb, nhi));
-  sweep.run(1, tb.R1, KeepFold<T>{ci_all + src * D3, dc_all + src * D3});
-}
-
-// Phase B: block (b, i) evaluates plane i of source b's box. With HEAT the
-// bins hold w_heat too and heat_all receives the photoheating rate. The
-// source cell (plane c, position (c, c)) gets its closed form.
-template <typename T, bool HEAT>
-__global__ void box_rates_kernel(const T* __restrict__ nhi_all,
-                                 const T* __restrict__ ci_all,
-                                 const T* __restrict__ dc_all,
-                                 const T* __restrict__ rt,
-                                 const T* __restrict__ flux,
-                                 const T* __restrict__ bins_s,
-                                 const T* __restrict__ bins_w,
-                                 const T* __restrict__ bins_wh, int E, int Dc,
-                                 int c, T dr, T sig, T s_fac, T sdr3,
-                                 T* phi_all, T* heat_all) {
-  using A = Arith<T>;
-  const int b = blockIdx.x / Dc, i = blockIdx.x % Dc;
-  const size_t D2 = size_t(Dc) * Dc;
-  const size_t plane = (size_t(b) * Dc + i) * D2;        // (b, i) in a box
-  const T* d2_tab = rt + size_t(i) * 2 * D2;             // channel 0
-  const T* valid = d2_tab + D2;                          // channel 1
-  T* bins = shared_mem<T>();
-  load_bins(bins_s, bins_w, E, bins, HEAT ? bins_wh : nullptr);
-  const T fs = A::mul(flux[b], s_fac);
-  for (size_t jk = threadIdx.x; jk < D2; jk += blockDim.x) {
-    T phi = T(0), heat = T(0);
-    if (valid[jk] > T(0.5)) {
-      const T cdin = ci_all[plane + jk];
-      const T dcol = dc_all[plane + jk];
-      if (cdin <= T(kMaxColdensH)) {
-        T acc, acc_h;
-        bin_sums<T, HEAT>(A::mul(cdin, sig), A::mul(dcol, sig), bins, E, acc,
-                          acc_h);
-        const T pref = A::div(fs, A::mul(d2_tab[jk], T(kFourPi)));
-        const T dsafe = max_lim(Arith<T>::tiny, dcol);
-        phi = A::div(A::mul(pref, acc), dsafe);
-        if (HEAT) heat = A::div(A::mul(pref, acc_h), dsafe);
-      }
-    }
-    if (i == c && jk == size_t(c) * Dc + c) {              // the source cell
-      const T n = nhi_all[plane + jk];
-      const T cd = A::mul(n, A::mul(T(0.5), dr));          // as source_cd
-      phi = source_rate(n, cd, flux[b], sdr3, sig, bins, bins + E, E);
-      if (HEAT)
-        heat = source_rate(n, cd, flux[b], sdr3, sig, bins, bins + 2 * E, E);
-    }
-    phi_all[plane + jk] = phi;
-    if (HEAT) heat_all[plane + jk] = heat;
-  }
-}
 
 template <typename T>
 int launch(const void* nhi, const void* sw, const void* path, const void* diag,
@@ -139,29 +65,20 @@ int launch(const void* nhi, const void* sw, const void* path, const void* diag,
            void* scratch, int E, double s_fac, double sdr3, int threads_b,
            int Dc, int c, int R1, double dr, double sig,
            const LaunchSpec& spec) {
-  const cudaStream_t st = static_cast<cudaStream_t>(spec.stream);
-  const int B = spec.B;
   const Tables<T> tb = make_tables<T>(sw, path, diag, mask_m, mask_p, Dc, c,
                                       R1, dr, sig);
   Plan pl;
-  cudaError_t err = make_plan<T>(spec, Dc, 0, false, &pl);
+  const cudaError_t err = make_plan<T>(spec, Dc, 0, false, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = launch_cluster(
-      pl.rows ? sweep_fold_kernel<T, true> : sweep_fold_kernel<T, false>, spec,
-      tb, pl, static_cast<const T*>(nhi), static_cast<T*>(ci),
-      static_cast<T*>(dc), static_cast<T*>(scratch));
-  if (rc != 0 || spec.max_clusters != nullptr) return rc;
-  const bool with_heat = heat != nullptr;
-  const auto phase_b = with_heat ? box_rates_kernel<T, true>
-                                 : box_rates_kernel<T, false>;
-  phase_b<<<B * Dc, threads_b, (with_heat ? 3 : 2) * E * sizeof(T), st>>>(
-      static_cast<const T*>(nhi), static_cast<const T*>(ci),
-      static_cast<const T*>(dc), static_cast<const T*>(rt),
-      static_cast<const T*>(flux), static_cast<const T*>(bins_s),
-      static_cast<const T*>(bins_w), static_cast<const T*>(bins_wh), E, Dc, c,
-      static_cast<T>(dr), static_cast<T>(sig), static_cast<T>(s_fac),
-      static_cast<T>(sdr3), static_cast<T*>(phi), static_cast<T*>(heat));
-  return static_cast<int>(cudaGetLastError());
+  return launch_rates<T>(
+      tb, pl, spec,
+      RatesCall<T>{static_cast<const T*>(nhi), static_cast<const T*>(rt),
+                   static_cast<const T*>(bins_s), static_cast<const T*>(bins_w),
+                   static_cast<const T*>(bins_wh), static_cast<const T*>(flux),
+                   static_cast<T*>(phi), static_cast<T*>(heat),
+                   static_cast<T*>(ci), static_cast<T*>(dc),
+                   static_cast<T*>(scratch), E, threads_b,
+                   static_cast<T>(s_fac), static_cast<T>(sdr3)});
 }
 
 }  // namespace

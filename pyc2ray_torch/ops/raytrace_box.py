@@ -24,10 +24,12 @@ batch of B sources:
      padded grid in batch order.
 
 The padding is folded back once at the end of the trace. The frame and its
-helpers (``wrap_pad``, ``add_boxes``, ``fold_padding``) are the Chebyshev
-engine's. No TPU kernel lies on this path: the engine is plain PyTorch on
-the card as on the CPU: 12 small launches per shell in the sweep, a few
-hundred per batch.
+helpers (``wrap_pad``, ``fold_padding``, and the accumulate
+``accumulate_boxes``, a kernel on the card) are those of the Chebyshev
+engine (ops/trace_loop.py); the positions go to the device once per trace.
+No TPU kernel lies on this path: apart from that accumulate the engine is
+plain PyTorch on the card as on the CPU: 12 small launches per shell in the
+sweep, a few hundred per batch.
 
 Two faults of the JAX engine are not copied. Its rate pass divides by the
 cell's nHI without a floor, so a zero-density cell inside the octahedron
@@ -51,9 +53,11 @@ from ..device import resolve_device
 from ..radiation.spectral_bins import SpectralBins
 from .geometry import max_q_for
 from .raytrace import RaytraceConfig
-from .raytrace_cheb import FOURPI, add_boxes, fold_padding, wrap_pad
+from .raytrace_cheb import FOURPI
 from .sheet_geometry import SheetGeometry, build_sheet_geometry
 from .sweep import s_over_dr3
+from .trace_loop import (accumulate_boxes, fold_padding, stage_positions,
+                         wrap_pad)
 
 __all__ = ["BoxRaytracer", "BoxTables", "build_box_tables", "grey_bins"]
 
@@ -194,10 +198,12 @@ class BoxRaytracer:
     # ------------------------------------------------------------------
     def _sheets(self, nhi_pad, pos):
         """(B, 2, Q, S) HI-density sheet stacks of the sources at box
-        corners ``pos`` (B, 3), cut and sheared in one gather."""
+        corners ``pos`` (B, 3) on the frame's device, cut and sheared in one
+        gather."""
         P = nhi_pad.shape[0]
+        pos = pos.to(torch.int64)
         base = (pos[:, 0] * P + pos[:, 1]) * P + pos[:, 2]
-        idx = base.to(self.device)[:, None] + self.tables.shear_idx
+        idx = base[:, None] + self.tables.shear_idx
         g = self.geom
         return nhi_pad.reshape(-1)[idx].view(
             pos.shape[0], 2, g.Q, g.Dc * g.Dc)
@@ -286,10 +292,11 @@ class BoxRaytracer:
         dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
         pathdr = self.tables.path * dr_t
         s_dr3 = s_over_dr3(dr, self.dtype).to(self.device)
-        for pos, flux in zip(pos_b, flux_b):
-            boxes = self._batch_rates(nhi_pad, pos, flux, dr, pathdr, s_dr3)
-            for pad, box in zip(pads, boxes):
-                add_boxes(pad, box, pos)
+        pos = stage_positions(pos_b, nhi_pad.shape, g.Dc, nhi_pad.device)
+        for k in range(pos.shape[0]):
+            boxes = self._batch_rates(nhi_pad, pos[k], flux_b[k], dr, pathdr,
+                                      s_dr3)
+            accumulate_boxes(pads, boxes[:len(pads)], pos, k)
         out = [fold_padding(p, g.c, g.Dc).reshape(-1) for p in pads]
         return out[0], (out[1] if self.do_heating else None)
 

@@ -5,7 +5,7 @@ sweep (per-source scan accumulate, no lane packing). Per batch of B
 sources:
 
   1. cut the (Dc, Dc, Dc) HI-density box of every source out of the
-     wrap-padded grid (``_extract_boxes``);
+     wrap-padded grid (``trace_loop.extract_boxes``);
   2. compute the rate box, by one of the JAX engine's four sweep modes
      (each a CUDA kernel on the GPU and its plain version on the CPU, see
      ops/sweep.py):
@@ -21,10 +21,18 @@ sources:
        - ``fuse_fold``: sweep, box assembly and rates with the flux and the
          source cell's closed form in one kernel (K3);
   3. add each source's rate box into the padded Gamma grid, source by
-     source in batch order (the JAX engine's scan accumulate).
+     source in batch order (the JAX engine's scan accumulate;
+     ``trace_loop.accumulate_boxes``).
 
 After the last batch the padding is folded back onto the periodic grid
-(``_fold_padding``).
+(``_fold_padding``). A trace copies its positions to the device once. With
+``fuse_fold`` (what the model layer builds) the whole batch loop is one
+call, ``trace_loop.cheb_trace_rates``: on the card a loop in C issues the
+four launches of every batch, the counterpart of the JAX engine's jitted
+``lax.scan``; the other modes loop over batches in Python around the same
+extract and accumulate kernels. ``trace_extended_plain`` keeps the loop as
+it was issued before (a gather, the sweep mode, one slice add per source),
+the reference the card holds the loop against.
 
 With ``do_heating`` every mode also returns the photoheating rate per HI
 atom: the rate pass and ``fuse_fold`` (K3h) sum the heating weights
@@ -52,51 +60,14 @@ from .cheb_geometry import (ChebGeometry, box_dims, build_cheb_geometry,
 from .geometry import max_q_for
 from .raytrace import RaytraceConfig
 from .sweep import cheb_sweep, cheb_sweep_rates, cheb_sweep_seg, init_planes
+from .trace_loop import (accumulate_boxes, add_boxes, cheb_trace_rates,
+                         extract_boxes, extract_boxes_ref, fold_padding,
+                         stage_positions, wrap_pad)
 
 __all__ = ["ChebRaytracer", "ChebTables", "shell_segmentation",
            "wrap_pad", "add_boxes", "fold_padding"]
 
 FOURPI = 12.566370614359172463991853874177
-
-
-# The extended frame of a box engine: every source's (Dc)^3 box starts at
-# its position in the (N, N, N) grid wrap-padded by c cells below and
-# Dc - 1 - c above on every axis (c: the source's index in its box). The
-# Chebyshev and the octahedral sheet engines share it.
-
-def wrap_pad(field3, c, Dc):
-    """The (N, N, N) field wrap-padded to the extended frame."""
-    N = field3.shape[0]
-    wrap = torch.arange(-c, N + Dc - 1 - c, device=field3.device) % N
-    return field3[wrap][:, wrap][:, :, wrap]
-
-
-def add_boxes(pad, boxes, pos, shift=0):
-    """Add each source's box of ``boxes`` (B, D, D, D) into the extended
-    grid ``pad`` at its box corner ``pos`` (B, 3) plus ``shift`` on every
-    axis, source by source in batch order (a fixed order of the adds on
-    either device)."""
-    D = boxes.shape[-1]
-    for (p0, p1, p2), box in zip(pos.tolist(), boxes):
-        p0, p1, p2 = p0 + shift, p1 + shift, p2 + shift
-        pad[p0:p0 + D, p1:p1 + D, p2:p2 + D] += box
-
-
-def fold_padding(padded, c, Dc):
-    """Fold the padding of the extended frame back onto the periodic
-    (N, N, N) grid (low pad onto the top, high pad onto the bottom, one
-    axis after the other)."""
-    N = padded.shape[0] - (Dc - 1)
-    padL, padR = c, Dc - 1 - c
-    out = padded
-    for axis in range(3):
-        core = out.narrow(axis, padL, N).clone()
-        if padR > 0:
-            core.narrow(axis, 0, padR).add_(out.narrow(axis, padL + N, padR))
-        if padL > 0:
-            core.narrow(axis, N - padL, padL).add_(out.narrow(axis, 0, padL))
-        out = core
-    return out
 
 
 def shell_segmentation(N, R_max_LLS, batch_size, dtype,
@@ -254,11 +225,9 @@ class ChebRaytracer:
                                                         self.dtype))
 
     def _extract_boxes(self, padded, pos):
-        """(B, Dc, Dc, Dc) boxes of ``padded`` starting at ``pos`` (B, 3)."""
-        ar = torch.arange(self.geom.Dc, device=padded.device)
-        i, j, k = (pos[:, ax, None] + ar for ax in range(3))
-        return padded[i[:, :, None, None], j[:, None, :, None],
-                      k[:, None, None, :]]
+        """(B, Dc, Dc, Dc) boxes of ``padded`` starting at ``pos`` (B, 3),
+        by the plain gather."""
+        return extract_boxes_ref(padded, pos, self.geom.Dc)
 
     def _rates(self, cd, nhi_box, flux, dr):
         """Dense spectral-bin rate pass over the central rates subbox.
@@ -357,9 +326,36 @@ class ChebRaytracer:
         return fold_padding(padded, self.geom.c, self.geom.Dc)
 
     def trace_extended(self, nhi_pad, pos_b, flux_b, dr):
-        """Batched sweep over the wrap-padded field; returns (phi, heat)
-        accumulated in the same extended frame, heat None without
-        ``do_heating``."""
+        """Batched sweep over the wrap-padded field ``nhi_pad`` (or any
+        frame that holds every box, as a domain's halo-extended block);
+        returns (phi, heat) accumulated in the same frame, heat None without
+        ``do_heating``. The positions go to the frame's device once. With
+        ``fuse_fold`` the batch loop is one ``cheb_trace_rates`` call; the
+        other modes loop over the batches here, each with one
+        ``extract_boxes`` and one ``accumulate_boxes``."""
+        g, tb = self.geom, self.tables
+        pos = stage_positions(pos_b, nhi_pad.shape, g.Dc, nhi_pad.device)
+        if self.fuse_fold:
+            return cheb_trace_rates(
+                nhi_pad, pos, flux_b, tb.sw, tb.path, tb.diag, tb.mask_m,
+                tb.mask_p, tb.rt_tab, dr, g.c, self.sig, tb.bins_s, tb.bins_w,
+                bins_wh=tb.bins_wh if self.do_heating else None)
+        frames = [torch.zeros_like(nhi_pad)
+                  for _ in range(1 + self.do_heating)]
+        dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
+        for k in range(pos.shape[0]):
+            boxes = extract_boxes(nhi_pad, pos, k, g.Dc)
+            out = self._batch_rates(boxes, flux_b[k], dr, dr_t)
+            accumulate_boxes(frames, out[:len(frames)], pos, k,
+                             self.box_shift(out[0]))
+        return frames[0], (frames[1] if self.do_heating else None)
+
+    def trace_extended_plain(self, nhi_pad, pos_b, flux_b, dr):
+        """``trace_extended`` as the batch loop was issued before the trace
+        loop: per batch a copy of the positions to the device, the PyTorch
+        gather (``_extract_boxes``), the sweep mode and one slice add per
+        source (``add_boxes``). The same result bit for bit; on the card the
+        plain reference of the loop and its box kernels."""
         phi_pad = torch.zeros_like(nhi_pad)
         heat_pad = torch.zeros_like(nhi_pad) if self.do_heating else None
         dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
@@ -371,12 +367,16 @@ class ChebRaytracer:
                 self.add_boxes(heat_pad, heat_box, pos)
         return phi_pad, heat_pad
 
+    def box_shift(self, rate_boxes):
+        """Where a batch's rate boxes start inside a source's box: 0 for
+        the (Dc)^3 box, rb0 for a (Ds)^3 rates subbox."""
+        return self._rb0 if rate_boxes.shape[-1] == self.Ds else 0
+
     def add_boxes(self, pad, rate_boxes, pos):
         """Add each source's rate box into the padded grid ``pad``, source
         by source in batch order: the (Dc)^3 box at the source's box
         corner ``pos`` (B, 3), a (Ds)^3 rates subbox rb0 further in."""
-        shift = self._rb0 if rate_boxes.shape[-1] == self.Ds else 0
-        add_boxes(pad, rate_boxes, pos, shift)
+        add_boxes(pad, rate_boxes, pos, self.box_shift(rate_boxes))
 
     def wrap_pad(self, field3):
         """The (N, N, N) field wrap-padded to the extended frame."""

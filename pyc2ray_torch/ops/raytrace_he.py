@@ -19,8 +19,10 @@ The rate pass (``_rates_he``) is plain PyTorch over the rates subbox: the
 per-cell optical depths and the per-species sums over bins are matrix
 products (torch.matmul) around one elementwise block over (cells, bins).
 Each source's rate boxes are added into the padded grids source by source
-in batch order (the JAX engine's scan accumulate); the JAX engine's window
-accumulate is a TPU layout device and is not copied.
+in batch order (the JAX engine's scan accumulate; one ``accumulate_boxes``
+per batch for all channels, after one ``extract_boxes`` for the three
+species, ops/trace_loop.py); the JAX engine's window accumulate is a TPU
+layout device and is not copied.
 """
 
 from typing import NamedTuple
@@ -33,6 +35,7 @@ from ..radiation.helium import HeSpectralBins
 from ..radiation.spectral_bins import SpectralBins
 from .raytrace_cheb import ChebRaytracer
 from .sweep import s_over_dr3
+from .trace_loop import accumulate_boxes, extract_boxes, stage_positions
 
 __all__ = ["HeRaytracer", "HeBinTables"]
 
@@ -144,19 +147,21 @@ class HeRaytracer:
     def trace_extended(self, pads, pos_b, flux_b, dr):
         """The batched three-species sweep over the wrap-padded absorber
         fields ``pads`` (tuple of 3); returns the padded accumulators
-        (G_HI, G_HeI, G_HeII[, heat])."""
+        (G_HI, G_HeI, G_HeII[, heat]). The positions go to the device once;
+        per batch one ``extract_boxes`` cuts the three species' boxes and
+        one ``accumulate_boxes`` adds the 3-4 rate channels."""
         eng = self.eng
+        Dc = eng.geom.Dc
+        pos = stage_positions(pos_b, pads[0].shape, Dc, pads[0].device)
         dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
         out = [torch.zeros_like(pads[0])
                for _ in range(4 if self.do_heating else 3)]
-        for pos, flux in zip(pos_b, flux_b):
-            pos_d = pos.to(self.device)
-            boxes = [eng._extract_boxes(p, pos_d) for p in pads]
+        for k in range(pos.shape[0]):
+            boxes = extract_boxes(pads, pos, k, Dc)
             cds = [eng.sweep_box(boxes[s], dr, self.sigma_th[s])
                    for s in range(3)]
-            for pad, rate_box in zip(out, self._rates_he(cds, boxes, flux,
-                                                         dr_t)):
-                eng.add_boxes(pad, rate_box, pos)
+            rates = self._rates_he(cds, boxes, flux_b[k], dr_t)
+            accumulate_boxes(out, rates, pos, k, eng.box_shift(rates[0]))
         return out
 
     # -- uniform engine API ----------------------------------------------

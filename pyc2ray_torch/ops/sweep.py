@@ -28,7 +28,8 @@ them but add them into the grid.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (``*_ref``); a CUDA tensor launches the kernel of
-csrc/ or raises. ``launches`` counts the kernel launches per kernel.
+csrc/ or raises. ``launches`` counts the kernel launches per kernel, those
+of the trace loop's kernels (ops/trace_loop.py) included.
 
 On the card every sweep is launched as thread-block clusters, one cluster
 of C blocks per source. ``sweep_plan`` is the host rule that picks C and
@@ -49,7 +50,8 @@ from ..constants import MAX_COLDENSH, S_STAR_REF
 
 __all__ = ["cheb_sweep", "cheb_sweep_ref", "cheb_sweep_seg",
            "cheb_sweep_seg_ref", "cheb_sweep_rates", "cheb_sweep_rates_ref",
-           "init_planes", "s_over_dr3", "source_cell_rate", "launches",
+           "init_planes", "s_over_dr3", "rate_consts", "source_cell_rate",
+           "launches",
            "reset_launches",
            "SweepPlan", "sweep_plan", "plan_sizes", "last_plan", "occupancy",
            "cluster_barriers", "dense_bin_sums"]
@@ -68,10 +70,14 @@ RING_BUFS = 3         # ring buffers, and values per slot beside the offset
 RING_VALUES = 4       # (kRingBufs, kRingValues of csrc/cheb_sweep.cuh)
 MAX_THREADS = 768     # most threads per block of a kernel with rate threads
 
-# kernel name -> launches since the last reset_launches()
+# kernel name -> launches since the last reset_launches(); the last three
+# are ops/trace_loop.py's: the box extract and accumulate, and the trace
+# loop of a fuse_fold trace (one per trace, its K3 / K3h launches counted
+# under their own names)
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "cheb_sweep_seg": 0, "cheb_sweep_rates": 0,
-            "cheb_sweep_rates_heat": 0}
+            "cheb_sweep_rates_heat": 0, "extract_boxes": 0,
+            "accumulate_boxes": 0, "cheb_trace_rates": 0}
 
 
 # kernel name -> SweepPlan of its last launch
@@ -171,6 +177,15 @@ def s_over_dr3(dr, dtype):
     dr = torch.as_tensor(dr, dtype=dtype)
     return torch.exp(torch.tensor(np.log(S_STAR_REF), dtype=dtype)
                      - 3.0 * torch.log(dr))
+
+
+def rate_consts(dr, dtype):
+    """(s_fac, sdr3) of K3 / K3h as floats rounded to ``dtype``: S* dr /
+    dr^3 as ``_box_rates`` forms it, and S* / dr^3. A trace computes them
+    once and hands them to every call."""
+    dr_t = torch.tensor(float(dr), dtype=dtype)
+    sdr3 = s_over_dr3(dr_t, dtype)
+    return float(sdr3 * dr_t), float(sdr3)
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +545,7 @@ def _ptr(t):
 
 
 def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
-            head=0, plan=None, rate_threads=0):
+            head=0, plan=None, rate_threads=0, count=1):
     """Plan and launch entry point ``fn`` of ``lib`` for the sweep of
     ``nhi_box``: ``tensors`` are its pointer arguments up to the scratch
     (None for a null pointer), ``scalars`` those between the scratch and
@@ -538,7 +553,8 @@ def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
     shared memory, ``rate_threads`` the rate threads per block of K1f,
     ``plan`` a dict of forced parts of the plan (see
     ``sweep_plan``). The plan is made once per shape. Raises when the card
-    refuses the launch; counts it otherwise."""
+    refuses the launch; otherwise counts it ``count`` times (the trace
+    loop's batches)."""
     B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
     dt, dev = nhi_box.dtype, nhi_box.device
     call = getattr(lib, fn)
@@ -573,7 +589,7 @@ def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
         (B, 12, Dc, Dc), dtype=dt, device=dev)
     invoke(p, ctypes.c_void_p(None) if scratch is None else _ptr(scratch),
            None)
-    launches[name] += 1
+    launches[name] += count
     last_plan[name] = p
 
 
@@ -678,7 +694,8 @@ def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
 
 
 def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
-                     dr, c, sig, bins_s, bins_w, bins_wh=None, plan=None):
+                     dr, c, sig, bins_s, bins_w, bins_wh=None, plan=None,
+                     consts=None):
     """The fused sweep + box + rates on the device of ``nhi_box`` (see
     ``cheb_sweep_rates_ref``): the plain version for a CPU tensor, the CUDA
     kernel (two __global__ launches on the stream, the first as clusters
@@ -686,7 +703,8 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
     "cheb_sweep_rates", or with ``bins_wh`` K3h, counted as
     "cheb_sweep_rates_heat", which returns (phi, heat). ``dr`` and ``sig``
     are floats; ``plan`` forces parts of the first launch's plan as in
-    ``cheb_sweep``."""
+    ``cheb_sweep``; ``consts`` is ``rate_consts(dr, dtype)`` where the
+    caller made it once for many calls."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p,
                                     rt_tab, flux, dr, c, sig, bins_s, bins_w,
@@ -707,12 +725,10 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
     phi = torch.empty_like(nhi_box)
     ci = torch.empty_like(nhi_box)        # phase A's cdin and dcol boxes
     dc = torch.empty_like(nhi_box)
-    dr_t = torch.tensor(float(dr), dtype=dt)
-    sdr3 = s_over_dr3(dr_t, dt)
-    s_fac = float(sdr3 * dr_t)                     # as in _box_rates
+    s_fac, sdr3 = consts or rate_consts(dr, dt)
     _launch(lib, f"cheb_sweep_rates_{sfx}", name, nhi_box, R1, c, dr, sig,
             (nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, bins_s, bins_w,
              bins_wh, flux, phi, heat, ci, dc),
-            (E, s_fac, float(sdr3), THREADS_RATES), plan=plan)
+            (E, s_fac, sdr3, THREADS_RATES), plan=plan)
     return phi if heat is None else (phi, heat)
 

@@ -1,10 +1,11 @@
-// Runs the port's sweep kernels on the host: k_sweep.inc and k_rates.inc are
-// the device parts of cheb_sweep.cu and cheb_sweep_rates.cu as
-// tests/test_torch_rehearsal.py cuts them out, compiled against the stand-in
-// headers of this directory. One cluster (source) runs at a time, its
-// C blocks x T threads as std::threads: the chain threads and, behind them,
-// the rate threads of K1f. K3's phase B is a plain grid: its blocks run one
-// after the other, each as T std::threads.
+// Runs the port's kernels on the host: k_sweep.inc and k_loop.inc are the
+// device parts of cheb_sweep.cu and trace_loop.cu, cheb_sweep_rates.cuh
+// that of K3's header, as tests/test_torch_rehearsal.py cuts them out,
+// compiled against the stand-in headers of this directory. One cluster
+// (source) runs at a time, its C blocks x T threads as std::threads: the
+// chain threads and, behind them, the rate threads of K1f. K3's phase B and
+// the box kernels are plain grids: their blocks run one after the other
+// (the box kernels' also in reverse order), each as T std::threads.
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -13,12 +14,14 @@ thread_local EmuCluster* emu_cl;
 thread_local int emu_rank;
 thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "k_sweep.inc"
-#include "k_rates.inc"
+#include "cheb_sweep_rates.cuh"
+#include "k_loop.inc"
 using namespace cheb;
 
 template <class F>
-void emu_launch(int B, int C, int T, size_t smem, F f) {
-  for (int src = 0; src < B; ++src) {
+void emu_launch(int B, int C, int T, size_t smem, F f, bool reverse = false) {
+  for (int i = 0; i < B; ++i) {
+    const int src = reverse ? B - 1 - i : i;
     EmuCluster cl;
     cl.C = C; cl.T = T; cl.smem = smem;
     std::barrier<> cbar(C * T);
@@ -84,15 +87,15 @@ int run(int kind, const Args& a) {
         cheb_sweep_seg_kernel<T, SH>(tb, pl, N, (const T*)a.pin, (T*)a.pout,
                                      a.r0, a.r1, (T*)a.box, S);
       else
-        rates::sweep_fold_kernel<T, SH>(tb, pl, N, (T*)a.ci, (T*)a.dc, S);
+        sweep_fold_kernel<T, SH>(tb, pl, N, (T*)a.ci, (T*)a.dc, S);
     });
   };
   if (a.sh) call(std::true_type{}); else call(std::false_type{});
   if (kind >= 3) {               // phase B: B x Dc blocks, the bins shared
     const size_t smem = (kind == 4 ? 3 : 2) * a.E * sizeof(T);
     emu_launch(a.B * a.Dc, 1, a.threads, smem, [&] {
-      auto phase_b = kind == 4 ? rates::box_rates_kernel<T, true>
-                               : rates::box_rates_kernel<T, false>;
+      auto phase_b = kind == 4 ? box_rates_kernel<T, true>
+                               : box_rates_kernel<T, false>;
       phase_b(N, (const T*)a.ci, (const T*)a.dc, (const T*)a.rt,
               (const T*)a.flux, (const T*)a.bs, (const T*)a.bw,
               (const T*)a.bwh, a.E, a.Dc, a.c, T(a.dr), T(a.sig), T(a.s_fac),
@@ -104,3 +107,36 @@ int run(int kind, const Args& a) {
 
 extern "C" int rehearse_f32(int kind, const Args* a) { return run<float>(kind, *a); }
 extern "C" int rehearse_f64(int kind, const Args* a) { return run<double>(kind, *a); }
+
+// The box kernels of trace_loop.cu over n channels of batch `batch`: the
+// extract (extract = 1) or the accumulate, B x D blocks of T threads, in
+// reverse block order with `reverse`.
+template <class T>
+void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
+               const int* pos, int batch, int B, int D, int shift, int F0,
+               int F1, int F2, int T_, int reverse) {
+  Channels<T> ch{};
+  ch.n = n;
+  for (int c = 0; c < n; ++c) {
+    ch.frame[c] = static_cast<T*>(frames[c]);
+    ch.box[c] = static_cast<T*>(boxes[c]);
+  }
+  const BoxSet bs{pos, batch, B, D, shift, F0, F1, F2};
+  emu_launch(B * D, 1, T_, 0, [&] {
+    if (extract)
+      extract_boxes_kernel<T>(ch, bs);
+    else
+      accumulate_boxes_kernel<T>(ch, bs);
+  }, reverse != 0);
+}
+
+#define REHEARSE_BOXES(NAME, TYPE)                                             \
+  extern "C" void NAME(int extract, void* const* frames, void* const* boxes,   \
+                       int n, const int* pos, int batch, int B, int D,         \
+                       int shift, int F0, int F1, int F2, int T_,              \
+                       int reverse) {                                          \
+    run_boxes<TYPE>(extract, frames, boxes, n, pos, batch, B, D, shift, F0,    \
+                    F1, F2, T_, reverse);                                      \
+  }
+REHEARSE_BOXES(rehearse_boxes_f32, float)
+REHEARSE_BOXES(rehearse_boxes_f64, double)

@@ -1,18 +1,22 @@
-"""The port's CUDA sweep kernels rehearsed on the host.
+"""The port's CUDA kernels rehearsed on the host.
 
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
-``cheb_sweep.cu`` and ``cheb_sweep_rates.cu`` are cut out of the sources,
+``cheb_sweep.cu``, ``cheb_sweep_rates.cuh`` and ``trace_loop.cu`` are cut
+out of the sources,
 compiled with g++ against the stand-in headers of ``tests/kernel_host/``
 (every thread of every block of a cluster is a std::thread; the cluster
 barrier and the mapping of shared memory between blocks are emulated;
 arithmetic is compiled without contraction) and held
 against the plain PyTorch versions: K1, K2 and phase A of K3 bit for bit,
 K1f, K3 and K3h within the tolerance of their exp/expm1, and K1f with rate
-threads bit for bit against itself without. This checks the kernels' logic
-(shell windows, the dealing of cells to blocks, plane ownership, stitches,
-carried planes, the ring that hands K1f's cells to the rate threads) for
-every cluster size and placement; that the sources build for the card and
-run there is shown by chip_smoke.py and the ``cuda`` tests."""
+threads bit for bit against itself without; the trace loop's box extract
+and ordered accumulate bit for bit against ``extract_boxes_ref`` and
+``add_boxes``, with their blocks in either order. This checks the kernels'
+logic (shell windows, the dealing of cells to blocks, plane ownership,
+stitches, carried planes, the ring that hands K1f's cells to the rate
+threads, the one owner of every frame cell where boxes overlap) for every
+cluster size and placement; that the sources build for the card and run
+there is shown by chip_smoke.py and the ``cuda`` tests."""
 
 import ctypes
 import shutil
@@ -25,6 +29,7 @@ import torch
 
 from pyc2ray_torch.ops import sweep
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+from pyc2ray_torch.ops.trace_loop import add_boxes, extract_boxes_ref
 from pyc2ray_torch.radiation.spectral_bins import SpectralBins
 
 SIG = 6.30e-18
@@ -67,9 +72,12 @@ def lib(tmp_path_factory):
     (d / "k_sweep.inc").write_text(_device_part(
         "cheb_sweep.cu", "// The launches of the three kernels",
         "}  // namespace\n"))
-    (d / "k_rates.inc").write_text(_device_part(
-        "cheb_sweep_rates.cu", "template <typename T>\nint launch(",
-        "}  // namespace\n").replace("namespace {", "namespace rates {"))
+    (d / "cheb_sweep_rates.cuh").write_text(_device_part(
+        "cheb_sweep_rates.cuh", "// The launch of both phases",
+        "}  // namespace cheb\n"))
+    (d / "k_loop.inc").write_text(_device_part(
+        "trace_loop.cu", "// The launches of the two kernels",
+        "}  // namespace\n"))
     so = d / "librehearsal.so"
     cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
            "-pthread", f"-I{d}", f"-I{HOST}", "-o", str(so),
@@ -80,6 +88,10 @@ def lib(tmp_path_factory):
     for f in (lib.rehearse_f32, lib.rehearse_f64):
         f.argtypes = [ctypes.c_int, ctypes.POINTER(_Args)]
         f.restype = ctypes.c_int
+    for f in (lib.rehearse_boxes_f32, lib.rehearse_boxes_f64):
+        f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 9)
+        f.restype = None
     return lib
 
 
@@ -255,3 +267,81 @@ def test_host_launch_code_refuses_other_sizes(lib):
     assert case.run(K1F, plan=(4, True, 1, 0, 5)) == 1
     assert case.run(K3, plan=(4, True, 1, 2, 5)) == 1
     assert isinstance(case.run(K1F, plan=(4, True, 1, 2, 5)), tuple)
+
+
+# The box kernels of the trace loop (csrc/trace_loop.cu). A case: the frame's
+# extents, the staged box side Dc, the side D and shift of the boxes that
+# are accumulated, and the corners of nb = 3 batches of B boxes.
+def _corners(rng, nb, B, shape, Dc, kind):
+    if kind == "overlap":
+        # every box within two cells of one corner, some at the same cell
+        base = rng.randint(0, np.array(shape) - Dc - 1, size=3)
+        pos = base + rng.randint(0, 3, size=(nb, B, 3))
+        pos[:, 1] = pos[:, 0]
+        pos[:, -1] = pos[:, 2]
+    else:
+        pos = rng.randint(0, np.array(shape) - Dc + 1, size=(nb, B, 3))
+    return torch.from_numpy(pos.astype(np.int32))
+
+
+# overlap: a cubic frame of a batch clustered as halos are; subbox: a
+# (Ds)^3 rates subbox 2 cells into (Dc)^3 boxes, as ChebRaytracer.add_boxes
+# shifts it by rb0; domain: a non-cubic halo-extended block as domain.py
+# builds it, boxes spread over it
+BOX_CASES = {
+    "overlap": ((20, 20, 20), 7, 7, 0, 8),
+    "subbox": ((21, 21, 21), 9, 5, 2, 6),
+    "domain": ((13, 30, 22), 8, 8, 0, 5),
+}
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", sorted(BOX_CASES))
+@pytest.mark.parametrize("threads", [7, 64])
+def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
+    """extract_boxes and accumulate_boxes bit for bit against their plain
+    versions, for one channel and for several at once (the helium engine's
+    three species, its four rate channels), on frames that do not start at
+    zero; the accumulate also with its blocks in reverse order, which a
+    design where two threads write one cell would not survive."""
+    shape, Dc, D, shift, B = BOX_CASES[case]
+    rng = np.random.RandomState(sum(shape) + threads)
+    pos = _corners(rng, 3, B, shape, Dc, case)
+    fn = lib.rehearse_boxes_f32 if dt == torch.float32 else \
+        lib.rehearse_boxes_f64
+    ptrs = ctypes.c_void_p * 4
+
+    def call(extract, frames, boxes, k, d, sh, reverse=0):
+        fn(extract, ptrs(*[f.data_ptr() for f in frames]),
+           ptrs(*[b.data_ptr() for b in boxes]), len(frames),
+           pos.data_ptr(), k, B, d, sh, *shape, threads, reverse)
+
+    def rand(*sh):
+        return torch.from_numpy(rng.standard_normal(sh)).to(dt)
+    for n in (1, 3):
+        frames = [rand(*shape) for _ in range(n)]
+        for k in range(3):
+            got = [torch.full((B, Dc, Dc, Dc), float("nan"), dtype=dt)
+                   for _ in range(n)]
+            call(1, frames, got, k, Dc, 0)
+            for f, g in zip(frames, got):
+                assert torch.equal(g, extract_boxes_ref(f, pos[k], Dc))
+    for n in (1, 4):
+        frames = [rand(*shape) for _ in range(n)]
+        want = [f.clone() for f in frames]
+        got = {r: [f.clone() for f in frames] for r in (0, 1)}
+        for k in range(3):
+            boxes = [rand(B, D, D, D) for _ in range(n)]
+            for f, b in zip(want, boxes):
+                add_boxes(f, b, pos[k], shift)
+            for r in (0, 1):
+                call(0, got[r], boxes, k, D, shift, reverse=r)
+        for r in (0, 1):
+            for g, w in zip(got[r], want):
+                assert torch.equal(g, w), (case, n, r)
+    if case == "overlap":
+        # the batch does overlap: some cell takes the adds of several boxes
+        cover = torch.zeros(shape, dtype=torch.int32)
+        for p in pos[0].tolist():
+            cover[p[0]:p[0] + D, p[1]:p[1] + D, p[2]:p[2] + D] += 1
+        assert int(cover.max()) >= 3

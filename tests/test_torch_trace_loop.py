@@ -1,0 +1,197 @@
+"""The trace loop (ops/trace_loop.py): a trace with its positions staged
+once, the fuse_fold batch loop as one call (``cheb_trace_rates``), the box
+extract and the ordered accumulate.
+
+On the CPU the wrappers run their plain versions: the staged fuse_fold
+trace against the JAX engine's (the Pallas kernel in interpret mode, scan
+accumulate) in float64, with and without the heating output, on a batch of
+overlapping boxes; every sweep mode's ``trace_extended`` bit for bit
+against ``trace_extended_plain``, the loop as it was issued before, also on
+a non-cubic frame as the domain decomposition hands it. On the card
+(``cuda``) the kernels and the C++ loop against their plain versions at the
+EoR run's shape, bit for bit."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pyc2ray_tpu.constants import ev2fr
+from pyc2ray_tpu.ops.raytrace_cheb import ChebRaytracer as JRaytracer
+from pyc2ray_tpu.radiation import BlackBodySource
+from pyc2ray_tpu.radiation.bins_compress import compress_bins
+from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins
+
+from pyc2ray_torch.ops import sweep
+from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
+                                          extract_boxes, extract_boxes_ref,
+                                          stage_positions)
+
+SIG = 6.30e-18
+DR = 6.7e20
+
+
+def _bb_bins():
+    fmin, fmax = ev2fr * 13.598, 10 * ev2fr * 54.416
+    dense = make_spectral_bins(BlackBodySource(5e4, False, fmin, 2.8),
+                               fmin, fmax, panels=8, nodes=8)
+    return compress_bins(dense, target_rel=1e-2, cache=False)
+
+
+def _clustered(N, ns, seed):
+    """Fields and ``ns`` sources within two cells of one another (two at
+    the same cell), as halos cluster: their boxes overlap."""
+    rng = np.random.RandomState(seed)
+    ndens = 10 ** rng.uniform(-4, -2, (N, N, N))
+    xh = rng.uniform(0.0, 0.9, (N, N, N))
+    src = rng.randint(0, N, 3) + rng.randint(0, 3, (ns, 3))
+    src[1] = src[0]
+    flux = rng.uniform(0.5, 2.0, ns)
+    return ndens, xh, src % N, flux
+
+
+# 5 sources in batches of 3: the last batch is padded with a zero-flux
+# source at the origin
+@pytest.mark.parametrize("heat", [False, True])
+def test_staged_fuse_fold_trace_matches_jax(heat):
+    N, R, B = 20, 6.0, 3
+    bins = _bb_bins()
+    ndens, xh, src, flux = _clustered(N, 5, seed=51)
+    jr = JRaytracer(N, R, SIG, bins, batch_size=B, dtype=jnp.float64,
+                    use_pallas=True, accumulate="scan", fuse_fold=True,
+                    do_heating=heat)
+    tr = ChebRaytracer(N, R, SIG, bins, batch_size=B, dtype=torch.float64,
+                       device="cpu", fuse_fold=True, do_heating=heat)
+    want = jr.trace(ndens, xh, src, flux, DR)
+    got = tr.trace(ndens, xh, src, flux, DR)
+    want, got = ((want, got) if heat else ((want,), (got,)))
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        assert w.max() > 0 and np.all(np.isfinite(w))
+        # the JAX fused kernel's Taylor substitute for expm1: rel < 2e-8
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-7, atol=0)
+
+
+MODES = {
+    "default": {},
+    "fuse_rates": dict(fuse_rates=True),
+    "fuse_fold": dict(fuse_fold=True),
+    "shell_segment": dict(shell_segment=2),
+    "heat": dict(do_heating=True),
+    "heat_fuse_fold": dict(do_heating=True, fuse_fold=True),
+}
+
+
+@pytest.mark.parametrize("frame", ["cubic", "domain"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_trace_extended_equals_plain(mode, frame):
+    """The staged trace (one call of the loop for fuse_fold, a Python loop
+    around extract_boxes / accumulate_boxes otherwise) bit for bit against
+    the loop as it was issued before, on the wrap-padded grid and on a
+    halo-extended block whose extents differ per axis."""
+    N, R, B = 16, 5.0, 3
+    tr = ChebRaytracer(N, R, SIG, _bb_bins(), batch_size=B,
+                       dtype=torch.float64, device="cpu", **MODES[mode])
+    Dc = tr.geom.Dc
+    ndens, xh, src, flux = _clustered(N, 7, seed=52)
+    if frame == "cubic":
+        pad = tr.wrap_pad(torch.from_numpy(ndens * (1.0 - xh)))
+    else:
+        rng = np.random.RandomState(53)
+        pad = torch.from_numpy(10 ** rng.uniform(-4, -2, (Dc + 3, Dc + 9,
+                                                          Dc + 5)))
+        src = src % np.array([4, 10, 6])
+    pos_b, flux_b = tr.prepare_sources(src, flux)
+    got = tr.trace_extended(pad, pos_b, flux_b, DR)
+    want = tr.trace_extended_plain(pad, pos_b, flux_b, DR)
+    assert (got[1] is None) == (want[1] is None) == (not tr.do_heating)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert float(w.max()) > 0 and torch.equal(g, w)
+
+
+def test_stage_positions_checks_the_frame():
+    pos = torch.tensor([[[0, 1, 2], [3, 4, 5]]])
+    staged = stage_positions(pos, (9, 10, 11), 6, "cpu")
+    assert staged.dtype == torch.int32 and staged.is_contiguous()
+    assert torch.equal(staged, pos.to(torch.int32))
+    with pytest.raises(ValueError, match="leave the frame"):
+        stage_positions(pos, (9, 10, 10), 6, "cpu")
+    with pytest.raises(ValueError, match="leave the frame"):
+        stage_positions(-pos, (9, 10, 11), 6, "cpu")
+    with pytest.raises(ValueError, match="expected"):
+        stage_positions(pos[0], (9, 10, 11), 6, "cpu")
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu():
+    """On a CPU frame extract_boxes and accumulate_boxes are the plain
+    functions, one channel or several, and count no launch."""
+    rng = np.random.RandomState(54)
+    frames = [torch.from_numpy(rng.standard_normal((9, 11, 10)))
+              for _ in range(3)]
+    pos = stage_positions(rng.randint(0, 4, (2, 3, 3)), (9, 11, 10), 6,
+                          "cpu")
+    sweep.reset_launches()
+    one = extract_boxes(frames[0], pos, 1, 6)
+    assert torch.equal(one, extract_boxes_ref(frames[0], pos[1], 6))
+    many = extract_boxes(frames, pos, 1, 6)
+    assert all(torch.equal(m, extract_boxes_ref(f, pos[1], 6))
+               for m, f in zip(many, frames))
+    boxes = [torch.from_numpy(rng.standard_normal((3, 4, 4, 4)))
+             for _ in range(3)]
+    want = [f.clone() for f in frames]
+    for w, b in zip(want, boxes):
+        add_boxes(w, b, pos[0], 2)
+    accumulate_boxes(frames, boxes, pos, 0, 2)
+    assert all(torch.equal(f, w) for f, w in zip(frames, want))
+    assert sum(sweep.launches.values()) == 0
+
+
+@pytest.mark.cuda
+def test_trace_loop_matches_plain_on_cuda_at_the_eor_shape():
+    """At the EoR run's small bucket (N = 250, R = 7.68: Dc = 24, B = 16,
+    float32): extract_boxes and accumulate_boxes bit for bit against the
+    gather and the slice adds on a batch of overlapping boxes, and the C++
+    loop (K3, K3h) bit for bit against trace_extended_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    N, B, dt = 250, 16, torch.float32
+    R = 15.0 * N / 244.0 / 2.0
+    bins = _bb_bins()
+    rng = np.random.RandomState(55)
+    nhi = torch.from_numpy(10 ** rng.uniform(-4, -2, (N,) * 3)).to("cuda",
+                                                                    dt)
+    src = rng.randint(0, N, (4 * B, 3))
+    src[:B] = src[0] + rng.randint(0, 3, (B, 3))        # overlapping boxes
+    src[1] = src[0]
+    src %= N
+    flux = rng.uniform(0.5, 2.0, 4 * B)
+    for heat in (False, True):
+        tr = ChebRaytracer(N, R, SIG, bins, batch_size=B, dtype=dt,
+                           fuse_fold=True, do_heating=heat)
+        Dc = tr.geom.Dc
+        pad = tr.wrap_pad(nhi)
+        pos_b, flux_b = tr.prepare_sources(src, flux)
+        pos = stage_positions(pos_b, pad.shape, Dc, "cuda")
+        sweep.reset_launches()
+        boxes = extract_boxes(pad, pos, 0, Dc)
+        assert torch.equal(boxes, extract_boxes_ref(pad, pos[0], Dc))
+        frame = torch.from_numpy(rng.standard_normal(pad.shape)).to("cuda",
+                                                                    dt)
+        want = frame.clone()
+        add_boxes(want, boxes, pos_b[0])
+        accumulate_boxes(frame, boxes, pos, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(frame, want)
+        assert sweep.launches["extract_boxes"] == 1
+        assert sweep.launches["accumulate_boxes"] == 1
+        got = tr.trace_extended(pad, pos_b, flux_b, DR)
+        ref = tr.trace_extended_plain(pad, pos_b, flux_b, DR)
+        torch.cuda.synchronize()
+        name = "cheb_sweep_rates_heat" if heat else "cheb_sweep_rates"
+        assert sweep.launches["cheb_trace_rates"] == 1
+        assert sweep.launches[name] == 2 * pos_b.shape[0]
+        for g, w in zip(got, ref):
+            if w is not None:
+                assert float(w.max()) > 0 and torch.equal(g, w)
