@@ -101,7 +101,13 @@ Phases (any failure raises and the script exits non-zero):
    Then one trace before and after the trace loop, each unprofiled and
    under torch.profiler (as in 3b), with the card's name and power limit:
    the top device kernels, the device ms per call of K3's phases and of the
-   box kernels; and the Gamma of the first 16 sources against the CPU.
+   box kernels, the profiled Gamma equal to the unprofiled one. On that
+   trace's own frames and positions, per call: the C++ loop against
+   trace_extended_plain (CUDA events, bit-equal) and over every batch the
+   box kernels against the gather and the slice adds (bit-equal) and
+   torch.take / index_add_ (device time), with the bounds from the bytes
+   that data needs: the kernels line's numbers for the three. Last the
+   Gamma of the first 16 sources against the CPU.
    The catalogs are read without h5py (``read_catalog``).
 2d. (after 2c) K1 at the helium engine's three threshold cross sections
    (sigma_HI, sigma_HeI, sigma_HeII of make_spectral_bins_he) at the bench
@@ -133,11 +139,11 @@ Phases (any failure raises and the script exits non-zero):
    shape (B=8, Dc=64), the EoR run's (B=16, Dc=24) and on a non-cubic
    frame, each on a batch of boxes spread over the frame and on a batch
    clustered within two cells (two at one cell), with kernel, plain,
-   library (torch.take, index_add_) and bound ms; then the C++ loop
-   (trace_extended with fuse_fold) against trace_extended_plain on random
-   fields: the bench configuration with K3 and with K3h, and the EoR run's
-   small bucket over 128 batches, the first clustered, timed against the
-   plain loop.
+   library (torch.take, index_add_) device ms and bound ms of the clustered
+   batch; then the C++ loop (trace_extended with fuse_fold) against
+   trace_extended_plain on random fields, each timed against the plain
+   loop: the bench configuration with K3 and with K3h, and the EoR run's
+   small bucket over 128 batches, the first clustered.
 4f. (after 4e) The golden: examples/single_source_test at its full
    configuration (N=128, 2 slices x 10 timesteps, parameters.yml unchanged:
    engine flat, float64) through C2Ray_Test on the card against the
@@ -170,7 +176,7 @@ Phases (any failure raises and the script exits non-zero):
    to 1e-9 of 4g's. A rank's exception fails the phase.
 6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
    then the trace loop's extract_boxes, accumulate_boxes and
-   cheb_trace_rates at the EoR run's shape), then the result line
+   cheb_trace_rates on 4e's EoR trace), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
@@ -788,7 +794,7 @@ def loop_before_after(label, engines, trace, nbatch, tmp):
     unprofiled after a warm-up and once under torch.profiler: wall s,
     device kernels and host-to-device copies per batch, device busy ms and
     the idle share of the profiled window and of the unprofiled trace.
-    Asserts the two Gammas equal bit for bit; returns {tag: numbers}."""
+    Asserts the four Gammas equal bit for bit; returns {tag: numbers}."""
     from pyc2ray_torch.diagnostics import (device_idle_share,
                                            device_op_times, profile_trace)
     res = {}
@@ -803,6 +809,9 @@ def loop_before_after(label, engines, trace, nbatch, tmp):
             prof = os.path.join(tmp, f"{label.split()[0]}_{tag}")
             with profile_trace(prof) as p:
                 p["sync"] = trace()
+        if not torch.equal(p["sync"], phi):
+            raise RuntimeError(f"{label}, loop {tag}: the profiled trace "
+                               f"differs")
         kern, copies = device_counts(prof)
         busy = sum(device_op_times(prof).values())
         res[tag] = dict(s=wall, launches_per_batch=kern / nbatch,
@@ -837,7 +846,9 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     ("extract_plain", "accumulate_plain"), whose frames are asserted equal
     to the kernels' bit for bit."""
     from pyc2ray_torch.ops.sweep import cheb_sweep, cheb_sweep_rates
-    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, extract_boxes,
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
+                                              extract_boxes,
+                                              extract_boxes_ref,
                                               stage_positions)
     g, tb, N = rt.geom, rt.tables, rt.N
     nhi_pad = rt.wrap_pad(nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3)))
@@ -873,10 +884,10 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
         ev[3].record()
         accumulate_boxes(pads, out, pos, k, rt.box_shift(out[0]))
         ev[4].record()
-        boxes_plain = rt._extract_boxes(nhi_pad, pos_b[k].to("cuda"))
+        boxes_plain = extract_boxes_ref(nhi_pad, pos_b[k].to("cuda"), g.Dc)
         ev[5].record()
         for pad, rate_box in zip(plain, out):
-            rt.add_boxes(pad, rate_box, pos_b[k])
+            add_boxes(pad, rate_box, pos_b[k], rt.box_shift(rate_box))
         ev[6].record()
         torch.cuda.synchronize()
         if not torch.equal(boxes, boxes_plain):
@@ -890,16 +901,26 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     return {k: v / nbatch for k, v in tot.items()}
 
 
-def box_kernel_work(pos, frame_shape, B, D, dtype):
-    """(extract bytes, accumulate bytes) of one batch at corners ``pos``
-    (B, 3): the extract reads the union of the boxes' frame cells once and
-    writes B D^3 values; the accumulate reads the boxes and reads and writes
-    that union (what this data needs, overlaps counted once)."""
-    cover = torch.zeros(frame_shape, dtype=torch.bool)
-    for p in pos.tolist():
-        cover[p[0]:p[0] + D, p[1]:p[1] + D, p[2]:p[2] + D] = True
-    union, isz = int(cover.sum()), torch.finfo(dtype).bits // 8
-    return (union + B * D ** 3) * isz, (B * D ** 3 + 2 * union) * isz
+def box_flat_index(pos, frame_shape, D):
+    """The flat indices (B, D, D, D) into a frame of ``frame_shape`` of the
+    cells of the boxes of side D at the corners ``pos`` (B, 3), on the
+    device of ``pos``."""
+    ar = torch.arange(D, device=pos.device)
+    i, j, k = (pos[:, ax, None].long() + ar for ax in range(3))
+    F1, F2 = frame_shape[1], frame_shape[2]
+    return ((i[:, :, None, None] * F1 + j[:, None, :, None]) * F2
+            + k[:, None, None, :])
+
+
+def box_kernel_work(idx, dtype):
+    """(extract bytes, accumulate bytes) of one batch whose boxes cover the
+    frame cells ``idx`` (``box_flat_index``): the extract reads the union
+    of those cells once and writes the boxes; the accumulate reads the
+    boxes and reads and writes the union (what this data needs, overlaps
+    counted once)."""
+    union, n = torch.unique(idx).numel(), idx.numel()
+    isz = torch.finfo(dtype).bits // 8
+    return (union + n) * isz, (n + 2 * union) * isz
 
 
 def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
@@ -907,13 +928,12 @@ def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
     (B, D) against their plain versions (the gather, the slice adds) on two
     batches, the second clustered (every box within two cells of one
     corner, two at the same cell): max_abs_err must be 0. Times the
-    clustered batch: the kernel's device ms per call (torch.profiler) and
-    its back-to-back ms (CUDA events, the Python wrapper's enqueue
-    included), the plain version's, the bound from its bytes, and one
-    PyTorch call that computes the same function on precomputed flat
-    indices (torch.take; index_add_, which adds in no fixed order).
-    Returns {"extract": ..., "accumulate": ...}."""
-    from pyc2ray_torch.diagnostics import device_op_times, profile_trace
+    clustered batch, each call's device ms (``device_ms``): the kernel's,
+    the plain version's and that of one PyTorch call that computes the same
+    function on precomputed flat indices (torch.take; index_add_, which
+    adds in no fixed order); beside them the kernel's back-to-back ms (CUDA
+    events, the Python wrapper's enqueue included) and the bound from the
+    batch's bytes."""
     from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
                                               extract_boxes,
                                               extract_boxes_ref,
@@ -944,11 +964,7 @@ def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
     if any(err.values()):
         raise RuntimeError(f"{label}: the box kernels differ from their "
                            f"plain versions: {err}")
-    ar = torch.arange(D, device="cuda")
-    i, j, k = (pos_d[1][:, ax, None].long() + ar for ax in range(3))
-    F1, F2 = frame_shape[1], frame_shape[2]
-    idx = ((i[:, :, None, None] * F1 + j[:, None, :, None]) * F2
-           + k[:, None, None, :])
+    idx = box_flat_index(pos_d[1], frame_shape, D)
     f_k, f_p, f_l = frame.clone(), frame.clone(), frame.clone()
     calls = {
         "extract": (lambda: extract_boxes(frame, pos_d, 1, D),
@@ -958,28 +974,128 @@ def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
                        lambda: add_boxes(f_p, boxes, pos_b[1]),
                        lambda: f_l.view(-1).index_add_(0, idx.reshape(-1),
                                                        boxes.reshape(-1)))}
-    nbytes = dict(zip(calls, box_kernel_work(pos_b[1], frame_shape, B, D,
-                                             dtype)))
-    out = {}
+    nbytes = dict(zip(calls, box_kernel_work(idx, dtype)))
     for name, (kern, plain, lib) in calls.items():
-        b2b, plain_ms, lib_ms = (cuda_ms(kern, reps), cuda_ms(plain, reps),
-                                 cuda_ms(lib, reps))
-        with tempfile.TemporaryDirectory() as tmp:
-            with profile_trace(tmp) as p:
-                for _ in range(reps):
-                    kern()
-                p["sync"] = f_k
-            ms = sum(t for op, t in device_op_times(tmp).items()
-                     if f"{name}_boxes_kernel" in op) / reps
+        ms, plain_ms, lib_ms = (device_ms(lambda _, f=f: f(), reps)
+                                for f in (kern, plain, lib))
+        b2b = cuda_ms(kern, reps)
         b_ms, b_by = least_ms(nbytes[name], B * D ** 3, dtype)
-        out[name] = dict(max_abs_err=err[name], ms=ms, ms_back_to_back=b2b,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms)
         log(f"  {label} {name}_boxes: max_abs_err={err[name]:.1e} "
-            f"(bit-equal), kernel_ms={ms:.4f} on the device "
+            f"(bit-equal), on the device per call: kernel_ms={ms:.4f} "
             f"({b2b:.4f} back to back) plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, "
-            f"{nbytes[name] / 2 ** 20:.2f} MiB) per call")
+            f"library_ms={lib_ms:.4f}; bound_ms={b_ms:.5f} ({b_by}, "
+            f"{nbytes[name] / 2 ** 20:.2f} MiB)")
+
+
+def device_ms(fn, n):
+    """Device time per call (ms; every kernel and copy, torch.profiler) of
+    ``fn(i)`` for i < n."""
+    from pyc2ray_torch.diagnostics import device_op_times, profile_trace
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp):
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        return sum(device_op_times(tmp).values()) / n
+
+
+def eor_trace_kernels(rt, nd, xh, batches, dr):
+    """The kernels line's numbers of the trace loop and its box kernels,
+    all on the inputs of 4e's profiled EoR trace (each bucket's frame,
+    positions and fluxes), per call over that trace's calls.
+
+    Per bucket the loop (one cheb_trace_rates call) against
+    trace_extended_plain: ms per call by CUDA events, max_abs_err over
+    Gamma. Over every batch, device ms per call (``device_ms``):
+    extract_boxes, the plain gather and torch.take on precomputed flat
+    indices; accumulate_boxes of the batch's K3 rate boxes into a zero
+    frame, the plain slice adds and index_add_ (which adds in no fixed
+    order). max_abs_err compares the kernels' boxes and final frame with
+    the plain versions'. The bounds count the bytes this data needs
+    (``box_kernel_work``), the loop's also K3's bytes and operations."""
+    from pyc2ray_torch.ops.sweep import cheb_sweep_rates
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
+                                              extract_boxes,
+                                              extract_boxes_ref,
+                                              stage_positions)
+    N, dt = rt.N, rt.dtype
+    nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
+    tot = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0,
+                      max_abs_err=0.0)
+           for name in ("extract", "accumulate", "loop")}
+    n_calls = n_b = 0
+    for e, pos_b, flux_b in zip(rt.engines, batches.pos, batches.flux):
+        if pos_b is None:
+            continue
+        g, tb = e.geom, e.tables
+        nb, B, D = pos_b.shape[0], pos_b.shape[1], g.Dc
+        pad = e.wrap_pad(nhi3)
+        got = e.trace_extended(pad, pos_b, flux_b, dr)[0]
+        want = e.trace_extended_plain(pad, pos_b, flux_b, dr)[0]
+        lp = tot["loop"]
+        lp["max_abs_err"] = max(lp["max_abs_err"],
+                                float((got - want).abs().max()))
+        lp["ms"] += cuda_ms(lambda: e.trace_extended(pad, pos_b, flux_b, dr),
+                            2)
+        lp["plain_ms"] += cuda_ms(
+            lambda: e.trace_extended_plain(pad, pos_b, flux_b, dr), 2)
+        del got, want
+        pos = stage_positions(pos_b, pad.shape, D, "cuda")
+        idx = [box_flat_index(pos[k], pad.shape, D) for k in range(nb)]
+        geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+        boxes, plain = [], []
+        ex = tot["extract"]
+        ex["ms"] += nb * device_ms(
+            lambda k: boxes.append(extract_boxes(pad, pos, k, D)), nb)
+        ex["plain_ms"] += nb * device_ms(
+            lambda k: plain.append(extract_boxes_ref(pad, pos[k], D)), nb)
+        ex["library_ms"] += nb * device_ms(
+            lambda k: torch.take(pad, idx[k]), nb)
+        ex["max_abs_err"] = max([ex["max_abs_err"]] + [
+            float((a - b).abs().max()) for a, b in zip(boxes, plain)])
+        rates = [cheb_sweep_rates(b, *geo, tb.rt_tab, flux_b[k], dr, g.c,
+                                  e.sig, tb.bins_s, tb.bins_w)
+                 for k, b in enumerate(boxes)]
+        del boxes, plain
+        f_k, f_p, f_l = (torch.zeros_like(pad) for _ in range(3))
+        ac = tot["accumulate"]
+        ac["ms"] += nb * device_ms(
+            lambda k: accumulate_boxes(f_k, rates[k], pos, k), nb)
+        ac["plain_ms"] += nb * device_ms(
+            lambda k: add_boxes(f_p, rates[k], pos_b[k]), nb)
+        ac["library_ms"] += nb * device_ms(
+            lambda k: f_l.view(-1).index_add_(0, idx[k].view(-1),
+                                              rates[k].view(-1)), nb)
+        ac["max_abs_err"] = max(ac["max_abs_err"],
+                                float((f_k - f_p).abs().max()))
+        kb, kops = k3_work(e, B, dt)
+        for k in range(nb):
+            eb, ab = box_kernel_work(idx[k], dt)
+            ex["bytes"], ac["bytes"] = ex["bytes"] + eb, ac["bytes"] + ab
+            lp["bytes"] += eb + ab + kb
+        ex["ops"] += nb * B * D ** 3
+        ac["ops"] += nb * B * D ** 3
+        lp["ops"] += nb * kops
+        n_calls, n_b = n_calls + 1, n_b + nb
+        del rates, idx, f_k, f_p, f_l, pad
+    out = {}
+    for name, t in tot.items():
+        n = n_calls if name == "loop" else n_b
+        b_ms, b_by = least_ms(t["bytes"] / n, t["ops"] / n, dt)
+        lib = t["library_ms"] / n or None
+        out[name] = dict(max_abs_err=t["max_abs_err"], ms=t["ms"] / n,
+                         plain_ms=t["plain_ms"] / n, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib)
+        log(f"  EoR trace, {name} per call over its {n} calls "
+            f"({'CUDA events' if name == 'loop' else 'device time'}): "
+            f"max_abs_err={t['max_abs_err']:.1e}, ms={t['ms'] / n:.4f} "
+            f"plain_ms={t['plain_ms'] / n:.4f} library_ms="
+            f"{'none' if lib is None else f'{lib:.4f}'} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
+    out["loop"]["batches_per_call"] = n_b / n_calls
+    if any(v["max_abs_err"] for v in out.values()):
+        raise RuntimeError(f"EoR trace: a trace loop kernel differs from its "
+                           f"plain version: {out}")
     return out
 
 
@@ -1002,17 +1118,15 @@ def check_trace_loop(bins, src_pos):
     ChebRaytracer.trace_extended (fuse_fold: one cheb_trace_rates call)
     against trace_extended_plain on a random field, bit for bit: at the
     bench configuration with K3 and K3h, and at the EoR run's small bucket
-    over 128 batches, the first clustered. Returns the numbers of the
-    kernels line: the box kernels and the loop at the EoR shape."""
+    over 128 batches, the first clustered. The kernels line takes its
+    numbers of these kernels from the EoR run's own trace (phase 4e)."""
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     dt = torch.float32
     log("trace loop kernels, float32 (max_abs_err must be 0):")
     for B, Dc, tag in ((B_BENCH, 64, "bench"), (B_EOR, 24, "EoR")):
         side = (N_BENCH if tag == "bench" else N_EOR) + Dc - 1
-        res = check_box_kernels(f"{tag} B={B} Dc={Dc} frame {side}^3",
-                                (side,) * 3, B, Dc, dt, seed=12, reps=20)
-        if tag == "EoR":
-            out = res
+        check_box_kernels(f"{tag} B={B} Dc={Dc} frame {side}^3", (side,) * 3,
+                          B, Dc, dt, seed=12, reps=20)
     # a frame whose extents differ per axis, as a domain decomposition's
     # halo-extended block is, at the EoR shape
     check_box_kernels("EoR non-cubic block (203, 273, 251)",
@@ -1042,24 +1156,11 @@ def check_trace_loop(bins, src_pos):
     pad = rt.wrap_pad(field(N_EOR, 17))
     pos_b, flux_b = rt.prepare_sources(pos, 10 ** rng.uniform(
         -1, 0, nb * B_EOR))
-    err, ms, plain_ms = loop_against_plain(
-        f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} Dc={rt.geom.Dc}, {nb} "
-        f"batches", rt, pad, pos_b, flux_b, timed=True)
+    loop_against_plain(f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} "
+                       f"Dc={rt.geom.Dc}, {nb} batches", rt, pad, pos_b,
+                       flux_b)
     loop_kernel_gaps(rt, pad, pos_b, flux_b)
-    e_bytes = a_bytes = 0
-    for k in range(nb):
-        eb, ab = box_kernel_work(pos_b[k], tuple(pad.shape), B_EOR,
-                                 rt.geom.Dc, dt)
-        e_bytes, a_bytes = e_bytes + eb, a_bytes + ab
-    kb, kops = k3_work(rt, B_EOR, dt)
-    b_ms, b_by = least_ms(e_bytes + a_bytes + nb * kb, nb * kops, dt)
-    log(f"  the loop over {nb} batches: bound_ms={b_ms:.4f} ({b_by}: "
-        f"{nb} x (extract + K3 + accumulate))")
-    out["loop"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                       batches_per_call=nb)
     del rt, pad
-    return out
 
 
 def loop_kernel_gaps(rt, pad, pos_b, flux_b):
@@ -1085,11 +1186,11 @@ def loop_kernel_gaps(rt, pad, pos_b, flux_b):
         for k, v in kinds.items()))
 
 
-def loop_against_plain(label, rt, pad, pos_b, flux_b, timed=False):
+def loop_against_plain(label, rt, pad, pos_b, flux_b):
     """``rt.trace_extended`` (the C++ loop: one cheb_trace_rates call)
     against ``rt.trace_extended_plain`` on the frame ``pad``: bit for bit,
-    with the loop's launch counts. Returns max_abs_err, and with ``timed``
-    also the ms per trace of both (CUDA events, 3 traces each)."""
+    with the loop's launch counts and the ms per trace of both (CUDA
+    events, 3 traces each)."""
     from pyc2ray_torch.ops import sweep
     nb = pos_b.shape[0]
     sweep.reset_launches()
@@ -1108,19 +1209,16 @@ def loop_against_plain(label, rt, pad, pos_b, flux_b, timed=False):
     if err != 0.0 or not float(want[0].max()) > 0.0:
         raise RuntimeError(f"{label}: the loop differs from the plain "
                            f"loop: max_abs_err {err}")
-    msg = ""
-    if timed:
-        ms = cuda_ms(lambda: rt.trace_extended(pad, pos_b, flux_b, DR), 3)
-        plain_ms = cuda_ms(
-            lambda: rt.trace_extended_plain(pad, pos_b, flux_b, DR), 3)
-        msg = (f"; per trace: the loop {ms:.3f} ms, the plain loop "
-               f"{plain_ms:.3f} ms ({ms / nb:.4f} / {plain_ms / nb:.4f} ms "
-               f"per batch)")
+    ms = cuda_ms(lambda: rt.trace_extended(pad, pos_b, flux_b, DR), 3)
+    plain_ms = cuda_ms(
+        lambda: rt.trace_extended_plain(pad, pos_b, flux_b, DR), 3)
     log(f"  {label}: trace_extended (C++ loop) vs trace_extended_plain: "
         f"max_abs_err={err:.1e} (bit-equal"
         f"{', Gamma and heat' if rt.do_heating else ''}), launches "
-        + ", ".join(f"{k} {v}" for k, v in counts.items() if v) + msg)
-    return (err, ms, plain_ms) if timed else err
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f"; per trace: the loop {ms:.3f} ms, the plain loop "
+        f"{plain_ms:.3f} ms ({ms / nb:.4f} / {plain_ms / nb:.4f} ms per "
+        f"batch)")
 
 
 def heating_checks(temp, xh, N):
@@ -1400,8 +1498,9 @@ def eor_slice(sim, k):
 def eor_run(bins, smi):
     """Phase 4e: the production EoR run on the committed inputs; returns
     the kernel launches of its timesteps, the device ms per call of K3's two
-    phases and of the box kernels in the profiled trace, and the first
-    slice's iterations, photon loss and xh. ``bins`` are make_bins(), the
+    phases and of the box kernels in the profiled trace, the first
+    slice's iterations, photon loss and xh, and the trace loop's and its
+    box kernels' numbers on that trace (``eor_trace_kernels``). ``bins`` are make_bins(), the
     bins the model builds from parameters.yml (asserted); ``smi`` the
     card's name and power limit. The first slice runs first on a model of
     its own with the batch loop before the trace loop (``plain_loop``):
@@ -1543,6 +1642,7 @@ def eor_run(bins, smi):
             f"{k3_ms['A']:.4f} + {k3_ms['B']:.4f} ms, extract_boxes "
             f"{k3_ms['extract']:.4f} ms, accumulate_boxes "
             f"{k3_ms['accumulate']:.4f} ms ({nbatch} calls each)")
+        loop_k = eor_trace_kernels(rt, nd, xh_d, batches, sim.dr)
 
         # the first 16 sources, GPU against the plain CPU path
         rt_cpu = AdaptiveRaytracer(N_EOR, rt.R_max, rt.engines[0].sig,
@@ -1561,7 +1661,7 @@ def eor_run(bins, smi):
         log(f"  first batch (16 sources): GPU vs CPU max abs diff "
             f"{float((phi_g - phi_c).abs().max()):.3e} (floor {floor:.3e}, "
             f"peak {float(phi_c.max()):.3e})")
-    return run_counts, k3_ms, first
+    return run_counts, k3_ms, first, loop_k
 
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2100,8 +2200,10 @@ def helium_bench(bins_he, src_pos, chem):
     # one accumulate) and, on the same batch, the plain gathers and slice
     # adds the loop issued before; the frames bit-equal to the plain ones
     # and to trace_extended's over the same batches
-    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes,
-                                              extract_boxes, stage_positions)
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
+                                              extract_boxes,
+                                              extract_boxes_ref,
+                                              stage_positions)
     eng = rt.eng
     pads = [eng.wrap_pad(f) for f in rt.species_fields(nd, xh, y1, y2)]
     acc = [torch.zeros_like(pads[0]) for _ in range(3)]
@@ -2125,10 +2227,11 @@ def helium_bench(bins_he, src_pos, chem):
         ev[5].record()
         accumulate_boxes(acc, rates, pos_d, k, eng.box_shift(rates[0]))
         ev[6].record()
-        plain = [eng._extract_boxes(p, pos_b[k].to("cuda")) for p in pads]
+        plain = [extract_boxes_ref(p, pos_b[k].to("cuda"), eng.geom.Dc)
+                 for p in pads]
         ev[7].record()
         for pad, box in zip(acc_plain, rates):
-            eng.add_boxes(pad, box, pos_b[k])
+            add_boxes(pad, box, pos_b[k], eng.box_shift(box))
         ev[8].record()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(boxes, plain)):
@@ -2963,7 +3066,7 @@ def main():
         box_bench(src_pos, bins, tmp)
 
     # ---- 3g. the trace loop's kernels and the C++ loop vs plain ----------
-    k_loop = check_trace_loop(bins, src_pos)
+    check_trace_loop(bins, src_pos)
 
     # ---- 4. one evolve3D timestep, GPU vs CPU ---------------------------
     Ne, Re, nse = N_EVOLVE, R_EVOLVE, NS_EVOLVE
@@ -3055,7 +3158,7 @@ def main():
     adaptive_bench(bins)
 
     # ---- 4e. the production EoR run on the committed inputs --------------
-    eor_counts, eor_device_ms, eor_first = eor_run(bins, smi)
+    eor_counts, eor_device_ms, eor_first, k_loop = eor_run(bins, smi)
     k_eor.update(ms=eor_device_ms["A"] + eor_device_ms["B"],
                  ms_back_to_back=k_eor["ms"])
 
@@ -3117,7 +3220,7 @@ def main():
     # bounded by the host's enqueue: its ms is the device time per call in
     # 4e's profiled trace, ms_back_to_back the CUDA-event time). No single
     # PyTorch call computes any of the five sweep kernels; the box kernels'
-    # library_ms is torch.take / index_add_ on precomputed indices (3g).
+    # library_ms is torch.take / index_add_ on precomputed indices (4e).
     src = "pyc2ray_torch/ops/csrc/"
     tpu = "pyc2ray_tpu/ops/pallas_sweep.py:"
     jax_rt = "pyc2ray_tpu/ops/raytrace_cheb.py:"
@@ -3141,19 +3244,17 @@ def main():
              replaces=tpu + "669", launches=heat_launches, **k_heat),
         # the port's own kernels (no TPU kernel: XLA's gather,
         # dynamic_update_slice scan and jit + lax.scan batch loop in the
-        # JAX engine), at the EoR run's shape, launches over its timesteps;
-        # as for K3 there, ms is the device time per call in 4e's profiled
-        # trace; 3g's device and CUDA-event (back-to-back) times beside it
+        # JAX engine), launches over the EoR run's timesteps, every other
+        # number per call on the inputs of 4e's profiled trace
+        # (eor_trace_kernels): the box kernels' device times, the loop's
+        # CUDA-event time per cheb_trace_rates call
         dict(name="extract_boxes", source=src + "trace_loop.cu",
              replaces=jax_rt + "1082",
-             launches=eor_counts["extract_boxes"],
-             **{**k_loop["extract"], "ms": eor_device_ms["extract"],
-                "ms_device_3g": k_loop["extract"]["ms"]}),
+             launches=eor_counts["extract_boxes"], **k_loop["extract"]),
         dict(name="accumulate_boxes", source=src + "trace_loop.cu",
              replaces=jax_rt + "1223",
              launches=eor_counts["accumulate_boxes"],
-             **{**k_loop["accumulate"], "ms": eor_device_ms["accumulate"],
-                "ms_device_3g": k_loop["accumulate"]["ms"]}),
+             **k_loop["accumulate"]),
         dict(name="cheb_trace_rates", source=src + "trace_loop.cu",
              replaces=jax_rt + "346",
              launches=eor_counts["cheb_trace_rates"], **k_loop["loop"])]

@@ -59,13 +59,13 @@ from .cheb_geometry import (ChebGeometry, box_dims, build_cheb_geometry,
                             pack_rates_tables)
 from .geometry import max_q_for
 from .raytrace import RaytraceConfig
-from .sweep import cheb_sweep, cheb_sweep_rates, cheb_sweep_seg, init_planes
+from .sweep import cheb_sweep, cheb_sweep_seg, init_planes
 from .trace_loop import (accumulate_boxes, add_boxes, cheb_trace_rates,
-                         extract_boxes, extract_boxes_ref, fold_padding,
-                         stage_positions, wrap_pad)
+                         cheb_trace_rates_ref, extract_boxes,
+                         extract_boxes_ref, fold_padding, stage_positions,
+                         wrap_pad)
 
-__all__ = ["ChebRaytracer", "ChebTables", "shell_segmentation",
-           "wrap_pad", "add_boxes", "fold_padding"]
+__all__ = ["ChebRaytracer", "ChebTables", "shell_segmentation"]
 
 FOURPI = 12.566370614359172463991853874177
 
@@ -224,11 +224,6 @@ class ChebRaytracer:
                 torch.from_numpy(flx.reshape(nb, B)).to(self.device,
                                                         self.dtype))
 
-    def _extract_boxes(self, padded, pos):
-        """(B, Dc, Dc, Dc) boxes of ``padded`` starting at ``pos`` (B, 3),
-        by the plain gather."""
-        return extract_boxes_ref(padded, pos, self.geom.Dc)
-
     def _rates(self, cd, nhi_box, flux, dr):
         """Dense spectral-bin rate pass over the central rates subbox.
 
@@ -302,18 +297,14 @@ class ChebRaytracer:
                           tb.mask_p, dr, self.geom.c, sig)
 
     def _batch_rates(self, boxes, flux, dr, dr_t):
-        """One batch's (phi, heat) rate boxes by the engine's sweep mode:
-        the (Dc)^3 box for the fused modes, else the (Ds)^3 rates subbox.
-        heat is None without ``do_heating``; with it, ``fuse_rates`` takes
-        the unfused path."""
+        """One batch's (phi, heat) rate boxes by a sweep mode other than
+        ``fuse_fold`` (whose batch loop is ``cheb_trace_rates``): the (Dc)^3
+        box for ``fuse_rates``, else the (Ds)^3 rates subbox. heat is None
+        without ``do_heating``; with it, ``fuse_rates`` takes the unfused
+        path."""
         g, tb = self.geom, self.tables
         geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
         c = g.c
-        if self.fuse_fold:
-            out = cheb_sweep_rates(
-                boxes, *geo, tb.rt_tab, flux, dr, c, self.sig, tb.bins_s,
-                tb.bins_w, bins_wh=tb.bins_wh if self.do_heating else None)
-            return out if self.do_heating else (out, None)
         if self.fuse_rates and not self.do_heating:
             return cheb_sweep(boxes, *geo, dr, c, self.sig,
                               bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
@@ -353,30 +344,31 @@ class ChebRaytracer:
     def trace_extended_plain(self, nhi_pad, pos_b, flux_b, dr):
         """``trace_extended`` as the batch loop was issued before the trace
         loop: per batch a copy of the positions to the device, the PyTorch
-        gather (``_extract_boxes``), the sweep mode and one slice add per
-        source (``add_boxes``). The same result bit for bit; on the card the
-        plain reference of the loop and its box kernels."""
+        gather (``extract_boxes_ref``), the sweep mode and one slice add per
+        source (``add_boxes``); for ``fuse_fold`` that loop is
+        ``cheb_trace_rates_ref``. The same result bit for bit; on the card
+        the plain reference of the loop and its box kernels."""
+        g, tb = self.geom, self.tables
+        if self.fuse_fold:
+            return cheb_trace_rates_ref(
+                nhi_pad, pos_b, flux_b, tb.sw, tb.path, tb.diag, tb.mask_m,
+                tb.mask_p, tb.rt_tab, dr, g.c, self.sig, tb.bins_s, tb.bins_w,
+                bins_wh=tb.bins_wh if self.do_heating else None)
         phi_pad = torch.zeros_like(nhi_pad)
         heat_pad = torch.zeros_like(nhi_pad) if self.do_heating else None
         dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
         for pos, flux in zip(pos_b, flux_b):
-            boxes = self._extract_boxes(nhi_pad, pos.to(self.device))
+            boxes = extract_boxes_ref(nhi_pad, pos.to(self.device), g.Dc)
             phi_box, heat_box = self._batch_rates(boxes, flux, dr, dr_t)
-            self.add_boxes(phi_pad, phi_box, pos)
+            add_boxes(phi_pad, phi_box, pos, self.box_shift(phi_box))
             if heat_pad is not None:
-                self.add_boxes(heat_pad, heat_box, pos)
+                add_boxes(heat_pad, heat_box, pos, self.box_shift(heat_box))
         return phi_pad, heat_pad
 
     def box_shift(self, rate_boxes):
         """Where a batch's rate boxes start inside a source's box: 0 for
         the (Dc)^3 box, rb0 for a (Ds)^3 rates subbox."""
         return self._rb0 if rate_boxes.shape[-1] == self.Ds else 0
-
-    def add_boxes(self, pad, rate_boxes, pos):
-        """Add each source's rate box into the padded grid ``pad``, source
-        by source in batch order: the (Dc)^3 box at the source's box
-        corner ``pos`` (B, 3), a (Ds)^3 rates subbox rb0 further in."""
-        add_boxes(pad, rate_boxes, pos, self.box_shift(rate_boxes))
 
     def wrap_pad(self, field3):
         """The (N, N, N) field wrap-padded to the extended frame."""

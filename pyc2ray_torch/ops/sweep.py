@@ -181,8 +181,9 @@ def s_over_dr3(dr, dtype):
 
 def rate_consts(dr, dtype):
     """(s_fac, sdr3) of K3 / K3h as floats rounded to ``dtype``: S* dr /
-    dr^3 as ``_box_rates`` forms it, and S* / dr^3. A trace computes them
-    once and hands them to every call."""
+    dr^3 as ``_box_rates`` forms it, and S* / dr^3 (once per call of
+    ``cheb_sweep_rates``, once per trace of ``trace_loop.cheb_trace_rates``,
+    whose loop in C hands them to every batch)."""
     dr_t = torch.tensor(float(dr), dtype=dtype)
     sdr3 = s_over_dr3(dr_t, dtype)
     return float(sdr3 * dr_t), float(sdr3)
@@ -694,8 +695,7 @@ def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
 
 
 def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
-                     dr, c, sig, bins_s, bins_w, bins_wh=None, plan=None,
-                     consts=None):
+                     dr, c, sig, bins_s, bins_w, bins_wh=None, plan=None):
     """The fused sweep + box + rates on the device of ``nhi_box`` (see
     ``cheb_sweep_rates_ref``): the plain version for a CPU tensor, the CUDA
     kernel (two __global__ launches on the stream, the first as clusters
@@ -703,8 +703,7 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
     "cheb_sweep_rates", or with ``bins_wh`` K3h, counted as
     "cheb_sweep_rates_heat", which returns (phi, heat). ``dr`` and ``sig``
     are floats; ``plan`` forces parts of the first launch's plan as in
-    ``cheb_sweep``; ``consts`` is ``rate_consts(dr, dtype)`` where the
-    caller made it once for many calls."""
+    ``cheb_sweep``."""
     if nhi_box.device.type == "cpu":
         return cheb_sweep_rates_ref(nhi_box, sw, path, diag, mask_m, mask_p,
                                     rt_tab, flux, dr, c, sig, bins_s, bins_w,
@@ -725,7 +724,7 @@ def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,
     phi = torch.empty_like(nhi_box)
     ci = torch.empty_like(nhi_box)        # phase A's cdin and dcol boxes
     dc = torch.empty_like(nhi_box)
-    s_fac, sdr3 = consts or rate_consts(dr, dt)
+    s_fac, sdr3 = rate_consts(dr, dt)
     _launch(lib, f"cheb_sweep_rates_{sfx}", name, nhi_box, R1, c, dr, sig,
             (nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, bins_s, bins_w,
              bins_wh, flux, phi, heat, ci, dc),

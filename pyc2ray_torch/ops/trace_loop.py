@@ -196,18 +196,20 @@ def accumulate_boxes(frames, boxes, pos, k, shift=0):
 
 def cheb_trace_rates_ref(frame, pos, flux, sw, path, diag, mask_m, mask_p,
                          rt_tab, dr, c, sig, bins_s, bins_w, bins_wh=None):
-    """Plain version of ``cheb_trace_rates``: per batch the gather, the
-    fused sweep + rates (``cheb_sweep_rates``, the plain K3 / K3h on a CPU
-    frame) and the per-source slice adds."""
+    """Plain version of ``cheb_trace_rates``, the batch loop as the engine
+    issued it before the loop in C: per batch the positions ``pos[k]`` to
+    the frame's device, the gather, the fused sweep + rates
+    (``cheb_sweep_rates``: the plain K3 / K3h on a CPU frame, one launch of
+    the kernel on a CUDA one) and one slice add per source. ``pos`` may lie
+    on the host (int64, as ``prepare_sources`` returns it) or be staged."""
     Dc = sw.shape[-1]
     phi = torch.zeros_like(frame)
     heat = None if bins_wh is None else torch.zeros_like(frame)
-    consts = rate_consts(dr, frame.dtype)
     for k in range(pos.shape[0]):
         out = cheb_sweep_rates(
-            extract_boxes_ref(frame, pos[k], Dc), sw, path, diag, mask_m,
-            mask_p, rt_tab, flux[k], dr, c, sig, bins_s, bins_w,
-            bins_wh=bins_wh, consts=consts)
+            extract_boxes_ref(frame, pos[k].to(frame.device), Dc), sw, path,
+            diag, mask_m, mask_p, rt_tab, flux[k], dr, c, sig, bins_s,
+            bins_w, bins_wh=bins_wh)
         if heat is None:
             add_boxes(phi, out, pos[k])
         else:
