@@ -48,7 +48,8 @@ Phases (any failure raises and the script exits non-zero):
    must each equal the number of batches; the per-batch device ms of the
    loop's stages, the box kernels beside the plain gather and slice adds
    they replaced (bit-equal). The GPU trace of the first 16 sources is held
-   against the CPU (plain) trace.
+   against the CPU (plain) trace. The chemistry pass is one launch of the
+   hydrogen kernel (asserted; the chemistry checks below on its fields).
 3b. The engine's other sweep modes at full width: the bench configuration
    with fuse_fold=True (K3) and with fuse_rates=True (K1f), each Gamma
    held against phase 3's; the R=100 harness configuration (N=250, R=100,
@@ -106,8 +107,13 @@ Phases (any failure raises and the script exits non-zero):
    trace_extended_plain (CUDA events, bit-equal) and over every batch the
    box kernels against the gather and the slice adds (bit-equal) and
    torch.take / index_add_ (device time), with the bounds from the bytes
-   that data needs: the kernels line's numbers for the three. Last the
-   Gamma of the first 16 sources against the CPU.
+   that data needs: the kernels line's numbers for the three. Then the
+   Gamma of the first 16 sources against the CPU. Both slices also run on
+   a model of their own with the plain chemistry pass (``plain_chemistry``)
+   before the kernel: s per chemistry pass, per raytrace iteration and per
+   timestep of both, iterations, xh and photon loss bit-equal (asserted;
+   one chemistry_pass launch per iteration with the kernel). Last the
+   chemistry checks on the run's last state.
    The catalogs are read without h5py (``read_catalog``).
 2d. (after 2c) K1 at the helium engine's three threshold cross sections
    (sigma_HI, sigma_HeI, sigma_HeII of make_spectral_bins_he) at the bench
@@ -123,7 +129,8 @@ Phases (any failure raises and the script exits non-zero):
    extract, the three sweeps, the rate pass and the accumulate, beside the
    plain gathers and slice adds (16 batches, the frames bit-equal to the
    plain loop's and to trace_extended's); Gamma_HI of a helium-free field
-   against the hydrogen engine at the same bins.
+   against the hydrogen engine at the same bins. The helium kernel on this
+   trace's rates (256^3 float32), see "chemistry" below.
 3f. The octahedral sheet engine (BoxRaytracer, engine: box, plain PyTorch)
    at the bench configuration in float32 with the compressed bins: ns per
    cell-update (Ns cut only where 2048 sources would outrun
@@ -154,7 +161,11 @@ Phases (any failure raises and the script exits non-zero):
    secondary ionizations and recombination photons, GPU against CPU; then
    C2Ray_Test with engine he, the heating rates and isothermal false for two
    timesteps at N=128 on the card: iterations, K1 launches (three per
-   iteration, asserted) and the photon loss of each timestep.
+   iteration, asserted) and the photon loss of each timestep; the model
+   runs first with the plain chemistry pass: s per pass, per raytrace
+   iteration and per timestep before and after, iterations, photon loss
+   and state bit-equal, one chemistry_pass_he launch per iteration
+   (asserted). Then the chemistry checks on its last state.
 4h. The heating example of 4c with Raytracing.engine box: its five checks,
    no sweep kernel launched and one accumulate_boxes per iteration
    (asserted), xh and T against 4c's cheb run.
@@ -174,9 +185,22 @@ Phases (any failure raises and the script exits non-zero):
    share; 5d phase 4g's helium model for its first timestep under a source
    and a domain mesh of 2, xh and T held to 1e-10 and the helium fractions
    to 1e-9 of 4g's. A rank's exception fails the phase.
+Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
+   kernel against its plain version on the card, bit for bit (every output
+   and the count; max_abs_err 0, asserted): the hydrogen kernel on phase 3's
+   256^3 float32 Gamma (each cell's iterations equal to the plain loop's,
+   asserted), on the EoR run's last 250^3 state in float32 and in float64
+   (also through the entry point hydrogenODE), the helium kernel on 3e's
+   rates (float32) and on 4g's last state (float64) in the four
+   combinations of its options. Per pass: kernel and plain ms (CUDA
+   events), the bound from the bytes and the iterations of that data, the
+   profiler's device kernels (one, asserted), memsets and host
+   synchronisations (none, asserted) beside the plain pass's, and the
+   distribution of the iterations per cell.
 6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
    then the trace loop's extract_boxes, accumulate_boxes and
-   cheb_trace_rates on 4e's EoR trace), then the result line
+   cheb_trace_rates on 4e's EoR trace, and the chemistry_pass kernel on the
+   EoR run's state, chemistry_pass_he on 4g's), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
@@ -1290,6 +1314,156 @@ def inner_iterations(dt, nd, temp, xh, phi, chem, doric=None):
     return its, xh_av
 
 
+@contextlib.contextmanager
+def plain_chemistry():
+    """Within the block the model layer's timestep loops (evolve3D,
+    evolve3D_he) run the chemistry passes' plain versions on the card
+    (global_pass_ref, global_pass_he_ref): the passes as the port issued
+    them before the kernels, ~30 launches and one host synchronisation per
+    inner iteration."""
+    import pyc2ray_torch.evolve as ev
+    from pyc2ray_torch.ops import chemistry, chemistry_he
+    saved = ev.global_pass, chemistry_he.global_pass_he
+    ev.global_pass = chemistry.global_pass_ref
+    chemistry_he.global_pass_he = chemistry_he.global_pass_he_ref
+    try:
+        yield
+    finally:
+        ev.global_pass, chemistry_he.global_pass_he = saved
+
+
+def pass_profile(fn):
+    """``fn()`` under torch.profiler: the device kernels, memsets and
+    device-to-host copies it ran, and inside its span the host's kernel
+    launch calls and synchronisations (CUDA runtime calls named
+    *LaunchKernel, *Synchronize)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from pyc2ray_torch.diagnostics import _trace_events
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("chemistry pass"):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(tmp, "pass.json"))
+        events = _trace_events(tmp)[0]
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e["name"] == "chemistry pass")
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+
+    def runtime(word):
+        return sum(e.get("cat") == "cuda_runtime" and lo <= e["ts"] <= hi
+                   and word in e["name"] for e in events)
+    out = dict(
+        kernels=sum(e.get("cat") == "kernel" for e in events),
+        memsets=sum(e.get("cat") == "gpu_memset" for e in events),
+        d2h=sum(e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
+                for e in events),
+        syncs=runtime("Synchronize"), launch_calls=runtime("LaunchKernel"))
+    out["device_events"] = bool(out["kernels"] + out["memsets"] + out["d2h"])
+    return out
+
+
+def iteration_text(its, cap):
+    """The distribution of the iterations each cell took (int32 tensor)."""
+    h = torch.bincount(its.reshape(-1).long()).cpu().numpy()
+    n = h.sum()
+    k = np.arange(h.size)
+    med = int(np.searchsorted(np.cumsum(h), (n + 1) / 2))
+    edges = (1, 2, 3, 4, 5, 9, 17, 33, 65, 129, cap + 1)
+    bins = ", ".join(f"{a}-{b - 1}: {int(h[a:b].sum())}" if b - 1 > a
+                     else f"{a}: {int(h[a:b].sum())}"
+                     for a, b in zip(edges, edges[1:]) if h[a:b].sum())
+    return (f"iterations per cell min {int(k[h > 0].min())}, median {med}, "
+            f"mean {float((h * k).sum() / n):.3f}, max {int(k[h > 0].max())}"
+            f", at the cap of {cap} {int(h[cap]) if h.size > cap else 0}; "
+            f"cells by iterations {bins}")
+
+
+# operations of a chemistry pass, a transcendental counted as one: per cell
+# once (the temperature's rates, the count's test) and per iteration of a
+# cell (n_e, doric's rates and closed form with float32's 10-term series,
+# the clamps, the convergence test); the helium pass adds per iteration
+# its rates, clamps and tests in the fields' type and the 2x2 solve in
+# float64, and the options their channels
+CHEM_OPS = {"cell": 12, "iter": 45, "he_cell": 16, "he_iter": 40,
+            "he_iter_f64": 105, "heat": 14, "rec": 30}
+
+
+def chemistry_check(label, helium, args, kw, reps=10):
+    """The chemistry kernel (``helium``: the helium pass) against its plain
+    version on the card on the pass ``args``, ``kw``: every output bit for
+    bit (max_abs_err 0, asserted) and one kernel launch per pass, no host
+    synchronisation (the profiler; asserted); kernel and plain ms per pass
+    (CUDA events), the bound from this data's bytes and iterations, and the
+    per-cell iteration distribution. Returns the kernels line's numbers
+    and the iterations (int32)."""
+    from pyc2ray_torch.ops import chemistry as ch, chemistry_he as che, sweep
+    kern, plain, launch, name, mod = (
+        (che.global_pass_he, che.global_pass_he_ref, che._pass_he_cuda,
+         "chemistry_pass_he", che) if helium else
+        (ch.global_pass, ch.global_pass_ref, ch._pass_cuda,
+         "chemistry_pass", ch))
+    sweep.reset_launches()
+    got = kern(*args, **kw)
+    n_launch = sweep.launches[name]
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:-1], want[:-1]))
+    if not equal or n_launch != 1:
+        raise RuntimeError(f"{label}: {name} differs from its plain version "
+                           f"(max abs {err:.3e}, counts {int(got[-1])} and "
+                           f"{int(want[-1])}) or launched {n_launch} times")
+    xh = args[3]
+    its = torch.empty(xh.shape, dtype=torch.int32, device=xh.device)
+    launch(*args, **kw, iterations=its)
+    ms = cuda_ms(lambda: kern(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
+    pk, pp = pass_profile(lambda: kern(*args, **kw)), \
+        pass_profile(lambda: plain(*args, **kw))
+    # the device's kernels where the capture holds device records, else the
+    # host's launch calls: some captures of this single kernel held no
+    # device record on the card (PERF.md, open questions)
+    n_kern = pk["kernels"] if pk["device_events"] else pk["launch_calls"]
+    if n_kern != 1 or pk["syncs"] or pk["d2h"]:
+        raise RuntimeError(f"{label}: {name} pass ran {pk} on the device, "
+                           f"expected one kernel and no host sync")
+    # bytes: every distinct input tensor read once, the outputs written
+    fields = {t.data_ptr(): t for t in (*args, *kw.values())
+              if isinstance(t, torch.Tensor) and t.dim() > 0}
+    nbytes = sum(t.numel() * t.element_size() for t in fields.values()) \
+        + sum(t.numel() * t.element_size() for t in got)
+    n, n_it = xh.numel(), float(its.double().sum())
+    ops, ops64 = CHEM_OPS["cell"] * n + CHEM_OPS["iter"] * n_it, 0.0
+    if helium:
+        per = CHEM_OPS["he_iter"] + CHEM_OPS["heat"] * (kw.get("heat")
+                                                        is not None) \
+            + CHEM_OPS["rec"] * bool(kw.get("recombination_photons"))
+        ops += CHEM_OPS["he_cell"] * n + per * n_it
+        ops64 = CHEM_OPS["he_iter_f64"] * n_it
+    peak = H100_F32_FLOPS if xh.dtype == torch.float32 else H100_F64_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak \
+        + ops64 / H100_F64_FLOPS
+    b_ms = 1e3 * max(t_bytes, t_ops)
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  {label}: {name} bit-equal to its plain version (max_abs_err "
+        f"{err:g}, count {int(got[-1])}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms per pass, bound {b_ms:.5f} ms ({b_by}: "
+        f"{nbytes / 1e9:.4f} GB, {(ops + ops64) / 1e9:.3f} Gop); per pass "
+        f"kernel {pk['kernels']} device kernel(s), {pk['memsets']} "
+        f"memset(s), {pk['launch_calls']} launch call(s), {pk['syncs']} host "
+        f"syncs; plain {pp['kernels']} kernels, {pp['launch_calls']} launch "
+        f"calls, {pp['syncs']} host syncs, {pp['d2h']} D2H copies"
+        + ("" if pk["device_events"] else " (no device event captured)"))
+    log(f"    {iteration_text(its, mod.MAX_INNER_ITER)}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, launches_per_pass=n_kern,
+                plain_launches_per_pass=pp["kernels"],
+                plain_syncs_per_pass=pp["syncs"]), its
+
+
 def doric_reference_form(xh, dt, temp, rhe, phi, p):
     """ops/chemistry.py::doric with the reference's time average
     (1 - ee) / deltht in every dtype, where doric's float32 form takes
@@ -1485,7 +1659,7 @@ def eor_slice(sim, k):
     counts = [int(c) for c in re.findall(
         r"R=[\d.]+: (\d+)", text.split("Adaptive radii")[1].splitlines()[0])]
     return srcpos, flux, dict(
-        zi=zi, zf=zf, t_step=t_step, launches=launches, counts=counts,
+        zi=zi, zf=zf, dt=dt, t_step=t_step, launches=launches, counts=counts,
         t_ray=[float(t) for t in re.findall(r"Raytracing took ([\d.]+) s",
                                             text)],
         t_chem=[float(t) for t in re.findall(r"Chemistry took ([\d.]+) s",
@@ -1538,12 +1712,23 @@ def eor_run(bins, smi):
             _, _, before = eor_slice(sim_plain, 0)
         xh_before = np.array(sim_plain.xh)
         del sim_plain
+        # both slices on a model of its own with the plain chemistry pass
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim_pc = C2Ray_CubeP3M(params, N_EOR, device="cuda")
+        plain_chem = []
+        with plain_chemistry():
+            for k in range(2):
+                r_pc = eor_slice(sim_pc, k)[2]
+                r_pc["xh"] = np.array(sim_pc.xh)
+                plain_chem.append(r_pc)
+        del sim_pc
         for k in range(2):
             srcpos, flux, r = eor_slice(sim, k)
             n_it = len(r["t_ray"])
             nbatch = sum(-(-c // B_EOR) for c in r["counts"])
             want = {name: 0 for name in r["launches"]}
             want["cheb_sweep_rates"] = n_it * nbatch
+            want["chemistry_pass"] = n_it
             want.update(loop_counts(n_it * nbatch,
                                     n_it * sum(c > 0 for c in r["counts"])))
             if r["launches"] != want or not r["converged"] or n_it == 0:
@@ -1585,6 +1770,26 @@ def eor_run(bins, smi):
                 f"cells with xh > 0.5: {int((xh > 0.5).sum())}; outputs read "
                 f"back equal to the state")
             xh0 = np.array(xh)
+            pc = plain_chem[k]
+            n_pc = len(pc["t_ray"])
+            want_pc = dict(want, chemistry_pass=0)
+            want_pc.update(loop_counts(n_pc * nbatch, n_pc * sum(
+                c > 0 for c in r["counts"])), cheb_sweep_rates=n_pc * nbatch)
+            log(f"  the plain chemistry pass before the kernel ({smi}): "
+                f"{n_pc} raytrace iterations, per iteration chemistry "
+                f"{np.mean(pc['t_chem']):.4f} s and raytrace "
+                f"{np.mean(pc['t_ray']):.4f} s, {pc['t_step']:.2f} s per "
+                f"timestep, photon loss {pc['loss'][-1]:.3e}; the kernel: "
+                f"{n_it}, chemistry {t_chem:.4f} s, raytrace {t_ray:.4f} s, "
+                f"{r['t_step']:.2f} s, {r['loss'][-1]:.3e}; xh bit-equal "
+                f"{np.array_equal(pc['xh'], xh)}")
+            if (n_pc != n_it or pc["loss"] != r["loss"]
+                    or not np.array_equal(pc["xh"], xh)
+                    or pc["launches"] != want_pc):
+                raise RuntimeError(
+                    f"EoR slice {k}: the run with the chemistry kernel "
+                    f"differs from the plain pass's (launches "
+                    f"{pc['launches']}, expected {want_pc})")
             if k == 0:
                 # phase 5b/5c's single-rank reference
                 first = dict(iterations=n_it, loss=r["loss"][-1], xh=xh0,
@@ -1592,6 +1797,7 @@ def eor_run(bins, smi):
                 n_b = len(before["t_ray"])
                 want_b = {name: 0 for name in before["launches"]}
                 want_b["cheb_sweep_rates"] = n_b * nbatch
+                want_b["chemistry_pass"] = n_b
                 log(f"  first slice ({smi}), the loop before the trace loop "
                     f"(trace_extended_plain): {n_b} raytrace iterations, "
                     f"per iteration raytrace "
@@ -1608,6 +1814,8 @@ def eor_run(bins, smi):
                         f"EoR first slice: the trace loop's run differs "
                         f"from the loop before it (launches before "
                         f"{before['launches']})")
+
+        k_chem = eor_chemistry(sim, r["dt"], smi)
 
         # one trace of the last slice's state under the profiler
         pos, fl = format_sources(srcpos, flux)
@@ -1661,7 +1869,52 @@ def eor_run(bins, smi):
         log(f"  first batch (16 sources): GPU vs CPU max abs diff "
             f"{float((phi_g - phi_c).abs().max()):.3e} (floor {floor:.3e}, "
             f"peak {float(phi_c.max()):.3e})")
-    return run_counts, k3_ms, first, loop_k
+    return run_counts, k3_ms, first, loop_k, k_chem
+
+
+def eor_chemistry(sim, dt, smi):
+    """The hydrogen kernel against its plain version on the EoR run's last
+    state (250^3, the last timestep's dt): in float32 as the run takes it,
+    and in float64 through the entry point hydrogenODE (its xh bit-equal to
+    global_pass_ref's, one launch). Returns the float32 numbers."""
+    from pyc2ray_torch import hydrogenODE
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.chemistry import ChemistryParams, global_pass_ref
+    f32 = [torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                           device="cuda").reshape(-1)
+           for a in (sim.ndens, sim.temp, sim.xh, sim.phi_ion)]
+    nd, temp, xh, phi = f32
+    dt_d = torch.tensor(dt, dtype=torch.float32).to("cuda")
+    log(f"EoR chemistry on the run's last state ({smi}):")
+    k_chem, _ = chemistry_check("EoR 250^3 float32", False,
+                                (dt_d, nd, temp, xh, xh, phi, sim.chem), {})
+    f64 = [np.asarray(a, dtype=np.float64) for a in
+           (sim.ndens, sim.temp, sim.xh, sim.phi_ion)]
+    # hydrogenODE's parameters (clumping 1)
+    ode = {k: getattr(sim.chem, k) for k in ("bh00", "albpow", "colh0",
+                                             "temph0", "abu_c")}
+    p64 = ChemistryParams(**ode)
+    sweep.reset_launches()
+    t0 = time.time()
+    got = hydrogenODE(dt, f64[0], f64[1], f64[2], f64[3],
+                      max_nonconverged_fraction=1.0, device="cuda", **ode)
+    t_ode = time.time() - t0
+    n_launch = sweep.launches["chemistry_pass"]
+    d = [torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+         for a in f64]
+    want = global_pass_ref(torch.tensor(dt, dtype=torch.float64).to("cuda"),
+                           d[0], d[1], d[2], d[2], d[3], p64)[0]
+    ok = np.array_equal(got, want.cpu().numpy())
+    log(f"  EoR 250^3 float64 through hydrogenODE: {t_ode:.3f} s with the "
+        f"host transfers, {n_launch} chemistry_pass launch; xh bit-equal to "
+        f"global_pass_ref's: {ok}")
+    if not ok or n_launch != 1:
+        raise RuntimeError("hydrogenODE: the float64 kernel differs from the "
+                           "plain pass")
+    chemistry_check("EoR 250^3 float64", False,
+                    (torch.tensor(dt, dtype=torch.float64).to("cuda"),
+                     d[0], d[1], d[2], d[2], d[3], p64), {}, reps=3)
+    return k_chem
 
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2185,6 +2438,9 @@ def helium_bench(bins_he, src_pos, chem):
     finally:
         chemistry_he.MAX_INNER_ITER = cap
     within8 = all(torch.equal(a, b) for a, b in zip(out, out8))
+    chemistry_check("helium bench chemistry (256^3 float32, this trace's "
+                    "rates)", True, (dt_d, nd, temp, xh, xh, y1, y1, y2, y2,
+                                     *g, phe), {}, reps=3)
     log(f"helium engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32 "
         f"{bins_he.num_bins} bins: raytrace {t_ray:.4f} s = "
         f"{1e9 * t_ray / cell_updates(NS_BENCH, R_BENCH):.4f} "
@@ -2316,34 +2572,74 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
     params["Raytracing"]["engine"] = "he"
     params["Photo"]["compute_heating_rates"] = 1
     params["Material"]["isothermal"] = False
-    with tempfile.TemporaryDirectory() as tmp:
-        params["Output"]["results_basename"] = tmp + "/"
-        text = io.StringIO()
-        t0 = time.time()
-        with contextlib.redirect_stdout(text):
-            sim = C2Ray_Test(params, N, device="cuda")
-            sim.ndens = 1e-3 * np.ones((N,) * 3)
-            zreds = sim.generate_redshift_array(2, 1e7)
-            dt = sim.set_timestep(zreds[0], zreds[1], STEPS_GOLDEN)
-            srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]],
-                              dtype=float)
-            steps = []
-            sweep.reset_launches()
-            for n in range(2):
-                mark = len(text.getvalue())
-                sim.cosmo_evolve(dt)
-                sim.evolve3D(dt, np.array([10.0]), srcpos)
-                steps.append(text.getvalue()[mark:])
-                if n == 0:
-                    # phase 5d's single-rank reference
-                    first = {k: np.array(getattr(sim, k))
-                             for k in HE_STATE}
-            torch.cuda.synchronize()
-        t_sim = time.time() - t0
-    k1 = sweep.launches["cheb_sweep"]
+
+    def model_run(plain):
+        """The two timesteps, with the plain chemistry pass if ``plain``:
+        the simulation, its log per timestep, s per timestep, the launches
+        and the state after the first timestep."""
+        with tempfile.TemporaryDirectory() as tmp:
+            params["Output"]["results_basename"] = tmp + "/"
+            text = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(text), \
+                    (plain_chemistry() if plain else contextlib.nullcontext()):
+                sim = C2Ray_Test(params, N, device="cuda")
+                sim.ndens = 1e-3 * np.ones((N,) * 3)
+                zreds = sim.generate_redshift_array(2, 1e7)
+                dt = sim.set_timestep(zreds[0], zreds[1], STEPS_GOLDEN)
+                srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]],
+                                  dtype=float)
+                steps, t_steps = [], []
+                sweep.reset_launches()
+                for n in range(2):
+                    mark = len(text.getvalue())
+                    sim.cosmo_evolve(dt)
+                    t1 = time.time()
+                    sim.evolve3D(dt, np.array([10.0]), srcpos)
+                    torch.cuda.synchronize()
+                    t_steps.append(time.time() - t1)
+                    steps.append(text.getvalue()[mark:])
+                    if n == 0:
+                        # phase 5d's single-rank reference
+                        first = {k: np.array(getattr(sim, k))
+                                 for k in HE_STATE}
+            t_sim = time.time() - t0
+        return sim, steps, t_steps, t_sim, dict(sweep.launches), first, dt
+
+    def per_pass(steps, what="Chemistry \\(H\\+He\\)"):
+        """Mean s of the logged ``what`` (the chemistry pass, or with
+        "Raytracing \\(3 species\\)" the trace) per raytrace iteration."""
+        return np.mean([float(t) for st in steps for t in re.findall(
+            what + r" took ([\d.]+) s", st)])
+    ray = "Raytracing \\(3 species\\)"
+    sim_p, steps_p, t_steps_p, _, launches_p, first_p, _ = model_run(True)
+    sim, steps, t_steps, t_sim, launches, first, dt = model_run(False)
+    k1 = launches["cheb_sweep"]
     iters = [s.count("Raytracing (3 species) took") for s in steps]
     loss = [[float(v) for v in re.findall(
         r"photon loss fraction: ([-+\d.e]+)", s)] for s in steps]
+    iters_p = [s.count("Raytracing (3 species) took") for s in steps_p]
+    loss_p = [[float(v) for v in re.findall(
+        r"photon loss fraction: ([-+\d.e]+)", s)] for s in steps_p]
+    same = all(np.array_equal(getattr(sim, k), getattr(sim_p, k))
+               for k in HE_STATE) and all(
+        np.array_equal(first[k], first_p[k]) for k in HE_STATE)
+    log(f"helium model N={N}, the plain chemistry pass before the kernel: "
+        f"per pass {per_pass(steps_p):.4f} s, raytrace per iteration "
+        f"{per_pass(steps_p, ray):.4f} s, per timestep "
+        + ", ".join(f"{t:.3f}" for t in t_steps_p)
+        + f" s ({iters_p} iterations, {launches_p['chemistry_pass_he']} "
+        f"kernel passes); the kernel: per pass {per_pass(steps):.4f} s, "
+        f"raytrace per iteration {per_pass(steps, ray):.4f} s, per "
+        f"timestep " + ", ".join(f"{t:.3f}" for t in t_steps)
+        + f" s ({iters} iterations, {launches['chemistry_pass_he']} kernel "
+        f"passes); iterations, photon loss and state bit-equal: "
+        f"{iters == iters_p and loss == loss_p and same}")
+    if (iters != iters_p or loss != loss_p or not same
+            or launches["chemistry_pass_he"] != sum(iters)
+            or launches_p["chemistry_pass_he"] != 0):
+        raise RuntimeError("helium model: the run with the chemistry kernel "
+                           "differs from the plain pass's")
     g = sim.raytracer.geom
     log(f"C2Ray_Test engine he N={N} float64 (heating, non-isothermal, "
         f"{sim.raytracer.bins.num_bins} bins, Dc={g.Dc}, B=1): 2 timesteps "
@@ -2371,7 +2667,26 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
         raise RuntimeError("helium model: the source ionized or heated "
                            "nothing")
     first["iterations"] = iters[0]
-    return k1, first
+    # the helium kernel against its plain version on the model's last state
+    # (float64), in the four combinations of its options (the heat channel
+    # a photoheating rate of 5e-12 erg per HI ionisation)
+    f = [torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                         device="cuda").reshape(-1)
+         for a in (sim.ndens, sim.temp, sim.xh, sim.xhe1, sim.xhe2,
+                   sim.phi_ion, sim.phi_he1, sim.phi_he2)]
+    args = (torch.tensor(dt, dtype=torch.float64).to("cuda"), f[0], f[1],
+            f[2], f[2], f[3], f[3], f[4], f[4], f[5], f[6], f[7],
+            sim.chem_he)
+    log(f"helium chemistry on the model's last state ({N}^3 float64):")
+    k_he = None
+    for heat in (None, 5e-12 * f[5]):
+        for rec in (False, True):
+            k, _ = chemistry_check(
+                f"heat {heat is not None}, recombination photons {rec}",
+                True, args, dict(heat=heat, recombination_photons=rec),
+                reps=3)
+            k_he = k_he or k
+    return k1, first, dict(k_he, launches=launches["chemistry_pass_he"])
 
 
 # ---- phase 5: the port's multi-GPU paths as a world of ranks ---------------
@@ -2897,11 +3212,13 @@ def main():
     t_chem = time.time() - t0
     # the inner loop's iterations per cell on this field, with doric and
     # with the reference's float32 time average (which cancels)
+    its_plain = {}
     for form, fn in (("doric", None), ("the reference's float32 time "
                                        "average", doric_reference_form)):
         t0 = time.time()
         its, _ = inner_iterations(dt_d, ndens, temp, xh, phi, chem, fn)
         torch.cuda.synchronize()
+        its_plain[form] = its
         log(f"bench chemistry, {form}: inner iterations up to "
             f"{int(its.max())}, mean {float(its.double().mean()):.3f}, cells "
             f"at the cap of {MAX_INNER_ITER} "
@@ -2911,12 +3228,22 @@ def main():
     launches = counts.pop("cheb_sweep")
     boxes_launches = [counts.pop(k) for k in ("extract_boxes",
                                                "accumulate_boxes")]
+    chem_launches = counts.pop("chemistry_pass")
     if (launches != nbatch or boxes_launches != [nbatch] * 2
-            or any(counts.values())):
+            or chem_launches != 1 or any(counts.values())):
         raise RuntimeError(f"sweep kernel launched {launches} times on the "
                            f"main path, extract and accumulate "
                            f"{boxes_launches}, expected one per batch "
-                           f"({nbatch}); other kernels {counts}")
+                           f"({nbatch}); chemistry_pass {chem_launches}, "
+                           f"expected 1; other kernels {counts}")
+    # the chemistry kernel against the plain pass on this Gamma; each
+    # cell's iterations those of the plain loop
+    _, its_k = chemistry_check("bench chemistry (256^3 float32, this "
+                               "Gamma)", False,
+                               (dt_d, ndens, temp, xh, xh, phi, chem), {})
+    if not torch.equal(its_k, its_plain["doric"]):
+        raise RuntimeError("bench chemistry: the kernel's iterations per "
+                           "cell differ from the plain loop's")
     for name, t in (("phi", phi), ("xh", xi), ("xh_av", xa)):
         if t.shape != (N ** 3,) or not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"main path: {name} is not finite of shape "
@@ -3139,15 +3466,17 @@ def main():
     n_k3h = counts.pop("cheb_sweep_rates_heat")
     n_loop = counts.pop("cheb_trace_rates")
     n_box = [counts.pop(k) for k in ("extract_boxes", "accumulate_boxes")]
+    n_chem = counts.pop("chemistry_pass")
     g_h = sim.raytracer.geom
     log(f"C2Ray_Test heating example N={N_HEATING} (float64, engine cheb, "
         f"fuse_fold, Dc={g_h.Dc}, R1={g_h.r_max + 1}, "
         f"{sim.raytracer.num_bins} bins): {STEPS_HEATING} timesteps, "
         f"{n_iter} raytrace iterations, {t_sim:.2f} s with set-up, K3h "
         f"launches {n_k3h}, trace loops {n_loop}, extract and accumulate "
-        f"{n_box}")
+        f"{n_box}, chemistry passes {n_chem}")
     if (n_k3h == 0 or n_k3h != n_iter or n_loop != n_iter
-            or n_box != [n_iter] * 2 or any(counts.values())):
+            or n_box != [n_iter] * 2 or n_chem != n_iter
+            or any(counts.values())):
         raise RuntimeError(f"heating example: {n_k3h} K3h launches, "
                            f"{n_loop} loops and {n_box} box launches for "
                            f"{n_iter} single-source iterations, other "
@@ -3158,7 +3487,7 @@ def main():
     adaptive_bench(bins)
 
     # ---- 4e. the production EoR run on the committed inputs --------------
-    eor_counts, eor_device_ms, eor_first, k_loop = eor_run(bins, smi)
+    eor_counts, eor_device_ms, eor_first, k_loop, k_chem = eor_run(bins, smi)
     k_eor.update(ms=eor_device_ms["A"] + eor_device_ms["B"],
                  ms_back_to_back=k_eor["ms"])
 
@@ -3183,7 +3512,8 @@ def main():
         raise RuntimeError(f"golden: {', '.join(failed) or 'engine'} FAILED")
 
     # ---- 4g. helium end to end ---------------------------------------------
-    _, he_first = helium_evolve(e_pos, e_flux, e_nd, bins_he, chem)
+    _, he_first, k_chem_he = helium_evolve(e_pos, e_flux, e_nd, bins_he,
+                                           chem)
 
     # ---- 4h. the heating example on the octahedral sheet engine -----------
     sim, n_iter, counts, t_sim = heating_example("box")
@@ -3193,8 +3523,9 @@ def main():
         f"{STEPS_HEATING} timesteps, {n_iter} raytrace iterations, "
         f"{t_sim:.2f} s with set-up; kernel launches {counts}")
     n_acc = counts.pop("accumulate_boxes")
+    n_chem = counts.pop("chemistry_pass")
     if type(sim.raytracer).__name__ != "BoxRaytracer" \
-            or n_acc != n_iter or any(counts.values()):
+            or n_acc != n_iter or n_chem != n_iter or any(counts.values()):
         raise RuntimeError(f"heating example (box): engine "
                            f"{type(sim.raytracer).__name__}, "
                            f"accumulate_boxes {n_acc} for {n_iter} "
@@ -3257,7 +3588,17 @@ def main():
              **k_loop["accumulate"]),
         dict(name="cheb_trace_rates", source=src + "trace_loop.cu",
              replaces=jax_rt + "346",
-             launches=eor_counts["cheb_trace_rates"], **k_loop["loop"])]
+             launches=eor_counts["cheb_trace_rates"], **k_loop["loop"]),
+        # the chemistry passes (no TPU kernel: the JAX package's jitted
+        # lax.while_loop), launches over the EoR run's timesteps (4e) and
+        # the helium model's (4g), every other number per pass on the EoR
+        # run's last state (250^3, float32) and on the helium model's
+        # (128^3, float64, its options: no heat channel, no recycling)
+        dict(name="chemistry_pass", source=src + "chemistry.cu",
+             replaces="pyc2ray_tpu/ops/chemistry.py:122",
+             launches=eor_counts["chemistry_pass"], **k_chem),
+        dict(name="chemistry_pass_he", source=src + "chemistry.cu",
+             replaces="pyc2ray_tpu/ops/chemistry_he.py:406", **k_chem_he)]
     kernels = [dict(name=k.pop("name"), route="cuda",
                     **{"library_ms": None, **k}) for k in kernels]
     log(f"chip_smoke wall time: {time.time() - T_START:.1f} s")

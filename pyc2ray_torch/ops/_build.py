@@ -19,7 +19,8 @@ from pathlib import Path
 __all__ = ["load", "NVCC_FLAGS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cheb_sweep", "cheb_sweep_rates", "trace_loop")  # csrc/<name>.cu
+SOURCES = ("cheb_sweep", "cheb_sweep_rates", "trace_loop",
+           "chemistry")                   # csrc/<name>.cu
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_rates.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -45,6 +46,14 @@ _SIGNATURES = {
         # B, D, shift, F0, F1, F2, stream
         "boxes": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P],
         "cheb_trace_rates": [_P] * 20 + [_I, _D, _D] + [_I] * 5 + _LAUNCH,
+    },
+    "chemistry": {
+        # dt (pointer, kind, value), the fields, mask, outputs, count and
+        # iterations; cells, cap, (recomb,) params, stream
+        "chemistry_pass": [_P, _I, _D] + [_P] * 10
+        + [ctypes.c_longlong, _I, _P, _P],
+        "chemistry_pass_he": [_P, _I, _D] + [_P] * 21
+        + [ctypes.c_longlong, _I, _I, _P, _P],
     },
 }
 

@@ -16,20 +16,28 @@ reference's Fortran chemistry module (src/c2ray/chemistry.f90):
   changed significantly since entry (the non-convergence flag used by the
   outer evolve loop).
 
-The whole grid is updated as masked dense tensor operations: converged
-cells freeze (their values stop updating), which reproduces the per-cell
-iteration semantics exactly. The loop runs on the tensors' device; its
-exit test reads one flag per iteration back to the host.
+``global_pass`` dispatches on the device of its fields. On the CPU it runs
+the plain version ``global_pass_ref``: the whole grid updated as masked
+dense tensor operations, converged cells frozen (their values stop
+updating), which reproduces the per-cell iteration semantics exactly; its
+exit test reads one flag per iteration back to the host. On the card it
+launches the kernel of csrc/chemistry.cu once: one thread per cell runs
+that cell's iterations to its convergence or the cap, bit for bit as the
+plain version, with no host synchronisation; the port's counterpart of the
+JAX package's jitted lax.while_loop. Launches are counted in
+``sweep.launches["chemistry_pass"]``.
 """
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
 from ..constants import EPSILON
+from . import sweep
 
-__all__ = ["ChemistryParams", "doric", "global_pass"]
+__all__ = ["ChemistryParams", "doric", "global_pass", "global_pass_ref"]
 
 # Convergence constants (chemistry.f90:9-10)
 MIN_FRACTIONAL_CHANGE = 1.0e-3
@@ -126,6 +134,19 @@ def _closed_form_float32(x0, eqxh, deltht):
 
 def global_pass(dt, ndens, temp, xh, xh_av, phi_ion, p: ChemistryParams,
                 mask=None):
+    """Chemistry pass over the whole grid (chemistry.f90:13-110): the plain
+    version ``global_pass_ref`` for CPU fields, one launch of the kernel
+    for CUDA fields (same-shape contiguous tensors of one float type; ``dt``
+    a Python number or a 0-dim tensor, read on the device). Arguments and
+    results as ``global_pass_ref``'s."""
+    if xh.device.type == "cpu":
+        return global_pass_ref(dt, ndens, temp, xh, xh_av, phi_ion, p,
+                               mask=mask)
+    return _pass_cuda(dt, ndens, temp, xh, xh_av, phi_ion, p, mask=mask)
+
+
+def global_pass_ref(dt, ndens, temp, xh, xh_av, phi_ion, p: ChemistryParams,
+                    mask=None):
     """Chemistry pass over the whole grid (chemistry.f90:13-110).
 
     All tensor arguments are same-shape (treated elementwise); ``dt`` is a
@@ -168,3 +189,92 @@ def global_pass(dt, ndens, temp, xh, xh_av, phi_ion, p: ChemistryParams,
     if mask is not None:
         not_conv = not_conv & mask
     return xh_int, xh_av_cur, not_conv.sum()
+
+
+def _kernel_params(p: ChemistryParams):
+    """The doubles the kernels take for ``p`` (HConst of the source): the
+    parameters, EPSILON, the convergence thresholds and doric's float32
+    series."""
+    return [*p, EPSILON, MIN_FRACTIONAL_CHANGE, MIN_FRACTION_OF_ATOMS,
+            _G_SERIES_BELOW, *_G_COEFFS]
+
+
+def _dt_arg(dt, device):
+    """dt for the kernels: (pointer, kind, value), kind 1 or 2 for a 0-dim
+    float32 or float64 tensor on the fields' device (read there, no host
+    transfer), 0 for a Python number or a CPU tensor (``value``)."""
+    if isinstance(dt, torch.Tensor) and dt.device.type != "cpu":
+        if (dt.numel() != 1 or dt.device != device
+                or dt.dtype not in (torch.float32, torch.float64)):
+            raise ValueError(f"dt: a {tuple(dt.shape)} {dt.dtype} tensor on "
+                             f"{dt.device}, expected one float on {device}")
+        return dt.data_ptr(), 1 if dt.dtype == torch.float32 else 2, 0.0
+    return None, 0, float(dt)
+
+
+def _check_cells(name, fields, mask=None, iterations=None):
+    """Validate the fields of a chemistry kernel (name -> tensor, the first
+    one sets the rule): same shape, contiguous, one float type, one CUDA
+    device; ``mask`` bool and ``iterations`` int32 of that shape. Returns
+    the function suffix."""
+    f0 = next(iter(fields.values()))
+    dt, dev = f0.dtype, f0.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dt not in sweep._SUFFIX:
+        raise TypeError(f"{name}: dtype {dt} (float32 or float64)")
+    want = [(k, t, dt) for k, t in fields.items()]
+    if mask is not None:
+        want.append(("mask", mask, torch.bool))
+    if iterations is not None:
+        want.append(("iterations", iterations, torch.int32))
+    for k, t, tdt in want:
+        if (t.shape != f0.shape or t.dtype != tdt or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {k} is a {tuple(t.shape)} {t.dtype} tensor on "
+                f"{t.device} (contiguous {t.is_contiguous()}), expected "
+                f"{tuple(f0.shape)} {tdt} contiguous on {dev}")
+    return sweep._SUFFIX[dt]
+
+
+def _ptr(t):
+    """A tensor's data pointer for ctypes, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(lib, name, err):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({lib.error_string(err)!r})")
+
+
+def _pass_cuda(dt, ndens, temp, xh, xh_av, phi_ion, p: ChemistryParams,
+               mask=None, iterations=None):
+    """One launch of the hydrogen pass kernel on the current stream (the
+    count zeroed by a memset before it); with ``iterations`` (int32, the
+    fields' shape) it also writes the doric iterations each cell took.
+    Counted in sweep.launches. Fields of another layout (a Fortran-ordered
+    grid) are copied into C order first."""
+    ndens, temp, xh, xh_av, phi_ion = (
+        t.contiguous() for t in (ndens, temp, xh, xh_av, phi_ion))
+    mask = None if mask is None else mask.contiguous()
+    sfx = _check_cells("global_pass", dict(
+        xh=xh, ndens=ndens, temp=temp, xh_av=xh_av, phi_ion=phi_ion),
+        mask, iterations)
+    from ._build import load
+    lib = load("chemistry")
+    xh_int, xh_av_new = torch.empty_like(xh), torch.empty_like(xh)
+    count = torch.empty((), dtype=torch.int64, device=xh.device)
+    dt_ptr, dt_kind, dt_val = _dt_arg(dt, xh.device)
+    params = _kernel_params(p)
+    stream = torch.cuda.current_stream(xh.device).cuda_stream
+    err = getattr(lib, f"chemistry_pass_{sfx}")(
+        dt_ptr, dt_kind, dt_val, *(_ptr(t) for t in (
+            ndens, temp, xh, xh_av, phi_ion, mask, xh_int, xh_av_new, count,
+            iterations)),
+        xh.numel(), MAX_INNER_ITER, (ctypes.c_double * len(params))(*params),
+        stream)
+    _raise_on(lib, "global_pass", err)
+    sweep.launches["chemistry_pass"] += 1
+    return xh_int, xh_av_new, count

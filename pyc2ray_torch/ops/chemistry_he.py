@@ -18,9 +18,13 @@ system d/dt (y1, y2) = A (y1, y2)^T + b,
 solved exactly over the timestep, with its exact time average, by the 2x2
 matrix functions of ``_expm2``. The outer iteration updates
 ne = n_H (x + abu_c) + n_He (y1 + 2 y2) and re-solves both species until
-the time-averaged fractions converge, as ``global_pass`` does; the grid is
-updated by masked dense tensor operations, and the loop reads its stop
-flag back to the host once per inner iteration.
+the time-averaged fractions converge, as ``global_pass`` does.
+``global_pass_he`` dispatches as ``global_pass``: on the CPU the plain
+version ``global_pass_he_ref`` updates the grid by masked dense tensor
+operations and reads its stop flag back to the host once per inner
+iteration; on the card one launch of the helium kernel of csrc/chemistry.cu
+runs every cell's loop, bit for bit as the plain version (counted in
+``sweep.launches["chemistry_pass_he"]``).
 
 Rate coefficients: alpha_HeIII(T) = 2 alpha_B(T/4) from the hydrogen
 coefficients (bh00, albpow), alpha_HeII a power law (2.72e-13
@@ -33,6 +37,7 @@ and on-the-spot recycling of helium recombination photons
 (``recombination_photons=True``).
 """
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -40,10 +45,14 @@ import torch
 
 from ..constants import EPSILON, hplanck, ev2fr
 from ..radiation.helium import HE_EDGES_EV
+from . import sweep
 from .chemistry import (ChemistryParams, doric, MIN_FRACTIONAL_CHANGE,
-                        MIN_FRACTION_OF_ATOMS, MAX_INNER_ITER)
+                        MIN_FRACTION_OF_ATOMS, MAX_INNER_ITER,
+                        _check_cells, _dt_arg, _kernel_params, _ptr,
+                        _raise_on)
 
 __all__ = ["HeChemistryParams", "he_update", "global_pass_he",
+           "global_pass_he_ref",
            "secondary_ionization_fractions",
            "secondary_heating_fraction", "secondary_enabled",
            "thermal_heat_rate"]
@@ -242,6 +251,22 @@ def he_update(y1, y2, dt, temp, ne, g_he1, g_he2, p: HeChemistryParams):
 def global_pass_he(dt, ndens, temp, xh, xh_av, y1, y1_av, y2, y2_av,
                    phi_h, phi_he1, phi_he2, p: HeChemistryParams,
                    mask=None, heat=None, recombination_photons=False):
+    """Coupled H+He chemistry pass: the plain version ``global_pass_he_ref``
+    for CPU fields, one launch of the helium kernel for CUDA fields
+    (same-shape contiguous tensors of one float type). Arguments and
+    results as ``global_pass_he_ref``'s."""
+    args = (dt, ndens, temp, xh, xh_av, y1, y1_av, y2, y2_av, phi_h,
+            phi_he1, phi_he2, p)
+    kw = dict(mask=mask, heat=heat,
+              recombination_photons=recombination_photons)
+    if xh.device.type == "cpu":
+        return global_pass_he_ref(*args, **kw)
+    return _pass_he_cuda(*args, **kw)
+
+
+def global_pass_he_ref(dt, ndens, temp, xh, xh_av, y1, y1_av, y2, y2_av,
+                       phi_h, phi_he1, phi_he2, p: HeChemistryParams,
+                       mask=None, heat=None, recombination_photons=False):
     """Coupled H+He chemistry pass (elementwise over same-shape tensors).
 
     ndens is the hydrogen number density; n_He = abu_he * ndens.
@@ -339,3 +364,50 @@ def global_pass_he(dt, ndens, temp, xh, xh_av, y1, y1_av, y2, y2_av,
     if mask is not None:
         not_conv = not_conv & mask
     return xint, xav, y1int, y1av, y2int, y2av, not_conv.sum()
+
+
+def _kernel_params_he(p: HeChemistryParams, dtype):
+    """The doubles the helium kernel takes (HeConst of the source): the
+    hydrogen kernel's, then the helium parameters, the thresholds in erg
+    and the Python-float products the plain version forms, and its floor
+    ``tiny`` for ``dtype``."""
+    return _kernel_params(p.chem) + [
+        p.abu_he, p.bhe00, p.alhepow, p.colhe0, p.temphe0, p.colhe1,
+        p.temphe1, p.sig_h_he1, p.sig_he1_he1, p.sig_h_lya2, p.sig_he1_lya2,
+        p.sec_ramp_hi, p.sec_ramp_hei, _ETH_ERG[0], _ETH_ERG[1],
+        2.0 * p.chem.bh00, 1e12 * _ETH_ERG[1], 1.0 - EPSILON,
+        1e-30 if dtype == torch.float32 else 1e-280]
+
+
+def _pass_he_cuda(dt, ndens, temp, xh, xh_av, y1, y1_av, y2, y2_av, phi_h,
+                  phi_he1, phi_he2, p: HeChemistryParams, mask=None,
+                  heat=None, recombination_photons=False, iterations=None):
+    """One launch of the helium pass kernel on the current stream; with
+    ``iterations`` (int32, the fields' shape) it also writes the iterations
+    each cell took. Counted in sweep.launches. Fields of another layout are
+    copied into C order first."""
+    fields = dict(xh=xh, ndens=ndens, temp=temp, xh_av=xh_av, y1=y1,
+                  y1_av=y1_av, y2=y2, y2_av=y2_av, phi_h=phi_h,
+                  phi_he1=phi_he1, phi_he2=phi_he2)
+    if heat is not None:
+        fields["heat"] = heat
+    fields = {k: t.contiguous() for k, t in fields.items()}
+    mask = None if mask is None else mask.contiguous()
+    sfx = _check_cells("global_pass_he", fields, mask, iterations)
+    from ._build import load
+    lib = load("chemistry")
+    outs = [torch.empty_like(fields["xh"]) for _ in range(6)]
+    count = torch.empty((), dtype=torch.int64, device=xh.device)
+    dt_ptr, dt_kind, dt_val = _dt_arg(dt, xh.device)
+    params = _kernel_params_he(p, xh.dtype)
+    stream = torch.cuda.current_stream(xh.device).cuda_stream
+    err = getattr(lib, f"chemistry_pass_he_{sfx}")(
+        dt_ptr, dt_kind, dt_val, *(_ptr(fields.get(k)) for k in (
+            "ndens", "temp", "xh", "xh_av", "y1", "y1_av", "y2", "y2_av",
+            "phi_h", "phi_he1", "phi_he2", "heat")),
+        *(_ptr(t) for t in (mask, *outs, count, iterations)),
+        xh.numel(), MAX_INNER_ITER, int(bool(recombination_photons)),
+        (ctypes.c_double * len(params))(*params), stream)
+    _raise_on(lib, "global_pass_he", err)
+    sweep.launches["chemistry_pass_he"] += 1
+    return (*outs, count)

@@ -29,7 +29,8 @@ them but add them into the grid.
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (``*_ref``); a CUDA tensor launches the kernel of
 csrc/ or raises. ``launches`` counts the kernel launches per kernel, those
-of the trace loop's kernels (ops/trace_loop.py) included.
+of the trace loop's kernels (ops/trace_loop.py) and of the chemistry
+passes (ops/chemistry.py, ops/chemistry_he.py) included.
 
 On the card every sweep is launched as thread-block clusters, one cluster
 of C blocks per source. ``sweep_plan`` is the host rule that picks C and
@@ -70,14 +71,16 @@ RING_BUFS = 3         # ring buffers, and values per slot beside the offset
 RING_VALUES = 4       # (kRingBufs, kRingValues of csrc/cheb_sweep.cuh)
 MAX_THREADS = 768     # most threads per block of a kernel with rate threads
 
-# kernel name -> launches since the last reset_launches(); the last three
-# are ops/trace_loop.py's: the box extract and accumulate, and the trace
-# loop of a fuse_fold trace (one per trace, its K3 / K3h launches counted
-# under their own names)
+# kernel name -> launches since the last reset_launches(); then
+# ops/trace_loop.py's: the box extract and accumulate, and the trace loop of
+# a fuse_fold trace (one per trace, its K3 / K3h launches counted under their
+# own names); last the chemistry passes' (ops/chemistry.py,
+# ops/chemistry_he.py)
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "cheb_sweep_seg": 0, "cheb_sweep_rates": 0,
             "cheb_sweep_rates_heat": 0, "extract_boxes": 0,
-            "accumulate_boxes": 0, "cheb_trace_rates": 0}
+            "accumulate_boxes": 0, "cheb_trace_rates": 0,
+            "chemistry_pass": 0, "chemistry_pass_he": 0}
 
 
 # kernel name -> SweepPlan of its last launch

@@ -6,6 +6,7 @@
 // run beside its chain threads), and dynamic shared memory a buffer per block.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -42,11 +43,17 @@ inline void emu_cluster_wait() {
 }
 using std::min; using std::max;
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __ddiv_rn(double a, double b) { return a / b; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 template <class T> inline T __ldcg(const T* p) { return *(const volatile T*)p; }
 template <class T> inline void __stcg(T* p, T v) { *(volatile T*)p = v; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

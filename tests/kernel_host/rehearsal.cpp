@@ -1,11 +1,13 @@
-// Runs the port's kernels on the host: k_sweep.inc and k_loop.inc are the
-// device parts of cheb_sweep.cu and trace_loop.cu, cheb_sweep_rates.cuh
-// that of K3's header, as tests/test_torch_rehearsal.py cuts them out,
+// Runs the port's kernels on the host: k_sweep.inc, k_loop.inc and
+// k_chem.inc are the device parts of cheb_sweep.cu, trace_loop.cu and
+// chemistry.cu, cheb_sweep_rates.cuh that of K3's header, as
+// tests/test_torch_rehearsal.py cuts them out,
 // compiled against the stand-in headers of this directory. One cluster
 // (source) runs at a time, its C blocks x T threads as std::threads: the
-// chain threads and, behind them, the rate threads of K1f. K3's phase B and
-// the box kernels are plain grids: their blocks run one after the other
-// (the box kernels' also in reverse order), each as T std::threads.
+// chain threads and, behind them, the rate threads of K1f. K3's phase B,
+// the box kernels and the chemistry passes are plain grids: their blocks
+// run one after the other (the box kernels' and the passes' also in
+// reverse order), each as T std::threads.
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -16,6 +18,7 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "k_sweep.inc"
 #include "cheb_sweep_rates.cuh"
 #include "k_loop.inc"
+#include "k_chem.inc"
 using namespace cheb;
 
 template <class F>
@@ -140,3 +143,52 @@ void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
   }
 REHEARSE_BOXES(rehearse_boxes_f32, float)
 REHEARSE_BOXES(rehearse_boxes_f64, double)
+
+// The chemistry passes of chemistry.cu over n cells, `blocks` blocks of
+// T_ threads striding over them, in reverse block order with `reverse`.
+// `f` holds the pointers in the order of the source's entry points: for
+// the hydrogen pass ndens, temp, xh, xh_av, phi, mask, xh_out, xh_av_out,
+// count, iters; for helium (`helium` = 1 + 2 heat + 4 recomb) ndens, temp,
+// xh, xh_av, y1, y1_av, y2, y2_av, phi_h, phi_he1, phi_he2, heat, mask,
+// the six outputs, count, iters.
+template <class T>
+void run_chem(int helium, void* const* f, long long n, int cap,
+              const double* params, int dt_kind, const void* dt_ptr,
+              double dt_value, int blocks, int T_, int reverse) {
+  using P = const T*;
+  const chem::Dt dt{dt_ptr, dt_kind, dt_value};
+  const size_t smem = T_ * sizeof(unsigned);
+  if (helium == 0) {
+    const chem::HArgs<T> a{(P)f[0], (P)f[1], (P)f[2], (P)f[3], (P)f[4],
+                           (const bool*)f[5], (T*)f[6], (T*)f[7],
+                           (unsigned long long*)f[8], (int*)f[9], n, cap, dt,
+                           chem::h_const<T>(params)};
+    emu_launch(blocks, 1, T_, smem, [&] { chem::hydrogen_pass_kernel<T>(a); },
+               reverse != 0);
+    return;
+  }
+  const chem::HeArgs<T> a{
+      (P)f[0], (P)f[1], (P)f[2], (P)f[3], (P)f[4], (P)f[5], (P)f[6],
+      (P)f[7], (P)f[8], (P)f[9], (P)f[10], (P)f[11], (const bool*)f[12],
+      (T*)f[13], (T*)f[14], (T*)f[15], (T*)f[16], (T*)f[17], (T*)f[18],
+      (unsigned long long*)f[19], (int*)f[20], n, cap, dt,
+      chem::he_const<T>(params)};
+  emu_launch(blocks, 1, T_, smem, [&] {
+    switch (helium >> 1) {
+      case 0: chem::helium_pass_kernel<T, false, false>(a); break;
+      case 1: chem::helium_pass_kernel<T, true, false>(a); break;
+      case 2: chem::helium_pass_kernel<T, false, true>(a); break;
+      default: chem::helium_pass_kernel<T, true, true>(a); break;
+    }
+  }, reverse != 0);
+}
+
+#define REHEARSE_CHEM(NAME, TYPE)                                              \
+  extern "C" void NAME(int helium, void* const* f, long long n, int cap,       \
+                       const double* params, int dt_kind, const void* dt_ptr,  \
+                       double dt_value, int blocks, int T_, int reverse) {     \
+    run_chem<TYPE>(helium, f, n, cap, params, dt_kind, dt_ptr, dt_value,       \
+                   blocks, T_, reverse);                                       \
+  }
+REHEARSE_CHEM(rehearse_chem_f32, float)
+REHEARSE_CHEM(rehearse_chem_f64, double)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels rehearsed on the host.
 
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
-``cheb_sweep.cu``, ``cheb_sweep_rates.cuh`` and ``trace_loop.cu`` are cut
-out of the sources,
+``cheb_sweep.cu``, ``cheb_sweep_rates.cuh``, ``trace_loop.cu`` and
+``chemistry.cu`` are cut out of the sources,
 compiled with g++ against the stand-in headers of ``tests/kernel_host/``
 (every thread of every block of a cluster is a std::thread; the cluster
 barrier and the mapping of shared memory between blocks are emulated;
@@ -11,12 +11,14 @@ against the plain PyTorch versions: K1, K2 and phase A of K3 bit for bit,
 K1f, K3 and K3h within the tolerance of their exp/expm1, and K1f with rate
 threads bit for bit against itself without; the trace loop's box extract
 and ordered accumulate bit for bit against ``extract_boxes_ref`` and
-``add_boxes``, with their blocks in either order. This checks the kernels'
-logic (shell windows, the dealing of cells to blocks, plane ownership,
-stitches, carried planes, the ring that hands K1f's cells to the rate
-threads, the one owner of every frame cell where boxes overlap) for every
-cluster size and placement; that the sources build for the card and run
-there is shown by chip_smoke.py and the ``cuda`` tests."""
+``add_boxes``, with their blocks in either order; the chemistry passes
+against ``global_pass_ref`` and ``global_pass_he_ref`` (see below). This
+checks the kernels' logic (shell windows, the dealing of cells to blocks,
+plane ownership, stitches, carried planes, the ring that hands K1f's cells
+to the rate threads, the one owner of every frame cell where boxes overlap,
+per-cell freezing and the block-reduced count) for every cluster size and
+placement; that the sources build for the card and run there is shown by
+chip_smoke.py and the ``cuda`` tests."""
 
 import ctypes
 import shutil
@@ -78,6 +80,9 @@ def lib(tmp_path_factory):
     (d / "k_loop.inc").write_text(_device_part(
         "trace_loop.cu", "// The launches of the two kernels",
         "}  // namespace\n"))
+    (d / "k_chem.inc").write_text(_device_part(
+        "chemistry.cu", "// The launches of the two kernels",
+        "}  // namespace chem\n"))
     so = d / "librehearsal.so"
     cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
            "-pthread", f"-I{d}", f"-I{HOST}", "-o", str(so),
@@ -91,6 +96,11 @@ def lib(tmp_path_factory):
     for f in (lib.rehearse_boxes_f32, lib.rehearse_boxes_f64):
         f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                       + [ctypes.c_void_p] + [ctypes.c_int] * 9)
+        f.restype = None
+    for f in (lib.rehearse_chem_f32, lib.rehearse_chem_f64):
+        f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_double] + [ctypes.c_int] * 3
         f.restype = None
     return lib
 
@@ -345,3 +355,201 @@ def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
         for p in pos[0].tolist():
             cover[p[0]:p[0] + D, p[1]:p[1] + D, p[2]:p[2] + D] += 1
         assert int(cover.max()) >= 3
+
+
+# The chemistry passes of csrc/chemistry.cu. On the host the kernels call
+# glibc's exp, expm1 and pow and divide by a scalar as the card does (a
+# multiply by its reciprocal), where torch's CPU path calls its vectorized
+# exp, expm1 and pow and divides; the few-ulp differences that leaves are
+# carried on by the iteration, most where <x> cancels (the reason for the
+# 1e-8 of test_torch_chemistry.py's far-from-source case). So the results
+# are held to the plain versions within those tolerances, with equal
+# counts; the kernels' own logic (per-cell freezing, the cap, the mask, the
+# block-reduced count in any block order and grid) is held exactly.
+CHEM = dict(bh00=2.59e-13, albpow=-0.7, colh0=1.3e-8 * 0.83 / 13.598 ** 2,
+            temph0=13.598 / 8.617e-05, abu_c=7.1e-7)
+HE_SIGS = dict(sig_h_he1=1.18e-18, sig_he1_he1=7.42e-18, sig_h_lya2=3.4e-19,
+               sig_he1_lya2=3.0e-18)
+HE_ORDER = ("ndens", "temp", "xh", "xh_av", "y1", "y1_av", "y2", "y2_av",
+            "phi_h", "phi_he1", "phi_he2")
+CHEM_RTOL = {torch.float64: 1e-8, torch.float32: 1e-6}
+CHEM_DT = 1e13
+
+
+def _chem_fields(seed, dt, n=16 ** 3):
+    """Hydrogen and helium fields from neutral to nearly ionized, Gamma
+    over eight decades (the cells far from sources included)."""
+    rng = np.random.RandomState(seed)
+    xh = rng.uniform(1e-4, 0.99, n)
+    y1, y2 = rng.uniform(1e-4, 0.6, n), rng.uniform(0.0, 0.35, n)
+    f = dict(ndens=10 ** rng.uniform(-4, -1, n), temp=rng.uniform(5e3, 3e4, n),
+             xh=xh, xh_av=np.clip(xh * rng.uniform(0.8, 1.2, n), 0, 0.999),
+             y1=y1, y1_av=y1 * rng.uniform(0.8, 1.2, n), y2=y2,
+             y2_av=y2 * rng.uniform(0.8, 1.2, n),
+             phi_h=10 ** rng.uniform(-18, -10, n),
+             phi_he1=10 ** rng.uniform(-18, -10, n),
+             phi_he2=10 ** rng.uniform(-19, -11, n),
+             heat=10 ** rng.uniform(-30, -20, n))
+    t = {k: torch.from_numpy(v).to(dt) for k, v in f.items()}
+    t["mask"] = torch.from_numpy(rng.uniform(size=n) > 0.3)
+    return t
+
+
+def _host_pass(lib, t, p, helium=0, mask=False, cap=400, blocks=5, threads=64,
+               reverse=0):
+    """A chemistry kernel on the host: the hydrogen pass (``helium`` 0) or
+    the helium pass (1 + 2 heat + 4 recombination photons) over the fields
+    ``t`` with the parameters ``p``. Returns (outputs, count, iterations)."""
+    from pyc2ray_torch.ops import chemistry as ch, chemistry_he as che
+    dt = t["xh"].dtype
+    outs = [torch.full_like(t["xh"], float("nan"))
+            for _ in range(6 if helium else 2)]
+    count = torch.zeros((), dtype=torch.int64)
+    its = torch.full(t["xh"].shape, -1, dtype=torch.int32)
+    m = t["mask"].data_ptr() if mask else None
+    if helium:
+        ptrs = ([t[k].data_ptr() for k in HE_ORDER]
+                + [t["heat"].data_ptr() if helium & 2 else None, m])
+        params = che._kernel_params_he(p, dt)
+    else:
+        ptrs = [t[k].data_ptr() for k in ("ndens", "temp", "xh", "xh_av",
+                                          "phi_h")] + [m]
+        params = ch._kernel_params(p)
+    ptrs += [o.data_ptr() for o in outs] + [count.data_ptr(), its.data_ptr()]
+    fn = lib.rehearse_chem_f32 if dt == torch.float32 else \
+        lib.rehearse_chem_f64
+    fn(helium, (ctypes.c_void_p * len(ptrs))(*ptrs), t["xh"].numel(), cap,
+       (ctypes.c_double * len(params))(*params), 0, None, CHEM_DT, blocks,
+       threads, reverse)
+    return outs, int(count), its
+
+
+def _plain_iterations(t, p, cap=400):
+    """The doric iterations each cell takes in global_pass_ref's loop."""
+    from pyc2ray_torch.ops.chemistry import (MIN_FRACTIONAL_CHANGE,
+                                             MIN_FRACTION_OF_ATOMS, doric)
+    xav = t["xh_av"]
+    active = torch.ones(xav.shape, dtype=torch.bool)
+    its = torch.zeros(xav.shape, dtype=torch.int32)
+    for _ in range(cap):
+        if not bool(active.any()):
+            break
+        rhe = t["ndens"] * (xav + p.abu_c)
+        _, av = doric(t["xh"], CHEM_DT, t["temp"], rhe, t["phi_h"], p)
+        done = (torch.abs((av - xav) / (1.0 - av)) < MIN_FRACTIONAL_CHANGE) \
+            | ((1.0 - av) < MIN_FRACTION_OF_ATOMS)
+        xav = torch.where(active, av, xav)
+        its += active.int()
+        active = active & ~done
+    return its
+
+
+def _votes(xav, xav_entry, mask=None):
+    """global_pass_ref's not-converged test per cell."""
+    yh = 1.0 - xav_entry
+    delta = xav - xav_entry
+    v = (delta.abs() > 1e-3) & ((delta / yh).abs() > 1e-3) & (yh > 1e-8)
+    return v if mask is None else v & mask
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_chemistry_pass_on_the_host_matches_plain(lib, dt):
+    """The hydrogen kernel against global_pass_ref, with and without the
+    mask: xh and <x> within CHEM_RTOL, the count equal, each cell's
+    iterations those of the plain loop, the count the masked sum of the
+    per-cell votes of the kernel's own outputs."""
+    from pyc2ray_torch.ops.chemistry import ChemistryParams, global_pass_ref
+    p = ChemistryParams(**CHEM)
+    for seed in (0, 1):
+        t = _chem_fields(seed, dt)
+        for mask in (False, True):
+            (xi, xa), count, its = _host_pass(lib, t, p, mask=mask)
+            ref = global_pass_ref(CHEM_DT, t["ndens"], t["temp"], t["xh"],
+                                  t["xh_av"], t["phi_h"], p,
+                                  mask=t["mask"] if mask else None)
+            for a, b in zip((xi, xa), ref[:2]):
+                torch.testing.assert_close(a, b, rtol=CHEM_RTOL[dt], atol=0)
+            assert count == int(ref[2]) > 0
+            assert count == int(_votes(
+                xa, t["xh_av"], t["mask"] if mask else None).sum())
+        assert torch.equal(its, _plain_iterations(t, p))
+        assert int(its.max()) > 8
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_chemistry_pass_on_the_host_is_per_cell(lib, dt):
+    """Any grid and block order gives the same bits and count. With a cap
+    of 8 a cell that converged within 8 iterations holds the bits of the
+    uncapped pass, the rest stop at the cap; the capped pass matches
+    global_pass_ref with MAX_INNER_ITER = 8 within CHEM_RTOL."""
+    from pyc2ray_torch.ops import chemistry as ch
+    p = ch.ChemistryParams(**CHEM)
+    t = _chem_fields(2, dt)
+    out, count, its = _host_pass(lib, t, p, mask=True)
+    for blocks, threads, reverse in ((1, 32, 0), (7, 64, 1), (64, 64, 1)):
+        o, c, i = _host_pass(lib, t, p, mask=True, blocks=blocks,
+                             threads=threads, reverse=reverse)
+        assert all(torch.equal(a, b) for a, b in zip(o, out)) and c == count
+        assert torch.equal(i, its)
+    o8, c8, i8 = _host_pass(lib, t, p, cap=8, mask=True)
+    assert torch.equal(i8, its.clamp(max=8))
+    early = its < 8
+    assert 0 < int(early.sum()) < its.numel()
+    for a, b in zip(o8, out):
+        assert torch.equal(a[early], b[early])
+        assert not torch.equal(a[~early], b[~early])
+    cap, ch.MAX_INNER_ITER = ch.MAX_INNER_ITER, 8
+    try:
+        ref = ch.global_pass_ref(CHEM_DT, t["ndens"], t["temp"], t["xh"],
+                                 t["xh_av"], t["phi_h"], p, mask=t["mask"])
+    finally:
+        ch.MAX_INNER_ITER = cap
+    for a, b in zip(o8, ref[:2]):
+        torch.testing.assert_close(a, b, rtol=CHEM_RTOL[dt], atol=0)
+    assert c8 == int(ref[2])
+
+
+# option -> (helium flags: 1 + 2 heat + 4 recombination photons, abu_he);
+# float32 without the heat channel (see below)
+HE_OPTIONS = {"plain": (1, 0.074), "secondary": (3, 0.074),
+              "recombination": (5, 0.074), "all": (7, 0.074),
+              "no_helium": (1, 0.0)}
+HE_CASES = ([(o, torch.float64) for o in sorted(HE_OPTIONS)]
+            + [(o, torch.float32) for o in ("plain", "recombination",
+                                            "no_helium")])
+
+
+@pytest.mark.parametrize("option,dt", HE_CASES)
+def test_chemistry_pass_he_on_the_host_matches_plain(lib, option, dt):
+    """The helium kernel against global_pass_he_ref in each option (the
+    mask with "all" and "recombination"): the six fractions within
+    CHEM_RTOL, the count equal; any block order the same bits. With abu_he
+    = 0 its xh and <x> are the hydrogen kernel's bit for bit. In float32
+    with the heat channel the plain pass's own 400-iteration cells (a tenth
+    of these) and its one-ulp sensitivity put the two up to 2e-4 apart:
+    those options are held in float64 here and bit for bit on the card."""
+    from pyc2ray_torch.ops.chemistry import ChemistryParams
+    from pyc2ray_torch.ops.chemistry_he import (HeChemistryParams,
+                                                global_pass_he_ref)
+    flags, abu_he = HE_OPTIONS[option]
+    p = HeChemistryParams(chem=ChemistryParams(**CHEM), abu_he=abu_he,
+                          sec_ramp_hi=0.62, sec_ramp_hei=0.31, **HE_SIGS)
+    t = _chem_fields(3, dt, n=12 ** 3)
+    mask = option in ("all", "recombination")
+    out, count, its = _host_pass(lib, t, p, helium=flags, mask=mask)
+    ref = global_pass_he_ref(
+        CHEM_DT, *(t[k] for k in HE_ORDER), p,
+        mask=t["mask"] if mask else None,
+        heat=t["heat"] if flags & 2 else None,
+        recombination_photons=bool(flags & 4))
+    for a, b in zip(out, ref[:6]):
+        torch.testing.assert_close(a, b, rtol=CHEM_RTOL[dt], atol=0)
+    assert count == int(ref[6]) > 0
+    o, c, i = _host_pass(lib, t, p, helium=flags, mask=mask, blocks=3,
+                         reverse=1)
+    assert all(torch.equal(a, b) for a, b in zip(o, out)) and c == count
+    assert torch.equal(i, its)
+    if abu_he == 0.0:
+        h, hc, hi = _host_pass(lib, t, p.chem)
+        assert torch.equal(h[0], out[0]) and torch.equal(h[1], out[1])
+        assert hc == count and torch.equal(hi, its)
