@@ -114,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
    timestep of both, iterations, xh and photon loss bit-equal (asserted;
    one chemistry_pass launch per iteration with the kernel). Last the
    chemistry checks on the run's last state.
-   The catalogs are read without h5py (``read_catalog``).
+   The catalogs are read by ``read_sources``, without h5py where the
+   machine has none (pyc2ray_torch/io/catalog.py).
 2d. (after 2c) K1 at the helium engine's three threshold cross sections
    (sigma_HI, sigma_HeI, sigma_HeII of make_spectral_bins_he) at the bench
    shape in float32, bit for bit against its plain version, with its time.
@@ -197,6 +198,21 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    profiler's device kernels (one, asserted), memsets and host
    synchronisations (none, asserted) beside the plain pass's, and the
    distribution of the iterations per cell.
+7. (after 5) The user drivers: each module of pyc2ray_torch.examples and
+   pyc2ray_torch.tutorials in a process of its own, as ``python -m`` runs
+   it, with ``--device cuda`` and a temporary ``--workdir``: the
+   raytracing harness's R = 100 row (N=250, Ns=100, --sed bb, --json; its
+   ns/cell-update beside 3b's auto-segmented trace) and its helium engine
+   (N=256, R=30, Ns=256), stromgren_ifront, shadow_test, multisource,
+   stromgren_cosmo, heating_test and single_source_test at their
+   defaults, eor_simulation --num_slices 2 (the committed inputs, the
+   catalogs through read_sources), multihost_pod in both modes (one rank),
+   make_plots where matplotlib is installed, and the three tutorials
+   (raytracing with both engines); the harness's two rows alone, the
+   others four at a time. Per driver: its exit code, wall time,
+   kernel launches (counted in its process and printed at its exit; the
+   kernels its path reaches must each launch) and its check lines. A
+   driver fails the phase when it exits non-zero or prints FAILED.
 6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
    then the trace loop's extract_boxes, accumulate_boxes and
    cheb_trace_rates on 4e's EoR trace, and the chemistry_pass kernel on the
@@ -256,46 +272,12 @@ N_BOX_GREY, NS_BOX_GREY = 64, 8              # 3f's grey check
 # the adaptive ladder of parameters.yml at N=250: R_max_LLS = 15 cMpc x
 # 250 / 244 cells and half of it (a quarter is below R_min = 4)
 R_EOR = (15.0 * N_EOR / 244.0 / 2.0, 15.0 * N_EOR / 244.0)
-# the committed halo catalogs: HDF5 files whose two datasets are contiguous
-# and uncompressed (h5py's get_offset())
-HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
-CATALOG_NSRC = 20000
-CATALOG_POS_AT, CATALOG_MASS_AT = 2048, 482048
 T_START = time.time()
+NS_PER_CELL = {}             # run_path's ns/cell-update by its label
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def heating_params(results_basename):
-    """The parameters of examples/heating_test/run_test.py as a parsed
-    mapping: examples/single_source_test/parameters.yml with NumTau 500,
-    the heating rates on, a cold start at 100 K, Material.isothermal false
-    and Raytracing.engine cheb (tests/test_torch_models.py holds this dict
-    equal to the YAML that the example writes)."""
-    return {
-        "Grid": {"boxsize": 0.014, "resume": 0},
-        "Material": {"isothermal": False, "temp0": 1e2, "xh0": 1.2e-3,
-                     "avg_dens": 1.0e-6},
-        "CGS": {"albpow": -0.7, "bh00": 2.59e-13, "alcpow": -0.672,
-                "eth0": 13.598, "ethe0": 24.587, "ethe1": 54.416,
-                "xih0": 1.0, "fh0": 0.83, "colh0_fact": 1.3e-8},
-        "Abundances": {"abu_h": 0.926, "abu_he": 0.074, "abu_c": 7.1e-7},
-        "Photo": {"sigma_HI_at_ion_freq": 6.30e-18, "minlogtau": -20,
-                  "maxlogtau": 4, "NumTau": 500, "grey": 0,
-                  "SourceType": "blackbody", "compute_heating_rates": 1,
-                  "R_max_cMpc": 0.01640625},
-        "BlackBodySource": {"Teff": 5e4, "cross_section_pl_index": 2.8},
-        "Cosmology": {"cosmological": 0, "h": 1.0, "Omega0": 0.27,
-                      "Omega_B": 0.044, "cmbtemp": 2.726, "zred_0": 9.0},
-        "Output": {"results_basename": results_basename,
-                   "logfile": "pyC2Ray.log"},
-        "Raytracing": {"loss_fraction": 1e-2, "subboxsize": 150,
-                       "max_subbox": 1000, "source_batch_size": 1,
-                       "convergence_fraction": 1e-4, "dtype": "float64",
-                       "engine": "cheb"},
-    }
 
 
 def cuda_ms(fn, reps):
@@ -770,6 +752,7 @@ def run_path(rt, nd, xh, pos_b, flux_b, updates, expect, label, chem=None):
                 and bool(torch.isfinite(xa).all())):
             raise RuntimeError(f"{label}: chemistry output is not finite")
     ns_cell = 1e9 * t_ray / updates
+    NS_PER_CELL[label] = ns_cell
     log(f"{label}: raytrace {t_ray:.4f} s = {ns_cell:.4f} ns/cell-update"
         f"{msg}, launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
@@ -1245,52 +1228,6 @@ def loop_against_plain(label, rt, pad, pos_b, flux_b):
         f"batch)")
 
 
-def heating_checks(temp, xh, N):
-    """The five checks of examples/heating_test/run_test.py on the final
-    temperature and ionized-fraction fields; returns {name: bool} and the
-    binned profiles."""
-    c = N // 2
-    i, j, k = np.indices((N, N, N))
-    r = np.sqrt((i - c) ** 2 + (j - c) ** 2 + (k - c) ** 2)
-    rb = np.arange(0, N // 2)
-    t_prof = np.array([temp[(r >= a) & (r < a + 1)].mean() for a in rb])
-    x_prof = np.array([xh[(r >= a) & (r < a + 1)].mean() for a in rb])
-    r_front = int(np.argmin(np.abs(x_prof - 0.5)))
-    post = t_prof[r_front:]
-    return {
-        "core photoheated above 5e3 K": bool(t_prof[1] > 5e3),
-        "distant gas within 3x of initial 100 K": bool(t_prof[-1] < 300.0),
-        "T profile monotone non-increasing beyond the I-front (tol 1%)":
-            bool(np.all(np.diff(post) <= 0.01 * post[:-1] + 1e-9)),
-        "T peak sits at/inside the I-front":
-            int(np.argmax(t_prof)) <= r_front + 1,
-        "ionized gas (x>0.9) is photoheated (median T > 5e3 K)":
-            bool(np.any(xh > 0.9))
-            and float(np.median(temp[xh > 0.9])) > 5e3,
-    }, t_prof, x_prof
-
-
-def read_catalog(sim, file):
-    """A halo catalog of examples/eor_simulation/inputs/sources as
-    ``sim.read_sources(file)`` returns it, read without h5py (the card's
-    machine has none): sources_positions (20000, 3) int64 and sources_mass
-    (20000,) float64, little-endian, at their byte offsets. Raises on any
-    other layout; tests/test_torch_cubep3m.py holds it against
-    read_sources."""
-    with open(file, "rb") as f:
-        raw = f.read()
-    if (raw[:len(HDF5_SIGNATURE)] != HDF5_SIGNATURE
-            or len(raw) != CATALOG_MASS_AT + 8 * CATALOG_NSRC):
-        raise ValueError(f"{file}: not a {CATALOG_NSRC}-source HDF5 catalog "
-                         f"of the committed layout")
-    pos = np.frombuffer(raw, "<i8", 3 * CATALOG_NSRC, CATALOG_POS_AT)
-    mass = np.frombuffer(raw, "<f8", CATALOG_NSRC, CATALOG_MASS_AT)
-    if pos.min() < 1 or not (np.all(np.isfinite(mass)) and mass.min() > 0):
-        raise ValueError(f"{file}: positions or masses out of range")
-    return sim._sources_from_catalog(pos.reshape(CATALOG_NSRC, 3).copy(),
-                                     mass.copy(), file)
-
-
 def inner_iterations(dt, nd, temp, xh, phi, chem, doric=None):
     """global_pass's loop (ops/chemistry.py) with a count of the doric
     iterations each cell took before it froze; ``doric`` replaces
@@ -1643,9 +1580,9 @@ def eor_slice(sim, k):
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         sim.read_density(zi)
-        srcpos, flux = read_catalog(
-            sim, os.path.join(EOR_DIR, "inputs", "sources",
-                              f"{zi:.3f}-sources.hdf5"))
+        srcpos, flux = sim.read_sources(
+            os.path.join(EOR_DIR, "inputs", "sources",
+                         f"{zi:.3f}-sources.hdf5"))
         dt = sim.set_timestep(zi, zf, 1)
         sim.cosmo_evolve(dt)
         sweep.reset_launches()
@@ -1920,24 +1857,20 @@ def eor_chemistry(sim, dt, smi):
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "examples", "single_source_test")
 # examples/single_source_test/run_test.py:200-210: name, tolerance
-GOLDEN_TOLERANCES = (("Absolute mean", 1e-8), ("Absolute std", 3e-7),
-                     ("Absolute max", 5e-6), ("Absolute min", 5e-6),
-                     ("Relative mean", 1e-7), ("Relative std", 3e-6),
-                     ("Relative max", 2e-5), ("Relative min", 2e-5))
-
-
 def golden_run(N, numzred, steps, device, results_basename):
     """examples/single_source_test/run_test.py through the port:
     C2Ray_Test on that example's parameters.yml (read unchanged; only the
     output directory is ``results_basename``), one 1e49 photons/s
     black-body source, ``numzred - 1`` slices of ``steps`` timesteps, each
-    timestep also run by the sequential C++ oracle's evolve loop as
-    run_test.py:104-128 writes it. Returns the simulation, the eight
-    statistics {name: (value, tolerance)} of run_test.py:200-210 and the
-    wall seconds of the port's part and of the oracle's part."""
+    timestep also run by the sequential C++ oracle's evolve loop
+    (pyc2ray_torch.examples.single_source_test, whose loop and statistics
+    these are, with the port timed apart from the oracle). Returns the
+    simulation, the eight statistics {name: (value, tolerance)} of
+    run_test.py:200-210 and the wall seconds of the port's part and of the
+    oracle's part."""
     from pyc2ray_torch import C2Ray_Test
-    from pyc2ray_torch.native_ext import (chemistry_global_native,
-                                          oracle_sweep_native)
+    from pyc2ray_torch.examples.single_source_test import (
+        TABLE_TOLERANCES, oracle_evolve_loop, statistics)
     from pyc2ray_torch.utils import format_sources
     from pyc2ray_torch.utils.paramutils import read_paramfile
     params = read_paramfile(os.path.join(GOLDEN_DIR, "parameters.yml"))
@@ -1949,31 +1882,6 @@ def golden_run(N, numzred, steps, device, results_basename):
     srcflux = np.array([1e49 / 1e48])
     sim.ndens = 1e-3 * np.ones((N, N, N))
     pos0, flux0 = format_sources(srcpos, srcflux)
-    tables = (sim.photo_thin_table, sim.photo_thick_table,
-              sim.heat_thin_table, sim.heat_thick_table, sim.minlogtau,
-              sim.dlogtau)
-
-    def oracle_evolve_loop(dt, dr, xh, ndens, temp):
-        num_cells = N ** 3
-        conv_criterion = min(int(1e-4 * num_cells), 0)
-        prev1 = prev0 = 2.0 * num_cells
-        xh_av = xh.copy()
-        converged = False
-        while not converged:
-            phi, _, _ = oracle_sweep_native(ndens, xh_av, pos0, flux0, dr,
-                                            sim.sig, sim.R_max_LLS,
-                                            tables=tables)
-            xh_int, xh_av, conv_flag = chemistry_global_native(
-                dt, ndens, temp, xh, xh_av, phi, sim.bh00, sim.albpow,
-                sim.colh0, sim.temph0, sim.abu_c)
-            s1, s0 = xh_int.sum(), (1 - xh_int).sum()
-            rel1 = abs((s1 - prev1) / s1) if s1 > 0 else 1.0
-            rel0 = abs((s0 - prev0) / s0) if s0 > 0 else 1.0
-            converged = (conv_flag < conv_criterion) or (rel1 < 1e-4
-                                                         and rel0 < 1e-4)
-            prev1, prev0 = s1, s0
-        return xh_int
-
     xh_oracle = sim.xh.copy()
     xh_initial = sim.xh.copy()
     temp = sim.temp.copy()
@@ -1987,17 +1895,13 @@ def golden_run(N, numzred, steps, device, results_basename):
                 sim.evolve3D(dt, srcflux, srcpos)
             t_port += time.time() - t0
             t0 = time.time()
-            xh_oracle = oracle_evolve_loop(dt, sim.dr, xh_oracle, sim.ndens,
-                                           temp)
+            xh_oracle = oracle_evolve_loop(sim, pos0, flux0, dt, sim.dr,
+                                           xh_oracle, sim.ndens, temp)
             t_oracle += time.time() - t0
     if np.array_equal(np.asarray(sim.xh), xh_initial):
         raise RuntimeError("golden: the ionized fraction did not change")
-    abserr = sim.xh - xh_oracle
-    relerr = abserr / xh_oracle
-    values = (abserr.mean(), abserr.std(), abserr.max(), abserr.min(),
-              relerr.mean(), relerr.std(), relerr.max(), relerr.min())
-    stats = {name: (float(v), tol)
-             for (name, tol), v in zip(GOLDEN_TOLERANCES, values)}
+    stats = {name: (float(v), tol) for name, v, tol in
+             statistics(np.asarray(sim.xh), xh_oracle, TABLE_TOLERANCES)}
     return sim, stats, t_port, t_oracle
 
 
@@ -2345,6 +2249,8 @@ def heating_example(engine):
     raises if one fails. Returns the simulation, its raytrace iterations,
     the kernel launch counts of the run and its wall time."""
     from pyc2ray_torch import C2Ray_Test
+    from pyc2ray_torch.examples.heating_test import (
+        heating_checks, heating_params, profiles)
     from pyc2ray_torch.ops import sweep
     Nh, steps = N_HEATING, STEPS_HEATING
     with tempfile.TemporaryDirectory() as tmp:
@@ -2369,7 +2275,8 @@ def heating_example(engine):
     if not (np.all(np.isfinite(temp_h)) and np.all(np.isfinite(xh_h))):
         raise RuntimeError(f"heating example ({engine}): non-finite temp or "
                            f"xh")
-    checks, t_prof, x_prof = heating_checks(temp_h, xh_h, Nh)
+    checks = heating_checks(temp_h, xh_h, Nh)
+    t_prof, x_prof = profiles(temp_h, xh_h, Nh)
     log(f"  {engine}: r [cells]: <T> [K], <x>: " + "; ".join(
         f"{a}: {t_prof[a]:.1f}, {x_prof[a]:.3e}"
         for a in range(0, Nh // 2, 3)))
@@ -2689,6 +2596,153 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
     return k1, first, dict(k_he, launches=launches["chemistry_pass_he"])
 
 
+# ---- phase 7: the user drivers ---------------------------------------------
+# Each driver runs in a process of its own as ``python -m`` runs a module
+# (runpy, the module as __main__), with the kernel launch counts of
+# pyc2ray_torch.ops.sweep printed at its exit: they start at 0 in the
+# process, so they are the driver's own.
+DRIVER_LAUNCHER = (
+    "import atexit, json, runpy, sys\n"
+    "from pyc2ray_torch.ops import sweep\n"
+    "atexit.register(lambda: print('KERNEL_LAUNCHES', "
+    "json.dumps(sweep.launches), flush=True))\n"
+    "sys.argv[:] = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+RTB_R100 = "raytracing_benchmark R=100"
+DRIVER_LANES = 4             # drivers run at once, besides the harness
+_CHEB_LOOP = ("cheb_sweep_rates", "cheb_trace_rates", "extract_boxes",
+              "accumulate_boxes", "chemistry_pass")
+# label, module under pyc2ray_torch, arguments (each driver's defaults
+# otherwise), kernels that must launch, the lines of its output to show
+DRIVERS = (
+    (RTB_R100, "examples.raytracing_benchmark",
+     ["-N", "250", "--R", "100", "--numsrc", "100", "--sed", "bb",
+      "--json", "rtb.json"],
+     ("cheb_sweep_seg", "extract_boxes", "accumulate_boxes"),
+     r"^R=|^CUDA kernels"),
+    ("raytracing_benchmark he", "examples.raytracing_benchmark",
+     ["--engine", "he", "-N", "256", "--R", "30", "--numsrc", "256"],
+     ("cheb_sweep", "extract_boxes", "accumulate_boxes"), r"^R="),
+    ("stromgren_ifront", "examples.stromgren_ifront", [],
+     ("chemistry_pass",), r"Max I-front|PASSED|FAILED"),
+    ("shadow_test", "examples.shadow_test", [], ("chemistry_pass",),
+     r"^xh |PASSED|FAILED"),
+    ("multisource", "examples.multisource", [], (),
+     r"superposition|tolerance|PASSED|FAILED"),
+    ("stromgren_cosmo", "examples.stromgren_cosmo", [], ("chemistry_pass",),
+     r"monotonic|final redshift|PASSED|FAILED"),
+    ("heating_test", "examples.heating_test", [],
+     ("cheb_sweep_rates_heat", "cheb_trace_rates", "extract_boxes",
+      "accumulate_boxes", "chemistry_pass"), r"PASSED|FAILED"),
+    ("single_source_test", "examples.single_source_test", [],
+     ("chemistry_pass",), r"Mean ionized|PASSED|FAILED"),
+    ("eor_simulation", "examples.eor_simulation", ["--num_slices", "2"],
+     _CHEB_LOOP, r"min, mean, max|EoR run complete"),
+    ("multihost_pod domain", "examples.multihost_pod", ["--mode", "domain"],
+     _CHEB_LOOP, r"process\(es\)|^OK:"),
+    ("multihost_pod source", "examples.multihost_pod", ["--mode", "source"],
+     _CHEB_LOOP, r"process\(es\)|^OK:"),
+    ("make_plots", "examples.make_plots", [], ("chemistry_pass",),
+     r"\.png"),
+    ("chemistry_solver", "tutorials.chemistry_solver", [],
+     ("chemistry_pass",), r"equilibrium"),
+    ("raytracing cheb", "tutorials.raytracing", ["--engine", "cheb"],
+     ("cheb_sweep", "extract_boxes", "accumulate_boxes"),
+     r"^Gamma field|photon budget"),
+    ("raytracing flat", "tutorials.raytracing", ["--engine", "flat"], (),
+     r"^Gamma field|photon budget"),
+    ("helium_thermal", "tutorials.helium_thermal", [],
+     ("cheb_sweep", "chemistry_pass_he"),
+     r"front at|temperature raised|^OK"),
+)
+
+
+def run_driver(module, args):
+    """One driver on cuda in a temporary --workdir, in a process of its own.
+    Returns (exit code, stdout, stderr, wall seconds, its JSON output if it
+    wrote rtb.json)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as wd:
+        cmd = [sys.executable, "-c", DRIVER_LAUNCHER,
+               f"pyc2ray_torch.{module}", *args, "--device", "cuda",
+               "--workdir", wd]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=wd, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.time() - t0
+        out = os.path.join(wd, "rtb.json")
+        extra = None
+        if os.path.exists(out):
+            with open(out) as f:
+                extra = json.load(f)
+    return proc.returncode, proc.stdout, proc.stderr, wall, extra
+
+
+def report_driver(label, module, args, kernels, keep, run):
+    """Prints a driver's exit code, wall time, kernel launches and check
+    lines; raises when it exited non-zero, printed FAILED or launched none
+    of ``kernels``."""
+    rc, stdout, stderr, wall, _ = run
+    lines = stdout.splitlines()
+    counts = {}
+    for line in lines:
+        if line.startswith("KERNEL_LAUNCHES "):
+            counts = json.loads(line.split(" ", 1)[1])
+    log(f"7 {label}: python -m pyc2ray_torch.{module} "
+        f"{' '.join(args)} --device cuda: exit {rc}, {wall:.1f} s; "
+        "launches " + (", ".join(f"{k} {v}" for k, v in counts.items() if v)
+                       or "none (plain PyTorch on the card)"))
+    for ln in lines:
+        if re.search(keep, ln):
+            log(f"    {ln.strip()}")
+    failed = [ln for ln in lines if "FAILED" in ln]
+    missing = [k for k in kernels if not counts.get(k)]
+    if rc != 0 or failed or missing or not counts:
+        log("\n".join(lines[-40:]))
+        log(stderr[-4000:])
+        raise RuntimeError(f"phase 7 {label}: exit {rc}, FAILED lines "
+                           f"{failed}, kernels never launched {missing}")
+
+
+def user_drivers():
+    """Phase 7: every driver of pyc2ray_torch.examples and
+    pyc2ray_torch.tutorials on the card, each as its user runs it (see
+    DRIVERS); make_plots only where matplotlib is installed. The harness's
+    two rows run alone, one after the other (they time the card); the
+    others DRIVER_LANES at a time (each process spends most of its wall in
+    its imports and the CUDA context). Returns the R = 100 row's JSON."""
+    import importlib.util
+    from concurrent.futures import ThreadPoolExecutor
+    torch.cuda.empty_cache()
+    h5py = importlib.util.find_spec("h5py") is not None
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    reader = ("installed" if h5py else "absent: the EoR catalogs are read "
+              "by pyc2ray_torch/io/catalog.py")
+    log(f"7 the user drivers, one process each (the harness alone, the "
+        f"others {DRIVER_LANES} at a time): h5py {reader}; matplotlib "
+        f"{'installed' if mpl else 'absent'}")
+    specs = [d for d in DRIVERS if mpl or d[1] != "examples.make_plots"]
+    if not mpl:
+        log("7 make_plots: not run, this machine has no matplotlib (the "
+            "CPU tests run it)")
+    alone = [d for d in specs if d[1] == "examples.raytracing_benchmark"]
+    shared = [d for d in specs if d not in alone]
+    t0 = time.time()
+    runs = [run_driver(d[1], d[2]) for d in alone]
+    with ThreadPoolExecutor(DRIVER_LANES) as pool:
+        runs += list(pool.map(lambda d: run_driver(d[1], d[2]), shared))
+    total = time.time() - t0
+    for d, run in zip(alone + shared, runs):
+        report_driver(*d, run)
+    log(f"7 the user drivers: {len(runs)} runs in {total:.1f} s, "
+        f"{sum(r[3] for r in runs[:len(alone)]):.1f} s of it the harness")
+    return next(r[4] for d, r in zip(alone + shared, runs)
+                if d[0] == RTB_R100)
+
+
 # ---- phase 5: the port's multi-GPU paths as a world of ranks ---------------
 
 HE_STATE = ("xh", "xhe1", "xhe2", "temp")
@@ -2764,7 +2818,7 @@ def p5_eor(mesh, wd, label):
     with contextlib.redirect_stdout(text):
         sim = C2Ray_CubeP3M(params, N_EOR, mesh=mesh)
         sim.read_density(zi)
-        srcpos, flux = read_catalog(sim, os.path.join(
+        srcpos, flux = sim.read_sources(os.path.join(
             EOR_DIR, "inputs", "sources", f"{zi:.3f}-sources.hdf5"))
         dt = sim.set_timestep(zi, zf, 1)
         sim.cosmo_evolve(dt)
@@ -3541,6 +3595,16 @@ def main():
     del sim
     k3_5b = multi_rank(bins, smi, dict(k3_phi=k3_phi, phi3=phi_cpu,
                                        eor=eor_first, he=he_first))
+
+    # ---- 7. the user drivers ------------------------------------------
+    rtb = user_drivers()
+    row = rtb["timings"][f"R={R_R100},Ns={NS_R100}"]
+    r100_3b = [v for k, v in NS_PER_CELL.items()
+               if k.startswith("R=100 harness") and "'auto'" in k]
+    log(f"7 the R = 100 row through the harness: "
+        f"{row['ns_per_cell']:.4f} ns/cell-update (min of {rtb['nreps']}, "
+        f"B={row['batch']}, {rtb['num_bins']} bins), phase 3b's "
+        f"auto-segmented trace {r100_3b[0]:.4f}; {rtb['device']}")
 
     # ---- 6. kernels line and result -----------------------------------
     # launches: each kernel's count over its own path's run (phases 3 and

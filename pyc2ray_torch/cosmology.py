@@ -13,8 +13,6 @@ C2Ray_244Test variant (reference: pyc2ray/c2ray_244paper.py:130-151).
 """
 
 import numpy as np
-from scipy.integrate import quad
-from scipy.optimize import brentq
 
 from .constants import G_GRAV, C_EXACT, A_RAD, KM, Mpc as MPC_C2RAY
 
@@ -80,6 +78,7 @@ class FlatLambdaCDM:
 
         t(z) = 1/H0 * int_0^{a(z)} da / (a E(a)).
         """
+        from scipy.integrate import quad
         z = float(z)
         a_max = 1.0 / (1.0 + z)
 
@@ -96,6 +95,7 @@ class FlatLambdaCDM:
 
     def z_at_age(self, t_s, zmin=-0.99, zmax=1e4):
         """Invert age(z) = t_s for z (replacement for astropy z_at_value)."""
+        from scipy.optimize import brentq
         f = lambda z: self.age(z) - t_s
         return brentq(f, zmin, zmax, xtol=1e-12, rtol=1e-14, maxiter=200)
 

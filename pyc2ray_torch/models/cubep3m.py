@@ -5,7 +5,8 @@ reference's ``C2Ray_CubeP3M`` (pyc2ray/c2ray_cubep3m.py:17-226): reads
 N-body halo catalogs (HDF5) and coarse density fields, converts halo mass to
 ionizing flux, writes C2Ray-compatible binary outputs, and resumes from the
 latest output redshift. tools21cm is replaced by the readers of io/cbin.py;
-h5py is imported only to read a catalog. Beyond the reference, a
+h5py is imported only to read a catalog, and where it is missing
+io/catalog.py reads the committed catalogs without it. Beyond the reference, a
 non-isothermal run also writes and reloads its temperature (Temper), and a
 helium run (engine: he) its helium fractions (xfracHe1, xfracHe2).
 """
@@ -16,6 +17,7 @@ import os
 import numpy as np
 
 from ..constants import msun2g
+from ..io.catalog import read_halo_catalog
 from ..io.cbin import save_cbin, read_cbin, DensityFile
 from ..utils.other_utils import (get_redshifts_from_output, find_bins,
                                  get_source_redshifts)
@@ -53,11 +55,9 @@ class C2Ray_CubeP3M(C2RaySimulation):
     def read_sources(self, file, mass="hm"):
         """Read an HDF5 halo catalog and convert masses to normalized
         fluxes (c2ray_cubep3m.py:33-87); returns ((3, NumSrc) positions,
-        (NumSrc,) fluxes)."""
-        import h5py
-        with h5py.File(file, "r") as f:
-            positions = f["sources_positions"][:]
-            masses = f["sources_mass"][:]
+        (NumSrc,) fluxes). h5py reads the catalog where it imports, else
+        io/catalog.py's reader of the committed layout."""
+        positions, masses = read_halo_catalog(file)
         return self._sources_from_catalog(positions, masses, file)
 
     def _sources_from_catalog(self, positions, masses, file):

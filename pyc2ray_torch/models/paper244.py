@@ -10,6 +10,7 @@ half-step catch-up between slices.
 import numpy as np
 
 from ..constants import Mpc, msun2g
+from ..io.catalog import read_halo_catalog
 from ..io.cbin import save_cbin, read_cbin, DensityFile
 from ..utils.other_utils import get_redshifts_from_output, find_bins
 from .base import C2RaySimulation
@@ -112,15 +113,13 @@ class C2Ray_244Test(C2RaySimulation):
 
     def read_sources(self, file, mass="hm"):
         """Halo catalog -> normalized fluxes using bare m_p
-        (c2ray_244paper.py:196-239)."""
-        import h5py
+        (c2ray_244paper.py:196-239); the catalog is read as
+        C2Ray_CubeP3M.read_sources reads it."""
         S_star_ref = 1e48
         mass2phot = (msun2g * self.fgamma_hm * self.cosmology.Ob0
                      / (M_P * self.ts * self.cosmology.Om0))
-        with h5py.File(file, "r") as f:
-            srcpos = f["sources_positions"][:].T
-            normflux = f["sources_mass"][:] * mass2phot / S_star_ref
-        return srcpos, normflux
+        positions, masses = read_halo_catalog(file)
+        return positions.T, masses * mass2phot / S_star_ref
 
     def read_density(self, z):
         """As CubeP3M (c2ray_244paper.py uses the same mechanism)."""

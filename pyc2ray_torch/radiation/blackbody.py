@@ -16,7 +16,6 @@ this is not a hot path.
 """
 
 import numpy as np
-from scipy.integrate import quad, quad_vec
 
 from ..constants import h_over_k, two_pi_over_c_square, hplanck, ion_freq_HI
 
@@ -63,6 +62,7 @@ class BlackBodySource:
         return np.where(x < _EXP_OVERFLOW, sed, 0.0)
 
     def integrate_SED(self, f1, f2):
+        from scipy.integrate import quad
         return quad(self.SED, f1, f2)[0]
 
     def normalize_SED(self, f1, f2, S_star_ref):
@@ -97,6 +97,7 @@ class BlackBodySource:
     # -- table builders ------------------------------------------------
     def make_photo_table(self, tau, freq_min, freq_max, S_star_ref):
         """Integrate the thin/thick photoionization tables over the band."""
+        from scipy.integrate import quad_vec
         self.normalize_SED(freq_min, freq_max, S_star_ref)
         thin = quad_vec(lambda f: self._photo_thin_integrand(f, tau),
                         freq_min, freq_max, epsrel=1e-12)[0]
@@ -106,6 +107,7 @@ class BlackBodySource:
 
     def make_heat_table(self, tau, freq_min, freq_max, S_star_ref):
         """Integrate the thin/thick photoheating tables over the band."""
+        from scipy.integrate import quad_vec
         self.normalize_SED(freq_min, freq_max, S_star_ref)
         thin = quad_vec(lambda f: self._heat_thin_integrand(f, tau),
                         freq_min, freq_max, epsrel=1e-12)[0]

@@ -3,8 +3,8 @@ the JAX package's on the same synthetic inputs (make_synthetic_inputs of
 examples/eor_simulation/run_test.py, N = 12, float64, NumTau 200): one
 timestep within the tolerance of tests/test_torch_models.py (rtol 1e-7 in
 xh and Gamma), outputs bit-equal, resume restoring xh and T to rtol 1e-12;
-and chip_smoke.py's catalog reader against read_sources on the committed
-catalogs."""
+and the reader of the committed catalogs without h5py
+(pyc2ray_torch/io/catalog.py) against read_sources through h5py."""
 
 import os
 import pathlib
@@ -188,26 +188,51 @@ def test_paper244_model_end_to_end(tmp_path, inputs):
 
 
 def test_chip_smoke_catalog_reader_equals_read_sources(tmp_path):
-    """chip_smoke.py reads the committed catalogs without h5py (the card's
-    machine has none); its positions and fluxes equal read_sources'."""
-    sys.path.insert(0, str(ROOT))
-    try:
-        import chip_smoke
-    finally:
-        sys.path.pop(0)
+    """The package's reader of the committed catalogs without h5py
+    (pyc2ray_torch/io/catalog.py::read_catalog, which chip_smoke.py reaches
+    through read_sources on the card's machine, where h5py is missing):
+    its positions and fluxes equal read_sources' through h5py; another
+    layout raises a ValueError that names h5py."""
+    import h5py  # noqa: F401  (read_sources below reads through it)
+    from pyc2ray_torch.io.catalog import read_catalog
     pfile, _ = _params(tmp_path, "c", str(EOR / "inputs") + "/")
     sim = tpc.C2Ray_CubeP3M(pfile, 8, device="cpu")
     for z in ZLIST:
         f = str(EOR / "inputs" / "sources" / f"{z:.3f}-sources.hdf5")
-        pos, flux = chip_smoke.read_catalog(sim, f)
+        pos, flux = sim._sources_from_catalog(*read_catalog(f), f)
         want_pos, want_flux = sim.read_sources(f)
         assert pos.shape == (3, 20000) and flux.shape == (20000,)
         np.testing.assert_array_equal(pos, want_pos)
         np.testing.assert_array_equal(flux, want_flux)
     bad = tmp_path / "bad.hdf5"
     bad.write_bytes(b"\x00" * 600000)
-    with pytest.raises(ValueError, match="HDF5"):
-        chip_smoke.read_catalog(sim, str(bad))
+    with pytest.raises(ValueError, match="HDF5.*h5py"):
+        read_catalog(str(bad))
+
+
+@pytest.mark.parametrize("model", ["C2Ray_CubeP3M", "C2Ray_244Test"])
+def test_read_sources_without_h5py_equals_h5py(tmp_path, monkeypatch,
+                                               model):
+    """read_sources with h5py hidden (as on the card's machine) returns
+    arrays bit-equal to its h5py read on both committed catalogs; a
+    catalog of another layout then raises naming h5py."""
+    pfile, _ = _params(tmp_path, "c", str(EOR / "inputs") + "/")
+    sim = getattr(tpc, model)(pfile, 8, device="cpu")
+    files = [str(EOR / "inputs" / "sources" / f"{z:.3f}-sources.hdf5")
+             for z in ZLIST]
+    want = [sim.read_sources(f) for f in files]
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError):
+        import h5py  # noqa: F401
+    for f, (want_pos, want_flux) in zip(files, want):
+        pos, flux = sim.read_sources(f)
+        assert pos.dtype == want_pos.dtype and flux.dtype == want_flux.dtype
+        np.testing.assert_array_equal(pos, want_pos)
+        np.testing.assert_array_equal(flux, want_flux)
+    other = tmp_path / "other.hdf5"
+    other.write_bytes(open(files[0], "rb").read()[:-8])
+    with pytest.raises(ValueError, match="h5py"):
+        sim.read_sources(str(other))
 
 
 @pytest.mark.cuda

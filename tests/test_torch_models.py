@@ -266,13 +266,10 @@ def test_dict_paramfile_equals_yaml(tmp_path):
 
 
 def test_chip_smoke_heating_dict_equals_example_yaml(tmp_path):
-    """The parameters that chip_smoke.py passes as a dict are the ones the
-    heating example builds from the single-source parameter file."""
-    sys.path.insert(0, str(ROOT))
-    try:
-        import chip_smoke
-    finally:
-        sys.path.pop(0)
+    """The parameters that chip_smoke.py passes as a dict (the heating
+    driver's heating_params) are the ones the JAX heating example builds
+    from the single-source parameter file."""
+    from pyc2ray_torch.examples.heating_test import heating_params
     results = str(tmp_path / "results") + "/"
     base = BASE_YML.read_text()
     # examples/heating_test/run_test.py, the replacements in order
@@ -287,7 +284,7 @@ def test_chip_smoke_heating_dict_equals_example_yaml(tmp_path):
     pfile = tmp_path / "parameters_heating.yml"
     pfile.write_text(base)
     want = read_paramfile(str(pfile))
-    got = chip_smoke.heating_params(results)
+    got = heating_params(results)
     assert got == want
     for sec in want:
         for k, v in want[sec].items():
