@@ -40,34 +40,49 @@ Phases (any failure raises and the script exits non-zero):
    version, and its Gamma bit for bit against K3's. Then the chain floor
    of every kernel, a dense pass of the bin sums over the card and the
    rate floor it sets for K1f, K3 and K3h.
+2e. (after 2c) The dense rate pass of the unfused modes (rates_dense,
+   ops/cheb_rates.py) on the engine's own sweep boxes against its plain
+   version, with and without the heat channel, bit for bit (max_abs_err
+   0): at the bench shape and the R=100 shape in float32 with kernel,
+   plain and bound ms and the rate floor, and in float64 at a small
+   clipped shape (segmented, S=3) and a small shape that rates a subbox,
+   each with a zero-density cell; where the engine segments, the start of
+   a segmented sweep (init_segments) the same way.
 3. The full-width main path: ChebRaytracer.trace_batches + global_pass at
    N=256, R=30, Ns=2048, B=8, compressed black-body bins, float32 (the
-   configuration of bench.py, positions from seed 100). Prints ns per
-   cell-update, the chemistry time, the combined Mcell-updates/s and the
-   launch counts of the sweep and of the box extract and accumulate, which
-   must each equal the number of batches; the per-batch device ms of the
-   loop's stages, the box kernels beside the plain gather and slice adds
-   they replaced (bit-equal). The GPU trace of the first 16 sources is held
-   against the CPU (plain) trace. The chemistry pass is one launch of the
-   hydrogen kernel (asserted; the chemistry checks below on its fields).
+   configuration of bench.py, positions from seed 100). The trace is one
+   call of the C++ loop (cheb_trace_sweep). Prints ns per cell-update, the
+   chemistry time, the combined Mcell-updates/s and the launch counts: one
+   loop, and K1, the rate pass, the box extract and the accumulate once per
+   batch (asserted); the per-batch device ms of the loop's stages, the
+   kernels beside the plain gather, rate pass and slice adds they replaced
+   (bit-equal); the loop against trace_extended_plain on the trace's frame
+   (bit-equal, ms per trace, the bound: the kernels line's numbers), and
+   the whole trace before and after the loop as in 3b. The GPU trace of the
+   first 16 sources is held against the CPU (plain) trace. The chemistry
+   pass is one launch of the hydrogen kernel (asserted; the chemistry
+   checks below on its fields).
 3b. The engine's other sweep modes at full width: the bench configuration
    with fuse_fold=True (K3) and with fuse_rates=True (K1f), each Gamma
    held against phase 3's; the R=100 harness configuration (N=250, R=100,
    B=8, Ns=100 from seed 100, compressed bins, float32) auto-segmented
-   (K2) and with shell_segment=0 (K1), held against each other. Each run
-   prints ns per cell-update, its launch counts, which are asserted, and
-   for the fused modes the per-batch stage times (one kernel call per
-   batch and nothing after it but the accumulate). The fuse_fold trace
-   (one call of the C++ trace loop) also with the batch loop as it was
-   issued before (``plain_loop``: trace_extended_plain), Gamma bit-equal:
-   per trace the wall s, device launches and host-to-device copies per
-   batch, device busy ms and idle share, before and after.
+   (K2) and with shell_segment=0 (K1), held against each other. Every
+   trace is one call of the C++ trace loop (cheb_trace_sweep, every sweep
+   mode). Each run prints ns per cell-update,
+   its launch counts, which are asserted, and for the fused modes the
+   per-batch stage times (one kernel call per batch and nothing after it
+   but the accumulate). Each trace also with the batch loop as it was
+   issued before (``plain_loop``: trace_extended_plain, the plain rate
+   pass), Gamma bit-equal: per trace the wall s, device launches and
+   host-to-device copies per batch, device busy ms and idle share, before
+   and after.
 3c. The non-isothermal path at full width: the bench configuration with
    do_heating=True and fuse_fold=True (K3h, one launch per batch) and with
-   do_heating=True alone (K1 + the rate pass with the heat channel); each
-   Gamma held against phase 3's, the two heat fields against each other,
-   the per-batch stage times of both; then update_temperature over the
-   256^3 cells from 100 K with that heat.
+   do_heating=True alone (K1 + the rate pass with the heat channel, one
+   cheb_trace_sweep call, before and after the loop as in 3b with Gamma
+   and heat bit-equal); each Gamma held against phase 3's, the two heat
+   fields against each other, the per-batch stage times of both; then
+   update_temperature over the 256^3 cells from 100 K with that heat.
 4. One evolve3D timestep to convergence at N=64, R=8, 16 sources, float32,
    held against the same call on the CPU.
    Then where the two part: Gamma of one trace on equal inputs, global_pass
@@ -214,9 +229,12 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    kernels its path reaches must each launch) and its check lines. A
    driver fails the phase when it exits non-zero or prints FAILED.
 6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
-   then the trace loop's extract_boxes, accumulate_boxes and
-   cheb_trace_rates on 4e's EoR trace, and the chemistry_pass kernel on the
-   EoR run's state, chemistry_pass_he on 4g's), then the result line
+   then the trace loop's extract_boxes and accumulate_boxes on 4e's EoR
+   trace, the dense rate pass rates_dense and init_segments (2e), the loop
+   cheb_trace_sweep (phase 3's default bench trace, and 4e's fuse_fold EoR
+   trace beside it), and the chemistry_pass
+   kernel on the EoR run's state, chemistry_pass_he on 4g's), then the
+   result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
@@ -256,6 +274,10 @@ RATE_OPS_PER_CELL = 7            # tau_in, dtau, prefactor (2 muls, div),
                                  # result (mul, div)
 HEAT_OPS_PER_BIN = 2             # K3h, beside the above: w_heat*core, add
 HEAT_OPS_PER_CELL = 2            # and the second result (mul, div)
+DENSE_OPS_PER_CELL = 11          # the dense rate pass per cell: the valid
+                                 # test, and per rated cell path3*dr,
+                                 # nHI*, cd-dcol, cdin*sig, dcol*sig,
+                                 # flux*sdr3, *geominv, max, *acc, /
 N_R100, R_R100, NS_R100 = 250, 100.0, 100   # raytracing harness, R=100 row
 N_EVOLVE, R_EVOLVE, NS_EVOLVE = 64, 8.0, 16  # the evolve3D steps of 4, 4b
 N_HEATING, STEPS_HEATING = 48, 6             # examples/heating_test defaults
@@ -273,6 +295,7 @@ N_BOX_GREY, NS_BOX_GREY = 64, 8              # 3f's grey check
 # 250 / 244 cells and half of it (a quarter is below R_min = 4)
 R_EOR = (15.0 * N_EOR / 244.0 / 2.0, 15.0 * N_EOR / 244.0)
 T_START = time.time()
+FOLD = dict(fuse="fold", seg=(0, 0), heat=False)   # a fuse_fold engine's mode
 NS_PER_CELL = {}             # run_path's ns/cell-update by its label
 
 
@@ -709,6 +732,119 @@ def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
     return res
 
 
+def dense_work(rt, cd, nhi, heat):
+    """(bytes, operations, rated cells) of one dense rate pass of engine
+    ``rt`` on the boxes ``cd`` and ``nhi``, as this data needs them: the
+    valid channel of the rates-subbox table for every cell, its path3 and
+    geominv at the valid cells and cd and nHI at the valid cells of every
+    box (the kernel reads nothing else of a cell that is not valid, whose
+    output is 0 either way), the fluxes and the bins, each once, and Gamma
+    (and the heat) written for every cell; DENSE_OPS_PER_CELL and the bins'
+    operations per rated cell of this data (valid, cdin <= MAX_COLDENSH),
+    the test for every other cell."""
+    from pyc2ray_torch.constants import MAX_COLDENSH
+    tb, r, Ds = rt.tables, rt._rb0, rt.Ds
+    sub = (slice(None),) + (slice(r, r + Ds),) * 3
+    cdin = cd[sub] - nhi[sub] * (tb.rt_sub[0] * DR)
+    valid = tb.rt_sub[2] > 0.5
+    rated = int((valid & (cdin <= MAX_COLDENSH)).sum())
+    n_valid = int(valid.sum())
+    B, E = cd.shape[0], rt.num_bins
+    isz = torch.finfo(cd.dtype).bits // 8
+    cells = B * Ds ** 3
+    nbytes = isz * (Ds ** 3 + 2 * n_valid + 2 * B * n_valid
+                    + (1 + heat) * cells + B + (2 + heat) * E)
+    per_bin = RATE_OPS_PER_BIN + heat * HEAT_OPS_PER_BIN
+    ops = (rated * (per_bin * E + DENSE_OPS_PER_CELL - 1
+                    + heat * HEAT_OPS_PER_CELL) + cells)
+    return nbytes, ops, rated
+
+
+def check_rates(N, R, B, dtype, seed, reps, bins, ns_bin=None,
+                zero_cell=False, shell_segment="auto"):
+    """Phase 2e: the dense rate pass of the unfused modes (rates_dense,
+    ops/cheb_rates.py) against its plain version on the card, on the
+    engine's own coldensh_out boxes (``sweep_box``: K1, or K2 where the
+    engine segments), with and without the heat channel: max_abs_err must
+    be 0. Kernel and plain ms per call (CUDA events) and the bound of
+    ``dense_work``; with ``ns_bin`` (phase 2c's dense pass, float32) the
+    rate floor, rated cells x bins x ns_bin. Where the engine segments, the
+    start of a segmented sweep (init_segments) against init_segments_ref
+    the same way. Returns {"photo", "heat"(, "init")}: numbers per call."""
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.cheb_rates import rates_dense, rates_dense_ref
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    rt = ChebRaytracer(N, R, SIG, bins, batch_size=B, dtype=dtype,
+                       shell_segment=shell_segment)
+    g, tb = rt.geom, rt.tables
+    nhi = random_nhi(rt, B, dtype, seed, zero_cell)
+    cd = rt.sweep_box(nhi, DR, SIG)
+    flux = torch.linspace(0.5, 2.0, B, dtype=dtype, device="cuda")
+    args = (tb.rt_sub, flux, tb.bins_s, tb.bins_w, DR, SIG,
+            float(sweep.s_over_dr3(DR, dtype)), rt._rb0)
+    log(f"rates_dense N={N} R={R:g} B={B} Dc={g.Dc} Ds={rt.Ds} rb0="
+        f"{rt._rb0} E={bins.num_bins} {str(dtype).split('.')[-1]} on "
+        f"{'K2' if rt.seg_S else 'K1'}'s boxes"
+        f"{' (one zero-density cell)' if zero_cell else ''}:")
+    out = {}
+    for heat in (False, True):
+        wh = tb.bins_wh if heat else None
+
+        def kern():
+            return rates_dense(cd, nhi, *args, bins_wh=wh)
+
+        def plain():
+            return rates_dense_ref(cd, nhi, *args, bins_wh=wh)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(float((a - w).abs().max()) for a, w in zip(got, want)
+                  if w is not None)
+        if (err != 0.0 or not float(want[0].max()) > 0.0
+                or not all(bool(torch.isfinite(a).all()) for a in got
+                           if a is not None)):
+            raise RuntimeError(f"rates_dense{' heat' if heat else ''} N={N} "
+                               f"R={R}: max_abs_err {err} against the plain "
+                               f"version")
+        if zero_cell and float(got[0][1, g.c - rt._rb0, g.c - rt._rb0 + 1,
+                                      g.c - rt._rb0]) != 0.0:
+            raise RuntimeError("rates_dense: Gamma at the zero-density cell "
+                               "is not 0")
+        del got, want
+        nbytes, ops, rated = dense_work(rt, cd, nhi, heat)
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 1)
+        b_ms, b_by = least_ms(nbytes, ops, dtype)
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, rated_cells=rated)
+        floor = ""
+        if ns_bin is not None:
+            res["rate_floor_ms"] = 1e-6 * rated * bins.num_bins * ns_bin
+            floor = f" rate_floor_ms={res['rate_floor_ms']:.5f}"
+        log(f"  rates_dense{' heat' if heat else ''}: max_abs_err={err:.1e} "
+            f"(bit-equal) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}){floor} per call, {rated} rated "
+            f"cells")
+        out["heat" if heat else "photo"] = res
+    if rt.seg_S:
+        got = sweep.init_segments(nhi, g.c, DR)
+        want = sweep.init_segments_ref(nhi, g.c, DR)
+        torch.cuda.synchronize()
+        err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        if err != 0.0:
+            raise RuntimeError(f"init_segments: max_abs_err {err}")
+        isz = torch.finfo(dtype).bits // 8
+        ms = cuda_ms(lambda: sweep.init_segments(nhi, g.c, DR), reps)
+        plain_ms = cuda_ms(lambda: sweep.init_segments_ref(nhi, g.c, DR), 2)
+        b_ms, b_by = least_ms(isz * B * (g.Dc ** 3 + 6 * g.Dc ** 2 + 1),
+                              2 * B, dtype)
+        out["init"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+        log(f"  init_segments (S={rt.seg_S}, K={rt.seg_K}): max_abs_err="
+            f"{err:.1e} (bit-equal) kernel_ms={ms:.4f} plain_ms="
+            f"{plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) per call")
+    return out
+
+
 def cell_updates(ns, R):
     """Cell-updates of a trace of ``ns`` sources at radius R (the
     reference's normalisation, Ns 4/3 pi R^3)."""
@@ -759,12 +895,24 @@ def run_path(rt, nd, xh, pos_b, flux_b, updates, expect, label, chem=None):
     return phi, heat, counts
 
 
-def loop_counts(nbatch, loops=0):
-    """The launches of the trace loop's kernels in a Chebyshev trace of
-    ``nbatch`` batches: one extract and one accumulate per batch, and
-    ``loops`` calls of the fuse_fold loop (one per engine trace)."""
-    return {"extract_boxes": nbatch, "accumulate_boxes": nbatch,
-            "cheb_trace_rates": int(loops)}
+def trace_launches(mode, nb, traces=1):
+    """The kernel launches of ``traces`` Chebyshev traces of ``nb`` batches
+    in all, in the sweep mode ``mode`` (``ChebRaytracer._sweep_mode()``: its
+    fuse, seg and heat): one trace loop call per trace, and per batch the
+    extract, the accumulate and the mode's kernels."""
+    S, K = mode["seg"]
+    out = {"cheb_trace_sweep": int(traces), "extract_boxes": nb,
+           "accumulate_boxes": nb}
+    if mode["fuse"] == "fold":
+        out["cheb_sweep_rates_heat" if mode["heat"]
+            else "cheb_sweep_rates"] = nb
+    elif mode["fuse"] == "rates":
+        out["cheb_sweep_fused_rates"] = nb
+    elif S:
+        out.update(cheb_sweep_seg=nb * K, init_segments=nb, rates_dense=nb)
+    else:
+        out.update(cheb_sweep=nb, rates_dense=nb)
+    return out
 
 
 @contextlib.contextmanager
@@ -846,13 +994,15 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     each batch), for the default mode, fuse_rates and fuse_fold, with or
     without do_heating. "extract" is the extract_boxes kernel, "sweep" the
     kernel (K1, or one call of K1f, K3 or K3h, which returns complete rate
-    boxes), "rates" what follows it (the rate pass; nothing in a fused
-    mode), "accumulate" the accumulate_boxes kernel (Gamma and, with
-    do_heating, the heat in one launch); beside them on the same batch the
-    plain gather and slice adds that the loop issued before
-    ("extract_plain", "accumulate_plain"), whose frames are asserted equal
-    to the kernels' bit for bit."""
-    from pyc2ray_torch.ops.sweep import cheb_sweep, cheb_sweep_rates
+    boxes), "rates" what follows it (the dense rate pass, rates_dense;
+    nothing in a fused mode), "accumulate" the accumulate_boxes kernel
+    (Gamma and, with do_heating, the heat in one launch); beside them on
+    the same batch the plain gather, slice adds and rate pass that the loop
+    issued before ("extract_plain", "accumulate_plain", "rates_plain"),
+    whose outputs are asserted equal to the kernels' bit for bit."""
+    from pyc2ray_torch.ops.cheb_rates import rates_dense_ref
+    from pyc2ray_torch.ops.sweep import (cheb_sweep, cheb_sweep_rates,
+                                         rate_consts)
     from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
                                               extract_boxes,
                                               extract_boxes_ref,
@@ -862,14 +1012,15 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
     pads = [torch.zeros_like(nhi_pad) for _ in range(1 + rt.do_heating)]
     plain = [torch.zeros_like(nhi_pad) for _ in pads]
     pos = stage_positions(pos_b[:nbatch], nhi_pad.shape, g.Dc, "cuda")
-    dr_t = torch.tensor(DR, dtype=rt.dtype).to("cuda")
     geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
     c = g.c
     tot = dict.fromkeys(("extract", "sweep", "rates", "accumulate",
-                         "extract_plain", "accumulate_plain"), 0.0)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+                         "extract_plain", "accumulate_plain", "rates_plain"),
+                        0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
     for k in range(nbatch):
         flux = flux_b[k]
+        cd = None
         ev[0].record()
         boxes = extract_boxes(nhi_pad, pos, k, g.Dc)
         ev[1].record()
@@ -887,7 +1038,7 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
         else:
             cd = cheb_sweep(boxes, *geo, DR, c, rt.sig)
             ev[2].record()
-            out = rt._rates(cd, boxes, flux, dr_t)[:1 + rt.do_heating]
+            out = rt._rates(cd, boxes, flux, DR)[:1 + rt.do_heating]
         ev[3].record()
         accumulate_boxes(pads, out, pos, k, rt.box_shift(out[0]))
         ev[4].record()
@@ -896,10 +1047,19 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
         for pad, rate_box in zip(plain, out):
             add_boxes(pad, rate_box, pos_b[k], rt.box_shift(rate_box))
         ev[6].record()
+        ref = None if cd is None else rates_dense_ref(
+            cd, boxes, tb.rt_sub, flux, tb.bins_s, tb.bins_w, DR, rt.sig,
+            rate_consts(DR, rt.dtype)[1], rt._rb0,
+            bins_wh=tb.bins_wh if rt.do_heating else None)
+        ev[7].record()
         torch.cuda.synchronize()
         if not torch.equal(boxes, boxes_plain):
             raise RuntimeError("stage_breakdown: extract_boxes differs from "
                                "the plain gather")
+        if ref is not None and not all(torch.equal(a, b)
+                                       for a, b in zip(out, ref)):
+            raise RuntimeError("stage_breakdown: rates_dense differs from "
+                               "the plain rate pass")
         for i, name in enumerate(tot):
             tot[name] += ev[i].elapsed_time(ev[i + 1])
     if not all(torch.equal(a, b) for a, b in zip(pads, plain)):
@@ -1011,7 +1171,7 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
     all on the inputs of 4e's profiled EoR trace (each bucket's frame,
     positions and fluxes), per call over that trace's calls.
 
-    Per bucket the loop (one cheb_trace_rates call) against
+    Per bucket the loop (one cheb_trace_sweep call) against
     trace_extended_plain: ms per call by CUDA events, max_abs_err over
     Gamma. Over every batch, device ms per call (``device_ms``):
     extract_boxes, the plain gather and torch.take on precomputed flat
@@ -1019,7 +1179,8 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
     frame, the plain slice adds and index_add_ (which adds in no fixed
     order). max_abs_err compares the kernels' boxes and final frame with
     the plain versions'. The bounds count the bytes this data needs
-    (``box_kernel_work``), the loop's also K3's bytes and operations."""
+    (``box_kernel_work``), the loop's those of the whole loop
+    (``loop_work``)."""
     from pyc2ray_torch.ops.sweep import cheb_sweep_rates
     from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
                                               extract_boxes,
@@ -1075,14 +1236,13 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
                                               rates[k].view(-1)), nb)
         ac["max_abs_err"] = max(ac["max_abs_err"],
                                 float((f_k - f_p).abs().max()))
-        kb, kops = k3_work(e, B, dt)
         for k in range(nb):
             eb, ab = box_kernel_work(idx[k], dt)
             ex["bytes"], ac["bytes"] = ex["bytes"] + eb, ac["bytes"] + ab
-            lp["bytes"] += eb + ab + kb
         ex["ops"] += nb * B * D ** 3
         ac["ops"] += nb * B * D ** 3
-        lp["ops"] += nb * kops
+        lb, lops = loop_work(e, pad, pos_b)
+        lp["bytes"], lp["ops"] = lp["bytes"] + lb, lp["ops"] + lops
         n_calls, n_b = n_calls + 1, n_b + nb
         del rates, idx, f_k, f_p, f_l, pad
     out = {}
@@ -1106,23 +1266,12 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
     return out
 
 
-def k3_work(rt, B, dtype):
-    """(bytes, operations) of one K3 call of engine ``rt`` at B sources,
-    as phase 2b counts them (check_fused)."""
-    g, tb = rt.geom, rt.tables
-    isz = torch.finfo(dtype).bits // 8
-    nbytes, ops = sweep_work(B, g.Dc, g.r_max + 1, dtype)
-    n_rated = B * int((tb.rt_tab[:, 1] > 0.5).sum())
-    ops += n_rated * (RATE_OPS_PER_BIN * rt.num_bins + RATE_OPS_PER_CELL)
-    return nbytes + 2 * g.Dc ** 3 * isz + B * isz, ops
-
-
 def check_trace_loop(bins, src_pos):
     """Phase 3g: the trace loop's kernels and the C++ loop against their
     plain versions. extract_boxes and accumulate_boxes at the bench shape
     (B = 8, Dc = 64), the EoR run's (B = 16, Dc = 24) and on a non-cubic
     halo-extended block of a domain of 2 at the EoR shape; then
-    ChebRaytracer.trace_extended (fuse_fold: one cheb_trace_rates call)
+    ChebRaytracer.trace_extended (fuse_fold: one cheb_trace_sweep call)
     against trace_extended_plain on a random field, bit for bit: at the
     bench configuration with K3 and K3h, and at the EoR run's small bucket
     over 128 batches, the first clustered. The kernels line takes its
@@ -1193,11 +1342,12 @@ def loop_kernel_gaps(rt, pad, pos_b, flux_b):
         for k, v in kinds.items()))
 
 
-def loop_against_plain(label, rt, pad, pos_b, flux_b):
-    """``rt.trace_extended`` (the C++ loop: one cheb_trace_rates call)
-    against ``rt.trace_extended_plain`` on the frame ``pad``: bit for bit,
-    with the loop's launch counts and the ms per trace of both (CUDA
-    events, 3 traces each)."""
+def loop_against_plain(label, rt, pad, pos_b, flux_b, reps=3):
+    """``rt.trace_extended`` (the C++ loop in its mode: one
+    cheb_trace_sweep call) against ``rt.trace_extended_plain`` on the
+    frame ``pad``: bit for bit, with the loop's launch counts
+    (``trace_launches``) and the ms per trace of both (CUDA events,
+    ``reps`` traces each). Returns max_abs_err, ms and plain_ms."""
     from pyc2ray_torch.ops import sweep
     nb = pos_b.shape[0]
     sweep.reset_launches()
@@ -1205,9 +1355,8 @@ def loop_against_plain(label, rt, pad, pos_b, flux_b):
     counts = dict(sweep.launches)
     want = rt.trace_extended_plain(pad, pos_b, flux_b, DR)
     torch.cuda.synchronize()
-    k3 = "cheb_sweep_rates_heat" if rt.do_heating else "cheb_sweep_rates"
     expect = {k: 0 for k in counts}
-    expect.update(loop_counts(nb, 1), **{k3: nb})
+    expect.update(trace_launches(rt._sweep_mode(), nb))
     if counts != expect:
         raise RuntimeError(f"{label}: loop launches {counts}, expected "
                            f"{expect}")
@@ -1216,9 +1365,10 @@ def loop_against_plain(label, rt, pad, pos_b, flux_b):
     if err != 0.0 or not float(want[0].max()) > 0.0:
         raise RuntimeError(f"{label}: the loop differs from the plain "
                            f"loop: max_abs_err {err}")
-    ms = cuda_ms(lambda: rt.trace_extended(pad, pos_b, flux_b, DR), 3)
+    del got, want
+    ms = cuda_ms(lambda: rt.trace_extended(pad, pos_b, flux_b, DR), reps)
     plain_ms = cuda_ms(
-        lambda: rt.trace_extended_plain(pad, pos_b, flux_b, DR), 3)
+        lambda: rt.trace_extended_plain(pad, pos_b, flux_b, DR), reps)
     log(f"  {label}: trace_extended (C++ loop) vs trace_extended_plain: "
         f"max_abs_err={err:.1e} (bit-equal"
         f"{', Gamma and heat' if rt.do_heating else ''}), launches "
@@ -1226,6 +1376,53 @@ def loop_against_plain(label, rt, pad, pos_b, flux_b):
         + f"; per trace: the loop {ms:.3f} ms, the plain loop "
         f"{plain_ms:.3f} ms ({ms / nb:.4f} / {plain_ms / nb:.4f} ms per "
         f"batch)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def loop_work(rt, pad, pos_b):
+    """(bytes, operations) of one trace of engine ``rt`` (one
+    cheb_trace_sweep call in its mode) over the batches ``pos_b`` in the
+    frame ``pad``, as a function of the whole loop: the frame cells that
+    the boxes cover read once; the sweep's tables, the valid channel of the
+    rates table and the rest of it at the valid cells, the fluxes and the
+    bins once; the Gamma (and heat) frame written once. The boxes that pass
+    between the loop's kernels are none of its bytes. Operations per batch:
+    the sweep's (``sweep_work``), the rates' of this data (the dense pass's
+    of ``dense_work`` on the first batch's boxes, on fields as smooth as
+    phase 3's every batch rates the same cells; K3's per valid table cell)
+    and the accumulate's adds."""
+    from pyc2ray_torch.ops.sweep import cheb_sweep
+    from pyc2ray_torch.ops.trace_loop import extract_boxes, stage_positions
+    g, tb, dt, heat = rt.geom, rt.tables, rt.dtype, rt.do_heating
+    isz = torch.finfo(dt).bits // 8
+    nb, B = pos_b.shape[:2]
+    mode = rt._sweep_mode()
+    if mode["fuse"] == "rates":
+        raise ValueError("loop_work: no count for fuse_rates")
+    pos = stage_positions(pos_b, pad.shape, g.Dc, "cuda")
+    covered = torch.zeros(pad.numel(), dtype=torch.bool, device="cuda")
+    for k in range(nb):
+        covered[box_flat_index(pos[k], pad.shape, g.Dc).view(-1)] = True
+    sb, sops = sweep_work(B, g.Dc, g.r_max + 1, dt)
+    tables = sb - 2 * B * g.Dc ** 3 * isz          # its tables alone
+    if mode["fuse"] == "fold":
+        n_valid = int((tb.rt_tab[:, 1] > 0.5).sum())
+        tables += isz * (g.Dc ** 3 + n_valid)
+        rops = B * n_valid * (
+            (RATE_OPS_PER_BIN + heat * HEAT_OPS_PER_BIN) * rt.num_bins
+            + RATE_OPS_PER_CELL + heat * HEAT_OPS_PER_CELL)
+        side = g.Dc
+    else:
+        boxes = extract_boxes(pad, pos, 0, g.Dc)
+        cd = cheb_sweep(boxes, tb.sw, tb.path, tb.diag, tb.mask_m,
+                        tb.mask_p, DR, g.c, rt.sig)
+        _, rops, _ = dense_work(rt, cd, boxes, heat)
+        n_valid = int((tb.rt_sub[2] > 0.5).sum())
+        tables += isz * (rt.Ds ** 3 + 2 * n_valid)
+        side = rt.Ds
+    nbytes = tables + isz * (int(covered.sum()) + (1 + heat) * pad.numel()
+                             + nb * B + (2 + heat) * rt.num_bins)
+    return nbytes, nb * (sops + rops + B * side ** 3)
 
 
 def inner_iterations(dt, nd, temp, xh, phi, chem, doric=None):
@@ -1526,8 +1723,7 @@ def adaptive_bench(bins):
                            f"30] used and the smallest the largest")
     updates = sum(cell_updates(c, r) for c, r in zip(counts, ada.radii))
     phi, _, launches = run_path(ada, nd, xh, batches, None, updates,
-                                {"cheb_sweep_rates": sum(nb),
-                                 **loop_counts(sum(nb), len(nb))},
+                                trace_launches(FOLD, sum(nb), len(nb)),
                                 "adaptive bench mix, all buckets")
     sel_b = ada.assign_buckets(flux, DR, avg)
     total = None
@@ -1538,7 +1734,7 @@ def adaptive_bench(bins):
         pb, fb = eng.prepare_sources(pos[sel], flux[sel])
         p_k, _, _ = run_path(
             eng, nd, xh, pb, fb, cell_updates(sel.size, r),
-            {"cheb_sweep_rates": pb.shape[0], **loop_counts(pb.shape[0], 1)},
+            trace_launches(FOLD, pb.shape[0]),
             f"  bucket R={r:g} alone ({sel.size} sources, {pb.shape[0]} "
             f"batches, Dc={eng.geom.Dc})")
         total = p_k if total is None else total + p_k
@@ -1664,10 +1860,9 @@ def eor_run(bins, smi):
             n_it = len(r["t_ray"])
             nbatch = sum(-(-c // B_EOR) for c in r["counts"])
             want = {name: 0 for name in r["launches"]}
-            want["cheb_sweep_rates"] = n_it * nbatch
             want["chemistry_pass"] = n_it
-            want.update(loop_counts(n_it * nbatch,
-                                    n_it * sum(c > 0 for c in r["counts"])))
+            want.update(trace_launches(
+                FOLD, n_it * nbatch, n_it * sum(c > 0 for c in r["counts"])))
             if r["launches"] != want or not r["converged"] or n_it == 0:
                 raise RuntimeError(f"EoR slice {k}: launches "
                                    f"{r['launches']}, expected {want}; "
@@ -1710,8 +1905,8 @@ def eor_run(bins, smi):
             pc = plain_chem[k]
             n_pc = len(pc["t_ray"])
             want_pc = dict(want, chemistry_pass=0)
-            want_pc.update(loop_counts(n_pc * nbatch, n_pc * sum(
-                c > 0 for c in r["counts"])), cheb_sweep_rates=n_pc * nbatch)
+            want_pc.update(trace_launches(FOLD, n_pc * nbatch, n_pc * sum(
+                c > 0 for c in r["counts"])))
             log(f"  the plain chemistry pass before the kernel ({smi}): "
                 f"{n_pc} raytrace iterations, per iteration chemistry "
                 f"{np.mean(pc['t_chem']):.4f} s and raytrace "
@@ -2319,7 +2514,8 @@ def helium_bench(bins_he, src_pos, chem):
     t_ray = time.time() - t0
     counts = dict(sweep.launches)
     want = {k: 0 for k in counts}
-    want.update(loop_counts(nbatch), cheb_sweep=3 * nbatch)
+    want.update(extract_boxes=nbatch, accumulate_boxes=nbatch,
+                cheb_sweep=3 * nbatch)
     if counts != want:
         raise RuntimeError(f"helium trace: launches {counts}, expected "
                            f"{want}")
@@ -2610,7 +2806,7 @@ DRIVER_LAUNCHER = (
     "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
 RTB_R100 = "raytracing_benchmark R=100"
 DRIVER_LANES = 4             # drivers run at once, besides the harness
-_CHEB_LOOP = ("cheb_sweep_rates", "cheb_trace_rates", "extract_boxes",
+_CHEB_LOOP = ("cheb_sweep_rates", "cheb_trace_sweep", "extract_boxes",
               "accumulate_boxes", "chemistry_pass")
 # label, module under pyc2ray_torch, arguments (each driver's defaults
 # otherwise), kernels that must launch, the lines of its output to show
@@ -2618,8 +2814,8 @@ DRIVERS = (
     (RTB_R100, "examples.raytracing_benchmark",
      ["-N", "250", "--R", "100", "--numsrc", "100", "--sed", "bb",
       "--json", "rtb.json"],
-     ("cheb_sweep_seg", "extract_boxes", "accumulate_boxes"),
-     r"^R=|^CUDA kernels"),
+     ("cheb_sweep_seg", "init_segments", "rates_dense", "cheb_trace_sweep",
+      "extract_boxes", "accumulate_boxes"), r"^R=|^CUDA kernels"),
     ("raytracing_benchmark he", "examples.raytracing_benchmark",
      ["--engine", "he", "-N", "256", "--R", "30", "--numsrc", "256"],
      ("cheb_sweep", "extract_boxes", "accumulate_boxes"), r"^R="),
@@ -2632,7 +2828,7 @@ DRIVERS = (
     ("stromgren_cosmo", "examples.stromgren_cosmo", [], ("chemistry_pass",),
      r"monotonic|final redshift|PASSED|FAILED"),
     ("heating_test", "examples.heating_test", [],
-     ("cheb_sweep_rates_heat", "cheb_trace_rates", "extract_boxes",
+     ("cheb_sweep_rates_heat", "cheb_trace_sweep", "extract_boxes",
       "accumulate_boxes", "chemistry_pass"), r"PASSED|FAILED"),
     ("single_source_test", "examples.single_source_test", [],
      ("chemistry_pass",), r"Mean ionized|PASSED|FAILED"),
@@ -2647,7 +2843,8 @@ DRIVERS = (
     ("chemistry_solver", "tutorials.chemistry_solver", [],
      ("chemistry_pass",), r"equilibrium"),
     ("raytracing cheb", "tutorials.raytracing", ["--engine", "cheb"],
-     ("cheb_sweep", "extract_boxes", "accumulate_boxes"),
+     ("cheb_sweep", "rates_dense", "cheb_trace_sweep", "extract_boxes",
+      "accumulate_boxes"),
      r"^Gamma field|photon budget"),
     ("raytracing flat", "tutorials.raytracing", ["--engine", "flat"], (),
      r"^Gamma field|photon budget"),
@@ -3049,7 +3246,7 @@ def p5_check_trace(wd, ranks, tag, k3_phi, phi3):
             f"{1e9 * a['seconds'] / updates:.4f} ns/cell-update, K3 "
             f"launches {k3}; collectives {_ms(a['traffic'])}")
         want = {k: 0 for k in a["launches"]}
-        want.update(loop_counts(k3, 1), cheb_sweep_rates=k3)
+        want.update(trace_launches(FOLD, k3))
         if k3 != NS_BENCH // B_BENCH // P5_RANKS or a["launches"] != want:
             raise RuntimeError(f"5a rank {r}: launches {a['launches']}, "
                                f"expected {want}")
@@ -3230,6 +3427,17 @@ def main():
             f"({ns_bin:.6f} ns per cell and bin), measured "
             f"{res['ms']:.4f} ms")
 
+    # ---- 2e. the dense rate pass of the unfused modes vs its plain version
+    k_dense = check_rates(N_BENCH, R_BENCH, B_BENCH, torch.float32, seed=5,
+                          reps=10, bins=bins, ns_bin=ns_bin)
+    k_dense_r100 = check_rates(N_R100, R_R100, B_BENCH, torch.float32,
+                               seed=3, reps=3, bins=bins, ns_bin=ns_bin)
+    # N=16, R=8 clips the box (with S=3 segments); R=6 rates a subbox
+    check_rates(16, 8.0, 2, torch.float64, seed=6, reps=3, bins=bins,
+                zero_cell=True, shell_segment=3)
+    check_rates(16, 6.0, 2, torch.float64, seed=6, reps=3, bins=bins,
+                zero_cell=True)
+
     # ---- 2d. K1 at the helium engine's three cross sections -------------
     bins_he = he_bins()
     k_he = check_sweep_he(bins_he, reps=20)
@@ -3279,17 +3487,18 @@ def main():
             f"{int((its == MAX_INNER_ITER).sum())}; "
             f"{time.time() - t0:.4f} s")
     counts = dict(sweep.launches)
-    launches = counts.pop("cheb_sweep")
-    boxes_launches = [counts.pop(k) for k in ("extract_boxes",
-                                               "accumulate_boxes")]
-    chem_launches = counts.pop("chemistry_pass")
-    if (launches != nbatch or boxes_launches != [nbatch] * 2
-            or chem_launches != 1 or any(counts.values())):
-        raise RuntimeError(f"sweep kernel launched {launches} times on the "
-                           f"main path, extract and accumulate "
-                           f"{boxes_launches}, expected one per batch "
-                           f"({nbatch}); chemistry_pass {chem_launches}, "
-                           f"expected 1; other kernels {counts}")
+    want = {k: 0 for k in counts}
+    want.update(trace_launches(rt._sweep_mode(), nbatch), chemistry_pass=1)
+    if counts != want:
+        raise RuntimeError(f"main path: kernel launches {counts}, expected "
+                           f"{want} (one trace loop, one K1, rate pass, "
+                           f"extract and accumulate per batch, one "
+                           f"chemistry pass)")
+    launches = counts["cheb_sweep"]
+    dense_launches = counts["rates_dense"]
+    sweep_loop_launches = counts["cheb_trace_sweep"]
+    boxes_launches = [counts[k] for k in ("extract_boxes",
+                                          "accumulate_boxes")]
     # the chemistry kernel against the plain pass on this Gamma; each
     # cell's iterations those of the plain loop
     _, its_k = chemistry_check("bench chemistry (256^3 float32, this "
@@ -3310,9 +3519,10 @@ def main():
     log(f"main path N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32 "
         f"bins={bins.num_bins}: raytrace {t_ray:.4f} s = {ns_cell:.4f} "
         f"ns/cell-update, chemistry {t_chem:.4f} s, raytrace+chem "
-        f"{mcell:.2f} Mcell-updates/s, sweep launches {launches}, extract "
-        f"and accumulate {boxes_launches[0]} each (batches {nbatch}), "
-        f"conv_flag {int(cf)}")
+        f"{mcell:.2f} Mcell-updates/s, sweep launches {launches}, rate "
+        f"passes {dense_launches}, extract and accumulate "
+        f"{boxes_launches[0]} each (batches {nbatch}), trace loops "
+        f"{sweep_loop_launches}, conv_flag {int(cf)}")
     br = stage_breakdown(rt, ndens, xh, pos_b, flux_b, 16)
     log("per-batch device ms: " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in br.items()))
@@ -3321,6 +3531,22 @@ def main():
         f"is drained before each batch, so this holds the host's time to "
         f"enqueue), alone {k_bench['ms']:.4f} ms per call "
         f"({plan_text('cheb_sweep')})")
+    # the main path's trace loop against the loop before it: on this
+    # trace's frame bit for bit with its ms (the kernels line), then the
+    # whole trace before and after with its launches and copies per batch
+    pad3 = rt.wrap_pad(ndens.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3)))
+    k_sweep_loop = loop_against_plain(f"default bench N={N} B={B_BENCH}", rt,
+                                      pad3, pos_b, flux_b, reps=2)
+    b_ms, b_by = least_ms(*loop_work(rt, pad3, pos_b), dt)
+    k_sweep_loop.update(bound_ms=b_ms, bound_by=b_by)
+    log(f"  default bench trace loop: bound_ms={b_ms:.4f} ({b_by}) per "
+        f"trace of {nbatch} batches (extract, K1, rate pass, accumulate)")
+    del pad3
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_before_after(
+            f"default bench N={N} B={B_BENCH}", [rt],
+            lambda: rt.trace_batches(ndens, xh, pos_b, flux_b, DR)[0],
+            nbatch, tmp)
 
     # the same trace of the first 16 sources on the GPU and on the CPU
     rt_cpu = ChebRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
@@ -3343,7 +3569,7 @@ def main():
                             dtype=dt, **{mode: True})
         phi_f, _, counts = run_path(
             rtf, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
-            {kname: nbatch, **loop_counts(nbatch, mode == "fuse_fold")},
+            trace_launches(rtf._sweep_mode(), nbatch),
             f"{mode} N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32",
             chem)
         fused_launches[kname] = counts[kname]
@@ -3353,11 +3579,11 @@ def main():
                 1e-6)
         if mode == "fuse_fold":
             k3_phi = phi_f.cpu()        # phase 5a's single-rank reference
-            with tempfile.TemporaryDirectory() as tmp:
-                loop_before_after(
-                    f"fuse_fold bench N={N} B={B_BENCH}", [rtf],
-                    lambda: rtf.trace_batches(ndens, xh, pos_b, flux_b,
-                                              DR)[0], nbatch, tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            loop_before_after(
+                f"{mode} bench N={N} B={B_BENCH}", [rtf],
+                lambda: rtf.trace_batches(ndens, xh, pos_b, flux_b, DR)[0],
+                nbatch, tmp)
         br = stage_breakdown(rtf, ndens, xh, pos_b, flux_b, 16)
         log("  per-batch device ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in br.items()))
@@ -3375,15 +3601,19 @@ def main():
             raise RuntimeError("R=100: auto did not segment the sweep")
         hp, hf = rth.prepare_sources(h_pos, np.ones(NS_R100))
         nb = hp.shape[0]
-        expect = ({"cheb_sweep_seg": rth.seg_K * nb} if rth.seg_S
-                  else {"cheb_sweep": nb})
-        expect.update(loop_counts(nb))
+        label = (f"R=100 harness N={nh} Ns={NS_R100} B={B_BENCH} float32 "
+                 f"shell_segment={seg!r} (S={rth.seg_S}, K={rth.seg_K})")
         h_phi[seg], _, counts = run_path(
-            rth, h_nd, h_xh, hp, hf, cell_updates(NS_R100, R_R100), expect,
-            f"R=100 harness N={nh} Ns={NS_R100} B={B_BENCH} float32 "
-            f"shell_segment={seg!r} (S={rth.seg_S}, K={rth.seg_K})")
+            rth, h_nd, h_xh, hp, hf, cell_updates(NS_R100, R_R100),
+            trace_launches(rth._sweep_mode(), nb), label)
         if seg == "auto":
             seg_launches = counts["cheb_sweep_seg"]
+            init_launches = counts["init_segments"]
+        with tempfile.TemporaryDirectory() as tmp:
+            loop_before_after(
+                label, [rth],
+                lambda: rth.trace_batches(h_nd, h_xh, hp, hf, DR)[0], nb,
+                tmp)
         del rth
     compare("segmented Gamma vs monolithic", h_phi["auto"], h_phi[0], 1e-6)
     log("  segmented Gamma equals monolithic bit for bit: "
@@ -3400,9 +3630,15 @@ def main():
                  f"R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32")
         phi_h, heat_f[fold], counts = run_path(
             rth, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
-            {kname: nbatch, **loop_counts(nbatch, fold)}, label, chem)
+            trace_launches(rth._sweep_mode(), nbatch), label, chem)
         if fold:
             heat_launches = counts[kname]
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                loop_before_after(
+                    f"do_heating bench N={N} B={B_BENCH} (Gamma and heat)",
+                    [rth], lambda: torch.stack(rth.trace_batches(
+                        ndens, xh, pos_b, flux_b, DR)), nbatch, tmp)
         compare(f"{'K3h' if fold else 'K1 + rate pass'} Gamma vs phase 3's",
                 phi_h, phi, 1e-4, 1e-6)
         br = stage_breakdown(rth, ndens, xh, pos_b, flux_b, 16)
@@ -3518,7 +3754,7 @@ def main():
     # ---- 4c. the entry point: the heating example through C2Ray_Test ------
     sim, n_iter, counts, t_sim = heating_example("cheb")
     n_k3h = counts.pop("cheb_sweep_rates_heat")
-    n_loop = counts.pop("cheb_trace_rates")
+    n_loop = counts.pop("cheb_trace_sweep")
     n_box = [counts.pop(k) for k in ("extract_boxes", "accumulate_boxes")]
     n_chem = counts.pop("chemistry_pass")
     g_h = sim.raytracer.geom
@@ -3637,12 +3873,10 @@ def main():
              launches_per_rank_5b=k3_5b, **k_eor),
         dict(name="cheb_sweep_rates_heat", source=src + "cheb_sweep_rates.cu",
              replaces=tpu + "669", launches=heat_launches, **k_heat),
-        # the port's own kernels (no TPU kernel: XLA's gather,
-        # dynamic_update_slice scan and jit + lax.scan batch loop in the
-        # JAX engine), launches over the EoR run's timesteps, every other
-        # number per call on the inputs of 4e's profiled trace
-        # (eor_trace_kernels): the box kernels' device times, the loop's
-        # CUDA-event time per cheb_trace_rates call
+        # the port's own kernels (no TPU kernel: XLA's gather and
+        # dynamic_update_slice scan in the JAX engine), launches over the
+        # EoR run's timesteps, every other number per call on the inputs of
+        # 4e's profiled trace (eor_trace_kernels): device times
         dict(name="extract_boxes", source=src + "trace_loop.cu",
              replaces=jax_rt + "1082",
              launches=eor_counts["extract_boxes"], **k_loop["extract"]),
@@ -3650,9 +3884,33 @@ def main():
              replaces=jax_rt + "1223",
              launches=eor_counts["accumulate_boxes"],
              **k_loop["accumulate"]),
-        dict(name="cheb_trace_rates", source=src + "trace_loop.cu",
+        # the port's own kernels of the unfused modes (no TPU kernel: XLA's
+        # fusion of _rates, the code around the segments of
+        # _sweep_pallas_segmented): launches over phase 3's main path
+        # (init_segments: 3b's auto-segmented R = 100 trace, its own path),
+        # every other number per call at the bench shape from 2e
+        # (init_segments at the R = 100 shape), the heat channel's and the
+        # R = 100 shape's beside
+        dict(name="rates_dense", source=src + "cheb_rates.cu",
+             replaces=jax_rt + "1028", launches=dense_launches,
+             **k_dense["photo"], with_heat=k_dense["heat"],
+             at_r100=k_dense_r100["photo"],
+             with_heat_at_r100=k_dense_r100["heat"]),
+        dict(name="init_segments", source=src + "cheb_sweep.cu",
+             replaces=jax_rt + "681", launches=init_launches,
+             **k_dense_r100["init"]),
+        # the trace loop (no TPU kernel: the JAX engine's jit + lax.scan
+        # batch loop), one call per trace in every mode: its launches over
+        # phase 3's main path (the default mode) and the EoR run's
+        # timesteps (fuse_fold), every other number per trace of phase 3's
+        # frame (CUDA events), and per call on the inputs of 4e's profiled
+        # trace beside them
+        dict(name="cheb_trace_sweep", source=src + "trace_loop.cu",
              replaces=jax_rt + "346",
-             launches=eor_counts["cheb_trace_rates"], **k_loop["loop"]),
+             launches=sweep_loop_launches + eor_counts["cheb_trace_sweep"],
+             launches_default_bench=sweep_loop_launches,
+             launches_fuse_fold_eor=eor_counts["cheb_trace_sweep"],
+             **k_sweep_loop, fuse_fold_eor=k_loop["loop"]),
         # the chemistry passes (no TPU kernel: the JAX package's jitted
         # lax.while_loop), launches over the EoR run's timesteps (4e) and
         # the helium model's (4g), every other number per pass on the EoR

@@ -19,9 +19,10 @@ from pathlib import Path
 __all__ = ["load", "NVCC_FLAGS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cheb_sweep", "cheb_sweep_rates", "trace_loop",
+SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
            "chemistry")                   # csrc/<name>.cu
-HEADERS = ("cheb_sweep.cuh", "cheb_sweep_rates.cuh")
+HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
+           "cheb_rates.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -37,15 +38,25 @@ _SIGNATURES = {
         "cheb_sweep": [_P] * 8 + _LAUNCH,
         "cheb_sweep_gamma": [_P] * 12 + [_I, _D, _D] + _LAUNCH,
         "cheb_sweep_seg": [_P] * 10 + [_I, _I] + _LAUNCH,
+        # nhi, box, planes; B, Dc, c; dr; stream
+        "cheb_init_segments": [_P] * 3 + [_I] * 3 + [_D, _P],
     },
     "cheb_sweep_rates": {
         "cheb_sweep_rates": [_P] * 16 + [_I, _D, _D, _I] + _LAUNCH,
+    },
+    "cheb_rates": {
+        # cd, nhi, rt_sub, flux, bins_s, bins_w, bins_wh, phi, heat; B, E,
+        # Dc, Ds, rb0; dr, sig, sdr3; stream
+        "rates_dense": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_P],
     },
     "trace_loop": {
         # extract (else accumulate), frames, boxes, channels, pos, batch,
         # B, D, shift, F0, F1, F2, stream
         "boxes": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P],
-        "cheb_trace_rates": [_P] * 20 + [_I, _D, _D] + [_I] * 5 + _LAUNCH,
+        # 22 pointers and the scratch; mode, E, R2, sdr3, s_fac,
+        # threads_b, rb0, Ds, seg_S, seg_K, F0, F1, F2, nb
+        "cheb_trace_sweep": [_P] * 23 + [_I, _I, _D, _D, _D] + [_I] * 9
+        + _LAUNCH,
     },
     "chemistry": {
         # dt (pointer, kind, value), the fields, mask, outputs, count and

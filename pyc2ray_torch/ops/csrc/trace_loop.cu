@@ -1,15 +1,16 @@
 // The batch loop of a Chebyshev-face trace on NVIDIA Hopper (sm_90a): the
 // box extract, the ordered accumulate, and the loop that issues a whole
-// fuse_fold trace (K3 / K3h) from the host side of the library.
+// trace in any sweep mode from the host side of the library.
 //
 // Counterpart of the JAX engine's compiled trace (pyc2ray_tpu/ops/
 // raytrace_cheb.py: _trace_jit, the lax.scan over batches with
-// _extract_boxes, _sweep_fold_rates and the per-source
-// dynamic_update_slice accumulate), which XLA runs on the device with one
-// host call per trace. No TPU kernel of its own: the extract and the
-// accumulate are XLA's there; here they are the port's own kernels. Plain
-// versions: pyc2ray_torch/ops/trace_loop.py::extract_boxes_ref and
-// add_boxes; of the loop, trace_loop.py::cheb_trace_rates_ref.
+// _extract_boxes, the sweep mode (_sweep_pallas with _rates, or
+// _sweep_fold_rates) and the per-source dynamic_update_slice accumulate),
+// which XLA runs on the device with one host call per trace. No TPU kernel
+// of its own: the extract and the accumulate are XLA's there; here they are
+// the port's own kernels. Plain versions: pyc2ray_torch/ops/trace_loop.py::
+// extract_boxes_ref and add_boxes; of the loop, trace_loop.py::
+// cheb_trace_sweep_ref.
 //
 //   extract_boxes_kernel     the (B, D, D, D) boxes of the extended frame
 //                            at a batch's box corners, for up to
@@ -17,9 +18,16 @@
 //   accumulate_boxes_kernel  adds a batch's B boxes of side D into the
 //                            frame at corner + shift, source by source in
 //                            batch order, for up to kMaxChannels frames.
-//   trace_rates              per batch: extract -> K3 phase A -> phase B ->
-//                            accumulate, all on one stream, nothing
-//                            synchronizing with the host.
+//   trace_sweep              per batch, all on one stream, nothing
+//                            synchronizing with the host: extract -> K1 ->
+//                            the dense rate pass (cheb_rates.cuh) ->
+//                            accumulate at shift rb0 (the default mode,
+//                            with do_heating the heat beside Gamma); extract
+//                            -> the segmented sweep's start -> K2 x seg_K ->
+//                            the rate pass -> accumulate (shell_segment);
+//                            extract -> K1f -> accumulate (fuse_rates);
+//                            extract -> K3 phase A -> phase B -> accumulate
+//                            (fuse_fold, K3h with do_heating).
 //
 // Both kernels take the positions of the whole trace, (nb, B, 3) int32 on
 // the device, and a batch index, so a trace copies its positions to the card
@@ -49,6 +57,8 @@
 // arithmetic within a plane is 32-bit (a 64-bit division per cell would
 // cost more than the cell's bytes).
 
+#include "cheb_rates.cuh"
+#include "cheb_sweep_kernels.cuh"
 #include "cheb_sweep_rates.cuh"
 
 namespace {
@@ -165,51 +175,137 @@ Channels<T> channels(void* const* frames, void* const* boxes, int n) {
   return ch;
 }
 
-// The fuse_fold trace of nb batches: per batch the nHI boxes out of
-// `frame`, K3 (K3h with `heat_frame`) into the rate boxes, and their
-// accumulate into `phi_frame` (and `heat_frame`), which the caller zeroed.
-// The tables and the plan are made once. With spec.max_clusters only ask
-// how many of phase A's clusters fit.
+// The sweep modes of trace_sweep: the sweep K1 or K2 then the dense rate
+// pass, K1f with its rates inside, or K3 (K3h with the heat channel) with
+// sweep, box and rates fused.
+enum SweepMode { kSweepK1 = 0, kSweepK2 = 1, kSweepK1f = 2, kSweepK3 = 3 };
+
+// The pointers of a trace_sweep call beside the sweep's tables.
+struct SweepLoopBufs {
+  const void* frame;      // the nHI frame (F0, F1, F2)
+  const int* pos;         // (nb, B, 3) box corners
+  const void* flux;       // (nb, B)
+  const void* rt_tab;     // (Dc, 2, Dc, Dc), the rates table of K1f and K3
+  const void* rt_sub;     // (3, Ds, Ds, Ds), the rate pass's table
+  const void* bins_s;
+  const void* bins_w;
+  const void* bins_wh;    // null without the heat channel
+  void* phi_frame;        // zeroed by the caller
+  void* heat_frame;       // null without the heat channel
+  void* boxes;            // (B, Dc, Dc, Dc) scratch: the nHI boxes
+  void* work[2];          // (B, Dc, Dc, Dc) scratch each: the sweep's box
+                          // (K1, K2) in work[0]; K3's cdin and dcol boxes
+  void* phi;              // (B, Ds^3) rate boxes, (B, Dc^3) with K1f, K3
+  void* heat;             // the same, null without the heat channel
+  void* planes[2];        // (B, 3, 2, Dc, Dc) each: K2's carried planes
+  void* scratch;          // the sweep's planes where they are not shared
+};
+
+// The scalars of a trace_sweep call beside the sweep's launch arguments.
+struct SweepLoopArgs {
+  int nb, mode, E;
+  double R2;              // K1f: the squared radius
+  double sdr3, s_fac;     // S* / dr^3, and S* dr / dr^3 (K3)
+  int threads_b;          // K3's phase B: threads per block
+  int rb0, Ds;            // the rate pass's subbox
+  int seg_S, seg_K;       // K2: shells per segment, segments
+  int F0, F1, F2;         // the frame's extents
+};
+
+// The trace of nb batches in sweep mode `mode` (see SweepMode): per batch
+// the nHI boxes out of the frame, the mode's sweep and rates, and the
+// accumulate of the rate boxes into phi_frame (and heat_frame). The tables,
+// the plan and the rate pass's constants are made once. With
+// spec.max_clusters only ask how many of the sweep's clusters (K3: of its
+// phase A) fit.
 template <typename T>
-int trace_rates(const void* frame, const int* pos, const void* flux, int nb,
+int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
                 const void* sw, const void* path, const void* diag,
-                const void* mask_m, const void* mask_p, const void* rt,
-                const void* bins_s, const void* bins_w, const void* bins_wh,
-                void* phi_frame, void* heat_frame, void* boxes, void* phi,
-                void* heat, void* ci, void* dc, void* scratch, int E,
-                double s_fac, double sdr3, int threads_b, int F0, int F1,
-                int F2, int Dc, int c, int R1, double dr, double sig,
-                const LaunchSpec& spec) {
+                const void* mask_m, const void* mask_p, int Dc, int c, int R1,
+                double dr, double sig, const LaunchSpec& spec) {
   const cudaStream_t st = static_cast<cudaStream_t>(spec.stream);
   const Tables<T> tb = make_tables<T>(sw, path, diag, mask_m, mask_p, Dc, c,
                                       R1, dr, sig);
-  Plan pl;
-  const cudaError_t err = make_plan<T>(spec, Dc, 0, false, &pl);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool with_heat = heat_frame != nullptr;
-  if ((heat != nullptr) != with_heat || (bins_wh != nullptr) != with_heat)
+  const int mode = s.mode;
+  const bool gamma = mode == kSweepK1f, whole = mode >= kSweepK1f;
+  const bool with_heat = a.heat_frame != nullptr;
+  if (mode < kSweepK1 || mode > kSweepK3 || (gamma && with_heat) ||
+      (a.heat != nullptr) != with_heat || (a.bins_wh != nullptr) != with_heat ||
+      (mode == kSweepK2 && (s.seg_S < 1 || s.seg_K < 1 || !a.planes[0] ||
+                            !a.planes[1])) ||
+      (mode == kSweepK3 && !a.work[1]))
     return cudaErrorInvalidValue;
-  RatesCall<T> k{static_cast<const T*>(boxes), static_cast<const T*>(rt),
-                 static_cast<const T*>(bins_s), static_cast<const T*>(bins_w),
-                 static_cast<const T*>(bins_wh), static_cast<const T*>(flux),
-                 static_cast<T*>(phi), static_cast<T*>(heat),
-                 static_cast<T*>(ci), static_cast<T*>(dc),
-                 static_cast<T*>(scratch), E, threads_b,
-                 static_cast<T>(s_fac), static_cast<T>(sdr3)};
-  if (spec.max_clusters != nullptr) return launch_rates<T>(tb, pl, spec, k);
-  void* src[1] = {const_cast<void*>(frame)};
-  void* nhi_box[1] = {boxes};
-  void* frames[2] = {phi_frame, heat_frame};
-  void* rates[2] = {phi, heat};
+  Plan pl;
+  const cudaError_t err = make_plan<T>(spec, Dc, gamma ? 2 * s.E : 0, gamma,
+                                       &pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using P = const T*;
+  P nhi = static_cast<P>(a.boxes), fl = static_cast<P>(a.flux);
+  P rt_tab = static_cast<P>(a.rt_tab);
+  P bins_s = static_cast<P>(a.bins_s), bins_w = static_cast<P>(a.bins_w);
+  T* cd = static_cast<T*>(a.work[0]);
+  T* phi = static_cast<T*>(a.phi);
+  T* const planes[2] = {static_cast<T*>(a.planes[0]),
+                        static_cast<T*>(a.planes[1])};
+  T* sc = static_cast<T*>(a.scratch);
+  RatesCall<T> k3{nhi, rt_tab, bins_s, bins_w, static_cast<P>(a.bins_wh), fl,
+                  phi, static_cast<T*>(a.heat), cd,
+                  static_cast<T*>(a.work[1]), sc, s.E, s.threads_b,
+                  static_cast<T>(s.s_fac), static_cast<T>(s.sdr3)};
+  if (spec.max_clusters != nullptr) {
+    if (gamma)
+      return launch_gamma<T>(tb, pl, spec, nhi, rt_tab, fl, bins_s, bins_w,
+                             s.E, T(s.R2), T(s.sdr3), phi, sc);
+    if (mode == kSweepK2)
+      return launch_seg<T>(tb, pl, spec, nhi, planes[0], planes[1], 1, 1, cd,
+                           sc);
+    if (mode == kSweepK3) return launch_rates<T>(tb, pl, spec, k3);
+    return launch_sweep<T>(tb, pl, spec, nhi, cd, sc);
+  }
+  DenseRates<T> rates{cd, nhi, static_cast<P>(a.rt_sub), fl, bins_s, bins_w,
+                      static_cast<P>(a.bins_wh), phi, static_cast<T*>(a.heat),
+                      spec.B, s.E, Dc, s.Ds, s.rb0, static_cast<T>(dr),
+                      static_cast<T>(sig), static_cast<T>(s.sdr3)};
+  void* src[1] = {const_cast<void*>(a.frame)};
+  void* nhi_box[1] = {a.boxes};
+  void* frames[2] = {a.phi_frame, a.heat_frame};
+  void* out[2] = {a.phi, a.heat};
   const Channels<T> in = channels<T>(src, nhi_box, 1);
-  const Channels<T> out = channels<T>(frames, rates, with_heat ? 2 : 1);
-  BoxSet bs{pos, 0, spec.B, Dc, 0, F0, F1, F2};
-  for (int b = 0; b < nb; ++b) {
-    bs.batch = b;
-    k.flux = static_cast<const T*>(flux) + size_t(b) * spec.B;
-    int rc = launch_boxes<T>(true, in, bs, st);
-    if (rc == 0) rc = launch_rates<T>(tb, pl, spec, k);
-    if (rc == 0) rc = launch_boxes<T>(false, out, bs, st);
+  const Channels<T> acc = channels<T>(frames, out, with_heat ? 2 : 1);
+  BoxSet ex{a.pos, 0, spec.B, Dc, 0, s.F0, s.F1, s.F2};
+  BoxSet ac{a.pos, 0, spec.B, whole ? Dc : s.Ds, whole ? 0 : s.rb0,
+            s.F0, s.F1, s.F2};
+  for (int b = 0; b < s.nb; ++b) {
+    ex.batch = ac.batch = b;
+    const T* flux_b = fl + size_t(b) * spec.B;
+    int rc = launch_boxes<T>(true, in, ex, st);
+    if (rc == 0) switch (mode) {
+        case kSweepK1:
+          rc = launch_sweep<T>(tb, pl, spec, nhi, cd, sc);
+          break;
+        case kSweepK2:
+          rc = launch_init_segments<T>(nhi, cd, planes[0], spec.B, Dc, c,
+                                       T(dr), st);
+          for (int k = 0; k < s.seg_K && rc == 0; ++k) {
+            const int r0 = 1 + k * s.seg_S;
+            const int r1 = r0 + s.seg_S < R1 ? r0 + s.seg_S : R1;
+            rc = launch_seg<T>(tb, pl, spec, nhi, planes[k & 1],
+                               planes[(k + 1) & 1], r0, r1, cd, sc);
+          }
+          break;
+        case kSweepK1f:
+          rc = launch_gamma<T>(tb, pl, spec, nhi, rt_tab, flux_b, bins_s,
+                               bins_w, s.E, T(s.R2), T(s.sdr3), phi, sc);
+          break;
+        default:
+          k3.flux = flux_b;
+          rc = launch_rates<T>(tb, pl, spec, k3);
+      }
+    if (rc == 0 && !whole) {
+      rates.flux = flux_b;
+      rc = launch_rates_dense<T>(rates, st);
+    }
+    if (rc == 0) rc = launch_boxes<T>(false, acc, ac, st);
     if (rc != 0) return rc;
   }
   return 0;
@@ -234,32 +330,39 @@ extern "C" {
 BOXES_ENTRY(boxes_f32, float)
 BOXES_ENTRY(boxes_f64, double)
 
-// The fuse_fold trace of nb batches (trace_rates above), on `stream`, with
-// K3's launch arguments and plan as cheb_sweep_rates_* takes them. Returns
+// The trace of nb batches in the sweep mode `mode` (0: K1 + the rate pass,
+// 1: K2 over seg_K segments of seg_S shells + the rate pass, 2: K1f, 3: K3,
+// K3h with the heat channel; see trace_sweep above) on `stream`, with the
+// sweep's launch arguments and plan as its entry points take them. Returns
 // the first cudaError_t that is not cudaSuccess; with `max_clusters` set it
-// launches nothing and writes there how many of phase A's clusters are
+// launches nothing and writes there how many of the sweep's clusters are
 // resident at once.
-#define CHEB_TRACE_RATES_ENTRY(NAME, TYPE)                                     \
+#define CHEB_TRACE_SWEEP_ENTRY(NAME, TYPE)                                     \
   int NAME(const void* frame, const int* pos, const void* flux,               \
            const void* sw, const void* path, const void* diag,                \
-           const void* mask_m, const void* mask_p, const void* rt,            \
-           const void* bins_s, const void* bins_w, const void* bins_wh,       \
-           void* phi_frame, void* heat_frame, void* boxes, void* phi,         \
-           void* heat, void* ci, void* dc, void* scratch, int E,              \
-           double s_fac, double sdr3, int threads_b, int F0, int F1, int F2,  \
-           int nb, int B, int Dc, int c, int R1, double dr, double sig,       \
-           int threads, int cluster, int shared_planes, int smem,             \
-           int rate_threads, int ring, int* max_clusters, void* stream) {     \
-    return trace_rates<TYPE>(                                                  \
-        frame, pos, flux, nb, sw, path, diag, mask_m, mask_p, rt, bins_s,      \
-        bins_w, bins_wh, phi_frame, heat_frame, boxes, phi, heat, ci, dc,      \
-        scratch, E, s_fac, sdr3, threads_b, F0, F1, F2, Dc, c, R1, dr, sig,    \
+           const void* mask_m, const void* mask_p, const void* rt_tab,        \
+           const void* rt_sub, const void* bins_s, const void* bins_w,        \
+           const void* bins_wh, void* phi_frame, void* heat_frame,            \
+           void* boxes, void* work0, void* work1, void* phi, void* heat,      \
+           void* planes0, void* planes1, void* scratch, int mode, int E,      \
+           double R2, double sdr3, double s_fac, int threads_b, int rb0,      \
+           int Ds, int seg_S, int seg_K, int F0, int F1, int F2, int nb,      \
+           int B, int Dc, int c, int R1, double dr, double sig, int threads,   \
+           int cluster, int shared_planes, int smem, int rate_threads,        \
+           int ring, int* max_clusters, void* stream) {                       \
+    return trace_sweep<TYPE>(                                                  \
+        SweepLoopBufs{frame, pos, flux, rt_tab, rt_sub, bins_s, bins_w,        \
+                      bins_wh, phi_frame, heat_frame, boxes, {work0, work1},   \
+                      phi, heat, {planes0, planes1}, scratch},                 \
+        SweepLoopArgs{nb, mode, E, R2, sdr3, s_fac, threads_b, rb0, Ds, seg_S, \
+                      seg_K, F0, F1, F2},                                      \
+        sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig,                    \
         LaunchSpec{B, threads, cluster, shared_planes, smem, rate_threads,     \
                    ring, max_clusters, stream});                               \
   }
 
-CHEB_TRACE_RATES_ENTRY(cheb_trace_rates_f32, float)
-CHEB_TRACE_RATES_ENTRY(cheb_trace_rates_f64, double)
+CHEB_TRACE_SWEEP_ENTRY(cheb_trace_sweep_f32, float)
+CHEB_TRACE_SWEEP_ENTRY(cheb_trace_sweep_f64, double)
 
 const char* trace_loop_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -12,9 +12,10 @@ sources:
        - default: sweep the cube shells to the coldensh_out box (K1,
          ``sweep.cheb_sweep``), then evaluate the spectral-bin
          photoionization rates densely over the central rates subbox
-         (``_rates``);
+         (``_rates``: the kernel of ops/cheb_rates.py);
        - ``shell_segment``: the same sweep as K segments of S shells with
-         carried planes (K2, ``_sweep_segmented``), then ``_rates``;
+         carried planes (K2, ``sweep.cheb_sweep_segmented``), then
+         ``_rates``;
        - ``fuse_rates``: the sweep evaluates the Gamma of every face cell
          (K1f), the source cell by its closed form
          (``sweep.source_cell_rate``), in one call;
@@ -25,14 +26,14 @@ sources:
      ``trace_loop.accumulate_boxes``).
 
 After the last batch the padding is folded back onto the periodic grid
-(``_fold_padding``). A trace copies its positions to the device once. With
-``fuse_fold`` (what the model layer builds) the whole batch loop is one
-call, ``trace_loop.cheb_trace_rates``: on the card a loop in C issues the
-four launches of every batch, the counterpart of the JAX engine's jitted
-``lax.scan``; the other modes loop over batches in Python around the same
-extract and accumulate kernels. ``trace_extended_plain`` keeps the loop as
-it was issued before (a gather, the sweep mode, one slice add per source),
-the reference the card holds the loop against.
+(``_fold_padding``). A trace copies its positions to the device once, and
+its whole batch loop is one call of ``trace_loop.cheb_trace_sweep`` in
+every mode (``fuse_fold`` is what the model layer builds), the counterpart
+of the JAX engine's jitted ``lax.scan``; on the card a loop in C issues the
+launches of every batch.
+``trace_extended_plain`` keeps the loop as it was issued before (a gather,
+the sweep mode with the plain rate pass, one slice add per source), the
+reference the card holds the loop against.
 
 With ``do_heating`` every mode also returns the photoheating rate per HI
 atom: the rate pass and ``fuse_fold`` (K3h) sum the heating weights
@@ -52,18 +53,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..constants import S_STAR_REF, MAX_COLDENSH
 from ..device import resolve_device
 from ..radiation.spectral_bins import SpectralBins
 from .cheb_geometry import (ChebGeometry, box_dims, build_cheb_geometry,
                             pack_rates_tables)
+from .cheb_rates import rates_dense
 from .geometry import max_q_for
 from .raytrace import RaytraceConfig
-from .sweep import cheb_sweep, cheb_sweep_seg, init_planes
-from .trace_loop import (accumulate_boxes, add_boxes, cheb_trace_rates,
-                         cheb_trace_rates_ref, extract_boxes,
-                         extract_boxes_ref, fold_padding, stage_positions,
-                         wrap_pad)
+from .sweep import cheb_sweep, cheb_sweep_segmented, rate_consts
+from .trace_loop import (cheb_trace_sweep, cheb_trace_sweep_ref, fold_padding,
+                         stage_positions, wrap_pad)
 
 __all__ = ["ChebRaytracer", "ChebTables", "shell_segmentation"]
 
@@ -225,92 +224,29 @@ class ChebRaytracer:
                                                         self.dtype))
 
     def _rates(self, cd, nhi_box, flux, dr):
-        """Dense spectral-bin rate pass over the central rates subbox.
-
-        Inputs are full (B, Dc, Dc, Dc) boxes and ``dr`` a 0-dim tensor of
-        the engine's dtype; returns (phi, heat) of shape (B, Ds, Ds, Ds), to
-        be accumulated at box position + rb0; heat is None without
-        ``do_heating``."""
+        """The dense spectral-bin rate pass over the central rates subbox
+        (ops/cheb_rates.py::rates_dense: the plain version for CPU boxes,
+        the kernel for CUDA ones). ``cd`` and ``nhi_box`` are full (B, Dc,
+        Dc, Dc) boxes, ``flux`` (B,) and ``dr`` a float; returns (phi, heat)
+        of shape (B, Ds, Ds, Ds), to be accumulated at box position + rb0;
+        heat is None without ``do_heating``."""
         tb = self.tables
-        dt, dev = self.dtype, self.device
-        sig = torch.tensor(self.sig, dtype=dt).to(dev)
-        b0, b1 = self._rb0, self._rb1
-        cd = cd[:, b0:b1, b0:b1, b0:b1]
-        nhi_box = nhi_box[:, b0:b1, b0:b1, b0:b1]
-        path3, geominv = tb.rt_sub[0], tb.rt_sub[1]
-        dcol = nhi_box * (path3[None] * dr)
-        cdin = cd - dcol
-        tau_in = cdin * sig
-        dtau = dcol * sig
-
-        s_over_dr3 = torch.exp(
-            torch.tensor(np.log(S_STAR_REF), dtype=dt).to(dev)
-            - 3.0 * torch.log(dr))
-        prefact = flux[:, None, None, None] * s_over_dr3 * geominv[None]
-
-        acc = torch.zeros_like(cd)
-        acc_h = torch.zeros_like(cd) if self.do_heating else None
-        for e in range(self.num_bins):
-            se = tb.bins_s[e]
-            core = torch.exp(-tau_in * se) * (-torch.expm1(-dtau * se))
-            acc = acc + tb.bins_w[e] * core
-            if self.do_heating:
-                acc_h = acc_h + tb.bins_wh[e] * core
-
-        mask = ((tb.rt_sub[2] > 0.5)[None]
-                & (cdin <= torch.tensor(MAX_COLDENSH, dtype=dt).to(dev)))
-        # Guard the photon-conserving division: a zero-density cell
-        # absorbs nothing (acc = 0), so Gamma-per-atom is 0, not 0/0. The
-        # floor is the smallest normal float, a no-op for any physical
-        # density.
-        nhi_safe = torch.clamp(nhi_box, min=torch.finfo(dt).tiny)
-        zero = torch.zeros_like(acc)
-        phi = torch.where(mask, prefact * acc / nhi_safe, zero)
-        heat = (torch.where(mask, prefact * acc_h / nhi_safe, zero)
-                if self.do_heating else None)
-        return phi, heat
-
-    def _sweep_segmented(self, boxes, dr, sig):
-        """The coldensh_out box by K segments of seg_S shells, each
-        starting from the previous segment's last planes, all storing into
-        one box; then the source cell."""
-        g, tb = self.geom, self.tables
-        planes = init_planes(boxes, g.c, dr)
-        src_cd = planes[:, 0, 0, g.c, g.c].clone()
-        box = torch.zeros_like(boxes)
-        for k in range(self.seg_K):
-            box, planes = cheb_sweep_seg(
-                boxes, tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p, dr,
-                g.c, sig, planes, 1 + k * self.seg_S, self.seg_S, box)
-        box[:, g.c, g.c, g.c] = src_cd
-        return box
+        return rates_dense(cd, nhi_box, tb.rt_sub, flux, tb.bins_s, tb.bins_w,
+                           dr, self.sig, rate_consts(dr, self.dtype)[1],
+                           self._rb0,
+                           bins_wh=tb.bins_wh if self.do_heating else None)
 
     def sweep_box(self, boxes, dr, sig):
         """The coldensh_out box of (B, Dc, Dc, Dc) absorber boxes at the
         threshold cross section ``sig``: K1, or K2 in seg_K segments where
         the engine segments (the helium engine sweeps each species
         through this)."""
-        if self.seg_S:
-            return self._sweep_segmented(boxes, dr, sig)
         tb = self.tables
-        return cheb_sweep(boxes, tb.sw, tb.path, tb.diag, tb.mask_m,
-                          tb.mask_p, dr, self.geom.c, sig)
-
-    def _batch_rates(self, boxes, flux, dr, dr_t):
-        """One batch's (phi, heat) rate boxes by a sweep mode other than
-        ``fuse_fold`` (whose batch loop is ``cheb_trace_rates``): the (Dc)^3
-        box for ``fuse_rates``, else the (Ds)^3 rates subbox. heat is None
-        without ``do_heating``; with it, ``fuse_rates`` takes the unfused
-        path."""
-        g, tb = self.geom, self.tables
         geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
-        c = g.c
-        if self.fuse_rates and not self.do_heating:
-            return cheb_sweep(boxes, *geo, dr, c, self.sig,
-                              bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
-                              R2=self.R_max_LLS ** 2, flux=flux), None
-        return self._rates(self.sweep_box(boxes, dr, self.sig), boxes, flux,
-                           dr_t)
+        if self.seg_S:
+            return cheb_sweep_segmented(boxes, *geo, dr, self.geom.c, sig,
+                                        self.seg_S, self.seg_K)
+        return cheb_sweep(boxes, *geo, dr, self.geom.c, sig)
 
     def _fold_padding(self, padded):
         """The extended grid folded onto the periodic N^3 grid."""
@@ -320,50 +256,32 @@ class ChebRaytracer:
         """Batched sweep over the wrap-padded field ``nhi_pad`` (or any
         frame that holds every box, as a domain's halo-extended block);
         returns (phi, heat) accumulated in the same frame, heat None without
-        ``do_heating``. The positions go to the frame's device once. With
-        ``fuse_fold`` the batch loop is one ``cheb_trace_rates`` call; the
-        other modes loop over the batches here, each with one
-        ``extract_boxes`` and one ``accumulate_boxes``."""
-        g, tb = self.geom, self.tables
+        ``do_heating``. The positions go to the frame's device once, and
+        the batch loop is one ``cheb_trace_sweep`` call."""
+        g = self.geom
         pos = stage_positions(pos_b, nhi_pad.shape, g.Dc, nhi_pad.device)
-        if self.fuse_fold:
-            return cheb_trace_rates(
-                nhi_pad, pos, flux_b, tb.sw, tb.path, tb.diag, tb.mask_m,
-                tb.mask_p, tb.rt_tab, dr, g.c, self.sig, tb.bins_s, tb.bins_w,
-                bins_wh=tb.bins_wh if self.do_heating else None)
-        frames = [torch.zeros_like(nhi_pad)
-                  for _ in range(1 + self.do_heating)]
-        dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
-        for k in range(pos.shape[0]):
-            boxes = extract_boxes(nhi_pad, pos, k, g.Dc)
-            out = self._batch_rates(boxes, flux_b[k], dr, dr_t)
-            accumulate_boxes(frames, out[:len(frames)], pos, k,
-                             self.box_shift(out[0]))
-        return frames[0], (frames[1] if self.do_heating else None)
+        return cheb_trace_sweep(nhi_pad, pos, flux_b, self.tables, dr, g.c,
+                                self.sig, **self._sweep_mode())
 
     def trace_extended_plain(self, nhi_pad, pos_b, flux_b, dr):
         """``trace_extended`` as the batch loop was issued before the trace
         loop: per batch a copy of the positions to the device, the PyTorch
-        gather (``extract_boxes_ref``), the sweep mode and one slice add per
-        source (``add_boxes``); for ``fuse_fold`` that loop is
-        ``cheb_trace_rates_ref``. The same result bit for bit; on the card
-        the plain reference of the loop and its box kernels."""
-        g, tb = self.geom, self.tables
-        if self.fuse_fold:
-            return cheb_trace_rates_ref(
-                nhi_pad, pos_b, flux_b, tb.sw, tb.path, tb.diag, tb.mask_m,
-                tb.mask_p, tb.rt_tab, dr, g.c, self.sig, tb.bins_s, tb.bins_w,
-                bins_wh=tb.bins_wh if self.do_heating else None)
-        phi_pad = torch.zeros_like(nhi_pad)
-        heat_pad = torch.zeros_like(nhi_pad) if self.do_heating else None
-        dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
-        for pos, flux in zip(pos_b, flux_b):
-            boxes = extract_boxes_ref(nhi_pad, pos.to(self.device), g.Dc)
-            phi_box, heat_box = self._batch_rates(boxes, flux, dr, dr_t)
-            add_boxes(phi_pad, phi_box, pos, self.box_shift(phi_box))
-            if heat_pad is not None:
-                add_boxes(heat_pad, heat_box, pos, self.box_shift(heat_box))
-        return phi_pad, heat_pad
+        gather (``extract_boxes_ref``), the sweep mode with the plain rate
+        pass and one slice add per source (``add_boxes``):
+        ``cheb_trace_sweep_ref``. The same result bit for bit; on the card
+        the plain reference of the loop and its kernels."""
+        return cheb_trace_sweep_ref(nhi_pad, pos_b, flux_b, self.tables, dr,
+                                    self.geom.c, self.sig,
+                                    **self._sweep_mode())
+
+    def _sweep_mode(self):
+        """The sweep mode of a trace, as ``cheb_trace_sweep`` takes it:
+        fuse_fold (K3, K3h with do_heating), fuse_rates (K1f) without
+        do_heating, else K1 or K2 and the rate pass."""
+        fuse = ("fold" if self.fuse_fold else
+                "rates" if self.fuse_rates and not self.do_heating else None)
+        return dict(R2=self.R_max_LLS ** 2, seg=(self.seg_S, self.seg_K),
+                    rb0=self._rb0, fuse=fuse, heat=self.do_heating)
 
     def box_shift(self, rate_boxes):
         """Where a batch's rate boxes start inside a source's box: 0 for

@@ -16,7 +16,9 @@ other faces, see ``_sweep_shells``) and adds its own dcol = nHI * path * dr.
                         of every face cell instead, the source cell its
                         closed form (``source_cell_rate``).
   ``cheb_sweep_seg``    K2: shells r0 .. r0+S-1 from carried planes
-                        (shell_segment).
+                        (shell_segment); ``init_segments`` starts a chain
+                        of them (shell 0's planes and the box with its
+                        source cell), ``cheb_sweep_segmented`` runs one.
   ``cheb_sweep_rates``  K3: sweep, box assembly and the spectral-bin rate
                         pass with the flux, the source cell by its closed
                         form (fuse_fold). With ``bins_wh`` (K3h) also the
@@ -51,7 +53,9 @@ from ..constants import MAX_COLDENSH, S_STAR_REF
 
 __all__ = ["cheb_sweep", "cheb_sweep_ref", "cheb_sweep_seg",
            "cheb_sweep_seg_ref", "cheb_sweep_rates", "cheb_sweep_rates_ref",
-           "init_planes", "s_over_dr3", "rate_consts", "source_cell_rate",
+           "init_planes", "init_segments", "init_segments_ref",
+           "cheb_sweep_segmented", "s_over_dr3", "rate_consts",
+           "source_cell_rate",
            "launches",
            "reset_launches",
            "SweepPlan", "sweep_plan", "plan_sizes", "last_plan", "occupancy",
@@ -72,15 +76,17 @@ RING_VALUES = 4       # (kRingBufs, kRingValues of csrc/cheb_sweep.cuh)
 MAX_THREADS = 768     # most threads per block of a kernel with rate threads
 
 # kernel name -> launches since the last reset_launches(); then
-# ops/trace_loop.py's: the box extract and accumulate, and the trace loop of
-# a fuse_fold trace (one per trace, its K3 / K3h launches counted under their
-# own names); last the chemistry passes' (ops/chemistry.py,
-# ops/chemistry_he.py)
+# ops/trace_loop.py's: the box extract and accumulate; the chemistry passes'
+# (ops/chemistry.py, ops/chemistry_he.py); the start of a segmented sweep,
+# the dense rate pass (ops/cheb_rates.py, with or without the heat channel)
+# and the trace loop of every sweep mode (one per trace, the kernels it
+# issues counted under their own names)
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "cheb_sweep_seg": 0, "cheb_sweep_rates": 0,
             "cheb_sweep_rates_heat": 0, "extract_boxes": 0,
-            "accumulate_boxes": 0, "cheb_trace_rates": 0,
-            "chemistry_pass": 0, "chemistry_pass_he": 0}
+            "accumulate_boxes": 0, "chemistry_pass": 0,
+            "chemistry_pass_he": 0, "init_segments": 0, "rates_dense": 0,
+            "cheb_trace_sweep": 0}
 
 
 # kernel name -> SweepPlan of its last launch
@@ -185,7 +191,7 @@ def s_over_dr3(dr, dtype):
 def rate_consts(dr, dtype):
     """(s_fac, sdr3) of K3 / K3h as floats rounded to ``dtype``: S* dr /
     dr^3 as ``_box_rates`` forms it, and S* / dr^3 (once per call of
-    ``cheb_sweep_rates``, once per trace of ``trace_loop.cheb_trace_rates``,
+    ``cheb_sweep_rates``, once per trace of ``trace_loop.cheb_trace_sweep``,
     whose loop in C hands them to every batch)."""
     dr_t = torch.tensor(float(dr), dtype=dtype)
     sdr3 = s_over_dr3(dr_t, dtype)
@@ -254,6 +260,15 @@ def init_planes(nhi_box, c, dr):
                          device=nhi_box.device)
     planes[:, :, :, c, c] = (nhi_box[:, c, c, c] * (0.5 * dr))[:, None, None]
     return planes
+
+
+def init_segments_ref(nhi_box, c, dr):
+    """Plain version of ``init_segments``: (box, planes), the box zero but
+    the source cell at nHI_c * dr / 2 and ``init_planes``."""
+    planes = init_planes(nhi_box, c, dr)
+    box = torch.zeros_like(nhi_box)
+    box[:, c, c, c] = planes[:, 0, 0, c, c]
+    return box, planes
 
 
 def _put(box, f, r, c, plane):
@@ -433,6 +448,20 @@ def cheb_sweep_seg_ref(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
     return box, planes
 
 
+def cheb_sweep_segmented(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
+                         S, K, init=None):
+    """The coldensh_out box of ``cheb_sweep`` by K segments of S shells:
+    ``init`` (``init_segments`` unless given) starts the box with the
+    source cell and shell 0's planes, then each segment (``cheb_sweep_seg``,
+    K2 on the card) runs from the previous one's last planes into the one
+    box. ``dr`` and ``sig`` are floats."""
+    box, planes = (init or init_segments)(nhi_box, c, dr)
+    for k in range(K):
+        box, planes = cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p,
+                                     dr, c, sig, planes, 1 + k * S, S, box)
+    return box
+
+
 def _box_rates(ci, dc, rt_tab, flux, dr, sig, bins_s, bins_w, bins_wh=None):
     """K3's rates over whole boxes: phi = flux S* dr / (dr^3 4 pi d2)
     * sum_e w_e exp(-tau_in s_e) (-expm1(-dtau s_e)) / max(dcol, tiny),
@@ -549,14 +578,15 @@ def _ptr(t):
 
 
 def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
-            head=0, plan=None, rate_threads=0, count=1):
+            head=0, plan=None, rate_threads=0, count=1, variant=None):
     """Plan and launch entry point ``fn`` of ``lib`` for the sweep of
     ``nhi_box``: ``tensors`` are its pointer arguments up to the scratch
     (None for a null pointer), ``scalars`` those between the scratch and
     the launch arguments, ``head`` the kernel's own values at the start of
     shared memory, ``rate_threads`` the rate threads per block of K1f,
     ``plan`` a dict of forced parts of the plan (see
-    ``sweep_plan``). The plan is made once per shape. Raises when the card
+    ``sweep_plan``). The plan is made once per shape and ``variant`` (which
+    of several sweep kernels the entry point launches). Raises when the card
     refuses the launch; otherwise counts it ``count`` times (the trace
     loop's batches)."""
     B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
@@ -582,7 +612,7 @@ def _launch(lib, fn, name, nhi_box, R1, c, dr, sig, tensors, scalars=(),
 
     forced = tuple(sorted({"rate_threads": rate_threads,
                            **(plan or {})}.items()))
-    key = (fn, B, Dc, head, dev, forced)
+    key = (fn, variant, B, Dc, head, dev, forced)
     if key not in _plans:
         _plans[key] = sweep_plan(B, Dc, dt.itemsize, max_active, head,
                                  **dict(forced))
@@ -695,6 +725,35 @@ def cheb_sweep_seg(nhi_box, sw, path, diag, mask_m, mask_p, dr, c, sig,
             dr, sig, (nhi_box, sw, path, diag, mask_m, mask_p, planes, out,
                       box), (r0, min(r0 + S, R1)), plan=plan)
     return box, out
+
+
+def init_segments(nhi_box, c, dr):
+    """The start of a segmented sweep of ``nhi_box`` (B, Dc, Dc, Dc) on its
+    device: (box, planes), the box zero but the source cell at nHI_c * dr /
+    2 and the (B, 3, 2, Dc, Dc) planes of shell 0 (``init_planes``). The
+    plain version for a CPU tensor, one kernel launch for a CUDA one, bit
+    for bit the same. ``dr`` is a float."""
+    if nhi_box.device.type == "cpu":
+        return init_segments_ref(nhi_box, c, dr)
+    sfx = _check("init_segments", nhi_box, {})
+    B, Dc = nhi_box.shape[0], nhi_box.shape[-1]
+    if not 0 <= c < Dc:
+        raise ValueError(f"init_segments: source index c={c} outside the box "
+                         f"{Dc}")
+    from ._build import load
+    lib = load("cheb_sweep")
+    box = torch.empty_like(nhi_box)
+    planes = torch.empty((B, 3, 2, Dc, Dc), dtype=nhi_box.dtype,
+                         device=nhi_box.device)
+    stream = torch.cuda.current_stream(nhi_box.device).cuda_stream
+    err = getattr(lib, f"cheb_init_segments_{sfx}")(
+        _ptr(nhi_box), _ptr(box), _ptr(planes), B, Dc, c, float(dr),
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"init_segments kernel launch failed: CUDA error "
+                           f"{err} ({lib.error_string(err)!r})")
+    launches["init_segments"] += 1
+    return box, planes
 
 
 def cheb_sweep_rates(nhi_box, sw, path, diag, mask_m, mask_p, rt_tab, flux,

@@ -18,13 +18,19 @@ The port's own kernels for the two ends of a batch (csrc/trace_loop.cu):
                         source): each frame cell has one owner thread that
                         adds the covering boxes in ascending order, so no
                         atomicAdd reorders the adds where boxes overlap.
-  ``cheb_trace_rates``  the whole fuse_fold trace (K3, K3h with the heating
-                        weights) as one call: a loop in C issues, per batch,
-                        extract -> K3's two phases -> accumulate on the
-                        current stream, with the plan, the checks and the
-                        scratch made once per trace; the port's counterpart
-                        of the JAX engine's jit + lax.scan over batches.
-                        Plain version ``cheb_trace_rates_ref``.
+  ``cheb_trace_sweep``  the whole trace of any sweep mode as one call: a
+                        loop in C issues, per batch, extract -> K1 -> the
+                        dense rate pass (ops/cheb_rates.py) -> accumulate
+                        at shift rb0 (the default mode, with do_heating the
+                        heat beside Gamma), extract -> the segmented sweep's
+                        start -> K2 x seg_K -> the rate pass -> accumulate
+                        (shell_segment), extract -> K1f -> accumulate
+                        (fuse_rates) or extract -> K3's two phases ->
+                        accumulate (fuse_fold, K3h with the heat channel),
+                        on the current stream, with the plan, the checks
+                        and the scratch made once per trace; the port's
+                        counterpart of the JAX engine's jit + lax.scan over
+                        batches. Plain version ``cheb_trace_sweep_ref``.
 
 Both kernels read the positions of the whole trace, (nb, B, 3) int32 on
 the device, staged once per trace by ``stage_positions``, which also checks
@@ -38,13 +44,19 @@ import ctypes
 import torch
 
 from . import sweep
-from .sweep import cheb_sweep_rates, launches, rate_consts
+from .cheb_rates import rates_dense_ref
+from .sweep import (RATE_THREADS, THREADS_RATES, cheb_sweep,
+                    cheb_sweep_rates, cheb_sweep_segmented, init_segments_ref,
+                    launches, rate_consts)
 
 __all__ = ["wrap_pad", "fold_padding", "add_boxes", "extract_boxes_ref",
            "stage_positions", "extract_boxes", "accumulate_boxes",
-           "cheb_trace_rates", "cheb_trace_rates_ref", "MAX_CHANNELS"]
+           "cheb_trace_sweep", "cheb_trace_sweep_ref", "MAX_CHANNELS"]
 
 MAX_CHANNELS = 4       # frames one launch moves (kMaxChannels of the source)
+# the fused modes of cheb_trace_sweep: K1f, and K3 (K3h with the heat
+# channel), each with its complete (Dc)^3 rate boxes
+FUSE_MODES = (None, "rates", "fold")
 
 
 def wrap_pad(field3, c, Dc):
@@ -194,79 +206,121 @@ def accumulate_boxes(frames, boxes, pos, k, shift=0):
                   shift)
 
 
-def cheb_trace_rates_ref(frame, pos, flux, sw, path, diag, mask_m, mask_p,
-                         rt_tab, dr, c, sig, bins_s, bins_w, bins_wh=None):
-    """Plain version of ``cheb_trace_rates``, the batch loop as the engine
+def cheb_trace_sweep_ref(frame, pos, flux, tb, dr, c, sig, R2=0.0,
+                         seg=(0, 0), rb0=0, fuse=None, heat=False):
+    """Plain version of ``cheb_trace_sweep``, the batch loop as the engine
     issued it before the loop in C: per batch the positions ``pos[k]`` to
-    the frame's device, the gather, the fused sweep + rates
-    (``cheb_sweep_rates``: the plain K3 / K3h on a CPU frame, one launch of
-    the kernel on a CUDA one) and one slice add per source. ``pos`` may lie
-    on the host (int64, as ``prepare_sources`` returns it) or be staged."""
-    Dc = sw.shape[-1]
-    phi = torch.zeros_like(frame)
-    heat = None if bins_wh is None else torch.zeros_like(frame)
+    the frame's device, the gather, the sweep mode and one slice add per
+    source. The sweep kernels go through their wrappers (the plain versions
+    on a CPU frame, the kernels on a CUDA one); the start of a segmented
+    sweep and the rate pass are the plain versions on either device.
+    ``pos`` may lie on the host (int64, as ``prepare_sources`` returns it)
+    or be staged."""
+    Dc = tb.sw.shape[-1]
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+    bins_wh = tb.bins_wh if heat else None
+    _, sdr3 = rate_consts(dr, frame.dtype)
+    frames = [torch.zeros_like(frame) for _ in range(1 + bool(heat))]
     for k in range(pos.shape[0]):
-        out = cheb_sweep_rates(
-            extract_boxes_ref(frame, pos[k].to(frame.device), Dc), sw, path,
-            diag, mask_m, mask_p, rt_tab, flux[k], dr, c, sig, bins_s,
-            bins_w, bins_wh=bins_wh)
-        if heat is None:
-            add_boxes(phi, out, pos[k])
+        boxes = extract_boxes_ref(frame, pos[k].to(frame.device), Dc)
+        shift = 0
+        if fuse == "fold":
+            out = cheb_sweep_rates(boxes, *geo, tb.rt_tab, flux[k], dr, c,
+                                   sig, tb.bins_s, tb.bins_w, bins_wh=bins_wh)
+        elif fuse == "rates":
+            out = cheb_sweep(boxes, *geo, dr, c, sig,
+                             bins=(tb.bins_s, tb.bins_w), rt_tab=tb.rt_tab,
+                             R2=R2, flux=flux[k])
         else:
-            add_boxes(phi, out[0], pos[k])
-            add_boxes(heat, out[1], pos[k])
-    return phi, heat
+            cd = (cheb_sweep_segmented(boxes, *geo, dr, c, sig, *seg,
+                                       init=init_segments_ref)
+                  if seg[0] else cheb_sweep(boxes, *geo, dr, c, sig))
+            out, shift = rates_dense_ref(
+                cd, boxes, tb.rt_sub, flux[k], tb.bins_s, tb.bins_w, dr, sig,
+                sdr3, rb0, bins_wh=bins_wh), rb0
+        for f, box in zip(frames, _channels(out)):
+            add_boxes(f, box, pos[k], shift)
+    return frames[0], (frames[1] if heat else None)
 
 
-def cheb_trace_rates(frame, pos, flux, sw, path, diag, mask_m, mask_p,
-                     rt_tab, dr, c, sig, bins_s, bins_w, bins_wh=None,
-                     plan=None):
-    """The fuse_fold trace of the frame ``frame`` (F0, F1, F2): the
+def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
+                     rb0=0, fuse=None, heat=False, plan=None):
+    """The trace of the frame ``frame`` (F0, F1, F2) in a sweep mode: the
     sources of batch k have their box corners at ``pos[k]`` (staged, (nb,
-    B, 3) int32) and their fluxes in ``flux[k]`` ((nb, B)); the sweep
-    tables and bins as ``cheb_sweep_rates`` takes them. Returns the (phi,
-    heat) frames, heat None without ``bins_wh`` (K3h with them).
+    B, 3) int32) and their fluxes in ``flux[k]`` ((nb, B)); ``tb`` holds the
+    engine's tables (ChebTables). The mode, by ``fuse`` (FUSE_MODES): None,
+    K1 then the dense rate pass over the (Ds)^3 rates subbox at ``rb0``
+    (``rt_sub``), accumulated at rb0, with ``seg`` = (S, K), S > 0, K2 over
+    K segments of S shells in place of K1; "rates", K1f (R2: the squared
+    radius); "fold", K3. The fused modes accumulate their (Dc)^3 Gamma
+    boxes at 0. ``heat`` adds the photoheating channel (the rate pass's, or
+    K3h; not with "rates"). Returns the (phi, heat) frames, heat None
+    without ``heat``.
 
-    The plain version for a CPU frame; for a CUDA frame one call of the
-    loop of csrc/trace_loop.cu, which issues the batches' extract, K3 and
-    accumulate on the current stream and does not synchronize. Counted as
-    one "cheb_trace_rates" launch and nb launches of each kernel it issues.
-    ``plan`` forces parts of K3's plan as in ``cheb_sweep``."""
+    The plain version for a CPU frame; for a CUDA frame one call of the loop
+    of csrc/trace_loop.cu, which issues every batch's kernels on the current
+    stream and does not synchronize. Counted as one "cheb_trace_sweep" and
+    nb launches of each kernel it issues (nb K for K2). ``plan`` forces
+    parts of the sweep's plan (K3: of its phase A) as in
+    ``sweep.cheb_sweep``."""
+    S, K = (int(v) for v in seg)
+    if fuse not in FUSE_MODES:
+        raise ValueError(f"cheb_trace_sweep: fuse={fuse!r}, one of "
+                         f"{FUSE_MODES}")
+    if fuse and S or fuse == "rates" and heat:
+        raise ValueError("cheb_trace_sweep: the fused modes take no "
+                         "segments, fuse_rates no heat channel")
     if frame.device.type == "cpu":
-        return cheb_trace_rates_ref(frame, pos, flux, sw, path, diag,
-                                    mask_m, mask_p, rt_tab, dr, c, sig,
-                                    bins_s, bins_w, bins_wh)
+        return cheb_trace_sweep_ref(frame, pos, flux, tb, dr, c, sig, R2,
+                                    (S, K), rb0, fuse, heat)
     dt, dev = frame.dtype, frame.device
     nb, B = pos.shape[:2]
-    Dc = sw.shape[-1]
+    Dc, Ds = tb.sw.shape[-1], tb.rt_sub.shape[-1]
     boxes = torch.empty((B, Dc, Dc, Dc), dtype=dt, device=dev)
-    (B, Dc, R1), spec = sweep._geom(boxes, sw, path, diag, mask_m, mask_p, c)
-    E, more = sweep._bins_spec(Dc, bins_s, bins_w, rt_tab, dt)
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+    (B, Dc, R1), spec = sweep._geom(boxes, *geo, c)
+    E, more = sweep._bins_spec(Dc, tb.bins_s, tb.bins_w, tb.rt_tab, dt)
     spec.update(more)
-    spec["flux"] = (flux, (nb, B), dt)
-    spec["pos"] = (pos, (nb, B, 3), torch.int32)
-    spec["frame"] = (frame, tuple(frame.shape), dt)
-    if bins_wh is not None:
-        spec["bins_wh"] = (bins_wh, (E,), dt)
-    name = "cheb_sweep_rates" if bins_wh is None else "cheb_sweep_rates_heat"
-    sfx = sweep._check(name, boxes, spec)
+    spec.update(rt_sub=(tb.rt_sub, (3, Ds, Ds, Ds), dt), flux=(flux, (nb, B), dt),
+                pos=(pos, (nb, B, 3), torch.int32),
+                frame=(frame, tuple(frame.shape), dt))
+    if heat:
+        spec["bins_wh"] = (tb.bins_wh, (E,), dt)
+    sfx = sweep._check("cheb_trace_sweep", boxes, spec)
     if frame.dim() != 3:
-        raise ValueError(f"cheb_trace_rates: frame {tuple(frame.shape)}")
+        raise ValueError(f"cheb_trace_sweep: frame {tuple(frame.shape)}")
+    if not fuse and not 0 <= rb0 <= Dc - Ds:
+        raise ValueError(f"cheb_trace_sweep: a rates subbox of {Ds} at {rb0} "
+                         f"leaves the box {Dc}")
+    mode = {None: int(S > 0), "rates": 2, "fold": 3}[fuse]
     from ._build import load
     lib = load("trace_loop")
-    phi_frame = torch.zeros_like(frame)
-    heat_frame = None if bins_wh is None else torch.zeros_like(frame)
-    phi = torch.empty_like(boxes)
-    heat = None if bins_wh is None else torch.empty_like(boxes)
-    ci, dc = torch.empty_like(boxes), torch.empty_like(boxes)
+    frames = [torch.zeros_like(frame) for _ in range(1 + bool(heat))]
+    phi = torch.empty_like(boxes) if fuse else torch.empty(
+        (B, Ds, Ds, Ds), dtype=dt, device=dev)
+    heat_b = torch.empty_like(phi) if heat else None
+    work = [torch.empty_like(boxes) if fuse != "rates" else None,
+            torch.empty_like(boxes) if fuse == "fold" else None]
+    planes = [torch.empty((B, 3, 2, Dc, Dc), dtype=dt, device=dev)
+              if mode == 1 else None for _ in range(2)]
+    name = ("cheb_sweep", "cheb_sweep_seg", "cheb_sweep_fused_rates",
+            "cheb_sweep_rates_heat" if heat else "cheb_sweep_rates")[mode]
     s_fac, sdr3 = rate_consts(dr, dt)
-    sweep._launch(lib, f"cheb_trace_rates_{sfx}", name, boxes, R1, c, dr, sig,
-                  (frame, pos, flux, sw, path, diag, mask_m, mask_p, rt_tab,
-                   bins_s, bins_w, bins_wh, phi_frame, heat_frame, boxes,
-                   phi, heat, ci, dc),
-                  (E, s_fac, sdr3, sweep.THREADS_RATES, *frame.shape, nb),
-                  plan=plan, count=nb)
+    sweep._launch(lib, f"cheb_trace_sweep_{sfx}", name, boxes, R1, c, dr, sig,
+                  (frame, pos, flux, *geo, tb.rt_tab, tb.rt_sub, tb.bins_s,
+                   tb.bins_w, tb.bins_wh if heat else None, frames[0],
+                   frames[1] if heat else None, boxes, *work, phi, heat_b,
+                   *planes),
+                  (mode, E, float(R2), sdr3, s_fac, THREADS_RATES, rb0, Ds, S,
+                   K, *frame.shape, nb),
+                  head=2 * E if mode == 2 else 0, plan=plan,
+                  rate_threads=RATE_THREADS if mode == 2 else 0,
+                  count=nb * (K if mode == 1 else 1), variant=mode)
     launches["extract_boxes"] += nb
     launches["accumulate_boxes"] += nb
-    launches["cheb_trace_rates"] += 1
-    return phi_frame, heat_frame
+    if not fuse:
+        launches["rates_dense"] += nb
+    if mode == 1:
+        launches["init_segments"] += nb
+    launches["cheb_trace_sweep"] += 1
+    return frames[0], (frames[1] if heat else None)

@@ -1,13 +1,14 @@
-// Runs the port's kernels on the host: k_sweep.inc, k_loop.inc and
-// k_chem.inc are the device parts of cheb_sweep.cu, trace_loop.cu and
-// chemistry.cu, cheb_sweep_rates.cuh that of K3's header, as
+// Runs the port's kernels on the host: k_loop.inc and k_chem.inc are the
+// device parts of trace_loop.cu and chemistry.cu, cheb_sweep_kernels.cuh,
+// cheb_sweep_rates.cuh and cheb_rates.cuh those of the headers of K1, K1f
+// and K2, of K3, and of the dense rate pass, as
 // tests/test_torch_rehearsal.py cuts them out,
 // compiled against the stand-in headers of this directory. One cluster
 // (source) runs at a time, its C blocks x T threads as std::threads: the
 // chain threads and, behind them, the rate threads of K1f. K3's phase B,
-// the box kernels and the chemistry passes are plain grids: their blocks
-// run one after the other (the box kernels' and the passes' also in
-// reverse order), each as T std::threads.
+// the box kernels, the start of a segmented sweep, the dense rate pass and
+// the chemistry passes are plain grids: their blocks run one after the
+// other (all but phase B's also in reverse order), each as T std::threads.
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -15,8 +16,9 @@ thread_local uint3_ threadIdx, blockIdx, blockDim, gridDim;
 thread_local EmuCluster* emu_cl;
 thread_local int emu_rank;
 thread_local std::optional<std::barrier<>::arrival_token> emu_token;
-#include "k_sweep.inc"
+#include "cheb_sweep_kernels.cuh"
 #include "cheb_sweep_rates.cuh"
+#include "cheb_rates.cuh"
 #include "k_loop.inc"
 #include "k_chem.inc"
 using namespace cheb;
@@ -143,6 +145,52 @@ void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
   }
 REHEARSE_BOXES(rehearse_boxes_f32, float)
 REHEARSE_BOXES(rehearse_boxes_f64, double)
+
+// The start of a segmented sweep (init_segments_kernel) of B boxes of side
+// Dc, B x Dc blocks of T_ threads, in reverse block order with `reverse`.
+template <class T>
+void run_init(const void* nhi, void* box, void* planes, int B, int Dc, int c,
+              double dr, int T_, int reverse) {
+  emu_launch(B * Dc, 1, T_, 0, [&] {
+    init_segments_kernel<T>(static_cast<const T*>(nhi), static_cast<T*>(box),
+                            static_cast<T*>(planes), Dc, c, T(dr));
+  }, reverse != 0);
+}
+
+// The dense rate pass (rates_dense_kernel, the heat form where `heat` is
+// set) over B boxes: ceil(B Ds^3 / T_) blocks of T_ threads, in reverse
+// block order with `reverse`. `f` holds cd, nhi, rt, flux, bins_s, bins_w,
+// bins_wh, phi, heat.
+template <class T>
+void run_rates(void* const* f, int B, int E, int Dc, int Ds, int rb0,
+               double dr, double sig, double sdr3, int T_, int reverse) {
+  using P = const T*;
+  const DenseRates<T> k{(P)f[0], (P)f[1], (P)f[2], (P)f[3], (P)f[4],
+                        (P)f[5], (P)f[6], (T*)f[7], (T*)f[8], B, E, Dc, Ds,
+                        rb0, T(dr), T(sig), T(sdr3)};
+  const size_t n = size_t(B) * Ds * Ds * Ds;
+  const bool heat = f[8] != nullptr;
+  emu_launch(int((n + T_ - 1) / T_), 1, T_, (heat ? 3 : 2) * E * sizeof(T),
+             [&] {
+               if (heat)
+                 rates_dense_kernel<T, true>(k);
+               else
+                 rates_dense_kernel<T, false>(k);
+             }, reverse != 0);
+}
+
+#define REHEARSE_RATES(INIT, RATES, TYPE)                                      \
+  extern "C" void INIT(const void* nhi, void* box, void* planes, int B,        \
+                       int Dc, int c, double dr, int T_, int reverse) {        \
+    run_init<TYPE>(nhi, box, planes, B, Dc, c, dr, T_, reverse);               \
+  }                                                                            \
+  extern "C" void RATES(void* const* f, int B, int E, int Dc, int Ds, int rb0, \
+                        double dr, double sig, double sdr3, int T_,            \
+                        int reverse) {                                         \
+    run_rates<TYPE>(f, B, E, Dc, Ds, rb0, dr, sig, sdr3, T_, reverse);         \
+  }
+REHEARSE_RATES(rehearse_init_f32, rehearse_rates_f32, float)
+REHEARSE_RATES(rehearse_init_f64, rehearse_rates_f64, double)
 
 // The chemistry passes of chemistry.cu over n cells, `blocks` blocks of
 // T_ threads striding over them, in reverse block order with `reverse`.

@@ -1,8 +1,8 @@
 """The port's CUDA kernels rehearsed on the host.
 
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
-``cheb_sweep.cu``, ``cheb_sweep_rates.cuh``, ``trace_loop.cu`` and
-``chemistry.cu`` are cut out of the sources,
+``cheb_sweep_kernels.cuh``, ``cheb_sweep_rates.cuh``, ``cheb_rates.cuh``,
+``trace_loop.cu`` and ``chemistry.cu`` are cut out of the sources,
 compiled with g++ against the stand-in headers of ``tests/kernel_host/``
 (every thread of every block of a cluster is a std::thread; the cluster
 barrier and the mapping of shared memory between blocks are emulated;
@@ -11,7 +11,10 @@ against the plain PyTorch versions: K1, K2 and phase A of K3 bit for bit,
 K1f, K3 and K3h within the tolerance of their exp/expm1, and K1f with rate
 threads bit for bit against itself without; the trace loop's box extract
 and ordered accumulate bit for bit against ``extract_boxes_ref`` and
-``add_boxes``, with their blocks in either order; the chemistry passes
+``add_boxes``, with their blocks in either order; the start of a segmented
+sweep and the dense rate pass bit for bit against ``init_segments_ref`` and
+``rates_dense_ref`` (the plain pass with glibc's exp and expm1, the ones
+the host build calls, in place of torch's); the chemistry passes
 against ``global_pass_ref`` and ``global_pass_he_ref`` (see below). This
 checks the kernels' logic (shell windows, the dealing of cells to blocks,
 plane ownership, stitches, carried planes, the ring that hands K1f's cells
@@ -21,6 +24,8 @@ placement; that the sources build for the card and run there is shown by
 chip_smoke.py and the ``cuda`` tests."""
 
 import ctypes
+import ctypes.util
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from pyc2ray_torch.ops import sweep
+from pyc2ray_torch.ops import cheb_rates, sweep
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 from pyc2ray_torch.ops.trace_loop import add_boxes, extract_boxes_ref
 from pyc2ray_torch.radiation.spectral_bins import SpectralBins
@@ -71,11 +76,14 @@ def lib(tmp_path_factory):
     (d / "cheb_sweep.cuh").write_text(_device_part(
         "cheb_sweep.cuh", "// Allow `kernel` on the current device",
         "}  // namespace cheb\n"))
-    (d / "k_sweep.inc").write_text(_device_part(
-        "cheb_sweep.cu", "// The launches of the three kernels",
-        "}  // namespace\n"))
+    (d / "cheb_sweep_kernels.cuh").write_text(_device_part(
+        "cheb_sweep_kernels.cuh", "// The launches of the four kernels",
+        "}  // namespace cheb\n"))
     (d / "cheb_sweep_rates.cuh").write_text(_device_part(
         "cheb_sweep_rates.cuh", "// The launch of both phases",
+        "}  // namespace cheb\n"))
+    (d / "cheb_rates.cuh").write_text(_device_part(
+        "cheb_rates.cuh", "// The launch of the pass on",
         "}  // namespace cheb\n"))
     (d / "k_loop.inc").write_text(_device_part(
         "trace_loop.cu", "// The launches of the two kernels",
@@ -96,6 +104,14 @@ def lib(tmp_path_factory):
     for f in (lib.rehearse_boxes_f32, lib.rehearse_boxes_f64):
         f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                       + [ctypes.c_void_p] + [ctypes.c_int] * 9)
+        f.restype = None
+    for f in (lib.rehearse_init_f32, lib.rehearse_init_f64):
+        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                      + [ctypes.c_double] + [ctypes.c_int] * 2)
+        f.restype = None
+    for f in (lib.rehearse_rates_f32, lib.rehearse_rates_f64):
+        f.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                      + [ctypes.c_double] * 3 + [ctypes.c_int] * 2)
         f.restype = None
     for f in (lib.rehearse_chem_f32, lib.rehearse_chem_f64):
         f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
@@ -355,6 +371,106 @@ def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
         for p in pos[0].tolist():
             cover[p[0]:p[0] + D, p[1]:p[1] + D, p[2]:p[2] + D] += 1
         assert int(cover.max()) >= 3
+
+
+# The start of a segmented sweep and the dense rate pass of the unfused
+# sweep modes (csrc/cheb_sweep_kernels.cuh, csrc/cheb_rates.cuh).
+def _libm(dt):
+    """(exp, expm1) elementwise by glibc's exp/expm1 (float64) or expf/
+    expm1f (float32), the functions the host build of the kernels calls."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    if dt == torch.float32:
+        fns = []
+        for name in ("expf", "expm1f"):
+            f = getattr(libm, name)
+            f.argtypes, f.restype = [ctypes.c_float], ctypes.c_float
+            fns.append(f)
+    else:
+        fns = [math.exp, math.expm1]
+
+    def elementwise(f):
+        return lambda x: torch.tensor([f(v) for v in x.reshape(-1).tolist()],
+                                      dtype=x.dtype).reshape(x.shape)
+    return [elementwise(f) for f in fns]
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,R,B", [(16, 6.0, 2), (8, 6.0, 2), (16, 8.0, 1)])
+@pytest.mark.parametrize("reverse", [0, 1])
+def test_init_segments_on_the_host_matches_plain(lib, N, R, B, dt, reverse):
+    """init_segments_kernel bit for bit against init_segments_ref (the box
+    and shell 0's planes), with its blocks in either order; chained with K2
+    it gives K1's box."""
+    case = _Case(lib, N, R, B, dt, (1, False, 5, 0, 0))
+    nhi, g = case.nhi, case.g
+    box = torch.full_like(nhi, float("nan"))
+    planes = torch.full((B, 3, 2, g.Dc, g.Dc), float("nan"), dtype=dt)
+    fn = lib.rehearse_init_f32 if dt == torch.float32 else \
+        lib.rehearse_init_f64
+    fn(nhi.data_ptr(), box.data_ptr(), planes.data_ptr(), B, g.Dc, g.c, DR,
+       7, reverse)
+    want_box, want_planes = sweep.init_segments_ref(nhi, g.c, DR)
+    assert torch.equal(box, want_box) and torch.equal(planes, want_planes)
+    assert torch.equal(want_planes, sweep.init_planes(nhi, g.c, DR))
+    S = 3
+    for r0 in range(1, g.r_max + 1, S):
+        box, _, planes = case.run(K2, planes=planes, r0=r0,
+                                  r1=min(r0 + S, g.r_max + 1), box=box)
+    assert torch.equal(box, sweep.cheb_sweep_ref(nhi, *case.geo, DR, g.c,
+                                                 SIG))
+
+
+# (N, R, B, rb0): (16, 6) a rates subbox (Ds = 13 of Dc = 16) and (8, 6) the
+# full box of a clipped one, as the engine builds them; rb0 = 2 a subbox
+# away from the box's corner (the kernel's offset arithmetic)
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,R,B,rb0", [(16, 6.0, 2, None), (8, 6.0, 2, None),
+                                       (16, 6.0, 2, 2)])
+@pytest.mark.parametrize("heat", [False, True])
+def test_rate_pass_on_the_host_matches_plain(lib, monkeypatch, N, R, B, rb0,
+                                             dt, heat):
+    """rates_dense_kernel bit for bit against rates_dense_ref on K1's boxes
+    with a zero-density cell, a cell past MAX_COLDENSH and a zero flux,
+    Gamma and with ``heat`` the heating rate, its blocks in either order;
+    the plain pass takes glibc's exp and expm1 in place of torch's (whose
+    vectorized forms differ from them by an ulp here and there)."""
+    case = _Case(lib, N, R, B, dt, (1, False, 5, 0, 0))
+    rt, g, tb, nhi = case.rt, case.g, case.tb, case.nhi
+    nhi[0, g.c + 1, g.c, g.c] = 0.0
+    cd = sweep.cheb_sweep_ref(nhi, *case.geo, DR, g.c, SIG)
+    cd[-1, g.c, g.c + 2, g.c] = 1e31
+    Ds, rt_sub = rt.Ds, tb.rt_sub
+    if rb0 is None:
+        rb0 = rt._rb0
+    else:
+        Ds -= rb0
+        rt_sub = rt_sub[:, rb0:, rb0:, rb0:].contiguous()
+    sdr3 = float(sweep.s_over_dr3(DR, dt))
+    wh = tb.bins_wh if heat else None
+    outs = {}
+    for reverse in (0, 1):
+        phi, heat_box = (torch.full((B,) + (Ds,) * 3, float("nan"), dtype=dt)
+                         for _ in range(2))
+        ptrs = [t.data_ptr() if t is not None else None for t in (
+            cd, nhi, rt_sub, case.flux, tb.bins_s, tb.bins_w, wh, phi,
+            heat_box if heat else None)]
+        fn = lib.rehearse_rates_f32 if dt == torch.float32 else \
+            lib.rehearse_rates_f64
+        fn((ctypes.c_void_p * 9)(*ptrs), B, tb.bins_s.shape[0], g.Dc, Ds,
+           rb0, DR, SIG, sdr3, 64, reverse)
+        outs[reverse] = (phi, heat_box)
+    exp, expm1 = _libm(dt)
+    monkeypatch.setattr(torch, "exp", exp)
+    monkeypatch.setattr(torch, "expm1", expm1)
+    want = cheb_rates.rates_dense_ref(cd, nhi, rt_sub, case.flux, tb.bins_s,
+                                      tb.bins_w, DR, SIG, sdr3, rb0,
+                                      bins_wh=wh)
+    monkeypatch.undo()
+    for reverse, got in outs.items():
+        for a, w in zip(got, want):
+            if w is not None:
+                assert float(w.max()) > 0 and torch.equal(a, w), reverse
+    assert float(want[0][1].abs().max()) == 0.0 or B == 1      # zero flux
 
 
 # The chemistry passes of csrc/chemistry.cu. On the host the kernels call

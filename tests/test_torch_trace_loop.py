@@ -1,15 +1,17 @@
 """The trace loop (ops/trace_loop.py): a trace with its positions staged
-once, the fuse_fold batch loop as one call (``cheb_trace_rates``), the box
-extract and the ordered accumulate.
+once, the batch loop as one call (``cheb_trace_sweep``, every sweep mode),
+the box extract and the ordered accumulate.
 
-On the CPU the wrappers run their plain versions: the staged fuse_fold
-trace against the JAX engine's (the Pallas kernel in interpret mode, scan
-accumulate) in float64, with and without the heating output, on a batch of
-overlapping boxes; every sweep mode's ``trace_extended`` bit for bit
-against ``trace_extended_plain``, the loop as it was issued before, also on
-a non-cubic frame as the domain decomposition hands it. On the card
-(``cuda``) the kernels and the C++ loop against their plain versions at the
-EoR run's shape, bit for bit."""
+On the CPU the wrappers run their plain versions: the staged traces
+against the JAX engine's (the Pallas kernels in interpret mode, scan
+accumulate) in float64 on a batch of overlapping boxes: fuse_fold with and
+without the heating output, and the default mode, shell_segment, fuse_rates
+and do_heating; every sweep mode's ``trace_extended`` bit for bit against
+``trace_extended_plain``, the loop as it was issued before, also on a
+non-cubic frame as the domain decomposition hands it. On the card
+(``cuda``) the kernels and the C++ loops against their plain versions, bit
+for bit: at the EoR run's shape, and in every sweep mode at a small
+one."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -25,8 +27,8 @@ from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins
 from pyc2ray_torch.ops import sweep
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
-                                          extract_boxes, extract_boxes_ref,
-                                          stage_positions)
+                                          cheb_trace_sweep, extract_boxes,
+                                          extract_boxes_ref, stage_positions)
 
 SIG = 6.30e-18
 DR = 6.7e20
@@ -73,6 +75,53 @@ def test_staged_fuse_fold_trace_matches_jax(heat):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-7, atol=0)
 
 
+# the sweep modes of cheb_trace_sweep: (engine options, rtol against the
+# JAX engine); the JAX K1f's rates use a Taylor substitute for expm1 (rel
+# err < 2e-8)
+SWEEP_MODES = {
+    "default": ({}, 1e-9),
+    "shell_segment": (dict(shell_segment=2), 1e-9),
+    "fuse_rates": (dict(fuse_rates=True), 1e-7),
+    "do_heating": (dict(do_heating=True), 1e-9),
+}
+
+
+# (16, 6): an unclipped box (the JAX K1f's d2 is wrong on a clipped one,
+# ROADMAP §3); 7 clustered sources in batches of 3, the last batch padded
+@pytest.mark.parametrize("mode", sorted(SWEEP_MODES))
+def test_trace_sweep_matches_jax(mode):
+    """The staged trace of a sweep mode other than fuse_fold (one
+    ``cheb_trace_sweep`` call, its plain version on the CPU) against the
+    JAX engine's trace and bit for bit against trace_extended_plain."""
+    N, R, B = 16, 6.0, 3
+    kw, rtol = SWEEP_MODES[mode]
+    bins = _bb_bins()
+    ndens, xh, src, flux = _clustered(N, 7, seed=56)
+    jr = JRaytracer(N, R, SIG, bins, batch_size=B, dtype=jnp.float64,
+                    use_pallas=True, accumulate="scan", **kw)
+    tr = ChebRaytracer(N, R, SIG, bins, batch_size=B, dtype=torch.float64,
+                       device="cpu", **kw)
+    assert tr.seg_S == (2 if mode == "shell_segment" else 0)
+    want = jr.trace(ndens, xh, src, flux, DR)
+    got = tr.trace(ndens, xh, src, flux, DR)
+    want, got = ((want, got) if tr.do_heating else ((want,), (got,)))
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        assert w.max() > 0 and np.all(np.isfinite(w))
+        np.testing.assert_allclose(g.numpy(), w, rtol=rtol, atol=0)
+    pad = tr.wrap_pad(torch.from_numpy(ndens * (1.0 - xh)))
+    pos_b, flux_b = tr.prepare_sources(src, flux)
+    g = tr.geom
+    loop = cheb_trace_sweep(pad, stage_positions(pos_b, pad.shape, g.Dc,
+                                                 "cpu"),
+                            flux_b, tr.tables, DR, g.c, SIG,
+                            **tr._sweep_mode())
+    plain = tr.trace_extended_plain(pad, pos_b, flux_b, DR)
+    for a, b in zip(loop, plain):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
+
+
 MODES = {
     "default": {},
     "fuse_rates": dict(fuse_rates=True),
@@ -86,10 +135,9 @@ MODES = {
 @pytest.mark.parametrize("frame", ["cubic", "domain"])
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_trace_extended_equals_plain(mode, frame):
-    """The staged trace (one call of the loop for fuse_fold, a Python loop
-    around extract_boxes / accumulate_boxes otherwise) bit for bit against
-    the loop as it was issued before, on the wrap-padded grid and on a
-    halo-extended block whose extents differ per axis."""
+    """The staged trace (one call of the loop, cheb_trace_sweep) bit for
+    bit against the loop as it was issued before, on the wrap-padded grid
+    and on a halo-extended block whose extents differ per axis."""
     N, R, B = 16, 5.0, 3
     tr = ChebRaytracer(N, R, SIG, _bb_bins(), batch_size=B,
                        dtype=torch.float64, device="cpu", **MODES[mode])
@@ -190,8 +238,59 @@ def test_trace_loop_matches_plain_on_cuda_at_the_eor_shape():
         ref = tr.trace_extended_plain(pad, pos_b, flux_b, DR)
         torch.cuda.synchronize()
         name = "cheb_sweep_rates_heat" if heat else "cheb_sweep_rates"
-        assert sweep.launches["cheb_trace_rates"] == 1
+        assert sweep.launches["cheb_trace_sweep"] == 1
         assert sweep.launches[name] == 2 * pos_b.shape[0]
         for g, w in zip(got, ref):
             if w is not None:
                 assert float(w.max()) > 0 and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["cubic", "domain"])
+def test_trace_sweep_matches_plain_on_cuda(frame):
+    """Every sweep mode through the C++ loop (one cheb_trace_sweep call)
+    bit for bit against trace_extended_plain on the card, in float32 and
+    float64, with the loop's launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    N, R, B = 16, 5.0, 3
+    ndens, xh, src, flux = _clustered(N, 7, seed=57)
+    for dt in (torch.float32, torch.float64):
+        for mode in sorted(MODES):
+            tr = ChebRaytracer(N, R, SIG, _bb_bins(), batch_size=B, dtype=dt,
+                               **MODES[mode])
+            Dc = tr.geom.Dc
+            if frame == "cubic":
+                pad = tr.wrap_pad(torch.from_numpy(ndens * (1.0 - xh)).to(
+                    "cuda", dt))
+                pos_src = src
+            else:
+                rng = np.random.RandomState(58)
+                pad = torch.from_numpy(10 ** rng.uniform(
+                    -4, -2, (Dc + 3, Dc + 9, Dc + 5))).to("cuda", dt)
+                pos_src = src % np.array([4, 10, 6])
+            pos_b, flux_b = tr.prepare_sources(pos_src, flux)
+            nb = pos_b.shape[0]
+            sweep.reset_launches()
+            got = tr.trace_extended(pad, pos_b, flux_b, DR)
+            counts = dict(sweep.launches)
+            want = tr.trace_extended_plain(pad, pos_b, flux_b, DR)
+            torch.cuda.synchronize()
+            sweep_name = {"fuse_rates": "cheb_sweep_fused_rates",
+                          "shell_segment": "cheb_sweep_seg",
+                          "fuse_fold": "cheb_sweep_rates",
+                          "heat_fuse_fold": "cheb_sweep_rates_heat"}.get(
+                              mode, "cheb_sweep")
+            expect = {k: 0 for k in counts}
+            expect.update(cheb_trace_sweep=1, extract_boxes=nb,
+                          accumulate_boxes=nb)
+            expect[sweep_name] = nb * (tr.seg_K if tr.seg_S else 1)
+            if "fuse" not in mode:
+                expect["rates_dense"] = nb
+            if tr.seg_S:
+                expect["init_segments"] = nb
+            assert counts == expect, (mode, dt)
+            for a, b in zip(got, want):
+                if b is not None:
+                    assert float(b.max()) > 0 and torch.equal(a, b), (mode,
+                                                                      dt)
