@@ -57,8 +57,10 @@ Phases (any failure raises and the script exits non-zero):
    batch (asserted); the per-batch device ms of the loop's stages, the
    kernels beside the plain gather, rate pass and slice adds they replaced
    (bit-equal); the loop against trace_extended_plain on the trace's frame
-   (bit-equal, ms per trace, the bound: the kernels line's numbers), and
-   the whole trace before and after the loop as in 3b. The GPU trace of the
+   (bit-equal, ms per trace, the bound: the kernels line's numbers), one
+   profiled trace of the loop with each kernel's median device us and the
+   idle gap before it (``loop_kernel_gaps``: extract, K1, rates_dense,
+   accumulate), and the whole trace before and after the loop as in 3b. The GPU trace of the
    first 16 sources is held against the CPU (plain) trace. The chemistry
    pass is one launch of the hydrogen kernel (asserted; the chemistry
    checks below on its fields).
@@ -163,10 +165,13 @@ Phases (any failure raises and the script exits non-zero):
    frame, each on a batch of boxes spread over the frame and on a batch
    clustered within two cells (two at one cell), with kernel, plain,
    library (torch.take, index_add_) device ms and bound ms of the clustered
-   batch; then the C++ loop (trace_extended with fuse_fold) against
+   batch; the accumulate over the bench default engine's rated cells (the
+   unfused modes' form) on rate boxes 0 elsewhere, the same way (library:
+   index_add_ of the rated cells); then the C++ loop (trace_extended with fuse_fold) against
    trace_extended_plain on random fields, each timed against the plain
    loop: the bench configuration with K3 and with K3h, and the EoR run's
-   small bucket over 128 batches, the first clustered.
+   small bucket over 128 batches, the first clustered, with the per-kernel
+   device us and gaps of its loop (``loop_kernel_gaps``).
 4f. (after 4e) The golden: examples/single_source_test at its full
    configuration (N=128, 2 slices x 10 timesteps, parameters.yml unchanged:
    engine flat, float64) through C2Ray_Test on the card against the
@@ -230,7 +235,7 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    driver fails the phase when it exits non-zero or prints FAILED.
 6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
    then the trace loop's extract_boxes and accumulate_boxes on 4e's EoR
-   trace, the dense rate pass rates_dense and init_segments (2e), the loop
+   trace (the accumulate with its rated form at the bench beside, 3g), the dense rate pass rates_dense and init_segments (2e), the loop
    cheb_trace_sweep (phase 3's default bench trace, and 4e's fuse_fold EoR
    trace beside it), and the chemistry_pass
    kernel on the EoR run's state, chemistry_pass_he on 4g's), then the
@@ -274,10 +279,10 @@ RATE_OPS_PER_CELL = 7            # tau_in, dtau, prefactor (2 muls, div),
                                  # result (mul, div)
 HEAT_OPS_PER_BIN = 2             # K3h, beside the above: w_heat*core, add
 HEAT_OPS_PER_CELL = 2            # and the second result (mul, div)
-DENSE_OPS_PER_CELL = 11          # the dense rate pass per cell: the valid
-                                 # test, and per rated cell path3*dr,
-                                 # nHI*, cd-dcol, cdin*sig, dcol*sig,
-                                 # flux*sdr3, *geominv, max, *acc, /
+DENSE_OPS_PER_LISTED = 4         # the dense rate pass per listed cell of
+                                 # a box: path3*dr, nHI*, cd-dcol, the
+                                 # cdin test; per rated cell beside the
+                                 # bins RATE_OPS_PER_CELL
 N_R100, R_R100, NS_R100 = 250, 100.0, 100   # raytracing harness, R=100 row
 N_EVOLVE, R_EVOLVE, NS_EVOLVE = 64, 8.0, 16  # the evolve3D steps of 4, 4b
 N_HEATING, STEPS_HEATING = 48, 6             # examples/heating_test defaults
@@ -735,28 +740,29 @@ def check_heat(N, R, B, dtype, rtol, floor, seed, reps, bins,
 def dense_work(rt, cd, nhi, heat):
     """(bytes, operations, rated cells) of one dense rate pass of engine
     ``rt`` on the boxes ``cd`` and ``nhi``, as this data needs them: the
-    valid channel of the rates-subbox table for every cell, its path3 and
-    geominv at the valid cells and cd and nHI at the valid cells of every
-    box (the kernel reads nothing else of a cell that is not valid, whose
-    output is 0 either way), the fluxes and the bins, each once, and Gamma
-    (and the heat) written for every cell; DENSE_OPS_PER_CELL and the bins'
-    operations per rated cell of this data (valid, cdin <= MAX_COLDENSH),
-    the test for every other cell."""
+    engine's list of the subbox's rated cells (``rt.rated_cells``, int32;
+    the cells of the table's valid channel), path3 and geominv at the
+    listed cells and cd and nHI at the listed cells of every box, the
+    fluxes and the bins, each read once, and Gamma (and the heat) written at
+    the listed cells of every box (the kernel touches no other cell: its
+    output there is the 0 the caller zeroed once); DENSE_OPS_PER_LISTED
+    per listed cell of a box, and RATE_OPS_PER_CELL and the bins' operations
+    per rated cell of this data (listed, cdin <= MAX_COLDENSH)."""
     from pyc2ray_torch.constants import MAX_COLDENSH
     tb, r, Ds = rt.tables, rt._rb0, rt.Ds
     sub = (slice(None),) + (slice(r, r + Ds),) * 3
     cdin = cd[sub] - nhi[sub] * (tb.rt_sub[0] * DR)
     valid = tb.rt_sub[2] > 0.5
     rated = int((valid & (cdin <= MAX_COLDENSH)).sum())
-    n_valid = int(valid.sum())
+    n_valid = rt.rated_cells.numel()
     B, E = cd.shape[0], rt.num_bins
     isz = torch.finfo(cd.dtype).bits // 8
-    cells = B * Ds ** 3
-    nbytes = isz * (Ds ** 3 + 2 * n_valid + 2 * B * n_valid
-                    + (1 + heat) * cells + B + (2 + heat) * E)
+    nbytes = (4 * n_valid + isz * (2 * n_valid + (3 + heat) * B * n_valid
+                                   + B + (2 + heat) * E))
     per_bin = RATE_OPS_PER_BIN + heat * HEAT_OPS_PER_BIN
-    ops = (rated * (per_bin * E + DENSE_OPS_PER_CELL - 1
-                    + heat * HEAT_OPS_PER_CELL) + cells)
+    ops = (rated * (per_bin * E + RATE_OPS_PER_CELL
+                    + heat * HEAT_OPS_PER_CELL)
+           + DENSE_OPS_PER_LISTED * B * n_valid)
     return nbytes, ops, rated
 
 
@@ -766,7 +772,9 @@ def check_rates(N, R, B, dtype, seed, reps, bins, ns_bin=None,
     ops/cheb_rates.py) against its plain version on the card, on the
     engine's own coldensh_out boxes (``sweep_box``: K1, or K2 where the
     engine segments), with and without the heat channel: max_abs_err must
-    be 0. Kernel and plain ms per call (CUDA events) and the bound of
+    be 0. Kernel ms per call on the device (``device_ms``: the kernel and
+    the memset of its zeroed outputs) and back to back (CUDA events, the
+    wrapper's enqueue included), plain ms (CUDA events) and the bound of
     ``dense_work``; with ``ns_bin`` (phase 2c's dense pass, float32) the
     rate floor, rated cells x bins x ns_bin. Where the engine segments, the
     start of a segmented sweep (init_segments) against init_segments_ref
@@ -782,16 +790,19 @@ def check_rates(N, R, B, dtype, seed, reps, bins, ns_bin=None,
     flux = torch.linspace(0.5, 2.0, B, dtype=dtype, device="cuda")
     args = (tb.rt_sub, flux, tb.bins_s, tb.bins_w, DR, SIG,
             float(sweep.s_over_dr3(DR, dtype)), rt._rb0)
+    cells = rt.rated_cells
     log(f"rates_dense N={N} R={R:g} B={B} Dc={g.Dc} Ds={rt.Ds} rb0="
         f"{rt._rb0} E={bins.num_bins} {str(dtype).split('.')[-1]} on "
         f"{'K2' if rt.seg_S else 'K1'}'s boxes"
-        f"{' (one zero-density cell)' if zero_cell else ''}:")
+        f"{' (one zero-density cell)' if zero_cell else ''}, "
+        f"{cells.numel()} rated cells of {rt.Ds ** 3} "
+        f"({cells.numel() / rt.Ds ** 3:.3f}):")
     out = {}
     for heat in (False, True):
         wh = tb.bins_wh if heat else None
 
         def kern():
-            return rates_dense(cd, nhi, *args, bins_wh=wh)
+            return rates_dense(cd, nhi, *args, bins_wh=wh, cells=cells)
 
         def plain():
             return rates_dense_ref(cd, nhi, *args, bins_wh=wh)
@@ -811,17 +822,20 @@ def check_rates(N, R, B, dtype, seed, reps, bins, ns_bin=None,
                                "is not 0")
         del got, want
         nbytes, ops, rated = dense_work(rt, cd, nhi, heat)
-        ms = cuda_ms(kern, reps)
+        ms = device_ms(lambda _: kern(), reps)
+        b2b = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, 1)
         b_ms, b_by = least_ms(nbytes, ops, dtype)
-        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, rated_cells=rated)
+        res = dict(max_abs_err=err, ms=ms, ms_back_to_back=b2b,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   rated_cells=rated)
         floor = ""
         if ns_bin is not None:
             res["rate_floor_ms"] = 1e-6 * rated * bins.num_bins * ns_bin
             floor = f" rate_floor_ms={res['rate_floor_ms']:.5f}"
         log(f"  rates_dense{' heat' if heat else ''}: max_abs_err={err:.1e} "
-            f"(bit-equal) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"(bit-equal) kernel_ms={ms:.4f} on the device with its zeroed "
+            f"outputs ({b2b:.4f} back to back) plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by}){floor} per call, {rated} rated "
             f"cells")
         out["heat" if heat else "photo"] = res
@@ -1040,7 +1054,10 @@ def stage_breakdown(rt, nd, xh, pos_b, flux_b, nbatch):
             ev[2].record()
             out = rt._rates(cd, boxes, flux, DR)[:1 + rt.do_heating]
         ev[3].record()
-        accumulate_boxes(pads, out, pos, k, rt.box_shift(out[0]))
+        # the unfused modes' rate boxes: the rated cells only, as the loop
+        rated = {} if cd is None else dict(cells=rt.rated_cells,
+                                           valid=tb.rt_sub[2])
+        accumulate_boxes(pads, out, pos, k, rt.box_shift(out[0]), **rated)
         ev[4].record()
         boxes_plain = extract_boxes_ref(nhi_pad, pos_b[k].to("cuda"), g.Dc)
         ev[5].record()
@@ -1152,6 +1169,73 @@ def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
             f"({b2b:.4f} back to back) plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f}; bound_ms={b_ms:.5f} ({b_by}, "
             f"{nbytes[name] / 2 ** 20:.2f} MiB)")
+
+
+def check_rated_accumulate(bins, src_pos, reps=20):
+    """accumulate_boxes over the rated cells of the bench default engine's
+    rates table (N = 256, R = 30: B = 8, Ds = 64, 43% rated), as the
+    unfused modes' loop runs it, on rate boxes that are 0 elsewhere: a batch
+    of phase 3's sources (seed 100) and one clustered within two cells (two
+    at one cell), each in float32 and the first also in float64, bit for bit
+    (max_abs_err 0) against the slice adds of the whole boxes. Times the
+    clustered batch as ``check_box_kernels`` does, the library call being
+    index_add_ of the rated cells only; the bound counts the rated box
+    values, the list and the frame's rated union read and written. Returns
+    the clustered float32 batch's numbers."""
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
+                                              stage_positions)
+    rng = np.random.RandomState(18)
+    B, out = B_BENCH, None
+    for dt in (torch.float32, torch.float64):
+        rt = ChebRaytracer(N_BENCH, R_BENCH, SIG, bins, batch_size=B,
+                           dtype=dt)
+        Ds, rb0, cells = rt.Ds, rt._rb0, rt.rated_cells
+        valid = rt.tables.rt_sub[2]
+        shape = (N_BENCH + rt.geom.Dc - 1,) * 3
+        pos = np.stack([src_pos[:B], rng.randint(0, 200, 3)
+                        + rng.randint(0, 3, (B, 3))])
+        pos[1, 1] = pos[1, 0]
+        pos_b = torch.from_numpy(pos)
+        pos_d = stage_positions(pos_b, shape, rt.geom.Dc, "cuda")
+        frame = torch.from_numpy(np.abs(rng.standard_normal(shape))).to(
+            "cuda", dt)
+        boxes = torch.from_numpy(np.abs(rng.standard_normal(
+            (B, Ds, Ds, Ds)))).to("cuda", dt) * (valid > 0.5)
+        err = 0.0
+        for k in range(2 if dt == torch.float32 else 1):
+            f_k, f_p = frame.clone(), frame.clone()
+            accumulate_boxes(f_k, boxes, pos_d, k, rb0, cells, valid)
+            add_boxes(f_p, boxes, pos_b[k], rb0)
+            err = max(err, float((f_k - f_p).abs().max()))
+        torch.cuda.synchronize()
+        if err != 0.0:
+            raise RuntimeError(f"rated accumulate {dt}: max_abs_err {err}")
+        if dt != torch.float32:
+            log(f"  bench rated accumulate_boxes float64: max_abs_err="
+                f"{err:.1e} (bit-equal)")
+            continue
+        idx = box_flat_index(pos_d[1] + rb0, shape, Ds).view(B, -1)[
+            :, cells.long()].reshape(-1)
+        vals = boxes.view(B, -1)[:, cells.long()].reshape(-1)
+        f_k, f_p, f_l = frame.clone(), frame.clone(), frame.clone()
+        ms, plain_ms, lib_ms = (device_ms(lambda _, f=f: f(), reps) for f in (
+            lambda: accumulate_boxes(f_k, boxes, pos_d, 1, rb0, cells, valid),
+            lambda: add_boxes(f_p, boxes, pos_b[1], rb0),
+            lambda: f_l.view(-1).index_add_(0, idx, vals)))
+        isz = torch.finfo(dt).bits // 8
+        nbytes = isz * (idx.numel() + 2 * torch.unique(idx).numel()) \
+            + 4 * cells.numel()
+        b_ms, b_by = least_ms(nbytes, idx.numel(), dt)
+        out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"  bench rated accumulate_boxes (B={B} Ds={Ds}, {cells.numel()} "
+            f"rated cells a box): max_abs_err={err:.1e} (bit-equal), on the "
+            f"device per call of the clustered batch: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} (whole boxes) library_ms={lib_ms:.4f} "
+            f"(index_add_ of the rated cells); bound_ms={b_ms:.5f} ({b_by}, "
+            f"{nbytes / 2 ** 20:.2f} MiB)")
+    return out
 
 
 def device_ms(fn, n):
@@ -1275,7 +1359,9 @@ def check_trace_loop(bins, src_pos):
     against trace_extended_plain on a random field, bit for bit: at the
     bench configuration with K3 and K3h, and at the EoR run's small bucket
     over 128 batches, the first clustered. The kernels line takes its
-    numbers of these kernels from the EoR run's own trace (phase 4e)."""
+    numbers of these kernels from the EoR run's own trace (phase 4e), and
+    beside them the accumulate over the bench default engine's rated cells
+    (``check_rated_accumulate``, whose numbers this returns)."""
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     dt = torch.float32
     log("trace loop kernels, float32 (max_abs_err must be 0):")
@@ -1287,6 +1373,7 @@ def check_trace_loop(bins, src_pos):
     # halo-extended block is, at the EoR shape
     check_box_kernels("EoR non-cubic block (203, 273, 251)",
                       (203, 273, 251), B_EOR, 24, dt, seed=13, reps=5)
+    rated = check_rated_accumulate(bins, src_pos)
 
     def field(N, seed):
         rng = np.random.RandomState(seed)
@@ -1315,14 +1402,28 @@ def check_trace_loop(bins, src_pos):
     loop_against_plain(f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} "
                        f"Dc={rt.geom.Dc}, {nb} batches", rt, pad, pos_b,
                        flux_b)
-    loop_kernel_gaps(rt, pad, pos_b, flux_b)
+    loop_kernel_gaps(f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} (K3)", rt, pad,
+                     pos_b, flux_b)
     del rt, pad
+    return rated
 
 
-def loop_kernel_gaps(rt, pad, pos_b, flux_b):
-    """One trace of the C++ loop under torch.profiler: per kind of kernel
-    its median device time and the median idle gap on the device before
-    it (from the previous kernel's end), in us."""
+# the kernels of the trace loop by a part of their device names, as
+# loop_kernel_gaps names them
+LOOP_KERNELS = (("extract_boxes", "extract_boxes"),
+                ("init_segments", "init_segments"),
+                ("cheb_sweep_kernel", "K1"), ("cheb_sweep_seg", "K2"),
+                ("cheb_sweep_gamma", "K1f"), ("sweep_fold", "K3 phase A"),
+                ("box_rates", "K3 phase B"), ("rates_dense", "rates_dense"),
+                ("accumulate_boxes", "accumulate_boxes"))
+
+
+def loop_kernel_gaps(label, rt, pad, pos_b, flux_b):
+    """One trace of the C++ loop under torch.profiler: per kernel of the
+    loop (LOOP_KERNELS) its median device time, the median idle gap on the
+    device before it (from the previous kernel's end) and its share of the
+    device time, in us; the loop's device ms per batch. Returns {kernel:
+    (median us, median gap us, count)}."""
     from pyc2ray_torch.diagnostics import _trace_events, profile_trace
     with tempfile.TemporaryDirectory() as tmp:
         with profile_trace(tmp) as p:
@@ -1331,15 +1432,24 @@ def loop_kernel_gaps(rt, pad, pos_b, flux_b):
                      if e.get("cat") == "kernel"), key=lambda e: e["ts"])
     kinds = {}
     for prev, e in zip(ev, ev[1:]):
-        name = next((k for k in ("extract_boxes", "sweep_fold",
-                                 "box_rates", "accumulate_boxes")
-                     if k in e["name"]), "other")
+        name = next((k for part, k in LOOP_KERNELS if part in e["name"]),
+                    "other")
         gap = e["ts"] - (prev["ts"] + prev["dur"])
         kinds.setdefault(name, []).append((e["dur"], gap))
-    log("  the loop on the device, per kernel: " + "; ".join(
-        f"{k} {np.median([d for d, _ in v]):.2f} us after a gap of "
-        f"{np.median([g for _, g in v]):.2f} us (median of {len(v)})"
-        for k, v in kinds.items()))
+    nb = pos_b.shape[0]
+    span = ev[-1]["ts"] + ev[-1]["dur"] - ev[0]["ts"]
+    busy = sum(e["dur"] for e in ev)
+    out = {k: (float(np.median([d for d, _ in v])),
+               float(np.median([g for _, g in v])), len(v))
+           for k, v in kinds.items()}
+    log(f"  {label}, the loop on the device per kernel: " + "; ".join(
+        f"{k} {d:.2f} us after a gap of {g:.2f} us (median of {n}, "
+        f"{sum(x for x, _ in kinds[k]) / busy:.3f} of the kernels' time)"
+        for k, (d, g, n) in out.items())
+        + f"; {1e-3 * span / nb:.4f} ms per batch from the first kernel's "
+        f"start to the last's end, {1e-3 * busy / nb:.4f} ms of it in "
+        f"kernels")
+    return out
 
 
 def loop_against_plain(label, rt, pad, pos_b, flux_b, reps=3):
@@ -1383,9 +1493,10 @@ def loop_work(rt, pad, pos_b):
     """(bytes, operations) of one trace of engine ``rt`` (one
     cheb_trace_sweep call in its mode) over the batches ``pos_b`` in the
     frame ``pad``, as a function of the whole loop: the frame cells that
-    the boxes cover read once; the sweep's tables, the valid channel of the
-    rates table and the rest of it at the valid cells, the fluxes and the
-    bins once; the Gamma (and heat) frame written once. The boxes that pass
+    the boxes cover read once; the sweep's tables, K3's rates table (its
+    valid channel, the rest at the valid cells) or the rate pass's list of
+    rated cells and path3 and geominv at them, the fluxes and the bins
+    once; the Gamma (and heat) frame written once. The boxes that pass
     between the loop's kernels are none of its bytes. Operations per batch:
     the sweep's (``sweep_work``), the rates' of this data (the dense pass's
     of ``dense_work`` on the first batch's boxes, on fields as smooth as
@@ -1417,8 +1528,8 @@ def loop_work(rt, pad, pos_b):
         cd = cheb_sweep(boxes, tb.sw, tb.path, tb.diag, tb.mask_m,
                         tb.mask_p, DR, g.c, rt.sig)
         _, rops, _ = dense_work(rt, cd, boxes, heat)
-        n_valid = int((tb.rt_sub[2] > 0.5).sum())
-        tables += isz * (rt.Ds ** 3 + 2 * n_valid)
+        n_valid = rt.rated_cells.numel()
+        tables += 4 * n_valid + isz * 2 * n_valid
         side = rt.Ds
     nbytes = tables + isz * (int(covered.sum()) + (1 + heat) * pad.numel()
                              + nb * B + (2 + heat) * rt.num_bins)
@@ -3541,6 +3652,8 @@ def main():
     k_sweep_loop.update(bound_ms=b_ms, bound_by=b_by)
     log(f"  default bench trace loop: bound_ms={b_ms:.4f} ({b_by}) per "
         f"trace of {nbatch} batches (extract, K1, rate pass, accumulate)")
+    loop_kernel_gaps(f"default bench N={N} B={B_BENCH}", rt, pad3, pos_b,
+                     flux_b)
     del pad3
     with tempfile.TemporaryDirectory() as tmp:
         loop_before_after(
@@ -3683,7 +3796,7 @@ def main():
         box_bench(src_pos, bins, tmp)
 
     # ---- 3g. the trace loop's kernels and the C++ loop vs plain ----------
-    check_trace_loop(bins, src_pos)
+    k_rated = check_trace_loop(bins, src_pos)
 
     # ---- 4. one evolve3D timestep, GPU vs CPU ---------------------------
     Ne, Re, nse = N_EVOLVE, R_EVOLVE, NS_EVOLVE
@@ -3883,7 +3996,8 @@ def main():
         dict(name="accumulate_boxes", source=src + "trace_loop.cu",
              replaces=jax_rt + "1223",
              launches=eor_counts["accumulate_boxes"],
-             **k_loop["accumulate"]),
+             **k_loop["accumulate"], launches_default_bench=boxes_launches[1],
+             rated_at_bench=k_rated),
         # the port's own kernels of the unfused modes (no TPU kernel: XLA's
         # fusion of _rates, the code around the segments of
         # _sweep_pallas_segmented): launches over phase 3's main path

@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""The trace loop's box and rate-pass kernels of one checkout of the port,
+on one NVIDIA GPU, in a form two checkouts can be compared by.
+
+    python3 kernel_ab.py [--root DIR] [--label NAME] [--traces]
+
+Imports ``pyc2ray_torch`` from DIR (default: the directory of this script;
+DIR may hold another checkout, the package builds its kernels under DIR)
+and, with chip_smoke.py's helpers from this script's directory, measures
+through entry points that every checkout since the trace loop has:
+
+- the dense rate pass (``ChebRaytracer._rates``, one kernel launch) at the
+  bench shape (N = 256, R = 30, B = 8, Dc = 64) and the R = 100 shape
+  (N = 250, B = 8, Dc = 208), float32, 14 compressed bins, with and
+  without the heat channel, on the engine's own sweep boxes: ms per call
+  (CUDA events), bit-equal to the plain pass (asserted);
+- extract_boxes and accumulate_boxes at the bench shape and the EoR run's
+  (B = 16, Dc = 24) on a clustered batch (chip_smoke's
+  ``check_box_kernels``: kernel, plain and library device ms, bound);
+- the bench default trace (chip_smoke phase 3's configuration and fields,
+  one ``cheb_trace_sweep`` call of 256 batches), the same with
+  ``fuse_fold`` (K3) and the EoR run's small bucket over 128 random
+  batches, the first clustered (phase 3g's, K3):
+  ms per trace (CUDA events, the least of 3) and, from one profiled
+  trace, each kernel's median device us and the gap before it
+  (``loop_kernel_gaps``).
+
+``--traces`` measures the traces alone. Prints the card's name and power
+limit, then one line per measurement and
+last a JSON object of the numbers under ``label``. Run two checkouts in
+turns in one call (A, B, B, A) to compare them on one card.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rate_pass(cs, N, R, heat, bins, reps):
+    """ms per ``_rates`` call of an engine at (N, R) on its own sweep boxes
+    of random densities, bit-equal to the plain pass."""
+    from pyc2ray_torch.ops.cheb_rates import rates_dense_ref
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    from pyc2ray_torch.ops.sweep import rate_consts
+    dt = torch.float32
+    rt = ChebRaytracer(N, R, cs.SIG, bins, batch_size=cs.B_BENCH, dtype=dt,
+                       do_heating=heat, shell_segment=0)
+    tb = rt.tables
+    nhi = cs.random_nhi(rt, cs.B_BENCH, dt, seed=5)
+    cd = rt.sweep_box(nhi, cs.DR, cs.SIG)
+    flux = torch.linspace(0.5, 2.0, cs.B_BENCH, dtype=dt, device="cuda")
+    got = rt._rates(cd, nhi, flux, cs.DR)
+    want = rates_dense_ref(cd, nhi, tb.rt_sub, flux, tb.bins_s, tb.bins_w,
+                           cs.DR, cs.SIG, rate_consts(cs.DR, dt)[1], rt._rb0,
+                           bins_wh=tb.bins_wh if heat else None)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, w) for a, w in zip(got, want)
+               if w is not None):
+        raise RuntimeError(f"rates N={N} R={R} heat={heat}: the kernel "
+                           f"differs from the plain pass")
+    del got, want
+    ms = cs.cuda_ms(lambda: rt._rates(cd, nhi, flux, cs.DR), reps)
+    cs.log(f"rates_dense N={N} R={R:g} B={cs.B_BENCH} Dc={rt.geom.Dc} "
+           f"Ds={rt.Ds}{' heat' if heat else ''}: {ms:.4f} ms per call "
+           f"(bit-equal to the plain pass)")
+    return ms
+
+
+def trace(cs, label, rt, pad, pos_b, flux_b):
+    """The trace bit for bit against ``trace_extended_plain`` with its
+    launch counts (chip_smoke's ``loop_against_plain``), ms per trace of
+    ``rt.trace_extended`` (least of 3 after a warm-up) and its per-kernel
+    device us and gaps."""
+    cs.loop_against_plain(label, rt, pad, pos_b, flux_b, reps=1)
+    ms = min(cs.cuda_ms(lambda: rt.trace_extended(pad, pos_b, flux_b, cs.DR),
+                        1) for _ in range(3))
+    cs.log(f"{label}: {ms:.3f} ms per trace of {pos_b.shape[0]} batches")
+    return dict(ms=ms, kernels=cs.loop_kernel_gaps(label, rt, pad, pos_b,
+                                                   flux_b))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=HERE,
+                    help="the checkout whose pyc2ray_torch is measured")
+    ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--traces", action="store_true",
+                    help="measure the three traces only")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available; this script needs a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    cs = _chip_smoke()
+    import pyc2ray_torch
+    from pyc2ray_torch.ops import _build
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cs.log(f"{args.label}: pyc2ray_torch from "
+           f"{os.path.dirname(pyc2ray_torch.__file__)}; {smi}")
+    t0 = time.time()
+    _build.load()
+    cs.log(f"build: {time.time() - t0:.2f} s")
+    bins = cs.make_bins()
+    out = dict(label=args.label, device=smi)
+    for heat in () if args.traces else (False, True):
+        for N, R, key in ((cs.N_BENCH, cs.R_BENCH, "bench"),
+                          (cs.N_R100, cs.R_R100, "r100")):
+            out[f"rates_{key}{'_heat' if heat else ''}_ms"] = rate_pass(
+                cs, N, R, heat, bins, reps=10 if key == "bench" else 3)
+    for B, Dc, tag in () if args.traces else ((cs.B_BENCH, 64, "bench"),
+                                              (cs.B_EOR, 24, "EoR")):
+        side = (cs.N_BENCH if tag == "bench" else cs.N_EOR) + Dc - 1
+        cs.check_box_kernels(f"{tag} B={B} Dc={Dc} frame {side}^3",
+                             (side,) * 3, B, Dc, torch.float32, seed=12,
+                             reps=20)
+    dt, N = torch.float32, cs.N_BENCH
+    rt = ChebRaytracer(N, cs.R_BENCH, cs.SIG, bins, batch_size=cs.B_BENCH,
+                       dtype=dt)
+    src = np.random.RandomState(100).randint(0, N, size=(cs.NS_BENCH, 3))
+    pos_b, flux_b = rt.prepare_sources(src, np.ones(cs.NS_BENCH))
+    nhi = torch.full((N,) * 3, 1e-3 * (1.0 - 1.2e-3), dtype=dt,
+                     device="cuda")
+    out["bench_default"] = trace(cs, f"default bench N={N} B={cs.B_BENCH}",
+                                 rt, rt.wrap_pad(nhi), pos_b, flux_b)
+    rt = ChebRaytracer(N, cs.R_BENCH, cs.SIG, bins, batch_size=cs.B_BENCH,
+                       dtype=dt, fuse_fold=True)
+    out["bench_fuse_fold"] = trace(cs, f"fuse_fold bench N={N} "
+                                   f"B={cs.B_BENCH}", rt, rt.wrap_pad(nhi),
+                                   pos_b, flux_b)
+    rt = ChebRaytracer(cs.N_EOR, cs.R_EOR[0], cs.SIG, bins,
+                       batch_size=cs.B_EOR, dtype=dt, fuse_fold=True)
+    rng = np.random.RandomState(16)
+    nb = 128
+    pos = rng.randint(0, cs.N_EOR, size=(nb * cs.B_EOR, 3))
+    pos[:cs.B_EOR] = (pos[0] + rng.randint(0, 3, (cs.B_EOR, 3))) % cs.N_EOR
+    field = 10 ** np.random.RandomState(17).uniform(-4, -2, (cs.N_EOR,) * 3)
+    pad = rt.wrap_pad(torch.from_numpy(field).to("cuda", dt))
+    pos_b, flux_b = rt.prepare_sources(pos, 10 ** rng.uniform(
+        -1, 0, nb * cs.B_EOR))
+    out["eor_bucket"] = trace(cs, f"EoR bucket R={cs.R_EOR[0]:.2f} "
+                              f"B={cs.B_EOR} (K3), {nb} batches", rt, pad,
+                              pos_b, flux_b)
+    cs.log(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

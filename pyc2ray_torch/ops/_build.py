@@ -45,17 +45,17 @@ _SIGNATURES = {
         "cheb_sweep_rates": [_P] * 16 + [_I, _D, _D, _I] + _LAUNCH,
     },
     "cheb_rates": {
-        # cd, nhi, rt_sub, flux, bins_s, bins_w, bins_wh, phi, heat; B, E,
-        # Dc, Ds, rb0; dr, sig, sdr3; stream
-        "rates_dense": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_P],
+        # cd, nhi, rt_sub, cells, flux, bins_s, bins_w, bins_wh, phi, heat;
+        # B, E, Dc, Ds, rb0, n_valid; dr, sig, sdr3; stream
+        "rates_dense": [_P] * 10 + [_I] * 6 + [_D] * 3 + [_P],
     },
     "trace_loop": {
         # extract (else accumulate), frames, boxes, channels, pos, batch,
-        # B, D, shift, F0, F1, F2, stream
-        "boxes": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P],
-        # 22 pointers and the scratch; mode, E, R2, sdr3, s_fac,
-        # threads_b, rb0, Ds, seg_S, seg_K, F0, F1, F2, nb
-        "cheb_trace_sweep": [_P] * 23 + [_I, _I, _D, _D, _D] + [_I] * 9
+        # B, D, shift, F0, F1, F2, cells, valid, n_cells, stream
+        "boxes": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P, _P, _I, _P],
+        # 23 pointers and the scratch; mode, E, R2, sdr3, s_fac,
+        # threads_b, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb
+        "cheb_trace_sweep": [_P] * 24 + [_I, _I, _D, _D, _D] + [_I] * 10
         + _LAUNCH,
     },
     "chemistry": {

@@ -18,10 +18,14 @@ thick cells, ROADMAP §3).
 
 ``rates_dense`` runs the plain version for a CPU tensor and the kernel of
 csrc/cheb_rates.cu for a CUDA tensor (one launch, counted in
-``sweep.launches["rates_dense"]``), or raises. The kernel is bit-equal to
-the plain version on the card: every operation in its type and order, the
-scalars ``dr``, ``sig`` and ``sdr3`` = S*/dr^3 handed to both as the same
-floats (``sweep.s_over_dr3``), each rounded to the type once.
+``sweep.launches["rates_dense"]``), or raises. The kernel evaluates only
+the rated cells of the subbox, the list ``rated_cells`` makes of the
+table's valid channel once per engine (``ChebRaytracer.rated_cells``), and
+leaves every other cell at the 0 its zeroed output starts from. It is
+bit-equal to the plain version on the card: every operation in its type
+and order, the scalars ``dr``, ``sig`` and ``sdr3`` = S*/dr^3 handed to
+both as the same floats (``sweep.s_over_dr3``), each rounded to the type
+once.
 """
 
 import ctypes
@@ -31,7 +35,17 @@ import torch
 from ..constants import MAX_COLDENSH
 from . import sweep
 
-__all__ = ["rates_dense", "rates_dense_ref"]
+__all__ = ["rated_cells", "rates_dense", "rates_dense_ref"]
+
+
+def rated_cells(rt_sub):
+    """The cells of the (Ds)^3 rates subbox that the table ``rt_sub`` (3,
+    Ds, Ds, Ds) rates (its valid channel > 0.5), as int32 row-major indices
+    in ascending order on ``rt_sub``'s device: what ``rates_dense``'s kernel
+    evaluates. On the card this waits for the device once (the list's
+    length): make it once, outside any loop, as the engine does."""
+    valid = rt_sub[2].reshape(-1) > 0.5
+    return torch.nonzero(valid).reshape(-1).to(torch.int32)
 
 
 def rates_dense_ref(cd, nhi_box, rt_sub, flux, bins_s, bins_w, dr, sig, sdr3,
@@ -79,10 +93,13 @@ def rates_dense_ref(cd, nhi_box, rt_sub, flux, bins_s, bins_w, dr, sig, sdr3,
 
 
 def rates_dense(cd, nhi_box, rt_sub, flux, bins_s, bins_w, dr, sig, sdr3,
-                rb0, bins_wh=None):
+                rb0, bins_wh=None, cells=None):
     """The rate pass on the device of ``cd`` (arguments as
     ``rates_dense_ref``): the plain version for a CPU tensor, one launch of
-    the kernel for a CUDA tensor, which returns the same bits."""
+    the kernel for a CUDA tensor, which returns the same bits. The kernel
+    needs ``cells``, the rated cells of ``rt_sub`` (``rated_cells``; an
+    engine's ``rated_cells``), int32 on the card; the plain version takes
+    no list."""
     if cd.device.type == "cpu":
         return rates_dense_ref(cd, nhi_box, rt_sub, flux, bins_s, bins_w, dr,
                                sig, sdr3, rb0, bins_wh)
@@ -92,23 +109,30 @@ def rates_dense(cd, nhi_box, rt_sub, flux, bins_s, bins_w, dr, sig, sdr3,
         raise ValueError(f"rates_dense: a rates subbox of {Ds} at {rb0} "
                          f"leaves the box {Dc}")
     spec = {"nhi_box": (nhi_box, (B, Dc, Dc, Dc), dt),
-            "rt_sub": (rt_sub, (3, Ds, Ds, Ds), dt), "flux": (flux, (B,), dt),
+            "rt_sub": (rt_sub, (3, Ds, Ds, Ds), dt),
+            "flux": (flux, (B,), dt),
             "bins_s": (bins_s, (E,), dt), "bins_w": (bins_w, (E,), dt)}
     if bins_wh is not None:
         spec["bins_wh"] = (bins_wh, (E,), dt)
+    if cells is not None:
+        spec["cells"] = (cells, (cells.numel(),), torch.int32)
     sfx = sweep._check("rates_dense", cd, spec)
+    if cells is None or cells.numel() > Ds ** 3:
+        raise ValueError("rates_dense: the kernel needs the rated cells of "
+                         "rt_sub (rated_cells), a list of at most Ds^3")
+    n_valid = cells.numel()
     from ._build import load
     lib = load("cheb_rates")
-    phi = torch.empty((B, Ds, Ds, Ds), dtype=dt, device=cd.device)
-    heat = None if bins_wh is None else torch.empty_like(phi)
+    phi = torch.zeros((B, Ds, Ds, Ds), dtype=dt, device=cd.device)
+    heat = None if bins_wh is None else torch.zeros_like(phi)
     ptr = sweep._ptr
     stream = torch.cuda.current_stream(cd.device).cuda_stream
     err = getattr(lib, f"rates_dense_{sfx}")(
-        ptr(cd), ptr(nhi_box), ptr(rt_sub), ptr(flux), ptr(bins_s),
-        ptr(bins_w), ctypes.c_void_p(None if heat is None
-                                     else bins_wh.data_ptr()),
+        ptr(cd), ptr(nhi_box), ptr(rt_sub), ptr(cells), ptr(flux),
+        ptr(bins_s), ptr(bins_w),
+        ctypes.c_void_p(None if heat is None else bins_wh.data_ptr()),
         ptr(phi), ctypes.c_void_p(None if heat is None else heat.data_ptr()),
-        B, E, Dc, Ds, rb0, float(dr), float(sig), float(sdr3),
+        B, E, Dc, Ds, rb0, n_valid, float(dr), float(sig), float(sdr3),
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"rates_dense kernel launch failed: CUDA error "

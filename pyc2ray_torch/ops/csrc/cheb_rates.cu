@@ -7,23 +7,25 @@
 
 extern "C" {
 
-// The pass over B boxes on `stream`: Gamma into `phi` and, where `heat` and
-// `bins_wh` are set, the photoheating rate into `heat`. dr, sig and sdr3
+// The pass over B boxes on `stream` at the n_valid rated cells `cells` of
+// the subbox: Gamma into `phi` and, where `heat` and `bins_wh` are set, the
+// photoheating rate into `heat`, both zeroed by the caller. dr, sig and sdr3
 // (S* / dr^3) are rounded to the element type here, as the plain version
 // rounds them. Returns the cudaError_t of the launch.
 #define RATES_DENSE_ENTRY(SFX, T)                                             \
   int rates_dense_##SFX(const void* cd, const void* nhi, const void* rt,     \
-                        const void* flux, const void* bins_s,                \
-                        const void* bins_w, const void* bins_wh, void* phi,  \
-                        void* heat, int B, int E, int Dc, int Ds, int rb0,   \
+                        const int* cells, const void* flux,                  \
+                        const void* bins_s, const void* bins_w,              \
+                        const void* bins_wh, void* phi, void* heat, int B,   \
+                        int E, int Dc, int Ds, int rb0, int n_valid,         \
                         double dr, double sig, double sdr3, void* stream) {  \
     using P = const T*;                                                      \
     return cheb::launch_rates_dense<T>(                                      \
-        cheb::DenseRates<T>{(P)cd, (P)nhi, (P)rt, (P)flux, (P)bins_s,         \
+        cheb::DenseRates<T>{(P)cd, (P)nhi, (P)rt, cells, (P)flux, (P)bins_s,  \
                             (P)bins_w, (P)bins_wh, static_cast<T*>(phi),      \
                             static_cast<T*>(heat), B, E, Dc, Ds, rb0,         \
-                            static_cast<T>(dr), static_cast<T>(sig),          \
-                            static_cast<T>(sdr3)},                            \
+                            n_valid, static_cast<T>(dr),                      \
+                            static_cast<T>(sig), static_cast<T>(sdr3)},       \
         static_cast<cudaStream_t>(stream));                                   \
   }
 

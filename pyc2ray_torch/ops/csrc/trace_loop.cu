@@ -44,18 +44,56 @@
 // and writes it once; a thread whose cell a lower box covers does nothing.
 // So each cell is read and written by one thread, the adds are the plain
 // version's adds in its order, and the result is bit for bit the same in
-// float32 and float64. A thread tests at most B boxes per channel for
-// coverage.
+// float32 and float64, whatever order the blocks run in.
 //
 // Bound. Both kernels move bytes and do next to no arithmetic: the extract
 // reads B D^3 values of the frame and writes the boxes; the accumulate reads
 // the boxes and reads and writes the union of their cells in the frame (B D^3
 // when no two boxes overlap). At the EoR run's shape (B = 16, D = 24,
-// float32) that is 1.8 MB and 2.7 MB: 0.53 and 0.79 us at 3.35 TB/s, far
-// below a launch's own cost, so the kernels are plain grid-stride loops, one
-// block per box plane, with nothing staged in shared memory; the index
-// arithmetic within a plane is 32-bit (a 64-bit division per cell would
-// cost more than the cell's bytes).
+// float32) that is 1.8 MB and 2.7 MB: 0.53 and 0.79 us at 3.35 TB/s, at the
+// bench shape's clustered batch (B = 8, D = 64) 10.7 MB for the accumulate,
+// 3.2 us. The extract is a plain grid-stride loop, one block per box plane,
+// with nothing staged in shared memory; the index arithmetic within a plane
+// is 32-bit (a 64-bit division per cell would cost more than the cell's
+// bytes).
+//
+// The accumulate's design for this card. Inside the trace loop the boxes
+// come fresh from L2 and the frame's cells cold from device memory; what
+// holds the accumulate back is the latency of the frame reads and the
+// instructions a cell spends on its ownership and coverage tests, and, where
+// halos cluster, the loads of the up to B boxes that cover a cell of the
+// first box, which owns nearly every cell. One thread per box cell over the
+// flattened B D^3 cells (2.1 M threads at the bench shape) ran 38-41 us per
+// bench fuse_fold batch against 29 us for one block per box plane (PERF.md,
+// kernel_ab.py). So block (g, b) takes a contiguous range of box b's cells,
+// at most kRangesPerPlane ranges per plane of D^2 cells and no more blocks
+// than the card holds at once (47-56 registers a thread: five blocks to an
+// SM; a second wave of short blocks made the EoR shape's accumulate a
+// third slower), and first marks the boxes that meet the range's bounding
+// box in the frame, a bit per box, 32 to a word: a cell tests those alone,
+// and none where no other box comes near. The corners of up to
+// kStagedCorners boxes are staged in shared memory (of more, read from
+// device memory: a kernel of its own, so that the staged form's tests
+// compile to shared-memory loads, which a pointer to either would not); a
+// cell's coverage, a 32-box word at a time, is computed once and shared by
+// its channels. Per channel the owner issues the loads of up to kLoadChunk
+// covering boxes, its own included, into registers before it adds any of
+// them, in ascending order: a clustered cell pays about one load latency per
+// chunk, not one per box. Index arithmetic is 32-bit within a box (D^3 <
+// 2^31, checked by the caller) and 64-bit for box bases and the frame
+// offset.
+//
+// The rate boxes of the unfused modes are 0 outside the rates table's
+// rated cells (the dense rate pass writes only those, cheb_rates.cuh), and
+// adding 0 leaves a frame cell as it is (the frames start at +0 and gain
+// non-negative rates, so none holds -0). There the accumulate visits only
+// the listed rated cells of every box (struct Visit: B n_valid cells, 43%
+// of B D^3 at the bench shape) and skips the adds of 0: a box takes part at
+// a frame cell where it covers it at a rated cell, the owner is the thread
+// of the lowest such box, and it adds the values of all of them in
+// ascending order. Of the plain version's adds only those of 0 are left
+// out, so the frame is the same bit for bit. The box and frame bytes fall
+// with the rated share (10.7 MB of 25 MB at the bench shape).
 
 #include "cheb_rates.cuh"
 #include "cheb_sweep_kernels.cuh"
@@ -67,6 +105,12 @@ using namespace cheb;
 
 constexpr int kMaxChannels = 4;   // frames moved by one launch
 constexpr int kBoxThreads = 256;  // threads per block of the two kernels
+constexpr int kStagedCorners = 1024;  // the accumulate stages the corners of
+                                      // up to this many boxes in shared
+                                      // memory (of more: reads them there)
+constexpr int kLoadChunk = 8;     // loads an owner issues before it adds
+constexpr int kRangesPerPlane = 2;  // the accumulate's blocks per box: this
+                                    // many per plane of D^2 cells
 
 // Up to kMaxChannels frames and their (B, D, D, D) boxes: channel ch moves
 // between frame[ch] and box[ch]. The kernels index them in unrolled loops,
@@ -101,6 +145,28 @@ __device__ __forceinline__ bool covers(const int* p, int x, int y, int z,
          unsigned(z - p[2]) < unsigned(D);
 }
 
+// The cells of each box the accumulate visits: all D^3 (cells null), or
+// the n rated cells `cells` (ascending flat indices), where `valid` (the
+// rates table's valid channel, D^3 values) exceeds 0.5 and the boxes are 0
+// everywhere else.
+template <typename T>
+struct Visit {
+  const int* cells;
+  const T* valid;
+  int n;
+};
+
+// Whether the box of corner p takes part at frame cell (x, y, z): it
+// covers it, at a cell it rates where the visit is a list.
+template <typename T>
+__device__ __forceinline__ bool takes_part(const int* p, int x, int y, int z,
+                                           int D, const T* valid) {
+  return covers(p, x, y, z, D) &&
+         (valid == nullptr ||
+          valid[(unsigned(x - p[0]) * D + unsigned(y - p[1])) * D +
+                unsigned(z - p[2])] > T(0.5));
+}
+
 // Block (b, i) copies plane i of box b of every channel.
 template <typename T>
 __global__ void extract_boxes_kernel(Channels<T> ch, BoxSet bs) {
@@ -117,50 +183,182 @@ __global__ void extract_boxes_kernel(Channels<T> ch, BoxSet bs) {
   }
 }
 
-// Block (b, i) visits plane i of box b; a thread owns its frame cell when no
-// box before b covers it, and then adds every covering box's value into it
-// in ascending box index (see the head of this file).
+// v plus the value at frame cell (x, y, z) of every box whose bit is set in
+// `mask` (bit q: box o0 + q, its corner at c + 3 q), in ascending box index:
+// up to kLoadChunk loads are issued into registers, then added in order.
 template <typename T>
-__global__ void accumulate_boxes_kernel(Channels<T> ch, BoxSet bs) {
-  const int D = bs.D, b = blockIdx.x / D, i = blockIdx.x % D;
-  const int* P = bs.corners();
-  const unsigned D2 = unsigned(D) * D;
-  const size_t D3 = size_t(D2) * D;
-  const int x = P[3 * b] + i;
-  for (unsigned jk = threadIdx.x; jk < D2; jk += blockDim.x) {
-    const int j = int(jk / unsigned(D));
-    const int y = P[3 * b + 1] + j, z = P[3 * b + 2] + int(jk) - j * D;
-    bool owner = true;
-    for (int o = 0; o < b && owner; ++o)
-      owner = !covers(P + 3 * o, x, y, z, D);
-    if (!owner) continue;
-    const size_t t = bs.at(x, y, z);
+__device__ __forceinline__ T add_covering(T v, const T* box, unsigned mask,
+                                          const int* c, int o0, int x, int y,
+                                          int z, int D, unsigned D3) {
+  while (mask != 0u) {
+    T got[kLoadChunk];
+    int n = 0;
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
-      if (c >= ch.n) break;
-      T v = ch.frame[c][t];
-      for (int o = b; o < bs.B; ++o) {
-        const int* q = P + 3 * o;
-        if (covers(q, x, y, z, D))
-          v = Arith<T>::add(
-              v, ch.box[c][o * D3 + (size_t(x - q[0]) * D + (y - q[1])) * D +
-                           (z - q[2])]);
+    for (int u = 0; u < kLoadChunk; ++u) {
+      if (mask != 0u) {
+        const int q = __ffs(mask) - 1;
+        mask &= mask - 1u;
+        const int* p = c + 3 * q;
+        got[u] = box[size_t(o0 + q) * D3 +
+                     (unsigned(x - p[0]) * D + unsigned(y - p[1])) * D +
+                     unsigned(z - p[2])];
+        n = u + 1;
       }
-      ch.frame[c][t] = v;
     }
+#pragma unroll
+    for (int u = 0; u < kLoadChunk; ++u)
+      if (u < n) v = Arith<T>::add(v, got[u]);
+  }
+  return v;
+}
+
+// Block (g, b) visits the g-th of gridDim.x equal ranges of box b's
+// visited cells, a thread one cell at a time at stride blockDim. First each
+// warp marks in its `near` (a bit per box, 32 to a word) the boxes that
+// meet the range's bounding box in the frame; a cell then tests those
+// alone. A thread owns its frame cell when no box before b takes part
+// there, and then adds the value of every box that does into it in
+// ascending box index (see the head of this file). STAGED: the corners lie
+// in shared memory (B <= kStagedCorners), else in device memory.
+template <typename T, bool STAGED>
+__global__ void accumulate_boxes_kernel(Channels<T> ch, BoxSet bs,
+                                        Visit<T> vis) {
+  const int B = bs.B, D = bs.D, b = blockIdx.y, words = (B + 31) / 32;
+  const unsigned D2 = unsigned(D) * D, D3 = D2 * unsigned(D);
+  const unsigned n = unsigned(vis.n), per = (n + gridDim.x - 1) / gridDim.x;
+  const unsigned r0 = blockIdx.x * per, r1 = r0 + per < n ? r0 + per : n;
+  if (r0 >= r1) return;
+  // per warp its own copy of the near words (no second block barrier);
+  // the staged corners behind them
+  const int lane = threadIdx.x & 31;
+  unsigned* near = shared_mem<unsigned>() + (threadIdx.x >> 5) * words;
+  int* staged = reinterpret_cast<int*>(shared_mem<unsigned>() +
+                                       ((blockDim.x + 31) >> 5) * words);
+  const int* P = bs.corners();
+  const int px = P[3 * b], py = P[3 * b + 1], pz = P[3 * b + 2];
+  {  // the range's bounding box in the frame: planes i0..i1 of box b, its
+     // rows j0..j1 where the range lies in one plane; lane l of each warp
+     // tests box 32 w + l for word w
+    const unsigned c0 = vis.cells ? unsigned(vis.cells[r0]) : r0;
+    const unsigned c1 = vis.cells ? unsigned(vis.cells[r1 - 1]) : r1 - 1;
+    const int i0 = int(c0 / D2), i1 = int(c1 / D2);
+    const int j0 = i0 == i1 ? int(c0 - unsigned(i0) * D2) / D : 0;
+    const int j1 = i0 == i1 ? int(c1 - unsigned(i1) * D2) / D : D - 1;
+    const int width = min(32, int(blockDim.x) - (int(threadIdx.x) & ~31));
+    for (int w = 0; w < words; ++w) {
+      unsigned bits = 0u;
+      for (int l0 = 0; l0 < 32; l0 += width) {   // once in a warp of 32
+        const int q = 32 * w + l0 + lane;
+        const int* c = P + 3 * q;
+        const bool meets =
+            l0 + lane < 32 && q < B && c[0] <= px + i1 && px + i0 < c[0] + D &&
+            c[1] <= py + j1 && py + j0 < c[1] + D && c[2] < pz + D &&
+            pz < c[2] + D;
+        bits |= __ballot_sync(0xffffffffu, meets) << l0;
+      }
+      if (lane == 0) near[w] = bits;
+    }
+  }
+  if (STAGED)
+    for (int q = threadIdx.x; q < 3 * B; q += blockDim.x) staged[q] = P[q];
+  __syncthreads();
+  const int* C = STAGED ? staged : P;
+  for (unsigned k = r0 + threadIdx.x; k < r1; k += blockDim.x) {
+    const unsigned cell = vis.cells ? unsigned(vis.cells[k]) : k;
+    const int i = int(cell / D2), jk = int(cell - unsigned(i) * D2);
+    const int j = jk / D;
+    const int x = px + i, y = py + j, z = pz + jk - j * D;
+    bool owner = true;
+    for (int w = 0; owner && w <= (b >> 5); ++w) {
+      unsigned m = near[w];
+      if (w == (b >> 5)) m &= (1u << (b & 31)) - 1u;      // boxes before b
+      for (; owner && m != 0u; m &= m - 1u)
+        owner = !takes_part(C + 3 * (32 * w + __ffs(m) - 1), x, y, z, D,
+                            vis.valid);
+    }
+    if (!owner) continue;
+    const size_t f = bs.at(x, y, z);
+    T v[kMaxChannels];
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c)
+      if (c < ch.n) v[c] = ch.frame[c][f];
+    for (int w = b >> 5; w < words; ++w) {
+      unsigned m = near[w], mask = 0u;
+      if (w == (b >> 5)) {                     // box b and the boxes after it
+        m &= ~((2u << (b & 31)) - 1u);
+        mask = 1u << (b & 31);
+      }
+      for (; m != 0u; m &= m - 1u) {
+        const int q = __ffs(m) - 1;
+        if (takes_part(C + 3 * (32 * w + q), x, y, z, D, vis.valid))
+          mask |= 1u << q;
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c)
+        if (c < ch.n)
+          v[c] = add_covering(v[c], ch.box[c], mask, C + 96 * w, 32 * w, x,
+                              y, z, D, D3);
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c)
+      if (c < ch.n) ch.frame[c][f] = v[c];
   }
 }
 
 // The launches of the two kernels and of the trace loop.
 
+// How many blocks of the accumulate the card holds at once (its registers
+// decide it: 47-56 a thread, so five blocks of 256 threads to an SM), asked
+// once per form.
+template <typename T, bool STAGED>
+size_t resident_blocks(size_t smem) {
+  static const size_t n = [smem] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, accumulate_boxes_kernel<T, STAGED>, kBoxThreads, smem);
+    return size_t(per_sm > 0 ? per_sm : 1) * size_t(sms > 0 ? sms : 1);
+  }();
+  return n;
+}
+
+// The extract (`extract`) or the accumulate of the cells `vis` visits (all
+// of them where vis.cells is null) on `st`; returns the first cudaError_t
+// that is not cudaSuccess.
 template <typename T>
 int launch_boxes(bool extract, const Channels<T>& ch, const BoxSet& bs,
-                 cudaStream_t st) {
-  if (ch.n < 1 || ch.n > kMaxChannels) return cudaErrorInvalidValue;
-  if (extract)
+                 Visit<T> vis, cudaStream_t st) {
+  const size_t D3 = size_t(bs.D) * bs.D * bs.D;
+  if (vis.cells == nullptr) vis.n = int(D3 < (size_t(1) << 31) ? D3 : 0);
+  if (ch.n < 1 || ch.n > kMaxChannels || bs.B < 1 || bs.B > 65535 ||
+      bs.D < 1 || D3 >= (size_t(1) << 31) || vis.n < 0 ||
+      size_t(vis.n) > D3 || (vis.cells == nullptr) != (vis.valid == nullptr))
+    return cudaErrorInvalidValue;
+  if (extract) {
     extract_boxes_kernel<T><<<bs.B * bs.D, kBoxThreads, 0, st>>>(ch, bs);
-  else
-    accumulate_boxes_kernel<T><<<bs.B * bs.D, kBoxThreads, 0, st>>>(ch, bs);
+  } else if (vis.n > 0) {
+    // ranges of at least a cell a thread, at most kRangesPerPlane a plane,
+    // and no more blocks than the card holds at once
+    const bool staged = bs.B <= kStagedCorners;
+    const size_t smem =
+        sizeof(unsigned) * (kBoxThreads / 32) * ((bs.B + 31) / 32) +
+        (staged ? 3 * sizeof(int) * bs.B : 0);
+    const size_t cap[3] = {
+        (size_t(vis.n) + kBoxThreads - 1) / kBoxThreads,
+        size_t(kRangesPerPlane) * bs.D,
+        (staged ? resident_blocks<T, true>(smem)
+                : resident_blocks<T, false>(smem)) / size_t(bs.B)};
+    size_t ranges = cap[0];
+    for (const size_t c : cap) ranges = c < ranges ? c : ranges;
+    const dim3 grid(unsigned(ranges > 0 ? ranges : 1), unsigned(bs.B));
+    if (staged)
+      accumulate_boxes_kernel<T, true><<<grid, kBoxThreads, smem, st>>>(
+          ch, bs, vis);
+    else
+      accumulate_boxes_kernel<T, false><<<grid, kBoxThreads, smem, st>>>(
+          ch, bs, vis);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -187,6 +385,7 @@ struct SweepLoopBufs {
   const void* flux;       // (nb, B)
   const void* rt_tab;     // (Dc, 2, Dc, Dc), the rates table of K1f and K3
   const void* rt_sub;     // (3, Ds, Ds, Ds), the rate pass's table
+  const int* cells;       // (n_valid,) the subbox cells it rates, ascending
   const void* bins_s;
   const void* bins_w;
   const void* bins_wh;    // null without the heat channel
@@ -195,7 +394,9 @@ struct SweepLoopBufs {
   void* boxes;            // (B, Dc, Dc, Dc) scratch: the nHI boxes
   void* work[2];          // (B, Dc, Dc, Dc) scratch each: the sweep's box
                           // (K1, K2) in work[0]; K3's cdin and dcol boxes
-  void* phi;              // (B, Ds^3) rate boxes, (B, Dc^3) with K1f, K3
+  void* phi;              // (B, Ds^3) rate boxes, zeroed by the caller
+                          // (the rate pass writes its listed cells only);
+                          // (B, Dc^3) with K1f, K3
   void* heat;             // the same, null without the heat channel
   void* planes[2];        // (B, 3, 2, Dc, Dc) each: K2's carried planes
   void* scratch;          // the sweep's planes where they are not shared
@@ -207,7 +408,7 @@ struct SweepLoopArgs {
   double R2;              // K1f: the squared radius
   double sdr3, s_fac;     // S* / dr^3, and S* dr / dr^3 (K3)
   int threads_b;          // K3's phase B: threads per block
-  int rb0, Ds;            // the rate pass's subbox
+  int rb0, Ds, n_valid;   // the rate pass's subbox and its rated cells
   int seg_S, seg_K;       // K2: shells per segment, segments
   int F0, F1, F2;         // the frame's extents
 };
@@ -233,7 +434,8 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
       (a.heat != nullptr) != with_heat || (a.bins_wh != nullptr) != with_heat ||
       (mode == kSweepK2 && (s.seg_S < 1 || s.seg_K < 1 || !a.planes[0] ||
                             !a.planes[1])) ||
-      (mode == kSweepK3 && !a.work[1]))
+      (mode == kSweepK3 && !a.work[1]) ||
+      (!whole && s.n_valid > 0 && a.cells == nullptr))
     return cudaErrorInvalidValue;
   Plan pl;
   const cudaError_t err = make_plan<T>(spec, Dc, gamma ? 2 * s.E : 0, gamma,
@@ -262,23 +464,31 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
     if (mode == kSweepK3) return launch_rates<T>(tb, pl, spec, k3);
     return launch_sweep<T>(tb, pl, spec, nhi, cd, sc);
   }
-  DenseRates<T> rates{cd, nhi, static_cast<P>(a.rt_sub), fl, bins_s, bins_w,
-                      static_cast<P>(a.bins_wh), phi, static_cast<T*>(a.heat),
-                      spec.B, s.E, Dc, s.Ds, s.rb0, static_cast<T>(dr),
-                      static_cast<T>(sig), static_cast<T>(s.sdr3)};
+  DenseRates<T> rates{cd, nhi, static_cast<P>(a.rt_sub), a.cells, fl,
+                      bins_s, bins_w, static_cast<P>(a.bins_wh), phi,
+                      static_cast<T*>(a.heat), spec.B, s.E, Dc, s.Ds, s.rb0,
+                      s.n_valid, static_cast<T>(dr), static_cast<T>(sig),
+                      static_cast<T>(s.sdr3)};
   void* src[1] = {const_cast<void*>(a.frame)};
   void* nhi_box[1] = {a.boxes};
   void* frames[2] = {a.phi_frame, a.heat_frame};
   void* out[2] = {a.phi, a.heat};
   const Channels<T> in = channels<T>(src, nhi_box, 1);
   const Channels<T> acc = channels<T>(frames, out, with_heat ? 2 : 1);
+  // the unfused modes accumulate the rate pass's cells only; the fused
+  // ones every cell of their (Dc)^3 boxes
+  const Visit<T> rated{whole ? nullptr : a.cells,
+                       whole ? nullptr
+                             : static_cast<P>(a.rt_sub) +
+                                   2 * size_t(s.Ds) * s.Ds * s.Ds,
+                       whole ? 0 : s.n_valid};
   BoxSet ex{a.pos, 0, spec.B, Dc, 0, s.F0, s.F1, s.F2};
   BoxSet ac{a.pos, 0, spec.B, whole ? Dc : s.Ds, whole ? 0 : s.rb0,
             s.F0, s.F1, s.F2};
   for (int b = 0; b < s.nb; ++b) {
     ex.batch = ac.batch = b;
     const T* flux_b = fl + size_t(b) * spec.B;
-    int rc = launch_boxes<T>(true, in, ex, st);
+    int rc = launch_boxes<T>(true, in, ex, Visit<T>{}, st);
     if (rc == 0) switch (mode) {
         case kSweepK1:
           rc = launch_sweep<T>(tb, pl, spec, nhi, cd, sc);
@@ -305,7 +515,7 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
       rates.flux = flux_b;
       rc = launch_rates_dense<T>(rates, st);
     }
-    if (rc == 0) rc = launch_boxes<T>(false, acc, ac, st);
+    if (rc == 0) rc = launch_boxes<T>(false, acc, ac, rated, st);
     if (rc != 0) return rc;
   }
   return 0;
@@ -316,15 +526,20 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
 extern "C" {
 
 // Extract (`extract` = 1) or accumulate (0) the boxes of batch `batch` for
-// the n channels frames[c] <-> boxes[c] on `stream`; returns the first
-// cudaError_t that is not cudaSuccess.
+// the n channels frames[c] <-> boxes[c] on `stream`, the accumulate at the
+// n_cells rated cells `cells` of every box (where `valid`, the rates table's
+// valid channel, exceeds 0.5; the boxes 0 elsewhere) where `cells` is set;
+// returns the first cudaError_t that is not cudaSuccess.
 #define BOXES_ENTRY(NAME, TYPE)                                                \
   int NAME(int extract, void* const* frames, void* const* boxes, int n,        \
            const int* pos, int batch, int B, int D, int shift, int F0, int F1, \
-           int F2, void* stream) {                                            \
-    return launch_boxes<TYPE>(extract != 0, channels<TYPE>(frames, boxes, n),  \
-                              BoxSet{pos, batch, B, D, shift, F0, F1, F2},     \
-                              static_cast<cudaStream_t>(stream));              \
+           int F2, const int* cells, const void* valid, int n_cells,          \
+           void* stream) {                                                    \
+    return launch_boxes<TYPE>(                                                 \
+        extract != 0, channels<TYPE>(frames, boxes, n),                        \
+        BoxSet{pos, batch, B, D, shift, F0, F1, F2},                           \
+        Visit<TYPE>{cells, static_cast<const TYPE*>(valid), n_cells},          \
+        static_cast<cudaStream_t>(stream));                                    \
   }
 
 BOXES_ENTRY(boxes_f32, float)
@@ -341,21 +556,23 @@ BOXES_ENTRY(boxes_f64, double)
   int NAME(const void* frame, const int* pos, const void* flux,               \
            const void* sw, const void* path, const void* diag,                \
            const void* mask_m, const void* mask_p, const void* rt_tab,        \
-           const void* rt_sub, const void* bins_s, const void* bins_w,        \
-           const void* bins_wh, void* phi_frame, void* heat_frame,            \
+           const void* rt_sub, const int* cells, const void* bins_s,          \
+           const void* bins_w, const void* bins_wh, void* phi_frame,          \
+           void* heat_frame,                                                  \
            void* boxes, void* work0, void* work1, void* phi, void* heat,      \
            void* planes0, void* planes1, void* scratch, int mode, int E,      \
            double R2, double sdr3, double s_fac, int threads_b, int rb0,      \
-           int Ds, int seg_S, int seg_K, int F0, int F1, int F2, int nb,      \
+           int Ds, int n_valid, int seg_S, int seg_K, int F0, int F1, int F2, \
+           int nb,                                                            \
            int B, int Dc, int c, int R1, double dr, double sig, int threads,   \
            int cluster, int shared_planes, int smem, int rate_threads,        \
            int ring, int* max_clusters, void* stream) {                       \
     return trace_sweep<TYPE>(                                                  \
-        SweepLoopBufs{frame, pos, flux, rt_tab, rt_sub, bins_s, bins_w,        \
+        SweepLoopBufs{frame, pos, flux, rt_tab, rt_sub, cells, bins_s, bins_w, \
                       bins_wh, phi_frame, heat_frame, boxes, {work0, work1},   \
                       phi, heat, {planes0, planes1}, scratch},                 \
-        SweepLoopArgs{nb, mode, E, R2, sdr3, s_fac, threads_b, rb0, Ds, seg_S, \
-                      seg_K, F0, F1, F2},                                      \
+        SweepLoopArgs{nb, mode, E, R2, sdr3, s_fac, threads_b, rb0, Ds,        \
+                      n_valid, seg_S, seg_K, F0, F1, F2},                      \
         sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig,                    \
         LaunchSpec{B, threads, cluster, shared_planes, smem, rate_threads,     \
                    ring, max_clusters, stream});                               \

@@ -11,8 +11,9 @@ sources:
      ops/sweep.py):
        - default: sweep the cube shells to the coldensh_out box (K1,
          ``sweep.cheb_sweep``), then evaluate the spectral-bin
-         photoionization rates densely over the central rates subbox
-         (``_rates``: the kernel of ops/cheb_rates.py);
+         photoionization rates over the central rates subbox (``_rates``:
+         the kernel of ops/cheb_rates.py, at the subbox's rated cells,
+         ``rated_cells``, listed once per engine);
        - ``shell_segment``: the same sweep as K segments of S shells with
          carried planes (K2, ``sweep.cheb_sweep_segmented``), then
          ``_rates``;
@@ -57,7 +58,7 @@ from ..device import resolve_device
 from ..radiation.spectral_bins import SpectralBins
 from .cheb_geometry import (ChebGeometry, box_dims, build_cheb_geometry,
                             pack_rates_tables)
-from .cheb_rates import rates_dense
+from .cheb_rates import rated_cells, rates_dense
 from .geometry import max_q_for
 from .raytrace import RaytraceConfig
 from .sweep import cheb_sweep, cheb_sweep_segmented, rate_consts
@@ -190,6 +191,21 @@ class ChebRaytracer:
             bins_wh=torch.from_numpy(np.asarray(bins.w_heat, np.float64)),
         ).to(self.device, dtype)
 
+    @property
+    def tables(self):
+        """The engine's device tables (ChebTables)."""
+        return self._tables
+
+    @tables.setter
+    def tables(self, tables):
+        """Set the tables (the engine's own, or the JAX engine's through
+        ``convert.state_from_jax`` moved with ``ChebTables.to``) and list
+        the cells their ``rt_sub`` rates once, in ``rated_cells`` (int32,
+        ascending, on the tables' device; one wait for the device): the
+        cells the rate pass's kernel evaluates, in every trace."""
+        self._tables = tables
+        self.rated_cells = rated_cells(tables.rt_sub)
+
     def _build_rt_sub(self):
         """Host-side build of the stacked rates-subbox tables: channels
         (path3, geominv, valid) where geominv = 1/(4 pi dist2 path3) with
@@ -234,7 +250,8 @@ class ChebRaytracer:
         return rates_dense(cd, nhi_box, tb.rt_sub, flux, tb.bins_s, tb.bins_w,
                            dr, self.sig, rate_consts(dr, self.dtype)[1],
                            self._rb0,
-                           bins_wh=tb.bins_wh if self.do_heating else None)
+                           bins_wh=tb.bins_wh if self.do_heating else None,
+                           cells=self.rated_cells)
 
     def sweep_box(self, boxes, dr, sig):
         """The coldensh_out box of (B, Dc, Dc, Dc) absorber boxes at the
@@ -261,7 +278,8 @@ class ChebRaytracer:
         g = self.geom
         pos = stage_positions(pos_b, nhi_pad.shape, g.Dc, nhi_pad.device)
         return cheb_trace_sweep(nhi_pad, pos, flux_b, self.tables, dr, g.c,
-                                self.sig, **self._sweep_mode())
+                                self.sig, cells=self.rated_cells,
+                                **self._sweep_mode())
 
     def trace_extended_plain(self, nhi_pad, pos_b, flux_b, dr):
         """``trace_extended`` as the batch loop was issued before the trace

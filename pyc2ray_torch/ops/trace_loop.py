@@ -15,13 +15,17 @@ The port's own kernels for the two ends of a batch (csrc/trace_loop.cu):
   ``accumulate_boxes``  adds a batch's boxes into up to four frames at corner
                         + shift, source by source in batch order, bit for bit
                         as the plain version ``add_boxes`` (one slice add per
-                        source): each frame cell has one owner thread that
-                        adds the covering boxes in ascending order, so no
-                        atomicAdd reorders the adds where boxes overlap.
+                        source): each frame cell has one owner thread
+                        that adds the covering boxes in ascending order, so
+                        no atomicAdd reorders the adds where boxes overlap;
+                        the rate boxes of the unfused modes, 0 outside the
+                        rated cells, only at those (the adds of 0 left
+                        out).
   ``cheb_trace_sweep``  the whole trace of any sweep mode as one call: a
                         loop in C issues, per batch, extract -> K1 -> the
-                        dense rate pass (ops/cheb_rates.py) -> accumulate
-                        at shift rb0 (the default mode, with do_heating the
+                        dense rate pass (ops/cheb_rates.py, over the
+                        engine's rated cells) -> accumulate at shift rb0
+                        (the default mode, with do_heating the
                         heat beside Gamma), extract -> the segmented sweep's
                         start -> K2 x seg_K -> the rate pass -> accumulate
                         (shell_segment), extract -> K1f -> accumulate
@@ -157,16 +161,29 @@ def _check_boxes(name, frames, boxes, pos, k, D):
     return sweep._SUFFIX[dt]
 
 
-def _boxes_launch(name, frames, boxes, pos, k, D, shift):
+def _boxes_launch(name, frames, boxes, pos, k, D, shift, cells=None,
+                  valid=None):
     sfx = _check_boxes(name, frames, boxes, pos, k, D)
+    if (cells is None) != (valid is None):
+        raise ValueError(f"{name}: cells and valid go together")
+    if cells is not None:
+        sweep._check(name, boxes[0], {
+            "cells": (cells, (cells.numel(),), torch.int32),
+            "valid": (valid, (D, D, D), frames[0].dtype)})
+        if cells.numel() > D ** 3:
+            raise ValueError(f"{name}: {cells.numel()} cells of a box of "
+                             f"{D ** 3}")
     from ._build import load
     lib = load("trace_loop")
     ptrs = ctypes.c_void_p * MAX_CHANNELS
     stream = torch.cuda.current_stream(pos.device).cuda_stream
+    listed = [None, None, 0] if cells is None else [
+        sweep._ptr(cells), sweep._ptr(valid), cells.numel()]
     err = getattr(lib, f"boxes_{sfx}")(
         int(name == "extract_boxes"), ptrs(*[f.data_ptr() for f in frames]),
         ptrs(*[b.data_ptr() for b in boxes]), len(frames), sweep._ptr(pos),
-        k, pos.shape[1], D, shift, *frames[0].shape, ctypes.c_void_p(stream))
+        k, pos.shape[1], D, shift, *frames[0].shape, *listed,
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({lib.error_string(err)!r})")
@@ -190,20 +207,25 @@ def extract_boxes(frames, pos, k, D):
     return out[0] if isinstance(frames, torch.Tensor) else out
 
 
-def accumulate_boxes(frames, boxes, pos, k, shift=0):
+def accumulate_boxes(frames, boxes, pos, k, shift=0, cells=None,
+                     valid=None):
     """Add the boxes (B, D, D, D) of batch ``k`` into ``frames`` at the
     staged corners ``pos[k]`` + ``shift``, frame by frame with its boxes
     (one tensor each, or equal sequences of up to MAX_CHANNELS), source by
     source in batch order. The plain version (``add_boxes``) for a CPU
     frame, one kernel launch for all the frames of a CUDA one, bit for bit
-    the same."""
+    the same. Rate boxes of the unfused modes, which are 0 outside the rated
+    cells ``cells`` of the rates table (``cheb_rates.rated_cells``; where
+    ``valid``, its (D, D, D) valid channel, exceeds 0.5), may give both: the
+    kernel then visits those cells only and leaves out the adds of 0,
+    which change no frame that holds no -0 (a frame of rates)."""
     chans, bx = _channels(frames), _channels(boxes)
     if chans[0].device.type == "cpu":
         for f, b in zip(chans, bx, strict=True):
             add_boxes(f, b, pos[k], shift)
         return
     _boxes_launch("accumulate_boxes", chans, bx, pos, k, bx[0].shape[-1],
-                  shift)
+                  shift, cells, valid)
 
 
 def cheb_trace_sweep_ref(frame, pos, flux, tb, dr, c, sig, R2=0.0,
@@ -244,7 +266,7 @@ def cheb_trace_sweep_ref(frame, pos, flux, tb, dr, c, sig, R2=0.0,
 
 
 def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
-                     rb0=0, fuse=None, heat=False, plan=None):
+                     rb0=0, fuse=None, heat=False, plan=None, cells=None):
     """The trace of the frame ``frame`` (F0, F1, F2) in a sweep mode: the
     sources of batch k have their box corners at ``pos[k]`` (staged, (nb,
     B, 3) int32) and their fluxes in ``flux[k]`` ((nb, B)); ``tb`` holds the
@@ -262,7 +284,10 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
     stream and does not synchronize. Counted as one "cheb_trace_sweep" and
     nb launches of each kernel it issues (nb K for K2). ``plan`` forces
     parts of the sweep's plan (K3: of its phase A) as in
-    ``sweep.cheb_sweep``."""
+    ``sweep.cheb_sweep``. The unfused modes' rate pass evaluates the rated
+    cells ``cells`` of ``rt_sub`` (``cheb_rates.rated_cells``, int32 on the
+    card; the engine's ``rated_cells``), which the card needs and the plain
+    version ignores."""
     S, K = (int(v) for v in seg)
     if fuse not in FUSE_MODES:
         raise ValueError(f"cheb_trace_sweep: fuse={fuse!r}, one of "
@@ -273,6 +298,8 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
     if frame.device.type == "cpu":
         return cheb_trace_sweep_ref(frame, pos, flux, tb, dr, c, sig, R2,
                                     (S, K), rb0, fuse, heat)
+    if fuse:
+        cells = None            # the fused modes rate inside their kernels
     dt, dev = frame.dtype, frame.device
     nb, B = pos.shape[:2]
     Dc, Ds = tb.sw.shape[-1], tb.rt_sub.shape[-1]
@@ -281,24 +308,32 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
     (B, Dc, R1), spec = sweep._geom(boxes, *geo, c)
     E, more = sweep._bins_spec(Dc, tb.bins_s, tb.bins_w, tb.rt_tab, dt)
     spec.update(more)
-    spec.update(rt_sub=(tb.rt_sub, (3, Ds, Ds, Ds), dt), flux=(flux, (nb, B), dt),
+    spec.update(rt_sub=(tb.rt_sub, (3, Ds, Ds, Ds), dt),
+                flux=(flux, (nb, B), dt),
                 pos=(pos, (nb, B, 3), torch.int32),
                 frame=(frame, tuple(frame.shape), dt))
     if heat:
         spec["bins_wh"] = (tb.bins_wh, (E,), dt)
+    if cells is not None:
+        spec["cells"] = (cells, (cells.numel(),), torch.int32)
     sfx = sweep._check("cheb_trace_sweep", boxes, spec)
     if frame.dim() != 3:
         raise ValueError(f"cheb_trace_sweep: frame {tuple(frame.shape)}")
-    if not fuse and not 0 <= rb0 <= Dc - Ds:
-        raise ValueError(f"cheb_trace_sweep: a rates subbox of {Ds} at {rb0} "
-                         f"leaves the box {Dc}")
+    if not fuse and (cells is None or cells.numel() > Ds ** 3
+                     or not 0 <= rb0 <= Dc - Ds):
+        raise ValueError(f"cheb_trace_sweep: the rate pass needs the rated "
+                         f"cells of rt_sub (cheb_rates.rated_cells) and its "
+                         f"subbox of {Ds} at {rb0} inside the box {Dc}")
     mode = {None: int(S > 0), "rates": 2, "fold": 3}[fuse]
     from ._build import load
     lib = load("trace_loop")
     frames = [torch.zeros_like(frame) for _ in range(1 + bool(heat))]
-    phi = torch.empty_like(boxes) if fuse else torch.empty(
+    # the rate pass writes its rated cells only: its boxes start at 0 once
+    # per trace and keep 0 everywhere else over all the batches
+    phi = torch.empty_like(boxes) if fuse else torch.zeros(
         (B, Ds, Ds, Ds), dtype=dt, device=dev)
-    heat_b = torch.empty_like(phi) if heat else None
+    heat_b = None if not heat else (torch.empty_like(phi) if fuse
+                                    else torch.zeros_like(phi))
     work = [torch.empty_like(boxes) if fuse != "rates" else None,
             torch.empty_like(boxes) if fuse == "fold" else None]
     planes = [torch.empty((B, 3, 2, Dc, Dc), dtype=dt, device=dev)
@@ -307,12 +342,12 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
             "cheb_sweep_rates_heat" if heat else "cheb_sweep_rates")[mode]
     s_fac, sdr3 = rate_consts(dr, dt)
     sweep._launch(lib, f"cheb_trace_sweep_{sfx}", name, boxes, R1, c, dr, sig,
-                  (frame, pos, flux, *geo, tb.rt_tab, tb.rt_sub, tb.bins_s,
-                   tb.bins_w, tb.bins_wh if heat else None, frames[0],
-                   frames[1] if heat else None, boxes, *work, phi, heat_b,
-                   *planes),
-                  (mode, E, float(R2), sdr3, s_fac, THREADS_RATES, rb0, Ds, S,
-                   K, *frame.shape, nb),
+                  (frame, pos, flux, *geo, tb.rt_tab, tb.rt_sub, cells,
+                   tb.bins_s, tb.bins_w, tb.bins_wh if heat else None,
+                   frames[0], frames[1] if heat else None, boxes, *work, phi,
+                   heat_b, *planes),
+                  (mode, E, float(R2), sdr3, s_fac, THREADS_RATES, rb0, Ds,
+                   0 if fuse else cells.numel(), S, K, *frame.shape, nb),
                   head=2 * E if mode == 2 else 0, plan=plan,
                   rate_threads=RATE_THREADS if mode == 2 else 0,
                   count=nb * (K if mode == 1 else 1), variant=mode)

@@ -27,12 +27,30 @@ struct EmuCluster {
   std::vector<std::vector<unsigned char>> bufs;    // per block
   std::vector<std::barrier<>*> block_bar;
   std::barrier<>* cluster_bar;
+  // per block and warp (32 threads, the last one the block's rest): a
+  // barrier of the warp's threads and the ballot they fill
+  std::vector<std::vector<std::barrier<>*>> warp_bar;
+  std::vector<std::vector<unsigned>> ballot;
 };
 extern thread_local EmuCluster* emu_cl;
 extern thread_local int emu_rank;
 inline unsigned char* emu_smem() { return emu_cl->bufs[emu_rank].data(); }
 inline void __syncthreads() { emu_cl->block_bar[emu_rank]->arrive_and_wait(); }
 inline void __syncwarp() {}
+// every thread of the warp calls it with the full mask, as the kernels do
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const unsigned w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  std::barrier<>& bar = *emu_cl->warp_bar[emu_rank][w];
+  std::atomic_ref<unsigned> acc(emu_cl->ballot[emu_rank][w]);
+  bar.arrive_and_wait();
+  if (pred) acc.fetch_or(1u << lane);
+  bar.arrive_and_wait();
+  const unsigned r = acc.load();
+  bar.arrive_and_wait();
+  if (lane == 0) acc.store(0u);
+  return r;
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
 // the split barrier: arrive returns at once, wait blocks until every thread
 // of the cluster has arrived
 extern thread_local std::optional<std::barrier<>::arrival_token> emu_token;

@@ -8,7 +8,8 @@
 // chain threads and, behind them, the rate threads of K1f. K3's phase B,
 // the box kernels, the start of a segmented sweep, the dense rate pass and
 // the chemistry passes are plain grids: their blocks run one after the
-// other (all but phase B's also in reverse order), each as T std::threads.
+// other (all but phase B's also in reverse order), each as T std::threads;
+// the accumulate's grid has a second dimension, its boxes.
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -34,6 +35,10 @@ void emu_launch(int B, int C, int T, size_t smem, F f, bool reverse = false) {
     for (int k = 0; k < C; ++k) {
       cl.bufs.emplace_back(smem + 16, 0xee);
       cl.block_bar.push_back(new std::barrier<>(T));
+      cl.warp_bar.emplace_back();
+      for (int w = 0; 32 * w < T; ++w)
+        cl.warp_bar[k].push_back(new std::barrier<>(std::min(32, T - 32 * w)));
+      cl.ballot.emplace_back(cl.warp_bar[k].size(), 0u);
     }
     std::vector<std::thread> th;
     for (int k = 0; k < C; ++k)
@@ -49,6 +54,8 @@ void emu_launch(int B, int C, int T, size_t smem, F f, bool reverse = false) {
         });
     for (auto& x : th) x.join();
     for (auto* p : cl.block_bar) delete p;
+    for (auto& ws : cl.warp_bar)
+      for (auto* p : ws) delete p;
   }
 }
 
@@ -114,12 +121,15 @@ extern "C" int rehearse_f32(int kind, const Args* a) { return run<float>(kind, *
 extern "C" int rehearse_f64(int kind, const Args* a) { return run<double>(kind, *a); }
 
 // The box kernels of trace_loop.cu over n channels of batch `batch`: the
-// extract (extract = 1) or the accumulate, B x D blocks of T threads, in
-// reverse block order with `reverse`.
+// extract (extract = 1), B x D blocks of T threads, or the accumulate of the
+// n_cells listed cells `cells` of every box (all D^3 where `cells` is null),
+// min(ceil(n / T), kRangesPerPlane D) x B blocks of T threads with the
+// launch's shared memory, in reverse block order with `reverse`.
 template <class T>
 void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
                const int* pos, int batch, int B, int D, int shift, int F0,
-               int F1, int F2, int T_, int reverse) {
+               int F1, int F2, const int* cells, const void* valid,
+               int n_cells, int T_, int reverse) {
   Channels<T> ch{};
   ch.n = n;
   for (int c = 0; c < n; ++c) {
@@ -127,21 +137,36 @@ void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
     ch.box[c] = static_cast<T*>(boxes[c]);
   }
   const BoxSet bs{pos, batch, B, D, shift, F0, F1, F2};
-  emu_launch(B * D, 1, T_, 0, [&] {
-    if (extract)
-      extract_boxes_kernel<T>(ch, bs);
-    else
-      accumulate_boxes_kernel<T>(ch, bs);
-  }, reverse != 0);
+  if (extract) {
+    emu_launch(B * D, 1, T_, 0, [&] { extract_boxes_kernel<T>(ch, bs); },
+               reverse != 0);
+    return;
+  }
+  const Visit<T> vis{cells, static_cast<const T*>(valid),
+                     cells ? n_cells : D * D * D};
+  const int ranges = std::min((vis.n + T_ - 1) / T_, kRangesPerPlane * D);
+  const size_t smem = sizeof(unsigned) * ((T_ + 31) / 32) * ((B + 31) / 32) +
+                      (B <= kStagedCorners ? 3 * sizeof(int) * B : 0);
+  for (int i = 0; i < B; ++i) {
+    const unsigned y = unsigned(reverse ? B - 1 - i : i);
+    emu_launch(ranges, 1, T_, smem, [&] {
+      blockIdx.y = y;
+      gridDim.y = unsigned(B);
+      if (B <= kStagedCorners)
+        accumulate_boxes_kernel<T, true>(ch, bs, vis);
+      else
+        accumulate_boxes_kernel<T, false>(ch, bs, vis);
+    }, reverse != 0);
+  }
 }
 
 #define REHEARSE_BOXES(NAME, TYPE)                                             \
   extern "C" void NAME(int extract, void* const* frames, void* const* boxes,   \
                        int n, const int* pos, int batch, int B, int D,         \
-                       int shift, int F0, int F1, int F2, int T_,              \
-                       int reverse) {                                          \
+                       int shift, int F0, int F1, int F2, const int* cells,    \
+                       const void* valid, int n_cells, int T_, int reverse) {  \
     run_boxes<TYPE>(extract, frames, boxes, n, pos, batch, B, D, shift, F0,    \
-                    F1, F2, T_, reverse);                                      \
+                    F1, F2, cells, valid, n_cells, T_, reverse);               \
   }
 REHEARSE_BOXES(rehearse_boxes_f32, float)
 REHEARSE_BOXES(rehearse_boxes_f64, double)
@@ -158,18 +183,20 @@ void run_init(const void* nhi, void* box, void* planes, int B, int Dc, int c,
 }
 
 // The dense rate pass (rates_dense_kernel, the heat form where `heat` is
-// set) over B boxes: ceil(B Ds^3 / T_) blocks of T_ threads, in reverse
-// block order with `reverse`. `f` holds cd, nhi, rt, flux, bins_s, bins_w,
-// bins_wh, phi, heat.
+// set) over B boxes at the n_valid listed cells: ceil(B n_valid / T_)
+// blocks of T_ threads, in reverse block order with `reverse`. `f` holds
+// cd, nhi, rt, cells, flux, bins_s, bins_w, bins_wh, phi, heat.
 template <class T>
 void run_rates(void* const* f, int B, int E, int Dc, int Ds, int rb0,
-               double dr, double sig, double sdr3, int T_, int reverse) {
+               int n_valid, double dr, double sig, double sdr3, int T_,
+               int reverse) {
   using P = const T*;
-  const DenseRates<T> k{(P)f[0], (P)f[1], (P)f[2], (P)f[3], (P)f[4],
-                        (P)f[5], (P)f[6], (T*)f[7], (T*)f[8], B, E, Dc, Ds,
-                        rb0, T(dr), T(sig), T(sdr3)};
-  const size_t n = size_t(B) * Ds * Ds * Ds;
-  const bool heat = f[8] != nullptr;
+  const DenseRates<T> k{(P)f[0], (P)f[1], (P)f[2], (const int*)f[3],
+                        (P)f[4], (P)f[5], (P)f[6], (P)f[7], (T*)f[8],
+                        (T*)f[9], B, E, Dc, Ds, rb0, n_valid, T(dr), T(sig),
+                        T(sdr3)};
+  const size_t n = size_t(B) * n_valid;
+  const bool heat = f[9] != nullptr;
   emu_launch(int((n + T_ - 1) / T_), 1, T_, (heat ? 3 : 2) * E * sizeof(T),
              [&] {
                if (heat)
@@ -185,9 +212,10 @@ void run_rates(void* const* f, int B, int E, int Dc, int Ds, int rb0,
     run_init<TYPE>(nhi, box, planes, B, Dc, c, dr, T_, reverse);               \
   }                                                                            \
   extern "C" void RATES(void* const* f, int B, int E, int Dc, int Ds, int rb0, \
-                        double dr, double sig, double sdr3, int T_,            \
-                        int reverse) {                                         \
-    run_rates<TYPE>(f, B, E, Dc, Ds, rb0, dr, sig, sdr3, T_, reverse);         \
+                        int n_valid, double dr, double sig, double sdr3,       \
+                        int T_, int reverse) {                                 \
+    run_rates<TYPE>(f, B, E, Dc, Ds, rb0, n_valid, dr, sig, sdr3, T_,          \
+                    reverse);                                                  \
   }
 REHEARSE_RATES(rehearse_init_f32, rehearse_rates_f32, float)
 REHEARSE_RATES(rehearse_init_f64, rehearse_rates_f64, double)

@@ -7,8 +7,11 @@ inputs, in float64 (rtol 1e-12) and in float32 (rtol 1e-5 above 1e-6 of
 the peak Gamma: both rebuild cdin = cd - dcol in float32 and cancel
 alike, and only their exp/expm1 differ), with and without the heat
 channel, on a rates subbox and on a full box, with a zero-density cell
-and a cell past MAX_COLDENSH; the dispatch of the wrappers. On the card
-(``cuda``) the kernels against their plain versions, bit for bit."""
+and a cell past MAX_COLDENSH; the dispatch of the wrappers; the engine's
+list of rated cells, which the kernel evaluates (its own tables' and those
+carried over from the JAX engine by ``convert.state_from_jax``). On the
+card (``cuda``) the kernels against their plain versions, bit for bit, the
+rate pass writing its listed cells only."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -21,8 +24,10 @@ from pyc2ray_tpu.radiation import BlackBodySource
 from pyc2ray_tpu.radiation.bins_compress import compress_bins
 from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins
 
+from pyc2ray_torch.convert import state_from_jax
 from pyc2ray_torch.ops import sweep
-from pyc2ray_torch.ops.cheb_rates import rates_dense, rates_dense_ref
+from pyc2ray_torch.ops.cheb_rates import (rated_cells, rates_dense,
+                                          rates_dense_ref)
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 
 SIG = 6.30e-18
@@ -88,6 +93,39 @@ def test_rate_pass_matches_jax(shape, dt, heat):
                                        atol=1e-6 * float(np.abs(w).max()))
 
 
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_engine_lists_its_rated_cells(shape, dt):
+    """``ChebRaytracer.rated_cells``: int32, strictly ascending, the
+    row-major indices where the table's valid channel exceeds 0.5, none
+    outside the subbox; the same list for an engine given the JAX engine's
+    tables through ``convert.state_from_jax``, and for ``rated_cells`` of
+    the JAX engine's own rt_sub."""
+    N, R = SHAPES[shape]
+    tr = ChebRaytracer(N, R, SIG, _bb_bins(), batch_size=3, dtype=dt,
+                       device="cpu")
+    cells, rt_sub = tr.rated_cells, tr.tables.rt_sub
+    Ds = tr.Ds
+    assert cells.dtype == torch.int32 and cells.dim() == 1
+    assert 0 < cells.numel() < Ds ** 3
+    assert bool((cells[1:] > cells[:-1]).all())
+    want = torch.nonzero((rt_sub[2] > 0.5).reshape(-1)).reshape(-1)
+    assert torch.equal(cells.long(), want)
+    jr = JRaytracer(N, R, SIG, _bb_bins(), batch_size=3, dtype=JDT[dt],
+                    use_pallas=True, accumulate="scan")
+    tables, bins, _ = state_from_jax(
+        {k: np.asarray(v) for k, v in jr.tables._asdict().items()},
+        _bb_bins()._asdict(),
+        dict(bh00=2.59e-13, albpow=-0.7, colh0=1.3e-8 * 0.83 / 13.598 ** 2,
+             temph0=13.598 / 8.617e-05, abu_c=7.1e-7))
+    conv = ChebRaytracer(N, R, SIG, bins, batch_size=3, dtype=dt,
+                         device="cpu")
+    conv.tables = tables.to(conv.device, dt)
+    assert torch.equal(conv.rated_cells, cells)
+    assert torch.equal(rated_cells(torch.from_numpy(np.array(
+        jr.tables.rt_sub))), cells)
+
+
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     """On CPU tensors ``rates_dense``, ``ChebRaytracer._rates`` and
     ``init_segments`` are their plain versions and count no launch; a
@@ -147,3 +185,34 @@ def test_rate_pass_and_init_segments_match_plain_on_cuda():
             want = sweep.init_segments_ref(nhi, g.c, DR)
             torch.cuda.synchronize()
             assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_rate_pass_writes_its_rated_cells_on_cuda(shape):
+    """The kernel on the engine's list of rated cells, at a full box and a
+    subbox: bit for bit against the plain pass in both types, with and
+    without heat, every cell outside the list 0; without the list it
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for dt in (torch.float64, torch.float32):
+        for heat in (False, True):
+            tr, cd, nhi, flux = _case(shape, dt, heat, device="cuda")
+            tb, cells = tr.tables, tr.rated_cells
+            args = (tb.rt_sub, flux, tb.bins_s, tb.bins_w, DR, SIG,
+                    float(sweep.s_over_dr3(DR, dt)), tr._rb0)
+            wh = tb.bins_wh if heat else None
+            got = rates_dense(cd, nhi, *args, bins_wh=wh, cells=cells)
+            want = rates_dense_ref(cd, nhi, *args, bins_wh=wh)
+            torch.cuda.synchronize()
+            outside = torch.ones(tr.Ds ** 3, dtype=torch.bool,
+                                 device="cuda")
+            outside[cells.long()] = False
+            for a, w in zip(got, want):
+                if w is None:
+                    continue
+                assert float(w.max()) > 0 and torch.equal(a, w)
+                assert not bool(a.view(3, -1)[:, outside].any())
+            with pytest.raises(ValueError, match="rated cells"):
+                rates_dense(cd, nhi, *args, bins_wh=wh)

@@ -11,8 +11,10 @@ against the plain PyTorch versions: K1, K2 and phase A of K3 bit for bit,
 K1f, K3 and K3h within the tolerance of their exp/expm1, and K1f with rate
 threads bit for bit against itself without; the trace loop's box extract
 and ordered accumulate bit for bit against ``extract_boxes_ref`` and
-``add_boxes``, with their blocks in either order; the start of a segmented
-sweep and the dense rate pass bit for bit against ``init_segments_ref`` and
+``add_boxes``, with their blocks in either order, up to 1100 boxes a
+batch;
+the start of a segmented sweep and the dense rate pass over the engine's
+rated cells bit for bit against ``init_segments_ref`` and
 ``rates_dense_ref`` (the plain pass with glibc's exp and expm1, the ones
 the host build calls, in place of torch's); the chemistry passes
 against ``global_pass_ref`` and ``global_pass_he_ref`` (see below). This
@@ -103,14 +105,15 @@ def lib(tmp_path_factory):
         f.restype = ctypes.c_int
     for f in (lib.rehearse_boxes_f32, lib.rehearse_boxes_f64):
         f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                      + [ctypes.c_void_p] + [ctypes.c_int] * 9)
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
         f.restype = None
     for f in (lib.rehearse_init_f32, lib.rehearse_init_f64):
         f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                       + [ctypes.c_double] + [ctypes.c_int] * 2)
         f.restype = None
     for f in (lib.rehearse_rates_f32, lib.rehearse_rates_f64):
-        f.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+        f.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
                       + [ctypes.c_double] * 3 + [ctypes.c_int] * 2)
         f.restype = None
     for f in (lib.rehearse_chem_f32, lib.rehearse_chem_f64):
@@ -297,9 +300,10 @@ def test_host_launch_code_refuses_other_sizes(lib):
 
 # The box kernels of the trace loop (csrc/trace_loop.cu). A case: the frame's
 # extents, the staged box side Dc, the side D and shift of the boxes that
-# are accumulated, and the corners of nb = 3 batches of B boxes.
-def _corners(rng, nb, B, shape, Dc, kind):
-    if kind == "overlap":
+# are accumulated, B, and whether the corners of its nb = 3 batches of B
+# boxes cluster.
+def _corners(rng, nb, B, shape, Dc, clustered):
+    if clustered:
         # every box within two cells of one corner, some at the same cell
         base = rng.randint(0, np.array(shape) - Dc - 1, size=3)
         pos = base + rng.randint(0, 3, size=(nb, B, 3))
@@ -313,11 +317,17 @@ def _corners(rng, nb, B, shape, Dc, kind):
 # overlap: a cubic frame of a batch clustered as halos are; subbox: a
 # (Ds)^3 rates subbox 2 cells into (Dc)^3 boxes, as ChebRaytracer.add_boxes
 # shifts it by rb0; domain: a non-cubic halo-extended block as domain.py
-# builds it, boxes spread over it
+# builds it, boxes spread over it; single: B = 1; chunks: 20 clustered
+# boxes, so a cell takes up to 20 adds, more than one chunk of the loads an
+# owner issues before it adds (8); masks: 40 clustered boxes, more than one
+# 32-box coverage mask
 BOX_CASES = {
-    "overlap": ((20, 20, 20), 7, 7, 0, 8),
-    "subbox": ((21, 21, 21), 9, 5, 2, 6),
-    "domain": ((13, 30, 22), 8, 8, 0, 5),
+    "overlap": ((20, 20, 20), 7, 7, 0, 8, True),
+    "subbox": ((21, 21, 21), 9, 5, 2, 6, False),
+    "domain": ((13, 30, 22), 8, 8, 0, 5, False),
+    "single": ((11, 12, 13), 6, 6, 0, 1, False),
+    "chunks": ((14, 15, 16), 5, 5, 0, 20, True),
+    "masks": ((9, 10, 11), 4, 4, 0, 40, True),
 }
 
 
@@ -327,12 +337,13 @@ BOX_CASES = {
 def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
     """extract_boxes and accumulate_boxes bit for bit against their plain
     versions, for one channel and for several at once (the helium engine's
-    three species, its four rate channels), on frames that do not start at
-    zero; the accumulate also with its blocks in reverse order, which a
-    design where two threads write one cell would not survive."""
-    shape, Dc, D, shift, B = BOX_CASES[case]
+    three species; Gamma and heat; its four rate channels), on frames that
+    do not start at zero; the accumulate also with its blocks in reverse
+    order, which a design where two threads write one cell would not
+    survive."""
+    shape, Dc, D, shift, B, clustered = BOX_CASES[case]
     rng = np.random.RandomState(sum(shape) + threads)
-    pos = _corners(rng, 3, B, shape, Dc, case)
+    pos = _corners(rng, 3, B, shape, Dc, clustered)
     fn = lib.rehearse_boxes_f32 if dt == torch.float32 else \
         lib.rehearse_boxes_f64
     ptrs = ctypes.c_void_p * 4
@@ -340,7 +351,8 @@ def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
     def call(extract, frames, boxes, k, d, sh, reverse=0):
         fn(extract, ptrs(*[f.data_ptr() for f in frames]),
            ptrs(*[b.data_ptr() for b in boxes]), len(frames),
-           pos.data_ptr(), k, B, d, sh, *shape, threads, reverse)
+           pos.data_ptr(), k, B, d, sh, *shape, None, None, 0, threads,
+           reverse)
 
     def rand(*sh):
         return torch.from_numpy(rng.standard_normal(sh)).to(dt)
@@ -352,7 +364,7 @@ def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
             call(1, frames, got, k, Dc, 0)
             for f, g in zip(frames, got):
                 assert torch.equal(g, extract_boxes_ref(f, pos[k], Dc))
-    for n in (1, 4):
+    for n in (1, 2, 4):
         frames = [rand(*shape) for _ in range(n)]
         want = [f.clone() for f in frames]
         got = {r: [f.clone() for f in frames] for r in (0, 1)}
@@ -365,11 +377,97 @@ def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
         for r in (0, 1):
             for g, w in zip(got[r], want):
                 assert torch.equal(g, w), (case, n, r)
-    if case == "overlap":
-        # the batch does overlap: some cell takes the adds of several boxes
+    if clustered:
+        # the batch does overlap: some cell takes the adds of several boxes,
+        # of all B where the boxes are larger than the cluster
         cover = torch.zeros(shape, dtype=torch.int32)
         for p in pos[0].tolist():
             cover[p[0]:p[0] + D, p[1]:p[1] + D, p[2]:p[2] + D] += 1
+        assert int(cover.max()) == B
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_accumulate_on_the_host_with_more_boxes_than_staged(lib, dt):
+    """accumulate_boxes with 1100 clustered boxes in a batch, more than the
+    kernel stages in shared memory (1024: their corners are read from
+    device memory), whose near-box mask spans 35 words: an owner's adds run
+    on across the 32-box words in ascending box order, bit for bit against
+    add_boxes, with its blocks in either order; some cell takes all 1100
+    adds."""
+    shape, D, B = (6, 6, 7), 3, 1100
+    rng = np.random.RandomState(71)
+    pos = _corners(rng, 1, B, shape, D, True)
+    box = torch.from_numpy(rng.standard_normal((B, D, D, D))).to(dt)
+    frame = torch.from_numpy(rng.standard_normal(shape)).to(dt)
+    want = frame.clone()
+    add_boxes(want, box, pos[0])
+    fn = lib.rehearse_boxes_f32 if dt == torch.float32 else \
+        lib.rehearse_boxes_f64
+    for reverse in (0, 1):
+        got = frame.clone()
+        fn(0, (ctypes.c_void_p * 4)(got.data_ptr()),
+           (ctypes.c_void_p * 4)(box.data_ptr()), 1, pos.data_ptr(), 0, B, D,
+           0, *shape, None, None, 0, 32, reverse)
+        assert torch.equal(got, want), reverse
+    p = pos[0].long()
+    assert bool((p.amax(0) - p.amin(0) < D).all())      # a cell in all boxes
+
+
+# (N, R, B, clustered): the engine's rates subbox (Ds = 13 of Dc = 16 at
+# rb0 = 1) and the full box of a clipped one (Dc = 8); 3 batches of B
+# sources, clustered as halos are or spread, and 40 clustered sources in the
+# clipped box (two 32-box masks)
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,R,B,clustered", [(16, 6.0, 6, True),
+                                             (16, 6.0, 5, False),
+                                             (8, 6.0, 4, True),
+                                             (8, 6.0, 40, True)])
+def test_rated_accumulate_on_the_host_matches_plain(lib, N, R, B, clustered,
+                                                    dt):
+    """accumulate_boxes over the engine's rated cells (the unfused modes'
+    rate boxes, 0 at every other cell) bit for bit against the slice adds
+    of the whole boxes at shift rb0, one channel and two (Gamma and heat),
+    its blocks in either order: where boxes overlap, the owner of a frame
+    cell is the lowest box that rates it."""
+    rt = ChebRaytracer(N, R, SIG, _bins(), batch_size=B, dtype=dt,
+                       device="cpu")
+    g, tb, Ds, rb0 = rt.geom, rt.tables, rt.Ds, rt._rb0
+    cells, valid = rt.rated_cells, tb.rt_sub[2].contiguous()
+    shape = (N + g.Dc - 1,) * 3
+    rng = np.random.RandomState(N + B)
+    if clustered:
+        pos = rng.randint(0, N - 2, 3) + rng.randint(0, 3, (3, B, 3))
+        pos[:, 1] = pos[:, 0]
+    else:
+        pos = rng.randint(0, N, (3, B, 3))
+    pos = torch.from_numpy(pos.astype(np.int32))
+    fn = lib.rehearse_boxes_f32 if dt == torch.float32 else \
+        lib.rehearse_boxes_f64
+    ptrs = ctypes.c_void_p * 4
+    for n in ((1, 2) if B <= 32 else (2,)):
+        frames = [torch.from_numpy(np.abs(rng.standard_normal(shape))).to(dt)
+                  for _ in range(n)]
+        want = [f.clone() for f in frames]
+        got = {r: [f.clone() for f in frames] for r in (0, 1)}
+        for k in range(3):
+            boxes = [torch.from_numpy(np.abs(rng.standard_normal(
+                (B, Ds, Ds, Ds)))).to(dt) * (valid > 0.5) for _ in range(n)]
+            for f, bx in zip(want, boxes):
+                add_boxes(f, bx, pos[k], rb0)
+            for r in (0, 1):
+                fn(0, ptrs(*[f.data_ptr() for f in got[r]]),
+                   ptrs(*[bx.data_ptr() for bx in boxes]), n,
+                   pos.data_ptr(), k, B, Ds, rb0, *shape, cells.data_ptr(),
+                   valid.data_ptr(), cells.numel(), 16, r)
+        for r in (0, 1):
+            for a, w in zip(got[r], want):
+                assert torch.equal(a, w), (n, r)
+    if clustered:
+        # some frame cell takes the rates of several boxes
+        cover = torch.zeros(shape, dtype=torch.int32)
+        for p in pos[0].tolist():
+            cover[tuple(slice(c + rb0, c + rb0 + Ds) for c in p)] += (
+                valid > 0.5).to(torch.int32)
         assert int(cover.max()) >= 3
 
 
@@ -429,22 +527,31 @@ def test_init_segments_on_the_host_matches_plain(lib, N, R, B, dt, reverse):
 @pytest.mark.parametrize("heat", [False, True])
 def test_rate_pass_on_the_host_matches_plain(lib, monkeypatch, N, R, B, rb0,
                                              dt, heat):
-    """rates_dense_kernel bit for bit against rates_dense_ref on K1's boxes
-    with a zero-density cell, a cell past MAX_COLDENSH and a zero flux,
-    Gamma and with ``heat`` the heating rate, its blocks in either order;
-    the plain pass takes glibc's exp and expm1 in place of torch's (whose
-    vectorized forms differ from them by an ulp here and there)."""
+    """rates_dense_kernel on the engine's list of rated cells
+    (``rated_cells``) bit for bit against rates_dense_ref on K1's boxes with
+    a zero-density cell, a cell past MAX_COLDENSH and a zero flux, Gamma and
+    with ``heat`` the heating rate, its blocks in either order: the kernel
+    writes the listed cells of every box and no other (the outputs start as
+    NaN), where the plain pass gives 0, so its zeroed outputs equal the
+    plain pass's. The plain pass takes glibc's exp and expm1 in place of
+    torch's (whose vectorized forms differ from them by an ulp here and
+    there)."""
     case = _Case(lib, N, R, B, dt, (1, False, 5, 0, 0))
     rt, g, tb, nhi = case.rt, case.g, case.tb, case.nhi
     nhi[0, g.c + 1, g.c, g.c] = 0.0
     cd = sweep.cheb_sweep_ref(nhi, *case.geo, DR, g.c, SIG)
     cd[-1, g.c, g.c + 2, g.c] = 1e31
-    Ds, rt_sub = rt.Ds, tb.rt_sub
+    Ds, rt_sub, cells = rt.Ds, tb.rt_sub, rt.rated_cells
     if rb0 is None:
         rb0 = rt._rb0
     else:
         Ds -= rb0
         rt_sub = rt_sub[:, rb0:, rb0:, rb0:].contiguous()
+        cells = cheb_rates.rated_cells(rt_sub)
+    listed = torch.zeros(Ds ** 3, dtype=torch.bool)
+    listed[cells.long()] = True
+    assert 0 < cells.numel() < Ds ** 3
+    assert torch.equal(listed.view((Ds,) * 3), rt_sub[2] > 0.5)
     sdr3 = float(sweep.s_over_dr3(DR, dt))
     wh = tb.bins_wh if heat else None
     outs = {}
@@ -452,12 +559,12 @@ def test_rate_pass_on_the_host_matches_plain(lib, monkeypatch, N, R, B, rb0,
         phi, heat_box = (torch.full((B,) + (Ds,) * 3, float("nan"), dtype=dt)
                          for _ in range(2))
         ptrs = [t.data_ptr() if t is not None else None for t in (
-            cd, nhi, rt_sub, case.flux, tb.bins_s, tb.bins_w, wh, phi,
+            cd, nhi, rt_sub, cells, case.flux, tb.bins_s, tb.bins_w, wh, phi,
             heat_box if heat else None)]
         fn = lib.rehearse_rates_f32 if dt == torch.float32 else \
             lib.rehearse_rates_f64
-        fn((ctypes.c_void_p * 9)(*ptrs), B, tb.bins_s.shape[0], g.Dc, Ds,
-           rb0, DR, SIG, sdr3, 64, reverse)
+        fn((ctypes.c_void_p * 10)(*ptrs), B, tb.bins_s.shape[0], g.Dc, Ds,
+           rb0, cells.numel(), DR, SIG, sdr3, 64, reverse)
         outs[reverse] = (phi, heat_box)
     exp, expm1 = _libm(dt)
     monkeypatch.setattr(torch, "exp", exp)
@@ -468,8 +575,13 @@ def test_rate_pass_on_the_host_matches_plain(lib, monkeypatch, N, R, B, rb0,
     monkeypatch.undo()
     for reverse, got in outs.items():
         for a, w in zip(got, want):
-            if w is not None:
-                assert float(w.max()) > 0 and torch.equal(a, w), reverse
+            if w is None:
+                continue
+            written = ~torch.isnan(a).view(B, -1)
+            assert torch.equal(written, listed.expand(B, -1)), reverse
+            assert not bool(w.view(B, -1)[:, ~listed].any())
+            assert float(w.max()) > 0
+            assert torch.equal(torch.nan_to_num(a, nan=0.0), w), reverse
     assert float(want[0][1].abs().max()) == 0.0 or B == 1      # zero flux
 
 

@@ -10,8 +10,8 @@ and do_heating; every sweep mode's ``trace_extended`` bit for bit against
 ``trace_extended_plain``, the loop as it was issued before, also on a
 non-cubic frame as the domain decomposition hands it. On the card
 (``cuda``) the kernels and the C++ loops against their plain versions, bit
-for bit: at the EoR run's shape, and in every sweep mode at a small
-one."""
+for bit: at the EoR run's shape, the accumulate on clustered batches of 16
+and 40 boxes, and in every sweep mode at a small one."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -243,6 +243,39 @@ def test_trace_loop_matches_plain_on_cuda_at_the_eor_shape():
         for g, w in zip(got, ref):
             if w is not None:
                 assert float(w.max()) > 0 and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 40])
+def test_accumulate_matches_plain_on_cuda_clustered(B):
+    """accumulate_boxes on a batch clustered within two cells of one
+    corner (two boxes at one cell) at the EoR run's box side (D = 24), in
+    both types, with one channel and two (Gamma and heat): bit for bit
+    against the slice adds, one launch each. B = 16 is the EoR run's batch;
+    with B = 40 a cell's coverage spans two 32-box masks and five chunks of
+    loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    D, shape = 24, (40, 47, 43)
+    rng = np.random.RandomState(59)
+    pos = rng.randint(0, 10, 3) + rng.randint(0, 3, (1, B, 3))
+    pos[0, 1] = pos[0, 0]
+    pos_d = stage_positions(torch.from_numpy(pos), shape, D, "cuda")
+    for dt in (torch.float32, torch.float64):
+        for n in (1, 2):
+            frames = [torch.from_numpy(rng.standard_normal(shape)).to(
+                "cuda", dt) for _ in range(n)]
+            boxes = [torch.from_numpy(rng.standard_normal(
+                (B, D, D, D))).to("cuda", dt) for _ in range(n)]
+            want = [f.clone() for f in frames]
+            for w, b in zip(want, boxes):
+                add_boxes(w, b, torch.from_numpy(pos[0]))
+            sweep.reset_launches()
+            accumulate_boxes(frames, boxes, pos_d, 0)
+            torch.cuda.synchronize()
+            assert sweep.launches["accumulate_boxes"] == 1
+            for f, w in zip(frames, want):
+                assert torch.equal(f, w), (dt, n)
 
 
 @pytest.mark.cuda
