@@ -909,13 +909,26 @@ def run_path(rt, nd, xh, pos_b, flux_b, updates, expect, label, chem=None):
     return phi, heat, counts
 
 
-def trace_launches(mode, nb, traces=1):
+def extract_chunks(rt, nb):
+    """The extract's launches in a trace of engine ``rt`` over ``nb``
+    batches: one per chunk of ``trace_loop.chunk_size`` batches (one per
+    batch in a checkout before the chunked extract, as kernel_ab.py may
+    measure)."""
+    from pyc2ray_torch.ops import trace_loop
+    if not hasattr(trace_loop, "chunk_size"):
+        return nb
+    return -(-nb // trace_loop.chunk_size(nb, rt.batch_size, rt.geom.Dc,
+                                          rt.dtype.itemsize))
+
+
+def trace_launches(mode, nb, chunks, traces=1):
     """The kernel launches of ``traces`` Chebyshev traces of ``nb`` batches
     in all, in the sweep mode ``mode`` (``ChebRaytracer._sweep_mode()``: its
-    fuse, seg and heat): one trace loop call per trace, and per batch the
-    extract, the accumulate and the mode's kernels."""
+    fuse, seg and heat): one trace loop call per trace, the extract once per
+    chunk of batches (``chunks`` in all, ``extract_chunks``), and per batch
+    the accumulate and the mode's kernels."""
     S, K = mode["seg"]
-    out = {"cheb_trace_sweep": int(traces), "extract_boxes": nb,
+    out = {"cheb_trace_sweep": int(traces), "extract_boxes": chunks,
            "accumulate_boxes": nb}
     if mode["fuse"] == "fold":
         out["cheb_sweep_rates_heat" if mode["heat"]
@@ -1117,10 +1130,16 @@ def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
     function on precomputed flat indices (torch.take; index_add_, which
     adds in no fixed order); beside them the kernel's back-to-back ms (CUDA
     events, the Python wrapper's enqueue included) and the bound from the
-    batch's bytes."""
+    batch's bytes. Then the extract as the trace loop issues it, one chunk
+    of ``chunk_size`` random batches a launch (extract_chunk), the same way
+    (plain: the stack of the batches' gathers; library: torch.take of the
+    chunk's indices), bit for bit, per launch and per batch. Returns the
+    chunk's numbers."""
     from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
-                                              extract_boxes,
+                                              chunk_size, extract_boxes,
                                               extract_boxes_ref,
+                                              extract_chunk,
+                                              extract_chunk_ref,
                                               stage_positions)
     rng = np.random.RandomState(seed)
     hi = np.array(frame_shape) - D
@@ -1169,6 +1188,34 @@ def check_box_kernels(label, frame_shape, B, D, dtype, seed, reps):
             f"({b2b:.4f} back to back) plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f}; bound_ms={b_ms:.5f} ({b_by}, "
             f"{nbytes[name] / 2 ** 20:.2f} MiB)")
+    # the loop's form: one chunk of k random batches a launch
+    k = chunk_size(256, B, D, torch.finfo(dtype).bits // 8)
+    cpos = rng.randint(0, hi + 1, size=(k, B, 3))
+    cpos_d = stage_positions(torch.from_numpy(cpos), frame_shape, D, "cuda")
+    got = extract_chunk(frame, cpos_d, 0, k, D)
+    c_err = float((got - extract_chunk_ref(frame, cpos_d, 0, k, D))
+                  .abs().max())
+    torch.cuda.synchronize()
+    if c_err != 0.0:
+        raise RuntimeError(f"{label}: extract_chunk differs from the stack of "
+                           f"gathers: {c_err}")
+    del got
+    cidx = torch.cat([box_flat_index(cpos_d[b], frame_shape, D)
+                      for b in range(k)])
+    ms, plain_ms, lib_ms = (device_ms(lambda _, f=f: f(), reps) for f in (
+        lambda: extract_chunk(frame, cpos_d, 0, k, D),
+        lambda: extract_chunk_ref(frame, cpos_d, 0, k, D),
+        lambda: torch.take(frame, cidx)))
+    c_bytes = box_kernel_work(cidx, dtype)[0]
+    b_ms, b_by = least_ms(c_bytes, k * B * D ** 3, dtype)
+    log(f"  {label} extract_chunk of k={k} batches (the loop's launch): "
+        f"max_abs_err={c_err:.1e} (bit-equal), on the device per launch: "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+        f"(torch.take); bound_ms={b_ms:.5f} ({b_by}, "
+        f"{c_bytes / 2 ** 20:.2f} MiB); per batch kernel {ms / k:.5f}, "
+        f"torch.take {lib_ms / k:.5f}, bound {b_ms / k:.5f} ms")
+    return dict(chunk=k, max_abs_err=c_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_rated_accumulate(bins, src_pos, reps=20):
@@ -1257,25 +1304,27 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
 
     Per bucket the loop (one cheb_trace_sweep call) against
     trace_extended_plain: ms per call by CUDA events, max_abs_err over
-    Gamma. Over every batch, device ms per call (``device_ms``):
-    extract_boxes, the plain gather and torch.take on precomputed flat
-    indices; accumulate_boxes of the batch's K3 rate boxes into a zero
-    frame, the plain slice adds and index_add_ (which adds in no fixed
-    order). max_abs_err compares the kernels' boxes and final frame with
-    the plain versions'. The bounds count the bytes this data needs
+    Gamma. Device ms per call (``device_ms``): over every chunk of the
+    loop's batches (``chunk_size``) the extract as the loop launches it
+    (extract_chunk), the plain version (the stack of the batches' gathers)
+    and torch.take on precomputed flat indices; over every batch
+    accumulate_boxes of the batch's K3 rate boxes into a zero frame, the
+    plain slice adds and index_add_ (which adds in no fixed order).
+    max_abs_err compares the kernels' boxes and final frame with the plain
+    versions'. The bounds count the bytes this data needs
     (``box_kernel_work``), the loop's those of the whole loop
     (``loop_work``)."""
     from pyc2ray_torch.ops.sweep import cheb_sweep_rates
     from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
-                                              extract_boxes,
-                                              extract_boxes_ref,
+                                              chunk_size, extract_chunk,
+                                              extract_chunk_ref,
                                               stage_positions)
     N, dt = rt.N, rt.dtype
     nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
     tot = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0,
                       max_abs_err=0.0)
            for name in ("extract", "accumulate", "loop")}
-    n_calls = n_b = 0
+    n_calls = n_b = n_ch = 0
     for e, pos_b, flux_b in zip(rt.engines, batches.pos, batches.flux):
         if pos_b is None:
             continue
@@ -1295,20 +1344,26 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
         pos = stage_positions(pos_b, pad.shape, D, "cuda")
         idx = [box_flat_index(pos[k], pad.shape, D) for k in range(nb)]
         geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
-        boxes, plain = [], []
+        kc = chunk_size(nb, B, D, dt.itemsize)
+        spans = [(k0, min(kc, nb - k0)) for k0 in range(0, nb, kc)]
+        cidx = [torch.cat(idx[k0:k0 + kk]) for k0, kk in spans]
+        chunks, plain = [], []
         ex = tot["extract"]
-        ex["ms"] += nb * device_ms(
-            lambda k: boxes.append(extract_boxes(pad, pos, k, D)), nb)
-        ex["plain_ms"] += nb * device_ms(
-            lambda k: plain.append(extract_boxes_ref(pad, pos[k], D)), nb)
-        ex["library_ms"] += nb * device_ms(
-            lambda k: torch.take(pad, idx[k]), nb)
+        n = len(spans)
+        ex["ms"] += n * device_ms(
+            lambda i: chunks.append(extract_chunk(pad, pos, *spans[i], D)), n)
+        ex["plain_ms"] += n * device_ms(
+            lambda i: plain.append(extract_chunk_ref(pad, pos, *spans[i], D)),
+            n)
+        ex["library_ms"] += n * device_ms(
+            lambda i: torch.take(pad, cidx[i]), n)
         ex["max_abs_err"] = max([ex["max_abs_err"]] + [
-            float((a - b).abs().max()) for a, b in zip(boxes, plain)])
+            float((a - b).abs().max()) for a, b in zip(chunks, plain)])
+        boxes = [c[s_] for c in chunks for s_ in range(c.shape[0])]
         rates = [cheb_sweep_rates(b, *geo, tb.rt_tab, flux_b[k], dr, g.c,
                                   e.sig, tb.bins_s, tb.bins_w)
                  for k, b in enumerate(boxes)]
-        del boxes, plain
+        del boxes, plain, chunks
         f_k, f_p, f_l = (torch.zeros_like(pad) for _ in range(3))
         ac = tot["accumulate"]
         ac["ms"] += nb * device_ms(
@@ -1321,17 +1376,18 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
         ac["max_abs_err"] = max(ac["max_abs_err"],
                                 float((f_k - f_p).abs().max()))
         for k in range(nb):
-            eb, ab = box_kernel_work(idx[k], dt)
-            ex["bytes"], ac["bytes"] = ex["bytes"] + eb, ac["bytes"] + ab
+            ac["bytes"] += box_kernel_work(idx[k], dt)[1]
+        for c in cidx:
+            ex["bytes"] += box_kernel_work(c, dt)[0]
         ex["ops"] += nb * B * D ** 3
         ac["ops"] += nb * B * D ** 3
         lb, lops = loop_work(e, pad, pos_b)
         lp["bytes"], lp["ops"] = lp["bytes"] + lb, lp["ops"] + lops
-        n_calls, n_b = n_calls + 1, n_b + nb
-        del rates, idx, f_k, f_p, f_l, pad
+        n_calls, n_b, n_ch = n_calls + 1, n_b + nb, n_ch + n
+        del rates, idx, cidx, f_k, f_p, f_l, pad
     out = {}
     for name, t in tot.items():
-        n = n_calls if name == "loop" else n_b
+        n = {"loop": n_calls, "extract": n_ch}.get(name, n_b)
         b_ms, b_by = least_ms(t["bytes"] / n, t["ops"] / n, dt)
         lib = t["library_ms"] / n or None
         out[name] = dict(max_abs_err=t["max_abs_err"], ms=t["ms"] / n,
@@ -1344,6 +1400,7 @@ def eor_trace_kernels(rt, nd, xh, batches, dr):
             f"{'none' if lib is None else f'{lib:.4f}'} "
             f"bound_ms={b_ms:.5f} ({b_by})")
     out["loop"]["batches_per_call"] = n_b / n_calls
+    out["extract"]["batches_per_call"] = n_b / n_ch
     if any(v["max_abs_err"] for v in out.values()):
         raise RuntimeError(f"EoR trace: a trace loop kernel differs from its "
                            f"plain version: {out}")
@@ -1361,14 +1418,18 @@ def check_trace_loop(bins, src_pos):
     over 128 batches, the first clustered. The kernels line takes its
     numbers of these kernels from the EoR run's own trace (phase 4e), and
     beside them the accumulate over the bench default engine's rated cells
-    (``check_rated_accumulate``, whose numbers this returns)."""
+    (``check_rated_accumulate``) and the extract's chunk at the bench and
+    EoR shapes, with its device us in the EoR bucket's loop: this returns
+    both."""
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     dt = torch.float32
     log("trace loop kernels, float32 (max_abs_err must be 0):")
+    chunks = {}
     for B, Dc, tag in ((B_BENCH, 64, "bench"), (B_EOR, 24, "EoR")):
         side = (N_BENCH if tag == "bench" else N_EOR) + Dc - 1
-        check_box_kernels(f"{tag} B={B} Dc={Dc} frame {side}^3", (side,) * 3,
-                          B, Dc, dt, seed=12, reps=20)
+        chunks[tag] = check_box_kernels(f"{tag} B={B} Dc={Dc} frame {side}^3",
+                                        (side,) * 3, B, Dc, dt, seed=12,
+                                        reps=20)
     # a frame whose extents differ per axis, as a domain decomposition's
     # halo-extended block is, at the EoR shape
     check_box_kernels("EoR non-cubic block (203, 273, 251)",
@@ -1402,15 +1463,19 @@ def check_trace_loop(bins, src_pos):
     loop_against_plain(f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} "
                        f"Dc={rt.geom.Dc}, {nb} batches", rt, pad, pos_b,
                        flux_b)
-    loop_kernel_gaps(f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} (K3)", rt, pad,
-                     pos_b, flux_b)
+    gaps = loop_kernel_gaps(f"EoR bucket R={R_EOR[0]:.2f} B={B_EOR} (K3)", rt,
+                            pad, pos_b, flux_b)
+    ex = gaps["extract_boxes"]
+    chunks["EoR"].update(loop_us_per_launch=ex[0],
+                         loop_us_per_batch=ex[0] * ex[2] / nb,
+                         loop_launches_per_trace=ex[2])
     del rt, pad
-    return rated
+    return rated, chunks
 
 
 # the kernels of the trace loop by a part of their device names, as
 # loop_kernel_gaps names them
-LOOP_KERNELS = (("extract_boxes", "extract_boxes"),
+LOOP_KERNELS = (("extract_", "extract_boxes"),
                 ("init_segments", "init_segments"),
                 ("cheb_sweep_kernel", "K1"), ("cheb_sweep_seg", "K2"),
                 ("cheb_sweep_gamma", "K1f"), ("sweep_fold", "K3 phase A"),
@@ -1442,13 +1507,16 @@ def loop_kernel_gaps(label, rt, pad, pos_b, flux_b):
     out = {k: (float(np.median([d for d, _ in v])),
                float(np.median([g for _, g in v])), len(v))
            for k, v in kinds.items()}
+    ex = out.get("extract_boxes", (0.0, 0.0, 0))
     log(f"  {label}, the loop on the device per kernel: " + "; ".join(
         f"{k} {d:.2f} us after a gap of {g:.2f} us (median of {n}, "
         f"{sum(x for x, _ in kinds[k]) / busy:.3f} of the kernels' time)"
         for k, (d, g, n) in out.items())
         + f"; {1e-3 * span / nb:.4f} ms per batch from the first kernel's "
         f"start to the last's end, {1e-3 * busy / nb:.4f} ms of it in "
-        f"kernels")
+        f"kernels; {len(ev) / nb:.3f} device launches per batch; the "
+        f"extract {ex[2]} launches ({ex[2] / nb:.4f} per batch), "
+        f"{ex[0] * ex[2] / nb:.3f} us per batch")
     return out
 
 
@@ -1466,7 +1534,8 @@ def loop_against_plain(label, rt, pad, pos_b, flux_b, reps=3):
     want = rt.trace_extended_plain(pad, pos_b, flux_b, DR)
     torch.cuda.synchronize()
     expect = {k: 0 for k in counts}
-    expect.update(trace_launches(rt._sweep_mode(), nb))
+    expect.update(trace_launches(rt._sweep_mode(), nb,
+                                 extract_chunks(rt, nb)))
     if counts != expect:
         raise RuntimeError(f"{label}: loop launches {counts}, expected "
                            f"{expect}")
@@ -1626,6 +1695,148 @@ def iteration_text(its, cap):
             f"cells by iterations {bins}")
 
 
+def sass_functions(lib_path):
+    """The SASS of a built library (the toolkit's cuobjdump -sass): {function
+    name: [(address, instruction, branch target address or None)]}."""
+    from pyc2ray_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, labels = {}, {}
+    name, pending = None, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name, pending = m.group(1), []
+            funcs[name], labels[name] = [], {}
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if name is None or m:
+            pending += [m.group(1)] if m else []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2)
+        for lab in pending:
+            labels[name][lab] = addr
+        pending = []
+        t = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b)",
+                      ins)
+        target = None if t is None else (t.group(1) or int(t.group(2), 16))
+        funcs[name].append((addr, ins, target))
+    return {n: [(a, i, labels[n].get(t) if isinstance(t, str) else t)
+                for a, i, t in ins] for n, ins in funcs.items()}
+
+
+def loop_counts(ins):
+    """Instructions of a chemistry kernel's two loops from its SASS
+    (``sass_functions``): the inner loop, the smallest region closed by a
+    backward branch that holds a MUFU (transcendental) instruction, and the
+    loop over cells, the smallest such region strictly around it. Returns
+    {"iter", "cell"}: the fewest instructions a lane issues per iteration
+    of the inner loop and per cell around it (the shortest path through
+    each region's forward branches: a lower bound, the slow paths and the
+    sides of a branch that the path skips not counted); "iter_static",
+    "cell_static": every instruction of each region once (an upper
+    estimate: a warp whose lanes part runs both sides of a branch); and the
+    MUFU and float64 instructions of the static counts."""
+    loops = [(t, a) for a, _, t in ins if isinstance(t, int) and t < a]
+    at = {a: i for i, (a, _, _) in enumerate(ins)}
+
+    def region(lo, hi):
+        return [x for x in ins if lo <= x[0] <= hi]
+
+    def n_mufu(r):
+        return sum(bool(re.search(r"\bMUFU\.", x[1])) for x in r)
+
+    def n_dp(r):
+        return sum(bool(re.search(r"\bD(ADD|MUL|FMA|SETP|MNMX)\b", x[1]))
+                   for x in r)
+
+    def shortest(i0, i1):
+        # fewest instructions from ins[i0] to ins[i1] inclusive over
+        # forward edges (a backward branch falls through)
+        inf = float("inf")
+        dist = {i0: 1}
+        for i in range(i0, i1 + 1):
+            d = dist.get(i, inf)
+            if d == inf or i == i1:
+                continue
+            a, op, t = ins[i]
+            uncond = re.match(r"(BRA|EXIT|RET)\b", op) is not None
+            nxt = []
+            if not uncond:
+                nxt.append(i + 1)
+            if isinstance(t, int) and t > a and t in at and at[t] <= i1:
+                nxt.append(at[t])
+            for j in nxt:
+                dist[j] = min(dist.get(j, inf), d + 1)
+        return dist.get(i1, inf)
+    with_mufu = [lp for lp in loops if n_mufu(region(*lp)) > 0]
+    if not with_mufu:
+        raise RuntimeError(f"SASS: no loop with a MUFU instruction among "
+                           f"{len(loops)} backward branches of "
+                           f"{len(ins)} instructions")
+    inner = min(with_mufu, key=lambda lp: lp[1] - lp[0])
+    around = [lp for lp in loops if lp[0] <= inner[0] and lp[1] >= inner[1]
+              and lp != inner]
+    r_in = region(*inner)
+    h, l = at[inner[0]], at[inner[1]]
+    out = dict(iter=shortest(h, l), iter_static=len(r_in),
+               mufu_iter=n_mufu(r_in), dp_iter=n_dp(r_in), cell=0,
+               cell_static=0, mufu_cell=0, dp_cell=0)
+    if around:
+        outer = min(around, key=lambda lp: lp[1] - lp[0])
+        r_out = region(*outer)
+        ch, cl = at[outer[0]], at[outer[1]]
+        out.update(cell=shortest(ch, h) - 1 + shortest(l + 1, cl),
+                   cell_static=len(r_out) - len(r_in),
+                   mufu_cell=n_mufu(r_out) - out["mufu_iter"],
+                   dp_cell=n_dp(r_out) - out["dp_iter"])
+    return out
+
+
+_SASS = {}
+
+
+def chem_instructions(helium, dtype, heat=False, rec=False):
+    """``loop_counts`` of the chemistry kernel of csrc/chemistry.cu that a
+    pass of ``dtype`` launches (the helium kernel with its options), from
+    the SASS of the built library; cached."""
+    from pyc2ray_torch.ops import _build
+    if "funcs" not in _SASS:
+        _SASS["funcs"] = sass_functions(_build._so_path("chemistry"))
+    t = "f" if dtype == torch.float32 else "d"
+    want = (f"helium_pass_kernelI{t}Lb{int(heat)}ELb{int(rec)}E" if helium
+            else f"hydrogen_pass_kernelI{t}E")
+    name = next(n for n in _SASS["funcs"] if want in n)
+    return loop_counts(_SASS["funcs"][name])
+
+
+def issue_rate():
+    """Warp-instructions per second the card issues: SMs x 4 schedulers x
+    the largest SM clock nvidia-smi reports; and that clock in MHz."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 4 * mhz * 1e6, mhz, sms
+
+
+def lane_efficiency(its):
+    """Sum of the cells' iterations over the sum, over the kernel's warps of
+    32 consecutive cells, of 32 x the warp's largest iteration count."""
+    flat = its.reshape(-1).long()
+    n = flat.numel()
+    padded = torch.zeros(-(-n // 32) * 32, dtype=torch.long,
+                         device=flat.device)
+    padded[:n] = flat
+    worst = padded.view(-1, 32).amax(1)
+    return float(flat.sum()) / float(32 * worst.sum())
+
+
 # operations of a chemistry pass, a transcendental counted as one: per cell
 # once (the temperature's rates, the count's test) and per iteration of a
 # cell (n_e, doric's rates and closed form with float32's 10-term series,
@@ -1681,18 +1892,27 @@ def chemistry_check(label, helium, args, kw, reps=10):
     nbytes = sum(t.numel() * t.element_size() for t in fields.values()) \
         + sum(t.numel() * t.element_size() for t in got)
     n, n_it = xh.numel(), float(its.double().sum())
+    heat, rec = (kw.get("heat") is not None,
+                 bool(kw.get("recombination_photons")))
     ops, ops64 = CHEM_OPS["cell"] * n + CHEM_OPS["iter"] * n_it, 0.0
     if helium:
-        per = CHEM_OPS["he_iter"] + CHEM_OPS["heat"] * (kw.get("heat")
-                                                        is not None) \
-            + CHEM_OPS["rec"] * bool(kw.get("recombination_photons"))
+        per = CHEM_OPS["he_iter"] + CHEM_OPS["heat"] * heat \
+            + CHEM_OPS["rec"] * rec
         ops += CHEM_OPS["he_cell"] * n + per * n_it
         ops64 = CHEM_OPS["he_iter_f64"] * n_it
     peak = H100_F32_FLOPS if xh.dtype == torch.float32 else H100_F64_FLOPS
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak \
+    # the instructions this data needs at the card's issue rate: the SASS
+    # of the cell loop once per cell and of the inner loop once per
+    # iteration, 32 lanes to a warp-instruction (every lane busy)
+    sass = chem_instructions(helium, xh.dtype, heat, rec)
+    rate, mhz, sms = issue_rate()
+    warp_ins = (n * sass["cell"] + n_it * sass["iter"]) / 32
+    t_bytes, t_flops = nbytes / H100_BYTES_PER_S, ops / peak \
         + ops64 / H100_F64_FLOPS
-    b_ms = 1e3 * max(t_bytes, t_ops)
-    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    t_issue = warp_ins / rate
+    b_ms = 1e3 * max(t_bytes, t_flops, t_issue)
+    b_by = "bytes" if t_bytes >= max(t_flops, t_issue) else "operations"
+    lane_eff = lane_efficiency(its)
     log(f"  {label}: {name} bit-equal to its plain version (max_abs_err "
         f"{err:g}, count {int(got[-1])}); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms per pass, bound {b_ms:.5f} ms ({b_by}: "
@@ -1703,10 +1923,25 @@ def chemistry_check(label, helium, args, kw, reps=10):
         f"calls, {pp['syncs']} host syncs, {pp['d2h']} D2H copies"
         + ("" if pk["device_events"] else " (no device event captured)"))
     log(f"    {iteration_text(its, mod.MAX_INNER_ITER)}")
+    log(f"    iterations per cell {n_it / n:.4f}, lane efficiency "
+        f"{lane_eff:.4f} (the iterations over 32 x each warp's largest, "
+        f"warps of 32 consecutive cells); SASS {sass['iter']} instructions "
+        f"per iteration on the shortest path ({sass['iter_static']} in the "
+        f"loop, {sass['mufu_iter']} MUFU, {sass['dp_iter']} float64), "
+        f"{sass['cell']} per cell around them ({sass['cell_static']}); "
+        f"issue bound "
+        f"{1e3 * t_issue:.5f} ms = ({n} x {sass['cell']} + {n_it:.0f} x "
+        f"{sass['iter']}) / 32 warp-instructions / ({sms} SMs x 4 x "
+        f"{mhz:.0f} MHz), bytes {1e3 * t_bytes:.5f} ms, flops "
+        f"{1e3 * t_flops:.5f} ms; the kernel at "
+        f"{b_ms / ms:.3f} of its bound")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err, launches_per_pass=n_kern,
                 plain_launches_per_pass=pp["kernels"],
-                plain_syncs_per_pass=pp["syncs"]), its
+                plain_syncs_per_pass=pp["syncs"],
+                iterations_per_cell=n_it / n, lane_efficiency=lane_eff,
+                sass_per_iteration=sass["iter"], sass_per_cell=sass["cell"],
+                issue_bound_ms=1e3 * t_issue, byte_bound_ms=1e3 * t_bytes), its
 
 
 def doric_reference_form(xh, dt, temp, rhe, phi, p):
@@ -1834,7 +2069,9 @@ def adaptive_bench(bins):
                            f"30] used and the smallest the largest")
     updates = sum(cell_updates(c, r) for c, r in zip(counts, ada.radii))
     phi, _, launches = run_path(ada, nd, xh, batches, None, updates,
-                                trace_launches(FOLD, sum(nb), len(nb)),
+                                trace_launches(FOLD, sum(nb), sum(
+                                    extract_chunks(e, n) for e, n in
+                                    zip(ada.engines, nb) if n), len(nb)),
                                 "adaptive bench mix, all buckets")
     sel_b = ada.assign_buckets(flux, DR, avg)
     total = None
@@ -1845,7 +2082,8 @@ def adaptive_bench(bins):
         pb, fb = eng.prepare_sources(pos[sel], flux[sel])
         p_k, _, _ = run_path(
             eng, nd, xh, pb, fb, cell_updates(sel.size, r),
-            trace_launches(FOLD, pb.shape[0]),
+            trace_launches(FOLD, pb.shape[0],
+                           extract_chunks(eng, pb.shape[0])),
             f"  bucket R={r:g} alone ({sel.size} sources, {pb.shape[0]} "
             f"batches, Dc={eng.geom.Dc})")
         total = p_k if total is None else total + p_k
@@ -1972,8 +2210,11 @@ def eor_run(bins, smi):
             nbatch = sum(-(-c // B_EOR) for c in r["counts"])
             want = {name: 0 for name in r["launches"]}
             want["chemistry_pass"] = n_it
+            chunks = sum(extract_chunks(e, -(-c // B_EOR)) for e, c in
+                         zip(rt.engines, r["counts"]) if c)
             want.update(trace_launches(
-                FOLD, n_it * nbatch, n_it * sum(c > 0 for c in r["counts"])))
+                FOLD, n_it * nbatch, n_it * chunks,
+                n_it * sum(c > 0 for c in r["counts"])))
             if r["launches"] != want or not r["converged"] or n_it == 0:
                 raise RuntimeError(f"EoR slice {k}: launches "
                                    f"{r['launches']}, expected {want}; "
@@ -2016,7 +2257,8 @@ def eor_run(bins, smi):
             pc = plain_chem[k]
             n_pc = len(pc["t_ray"])
             want_pc = dict(want, chemistry_pass=0)
-            want_pc.update(trace_launches(FOLD, n_pc * nbatch, n_pc * sum(
+            want_pc.update(trace_launches(FOLD, n_pc * nbatch, n_pc * chunks,
+                                          n_pc * sum(
                 c > 0 for c in r["counts"])))
             log(f"  the plain chemistry pass before the kernel ({smi}): "
                 f"{n_pc} raytrace iterations, per iteration chemistry "
@@ -2086,7 +2328,7 @@ def eor_run(bins, smi):
         k3_ms = {ph: sum(ms for name, ms in top.items() if kern in name)
                  / nbatch for ph, kern in (("A", "sweep_fold_kernel"),
                                            ("B", "box_rates_kernel"),
-                                           ("extract", "extract_boxes"),
+                                           ("extract", "extract_"),
                                            ("accumulate",
                                             "accumulate_boxes"))}
         log(f"  EoR trace, loop after: per call on the device K3 "
@@ -3357,7 +3599,9 @@ def p5_check_trace(wd, ranks, tag, k3_phi, phi3):
             f"{1e9 * a['seconds'] / updates:.4f} ns/cell-update, K3 "
             f"launches {k3}; collectives {_ms(a['traffic'])}")
         want = {k: 0 for k in a["launches"]}
-        want.update(trace_launches(FOLD, k3))
+        from pyc2ray_torch.ops.trace_loop import chunk_size
+        want.update(trace_launches(
+            FOLD, k3, -(-k3 // chunk_size(k3, B_BENCH, 64, 4))))
         if k3 != NS_BENCH // B_BENCH // P5_RANKS or a["launches"] != want:
             raise RuntimeError(f"5a rank {r}: launches {a['launches']}, "
                                f"expected {want}")
@@ -3599,7 +3843,8 @@ def main():
             f"{time.time() - t0:.4f} s")
     counts = dict(sweep.launches)
     want = {k: 0 for k in counts}
-    want.update(trace_launches(rt._sweep_mode(), nbatch), chemistry_pass=1)
+    want.update(trace_launches(rt._sweep_mode(), nbatch,
+                               extract_chunks(rt, nbatch)), chemistry_pass=1)
     if counts != want:
         raise RuntimeError(f"main path: kernel launches {counts}, expected "
                            f"{want} (one trace loop, one K1, rate pass, "
@@ -3682,7 +3927,8 @@ def main():
                             dtype=dt, **{mode: True})
         phi_f, _, counts = run_path(
             rtf, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
-            trace_launches(rtf._sweep_mode(), nbatch),
+            trace_launches(rtf._sweep_mode(), nbatch,
+                           extract_chunks(rtf, nbatch)),
             f"{mode} N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32",
             chem)
         fused_launches[kname] = counts[kname]
@@ -3718,7 +3964,8 @@ def main():
                  f"shell_segment={seg!r} (S={rth.seg_S}, K={rth.seg_K})")
         h_phi[seg], _, counts = run_path(
             rth, h_nd, h_xh, hp, hf, cell_updates(NS_R100, R_R100),
-            trace_launches(rth._sweep_mode(), nb), label)
+            trace_launches(rth._sweep_mode(), nb, extract_chunks(rth, nb)),
+            label)
         if seg == "auto":
             seg_launches = counts["cheb_sweep_seg"]
             init_launches = counts["init_segments"]
@@ -3743,7 +3990,8 @@ def main():
                  f"R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32")
         phi_h, heat_f[fold], counts = run_path(
             rth, ndens, xh, pos_b, flux_b, cell_updates(NS_BENCH, R_BENCH),
-            trace_launches(rth._sweep_mode(), nbatch), label, chem)
+            trace_launches(rth._sweep_mode(), nbatch,
+                           extract_chunks(rth, nbatch)), label, chem)
         if fold:
             heat_launches = counts[kname]
         else:
@@ -3796,7 +4044,7 @@ def main():
         box_bench(src_pos, bins, tmp)
 
     # ---- 3g. the trace loop's kernels and the C++ loop vs plain ----------
-    k_rated = check_trace_loop(bins, src_pos)
+    k_rated, k_chunks = check_trace_loop(bins, src_pos)
 
     # ---- 4. one evolve3D timestep, GPU vs CPU ---------------------------
     Ne, Re, nse = N_EVOLVE, R_EVOLVE, NS_EVOLVE
@@ -3992,7 +4240,8 @@ def main():
         # 4e's profiled trace (eor_trace_kernels): device times
         dict(name="extract_boxes", source=src + "trace_loop.cu",
              replaces=jax_rt + "1082",
-             launches=eor_counts["extract_boxes"], **k_loop["extract"]),
+             launches=eor_counts["extract_boxes"], **k_loop["extract"],
+             chunk_at_bench=k_chunks["bench"], chunk_at_eor=k_chunks["EoR"]),
         dict(name="accumulate_boxes", source=src + "trace_loop.cu",
              replaces=jax_rt + "1223",
              launches=eor_counts["accumulate_boxes"],

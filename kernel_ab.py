@@ -3,6 +3,7 @@
 on one NVIDIA GPU, in a form two checkouts can be compared by.
 
     python3 kernel_ab.py [--root DIR] [--label NAME] [--traces]
+                         [--chemistry [--state FILE]] [--chunks K,K,...]
 
 Imports ``pyc2ray_torch`` from DIR (default: the directory of this script;
 DIR may hold another checkout, the package builds its kernels under DIR)
@@ -23,12 +24,22 @@ through entry points that every checkout since the trace loop has:
   batches, the first clustered (phase 3g's, K3):
   ms per trace (CUDA events, the least of 3) and, from one profiled
   trace, each kernel's median device us and the gap before it
-  (``loop_kernel_gaps``).
+  (``loop_kernel_gaps``);
+- with ``--chemistry``, the hydrogen chemistry pass (``global_pass``, one
+  kernel launch) on phase 3's Gamma (256^3 float32, chip_smoke's bench
+  fields) and on the EoR run's last state (250^3, both slices of
+  examples/eor_simulation with one timestep each, float32 and float64):
+  ms per pass (CUDA events), bit-equal to ``global_pass_ref`` (asserted),
+  iterations per cell and lane efficiency. ``--state FILE`` keeps that
+  state in FILE (.npz): made by the first run that finds none, read by
+  the others, so that every checkout of a call passes the same inputs.
 
-``--traces`` measures the traces alone. Prints the card's name and power
-limit, then one line per measurement and
-last a JSON object of the numbers under ``label``. Run two checkouts in
-turns in one call (A, B, B, A) to compare them on one card.
+``--chunks`` measures the bench default and EoR-bucket traces again with
+the loop's extract forced to each chunk of batches K (a checkout with the
+chunked extract, ``trace_loop.chunk_size``). ``--traces`` measures the
+traces (and, with ``--chemistry``, the passes) alone. Prints the card's name and power limit, then one line per
+measurement and last a JSON object of the numbers under ``label``. Run two
+checkouts in turns in one call (A, B, B, A) to compare them on one card.
 """
 
 import argparse
@@ -83,6 +94,93 @@ def rate_pass(cs, N, R, heat, bins, reps):
     return ms
 
 
+def eor_state(cs, path):
+    """The EoR run's state after both slices of one timestep each (ndens,
+    temp, xh, phi_ion as float64 arrays, dt), read from ``path`` where it
+    exists, else made by the model and written there (``path`` may be
+    None)."""
+    import contextlib
+    import io
+    import tempfile
+    if path and os.path.exists(path):
+        z = np.load(path)
+        return {k: z[k] for k in z.files}
+    from pyc2ray_torch import C2Ray_CubeP3M
+    from pyc2ray_torch.utils.paramutils import read_paramfile
+    params = read_paramfile(os.path.join(cs.EOR_DIR, "parameters.yml"))
+    with tempfile.TemporaryDirectory() as tmp:
+        params["Output"]["results_basename"] = tmp + "/"
+        params["Output"]["inputs_basename"] = os.path.join(
+            cs.EOR_DIR, "inputs") + "/"
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim = C2Ray_CubeP3M(params, cs.N_EOR, device="cuda")
+        for k in range(2):
+            r = cs.eor_slice(sim, k)[2]
+    out = {k: np.asarray(getattr(sim, k), dtype=np.float64).reshape(-1)
+           for k in ("ndens", "temp", "xh", "phi_ion")}
+    out["dt"] = np.array(r["dt"])
+    out.update({f"chem_{k}": np.array(v)
+                for k, v in sim.chem._asdict().items()})
+    if path:
+        np.savez(path, **out)
+    return out
+
+
+def chem_pass(cs, label, dt, nd, temp, xh, phi, chem, reps=20):
+    """ms per global_pass (CUDA events), bit-equal to global_pass_ref
+    (asserted), with the iterations per cell and the lane efficiency."""
+    from pyc2ray_torch.ops import chemistry as ch
+    got = ch.global_pass(dt, nd, temp, xh, xh, phi, chem)
+    want = ch.global_pass_ref(dt, nd, temp, xh, xh, phi, chem)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError(f"{label}: global_pass differs from "
+                           f"global_pass_ref")
+    del got, want
+    its = torch.empty(xh.shape, dtype=torch.int32, device=xh.device)
+    ch._pass_cuda(dt, nd, temp, xh, xh, phi, chem, iterations=its)
+    ms = cs.cuda_ms(lambda: ch.global_pass(dt, nd, temp, xh, xh, phi, chem),
+                    reps)
+    n_it = float(its.double().mean())
+    eff = cs.lane_efficiency(its)
+    cs.log(f"{label}: global_pass {ms:.4f} ms per pass (bit-equal to "
+           f"global_pass_ref), iterations per cell {n_it:.4f}, lane "
+           f"efficiency {eff:.4f}")
+    return dict(ms=ms, iterations_per_cell=n_it, lane_efficiency=eff)
+
+
+def chemistry(cs, bins, state_path):
+    """The hydrogen pass on phase 3's Gamma and on the EoR run's state."""
+    from pyc2ray_torch.ops.chemistry import ChemistryParams
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    N, dt = cs.N_BENCH, torch.float32
+    rt = ChebRaytracer(N, cs.R_BENCH, cs.SIG, bins, batch_size=cs.B_BENCH,
+                       dtype=dt)
+    src = np.random.RandomState(100).randint(0, N, size=(cs.NS_BENCH, 3))
+    pos_b, flux_b = rt.prepare_sources(src, np.ones(cs.NS_BENCH))
+
+    def grid(v):
+        return torch.full((N ** 3,), v, dtype=dt, device="cuda")
+    nd, temp, xh = grid(1e-3), grid(1e4), grid(1.2e-3)
+    phi, _ = rt.trace_batches(nd, xh, pos_b, flux_b, cs.DR)
+    out = {"chem_bench_f32": chem_pass(
+        cs, "chemistry bench 256^3 float32 (phase 3's Gamma)",
+        torch.tensor(cs.DT, dtype=dt).to("cuda"), nd, temp, xh, phi,
+        cs.chem_params())}
+    del rt, phi, nd, temp, xh
+    st = eor_state(cs, state_path)
+    chem = ChemistryParams(**{k[5:]: float(v) for k, v in st.items()
+                              if k.startswith("chem_")})
+    for t, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        f = [torch.from_numpy(st[k]).to("cuda", t)
+             for k in ("ndens", "temp", "xh", "phi_ion")]
+        out[f"chem_eor_{tag}"] = chem_pass(
+            cs, f"chemistry EoR 250^3 {t} (the run's last state)",
+            torch.tensor(float(st["dt"]), dtype=t).to("cuda"), *f, chem,
+            reps=20 if tag == "f32" else 5)
+    return out
+
+
 def trace(cs, label, rt, pad, pos_b, flux_b):
     """The trace bit for bit against ``trace_extended_plain`` with its
     launch counts (chip_smoke's ``loop_against_plain``), ms per trace of
@@ -103,6 +201,12 @@ def main():
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--traces", action="store_true",
                     help="measure the three traces only")
+    ap.add_argument("--chemistry", action="store_true",
+                    help="also the hydrogen chemistry pass")
+    ap.add_argument("--state", default=None,
+                    help="the .npz file of the EoR state the passes share")
+    ap.add_argument("--chunks", default="",
+                    help="chunks of batches the extract is forced to")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available; this script needs a GPU",
@@ -142,8 +246,9 @@ def main():
     pos_b, flux_b = rt.prepare_sources(src, np.ones(cs.NS_BENCH))
     nhi = torch.full((N,) * 3, 1e-3 * (1.0 - 1.2e-3), dtype=dt,
                      device="cuda")
+    default = (rt, rt.wrap_pad(nhi), pos_b, flux_b)
     out["bench_default"] = trace(cs, f"default bench N={N} B={cs.B_BENCH}",
-                                 rt, rt.wrap_pad(nhi), pos_b, flux_b)
+                                 *default)
     rt = ChebRaytracer(N, cs.R_BENCH, cs.SIG, bins, batch_size=cs.B_BENCH,
                        dtype=dt, fuse_fold=True)
     out["bench_fuse_fold"] = trace(cs, f"fuse_fold bench N={N} "
@@ -162,6 +267,18 @@ def main():
     out["eor_bucket"] = trace(cs, f"EoR bucket R={cs.R_EOR[0]:.2f} "
                               f"B={cs.B_EOR} (K3), {nb} batches", rt, pad,
                               pos_b, flux_b)
+    if args.chunks:
+        from pyc2ray_torch.ops import trace_loop
+        rule = trace_loop.chunk_size
+        for k in (int(v) for v in args.chunks.split(",")):
+            trace_loop.chunk_size = lambda n, *_, k=k: min(k, n)
+            for key, t in (("bench_default", default), ("eor_bucket",
+                                                        (rt, pad, pos_b,
+                                                         flux_b))):
+                out[f"{key}_chunk{k}"] = trace(cs, f"{key} chunk={k}", *t)
+        trace_loop.chunk_size = rule
+    if args.chemistry:
+        out.update(chemistry(cs, bins, args.state))
     cs.log(json.dumps(out))
     return 0
 

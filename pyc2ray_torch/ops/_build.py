@@ -50,12 +50,15 @@ _SIGNATURES = {
         "rates_dense": [_P] * 10 + [_I] * 6 + [_D] * 3 + [_P],
     },
     "trace_loop": {
-        # extract (else accumulate), frames, boxes, channels, pos, batch,
-        # B, D, shift, F0, F1, F2, cells, valid, n_cells, stream
-        "boxes": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P, _P, _I, _P],
+        # frames, boxes, channels, pos, batch, B, D, shift, F0, F1, F2,
+        # cells, valid, n_cells, stream
+        "accumulate_boxes": [_P, _P, _I, _P] + [_I] * 7 + [_P, _P, _I, _P],
+        # frames, boxes, channels, pos, k0, k, B, D, S0, S1, stream
+        "extract_chunk": [_P, _P, _I, _P] + [_I] * 4
+        + [ctypes.c_longlong] * 2 + [_P],
         # 23 pointers and the scratch; mode, E, R2, sdr3, s_fac,
-        # threads_b, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb
-        "cheb_trace_sweep": [_P] * 24 + [_I, _I, _D, _D, _D] + [_I] * 10
+        # threads_b, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb, chunk
+        "cheb_trace_sweep": [_P] * 24 + [_I, _I, _D, _D, _D] + [_I] * 11
         + _LAUNCH,
     },
     "chemistry": {

@@ -9,25 +9,27 @@
 // which XLA runs on the device with one host call per trace. No TPU kernel
 // of its own: the extract and the accumulate are XLA's there; here they are
 // the port's own kernels. Plain versions: pyc2ray_torch/ops/trace_loop.py::
-// extract_boxes_ref and add_boxes; of the loop, trace_loop.py::
-// cheb_trace_sweep_ref.
+// extract_chunk_ref (a stack of extract_boxes_ref) and add_boxes; of the
+// loop, trace_loop.py::cheb_trace_sweep_ref.
 //
-//   extract_boxes_kernel     the (B, D, D, D) boxes of the extended frame
-//                            at a batch's box corners, for up to
-//                            kMaxChannels frames at once.
+//   extract_chunk_kernel     the (k, B, D, D, D) boxes of the extended frame
+//                            at the box corners of k consecutive batches (a
+//                            chunk), for up to kMaxChannels frames at once.
 //   accumulate_boxes_kernel  adds a batch's B boxes of side D into the
 //                            frame at corner + shift, source by source in
 //                            batch order, for up to kMaxChannels frames.
-//   trace_sweep              per batch, all on one stream, nothing
-//                            synchronizing with the host: extract -> K1 ->
+//   trace_sweep              one extract per chunk of batches, then per
+//                            batch on its slot of the chunk, all on one
+//                            stream, nothing synchronizing with the host:
+//                            K1 ->
 //                            the dense rate pass (cheb_rates.cuh) ->
 //                            accumulate at shift rb0 (the default mode,
-//                            with do_heating the heat beside Gamma); extract
-//                            -> the segmented sweep's start -> K2 x seg_K ->
-//                            the rate pass -> accumulate (shell_segment);
-//                            extract -> K1f -> accumulate (fuse_rates);
-//                            extract -> K3 phase A -> phase B -> accumulate
-//                            (fuse_fold, K3h with do_heating).
+//                            with do_heating the heat beside Gamma); the
+//                            segmented sweep's start -> K2 x seg_K -> the
+//                            rate pass -> accumulate (shell_segment); K1f
+//                            -> accumulate (fuse_rates); K3 phase A ->
+//                            phase B -> accumulate (fuse_fold, K3h with
+//                            do_heating).
 //
 // Both kernels take the positions of the whole trace, (nb, B, 3) int32 on
 // the device, and a batch index, so a trace copies its positions to the card
@@ -50,12 +52,25 @@
 // reads B D^3 values of the frame and writes the boxes; the accumulate reads
 // the boxes and reads and writes the union of their cells in the frame (B D^3
 // when no two boxes overlap). At the EoR run's shape (B = 16, D = 24,
-// float32) that is 1.8 MB and 2.7 MB: 0.53 and 0.79 us at 3.35 TB/s, at the
-// bench shape's clustered batch (B = 8, D = 64) 10.7 MB for the accumulate,
-// 3.2 us. The extract is a plain grid-stride loop, one block per box plane,
-// with nothing staged in shared memory; the index arithmetic within a plane
-// is 32-bit (a 64-bit division per cell would cost more than the cell's
-// bytes).
+// float32) that is 1.8 MB and 2.7 MB a batch: 0.53 and 0.79 us at 3.35 TB/s,
+// at the bench shape's clustered batch (B = 8, D = 64) 10.7 MB for the
+// accumulate, 3.2 us.
+//
+// The extract's design for this card. In the loop one launch of one batch
+// (3.7 us at the EoR shape, 13.2 at the bench's) paid a launch and a gap of
+// 1-2 us, ended on a quarter-full pass of blocks, and had one load in
+// flight a thread behind a 32-bit division per cell. The frame does not
+// change within a trace and the positions of every batch are on the card,
+// so the loop cuts the boxes of a chunk of up to trace_loop.chunk_size
+// consecutive batches in one launch into a (k, B, D, D, D) buffer, and
+// batch b's kernels read its slot. The chunk is one flat run of vectors of
+// 16 bytes (V cells) of box rows: a thread loads four vectors, their cells
+// from the frame at any alignment, before it stores them as aligned 16-byte
+// stores, and the index arithmetic (row, box, plane, row in the plane) is
+// three multiply-high divisions a vector. A form on the Tensor Memory
+// Accelerator (tiles of planes by tensor map into shared memory, stored by
+// bulk copies, on a copy of the frame pitched to 16 bytes) was built beside
+// it and deleted: it faulted on the card (PERF.md §6).
 //
 // The accumulate's design for this card. Inside the trace loop the boxes
 // come fresh from L2 and the frame's cells cold from device memory; what
@@ -167,20 +182,115 @@ __device__ __forceinline__ bool takes_part(const int* p, int x, int y, int z,
                 unsigned(z - p[2])] > T(0.5));
 }
 
-// Block (b, i) copies plane i of box b of every channel.
-template <typename T>
-__global__ void extract_boxes_kernel(Channels<T> ch, BoxSet bs) {
-  const int D = bs.D, b = blockIdx.x / D, i = blockIdx.x % D;
-  const int* p = bs.corners() + 3 * b;
-  const unsigned D2 = unsigned(D) * D;
-  const size_t out = (size_t(b) * D + i) * D2;
-  for (unsigned jk = threadIdx.x; jk < D2; jk += blockDim.x) {
-    const int j = int(jk / unsigned(D)), k = int(jk) - j * D;
-    const size_t src = bs.at(p[0] + i, p[1] + j, p[2] + k);
-#pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c)
-      if (c < ch.n) ch.box[c][out + jk] = ch.frame[c][src];
+// x / d for 0 <= x < 2^31 by a multiply-high and a shift, d >= 1 (the
+// round-up method: mul = ceil(2^(31 + l) / d), l = ceil(log2 d)).
+struct FastDiv {
+  unsigned d, mul, shift;
+  FastDiv() = default;
+  explicit FastDiv(unsigned div) : d(div), mul(0), shift(0) {
+    unsigned l = 0;
+    while ((1ull << l) < d) ++l;
+    if (d > 1) {
+      mul = unsigned(((1ull << (31 + l)) + d - 1) / d);
+      shift = l - 1;
+    }
   }
+  __device__ __forceinline__ unsigned of(unsigned x) const {
+    return d == 1 ? x : __umulhi(x, mul) >> shift;
+  }
+};
+
+// The boxes of batches k0 .. k0 + k - 1 (a chunk): box bx of the chunk, bx
+// = slot B + b, is box b of batch k0 + slot, with its corner at pos[k0 B +
+// bx], and lands at bx D^3 of the (k, B, D, D, D) chunk buffer. The frames
+// have strides (S0, S1, 1).
+struct Chunk {
+  const int* pos;   // (nb, B, 3)
+  int k0, k, B, D;
+  long long S0, S1;
+  __device__ const int* corner(unsigned bx) const {
+    return pos + (size_t(k0) * B + bx) * 3;
+  }
+};
+
+constexpr int kExtractVecs = 4;   // vectors a thread loads before it stores
+
+// V values of T as one aligned store (16 bytes where V > 1).
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+// The extract. Thread t of block g copies the vectors
+// g T U + u T + t (u < U = kExtractVecs) of V cells each of every channel's
+// chunk (NC: 1 channel, or up to kMaxChannels; V = 16 bytes of T where D
+// is a multiple of it, else 1): a vector lies in one row of a box, so its
+// index arithmetic (row, box, plane and row in the plane: three
+// multiply-high divisions) is done once for its V cells; the thread issues
+// the loads of all its vectors, then their stores, each an aligned V-wide
+// store into the contiguous chunk.
+template <typename T, int V, int NC>
+__global__ void __launch_bounds__(kBoxThreads)
+    extract_chunk_kernel(Channels<T> ch, Chunk cs, FastDiv row_vecs,
+                         FastDiv box_rows, FastDiv side, unsigned n_vec) {
+  T got[NC][kExtractVecs][V];
+  const unsigned q0 = blockIdx.x * (kBoxThreads * kExtractVecs) + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kExtractVecs; ++u) {
+    const unsigned q = q0 + u * kBoxThreads;
+    if (q < n_vec) {
+      const unsigned row = row_vecs.of(q);
+      const unsigned z = (q - row * row_vecs.d) * V;
+      const unsigned bx = box_rows.of(row);
+      const unsigned r = row - bx * box_rows.d;
+      const unsigned i = side.of(r), j = r - i * side.d;
+      const int* p = cs.corner(bx);
+      const long long src = (p[0] + i) * cs.S0 + (p[1] + j) * cs.S1 + p[2] + z;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (NC == 1 || c < ch.n)
+#pragma unroll
+          for (int v = 0; v < V; ++v) got[c][u][v] = ch.frame[c][src + v];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kExtractVecs; ++u) {
+    const unsigned q = q0 + u * kBoxThreads;
+    if (q < n_vec) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (NC > 1 && c >= ch.n) break;
+        Vec<T, V> w;
+#pragma unroll
+        for (int v = 0; v < V; ++v) w.v[v] = got[c][u][v];
+        reinterpret_cast<Vec<T, V>*>(ch.box[c])[q] = w;
+      }
+    }
+  }
+}
+
+// The extract's launch over the chunk `cs`: V cells a vector, the
+// three divisors, the vectors and the blocks (kBoxThreads x kExtractVecs
+// vectors each). n_vec is 0 where the chunk has 2^31 cells or more.
+struct ExtractGrid {
+  int V;
+  FastDiv row_vecs, box_rows, side;
+  unsigned n_vec, blocks;
+};
+
+template <typename T>
+ExtractGrid extract_grid(const Chunk& cs) {
+  constexpr int W = 16 / sizeof(T);
+  const size_t n = size_t(cs.k) * cs.B * cs.D * cs.D * cs.D;
+  ExtractGrid g{};
+  g.V = cs.D % W == 0 ? W : 1;
+  g.row_vecs = FastDiv(unsigned(cs.D / g.V));
+  g.box_rows = FastDiv(unsigned(cs.D) * cs.D);
+  g.side = FastDiv(unsigned(cs.D));
+  g.n_vec = n < (size_t(1) << 31) ? unsigned(n / g.V) : 0u;
+  g.blocks = (g.n_vec + kBoxThreads * kExtractVecs - 1) /
+             (kBoxThreads * kExtractVecs);
+  return g;
 }
 
 // v plus the value at frame cell (x, y, z) of every box whose bit is set in
@@ -323,21 +433,18 @@ size_t resident_blocks(size_t smem) {
   return n;
 }
 
-// The extract (`extract`) or the accumulate of the cells `vis` visits (all
-// of them where vis.cells is null) on `st`; returns the first cudaError_t
-// that is not cudaSuccess.
+// The accumulate of the cells `vis` visits (all of them where vis.cells is
+// null) on `st`; returns the first cudaError_t that is not cudaSuccess.
 template <typename T>
-int launch_boxes(bool extract, const Channels<T>& ch, const BoxSet& bs,
-                 Visit<T> vis, cudaStream_t st) {
+int launch_accumulate(const Channels<T>& ch, const BoxSet& bs, Visit<T> vis,
+                      cudaStream_t st) {
   const size_t D3 = size_t(bs.D) * bs.D * bs.D;
   if (vis.cells == nullptr) vis.n = int(D3 < (size_t(1) << 31) ? D3 : 0);
   if (ch.n < 1 || ch.n > kMaxChannels || bs.B < 1 || bs.B > 65535 ||
       bs.D < 1 || D3 >= (size_t(1) << 31) || vis.n < 0 ||
       size_t(vis.n) > D3 || (vis.cells == nullptr) != (vis.valid == nullptr))
     return cudaErrorInvalidValue;
-  if (extract) {
-    extract_boxes_kernel<T><<<bs.B * bs.D, kBoxThreads, 0, st>>>(ch, bs);
-  } else if (vis.n > 0) {
+  if (vis.n > 0) {
     // ranges of at least a cell a thread, at most kRangesPerPlane a plane,
     // and no more blocks than the card holds at once
     const bool staged = bs.B <= kStagedCorners;
@@ -359,6 +466,33 @@ int launch_boxes(bool extract, const Channels<T>& ch, const BoxSet& bs,
       accumulate_boxes_kernel<T, false><<<grid, kBoxThreads, smem, st>>>(
           ch, bs, vis);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V, int NC>
+void extract_chunk(const Channels<T>& ch, const Chunk& cs,
+                   const ExtractGrid& g, cudaStream_t st) {
+  extract_chunk_kernel<T, V, NC><<<g.blocks, kBoxThreads, 0, st>>>(
+      ch, cs, g.row_vecs, g.box_rows, g.side, g.n_vec);
+}
+
+// The extract of the chunk `cs` on `st`: one block per
+// kBoxThreads x kExtractVecs vectors.
+template <typename T>
+int launch_extract(const Channels<T>& ch, const Chunk& cs, cudaStream_t st) {
+  if (ch.n < 1 || ch.n > kMaxChannels || cs.k < 1 || cs.B < 1 || cs.D < 1)
+    return cudaErrorInvalidValue;
+  const ExtractGrid g = extract_grid<T>(cs);
+  if (g.n_vec == 0) return cudaErrorInvalidValue;
+  constexpr int W = 16 / sizeof(T);
+  if (ch.n == 1 && g.V == W)
+    extract_chunk<T, W, 1>(ch, cs, g, st);
+  else if (ch.n == 1)
+    extract_chunk<T, 1, 1>(ch, cs, g, st);
+  else if (g.V == W)
+    extract_chunk<T, W, kMaxChannels>(ch, cs, g, st);
+  else
+    extract_chunk<T, 1, kMaxChannels>(ch, cs, g, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,7 +525,8 @@ struct SweepLoopBufs {
   const void* bins_wh;    // null without the heat channel
   void* phi_frame;        // zeroed by the caller
   void* heat_frame;       // null without the heat channel
-  void* boxes;            // (B, Dc, Dc, Dc) scratch: the nHI boxes
+  void* boxes;            // (chunk, B, Dc, Dc, Dc) scratch: the nHI boxes
+                          // of a chunk of batches
   void* work[2];          // (B, Dc, Dc, Dc) scratch each: the sweep's box
                           // (K1, K2) in work[0]; K3's cdin and dcol boxes
   void* phi;              // (B, Ds^3) rate boxes, zeroed by the caller
@@ -411,10 +546,12 @@ struct SweepLoopArgs {
   int rb0, Ds, n_valid;   // the rate pass's subbox and its rated cells
   int seg_S, seg_K;       // K2: shells per segment, segments
   int F0, F1, F2;         // the frame's extents
+  int chunk;              // batches a launch of the extract cuts
 };
 
-// The trace of nb batches in sweep mode `mode` (see SweepMode): per batch
-// the nHI boxes out of the frame, the mode's sweep and rates, and the
+// The trace of nb batches in sweep mode `mode` (see SweepMode): per chunk
+// of s.chunk batches one extract of their nHI boxes out of the frame, then
+// per batch the mode's sweep and rates on its slot of the chunk, and the
 // accumulate of the rate boxes into phi_frame (and heat_frame). The tables,
 // the plan and the rate pass's constants are made once. With
 // spec.max_clusters only ask how many of the sweep's clusters (K3: of its
@@ -435,7 +572,7 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
       (mode == kSweepK2 && (s.seg_S < 1 || s.seg_K < 1 || !a.planes[0] ||
                             !a.planes[1])) ||
       (mode == kSweepK3 && !a.work[1]) ||
-      (!whole && s.n_valid > 0 && a.cells == nullptr))
+      (!whole && s.n_valid > 0 && a.cells == nullptr) || s.chunk < 1)
     return cudaErrorInvalidValue;
   Plan pl;
   const cudaError_t err = make_plan<T>(spec, Dc, gamma ? 2 * s.E : 0, gamma,
@@ -474,6 +611,8 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
   void* frames[2] = {a.phi_frame, a.heat_frame};
   void* out[2] = {a.phi, a.heat};
   const Channels<T> in = channels<T>(src, nhi_box, 1);
+  const size_t box_vals = size_t(spec.B) * Dc * Dc * Dc;
+  Chunk chunk{a.pos, 0, s.chunk, spec.B, Dc, (long long)s.F1 * s.F2, s.F2};
   const Channels<T> acc = channels<T>(frames, out, with_heat ? 2 : 1);
   // the unfused modes accumulate the rate pass's cells only; the fused
   // ones every cell of their (Dc)^3 boxes
@@ -482,13 +621,22 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
                              : static_cast<P>(a.rt_sub) +
                                    2 * size_t(s.Ds) * s.Ds * s.Ds,
                        whole ? 0 : s.n_valid};
-  BoxSet ex{a.pos, 0, spec.B, Dc, 0, s.F0, s.F1, s.F2};
   BoxSet ac{a.pos, 0, spec.B, whole ? Dc : s.Ds, whole ? 0 : s.rb0,
             s.F0, s.F1, s.F2};
   for (int b = 0; b < s.nb; ++b) {
-    ex.batch = ac.batch = b;
+    ac.batch = b;
     const T* flux_b = fl + size_t(b) * spec.B;
-    int rc = launch_boxes<T>(true, in, ex, Visit<T>{}, st);
+    const int slot = b % s.chunk;
+    int rc = 0;
+    if (slot == 0) {
+      // the boxes of batches b .. b + k - 1 in one launch
+      chunk.k0 = b;
+      chunk.k = s.nb - b < s.chunk ? s.nb - b : s.chunk;
+      rc = launch_extract<T>(in, chunk, st);
+    }
+    // batch b's boxes: its slot of the chunk
+    nhi = static_cast<P>(a.boxes) + slot * box_vals;
+    k3.nhi = rates.nhi = nhi;
     if (rc == 0) switch (mode) {
         case kSweepK1:
           rc = launch_sweep<T>(tb, pl, spec, nhi, cd, sc);
@@ -515,7 +663,7 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
       rates.flux = flux_b;
       rc = launch_rates_dense<T>(rates, st);
     }
-    if (rc == 0) rc = launch_boxes<T>(false, acc, ac, rated, st);
+    if (rc == 0) rc = launch_accumulate<T>(acc, ac, rated, st);
     if (rc != 0) return rc;
   }
   return 0;
@@ -525,25 +673,39 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
 
 extern "C" {
 
-// Extract (`extract` = 1) or accumulate (0) the boxes of batch `batch` for
-// the n channels frames[c] <-> boxes[c] on `stream`, the accumulate at the
-// n_cells rated cells `cells` of every box (where `valid`, the rates table's
-// valid channel, exceeds 0.5; the boxes 0 elsewhere) where `cells` is set;
-// returns the first cudaError_t that is not cudaSuccess.
-#define BOXES_ENTRY(NAME, TYPE)                                                \
-  int NAME(int extract, void* const* frames, void* const* boxes, int n,        \
-           const int* pos, int batch, int B, int D, int shift, int F0, int F1, \
-           int F2, const int* cells, const void* valid, int n_cells,          \
-           void* stream) {                                                    \
-    return launch_boxes<TYPE>(                                                 \
-        extract != 0, channels<TYPE>(frames, boxes, n),                        \
+// Accumulate the boxes of batch `batch` of the n channels boxes[c] into
+// frames[c] on `stream`, at the n_cells rated cells `cells` of every box
+// (where `valid`, the rates table's valid channel, exceeds 0.5; the boxes 0
+// elsewhere) where `cells` is set; returns the first cudaError_t that is
+// not cudaSuccess.
+#define ACCUMULATE_ENTRY(NAME, TYPE)                                           \
+  int NAME(void* const* frames, void* const* boxes, int n, const int* pos,   \
+           int batch, int B, int D, int shift, int F0, int F1, int F2,         \
+           const int* cells, const void* valid, int n_cells, void* stream) {   \
+    return launch_accumulate<TYPE>(                                            \
+        channels<TYPE>(frames, boxes, n),                                      \
         BoxSet{pos, batch, B, D, shift, F0, F1, F2},                           \
         Visit<TYPE>{cells, static_cast<const TYPE*>(valid), n_cells},          \
         static_cast<cudaStream_t>(stream));                                    \
   }
 
-BOXES_ENTRY(boxes_f32, float)
-BOXES_ENTRY(boxes_f64, double)
+ACCUMULATE_ENTRY(accumulate_boxes_f32, float)
+ACCUMULATE_ENTRY(accumulate_boxes_f64, double)
+
+// The (k, B, D, D, D) boxes of batches k0 .. k0 + k - 1 of the n channels
+// frames[c] (strides S0, S1, 1) into boxes[c] on `stream`, one launch;
+// returns the first cudaError_t that is not cudaSuccess.
+#define EXTRACT_ENTRY(NAME, TYPE)                                              \
+  int NAME(void* const* frames, void* const* boxes, int n, const int* pos,   \
+           int k0, int k, int B, int D, long long S0, long long S1,           \
+           void* stream) {                                                    \
+    return launch_extract<TYPE>(channels<TYPE>(frames, boxes, n),              \
+                                Chunk{pos, k0, k, B, D, S0, S1},               \
+                                static_cast<cudaStream_t>(stream));            \
+  }
+
+EXTRACT_ENTRY(extract_chunk_f32, float)
+EXTRACT_ENTRY(extract_chunk_f64, double)
 
 // The trace of nb batches in the sweep mode `mode` (0: K1 + the rate pass,
 // 1: K2 over seg_K segments of seg_S shells + the rate pass, 2: K1f, 3: K3,
@@ -560,10 +722,10 @@ BOXES_ENTRY(boxes_f64, double)
            const void* bins_w, const void* bins_wh, void* phi_frame,          \
            void* heat_frame,                                                  \
            void* boxes, void* work0, void* work1, void* phi, void* heat,      \
-           void* planes0, void* planes1, void* scratch, int mode, int E,      \
-           double R2, double sdr3, double s_fac, int threads_b, int rb0,      \
-           int Ds, int n_valid, int seg_S, int seg_K, int F0, int F1, int F2, \
-           int nb,                                                            \
+           void* planes0, void* planes1, void* scratch, int mode,             \
+           int E, double R2, double sdr3, double s_fac, int threads_b,        \
+           int rb0, int Ds, int n_valid, int seg_S, int seg_K, int F0,        \
+           int F1, int F2, int nb, int chunk,                                 \
            int B, int Dc, int c, int R1, double dr, double sig, int threads,   \
            int cluster, int shared_planes, int smem, int rate_threads,        \
            int ring, int* max_clusters, void* stream) {                       \
@@ -572,7 +734,7 @@ BOXES_ENTRY(boxes_f64, double)
                       bins_wh, phi_frame, heat_frame, boxes, {work0, work1},   \
                       phi, heat, {planes0, planes1}, scratch},                 \
         SweepLoopArgs{nb, mode, E, R2, sdr3, s_fac, threads_b, rb0, Ds,        \
-                      n_valid, seg_S, seg_K, F0, F1, F2},                      \
+                      n_valid, seg_S, seg_K, F0, F1, F2, chunk},               \
         sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig,                    \
         LaunchSpec{B, threads, cluster, shared_planes, smem, rate_threads,     \
                    ring, max_clusters, stream});                               \

@@ -9,9 +9,11 @@ its rate box, add the rate boxes back in batch order.
 
 The port's own kernels for the two ends of a batch (csrc/trace_loop.cu):
 
-  ``extract_boxes``     the (B, D, D, D) boxes of up to four frames at a
-                        batch's box corners; plain version
-                        ``extract_boxes_ref``, a PyTorch gather.
+  ``extract_chunk``     the (k, B, D, D, D) boxes of up to four frames at
+                        the box corners of k consecutive batches (a chunk),
+                        one launch; plain version ``extract_chunk_ref``, a
+                        stack of PyTorch gathers (``extract_boxes_ref``).
+                        ``extract_boxes`` is its chunk of one batch.
   ``accumulate_boxes``  adds a batch's boxes into up to four frames at corner
                         + shift, source by source in batch order, bit for bit
                         as the plain version ``add_boxes`` (one slice add per
@@ -31,8 +33,9 @@ The port's own kernels for the two ends of a batch (csrc/trace_loop.cu):
                         (shell_segment), extract -> K1f -> accumulate
                         (fuse_rates) or extract -> K3's two phases ->
                         accumulate (fuse_fold, K3h with the heat channel),
-                        on the current stream, with the plan, the checks
-                        and the scratch made once per trace; the port's
+                        the extract once per chunk of ``chunk_size``
+                        batches, on the current stream, with the plan, the
+                        checks and the scratch made once per trace; the port's
                         counterpart of the JAX engine's jit + lax.scan over
                         batches. Plain version ``cheb_trace_sweep_ref``.
 
@@ -54,10 +57,15 @@ from .sweep import (RATE_THREADS, THREADS_RATES, cheb_sweep,
                     launches, rate_consts)
 
 __all__ = ["wrap_pad", "fold_padding", "add_boxes", "extract_boxes_ref",
-           "stage_positions", "extract_boxes", "accumulate_boxes",
+           "extract_chunk_ref", "stage_positions", "extract_boxes",
+           "extract_chunk", "accumulate_boxes", "chunk_size",
            "cheb_trace_sweep", "cheb_trace_sweep_ref", "MAX_CHANNELS"]
 
 MAX_CHANNELS = 4       # frames one launch moves (kMaxChannels of the source)
+# the trace loop's extract cuts the boxes of up to MAX_CHUNK batches, of at
+# most CHUNK_BYTES together, in one launch (chunk_size)
+MAX_CHUNK = 32
+CHUNK_BYTES = 128 << 20
 # the fused modes of cheb_trace_sweep: K1f, and K3 (K3h with the heat
 # channel), each with its complete (Dc)^3 rate boxes
 FUSE_MODES = (None, "rates", "fold")
@@ -107,6 +115,22 @@ def extract_boxes_ref(frame, pos, D):
                  k[:, None, None, :]]
 
 
+def extract_chunk_ref(frame, pos, k0, k, D):
+    """(k, B, D, D, D): the boxes of batches k0 .. k0 + k - 1 of ``frame``
+    at the corners ``pos`` (nb, B, 3), each batch's as ``extract_boxes_ref``
+    cuts them."""
+    return torch.stack([extract_boxes_ref(frame, pos[b].to(frame.device), D)
+                        for b in range(k0, k0 + k)])
+
+
+def chunk_size(nb, B, D, itemsize):
+    """The batches of a trace of ``nb`` batches of B boxes of side D whose
+    boxes the trace loop cuts in one launch: as many as CHUNK_BYTES hold,
+    1 to MAX_CHUNK."""
+    k = CHUNK_BYTES // (B * D ** 3 * itemsize)
+    return int(max(1, min(k, MAX_CHUNK, nb)))
+
+
 def stage_positions(pos_b, shape, D, device):
     """The box corners (nb, B, 3) of a trace as one contiguous int32 tensor
     on ``device``, copied once. Raises where a box of side D at a corner
@@ -127,11 +151,13 @@ def _channels(x):
     return (x,) if isinstance(x, torch.Tensor) else tuple(x)
 
 
-def _check_boxes(name, frames, boxes, pos, k, D):
+def _check_boxes(name, frames, boxes, pos, k, D, chunk=None):
     """Validate a launch of the box kernels: 1..MAX_CHANNELS frames of one
-    3-D shape, their (B, D, D, D) boxes, the staged positions (nb, B, 3)
-    int32, all contiguous on one CUDA device in one float type, and the
-    batch index. Returns the function suffix."""
+    3-D shape, their (B, D, D, D) boxes (the extract's (chunk, B, D, D, D)
+    of batches k .. k + chunk - 1), the staged positions (nb, B, 3) int32,
+    all contiguous on one CUDA device in one float type (the extract's
+    frames may be views of unit inner stride, of one layout), and the batch
+    index. Returns the function suffix."""
     f0 = frames[0]
     dt, dev = f0.dtype, f0.device
     if dev.type != "cuda":
@@ -144,14 +170,18 @@ def _check_boxes(name, frames, boxes, pos, k, D):
     if pos.dim() != 3 or pos.shape[-1] != 3:
         raise ValueError(f"{name}: positions {tuple(pos.shape)}")
     nb, B = pos.shape[:2]
-    if not 0 <= k < nb:
-        raise ValueError(f"{name}: batch {k} of {nb}")
-    want = [(f, tuple(f0.shape), dt) for f in frames]
-    want += [(b, (B, D, D, D), dt) for b in boxes]
-    want.append((pos, (nb, B, 3), torch.int32))
-    for t, shape, tdt in want:
+    n = 1 if chunk is None else chunk
+    if not (0 <= k and 1 <= n and k + n <= nb):
+        raise ValueError(f"{name}: batches {k}..{k + n - 1} of {nb}")
+    want = [(f, tuple(f0.shape), dt, chunk is not None) for f in frames]
+    shape = (B, D, D, D) if chunk is None else (chunk, B, D, D, D)
+    want += [(b, shape, dt, False) for b in boxes]
+    want.append((pos, (nb, B, 3), torch.int32, False))
+    for t, shape, tdt, view in want:
+        laid = (t.stride() == f0.stride() and t.stride(-1) == 1 if view
+                else t.is_contiguous())
         if (tuple(t.shape) != shape or t.dtype != tdt or t.device != dev
-                or not t.is_contiguous()):
+                or not laid):
             raise ValueError(
                 f"{name}: a {tuple(t.shape)} {t.dtype} tensor on {t.device} "
                 f"(contiguous {t.is_contiguous()}), expected {shape} {tdt} "
@@ -161,8 +191,9 @@ def _check_boxes(name, frames, boxes, pos, k, D):
     return sweep._SUFFIX[dt]
 
 
-def _boxes_launch(name, frames, boxes, pos, k, D, shift, cells=None,
-                  valid=None):
+def _accumulate_launch(frames, boxes, pos, k, D, shift, cells=None,
+                       valid=None):
+    name = "accumulate_boxes"
     sfx = _check_boxes(name, frames, boxes, pos, k, D)
     if (cells is None) != (valid is None):
         raise ValueError(f"{name}: cells and valid go together")
@@ -179,8 +210,8 @@ def _boxes_launch(name, frames, boxes, pos, k, D, shift, cells=None,
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     listed = [None, None, 0] if cells is None else [
         sweep._ptr(cells), sweep._ptr(valid), cells.numel()]
-    err = getattr(lib, f"boxes_{sfx}")(
-        int(name == "extract_boxes"), ptrs(*[f.data_ptr() for f in frames]),
+    err = getattr(lib, f"accumulate_boxes_{sfx}")(
+        ptrs(*[f.data_ptr() for f in frames]),
         ptrs(*[b.data_ptr() for b in boxes]), len(frames), sweep._ptr(pos),
         k, pos.shape[1], D, shift, *frames[0].shape, *listed,
         ctypes.c_void_p(stream))
@@ -190,20 +221,49 @@ def _boxes_launch(name, frames, boxes, pos, k, D, shift, cells=None,
     launches[name] += 1
 
 
+def extract_chunk(frames, pos, k0, k, D):
+    """The (k, B, D, D, D) boxes of batches k0 .. k0 + k - 1 of the staged
+    positions ``pos`` (nb, B, 3) out of ``frames``: one frame or a sequence
+    of up to MAX_CHANNELS frames of one shape and layout (views of unit
+    inner stride too), with a tensor or a list of tensors returned alike.
+    The plain version (``extract_chunk_ref``) for a CPU frame, one kernel
+    launch for all the frames of a CUDA one, counted as one
+    "extract_boxes"."""
+    chans = _channels(frames)
+    if chans[0].device.type == "cpu":
+        out = [extract_chunk_ref(f, pos, k0, k, D) for f in chans]
+    else:
+        B = pos.shape[1]
+        out = [torch.empty((k, B, D, D, D), dtype=f.dtype, device=f.device)
+               for f in chans]
+        name = "extract_boxes"
+        sfx = _check_boxes(name, chans, out, pos, k0, D, chunk=k)
+        from ._build import load
+        lib = load("trace_loop")
+        ptrs = ctypes.c_void_p * MAX_CHANNELS
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        f0 = chans[0]
+        err = getattr(lib, f"extract_chunk_{sfx}")(
+            ptrs(*[f.data_ptr() for f in chans]),
+            ptrs(*[o.data_ptr() for o in out]), len(chans), sweep._ptr(pos),
+            k0, k, B, D, f0.stride(0), f0.stride(1), ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err} ({lib.error_string(err)!r})")
+        launches[name] += 1
+    return out[0] if isinstance(frames, torch.Tensor) else out
+
+
 def extract_boxes(frames, pos, k, D):
     """The (B, D, D, D) boxes of batch ``k`` of the staged positions ``pos``
-    (nb, B, 3) out of ``frames``: one frame or a sequence of up to
-    MAX_CHANNELS frames of one shape, with a tensor or a list of tensors
-    returned alike. The plain version for a CPU frame, one kernel launch for
-    all the frames of a CUDA one."""
+    (nb, B, 3) out of ``frames`` (as ``extract_chunk``'s): the plain version
+    for a CPU frame, one kernel launch for all the frames of a CUDA one (a
+    chunk of one batch)."""
     chans = _channels(frames)
     if chans[0].device.type == "cpu":
         out = [extract_boxes_ref(f, pos[k], D) for f in chans]
     else:
-        B = pos.shape[1]
-        out = [torch.empty((B, D, D, D), dtype=f.dtype, device=f.device)
-               for f in chans]
-        _boxes_launch("extract_boxes", chans, out, pos, k, D, 0)
+        out = [c[0] for c in extract_chunk(list(chans), pos, k, 1, D)]
     return out[0] if isinstance(frames, torch.Tensor) else out
 
 
@@ -224,8 +284,8 @@ def accumulate_boxes(frames, boxes, pos, k, shift=0, cells=None,
         for f, b in zip(chans, bx, strict=True):
             add_boxes(f, b, pos[k], shift)
         return
-    _boxes_launch("accumulate_boxes", chans, bx, pos, k, bx[0].shape[-1],
-                  shift, cells, valid)
+    _accumulate_launch(chans, bx, pos, k, bx[0].shape[-1], shift, cells,
+                       valid)
 
 
 def cheb_trace_sweep_ref(frame, pos, flux, tb, dr, c, sig, R2=0.0,
@@ -282,7 +342,8 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
     The plain version for a CPU frame; for a CUDA frame one call of the loop
     of csrc/trace_loop.cu, which issues every batch's kernels on the current
     stream and does not synchronize. Counted as one "cheb_trace_sweep" and
-    nb launches of each kernel it issues (nb K for K2). ``plan`` forces
+    nb launches of each kernel it issues (nb K for K2), but the extract's:
+    one per chunk of ``chunk_size`` batches, ceil(nb / chunk) in all. ``plan`` forces
     parts of the sweep's plan (K3: of its phase A) as in
     ``sweep.cheb_sweep``. The unfused modes' rate pass evaluates the rated
     cells ``cells`` of ``rt_sub`` (``cheb_rates.rated_cells``, int32 on the
@@ -303,7 +364,9 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
     dt, dev = frame.dtype, frame.device
     nb, B = pos.shape[:2]
     Dc, Ds = tb.sw.shape[-1], tb.rt_sub.shape[-1]
-    boxes = torch.empty((B, Dc, Dc, Dc), dtype=dt, device=dev)
+    k = chunk_size(nb, B, Dc, dt.itemsize)
+    chunk = torch.empty((k, B, Dc, Dc, Dc), dtype=dt, device=dev)
+    boxes = chunk[0]
     geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
     (B, Dc, R1), spec = sweep._geom(boxes, *geo, c)
     E, more = sweep._bins_spec(Dc, tb.bins_s, tb.bins_w, tb.rt_tab, dt)
@@ -344,14 +407,14 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
     sweep._launch(lib, f"cheb_trace_sweep_{sfx}", name, boxes, R1, c, dr, sig,
                   (frame, pos, flux, *geo, tb.rt_tab, tb.rt_sub, cells,
                    tb.bins_s, tb.bins_w, tb.bins_wh if heat else None,
-                   frames[0], frames[1] if heat else None, boxes, *work, phi,
-                   heat_b, *planes),
+                   frames[0], frames[1] if heat else None, chunk, *work,
+                   phi, heat_b, *planes),
                   (mode, E, float(R2), sdr3, s_fac, THREADS_RATES, rb0, Ds,
-                   0 if fuse else cells.numel(), S, K, *frame.shape, nb),
+                   0 if fuse else cells.numel(), S, K, *frame.shape, nb, k),
                   head=2 * E if mode == 2 else 0, plan=plan,
                   rate_threads=RATE_THREADS if mode == 2 else 0,
                   count=nb * (K if mode == 1 else 1), variant=mode)
-    launches["extract_boxes"] += nb
+    launches["extract_boxes"] += -(-nb // k)
     launches["accumulate_boxes"] += nb
     if not fuse:
         launches["rates_dense"] += nb

@@ -51,6 +51,9 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   return r;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return unsigned((uint64_t(a) * b) >> 32);
+}
 // the split barrier: arrive returns at once, wait blocks until every thread
 // of the cluster has arrived
 extern thread_local std::optional<std::barrier<>::arrival_token> emu_token;

@@ -120,13 +120,12 @@ int run(int kind, const Args& a) {
 extern "C" int rehearse_f32(int kind, const Args* a) { return run<float>(kind, *a); }
 extern "C" int rehearse_f64(int kind, const Args* a) { return run<double>(kind, *a); }
 
-// The box kernels of trace_loop.cu over n channels of batch `batch`: the
-// extract (extract = 1), B x D blocks of T threads, or the accumulate of the
+// The accumulate of trace_loop.cu over n channels of batch `batch`: the
 // n_cells listed cells `cells` of every box (all D^3 where `cells` is null),
 // min(ceil(n / T), kRangesPerPlane D) x B blocks of T threads with the
 // launch's shared memory, in reverse block order with `reverse`.
 template <class T>
-void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
+void run_boxes(void* const* frames, void* const* boxes, int n,
                const int* pos, int batch, int B, int D, int shift, int F0,
                int F1, int F2, const int* cells, const void* valid,
                int n_cells, int T_, int reverse) {
@@ -137,11 +136,6 @@ void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
     ch.box[c] = static_cast<T*>(boxes[c]);
   }
   const BoxSet bs{pos, batch, B, D, shift, F0, F1, F2};
-  if (extract) {
-    emu_launch(B * D, 1, T_, 0, [&] { extract_boxes_kernel<T>(ch, bs); },
-               reverse != 0);
-    return;
-  }
   const Visit<T> vis{cells, static_cast<const T*>(valid),
                      cells ? n_cells : D * D * D};
   const int ranges = std::min((vis.n + T_ - 1) / T_, kRangesPerPlane * D);
@@ -160,13 +154,55 @@ void run_boxes(int extract, void* const* frames, void* const* boxes, int n,
   }
 }
 
+// The extract of the chunk of batches k0 .. k0 + k - 1 of n channels (the
+// frames of strides (S0, S1, 1)) into boxes[c], (k, B, D, D, D) each, over
+// the launch's grid (extract_grid) of kBoxThreads threads a block, in
+// reverse block order with `reverse`.
+template <class T>
+void run_extract(void* const* frames, void* const* boxes, int n,
+                 const int* pos, int k0, int k, int B, int D, long long S0,
+                 long long S1, int reverse) {
+  Channels<T> ch{};
+  ch.n = n;
+  for (int c = 0; c < n; ++c) {
+    ch.frame[c] = static_cast<T*>(frames[c]);
+    ch.box[c] = static_cast<T*>(boxes[c]);
+  }
+  const Chunk cs{pos, k0, k, B, D, S0, S1};
+  const ExtractGrid g = extract_grid<T>(cs);
+  constexpr int W = 16 / sizeof(T);
+  emu_launch(int(g.blocks), 1, kBoxThreads, 0, [&] {
+    if (n == 1 && g.V == W)
+      extract_chunk_kernel<T, W, 1>(ch, cs, g.row_vecs, g.box_rows, g.side,
+                                    g.n_vec);
+    else if (n == 1)
+      extract_chunk_kernel<T, 1, 1>(ch, cs, g.row_vecs, g.box_rows, g.side,
+                                    g.n_vec);
+    else if (g.V == W)
+      extract_chunk_kernel<T, W, kMaxChannels>(ch, cs, g.row_vecs,
+                                               g.box_rows, g.side, g.n_vec);
+    else
+      extract_chunk_kernel<T, 1, kMaxChannels>(ch, cs, g.row_vecs,
+                                               g.box_rows, g.side, g.n_vec);
+  }, reverse != 0);
+}
+
+#define REHEARSE_EXTRACT(NAME, TYPE)                                           \
+  extern "C" void NAME(void* const* frames, void* const* boxes, int n,         \
+                       const int* pos, int k0, int k, int B, int D,            \
+                       long long S0, long long S1, int reverse) {              \
+    run_extract<TYPE>(frames, boxes, n, pos, k0, k, B, D, S0, S1, reverse);    \
+  }
+REHEARSE_EXTRACT(rehearse_extract_f32, float)
+REHEARSE_EXTRACT(rehearse_extract_f64, double)
+
 #define REHEARSE_BOXES(NAME, TYPE)                                             \
-  extern "C" void NAME(int extract, void* const* frames, void* const* boxes,   \
-                       int n, const int* pos, int batch, int B, int D,         \
-                       int shift, int F0, int F1, int F2, const int* cells,    \
+  extern "C" void NAME(void* const* frames, void* const* boxes, int n,         \
+                       const int* pos, int batch, int B, int D, int shift,     \
+                       int F0, int F1, int F2, const int* cells,               \
                        const void* valid, int n_cells, int T_, int reverse) {  \
-    run_boxes<TYPE>(extract, frames, boxes, n, pos, batch, B, D, shift, F0,    \
-                    F1, F2, cells, valid, n_cells, T_, reverse);               \
+    run_boxes<TYPE>(frames, boxes, n, pos, batch, B, D, shift, F0, F1, F2,     \
+                    cells, valid, n_cells, T_, reverse);                       \
   }
 REHEARSE_BOXES(rehearse_boxes_f32, float)
 REHEARSE_BOXES(rehearse_boxes_f64, double)

@@ -104,9 +104,14 @@ def lib(tmp_path_factory):
         f.argtypes = [ctypes.c_int, ctypes.POINTER(_Args)]
         f.restype = ctypes.c_int
     for f in (lib.rehearse_boxes_f32, lib.rehearse_boxes_f64):
-        f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+        f.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                       + [ctypes.c_void_p] + [ctypes.c_int] * 7
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
+        f.restype = None
+    for f in (lib.rehearse_extract_f32, lib.rehearse_extract_f64):
+        f.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                      + [ctypes.c_longlong] * 2 + [ctypes.c_int])
         f.restype = None
     for f in (lib.rehearse_init_f32, lib.rehearse_init_f64):
         f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -346,10 +351,18 @@ def test_box_kernels_on_the_host_match_plain(lib, case, dt, threads):
     pos = _corners(rng, 3, B, shape, Dc, clustered)
     fn = lib.rehearse_boxes_f32 if dt == torch.float32 else \
         lib.rehearse_boxes_f64
+    ex = lib.rehearse_extract_f32 if dt == torch.float32 else \
+        lib.rehearse_extract_f64
     ptrs = ctypes.c_void_p * 4
 
     def call(extract, frames, boxes, k, d, sh, reverse=0):
-        fn(extract, ptrs(*[f.data_ptr() for f in frames]),
+        if extract:                 # a chunk of one batch
+            ex(ptrs(*[f.data_ptr() for f in frames]),
+               ptrs(*[b.data_ptr() for b in boxes]), len(frames),
+               pos.data_ptr(), k, 1, B, d, shape[1] * shape[2], shape[2],
+               reverse)
+            return
+        fn(ptrs(*[f.data_ptr() for f in frames]),
            ptrs(*[b.data_ptr() for b in boxes]), len(frames),
            pos.data_ptr(), k, B, d, sh, *shape, None, None, 0, threads,
            reverse)
@@ -405,12 +418,58 @@ def test_accumulate_on_the_host_with_more_boxes_than_staged(lib, dt):
         lib.rehearse_boxes_f64
     for reverse in (0, 1):
         got = frame.clone()
-        fn(0, (ctypes.c_void_p * 4)(got.data_ptr()),
+        fn((ctypes.c_void_p * 4)(got.data_ptr()),
            (ctypes.c_void_p * 4)(box.data_ptr()), 1, pos.data_ptr(), 0, B, D,
            0, *shape, None, None, 0, 32, reverse)
         assert torch.equal(got, want), reverse
     p = pos[0].long()
     assert bool((p.amax(0) - p.amin(0) < D).all())      # a cell in all boxes
+
+
+# The chunked extract (csrc/trace_loop.cu): a case is the frame's extents,
+# the padding of its rows (a pitched view: the frame a slice of a wider
+# tensor), the box side D, B, the batches nb and the chunk k. D = 8: rows of
+# 16 bytes in both types (vectors of 16 bytes); D = 7 and 5: neither (a
+# vector of one cell); nb = 5, k = 2 ends on a short chunk.
+CHUNK_CASES = {
+    "wide": ((20, 21, 22), 0, 8, 3, 5, 2),
+    "pitched": ((13, 30, 22), 5, 7, 4, 3, 3),
+    "narrow": ((11, 12, 13), 0, 5, 6, 4, 4),
+    "planes": ((17, 16, 15), 3, 12, 2, 5, 2),
+}
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_extract_chunk_on_the_host_matches_plain(lib, case, dt):
+    """The extract, a chunk of k batches a launch, bit for bit against
+    extract_chunk_ref (each batch's extract_boxes_ref) with one channel and
+    with three: every chunk of the trace, the short last one too, with the
+    blocks in either order, on a frame that is a view with padded rows."""
+    from pyc2ray_torch.ops.trace_loop import extract_chunk_ref
+    shape, pad, D, B, nb, k = CHUNK_CASES[case]
+    rng = np.random.RandomState(sum(shape) + D)
+    pos = torch.from_numpy(rng.randint(0, np.array(shape) - D + 1,
+                                       size=(nb, B, 3)).astype(np.int32))
+    fn = lib.rehearse_extract_f32 if dt == torch.float32 else \
+        lib.rehearse_extract_f64
+    ptrs = ctypes.c_void_p * 4
+    wide = [torch.from_numpy(rng.standard_normal(
+        shape[:2] + (shape[2] + pad,))).to(dt) for _ in range(3)]
+    frames = [w[:, :, :shape[2]] for w in wide]
+    S0, S1 = frames[0].stride(0), frames[0].stride(1)
+    for n in (1, 3):
+        for reverse in (0, 1):
+            for k0 in range(0, nb, k):
+                kk = min(k, nb - k0)
+                got = [torch.full((kk, B, D, D, D), float("nan"), dtype=dt)
+                       for _ in range(n)]
+                fn(ptrs(*[f.data_ptr() for f in frames[:n]]),
+                   ptrs(*[g.data_ptr() for g in got]), n, pos.data_ptr(),
+                   k0, kk, B, D, S0, S1, reverse)
+                for f, g in zip(frames, got):
+                    want = extract_chunk_ref(f, pos, k0, kk, D)
+                    assert torch.equal(g, want), (n, reverse, k0)
 
 
 # (N, R, B, clustered): the engine's rates subbox (Ds = 13 of Dc = 16 at
@@ -455,7 +514,7 @@ def test_rated_accumulate_on_the_host_matches_plain(lib, N, R, B, clustered,
             for f, bx in zip(want, boxes):
                 add_boxes(f, bx, pos[k], rb0)
             for r in (0, 1):
-                fn(0, ptrs(*[f.data_ptr() for f in got[r]]),
+                fn(ptrs(*[f.data_ptr() for f in got[r]]),
                    ptrs(*[bx.data_ptr() for bx in boxes]), n,
                    pos.data_ptr(), k, B, Ds, rb0, *shape, cells.data_ptr(),
                    valid.data_ptr(), cells.numel(), 16, r)
@@ -781,3 +840,4 @@ def test_chemistry_pass_he_on_the_host_matches_plain(lib, option, dt):
         h, hc, hi = _host_pass(lib, t, p.chem)
         assert torch.equal(h[0], out[0]) and torch.equal(h[1], out[1])
         assert hc == count and torch.equal(hi, its)
+

@@ -26,9 +26,12 @@ from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins
 
 from pyc2ray_torch.ops import sweep
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+from pyc2ray_torch.ops import trace_loop
 from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
-                                          cheb_trace_sweep, extract_boxes,
-                                          extract_boxes_ref, stage_positions)
+                                          cheb_trace_sweep, chunk_size,
+                                          extract_boxes, extract_boxes_ref,
+                                          extract_chunk, extract_chunk_ref,
+                                          stage_positions)
 
 SIG = 6.30e-18
 DR = 6.7e20
@@ -170,6 +173,63 @@ def test_stage_positions_checks_the_frame():
         stage_positions(-pos, (9, 10, 11), 6, "cpu")
     with pytest.raises(ValueError, match="expected"):
         stage_positions(pos[0], (9, 10, 11), 6, "cpu")
+
+
+# (frame extents, padding of its rows, D, B, nb, k): a cubic frame, a
+# non-cubic one (a domain's halo-extended block), both as views of a tensor
+# with wider rows (a pitched frame); nb = 5 in chunks of 2 ends on a short
+# chunk
+CHUNKS = {"cubic": ((14, 14, 14), 0, 6, 3, 5, 2),
+          "domain": ((11, 17, 13), 0, 5, 4, 4, 3),
+          "pitched": ((12, 15, 13), 3, 6, 2, 5, 2),
+          "pitched_domain": ((9, 16, 11), 5, 4, 5, 3, 3)}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKS))
+def test_extract_chunk_plain_matches_batches_and_jax(case):
+    """The chunked extract's plain form: every chunk of k batches, the
+    short last one too, equals the stack of extract_boxes_ref of its
+    batches and the JAX engine's _extract_boxes (lax.dynamic_slice per
+    box) of each batch, one channel or two, on a frame that may be a view
+    with padded rows; the CPU wrapper runs it and counts no launch."""
+    shape, pad, D, B, nb, k = CHUNKS[case]
+    rng = np.random.RandomState(sum(shape) + pad)
+    wide = rng.standard_normal(shape[:2] + (shape[2] + pad,))
+    frame = torch.from_numpy(wide)[:, :, :shape[2]]
+    assert pad == 0 or not frame.is_contiguous()
+    other = torch.from_numpy(rng.standard_normal(shape))
+    pos = stage_positions(rng.randint(0, np.array(shape) - D + 1,
+                                      (nb, B, 3)), shape, D, "cpu")
+    jr = JRaytracer.__new__(JRaytracer)
+    jr.geom = type("G", (), {"Dc": D})()
+    sweep.reset_launches()
+    for k0 in range(0, nb, k):
+        kk = min(k, nb - k0)
+        got = extract_chunk_ref(frame, pos, k0, kk, D)
+        assert got.shape == (kk, B, D, D, D)
+        both = extract_chunk([frame, other], pos, k0, kk, D)
+        assert torch.equal(both[0], got)
+        for s_ in range(kk):
+            b = k0 + s_
+            assert torch.equal(got[s_], extract_boxes_ref(frame, pos[b], D))
+            assert torch.equal(both[1][s_],
+                               extract_boxes_ref(other, pos[b], D))
+            jx = jr._extract_boxes(jnp.asarray(frame.contiguous().numpy()),
+                                   jnp.asarray(pos[b].numpy()))
+            np.testing.assert_array_equal(np.asarray(jx), got[s_].numpy())
+    assert sum(sweep.launches.values()) == 0
+
+
+def test_chunk_size_fills_its_budget():
+    """chunk_size: as many batches as CHUNK_BYTES hold, at least 1, at most
+    MAX_CHUNK and the trace's batches."""
+    per = 16 * 24 ** 3 * 4                   # the EoR run's batch, float32
+    assert chunk_size(1250, 16, 24, 4) == min(
+        trace_loop.MAX_CHUNK, trace_loop.CHUNK_BYTES // per)
+    assert chunk_size(1250, 8, 64, 4) == trace_loop.CHUNK_BYTES // (
+        8 * 64 ** 3 * 4)                     # the bench's
+    assert chunk_size(3, 16, 24, 4) == 3
+    assert chunk_size(100, 8, 208, 8) == 1
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():
@@ -315,8 +375,9 @@ def test_trace_sweep_matches_plain_on_cuda(frame):
                           "heat_fuse_fold": "cheb_sweep_rates_heat"}.get(
                               mode, "cheb_sweep")
             expect = {k: 0 for k in counts}
-            expect.update(cheb_trace_sweep=1, extract_boxes=nb,
-                          accumulate_boxes=nb)
+            expect.update(cheb_trace_sweep=1, accumulate_boxes=nb,
+                          extract_boxes=-(-nb // chunk_size(
+                              nb, B, Dc, dt.itemsize)))
             expect[sweep_name] = nb * (tr.seg_K if tr.seg_S else 1)
             if "fuse" not in mode:
                 expect["rates_dense"] = nb
@@ -327,3 +388,68 @@ def test_trace_sweep_matches_plain_on_cuda(frame):
                 if b is not None:
                     assert float(b.max()) > 0 and torch.equal(a, b), (mode,
                                                                       dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["bench", "eor"])
+def test_extract_chunk_matches_plain_on_cuda(shape):
+    """extract_chunk on the card at the bench shape (B = 8, Dc = 64) and the
+    EoR run's (B = 16, Dc = 24), float32 and float64: every chunk of 5
+    batches in chunks of 2 (the last one short) and one chunk of all five,
+    one channel and three, bit for bit against extract_chunk_ref, one launch
+    each; and on a frame that is a view with padded rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    N, B, D = {"bench": (256, 8, 64), "eor": (250, 16, 24)}[shape]
+    side = N + D - 1
+    rng = np.random.RandomState(60)
+    pos = stage_positions(rng.randint(0, side - D + 1, (5, B, 3)),
+                          (side,) * 3, D, "cuda")
+    for dt in (torch.float32, torch.float64):
+        frames = [torch.from_numpy(rng.standard_normal((side,) * 3)).to(
+            "cuda", dt) for _ in range(3)]
+        for k0, k in ((0, 2), (2, 2), (4, 1), (0, 5)):
+            for n in (1, 3):
+                sweep.reset_launches()
+                got = extract_chunk(frames[:n], pos, k0, k, D)
+                torch.cuda.synchronize()
+                assert sweep.launches["extract_boxes"] == 1
+                for g, f in zip(got, frames):
+                    assert torch.equal(g, extract_chunk_ref(f, pos, k0, k, D))
+        wide = torch.from_numpy(rng.standard_normal(
+            (side, side, side + 3))).to("cuda", dt)
+        view = wide[:, :, :side]
+        got = extract_chunk(view, pos, 1, 3, D)
+        assert torch.equal(got, extract_chunk_ref(view, pos, 1, 3, D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_trace_loop_chunks_match_plain_on_cuda(chunk, monkeypatch):
+    """The C++ loop with its extract in chunks of 1, 2 and 4 batches (7
+    batches: the last chunk short where 7 is no multiple), in every sweep
+    mode, bit for bit against trace_extended_plain, ceil(7 / chunk)
+    extract launches a trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    N, R, B = 16, 5.0, 3
+    ndens, xh, src, flux = _clustered(N, 20, seed=61)
+    monkeypatch.setattr(trace_loop, "chunk_size",
+                        lambda nb, *_: min(chunk, nb))
+    for mode in sorted(MODES):
+        tr = ChebRaytracer(N, R, SIG, _bb_bins(), batch_size=B,
+                           dtype=torch.float32, **MODES[mode])
+        pad = tr.wrap_pad(torch.from_numpy(ndens * (1.0 - xh)).to(
+            "cuda", torch.float32))
+        pos_b, flux_b = tr.prepare_sources(src, flux)
+        nb = pos_b.shape[0]
+        assert nb == 7
+        sweep.reset_launches()
+        got = tr.trace_extended(pad, pos_b, flux_b, DR)
+        n_ex = sweep.launches["extract_boxes"]
+        want = tr.trace_extended_plain(pad, pos_b, flux_b, DR)
+        torch.cuda.synchronize()
+        assert n_ex == -(-nb // chunk), mode
+        for a, b in zip(got, want):
+            if b is not None:
+                assert torch.equal(a, b), mode
