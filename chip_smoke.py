@@ -135,20 +135,37 @@ Phases (any failure raises and the script exits non-zero):
    machine has none (pyc2ray_torch/io/catalog.py).
 2d. (after 2c) K1 at the helium engine's three threshold cross sections
    (sigma_HI, sigma_HeI, sigma_HeII of make_spectral_bins_he) at the bench
-   shape in float32, bit for bit against its plain version, with its time.
+   shape in float32, bit for bit against its plain version, with its time;
+   then the helium engine's three-species rate pass (rates_he,
+   ops/cheb_rates.py) on the three species' K1 boxes against its plain
+   version, with and without the heat channel, bit for bit (max_abs_err
+   0): on one bench batch (B = 8, Dc = Ds = 64, 72 bins, float32) with
+   kernel, plain and matmul-form ms (the pass the engine ran before its
+   kernel, ``rates_he_matmul``), the bound of its bytes and operations
+   (``he_work``) and the rate floor of 2c's dense pass; in float64 at a
+   small shape with zero-density cells.
 3d. (after 3c) The table-exact flat engine (ops/raytrace.py) at the bench
    configuration in float64 with the model layer's black-body tables: ns per
    cell-update, device launches per batch and the device idle share of a
    profiled window, and the trace of the first 16 sources against the CPU.
 3e. The helium engine (HeRaytracer, 72 default bins) at the bench fields in
-   float32: ns per cell-update, its launches (K1 three per batch, one
-   extract of the three species and one accumulate of the three channels
-   per batch, asserted), one global_pass_he, the per-batch device ms of the
-   extract, the three sweeps, the rate pass and the accumulate, beside the
-   plain gathers and slice adds (16 batches, the frames bit-equal to the
-   plain loop's and to trace_extended's); Gamma_HI of a helium-free field
-   against the hydrogen engine at the same bins. The helium kernel on this
-   trace's rates (256^3 float32), see "chemistry" below.
+   float32: the trace is one call of the C++ loop (he_trace_sweep); its
+   launches (one loop, K1 three per batch, rates_he and the accumulate of
+   the three channels one per batch, the extract of the three species once
+   per chunk of batches; asserted), one global_pass_he; the loop against
+   trace_extended_plain (the batch loop in Python with the plain rate
+   pass, timed once) on the trace's frames: bit-equal, ns per cell-update
+   after and before, ms per trace by CUDA events, the bound of the whole
+   loop (the kernels line's numbers), and one profiled trace of the loop
+   with each kernel's median device us, the gap before it and the idle share
+   (``loop_kernel_gaps``); the per-batch device ms of the extract, the
+   three sweeps, rates_he and the accumulate, beside the plain gathers,
+   rate pass, matmul form and slice adds (16 batches, the frames bit-equal
+   to the plain loop's and to trace_extended's); the loop with the heat
+   channel against the plain loop (16 batches, bit-equal); Gamma_HI of a
+   helium-free field against the hydrogen engine at the same bins. The
+   helium kernel on this trace's rates (256^3 float32), see "chemistry"
+   below.
 3f. The octahedral sheet engine (BoxRaytracer, engine: box, plain PyTorch)
    at the bench configuration in float32 with the compressed bins: ns per
    cell-update (Ns cut only where 2048 sources would outrun
@@ -179,10 +196,13 @@ Phases (any failure raises and the script exits non-zero):
    build/torch_kernels/); the eight statistics of run_test.py, each held to
    its tolerance; the wall time of the port's part and of the oracle's.
 4g. One evolve3D_he timestep at N=64 with 16 sources in float64 with
-   secondary ionizations and recombination photons, GPU against CPU; then
+   secondary ionizations and recombination photons, GPU against CPU, and
+   that engine's loop (with the heat channel) against its plain loop on the
+   timestep's end state, bit for bit; then
    C2Ray_Test with engine he, the heating rates and isothermal false for two
    timesteps at N=128 on the card: iterations, K1 launches (three per
-   iteration, asserted) and the photon loss of each timestep; the model
+   iteration, one he_trace_sweep per iteration and three K1 per rates_he,
+   asserted) and the photon loss of each timestep; the model
    runs first with the plain chemistry pass: s per pass, per raytrace
    iteration and per timestep before and after, iterations, photon loss
    and state bit-equal, one chemistry_pass_he launch per iteration
@@ -205,7 +225,8 @@ Phases (any failure raises and the script exits non-zero):
    halo bytes (5c) and the device idle share of one trace of the rank's
    share; 5d phase 4g's helium model for its first timestep under a source
    and a domain mesh of 2, xh and T held to 1e-10 and the helium fractions
-   to 1e-9 of 4g's. A rank's exception fails the phase.
+   to 1e-9 of 4g's, every rank's traces through he_trace_sweep (three K1
+   per rates_he, asserted). A rank's exception fails the phase.
 Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    kernel against its plain version on the card, bit for bit (every output
    and the count; max_abs_err 0, asserted): the hydrogen kernel on phase 3's
@@ -231,13 +252,15 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    (raytracing with both engines); the harness's two rows alone, the
    others four at a time. Per driver: its exit code, wall time,
    kernel launches (counted in its process and printed at its exit; the
-   kernels its path reaches must each launch) and its check lines. A
-   driver fails the phase when it exits non-zero or prints FAILED.
+   kernels its path reaches must each launch; the helium rows three sweeps
+   per rates_he) and its check lines. A driver fails the phase when it
+   exits non-zero or prints FAILED.
 6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
    then the trace loop's extract_boxes and accumulate_boxes on 4e's EoR
    trace (the accumulate with its rated form at the bench beside, 3g), the dense rate pass rates_dense and init_segments (2e), the loop
    cheb_trace_sweep (phase 3's default bench trace, and 4e's fuse_fold EoR
-   trace beside it), and the chemistry_pass
+   trace beside it), the helium engine's rates_he (2d, launches 3e) and its
+   loop he_trace_sweep (3e), and the chemistry_pass
    kernel on the EoR run's state, chemistry_pass_he on 4g's), then the
    result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -283,6 +306,16 @@ DENSE_OPS_PER_LISTED = 4         # the dense rate pass per listed cell of
                                  # a box: path3*dr, nHI*, cd-dcol, the
                                  # cdin test; per rated cell beside the
                                  # bins RATE_OPS_PER_CELL
+HE_OPS_PER_BIN = 20              # the helium rate pass per bin and rated
+                                 # cell: tau and dtau (3 muls, 2 adds
+                                 # each), exp, expm1, core*, max, div, 3
+                                 # species sums (mul, add each)
+HE_HEAT_OPS_PER_BIN = 6          # and the heat's 3 sums
+HE_OPS_PER_CELL = 11             # per rated cell: the prefactor (2 muls),
+                                 # per species dcol*acc, pref*, div
+HE_HEAT_OPS_PER_CELL = 7         # the heat: 3 muls, 2 adds, mul, div
+HE_OPS_PER_LISTED = 8            # per listed cell of a box: path3*dr, 3
+                                 # dcol, 3 cdin, the cdin test
 N_R100, R_R100, NS_R100 = 250, 100.0, 100   # raytracing harness, R=100 row
 N_EVOLVE, R_EVOLVE, NS_EVOLVE = 64, 8.0, 16  # the evolve3D steps of 4, 4b
 N_HEATING, STEPS_HEATING = 48, 6             # examples/heating_test defaults
@@ -1480,6 +1513,7 @@ LOOP_KERNELS = (("extract_", "extract_boxes"),
                 ("cheb_sweep_kernel", "K1"), ("cheb_sweep_seg", "K2"),
                 ("cheb_sweep_gamma", "K1f"), ("sweep_fold", "K3 phase A"),
                 ("box_rates", "K3 phase B"), ("rates_dense", "rates_dense"),
+                ("rates_he", "rates_he"),
                 ("accumulate_boxes", "accumulate_boxes"))
 
 
@@ -1487,8 +1521,9 @@ def loop_kernel_gaps(label, rt, pad, pos_b, flux_b):
     """One trace of the C++ loop under torch.profiler: per kernel of the
     loop (LOOP_KERNELS) its median device time, the median idle gap on the
     device before it (from the previous kernel's end) and its share of the
-    device time, in us; the loop's device ms per batch. Returns {kernel:
-    (median us, median gap us, count)}."""
+    device time, in us; the loop's device ms per batch and the device's
+    idle share between the first kernel's start and the last's end.
+    Returns {kernel: (median us, median gap us, count)}."""
     from pyc2ray_torch.diagnostics import _trace_events, profile_trace
     with tempfile.TemporaryDirectory() as tmp:
         with profile_trace(tmp) as p:
@@ -1514,7 +1549,8 @@ def loop_kernel_gaps(label, rt, pad, pos_b, flux_b):
         for k, (d, g, n) in out.items())
         + f"; {1e-3 * span / nb:.4f} ms per batch from the first kernel's "
         f"start to the last's end, {1e-3 * busy / nb:.4f} ms of it in "
-        f"kernels; {len(ev) / nb:.3f} device launches per batch; the "
+        f"kernels (idle share {1.0 - busy / span:.4f}); "
+        f"{len(ev) / nb:.3f} device launches per batch; the "
         f"extract {ex[2]} launches ({ex[2] / nb:.4f} per batch), "
         f"{ex[0] * ex[2] / nb:.3f} us per batch")
     return out
@@ -2496,6 +2532,265 @@ def check_sweep_he(bins_he, reps):
     return out
 
 
+def he_work(rt, cds, nboxes, heat):
+    """(bytes, operations, rated cells) of one helium rate pass
+    (``rates_he``) of engine ``rt`` on the three species' boxes ``cds`` and
+    ``nboxes``, as this data needs them: the host engine's list of rated
+    cells (int32), path3 and geominv at the listed cells and the six boxes
+    at the listed cells of every box, the fluxes and the 2 (3 with heat)
+    bin tables of (3, E) each read once, the 3 (4) rates written at the
+    listed cells; HE_OPS_PER_LISTED per listed cell of a box, and the bins'
+    and HE_OPS_PER_CELL per rated cell of this data (listed, cdin_HI <=
+    MAX_COLDENSH)."""
+    from pyc2ray_torch.constants import MAX_COLDENSH
+    eng = rt.eng
+    tb, r, Ds = eng.tables, eng._rb0, eng.Ds
+    sub = (slice(None),) + (slice(r, r + Ds),) * 3
+    cdin = cds[0][sub] - nboxes[0][sub] * (tb.rt_sub[0] * DR)
+    rated = int(((tb.rt_sub[2] > 0.5) & (cdin <= MAX_COLDENSH)).sum())
+    n_valid = eng.rated_cells.numel()
+    B, E = cds[0].shape[0], rt.he_tables.se.shape[1]
+    isz = torch.finfo(cds[0].dtype).bits // 8
+    nbytes = (4 * n_valid + isz * (2 * n_valid + (9 + heat) * B * n_valid
+                                   + B + (2 + heat) * 3 * E))
+    per_bin = HE_OPS_PER_BIN + heat * HE_HEAT_OPS_PER_BIN
+    ops = (rated * (per_bin * E + HE_OPS_PER_CELL
+                    + heat * HE_HEAT_OPS_PER_CELL)
+           + HE_OPS_PER_LISTED * B * n_valid)
+    return nbytes, ops, rated
+
+
+def rates_he_matmul(rt, cds, nboxes, flux, dr):
+    """The helium rate pass in the matmul form the engine ran before its
+    kernel (PR 7-15; the JAX engine's einsums as torch.matmul): over every
+    cell of the subbox, two (cells, 3) x (3, E) products, an exp/expm1
+    block over (cells, E) and the per-species sums as (cells, E) x (E, 3)
+    products. Timed beside the kernel; used nowhere in the port."""
+    from pyc2ray_torch.constants import MAX_COLDENSH
+    from pyc2ray_torch.ops.sweep import s_over_dr3
+    eng, heb, dt = rt.eng, rt.he_tables, rt.dtype
+    sub = (slice(None),) + (slice(eng._rb0, eng._rb1),) * 3
+    cds = [c[sub] for c in cds]
+    nboxes = [n[sub] for n in nboxes]
+    rt_sub = eng.tables.rt_sub
+    dr = torch.tensor(float(dr), dtype=dt)
+    path = rt_sub[0][None] * dr
+    dcol = [nboxes[s] * path for s in range(3)]
+    cdin = [cds[s] - dcol[s] for s in range(3)]
+    prefact = flux[:, None, None, None] * s_over_dr3(dr, dt) * rt_sub[1][None]
+    tiny = 1e-30 if dt == torch.float32 else 1e-280
+    A = torch.stack([c.reshape(-1) for c in cdin], 1)
+    Dm = torch.stack([d.reshape(-1) for d in dcol], 1)
+    tau_in = A @ heb.se
+    dtau_e = Dm @ heb.se
+    core = torch.exp(-tau_in) * (-torch.expm1(-dtau_e))
+    inv = core / torch.clamp(dtau_e, min=tiny)
+    del tau_in, dtau_e, core
+    wv = inv @ heb.w_se.T
+    sh4 = cds[0].shape
+    acc = [(Dm[:, s] * wv[:, s]).reshape(sh4) for s in range(3)]
+    if rt.do_heating:
+        acc.append((Dm * (inv @ heb.wh_se.T)).sum(dim=1).reshape(sh4))
+    mask = (rt_sub[2] > 0.5)[None] & (cdin[0] <= MAX_COLDENSH)
+    zero = torch.zeros_like(acc[0])
+    dens = nboxes + nboxes[:1]
+    return [torch.where(mask & (n > 0),
+                        prefact * a / torch.clamp(n, min=tiny), zero)
+            for a, n in zip(acc, dens)]
+
+
+def he_boxes(rt, B, dtype, seed):
+    """The three species' (B, Dc, Dc, Dc) absorber boxes on the card (n_HI
+    1e-4..1e-2, n_HeI and n_HeII a decade and two below; n_HeII 0 in one
+    cell of source 0, n_HeI in one of the last source), their coldensh_out
+    boxes by the engine's sweep (K1) at each species' sigma_th, and fluxes
+    0.5..2."""
+    g = rt.geom
+    rng = np.random.RandomState(seed)
+    nb = [torch.from_numpy(10 ** rng.uniform(lo, lo + 2, (B,) + (g.Dc,) * 3)
+                           ).to("cuda", dtype) for lo in (-4, -5, -6)]
+    nb[2][0, g.c + 1, g.c, g.c] = 0.0
+    nb[1][-1, g.c, g.c + 1, g.c] = 0.0
+    cds = [rt.eng.sweep_box(n, DR, sig) for n, sig in zip(nb, rt.sigma_th)]
+    flux = torch.linspace(0.5, 2.0, B, dtype=dtype, device="cuda")
+    return cds, nb, flux
+
+
+def check_rates_he(bins_he, ns_bin, reps=10):
+    """Phase 2d: the helium rate pass (rates_he, ops/cheb_rates.py) against
+    its plain version on the card, on the three species' K1 boxes, with and
+    without the heat channel, bit for bit (max_abs_err 0): at the bench
+    shape (one batch, B = 8, Dc = Ds = 64, 72 bins, float32) with kernel
+    ms on the device (with its zeroed outputs) and back to back, plain ms,
+    the matmul form's ms (``rates_he_matmul``, beside it within rtol 1e-3
+    above 1e-6 of the peak), the bound of ``he_work`` and the rate floor
+    (rated cells x bins x ``ns_bin``, phase 2c's dense pass); and in
+    float64 at a small shape that rates a subbox, with zero-density
+    cells. Returns {"photo", "heat"}: the bench shape's numbers per
+    call."""
+    from pyc2ray_torch.ops.cheb_rates import rates_he, rates_he_ref
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    from pyc2ray_torch.ops.sweep import rate_consts
+    out = {}
+    for N, R, B, dt in ((N_BENCH, R_BENCH, B_BENCH, torch.float32),
+                        (16, 6.0, 2, torch.float64)):
+        bench = dt == torch.float32
+        for heat in (False, True):
+            rt = HeRaytracer(N, R, bins_he, ABU_HE, batch_size=B, dtype=dt,
+                             do_heating=heat)
+            eng, heb = rt.eng, rt.he_tables
+            cds, nb, flux = he_boxes(rt, B, dt, seed=13)
+            args = (eng.tables.rt_sub, flux, heb.se, heb.w_se, DR,
+                    rate_consts(DR, dt)[1], eng._rb0)
+            wh = heb.wh_se if heat else None
+
+            def kern():
+                return rates_he(cds, nb, *args, wh_se=wh,
+                                cells=eng.rated_cells)
+
+            def plain():
+                return rates_he_ref(cds, nb, *args, wh_se=wh,
+                                    cells=eng.rated_cells)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+            if (err != 0.0 or len(got) != 3 + heat
+                    or not all(float(w.max()) > 0.0 for w in want)
+                    or not all(bool(torch.isfinite(a).all()) for a in got)):
+                raise RuntimeError(f"rates_he N={N} heat={heat}: "
+                                   f"max_abs_err {err} against the plain "
+                                   f"version")
+            name = (f"rates_he{' heat' if heat else ''} N={N} R={R:g} B={B} "
+                    f"Dc={rt.geom.Dc} Ds={eng.Ds} E={bins_he.num_bins} "
+                    f"{str(dt).split('.')[-1]}")
+            c = rt.geom.c - eng._rb0
+            if not bench:
+                if float(got[2][0, c + 1, c, c]) != 0.0:
+                    raise RuntimeError(f"{name}: G_HeII at the cell without "
+                                       f"HeII is not 0")
+                log(f"  {name} (zero-density cells): max_abs_err={err:.1e} "
+                    f"(bit-equal)")
+                continue
+            mm = rates_he_matmul(rt, cds, nb, flux, DR)
+            torch.cuda.synchronize()
+            rel = max(max_rel(a, m, 1e-6) for a, m in zip(got, mm))
+            if not rel < 1e-3:
+                raise RuntimeError(f"{name}: the matmul form differs by "
+                                   f"{rel:.3e}")
+            del got, want, mm
+            nbytes, ops, rated = he_work(rt, cds, nb, heat)
+            ms = device_ms(lambda _: kern(), reps)
+            b2b = cuda_ms(kern, reps)
+            plain_ms = cuda_ms(plain, 1)
+            mm_ms = cuda_ms(lambda: rates_he_matmul(rt, cds, nb, flux, DR),
+                            2)
+            b_ms, b_by = least_ms(nbytes, ops, dt)
+            floor = 1e-6 * rated * bins_he.num_bins * ns_bin
+            log(f"  {name}: max_abs_err={err:.1e} (bit-equal) kernel_ms="
+                f"{ms:.4f} on the device with its zeroed outputs ({b2b:.4f} "
+                f"back to back) plain_ms={plain_ms:.4f} matmul_form_ms="
+                f"{mm_ms:.4f} (max rel {rel:.3e} above 1e-6 of the peak) "
+                f"bound_ms={b_ms:.5f} ({b_by}; {nbytes / 1e6:.2f} MB, "
+                f"{ops / 1e9:.3f} Gop) rate_floor_ms={floor:.5f} per call, "
+                f"{rated} rated cells of {B} x {eng.rated_cells.numel()} "
+                f"listed")
+            out["heat" if heat else "photo"] = dict(
+                max_abs_err=err, ms=ms, ms_back_to_back=b2b,
+                plain_ms=plain_ms, matmul_form_ms=mm_ms, bound_ms=b_ms,
+                bound_by=b_by, rate_floor_ms=floor, rated_cells=rated)
+    return out
+
+
+def he_trace_launches(rt, nb, traces=1):
+    """The kernel launches of ``traces`` helium traces of ``nb`` batches in
+    all (one ``he_trace_sweep`` call each): three sweeps a batch (K1, or
+    the segmented sweep's start and K2 x seg_K), one rate pass and one
+    accumulate a batch, one extract of the three species' boxes per chunk
+    of ``chunk_size(..., channels=3)`` batches."""
+    from pyc2ray_torch.ops import trace_loop
+    eng = rt.eng
+    k = trace_loop.chunk_size(nb, rt.batch_size, eng.geom.Dc,
+                              rt.dtype.itemsize, channels=3)
+    out = {"he_trace_sweep": int(traces), "rates_he": nb,
+           "accumulate_boxes": nb, "extract_boxes": -(-nb // k)}
+    if eng.seg_S:
+        out.update(cheb_sweep_seg=3 * nb * eng.seg_K, init_segments=3 * nb)
+    else:
+        out["cheb_sweep"] = 3 * nb
+    return out
+
+
+def he_loop_against_plain(label, rt, pads, pos_b, flux_b, reps=3):
+    """The helium engine's ``trace_extended`` (one he_trace_sweep call)
+    against its ``trace_extended_plain`` on the frames ``pads``: bit for
+    bit, every channel, with the loop's launch counts
+    (``he_trace_launches``) and the ms per trace of both (CUDA events: the
+    loop ``reps`` traces after a warm-up, the plain loop the one trace held
+    against, after the loop's). Returns max_abs_err, ms and plain_ms."""
+    from pyc2ray_torch.ops import sweep
+    nb = pos_b.shape[0]
+    sweep.reset_launches()
+    got = rt.trace_extended(pads, pos_b, flux_b, DR)
+    counts = dict(sweep.launches)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = rt.trace_extended_plain(pads, pos_b, flux_b, DR)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    expect = {k: 0 for k in counts}
+    expect.update(he_trace_launches(rt, nb))
+    if counts != expect:
+        raise RuntimeError(f"{label}: loop launches {counts}, expected "
+                           f"{expect}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if (err != 0.0 or len(got) != 3 + rt.do_heating or len(want) != len(got)
+            or not all(float(w.max()) > 0.0 for w in want)):
+        raise RuntimeError(f"{label}: the loop differs from the plain "
+                           f"loop: max_abs_err {err}")
+    del got, want
+    ms = cuda_ms(lambda: rt.trace_extended(pads, pos_b, flux_b, DR), reps)
+    log(f"  {label}: trace_extended (the C++ loop) vs trace_extended_plain: "
+        f"max_abs_err={err:.1e} (bit-equal, {3 + rt.do_heating} channels), "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f"; per trace: the loop {ms:.3f} ms, the plain loop "
+        f"{plain_ms:.3f} ms ({ms / nb:.4f} / {plain_ms / nb:.4f} ms per "
+        f"batch)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def he_loop_work(rt, pads, pos_b):
+    """(bytes, operations) of one helium trace (one he_trace_sweep call)
+    over the batches ``pos_b`` in the frames ``pads``, as a function of the
+    whole loop: the cells of the three frames that the boxes cover read
+    once; the sweep's tables, the list of rated cells, path3 and geominv at
+    them, the fluxes and the bin tables once; the rate frames written once.
+    The boxes that pass between the loop's kernels are none of its bytes.
+    Operations per batch: three sweeps' (``sweep_work``), the rate pass's
+    of this data (``he_work`` on the first batch's boxes) and the
+    accumulate's adds at the listed cells."""
+    from pyc2ray_torch.ops.trace_loop import extract_boxes, stage_positions
+    eng = rt.eng
+    g, dt, heat = eng.geom, rt.dtype, rt.do_heating
+    isz = torch.finfo(dt).bits // 8
+    nb, B = pos_b.shape[:2]
+    pos = stage_positions(pos_b, pads[0].shape, g.Dc, "cuda")
+    covered = torch.zeros(pads[0].numel(), dtype=torch.bool, device="cuda")
+    for k in range(nb):
+        covered[box_flat_index(pos[k], pads[0].shape, g.Dc).view(-1)] = True
+    sb, sops = sweep_work(B, g.Dc, g.r_max + 1, dt)
+    boxes = extract_boxes(pads, pos, 0, g.Dc)
+    cds = [eng.sweep_box(b, DR, sig) for b, sig in zip(boxes, rt.sigma_th)]
+    _, rops, _ = he_work(rt, cds, boxes, heat)
+    n_valid = eng.rated_cells.numel()
+    E = rt.he_tables.se.shape[1]
+    tables = (sb - 2 * B * g.Dc ** 3 * isz + 4 * n_valid
+              + isz * (2 * n_valid + (2 + heat) * 3 * E))
+    nbytes = tables + isz * (3 * int(covered.sum())
+                             + (3 + heat) * pads[0].numel() + nb * B)
+    return nbytes, nb * (3 * sops + rops + (3 + heat) * B * n_valid)
+
+
 def launches_in(prof):
     """Device kernels in the profile_trace captures of ``prof``."""
     from pyc2ray_torch.diagnostics import _trace_events
@@ -2838,11 +3133,20 @@ def heating_example(engine):
 
 def helium_bench(bins_he, src_pos, chem):
     """Phase 3e: the helium engine at the bench fields in float32 with the
-    72 default bins, one trace (K1 three times per batch, counted) and one
-    global_pass_he; per-batch device ms of its stages; Gamma_HI of a
+    72 default bins: one trace as one he_trace_sweep call (launches
+    asserted: K1 three per batch, rates_he and the accumulate one per batch,
+    the extract of the three species once per chunk) and one
+    global_pass_he; the loop against the same trace before the loop in C
+    on the trace's frames (trace_extended_plain, the batch loop in Python
+    with the plain rate pass; CUDA events), bit-equal, with its bound, and
+    its kernels' device us, gaps
+    and idle share from one profiled trace; the per-batch device ms of its
+    stages beside the plain ones and the matmul form of the rate pass; the
+    loop with the heat channel against the plain loop; Gamma_HI of a
     helium-free field against the hydrogen engine at the same bins.
-    Returns the K1 launches of the trace."""
+    Returns the launches of the trace and the loop's numbers per trace."""
     from pyc2ray_torch.ops import chemistry_he, sweep
+    from pyc2ray_torch.ops.cheb_rates import rates_he_ref
     from pyc2ray_torch.ops.chemistry_he import (HeChemistryParams,
                                                 global_pass_he)
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
@@ -2853,6 +3157,7 @@ def helium_bench(bins_he, src_pos, chem):
                      dtype=dt)
     pos_b, flux_b = rt.prepare_sources(src_pos, np.ones(NS_BENCH))
     nbatch = pos_b.shape[0]
+    updates = cell_updates(NS_BENCH, R_BENCH)
 
     def grid(v):
         return torch.full((N,) * 3, v, dtype=dt, device="cuda")
@@ -2867,8 +3172,7 @@ def helium_bench(bins_he, src_pos, chem):
     t_ray = time.time() - t0
     counts = dict(sweep.launches)
     want = {k: 0 for k in counts}
-    want.update(extract_boxes=nbatch, accumulate_boxes=nbatch,
-                cheb_sweep=3 * nbatch)
+    want.update(he_trace_launches(rt, nbatch))
     if counts != want:
         raise RuntimeError(f"helium trace: launches {counts}, expected "
                            f"{want}")
@@ -2877,6 +3181,14 @@ def helium_bench(bins_he, src_pos, chem):
             raise RuntimeError(f"helium trace: {name} not finite and "
                                f"positive")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # before: the batch loop as the engine issued it before the loop in C,
+    # on the trace's frames, bit-equal to the loop
+    eng = rt.eng
+    Dc = eng.geom.Dc
+    pads = [eng.wrap_pad(f) for f in rt.species_fields(nd, xh, y1, y2)]
+    label = f"helium bench N={N} B={B_BENCH} ({nbatch} batches)"
+    k_loop = he_loop_against_plain(label, rt, pads, pos_b, flux_b, reps=1)
+    t_plain = k_loop["plain_ms"] / 1e3
     phe = HeChemistryParams(chem=chem, abu_he=ABU_HE)
     dt_d = torch.tensor(DT, dtype=dt).to("cuda")
     temp = grid(1e4)
@@ -2894,61 +3206,89 @@ def helium_bench(bins_he, src_pos, chem):
     finally:
         chemistry_he.MAX_INNER_ITER = cap
     within8 = all(torch.equal(a, b) for a, b in zip(out, out8))
+    conv = int(out[6])
     chemistry_check("helium bench chemistry (256^3 float32, this trace's "
                     "rates)", True, (dt_d, nd, temp, xh, xh, y1, y1, y2, y2,
                                      *g, phe), {}, reps=3)
+    del out, out8
+    ns_cell, ns_plain = 1e9 * t_ray / updates, 1e9 * t_plain / updates
+    NS_PER_CELL["helium bench"] = ns_cell
     log(f"helium engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32 "
-        f"{bins_he.num_bins} bins: raytrace {t_ray:.4f} s = "
-        f"{1e9 * t_ray / cell_updates(NS_BENCH, R_BENCH):.4f} "
-        f"ns/cell-update, K1 launches {counts['cheb_sweep']} (3 x {nbatch} "
-        f"batches), extract and accumulate {counts['extract_boxes']} each "
-        f"(one per batch for all species and channels), peak device memory "
-        f"{peak_gb:.2f} GiB; global_pass_he "
-        f"{t_chem:.4f} s, conv_flag {int(out[6])}, converged within 8 "
-        f"inner iterations: {within8}")
+        f"{bins_he.num_bins} bins: raytrace {t_ray:.4f} s = {ns_cell:.4f} "
+        f"ns/cell-update (one he_trace_sweep call; before the loop in C, "
+        f"trace_extended_plain on its frames: {t_plain:.4f} s = "
+        f"{ns_plain:.4f}, "
+        f"{t_plain / t_ray:.2f}x; the rate frames bit-equal), launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f" ({nbatch} batches), peak device memory {peak_gb:.2f} GiB; "
+        f"global_pass_he {t_chem:.4f} s, conv_flag {conv}, converged "
+        f"within 8 inner iterations: {within8}")
+
+    # the loop's bound, and its kernels on the device from one profiled
+    # trace
+    nbytes, ops = he_loop_work(rt, pads, pos_b)
+    k_loop["bound_ms"], k_loop["bound_by"] = least_ms(nbytes, ops, dt)
+    log(f"  {label}: the loop's bound {k_loop['bound_ms']:.4f} ms per trace "
+        f"({k_loop['bound_by']}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} "
+        f"Gop), the loop at {k_loop['bound_ms'] / k_loop['ms']:.3f} of it")
+    k_loop["kernels"] = {k: dict(us=v[0], gap_us=v[1], count=v[2])
+                         for k, v in loop_kernel_gaps(
+                             label, rt, pads, pos_b, flux_b).items()}
 
     # per-batch device ms of each stage, CUDA events, first 16 batches:
     # the box kernels (three species in one extract, the three channels in
-    # one accumulate) and, on the same batch, the plain gathers and slice
-    # adds the loop issued before; the frames bit-equal to the plain ones
-    # and to trace_extended's over the same batches
+    # one accumulate over the rated cells, as the loop issues them), the
+    # three sweeps and the rate pass's kernel, and on the same batch the
+    # plain gathers, rate pass, slice adds and the matmul form of the rate
+    # pass; the frames bit-equal to the plain ones and to trace_extended's
+    # over the same batches
     from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
                                               extract_boxes,
                                               extract_boxes_ref,
                                               stage_positions)
-    eng = rt.eng
-    pads = [eng.wrap_pad(f) for f in rt.species_fields(nd, xh, y1, y2)]
+    heb, rt_sub, rb0 = rt.he_tables, eng.tables.rt_sub, eng._rb0
+    sdr3 = sweep.rate_consts(DR, dt)[1]
     acc = [torch.zeros_like(pads[0]) for _ in range(3)]
     acc_plain = [torch.zeros_like(pads[0]) for _ in range(3)]
-    dr_t = torch.tensor(DR, dtype=dt).to("cuda")
     tot = dict.fromkeys(("extract", "K1_HI", "K1_HeI", "K1_HeII",
                          "rates_he", "accumulate", "extract_plain",
+                         "rates_he_plain", "rates_matmul",
                          "accumulate_plain"), 0.0)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(tot) + 1)]
-    nwin = 16
-    pos_d = stage_positions(pos_b[:nwin], pads[0].shape, eng.geom.Dc, "cuda")
+    nwin, mm_rel = min(16, nbatch), 0.0
+    pos_d = stage_positions(pos_b[:nwin], pads[0].shape, Dc, "cuda")
     for k in range(nwin):
         ev[0].record()
-        boxes = extract_boxes(pads, pos_d, k, eng.geom.Dc)
+        boxes = extract_boxes(pads, pos_d, k, Dc)
         ev[1].record()
         cds = []
         for s in range(3):
             cds.append(eng.sweep_box(boxes[s], DR, rt.sigma_th[s]))
             ev[2 + s].record()
-        rates = rt._rates_he(cds, boxes, flux_b[k], dr_t)
+        rates = rt._rates_he(cds, boxes, flux_b[k], DR)
         ev[5].record()
-        accumulate_boxes(acc, rates, pos_d, k, eng.box_shift(rates[0]))
+        accumulate_boxes(acc, rates, pos_d, k, rb0, cells=eng.rated_cells,
+                         valid=rt_sub[2])
         ev[6].record()
-        plain = [extract_boxes_ref(p, pos_b[k].to("cuda"), eng.geom.Dc)
-                 for p in pads]
+        plain = [extract_boxes_ref(p, pos_b[k].to("cuda"), Dc) for p in pads]
         ev[7].record()
-        for pad, box in zip(acc_plain, rates):
-            add_boxes(pad, box, pos_b[k], eng.box_shift(box))
+        ref = rates_he_ref(cds, boxes, rt_sub, flux_b[k], heb.se, heb.w_se,
+                           DR, sdr3, rb0, cells=eng.rated_cells)
         ev[8].record()
+        mm = rates_he_matmul(rt, cds, boxes, flux_b[k], DR)
+        ev[9].record()
+        for pad, box in zip(acc_plain, ref):
+            add_boxes(pad, box, pos_b[k], rb0)
+        ev[10].record()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(boxes, plain)):
             raise RuntimeError("helium: extract_boxes differs from the "
                                "plain gather")
+        if not all(torch.equal(a, b) for a, b in zip(rates, ref)):
+            raise RuntimeError("helium: rates_he differs from the plain "
+                               "rate pass")
+        mm_rel = max([mm_rel] + [max_rel(a, m, 1e-6)
+                                 for a, m in zip(rates, mm)])
         for i, name in enumerate(tot):
             tot[name] += ev[i].elapsed_time(ev[i + 1])
     whole = rt.trace_extended(pads, pos_b[:nwin], flux_b[:nwin], DR)
@@ -2956,10 +3296,23 @@ def helium_bench(bins_he, src_pos, chem):
                for a, b, w in zip(acc, acc_plain, whole)):
         raise RuntimeError("helium: the accumulated rates differ from the "
                            "plain slice adds")
+    if not mm_rel < 1e-3:
+        raise RuntimeError(f"helium: the matmul form differs from rates_he "
+                           f"by {mm_rel:.3e}")
     log("  per-batch device ms: " + ", ".join(
         f"{k} {v / nwin:.4f}" for k, v in tot.items())
         + f"; over {nwin} batches the three rate frames bit-equal to the "
-        f"plain loop's and to trace_extended's")
+        f"plain loop's and to trace_extended's; the matmul form within "
+        f"{mm_rel:.3e} (rel, above 1e-6 of the peak) of rates_he")
+    del acc, acc_plain, whole, boxes, cds, rates, plain, ref, mm
+
+    # the heat channel: the loop against the plain loop, 16 batches
+    rth = HeRaytracer(N, R_BENCH, bins_he, ABU_HE, batch_size=B_BENCH,
+                      dtype=dt, do_heating=True)
+    he_loop_against_plain(f"helium bench do_heating N={N} B={B_BENCH} "
+                          f"({nwin} batches)", rth, pads, pos_b[:nwin],
+                          flux_b[:nwin], reps=1)
+    del rth, pads
 
     # a helium-free field: Gamma_HI equals the hydrogen engine's at the
     # same bins (the HI row of the helium bins)
@@ -2977,7 +3330,8 @@ def helium_bench(bins_he, src_pos, chem):
             "(16 sources)", g0[0].reshape(-1), phi_h, 1e-4, 1e-6)
     if float(g0[1].abs().max()) != 0.0 or float(g0[2].abs().max()) != 0.0:
         raise RuntimeError("helium-free field: helium rates not zero")
-    return counts["cheb_sweep"]
+    return dict(launches=counts, loop=k_loop, ns_per_cell=ns_cell,
+                ns_per_cell_plain=ns_plain)
 
 
 def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
@@ -2998,11 +3352,11 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
                             recombination_photons=True)
     grid0 = (np.full((Ne,) * 3, 1e4), e_nd, np.full((Ne,) * 3, 1.2e-3),
              np.full((Ne,) * 3, 1e-3), np.zeros((Ne,) * 3))
-    out = {}
+    out, engines = {}, {}
     for devname in ("cuda", "cpu"):
-        rte = HeRaytracer(Ne, R_EVOLVE, bins_he, ABU_HE, batch_size=B_BENCH,
-                          dtype=torch.float64, device=devname,
-                          do_heating=True)
+        rte = engines[devname] = HeRaytracer(
+            Ne, R_EVOLVE, bins_he, ABU_HE, batch_size=B_BENCH,
+            dtype=torch.float64, device=devname, do_heating=True)
         sweep.reset_launches()
         t0 = time.time()
         out[devname] = evolve3D_he(DT, DR, e_flux, e_pos, rte, phe, *grid0,
@@ -3022,6 +3376,17 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
     log("  evolve3D_he GPU vs CPU, max rel: " + ", ".join(
         f"{n} {max_rel(torch.from_numpy(g), torch.from_numpy(c)):.3e}"
         for n, g, c in zip(names, out["cuda"], out["cpu"])))
+    # the loop in float64 with the heat channel against the plain loop, on
+    # the timestep's end state
+    rte = engines["cuda"]
+    fields = [torch.from_numpy(np.asarray(a)).to("cuda", torch.float64)
+              for a in (e_nd, out["cuda"][0], out["cuda"][2],
+                        out["cuda"][3])]
+    pads = [rte.eng.wrap_pad(f) for f in rte.species_fields(*fields)]
+    pos_b, flux_b = rte.prepare_sources(e_pos, e_flux)
+    he_loop_against_plain(f"evolve3D_he's engine N={Ne} float64 with the "
+                          f"heat channel", rte, pads, pos_b, flux_b, reps=3)
+    del engines, rte, pads
 
     N = N_GOLDEN
     params = read_paramfile(os.path.join(GOLDEN_DIR, "parameters.yml"))
@@ -3100,15 +3465,21 @@ def helium_evolve(e_pos, e_flux, e_nd, bins_he, chem):
     log(f"C2Ray_Test engine he N={N} float64 (heating, non-isothermal, "
         f"{sim.raytracer.bins.num_bins} bins, Dc={g.Dc}, B=1): 2 timesteps "
         f"in {t_sim:.2f} s with set-up; raytrace iterations {iters}, K1 "
-        f"launches {k1}; photon loss at convergence "
+        f"launches {k1}, he_trace_sweep {launches['he_trace_sweep']}, "
+        f"rates_he {launches['rates_he']}; photon loss at convergence "
         + ", ".join(f"{ls[-1]:.3e}" for ls in loss)
         + f" (bound loss_fraction {sim.loss_fraction:g}); T "
         f"{sim.temp.min():.1f}..{sim.temp.max():.1f} K, xh max "
         f"{sim.xh.max():.4f}, xHeII+xHeIII max "
         f"{(sim.xhe1 + sim.xhe2).max():.4f}")
-    if k1 != 3 * sum(iters) or min(iters) == 0:
+    # one he_trace_sweep call per raytrace iteration, three sweeps, one
+    # rate pass and one accumulate per batch in it (one source: one batch)
+    if (k1 != 3 * sum(iters) or min(iters) == 0
+            or launches["he_trace_sweep"] != sum(iters)
+            or k1 != 3 * launches["rates_he"]
+            or launches["accumulate_boxes"] != launches["rates_he"]):
         raise RuntimeError(f"helium model: {k1} K1 launches for {iters} "
-                           f"iterations")
+                           f"iterations, launches {launches}")
     # the first timestep's loss is the resolution's: in the flat engine at
     # this configuration it halves with every doubling of N (9.2%, 5.0%,
     # 2.1% at N = 16, 32, 64); the converged second timestep's is held
@@ -3171,7 +3542,8 @@ DRIVERS = (
       "extract_boxes", "accumulate_boxes"), r"^R=|^CUDA kernels"),
     ("raytracing_benchmark he", "examples.raytracing_benchmark",
      ["--engine", "he", "-N", "256", "--R", "30", "--numsrc", "256"],
-     ("cheb_sweep", "extract_boxes", "accumulate_boxes"), r"^R="),
+     ("cheb_sweep", "rates_he", "he_trace_sweep", "extract_boxes",
+      "accumulate_boxes"), r"^R="),
     ("stromgren_ifront", "examples.stromgren_ifront", [],
      ("chemistry_pass",), r"Max I-front|PASSED|FAILED"),
     ("shadow_test", "examples.shadow_test", [], ("chemistry_pass",),
@@ -3202,7 +3574,7 @@ DRIVERS = (
     ("raytracing flat", "tutorials.raytracing", ["--engine", "flat"], (),
      r"^Gamma field|photon budget"),
     ("helium_thermal", "tutorials.helium_thermal", [],
-     ("cheb_sweep", "chemistry_pass_he"),
+     ("cheb_sweep", "rates_he", "he_trace_sweep", "chemistry_pass_he"),
      r"front at|temperature raised|^OK"),
 )
 
@@ -3250,6 +3622,11 @@ def report_driver(label, module, args, kernels, keep, run):
             log(f"    {ln.strip()}")
     failed = [ln for ln in lines if "FAILED" in ln]
     missing = [k for k in kernels if not counts.get(k)]
+    sweeps = counts.get("cheb_sweep", 0) + counts.get("init_segments", 0)
+    if "he_trace_sweep" in kernels and sweeps != 3 * counts.get("rates_he",
+                                                                 0):
+        # the helium engine's traces: three sweeps a batch
+        missing.append("three sweeps per rates_he")
     if rc != 0 or failed or missing or not counts:
         log("\n".join(lines[-40:]))
         log(stderr[-4000:])
@@ -3661,11 +4038,16 @@ def p5_check_helium(wd, ranks, tag, label, first):
         f"{res[0]['iterations']} iterations (4g: {first['iterations']}), "
         f"{res[0]['t_step']:.2f} s; max rel against 4g: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-        + "; K1 launches per rank "
-        + str([rr["launches"]["cheb_sweep"] for rr in res]))
+        + "; per rank K1, rates_he and he_trace_sweep launches "
+        + str([[rr["launches"][k] for k in ("cheb_sweep", "rates_he",
+                                            "he_trace_sweep")]
+               for rr in res]))
     bounds = dict(xh=1e-10, xhe1=1e-9, xhe2=1e-9, temp=1e-10)
+    # every trace one he_trace_sweep call: three K1 per batch
     if any(errs[k] > bounds[k] for k in HE_STATE) or any(
-            rr["launches"]["cheb_sweep"] == 0 for rr in res):
+            rr["launches"]["cheb_sweep"] == 0
+            or rr["launches"]["cheb_sweep"] != 3 * rr["launches"]["rates_he"]
+            or rr["launches"]["he_trace_sweep"] == 0 for rr in res):
         raise RuntimeError(f"5d: the {label} mesh's helium timestep "
                            f"differs from 4g's")
 
@@ -3793,9 +4175,13 @@ def main():
     check_rates(16, 6.0, 2, torch.float64, seed=6, reps=3, bins=bins,
                 zero_cell=True)
 
-    # ---- 2d. K1 at the helium engine's three cross sections -------------
+    # ---- 2d. K1 at the helium engine's three cross sections, and the
+    # helium rate pass vs its plain version ---------------------------------
     bins_he = he_bins()
     k_he = check_sweep_he(bins_he, reps=20)
+    log("rates_he, the helium engine's three-species rate pass, on K1's "
+        "boxes:")
+    k_rates_he = check_rates_he(bins_he, ns_bin)
     if "--kernels" in sys.argv[1:]:
         log(f"chip_smoke --kernels wall time: {time.time() - T_START:.1f} s")
         return 0
@@ -4037,7 +4423,8 @@ def main():
         flat_bench(src_pos, tmp)
 
     # ---- 3e. the helium engine at full width ------------------------------
-    he_launches = helium_bench(bins_he, src_pos, chem)
+    k_he_bench = helium_bench(bins_he, src_pos, chem)
+    he_launches = k_he_bench["launches"]["cheb_sweep"]
 
     # ---- 3f. the octahedral sheet engine at the bench configuration -------
     with tempfile.TemporaryDirectory() as tmp:
@@ -4274,6 +4661,19 @@ def main():
              launches_default_bench=sweep_loop_launches,
              launches_fuse_fold_eor=eor_counts["cheb_trace_sweep"],
              **k_sweep_loop, fuse_fold_eor=k_loop["loop"]),
+        # the helium engine's (no TPU kernel: the XLA einsums of
+        # HeRaytracer._rates_he, its jit + lax.fori_loop batch loop): the
+        # launches over phase 3e's main path (its bench trace), every other
+        # number of rates_he per call on one bench batch (2d), with the heat
+        # channel beside; the loop's per trace of 3e's frames (CUDA events)
+        dict(name="rates_he", source=src + "cheb_rates_he.cuh",
+             replaces="pyc2ray_tpu/ops/raytrace_he.py:98",
+             launches=k_he_bench["launches"]["rates_he"],
+             **k_rates_he["photo"], with_heat=k_rates_he["heat"]),
+        dict(name="he_trace_sweep", source=src + "trace_loop.cu",
+             replaces="pyc2ray_tpu/ops/raytrace_he.py:92",
+             launches=k_he_bench["launches"]["he_trace_sweep"],
+             **k_he_bench["loop"]),
         # the chemistry passes (no TPU kernel: the JAX package's jitted
         # lax.while_loop), launches over the EoR run's timesteps (4e) and
         # the helium model's (4g), every other number per pass on the EoR

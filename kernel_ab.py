@@ -20,8 +20,11 @@ through entry points that every checkout since the trace loop has:
   ``check_box_kernels``: kernel, plain and library device ms, bound);
 - the bench default trace (chip_smoke phase 3's configuration and fields,
   one ``cheb_trace_sweep`` call of 256 batches), the same with
-  ``fuse_fold`` (K3) and the EoR run's small bucket over 128 random
-  batches, the first clustered (phase 3g's, K3):
+  ``fuse_fold`` (K3), the EoR run's small bucket over 128 random
+  batches, the first clustered (phase 3g's, K3), and the helium engine's
+  bench trace (phase 3e's: ``HeRaytracer``, 72 bins, 256 batches; one
+  ``he_trace_sweep`` call in a checkout that has it, bit-equal to its
+  ``trace_extended_plain``, asserted, where the engine has one):
   ms per trace (CUDA events, the least of 3) and, from one profiled
   trace, each kernel's median device us and the gap before it
   (``loop_kernel_gaps``);
@@ -194,6 +197,21 @@ def trace(cs, label, rt, pad, pos_b, flux_b):
                                                    flux_b))
 
 
+def he_trace(cs, label, rt, pads, pos_b, flux_b):
+    """The helium trace: bit for bit against ``trace_extended_plain`` with
+    its launch counts (chip_smoke's ``he_loop_against_plain``) where the
+    engine has one, ms per trace of ``rt.trace_extended`` (least of 3 after
+    a warm-up) and its per-kernel device us and gaps."""
+    if hasattr(rt, "trace_extended_plain"):
+        cs.he_loop_against_plain(label, rt, pads, pos_b, flux_b, reps=1)
+    ms = min(cs.cuda_ms(lambda: rt.trace_extended(pads, pos_b, flux_b,
+                                                  cs.DR), 1)
+             for _ in range(3))
+    cs.log(f"{label}: {ms:.3f} ms per trace of {pos_b.shape[0]} batches")
+    return dict(ms=ms, kernels=cs.loop_kernel_gaps(label, rt, pads, pos_b,
+                                                   flux_b))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -267,6 +285,17 @@ def main():
     out["eor_bucket"] = trace(cs, f"EoR bucket R={cs.R_EOR[0]:.2f} "
                               f"B={cs.B_EOR} (K3), {nb} batches", rt, pad,
                               pos_b, flux_b)
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    he = HeRaytracer(N, cs.R_BENCH, cs.he_bins(), cs.ABU_HE,
+                     batch_size=cs.B_BENCH, dtype=dt)
+    he_pos, he_flux = he.prepare_sources(src, np.ones(cs.NS_BENCH))
+    he_pads = [he.eng.wrap_pad(f) for f in he.species_fields(
+        *(torch.full((N,) * 3, v, dtype=dt, device="cuda")
+          for v in (1e-3, 1.2e-3, 1e-3, 0.0)))]
+    out["helium_bench"] = he_trace(cs, f"helium bench N={N} "
+                                   f"B={cs.B_BENCH}", he, he_pads, he_pos,
+                                   he_flux)
+    del he, he_pads
     if args.chunks:
         from pyc2ray_torch.ops import trace_loop
         rule = trace_loop.chunk_size

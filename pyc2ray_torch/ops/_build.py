@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
            "chemistry")                   # csrc/<name>.cu
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
-           "cheb_rates.cuh")
+           "cheb_rates.cuh", "cheb_rates_he.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -48,6 +48,9 @@ _SIGNATURES = {
         # cd, nhi, rt_sub, cells, flux, bins_s, bins_w, bins_wh, phi, heat;
         # B, E, Dc, Ds, rb0, n_valid; dr, sig, sdr3; stream
         "rates_dense": [_P] * 10 + [_I] * 6 + [_D] * 3 + [_P],
+        # cd x 3, n x 3, rt_sub, cells, flux, se, w_se, wh_se, out x 4;
+        # B, E, Dc, Ds, rb0, n_valid; dr, sdr3; stream
+        "rates_he": [_P] * 16 + [_I] * 6 + [_D] * 2 + [_P],
     },
     "trace_loop": {
         # frames, boxes, channels, pos, batch, B, D, shift, F0, F1, F2,
@@ -59,6 +62,10 @@ _SIGNATURES = {
         # 23 pointers and the scratch; mode, E, R2, sdr3, s_fac,
         # threads_b, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb, chunk
         "cheb_trace_sweep": [_P] * 24 + [_I, _I, _D, _D, _D] + [_I] * 11
+        + _LAUNCH,
+        # 24 pointers and the scratch; E, sdr3, sigma_HeI, sigma_HeII,
+        # rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb, chunk
+        "he_trace_sweep": [_P] * 25 + [_I, _D, _D, _D] + [_I] * 10
         + _LAUNCH,
     },
     "chemistry": {

@@ -26,6 +26,28 @@ bit-equal to the plain version on the card: every operation in its type
 and order, the scalars ``dr``, ``sig`` and ``sdr3`` = S*/dr^3 handed to
 both as the same floats (``sweep.s_over_dr3``), each rounded to the type
 once.
+
+``rates_he`` is the helium engine's three-species pass (HI, HeI, HeII),
+the counterpart of the JAX engine's HeRaytracer._rates_he
+(pyc2ray_tpu/ops/raytrace_he.py), which XLA runs as einsums around an
+exp/expm1 block. Per rated cell of the subbox and bin e, with se, w_se and
+wh_se the engine's (3, E) bin tables (``raytrace_he.HeBinTables``):
+
+    dcol_s = n_s (path3 dr),  cdin_s = cd_s - dcol_s
+    inv_e  = exp(-sum_s cdin_s se[s, e]) (-expm1(-dtau_e)) / max(dtau_e, tiny),
+             dtau_e = sum_s dcol_s se[s, e]
+    G_s    = (flux S*/dr^3) geominv dcol_s sum_e inv_e w_se[s, e]
+             / max(n_s, tiny)
+    heat   = (flux S*/dr^3) geominv sum_s dcol_s sum_e inv_e wh_se[s, e]
+             / max(n_HI, tiny)
+
+0 where the cell is not valid, cdin_HI exceeds MAX_COLDENSH or n_s <= 0
+(the heat where G_HI is), tiny the JAX engine's (``HE_TINY``).
+``rates_he_ref`` evaluates that op by op at the rated cells in the
+kernel's order (the bins one after the other, each species sum in the order
+HI, HeI, HeII); ``rates_he`` runs it for a CPU tensor and the kernel of
+csrc/cheb_rates_he.cuh for a CUDA tensor (one launch, counted in
+``sweep.launches["rates_he"]``), bit-equal to it on the card.
 """
 
 import ctypes
@@ -35,7 +57,11 @@ import torch
 from ..constants import MAX_COLDENSH
 from . import sweep
 
-__all__ = ["rated_cells", "rates_dense", "rates_dense_ref"]
+__all__ = ["rated_cells", "rates_dense", "rates_dense_ref", "rates_he",
+           "rates_he_ref"]
+
+# the floor of the helium pass's dtau and densities, the JAX engine's
+HE_TINY = {torch.float32: 1e-30, torch.float64: 1e-280}
 
 
 def rated_cells(rt_sub):
@@ -139,3 +165,126 @@ def rates_dense(cd, nhi_box, rt_sub, flux, bins_s, bins_w, dr, sig, sdr3,
                            f"{err} ({lib.error_string(err)!r})")
     sweep.launches["rates_dense"] += 1
     return phi, heat
+
+
+def _listed(cells, rt_sub, rb0, Dc):
+    """The listed cells ``cells`` of the (Ds)^3 subbox as int64 subbox
+    indices and their flat offsets in a (Dc)^3 box with the subbox at
+    ``rb0``."""
+    Ds = rt_sub.shape[-1]
+    idx = cells.to(rt_sub.device, torch.long)
+    i = idx // (Ds * Ds)
+    jk = idx - i * (Ds * Ds)
+    j = jk // Ds
+    return idx, ((i + rb0) * Dc + j + rb0) * Dc + (jk - j * Ds) + rb0
+
+
+def rates_he_ref(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
+                 wh_se=None, *, cells):
+    """Plain version of ``rates_he``: ``cds`` and ``nboxes`` the three
+    species' (B, Dc, Dc, Dc) coldensh_out and absorber boxes (HI, HeI,
+    HeII), ``rt_sub`` (3, Ds, Ds, Ds) with channels (path3, geominv, valid)
+    at box offset ``rb0``, ``flux`` (B,), ``se``, ``w_se`` and ``wh_se``
+    the (3, E) bin tables; ``dr`` and ``sdr3`` (S*/dr^3) floats. Evaluated
+    at the listed cells ``cells`` (the rated cells of ``rt_sub``,
+    ``rated_cells``: the host engine's ``rated_cells``) in the kernel's
+    order of operations. Returns [G_HI, G_HeI, G_HeII] (with
+    ``wh_se`` and the heat per HI atom) of shape (B, Ds, Ds, Ds), 0 at every
+    cell not listed."""
+    dt, dev = cds[0].dtype, cds[0].device
+    dr, sdr3, max_cd = (torch.tensor(float(v), dtype=dt)
+                        for v in (dr, sdr3, MAX_COLDENSH))
+    tiny = HE_TINY[dt]
+    B, Dc, Ds = cds[0].shape[0], cds[0].shape[-1], rt_sub.shape[-1]
+    idx, o = _listed(cells, rt_sub, rb0, Dc)
+    path = rt_sub[0].reshape(-1)[idx] * dr
+    geominv = rt_sub[1].reshape(-1)[idx]
+    n = [b.reshape(B, -1)[:, o] for b in nboxes]
+    dcol = [x * path for x in n]
+    cdin = [c.reshape(B, -1)[:, o] - d for c, d in zip(cds, dcol)]
+    zero = torch.zeros_like(dcol[0])
+    acc = [zero] * 3
+    acc_h = [zero] * 3
+    for e in range(se.shape[1]):
+        tau = cdin[0] * se[0, e]
+        dtau = dcol[0] * se[0, e]
+        for s in (1, 2):
+            tau = tau + cdin[s] * se[s, e]
+            dtau = dtau + dcol[s] * se[s, e]
+        core = torch.exp(-tau) * (-torch.expm1(-dtau))
+        inv = core / torch.clamp(dtau, min=tiny)
+        acc = [a + inv * w_se[s, e] for s, a in enumerate(acc)]
+        if wh_se is not None:
+            acc_h = [a + inv * wh_se[s, e] for s, a in enumerate(acc_h)]
+    pref = flux[:, None] * sdr3 * geominv[None]
+    ok = cdin[0] <= max_cd
+    outs = [torch.where(ok & (n[s] > 0),
+                        pref * (dcol[s] * acc[s])
+                        / torch.clamp(n[s], min=tiny), zero)
+            for s in range(3)]
+    if wh_se is not None:
+        # the heat channel is per HI atom: the thermal update multiplies it
+        # by n_HI and recovers sum_s Gamma_heat_s n_s
+        h = dcol[0] * acc_h[0]
+        for s in (1, 2):
+            h = h + dcol[s] * acc_h[s]
+        outs.append(torch.where(ok & (n[0] > 0),
+                                pref * h / torch.clamp(n[0], min=tiny),
+                                zero))
+    boxes = []
+    for x in outs:
+        box = torch.zeros((B, Ds ** 3), dtype=dt, device=dev)
+        box[:, idx] = x
+        boxes.append(box.view(B, Ds, Ds, Ds))
+    return boxes
+
+
+def rates_he(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
+             wh_se=None, *, cells):
+    """The helium rate pass on the device of the boxes (arguments as
+    ``rates_he_ref``, ``cells`` int32, 1 to Ds^3 of them): the plain version
+    for CPU tensors, one launch of the kernel for CUDA ones, which returns
+    the same bits."""
+    if len(cds) != 3 or len(nboxes) != 3:
+        raise ValueError(f"rates_he: {len(cds)} and {len(nboxes)} boxes, "
+                         f"three species each")
+    if cds[0].device.type == "cpu":
+        return rates_he_ref(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3,
+                            rb0, wh_se, cells=cells)
+    dt = cds[0].dtype
+    B, Dc, Ds, E = cds[0].shape[0], cds[0].shape[-1], rt_sub.shape[-1], \
+        se.shape[-1]
+    if not 0 <= rb0 <= Dc - Ds:
+        raise ValueError(f"rates_he: a rates subbox of {Ds} at {rb0} "
+                         f"leaves the box {Dc}")
+    box = (B, Dc, Dc, Dc)
+    spec = {f"{k}{s}": (t, box, dt) for k, ts in (("cd", cds), ("n", nboxes))
+            for s, t in enumerate(ts)}
+    spec.update(rt_sub=(rt_sub, (3, Ds, Ds, Ds), dt), flux=(flux, (B,), dt),
+                se=(se, (3, E), dt), w_se=(w_se, (3, E), dt))
+    if wh_se is not None:
+        spec["wh_se"] = (wh_se, (3, E), dt)
+    spec["cells"] = (cells, (cells.numel(),), torch.int32)
+    sfx = sweep._check("rates_he", cds[0], spec)
+    if not 1 <= cells.numel() <= Ds ** 3:
+        raise ValueError(f"rates_he: {cells.numel()} rated cells, the kernel "
+                         f"takes 1 to Ds^3")
+    from ._build import load
+    lib = load("cheb_rates")
+    outs = [torch.zeros((B, Ds, Ds, Ds), dtype=dt, device=cds[0].device)
+            for _ in range(3 + (wh_se is not None))]
+    ptr = sweep._ptr
+
+    def opt(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+    stream = torch.cuda.current_stream(cds[0].device).cuda_stream
+    err = getattr(lib, f"rates_he_{sfx}")(
+        *map(ptr, cds), *map(ptr, nboxes), ptr(rt_sub), ptr(cells),
+        ptr(flux), ptr(se), ptr(w_se), opt(wh_se), *map(ptr, outs[:3]),
+        opt(outs[3] if len(outs) > 3 else None), B, E, Dc, Ds, rb0,
+        cells.numel(), float(dr), float(sdr3), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"rates_he kernel launch failed: CUDA error {err} "
+                           f"({lib.error_string(err)!r})")
+    sweep.launches["rates_he"] += 1
+    return outs

@@ -30,6 +30,17 @@
 //                            -> accumulate (fuse_rates); K3 phase A ->
 //                            phase B -> accumulate (fuse_fold, K3h with
 //                            do_heating).
+//   he_trace_sweep           the helium engine's trace: one extract of the
+//                            three species' boxes per chunk of batches,
+//                            then per batch three sweeps (K1, or the
+//                            segmented sweep's start and K2 x seg_K, one per
+//                            species at its threshold cross section) ->
+//                            the three-species rate pass (cheb_rates_he.cuh)
+//                            -> accumulate of its 3-4 channels at rb0; the
+//                            counterpart of pyc2ray_tpu/ops/raytrace_he.py::
+//                            HeRaytracer._trace_jit (jit + lax.fori_loop
+//                            over batches). Plain version: trace_loop.py::
+//                            he_trace_sweep_ref.
 //
 // Both kernels take the positions of the whole trace, (nb, B, 3) int32 on
 // the device, and a batch index, so a trace copies its positions to the card
@@ -111,6 +122,7 @@
 // with the rated share (10.7 MB of 25 MB at the bench shape).
 
 #include "cheb_rates.cuh"
+#include "cheb_rates_he.cuh"
 #include "cheb_sweep_kernels.cuh"
 #include "cheb_sweep_rates.cuh"
 
@@ -415,6 +427,93 @@ __global__ void accumulate_boxes_kernel(Channels<T> ch, BoxSet bs,
   }
 }
 
+// The pointers of a he_trace_sweep call beside the sweep's tables.
+struct HeLoopBufs {
+  const void* frames[kHeSpecies];   // n_HI, n_HeI, n_HeII (F0, F1, F2)
+  const int* pos;           // (nb, B, 3) box corners
+  const void* flux;         // (nb, B)
+  const void* rt_sub;       // (3, Ds, Ds, Ds), the rate pass's table
+  const int* cells;         // (n_valid,) the subbox cells it rates, ascending
+  const void* se;           // (3, E) bin tables of the rate pass
+  const void* w_se;
+  const void* wh_se;        // null without the heat channel
+  void* out[kHeSpecies + 1];  // the rate frames, zeroed by the caller; the
+                              // heat's null without the heat channel
+  void* boxes;              // (3, chunk, B, Dc, Dc, Dc) scratch: the three
+                            // species' boxes of a chunk of batches
+  void* cd;                 // (3, B, Dc, Dc, Dc) scratch: the sweeps' boxes
+  void* rates;              // (3 or 4, B, Ds^3) rate boxes, zeroed by the
+                            // caller (the pass writes its listed cells only)
+  void* planes[2];          // (B, 3, 2, Dc, Dc) each: K2's carried planes
+  void* scratch;            // the sweep's planes where they are not shared
+};
+
+// The scalars of a he_trace_sweep call beside the sweep's launch arguments
+// (whose sig is sigma_HI).
+struct HeLoopArgs {
+  int nb, E;
+  double sdr3;              // S* / dr^3
+  double sig_he[2];         // sigma_HeI, sigma_HeII of the second and third
+                            // sweeps
+  int rb0, Ds, n_valid;     // the rate pass's subbox and its rated cells
+  int seg_S, seg_K;         // K2: shells per segment, segments (S = 0: K1)
+  int F0, F1, F2;           // the frames' extents
+  int chunk;                // batches a launch of the extract cuts
+};
+
+// The rate pass of a he_trace_sweep call but for each batch's absorber
+// boxes and fluxes: the sweeps' cd boxes in, the rate boxes out (the heat's
+// where the heat channel's table is given).
+template <typename T>
+HeRates<T> he_rates_of(const HeLoopBufs& a, const HeLoopArgs& s, int B,
+                       int Dc) {
+  using P = const T*;
+  const size_t box_vals = size_t(B) * Dc * Dc * Dc;
+  const size_t rate_vals = size_t(B) * s.Ds * s.Ds * s.Ds;
+  const int n_out = a.wh_se != nullptr ? kHeSpecies + 1 : kHeSpecies;
+  HeRates<T> hr{};
+  for (int sp = 0; sp < kHeSpecies && a.cd; ++sp)
+    hr.cd[sp] = static_cast<P>(a.cd) + sp * box_vals;
+  for (int ch = 0; ch < n_out && a.rates; ++ch)
+    hr.out[ch] = static_cast<T*>(a.rates) + ch * rate_vals;
+  hr.rt = static_cast<P>(a.rt_sub);
+  hr.cells = a.cells;
+  hr.se = static_cast<P>(a.se);
+  hr.w_se = static_cast<P>(a.w_se);
+  hr.wh_se = static_cast<P>(a.wh_se);
+  hr.B = B;
+  hr.E = s.E;
+  hr.Dc = Dc;
+  hr.Ds = s.Ds;
+  hr.rb0 = s.rb0;
+  hr.n_valid = s.n_valid;
+  hr.sdr3 = static_cast<T>(s.sdr3);
+  return hr;
+}
+
+// Whether a he_trace_sweep call's buffers and sizes are ones the loop
+// takes: every frame, box buffer and table given, the heat channel's table
+// and frame both or neither, a list of rated cells, boxes inside a frame of
+// at least Dc a side, K2's segments and planes where it segments, a chunk's
+// cells below 2^31, and a rate pass he_rates_fit takes.
+template <typename T>
+bool he_loop_fits(const HeLoopBufs& a, const HeLoopArgs& s, int B, int Dc,
+                  int c, int R1) {
+  const bool heat = a.wh_se != nullptr;
+  const size_t D3 = size_t(Dc) * Dc * Dc;
+  bool given = a.pos && a.flux && a.rt_sub && a.cells && a.se && a.w_se &&
+               a.boxes && a.cd && a.rates;
+  for (int sp = 0; sp < kHeSpecies; ++sp)
+    given = given && a.frames[sp] && a.out[sp];
+  return given && (a.out[kHeSpecies] != nullptr) == heat && s.nb >= 0 &&
+         s.chunk >= 1 && B <= 65535 && c >= 0 && c < Dc && R1 >= 1 &&
+         s.n_valid >= 1 && s.seg_S >= 0 &&
+         (s.seg_S == 0 || (s.seg_K >= 1 && a.planes[0] && a.planes[1])) &&
+         s.F0 >= Dc && s.F1 >= Dc && s.F2 >= Dc &&
+         size_t(s.chunk) * B * D3 < (size_t(1) << 31) &&
+         he_rates_fit(he_rates_of<T>(a, s, B, Dc));
+}
+
 // The launches of the two kernels and of the trace loop.
 
 // How many blocks of the accumulate the card holds at once (its registers
@@ -669,6 +768,108 @@ int trace_sweep(const SweepLoopBufs& a, const SweepLoopArgs& s,
   return 0;
 }
 
+// The helium trace of nb batches (see HeLoopBufs, HeLoopArgs): per chunk of
+// s.chunk batches one extract of the three species' boxes out of their
+// frames, then per batch on its slot of the chunk three sweeps into the cd
+// boxes, one per species at its threshold cross section (K1, or with
+// s.seg_S the segmented sweep's start and K2 over seg_K segments), the
+// three-species rate pass at the listed cells, and the accumulate of its
+// 3-4 channels into the rate frames at rb0, over the listed cells. Three
+// sweep tables, one plan and the pass's constants are made once; nothing
+// synchronizes with the host. With spec.max_clusters only ask how many of
+// the sweep's clusters fit.
+template <typename T>
+int he_trace_sweep(const HeLoopBufs& a, const HeLoopArgs& s, const void* sw,
+                   const void* path, const void* diag, const void* mask_m,
+                   const void* mask_p, int Dc, int c, int R1, double dr,
+                   double sig, const LaunchSpec& spec) {
+  const cudaStream_t st = static_cast<cudaStream_t>(spec.stream);
+  if (!he_loop_fits<T>(a, s, spec.B, Dc, c, R1))
+    return cudaErrorInvalidValue;
+  const double sigs[kHeSpecies] = {sig, s.sig_he[0], s.sig_he[1]};
+  Tables<T> tb[kHeSpecies];
+  for (int sp = 0; sp < kHeSpecies; ++sp)
+    tb[sp] = make_tables<T>(sw, path, diag, mask_m, mask_p, Dc, c, R1, dr,
+                            sigs[sp]);
+  Plan pl;
+  const cudaError_t err = make_plan<T>(spec, Dc, 0, false, &pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool seg = s.seg_S > 0, heat = a.wh_se != nullptr;
+  using P = const T*;
+  T* const boxes = static_cast<T*>(a.boxes);
+  T* const cd = static_cast<T*>(a.cd);
+  T* const planes[2] = {static_cast<T*>(a.planes[0]),
+                        static_cast<T*>(a.planes[1])};
+  T* const sc = static_cast<T*>(a.scratch);
+  if (spec.max_clusters != nullptr)
+    return seg ? launch_seg<T>(tb[0], pl, spec, boxes, planes[0], planes[1],
+                               1, 1, cd, sc)
+               : launch_sweep<T>(tb[0], pl, spec, boxes, cd, sc);
+  const size_t box_vals = size_t(spec.B) * Dc * Dc * Dc;
+  const size_t chunk_vals = size_t(s.chunk) * box_vals;
+  const size_t S3 = size_t(s.Ds) * s.Ds * s.Ds;
+  const int n_out = heat ? kHeSpecies + 1 : kHeSpecies;
+  HeRates<T> hr = he_rates_of<T>(a, s, spec.B, Dc);
+  hr.dr = static_cast<T>(dr);
+  void* src[kHeSpecies];
+  void* slots[kHeSpecies];
+  void* frames[kHeSpecies + 1];
+  void* rate_boxes[kHeSpecies + 1];
+  for (int sp = 0; sp < kHeSpecies; ++sp) {
+    src[sp] = const_cast<void*>(a.frames[sp]);
+    slots[sp] = boxes + sp * chunk_vals;
+  }
+  for (int ch = 0; ch < kHeSpecies + 1; ++ch) {
+    frames[ch] = a.out[ch];
+    rate_boxes[ch] = hr.out[ch];
+  }
+  const Channels<T> in = channels<T>(src, slots, kHeSpecies);
+  const Channels<T> acc = channels<T>(frames, rate_boxes, n_out);
+  Chunk chunk{a.pos, 0, s.chunk, spec.B, Dc, (long long)s.F1 * s.F2, s.F2};
+  // the rate boxes are 0 outside the listed cells: the accumulate visits
+  // those only
+  const Visit<T> rated{a.cells, static_cast<P>(a.rt_sub) + 2 * S3,
+                       s.n_valid};
+  BoxSet ac{a.pos, 0, spec.B, s.Ds, s.rb0, s.F0, s.F1, s.F2};
+  P fl = static_cast<P>(a.flux);
+  for (int b = 0; b < s.nb; ++b) {
+    ac.batch = b;
+    const int slot = b % s.chunk;
+    int rc = 0;
+    if (slot == 0) {
+      // the three species' boxes of batches b .. b + k - 1 in one launch
+      chunk.k0 = b;
+      chunk.k = s.nb - b < s.chunk ? s.nb - b : s.chunk;
+      rc = launch_extract<T>(in, chunk, st);
+    }
+    for (int sp = 0; sp < kHeSpecies && rc == 0; ++sp) {
+      // species sp's boxes of batch b: its slot of the chunk
+      const T* n = boxes + sp * chunk_vals + slot * box_vals;
+      T* out = cd + sp * box_vals;
+      hr.n[sp] = n;
+      if (!seg) {
+        rc = launch_sweep<T>(tb[sp], pl, spec, n, out, sc);
+        continue;
+      }
+      rc = launch_init_segments<T>(n, out, planes[0], spec.B, Dc, c, T(dr),
+                                   st);
+      for (int k = 0; k < s.seg_K && rc == 0; ++k) {
+        const int r0 = 1 + k * s.seg_S;
+        const int r1 = r0 + s.seg_S < R1 ? r0 + s.seg_S : R1;
+        rc = launch_seg<T>(tb[sp], pl, spec, n, planes[k & 1],
+                           planes[(k + 1) & 1], r0, r1, out, sc);
+      }
+    }
+    if (rc == 0) {
+      hr.flux = fl + size_t(b) * spec.B;
+      rc = issue_rates_he<T>(hr, st);
+    }
+    if (rc == 0) rc = launch_accumulate<T>(acc, ac, rated, st);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -742,6 +943,41 @@ EXTRACT_ENTRY(extract_chunk_f64, double)
 
 CHEB_TRACE_SWEEP_ENTRY(cheb_trace_sweep_f32, float)
 CHEB_TRACE_SWEEP_ENTRY(cheb_trace_sweep_f64, double)
+
+// The helium trace of nb batches (see he_trace_sweep above) on `stream`: the
+// three species' frames frame0..frame2 (n_HI, n_HeI, n_HeII) in, the rate
+// frames out0..out2 (and, where `wh_se` is set, the heat frame out3) out,
+// with the sweep's launch arguments and plan as its entry points take them
+// (sig: sigma_HI; sig_he1, sig_he2: the other two sweeps'). Returns the
+// first cudaError_t that is not cudaSuccess; with `max_clusters` set it
+// launches nothing and writes there how many of the sweep's clusters are
+// resident at once.
+#define HE_TRACE_SWEEP_ENTRY(NAME, TYPE)                                       \
+  int NAME(const void* frame0, const void* frame1, const void* frame2,        \
+           const int* pos, const void* flux, const void* sw,                  \
+           const void* path, const void* diag, const void* mask_m,            \
+           const void* mask_p, const void* rt_sub, const int* cells,          \
+           const void* se, const void* w_se, const void* wh_se, void* out0,   \
+           void* out1, void* out2, void* out3, void* boxes, void* cd,         \
+           void* rates, void* planes0, void* planes1, void* scratch, int E,   \
+           double sdr3, double sig_he1, double sig_he2, int rb0, int Ds,      \
+           int n_valid, int seg_S, int seg_K, int F0, int F1, int F2, int nb, \
+           int chunk, int B, int Dc, int c, int R1, double dr, double sig,    \
+           int threads, int cluster, int shared_planes, int smem,             \
+           int rate_threads, int ring, int* max_clusters, void* stream) {     \
+    return he_trace_sweep<TYPE>(                                               \
+        HeLoopBufs{{frame0, frame1, frame2}, pos, flux, rt_sub, cells, se,     \
+                   w_se, wh_se, {out0, out1, out2, out3}, boxes, cd, rates,    \
+                   {planes0, planes1}, scratch},                               \
+        HeLoopArgs{nb, E, sdr3, {sig_he1, sig_he2}, rb0, Ds, n_valid, seg_S,   \
+                   seg_K, F0, F1, F2, chunk},                                  \
+        sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig,                    \
+        LaunchSpec{B, threads, cluster, shared_planes, smem, rate_threads,     \
+                   ring, max_clusters, stream});                               \
+  }
+
+HE_TRACE_SWEEP_ENTRY(he_trace_sweep_f32, float)
+HE_TRACE_SWEEP_ENTRY(he_trace_sweep_f64, double)
 
 const char* trace_loop_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

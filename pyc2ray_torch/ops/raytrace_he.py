@@ -5,24 +5,28 @@ in the reference, README.md:81-87). The Chebyshev-face sweep is
 species-agnostic: a column-density sweep of any absorber field whose own
 threshold cross section enters the interpolation weights
 1/max(0.6, cd sigma) (raytracing.f90:807-813). So per batch the engine runs
-three sweeps of the port's ChebRaytracer (``sweep_box``: kernel K1 on a
-CUDA tensor, K2 where the engine segments), one per species at its sigma_th,
-and couples the species only in the rate pass, where the composite optical
-depth of spectral bin e is
+three sweeps of the host ChebRaytracer's kernels (K1, or K2 where the host
+engine segments), one per species at its sigma_th, and couples the species
+only in the rate pass, where the composite optical depth of spectral bin e
+is
 
     tau_e = sum_s N_s sigma_s(nu_e)
 
 and the photons absorbed in a cell are shared between the species by
 opacity fraction dtau_s/dtau (photon conserving by construction).
 
-The rate pass (``_rates_he``) is plain PyTorch over the rates subbox: the
-per-cell optical depths and the per-species sums over bins are matrix
-products (torch.matmul) around one elementwise block over (cells, bins).
-Each source's rate boxes are added into the padded grids source by source
-in batch order (the JAX engine's scan accumulate; one ``accumulate_boxes``
-per batch for all channels, after one ``extract_boxes`` for the three
-species, ops/trace_loop.py); the JAX engine's window accumulate is a TPU
-layout device and is not copied.
+What runs where. A trace is one call of ``trace_loop.he_trace_sweep``, the
+counterpart of the JAX engine's jit + lax.fori_loop over batches: on CUDA
+frames a loop in C (csrc/trace_loop.cu) issues per chunk of batches one
+extract of the three species' boxes and per batch the three sweeps, the
+three-species rate pass (``cheb_rates.rates_he``, the kernel of
+csrc/cheb_rates_he.cuh, over the host engine's rated cells) and one
+accumulate of the 3-4 rate channels into the padded grids, source by source
+in batch order (the JAX engine's scan accumulate), with no host sync; on
+CPU frames its plain version, the loop in Python. ``trace_extended_plain``
+keeps that Python loop on either device: the reference the card holds the
+loop against. The JAX engine's window accumulate is a TPU layout device and
+is not copied.
 """
 
 from typing import NamedTuple
@@ -30,12 +34,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..constants import MAX_COLDENSH
 from ..radiation.helium import HeSpectralBins
 from ..radiation.spectral_bins import SpectralBins
+from .cheb_rates import rates_he
 from .raytrace_cheb import ChebRaytracer
-from .sweep import s_over_dr3
-from .trace_loop import accumulate_boxes, extract_boxes, stage_positions
+from .sweep import rate_consts
+from .trace_loop import he_trace_sweep, he_trace_sweep_ref, stage_positions
 
 __all__ = ["HeRaytracer", "HeBinTables"]
 
@@ -62,8 +66,8 @@ class HeRaytracer:
         self.do_heating = bool(do_heating)
         self.bins = bins
         self.sigma_th = tuple(float(v) for v in bins.sigma_th)
-        # the host engine supplies the geometry, the sweep, the box
-        # extraction and the accumulate; its own hydrogen bins are unused
+        # the host engine supplies the geometry, the sweep's tables and
+        # segmentation and the rated cells; its own hydrogen bins are unused
         placeholder = SpectralBins(s=np.ones(1), w_photo=np.ones(1),
                                    w_heat=np.zeros(1), num_bins=1)
         self.eng = ChebRaytracer(N, R_max_LLS, self.sigma_th[0], placeholder,
@@ -91,50 +95,18 @@ class HeRaytracer:
 
     # ------------------------------------------------------------------
     def _rates_he(self, cds, nboxes, flux, dr):
-        """Multi-species rate pass over the central rates subbox.
-
-        ``cds`` / ``nboxes``: three (B, Dc, Dc, Dc) coldensh_out and absorber
-        boxes; ``dr`` a 0-dim tensor. Returns the (B, Ds, Ds, Ds) channels
-        (G_HI, G_HeI, G_HeII[, heat]) to accumulate at box position + rb0."""
+        """The three-species rate pass over the central rates subbox
+        (ops/cheb_rates.py::rates_he: the plain version for CPU boxes, the
+        kernel for CUDA ones, at the host engine's rated cells). ``cds`` /
+        ``nboxes``: three (B, Dc, Dc, Dc) coldensh_out and absorber boxes,
+        ``flux`` (B,), ``dr`` a float. Returns the (B, Ds, Ds, Ds) channels
+        (G_HI, G_HeI, G_HeII[, heat]) to accumulate at box position +
+        rb0."""
         eng, heb = self.eng, self.he_tables
-        dt = self.dtype
-        b0, b1 = eng._rb0, eng._rb1
-        sub = (slice(None),) + (slice(b0, b1),) * 3
-        cds = [c[sub] for c in cds]
-        nboxes = [n[sub] for n in nboxes]
-        rt_sub = eng.tables.rt_sub
-        path = rt_sub[0][None] * dr
-
-        dcol = [nboxes[s] * path for s in range(3)]
-        cdin = [cds[s] - dcol[s] for s in range(3)]
-        prefact = (flux[:, None, None, None]
-                   * s_over_dr3(dr, dt).to(dr.device) * rt_sub[1][None])
-
-        tiny = 1e-30 if dt == torch.float32 else 1e-280
-        # per cell, the composite tau of every bin is one (cells, 3) x
-        # (3, E) product; the per-species sums over bins one (cells, E) x
-        # (E, 3) product
-        A = torch.stack([c.reshape(-1) for c in cdin], 1)     # (n, 3)
-        Dm = torch.stack([d.reshape(-1) for d in dcol], 1)    # (n, 3)
-        tau_in = A @ heb.se
-        dtau_e = Dm @ heb.se
-        core = torch.exp(-tau_in) * (-torch.expm1(-dtau_e))
-        inv = core / torch.clamp(dtau_e, min=tiny)            # (n, E)
-        del tau_in, dtau_e, core
-        wv = inv @ heb.w_se.T                                 # (n, 3)
-        sh4 = cds[0].shape
-        acc = [(Dm[:, s] * wv[:, s]).reshape(sh4) for s in range(3)]
-        if self.do_heating:
-            acc.append((Dm * (inv @ heb.wh_se.T)).sum(dim=1).reshape(sh4))
-
-        mask = (rt_sub[2] > 0.5)[None] & (cdin[0] <= MAX_COLDENSH)
-        zero = torch.zeros_like(acc[0])
-        # the heat channel is per HI atom: the thermal update multiplies it
-        # by n_HI and recovers sum_s Gamma_heat_s n_s
-        dens = nboxes + nboxes[:1]
-        return [torch.where(mask & (n > 0),
-                            prefact * a / torch.clamp(n, min=tiny), zero)
-                for a, n in zip(acc, dens)]
+        return rates_he(cds, nboxes, eng.tables.rt_sub, flux, heb.se,
+                        heb.w_se, float(dr), rate_consts(dr, self.dtype)[1],
+                        eng._rb0, wh_se=heb.wh_se if self.do_heating else None,
+                        cells=eng.rated_cells)
 
     # ------------------------------------------------------------------
     def species_fields(self, nd3, xh3, y13, y23):
@@ -144,25 +116,37 @@ class HeRaytracer:
                 self.abu_he * nd3 * (1.0 - y13 - y23),  # HeI
                 self.abu_he * nd3 * y13)                # HeII
 
+    def _loop_args(self):
+        """The arguments of ``he_trace_sweep`` after the positions and
+        fluxes: the host engine's tables, the bin tables, the geometry and
+        its sweep and rate pass (with the host engine's rated cells)."""
+        eng = self.eng
+        return (eng.tables, self.he_tables), dict(
+            c=eng.geom.c, sigmas=self.sigma_th, seg=(eng.seg_S, eng.seg_K),
+            rb0=eng._rb0, heat=self.do_heating, cells=eng.rated_cells)
+
     def trace_extended(self, pads, pos_b, flux_b, dr):
         """The batched three-species sweep over the wrap-padded absorber
-        fields ``pads`` (tuple of 3); returns the padded accumulators
-        (G_HI, G_HeI, G_HeII[, heat]). The positions go to the device once;
-        per batch one ``extract_boxes`` cuts the three species' boxes and
-        one ``accumulate_boxes`` adds the 3-4 rate channels."""
-        eng = self.eng
-        Dc = eng.geom.Dc
-        pos = stage_positions(pos_b, pads[0].shape, Dc, pads[0].device)
-        dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
-        out = [torch.zeros_like(pads[0])
-               for _ in range(4 if self.do_heating else 3)]
-        for k in range(pos.shape[0]):
-            boxes = extract_boxes(pads, pos, k, Dc)
-            cds = [eng.sweep_box(boxes[s], dr, self.sigma_th[s])
-                   for s in range(3)]
-            rates = self._rates_he(cds, boxes, flux_b[k], dr_t)
-            accumulate_boxes(out, rates, pos, k, eng.box_shift(rates[0]))
-        return out
+        fields ``pads`` (tuple of 3; or any frames that hold every box, as
+        a domain's halo-extended blocks); returns the accumulated rate frames
+        [G_HI, G_HeI, G_HeII(, heat)]. The positions go to the frames' device
+        once, and the batch loop is one ``he_trace_sweep`` call."""
+        pads = tuple(pads)
+        pos = stage_positions(pos_b, pads[0].shape, self.eng.geom.Dc,
+                              pads[0].device)
+        tables, kw = self._loop_args()
+        return he_trace_sweep(pads, pos, flux_b, *tables, float(dr), **kw)
+
+    def trace_extended_plain(self, pads, pos_b, flux_b, dr):
+        """``trace_extended`` as the batch loop was issued before the loop
+        in C: per batch a copy of the positions to the device, the PyTorch
+        gathers, the three sweeps, the plain rate pass and one slice add per
+        source and channel (``he_trace_sweep_ref``). The same result bit for
+        bit; on the card the plain reference of the loop and its
+        kernels."""
+        tables, kw = self._loop_args()
+        return he_trace_sweep_ref(tuple(pads), pos_b, flux_b, *tables,
+                                  float(dr), **kw)
 
     # -- uniform engine API ----------------------------------------------
     def trace_batches(self, nd, xh, y1, y2, pos_b, flux_b, dr):

@@ -38,6 +38,16 @@ The port's own kernels for the two ends of a batch (csrc/trace_loop.cu):
                         checks and the scratch made once per trace; the port's
                         counterpart of the JAX engine's jit + lax.scan over
                         batches. Plain version ``cheb_trace_sweep_ref``.
+  ``he_trace_sweep``    the helium engine's trace as one call: per chunk
+                        one extract of the three species' boxes, per batch
+                        three sweeps (K1, or the segmented sweep's start and
+                        K2 x seg_K, one per species at its threshold cross
+                        section), the three-species rate pass (``rates_he``
+                        of ops/cheb_rates.py, over the engine's rated cells)
+                        and one accumulate of its 3-4 channels at rb0; the
+                        counterpart of the JAX HeRaytracer's jit +
+                        lax.fori_loop over batches. Plain version
+                        ``he_trace_sweep_ref``.
 
 Both kernels read the positions of the whole trace, (nb, B, 3) int32 on
 the device, staged once per trace by ``stage_positions``, which also checks
@@ -51,7 +61,7 @@ import ctypes
 import torch
 
 from . import sweep
-from .cheb_rates import rates_dense_ref
+from .cheb_rates import rates_dense_ref, rates_he_ref
 from .sweep import (RATE_THREADS, THREADS_RATES, cheb_sweep,
                     cheb_sweep_rates, cheb_sweep_segmented, init_segments_ref,
                     launches, rate_consts)
@@ -59,7 +69,8 @@ from .sweep import (RATE_THREADS, THREADS_RATES, cheb_sweep,
 __all__ = ["wrap_pad", "fold_padding", "add_boxes", "extract_boxes_ref",
            "extract_chunk_ref", "stage_positions", "extract_boxes",
            "extract_chunk", "accumulate_boxes", "chunk_size",
-           "cheb_trace_sweep", "cheb_trace_sweep_ref", "MAX_CHANNELS"]
+           "cheb_trace_sweep", "cheb_trace_sweep_ref", "he_trace_sweep",
+           "he_trace_sweep_ref", "MAX_CHANNELS"]
 
 MAX_CHANNELS = 4       # frames one launch moves (kMaxChannels of the source)
 # the trace loop's extract cuts the boxes of up to MAX_CHUNK batches, of at
@@ -123,11 +134,12 @@ def extract_chunk_ref(frame, pos, k0, k, D):
                         for b in range(k0, k0 + k)])
 
 
-def chunk_size(nb, B, D, itemsize):
+def chunk_size(nb, B, D, itemsize, channels=1):
     """The batches of a trace of ``nb`` batches of B boxes of side D whose
-    boxes the trace loop cuts in one launch: as many as CHUNK_BYTES hold,
-    1 to MAX_CHUNK."""
-    k = CHUNK_BYTES // (B * D ** 3 * itemsize)
+    boxes the trace loop cuts in one launch: as many as CHUNK_BYTES hold
+    of the boxes of all ``channels`` frames (the helium loop's three
+    species), 1 to MAX_CHUNK."""
+    k = CHUNK_BYTES // (channels * B * D ** 3 * itemsize)
     return int(max(1, min(k, MAX_CHUNK, nb)))
 
 
@@ -326,7 +338,7 @@ def cheb_trace_sweep_ref(frame, pos, flux, tb, dr, c, sig, R2=0.0,
 
 
 def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
-                     rb0=0, fuse=None, heat=False, plan=None, cells=None):
+                     rb0=0, fuse=None, heat=False, cells=None):
     """The trace of the frame ``frame`` (F0, F1, F2) in a sweep mode: the
     sources of batch k have their box corners at ``pos[k]`` (staged, (nb,
     B, 3) int32) and their fluxes in ``flux[k]`` ((nb, B)); ``tb`` holds the
@@ -343,9 +355,8 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
     of csrc/trace_loop.cu, which issues every batch's kernels on the current
     stream and does not synchronize. Counted as one "cheb_trace_sweep" and
     nb launches of each kernel it issues (nb K for K2), but the extract's:
-    one per chunk of ``chunk_size`` batches, ceil(nb / chunk) in all. ``plan`` forces
-    parts of the sweep's plan (K3: of its phase A) as in
-    ``sweep.cheb_sweep``. The unfused modes' rate pass evaluates the rated
+    one per chunk of ``chunk_size`` batches, ceil(nb / chunk) in all. The
+    unfused modes' rate pass evaluates the rated
     cells ``cells`` of ``rt_sub`` (``cheb_rates.rated_cells``, int32 on the
     card; the engine's ``rated_cells``), which the card needs and the plain
     version ignores."""
@@ -411,7 +422,7 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
                    phi, heat_b, *planes),
                   (mode, E, float(R2), sdr3, s_fac, THREADS_RATES, rb0, Ds,
                    0 if fuse else cells.numel(), S, K, *frame.shape, nb, k),
-                  head=2 * E if mode == 2 else 0, plan=plan,
+                  head=2 * E if mode == 2 else 0,
                   rate_threads=RATE_THREADS if mode == 2 else 0,
                   count=nb * (K if mode == 1 else 1), variant=mode)
     launches["extract_boxes"] += -(-nb // k)
@@ -422,3 +433,127 @@ def cheb_trace_sweep(frame, pos, flux, tb, dr, c, sig, R2=0.0, seg=(0, 0),
         launches["init_segments"] += nb
     launches["cheb_trace_sweep"] += 1
     return frames[0], (frames[1] if heat else None)
+
+
+def he_trace_sweep_ref(frames, pos, flux, tb, he_tables, dr, c, sigmas,
+                       seg=(0, 0), rb0=0, heat=False, *, cells):
+    """Plain version of ``he_trace_sweep``, the helium batch loop as the
+    engine issued it before the loop in C: per batch the positions
+    ``pos[k]`` to the frames' device, the gather of each species' boxes,
+    three sweeps (the sweep kernels through their wrappers: the plain
+    versions on CPU frames, the kernels on CUDA ones; the start of a
+    segmented sweep the plain version), the plain rate pass
+    (``rates_he_ref``) at the rated cells ``cells`` and one slice add per
+    source and channel. ``pos`` may lie on the host (int64, as
+    ``prepare_sources`` returns it) or be staged."""
+    frames = tuple(frames)
+    S, K = (int(v) for v in seg)
+    Dc = tb.sw.shape[-1]
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+    _, sdr3 = rate_consts(dr, frames[0].dtype)
+    outs = [torch.zeros_like(frames[0]) for _ in range(3 + bool(heat))]
+    for k in range(pos.shape[0]):
+        corners = pos[k].to(frames[0].device)
+        boxes = [extract_boxes_ref(f, corners, Dc) for f in frames]
+        cds = [cheb_sweep_segmented(b, *geo, dr, c, sig, S, K,
+                                    init=init_segments_ref)
+               if S else cheb_sweep(b, *geo, dr, c, sig)
+               for b, sig in zip(boxes, sigmas)]
+        rates = rates_he_ref(cds, boxes, tb.rt_sub, flux[k], he_tables.se,
+                             he_tables.w_se, dr, sdr3, rb0,
+                             wh_se=he_tables.wh_se if heat else None,
+                             cells=cells)
+        for f, box in zip(outs, rates):
+            add_boxes(f, box, pos[k], rb0)
+    return outs
+
+
+def he_trace_sweep(frames, pos, flux, tb, he_tables, dr, c, sigmas,
+                   seg=(0, 0), rb0=0, heat=False, *, cells):
+    """The helium engine's trace of the three species' frames ``frames``
+    (n_HI, n_HeI, n_HeII; one shape (F0, F1, F2), contiguous): the sources
+    of batch k have their box corners at ``pos[k]`` (staged, (nb, B, 3)
+    int32) and their fluxes in ``flux[k]`` ((nb, B)); ``tb`` holds the host
+    engine's tables (``raytrace_cheb.ChebTables``), ``he_tables`` the (3, E)
+    bin tables se, w_se, wh_se (``raytrace_he.HeBinTables``), ``sigmas``
+    the species' threshold cross sections. Per batch three sweeps, K1 or,
+    with ``seg`` = (S, K), S > 0, K2 over K segments of S shells; the
+    three-species rate pass over the (Ds)^3 subbox at ``rb0`` (``rt_sub``),
+    with ``heat`` its heat channel; its 3-4 rate boxes accumulated at rb0.
+    Returns the rate frames [G_HI, G_HeI, G_HeII(, heat)].
+
+    The plain version for CPU frames; for CUDA frames one call of the loop
+    of csrc/trace_loop.cu, which issues every batch's kernels on the current
+    stream and does not synchronize. Counted as one "he_trace_sweep", 3 nb
+    sweeps (3 nb K "cheb_sweep_seg" and 3 nb "init_segments" where it
+    segments), nb "rates_he" and nb "accumulate_boxes", and one
+    "extract_boxes" per chunk of ``chunk_size`` batches of the three
+    species' boxes, ceil(nb / chunk) in all. The rate pass, kernel and
+    plain version alike, evaluates the rated cells ``cells`` of ``rt_sub``
+    (``cheb_rates.rated_cells``, int32, 1 to Ds^3 of them; the host
+    engine's ``rated_cells``)."""
+    frames = tuple(frames)
+    if len(frames) != 3 or len(sigmas) != 3:
+        raise ValueError(f"he_trace_sweep: {len(frames)} frames and "
+                         f"{len(sigmas)} cross sections, three species each")
+    S, K = (int(v) for v in seg)
+    if frames[0].device.type == "cpu":
+        return he_trace_sweep_ref(frames, pos, flux, tb, he_tables, dr, c,
+                                  sigmas, (S, K), rb0, heat, cells=cells)
+    dt, dev = frames[0].dtype, frames[0].device
+    nb, B = pos.shape[:2]
+    Dc, Ds = tb.sw.shape[-1], tb.rt_sub.shape[-1]
+    E = he_tables.se.shape[-1]
+    k = chunk_size(nb, B, Dc, dt.itemsize, channels=3)
+    # the three species' boxes of a chunk, each species' contiguous as the
+    # extract writes it
+    boxes = torch.empty((3, k, B, Dc, Dc, Dc), dtype=dt, device=dev)
+    box0 = boxes[0, 0]
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+    (B, Dc, R1), spec = sweep._geom(box0, *geo, c)
+    spec.update(rt_sub=(tb.rt_sub, (3, Ds, Ds, Ds), dt),
+                flux=(flux, (nb, B), dt),
+                pos=(pos, (nb, B, 3), torch.int32),
+                se=(he_tables.se, (3, E), dt),
+                w_se=(he_tables.w_se, (3, E), dt),
+                **{f"frame{s}": (f, tuple(frames[0].shape), dt)
+                   for s, f in enumerate(frames)})
+    if heat:
+        spec["wh_se"] = (he_tables.wh_se, (3, E), dt)
+    spec["cells"] = (cells, (cells.numel(),), torch.int32)
+    sfx = sweep._check("he_trace_sweep", box0, spec)
+    if frames[0].dim() != 3:
+        raise ValueError(f"he_trace_sweep: frames {tuple(frames[0].shape)}")
+    if not 1 <= cells.numel() <= Ds ** 3 or not 0 <= rb0 <= Dc - Ds:
+        raise ValueError(f"he_trace_sweep: the rate pass takes 1 to Ds^3 "
+                         f"rated cells ({cells.numel()}) and its subbox of "
+                         f"{Ds} at {rb0} inside the box {Dc}")
+    from ._build import load
+    lib = load("trace_loop")
+    n_out = 3 + bool(heat)
+    outs = [torch.zeros_like(frames[0]) for _ in range(n_out)]
+    cd = torch.empty((3, B, Dc, Dc, Dc), dtype=dt, device=dev)
+    # the rate pass writes its rated cells only: its boxes start at 0 once
+    # per trace and keep 0 everywhere else over all the batches
+    rates = torch.zeros((n_out, B, Ds, Ds, Ds), dtype=dt, device=dev)
+    planes = [torch.empty((B, 3, 2, Dc, Dc), dtype=dt, device=dev)
+              if S else None for _ in range(2)]
+    _, sdr3 = rate_consts(dr, dt)
+    sweep._launch(lib, f"he_trace_sweep_{sfx}",
+                  "cheb_sweep_seg" if S else "cheb_sweep", box0, R1, c, dr,
+                  sigmas[0],
+                  (*frames, pos, flux, *geo, tb.rt_sub, cells, he_tables.se,
+                   he_tables.w_se, he_tables.wh_se if heat else None,
+                   *outs[:3], outs[3] if heat else None, boxes, cd, rates,
+                   *planes),
+                  (E, sdr3, float(sigmas[1]), float(sigmas[2]), rb0, Ds,
+                   cells.numel(), S, K, *frames[0].shape, nb, k),
+                  count=3 * nb * (K if S else 1),
+                  variant=int(S > 0))
+    launches["extract_boxes"] += -(-nb // k)
+    launches["accumulate_boxes"] += nb
+    launches["rates_he"] += nb
+    if S:
+        launches["init_segments"] += 3 * nb
+    launches["he_trace_sweep"] += 1
+    return outs

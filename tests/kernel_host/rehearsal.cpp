@@ -1,13 +1,13 @@
 // Runs the port's kernels on the host: k_loop.inc and k_chem.inc are the
 // device parts of trace_loop.cu and chemistry.cu, cheb_sweep_kernels.cuh,
-// cheb_sweep_rates.cuh and cheb_rates.cuh those of the headers of K1, K1f
-// and K2, of K3, and of the dense rate pass, as
+// cheb_sweep_rates.cuh, cheb_rates.cuh and cheb_rates_he.cuh those of the
+// headers of K1, K1f and K2, of K3, and of the dense rate passes, as
 // tests/test_torch_rehearsal.py cuts them out,
 // compiled against the stand-in headers of this directory. One cluster
 // (source) runs at a time, its C blocks x T threads as std::threads: the
 // chain threads and, behind them, the rate threads of K1f. K3's phase B,
-// the box kernels, the start of a segmented sweep, the dense rate pass and
-// the chemistry passes are plain grids: their blocks run one after the
+// the box kernels, the start of a segmented sweep, the dense rate passes
+// and the chemistry passes are plain grids: their blocks run one after the
 // other (all but phase B's also in reverse order), each as T std::threads;
 // the accumulate's grid has a second dimension, its boxes.
 #include <thread>
@@ -20,6 +20,7 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "cheb_sweep_kernels.cuh"
 #include "cheb_sweep_rates.cuh"
 #include "cheb_rates.cuh"
+#include "cheb_rates_he.cuh"
 #include "k_loop.inc"
 #include "k_chem.inc"
 using namespace cheb;
@@ -255,6 +256,65 @@ void run_rates(void* const* f, int B, int E, int Dc, int Ds, int rb0,
   }
 REHEARSE_RATES(rehearse_init_f32, rehearse_rates_f32, float)
 REHEARSE_RATES(rehearse_init_f64, rehearse_rates_f64, double)
+
+// The helium rate pass (rates_he_kernel, the heat form where `f[11]`,
+// wh_se, is set) over B boxes at the n_valid listed cells: ceil(B n_valid /
+// T_) blocks of T_ threads, in reverse block order with `reverse`. `f`
+// holds cd0..cd2, n0..n2, rt, cells, flux, se, w_se, wh_se, out0..out3.
+// Returns 1 where the launch code refuses the sizes (he_rates_fit).
+template <class T>
+int run_rates_he(void* const* f, int B, int E, int Dc, int Ds, int rb0,
+                 int n_valid, double dr, double sdr3, int T_, int reverse) {
+  using P = const T*;
+  const HeRates<T> k{{(P)f[0], (P)f[1], (P)f[2]}, {(P)f[3], (P)f[4], (P)f[5]},
+                     (P)f[6], (const int*)f[7], (P)f[8], (P)f[9], (P)f[10],
+                     (P)f[11], {(T*)f[12], (T*)f[13], (T*)f[14], (T*)f[15]},
+                     B, E, Dc, Ds, rb0, n_valid, T(dr), T(sdr3)};
+  if (!he_rates_fit(k)) return 1;
+  const size_t n = size_t(B) * n_valid;
+  const bool heat = f[11] != nullptr;
+  emu_launch(int((n + T_ - 1) / T_), 1, T_, he_rates_smem<T>(E, heat), [&] {
+    if (heat)
+      rates_he_kernel<T, true>(k);
+    else
+      rates_he_kernel<T, false>(k);
+  }, reverse != 0);
+  return 0;
+}
+
+// Whether he_trace_sweep takes a call of these sizes (he_loop_fits): every
+// buffer given but the heat channel's table (`heat_bins`) and frame
+// (`heat_out`), K2's planes (`planes`) and the list of rated cells
+// (`cells`) as the flags say.
+template <class T>
+int run_he_fits(const int* v, int heat_bins, int heat_out, int planes,
+                int cells) {
+  static double dummy;
+  void* p = &dummy;
+  const HeLoopBufs a{{p, p, p}, (const int*)p, p, p,
+                     cells ? (const int*)p : nullptr, p, p,
+                     heat_bins ? p : nullptr, {p, p, p, heat_out ? p : nullptr},
+                     p, p, p, {planes ? p : nullptr, planes ? p : nullptr},
+                     nullptr};
+  // v: nb, E, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, chunk, B, Dc, c, R1
+  const HeLoopArgs s{v[0], v[1], 1e-3, {1e-18, 1e-18}, v[2], v[3], v[4], v[5],
+                     v[6], v[7], v[8], v[9], v[10]};
+  return he_loop_fits<T>(a, s, v[11], v[12], v[13], v[14]) ? 1 : 0;
+}
+
+#define REHEARSE_HE(RATES, FITS, TYPE)                                         \
+  extern "C" int RATES(void* const* f, int B, int E, int Dc, int Ds, int rb0,  \
+                       int n_valid, double dr, double sdr3, int T_,            \
+                       int reverse) {                                          \
+    return run_rates_he<TYPE>(f, B, E, Dc, Ds, rb0, n_valid, dr, sdr3, T_,     \
+                              reverse);                                        \
+  }                                                                            \
+  extern "C" int FITS(const int* v, int heat_bins, int heat_out, int planes,   \
+                      int cells) {                                             \
+    return run_he_fits<TYPE>(v, heat_bins, heat_out, planes, cells);           \
+  }
+REHEARSE_HE(rehearse_rates_he_f32, rehearse_he_fits_f32, float)
+REHEARSE_HE(rehearse_rates_he_f64, rehearse_he_fits_f64, double)
 
 // The chemistry passes of chemistry.cu over n cells, `blocks` blocks of
 // T_ threads striding over them, in reverse block order with `reverse`.

@@ -2,7 +2,8 @@
 
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
 ``cheb_sweep_kernels.cuh``, ``cheb_sweep_rates.cuh``, ``cheb_rates.cuh``,
-``trace_loop.cu`` and ``chemistry.cu`` are cut out of the sources,
+``cheb_rates_he.cuh``, ``trace_loop.cu`` and ``chemistry.cu`` are cut out
+of the sources,
 compiled with g++ against the stand-in headers of ``tests/kernel_host/``
 (every thread of every block of a cluster is a std::thread; the cluster
 barrier and the mapping of shared memory between blocks are emulated;
@@ -13,10 +14,11 @@ threads bit for bit against itself without; the trace loop's box extract
 and ordered accumulate bit for bit against ``extract_boxes_ref`` and
 ``add_boxes``, with their blocks in either order, up to 1100 boxes a
 batch;
-the start of a segmented sweep and the dense rate pass over the engine's
-rated cells bit for bit against ``init_segments_ref`` and
-``rates_dense_ref`` (the plain pass with glibc's exp and expm1, the ones
-the host build calls, in place of torch's); the chemistry passes
+the start of a segmented sweep and the dense rate passes over the engine's
+rated cells bit for bit against ``init_segments_ref``, ``rates_dense_ref``
+and the helium engine's ``rates_he_ref`` (the plain passes with glibc's exp
+and expm1, the ones the host build calls, in place of torch's); the sizes
+the helium loop's host side refuses (``he_loop_fits``); the chemistry passes
 against ``global_pass_ref`` and ``global_pass_he_ref`` (see below). This
 checks the kernels' logic (shell windows, the dealing of cells to blocks,
 plane ownership, stitches, carried planes, the ring that hands K1f's cells
@@ -87,6 +89,9 @@ def lib(tmp_path_factory):
     (d / "cheb_rates.cuh").write_text(_device_part(
         "cheb_rates.cuh", "// The launch of the pass on",
         "}  // namespace cheb\n"))
+    (d / "cheb_rates_he.cuh").write_text(_device_part(
+        "cheb_rates_he.cuh", "// The launch of the helium pass on",
+        "}  // namespace cheb\n"))
     (d / "k_loop.inc").write_text(_device_part(
         "trace_loop.cu", "// The launches of the two kernels",
         "}  // namespace\n"))
@@ -121,6 +126,13 @@ def lib(tmp_path_factory):
         f.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
                       + [ctypes.c_double] * 3 + [ctypes.c_int] * 2)
         f.restype = None
+    for f in (lib.rehearse_rates_he_f32, lib.rehearse_rates_he_f64):
+        f.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                      + [ctypes.c_double] * 2 + [ctypes.c_int] * 2)
+        f.restype = ctypes.c_int
+    for f in (lib.rehearse_he_fits_f32, lib.rehearse_he_fits_f64):
+        f.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+        f.restype = ctypes.c_int
     for f in (lib.rehearse_chem_f32, lib.rehearse_chem_f64):
         f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -642,6 +654,155 @@ def test_rate_pass_on_the_host_matches_plain(lib, monkeypatch, N, R, B, rb0,
             assert float(w.max()) > 0
             assert torch.equal(torch.nan_to_num(a, nan=0.0), w), reverse
     assert float(want[0][1].abs().max()) == 0.0 or B == 1      # zero flux
+
+
+# The helium engine's rate pass (csrc/cheb_rates_he.cuh) and the sizes its
+# loop takes (he_trace_sweep in csrc/trace_loop.cu).
+def _he_case(N, R, B, dt, heat, seed=71):
+    """A helium engine (CPU, 8 bins), the three species' absorber boxes
+    (n_HeII 0 in one cell, n_HeI in another), their plain K1 boxes (cd_HI
+    past MAX_COLDENSH in a third cell) and fluxes with the last one 0."""
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    from pyc2ray_torch.radiation import BlackBodySource, helium
+    from pyc2ray_torch.constants import ev2fr
+    bins = helium.make_spectral_bins_he(
+        BlackBodySource(5e4, False, ev2fr * 13.598, 2.8), panels_per_band=2,
+        nodes=4)
+    rt = HeRaytracer(N, R, bins, 0.074, batch_size=B, dtype=dt, device="cpu",
+                     do_heating=heat)
+    g, tb = rt.geom, rt.eng.tables
+    rng = np.random.RandomState(seed)
+    nb = [torch.from_numpy(10 ** rng.uniform(lo, lo + 2, (B,) + (g.Dc,) * 3)
+                           ).to(dt) for lo in (-4, -5, -6)]
+    c = g.c
+    nb[2][0, c + 1, c, c] = 0.0
+    nb[1][-1, c, c + 1, c] = 0.0
+    geo = (tb.sw, tb.path, tb.diag, tb.mask_m, tb.mask_p)
+    cds = [sweep.cheb_sweep_ref(n, *geo, DR, c, sig)
+           for n, sig in zip(nb, rt.sigma_th)]
+    cds[0][0, c, c + 2, c] = 1e31
+    flux = torch.from_numpy(rng.uniform(0.5, 2.0, B)).to(dt)
+    if B > 1:
+        flux[-1] = 0.0
+    return rt, cds, nb, flux
+
+
+# (N, R, B, rb0): (16, 6) a rates subbox (Ds = 13 of Dc = 16) and (8, 6) the
+# full box of a clipped one, as the engine builds them; rb0 = 2 a subbox
+# away from the box's corner
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,R,B,rb0", [(16, 6.0, 2, None), (8, 6.0, 2, None),
+                                       (16, 6.0, 1, 2)])
+@pytest.mark.parametrize("heat", [False, True])
+def test_rate_pass_he_on_the_host_matches_plain(lib, monkeypatch, N, R, B,
+                                                rb0, dt, heat):
+    """rates_he_kernel on the host engine's list of rated cells bit for bit
+    against rates_he_ref on the three species' K1 boxes, with zero-density
+    cells of HeI and HeII, a cell past MAX_COLDENSH and a zero flux: the
+    three rates and with ``heat`` the heat per HI atom, its blocks in either
+    order, written at the listed cells of every box and no other (the
+    outputs start as NaN). The plain pass takes glibc's exp and expm1 in
+    place of torch's. Sizes the launch code does not take are refused."""
+    rt, cds, nb, flux = _he_case(N, R, B, dt, heat)
+    eng, heb = rt.eng, rt.he_tables
+    Ds, rt_sub, cells = eng.Ds, eng.tables.rt_sub, eng.rated_cells
+    if rb0 is None:
+        rb0 = eng._rb0
+    else:
+        Ds -= rb0
+        rt_sub = rt_sub[:, rb0:, rb0:, rb0:].contiguous()
+        cells = cheb_rates.rated_cells(rt_sub)
+    listed = torch.zeros(Ds ** 3, dtype=torch.bool)
+    listed[cells.long()] = True
+    assert 0 < cells.numel() < Ds ** 3
+    sdr3 = float(sweep.s_over_dr3(DR, dt))
+    wh = heb.wh_se if heat else None
+    E = heb.se.shape[1]
+    fn = lib.rehearse_rates_he_f32 if dt == torch.float32 else \
+        lib.rehearse_rates_he_f64
+
+    def host(reverse, n_valid=cells.numel(), ds=Ds, e=E, r0=rb0):
+        outs = [torch.full((B,) + (Ds,) * 3, float("nan"), dtype=dt)
+                for _ in range(4)]
+        ptrs = [t.data_ptr() if t is not None else None for t in (
+            *cds, *nb, rt_sub, cells, flux, heb.se, heb.w_se, wh,
+            *outs[:3], outs[3] if heat else None)]
+        rc = fn((ctypes.c_void_p * 16)(*ptrs), B, e, rt.geom.Dc, ds, r0,
+                n_valid, DR, sdr3, 64, reverse)
+        return rc, outs[:3 + heat]
+    got = {reverse: host(reverse) for reverse in (0, 1)}
+    exp, expm1 = _libm(dt)
+    monkeypatch.setattr(torch, "exp", exp)
+    monkeypatch.setattr(torch, "expm1", expm1)
+    want = cheb_rates.rates_he_ref(cds, nb, rt_sub, flux, heb.se, heb.w_se,
+                                   DR, sdr3, rb0, wh_se=wh, cells=cells)
+    monkeypatch.undo()
+    assert len(want) == 3 + heat
+    for reverse, (rc, outs) in got.items():
+        assert rc == 0
+        for a, w in zip(outs, want):
+            written = ~torch.isnan(a).view(B, -1)
+            assert torch.equal(written, listed.expand(B, -1)), reverse
+            assert float(w.max()) > 0
+            assert torch.equal(torch.nan_to_num(a, nan=0.0), w), reverse
+    c = eng.geom.c - rb0
+    if 0 <= c + 1 < Ds:
+        assert float(want[2][0, c + 1, c, c]) == 0.0       # n_HeII = 0
+    if B > 1:
+        assert not any(bool(w[-1].any()) for w in want)      # zero flux
+    # sizes the launch code refuses: more listed cells than the subbox
+    # holds, a subbox leaving the box, no bins
+    for bad in (dict(n_valid=Ds ** 3 + 1), dict(r0=eng.geom.Dc - Ds + 1),
+                dict(e=0)):
+        assert host(0, **bad)[0] == 1, bad
+
+
+# he_loop_fits's arguments: nb, E, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2,
+# chunk, B, Dc, c, R1 (a bench-like call), and the changes it refuses
+HE_FITS = [3, 72, 0, 64, 1000, 0, 0, 320, 320, 320, 2, 8, 64, 32, 31]
+HE_REFUSED = {"chunk 0": {10: 0}, "subbox beyond the box": {2: 1},
+              "no listed cell": {4: 0},
+              "more cells than the subbox": {4: 64 ** 3 + 1},
+              "frame narrower than a box": {8: 63}, "no bins": {1: 0},
+              "source outside the box": {13: 64},
+              "B above 65535": {11: 65536},
+              "chunk of 2^31 cells": {10: 1024},
+              "bins beyond 48 KB": {1: 2100}}
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_host_he_loop_refuses_other_sizes(lib, dt):
+    """The host side of he_trace_sweep (he_loop_fits) takes a bench-like
+    call, with and without the heat channel and segmented with its planes,
+    and refuses bad sizes (the launch then never happens): a chunk of 0,
+    a subbox leaving the box, no or too many rated cells, a frame narrower
+    than a box, no bins, a source cell outside the box, too many boxes or
+    cells for a launch, bins beyond the pass's shared memory; the heat
+    channel's table without its frame or the other way, segments without
+    planes or of no shells, no list of rated cells."""
+    fn = lib.rehearse_he_fits_f32 if dt == torch.float32 else \
+        lib.rehearse_he_fits_f64
+
+    def fits(v, heat_bins=0, heat_out=0, planes=0, cells=1):
+        arr = (ctypes.c_int * 15)(*v)
+        return fn(ctypes.cast(arr, ctypes.c_void_p), heat_bins, heat_out,
+                  planes, cells)
+    assert fits(HE_FITS) == 1
+    assert fits(HE_FITS, heat_bins=1, heat_out=1) == 1
+    seg = list(HE_FITS)
+    seg[5:7] = [8, 4]
+    assert fits(seg, planes=1) == 1
+    for name, change in HE_REFUSED.items():
+        v = list(HE_FITS)
+        for i, x in change.items():
+            v[i] = x
+        assert fits(v) == 0, name
+    assert fits(HE_FITS, heat_bins=1) == 0
+    assert fits(HE_FITS, heat_out=1) == 0
+    assert fits(seg) == 0
+    seg[6] = 0
+    assert fits(seg, planes=1) == 0
+    assert fits(HE_FITS, cells=0) == 0
 
 
 # The chemistry passes of csrc/chemistry.cu. On the host the kernels call
