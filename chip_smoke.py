@@ -141,9 +141,18 @@ Phases (any failure raises and the script exits non-zero):
    version, with and without the heat channel, bit for bit (max_abs_err
    0): on one bench batch (B = 8, Dc = Ds = 64, 72 bins, float32) with
    kernel, plain and matmul-form ms (the pass the engine ran before its
-   kernel, ``rates_he_matmul``), the bound of its bytes and operations
-   (``he_work``) and the rate floor of 2c's dense pass; in float64 at a
-   small shape with zero-density cells.
+   kernel, ``rates_he_matmul``), the rate floor of 2c's dense pass and
+   the bound of its function (``function_bound`` of ``he_work``): the
+   largest of its bytes, its operations and its transcendentals on the
+   MUFU pipe (16 lanes a clock per SM), naming which binds; beside it the
+   time of the kernel's own SASS at the issue rate (``he_rates_sass``: the
+   bin loops from ``cuobjdump -sass``, a bin of each band at its loop's
+   count, spills not counted), a diagnostic; in float64 at a small
+   shape with zero-density cells, with its SASS bin loops; last the
+   float32 error of the three rates and the heat at the helium bench
+   fields against a float64 run (``he_rates_f32_error``: cdin rebuilt as
+   cd - dcol, ROADMAP section 3), each as its largest absolute error over
+   the peak and its largest relative error above 1e-6 of the peak.
 3d. (after 3c) The table-exact flat engine (ops/raytrace.py) at the bench
    configuration in float64 with the model layer's black-body tables: ns per
    cell-update, device launches per batch and the device idle share of a
@@ -235,7 +244,10 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    (also through the entry point hydrogenODE), the helium kernel on 3e's
    rates (float32) and on 4g's last state (float64) in the four
    combinations of its options. Per pass: kernel and plain ms (CUDA
-   events), the bound from the bytes and the iterations of that data, the
+   events), the bound from the bytes and the iterations of that data (the
+   largest of the bytes, the SASS instructions of the loops at the issue
+   rate, their MUFU at 16 lanes a clock per SM and their float64
+   DADD/DMUL/DFMA at 64, naming which binds; the flop bound beside), the
    profiler's device kernels (one, asserted), memsets and host
    synchronisations (none, asserted) beside the plain pass's, and the
    distribution of the iterations per cell.
@@ -352,6 +364,27 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def log_ptxas(word=""):
+    """ptxas's registers, spills and static shared memory of every kernel
+    built in this process whose name holds ``word``, per kernel <element
+    type, template flags> (the sweeps' shared memory is dynamic, see the
+    plans)."""
+    from pyc2ray_torch.ops import _build
+    kernel = ""
+    for line in _build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)"
+                      r"(?:I([fd])((?:Lb[01]E)+))?", line)
+        if m:
+            kernel = m.group(2) + (
+                f"<{'float' if m.group(3) == 'f' else 'double'}, "
+                + ", ".join("true" if b == "1" else "false" for b in
+                            re.findall(r"Lb([01])E", m.group(4))) + ">"
+                if m.group(3) else "")
+        elif ("spill" in line or "registers" in line) and word in kernel:
+            log(f"  ptxas {kernel}: "
+                + line.replace("ptxas info    :", "").strip())
 
 
 def make_bins():
@@ -1736,8 +1769,13 @@ def sass_functions(lib_path):
     name: [(address, instruction, branch target address or None)]}."""
     from pyc2ray_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    return parse_sass(subprocess.run(
+        [tool, "-sass", str(lib_path)], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
+
+
+def parse_sass(text):
+    """``sass_functions`` of cuobjdump's text ``text``."""
     funcs, labels = {}, {}
     name, pending = None, []
     for line in text.splitlines():
@@ -1765,39 +1803,18 @@ def sass_functions(lib_path):
                 for a, i, t in ins] for n, ins in funcs.items()}
 
 
-def loop_counts(ins):
-    """Instructions of a chemistry kernel's two loops from its SASS
-    (``sass_functions``): the inner loop, the smallest region closed by a
-    backward branch that holds a MUFU (transcendental) instruction, and the
-    loop over cells, the smallest such region strictly around it. Returns
-    {"iter", "cell"}: the fewest instructions a lane issues per iteration
-    of the inner loop and per cell around it (the shortest path through
-    each region's forward branches: a lower bound, the slow paths and the
-    sides of a branch that the path skips not counted); "iter_static",
-    "cell_static": every instruction of each region once (an upper
-    estimate: a warp whose lanes part runs both sides of a branch); and the
-    MUFU and float64 instructions of the static counts."""
-    loops = [(t, a) for a, _, t in ins if isinstance(t, int) and t < a]
-    at = {a: i for i, (a, _, _) in enumerate(ins)}
-
-    def region(lo, hi):
-        return [x for x in ins if lo <= x[0] <= hi]
-
-    def n_mufu(r):
-        return sum(bool(re.search(r"\bMUFU\.", x[1])) for x in r)
-
-    def n_dp(r):
-        return sum(bool(re.search(r"\bD(ADD|MUL|FMA|SETP|MNMX)\b", x[1]))
-                   for x in r)
-
+def _path_counts(ins, at):
+    """``shortest(i0, i1)``: the fewest instructions from ins[i0] to
+    ins[i1] inclusive over forward edges (a backward branch falls through),
+    as (instructions, MUFU, float64 DADD/DMUL/DFMA) of that path; the local
+    loads and stores of spilled registers (LDL, STL) are not counted."""
     def shortest(i0, i1):
-        # fewest instructions from ins[i0] to ins[i1] inclusive over
-        # forward edges (a backward branch falls through)
-        inf = float("inf")
-        dist = {i0: 1}
+        inf = (float("inf"), 0, 0)
+        head = ins[i0:i0 + 1]
+        dist = {i0: (1 - n_spill(head), n_mufu(head), n_dp(head))}
         for i in range(i0, i1 + 1):
             d = dist.get(i, inf)
-            if d == inf or i == i1:
+            if d[0] == inf[0] or i == i1:
                 continue
             a, op, t = ins[i]
             uncond = re.match(r"(BRA|EXIT|RET)\b", op) is not None
@@ -1807,8 +1824,56 @@ def loop_counts(ins):
             if isinstance(t, int) and t > a and t in at and at[t] <= i1:
                 nxt.append(at[t])
             for j in nxt:
-                dist[j] = min(dist.get(j, inf), d + 1)
+                step = ins[j:j + 1]
+                cand = (d[0] + 1 - n_spill(step), d[1] + n_mufu(step),
+                        d[2] + n_dp(step))
+                if cand[0] < dist.get(j, inf)[0]:
+                    dist[j] = cand
         return dist.get(i1, inf)
+    return shortest
+
+
+def n_mufu(r):
+    """MUFU (transcendental unit) instructions of the SASS lines ``r``."""
+    return sum(bool(re.search(r"\bMUFU\.", x[1])) for x in r)
+
+
+def n_spill(r):
+    """Local loads and stores (LDL, STL: spilled registers) of ``r``."""
+    return sum(bool(re.match(r"(LDL|STL)\b", x[1])) for x in r)
+
+
+def n_dp(r):
+    """Instructions of ``r`` on the float64 pipe's arithmetic (DADD, DMUL,
+    DFMA)."""
+    return sum(bool(re.search(r"\bD(ADD|MUL|FMA)\b", x[1])) for x in r)
+
+
+def backward_loops(ins):
+    """The (head, back-edge) addresses of the SASS ``ins``' backward
+    branches: each closes a loop."""
+    return [(t, a) for a, _, t in ins if isinstance(t, int) and t < a]
+
+
+def loop_counts(ins):
+    """Instructions of a chemistry kernel's two loops from its SASS
+    (``sass_functions``): the inner loop, the smallest region closed by a
+    backward branch that holds a MUFU (transcendental) instruction, and the
+    loop over cells, the smallest such region strictly around it. Returns
+    {"iter", "cell"}: the fewest instructions a lane issues per iteration
+    of the inner loop and per cell around it (the shortest path through
+    each region's forward branches: a lower bound, the slow paths, the
+    sides of a branch that the path skips and spills not counted), with
+    "mufu_iter"/"dp_iter" the MUFU and float64 DADD/DMUL/DFMA instructions
+    on the iteration's path; "iter_static", "cell_static": every
+    instruction of each region once (an upper estimate: a warp whose lanes
+    part runs both sides of a branch)."""
+    loops = backward_loops(ins)
+    at = {a: i for i, (a, _, _) in enumerate(ins)}
+    shortest = _path_counts(ins, at)
+
+    def region(lo, hi):
+        return [x for x in ins if lo <= x[0] <= hi]
     with_mufu = [lp for lp in loops if n_mufu(region(*lp)) > 0]
     if not with_mufu:
         raise RuntimeError(f"SASS: no loop with a MUFU instruction among "
@@ -1819,18 +1884,94 @@ def loop_counts(ins):
               and lp != inner]
     r_in = region(*inner)
     h, l = at[inner[0]], at[inner[1]]
-    out = dict(iter=shortest(h, l), iter_static=len(r_in),
-               mufu_iter=n_mufu(r_in), dp_iter=n_dp(r_in), cell=0,
-               cell_static=0, mufu_cell=0, dp_cell=0)
+    it = shortest(h, l)
+    out = dict(iter=it[0], mufu_iter=it[1], dp_iter=it[2],
+               iter_static=len(r_in), cell=0, cell_static=0)
     if around:
         outer = min(around, key=lambda lp: lp[1] - lp[0])
         r_out = region(*outer)
         ch, cl = at[outer[0]], at[outer[1]]
-        out.update(cell=shortest(ch, h) - 1 + shortest(l + 1, cl),
-                   cell_static=len(r_out) - len(r_in),
-                   mufu_cell=n_mufu(r_out) - out["mufu_iter"],
-                   dp_cell=n_dp(r_out) - out["dp_iter"])
+        a, b = shortest(ch, h), shortest(l + 1, cl)
+        # the head of the inner loop is counted by the iteration
+        head = ins[h:h + 1]
+        out.update(cell=a[0] - 1 + n_spill(head) + b[0],
+                   cell_static=len(r_out) - len(r_in))
     return out
+
+
+def bin_loops(ins):
+    """The bin loops of a rate-pass kernel from its SASS: every backward
+    branch's region that holds a MUFU instruction and no smaller such
+    region. Returns {"loops": [{"iter", "static", "mufu", "dp", "bins"}]
+    in ascending instructions a bin, "cell"}: per
+    loop the shortest path through one iteration (``loop_counts``'s rule)
+    with its MUFU and float64 instructions, every instruction of the loop
+    once ("static"), and the bins an iteration handles (its divisions, one
+    a bin: a float32 IEEE division checks its range with FCHK, a float64
+    one starts from MUFU.RCP64H); per listed cell the shortest path from
+    the kernel's first instruction to its last EXIT (the block's load of
+    the bins once, the loops skipped where a branch skips them: a lower
+    bound)."""
+    at = {a: i for i, (a, _, _) in enumerate(ins)}
+    shortest = _path_counts(ins, at)
+
+    def region(lo, hi):
+        return [x for x in ins if lo <= x[0] <= hi]
+    cand = [lp for lp in backward_loops(ins) if n_mufu(region(*lp)) > 0]
+    inner = [lp for lp in cand
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                        for o in cand)]
+    loops = []
+    for lo, hi in inner:
+        p = shortest(at[lo], at[hi])
+        r = region(lo, hi)
+        bins = sum(bool(re.search(r"\b(FCHK|MUFU\.RCP64H)\b", x[1]))
+                   for x in r)
+        if bins < 1:
+            raise RuntimeError(f"SASS: a bin loop at {lo:#x} without a "
+                               f"division")
+        loops.append(dict(iter=p[0], static=len(r), mufu=p[1], dp=p[2],
+                          bins=bins))
+    if not loops:
+        raise RuntimeError("SASS: no bin loop with a MUFU instruction")
+    loops.sort(key=lambda d: d["iter"] / d["bins"])
+    last_exit = max(i for i, x in enumerate(ins)
+                    if re.match(r"EXIT\b", x[1]))
+    c = shortest(0, last_exit)
+    return dict(loops=loops, cell=c[0])
+
+
+def sass_issue_s(n_cells, cell, loops):
+    """The time in s a kernel's own instructions take at the card's issue
+    rate (``issue_rate``): ``n_cells`` threads x ``cell`` instructions each
+    and ``loops`` [(passes, instructions a pass)], from its SASS
+    (``loop_counts``, ``bin_loops``), 32 lanes to a warp-instruction, every
+    lane busy. A diagnostic of the kernel, not a bound of its function: it
+    moves with the kernel's code."""
+    tot = n_cells * cell + sum(n * per for n, per in loops)
+    return tot / 32 / issue_rate()[0]
+
+
+def mufu_s(n):
+    """The least time in s of ``n`` transcendentals, each at least one
+    instruction of the MUFU pipe: 16 lanes a clock per SM at the largest
+    SM clock."""
+    _, mhz, sms = issue_rate()
+    return n / (16 * sms * mhz * 1e6)
+
+
+def function_bound(nbytes, t_ops, n_mufu):
+    """The bound of a function on the card from what it needs, whatever
+    kernel runs it: the largest of its bytes at the memory rate, its
+    operations at the peaks of their types (``t_ops`` s, a transcendental
+    one operation) and its ``n_mufu`` transcendentals on the MUFU pipe
+    (``mufu_s``). Returns (ms, "bytes" or "operations", which part binds,
+    {"bytes", "flops", "mufu": ms})."""
+    parts = dict(bytes=1e3 * nbytes / H100_BYTES_PER_S, flops=1e3 * t_ops,
+                 mufu=1e3 * mufu_s(n_mufu))
+    binds = max(parts, key=parts.get)
+    return (parts[binds], "bytes" if binds == "bytes" else "operations",
+            binds, parts)
 
 
 _SASS = {}
@@ -1848,6 +1989,48 @@ def chem_instructions(helium, dtype, heat=False, rec=False):
             else f"hydrogen_pass_kernelI{t}E")
     name = next(n for n in _SASS["funcs"] if want in n)
     return loop_counts(_SASS["funcs"][name])
+
+
+def rates_he_instructions(dtype, heat):
+    """``bin_loops`` of the helium rate pass's kernel (rates_he_kernel of
+    csrc/cheb_rates_he.cuh in the cheb_rates library) of ``dtype``, with
+    or without the heat channel; cached."""
+    from pyc2ray_torch.ops import _build
+    if "rates" not in _SASS:
+        _SASS["rates"] = sass_functions(_build._so_path("cheb_rates"))
+    t = "f" if dtype == torch.float32 else "d"
+    want = f"rates_he_kernelI{t}Lb{int(heat)}E"
+    name = next(n for n in _SASS["rates"] if want in n)
+    return bin_loops(_SASS["rates"][name])
+
+
+def he_rates_sass(rt, rated, heat):
+    """The time one helium rate pass of engine ``rt`` over ``rated`` rated
+    cells takes at the issue rate in the kernel's own SASS
+    (``rates_he_instructions``, ``sass_issue_s``): every listed cell once
+    and every rated cell once per bin, a bin of a loop as many instructions
+    as the loop's iteration over the bins it handles. A kernel with a loop
+    per number of species' terms (bins by band) runs each band's bins in
+    its loop, the bands those of ``cheb_rates.he_first_bins`` (L1, L2, L3
+    bins with 1, 2, 3 species' terms); any other (one loop, every bin all
+    three species) all the bins at the fewest instructions a bin. Returns
+    (s, the SASS counts, the bands or None)."""
+    sass = rates_he_instructions(rt.dtype, heat)
+    heb = rt.he_tables
+    E = heb.se.shape[1]
+    loops = sass["loops"]
+    per_bin = [lp["iter"] / lp["bins"] for lp in loops]
+    bands = None
+    if len(loops) == 3:
+        from pyc2ray_torch.ops.cheb_rates import he_first_bins
+        first = he_first_bins(heb.se, heb.w_se, heb.wh_se if heat else None)
+        k = [sum(e >= f for f in first) for e in range(E)]
+        bands = [k.count(j) for j in (1, 2, 3)]
+        work = [(rated * n, p) for n, p in zip(bands, per_bin)]
+    else:
+        work = [(rated * E, per_bin[0])]
+    n_listed = rt.batch_size * rt.eng.rated_cells.numel()
+    return sass_issue_s(n_listed, sass["cell"], work), sass, bands
 
 
 def issue_rate():
@@ -1881,6 +2064,20 @@ def lane_efficiency(its):
 # float64, and the options their channels
 CHEM_OPS = {"cell": 12, "iter": 45, "he_cell": 16, "he_iter": 40,
             "he_iter_f64": 105, "heat": 14, "rec": 30}
+# transcendentals of a chemistry pass that its function needs whatever the
+# data, each at least one MUFU instruction on the card: a float32 exp,
+# expm1, sqrt or division one and a float32 pow two; a float64 division or
+# sqrt one, a float64 exp, expm1 or pow none (the float64 pipe's). Per cell
+# (h: the temperature's rates, the count's test; he: with the helium
+# rates') and per iteration (h: doric's equilibrium and float32 expm1, the
+# test; he: the same, the helium pair's discriminant and 1 / (l1 - l2)
+# in float64, two more tests; heat: the four pow of the secondary
+# ionisation; rec: the recycling's four divisions). A term on one side of
+# a branch is not counted.
+CHEM_MUFU = {torch.float32: {"h_cell": 6, "h_iter": 3, "he_cell": 16,
+                             "he_iter": 7, "heat": 8, "rec": 4},
+             torch.float64: {"h_cell": 3, "h_iter": 2, "he_cell": 7,
+                             "he_iter": 6, "heat": 0, "rec": 4}}
 
 
 def chemistry_check(label, helium, args, kw, reps=10):
@@ -1937,22 +2134,21 @@ def chemistry_check(label, helium, args, kw, reps=10):
         ops += CHEM_OPS["he_cell"] * n + per * n_it
         ops64 = CHEM_OPS["he_iter_f64"] * n_it
     peak = H100_F32_FLOPS if xh.dtype == torch.float32 else H100_F64_FLOPS
-    # the instructions this data needs at the card's issue rate: the SASS
-    # of the cell loop once per cell and of the inner loop once per
-    # iteration, 32 lanes to a warp-instruction (every lane busy)
+    mu = CHEM_MUFU[xh.dtype]
+    n_mufu = (mu["he_cell"] * n + (mu["he_iter"] + mu["heat"] * heat
+                                   + mu["rec"] * rec) * n_it if helium
+              else mu["h_cell"] * n + mu["h_iter"] * n_it)
+    t_flops = ops / peak + ops64 / H100_F64_FLOPS
+    b_ms, b_by, binds, parts = function_bound(nbytes, t_flops, n_mufu)
+    # beside it, what the kernel's own SASS takes at the issue rate: the
+    # cell loop once per cell and the inner loop once per iteration
     sass = chem_instructions(helium, xh.dtype, heat, rec)
-    rate, mhz, sms = issue_rate()
-    warp_ins = (n * sass["cell"] + n_it * sass["iter"]) / 32
-    t_bytes, t_flops = nbytes / H100_BYTES_PER_S, ops / peak \
-        + ops64 / H100_F64_FLOPS
-    t_issue = warp_ins / rate
-    b_ms = 1e3 * max(t_bytes, t_flops, t_issue)
-    b_by = "bytes" if t_bytes >= max(t_flops, t_issue) else "operations"
+    issue_ms = 1e3 * sass_issue_s(n, sass["cell"], [(n_it, sass["iter"])])
     lane_eff = lane_efficiency(its)
     log(f"  {label}: {name} bit-equal to its plain version (max_abs_err "
         f"{err:g}, count {int(got[-1])}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms per pass, bound {b_ms:.5f} ms ({b_by}: "
-        f"{nbytes / 1e9:.4f} GB, {(ops + ops64) / 1e9:.3f} Gop); per pass "
+        f"{plain_ms:.4f} ms per pass, bound {b_ms:.5f} ms ({binds} binds), "
+        f"the kernel at {b_ms / ms:.3f} of it; per pass "
         f"kernel {pk['kernels']} device kernel(s), {pk['memsets']} "
         f"memset(s), {pk['launch_calls']} launch call(s), {pk['syncs']} host "
         f"syncs; plain {pp['kernels']} kernels, {pp['launch_calls']} launch "
@@ -1961,23 +2157,29 @@ def chemistry_check(label, helium, args, kw, reps=10):
     log(f"    {iteration_text(its, mod.MAX_INNER_ITER)}")
     log(f"    iterations per cell {n_it / n:.4f}, lane efficiency "
         f"{lane_eff:.4f} (the iterations over 32 x each warp's largest, "
-        f"warps of 32 consecutive cells); SASS {sass['iter']} instructions "
-        f"per iteration on the shortest path ({sass['iter_static']} in the "
-        f"loop, {sass['mufu_iter']} MUFU, {sass['dp_iter']} float64), "
-        f"{sass['cell']} per cell around them ({sass['cell_static']}); "
-        f"issue bound "
-        f"{1e3 * t_issue:.5f} ms = ({n} x {sass['cell']} + {n_it:.0f} x "
-        f"{sass['iter']}) / 32 warp-instructions / ({sms} SMs x 4 x "
-        f"{mhz:.0f} MHz), bytes {1e3 * t_bytes:.5f} ms, flops "
-        f"{1e3 * t_flops:.5f} ms; the kernel at "
-        f"{b_ms / ms:.3f} of its bound")
+        f"warps of 32 consecutive cells); the bound of the function is the "
+        f"largest of: bytes {parts['bytes']:.5f} ms ({nbytes / 1e9:.4f} GB), "
+        f"flops {parts['flops']:.5f} ms ({(ops + ops64) / 1e9:.3f} Gop, a "
+        f"transcendental one operation), MUFU {parts['mufu']:.5f} ms "
+        f"({n_mufu / 1e9:.4f} G transcendentals at 16 lanes a clock per "
+        f"SM); the kernel's own SASS at the issue rate {issue_ms:.5f} ms, "
+        f"the kernel at {issue_ms / ms:.3f} of it: {sass['iter']} "
+        f"instructions per iteration on the shortest path without spills "
+        f"({sass['mufu_iter']} MUFU, {sass['dp_iter']} float64 "
+        f"DADD/DMUL/DFMA; {sass['iter_static']} in the loop), "
+        f"{sass['cell']} per cell around them ({sass['cell_static']} "
+        f"static)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_binds=binds, bound_share=b_ms / ms,
                 max_abs_err=err, launches_per_pass=n_kern,
                 plain_launches_per_pass=pp["kernels"],
                 plain_syncs_per_pass=pp["syncs"],
                 iterations_per_cell=n_it / n, lane_efficiency=lane_eff,
-                sass_per_iteration=sass["iter"], sass_per_cell=sass["cell"],
-                issue_bound_ms=1e3 * t_issue, byte_bound_ms=1e3 * t_bytes), its
+                byte_bound_ms=parts["bytes"], flop_bound_ms=parts["flops"],
+                mufu_bound_ms=parts["mufu"],
+                issue_ms_at_own_sass=issue_ms,
+                sass_per_iteration=sass["iter"],
+                sass_per_cell=sass["cell"]), its
 
 
 def doric_reference_form(xh, dt, temp, rhe, phi, p):
@@ -2533,7 +2735,8 @@ def check_sweep_he(bins_he, reps):
 
 
 def he_work(rt, cds, nboxes, heat):
-    """(bytes, operations, rated cells) of one helium rate pass
+    """(bytes, operations, rated cells, transcendentals) of one helium rate
+    pass
     (``rates_he``) of engine ``rt`` on the three species' boxes ``cds`` and
     ``nboxes``, as this data needs them: the host engine's list of rated
     cells (int32), path3 and geominv at the listed cells and the six boxes
@@ -2541,7 +2744,10 @@ def he_work(rt, cds, nboxes, heat):
     bin tables of (3, E) each read once, the 3 (4) rates written at the
     listed cells; HE_OPS_PER_LISTED per listed cell of a box, and the bins'
     and HE_OPS_PER_CELL per rated cell of this data (listed, cdin_HI <=
-    MAX_COLDENSH)."""
+    MAX_COLDENSH); per rated cell and bin from the first at which a species
+    has a term (a non-zero se, w_se or, with heat, wh_se) one exp, one
+    expm1 and one reciprocal in float32, the reciprocal alone in float64
+    (the card's float64 exp and expm1 take no MUFU instruction)."""
     from pyc2ray_torch.constants import MAX_COLDENSH
     eng = rt.eng
     tb, r, Ds = eng.tables, eng._rb0, eng.Ds
@@ -2557,7 +2763,12 @@ def he_work(rt, cds, nboxes, heat):
     ops = (rated * (per_bin * E + HE_OPS_PER_CELL
                     + heat * HE_HEAT_OPS_PER_CELL)
            + HE_OPS_PER_LISTED * B * n_valid)
-    return nbytes, ops, rated
+    heb = rt.he_tables
+    term = (heb.se != 0) | (heb.w_se != 0) | ((heb.wh_se != 0) & heat)
+    with_term = E - int(term.any(0).int().argmax()) if bool(term.any()) \
+        else 0
+    per_bin = 3 if cds[0].dtype == torch.float32 else 1
+    return nbytes, ops, rated, rated * with_term * per_bin
 
 
 def rates_he_matmul(rt, cds, nboxes, flux, dr):
@@ -2646,7 +2857,7 @@ def check_rates_he(bins_he, ns_bin, reps=10):
 
             def kern():
                 return rates_he(cds, nb, *args, wh_se=wh,
-                                cells=eng.rated_cells)
+                                cells=eng.rated_cells, bands=heb.bands)
 
             def plain():
                 return rates_he_ref(cds, nb, *args, wh_se=wh,
@@ -2668,8 +2879,14 @@ def check_rates_he(bins_he, ns_bin, reps=10):
                 if float(got[2][0, c + 1, c, c]) != 0.0:
                     raise RuntimeError(f"{name}: G_HeII at the cell without "
                                        f"HeII is not 0")
+                sass = rates_he_instructions(dt, heat)
                 log(f"  {name} (zero-density cells): max_abs_err={err:.1e} "
-                    f"(bit-equal)")
+                    f"(bit-equal); SASS bin loops (instructions, MUFU, "
+                    f"float64 a pass, static; bins a pass): "
+                    + ", ".join(f"({lp['iter']}, {lp['mufu']}, {lp['dp']}, "
+                                f"{lp['static']}; {lp['bins']})"
+                                for lp in sass["loops"])
+                    + f", {sass['cell']} a listed cell")
                 continue
             mm = rates_he_matmul(rt, cds, nb, flux, DR)
             torch.cuda.synchronize()
@@ -2678,26 +2895,89 @@ def check_rates_he(bins_he, ns_bin, reps=10):
                 raise RuntimeError(f"{name}: the matmul form differs by "
                                    f"{rel:.3e}")
             del got, want, mm
-            nbytes, ops, rated = he_work(rt, cds, nb, heat)
+            nbytes, ops, rated, n_mufu = he_work(rt, cds, nb, heat)
             ms = device_ms(lambda _: kern(), reps)
             b2b = cuda_ms(kern, reps)
             plain_ms = cuda_ms(plain, 1)
             mm_ms = cuda_ms(lambda: rates_he_matmul(rt, cds, nb, flux, DR),
                             2)
-            b_ms, b_by = least_ms(nbytes, ops, dt)
+            peak = H100_F32_FLOPS if dt == torch.float32 else H100_F64_FLOPS
+            b_ms, b_by, binds, parts = function_bound(nbytes, ops / peak,
+                                                      n_mufu)
             floor = 1e-6 * rated * bins_he.num_bins * ns_bin
+            t_sass, sass, bands = he_rates_sass(rt, rated, heat)
+            issue_ms = 1e3 * t_sass
             log(f"  {name}: max_abs_err={err:.1e} (bit-equal) kernel_ms="
                 f"{ms:.4f} on the device with its zeroed outputs ({b2b:.4f} "
                 f"back to back) plain_ms={plain_ms:.4f} matmul_form_ms="
                 f"{mm_ms:.4f} (max rel {rel:.3e} above 1e-6 of the peak) "
-                f"bound_ms={b_ms:.5f} ({b_by}; {nbytes / 1e6:.2f} MB, "
-                f"{ops / 1e9:.3f} Gop) rate_floor_ms={floor:.5f} per call, "
+                f"rate_floor_ms={floor:.5f} per call, "
                 f"{rated} rated cells of {B} x {eng.rated_cells.numel()} "
                 f"listed")
+            log(f"    bound {b_ms:.5f} ms ({binds} binds), the kernel at "
+                f"{b_ms / ms:.3f} of it: bytes {parts['bytes']:.5f} ms "
+                f"({nbytes / 1e6:.2f} MB), flops {parts['flops']:.5f} ms "
+                f"({ops / 1e9:.3f} Gop, a transcendental one operation), "
+                f"MUFU {parts['mufu']:.5f} ms ({n_mufu / 1e9:.4f} G "
+                f"transcendentals: an exp, an expm1 and a reciprocal a bin "
+                f"with a term of a rated cell); the kernel's own SASS at the "
+                f"issue rate {issue_ms:.5f} ms, the kernel at "
+                f"{issue_ms / ms:.3f} of it; SASS bin loops (instructions "
+                f"without spills, MUFU, float64 a pass, static; bins a "
+                f"pass): "
+                + ", ".join(f"({lp['iter']}, {lp['mufu']}, {lp['dp']}, "
+                            f"{lp['static']}; {lp['bins']})"
+                            for lp in sass["loops"])
+                + f", {sass['cell']} a listed cell; bins with 1 / 2 / 3 "
+                f"species' terms {bands}")
             out["heat" if heat else "photo"] = dict(
                 max_abs_err=err, ms=ms, ms_back_to_back=b2b,
                 plain_ms=plain_ms, matmul_form_ms=mm_ms, bound_ms=b_ms,
-                bound_by=b_by, rate_floor_ms=floor, rated_cells=rated)
+                bound_by=b_by, bound_binds=binds, bound_share=b_ms / ms,
+                byte_bound_ms=parts["bytes"], flop_bound_ms=parts["flops"],
+                mufu_bound_ms=parts["mufu"], issue_ms_at_own_sass=issue_ms,
+                sass_bin_loops=sass["loops"], sass_per_cell=sass["cell"],
+                band_bins=bands, rate_floor_ms=floor, rated_cells=rated)
+    return out
+
+
+def he_rates_f32_error(bins_he, heat=True):
+    """Phase 2d: the float32 error of the helium rate pass, which rebuilds
+    each species' cdin = cd - dcol from K1's coldensh_out (ROADMAP §3):
+    one bench batch (B = 8, Dc = Ds = 64, 72 bins) at the helium bench
+    fields (n_H 1e-3, x_HII 1.2e-3, y_HeII 1e-3, y_HeIII 0: the uniform
+    boxes of every source), K1 and rates_he in float32 against the same in
+    float64. Returns {channel: (max |G32 - G64| / peak G64, max relative
+    error above 1e-6 of the peak)} for G_HI, G_HeI, G_HeII and the heat."""
+    from pyc2ray_torch.ops.cheb_rates import rates_he
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    from pyc2ray_torch.ops.sweep import rate_consts
+    got = {}
+    for dt in (torch.float32, torch.float64):
+        rt = HeRaytracer(N_BENCH, R_BENCH, bins_he, ABU_HE,
+                         batch_size=B_BENCH, dtype=dt, do_heating=heat)
+        eng, heb = rt.eng, rt.he_tables
+        shape = (B_BENCH,) + (rt.geom.Dc,) * 3
+        nb = [torch.full(shape, float(v), dtype=dt, device="cuda")
+              for v in rt.species_fields(*(torch.tensor(x, dtype=dt)
+                                           for x in (1e-3, 1.2e-3, 1e-3,
+                                                     0.0)))]
+        cds = [eng.sweep_box(n, DR, sig) for n, sig in zip(nb, rt.sigma_th)]
+        flux = torch.ones(B_BENCH, dtype=dt, device="cuda")
+        got[dt] = rates_he(cds, nb, eng.tables.rt_sub, flux, heb.se,
+                           heb.w_se, DR, rate_consts(DR, dt)[1], eng._rb0,
+                           wh_se=heb.wh_se if heat else None,
+                           cells=eng.rated_cells, bands=heb.bands)
+    out = {}
+    for name, a, b in zip(("G_HI", "G_HeI", "G_HeII", "heat"),
+                          got[torch.float32], got[torch.float64]):
+        a, b = a.double(), b
+        peak = float(b.abs().max())
+        out[name] = (float((a - b).abs().max()) / peak, max_rel(a, b, 1e-6))
+    log("  rates_he float32 against float64 at the helium bench fields "
+        "(one bench batch, cdin rebuilt as cd - dcol in both): "
+        + ", ".join(f"{k} max abs error {v[0]:.3e} of the peak, max rel "
+                    f"{v[1]:.3e} above 1e-6 of it" for k, v in out.items()))
     return out
 
 
@@ -2781,7 +3061,7 @@ def he_loop_work(rt, pads, pos_b):
     sb, sops = sweep_work(B, g.Dc, g.r_max + 1, dt)
     boxes = extract_boxes(pads, pos, 0, g.Dc)
     cds = [eng.sweep_box(b, DR, sig) for b, sig in zip(boxes, rt.sigma_th)]
-    _, rops, _ = he_work(rt, cds, boxes, heat)
+    rops = he_work(rt, cds, boxes, heat)[1]
     n_valid = eng.rated_cells.numel()
     E = rt.he_tables.se.shape[1]
     tables = (sb - 2 * B * g.Dc ** 3 * isz + 4 * n_valid
@@ -4083,22 +4363,7 @@ def main():
         nccl_branch(smi)
         log(f"chip_smoke --nccl wall time: {time.time() - T_START:.1f} s")
         return 0
-    # per kernel <element type, planes shared(, heat output)>: registers,
-    # spills, static shared memory (the sweeps' shared memory is dynamic,
-    # see the plans)
-    kernel = ""
-    for line in _build.build_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)"
-                      r"(?:I([fd])((?:Lb[01]E)+))?", line)
-        if m:
-            kernel = m.group(2) + (
-                f"<{'float' if m.group(3) == 'f' else 'double'}, "
-                + ", ".join("true" if b == "1" else "false" for b in
-                            re.findall(r"Lb([01])E", m.group(4))) + ">"
-                if m.group(3) else "")
-        elif "spill" in line or "registers" in line:
-            log(f"  ptxas {kernel}: "
-                + line.replace("ptxas info    :", "").strip())
+    log_ptxas()
     barrier_us = barrier_costs(B_BENCH)
     log(f"cluster barrier, {B_BENCH} clusters of 512 threads per block: "
         + ", ".join(f"C={C} {us:.4f} us" for C, us in barrier_us.items()))
@@ -4182,6 +4447,7 @@ def main():
     log("rates_he, the helium engine's three-species rate pass, on K1's "
         "boxes:")
     k_rates_he = check_rates_he(bins_he, ns_bin)
+    k_rates_he["f32_error"] = he_rates_f32_error(bins_he)
     if "--kernels" in sys.argv[1:]:
         log(f"chip_smoke --kernels wall time: {time.time() - T_START:.1f} s")
         return 0
@@ -4669,7 +4935,8 @@ def main():
         dict(name="rates_he", source=src + "cheb_rates_he.cuh",
              replaces="pyc2ray_tpu/ops/raytrace_he.py:98",
              launches=k_he_bench["launches"]["rates_he"],
-             **k_rates_he["photo"], with_heat=k_rates_he["heat"]),
+             **k_rates_he["photo"], with_heat=k_rates_he["heat"],
+             f32_error=k_rates_he["f32_error"]),
         dict(name="he_trace_sweep", source=src + "trace_loop.cu",
              replaces="pyc2ray_tpu/ops/raytrace_he.py:92",
              launches=k_he_bench["launches"]["he_trace_sweep"],

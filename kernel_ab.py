@@ -28,21 +28,36 @@ through entry points that every checkout since the trace loop has:
   ms per trace (CUDA events, the least of 3) and, from one profiled
   trace, each kernel's median device us and the gap before it
   (``loop_kernel_gaps``);
+- the helium rate pass alone (the engine's ``_rates_he``, one launch of
+  ``cheb_rates.rates_he``) at the bench shape (one batch, B = 8, Dc = Ds =
+  64, 72 bins, float32, chip_smoke phase 2d's boxes), with and without the
+  heat channel: ms per call (CUDA events, back to back), bit-equal to
+  ``rates_he_ref`` (asserted), chip_smoke's bound of the function
+  (``function_bound`` of ``he_work``) and the time of the kernel's own
+  SASS at the issue rate (``he_rates_sass``);
 - with ``--chemistry``, the hydrogen chemistry pass (``global_pass``, one
   kernel launch) on phase 3's Gamma (256^3 float32, chip_smoke's bench
   fields) and on the EoR run's last state (250^3, both slices of
   examples/eor_simulation with one timestep each, float32 and float64):
   ms per pass (CUDA events), bit-equal to ``global_pass_ref`` (asserted),
-  iterations per cell and lane efficiency. ``--state FILE`` keeps that
-  state in FILE (.npz): made by the first run that finds none, read by
-  the others, so that every checkout of a call passes the same inputs.
+  iterations per cell and lane efficiency; and the helium pass
+  (``global_pass_he``) on phase 3e's state (the helium bench fields and
+  the rates of its trace, 256^3) in float32 and float64, each with and
+  without the heat channel and the recombination photons (chip_smoke's
+  ``chemistry_check``: bit-equal to ``global_pass_he_ref`` and one launch
+  a pass, asserted; ms per pass, the bound of the function and the time of
+  the kernel's own SASS at the issue rate). ``--state FILE`` keeps
+  the EoR state in FILE (.npz) and the helium state beside it (FILE's name
+  with ``_he``): each made by the first run that finds none, read by the
+  others, so that every checkout of a call passes the same inputs.
 
 ``--chunks`` measures the bench default and EoR-bucket traces again with
 the loop's extract forced to each chunk of batches K (a checkout with the
-chunked extract, ``trace_loop.chunk_size``). ``--traces`` measures the
-traces (and, with ``--chemistry``, the passes) alone. Prints the card's name and power limit, then one line per
-measurement and last a JSON object of the numbers under ``label``. Run two
-checkouts in turns in one call (A, B, B, A) to compare them on one card.
+chunked extract, ``trace_loop.chunk_size``). ``--traces`` measures
+``rates_he`` and the traces (and, with ``--chemistry``, the passes) alone.
+Prints the card's name and power limit, then one line per measurement and
+last a JSON object of the numbers under ``label``. Run two checkouts in
+turns in one call (A, B, B, A) to compare them on one card.
 """
 
 import argparse
@@ -129,27 +144,126 @@ def eor_state(cs, path):
     return out
 
 
+# the numbers of a chemistry_check kept per pass
+CHEM_KEYS = ("ms", "bound_ms", "bound_binds", "bound_share",
+             "issue_ms_at_own_sass", "iterations_per_cell", "lane_efficiency")
+
+
 def chem_pass(cs, label, dt, nd, temp, xh, phi, chem, reps=20):
-    """ms per global_pass (CUDA events), bit-equal to global_pass_ref
-    (asserted), with the iterations per cell and the lane efficiency."""
-    from pyc2ray_torch.ops import chemistry as ch
-    got = ch.global_pass(dt, nd, temp, xh, xh, phi, chem)
-    want = ch.global_pass_ref(dt, nd, temp, xh, xh, phi, chem)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise RuntimeError(f"{label}: global_pass differs from "
-                           f"global_pass_ref")
-    del got, want
-    its = torch.empty(xh.shape, dtype=torch.int32, device=xh.device)
-    ch._pass_cuda(dt, nd, temp, xh, xh, phi, chem, iterations=its)
-    ms = cs.cuda_ms(lambda: ch.global_pass(dt, nd, temp, xh, xh, phi, chem),
-                    reps)
-    n_it = float(its.double().mean())
-    eff = cs.lane_efficiency(its)
-    cs.log(f"{label}: global_pass {ms:.4f} ms per pass (bit-equal to "
-           f"global_pass_ref), iterations per cell {n_it:.4f}, lane "
-           f"efficiency {eff:.4f}")
-    return dict(ms=ms, iterations_per_cell=n_it, lane_efficiency=eff)
+    """ms per global_pass (CUDA events), bit-equal to global_pass_ref and
+    one launch a pass (asserted), with the iterations per cell, the lane
+    efficiency, the bound of its function and the time of its own SASS
+    (chip_smoke's ``chemistry_check``)."""
+    k, _ = cs.chemistry_check(label, False, (dt, nd, temp, xh, xh, phi,
+                                             chem), {}, reps=reps)
+    return {key: k[key] for key in CHEM_KEYS}
+
+
+def he_rate_pass(cs, reps=20):
+    """ms per rate pass of the helium engine (``_rates_he``: one
+    ``rates_he`` launch; CUDA events, back to back, with its zeroed
+    outputs) at the bench shape on chip_smoke phase 2d's boxes, with and
+    without the heat channel, bit-equal to ``rates_he_ref`` (asserted),
+    with the bound of its function and the time of the kernel's own SASS at
+    the issue rate."""
+    from pyc2ray_torch.ops.cheb_rates import rates_he_ref
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    from pyc2ray_torch.ops.sweep import rate_consts
+    dt, out = torch.float32, {}
+    for heat in (False, True):
+        rt = HeRaytracer(cs.N_BENCH, cs.R_BENCH, cs.he_bins(), cs.ABU_HE,
+                         batch_size=cs.B_BENCH, dtype=dt, do_heating=heat)
+        eng, heb = rt.eng, rt.he_tables
+        cds, nb, flux = cs.he_boxes(rt, cs.B_BENCH, dt, seed=13)
+        got = rt._rates_he(cds, nb, flux, cs.DR)
+        want = rates_he_ref(cds, nb, eng.tables.rt_sub, flux, heb.se,
+                            heb.w_se, cs.DR, rate_consts(cs.DR, dt)[1],
+                            eng._rb0, wh_se=heb.wh_se if heat else None,
+                            cells=eng.rated_cells)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            raise RuntimeError(f"rates_he heat={heat}: the kernel differs "
+                               f"from the plain pass")
+        del got, want
+        ms = cs.cuda_ms(lambda: rt._rates_he(cds, nb, flux, cs.DR), reps)
+        nbytes, ops, rated, n_mufu = cs.he_work(rt, cds, nb, heat)
+        bound = cs.function_bound(nbytes, ops / cs.H100_F32_FLOPS,
+                                  n_mufu)[0]
+        t_sass, sass, _ = cs.he_rates_sass(rt, rated, heat)
+        issue = 1e3 * t_sass
+        key = "rates_he_heat" if heat else "rates_he"
+        cs.log(f"{key} bench B={cs.B_BENCH} Dc={rt.geom.Dc} Ds={eng.Ds} "
+               f"E={heb.se.shape[1]}: {ms:.4f} ms per call back to back "
+               f"(bit-equal to the plain pass); bound {bound:.5f} ms, the "
+               f"kernel at {bound / ms:.3f} of it; its own SASS at the issue "
+               f"rate {issue:.5f} ms, the kernel at {issue / ms:.3f} of it; "
+               f"SASS bin loops "
+               + str([(lp["iter"], lp["static"], lp["bins"])
+                      for lp in sass["loops"]]) + " (shortest path without "
+               f"spills, static, bins a pass)")
+        out[f"{key}_ms"] = ms
+        out[f"{key}_bound_ms"] = bound
+        out[f"{key}_issue_ms_at_own_sass"] = issue
+    return out
+
+
+def he_state(cs, path, he):
+    """Phase 3e's helium state: the helium bench fields (n_H 1e-3, x 1.2e-3,
+    y1 1e-3, y2 0, T 1e4 on 256^3 cells) and the three rates of one trace
+    of the helium bench (float32, as float64 arrays in memory), read from
+    ``path`` where it exists, else traced by ``he`` (a float32
+    HeRaytracer) and written there (``path`` may be None)."""
+    if path and os.path.exists(path):
+        z = np.load(path)
+        return [z[f"g{s}"] for s in range(3)]
+    N = cs.N_BENCH
+    src = np.random.RandomState(100).randint(0, N, size=(cs.NS_BENCH, 3))
+    pos_b, flux_b = he.prepare_sources(src, np.ones(cs.NS_BENCH))
+    f = [torch.full((N,) * 3, v, dtype=torch.float32, device="cuda")
+         for v in (1e-3, 1.2e-3, 1e-3, 0.0)]
+    g = [t.cpu().numpy() for t in he.trace_batches(*f, pos_b, flux_b,
+                                                    cs.DR)[:3]]
+    if path:
+        np.savez(path, **{f"g{s}": a for s, a in enumerate(g)})
+    return g
+
+
+def he_chemistry(cs, state_path):
+    """The helium pass on phase 3e's state in float32 and float64, with
+    and without the heat channel (a photoheating rate of 5e-12 erg per HI
+    ionisation) and the recombination photons: chip_smoke's
+    ``chemistry_check`` (bit-equal, one launch a pass, asserted)."""
+    from pyc2ray_torch.ops.chemistry_he import HeChemistryParams
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    path = None
+    if state_path:
+        root, ext = os.path.splitext(state_path)
+        path = f"{root}_he{ext or '.npz'}"
+    he = HeRaytracer(cs.N_BENCH, cs.R_BENCH, cs.he_bins(), cs.ABU_HE,
+                     batch_size=cs.B_BENCH, dtype=torch.float32)
+    g = he_state(cs, path, he)
+    del he
+    phe = HeChemistryParams(chem=cs.chem_params(), abu_he=cs.ABU_HE)
+    n, out = cs.N_BENCH ** 3, {}
+    for t, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        def grid(v):
+            return torch.full((n,), v, dtype=t, device="cuda")
+        nd, temp, xh, y1, y2 = (grid(v) for v in (1e-3, 1e4, 1.2e-3, 1e-3,
+                                                  0.0))
+        rates = [torch.from_numpy(a.reshape(-1)).to("cuda", t) for a in g]
+        args = (torch.tensor(cs.DT, dtype=t).to("cuda"), nd, temp, xh, xh,
+                y1, y1, y2, y2, *rates, phe)
+        for heat in (False, True):
+            for rec in (False, True):
+                kw = dict(heat=5e-12 * rates[0] if heat else None,
+                          recombination_photons=rec)
+                k, _ = cs.chemistry_check(
+                    f"chemistry_he 3e's state 256^3 {tag} heat {heat} "
+                    f"recombination photons {rec}", True, args, kw, reps=10)
+                out[f"chem_he_{tag}{'_heat' if heat else ''}"
+                    f"{'_rec' if rec else ''}"] = {
+                        key: k[key] for key in CHEM_KEYS}
+    return out
 
 
 def chemistry(cs, bins, state_path):
@@ -212,15 +326,30 @@ def he_trace(cs, label, rt, pads, pos_b, flux_b):
                                                    flux_b))
 
 
+def helium_bench(cs, src):
+    """The helium bench trace (``he_trace``) of phase 3e's configuration
+    and fields: 256 batches of B = 8 at R = 30, 72 bins, float32."""
+    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
+    N, dt = cs.N_BENCH, torch.float32
+    he = HeRaytracer(N, cs.R_BENCH, cs.he_bins(), cs.ABU_HE,
+                     batch_size=cs.B_BENCH, dtype=dt)
+    he_pos, he_flux = he.prepare_sources(src, np.ones(cs.NS_BENCH))
+    he_pads = [he.eng.wrap_pad(f) for f in he.species_fields(
+        *(torch.full((N,) * 3, v, dtype=dt, device="cuda")
+          for v in (1e-3, 1.2e-3, 1e-3, 0.0)))]
+    return he_trace(cs, f"helium bench N={N} B={cs.B_BENCH}", he, he_pads,
+                    he_pos, he_flux)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="the checkout whose pyc2ray_torch is measured")
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--traces", action="store_true",
-                    help="measure the three traces only")
+                    help="measure the rate pass rates_he and the traces only")
     ap.add_argument("--chemistry", action="store_true",
-                    help="also the hydrogen chemistry pass")
+                    help="also the chemistry passes")
     ap.add_argument("--state", default=None,
                     help="the .npz file of the EoR state the passes share")
     ap.add_argument("--chunks", default="",
@@ -244,8 +373,13 @@ def main():
     t0 = time.time()
     _build.load()
     cs.log(f"build: {time.time() - t0:.2f} s")
+    cs.log_ptxas("rates_he")
+    cs.log_ptxas("helium")
     bins = cs.make_bins()
     out = dict(label=args.label, device=smi)
+    out.update(he_rate_pass(cs))
+    dt, N = torch.float32, cs.N_BENCH
+    src = np.random.RandomState(100).randint(0, N, size=(cs.NS_BENCH, 3))
     for heat in () if args.traces else (False, True):
         for N, R, key in ((cs.N_BENCH, cs.R_BENCH, "bench"),
                           (cs.N_R100, cs.R_R100, "r100")):
@@ -257,10 +391,8 @@ def main():
         cs.check_box_kernels(f"{tag} B={B} Dc={Dc} frame {side}^3",
                              (side,) * 3, B, Dc, torch.float32, seed=12,
                              reps=20)
-    dt, N = torch.float32, cs.N_BENCH
     rt = ChebRaytracer(N, cs.R_BENCH, cs.SIG, bins, batch_size=cs.B_BENCH,
                        dtype=dt)
-    src = np.random.RandomState(100).randint(0, N, size=(cs.NS_BENCH, 3))
     pos_b, flux_b = rt.prepare_sources(src, np.ones(cs.NS_BENCH))
     nhi = torch.full((N,) * 3, 1e-3 * (1.0 - 1.2e-3), dtype=dt,
                      device="cuda")
@@ -285,17 +417,7 @@ def main():
     out["eor_bucket"] = trace(cs, f"EoR bucket R={cs.R_EOR[0]:.2f} "
                               f"B={cs.B_EOR} (K3), {nb} batches", rt, pad,
                               pos_b, flux_b)
-    from pyc2ray_torch.ops.raytrace_he import HeRaytracer
-    he = HeRaytracer(N, cs.R_BENCH, cs.he_bins(), cs.ABU_HE,
-                     batch_size=cs.B_BENCH, dtype=dt)
-    he_pos, he_flux = he.prepare_sources(src, np.ones(cs.NS_BENCH))
-    he_pads = [he.eng.wrap_pad(f) for f in he.species_fields(
-        *(torch.full((N,) * 3, v, dtype=dt, device="cuda")
-          for v in (1e-3, 1.2e-3, 1e-3, 0.0)))]
-    out["helium_bench"] = he_trace(cs, f"helium bench N={N} "
-                                   f"B={cs.B_BENCH}", he, he_pads, he_pos,
-                                   he_flux)
-    del he, he_pads
+    out["helium_bench"] = helium_bench(cs, src)
     if args.chunks:
         from pyc2ray_torch.ops import trace_loop
         rule = trace_loop.chunk_size
@@ -308,6 +430,7 @@ def main():
         trace_loop.chunk_size = rule
     if args.chemistry:
         out.update(chemistry(cs, bins, args.state))
+        out.update(he_chemistry(cs, args.state))
     cs.log(json.dumps(out))
     return 0
 

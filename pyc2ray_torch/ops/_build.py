@@ -48,9 +48,9 @@ _SIGNATURES = {
         # cd, nhi, rt_sub, cells, flux, bins_s, bins_w, bins_wh, phi, heat;
         # B, E, Dc, Ds, rb0, n_valid; dr, sig, sdr3; stream
         "rates_dense": [_P] * 10 + [_I] * 6 + [_D] * 3 + [_P],
-        # cd x 3, n x 3, rt_sub, cells, flux, se, w_se, wh_se, out x 4;
-        # B, E, Dc, Ds, rb0, n_valid; dr, sdr3; stream
-        "rates_he": [_P] * 16 + [_I] * 6 + [_D] * 2 + [_P],
+        # cd x 3, n x 3, rt_sub, cells, flux, rec, bands, out x 4;
+        # B, Dc, Ds, rb0, n_valid; dr, sdr3; stream
+        "rates_he": [_P] * 15 + [_I] * 5 + [_D] * 2 + [_P],
     },
     "trace_loop": {
         # frames, boxes, channels, pos, batch, B, D, shift, F0, F1, F2,
@@ -63,9 +63,9 @@ _SIGNATURES = {
         # threads_b, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb, chunk
         "cheb_trace_sweep": [_P] * 24 + [_I, _I, _D, _D, _D] + [_I] * 11
         + _LAUNCH,
-        # 24 pointers and the scratch; E, sdr3, sigma_HeI, sigma_HeII,
+        # 23 pointers and the scratch; sdr3, sigma_HeI, sigma_HeII,
         # rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb, chunk
-        "he_trace_sweep": [_P] * 25 + [_I, _D, _D, _D] + [_I] * 10
+        "he_trace_sweep": [_P] * 24 + [_D, _D, _D] + [_I] * 10
         + _LAUNCH,
     },
     "chemistry": {

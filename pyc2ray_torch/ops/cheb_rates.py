@@ -44,21 +44,27 @@ wh_se the engine's (3, E) bin tables (``raytrace_he.HeBinTables``):
 0 where the cell is not valid, cdin_HI exceeds MAX_COLDENSH or n_s <= 0
 (the heat where G_HI is), tiny the JAX engine's (``HE_TINY``).
 ``rates_he_ref`` evaluates that op by op at the rated cells in the
-kernel's order (the bins one after the other, each species sum in the order
-HI, HeI, HeII); ``rates_he`` runs it for a CPU tensor and the kernel of
-csrc/cheb_rates_he.cuh for a CUDA tensor (one launch, counted in
-``sweep.launches["rates_he"]``), bit-equal to it on the card.
+kernel's order: the bins one after the other, each with the terms of the
+species that have one there (``he_first_bins``: a species has a term from
+the first bin at which its se, w_se or wh_se is not 0; a term left out is
+c 0 with c finite, which leaves every sum's bits as they are), each
+species sum in the order HI, HeI, HeII. ``rates_he`` runs it for a CPU
+tensor and the kernel of csrc/cheb_rates_he.cuh for a CUDA tensor (one
+launch, counted in ``sweep.launches["rates_he"]``), bit-equal to it on the
+card. The kernel takes the bins by band as ``he_bands`` packs them, once
+per engine (``raytrace_he.HeBinTables.bands``).
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..constants import MAX_COLDENSH
 from . import sweep
 
-__all__ = ["rated_cells", "rates_dense", "rates_dense_ref", "rates_he",
-           "rates_he_ref"]
+__all__ = ["HeBands", "he_bands", "he_first_bins", "rated_cells",
+           "rates_dense", "rates_dense_ref", "rates_he", "rates_he_ref"]
 
 # the floor of the helium pass's dtau and densities, the JAX engine's
 HE_TINY = {torch.float32: 1e-30, torch.float64: 1e-280}
@@ -179,6 +185,64 @@ def _listed(cells, rt_sub, rb0, Dc):
     return idx, ((i + rb0) * Dc + j + rb0) * Dc + (jk - j * Ds) + rb0
 
 
+def he_first_bins(se, w_se, wh_se=None):
+    """The first bin at which each species (HI, HeI, HeII) of the (3, E)
+    tables has a non-zero se, w_se or (given) wh_se, E where it has none:
+    from there on the helium rate pass gives the species a term in every
+    bin, in the plain version and in the kernel (``he_bands``) alike."""
+    tabs = [se, w_se] + ([] if wh_se is None else [wh_se])
+    nz = torch.stack([t != 0 for t in tabs]).any(0).cpu()
+    E = nz.shape[1]
+    return [int(torch.nonzero(r)[0]) if bool(r.any()) else E for r in nz]
+
+
+# bins a thread of the helium kernel has in flight (kHeUnroll of
+# csrc/cheb_rates_he.cuh): a band's records are padded to a multiple
+HE_UNROLL = 2
+
+
+class HeBands(NamedTuple):
+    """The helium rate kernel's bins by band (``he_bands``)."""
+    head: torch.Tensor      # (17,) int32 on the host, kHeHead of the kernel
+    rec: torch.Tensor       # the records, on the tables' device
+
+
+def he_bands(se, w_se, wh_se=None):
+    """The (3, E) tables ``se``, ``w_se`` and (given) ``wh_se`` by band, as
+    the helium rate kernel takes them: band j (0, 1, 2) holds the bins
+    from the (j + 1)-th species' first bin (``he_first_bins``, the species
+    in that order) to the next species', with the terms of the j + 1 first
+    species. Each bin is one record: the se, then the w_se and wh_se of the
+    band's species in ascending order, padded with zeros to whole 16-byte
+    vectors; each band is padded with records of zeros to a multiple of
+    HE_UNROLL. ``head``: whether the records hold wh_se, their values in
+    all, then per band its passes of HE_UNROLL records, the offset of its
+    first record and its species (three slots)."""
+    first = he_first_bins(se, w_se, wh_se)
+    tabs = [t.cpu() for t in (se, w_se, wh_se) if t is not None]
+    E, vec = se.shape[1], 16 // se.element_size()
+    order = sorted(range(3), key=lambda s: (first[s], s))
+    iters, offs, species, recs = [], [], [], []
+    n_rec = 0
+    for j in range(3):
+        lo = min(first[order[j]], E)
+        hi = min(first[order[j + 1]], E) if j < 2 else E
+        sp = sorted(order[:j + 1])
+        n = -(-(hi - lo) // HE_UNROLL) * HE_UNROLL
+        rec = torch.zeros((n, -(-len(tabs) * (j + 1) // vec) * vec),
+                          dtype=se.dtype)
+        rec[:hi - lo, :len(tabs) * (j + 1)] = torch.cat(
+            [t[sp, lo:hi].T for t in tabs], 1)
+        iters.append(n // HE_UNROLL)
+        offs.append(n_rec)
+        species += sp + [0] * (2 - j)
+        recs.append(rec.reshape(-1))
+        n_rec += rec.numel()
+    head = [int(wh_se is not None), n_rec] + iters + offs + species
+    return HeBands(torch.tensor(head, dtype=torch.int32),
+                   torch.cat(recs).to(se.device))
+
+
 def rates_he_ref(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
                  wh_se=None, *, cells):
     """Plain version of ``rates_he``: ``cds`` and ``nboxes`` the three
@@ -205,17 +269,23 @@ def rates_he_ref(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
     zero = torch.zeros_like(dcol[0])
     acc = [zero] * 3
     acc_h = [zero] * 3
+    first = he_first_bins(se, w_se, wh_se)
     for e in range(se.shape[1]):
-        tau = cdin[0] * se[0, e]
-        dtau = dcol[0] * se[0, e]
-        for s in (1, 2):
+        terms = [s for s in range(3) if e >= first[s]]
+        if not terms:
+            continue
+        s0 = terms[0]
+        tau = cdin[s0] * se[s0, e]
+        dtau = dcol[s0] * se[s0, e]
+        for s in terms[1:]:
             tau = tau + cdin[s] * se[s, e]
             dtau = dtau + dcol[s] * se[s, e]
         core = torch.exp(-tau) * (-torch.expm1(-dtau))
         inv = core / torch.clamp(dtau, min=tiny)
-        acc = [a + inv * w_se[s, e] for s, a in enumerate(acc)]
-        if wh_se is not None:
-            acc_h = [a + inv * wh_se[s, e] for s, a in enumerate(acc_h)]
+        for s in terms:
+            acc[s] = acc[s] + inv * w_se[s, e]
+            if wh_se is not None:
+                acc_h[s] = acc_h[s] + inv * wh_se[s, e]
     pref = flux[:, None] * sdr3 * geominv[None]
     ok = cdin[0] <= max_cd
     outs = [torch.where(ok & (n[s] > 0),
@@ -240,11 +310,12 @@ def rates_he_ref(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
 
 
 def rates_he(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
-             wh_se=None, *, cells):
+             wh_se=None, *, cells, bands=None):
     """The helium rate pass on the device of the boxes (arguments as
     ``rates_he_ref``, ``cells`` int32, 1 to Ds^3 of them): the plain version
     for CPU tensors, one launch of the kernel for CUDA ones, which returns
-    the same bits."""
+    the same bits. ``bands``: the tables by band (``he_bands``), which an
+    engine packs once; packed here where not given."""
     if len(cds) != 3 or len(nboxes) != 3:
         raise ValueError(f"rates_he: {len(cds)} and {len(nboxes)} boxes, "
                          f"three species each")
@@ -252,27 +323,28 @@ def rates_he(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
         return rates_he_ref(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3,
                             rb0, wh_se, cells=cells)
     dt = cds[0].dtype
-    B, Dc, Ds, E = cds[0].shape[0], cds[0].shape[-1], rt_sub.shape[-1], \
-        se.shape[-1]
+    B, Dc, Ds = cds[0].shape[0], cds[0].shape[-1], rt_sub.shape[-1]
     if not 0 <= rb0 <= Dc - Ds:
         raise ValueError(f"rates_he: a rates subbox of {Ds} at {rb0} "
                          f"leaves the box {Dc}")
+    if bands is None:
+        bands = he_bands(se, w_se, wh_se)
+    heat = wh_se is not None
     box = (B, Dc, Dc, Dc)
     spec = {f"{k}{s}": (t, box, dt) for k, ts in (("cd", cds), ("n", nboxes))
             for s, t in enumerate(ts)}
     spec.update(rt_sub=(rt_sub, (3, Ds, Ds, Ds), dt), flux=(flux, (B,), dt),
-                se=(se, (3, E), dt), w_se=(w_se, (3, E), dt))
-    if wh_se is not None:
-        spec["wh_se"] = (wh_se, (3, E), dt)
-    spec["cells"] = (cells, (cells.numel(),), torch.int32)
+                rec=(bands.rec, (bands.rec.numel(),), dt),
+                cells=(cells, (cells.numel(),), torch.int32))
     sfx = sweep._check("rates_he", cds[0], spec)
+    _check_bands("rates_he", bands, heat)
     if not 1 <= cells.numel() <= Ds ** 3:
         raise ValueError(f"rates_he: {cells.numel()} rated cells, the kernel "
                          f"takes 1 to Ds^3")
     from ._build import load
     lib = load("cheb_rates")
     outs = [torch.zeros((B, Ds, Ds, Ds), dtype=dt, device=cds[0].device)
-            for _ in range(3 + (wh_se is not None))]
+            for _ in range(3 + heat)]
     ptr = sweep._ptr
 
     def opt(t):
@@ -280,11 +352,24 @@ def rates_he(cds, nboxes, rt_sub, flux, se, w_se, dr, sdr3, rb0,
     stream = torch.cuda.current_stream(cds[0].device).cuda_stream
     err = getattr(lib, f"rates_he_{sfx}")(
         *map(ptr, cds), *map(ptr, nboxes), ptr(rt_sub), ptr(cells),
-        ptr(flux), ptr(se), ptr(w_se), opt(wh_se), *map(ptr, outs[:3]),
-        opt(outs[3] if len(outs) > 3 else None), B, E, Dc, Ds, rb0,
+        ptr(flux), ptr(bands.rec), ptr(bands.head), *map(ptr, outs[:3]),
+        opt(outs[3] if heat else None), B, Dc, Ds, rb0,
         cells.numel(), float(dr), float(sdr3), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"rates_he kernel launch failed: CUDA error {err} "
                            f"({lib.error_string(err)!r})")
     sweep.launches["rates_he"] += 1
     return outs
+
+
+def _check_bands(name, bands, heat):
+    """Raise unless ``bands`` (``he_bands``) were packed with the heat
+    channel's table exactly where ``heat``, their header on the host."""
+    head = bands.head
+    if (head.device.type != "cpu" or head.dtype != torch.int32
+            or head.shape != (17,) or bool(head[0]) != heat
+            or int(head[1]) != bands.rec.numel()):
+        raise ValueError(f"{name}: bands of header {head.tolist()} on "
+                         f"{head.device} and {bands.rec.numel()} values are "
+                         f"not he_bands' {'with' if heat else 'without'} "
+                         f"the heat channel's table")

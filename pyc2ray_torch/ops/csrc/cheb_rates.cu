@@ -38,26 +38,29 @@ RATES_DENSE_ENTRY(f64, double)
 // The helium pass over B boxes on `stream` at the n_valid rated cells
 // `cells` of the subbox: the three species' coldensh_out boxes cd0..cd2 and
 // absorber boxes n0..n2 (HI, HeI, HeII) in, G_HI, G_HeI, G_HeII into
-// out0..out2 and, where `wh_se` and `out3` are set, the heat per HI atom
-// into out3, all zeroed by the caller. dr and sdr3 (S* / dr^3) are rounded
-// to the element type here, as the plain version rounds them. Returns the
+// out0..out2 and, where `out3` is set, the heat per HI atom into out3, all
+// zeroed by the caller; the bins by band as ops/cheb_rates.py::he_bands
+// packs them, the records `rec` on the card and their header `bands`
+// (kHeHead ints) on the host. dr and sdr3 (S* / dr^3) are rounded to the
+// element type here, as the plain version rounds them. Returns the
 // cudaError_t of the launch.
 #define RATES_HE_ENTRY(SFX, T)                                                \
   int rates_he_##SFX(const void* cd0, const void* cd1, const void* cd2,       \
                      const void* n0, const void* n1, const void* n2,          \
                      const void* rt, const int* cells, const void* flux,      \
-                     const void* se, const void* w_se, const void* wh_se,     \
-                     void* out0, void* out1, void* out2, void* out3, int B,   \
-                     int E, int Dc, int Ds, int rb0, int n_valid, double dr,  \
-                     double sdr3, void* stream) {                             \
+                     const void* rec, const int* bands, void* out0,           \
+                     void* out1, void* out2, void* out3, int B, int Dc,       \
+                     int Ds, int rb0, int n_valid, double dr, double sdr3,    \
+                     void* stream) {                                          \
     using P = const T*;                                                       \
     return cheb::launch_rates_he<T>(                                          \
         cheb::HeRates<T>{{(P)cd0, (P)cd1, (P)cd2},                            \
                          {(P)n0, (P)n1, (P)n2},                               \
-                         (P)rt, cells, (P)flux, (P)se, (P)w_se, (P)wh_se,     \
+                         (P)rt, cells, (P)flux, (P)rec,                       \
+                         cheb::he_bands_of(bands),                            \
                          {static_cast<T*>(out0), static_cast<T*>(out1),       \
                           static_cast<T*>(out2), static_cast<T*>(out3)},      \
-                         B, E, Dc, Ds, rb0, n_valid, static_cast<T>(dr),      \
+                         B, Dc, Ds, rb0, n_valid, static_cast<T>(dr),         \
                          static_cast<T>(sdr3)},                               \
         static_cast<cudaStream_t>(stream));                                   \
   }

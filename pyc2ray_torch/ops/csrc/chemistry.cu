@@ -45,6 +45,15 @@
 // two to six transcendentals an iteration, so the pass is bound by the
 // iterations of its slowest cells. The kernel keeps a cell's state in
 // registers for all of them.
+//
+// Latency. The helium pass's iteration is long float64 chains (its 2x2
+// solve is float64 in either type): its instructions need a quarter to a
+// half of the time it takes at the issue rate, and less on the float64
+// pipe (64 lanes a clock per SM) and the MUFU, with 80-110 registers a
+// thread, two blocks of 256 to an SM. So it caps its registers
+// (he_min_blocks): three or four blocks to an SM, some of a cell's state
+// spilled to local memory, which L1 keeps, and more warps to hide the
+// chains.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -462,8 +471,17 @@ __device__ __forceinline__ T svs(T xc, double C, double a, double b) {
              static_cast<T>(C));
 }
 
+// Blocks of kThreads an SM that the helium kernel's registers must allow
+// (64 registers a thread at 4, 80 at 3), per type and options: the fastest
+// of 2, 3 and 4 on the card in each (PERF.md).
 template <typename T, bool HEAT, bool REC>
-__global__ void __launch_bounds__(kThreads) helium_pass_kernel(HeArgs<T> a) {
+constexpr int he_min_blocks() {
+  return sizeof(T) == 8 && HEAT && REC ? 3 : 4;
+}
+
+template <typename T, bool HEAT, bool REC>
+__global__ void __launch_bounds__(kThreads, he_min_blocks<T, HEAT, REC>())
+    helium_pass_kernel(HeArgs<T> a) {
   const HeConst<T>& k = a.k;
   const HConst<T>& kh = k.h;
   const double dtw = a.dt.read();

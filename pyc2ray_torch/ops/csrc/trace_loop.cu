@@ -434,9 +434,8 @@ struct HeLoopBufs {
   const void* flux;         // (nb, B)
   const void* rt_sub;       // (3, Ds, Ds, Ds), the rate pass's table
   const int* cells;         // (n_valid,) the subbox cells it rates, ascending
-  const void* se;           // (3, E) bin tables of the rate pass
-  const void* w_se;
-  const void* wh_se;        // null without the heat channel
+  const void* rec;          // the rate pass's bins by band: the records and,
+  const int* bands;         // on the host, their header (cheb_rates_he.cuh)
   void* out[kHeSpecies + 1];  // the rate frames, zeroed by the caller; the
                               // heat's null without the heat channel
   void* boxes;              // (3, chunk, B, Dc, Dc, Dc) scratch: the three
@@ -451,7 +450,7 @@ struct HeLoopBufs {
 // The scalars of a he_trace_sweep call beside the sweep's launch arguments
 // (whose sig is sigma_HI).
 struct HeLoopArgs {
-  int nb, E;
+  int nb;
   double sdr3;              // S* / dr^3
   double sig_he[2];         // sigma_HeI, sigma_HeII of the second and third
                             // sweeps
@@ -463,14 +462,15 @@ struct HeLoopArgs {
 
 // The rate pass of a he_trace_sweep call but for each batch's absorber
 // boxes and fluxes: the sweeps' cd boxes in, the rate boxes out (the heat's
-// where the heat channel's table is given).
+// where the heat channel's frame is given).
 template <typename T>
 HeRates<T> he_rates_of(const HeLoopBufs& a, const HeLoopArgs& s, int B,
                        int Dc) {
   using P = const T*;
   const size_t box_vals = size_t(B) * Dc * Dc * Dc;
   const size_t rate_vals = size_t(B) * s.Ds * s.Ds * s.Ds;
-  const int n_out = a.wh_se != nullptr ? kHeSpecies + 1 : kHeSpecies;
+  const int n_out = a.out[kHeSpecies] != nullptr ? kHeSpecies + 1
+                                                  : kHeSpecies;
   HeRates<T> hr{};
   for (int sp = 0; sp < kHeSpecies && a.cd; ++sp)
     hr.cd[sp] = static_cast<P>(a.cd) + sp * box_vals;
@@ -478,11 +478,9 @@ HeRates<T> he_rates_of(const HeLoopBufs& a, const HeLoopArgs& s, int B,
     hr.out[ch] = static_cast<T*>(a.rates) + ch * rate_vals;
   hr.rt = static_cast<P>(a.rt_sub);
   hr.cells = a.cells;
-  hr.se = static_cast<P>(a.se);
-  hr.w_se = static_cast<P>(a.w_se);
-  hr.wh_se = static_cast<P>(a.wh_se);
+  hr.rec = static_cast<P>(a.rec);
+  hr.bands = he_bands_of(a.bands);
   hr.B = B;
-  hr.E = s.E;
   hr.Dc = Dc;
   hr.Ds = s.Ds;
   hr.rb0 = s.rb0;
@@ -492,20 +490,20 @@ HeRates<T> he_rates_of(const HeLoopBufs& a, const HeLoopArgs& s, int B,
 }
 
 // Whether a he_trace_sweep call's buffers and sizes are ones the loop
-// takes: every frame, box buffer and table given, the heat channel's table
-// and frame both or neither, a list of rated cells, boxes inside a frame of
-// at least Dc a side, K2's segments and planes where it segments, a chunk's
-// cells below 2^31, and a rate pass he_rates_fit takes.
+// takes: every frame, box buffer and table given, a list of rated cells,
+// boxes inside a frame of at least Dc a side, K2's segments and planes
+// where it segments, a chunk's cells below 2^31, and a rate pass
+// he_rates_fit takes (the heat channel's records where it has its frame
+// and not where it has none).
 template <typename T>
 bool he_loop_fits(const HeLoopBufs& a, const HeLoopArgs& s, int B, int Dc,
                   int c, int R1) {
-  const bool heat = a.wh_se != nullptr;
   const size_t D3 = size_t(Dc) * Dc * Dc;
-  bool given = a.pos && a.flux && a.rt_sub && a.cells && a.se && a.w_se &&
+  bool given = a.pos && a.flux && a.rt_sub && a.cells && a.bands &&
                a.boxes && a.cd && a.rates;
   for (int sp = 0; sp < kHeSpecies; ++sp)
     given = given && a.frames[sp] && a.out[sp];
-  return given && (a.out[kHeSpecies] != nullptr) == heat && s.nb >= 0 &&
+  return given && s.nb >= 0 &&
          s.chunk >= 1 && B <= 65535 && c >= 0 && c < Dc && R1 >= 1 &&
          s.n_valid >= 1 && s.seg_S >= 0 &&
          (s.seg_S == 0 || (s.seg_K >= 1 && a.planes[0] && a.planes[1])) &&
@@ -794,7 +792,7 @@ int he_trace_sweep(const HeLoopBufs& a, const HeLoopArgs& s, const void* sw,
   Plan pl;
   const cudaError_t err = make_plan<T>(spec, Dc, 0, false, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool seg = s.seg_S > 0, heat = a.wh_se != nullptr;
+  const bool seg = s.seg_S > 0, heat = a.out[kHeSpecies] != nullptr;
   using P = const T*;
   T* const boxes = static_cast<T*>(a.boxes);
   T* const cd = static_cast<T*>(a.cd);
@@ -946,7 +944,7 @@ CHEB_TRACE_SWEEP_ENTRY(cheb_trace_sweep_f64, double)
 
 // The helium trace of nb batches (see he_trace_sweep above) on `stream`: the
 // three species' frames frame0..frame2 (n_HI, n_HeI, n_HeII) in, the rate
-// frames out0..out2 (and, where `wh_se` is set, the heat frame out3) out,
+// frames out0..out2 (and, where out3 is set, the heat frame out3) out,
 // with the sweep's launch arguments and plan as its entry points take them
 // (sig: sigma_HI; sig_he1, sig_he2: the other two sweeps'). Returns the
 // first cudaError_t that is not cudaSuccess; with `max_clusters` set it
@@ -957,19 +955,19 @@ CHEB_TRACE_SWEEP_ENTRY(cheb_trace_sweep_f64, double)
            const int* pos, const void* flux, const void* sw,                  \
            const void* path, const void* diag, const void* mask_m,            \
            const void* mask_p, const void* rt_sub, const int* cells,          \
-           const void* se, const void* w_se, const void* wh_se, void* out0,   \
-           void* out1, void* out2, void* out3, void* boxes, void* cd,         \
-           void* rates, void* planes0, void* planes1, void* scratch, int E,   \
-           double sdr3, double sig_he1, double sig_he2, int rb0, int Ds,      \
-           int n_valid, int seg_S, int seg_K, int F0, int F1, int F2, int nb, \
-           int chunk, int B, int Dc, int c, int R1, double dr, double sig,    \
+           const void* rec, const int* bands, void* out0, void* out1,         \
+           void* out2, void* out3, void* boxes, void* cd, void* rates,        \
+           void* planes0, void* planes1, void* scratch, double sdr3,          \
+           double sig_he1, double sig_he2, int rb0, int Ds, int n_valid,      \
+           int seg_S, int seg_K, int F0, int F1, int F2, int nb, int chunk,   \
+           int B, int Dc, int c, int R1, double dr, double sig,    \
            int threads, int cluster, int shared_planes, int smem,             \
            int rate_threads, int ring, int* max_clusters, void* stream) {     \
     return he_trace_sweep<TYPE>(                                               \
-        HeLoopBufs{{frame0, frame1, frame2}, pos, flux, rt_sub, cells, se,     \
-                   w_se, wh_se, {out0, out1, out2, out3}, boxes, cd, rates,    \
+        HeLoopBufs{{frame0, frame1, frame2}, pos, flux, rt_sub, cells, rec,    \
+                   bands, {out0, out1, out2, out3}, boxes, cd, rates,          \
                    {planes0, planes1}, scratch},                               \
-        HeLoopArgs{nb, E, sdr3, {sig_he1, sig_he2}, rb0, Ds, n_valid, seg_S,   \
+        HeLoopArgs{nb, sdr3, {sig_he1, sig_he2}, rb0, Ds, n_valid, seg_S,      \
                    seg_K, F0, F1, F2, chunk},                                  \
         sw, path, diag, mask_m, mask_p, Dc, c, R1, dr, sig,                    \
         LaunchSpec{B, threads, cluster, shared_planes, smem, rate_threads,     \

@@ -36,7 +36,7 @@ import torch
 
 from ..radiation.helium import HeSpectralBins
 from ..radiation.spectral_bins import SpectralBins
-from .cheb_rates import rates_he
+from .cheb_rates import HeBands, he_bands, rates_he
 from .raytrace_cheb import ChebRaytracer
 from .sweep import rate_consts
 from .trace_loop import he_trace_sweep, he_trace_sweep_ref, stage_positions
@@ -49,6 +49,8 @@ class HeBinTables(NamedTuple):
     se: torch.Tensor        # (3, E) sigma_s(nu_e) = s[s, e] sigma_th[s]
     w_se: torch.Tensor      # (3, E) w_e se[s, e]
     wh_se: torch.Tensor     # (3, E) w_heat[s, e] se[s, e]
+    bands: HeBands          # the rate kernel's records of them, with wh_se
+                            # where the engine heats (cheb_rates.he_bands)
 
 
 class HeRaytracer:
@@ -83,8 +85,10 @@ class HeRaytracer:
                 self.device, dtype)
         # in the engine's dtype, formed as the JAX engine forms them
         se = dev(bins.s) * dev(self.sigma_th)[:, None]
-        self.he_tables = HeBinTables(se=se, w_se=dev(bins.w_photo)[None] * se,
-                                     wh_se=dev(bins.w_heat) * se)
+        w_se, wh_se = dev(bins.w_photo)[None] * se, dev(bins.w_heat) * se
+        self.he_tables = HeBinTables(
+            se=se, w_se=w_se, wh_se=wh_se,
+            bands=he_bands(se, w_se, wh_se if self.do_heating else None))
 
     @property
     def geom(self):
@@ -106,7 +110,7 @@ class HeRaytracer:
         return rates_he(cds, nboxes, eng.tables.rt_sub, flux, heb.se,
                         heb.w_se, float(dr), rate_consts(dr, self.dtype)[1],
                         eng._rb0, wh_se=heb.wh_se if self.do_heating else None,
-                        cells=eng.rated_cells)
+                        cells=eng.rated_cells, bands=heb.bands)
 
     # ------------------------------------------------------------------
     def species_fields(self, nd3, xh3, y13, y23):

@@ -61,7 +61,7 @@ import ctypes
 import torch
 
 from . import sweep
-from .cheb_rates import rates_dense_ref, rates_he_ref
+from .cheb_rates import _check_bands, rates_dense_ref, rates_he_ref
 from .sweep import (RATE_THREADS, THREADS_RATES, cheb_sweep,
                     cheb_sweep_rates, cheb_sweep_segmented, init_segments_ref,
                     launches, rate_consts)
@@ -475,7 +475,8 @@ def he_trace_sweep(frames, pos, flux, tb, he_tables, dr, c, sigmas,
     of batch k have their box corners at ``pos[k]`` (staged, (nb, B, 3)
     int32) and their fluxes in ``flux[k]`` ((nb, B)); ``tb`` holds the host
     engine's tables (``raytrace_cheb.ChebTables``), ``he_tables`` the (3, E)
-    bin tables se, w_se, wh_se (``raytrace_he.HeBinTables``), ``sigmas``
+    bin tables se, w_se, wh_se and the kernel's records of them, packed with
+    wh_se where ``heat`` (``raytrace_he.HeBinTables``), ``sigmas``
     the species' threshold cross sections. Per batch three sweeps, K1 or,
     with ``seg`` = (S, K), S > 0, K2 over K segments of S shells; the
     three-species rate pass over the (Ds)^3 subbox at ``rb0`` (``rt_sub``),
@@ -503,7 +504,7 @@ def he_trace_sweep(frames, pos, flux, tb, he_tables, dr, c, sigmas,
     dt, dev = frames[0].dtype, frames[0].device
     nb, B = pos.shape[:2]
     Dc, Ds = tb.sw.shape[-1], tb.rt_sub.shape[-1]
-    E = he_tables.se.shape[-1]
+    bands = he_tables.bands
     k = chunk_size(nb, B, Dc, dt.itemsize, channels=3)
     # the three species' boxes of a chunk, each species' contiguous as the
     # extract writes it
@@ -514,14 +515,12 @@ def he_trace_sweep(frames, pos, flux, tb, he_tables, dr, c, sigmas,
     spec.update(rt_sub=(tb.rt_sub, (3, Ds, Ds, Ds), dt),
                 flux=(flux, (nb, B), dt),
                 pos=(pos, (nb, B, 3), torch.int32),
-                se=(he_tables.se, (3, E), dt),
-                w_se=(he_tables.w_se, (3, E), dt),
+                rec=(bands.rec, (bands.rec.numel(),), dt),
                 **{f"frame{s}": (f, tuple(frames[0].shape), dt)
                    for s, f in enumerate(frames)})
-    if heat:
-        spec["wh_se"] = (he_tables.wh_se, (3, E), dt)
     spec["cells"] = (cells, (cells.numel(),), torch.int32)
     sfx = sweep._check("he_trace_sweep", box0, spec)
+    _check_bands("he_trace_sweep", bands, bool(heat))
     if frames[0].dim() != 3:
         raise ValueError(f"he_trace_sweep: frames {tuple(frames[0].shape)}")
     if not 1 <= cells.numel() <= Ds ** 3 or not 0 <= rb0 <= Dc - Ds:
@@ -542,11 +541,10 @@ def he_trace_sweep(frames, pos, flux, tb, he_tables, dr, c, sigmas,
     sweep._launch(lib, f"he_trace_sweep_{sfx}",
                   "cheb_sweep_seg" if S else "cheb_sweep", box0, R1, c, dr,
                   sigmas[0],
-                  (*frames, pos, flux, *geo, tb.rt_sub, cells, he_tables.se,
-                   he_tables.w_se, he_tables.wh_se if heat else None,
-                   *outs[:3], outs[3] if heat else None, boxes, cd, rates,
-                   *planes),
-                  (E, sdr3, float(sigmas[1]), float(sigmas[2]), rb0, Ds,
+                  (*frames, pos, flux, *geo, tb.rt_sub, cells, bands.rec,
+                   bands.head, *outs[:3], outs[3] if heat else None, boxes,
+                   cd, rates, *planes),
+                  (sdr3, float(sigmas[1]), float(sigmas[2]), rb0, Ds,
                    cells.numel(), S, K, *frames[0].shape, nb, k),
                   count=3 * nb * (K if S else 1),
                   variant=int(S > 0))

@@ -18,9 +18,11 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 struct uint3_ { unsigned x, y, z; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 extern thread_local uint3_ threadIdx, blockIdx, blockDim, gridDim;
 struct EmuCluster {
   int C, T; size_t smem;

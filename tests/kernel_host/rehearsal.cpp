@@ -257,23 +257,25 @@ void run_rates(void* const* f, int B, int E, int Dc, int Ds, int rb0,
 REHEARSE_RATES(rehearse_init_f32, rehearse_rates_f32, float)
 REHEARSE_RATES(rehearse_init_f64, rehearse_rates_f64, double)
 
-// The helium rate pass (rates_he_kernel, the heat form where `f[11]`,
-// wh_se, is set) over B boxes at the n_valid listed cells: ceil(B n_valid /
+// The helium rate pass (rates_he_kernel, the heat form where `f[12]`,
+// out3, is set) over B boxes at the n_valid listed cells: ceil(B n_valid /
 // T_) blocks of T_ threads, in reverse block order with `reverse`. `f`
-// holds cd0..cd2, n0..n2, rt, cells, flux, se, w_se, wh_se, out0..out3.
-// Returns 1 where the launch code refuses the sizes (he_rates_fit).
+// holds cd0..cd2, n0..n2, rt, cells, flux, the records, the bands' header
+// (kHeHead ints), out0..out3. Returns 1 where the launch code refuses the
+// sizes (he_rates_fit).
 template <class T>
-int run_rates_he(void* const* f, int B, int E, int Dc, int Ds, int rb0,
+int run_rates_he(void* const* f, int B, int Dc, int Ds, int rb0,
                  int n_valid, double dr, double sdr3, int T_, int reverse) {
   using P = const T*;
   const HeRates<T> k{{(P)f[0], (P)f[1], (P)f[2]}, {(P)f[3], (P)f[4], (P)f[5]},
-                     (P)f[6], (const int*)f[7], (P)f[8], (P)f[9], (P)f[10],
-                     (P)f[11], {(T*)f[12], (T*)f[13], (T*)f[14], (T*)f[15]},
-                     B, E, Dc, Ds, rb0, n_valid, T(dr), T(sdr3)};
+                     (P)f[6], (const int*)f[7], (P)f[8], (P)f[9],
+                     he_bands_of((const int*)f[10]),
+                     {(T*)f[11], (T*)f[12], (T*)f[13], (T*)f[14]},
+                     B, Dc, Ds, rb0, n_valid, T(dr), T(sdr3)};
   if (!he_rates_fit(k)) return 1;
   const size_t n = size_t(B) * n_valid;
-  const bool heat = f[11] != nullptr;
-  emu_launch(int((n + T_ - 1) / T_), 1, T_, he_rates_smem<T>(E, heat), [&] {
+  const bool heat = f[14] != nullptr;
+  emu_launch(int((n + T_ - 1) / T_), 1, T_, he_rates_smem(k), [&] {
     if (heat)
       rates_he_kernel<T, true>(k);
     else
@@ -283,30 +285,37 @@ int run_rates_he(void* const* f, int B, int E, int Dc, int Ds, int rb0,
 }
 
 // Whether he_trace_sweep takes a call of these sizes (he_loop_fits): every
-// buffer given but the heat channel's table (`heat_bins`) and frame
-// (`heat_out`), K2's planes (`planes`) and the list of rated cells
-// (`cells`) as the flags say.
+// buffer given but the heat channel's frame (`heat_out`), K2's planes
+// (`planes`) and the list of rated cells (`cells`) as the flags say, the
+// rate pass's records those of `v[1]` bins of all three species' terms
+// (band 3), with the heat channel's table where `heat_bins`.
 template <class T>
 int run_he_fits(const int* v, int heat_bins, int heat_out, int planes,
                 int cells) {
   static double dummy;
   void* p = &dummy;
+  const int iters = (v[1] + kHeUnroll - 1) / kHeUnroll;
+  const int rec = heat_bins ? he_record<T, kHeSpecies, true>()
+                            : he_record<T, kHeSpecies, false>();
+  // heat, n_rec, passes, offsets, species of the three bands
+  const int head[kHeHead] = {heat_bins, iters * kHeUnroll * rec, 0, 0, iters,
+                             0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 1, 2};
   const HeLoopBufs a{{p, p, p}, (const int*)p, p, p,
-                     cells ? (const int*)p : nullptr, p, p,
-                     heat_bins ? p : nullptr, {p, p, p, heat_out ? p : nullptr},
+                     cells ? (const int*)p : nullptr, p, head,
+                     {p, p, p, heat_out ? p : nullptr},
                      p, p, p, {planes ? p : nullptr, planes ? p : nullptr},
                      nullptr};
   // v: nb, E, rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, chunk, B, Dc, c, R1
-  const HeLoopArgs s{v[0], v[1], 1e-3, {1e-18, 1e-18}, v[2], v[3], v[4], v[5],
+  const HeLoopArgs s{v[0], 1e-3, {1e-18, 1e-18}, v[2], v[3], v[4], v[5],
                      v[6], v[7], v[8], v[9], v[10]};
   return he_loop_fits<T>(a, s, v[11], v[12], v[13], v[14]) ? 1 : 0;
 }
 
 #define REHEARSE_HE(RATES, FITS, TYPE)                                         \
-  extern "C" int RATES(void* const* f, int B, int E, int Dc, int Ds, int rb0,  \
+  extern "C" int RATES(void* const* f, int B, int Dc, int Ds, int rb0,         \
                        int n_valid, double dr, double sdr3, int T_,            \
                        int reverse) {                                          \
-    return run_rates_he<TYPE>(f, B, E, Dc, Ds, rb0, n_valid, dr, sdr3, T_,     \
+    return run_rates_he<TYPE>(f, B, Dc, Ds, rb0, n_valid, dr, sdr3, T_,        \
                               reverse);                                        \
   }                                                                            \
   extern "C" int FITS(const int* v, int heat_bins, int heat_out, int planes,   \

@@ -27,7 +27,8 @@ from pyc2ray_tpu.radiation import BlackBodySource as JBlackBody
 from pyc2ray_tpu.radiation import helium as j_helium
 
 from pyc2ray_torch.ops import sweep, trace_loop
-from pyc2ray_torch.ops.cheb_rates import rated_cells, rates_he, rates_he_ref
+from pyc2ray_torch.ops.cheb_rates import (he_first_bins, rated_cells,
+                                          rates_he, rates_he_ref)
 from pyc2ray_torch.ops.raytrace_he import HeRaytracer
 from pyc2ray_torch.ops.trace_loop import (chunk_size, fold_padding,
                                           he_trace_sweep, stage_positions)
@@ -41,9 +42,28 @@ JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32}
 SHAPES = {"subbox": (16, 6.0), "full_box": (8, 6.0)}
 
 
-def _bins(mod, bb):
-    return mod.make_spectral_bins_he(bb(5e4, False, ev2fr * 13.598, 2.8),
-                                     panels_per_band=2, nodes=4)
+# bin tables: the species' terms start at bins 0 / 8 / 16 of 24
+# ("default"); at 0 / 5 / 13 of 24 ("bands"); HeI with no zero column
+# ("no_zeros"); at 0 / 6 / 11 of 18, bands not a multiple of the kernel's
+# unroll ("e18"); at 0 / 384 / 768 of 1152, whose records in float64 with
+# the heat channel (61 KB) pass the 48 KB of shared memory a block has
+# without asking ("e1152")
+TABLES = ("default", "bands", "no_zeros", "e18", "e1152")
+
+
+def _bins(mod, bb, table="default"):
+    panels, nodes = {"e18": (2, 3), "e1152": (16, 24)}.get(table, (2, 4))
+    bins = mod.make_spectral_bins_he(bb(5e4, False, ev2fr * 13.598, 2.8),
+                                     panels_per_band=panels, nodes=nodes)
+    s = np.array(bins.s)
+    if table == "bands":
+        s[1, 5:8] = 0.5 * s[1, 8]
+        s[2, 13:16] = 0.5 * s[2, 16]
+    elif table == "no_zeros":
+        s[1, :8] = 0.3 * s[1, 8]
+    elif table == "e18":
+        s[2, 11:12] = 0.5 * s[2, 12]
+    return bins._replace(s=s)
 
 
 def _boxes(rt, B, dt, device="cpu", seed=81):
@@ -68,20 +88,30 @@ def _boxes(rt, B, dt, device="cpu", seed=81):
     return cds, nb, flux
 
 
+@pytest.mark.parametrize("table", TABLES)
 @pytest.mark.parametrize("heat", [False, True])
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_rates_he_ref_matches_jax(shape, dt, heat):
-    """rates_he_ref (the engine's ``_rates_he`` on CPU boxes) against the JAX
-    engine's ``_rates_he`` on the same boxes: Gamma_HI, Gamma_HeI, Gamma_HeII
-    and the heat per HI atom; 0 at the zero-density cells (the heat where
-    n_HI is 0) and for the zero flux."""
+def test_rates_he_ref_matches_jax(shape, dt, heat, table):
+    """rates_he_ref (the engine's ``_rates_he`` on CPU boxes, its bins by
+    band) against the JAX engine's ``_rates_he`` on the same boxes:
+    Gamma_HI, Gamma_HeI, Gamma_HeII and the heat per HI atom; 0 at the
+    zero-density cells (the heat where n_HI is 0) and for the zero flux;
+    at bin tables whose species' terms start at other bins, with a species
+    that has no zero column, with bands that are not a multiple of the
+    kernel's unroll and with 1152 bins."""
     N, R = SHAPES[shape]
     B = 3
-    jr = JHeRaytracer(N, R, _bins(j_helium, JBlackBody), ABU_HE, batch_size=B,
-                      dtype=JDT[dt], accumulate="scan", do_heating=heat)
-    tr = HeRaytracer(N, R, _bins(helium, BlackBodySource), ABU_HE,
+    jr = JHeRaytracer(N, R, _bins(j_helium, JBlackBody, table), ABU_HE,
+                      batch_size=B, dtype=JDT[dt], accumulate="scan",
+                      do_heating=heat)
+    tr = HeRaytracer(N, R, _bins(helium, BlackBodySource, table), ABU_HE,
                      batch_size=B, dtype=dt, device="cpu", do_heating=heat)
+    first = he_first_bins(tr.he_tables.se, tr.he_tables.w_se,
+                          tr.he_tables.wh_se if heat else None)
+    assert first == {"default": [0, 8, 16], "bands": [0, 5, 13],
+                     "no_zeros": [0, 0, 16], "e18": [0, 6, 11],
+                     "e1152": [0, 384, 768]}[table]
     eng = tr.eng
     assert (jr.eng._rb0, jr.eng._rb1) == (eng._rb0, eng._rb1)
     assert (eng.Ds < tr.geom.Dc) == (shape == "subbox")
@@ -284,19 +314,24 @@ def test_wrappers_check_their_arguments():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("table", TABLES)
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_rates_he_matches_plain_on_cuda(shape):
+def test_rates_he_matches_plain_on_cuda(shape, table):
     """The kernel at the engine's rated cells bit for bit against the plain
     pass on the card, in float32 and float64, with and without the heat
-    channel, every cell outside the list 0; one launch a call; with more
-    cells listed than the subbox has it raises."""
+    channel, with zero-density cells, at every bin table of ``TABLES``
+    (bands at other bins, a species with no zero column, bands not a
+    multiple of the unroll, records beyond 48 KB of shared memory), every
+    cell outside the list 0; one launch a call; with more cells listed
+    than the subbox has it raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     N, R = SHAPES[shape]
     for dt in (torch.float32, torch.float64):
         for heat in (False, True):
-            tr = HeRaytracer(N, R, _bins(helium, BlackBodySource), ABU_HE,
-                             batch_size=3, dtype=dt, do_heating=heat)
+            tr = HeRaytracer(N, R, _bins(helium, BlackBodySource, table),
+                             ABU_HE, batch_size=3, dtype=dt,
+                             do_heating=heat)
             eng, heb = tr.eng, tr.he_tables
             cds, nb, flux = _boxes(tr, 3, dt, device="cuda")
             args = (eng.tables.rt_sub, flux, heb.se, heb.w_se, DR,
@@ -321,13 +356,15 @@ def test_rates_he_matches_plain_on_cuda(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("table", ["default", "e18"])
 @pytest.mark.parametrize("frame", ["cubic", "domain"])
-def test_he_trace_sweep_matches_plain_on_cuda(frame):
+def test_he_trace_sweep_matches_plain_on_cuda(frame, table):
     """The helium loop in C (one he_trace_sweep call) bit for bit against
     trace_extended_plain on the card, in float32 and float64, with and
     without the heat channel, the host engine segmented or not, on the
-    wrap-padded grid and a halo-extended block, with the loop's launch
-    counts."""
+    wrap-padded grid and a halo-extended block, at the default bins and at
+    bands that are not a multiple of the rate pass's unroll, with the
+    loop's launch counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     N, R, B = 14, 5.0, 2
@@ -336,7 +373,7 @@ def test_he_trace_sweep_matches_plain_on_cuda(frame):
     for dt in (torch.float32, torch.float64):
         for heat in (False, True):
             for segmented in (False, True):
-                tr = HeRaytracer(N, R, _bins(helium, BlackBodySource),
+                tr = HeRaytracer(N, R, _bins(helium, BlackBodySource, table),
                                  ABU_HE, batch_size=B, dtype=dt,
                                  do_heating=heat)
                 eng, Dc = tr.eng, tr.geom.Dc

@@ -26,8 +26,9 @@ from pyc2ray_tpu.radiation.spectral_bins import make_spectral_bins
 
 from pyc2ray_torch.convert import state_from_jax
 from pyc2ray_torch.ops import sweep
-from pyc2ray_torch.ops.cheb_rates import (rated_cells, rates_dense,
-                                          rates_dense_ref)
+from pyc2ray_torch.ops.cheb_rates import (HE_UNROLL, he_bands,
+                                          he_first_bins, rated_cells,
+                                          rates_dense, rates_dense_ref)
 from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
 
 SIG = 6.30e-18
@@ -156,6 +157,80 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ChebRaytracer(8, 3.0, SIG, _bb_bins(), device="cuda")
+
+
+# (3, E) = (3, 6) tables: which entries are not 0, and the first bin of
+# each species' terms with and without the heat channel's table
+FIRST_BINS = {
+    "bands": ((["se", "w", "wh"], [(0, 0), (1, 2), (2, 4)]),
+              [0, 2, 4], [0, 2, 4]),
+    "heat only": ((["wh"], [(1, 3)]), [6, 6, 6], [6, 3, 6]),
+    "weights only": ((["w"], [(2, 1), (0, 5)]), [5, 6, 1], [5, 6, 1]),
+    "none": (([], []), [6, 6, 6], [6, 6, 6]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIRST_BINS))
+def test_he_first_bins(case):
+    """The helium rate pass's bands: each species' terms start at the first
+    bin at which any of se, w_se or (with the heat channel) wh_se is not
+    0; a species with none has no term (E)."""
+    (tabs, nonzero), want, want_heat = FIRST_BINS[case]
+    t = {k: torch.zeros(3, 6, dtype=torch.float64) for k in ("se", "w", "wh")}
+    for k in tabs:
+        for s, e in nonzero:
+            t[k][s, e:] = 1.0 if e < 6 else 0.0
+    assert he_first_bins(t["se"], t["w"]) == want
+    assert he_first_bins(t["se"], t["w"], t["wh"]) == want_heat
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", sorted(FIRST_BINS))
+def test_he_bands(case, dt):
+    """The helium kernel's records (he_bands), read back by their header:
+    band j runs the bins from the (j + 1)-th species' first bin to the
+    next's in passes of HE_UNROLL records, each record the se, w_se and
+    (heat) wh_se of the band's species in ascending order, whole 16-byte
+    vectors, zeros in every padding value and padding record; every bin
+    with a term is in exactly one band, with every species that has a term
+    there."""
+    (tabs, nonzero), _, _ = FIRST_BINS[case]
+    rng = np.random.RandomState(7)
+    t = {k: torch.zeros(3, 6, dtype=dt) for k in ("se", "w", "wh")}
+    for k in tabs:
+        for s, e in nonzero:
+            t[k][s, e:] = torch.from_numpy(rng.uniform(1, 2, 6 - e)).to(dt)
+    vec = 16 // t["se"].element_size()
+    for heat in (False, True):
+        wh = t["wh"] if heat else None
+        first = he_first_bins(t["se"], t["w"], wh)
+        head, rec = he_bands(t["se"], t["w"], wh)
+        head = head.tolist()
+        assert head[:2] == [int(heat), rec.numel()]
+        iters, offs, sp = head[2:5], head[5:8], head[8:]
+        seen = []
+        for j in range(3):
+            k = j + 1
+            species = sp[3 * j:3 * j + k]
+            assert species == sorted(species)
+            width = -(-(2 + heat) * k // vec) * vec
+            recs = rec[offs[j]:offs[j] + iters[j] * HE_UNROLL * width]
+            recs = recs.view(-1, width)
+            assert offs[j] % vec == 0 and recs.shape[0] == iters[j] * HE_UNROLL
+            bins = [e for e in range(6)
+                    if sum(e >= f for f in first) == k]
+            assert len(bins) <= recs.shape[0] < len(bins) + HE_UNROLL
+            for r, e in enumerate(bins):
+                assert species == [s for s in range(3) if e >= first[s]]
+                want = torch.cat([t[n][species, e] for n in
+                                  ("se", "w", "wh")[:2 + heat]])
+                assert torch.equal(recs[r, :want.numel()], want)
+                assert not recs[r, want.numel():].any()
+            assert not recs[len(bins):].any()
+            seen += bins
+        assert sorted(seen) == [e for e in range(6) if e >= min(first)]
+        assert sum(iters[j] * HE_UNROLL * -(-(2 + heat) * (j + 1) // vec)
+                   * vec for j in range(3)) == rec.numel()
 
 
 @pytest.mark.cuda

@@ -127,7 +127,7 @@ def lib(tmp_path_factory):
                       + [ctypes.c_double] * 3 + [ctypes.c_int] * 2)
         f.restype = None
     for f in (lib.rehearse_rates_he_f32, lib.rehearse_rates_he_f64):
-        f.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+        f.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 2)
         f.restype = ctypes.c_int
     for f in (lib.rehearse_he_fits_f32, lib.rehearse_he_fits_f64):
@@ -717,17 +717,18 @@ def test_rate_pass_he_on_the_host_matches_plain(lib, monkeypatch, N, R, B,
     assert 0 < cells.numel() < Ds ** 3
     sdr3 = float(sweep.s_over_dr3(DR, dt))
     wh = heb.wh_se if heat else None
-    E = heb.se.shape[1]
     fn = lib.rehearse_rates_he_f32 if dt == torch.float32 else \
         lib.rehearse_rates_he_f64
+    other = cheb_rates.he_bands(heb.se, heb.w_se, None if heat else heb.se)
 
-    def host(reverse, n_valid=cells.numel(), ds=Ds, e=E, r0=rb0):
+    def host(reverse, n_valid=cells.numel(), ds=Ds, r0=rb0,
+             bands=heb.bands):
         outs = [torch.full((B,) + (Ds,) * 3, float("nan"), dtype=dt)
                 for _ in range(4)]
         ptrs = [t.data_ptr() if t is not None else None for t in (
-            *cds, *nb, rt_sub, cells, flux, heb.se, heb.w_se, wh,
+            *cds, *nb, rt_sub, cells, flux, bands.rec, bands.head,
             *outs[:3], outs[3] if heat else None)]
-        rc = fn((ctypes.c_void_p * 16)(*ptrs), B, e, rt.geom.Dc, ds, r0,
+        rc = fn((ctypes.c_void_p * 15)(*ptrs), B, rt.geom.Dc, ds, r0,
                 n_valid, DR, sdr3, 64, reverse)
         return rc, outs[:3 + heat]
     got = {reverse: host(reverse) for reverse in (0, 1)}
@@ -751,9 +752,10 @@ def test_rate_pass_he_on_the_host_matches_plain(lib, monkeypatch, N, R, B,
     if B > 1:
         assert not any(bool(w[-1].any()) for w in want)      # zero flux
     # sizes the launch code refuses: more listed cells than the subbox
-    # holds, a subbox leaving the box, no bins
+    # holds, a subbox leaving the box, records packed with the heat
+    # channel's table where the pass has no heat output or the other way
     for bad in (dict(n_valid=Ds ** 3 + 1), dict(r0=eng.geom.Dc - Ds + 1),
-                dict(e=0)):
+                dict(bands=other)):
         assert host(0, **bad)[0] == 1, bad
 
 
@@ -763,11 +765,12 @@ HE_FITS = [3, 72, 0, 64, 1000, 0, 0, 320, 320, 320, 2, 8, 64, 32, 31]
 HE_REFUSED = {"chunk 0": {10: 0}, "subbox beyond the box": {2: 1},
               "no listed cell": {4: 0},
               "more cells than the subbox": {4: 64 ** 3 + 1},
-              "frame narrower than a box": {8: 63}, "no bins": {1: 0},
+              "frame narrower than a box": {8: 63},
+              "bands of a negative count of bins": {1: -4},
               "source outside the box": {13: 64},
               "B above 65535": {11: 65536},
               "chunk of 2^31 cells": {10: 1024},
-              "bins beyond 48 KB": {1: 2100}}
+              "bins beyond the shared memory of a block": {1: 8000}}
 
 
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32])
@@ -776,10 +779,11 @@ def test_host_he_loop_refuses_other_sizes(lib, dt):
     call, with and without the heat channel and segmented with its planes,
     and refuses bad sizes (the launch then never happens): a chunk of 0,
     a subbox leaving the box, no or too many rated cells, a frame narrower
-    than a box, no bins, a source cell outside the box, too many boxes or
-    cells for a launch, bins beyond the pass's shared memory; the heat
-    channel's table without its frame or the other way, segments without
-    planes or of no shells, no list of rated cells."""
+    than a box, bands of a negative count of bins, a source cell outside
+    the box, too many boxes or cells for a launch, bins beyond the pass's
+    shared memory; the heat channel's table without its frame or the other
+    way, segments without planes or of no shells, no list of rated
+    cells."""
     fn = lib.rehearse_he_fits_f32 if dt == torch.float32 else \
         lib.rehearse_he_fits_f64
 
