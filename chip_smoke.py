@@ -84,7 +84,14 @@ Phases (any failure raises and the script exits non-zero):
    cheb_trace_sweep call, before and after the loop as in 3b with Gamma
    and heat bit-equal); each Gamma held against phase 3's, the two heat
    fields against each other, the per-batch stage times of both; then
-   update_temperature over the 256^3 cells from 100 K with that heat.
+   update_temperature over the 256^3 cells from 100 K with that heat: one
+   launch of the thermal kernel (csrc/thermal.cu, asserted) bit for bit
+   against update_temperature_ref (max_abs_err 0, asserted) in float32 and
+   float64, with ms per update by CUDA events, the plain version's ms and
+   the bound of its function (``thermal_check``: bytes, flops and the
+   transcendentals it needs on the MUFU pipe, THERMAL_OPS, THERMAL_MUFU);
+   last the hydrogen chemistry check on phase 3's Gamma with the updated
+   temperatures, a temperature of its own in every cell.
 4. One evolve3D timestep to convergence at N=64, R=8, 16 sources, float32,
    held against the same call on the CPU.
    Then where the two part: Gamma of one trace on equal inputs, global_pass
@@ -152,7 +159,10 @@ Phases (any failure raises and the script exits non-zero):
    float32 error of the three rates and the heat at the helium bench
    fields against a float64 run (``he_rates_f32_error``: cdin rebuilt as
    cd - dcol, ROADMAP section 3), each as its largest absolute error over
-   the peak and its largest relative error above 1e-6 of the peak.
+   the peak and its largest relative error above 1e-6 of the peak; the
+   same for the hydrogen default mode's rate pass (``rates_f32_error``: K1
+   and rates_dense with the heat channel at the bench fields, Gamma and
+   the heat, ROADMAP section 3).
 3d. (after 3c) The table-exact flat engine (ops/raytrace.py) at the bench
    configuration in float64 with the model layer's black-body tables: ns per
    cell-update, device launches per batch and the device idle share of a
@@ -240,7 +250,8 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    kernel against its plain version on the card, bit for bit (every output
    and the count; max_abs_err 0, asserted): the hydrogen kernel on phase 3's
    256^3 float32 Gamma (each cell's iterations equal to the plain loop's,
-   asserted), on the EoR run's last 250^3 state in float32 and in float64
+   asserted) with its one temperature and with 3c's updated temperatures,
+   on the EoR run's last 250^3 state in float32 and in float64
    (also through the entry point hydrogenODE), the helium kernel on 3e's
    rates (float32) and on 4g's last state (float64) in the four
    combinations of its options. Per pass: kernel and plain ms (CUDA
@@ -272,9 +283,10 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    trace (the accumulate with its rated form at the bench beside, 3g), the dense rate pass rates_dense and init_segments (2e), the loop
    cheb_trace_sweep (phase 3's default bench trace, and 4e's fuse_fold EoR
    trace beside it), the helium engine's rates_he (2d, launches 3e) and its
-   loop he_trace_sweep (3e), and the chemistry_pass
-   kernel on the EoR run's state, chemistry_pass_he on 4g's), then the
-   result line
+   loop he_trace_sweep (3e), the chemistry_pass
+   kernel on the EoR run's state, chemistry_pass_he on 4g's, and the
+   thermal kernel thermal_update at 3c's float32 update with the heating
+   example's launches, 4c), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
@@ -1807,7 +1819,8 @@ def _path_counts(ins, at):
     """``shortest(i0, i1)``: the fewest instructions from ins[i0] to
     ins[i1] inclusive over forward edges (a backward branch falls through),
     as (instructions, MUFU, float64 DADD/DMUL/DFMA) of that path; the local
-    loads and stores of spilled registers (LDL, STL) are not counted."""
+    loads and stores of spilled registers (LDL, STL) are not counted. A
+    branch on the warp's divergence (BRA.DIV, BRA.CONV) may fall through."""
     def shortest(i0, i1):
         inf = (float("inf"), 0, 0)
         head = ins[i0:i0 + 1]
@@ -1817,7 +1830,9 @@ def _path_counts(ins, at):
             if d[0] == inf[0] or i == i1:
                 continue
             a, op, t = ins[i]
-            uncond = re.match(r"(BRA|EXIT|RET)\b", op) is not None
+            # BRA.DIV and BRA.CONV branch on the warp's divergence
+            uncond = re.match(r"(BRA(?!\.(?:DIV|CONV))|EXIT|RET)\b",
+                              op) is not None
             nxt = []
             if not uncond:
                 nxt.append(i + 1)
@@ -1855,19 +1870,25 @@ def backward_loops(ins):
     return [(t, a) for a, _, t in ins if isinstance(t, int) and t < a]
 
 
-def loop_counts(ins):
-    """Instructions of a chemistry kernel's two loops from its SASS
+def loop_counts(ins, cells=1):
+    """Instructions of a chemistry kernel's loops from its SASS
     (``sass_functions``): the inner loop, the smallest region closed by a
     backward branch that holds a MUFU (transcendental) instruction, and the
-    loop over cells, the smallest such region strictly around it. Returns
-    {"iter", "cell"}: the fewest instructions a lane issues per iteration
-    of the inner loop and per cell around it (the shortest path through
-    each region's forward branches: a lower bound, the slow paths, the
-    sides of a branch that the path skips and spills not counted), with
-    "mufu_iter"/"dp_iter" the MUFU and float64 DADD/DMUL/DFMA instructions
-    on the iteration's path; "iter_static", "cell_static": every
-    instruction of each region once (an upper estimate: a warp whose lanes
-    part runs both sides of a branch)."""
+    work around it per cell. A thread of ``cells`` cells whose loop over
+    them the compiler unrolled has one copy of the inner loop per cell (the
+    innermost MUFU loops, in address order); the work per cell is then the
+    shortest path through the smallest loop around all the copies (the
+    cells' loads, the rates, the stores) over its segments between them,
+    divided by ``cells``; with one copy, the smallest loop around it (the
+    loop over cells). Returns {"iter", "cell"}: the fewest instructions a
+    lane issues per iteration of the inner loop and per cell around it (the
+    shortest path through each region's forward branches: a lower bound,
+    the slow paths, the sides of a branch that the path skips and spills
+    not counted; "cell" None where no loop around has a forward path
+    through it), with "mufu_iter"/"dp_iter" the MUFU and float64
+    DADD/DMUL/DFMA instructions on the iteration's path; "iter_static",
+    "cell_static": every instruction of each region once (an upper
+    estimate: a warp whose lanes part runs both sides of a branch)."""
     loops = backward_loops(ins)
     at = {a: i for i, (a, _, _) in enumerate(ins)}
     shortest = _path_counts(ins, at)
@@ -1880,22 +1901,36 @@ def loop_counts(ins):
                            f"{len(loops)} backward branches of "
                            f"{len(ins)} instructions")
     inner = min(with_mufu, key=lambda lp: lp[1] - lp[0])
-    around = [lp for lp in loops if lp[0] <= inner[0] and lp[1] >= inner[1]
-              and lp != inner]
     r_in = region(*inner)
     h, l = at[inner[0]], at[inner[1]]
     it = shortest(h, l)
     out = dict(iter=it[0], mufu_iter=it[1], dp_iter=it[2],
                iter_static=len(r_in), cell=0, cell_static=0)
-    if around:
-        outer = min(around, key=lambda lp: lp[1] - lp[0])
-        r_out = region(*outer)
-        ch, cl = at[outer[0]], at[outer[1]]
-        a, b = shortest(ch, h), shortest(l + 1, cl)
-        # the head of the inner loop is counted by the iteration
-        head = ins[h:h + 1]
-        out.update(cell=a[0] - 1 + n_spill(head) + b[0],
-                   cell_static=len(r_out) - len(r_in))
+    copies = sorted(lp for lp in with_mufu if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in with_mufu))
+    if len(copies) != cells:
+        copies, cells = [inner], 1
+    around = sorted((lp for lp in loops if lp not in copies
+                     and lp[0] <= copies[0][0] and lp[1] >= copies[-1][1]),
+                    key=lambda lp: lp[1] - lp[0])
+    if not around:
+        return out
+    out["cell"] = None
+    for outer in around:
+        # from the loop's head to the first copy's head, between copies,
+        # from the last copy's end to the back-edge; a copy's head is
+        # counted by its iterations
+        ends = [at[outer[0]]] + [i for c in copies
+                                 for i in (at[c[0]], at[c[1]] + 1)] \
+            + [at[outer[1]]]
+        segs = [shortest(a, b) for a, b in zip(ends[::2], ends[1::2])]
+        if any(sg[0] == float("inf") for sg in segs):
+            continue
+        heads = sum(1 - n_spill(ins[at[c[0]]:at[c[0]] + 1]) for c in copies)
+        out["cell"] = (sum(sg[0] for sg in segs) - heads) / cells
+        out["cell_static"] = (len(region(*outer)) - sum(
+            len(region(*c)) for c in copies)) / cells
+        break
     return out
 
 
@@ -1988,7 +2023,9 @@ def chem_instructions(helium, dtype, heat=False, rec=False):
     want = (f"helium_pass_kernelI{t}Lb{int(heat)}ELb{int(rec)}E" if helium
             else f"hydrogen_pass_kernelI{t}E")
     name = next(n for n in _SASS["funcs"] if want in n)
-    return loop_counts(_SASS["funcs"][name])
+    # a hydrogen thread takes two cells at a time (csrc/chemistry.cu)
+    cells = 1 if helium else 2
+    return loop_counts(_SASS["funcs"][name], cells)
 
 
 def rates_he_instructions(dtype, heat):
@@ -2078,6 +2115,19 @@ CHEM_MUFU = {torch.float32: {"h_cell": 6, "h_iter": 3, "he_cell": 16,
                              "he_iter": 7, "heat": 8, "rec": 4},
              torch.float64: {"h_cell": 3, "h_iter": 2, "he_cell": 7,
                              "he_iter": 6, "heat": 0, "rec": 4}}
+# the thermal update (ops/thermal.py): operations per cell (the heating,
+# the heat capacity, the densities) and per substep (the five cooling
+# terms and their derivatives, Compton's, the relaxation step and its
+# clamp), a transcendental counted as one
+THERMAL_OPS = {"cell": 10, "substep": 100}
+# its transcendentals on the MUFU pipe whatever the data, as CHEM_MUFU
+# counts them: per cell the heat capacity's reciprocal; per substep two
+# sqrt, two pow (two each in float32), two exp and five divisions (1 / T,
+# the two sqrt's derivatives, the Ly-alpha quotient and its derivative);
+# phi1's expm1 and division sit on one side of a branch and are not
+# counted
+THERMAL_MUFU = {torch.float32: {"cell": 1, "substep": 13},
+                torch.float64: {"cell": 1, "substep": 7}}
 
 
 def chemistry_check(label, helium, args, kw, reps=10):
@@ -2143,7 +2193,12 @@ def chemistry_check(label, helium, args, kw, reps=10):
     # beside it, what the kernel's own SASS takes at the issue rate: the
     # cell loop once per cell and the inner loop once per iteration
     sass = chem_instructions(helium, xh.dtype, heat, rec)
-    issue_ms = 1e3 * sass_issue_s(n, sass["cell"], [(n_it, sass["iter"])])
+    issue_ms = None if sass["cell"] is None else 1e3 * sass_issue_s(
+        n, sass["cell"], [(n_it, sass["iter"])])
+    issue_text = ("not counted (no loop around the inner loop has a forward "
+                  "path through it)" if issue_ms is None else
+                  f"{issue_ms:.5f} ms, the kernel at {issue_ms / ms:.3f} of "
+                  f"it")
     lane_eff = lane_efficiency(its)
     log(f"  {label}: {name} bit-equal to its plain version (max_abs_err "
         f"{err:g}, count {int(got[-1])}); kernel {ms:.4f} ms, plain "
@@ -2162,9 +2217,9 @@ def chemistry_check(label, helium, args, kw, reps=10):
         f"flops {parts['flops']:.5f} ms ({(ops + ops64) / 1e9:.3f} Gop, a "
         f"transcendental one operation), MUFU {parts['mufu']:.5f} ms "
         f"({n_mufu / 1e9:.4f} G transcendentals at 16 lanes a clock per "
-        f"SM); the kernel's own SASS at the issue rate {issue_ms:.5f} ms, "
-        f"the kernel at {issue_ms / ms:.3f} of it: {sass['iter']} "
-        f"instructions per iteration on the shortest path without spills "
+        f"SM); the kernel's own SASS at the issue rate {issue_text}: "
+        f"{sass['iter']} instructions per iteration on the shortest path "
+        f"without spills "
         f"({sass['mufu_iter']} MUFU, {sass['dp_iter']} float64 "
         f"DADD/DMUL/DFMA; {sass['iter_static']} in the loop), "
         f"{sass['cell']} per cell around them ({sass['cell_static']} "
@@ -2180,6 +2235,61 @@ def chemistry_check(label, helium, args, kw, reps=10):
                 issue_ms_at_own_sass=issue_ms,
                 sass_per_iteration=sass["iter"],
                 sass_per_cell=sass["cell"]), its
+
+
+def thermal_check(label, args, kw, reps=10):
+    """The thermal kernel against update_temperature_ref on the card on the
+    update ``args``, ``kw``: bit for bit (max_abs_err 0, asserted), one
+    kernel launch an update and no host synchronisation (the profiler;
+    asserted); ms per update of the kernel (CUDA events) and of the plain
+    version, and the bound of the function (``function_bound``: its bytes,
+    THERMAL_OPS at the peak of the type and THERMAL_MUFU on the MUFU
+    pipe). Returns the kernels line's numbers."""
+    from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.thermal import (update_temperature,
+                                           update_temperature_ref)
+    sweep.reset_launches()
+    got = update_temperature(*args, **kw)
+    n_launch = sweep.launches["thermal_update"]
+    want = update_temperature_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want) or n_launch != 1:
+        ulp = float(((got - want).abs()
+                     / torch.finfo(got.dtype).eps / want.abs()).max())
+        raise RuntimeError(f"{label}: update_temperature differs from its "
+                           f"plain version (max abs {err:.3e}, {ulp:.2f} "
+                           f"ulp, {int((got != want).sum())} cells) or "
+                           f"launched {n_launch} times")
+    ms = cuda_ms(lambda: update_temperature(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: update_temperature_ref(*args, **kw), 1)
+    prof = pass_profile(lambda: update_temperature(*args, **kw))
+    n_kern = prof["kernels"] if prof["device_events"] else \
+        prof["launch_calls"]
+    if n_kern != 1 or prof["syncs"] or prof["d2h"]:
+        raise RuntimeError(f"{label}: the update ran {prof} on the device, "
+                           f"expected one kernel and no host sync")
+    temp = args[1]
+    n, nsub = temp.numel(), kw.get("nsub", 16)
+    nbytes = 5 * n * temp.element_size()
+    peak = H100_F32_FLOPS if temp.dtype == torch.float32 else H100_F64_FLOPS
+    ops = THERMAL_OPS["cell"] * n + THERMAL_OPS["substep"] * n * nsub
+    mu = THERMAL_MUFU[temp.dtype]
+    n_mufu = mu["cell"] * n + mu["substep"] * n * nsub
+    b_ms, b_by, binds, parts = function_bound(nbytes, ops / peak, n_mufu)
+    log(f"  {label}: thermal_update bit-equal to update_temperature_ref "
+        f"(max_abs_err {err:g}), {n_kern} kernel a call, {prof['syncs']} "
+        f"host syncs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+        f"update; bound of the function {b_ms:.5f} ms ({binds} binds: bytes "
+        f"{parts['bytes']:.5f} ms ({nbytes / 1e9:.4f} GB), flops "
+        f"{parts['flops']:.5f} ms ({ops / 1e9:.3f} Gop), MUFU "
+        f"{parts['mufu']:.5f} ms ({n_mufu / 1e9:.4f} G)), the kernel at "
+        f"{b_ms / ms:.3f} of it; T {float(got.min()):.1f}.."
+        f"{float(got.max()):.1f} K")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_binds=binds, bound_share=b_ms / ms, max_abs_err=err,
+                launches_per_update=n_kern, byte_bound_ms=parts["bytes"],
+                flop_bound_ms=parts["flops"], mufu_bound_ms=parts["mufu"])
 
 
 def doric_reference_form(xh, dt, temp, rhe, phi, p):
@@ -2978,6 +3088,40 @@ def he_rates_f32_error(bins_he, heat=True):
         "(one bench batch, cdin rebuilt as cd - dcol in both): "
         + ", ".join(f"{k} max abs error {v[0]:.3e} of the peak, max rel "
                     f"{v[1]:.3e} above 1e-6 of it" for k, v in out.items()))
+    return out
+
+
+def rates_f32_error(bins, heat=True):
+    """Phase 2d: the float32 error of the hydrogen default mode's rate pass,
+    which rebuilds cdin = cd - dcol from K1's coldensh_out (ROADMAP section
+    3): one bench batch (B = 8, Dc = 64, 14 bins) at the bench fields (n_HI
+    = 1e-3 (1 - 1.2e-3), uniform boxes of every source), K1 and rates_dense
+    (with the heat channel) in float32 against the same in float64.
+    Returns {channel: (max |G32 - G64| / peak G64, max relative error
+    above 1e-6 of the peak)} for Gamma and the heat."""
+    from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
+    got = {}
+    for dt in (torch.float32, torch.float64):
+        rt = ChebRaytracer(N_BENCH, R_BENCH, SIG, bins, batch_size=B_BENCH,
+                           dtype=dt, do_heating=heat)
+        nhi = torch.full((B_BENCH,) + (rt.geom.Dc,) * 3,
+                         1e-3 * (1.0 - 1.2e-3), dtype=dt, device="cuda")
+        cd = rt.sweep_box(nhi, DR, SIG)
+        flux = torch.ones(B_BENCH, dtype=dt, device="cuda")
+        got[dt] = [t for t in rt._rates(cd, nhi, flux, DR) if t is not None]
+    out = {}
+    for name, a, b in zip(("Gamma", "heat"), got[torch.float32],
+                          got[torch.float64]):
+        a = a.double()
+        peak = float(b.abs().max())
+        out[name] = (float((a - b).abs().max()) / peak, max_rel(a, b, 1e-6))
+    log("  rates_dense float32 against float64 at the bench fields (one "
+        "bench batch, cdin rebuilt as cd - dcol in both): "
+        + ", ".join(f"{k} max abs error {v[0]:.3e} of the peak, max rel "
+                    f"{v[1]:.3e} above 1e-6 of it" for k, v in out.items())
+        + "; the floor is 1e-4 of the peak: "
+        + ("under it" if all(v[0] < 1e-4 for v in out.values())
+           else "ABOVE it"))
     return out
 
 
@@ -3834,7 +3978,8 @@ DRIVERS = (
      r"monotonic|final redshift|PASSED|FAILED"),
     ("heating_test", "examples.heating_test", [],
      ("cheb_sweep_rates_heat", "cheb_trace_sweep", "extract_boxes",
-      "accumulate_boxes", "chemistry_pass"), r"PASSED|FAILED"),
+      "accumulate_boxes", "chemistry_pass", "thermal_update"),
+     r"PASSED|FAILED"),
     ("single_source_test", "examples.single_source_test", [],
      ("chemistry_pass",), r"Mean ionized|PASSED|FAILED"),
     ("eor_simulation", "examples.eor_simulation", ["--num_slices", "2"],
@@ -3854,8 +3999,8 @@ DRIVERS = (
     ("raytracing flat", "tutorials.raytracing", ["--engine", "flat"], (),
      r"^Gamma field|photon budget"),
     ("helium_thermal", "tutorials.helium_thermal", [],
-     ("cheb_sweep", "rates_he", "he_trace_sweep", "chemistry_pass_he"),
-     r"front at|temperature raised|^OK"),
+     ("cheb_sweep", "rates_he", "he_trace_sweep", "chemistry_pass_he",
+      "thermal_update"), r"front at|temperature raised|^OK"),
 )
 
 
@@ -4448,6 +4593,7 @@ def main():
         "boxes:")
     k_rates_he = check_rates_he(bins_he, ns_bin)
     k_rates_he["f32_error"] = he_rates_f32_error(bins_he)
+    k_dense["f32_error"] = rates_f32_error(bins)
     if "--kernels" in sys.argv[1:]:
         log(f"chip_smoke --kernels wall time: {time.time() - T_START:.1f} s")
         return 0
@@ -4679,9 +4825,21 @@ def main():
             or not t_hi > 100.0):
         raise RuntimeError(f"update_temperature: T range {t_lo}..{t_hi}")
     log(f"update_temperature N={N} float32, 16 substeps from 100 K: "
-        f"{t_therm:.4f} s = {1e9 * t_therm / N ** 3:.3f} ns/cell, T range "
-        f"{t_lo:.1f}..{t_hi:.1f} K, "
+        f"{t_therm:.4f} s = {1e9 * t_therm / N ** 3:.3f} ns/cell (host "
+        f"clock, one call), T range {t_lo:.1f}..{t_hi:.1f} K, "
         f"{int((t_new > 1e3).sum())} cells above 1e3 K")
+    k_thermal = thermal_check(
+        f"thermal update N={N} float32 from 100 K",
+        (dt_d, t_cold, ndens, xh, heat_f[True], thermal), dict(z=9.0))
+    k_thermal["f64"] = thermal_check(
+        f"thermal update N={N} float64 from 100 K",
+        (dt_d.double(), t_cold.double(), ndens.double(), xh.double(),
+         heat_f[True].double(), thermal), dict(z=9.0), reps=3)
+    # the hydrogen pass on phase 3's Gamma with these temperatures, one of
+    # its own in every cell
+    k_chem_3c, _ = chemistry_check(
+        "bench chemistry (256^3 float32, phase 3's Gamma, 3c's updated T)",
+        False, (dt_d, ndens, t_new, xh, xh, phi, chem), {})
     del heat_f, t_new, t_cold
 
     # ---- 3d. the table-exact flat engine at the bench configuration -------
@@ -4771,16 +4929,17 @@ def main():
     n_loop = counts.pop("cheb_trace_sweep")
     n_box = [counts.pop(k) for k in ("extract_boxes", "accumulate_boxes")]
     n_chem = counts.pop("chemistry_pass")
+    n_thermal = counts.pop("thermal_update")
     g_h = sim.raytracer.geom
     log(f"C2Ray_Test heating example N={N_HEATING} (float64, engine cheb, "
         f"fuse_fold, Dc={g_h.Dc}, R1={g_h.r_max + 1}, "
         f"{sim.raytracer.num_bins} bins): {STEPS_HEATING} timesteps, "
         f"{n_iter} raytrace iterations, {t_sim:.2f} s with set-up, K3h "
         f"launches {n_k3h}, trace loops {n_loop}, extract and accumulate "
-        f"{n_box}, chemistry passes {n_chem}")
+        f"{n_box}, chemistry passes {n_chem}, thermal updates {n_thermal}")
     if (n_k3h == 0 or n_k3h != n_iter or n_loop != n_iter
             or n_box != [n_iter] * 2 or n_chem != n_iter
-            or any(counts.values())):
+            or n_thermal != STEPS_HEATING or any(counts.values())):
         raise RuntimeError(f"heating example: {n_k3h} K3h launches, "
                            f"{n_loop} loops and {n_box} box launches for "
                            f"{n_iter} single-source iterations, other "
@@ -4828,8 +4987,10 @@ def main():
         f"{t_sim:.2f} s with set-up; kernel launches {counts}")
     n_acc = counts.pop("accumulate_boxes")
     n_chem = counts.pop("chemistry_pass")
+    n_thermal_box = counts.pop("thermal_update")
     if type(sim.raytracer).__name__ != "BoxRaytracer" \
-            or n_acc != n_iter or n_chem != n_iter or any(counts.values()):
+            or n_acc != n_iter or n_chem != n_iter \
+            or n_thermal_box != STEPS_HEATING or any(counts.values()):
         raise RuntimeError(f"heating example (box): engine "
                            f"{type(sim.raytracer).__name__}, "
                            f"accumulate_boxes {n_acc} for {n_iter} "
@@ -4910,6 +5071,7 @@ def main():
         dict(name="rates_dense", source=src + "cheb_rates.cu",
              replaces=jax_rt + "1028", launches=dense_launches,
              **k_dense["photo"], with_heat=k_dense["heat"],
+             f32_error=k_dense["f32_error"],
              at_r100=k_dense_r100["photo"],
              with_heat_at_r100=k_dense_r100["heat"]),
         dict(name="init_segments", source=src + "cheb_sweep.cu",
@@ -4948,9 +5110,17 @@ def main():
         # (128^3, float64, its options: no heat channel, no recycling)
         dict(name="chemistry_pass", source=src + "chemistry.cu",
              replaces="pyc2ray_tpu/ops/chemistry.py:122",
-             launches=eor_counts["chemistry_pass"], **k_chem),
+             launches=eor_counts["chemistry_pass"], **k_chem,
+             at_3c_temperatures=k_chem_3c),
         dict(name="chemistry_pass_he", source=src + "chemistry.cu",
-             replaces="pyc2ray_tpu/ops/chemistry_he.py:406", **k_chem_he)]
+             replaces="pyc2ray_tpu/ops/chemistry_he.py:406", **k_chem_he),
+        # the thermal update (no TPU kernel: the JAX package's fori_loop),
+        # launches over the heating example's timesteps (4c, one a
+        # timestep), every other number per update at 3c's 256^3 float32
+        # fields from 100 K, float64 beside
+        dict(name="thermal_update", source=src + "thermal.cu",
+             replaces="pyc2ray_tpu/ops/thermal.py:132", launches=n_thermal,
+             **k_thermal)]
     kernels = [dict(name=k.pop("name"), route="cuda",
                     **{"library_ms": None, **k}) for k in kernels]
     log(f"chip_smoke wall time: {time.time() - T_START:.1f} s")

@@ -3,7 +3,8 @@
 on one NVIDIA GPU, in a form two checkouts can be compared by.
 
     python3 kernel_ab.py [--root DIR] [--label NAME] [--traces]
-                         [--chemistry [--state FILE]] [--chunks K,K,...]
+                         [--chemistry [--state FILE]] [--chemistry-only]
+                         [--chunks K,K,...]
 
 Imports ``pyc2ray_torch`` from DIR (default: the directory of this script;
 DIR may hold another checkout, the package builds its kernels under DIR)
@@ -50,6 +51,14 @@ through entry points that every checkout since the trace loop has:
   the EoR state in FILE (.npz) and the helium state beside it (FILE's name
   with ``_he``): each made by the first run that finds none, read by the
   others, so that every checkout of a call passes the same inputs.
+
+``--chemistry-only`` measures the hydrogen pass alone (the sets above and
+phase 3's Gamma with a temperature of its own in every cell, random or
+from the thermal update below) and the
+thermal update (``update_temperature`` over 256^3 float32 cells from
+100 K, z = 9, heated by phase 3's Gamma times 5e-12 erg: ms per update by
+CUDA events, bit-equal to ``update_temperature_ref`` where the checkout
+has one, and its launches a call).
 
 ``--chunks`` measures the bench default and EoR-bucket traces again with
 the loop's extract forced to each chunk of batches K (a checkout with the
@@ -266,8 +275,39 @@ def he_chemistry(cs, state_path):
     return out
 
 
-def chemistry(cs, bins, state_path):
-    """The hydrogen pass on phase 3's Gamma and on the EoR run's state."""
+def thermal(cs, dt_d, nd, xh, phi, reps=5):
+    """ms per update_temperature over phase 3's fields from 100 K, heated
+    by its Gamma times 5e-12 erg (z = 9, 16 substeps; CUDA events), bit-equal
+    to update_temperature_ref where the checkout has one, and its kernel
+    launches a call; and the updated temperatures."""
+    from pyc2ray_torch.ops import sweep, thermal as th
+    c = cs.chem_params()
+    p = th.ThermalParams(bh00=c.bh00, albpow=c.albpow, colh0=c.colh0,
+                         temph0=c.temph0, abu_c=c.abu_c)
+    t0, heat = torch.full_like(nd, 100.0), phi * 5e-12
+    sweep.reset_launches()
+    got = th.update_temperature(dt_d, t0, nd, xh, heat, p, z=9.0)
+    n_launch = sweep.launches.get("thermal_update", 0)
+    equal = None
+    if hasattr(th, "update_temperature_ref"):
+        want = th.update_temperature_ref(dt_d, t0, nd, xh, heat, p, z=9.0)
+        equal = bool(torch.equal(got, want))
+        if not equal:
+            raise RuntimeError("update_temperature differs from its plain "
+                               "version")
+    ms = cs.cuda_ms(lambda: th.update_temperature(dt_d, t0, nd, xh, heat, p,
+                                                  z=9.0), reps)
+    cs.log(f"update_temperature 256^3 float32 from 100 K: {ms:.4f} ms per "
+           f"update, {n_launch} thermal_update launch(es), bit-equal to the "
+           f"plain version: {equal}; T {float(got.min()):.1f}.."
+           f"{float(got.max()):.1f} K")
+    return {"thermal_ms": ms, "thermal_launches": n_launch}, got
+
+
+def chemistry(cs, bins, state_path, thermal_too=False):
+    """The hydrogen pass on phase 3's Gamma (with its one temperature and
+    with a temperature a cell) and on the EoR run's state; with
+    ``thermal_too`` the thermal update on phase 3's fields."""
     from pyc2ray_torch.ops.chemistry import ChemistryParams
     from pyc2ray_torch.ops.raytrace_cheb import ChebRaytracer
     N, dt = cs.N_BENCH, torch.float32
@@ -280,11 +320,27 @@ def chemistry(cs, bins, state_path):
         return torch.full((N ** 3,), v, dtype=dt, device="cuda")
     nd, temp, xh = grid(1e-3), grid(1e4), grid(1.2e-3)
     phi, _ = rt.trace_batches(nd, xh, pos_b, flux_b, cs.DR)
+    dt_d = torch.tensor(cs.DT, dtype=dt).to("cuda")
     out = {"chem_bench_f32": chem_pass(
-        cs, "chemistry bench 256^3 float32 (phase 3's Gamma)",
-        torch.tensor(cs.DT, dtype=dt).to("cuda"), nd, temp, xh, phi,
-        cs.chem_params())}
-    del rt, phi, nd, temp, xh
+        cs, "chemistry bench 256^3 float32 (phase 3's Gamma)", dt_d, nd,
+        temp, xh, phi, cs.chem_params())}
+    # the same Gamma with a temperature of its own in every cell
+    rng = np.random.RandomState(19)
+    temp_mixed = torch.from_numpy(10 ** rng.uniform(3.0, 4.5, N ** 3)).to(
+        "cuda", dt)
+    out["chem_bench_mixed_f32"] = chem_pass(
+        cs, "chemistry bench 256^3 float32 (phase 3's Gamma, T = 10^U(3, "
+        "4.5) a cell)", dt_d, nd, temp_mixed, xh, phi, cs.chem_params())
+    if thermal_too:
+        # the update's temperatures (the same bits in every checkout: its
+        # kernel equals the plain version) as a third set
+        k_th, temp_3c = thermal(cs, dt_d, nd, xh, phi)
+        out.update(k_th)
+        out["chem_bench_updated_f32"] = chem_pass(
+            cs, "chemistry bench 256^3 float32 (phase 3's Gamma, the "
+            "updated T)", dt_d, nd, temp_3c, xh, phi, cs.chem_params())
+        del temp_3c
+    del rt, phi, nd, temp, xh, temp_mixed
     st = eor_state(cs, state_path)
     chem = ChemistryParams(**{k[5:]: float(v) for k, v in st.items()
                               if k.startswith("chem_")})
@@ -352,6 +408,8 @@ def main():
                     help="also the chemistry passes")
     ap.add_argument("--state", default=None,
                     help="the .npz file of the EoR state the passes share")
+    ap.add_argument("--chemistry-only", action="store_true",
+                    help="the hydrogen pass and the thermal update alone")
     ap.add_argument("--chunks", default="",
                     help="chunks of batches the extract is forced to")
     args = ap.parse_args()
@@ -373,10 +431,16 @@ def main():
     t0 = time.time()
     _build.load()
     cs.log(f"build: {time.time() - t0:.2f} s")
-    cs.log_ptxas("rates_he")
-    cs.log_ptxas("helium")
     bins = cs.make_bins()
     out = dict(label=args.label, device=smi)
+    if args.chemistry_only:
+        cs.log_ptxas("hydrogen")
+        cs.log_ptxas("thermal")
+        out.update(chemistry(cs, bins, args.state, thermal_too=True))
+        cs.log(json.dumps(out))
+        return 0
+    cs.log_ptxas("rates_he")
+    cs.log_ptxas("helium")
     out.update(he_rate_pass(cs))
     dt, N = torch.float32, cs.N_BENCH
     src = np.random.RandomState(100).randint(0, N, size=(cs.NS_BENCH, 3))

@@ -20,9 +20,9 @@ __all__ = ["load", "NVCC_FLAGS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
-           "chemistry")                   # csrc/<name>.cu
+           "chemistry", "thermal")        # csrc/<name>.cu
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
-           "cheb_rates.cuh", "cheb_rates_he.cuh")
+           "cheb_rates.cuh", "cheb_rates_he.cuh", "rounded.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -75,6 +75,12 @@ _SIGNATURES = {
         + [ctypes.c_longlong, _I, _P, _P],
         "chemistry_pass_he": [_P, _I, _D] + [_P] * 21
         + [ctypes.c_longlong, _I, _I, _P, _P],
+    },
+    "thermal": {
+        # dt (pointer, kind, value), temp, ndens, xh, heat, out; cells,
+        # nsub, params, stream
+        "thermal_update": [_P, _I, _D] + [_P] * 5
+        + [ctypes.c_longlong, _I, _P, _P],
     },
 }
 

@@ -1,6 +1,6 @@
 // The chemistry passes on NVIDIA Hopper (sm_90a): the hydrogen pass
 // (global_pass) and the coupled hydrogen + helium pass (global_pass_he),
-// each one kernel launch, one thread per cell.
+// each one kernel launch; a cell's iterations run in one thread.
 //
 // Counterpart of the JAX package's jitted lax.while_loop of
 // pyc2ray_tpu/ops/chemistry.py::global_pass (:84-123) and
@@ -12,13 +12,15 @@
 //
 //   hydrogen_pass_kernel  doric on n_e = n_H (<x> + abu_c) until <x> of the
 //                         cell converges or the cap is reached; then the
-//                         cell's vote in the non-convergence count.
+//                         cell's vote in the non-convergence count. A
+//                         thread takes two consecutive cells of each
+//                         field at a time.
 //   helium_pass_kernel    the same for the three species: doric, the
 //                         secondary-ionisation channel (HEAT), on-the-spot
 //                         recombination photons (REC), the helium pair's
 //                         2x2 solve in double and the three-way test.
 //
-// Why one thread per cell is the dense loop. A cell's iterations read only
+// Why a thread per cell is the dense loop. A cell's iterations read only
 // that cell. In the plain loop a cell that is still active at iteration k
 // has been updated k times, and a frozen cell never changes. So running
 // each cell to its own convergence or to the cap leaves every cell where
@@ -36,8 +38,25 @@
 // every iteration. So the results equal the plain pass's bit for bit.
 //
 // The count. Each thread counts the not-converged cells of its stride; a
-// block sums its threads' counts in shared memory and adds the sum to the
-// 64-bit counter with one atomicAdd. Integer adds do not depend on order.
+// warp adds its lanes' counts (__reduce_add_sync), the block its warps' in
+// shared memory, and adds the sum to the 64-bit counter with one
+// atomicAdd. Integer adds do not depend on order.
+//
+// The hydrogen pass on this card (its function is bound by its bytes at
+// ~0.11 ms for 250^3 float32 cells, its arithmetic well below them): a
+// thread loads its two cells with one 8- or 16-byte load per field (in
+// float32 a trip ahead) and stores them with streaming stores of the same
+// width, so the index arithmetic is paid once for both; it reuses the
+// temperature rates (a pow, a sqrt, an exp, a division) while its cells'
+// temperatures hold the same bits, as they do in an isothermal run; doric's
+// float32 series and the time average (1 - e^-z)/z are evaluated only where
+// the closed form reads them. The grid is persistent (the blocks the card
+// holds at once, each warp striding over groups of 32 threads' cells), the
+// warp gathered after each of a thread's cells, and the registers capped
+// at 64 (kHydrogenBlocks): where a few cells iterate long (a temperature
+// of its own in every cell) the warps that finished take new cells instead
+// of holding their block's slot. The operations that run are the ones the
+// plain pass issues, so the bits are the same.
 //
 // Bound. A pass reads five fields (nine for helium, ten with heat) and
 // writes two (six), once: 0.44 GB for 250^3 float32 cells, 0.13 ms at
@@ -57,55 +76,15 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace chem {
 
 constexpr int kThreads = 256;        // threads per block (a power of two)
 
-// The operations, explicitly rounded, for both types.
-#define CHEM_OP2(NAME, F32, F64)                                  \
-  __device__ __forceinline__ float NAME(float a, float b) {       \
-    return F32(a, b);                                             \
-  }                                                               \
-  __device__ __forceinline__ double NAME(double a, double b) {    \
-    return F64(a, b);                                             \
-  }
-#define CHEM_OP1(NAME, F32, F64)                                  \
-  __device__ __forceinline__ float NAME(float a) { return F32(a); } \
-  __device__ __forceinline__ double NAME(double a) { return F64(a); }
-CHEM_OP2(add, __fadd_rn, __dadd_rn)
-CHEM_OP2(sub, __fsub_rn, __dsub_rn)
-CHEM_OP2(mul, __fmul_rn, __dmul_rn)
-CHEM_OP2(div, __fdiv_rn, __ddiv_rn)
-CHEM_OP2(pow_, powf, pow)
-CHEM_OP2(max_, fmaxf, fmax)
-CHEM_OP2(min_, fminf, fmin)
-CHEM_OP1(exp_, expf, exp)
-CHEM_OP1(expm1_, expm1f, expm1)
-CHEM_OP1(sqrt_, sqrtf, sqrt)
-CHEM_OP1(abs_, fabsf, fabs)
-#undef CHEM_OP1
-#undef CHEM_OP2
-
-template <typename T>
-__device__ __forceinline__ bool is_nan(T v) { return v != v; }
-// torch.clamp (NaN passes), torch.maximum (NaN wins)
-template <typename T>
-__device__ __forceinline__ T clamp_min(T v, T lo) {
-  return is_nan(v) ? v : max_(v, lo);
-}
-template <typename T>
-__device__ __forceinline__ T clamp_max(T v, T hi) {
-  return is_nan(v) ? v : min_(v, hi);
-}
-template <typename T>
-__device__ __forceinline__ T clamp(T v, T lo, T hi) {
-  return is_nan(v) ? v : min_(max_(v, lo), hi);
-}
-template <typename T>
-__device__ __forceinline__ T maximum(T a, T b) {
-  return is_nan(a) ? a : (is_nan(b) ? b : max_(a, b));
-}
+#include "rounded.cuh"
 
 // The pass's scalars, each rounded to T as the plain version rounds it.
 // Host order of the doubles (ops/chemistry.py::_kernel_params): bh00,
@@ -167,21 +146,30 @@ __device__ __forceinline__ void closed_form(double x0, double eqxh,
   *xav = add(eqxh, mul(sub(x0, eqxh), avg));
 }
 
+// The plain pass evaluates the series and (1 - e^-z)/z in every cell and
+// selects; here each is evaluated where it is selected, with the same
+// operations.
 __device__ __forceinline__ void closed_form(float x0, float eqxh, float z,
                                             const HConst<float>& k, float* x,
                                             float* xav) {
   const float one_minus_ee = -expm1_(-z);
   const bool tiny = z < static_cast<float>(1.0e-8);
-  const float avg = tiny ? 1.0f : div(one_minus_ee, z);
-  float g = k.g[9];
-  for (int i = 8; i >= 0; --i) g = add(mul(z, g), k.g[i]);
-  g = z < k.series_below ? mul(z, g) : sub(1.0f, avg);
-  if (tiny) g = 0.0f;
   const float d = sub(eqxh, x0);
   if (d >= 0.0f) {
+    float g;
+    if (tiny) {
+      g = 0.0f;
+    } else if (z < k.series_below) {
+      g = k.g[9];
+      for (int i = 8; i >= 0; --i) g = add(mul(z, g), k.g[i]);
+      g = mul(z, g);
+    } else {
+      g = sub(1.0f, div(one_minus_ee, z));
+    }
     *x = add(x0, mul(d, one_minus_ee));
     *xav = add(x0, mul(d, g));
   } else {
+    const float avg = tiny ? 1.0f : div(one_minus_ee, z);
     *x = sub(eqxh, mul(d, exp_(-z)));
     *xav = sub(eqxh, mul(d, avg));
   }
@@ -210,34 +198,92 @@ __device__ __forceinline__ bool not_converged(T xav, T xav_entry,
          yh > k.min_atoms;
 }
 
-// dt as the plain version reads it: a 0-dim float32 or float64 tensor on
-// the device (kind 1, 2) or a Python number (kind 0, `value`).
-struct Dt {
-  const void* ptr;
-  int kind;
-  double value;
-  __device__ double read() const {
-    if (kind == 1) return static_cast<double>(*static_cast<const float*>(ptr));
-    if (kind == 2) return *static_cast<const double*>(ptr);
-    return value;
-  }
-};
-
-// A block's threads add their counts in shared memory; thread 0 adds the
-// sum to the counter.
+// A warp adds its lanes' counts, the block its warps' sums in shared
+// memory (one word a warp); thread 0 adds the block's sum to the counter.
+// Every thread of the block calls it; blockDim.x is a multiple of 32.
 __device__ __forceinline__ void count_block(unsigned n,
                                             unsigned long long* count) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned* part = reinterpret_cast<unsigned*>(smem_raw);
   const unsigned t = threadIdx.x;
-  part[t] = n;
+  n = __reduce_add_sync(0xffffffffu, n);
+  if (t % 32 == 0) part[t / 32] = n;
   __syncthreads();
-  for (unsigned s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (t < s) part[t] += part[t + s];
-    __syncthreads();
+  if (t == 0) {
+    unsigned sum = 0;
+    for (unsigned w = 0; w < blockDim.x / 32; ++w) sum += part[w];
+    if (sum != 0) atomicAdd(count, static_cast<unsigned long long>(sum));
   }
-  if (t == 0 && part[0] != 0)
-    atomicAdd(count, static_cast<unsigned long long>(part[0]));
+}
+
+// A thread's cells of a field: two, loaded as one vector of T. Four
+// float32 cells a thread (16-byte loads) took 62 registers and were 6 %
+// slower where every cell has its own temperature (PERF.md).
+constexpr int kCells = 2;
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+template <typename T>
+__device__ __forceinline__ bool aligned(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) % sizeof(typename Pair<T>::type)) ==
+         0;
+}
+
+// A thread's cells i0, i0 + 1 of field p: one vector load where both are
+// below n and `vec` (every pointer of the pass aligned to the vector),
+// else one load a cell below n (0 past it).
+template <typename T>
+__device__ __forceinline__ void load_cells(const T* p, long long i0,
+                                           long long n, bool vec,
+                                           T (&v)[kCells]) {
+  using V = typename Pair<T>::type;
+  if (vec && i0 + kCells <= n) {
+    const V u = *reinterpret_cast<const V*>(p + i0);
+    memcpy(v, &u, sizeof(u));
+  } else {
+    for (int j = 0; j < kCells; ++j) v[j] = i0 + j < n ? p[i0 + j] : T(0);
+  }
+}
+
+// The same cells written, with a streaming vector store where both are.
+template <typename T>
+__device__ __forceinline__ void store_cells(T* p, long long i0, long long n,
+                                            bool vec, const T (&v)[kCells]) {
+  using V = typename Pair<T>::type;
+  if (vec && i0 + kCells <= n) {
+    V u;
+    memcpy(&u, v, sizeof(u));
+    __stcs(reinterpret_cast<V*>(p + i0), u);
+  } else {
+    for (int j = 0; j < kCells && i0 + j < n; ++j) p[i0 + j] = v[j];
+  }
+}
+
+// The five fields of a thread's cells.
+template <typename T>
+struct CellFields {
+  T nd[kCells], tp[kCells], x0[kCells], xe[kCells], ph[kCells];
+};
+
+template <typename T, typename Args>
+__device__ __forceinline__ void load_fields(const Args& a, long long i0,
+                                            bool vec, CellFields<T>* f) {
+  load_cells(a.ndens, i0, a.n, vec, f->nd);
+  load_cells(a.temp, i0, a.n, vec, f->tp);
+  load_cells(a.xh, i0, a.n, vec, f->x0);
+  load_cells(a.xh_av, i0, a.n, vec, f->xe);
+  load_cells(a.phi, i0, a.n, vec, f->ph);
+}
+
+template <typename T>
+__device__ __forceinline__ bool same_bits(T a, T b) {
+  using U = typename std::conditional<sizeof(T) == 8, unsigned long long,
+                                      unsigned>::type;
+  U ua, ub;
+  memcpy(&ua, &a, sizeof(T));
+  memcpy(&ub, &b, sizeof(T));
+  return ua == ub;
 }
 
 template <typename T>
@@ -253,36 +299,90 @@ struct HArgs {
   HConst<T> k;
 };
 
+// Blocks of kThreads an SM that the hydrogen kernel's registers must allow
+// (64 registers a thread): without the cap its float64 form takes 68, three
+// blocks an SM, and is 12 % slower (PERF.md).
+constexpr int kHydrogenBlocks = 4;
+
+// A thread takes kCells consecutive cells at a time, a warp 32 such
+// groups, striding over the grid's warps (a persistent grid: as many
+// blocks as the card holds at once, so a warp whose cells converged early
+// takes its next ones without waiting for the rest of its block). A
+// thread's cells iterate one after the other, each to its own convergence
+// or the cap, the warp's lanes gathered again after each (__syncwarp: a
+// lane whose cell converged early waits for the others instead of starting
+// its next cell's rates alone), and the temperature's rates are computed
+// again only where a cell's temperature differs in its bits from the last
+// one's. In float32 a thread loads its next trip's cells before it
+// iterates this trip's, so their latency hides behind this trip's work;
+// float64 loads each trip's at its start (its registers leave no room for
+// a second set: with it 64 registers spill and the pass takes 0.41 ms on
+// the EoR state where it takes 0.30, PERF.md).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kHydrogenBlocks)
     hydrogen_pass_kernel(HArgs<T> a) {
+  constexpr int K = kCells;
   const HConst<T>& k = a.k;
   const T dt = static_cast<T>(a.dt.read());
+  const bool vec = aligned(a.ndens) && aligned(a.temp) && aligned(a.xh) &&
+                   aligned(a.xh_av) && aligned(a.phi) && aligned(a.xh_out) &&
+                   aligned(a.xh_av_out);
   unsigned n_not = 0;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < a.n; i += stride) {
-    const T nd = a.ndens[i], x0 = a.xh[i], xav_entry = a.xh_av[i];
-    const T phi = a.phi[i];
-    const HCell<T> c = h_cell(a.temp[i], k);
-    T xav = xav_entry, xint = x0;
-    int it = 0;
-    while (it < a.cap) {
-      T x, av;
-      doric(x0, dt, mul(nd, add(xav, k.abu_c)), phi, c, k, &x, &av);
-      const T rel = abs_(div(sub(av, xav), sub(T(1), av)));
-      const bool done = rel < k.min_change || sub(T(1), av) < k.min_atoms;
-      xav = av;
-      xint = x;
-      ++it;
-      if (done) break;
+  HCell<T> c{};
+  T t_last{};
+  bool have_cell = false;
+  const unsigned lane = threadIdx.x % 32;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x * K;
+  // the warp's first cell: the same in all its lanes, so that every lane
+  // takes the loop's trips and reaches each __syncwarp
+  const long long w_first =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x - lane) *
+      K;
+  constexpr bool kAhead = sizeof(T) == 4;
+  CellFields<T> f, next;
+  if (kAhead) load_fields(a, w_first + lane * K, vec, &f);
+  for (long long w0 = w_first; w0 < a.n; w0 += stride) {
+    const long long i0 = w0 + static_cast<long long>(lane) * K;
+    if (kAhead)
+      load_fields(a, i0 + stride, vec, &next);
+    else
+      load_fields(a, i0, vec, &f);
+    const T(&nd)[K] = f.nd;
+    const T(&tp)[K] = f.tp;
+    const T(&x0)[K] = f.x0;
+    const T(&xe)[K] = f.xe;
+    const T(&ph)[K] = f.ph;
+    T xo[K], xao[K];
+    for (int j = 0; j < K; ++j) {
+      __syncwarp();
+      if (i0 + j >= a.n) continue;
+      if (!have_cell || !same_bits(tp[j], t_last)) {
+        c = h_cell(tp[j], k);
+        t_last = tp[j];
+        have_cell = true;
+      }
+      T xav = xe[j], xint = x0[j];
+      int it = 0;
+      while (it < a.cap) {
+        T x, av;
+        doric(x0[j], dt, mul(nd[j], add(xav, k.abu_c)), ph[j], c, k, &x,
+              &av);
+        const T rel = abs_(div(sub(av, xav), sub(T(1), av)));
+        const bool done = rel < k.min_change || sub(T(1), av) < k.min_atoms;
+        xav = av;
+        xint = x;
+        ++it;
+        if (done) break;
+      }
+      xo[j] = xint;
+      xao[j] = xav;
+      if (a.iters != nullptr) a.iters[i0 + j] = it;
+      n_not += not_converged(xav, xe[j], k) &&
+               (a.mask == nullptr || a.mask[i0 + j]);
     }
-    a.xh_out[i] = xint;
-    a.xh_av_out[i] = xav;
-    if (a.iters != nullptr) a.iters[i] = it;
-    n_not += not_converged(xav, xav_entry, k) &&
-             (a.mask == nullptr || a.mask[i]);
+    store_cells(a.xh_out, i0, a.n, vec, xo);
+    store_cells(a.xh_av_out, i0, a.n, vec, xao);
+    if (kAhead) f = next;
   }
   count_block(n_not, a.count);
 }
@@ -573,21 +673,35 @@ __global__ void __launch_bounds__(kThreads, he_min_blocks<T, HEAT, REC>())
 
 // The launches of the two kernels
 
-// Blocks of a launch over n cells: one cell per thread, beyond the
+// Blocks of a launch over n cells, `per` cells a thread: beyond the
 // grid's limit of 2^31 - 1 blocks each thread striding over several.
-unsigned grid_for(long long n) {
-  const long long g = (n + kThreads - 1) / kThreads;
+unsigned grid_for(long long n, int per = 1) {
+  const long long t = (n + per - 1) / per;
+  const long long g = (t + kThreads - 1) / kThreads;
   return static_cast<unsigned>(g < 1 ? 1 : g > 0x7fffffffLL ? 0x7fffffffLL : g);
 }
 
-// The counter is zeroed by a memset on the stream, not a kernel.
+// The counter is zeroed by a memset on the stream, not a kernel. The
+// hydrogen grid: the blocks the card holds at once, fewer where the cells
+// do not fill them.
 template <typename T>
 int launch_hydrogen(HArgs<T> a, cudaStream_t st) {
-  const cudaError_t err =
-      cudaMemsetAsync(a.count, 0, sizeof(unsigned long long), st);
+  const size_t smem = kThreads * sizeof(unsigned);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, hydrogen_pass_kernel<T>, kThreads, smem);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(a.count, 0, sizeof(unsigned long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  hydrogen_pass_kernel<T><<<grid_for(a.n), kThreads,
-                             kThreads * sizeof(unsigned), st>>>(a);
+  const long long full =
+      static_cast<long long>(sms) * (per_sm < 1 ? 1 : per_sm);
+  const unsigned need = grid_for(a.n, kCells);
+  const unsigned g = need < full ? need : static_cast<unsigned>(full);
+  hydrogen_pass_kernel<T><<<g, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -81,13 +81,15 @@ MAX_THREADS = 768     # most threads per block of a kernel with rate threads
 # the dense rate passes (ops/cheb_rates.py: the unfused modes', with or
 # without the heat channel, and the helium engine's three-species pass) and
 # the trace loops (one per trace of every sweep mode, and of the helium
-# engine; the kernels they issue counted under their own names)
+# engine; the kernels they issue counted under their own names); the
+# thermal update (ops/thermal.py)
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "cheb_sweep_seg": 0, "cheb_sweep_rates": 0,
             "cheb_sweep_rates_heat": 0, "extract_boxes": 0,
             "accumulate_boxes": 0, "chemistry_pass": 0,
             "chemistry_pass_he": 0, "init_segments": 0, "rates_dense": 0,
-            "cheb_trace_sweep": 0, "rates_he": 0, "he_trace_sweep": 0}
+            "cheb_trace_sweep": 0, "rates_he": 0, "he_trace_sweep": 0,
+            "thermal_update": 0}
 
 
 # kernel name -> SweepPlan of its last launch

@@ -36,16 +36,25 @@ derivative) and the linear relaxation equation is solved exactly:
 L-stable, exact at equilibria and for linear cooling, reduces to explicit
 Euler as b -> 0.
 
-The JAX package has no hand kernel here, so this module is plain PyTorch
-ops on the device of its tensors.
+``update_temperature`` dispatches on the device of its fields. On the CPU
+it runs the plain version ``update_temperature_ref``, the loop of PyTorch
+operations above, the twin of the JAX function. On the card it launches
+the kernel of csrc/thermal.cu once: one thread per cell runs the ``nsub``
+substeps in registers with dLambda/dT written out as jvp's formulas issue
+it, bit for bit as the plain version, dt read on the device; the port's
+counterpart of the JAX package's fori_loop. Launches are counted in
+``sweep.launches["thermal_update"]``.
 """
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from . import sweep
+
 __all__ = ["ThermalParams", "cooling_rate", "update_temperature",
-           "KB", "EV2ERG", "E_HI_ERG", "T_CMB0"]
+           "update_temperature_ref", "KB", "EV2ERG", "E_HI_ERG", "T_CMB0"]
 
 KB = 1.380649e-16          # erg/K
 EV2ERG = 1.602176634e-12
@@ -94,6 +103,19 @@ def cooling_rate(T, ndens, xh, p: ThermalParams, z=0.0):
 
 def update_temperature(dt, temp, ndens, xh, heat_rate, p: ThermalParams,
                        z=0.0, nsub=16):
+    """The temperature update (see ``update_temperature_ref``): the plain
+    version for CPU fields, one launch of the kernel for CUDA fields
+    (same-shape tensors of one float type; ``dt`` a Python number or a
+    0-dim tensor, read on the device; ``z`` a number). Arguments and
+    result as ``update_temperature_ref``'s."""
+    if temp.device.type == "cpu":
+        return update_temperature_ref(dt, temp, ndens, xh, heat_rate, p,
+                                      z=z, nsub=nsub)
+    return _update_cuda(dt, temp, ndens, xh, heat_rate, p, z=z, nsub=nsub)
+
+
+def update_temperature_ref(dt, temp, ndens, xh, heat_rate, p: ThermalParams,
+                           z=0.0, nsub=16):
     """Advance T over dt with fixed-rate photoheating and T-dependent
     cooling, using ``nsub`` exponential-Euler substeps (see the module
     docstring: linearized Lambda via AD, exact relaxation solve).
@@ -124,3 +146,39 @@ def update_temperature(dt, temp, ndens, xh, heat_rate, p: ThermalParams,
                           one)
         T = torch.clamp(T + r0 * h * phi, p.t_floor, p.t_cap)
     return T
+
+
+def _kernel_params(p: ThermalParams, z):
+    """The doubles the kernel takes (TConst of csrc/thermal.cu): the
+    products of Python scalars formed as cooling_rate forms them."""
+    z = float(z)
+    return [1.5 * KB, p.abu_c, p.albpow, p.bh00, 0.75 * KB,
+            E_HI_ERG * p.colh0, -p.temph0, -118348.0, 7.50e-19,
+            1.42e-27 * p.gaunt_ff, 1.0 if p.compton else 0.0,
+            T_CMB0 * (1.0 + z), 5.65e-36 * (1.0 + z) ** 4, p.t_floor,
+            p.t_cap]
+
+
+def _update_cuda(dt, temp, ndens, xh, heat_rate, p: ThermalParams, z=0.0,
+                 nsub=16):
+    """One launch of the thermal kernel on the current stream, counted in
+    sweep.launches. Fields of another layout are copied into C order
+    first."""
+    from .chemistry import _check_cells, _dt_arg, _raise_on
+    temp, ndens, xh, heat_rate = (t.contiguous()
+                                  for t in (temp, ndens, xh, heat_rate))
+    sfx = _check_cells("update_temperature", dict(
+        temp=temp, ndens=ndens, xh=xh, heat_rate=heat_rate))
+    from ._build import load
+    lib = load("thermal")
+    out = torch.empty_like(temp)
+    dt_ptr, dt_kind, dt_val = _dt_arg(dt, temp.device)
+    params = _kernel_params(p, z)
+    stream = torch.cuda.current_stream(temp.device).cuda_stream
+    err = getattr(lib, f"thermal_update_{sfx}")(
+        dt_ptr, dt_kind, dt_val, temp.data_ptr(), ndens.data_ptr(),
+        xh.data_ptr(), heat_rate.data_ptr(), out.data_ptr(), temp.numel(),
+        int(nsub), (ctypes.c_double * len(params))(*params), stream)
+    _raise_on(lib, "update_temperature", err)
+    sweep.launches["thermal_update"] += 1
+    return out

@@ -1,5 +1,5 @@
 // Host stand-in for the CUDA device environment, for rehearsing the port's
-// kernels on the CPU (tests/test_torch_rehearsal.py): every thread of every
+// kernels on the CPU (tests/rehearsal_host.py): every thread of every
 // block of a cluster is a std::thread, __syncthreads() a barrier of the
 // block's threads, the cluster barrier a split barrier of all the cluster's
 // threads (arrive and wait apart, as on the card, so a block's rate threads
@@ -21,6 +21,7 @@
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 struct uint3_ { unsigned x, y, z; };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
 extern thread_local uint3_ threadIdx, blockIdx, blockDim, gridDim;
@@ -46,6 +47,19 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   std::atomic_ref<unsigned> acc(emu_cl->ballot[emu_rank][w]);
   bar.arrive_and_wait();
   if (pred) acc.fetch_or(1u << lane);
+  bar.arrive_and_wait();
+  const unsigned r = acc.load();
+  bar.arrive_and_wait();
+  if (lane == 0) acc.store(0u);
+  return r;
+}
+// every thread of the warp calls it with the full mask, as the kernels do
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  const unsigned w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  std::barrier<>& bar = *emu_cl->warp_bar[emu_rank][w];
+  std::atomic_ref<unsigned> acc(emu_cl->ballot[emu_rank][w]);
+  bar.arrive_and_wait();
+  acc.fetch_add(v);
   bar.arrive_and_wait();
   const unsigned r = acc.load();
   bar.arrive_and_wait();
@@ -79,4 +93,5 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 template <class T> inline T __ldcg(const T* p) { return *(const volatile T*)p; }
 template <class T> inline void __stcg(T* p, T v) { *(volatile T*)p = v; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

@@ -1,15 +1,17 @@
-// Runs the port's kernels on the host: k_loop.inc and k_chem.inc are the
-// device parts of trace_loop.cu and chemistry.cu, cheb_sweep_kernels.cuh,
+// Runs the port's kernels on the host: k_loop.inc, k_chem.inc and
+// k_thermal.inc are the device parts of trace_loop.cu, chemistry.cu and
+// thermal.cu, cheb_sweep_kernels.cuh,
 // cheb_sweep_rates.cuh, cheb_rates.cuh and cheb_rates_he.cuh those of the
 // headers of K1, K1f and K2, of K3, and of the dense rate passes, as
-// tests/test_torch_rehearsal.py cuts them out,
+// tests/rehearsal_host.py cuts them out,
 // compiled against the stand-in headers of this directory. One cluster
 // (source) runs at a time, its C blocks x T threads as std::threads: the
 // chain threads and, behind them, the rate threads of K1f. K3's phase B,
-// the box kernels, the start of a segmented sweep, the dense rate passes
-// and the chemistry passes are plain grids: their blocks run one after the
-// other (all but phase B's also in reverse order), each as T std::threads;
-// the accumulate's grid has a second dimension, its boxes.
+// the box kernels, the start of a segmented sweep, the dense rate passes,
+// the chemistry passes and the thermal update are plain grids: their
+// blocks run one after the other (all but phase B's also in reverse
+// order), each as T std::threads; the accumulate's grid has a second
+// dimension, its boxes.
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -23,6 +25,7 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "cheb_rates_he.cuh"
 #include "k_loop.inc"
 #include "k_chem.inc"
+#include "k_thermal.inc"
 using namespace cheb;
 
 template <class F>
@@ -373,3 +376,28 @@ void run_chem(int helium, void* const* f, long long n, int cap,
   }
 REHEARSE_CHEM(rehearse_chem_f32, float)
 REHEARSE_CHEM(rehearse_chem_f64, double)
+
+// The thermal update of thermal.cu over n cells, `blocks` blocks of T_
+// threads striding over them, in reverse block order with `reverse`. `f`
+// holds temp, ndens, xh, heat, out.
+template <class T>
+void run_thermal(void* const* f, long long n, int nsub, const double* params,
+                 int dt_kind, const void* dt_ptr, double dt_value, int blocks,
+                 int T_, int reverse) {
+  using P = const T*;
+  const thermal::TArgs<T> a{(P)f[0], (P)f[1], (P)f[2], (P)f[3], (T*)f[4], n,
+                            nsub, thermal::Dt{dt_ptr, dt_kind, dt_value},
+                            thermal::t_const<T>(params, nsub)};
+  emu_launch(blocks, 1, T_, 0, [&] { thermal::thermal_kernel<T>(a); },
+             reverse != 0);
+}
+
+#define REHEARSE_THERMAL(NAME, TYPE)                                           \
+  extern "C" void NAME(void* const* f, long long n, int nsub,                  \
+                       const double* params, int dt_kind, const void* dt_ptr,  \
+                       double dt_value, int blocks, int T_, int reverse) {     \
+    run_thermal<TYPE>(f, n, nsub, params, dt_kind, dt_ptr, dt_value, blocks,   \
+                      T_, reverse);                                            \
+  }
+REHEARSE_THERMAL(rehearse_thermal_f32, float)
+REHEARSE_THERMAL(rehearse_thermal_f64, double)

@@ -192,6 +192,41 @@ def test_global_pass_kernel_equals_plain_on_cuda(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_global_pass_kernel_takes_several_cells_a_thread_on_cuda(dtype):
+    """The hydrogen kernel's threads take two cells a field at a time: over
+    1001 cells (no multiple of a thread's cells), on one temperature (the
+    isothermal case) and on a different one in every cell, with the fields
+    aligned to the two cells' vector and one element off it (the one-cell
+    path), bit for bit
+    against global_pass_ref with the mask, and each cell's iterations
+    equal on both paths."""
+    _card()
+    p = ChemistryParams(**PARAMS)
+    f = _fields(9, n=1001)
+    for temp in (None, 1.0e4):
+        if temp is not None:
+            f["temp"] = np.full(1001, temp)
+        t = _torch(f, dtype, "cuda")
+        bufs = {k: torch.zeros(1002, dtype=v.dtype, device="cuda")
+                for k, v in t.items()}
+        off = {}
+        for k, v in t.items():
+            bufs[k][1:] = v
+            off[k] = bufs[k][1:]
+        assert off["xh"].data_ptr() % (2 * t["xh"].element_size()) != 0
+        its = []
+        for fields in (t, off):
+            args = (DT, *(fields[k] for k in H_ORDER), p)
+            got = ch.global_pass(*args, mask=fields["mask"])
+            ref = ch.global_pass_ref(*args, mask=fields["mask"])
+            assert all(torch.equal(g, r) for g, r in zip(got, ref))
+            its.append(torch.empty(1001, dtype=torch.int32, device="cuda"))
+            ch._pass_cuda(*args, iterations=its[-1])
+        assert torch.equal(its[0], its[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("heat", [False, True])
 @pytest.mark.parametrize("rec", [False, True])
 def test_global_pass_he_kernel_equals_plain_on_cuda(dtype, heat, rec):

@@ -120,6 +120,31 @@ def test_update_temperature_float32_matches_jax(name):
                                rtol=rtol64, atol=0)
 
 
+@pytest.mark.parametrize("name", REGIMES)
+def test_update_temperature_on_cpu_is_the_plain_version(name):
+    """On CPU fields update_temperature is update_temperature_ref, bit for
+    bit in both types, and launches no kernel."""
+    from pyc2ray_torch.ops import sweep
+    dt, T0, nd, xh, heat, compton, z, nsub = _regime(name)
+    for npdt in (np.float64, np.float32):
+        args = [torch.from_numpy(a.astype(npdt)) for a in (T0, nd, xh, heat)]
+        sweep.reset_launches()
+        got = update_temperature(dt, *args, P._replace(compton=compton),
+                                 z=z, nsub=nsub)
+        assert sum(sweep.launches.values()) == 0
+        want = thermal.update_temperature_ref(
+            dt, *args, P._replace(compton=compton), z=z, nsub=nsub)
+        assert torch.equal(got, want)
+
+
+def test_update_temperature_raises_on_other_devices():
+    """No silent fallback: fields on neither the CPU nor a CUDA card (the
+    meta device) make the update raise."""
+    t = [torch.ones(8, dtype=torch.float64, device="meta") for _ in range(4)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        update_temperature(3e13, *t, P)
+
+
 def test_update_temperature_cold_start_float32():
     """From 100 K in float32, exp(-temph0/T) and exp(-118348/T) underflow
     to 0 and their derivatives must be 0, not NaN: the gas heats up where
@@ -207,3 +232,36 @@ def test_loss_fraction_warning(loss, bound, warns, tmp_path):
     text = open(log).read()
     assert ("exceeds Raytracing.loss_fraction" in text) == warns
     assert "photon loss fraction: 5.000e-02" in text
+
+
+# ---- on the card: the kernel against its plain version --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", REGIMES)
+def test_update_temperature_kernel_equals_plain_on_cuda(dtype, name):
+    """One launch (csrc/thermal.cu), bit for bit against
+    update_temperature_ref on the card, in every regime, with dt a device
+    tensor and a Python number, with 5 substeps (a reciprocal of nsub that
+    is not a power of two) and on a grid in Fortran order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the thermal kernel has no CPU mode)")
+    from pyc2ray_torch.ops import sweep
+    dt, T0, nd, xh, heat, compton, z, nsub = _regime(name)
+    args = [torch.from_numpy(a).to(device="cuda", dtype=dtype)
+            for a in (T0, nd, xh, heat)]
+    p = P._replace(compton=compton)
+    for dt_arg, ns in ((torch.tensor(dt, dtype=dtype, device="cuda"), nsub),
+                       (dt, nsub), (dt, 5)):
+        sweep.reset_launches()
+        got = update_temperature(dt_arg, *args, p, z=z, nsub=ns)
+        assert sweep.launches["thermal_update"] == 1
+        want = thermal.update_temperature_ref(dt_arg, *args, p, z=z, nsub=ns)
+        assert torch.equal(got, want), (dt_arg, ns)
+    n = T0.size
+    if n % 4 == 0:
+        f3 = [a.reshape(n // 4, 2, 2).permute(2, 1, 0) for a in args]
+        assert not f3[0].is_contiguous()
+        got = update_temperature(dt, *f3, p, z=z, nsub=nsub)
+        want = thermal.update_temperature_ref(dt, *f3, p, z=z, nsub=nsub)
+        assert torch.equal(got, want)
