@@ -164,9 +164,22 @@ Phases (any failure raises and the script exits non-zero):
    and rates_dense with the heat channel at the bench fields, Gamma and
    the heat, ROADMAP section 3).
 3d. (after 3c) The table-exact flat engine (ops/raytrace.py) at the bench
-   configuration in float64 with the model layer's black-body tables: ns per
-   cell-update, device launches per batch and the device idle share of a
-   profiled window, and the trace of the first 16 sources against the CPU.
+   configuration in float64 with the model layer's black-body tables, its
+   trace one call of the loop of csrc/flat_sweep.cu (flat_trace_sweep: per
+   batch the sweep, the rate pass and the ordered accumulate): the launch
+   counts of the whole trace (asserted: one loop, each kernel once per
+   batch), ns per cell-update after and before (the plain loop
+   flat_trace_sweep_ref, the whole trace bit-equal); the loop against the
+   plain loop over 16 batches in float64 and float32, with and without
+   heat, bit for bit; device launches per batch (at most 4, asserted) and
+   the device idle share of a profiled window of 16 batches, with each
+   kernel's median device us and the gap before it; each kernel against
+   its plain version on the first batch (max_abs_err 0, asserted) with its
+   device ms in the loop, the plain version's ms, one index_add_ beside the
+   accumulate, and the bound of its function (``flat_work``: the bytes of
+   this data and FLAT_*_OPS operations), the sweep's chain floor (shells x
+   phase 1's cluster barrier); the loop's ms per trace against the plain
+   loop's and its bound; the trace of the first 16 sources against the CPU.
 3e. The helium engine (HeRaytracer, 72 default bins) at the bench fields in
    float32: the trace is one call of the C++ loop (he_trace_sweep); its
    launches (one loop, K1 three per batch, rates_he and the accumulate of
@@ -213,7 +226,9 @@ Phases (any failure raises and the script exits non-zero):
    engine flat, float64) through C2Ray_Test on the card against the
    sequential C++ oracle's evolve loop (native_ext, built with g++ into
    build/torch_kernels/); the eight statistics of run_test.py, each held to
-   its tolerance; the wall time of the port's part and of the oracle's.
+   its tolerance; the wall time of the port's part and of the oracle's, the
+   s and count of the engine's traces (each through the flat kernels: one
+   flat_trace_sweep a trace, asserted) and the run's launch counts.
 4g. One evolve3D_he timestep at N=64 with 16 sources in float64 with
    secondary ionizations and recombination photons, GPU against CPU, and
    that engine's loop (with the heat channel) against its plain loop on the
@@ -275,18 +290,21 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    (raytracing with both engines); the harness's two rows alone, the
    others four at a time. Per driver: its exit code, wall time,
    kernel launches (counted in its process and printed at its exit; the
-   kernels its path reaches must each launch; the helium rows three sweeps
-   per rates_he) and its check lines. A driver fails the phase when it
-   exits non-zero or prints FAILED.
+   kernels its path reaches must each launch: the flat engine's four in
+   the five flat examples, make_plots and the flat tutorial; the helium
+   rows three sweeps per rates_he) and its check lines. A driver fails the
+   phase when it exits non-zero or prints FAILED.
 6. The script's wall time, a ``kernels`` JSON line (the five sweep kernels,
    then the trace loop's extract_boxes and accumulate_boxes on 4e's EoR
    trace (the accumulate with its rated form at the bench beside, 3g), the dense rate pass rates_dense and init_segments (2e), the loop
    cheb_trace_sweep (phase 3's default bench trace, and 4e's fuse_fold EoR
    trace beside it), the helium engine's rates_he (2d, launches 3e) and its
    loop he_trace_sweep (3e), the chemistry_pass
-   kernel on the EoR run's state, chemistry_pass_he on 4g's, and the
+   kernel on the EoR run's state, chemistry_pass_he on 4g's, the
    thermal kernel thermal_update at 3c's float32 update with the heating
-   example's launches, 4c), then the result line
+   example's launches, 4c, and the flat engine's flat_sweep, flat_rates,
+   flat_accumulate and its loop flat_trace_sweep, 3d, with the golden's
+   launches beside), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
@@ -2753,7 +2771,7 @@ def eor_chemistry(sim, dt, smi):
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "examples", "single_source_test")
 # examples/single_source_test/run_test.py:200-210: name, tolerance
-def golden_run(N, numzred, steps, device, results_basename):
+def golden_run(N, numzred, steps, device, results_basename, traces=None):
     """examples/single_source_test/run_test.py through the port:
     C2Ray_Test on that example's parameters.yml (read unchanged; only the
     output directory is ``results_basename``), one 1e49 photons/s
@@ -2763,7 +2781,9 @@ def golden_run(N, numzred, steps, device, results_basename):
     these are, with the port timed apart from the oracle). Returns the
     simulation, the eight statistics {name: (value, tolerance)} of
     run_test.py:200-210 and the wall seconds of the port's part and of the
-    oracle's part."""
+    oracle's part. With a dict ``traces``, the engine's trace_batches calls
+    are timed into it ("n" calls, "s" seconds, each up to a synchronize of
+    the card)."""
     from pyc2ray_torch import C2Ray_Test
     from pyc2ray_torch.examples.single_source_test import (
         TABLE_TOLERANCES, oracle_evolve_loop, statistics)
@@ -2773,6 +2793,19 @@ def golden_run(N, numzred, steps, device, results_basename):
     params["Output"]["results_basename"] = results_basename
     with contextlib.redirect_stdout(io.StringIO()):
         sim = C2Ray_Test(params, N, device=device)
+    if traces is not None:
+        traces.update(n=0, s=0.0)
+        trace_batches = sim.raytracer.trace_batches
+
+        def timed(*args):
+            t0 = time.time()
+            out = trace_batches(*args)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            traces["n"] += 1
+            traces["s"] += time.time() - t0
+            return out
+        sim.raytracer.trace_batches = timed
     zred_array = sim.generate_redshift_array(numzred, 1e7)
     srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]], dtype=float)
     srcflux = np.array([1e49 / 1e48])
@@ -2799,6 +2832,65 @@ def golden_run(N, numzred, steps, device, results_basename):
     stats = {name: (float(v), tol) for name, v, tol in
              statistics(np.asarray(sim.xh), xh_oracle, TABLE_TOLERANCES)}
     return sim, stats, t_port, t_oracle
+
+
+def golden_kernels(sim):
+    """The flat kernels at the golden's shape (4f): its engine (N = 128, R
+    beyond the mesh, so the whole box, one source a batch, float64), its
+    source and its last fields. Asserts that flat_plan chose clusters of
+    16 blocks, then holds the sweep kernel to the plain gather and sweep
+    and the loop of one trace to the plain loop, max_abs_err 0 each. The
+    cached allocator is emptied and then holds only blocks of NaN of the
+    kernels' buffer size, so the scratch the kernels write starts as NaN or
+    as a temporary's values, never the golden's last column densities.
+    Returns {"flat_sweep": err, "flat_trace_sweep": err}."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    from pyc2ray_torch.utils import format_sources
+    rt = sim.raytracer
+    N, dt = rt.config.N, rt.config.dtype
+    C = rt.geom_np.num_cells
+    kt = rt.kernel_tables()
+    B = rt.config.batch_size
+    cluster = fs.flat_plan(kt, B, rt.device)
+    if (B, C, cluster) != (1, N ** 3, 16):
+        raise RuntimeError(f"4f golden: B={B}, {C} cells of {N ** 3}, "
+                           f"clusters of {cluster}; expected 1, the whole "
+                           "box and 16")
+    srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]], dtype=float)
+    pos_b, flux_b = rt.prepare_sources(*format_sources(srcpos, [10.0]))
+    nd = torch.as_tensor(np.asarray(sim.ndens), dtype=dt,
+                         device="cuda").reshape(-1)
+    xh = torch.as_tensor(np.asarray(sim.xh), dtype=dt,
+                         device="cuda").reshape(-1)
+    nhi = nd * (1.0 - xh)
+
+    def poison(n):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        blocks = [torch.full((B * C,), float("nan"), dtype=dt, device="cuda")
+                  for _ in range(n)]
+        return {t.data_ptr() for t in blocks}
+    ptrs = poison(4)
+    cd = rt.sweep_batch(nhi, pos_b[0], sim.dr)
+    on_nan = cd.data_ptr() in ptrs
+    cd_plain = rt._sweep(rt._gather(nhi, pos_b[0])[1],
+                         rt._dr(sim.dr, "cuda"))
+    errs = {"flat_sweep": float((cd - cd_plain).abs().max())}
+    del cd, cd_plain
+    poison(8)
+    got = rt.trace_batches(nd, xh, pos_b, flux_b, sim.dr)[0]
+    want = rt.flat_trace_sweep_ref(nd, xh, pos_b, flux_b, sim.dr)[0]
+    errs["flat_trace_sweep"] = float((got - want).abs().max())
+    log(f"  4f the flat kernels at the golden's shape (N={N}, {C} cells, "
+        f"{kt.sizes['n_shells']} shells, B={B}, {dt}, clusters of "
+        f"{cluster}) on its last fields: the sweep against the plain sweep "
+        f"max_abs_err={errs['flat_sweep']:.1e} (its output on a block of "
+        f"NaN: {on_nan}), one trace against the plain loop "
+        f"max_abs_err={errs['flat_trace_sweep']:.1e}")
+    if any(e != 0.0 for e in errs.values()) or not float(want.max()) > 0.0:
+        raise RuntimeError(f"4f golden: the flat kernels differ from their "
+                           f"plain versions at the golden's shape: {errs}")
+    return errs
 
 
 def he_bins():
@@ -3222,25 +3314,136 @@ def launches_in(prof):
                for e in events)
 
 
-def flat_bench(src_pos, tmp):
-    """Phase 3d: the table-exact flat engine at the bench configuration in
-    float64 with the black-body tables of the model layer (NumTau 2000):
-    ns per cell-update, device launches per batch and the device idle share
-    of a profiled window of 16 batches, and the trace of the first 16
-    sources on the card against the CPU."""
+# the flat engine's operations (csrc/flat_sweep.cu), a transcendental
+# counted as one: per cell and source of the sweep beyond the source cell
+# (4 c*sig, 4 max, 4 div, 4 c*w, 8 adds from 0, diag*, /, path*dr,
+# nHI*pdr, +); of the rate pass (path*dr, nHI*, cd-dcol, 3 tau, 2 prefactor
+# muls, the thick test, the two masks, clamp, the result's mul and
+# division, 2 muls of the thin branch) and per table lookup (clamp, log10,
+# sub, mul, add, clamp, convert, sub, min, sub, mul, add); the accumulate
+# one add a cell, source and channel
+FLAT_SWEEP_OPS = 29
+FLAT_RATE_OPS = 16
+FLAT_LOOKUP_OPS = 12
+FLAT_KERNELS = (("flat_sweep_kernel", "flat_sweep"),
+                ("flat_rates_kernel", "flat_rates"),
+                ("flat_accumulate_kernel", "flat_accumulate"))
+
+
+def flat_tables():
+    """The model layer's black-body tables (NumTau 2000): photo and heat,
+    with minlogtau and dlogtau, in the order Raytracer takes them."""
     from pyc2ray_torch.constants import ev2fr
-    from pyc2ray_torch.diagnostics import device_idle_share, profile_trace
-    from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
     from pyc2ray_torch.radiation import BlackBodySource, make_tau_table
-    N, dt = N_BENCH, torch.float64
     tau, dlogtau = make_tau_table(-20.0, 4.0, 2000)
     fmin, fmax = ev2fr * 13.598, 10 * ev2fr * 54.416
-    thin, thick = BlackBodySource(5e4, False, fmin, 2.8).make_photo_table(
-        tau, fmin, fmax, 1e48)
-    cfg = RaytraceConfig(N=N, R_max_LLS=R_BENCH, sig=SIG,
-                         batch_size=B_BENCH, dtype=dt)
+    bb = BlackBodySource(5e4, False, fmin, 2.8)
+    thin, thick = bb.make_photo_table(tau, fmin, fmax, 1e48)
+    hthin, hthick = bb.make_heat_table(tau, fmin, fmax, 1e48)
+    return thin, thick, -20.0, dlogtau, hthin, hthick
+
+
+def flat_engine(tables, dtype, heat, device="cuda"):
+    from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
+    cfg = RaytraceConfig(N=N_BENCH, R_max_LLS=R_BENCH, sig=SIG,
+                         batch_size=B_BENCH, dtype=dtype, do_heating=heat)
+    return Raytracer(cfg, *tables, device=device)
+
+
+def flat_work(rt, pos_b):
+    """(bytes, operations) of the flat engine ``rt``'s kernels on batch 0 of
+    ``pos_b`` and of its loop over all of them, as the functions need them:
+    the tables a kernel reads (offsets, corners, weights, path and diag for
+    the sweep; offsets, path, geom, rated and the lookups' tables for the
+    rates) once, the grid cells the batch covers (their union) once, the
+    (B, C) values a kernel hands to the next written and read once; the
+    loop's tables once, the covered cells of the trace once, its rate grids
+    written once. Returns {kernel: (bytes, ops)}."""
+    cfg, heat = rt.config, rt.config.do_heating
+    isz = torch.finfo(cfg.dtype).bits // 8
+    C = rt.kernel_tables().sizes["C"]
+    nb, B = pos_b.shape[:2]
+    covered = torch.zeros(cfg.N ** 3, dtype=torch.bool, device="cuda")
+    union0 = 0
+    for k in range(nb):
+        covered[rt._lin_idx(pos_b[k]).view(-1)] = True
+        if k == 0:
+            union0 = int(covered.sum())
+    n_tab = rt.tables.photo_thin.numel()
+    lookups = 0 if cfg.grey_analytic else 3 * (1 + heat)
+    sweep_tab = C * (12 + 16 + 6 * isz)
+    rate_tab = C * (12 + 2 * isz + 1) + isz * 2 * (1 + heat) * n_tab
+    sweep_ops = FLAT_SWEEP_OPS * B * (C - 1)
+    rate_ops = B * C * (FLAT_RATE_OPS + FLAT_LOOKUP_OPS * lookups)
+    acc_ops = (1 + heat) * B * C
+    out = {
+        "flat_sweep": (sweep_tab + isz * (union0 + B * C), sweep_ops),
+        "flat_rates": (rate_tab + isz * (union0 + (2 + heat) * B * C + B),
+                       rate_ops),
+        "flat_accumulate": (C * 12 + isz * (1 + heat) * (B * C
+                                                         + 2 * union0),
+                            acc_ops),
+        "flat_trace_sweep": (sweep_tab + rate_tab + isz * (
+            int(covered.sum()) + nb * B + (1 + heat) * cfg.N ** 3),
+            nb * (sweep_ops + rate_ops + acc_ops))}
+    return out
+
+
+def flat_kernel_us(prof):
+    """Per flat kernel in the profile ``prof``: (median device us, median
+    idle gap before it us, count); and the profile's device launches."""
+    from pyc2ray_torch.diagnostics import _trace_events
+    ev = sorted((e for events in _trace_events(prof) for e in events
+                 if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    kinds = {}
+    for prev, e in zip([None] + ev, ev):
+        name = next((k for part, k in FLAT_KERNELS if part in e["name"]),
+                    "other")
+        gap = 0.0 if prev is None else e["ts"] - (prev["ts"] + prev["dur"])
+        kinds.setdefault(name, []).append((e["dur"], gap))
+    return {k: (float(np.median([d for d, _ in v])),
+                float(np.median([g for _, g in v])), len(v))
+            for k, v in kinds.items()}, len(ev)
+
+
+def flat_loop_vs_plain(label, rt, nd, xh, pos_b, flux_b):
+    """The loop (one flat_trace_sweep call) against the plain loop over the
+    batches ``pos_b``: Gamma (and heat) bit for bit; returns the
+    max_abs_err."""
+    got = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
+    want = rt.flat_trace_sweep_ref(nd, xh, pos_b, flux_b, DR)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want)
+              if w is not None)
+    if err != 0.0 or not float(want[0].max()) > 0.0 or \
+            (want[1] is None) == rt.config.do_heating:
+        raise RuntimeError(f"3d {label}: the flat loop differs from the "
+                           f"plain loop, max_abs_err {err}")
+    log(f"  3d {label}: the loop against the plain loop over "
+        f"{pos_b.shape[0]} batches: max_abs_err={err:.1e} (bit-equal"
+        f"{', Gamma and heat' if rt.config.do_heating else ''})")
+    return err
+
+
+def flat_bench(src_pos, tmp, barrier_us):
+    """Phase 3d: the table-exact flat engine at the bench configuration in
+    float64 with the model layer's black-body tables, its trace one
+    flat_trace_sweep call (csrc/flat_sweep.cu): launch counts of the whole
+    trace (asserted), ns per cell-update after and before (the plain loop,
+    the whole trace bit-equal); the loop against the plain loop over 16
+    batches in float64 and float32, with and without heat; device launches
+    per batch (at most 4, asserted) and the idle share of a profiled window
+    of 16 batches with each kernel's median device us; each kernel against
+    its plain version on the first batch (bit-equal) with its time, the
+    plain version's, the library's (the accumulate: one index_add_) and the
+    bound; the trace of the first 16 sources against the CPU. Returns the
+    kernels line's entries."""
+    from pyc2ray_torch.diagnostics import device_idle_share, profile_trace
+    from pyc2ray_torch.ops import flat_sweep as fs
+    from pyc2ray_torch.ops import sweep
+    N, dt = N_BENCH, torch.float64
+    tables = flat_tables()
     t0 = time.time()
-    rt = Raytracer(cfg, thin, thick, -20.0, dlogtau, device="cuda")
+    rt = flat_engine(tables, dt, False)
     t_build = time.time() - t0
     flux = np.ones(NS_BENCH)
     pos_b, flux_b = rt.prepare_sources(src_pos, flux)
@@ -3249,29 +3452,162 @@ def flat_bench(src_pos, tmp):
     xh = torch.full((N ** 3,), 1.2e-3, dtype=dt, device="cuda")
     rt.trace_batches(nd, xh, pos_b[:2], flux_b[:2], DR)          # warm-up
     torch.cuda.synchronize()
+    sweep.reset_launches()
     t0 = time.time()
     phi, _ = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
     torch.cuda.synchronize()
     t_ray = time.time() - t0
+    counts = dict(sweep.launches)
+    want = {k: 0 for k in counts}
+    want.update(flat_trace_sweep=1, flat_sweep=nbatch, flat_rates=nbatch,
+                flat_accumulate=nbatch)
+    if counts != want:
+        raise RuntimeError(f"3d flat engine: launches {counts}, expected "
+                           f"{want}")
     if not (bool(torch.isfinite(phi).all()) and float(phi.max()) > 0.0):
         raise RuntimeError("flat engine: Gamma not finite and positive")
-    nwin = 16
     t0 = time.time()
-    with profile_trace(os.path.join(tmp, "flat")) as p:
+    phi_plain, _ = rt.flat_trace_sweep_ref(nd, xh, pos_b, flux_b, DR)
+    torch.cuda.synchronize()
+    t_plain = time.time() - t0
+    trace_err = float((phi - phi_plain).abs().max())
+    if trace_err != 0.0:
+        raise RuntimeError(f"3d flat engine: the trace differs from the "
+                           f"plain loop's, max_abs_err {trace_err}")
+    del phi_plain
+    updates = cell_updates(NS_BENCH, R_BENCH)
+    kt = rt.kernel_tables()
+    cluster = fs.flat_plan(kt, B_BENCH, nd.device)
+    n_shells = kt.sizes["n_shells"]
+    log(f"flat engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float64 "
+        f"(q_max {rt.geom_np.max_q}, {rt.geom_np.num_cells} cells, "
+        f"{n_shells} shells, tables {t_build:.1f} s; sweep clusters of "
+        f"{cluster} blocks): {nbatch} batches in "
+        f"{t_ray:.4f} s = {1e9 * t_ray / updates:.4f} ns/cell-update, "
+        f"{1e3 * t_ray / nbatch:.4f} ms per batch (one flat_trace_sweep "
+        f"call; launches " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                      if v)
+        + f"); before (the plain loop): {t_plain:.4f} s = "
+        f"{1e9 * t_plain / updates:.4f} ns/cell-update, "
+        f"{1e3 * t_plain / nbatch:.4f} ms per batch; Gamma bit-equal")
+    # the loop against the plain loop, 16 batches, both types, heat or not
+    errs = {}
+    for label, d, heat in (("float64", dt, False),
+                           ("float64 with heat", dt, True),
+                           ("float32", torch.float32, False),
+                           ("float32 with heat", torch.float32, True)):
+        e = rt if (d, heat) == (dt, False) else flat_engine(tables, d, heat)
+        errs[label] = flat_loop_vs_plain(
+            label, e, nd.to(d), xh.to(d), pos_b[:16], flux_b[:16].to(d))
+        del e
+    # the device: launches per batch, idle share, each kernel's us
+    nwin = 16
+    prof = os.path.join(tmp, "flat")
+    t0 = time.time()
+    with profile_trace(prof) as p:
         p["sync"] = rt.trace_batches(nd, xh, pos_b[:nwin], flux_b[:nwin],
                                      DR)[0]
     t_prof = time.time() - t0
-    idle = device_idle_share(os.path.join(tmp, "flat"))
-    per_batch = launches_in(os.path.join(tmp, "flat")) / nwin
-    log(f"flat engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float64 "
-        f"(q_max {rt.geom_np.max_q}, {rt.geom_np.num_cells} cells, "
-        f"{len(rt.shells)} shells, tables {t_build:.1f} s): {nbatch} "
-        f"batches in {t_ray:.4f} s = "
-        f"{1e9 * t_ray / cell_updates(NS_BENCH, R_BENCH):.4f} "
-        f"ns/cell-update, {1e3 * t_ray / nbatch:.3f} ms per batch; "
-        f"{per_batch:.1f} device launches per batch, device idle share "
-        f"{idle:.4f} of a profiled window of {nwin} batches ({t_prof:.2f} s)")
-    rt_cpu = Raytracer(cfg, thin, thick, -20.0, dlogtau, device="cpu")
+    idle = device_idle_share(prof)
+    per_k, n_launch = flat_kernel_us(prof)
+    per_batch = n_launch / nwin
+    # and the launches of the whole trace, profiled
+    prof_all = os.path.join(tmp, "flat_trace")
+    with profile_trace(prof_all) as p:
+        p["sync"] = rt.trace_batches(nd, xh, pos_b, flux_b, DR)[0]
+    per_batch_trace = flat_kernel_us(prof_all)[1] / nbatch
+    if max(per_batch, per_batch_trace) > 4.0:
+        raise RuntimeError(f"3d flat engine: {per_batch:.2f} device "
+                           f"launches per batch in {nwin} batches, "
+                           f"{per_batch_trace:.2f} over the trace: more "
+                           f"than 4")
+    # the unprofiled trace's idle share: 1 - its kernels' device time (the
+    # profiled medians, once a batch each) over its wall time
+    busy = 1e-3 * sum(per_k[k][0] for _, k in FLAT_KERNELS)
+    idle_trace = 1.0 - busy * nbatch / (1e3 * t_ray)
+    log(f"  3d flat engine, a profiled window of {nwin} batches "
+        f"({t_prof:.2f} s): {per_batch:.3f} device launches per batch "
+        f"({per_batch_trace:.4f} over the whole trace of {nbatch}), "
+        f"device idle share {idle:.4f}; " + "; ".join(
+            f"{k} {d:.2f} us after a gap of {g:.2f} us (median of {n})"
+            for k, (d, g, n) in per_k.items())
+        + f"; the unprofiled trace: {busy:.5f} ms of kernels a batch in "
+        f"{1e3 * t_ray / nbatch:.5f} ms, idle share {idle_trace:.4f}")
+    # each kernel against its plain version on batch 0
+    work = flat_work(rt, pos_b)
+    nhi = nd * (1.0 - xh)
+    dr_t = torch.tensor(DR, dtype=dt).to("cuda")
+    pos0, flux0 = pos_b[0], flux_b[0]
+    lin, nhi_octa = rt._gather(nhi, pos0)
+    cd_plain = rt._sweep(nhi_octa, dr_t)
+    cd = rt.sweep_batch(nhi, pos0, DR)
+    phi_plain = rt._rates(cd_plain, nhi_octa, flux0, dr_t)[0]
+    phi_k = rt.rates_batch(cd_plain, nhi, pos0, flux0, DR)[0]
+    grid_p = torch.rand(N ** 3, dtype=dt, device="cuda") * 1e-12
+    grid_k = grid_p.clone()
+    rt._accumulate(grid_p, lin, phi_plain)
+    rt.accumulate_batch(grid_k, None, pos0, phi_plain, None)
+    res = {}
+    for name, got, ref in (("flat_sweep", cd, cd_plain),
+                           ("flat_rates", phi_k, phi_plain),
+                           ("flat_accumulate", grid_k, grid_p)):
+        err = float((got - ref).abs().max())
+        if err != 0.0:
+            raise RuntimeError(f"3d {name} differs from its plain version: "
+                               f"max_abs_err {err}")
+        res[name] = dict(max_abs_err=err)
+    grid = torch.zeros(N ** 3, dtype=dt, device="cuda")
+    timed = {
+        "flat_sweep": (lambda: rt.sweep_batch(nhi, pos0, DR),
+                       lambda: rt._sweep(rt._gather(nhi, pos0)[1], dr_t),
+                       None),
+        "flat_rates": (lambda: rt.rates_batch(cd, nhi, pos0, flux0, DR),
+                       lambda: rt._rates(cd, rt._gather(nhi, pos0)[1],
+                                         flux0, dr_t),
+                       None),
+        "flat_accumulate": (
+            lambda: rt.accumulate_batch(grid, None, pos0, phi_k, None),
+            lambda: rt._accumulate(grid, rt._lin_idx(pos0), phi_k),
+            lambda: grid.index_add_(0, lin.view(-1), phi_k.view(-1)))}
+    for name, (kern, plain, lib) in timed.items():
+        b_ms, b_by = least_ms(*work[name], dt)
+        res[name].update(
+            ms=per_k[name][0] * 1e-3, ms_wrapper=cuda_ms(kern, 20),
+            plain_ms=cuda_ms(plain, 3),
+            library_ms=None if lib is None else cuda_ms(lib, 20),
+            bound_ms=b_ms, bound_by=b_by, launches=counts[name])
+    chain = n_shells * barrier_us[cluster] * 1e-3
+    res["flat_sweep"].update(chain_floor_ms=chain, cluster=cluster)
+    for name, r in res.items():
+        log(f"  3d {name}: max_abs_err={r['max_abs_err']:.1e}; device "
+            f"{r['ms']:.5f} ms per launch in the loop (a wrapper call "
+            f"{r['ms_wrapper']:.5f} ms by CUDA events) against the plain "
+            f"version {r['plain_ms']:.4f} ms"
+            + ("" if r["library_ms"] is None else
+               f" and one index_add_ {r['library_ms']:.5f} ms")
+            + f"; bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
+            f"{work[name][0] / 1e6:.2f} MB, {work[name][1] / 1e6:.1f} Mop)"
+            + ("" if name != "flat_sweep" else
+               f", chain floor {n_shells} x {barrier_us[cluster]:.4f} us "
+               f"= {chain:.5f} ms (C={cluster})")
+            + f"; {r['launches']} launches in the trace")
+    # the loop per trace, after and before
+    loop_ms = cuda_ms(lambda: rt.trace_batches(nd, xh, pos_b, flux_b, DR), 3)
+    b_ms, b_by = least_ms(*work["flat_trace_sweep"], dt)
+    res["flat_trace_sweep"] = dict(
+        max_abs_err=trace_err, ms=loop_ms, plain_ms=1e3 * t_plain,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        launches=counts["flat_trace_sweep"], loop_vs_plain_16=errs,
+        launches_per_batch=per_batch,
+        launches_per_batch_trace=per_batch_trace, idle_share=idle,
+        idle_share_unprofiled=idle_trace,
+        ns_per_cell=1e9 * t_ray / updates,
+        ns_per_cell_before=1e9 * t_plain / updates)
+    log(f"  3d flat_trace_sweep: {loop_ms:.3f} ms per trace of {nbatch} "
+        f"batches by CUDA events ({loop_ms / nbatch:.5f} ms per batch), "
+        f"the plain loop {1e3 * t_plain:.1f} ms (host clock, once); bound "
+        f"{b_ms:.5f} ms ({b_by})")
+    rt_cpu = flat_engine(tables, dt, False, device="cpu")
     nd_np, xh_np = np.full((N,) * 3, 1e-3), np.full((N,) * 3, 1.2e-3)
     phi_g = rt.trace(nd_np, xh_np, src_pos[:16], flux[:16], DR).cpu()
     phi_c = rt_cpu.trace(nd_np, xh_np, src_pos[:16], flux[:16], DR)
@@ -3282,7 +3618,7 @@ def flat_bench(src_pos, tmp):
     log(f"  flat engine, 16 sources, float64: GPU vs CPU max rel "
         f"{max_rel(phi_g, phi_c, 1e-12):.3e} (above 1e-12 of the peak), "
         f"max abs {float((phi_g - phi_c).abs().max()):.3e}")
-    return dict(t_ray=t_ray, per_batch=per_batch, idle=idle)
+    return res
 
 
 def box_bench(src_pos, bins, tmp):
@@ -3419,14 +3755,16 @@ def box_bench(src_pos, bins, tmp):
     phi_b = box.trace(nd_g, xh_g, pos_g, flux_g, DR)
     torch.cuda.synchronize()
     t_box = time.time() - t0
+    # the box engine's launches, before the flat engine (its reference)
+    # launches its own kernels
+    swept = {k: v for k, v in sweep.launches.items()
+             if k != "accumulate_boxes" and v}
     phi_f = flat.trace(nd_g, xh_g, pos_g, flux_g, DR)
     torch.testing.assert_close(phi_b, phi_f, rtol=2e-7, atol=0.0)
     log(f"  box engine grey float64 N={Ng} R=1e9 (Q {box.geom.Q}, Dc "
         f"{box.geom.Dc}), {NS_BOX_GREY} sources in {t_box:.3f} s: against "
         f"the flat engine's analytic grey rates max rel "
         f"{max_rel(phi_b, phi_f):.3e} (rtol 2e-7)")
-    swept = {k: v for k, v in sweep.launches.items()
-             if k != "accumulate_boxes" and v}
     if swept:
         raise RuntimeError(f"box engine launched kernels {swept}")
     log(f"  box engine: none of the five sweep kernels launched (no TPU "
@@ -3956,6 +4294,7 @@ RTB_R100 = "raytracing_benchmark R=100"
 DRIVER_LANES = 4             # drivers run at once, besides the harness
 _CHEB_LOOP = ("cheb_sweep_rates", "cheb_trace_sweep", "extract_boxes",
               "accumulate_boxes", "chemistry_pass")
+_FLAT = ("flat_sweep", "flat_rates", "flat_accumulate", "flat_trace_sweep")
 # label, module under pyc2ray_torch, arguments (each driver's defaults
 # otherwise), kernels that must launch, the lines of its output to show
 DRIVERS = (
@@ -3969,26 +4308,26 @@ DRIVERS = (
      ("cheb_sweep", "rates_he", "he_trace_sweep", "extract_boxes",
       "accumulate_boxes"), r"^R="),
     ("stromgren_ifront", "examples.stromgren_ifront", [],
-     ("chemistry_pass",), r"Max I-front|PASSED|FAILED"),
-    ("shadow_test", "examples.shadow_test", [], ("chemistry_pass",),
+     ("chemistry_pass",) + _FLAT, r"Max I-front|PASSED|FAILED"),
+    ("shadow_test", "examples.shadow_test", [], ("chemistry_pass",) + _FLAT,
      r"^xh |PASSED|FAILED"),
-    ("multisource", "examples.multisource", [], (),
+    ("multisource", "examples.multisource", [], _FLAT,
      r"superposition|tolerance|PASSED|FAILED"),
-    ("stromgren_cosmo", "examples.stromgren_cosmo", [], ("chemistry_pass",),
-     r"monotonic|final redshift|PASSED|FAILED"),
+    ("stromgren_cosmo", "examples.stromgren_cosmo", [],
+     ("chemistry_pass",) + _FLAT, r"monotonic|final redshift|PASSED|FAILED"),
     ("heating_test", "examples.heating_test", [],
      ("cheb_sweep_rates_heat", "cheb_trace_sweep", "extract_boxes",
       "accumulate_boxes", "chemistry_pass", "thermal_update"),
      r"PASSED|FAILED"),
     ("single_source_test", "examples.single_source_test", [],
-     ("chemistry_pass",), r"Mean ionized|PASSED|FAILED"),
+     ("chemistry_pass",) + _FLAT, r"Mean ionized|PASSED|FAILED"),
     ("eor_simulation", "examples.eor_simulation", ["--num_slices", "2"],
      _CHEB_LOOP, r"min, mean, max|EoR run complete"),
     ("multihost_pod domain", "examples.multihost_pod", ["--mode", "domain"],
      _CHEB_LOOP, r"process\(es\)|^OK:"),
     ("multihost_pod source", "examples.multihost_pod", ["--mode", "source"],
      _CHEB_LOOP, r"process\(es\)|^OK:"),
-    ("make_plots", "examples.make_plots", [], ("chemistry_pass",),
+    ("make_plots", "examples.make_plots", [], ("chemistry_pass",) + _FLAT,
      r"\.png"),
     ("chemistry_solver", "tutorials.chemistry_solver", [],
      ("chemistry_pass",), r"equilibrium"),
@@ -3996,7 +4335,7 @@ DRIVERS = (
      ("cheb_sweep", "rates_dense", "cheb_trace_sweep", "extract_boxes",
       "accumulate_boxes"),
      r"^Gamma field|photon budget"),
-    ("raytracing flat", "tutorials.raytracing", ["--engine", "flat"], (),
+    ("raytracing flat", "tutorials.raytracing", ["--engine", "flat"], _FLAT,
      r"^Gamma field|photon budget"),
     ("helium_thermal", "tutorials.helium_thermal", [],
      ("cheb_sweep", "rates_he", "he_trace_sweep", "chemistry_pass_he",
@@ -4844,7 +5183,7 @@ def main():
 
     # ---- 3d. the table-exact flat engine at the bench configuration -------
     with tempfile.TemporaryDirectory() as tmp:
-        flat_bench(src_pos, tmp)
+        k_flat = flat_bench(src_pos, tmp, barrier_us)
 
     # ---- 3e. the helium engine at full width ------------------------------
     k_he_bench = helium_bench(bins_he, src_pos, chem)
@@ -4955,15 +5294,30 @@ def main():
                  ms_back_to_back=k_eor["ms"])
 
     # ---- 4f. the golden: examples/single_source_test at N=128 -------------
+    sweep.reset_launches()
+    g_traces = {}
     with tempfile.TemporaryDirectory() as tmp:
         sim, stats, t_port, t_oracle = golden_run(
-            N_GOLDEN, 2, STEPS_GOLDEN, "cuda", tmp + "/")
+            N_GOLDEN, 2, STEPS_GOLDEN, "cuda", tmp + "/", traces=g_traces)
+    g_counts = {k: v for k, v in sweep.launches.items() if v}
     rt_g = sim.raytracer
     log(f"golden examples/single_source_test N={N_GOLDEN}, 2 slices x "
         f"{STEPS_GOLDEN} timesteps, engine {type(rt_g).__name__} on "
         f"{rt_g.device} ({rt_g.config.dtype}, q_max "
-        f"{rt_g.geom_np.max_q}): the port {t_port:.2f} s, the C++ oracle "
-        f"{t_oracle:.2f} s; mean xh {float(np.mean(sim.xh)):.12e}")
+        f"{rt_g.geom_np.max_q}): the port {t_port:.2f} s, "
+        f"{g_traces['s']:.3f} s of it in {g_traces['n']} traces "
+        f"({1e3 * g_traces['s'] / max(g_traces['n'], 1):.3f} ms a trace), "
+        f"the C++ oracle {t_oracle:.2f} s; mean xh "
+        f"{float(np.mean(sim.xh)):.12e}; launches "
+        + ", ".join(f"{k} {v}" for k, v in g_counts.items()))
+    n_tr = g_counts.get("flat_trace_sweep", 0)
+    if n_tr != g_traces["n"] or n_tr < 1 or any(
+            g_counts.get(k, 0) != g_counts.get("flat_sweep", -1)
+            for k in ("flat_rates", "flat_accumulate")) or \
+            g_counts.get("flat_sweep", 0) < n_tr:
+        raise RuntimeError(f"golden: the traces did not go through the "
+                           f"flat kernels: {g_traces['n']} traces, launches "
+                           f"{g_counts}")
     failed = []
     for name, (value, tol) in stats.items():
         ok = bool(np.isfinite(value)) and abs(value) <= tol
@@ -4973,6 +5327,7 @@ def main():
     if failed or type(rt_g).__name__ != "Raytracer" \
             or rt_g.device.type != "cuda":
         raise RuntimeError(f"golden: {', '.join(failed) or 'engine'} FAILED")
+    g_errs = golden_kernels(sim)
 
     # ---- 4g. helium end to end ---------------------------------------------
     _, he_first, k_chem_he = helium_evolve(e_pos, e_flux, e_nd, bins_he,
@@ -5120,7 +5475,22 @@ def main():
         # fields from 100 K, float64 beside
         dict(name="thermal_update", source=src + "thermal.cu",
              replaces="pyc2ray_tpu/ops/thermal.py:132", launches=n_thermal,
-             **k_thermal)]
+             **k_thermal),
+        # the flat engine's (no TPU kernel: the XLA code of the JAX
+        # engine's jit program, its shell fori_loop, _rates and batch scan):
+        # launches over phase 3d's bench trace (float64), with the golden's
+        # (4f) beside; each kernel's ms its median device time per launch in
+        # 3d's profiled window, every other number per call on 3d's first
+        # batch; the loop's per trace of 3d (CUDA events; the plain loop
+        # once by the host clock)
+        *[dict(name=name, source=src + "flat_sweep.cu",
+               replaces="pyc2ray_tpu/ops/raytrace.py:" + line,
+               launches_golden=g_counts.get(name, 0),
+               **({} if name not in g_errs else
+                  {"max_abs_err_golden": g_errs[name]}), **k_flat[name])
+          for name, line in (("flat_sweep", "172"), ("flat_rates", "224"),
+                             ("flat_accumulate", "288"),
+                             ("flat_trace_sweep", "153"))]]
     kernels = [dict(name=k.pop("name"), route="cuda",
                     **{"library_ms": None, **k}) for k in kernels]
     log(f"chip_smoke wall time: {time.time() - T_START:.1f} s")

@@ -15,11 +15,12 @@ Engines: ``cheb`` and ``pallas`` both build the port's ChebRaytracer in
 its default mode (the sweep kernel K1, or K2 shell-segmented where the
 auto rule segments, as at R = 100, plus the rate pass); ``he`` the
 three-species HeRaytracer (K1 three times per batch); ``flat`` the
-table-exact octahedral engine with the grey analytic rates (plain
-PyTorch). After each call the harness synchronizes the card. The first
-call's time (``compile_s``) is the warm-up; the kernels' build, which the
-first use of a fresh checkout pays, is done and printed before it. The
-port has no window accumulate: ``window`` is None.
+table-exact octahedral engine with the grey analytic rates (on the card
+one call of the kernel loop of csrc/flat_sweep.cu a trace). After each
+call the harness synchronizes the card. The first call's time
+(``compile_s``) is the warm-up; the kernels' build, which the first use of
+a fresh checkout pays, is done and printed before it. The port has no
+window accumulate: ``window`` is None.
 """
 
 import json
@@ -130,7 +131,7 @@ def main(argv=None):
                "compress": comp, "timings": {}}
     card = describe_device(device)
     cuda = device.type == "cuda"
-    if cuda and args.engine != "flat":
+    if cuda:
         from ..ops import _build
         t0 = time.time()
         _build.load()

@@ -4,8 +4,9 @@ The counterpart of examples/stromgren_ifront/run_test.py (the reference's
 test/paper_tests/test1_Ifront): a single source in a uniform medium; the
 ionization-front radius is compared against the analytic solution
 r(t) = R_S (1 - exp(-t/t_rec))^(1/3) at every output time, on the flat
-engine in float64 (plain PyTorch) and evolve3D, whose chemistry pass is
-the ``chemistry_pass`` kernel on the card.
+engine in float64 (on the card the kernel loop of csrc/flat_sweep.cu) and
+evolve3D, whose chemistry pass is the ``chemistry_pass`` kernel on the
+card.
 
     python -m pyc2ray_torch.examples.stromgren_ifront [-N 64] [--steps 20]
         [--device cuda|cpu]

@@ -20,7 +20,7 @@ __all__ = ["load", "NVCC_FLAGS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
-           "chemistry", "thermal")        # csrc/<name>.cu
+           "chemistry", "thermal", "flat_sweep")        # csrc/<name>.cu
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
            "cheb_rates.cuh", "cheb_rates_he.cuh", "rounded.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -81,6 +81,19 @@ _SIGNATURES = {
         # nsub, params, stream
         "thermal_update": [_P, _I, _D] + [_P] * 5
         + [ctypes.c_longlong, _I, _P, _P],
+    },
+    "flat_sweep": {
+        # tabs, dims, vals (the engine's tables, csrc/flat_sweep.cu's
+        # make_geom), then each entry's own: nhi, pos, cd; B, cluster;
+        # max_clusters, stream
+        "flat_sweep": [_P] * 6 + [_I] * 2 + [_P, _P],
+        # nhi, pos, flux, sdr3, cd, phi, heat; B; stream
+        "flat_rates": [_P] * 10 + [_I, _P],
+        # pos, phi, heat, phi_grid, heat_grid; B; stream
+        "flat_accumulate": [_P] * 8 + [_I, _P],
+        # nhi, pos, flux, sdr3, cd, phi, heat, phi_grid, heat_grid; nb, B,
+        # cluster; stream
+        "flat_trace_sweep": [_P] * 12 + [_I] * 3 + [_P],
     },
 }
 

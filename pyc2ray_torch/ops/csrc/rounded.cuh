@@ -1,9 +1,10 @@
 // Explicitly rounded arithmetic for the kernels that equal a plain PyTorch
-// version bit for bit (chemistry.cu, thermal.cu): each operation in float
-// and double as ATen's CUDA kernels compute it (no FMA contraction; pow,
-// exp, expm1 and sqrt the same CUDA math functions), ATen's NaN rules for
-// clamp and maximum, and dt as the plain versions read it. Included inside
-// each kernel's namespace, so it has no guard and includes nothing.
+// version bit for bit (chemistry.cu, thermal.cu, flat_sweep.cu): each
+// operation in float and double as ATen's CUDA kernels compute it (no FMA
+// contraction; pow, exp, expm1, log10 and sqrt the same CUDA math
+// functions), ATen's NaN rules for clamp and maximum, and dt as the plain
+// versions read it. Included inside each kernel's namespace, so it has no
+// guard and includes nothing.
 
 #define ROUNDED_OP2(NAME, F32, F64)                               \
   __device__ __forceinline__ float NAME(float a, float b) {       \
@@ -24,6 +25,7 @@ ROUNDED_OP2(max_, fmaxf, fmax)
 ROUNDED_OP2(min_, fminf, fmin)
 ROUNDED_OP1(exp_, expf, exp)
 ROUNDED_OP1(expm1_, expm1f, expm1)
+ROUNDED_OP1(log10_, log10f, log10)
 ROUNDED_OP1(sqrt_, sqrtf, sqrt)
 ROUNDED_OP1(abs_, fabsf, fabs)
 #undef ROUNDED_OP1

@@ -5,20 +5,30 @@ the ASORA raytracer (reference: src/asora/raytracing.cu:79-339,
 rates.cu:16-83) with the reference's log-linear rate tables:
 
 * Per source, cells are swept in octahedral shells of constant L1 distance
-  q (ops/geometry.py's flat layout): one Python iteration per shell, each
-  a few dense tensor operations over the shell's cells (gather the 4
-  corner column densities, interpolate, extend). Shells are sliced exactly
-  (the JAX engine pads them to fixed-shape buckets).
+  q (ops/geometry.py's flat layout), each shell's cells interpolating the
+  4 corner column densities of earlier shells and extending them. Shells
+  are exact (the JAX engine pads them to fixed-shape buckets).
 * Sources run in batches of B, each with a private column-density buffer
   in the octahedral layout. After the sweep, the photoionization (and
   heating) rates are one dense pass over the octahedron, which recovers
   the incoming column density from the outgoing one.
-* Each source's rates are added into the flat N^3 grid with ``index_add_``,
-  one source at a time in batch order. Within one source every cell index
-  is unique (one periodic image), so the sum on the card is deterministic.
+* Each source's rates are added into the flat N^3 grid, one source at a
+  time in batch order. Within one source every cell index is unique (one
+  periodic image).
 
-The engine has no Pallas kernel in the JAX package (its sweep is XLA
-code), and none here: the sweep is plain PyTorch on either device.
+A batch is four steps, each a plain function here: the octahedral gather of
+nHI (``_gather``), the causal sweep (``_sweep``, one Python iteration per
+shell), the rate pass (``_rates``) and the ordered accumulate
+(``_accumulate``, one ``index_add_`` per source). ``trace_batches`` runs a
+trace: on CPU tensors the plain loop of these functions
+(``flat_trace_sweep_ref``), on the card one call of the loop of
+hand-written kernels of csrc/flat_sweep.cu (ops/flat_sweep.py::
+flat_trace_sweep: sweep, rates and accumulate per batch, no host sync), bit
+for bit the plain loop's result. ``sweep_batch``, ``rates_batch`` and
+``accumulate_batch`` are the three steps alone, each one kernel launch on
+the card. The kernels read the engine's tables as ``kernel_tables`` makes
+them, once per engine. The engine has no Pallas kernel in the JAX package
+(its sweep is XLA code, run as one jit program).
 """
 
 from typing import NamedTuple
@@ -28,6 +38,7 @@ import torch
 
 from ..constants import S_STAR_REF, TAU_PHOTO_LIMIT, MAX_COLDENSH
 from ..device import resolve_device
+from . import flat_sweep as fs
 from .geometry import OctaGeometry, build_geometry, max_q_for
 
 __all__ = ["RaytraceConfig", "Raytracer", "FlatTables"]
@@ -87,8 +98,9 @@ class Raytracer:
 
     ``src_pos`` is (NumSrc, 3) 0-indexed; ``src_flux`` is the source rate
     normalized by S_star = 1e48 photons/s (reference convention).
-    ``device`` defaults to the GPU; ``device="cpu"`` runs on the CPU (the
-    same PyTorch code: the engine has no kernel of its own).
+    ``device`` defaults to the GPU, where a trace is one call of the
+    kernel loop of csrc/flat_sweep.cu; ``device="cpu"`` runs the plain
+    PyTorch loop.
     """
 
     def __init__(self, config: RaytraceConfig,
@@ -143,6 +155,47 @@ class Raytracer:
             tb["heat_thin"] = dev(np.asarray(heat_thin_table) / S_STAR_REF)
             tb["heat_thick"] = dev(np.asarray(heat_thick_table) / S_STAR_REF)
         self.tables = FlatTables(**tb)
+        self._kernel_tables = None
+
+    def kernel_tables(self):
+        """The engine's tables as the kernels of csrc/flat_sweep.cu read
+        them, on its device, made at the first call: the cell offsets and
+        corner cells as int32, the weights, path, diag and volume factors,
+        the rated cells as uint8, the first cell of each shell, the inverse
+        table of the clip cube (each offset's cell, -1 off the octahedron)
+        and the rate tables (ops/flat_sweep.py::KernelTables)."""
+        if self._kernel_tables is not None:
+            return self._kernel_tables
+        g, tb, cfg = self.geom_np, self.tables, self.config
+        C, N, max_q = g.num_cells, cfg.N, g.max_q
+        n_shells = len(self.shells)
+        if self.shells != [(int(g.shell_start[q]), int(g.shell_start[q + 1]))
+                           for q in range(1, n_shells + 1)]:
+            raise ValueError("flat engine: the shells are not consecutive")
+        lo = max(-(N // 2), -max_q)
+        side = min(N // 2 - 1 + N % 2, max_q) - lo + 1
+        off = g.offsets[:, :C].astype(np.int64) - lo
+        inv = np.full(side ** 3, -1, dtype=np.int32)
+        inv[(off[0] * side + off[1]) * side + off[2]] = np.arange(
+            C, dtype=np.int32)
+
+        def i32(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                a, dtype=np.int32)).to(self.device)
+        tensors = (i32(g.offsets[:, :C]), i32(g.nbr[:, :C]), tb.sw, tb.path,
+                   tb.diag, tb.geom, tb.rated.to(torch.uint8),
+                   i32(g.shell_start[:n_shells + 2]), i32(inv),
+                   tb.photo_thin, tb.photo_thick, tb.heat_thin,
+                   tb.heat_thick)
+        grey = cfg.grey_analytic
+        sizes = dict(C=C, n_shells=n_shells, N=N, max_q=max_q, lo=lo,
+                     side=side, num_tau=0 if grey else self.num_tau,
+                     grey=int(grey))
+        consts = (cfg.sig, 0.0 if grey else self.minlogtau,
+                  1.0 if grey else self.dlogtau)
+        self._kernel_tables = fs.pack_tables(tensors, sizes, consts,
+                                             cfg.dtype, cfg.do_heating)
+        return self._kernel_tables
 
     # ------------------------------------------------------------------
     # building blocks
@@ -156,6 +209,12 @@ class Raytracer:
         p = torch.remainder(src_pos[:, :, None] + self.tables.offsets[None],
                             N)
         return (p[:, 0] * N + p[:, 1]) * N + p[:, 2]
+
+    def _gather(self, nhi_flat, src_pos):
+        """The octahedral gather: (lin, nhi_octa), the (B, C) grid indices of
+        the cells of each source (``_lin_idx``) and the HI density there."""
+        lin = self._lin_idx(src_pos)
+        return lin, nhi_flat[lin]
 
     def _sweep(self, nhi_octa, dr):
         """Causal shell sweep: (B, C) outgoing HI column density per cell
@@ -175,6 +234,18 @@ class Raytracer:
             cdin = tb.diag[lo:hi] * (c * w).sum(dim=1) / w.sum(dim=1)
             cdo[:, lo:hi] = cdin + nhi_octa[:, lo:hi] * pdr[lo:hi]
         return cdo
+
+    def _dr(self, dr, device):
+        """``dr`` as a 0-dim tensor of the engine's dtype on ``device``."""
+        return torch.tensor(float(dr), dtype=self.config.dtype).to(device)
+
+    def _s_over_dr3(self, dr):
+        """S_star / dr^3 as a 0-dim tensor on dr's device: dr^3 in cgs
+        (~1e62) overflows float32, so it is formed in log space
+        (raytracing.cu:290-307)."""
+        return torch.exp(
+            torch.tensor(np.log(S_STAR_REF), dtype=self.config.dtype).to(
+                dr.device) - 3.0 * torch.log(dr))
 
     def _lookup(self, table, tau):
         """Log-linear table interpolation (rates.cu:70-83)."""
@@ -201,12 +272,7 @@ class Raytracer:
         tau_out = cdo * sig
         dtau = dcol * sig
 
-        # S_star / dr^3: dr^3 in cgs (~1e62) overflows float32, so it is
-        # formed in log space (raytracing.cu:290-307)
-        s_over_dr3 = torch.exp(
-            torch.tensor(np.log(S_STAR_REF), dtype=cfg.dtype).to(dr.device)
-            - 3.0 * torch.log(dr))
-        prefact = flux[:, None] * s_over_dr3 * tb.geom
+        prefact = flux[:, None] * self._s_over_dr3(dr) * tb.geom
         thick_cell = dtau > TAU_PHOTO_LIMIT
 
         heat_cell = None
@@ -241,29 +307,91 @@ class Raytracer:
                 else torch.where(mask, heat_cell / nhi_safe, zero))
         return phi, heat
 
+    @staticmethod
+    def _accumulate(grid, lin, vals):
+        """The ordered accumulate: each source's (C,) ``vals`` added into the
+        flat ``grid`` at its cells ``lin`` with ``index_add_``, source after
+        source in batch order."""
+        for b in range(lin.shape[0]):
+            grid.index_add_(0, lin[b], vals[b])
+
+    # ------------------------------------------------------------------
+    # the steps of a batch: the plain functions on CPU tensors, one kernel
+    # launch of csrc/flat_sweep.cu on CUDA tensors
+    # ------------------------------------------------------------------
+    def sweep_batch(self, nhi_flat, pos, dr, cluster=None):
+        """The (B, C) outgoing column density of the sources at ``pos``
+        (B, 3) over the flat HI density grid ``nhi_flat`` (N^3,): the plain
+        gather and sweep, or the sweep kernel in clusters of ``cluster``
+        blocks (ops/flat_sweep.py::flat_plan's where None)."""
+        if nhi_flat.device.type == "cpu":
+            return self._sweep(self._gather(nhi_flat, pos)[1],
+                               self._dr(dr, "cpu"))
+        return fs.flat_sweep(self.kernel_tables(), nhi_flat, pos, dr,
+                             cluster)
+
+    def rates_batch(self, cdo, nhi_flat, pos, flux, dr):
+        """(phi, heat), the (B, C) rates per HI atom of the sources at
+        ``pos`` (B, 3) with fluxes ``flux`` (B,) from their column densities
+        ``cdo``, heat None without do_heating: the plain gather and rate
+        pass, or the rate kernel."""
+        dr_t = self._dr(dr, cdo.device)
+        if cdo.device.type == "cpu":
+            return self._rates(cdo, self._gather(nhi_flat, pos)[1], flux,
+                               dr_t)
+        return fs.flat_rates(self.kernel_tables(), cdo, nhi_flat, pos, flux,
+                             self._s_over_dr3(dr_t), dr)
+
+    def accumulate_batch(self, phi_grid, heat_grid, pos, phi, heat):
+        """Adds the (B, C) rates ``phi`` (and ``heat``) of the sources at
+        ``pos`` (B, 3) into the flat grids ``phi_grid`` (and ``heat_grid``)
+        in place, source after source: the plain ``_accumulate``, or the
+        ordered accumulate kernel."""
+        if phi_grid.device.type == "cpu":
+            lin = self._lin_idx(pos)
+            self._accumulate(phi_grid, lin, phi)
+            if heat_grid is not None:
+                self._accumulate(heat_grid, lin, heat)
+            return
+        fs.flat_accumulate(self.kernel_tables(), phi_grid, heat_grid, pos,
+                           phi, heat)
+
     # ------------------------------------------------------------------
     # full trace
     # ------------------------------------------------------------------
+    def flat_trace_sweep_ref(self, nd, xh, pos_b, flux_b, dr):
+        """The plain loop: the trace of the batches ``pos_b`` (nb, B, 3),
+        ``flux_b`` (nb, B) over the grids ``nd``, ``xh`` ((N^3,) or
+        (N, N, N)), batch after batch the gather, the sweep, the rate pass
+        and the ordered accumulate. Returns (phi, heat) as (N^3,) tensors,
+        heat None without do_heating."""
+        dr_t = self._dr(dr, self.device)
+        nhi_flat = nd.reshape(-1) * (1.0 - xh.reshape(-1))
+        phi_grid = torch.zeros_like(nhi_flat)
+        heat_grid = (torch.zeros_like(nhi_flat) if self.config.do_heating
+                     else None)
+        for pos, flux in zip(pos_b, flux_b):
+            lin, nhi_octa = self._gather(nhi_flat, pos.to(self.device))
+            cdo = self._sweep(nhi_octa, dr_t)
+            phi, heat = self._rates(cdo, nhi_octa, flux, dr_t)
+            self._accumulate(phi_grid, lin, phi)
+            if heat_grid is not None:
+                self._accumulate(heat_grid, lin, heat)
+        return phi_grid, heat_grid
+
     def trace_batches(self, nd, xh, pos_b, flux_b, dr):
         """Batched trace on prepared sources with flat-grid IO: ``nd``,
         ``xh`` are (N^3,) (or (N,N,N)) tensors on the engine's device;
         returns (phi, heat) as (N^3,) tensors, heat None without
-        do_heating."""
-        cfg = self.config
-        dr_t = torch.tensor(float(dr), dtype=cfg.dtype).to(self.device)
+        do_heating. The plain loop ``flat_trace_sweep_ref`` on the CPU; on
+        the card one call of ops/flat_sweep.py::flat_trace_sweep, the
+        kernel loop."""
+        if nd.device.type == "cpu":
+            return self.flat_trace_sweep_ref(nd, xh, pos_b, flux_b, dr)
         nhi_flat = nd.reshape(-1) * (1.0 - xh.reshape(-1))
-        phi_grid = torch.zeros_like(nhi_flat)
-        heat_grid = torch.zeros_like(nhi_flat) if cfg.do_heating else None
-        for pos, flux in zip(pos_b, flux_b):
-            lin = self._lin_idx(pos.to(self.device))
-            nhi_octa = nhi_flat[lin]
-            cdo = self._sweep(nhi_octa, dr_t)
-            phi, heat = self._rates(cdo, nhi_octa, flux, dr_t)
-            for b in range(lin.shape[0]):
-                phi_grid.index_add_(0, lin[b], phi[b])
-                if heat_grid is not None:
-                    heat_grid.index_add_(0, lin[b], heat[b])
-        return phi_grid, heat_grid
+        sdr3 = self._s_over_dr3(self._dr(dr, nd.device))
+        return fs.flat_trace_sweep(self.kernel_tables(), nhi_flat, pos_b,
+                                   flux_b, sdr3, dr)
 
     def shard_trace(self, nd, xh, pos_b, flux_b, dr):
         """A rank's partial Gamma (and heat) over its own batches, on the
@@ -305,7 +433,8 @@ class Raytracer:
     # -- test helper ---------------------------------------------------
     def sweep_coldens(self, ndens, xh_av, src_pos_single, dr):
         """Outgoing column density grid (N, N, N) of a single source, as a
-        numpy array (testing)."""
+        numpy array (testing): the sweep kernel on the card, the plain
+        gather and sweep on the CPU."""
         cfg = self.config
         nd = torch.as_tensor(ndens, dtype=cfg.dtype,
                              device=self.device).reshape(-1)
@@ -314,9 +443,7 @@ class Raytracer:
         pos = torch.as_tensor(np.asarray(src_pos_single, dtype=np.int64)
                               [None, :], device=self.device)
         lin = self._lin_idx(pos)
-        cdo = self._sweep((nd * (1.0 - xh))[lin],
-                          torch.tensor(float(dr), dtype=cfg.dtype)
-                          .to(self.device))
+        cdo = self.sweep_batch(nd * (1.0 - xh), pos, dr)
         out = torch.zeros_like(nd)
         out[lin[0]] = cdo[0]
         return out.cpu().numpy().reshape((cfg.N,) * 3)

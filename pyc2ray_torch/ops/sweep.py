@@ -31,8 +31,9 @@ them but add them into the grid.
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (``*_ref``); a CUDA tensor launches the kernel of
 csrc/ or raises. ``launches`` counts the kernel launches per kernel, those
-of the trace loop's kernels (ops/trace_loop.py) and of the chemistry
-passes (ops/chemistry.py, ops/chemistry_he.py) included.
+of the trace loop's kernels (ops/trace_loop.py), of the chemistry
+passes (ops/chemistry.py, ops/chemistry_he.py), of the thermal update and
+of the flat engine (ops/flat_sweep.py) included.
 
 On the card every sweep is launched as thread-block clusters, one cluster
 of C blocks per source. ``sweep_plan`` is the host rule that picks C and
@@ -82,14 +83,16 @@ MAX_THREADS = 768     # most threads per block of a kernel with rate threads
 # without the heat channel, and the helium engine's three-species pass) and
 # the trace loops (one per trace of every sweep mode, and of the helium
 # engine; the kernels they issue counted under their own names); the
-# thermal update (ops/thermal.py)
+# thermal update (ops/thermal.py); the flat engine's kernels and its trace
+# loop (ops/flat_sweep.py)
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "cheb_sweep_seg": 0, "cheb_sweep_rates": 0,
             "cheb_sweep_rates_heat": 0, "extract_boxes": 0,
             "accumulate_boxes": 0, "chemistry_pass": 0,
             "chemistry_pass_he": 0, "init_segments": 0, "rates_dense": 0,
             "cheb_trace_sweep": 0, "rates_he": 0, "he_trace_sweep": 0,
-            "thermal_update": 0}
+            "thermal_update": 0, "flat_sweep": 0, "flat_rates": 0,
+            "flat_accumulate": 0, "flat_trace_sweep": 0}
 
 
 # kernel name -> SweepPlan of its last launch

@@ -6,7 +6,8 @@ clumpy medium and show the expected 1/r^2 x attenuation behavior along a
 ray, then the photon budget. ``--engine cheb`` builds the Chebyshev-face
 engine in its default mode (the sweep kernel K1 plus the rate pass on the
 card), ``flat`` the table-exact octahedral engine with the grey analytic
-rates (plain PyTorch); both in float64.
+rates (on the card the kernel loop of csrc/flat_sweep.cu); both in
+float64.
 
     python -m pyc2ray_torch.tutorials.raytracing [--engine cheb|flat]
         [--device cuda|cpu]

@@ -91,6 +91,12 @@ inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
+inline float atomicAdd(float* p, float v) {
+  return std::atomic_ref<float>(*p).fetch_add(v);
+}
+inline double atomicAdd(double* p, double v) {
+  return std::atomic_ref<double>(*p).fetch_add(v);
+}
 template <class T> inline T __ldcg(const T* p) { return *(const volatile T*)p; }
 template <class T> inline void __stcg(T* p, T v) { *(volatile T*)p = v; }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }

@@ -1,6 +1,6 @@
-// Runs the port's kernels on the host: k_loop.inc, k_chem.inc and
-// k_thermal.inc are the device parts of trace_loop.cu, chemistry.cu and
-// thermal.cu, cheb_sweep_kernels.cuh,
+// Runs the port's kernels on the host: k_loop.inc, k_chem.inc,
+// k_thermal.inc and k_flat.inc are the device parts of trace_loop.cu,
+// chemistry.cu, thermal.cu and flat_sweep.cu, cheb_sweep_kernels.cuh,
 // cheb_sweep_rates.cuh, cheb_rates.cuh and cheb_rates_he.cuh those of the
 // headers of K1, K1f and K2, of K3, and of the dense rate passes, as
 // tests/rehearsal_host.py cuts them out,
@@ -11,7 +11,9 @@
 // the chemistry passes and the thermal update are plain grids: their
 // blocks run one after the other (all but phase B's also in reverse
 // order), each as T std::threads; the accumulate's grid has a second
-// dimension, its boxes.
+// dimension, its boxes. The flat sweep runs as K1 does, a cluster a
+// source; the flat rate pass and accumulate, whose threads never wait for
+// each other, one thread after the other.
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -26,6 +28,7 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "k_loop.inc"
 #include "k_chem.inc"
 #include "k_thermal.inc"
+#include "k_flat.inc"
 using namespace cheb;
 
 template <class F>
@@ -401,3 +404,77 @@ void run_thermal(void* const* f, long long n, int nsub, const double* params,
   }
 REHEARSE_THERMAL(rehearse_thermal_f32, float)
 REHEARSE_THERMAL(rehearse_thermal_f64, double)
+
+// A grid of blocks x rows blocks of T_ threads for a kernel whose threads
+// never wait for each other (no barrier, no shared memory): each thread in
+// turn on the calling thread, the blocks of a row and the rows in reverse
+// order with `reverse`.
+template <class F>
+void emu_serial(int blocks, int rows, int T_, F f, bool reverse) {
+  for (int r = 0; r < rows; ++r)
+    for (int k = 0; k < blocks; ++k)
+      for (int t = 0; t < T_; ++t) {
+        blockIdx = {unsigned(reverse ? blocks - 1 - k : k),
+                    unsigned(reverse ? rows - 1 - r : r), 0};
+        threadIdx = {unsigned(t), 0, 0};
+        blockDim = {unsigned(T_), 1, 1};
+        gridDim = {unsigned(blocks), unsigned(rows), 1};
+        f();
+      }
+}
+
+// The flat engine's kernels of flat_sweep.cu over the engine's tables
+// (tabs, dims, vals as make_geom takes them): kind 0 the sweep of batch 0 (B
+// clusters of `cluster` blocks of T_ threads), 1 its rate pass, 2 its
+// accumulate (ceil(C / T_) x B blocks of T_ threads, whose threads run one
+// after the other: neither kernel's threads wait for each other), 3 the
+// trace of nb batches, each the three in turn; the clusters, the blocks of
+// a row and the rows in reverse order with `reverse`. `io` holds nhi, pos
+// (int32 in [0, N)), flux, sdr3, cd, phi, heat, phi_grid, heat_grid (the
+// heat channel's null without it).
+template <class T>
+void run_flat(int kind, void* const* tabs, const int* dims,
+              const double* vals, void* const* io, int nb, int B, int cluster,
+              int T_, int reverse) {
+  using P = const T*;
+  const flat::Geom<T> g = flat::make_geom<T>(tabs, dims, vals);
+  const flat::Trace<T> tr{(P)io[0], (const int*)io[1], (P)io[2], (P)io[3],
+                          (T*)io[4], (T*)io[5], (T*)io[6], (T*)io[7],
+                          (T*)io[8], B};
+  const int blocks = (g.C + T_ - 1) / T_;
+  for (int b = 0; b < (kind == 3 ? nb : 1); ++b) {
+    if (kind == 0 || kind == 3)
+      emu_launch(B, cluster, T_, 0, [&] {
+        flat::flat_sweep_kernel<T>(g, tr.nhi, tr.pos_of(b), tr.cd, cluster);
+      }, reverse != 0);
+    if (kind == 1 || kind == 3) {
+      const flat::RateIO<T> a = tr.rates(b);
+      emu_serial(blocks, B, T_, [&] {
+        if (g.grey)
+          flat::flat_rates_kernel<T, true, false>(g, a);
+        else if (a.heat)
+          flat::flat_rates_kernel<T, false, true>(g, a);
+        else
+          flat::flat_rates_kernel<T, false, false>(g, a);
+      }, reverse != 0);
+    }
+    if (kind == 2 || kind == 3) {
+      const flat::AccIO<T> a = tr.acc(b);
+      emu_serial(blocks, B, T_, [&] {
+        if (a.heat)
+          flat::flat_accumulate_kernel<T, true>(g, a);
+        else
+          flat::flat_accumulate_kernel<T, false>(g, a);
+      }, reverse != 0);
+    }
+  }
+}
+
+#define REHEARSE_FLAT(NAME, TYPE)                                              \
+  extern "C" void NAME(int kind, void* const* tabs, const int* dims,          \
+                       const double* vals, void* const* io, int nb, int B,    \
+                       int cluster, int T_, int reverse) {                    \
+    run_flat<TYPE>(kind, tabs, dims, vals, io, nb, B, cluster, T_, reverse);  \
+  }
+REHEARSE_FLAT(rehearse_flat_f32, float)
+REHEARSE_FLAT(rehearse_flat_f64, double)

@@ -3,8 +3,9 @@
 
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
 ``cheb_sweep_kernels.cuh``, ``cheb_sweep_rates.cuh``, ``cheb_rates.cuh``,
-``cheb_rates_he.cuh``, ``trace_loop.cu``, ``chemistry.cu`` and
-``thermal.cu`` (everything before their launch code), with
+``cheb_rates_he.cuh``, ``trace_loop.cu``, ``chemistry.cu``,
+``thermal.cu`` and ``flat_sweep.cu`` (everything before their launch
+code), with
 ``rounded.cuh``, are cut out of the sources and compiled with g++ against
 the stand-in headers of
 ``tests/kernel_host/`` (every thread of every block of a cluster is a
@@ -80,6 +81,8 @@ _PARTS = {
                    "}  // namespace chem\n"),
     "k_thermal.inc": ("thermal.cu", "// The launch of the thermal kernel",
                       "}  // namespace thermal\n"),
+    "k_flat.inc": ("flat_sweep.cu", "// The launches of the flat kernels",
+                   "}  // namespace flat\n"),
     "rounded.cuh": ("rounded.cuh", None, ""),      # no launch code
 }
 
@@ -168,6 +171,10 @@ def load_library():
         f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_void_p, ctypes.c_double] + [ctypes.c_int] * 3
+        f.restype = None
+    for f in (lib.rehearse_flat_f32, lib.rehearse_flat_f64):
+        f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
+            + [ctypes.c_int] * 5
         f.restype = None
     for f in (lib.rehearse_thermal_f32, lib.rehearse_thermal_f64):
         f.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
