@@ -166,9 +166,11 @@ Phases (any failure raises and the script exits non-zero):
 3d. (after 3c) The table-exact flat engine (ops/raytrace.py) at the bench
    configuration in float64 with the model layer's black-body tables, its
    trace one call of the loop of csrc/flat_sweep.cu (flat_trace_sweep: per
-   batch the sweep, the rate pass and the ordered accumulate): the launch
-   counts of the whole trace (asserted: one loop, each kernel once per
-   batch), ns per cell-update after and before (the plain loop
+   device batch of as many sources as the card holds clusters of the
+   gather, the sweep and the rate pass, then the ordered accumulate a batch
+   at a time): the launch counts of the whole trace (asserted: one loop,
+   each kernel as ops/flat_sweep.py::loop_plan counts it), ns per
+   cell-update after and before (the plain loop
    flat_trace_sweep_ref, the whole trace bit-equal); the loop against the
    plain loop over 16 batches in float64 and float32, with and without
    heat, bit for bit; device launches per batch (at most 4, asserted) and
@@ -178,8 +180,13 @@ Phases (any failure raises and the script exits non-zero):
    device ms in the loop, the plain version's ms, one index_add_ beside the
    accumulate, and the bound of its function (``flat_work``: the bytes of
    this data and FLAT_*_OPS operations), the sweep's chain floor (shells x
-   phase 1's cluster barrier); the loop's ms per trace against the plain
-   loop's and its bound; the trace of the first 16 sources against the CPU.
+   phase 1's cluster barrier); the sweep's design steps at the bench and
+   the golden's shapes (``FLAT_FORMS``: forms of the probe entry, each but
+   the "timing only" ones bit-equal to the plain sweep), its us a source
+   per plan (``flat_device_batches``) and the accumulate against the
+   first port's and one index_add_ (``flat_accumulate_forms``); the loop's
+   ms per trace against the plain loop's and its bound; the trace of the
+   first 16 sources against the CPU.
 3e. The helium engine (HeRaytracer, 72 default bins) at the bench fields in
    float32: the trace is one call of the C++ loop (he_trace_sweep); its
    launches (one loop, K1 three per batch, rates_he and the accumulate of
@@ -290,7 +297,7 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    (raytracing with both engines); the harness's two rows alone, the
    others four at a time. Per driver: its exit code, wall time,
    kernel launches (counted in its process and printed at its exit; the
-   kernels its path reaches must each launch: the flat engine's four in
+   kernels its path reaches must each launch: the flat engine's five in
    the five flat examples, make_plots and the flat tutorial; the helium
    rows three sweeps per rates_he) and its check lines. A driver fails the
    phase when it exits non-zero or prints FAILED.
@@ -302,8 +309,9 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    loop he_trace_sweep (3e), the chemistry_pass
    kernel on the EoR run's state, chemistry_pass_he on 4g's, the
    thermal kernel thermal_update at 3c's float32 update with the heating
-   example's launches, 4c, and the flat engine's flat_sweep, flat_rates,
-   flat_accumulate and its loop flat_trace_sweep, 3d, with the golden's
+   example's launches, 4c, and the flat engine's flat_gather, flat_sweep,
+   flat_rates, flat_accumulate and its loop flat_trace_sweep, 3d, with the
+   golden's
    launches beside), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -405,12 +413,13 @@ def log_ptxas(word=""):
     kernel = ""
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)"
-                      r"(?:I([fd])((?:Lb[01]E)+))?", line)
+                      r"(?:I([fd])((?:L(?:b[01]|i\d+)E)*))?", line)
         if m:
             kernel = m.group(2) + (
-                f"<{'float' if m.group(3) == 'f' else 'double'}, "
-                + ", ".join("true" if b == "1" else "false" for b in
-                            re.findall(r"Lb([01])E", m.group(4))) + ">"
+                f"<{'float' if m.group(3) == 'f' else 'double'}"
+                + "".join(", " + ({"b0": "false", "b1": "true"}.get(a)
+                                  or a[1:]) for a in
+                          re.findall(r"L(b[01]|i\d+)E", m.group(4))) + ">"
                 if m.group(3) else "")
         elif ("spill" in line or "registers" in line) and word in kernel:
             log(f"  ptxas {kernel}: "
@@ -2782,8 +2791,8 @@ def golden_run(N, numzred, steps, device, results_basename, traces=None):
     simulation, the eight statistics {name: (value, tolerance)} of
     run_test.py:200-210 and the wall seconds of the port's part and of the
     oracle's part. With a dict ``traces``, the engine's trace_batches calls
-    are timed into it ("n" calls, "s" seconds, each up to a synchronize of
-    the card)."""
+    are timed into it ("n" calls, "s" seconds, "each" call's seconds, each up
+    to a synchronize of the card)."""
     from pyc2ray_torch import C2Ray_Test
     from pyc2ray_torch.examples.single_source_test import (
         TABLE_TOLERANCES, oracle_evolve_loop, statistics)
@@ -2794,7 +2803,7 @@ def golden_run(N, numzred, steps, device, results_basename, traces=None):
     with contextlib.redirect_stdout(io.StringIO()):
         sim = C2Ray_Test(params, N, device=device)
     if traces is not None:
-        traces.update(n=0, s=0.0)
+        traces.update(n=0, s=0.0, each=[])
         trace_batches = sim.raytracer.trace_batches
 
         def timed(*args):
@@ -2804,6 +2813,7 @@ def golden_run(N, numzred, steps, device, results_basename, traces=None):
                 torch.cuda.synchronize()
             traces["n"] += 1
             traces["s"] += time.time() - t0
+            traces["each"].append(time.time() - t0)
             return out
         sim.raytracer.trace_batches = timed
     zred_array = sim.generate_redshift_array(numzred, 1e7)
@@ -2838,7 +2848,7 @@ def golden_kernels(sim):
     """The flat kernels at the golden's shape (4f): its engine (N = 128, R
     beyond the mesh, so the whole box, one source a batch, float64), its
     source and its last fields. Asserts that flat_plan chose clusters of
-    16 blocks, then holds the sweep kernel to the plain gather and sweep
+    16 blocks with the column densities in the shared ring, then holds the sweep kernel to the plain gather and sweep
     and the loop of one trace to the plain loop, max_abs_err 0 each. The
     cached allocator is emptied and then holds only blocks of NaN of the
     kernels' buffer size, so the scratch the kernels write starts as NaN or
@@ -2851,11 +2861,11 @@ def golden_kernels(sim):
     C = rt.geom_np.num_cells
     kt = rt.kernel_tables()
     B = rt.config.batch_size
-    cluster = fs.flat_plan(kt, B, rt.device)
-    if (B, C, cluster) != (1, N ** 3, 16):
+    cluster, shared, _ = fs.flat_plan(kt, B, rt.device)
+    if (B, C, cluster, shared) != (1, N ** 3, 16, True):
         raise RuntimeError(f"4f golden: B={B}, {C} cells of {N ** 3}, "
-                           f"clusters of {cluster}; expected 1, the whole "
-                           "box and 16")
+                           f"clusters of {cluster}, shared ring {shared}; "
+                           "expected 1, the whole box, 16 and the ring")
     srcpos = np.array([[3 * N // 4], [3 * N // 4], [N // 2]], dtype=float)
     pos_b, flux_b = rt.prepare_sources(*format_sources(srcpos, [10.0]))
     nd = torch.as_tensor(np.asarray(sim.ndens), dtype=dt,
@@ -2883,7 +2893,9 @@ def golden_kernels(sim):
     errs["flat_trace_sweep"] = float((got - want).abs().max())
     log(f"  4f the flat kernels at the golden's shape (N={N}, {C} cells, "
         f"{kt.sizes['n_shells']} shells, B={B}, {dt}, clusters of "
-        f"{cluster}) on its last fields: the sweep against the plain sweep "
+        f"{cluster}, the column densities in the shared ring of depth "
+        f"{kt.sizes['depth']}, {fs.ring_bytes(kt, cluster)} B a block) on "
+        f"its last fields: the sweep against the plain sweep "
         f"max_abs_err={errs['flat_sweep']:.1e} (its output on a block of "
         f"NaN: {on_nan}), one trace against the plain loop "
         f"max_abs_err={errs['flat_trace_sweep']:.1e}")
@@ -3325,7 +3337,8 @@ def launches_in(prof):
 FLAT_SWEEP_OPS = 29
 FLAT_RATE_OPS = 16
 FLAT_LOOKUP_OPS = 12
-FLAT_KERNELS = (("flat_sweep_kernel", "flat_sweep"),
+FLAT_KERNELS = (("flat_gather_kernel", "flat_gather"),
+                ("flat_sweep_kernel", "flat_sweep"),
                 ("flat_rates_kernel", "flat_rates"),
                 ("flat_accumulate_kernel", "flat_accumulate"))
 
@@ -3353,12 +3366,13 @@ def flat_engine(tables, dtype, heat, device="cuda"):
 def flat_work(rt, pos_b):
     """(bytes, operations) of the flat engine ``rt``'s kernels on batch 0 of
     ``pos_b`` and of its loop over all of them, as the functions need them:
-    the tables a kernel reads (offsets, corners, weights, path and diag for
-    the sweep; offsets, path, geom, rated and the lookups' tables for the
-    rates) once, the grid cells the batch covers (their union) once, the
-    (B, C) values a kernel hands to the next written and read once; the
-    loop's tables once, the covered cells of the trace once, its rate grids
-    written once. Returns {kernel: (bytes, ops)}."""
+    the tables a kernel reads (the grid order and its offsets for the
+    gather; corner codes, weights, path and diag for the sweep; offsets,
+    path, geom, rated and the lookups' tables for the rates) once, the grid
+    cells the batch covers (their union) once, the (B, C) values a kernel
+    hands to the next written and read once; the loop's tables once, the
+    covered cells of the trace once, its rate grids written once. Returns
+    {kernel: (bytes, ops)}."""
     cfg, heat = rt.config, rt.config.do_heating
     isz = torch.finfo(cfg.dtype).bits // 8
     C = rt.kernel_tables().sizes["C"]
@@ -3371,19 +3385,20 @@ def flat_work(rt, pos_b):
             union0 = int(covered.sum())
     n_tab = rt.tables.photo_thin.numel()
     lookups = 0 if cfg.grey_analytic else 3 * (1 + heat)
-    sweep_tab = C * (12 + 16 + 6 * isz)
+    sweep_tab = C * (16 + 6 * isz)
     rate_tab = C * (12 + 2 * isz + 1) + isz * 2 * (1 + heat) * n_tab
     sweep_ops = FLAT_SWEEP_OPS * B * (C - 1)
     rate_ops = B * C * (FLAT_RATE_OPS + FLAT_LOOKUP_OPS * lookups)
     acc_ops = (1 + heat) * B * C
     out = {
-        "flat_sweep": (sweep_tab + isz * (union0 + B * C), sweep_ops),
+        "flat_gather": (C * 8 + isz * (union0 + B * C), 0),
+        "flat_sweep": (sweep_tab + isz * 2 * B * C, sweep_ops),
         "flat_rates": (rate_tab + isz * (union0 + (2 + heat) * B * C + B),
                        rate_ops),
         "flat_accumulate": (C * 12 + isz * (1 + heat) * (B * C
                                                          + 2 * union0),
                             acc_ops),
-        "flat_trace_sweep": (sweep_tab + rate_tab + isz * (
+        "flat_trace_sweep": (C * 8 + sweep_tab + rate_tab + isz * (
             int(covered.sum()) + nb * B + (1 + heat) * cfg.N ** 3),
             nb * (sweep_ops + rate_ops + acc_ops))}
     return out
@@ -3424,6 +3439,203 @@ def flat_loop_vs_plain(label, rt, nd, xh, pos_b, flux_b):
     return err
 
 
+# the design steps of the flat sweep: (row, what it is, whether its output
+# is the sweep's), one per form of csrc/flat_sweep.cu's FLAT_PROBE_FORMS in
+# its order; the last five take parts of the shell step out to attribute its
+# time (their outputs are not the sweep's)
+FLAT_FORMS = (
+    ("a", "the first port's chain: global column densities, nHI "
+          "gathered from the grid in the chain, one cell's operands ahead",
+     True),
+    ("b", "the bare barrier chain", False),
+    ("c", "(a) with nHI pre-gathered by the gather kernel, a launch before",
+     True),
+    ("c'", "(a) with nHI pre-gathered by the sweep's own prologue", True),
+    ("d", "(a) with the column densities in the ring in distributed shared "
+          "memory", True),
+    ("d'", "(d) with nHI pre-gathered by the prologue", True),
+    ("e=f", "(c) and (d), the final form (the engine's shared placement)",
+     True),
+    ("g", "the engine's global placement: (c) with the corners by their "
+          "codes", True),
+    ("f+ahead", "(f) with two cells' operands ahead", True),
+    ("f+early", "(f) with a corner of lag >= 2 read and its term formed "
+                "before the wait", True),
+    ("f+local", "(f) with a corner of the block's own slice read from its "
+                "own shared memory", True),
+    ("f+stage", "(f) with a thread's first cell of a shell copied into "
+                "shared memory two shells ahead (cp.async)", True),
+    ("f*div", "(f) with a multiply for each division", False),
+    ("f*corner", "(f) with every corner read as 0", False),
+    ("f*load", "(f) with no operand loaded (constants)", False),
+    ("f*load*div", "(f*load) with a multiply for each division", False),
+    ("f*load*div*out", "(f*load*div) with no output stored", False))
+
+
+def flat_forms():
+    """The forms of FLAT_PROBE_FORMS (csrc/flat_sweep.cu), one a row of
+    FLAT_FORMS."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    import ctypes
+    out = (ctypes.c_int * 64)()
+    n = fs._lib().flat_sweep_forms(out, 64)
+    if n != len(FLAT_FORMS):
+        raise RuntimeError(f"3d: {n} forms of the flat sweep, "
+                           f"{len(FLAT_FORMS)} rows")
+    return list(out)[:n]
+
+
+def flat_probe(rt, nhi, pos, form, cluster):
+    """A closure that launches the flat sweep's form ``form``
+    (csrc/flat_sweep.cu's probe entry, float64; the gather kernel first
+    where the form reads nHI gathered without a prologue) on the sources at
+    ``pos`` in clusters of ``cluster``, and its output (B, C)."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    kt = rt.kernel_tables()
+    dev = nhi.device
+    pos = fs.stage_positions(pos, kt.sizes["N"], dev)
+    B = pos.shape[0]
+    cd, no = (torch.full((B, kt.sizes["C"]), float("nan"), dtype=kt.dtype,
+                         device=dev) for _ in range(2))
+    lib = fs._lib()
+
+    def call():
+        err = lib.flat_sweep_probe(
+            kt.tabs, kt.dims, fs._vals(kt, DR), fs._ptr(nhi), fs._ptr(pos),
+            fs._ptr(no), fs._ptr(cd), B, cluster, form, fs._stream(dev))
+        fs._raise_on(lib, "flat_sweep_probe", err, f" (form {form})")
+    return call, cd
+
+
+def flat_design_steps(label, rt, nhi, pos, reps):
+    """The flat sweep's design steps at one shape (FLAT_FORMS, float64, the
+    engine's cluster size): us a launch and a shell by CUDA events over
+    ``reps`` launches back to back, each form's output against the plain
+    gather and sweep (max_abs_err 0, asserted, where the form computes the
+    sweep). Returns {row: dict(us=, us_per_shell=, max_abs_err=, form=)}."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    kt = rt.kernel_tables()
+    cluster, shared, _ = fs.flat_plan(kt, pos.shape[0], nhi.device)
+    n_shells = kt.sizes["n_shells"]
+    want = rt._sweep(rt._gather(nhi, pos)[1], rt._dr(DR, "cuda"))
+    out = {}
+    for (row, text, checked), form in zip(FLAT_FORMS, flat_forms()):
+        call, cd = flat_probe(rt, nhi, pos, form, cluster)
+        call()
+        err = float((cd - want).abs().max()) if checked else None
+        if checked and (err != 0.0 or not bool(torch.isfinite(cd).all())):
+            raise RuntimeError(f"3d {label} design step ({row}) form {form}: "
+                               f"max_abs_err {err}")
+        us = 1e3 * cuda_ms(call, reps)
+        out[row] = dict(us=us, us_per_shell=us / n_shells, max_abs_err=err,
+                        form=form)
+        log(f"  3d {label} step ({row}) {text}: {us:.2f} us a launch, "
+            f"{us / n_shells:.4f} us a shell ({n_shells} shells, C="
+            f"{cluster}); "
+            + (f"max_abs_err {err:.1e}" if checked else "timing only"))
+        del cd, call
+    log(f"  3d {label}: the engine's plan C={cluster}, column densities "
+        f"{'in the shared ring' if shared else 'in global memory'} "
+        f"({fs.ring_bytes(kt, cluster)} B of ring a block)")
+    return out
+
+
+def flat_device_batches(rt, nhi, pos_all, reps=3):
+    """The sweep's throughput per plan at the bench shape: for each cluster
+    size and each placement that fits (the engine's two forms), as many
+    sources at once as the card holds clusters (cudaOccupancyMaxActiveClusters),
+    us a launch and a source by CUDA events, the gather included; the first
+    eight sources' column densities against the plain sweep (max_abs_err 0,
+    asserted). Returns {"C=.. ring|global": dict(sources=, us=,
+    us_per_source=)}."""
+    import ctypes
+    from pyc2ray_torch.ops import flat_sweep as fs
+    from pyc2ray_torch.ops.sweep import CLUSTERS
+    kt = rt.kernel_tables()
+    lib = fs._lib()
+    forms = dict(zip((r for r, _, _ in FLAT_FORMS), flat_forms()))
+    want = rt._sweep(rt._gather(nhi, pos_all[:8])[1], rt._dr(DR, "cuda"))
+    out = {}
+    for C in CLUSTERS:
+        for shared in (True, False):
+            if shared and fs.ring_bytes(kt, C) > fs.SMEM_MAX:
+                continue
+            held = ctypes.c_int(0)
+            err = lib.flat_sweep_f64(kt.tabs, kt.dims, fs._vals(kt, 1.0),
+                                     None, None, None, None, 8, C,
+                                     int(shared), ctypes.byref(held),
+                                     fs._stream(nhi.device))
+            fs._raise_on(lib, "flat_sweep (occupancy)", err)
+            n = held.value
+            call, cd = flat_probe(rt, nhi, pos_all[:n],
+                                  forms["e=f" if shared else "g"], C)
+            call()
+            err = float((cd[:8] - want[:min(n, 8)]).abs().max())
+            if err != 0.0:
+                raise RuntimeError(f"3d device batch C={C}: max_abs_err "
+                                   f"{err}")
+            us = 1e3 * cuda_ms(call, reps)
+            key = f"C={C} {'ring' if shared else 'global'}"
+            out[key] = dict(sources=n, us=us, us_per_source=us / n)
+            log(f"  3d the sweep in device batches, {key}: {n} sources at "
+                f"once, {us:.1f} us a launch with its gather, "
+                f"{us / n:.2f} us a source, {8 * us / n:.1f} us a batch of "
+                f"8; max_abs_err {err:.1e}")
+            del cd, call
+    return out
+
+
+def flat_accumulate_forms(rt, pos, phi, reps=20):
+    """The accumulate of one bench batch of 8 (float64), device time per call
+    (torch.profiler, ``reps`` calls each, the positions staged once): the
+    kernel, the first port's (the owner's atomicAdds in shell order,
+    csrc/flat_sweep.cu's probe entry) and one unordered index_add_ of the
+    batch; the kernel and the first port's held to the plain ordered
+    index_add_ (max_abs_err 0, asserted). Returns ms each."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    N = rt.config.N
+    kt = rt.kernel_tables()
+    dev = phi.device
+    pos_d = fs.stage_positions(pos, N, dev)
+    lin = rt._lin_idx(pos)
+    start = torch.rand(N ** 3, dtype=phi.dtype, device=dev) * 1e-12
+    want = start.clone()
+    rt._accumulate(want, lin, phi)
+    lib = fs._lib()
+
+    def kernel(grid):
+        err = lib.flat_accumulate_f64(
+            kt.tabs, kt.dims, fs._vals(kt, 1.0), fs._ptr(pos_d),
+            fs._ptr(phi), None, fs._ptr(grid), None, pos_d.shape[0],
+            fs._stream(dev))
+        fs._raise_on(lib, "flat_accumulate", err)
+
+    def first_port(grid):
+        err = lib.flat_accumulate_probe(
+            kt.tabs, kt.dims, fs._vals(kt, 1.0), fs._ptr(pos_d),
+            fs._ptr(phi), fs._ptr(grid), pos_d.shape[0], fs._stream(dev))
+        fs._raise_on(lib, "flat_accumulate_probe", err)
+    errs = {}
+    for name, fn in (("kernel", kernel), ("first port", first_port)):
+        got = start.clone()
+        fn(got)
+        errs[name] = float((got - want).abs().max())
+    if any(errs.values()):
+        raise RuntimeError(f"3d accumulate forms differ from the plain "
+                           f"ordered index_add_: {errs}")
+    grid = start.clone()
+    ms = dict(kernel=device_ms(lambda _: kernel(grid), reps),
+              first_port=device_ms(lambda _: first_port(grid), reps),
+              index_add=device_ms(lambda _: grid.index_add_(
+                  0, lin.view(-1), phi.view(-1)), reps))
+    log(f"  3d flat_accumulate a bench batch, device time a call: the "
+        f"kernel {1e3 * ms['kernel']:.2f} us, the first port's (atomic adds "
+        f"in shell order) {1e3 * ms['first_port']:.2f} us, one unordered "
+        f"index_add_ of the batch {1e3 * ms['index_add']:.2f} us; the kernel "
+        f"and the first port's bit-equal to the plain ordered index_add_")
+    return ms
+
+
 def flat_bench(src_pos, tmp, barrier_us):
     """Phase 3d: the table-exact flat engine at the bench configuration in
     float64 with the model layer's black-body tables, its trace one
@@ -3440,6 +3652,7 @@ def flat_bench(src_pos, tmp, barrier_us):
     from pyc2ray_torch.diagnostics import device_idle_share, profile_trace
     from pyc2ray_torch.ops import flat_sweep as fs
     from pyc2ray_torch.ops import sweep
+    from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
     N, dt = N_BENCH, torch.float64
     tables = flat_tables()
     t0 = time.time()
@@ -3458,9 +3671,11 @@ def flat_bench(src_pos, tmp, barrier_us):
     torch.cuda.synchronize()
     t_ray = time.time() - t0
     counts = dict(sweep.launches)
+    kt = rt.kernel_tables()
+    cluster, shared, dev_batch, launches = fs.loop_plan(kt, nbatch, B_BENCH,
+                                                        nd.device)
     want = {k: 0 for k in counts}
-    want.update(flat_trace_sweep=1, flat_sweep=nbatch, flat_rates=nbatch,
-                flat_accumulate=nbatch)
+    want.update(flat_trace_sweep=1, **launches)
     if counts != want:
         raise RuntimeError(f"3d flat engine: launches {counts}, expected "
                            f"{want}")
@@ -3476,13 +3691,14 @@ def flat_bench(src_pos, tmp, barrier_us):
                            f"plain loop's, max_abs_err {trace_err}")
     del phi_plain
     updates = cell_updates(NS_BENCH, R_BENCH)
-    kt = rt.kernel_tables()
-    cluster = fs.flat_plan(kt, B_BENCH, nd.device)
     n_shells = kt.sizes["n_shells"]
     log(f"flat engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float64 "
         f"(q_max {rt.geom_np.max_q}, {rt.geom_np.num_cells} cells, "
-        f"{n_shells} shells, tables {t_build:.1f} s; sweep clusters of "
-        f"{cluster} blocks): {nbatch} batches in "
+        f"{n_shells} shells, ring depth {kt.sizes['depth']}, tables "
+        f"{t_build:.1f} s; the sweep in clusters of {cluster} blocks, "
+        f"{dev_batch} sources a launch, column densities "
+        f"{'in the shared ring' if shared else 'global'}): "
+        f"{nbatch} batches in "
         f"{t_ray:.4f} s = {1e9 * t_ray / updates:.4f} ns/cell-update, "
         f"{1e3 * t_ray / nbatch:.4f} ms per batch (one flat_trace_sweep "
         f"call; launches " + ", ".join(f"{k} {v}" for k, v in counts.items()
@@ -3522,8 +3738,9 @@ def flat_bench(src_pos, tmp, barrier_us):
                            f"{per_batch_trace:.2f} over the trace: more "
                            f"than 4")
     # the unprofiled trace's idle share: 1 - its kernels' device time (the
-    # profiled medians, once a batch each) over its wall time
-    busy = 1e-3 * sum(per_k[k][0] for _, k in FLAT_KERNELS)
+    # profiled medians times the launches a batch) over its wall time
+    busy = 1e-3 * sum(per_k[k][0] * launches[k] / nbatch
+                      for _, k in FLAT_KERNELS)
     idle_trace = 1.0 - busy * nbatch / (1e3 * t_ray)
     log(f"  3d flat engine, a profiled window of {nwin} batches "
         f"({t_prof:.2f} s): {per_batch:.3f} device launches per batch "
@@ -3533,22 +3750,30 @@ def flat_bench(src_pos, tmp, barrier_us):
             for k, (d, g, n) in per_k.items())
         + f"; the unprofiled trace: {busy:.5f} ms of kernels a batch in "
         f"{1e3 * t_ray / nbatch:.5f} ms, idle share {idle_trace:.4f}")
-    # each kernel against its plain version on batch 0
+    # each kernel against its plain version at the shapes the loop gives
+    # it: the gather, the sweep (in the loop's plan) and the rates on its
+    # first device batch, the accumulate on its first batch of B
     work = flat_work(rt, pos_b)
+    pos0 = pos_b.reshape(-1, 3)[:dev_batch]
+    flux0 = flux_b.reshape(-1)[:dev_batch]
+    work.update({k: v for k, v in flat_work(rt, pos0[None]).items()
+                 if k in ("flat_gather", "flat_sweep", "flat_rates")})
     nhi = nd * (1.0 - xh)
     dr_t = torch.tensor(DR, dtype=dt).to("cuda")
-    pos0, flux0 = pos_b[0], flux_b[0]
     lin, nhi_octa = rt._gather(nhi, pos0)
+    no_k = fs.flat_gather(kt, nhi, pos0)
     cd_plain = rt._sweep(nhi_octa, dr_t)
-    cd = rt.sweep_batch(nhi, pos0, DR)
+    cd = rt.sweep_batch(nhi, pos0, DR, cluster, shared)
     phi_plain = rt._rates(cd_plain, nhi_octa, flux0, dr_t)[0]
     phi_k = rt.rates_batch(cd_plain, nhi, pos0, flux0, DR)[0]
+    pos_a, phi_a, lin_a = pos0[:B_BENCH], phi_plain[:B_BENCH], lin[:B_BENCH]
     grid_p = torch.rand(N ** 3, dtype=dt, device="cuda") * 1e-12
     grid_k = grid_p.clone()
-    rt._accumulate(grid_p, lin, phi_plain)
-    rt.accumulate_batch(grid_k, None, pos0, phi_plain, None)
+    rt._accumulate(grid_p, lin_a, phi_a)
+    rt.accumulate_batch(grid_k, None, pos_a, phi_a, None)
     res = {}
-    for name, got, ref in (("flat_sweep", cd, cd_plain),
+    for name, got, ref in (("flat_gather", no_k, nhi_octa),
+                           ("flat_sweep", cd, cd_plain),
                            ("flat_rates", phi_k, phi_plain),
                            ("flat_accumulate", grid_k, grid_p)):
         err = float((got - ref).abs().max())
@@ -3558,7 +3783,11 @@ def flat_bench(src_pos, tmp, barrier_us):
         res[name] = dict(max_abs_err=err)
     grid = torch.zeros(N ** 3, dtype=dt, device="cuda")
     timed = {
-        "flat_sweep": (lambda: rt.sweep_batch(nhi, pos0, DR),
+        "flat_gather": (lambda: fs.flat_gather(kt, nhi, pos0),
+                        lambda: rt._gather(nhi, pos0)[1],
+                        lambda: torch.take(nhi, lin)),
+        "flat_sweep": (lambda: rt.sweep_batch(nhi, pos0, DR, cluster,
+                                              shared),
                        lambda: rt._sweep(rt._gather(nhi, pos0)[1], dr_t),
                        None),
         "flat_rates": (lambda: rt.rates_batch(cd, nhi, pos0, flux0, DR),
@@ -3566,9 +3795,9 @@ def flat_bench(src_pos, tmp, barrier_us):
                                          flux0, dr_t),
                        None),
         "flat_accumulate": (
-            lambda: rt.accumulate_batch(grid, None, pos0, phi_k, None),
-            lambda: rt._accumulate(grid, rt._lin_idx(pos0), phi_k),
-            lambda: grid.index_add_(0, lin.view(-1), phi_k.view(-1)))}
+            lambda: rt.accumulate_batch(grid, None, pos_a, phi_a, None),
+            lambda: rt._accumulate(grid, rt._lin_idx(pos_a), phi_a),
+            lambda: grid.index_add_(0, lin_a.view(-1), phi_a.reshape(-1)))}
     for name, (kern, plain, lib) in timed.items():
         b_ms, b_by = least_ms(*work[name], dt)
         res[name].update(
@@ -3577,20 +3806,51 @@ def flat_bench(src_pos, tmp, barrier_us):
             library_ms=None if lib is None else cuda_ms(lib, 20),
             bound_ms=b_ms, bound_by=b_by, launches=counts[name])
     chain = n_shells * barrier_us[cluster] * 1e-3
-    res["flat_sweep"].update(chain_floor_ms=chain, cluster=cluster)
+    res["flat_sweep"].update(chain_floor_ms=chain, cluster=cluster,
+                             shared=shared)
+    for name, r in res.items():
+        r.update(sources_a_launch=B_BENCH if name == "flat_accumulate"
+                 else dev_batch)
     for name, r in res.items():
         log(f"  3d {name}: max_abs_err={r['max_abs_err']:.1e}; device "
-            f"{r['ms']:.5f} ms per launch in the loop (a wrapper call "
-            f"{r['ms_wrapper']:.5f} ms by CUDA events) against the plain "
-            f"version {r['plain_ms']:.4f} ms"
+            f"{r['ms']:.5f} ms per launch in the loop ({r['sources_a_launch']}"
+            f" sources a launch; a wrapper call {r['ms_wrapper']:.5f} ms by "
+            f"CUDA events) against the plain version {r['plain_ms']:.4f} ms"
             + ("" if r["library_ms"] is None else
-               f" and one index_add_ {r['library_ms']:.5f} ms")
+               f" and one {'torch.take' if name == 'flat_gather' else 'index_add_'}"
+               f" {r['library_ms']:.5f} ms")
             + f"; bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
             f"{work[name][0] / 1e6:.2f} MB, {work[name][1] / 1e6:.1f} Mop)"
             + ("" if name != "flat_sweep" else
                f", chain floor {n_shells} x {barrier_us[cluster]:.4f} us "
                f"= {chain:.5f} ms (C={cluster})")
             + f"; {r['launches']} launches in the trace")
+    # the sweep's design steps at the bench shape and the golden's (N = 128,
+    # the whole box, one source), the accumulate before and after
+    steps = {"bench": flat_design_steps("bench", rt, nhi, pos_b[0],
+                                        reps=20)}
+    rt_g = Raytracer(RaytraceConfig(N=N_GOLDEN, R_max_LLS=1e9, sig=SIG,
+                                    batch_size=1, dtype=dt), *tables,
+                     device="cuda")
+    nhi_g = torch.from_numpy(10 ** np.random.RandomState(9).uniform(
+        -4, -2, N_GOLDEN ** 3)).to("cuda", dt)
+    pos_g = torch.tensor([[3 * N_GOLDEN // 4, 3 * N_GOLDEN // 4,
+                           N_GOLDEN // 2]], device="cuda")
+    steps["golden"] = flat_design_steps(f"the golden's shape (N={N_GOLDEN}, "
+                                        "whole box, B=1)", rt_g, nhi_g, pos_g,
+                                        reps=5)
+    del rt_g, nhi_g
+    steps["device_batches"] = flat_device_batches(rt, nhi,
+                                                  pos_b.reshape(-1, 3))
+    acc_ms = flat_accumulate_forms(rt, pos_a, phi_a)
+    res["flat_sweep"].update(
+        design_steps=steps, before_ms=1e-3 * steps["bench"]["a"]["us"],
+        after_ms_back_to_back=1e-3 * steps["bench"]["e=f"]["us"],
+        before="the first port's form (a), back to back by CUDA events")
+    res["flat_accumulate"].update(
+        before_ms=acc_ms["first_port"], after_ms_alone=acc_ms["kernel"],
+        index_add_ms=acc_ms["index_add"],
+        before="the first port's atomic form, device time a call")
     # the loop per trace, after and before
     loop_ms = cuda_ms(lambda: rt.trace_batches(nd, xh, pos_b, flux_b, DR), 3)
     b_ms, b_by = least_ms(*work["flat_trace_sweep"], dt)
@@ -4294,7 +4554,8 @@ RTB_R100 = "raytracing_benchmark R=100"
 DRIVER_LANES = 4             # drivers run at once, besides the harness
 _CHEB_LOOP = ("cheb_sweep_rates", "cheb_trace_sweep", "extract_boxes",
               "accumulate_boxes", "chemistry_pass")
-_FLAT = ("flat_sweep", "flat_rates", "flat_accumulate", "flat_trace_sweep")
+_FLAT = ("flat_gather", "flat_sweep", "flat_rates", "flat_accumulate",
+         "flat_trace_sweep")
 # label, module under pyc2ray_torch, arguments (each driver's defaults
 # otherwise), kernels that must launch, the lines of its output to show
 DRIVERS = (
@@ -5306,14 +5567,17 @@ def main():
         f"{rt_g.device} ({rt_g.config.dtype}, q_max "
         f"{rt_g.geom_np.max_q}): the port {t_port:.2f} s, "
         f"{g_traces['s']:.3f} s of it in {g_traces['n']} traces "
-        f"({1e3 * g_traces['s'] / max(g_traces['n'], 1):.3f} ms a trace), "
+        f"({1e3 * g_traces['s'] / max(g_traces['n'], 1):.3f} ms a trace; "
+        f"the first, which makes the kernels' tables, "
+        f"{1e3 * g_traces['each'][0]:.3f} ms, the median "
+        f"{1e3 * float(np.median(g_traces['each'])):.3f} ms), "
         f"the C++ oracle {t_oracle:.2f} s; mean xh "
         f"{float(np.mean(sim.xh)):.12e}; launches "
         + ", ".join(f"{k} {v}" for k, v in g_counts.items()))
     n_tr = g_counts.get("flat_trace_sweep", 0)
     if n_tr != g_traces["n"] or n_tr < 1 or any(
             g_counts.get(k, 0) != g_counts.get("flat_sweep", -1)
-            for k in ("flat_rates", "flat_accumulate")) or \
+            for k in ("flat_gather", "flat_rates", "flat_accumulate")) or \
             g_counts.get("flat_sweep", 0) < n_tr:
         raise RuntimeError(f"golden: the traces did not go through the "
                            f"flat kernels: {g_traces['n']} traces, launches "
@@ -5488,8 +5752,8 @@ def main():
                launches_golden=g_counts.get(name, 0),
                **({} if name not in g_errs else
                   {"max_abs_err_golden": g_errs[name]}), **k_flat[name])
-          for name, line in (("flat_sweep", "172"), ("flat_rates", "224"),
-                             ("flat_accumulate", "288"),
+          for name, line in (("flat_gather", "299"), ("flat_sweep", "172"),
+                             ("flat_rates", "224"), ("flat_accumulate", "288"),
                              ("flat_trace_sweep", "153"))]]
     kernels = [dict(name=k.pop("name"), route="cuda",
                     **{"library_ms": None, **k}) for k in kernels]

@@ -29,6 +29,13 @@ through entry points that every checkout since the trace loop has:
   ms per trace (CUDA events, the least of 3) and, from one profiled
   trace, each kernel's median device us and the gap before it
   (``loop_kernel_gaps``);
+- the flat engine's bench trace (phase 3d's configuration and fields:
+  ``Raytracer``, float64, 256 batches of B = 8, one ``flat_trace_sweep``
+  call), bit-equal to its plain loop over the first 16 batches
+  (asserted): ms per trace (CUDA events, the least of 3) and, from one
+  profiled trace, each flat kernel's median device us a launch, the gap
+  before it, its device us a batch (median times launches over batches)
+  and the device launches a batch (chip_smoke's ``flat_kernel_us``);
 - the helium rate pass alone (the engine's ``_rates_he``, one launch of
   ``cheb_rates.rates_he``) at the bench shape (one batch, B = 8, Dc = Ds =
   64, 72 bins, float32, chip_smoke phase 2d's boxes), with and without the
@@ -75,6 +82,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -397,6 +405,39 @@ def helium_bench(cs, src):
                     he_pos, he_flux)
 
 
+def flat_bench(cs, src):
+    """The flat engine's bench trace (phase 3d's): bit for bit against the
+    plain loop over its first 16 batches, ms per trace of
+    ``rt.trace_batches`` (least of 3 after a warm-up) and, from one profiled
+    trace, each flat kernel's median device us, the gap before it and the
+    device launches a batch."""
+    from pyc2ray_torch.diagnostics import profile_trace
+    N, dt = cs.N_BENCH, torch.float64
+    rt = cs.flat_engine(cs.flat_tables(), dt, False)
+    pos_b, flux_b = rt.prepare_sources(src, np.ones(cs.NS_BENCH))
+    nd = torch.full((N ** 3,), 1e-3, dtype=dt, device="cuda")
+    xh = torch.full((N ** 3,), 1.2e-3, dtype=dt, device="cuda")
+    label = f"flat bench N={N} B={cs.B_BENCH} float64"
+    cs.flat_loop_vs_plain(label, rt, nd, xh, pos_b[:16], flux_b[:16])
+    ms = min(cs.cuda_ms(lambda: rt.trace_batches(nd, xh, pos_b, flux_b,
+                                                 cs.DR), 1)
+             for _ in range(3))
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "flat")
+        with profile_trace(prof) as p:
+            p["sync"] = rt.trace_batches(nd, xh, pos_b, flux_b, cs.DR)[0]
+        per_k, n_launch = cs.flat_kernel_us(prof)
+    nb = pos_b.shape[0]
+    per_batch = {k: d * n / nb for k, (d, _, n) in per_k.items()}
+    cs.log(f"{label}: {ms:.3f} ms per trace of {nb} batches; "
+           f"{n_launch / nb:.4f} device launches a batch; " + "; ".join(
+               f"{k} {d:.2f} us a launch after a gap of {g:.2f} us (median "
+               f"of {n}), {per_batch[k]:.2f} us a batch"
+               for k, (d, g, n) in per_k.items()))
+    return dict(ms=ms, kernels=per_k, us_per_batch=per_batch,
+                launches_per_batch=n_launch / nb)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -482,6 +523,7 @@ def main():
                               f"B={cs.B_EOR} (K3), {nb} batches", rt, pad,
                               pos_b, flux_b)
     out["helium_bench"] = helium_bench(cs, src)
+    out["flat_bench"] = flat_bench(cs, src)
     if args.chunks:
         from pyc2ray_torch.ops import trace_loop
         rule = trace_loop.chunk_size

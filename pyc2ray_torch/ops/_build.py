@@ -84,16 +84,18 @@ _SIGNATURES = {
     },
     "flat_sweep": {
         # tabs, dims, vals (the engine's tables, csrc/flat_sweep.cu's
-        # make_geom), then each entry's own: nhi, pos, cd; B, cluster;
-        # max_clusters, stream
-        "flat_sweep": [_P] * 6 + [_I] * 2 + [_P, _P],
+        # make_geom), then each entry's own: nhi, pos, nhi_octa, cd; B,
+        # cluster, shared; max_clusters, stream
+        "flat_sweep": [_P] * 7 + [_I] * 3 + [_P, _P],
+        # nhi, pos, out; B; stream
+        "flat_gather": [_P] * 6 + [_I, _P],
         # nhi, pos, flux, sdr3, cd, phi, heat; B; stream
         "flat_rates": [_P] * 10 + [_I, _P],
         # pos, phi, heat, phi_grid, heat_grid; B; stream
         "flat_accumulate": [_P] * 8 + [_I, _P],
-        # nhi, pos, flux, sdr3, cd, phi, heat, phi_grid, heat_grid; nb, B,
-        # cluster; stream
-        "flat_trace_sweep": [_P] * 12 + [_I] * 3 + [_P],
+        # nhi, pos, flux, sdr3, nhi_octa, cd, phi, heat, phi_grid,
+        # heat_grid; nb, B, chunk, cluster, shared; stream
+        "flat_trace_sweep": [_P] * 13 + [_I] * 5 + [_P],
     },
 }
 
@@ -132,6 +134,15 @@ def _bind(name, lib):
             f = getattr(lib, f"{fn}_{sfx}")
             f.argtypes = argtypes
             f.restype = ctypes.c_int
+    if name == "flat_sweep":
+        # tabs, dims, vals, nhi, pos, nhi_octa, cd; B, cluster, form; stream
+        lib.flat_sweep_probe.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+        lib.flat_sweep_probe.restype = ctypes.c_int
+        lib.flat_sweep_forms.argtypes = [_P, _I]
+        lib.flat_sweep_forms.restype = ctypes.c_int
+        # tabs, dims, vals, pos, phi, phi_grid; B; stream
+        lib.flat_accumulate_probe.argtypes = [_P] * 6 + [_I, _P]
+        lib.flat_accumulate_probe.restype = ctypes.c_int
     if name == "cheb_sweep":
         lib.cheb_cluster_barriers.argtypes = [_I] * 4 + [_P]
         lib.cheb_cluster_barriers.restype = ctypes.c_int

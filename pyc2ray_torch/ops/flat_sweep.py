@@ -7,17 +7,22 @@ its plain functions and its tables; on CUDA tensors it calls the bindings
 here, which take the tables it hands them (``KernelTables``, made by
 ``pack_tables``) and launch:
 
-* ``flat_trace_sweep``: one call of the loop in C, which issues per batch
-  the sweep kernel (one thread-block cluster per source, a cluster barrier
-  per shell, nHI read from the flat grid), the rate pass and the ordered
-  accumulate on the current stream with nothing synchronizing with the
-  host: three launches a batch;
-* ``flat_sweep``, ``flat_rates`` and ``flat_accumulate``: one kernel each.
+* ``flat_trace_sweep``: one call of the loop in C, which issues per
+  device batch (consecutive sources, as many as the card holds the
+  clusters of) the gather of nHI from the flat grid in grid order, the
+  sweep kernel (one thread-block cluster per source, a cluster barrier per
+  shell, the column densities of the last shells in a ring in the
+  cluster's distributed shared memory or in global memory) and the rate
+  pass, then the ordered accumulate a batch at a time, on the current
+  stream with nothing synchronizing with the host;
+* ``flat_gather``, ``flat_rates`` and ``flat_accumulate``: one kernel each;
+  ``flat_sweep``: the gather and the sweep, a launch each.
 
 Every binding refuses tensors that are not on a CUDA device, and a failure
 to build or launch raises; nothing falls back. Launches are counted in
 ``sweep.launches`` ("flat_trace_sweep" once per trace, each kernel once per
-batch). ``flat_plan`` picks the sweep's cluster size.
+launch). ``flat_plan`` picks the sweep's cluster size and the placement of
+its column densities, ``loop_plan`` the loop's device batch.
 """
 
 import ctypes
@@ -26,19 +31,23 @@ from typing import NamedTuple
 import torch
 
 from . import sweep
-from .sweep import CLUSTERS
+from .sweep import CLUSTERS, SMEM_MAX
 
-__all__ = ["flat_trace_sweep", "flat_sweep", "flat_rates", "flat_accumulate",
-           "flat_plan", "pack_tables", "stage_positions", "KernelTables"]
+__all__ = ["flat_trace_sweep", "flat_gather", "flat_sweep", "flat_rates",
+           "flat_accumulate", "flat_plan", "loop_plan", "pack_tables",
+           "stage_positions", "KernelTables"]
 
-_plans = {}        # (B, device, dtype) -> cluster size
+_plans = {}        # (B, device, dtype, ring's sizes) -> (cluster, shared,
+                   # clusters held at once)
+CHUNKS = 16        # chunks of a shell (csrc/flat_sweep.cu's kChunks)
+KMAX_BATCH = 4096  # most sources a launch (csrc/flat_sweep.cu's kMaxBatch)
 
 
 class KernelTables(NamedTuple):
     """A flat engine's tables as csrc/flat_sweep.cu's make_geom takes them."""
     tensors: tuple     # the tensors the pointers point into
-    tabs: object       # ctypes array of their 13 pointers
-    dims: object       # ctypes array of the 8 ints
+    tabs: object       # ctypes array of their 16 pointers
+    dims: object       # ctypes array of the 10 ints
     sizes: dict        # the same ints by name
     consts: tuple      # sig, minlogtau, dlogtau: make_geom's doubles after dr
     dtype: object      # the engine's dtype
@@ -46,10 +55,10 @@ class KernelTables(NamedTuple):
 
 
 def pack_tables(tensors, sizes, consts, dtype, heat):
-    """KernelTables of the 13 ``tensors`` (made contiguous; the pointers
-    stay valid while the result lives), the 8 ints ``sizes`` in make_geom's
-    order (C, n_shells, N, max_q, lo, side, num_tau, grey) and the three
-    doubles ``consts``."""
+    """KernelTables of the 16 ``tensors`` (made contiguous; the pointers
+    stay valid while the result lives), the 10 ints ``sizes`` in
+    make_geom's order (C, n_shells, N, max_q, lo, side, num_tau, grey,
+    depth, max_u) and the three doubles ``consts``."""
     tensors = tuple(t.contiguous() for t in tensors)
     return KernelTables(
         tensors,
@@ -122,43 +131,106 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def flat_plan(kt, B, device):
-    """The cluster size of the sweep of B sources (blocks of the kernel's
-    1024 threads, one block per SM): the largest of CLUSTERS of which all B
-    are resident on the card at once (cudaOccupancyMaxActiveClusters), else
-    1. Made once per (B, device, dtype)."""
-    key = (B, device, kt.dtype)
+def ring_bytes(kt, cluster):
+    """Bytes of a block's ring of the sweep in a cluster of ``cluster``
+    blocks: depth slots of CHUNKS / cluster chunks of max_u values."""
+    sz = kt.sizes
+    return sz["depth"] * (CHUNKS // cluster) * sz["max_u"] * \
+        torch.finfo(kt.dtype).bits // 8
+
+
+
+def flat_plan(kt, n, device):
+    """(cluster, shared, held): the plan of a sweep of n sources at once
+    (blocks of the kernel's 1024 threads, one block per SM). For each
+    cluster size of CLUSTERS and each placement of the column densities
+    that fits (the ring in distributed shared memory where a block's ring
+    fits SMEM_MAX bytes, global memory always), the card holds ``held``
+    clusters at once (cudaOccupancyMaxActiveClusters); the plan keeps the
+    most sources in flight, min(n, held), then the ring over global memory,
+    then the larger cluster. Made once per (n, device, dtype, ring's
+    sizes)."""
+    key = (n, device, kt.dtype, kt.sizes["depth"], kt.sizes["max_u"])
     if key not in _plans:
         lib = _lib()
         fn = getattr(lib, f"flat_sweep_{_check('flat_plan', kt, device)}")
-        _plans[key] = 1
+        best = None
         for C in CLUSTERS:
-            n = ctypes.c_int(0)
-            err = fn(kt.tabs, kt.dims, _vals(kt, 1.0), None, None, None, B, C,
-                     ctypes.byref(n), _stream(device))
-            _raise_on(lib, "flat_sweep (occupancy)", err, f" at cluster {C}")
-            if n.value >= B:
-                _plans[key] = C
-                break
+            for shared in (True, False):
+                if shared and ring_bytes(kt, C) > SMEM_MAX:
+                    continue
+                held = ctypes.c_int(0)
+                err = fn(kt.tabs, kt.dims, _vals(kt, 1.0), None, None, None,
+                         None, max(1, min(n, KMAX_BATCH)), C, int(shared),
+                         ctypes.byref(held), _stream(device))
+                _raise_on(lib, "flat_sweep (occupancy)", err,
+                          f" at cluster {C}")
+                rank = (min(n, held.value), shared, C)
+                if best is None or rank > best[0]:
+                    best = (rank, (C, shared, held.value))
+        _plans[key] = best[1]
     return _plans[key]
 
 
-def flat_sweep(kt, nhi_flat, pos, dr, cluster=None):
-    """Kernel (a), one launch: the (B, C) outgoing column density of the
-    sources at ``pos`` (B, 3) over the flat HI density grid ``nhi_flat``
-    (N^3,), in clusters of ``cluster`` blocks (``flat_plan``'s where
-    None)."""
+def loop_plan(kt, nb, B, device):
+    """The loop's plan of nb batches of B sources: (cluster, shared,
+    dev_batch, launches). The loop sweeps ``dev_batch`` consecutive sources
+    at once (flat_plan's clusters held at once, at most one GiB of scratch a
+    buffer) and accumulates them B at a time; ``launches`` counts each
+    kernel's launches over the trace."""
+    ns = nb * B
+    cluster, shared, held = flat_plan(kt, ns, device)
+    cap = (1 << 30) // (kt.sizes["C"] * torch.finfo(kt.dtype).bits // 8)
+    dev_batch = max(1, min(ns, held, cap, KMAX_BATCH))
+    n_dev = -(-ns // dev_batch)
+    last = ns - (n_dev - 1) * dev_batch
+    n_acc = (n_dev - 1) * -(-dev_batch // B) + -(-last // B)
+    launches = dict(flat_gather=n_dev, flat_sweep=n_dev, flat_rates=n_dev,
+                    flat_accumulate=n_acc)
+    return cluster, shared, dev_batch, launches
+
+
+def flat_gather(kt, nhi_flat, pos):
+    """The gather kernel, one launch: the (B, C) HI density in the
+    octahedral layout of the sources at ``pos`` (B, 3) over the flat HI
+    density grid ``nhi_flat`` (N^3,)."""
+    dev = nhi_flat.device
+    pos = stage_positions(pos, kt.sizes["N"], dev)
+    sfx = _check("flat_gather", kt, dev, nhi=nhi_flat, pos=pos)
+    out = torch.empty((pos.shape[0], kt.sizes["C"]), dtype=kt.dtype,
+                      device=dev)
+    lib = _lib()
+    err = getattr(lib, f"flat_gather_{sfx}")(
+        kt.tabs, kt.dims, _vals(kt, 1.0), _ptr(nhi_flat), _ptr(pos),
+        _ptr(out), pos.shape[0], _stream(dev))
+    _raise_on(lib, "flat_gather", err)
+    sweep.launches["flat_gather"] += 1
+    return out
+
+
+def flat_sweep(kt, nhi_flat, pos, dr, cluster=None, shared=None):
+    """The gather and the sweep kernel, a launch each: the (B, C) outgoing
+    column density of the sources at ``pos`` (B, 3) over the flat HI
+    density grid ``nhi_flat`` (N^3,), in clusters of ``cluster`` blocks with
+    the column densities in the shared ring (``shared``) or global memory
+    (``flat_plan``'s where None)."""
     dev = nhi_flat.device
     pos = stage_positions(pos, kt.sizes["N"], dev)
     sfx = _check("flat_sweep", kt, dev, nhi=nhi_flat, pos=pos)
     B = pos.shape[0]
-    cluster = cluster or flat_plan(kt, B, dev)
-    cd = torch.empty((B, kt.sizes["C"]), dtype=kt.dtype, device=dev)
+    plan = flat_plan(kt, B, dev)
+    cluster = cluster or plan[0]
+    shared = plan[1] if shared is None else bool(shared)
+    cd, nhi_octa = (torch.empty((B, kt.sizes["C"]), dtype=kt.dtype,
+                                device=dev) for _ in range(2))
     lib = _lib()
     err = getattr(lib, f"flat_sweep_{sfx}")(
-        kt.tabs, kt.dims, _vals(kt, dr), _ptr(nhi_flat), _ptr(pos), _ptr(cd),
-        B, cluster, None, _stream(dev))
-    _raise_on(lib, "flat_sweep", err, f" (cluster {cluster})")
+        kt.tabs, kt.dims, _vals(kt, dr), _ptr(nhi_flat), _ptr(pos),
+        _ptr(nhi_octa), _ptr(cd), B, cluster, int(shared), None,
+        _stream(dev))
+    _raise_on(lib, "flat_sweep", err, f" (cluster {cluster}, "
+              f"{'shared' if shared else 'global'} column densities)")
+    sweep.launches["flat_gather"] += 1
     sweep.launches["flat_sweep"] += 1
     return cd
 
@@ -204,9 +276,11 @@ def flat_trace_sweep(kt, nhi_flat, pos_b, flux_b, sdr3, dr):
     """The trace of the batches ``pos_b`` (nb, B, 3), ``flux_b`` (nb, B)
     over the flat HI density grid ``nhi_flat`` (N^3,), S*/dr^3 the 0-dim
     ``sdr3`` on the device: one call of the loop of csrc/flat_sweep.cu, the
-    positions and fluxes on the device once, three kernel launches a batch
-    on the current stream. Returns (phi, heat) as (N^3,) tensors, heat None
-    without the heat channel."""
+    positions and fluxes on the device once, on the current stream per
+    device batch of consecutive sources (``loop_plan``: as many as the card
+    holds the clusters of) the gather, the sweep and the rate pass, then
+    the ordered accumulate a batch of B at a time. Returns (phi, heat) as
+    (N^3,) tensors, heat None without the heat channel."""
     dev = nhi_flat.device
     pos = stage_positions(pos_b, kt.sizes["N"], dev)
     flux = torch.as_tensor(flux_b).to(device=dev, dtype=kt.dtype)
@@ -226,17 +300,20 @@ def flat_trace_sweep(kt, nhi_flat, pos_b, flux_b, sdr3, dr):
     nb, B = pos.shape[:2]
     if nb == 0:
         return phi_grid, heat_grid
-    cluster = flat_plan(kt, B, dev)
-    cd, phi = (torch.empty((B, kt.sizes["C"]), dtype=kt.dtype, device=dev)
-               for _ in range(2))
+    cluster, shared, dev_batch, launches = loop_plan(kt, nb, B, dev)
+    nhi_octa, cd, phi = (torch.empty((dev_batch, kt.sizes["C"]),
+                                     dtype=kt.dtype, device=dev)
+                         for _ in range(3))
     heat = torch.empty_like(phi) if kt.heat else None
     lib = _lib()
     err = getattr(lib, f"flat_trace_sweep_{sfx}")(
         kt.tabs, kt.dims, _vals(kt, dr), _ptr(nhi_flat), _ptr(pos),
-        _ptr(flux), _ptr(sdr3), _ptr(cd), _ptr(phi), _ptr(heat),
-        _ptr(phi_grid), _ptr(heat_grid), nb, B, cluster, _stream(dev))
-    _raise_on(lib, "flat_trace_sweep", err, f" (cluster {cluster})")
+        _ptr(flux), _ptr(sdr3), _ptr(nhi_octa), _ptr(cd), _ptr(phi),
+        _ptr(heat), _ptr(phi_grid), _ptr(heat_grid), nb * B, dev_batch, B,
+        cluster, int(shared), _stream(dev))
+    _raise_on(lib, "flat_trace_sweep", err, f" (cluster {cluster}, "
+              f"{'shared' if shared else 'global'} column densities)")
     sweep.launches["flat_trace_sweep"] += 1
-    for k in ("flat_sweep", "flat_rates", "flat_accumulate"):
-        sweep.launches[k] += nb
+    for k, v in launches.items():
+        sweep.launches[k] += v
     return phi_grid, heat_grid

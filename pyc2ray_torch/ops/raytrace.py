@@ -88,6 +88,42 @@ class FlatTables(NamedTuple):
     heat_thick: torch.Tensor
 
 
+CHUNKS = 16    # chunks of a shell in the corners' codes (csrc/flat_sweep.cu)
+
+
+def corner_codes(g):
+    """The corners' codes of the sweep kernel over the geometry ``g``'s C
+    cells, with the ring's depth and the largest chunk length: (code (4, C)
+    int32, depth, max_u). Shell q is cut into CHUNKS chunks of u_q =
+    ceil(n_q / CHUNKS) cells; a corner of nonzero weight is cell chunk u +
+    off of the shell lag shells back and has the code off | chunk << 16 |
+    lag << 20, a corner of zero weight -1 (the kernel reads 0 there). The
+    depth is the largest lag + 1: the shells the ring holds. Asserts that
+    every weighted corner lies in an earlier shell and that the fields
+    fit."""
+    C = g.num_cells
+    size = g.shell_size.astype(np.int64)
+    start = g.shell_start.astype(np.int64)
+    shell_of = np.repeat(np.arange(size.shape[0]), size)
+    assert shell_of.shape[0] == C
+    nbr, sw = g.nbr[:, :C].astype(np.int64), g.sw[:, :C]
+    qj = shell_of[nbr]
+    lag = shell_of[None, :] - qj
+    weighted = sw != 0.0
+    u = (size + CHUNKS - 1) // CHUNKS
+    local = nbr - start[qj]
+    chunk = local // u[qj]
+    off = local - chunk * u[qj]
+    w_lag = lag[weighted]
+    assert w_lag.size == 0 or int(w_lag.min()) >= 1, \
+        "a weighted corner in the cell's own shell or a later one"
+    depth = int(w_lag.max()) + 1 if w_lag.size else 2
+    max_u = int(u.max())
+    assert depth <= 128 and max_u < 1 << 16, (depth, max_u)
+    code = np.where(weighted, off | chunk << 16 | lag << 20, -1)
+    return code.astype(np.int32), depth, max_u
+
+
 class Raytracer:
     """Batched multi-source raytracer over a periodic N^3 grid.
 
@@ -162,8 +198,11 @@ class Raytracer:
         them, on its device, made at the first call: the cell offsets and
         corner cells as int32, the weights, path, diag and volume factors,
         the rated cells as uint8, the first cell of each shell, the inverse
-        table of the clip cube (each offset's cell, -1 off the octahedron)
-        and the rate tables (ops/flat_sweep.py::KernelTables)."""
+        table of the clip cube (each offset's cell, -1 off the octahedron),
+        the rate tables, the corners' codes (``corner_codes``), the cells
+        in grid order (the inverse table's cells in its lexicographic order)
+        and their offsets packed 10 bits an axis (ops/flat_sweep.py::
+        KernelTables)."""
         if self._kernel_tables is not None:
             return self._kernel_tables
         g, tb, cfg = self.geom_np, self.tables, self.config
@@ -179,6 +218,14 @@ class Raytracer:
         inv[(off[0] * side + off[1]) * side + off[2]] = np.arange(
             C, dtype=np.int32)
 
+        code, depth, max_u = corner_codes(g)
+        # the cells in grid order (lexicographic in their offsets) and their
+        # offsets packed 10 bits an axis
+        order = inv[inv >= 0]
+        lex = g.offsets[:, order].astype(np.int64) - lo
+        assert side <= 1024
+        order_off = lex[0] | lex[1] << 10 | lex[2] << 20
+
         def i32(a):
             return torch.from_numpy(np.ascontiguousarray(
                 a, dtype=np.int32)).to(self.device)
@@ -186,11 +233,12 @@ class Raytracer:
                    tb.diag, tb.geom, tb.rated.to(torch.uint8),
                    i32(g.shell_start[:n_shells + 2]), i32(inv),
                    tb.photo_thin, tb.photo_thick, tb.heat_thin,
-                   tb.heat_thick)
+                   tb.heat_thick, i32(code), i32(order),
+                   i32(order_off))
         grey = cfg.grey_analytic
         sizes = dict(C=C, n_shells=n_shells, N=N, max_q=max_q, lo=lo,
                      side=side, num_tau=0 if grey else self.num_tau,
-                     grey=int(grey))
+                     grey=int(grey), depth=depth, max_u=max_u)
         consts = (cfg.sig, 0.0 if grey else self.minlogtau,
                   1.0 if grey else self.dlogtau)
         self._kernel_tables = fs.pack_tables(tensors, sizes, consts,
@@ -319,16 +367,18 @@ class Raytracer:
     # the steps of a batch: the plain functions on CPU tensors, one kernel
     # launch of csrc/flat_sweep.cu on CUDA tensors
     # ------------------------------------------------------------------
-    def sweep_batch(self, nhi_flat, pos, dr, cluster=None):
+    def sweep_batch(self, nhi_flat, pos, dr, cluster=None, shared=None):
         """The (B, C) outgoing column density of the sources at ``pos``
         (B, 3) over the flat HI density grid ``nhi_flat`` (N^3,): the plain
         gather and sweep, or the sweep kernel in clusters of ``cluster``
-        blocks (ops/flat_sweep.py::flat_plan's where None)."""
+        blocks with its column densities in distributed shared memory
+        (``shared``) or in global memory (ops/flat_sweep.py::flat_plan's
+        where None)."""
         if nhi_flat.device.type == "cpu":
             return self._sweep(self._gather(nhi_flat, pos)[1],
                                self._dr(dr, "cpu"))
         return fs.flat_sweep(self.kernel_tables(), nhi_flat, pos, dr,
-                             cluster)
+                             cluster, shared)
 
     def rates_batch(self, cdo, nhi_flat, pos, flux, dr):
         """(phi, heat), the (B, C) rates per HI atom of the sources at

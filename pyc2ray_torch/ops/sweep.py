@@ -91,8 +91,8 @@ launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "accumulate_boxes": 0, "chemistry_pass": 0,
             "chemistry_pass_he": 0, "init_segments": 0, "rates_dense": 0,
             "cheb_trace_sweep": 0, "rates_he": 0, "he_trace_sweep": 0,
-            "thermal_update": 0, "flat_sweep": 0, "flat_rates": 0,
-            "flat_accumulate": 0, "flat_trace_sweep": 0}
+            "thermal_update": 0, "flat_gather": 0, "flat_sweep": 0,
+            "flat_rates": 0, "flat_accumulate": 0, "flat_trace_sweep": 0}
 
 
 # kernel name -> SweepPlan of its last launch

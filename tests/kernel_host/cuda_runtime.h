@@ -87,6 +87,14 @@ inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __ddiv_rn(double a, double b) { return a / b; }
+// add.rn.ftz.f32: a subnormal input or result is flushed to a zero of its
+// sign
+inline float emu_ftz(float x) {
+  return std::fpclassify(x) == FP_SUBNORMAL ? std::copysign(0.0f, x) : x;
+}
+inline float emu_add_ftz_f32(float a, float b) {
+  return emu_ftz(emu_ftz(a) + emu_ftz(b));
+}
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
@@ -97,6 +105,8 @@ inline float atomicAdd(float* p, float v) {
 inline double atomicAdd(double* p, double v) {
   return std::atomic_ref<double>(*p).fetch_add(v);
 }
+// cp.async's shared address: the copy itself is a memcpy on the host
+inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 template <class T> inline T __ldcg(const T* p) { return *(const volatile T*)p; }
 template <class T> inline void __stcg(T* p, T v) { *(volatile T*)p = v; }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }

@@ -12,8 +12,9 @@
 // blocks run one after the other (all but phase B's also in reverse
 // order), each as T std::threads; the accumulate's grid has a second
 // dimension, its boxes. The flat sweep runs as K1 does, a cluster a
-// source; the flat rate pass and accumulate, whose threads never wait for
-// each other, one thread after the other.
+// source; the flat gather, rate pass and accumulate one thread after the
+// other (the accumulate's one barrier follows its block's first thread's
+// work, which needs no other thread).
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -424,29 +425,65 @@ void emu_serial(int blocks, int rows, int T_, F f, bool reverse) {
 }
 
 // The flat engine's kernels of flat_sweep.cu over the engine's tables
-// (tabs, dims, vals as make_geom takes them): kind 0 the sweep of batch 0 (B
-// clusters of `cluster` blocks of T_ threads), 1 its rate pass, 2 its
-// accumulate (ceil(C / T_) x B blocks of T_ threads, whose threads run one
-// after the other: neither kernel's threads wait for each other), 3 the
-// trace of nb batches, each the three in turn; the clusters, the blocks of
-// a row and the rows in reverse order with `reverse`. `io` holds nhi, pos
-// (int32 in [0, N)), flux, sdr3, cd, phi, heat, phi_grid, heat_grid (the
-// heat channel's null without it).
+// (tabs, dims, vals as make_geom takes them): kind 0 the sweep of batch 0
+// (B clusters of `cluster` blocks of T_ threads) in the form `form` (with
+// the gather kernel first where the form reads nHI gathered and has no
+// prologue), 1 its rate pass, 2 its accumulate (ceil(C / T_) x B blocks of
+// T_ threads, run one after the other: the rate pass's threads never wait
+// for each other, the accumulate's wait once for their block's first
+// thread, which runs first), 3 the trace of nb batches, each the sweep,
+// the rates and the accumulate in turn; the clusters, the blocks of a row
+// and the rows in reverse order with `reverse`. `io` holds nhi, pos (int32
+// in [0, N)), flux, sdr3, cd, phi, heat, phi_grid, heat_grid (the heat
+// channel's null without it) and nhi_octa.
+template <class T, int F>
+void emu_flat_sweep(const flat::Geom<T>& g, const flat::Trace<T>& tr, int b,
+                    int cluster, int T_, bool reverse) {
+  int lgC = 0;
+  while ((1 << lgC) < cluster) ++lgC;
+  const size_t smem = ((F & flat::kRing) ? size_t(g.depth) *
+      (flat::kChunks / cluster) * g.max_u * sizeof(T) : 0) +
+      ((F & flat::kStage) ? flat::stage_bytes<T>(T_) : 0);
+  if ((F & flat::kPre) && !(F & flat::kPrologue))
+    emu_serial((g.C + T_ - 1) / T_, tr.B, T_, [&] {
+      flat::flat_gather_kernel<T>(g, tr.nhi, tr.pos_of(b), tr.nhi_octa);
+    }, reverse);
+  emu_launch(tr.B, cluster, T_, smem, [&] {
+    flat::flat_sweep_kernel<T, F>(g, tr.nhi, tr.pos_of(b), tr.nhi_octa,
+                                  tr.cd, lgC);
+  }, reverse);
+}
+
+template <class T>
+void emu_flat_sweep(int form, const flat::Geom<T>& g,
+                    const flat::Trace<T>& tr, int b, int cluster, int T_,
+                    bool reverse) {
+  using namespace flat;
+#define FLAT_FORM(F)                                                           \
+  case F:                                                                      \
+    emu_flat_sweep<T, F>(g, tr, b, cluster, T_, reverse);                      \
+    return;
+  switch (form) {
+    FLAT_PROBE_FORMS(FLAT_FORM)
+    default:
+      __builtin_trap();
+  }
+#undef FLAT_FORM
+}
+
 template <class T>
 void run_flat(int kind, void* const* tabs, const int* dims,
               const double* vals, void* const* io, int nb, int B, int cluster,
-              int T_, int reverse) {
+              int T_, int reverse, int form) {
   using P = const T*;
   const flat::Geom<T> g = flat::make_geom<T>(tabs, dims, vals);
   const flat::Trace<T> tr{(P)io[0], (const int*)io[1], (P)io[2], (P)io[3],
-                          (T*)io[4], (T*)io[5], (T*)io[6], (T*)io[7],
-                          (T*)io[8], B};
+                          (T*)io[9], (T*)io[4], (T*)io[5], (T*)io[6],
+                          (T*)io[7], (T*)io[8], B};
   const int blocks = (g.C + T_ - 1) / T_;
   for (int b = 0; b < (kind == 3 ? nb : 1); ++b) {
     if (kind == 0 || kind == 3)
-      emu_launch(B, cluster, T_, 0, [&] {
-        flat::flat_sweep_kernel<T>(g, tr.nhi, tr.pos_of(b), tr.cd, cluster);
-      }, reverse != 0);
+      emu_flat_sweep<T>(form, g, tr, b, cluster, T_, reverse != 0);
     if (kind == 1 || kind == 3) {
       const flat::RateIO<T> a = tr.rates(b);
       emu_serial(blocks, B, T_, [&] {
@@ -459,13 +496,23 @@ void run_flat(int kind, void* const* tabs, const int* dims,
       }, reverse != 0);
     }
     if (kind == 2 || kind == 3) {
+      // the block's first thread lists the near sources before its barrier:
+      // run thread after thread, the barrier of a block of one
       const flat::AccIO<T> a = tr.acc(b);
+      EmuCluster cl;
+      cl.C = 1; cl.T = 1; cl.smem = sizeof(int) * (B + 1);
+      std::barrier<> one(1);
+      cl.block_bar.push_back(&one);
+      cl.bufs.emplace_back(cl.smem + 16, 0xee);
+      emu_cl = &cl;
+      emu_rank = 0;
       emu_serial(blocks, B, T_, [&] {
         if (a.heat)
           flat::flat_accumulate_kernel<T, true>(g, a);
         else
           flat::flat_accumulate_kernel<T, false>(g, a);
       }, reverse != 0);
+      emu_cl = nullptr;
     }
   }
 }
@@ -473,8 +520,22 @@ void run_flat(int kind, void* const* tabs, const int* dims,
 #define REHEARSE_FLAT(NAME, TYPE)                                              \
   extern "C" void NAME(int kind, void* const* tabs, const int* dims,          \
                        const double* vals, void* const* io, int nb, int B,    \
-                       int cluster, int T_, int reverse) {                    \
-    run_flat<TYPE>(kind, tabs, dims, vals, io, nb, B, cluster, T_, reverse);  \
+                       int cluster, int T_, int reverse, int form) {          \
+    run_flat<TYPE>(kind, tabs, dims, vals, io, nb, B, cluster, T_, reverse,   \
+                   form);                                                     \
   }
 REHEARSE_FLAT(rehearse_flat_f32, float)
 REHEARSE_FLAT(rehearse_flat_f64, double)
+
+// The forms of the flat sweep the engine runs, (shared, global), then the
+// probe's (FLAT_PROBE_FORMS) and -1.
+extern "C" void rehearse_flat_forms(int* out) {
+  using namespace flat;
+  int k = 0;
+  out[k++] = kShared;
+  out[k++] = kGlobal;
+#define FLAT_FORM_ITEM(F) out[k++] = F;
+  FLAT_PROBE_FORMS(FLAT_FORM_ITEM)
+#undef FLAT_FORM_ITEM
+  out[k] = -1;
+}

@@ -56,6 +56,13 @@ _SUBST = {
         "emu_cluster_wait();",
     "extern __shared__ __align__(16) unsigned char smem_raw[];":
         "unsigned char* smem_raw = emu_smem();",
+    'asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));':
+        "r = emu_add_ftz_f32(a, b);",
+    'asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\\n" ::"r"(d), '
+    '"l"(src), "n"(B) : "memory");':
+        "(void)d; std::memcpy(dst, src, B);",
+    'asm volatile("cp.async.commit_group;\\n" ::: "memory");': "",
+    'asm volatile("cp.async.wait_group 1;\\n" ::: "memory");': "",
 }
 
 # file written for the host build -> (source, the marker where its launch
@@ -174,8 +181,10 @@ def load_library():
         f.restype = None
     for f in (lib.rehearse_flat_f32, lib.rehearse_flat_f64):
         f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_int] * 5
+            + [ctypes.c_int] * 6
         f.restype = None
+    lib.rehearse_flat_forms.argtypes = [ctypes.c_void_p]
+    lib.rehearse_flat_forms.restype = None
     for f in (lib.rehearse_thermal_f32, lib.rehearse_thermal_f64):
         f.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

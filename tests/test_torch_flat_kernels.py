@@ -105,12 +105,22 @@ def test_other_devices_raise():
         fs.flat_trace_sweep(kt, nd, pos_b, flux_b, nd[:1].reshape(()), DR)
 
 
-@pytest.mark.parametrize("N,R", [(12, 4.0), (13, 1e9), (16, 1e9)])
+@pytest.mark.parametrize("N,R", [(12, 4.0), (13, 1e9), (16, 1e9),
+                                 (16, 4.0), (24, 1e9), (256, 30.0),
+                                 (128, 1e9)])
 def test_kernel_tables(N, R):
     """The inverse table of the clip cube maps every cell's offset back to
     the cell and nothing else to a cell; the shells are the engine's; the
-    positions are wrapped as torch.remainder wraps them."""
-    rt, _, _, _, _ = _setup(N, R, 2, torch.float64, "tables", "cpu")
+    positions are wrapped as torch.remainder wraps them. The grid order is
+    a permutation of the cells that lists their offsets in lexicographic
+    order. The corners' codes name each weighted corner's cell (its shell
+    lag shells back, its chunk and its place there), the ring's depth is
+    the largest lag of a weighted corner plus one (4 at these meshes, the
+    bench's N = 256, R = 30 and the golden's whole box at N = 128 among
+    them) and a corner of zero weight has the code -1."""
+    cfg = RaytraceConfig(N=N, R_max_LLS=R, sig=SIG, batch_size=2,
+                         dtype=torch.float64, grey_analytic=True)
+    rt = Raytracer(cfg, device="cpu")
     kt = rt.kernel_tables()
     assert rt.kernel_tables() is kt
     sz = kt.sizes
@@ -125,6 +135,33 @@ def test_kernel_tables(N, R):
     pos = torch.tensor([[-1, N, 2 * N + 3], [5, -N - 2, 0]])
     assert torch.equal(fs.stage_positions(pos, N, "cpu").long(),
                        torch.remainder(pos, N))
+    # the grid order
+    order = kt.tensors[14].long()
+    assert torch.equal(torch.sort(order).values, torch.arange(C))
+    key = idx[order]
+    assert bool((key[1:] > key[:-1]).all())
+    packed = kt.tensors[15].long()
+    assert torch.equal(torch.stack([(packed >> (10 * a)) & 1023
+                                    for a in range(3)]) + lo, off[:, order])
+    # the corners' codes and the ring's depth
+    g = rt.geom_np
+    size = torch.from_numpy(g.shell_size.astype(np.int64))
+    start = torch.from_numpy(g.shell_start.astype(np.int64))
+    q = torch.repeat_interleave(torch.arange(size.shape[0]), size)
+    nbr = torch.from_numpy(g.nbr[:, :C].astype(np.int64))
+    weighted = torch.from_numpy(g.sw[:, :C] != 0.0)
+    lag = (q[None, :] - q[nbr])[weighted]
+    assert int(lag.min()) >= 1
+    assert sz["depth"] == int(lag.max()) + 1 == 4
+    u = (size + fs.CHUNKS - 1) // fs.CHUNKS
+    assert sz["max_u"] == int(u.max())
+    code = kt.tensors[13].long()
+    assert bool((code[~weighted] == -1).all())
+    c = code[weighted]
+    q2 = q[None, :].expand_as(nbr)[weighted] - (c >> 20)
+    cell = start[q2] + ((c >> 16) & 15) * u[q2] + (c & 0xffff)
+    assert torch.equal(cell, nbr[weighted])
+    assert torch.equal(c >> 20, lag)
 
 
 def _cuda():
@@ -137,9 +174,13 @@ def _cuda():
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("N,R", [(16, 4.0), (24, 1e9)])
 def test_flat_kernels_equal_plain_on_cuda(N, R, mode, dt):
-    """Each kernel (one launch, counted) and the loop (one call, three
-    launches a batch) bit for bit against its plain version on the card,
-    at every cluster size of the sweep."""
+    """Each kernel (one launch, counted; the sweep's binding launches the
+    gather and the sweep) and the loop (one call: per device batch of as
+    many sources as the card holds the gather, the sweep and the rates, the
+    accumulate a batch at a time) bit for bit against its plain version on
+    the card, at every cluster size of the sweep and both placements of its
+    column densities (the ring in distributed shared memory, global
+    memory)."""
     _cuda()
     rt, nd, xh, pos_b, flux_b = _setup(N, R, 4, dt, mode, "cuda")
     nhi = nd * (1.0 - xh)
@@ -148,7 +189,9 @@ def test_flat_kernels_equal_plain_on_cuda(N, R, mode, dt):
     cd = rt._sweep(nhi_octa, dr_t)
     sweep.reset_launches()
     for C in sweep.CLUSTERS:
-        assert torch.equal(rt.sweep_batch(nhi, pos_b[0], DR, C), cd), C
+        for shared in (True, False):
+            assert torch.equal(rt.sweep_batch(nhi, pos_b[0], DR, C, shared),
+                               cd), (C, shared)
     assert torch.equal(rt.sweep_batch(nhi, pos_b[0], DR), cd)
     want = rt._rates(cd, nhi_octa, flux_b[0], dr_t)
     got = rt.rates_batch(cd, nhi, pos_b[0], flux_b[0], DR)
@@ -171,10 +214,12 @@ def test_flat_kernels_equal_plain_on_cuda(N, R, mode, dt):
     if mode == "heat":
         assert torch.equal(loop[1], plain[1])
     nb = pos_b.shape[0]
+    loop = fs.loop_plan(rt.kernel_tables(), nb, 4, nd.device)[3]
     assert sweep.launches["flat_trace_sweep"] == 1
-    assert sweep.launches["flat_sweep"] == len(sweep.CLUSTERS) + 1 + nb
-    assert sweep.launches["flat_rates"] == 1 + nb
-    assert sweep.launches["flat_accumulate"] == 1 + nb
+    for k in ("flat_gather", "flat_sweep"):
+        assert sweep.launches[k] == 2 * len(sweep.CLUSTERS) + 1 + loop[k]
+    assert sweep.launches["flat_rates"] == 1 + loop["flat_rates"]
+    assert sweep.launches["flat_accumulate"] == 1 + loop["flat_accumulate"]
 
 
 @pytest.mark.cuda
@@ -188,3 +233,70 @@ def test_sweep_coldens_on_cuda_equals_cpu():
     got = rt_g.sweep_coldens(nd, xh, src, DR)
     want = rt_c.sweep_coldens(nd.cpu(), xh.cpu(), src, DR)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heat", [False, True])
+def test_flat_accumulate_flushes_subnormals_as_index_add_on_cuda(heat):
+    """The float32 accumulate on the card against the plain ordered
+    index_add_ on the card, bit for bit, with subnormal rates planted among
+    normal ones and grid cells that start subnormal: the kernel's register
+    adds flush as index_add_'s atomicAdd does."""
+    _cuda()
+    dt = torch.float32
+    rt, _, _, pos_b, _ = _setup(16, 1e9, 4, dt, "heat" if heat else "tables",
+                                "cuda")
+    C, N = rt.geom_np.num_cells, 16
+    rng = np.random.RandomState(11)
+    tiny = torch.finfo(dt).tiny
+
+    def rand(*shape, lo, hi, sub=0.0):
+        v = 10 ** rng.uniform(lo, hi, shape)
+        v[rng.uniform(size=shape) < sub] *= 1e-3
+        return torch.from_numpy(v).to("cuda", dt)
+    vals = [rand(4, C, lo=-38.5, hi=-36.0, sub=0.5) for _ in range(2)]
+    start = [rand(N ** 3, lo=-39.5, hi=-37.5) for _ in range(2)]
+    assert bool((vals[0] < tiny).any()) and bool((start[0] < tiny).any())
+    lin = rt._lin_idx(pos_b[0])
+    want = [g.clone() for g in start]
+    for g, v in zip(want[:1 + heat], vals):
+        rt._accumulate(g, lin, v)
+    got = [g.clone() for g in start]
+    sweep.reset_launches()
+    rt.accumulate_batch(got[0], got[1] if heat else None, pos_b[0], vals[0],
+                        vals[1] if heat else None)
+    assert sweep.launches["flat_accumulate"] == 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    # the flush shows: some cell's sum is 0 on the card but not on the CPU
+    cpu = [g.cpu() for g in start]
+    rt_c = Raytracer(rt.config, *TABLES, device="cpu")
+    rt_c._accumulate(cpu[0], lin.cpu(), vals[0].cpu())
+    assert not torch.equal(cpu[0], want[0].cpu())
+
+
+@pytest.mark.cuda
+def test_flat_sweep_at_the_golden_shape_on_cuda():
+    """The sweep at the golden's shape (N = 128, the whole box, one source,
+    float64): the plan is clusters of 16 with the ring in distributed
+    shared memory, and the kernel in both placements, its output first
+    filled with NaN, equals the plain gather and sweep bit for bit."""
+    _cuda()
+    dt = torch.float64
+    cfg = RaytraceConfig(N=128, R_max_LLS=1e9, sig=SIG, batch_size=1,
+                         dtype=dt, grey_analytic=True)
+    rt = Raytracer(cfg, device="cuda")
+    rng = np.random.RandomState(13)
+    nhi = torch.from_numpy(10 ** rng.uniform(-4, -2, 128 ** 3)).to("cuda",
+                                                                    dt)
+    pos = torch.tensor([[96, 96, 64]], device="cuda")
+    want = rt._sweep(rt._gather(nhi, pos)[1], rt._dr(DR, "cuda"))
+    assert fs.flat_plan(rt.kernel_tables(), 1, nhi.device)[:2] == (16, True)
+    assert torch.equal(fs.flat_gather(rt.kernel_tables(), nhi, pos),
+                       rt._gather(nhi, pos)[1])
+    for shared in (True, False):
+        torch.cuda.empty_cache()
+        torch.full((2 * want.numel(),), float("nan"), dtype=dt,
+                   device="cuda")
+        got = rt.sweep_batch(nhi, pos, DR, 16, shared)
+        assert torch.equal(got, want), shared
