@@ -184,9 +184,17 @@ Phases (any failure raises and the script exits non-zero):
    the golden's shapes (``FLAT_FORMS``: forms of the probe entry, each but
    the "timing only" ones bit-equal to the plain sweep), its us a source
    per plan (``flat_device_batches``) and the accumulate against the
-   first port's and one index_add_ (``flat_accumulate_forms``); the loop's
-   ms per trace against the plain loop's and its bound; the trace of the
-   first 16 sources against the CPU.
+   first port's and one index_add_ (``flat_accumulate_forms``); the
+   gather's and the rate pass's design steps at both shapes
+   (``FLAT_GATHER_FORMS`` beside one torch.take, ``FLAT_RATE_ROWS``: the
+   forms of csrc/flat_probe.cu and the engine's kernel, each bit-equal to
+   its plain version), the rate kernels' own SASS against their bytes
+   (``flat_rates_sass``), the gather and the rate kernel on the loop's
+   first device batch in float32 and float64, with heat and grey, their
+   outputs first made NaN (``flat_kernel_check``), the host seconds of
+   ``Raytracer.kernel_tables`` (``timed_tables``); the loop's ms per trace
+   against the plain loop's and its bound; the trace of the first 16
+   sources against the CPU.
 3e. The helium engine (HeRaytracer, 72 default bins) at the bench fields in
    float32: the trace is one call of the C++ loop (he_trace_sweep); its
    launches (one loop, K1 three per batch, rates_he and the accumulate of
@@ -235,7 +243,11 @@ Phases (any failure raises and the script exits non-zero):
    build/torch_kernels/); the eight statistics of run_test.py, each held to
    its tolerance; the wall time of the port's part and of the oracle's, the
    s and count of the engine's traces (each through the flat kernels: one
-   flat_trace_sweep a trace, asserted) and the run's launch counts.
+   flat_trace_sweep a trace, asserted) and the run's launch counts; then
+   at the golden's own shape (``golden_kernels``) the sweep, the gather,
+   the rate kernel (also of engines of that shape in float32, with heat
+   and grey) and one trace against their plain versions on buffers made
+   NaN first, and the host seconds of the engine's kernel_tables.
 4g. One evolve3D_he timestep at N=64 with 16 sources in float64 with
    secondary ionizations and recombination photons, GPU against CPU, and
    that engine's loop (with the heat channel) against its plain loop on the
@@ -317,7 +329,9 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
 ``python3 chip_smoke.py --kernels`` stops after phase 2d (the kernels
-against their plain versions and their times) and prints no result line.
+against their plain versions and their times) and prints no result line;
+``--flat`` runs after phase 1 only the flat engine's phases 3d and 4f and
+prints no result line.
 ``python3 chip_smoke.py --nccl``, on a machine with two cards or more, runs
 after phase 1 only phase 5's nccl world with its single-rank references
 (``nccl_branch``) and prints no result line.
@@ -2848,12 +2862,17 @@ def golden_kernels(sim):
     """The flat kernels at the golden's shape (4f): its engine (N = 128, R
     beyond the mesh, so the whole box, one source a batch, float64), its
     source and its last fields. Asserts that flat_plan chose clusters of
-    16 blocks with the column densities in the shared ring, then holds the sweep kernel to the plain gather and sweep
-    and the loop of one trace to the plain loop, max_abs_err 0 each. The
-    cached allocator is emptied and then holds only blocks of NaN of the
-    kernels' buffer size, so the scratch the kernels write starts as NaN or
-    as a temporary's values, never the golden's last column densities.
-    Returns {"flat_sweep": err, "flat_trace_sweep": err}."""
+    16 blocks with the column densities in the shared ring, then holds the
+    sweep kernel to the plain gather and sweep, the gather and the rate
+    kernel to the plain gather and rate pass (``flat_kernel_check``, also
+    for the engines of its shape in float32, with heat and grey:
+    ``flat_variants``) and the loop of one trace to the plain loop,
+    max_abs_err 0 each. The cached allocator is emptied and then holds only
+    blocks of NaN of the kernels' buffer size, so the scratch the kernels
+    write starts as NaN or as a temporary's values, never the golden's last
+    column densities. Times the engine's kernel_tables made anew. Returns
+    {"flat_gather", "flat_sweep", "flat_rates", "flat_trace_sweep": err,
+    "kernel_tables_s": ...}."""
     from pyc2ray_torch.ops import flat_sweep as fs
     from pyc2ray_torch.utils import format_sources
     rt = sim.raytracer
@@ -2891,6 +2910,19 @@ def golden_kernels(sim):
     got = rt.trace_batches(nd, xh, pos_b, flux_b, sim.dr)[0]
     want = rt.flat_trace_sweep_ref(nd, xh, pos_b, flux_b, sim.dr)[0]
     errs["flat_trace_sweep"] = float((got - want).abs().max())
+    if not float(want.max()) > 0.0:
+        raise RuntimeError("4f golden: the plain loop's Gamma is not positive")
+    del got, want
+    errs.update(flat_kernel_check("4f the golden's gather and rates", rt, nhi,
+                                  pos_b[0], flux_b[0]))
+    for e in flat_variants(N, rt.config.R_max_LLS, B):
+        d = e.config.dtype
+        for k, v in flat_kernel_check("4f at the golden's shape", e,
+                                      nhi.to(d), pos_b[0],
+                                      flux_b[0].to(d)).items():
+            errs[k] = max(errs[k], v)
+        del e
+    tables_s = timed_tables("4f the golden's engine", rt)
     log(f"  4f the flat kernels at the golden's shape (N={N}, {C} cells, "
         f"{kt.sizes['n_shells']} shells, B={B}, {dt}, clusters of "
         f"{cluster}, the column densities in the shared ring of depth "
@@ -2899,10 +2931,57 @@ def golden_kernels(sim):
         f"max_abs_err={errs['flat_sweep']:.1e} (its output on a block of "
         f"NaN: {on_nan}), one trace against the plain loop "
         f"max_abs_err={errs['flat_trace_sweep']:.1e}")
-    if any(e != 0.0 for e in errs.values()) or not float(want.max()) > 0.0:
+    if any(e != 0.0 for e in errs.values()):
         raise RuntimeError(f"4f golden: the flat kernels differ from their "
                            f"plain versions at the golden's shape: {errs}")
+    errs["kernel_tables_s"] = tables_s
     return errs
+
+
+def golden_phase():
+    """Phase 4f: examples/single_source_test at N = 128 through the port
+    (``golden_run``) against the C++ oracle, every trace through the flat
+    kernels (asserted), its eight statistics within their limits
+    (asserted), then ``golden_kernels``. Returns (launches, errs)."""
+    from pyc2ray_torch.ops import sweep
+    sweep.reset_launches()
+    g_traces = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sim, stats, t_port, t_oracle = golden_run(
+            N_GOLDEN, 2, STEPS_GOLDEN, "cuda", tmp + "/", traces=g_traces)
+    g_counts = {k: v for k, v in sweep.launches.items() if v}
+    rt_g = sim.raytracer
+    log(f"golden examples/single_source_test N={N_GOLDEN}, 2 slices x "
+        f"{STEPS_GOLDEN} timesteps, engine {type(rt_g).__name__} on "
+        f"{rt_g.device} ({rt_g.config.dtype}, q_max "
+        f"{rt_g.geom_np.max_q}): the port {t_port:.2f} s, "
+        f"{g_traces['s']:.3f} s of it in {g_traces['n']} traces "
+        f"({1e3 * g_traces['s'] / max(g_traces['n'], 1):.3f} ms a trace; "
+        f"the first, which makes the kernels' tables, "
+        f"{1e3 * g_traces['each'][0]:.3f} ms, the median "
+        f"{1e3 * float(np.median(g_traces['each'])):.3f} ms), "
+        f"the C++ oracle {t_oracle:.2f} s; mean xh "
+        f"{float(np.mean(sim.xh)):.12e}; launches "
+        + ", ".join(f"{k} {v}" for k, v in g_counts.items()))
+    n_tr = g_counts.get("flat_trace_sweep", 0)
+    if n_tr != g_traces["n"] or n_tr < 1 or any(
+            g_counts.get(k, 0) != g_counts.get("flat_sweep", -1)
+            for k in ("flat_gather", "flat_rates", "flat_accumulate")) or \
+            g_counts.get("flat_sweep", 0) < n_tr:
+        raise RuntimeError(f"golden: the traces did not go through the "
+                           f"flat kernels: {g_traces['n']} traces, launches "
+                           f"{g_counts}")
+    failed = []
+    for name, (value, tol) in stats.items():
+        ok = bool(np.isfinite(value)) and abs(value) <= tol
+        log(f"  {name:16s}: {value: .7e}   (tolerance {tol:g}) "
+            f"{'PASSED' if ok else 'FAILED'}")
+        failed += [] if ok else [name]
+    if failed or type(rt_g).__name__ != "Raytracer" \
+            or rt_g.device.type != "cuda":
+        raise RuntimeError(f"golden: {', '.join(failed) or 'engine'} FAILED")
+    g_errs = golden_kernels(sim)
+    return g_counts, g_errs
 
 
 def he_bins():
@@ -3326,7 +3405,7 @@ def launches_in(prof):
                for e in events)
 
 
-# the flat engine's operations (csrc/flat_sweep.cu), a transcendental
+# the flat engine's operations (csrc/flat_sweep.cuh), a transcendental
 # counted as one: per cell and source of the sweep beyond the source cell
 # (4 c*sig, 4 max, 4 div, 4 c*w, 8 adds from 0, diag*, /, path*dr,
 # nHI*pdr, +); of the rate pass (path*dr, nHI*, cd-dcol, 3 tau, 2 prefactor
@@ -3440,7 +3519,7 @@ def flat_loop_vs_plain(label, rt, nd, xh, pos_b, flux_b):
 
 
 # the design steps of the flat sweep: (row, what it is, whether its output
-# is the sweep's), one per form of csrc/flat_sweep.cu's FLAT_PROBE_FORMS in
+# is the sweep's), one per form of csrc/flat_probe.cu's FLAT_PROBE_FORMS in
 # its order; the last five take parts of the shell step out to attribute its
 # time (their outputs are not the sweep's)
 FLAT_FORMS = (
@@ -3472,13 +3551,19 @@ FLAT_FORMS = (
     ("f*load*div*out", "(f*load*div) with no output stored", False))
 
 
+def flat_probe_lib():
+    """The library of csrc/flat_probe.cu: the flat engine's forms that were
+    measured and left out, which only this script builds."""
+    from pyc2ray_torch.ops import _build
+    return _build.load("flat_probe")
+
+
 def flat_forms():
-    """The forms of FLAT_PROBE_FORMS (csrc/flat_sweep.cu), one a row of
+    """The forms of FLAT_PROBE_FORMS (csrc/flat_probe.cu), one a row of
     FLAT_FORMS."""
-    from pyc2ray_torch.ops import flat_sweep as fs
     import ctypes
     out = (ctypes.c_int * 64)()
-    n = fs._lib().flat_sweep_forms(out, 64)
+    n = flat_probe_lib().flat_sweep_forms(out, 64)
     if n != len(FLAT_FORMS):
         raise RuntimeError(f"3d: {n} forms of the flat sweep, "
                            f"{len(FLAT_FORMS)} rows")
@@ -3487,7 +3572,7 @@ def flat_forms():
 
 def flat_probe(rt, nhi, pos, form, cluster):
     """A closure that launches the flat sweep's form ``form``
-    (csrc/flat_sweep.cu's probe entry, float64; the gather kernel first
+    (csrc/flat_probe.cu's entry, float64; the engine's gather kernel first
     where the form reads nHI gathered without a prologue) on the sources at
     ``pos`` in clusters of ``cluster``, and its output (B, C)."""
     from pyc2ray_torch.ops import flat_sweep as fs
@@ -3497,7 +3582,7 @@ def flat_probe(rt, nhi, pos, form, cluster):
     B = pos.shape[0]
     cd, no = (torch.full((B, kt.sizes["C"]), float("nan"), dtype=kt.dtype,
                          device=dev) for _ in range(2))
-    lib = fs._lib()
+    lib = flat_probe_lib()
 
     def call():
         err = lib.flat_sweep_probe(
@@ -3589,7 +3674,7 @@ def flat_accumulate_forms(rt, pos, phi, reps=20):
     """The accumulate of one bench batch of 8 (float64), device time per call
     (torch.profiler, ``reps`` calls each, the positions staged once): the
     kernel, the first port's (the owner's atomicAdds in shell order,
-    csrc/flat_sweep.cu's probe entry) and one unordered index_add_ of the
+    csrc/flat_probe.cu) and one unordered index_add_ of the
     batch; the kernel and the first port's held to the plain ordered
     index_add_ (max_abs_err 0, asserted). Returns ms each."""
     from pyc2ray_torch.ops import flat_sweep as fs
@@ -3601,7 +3686,7 @@ def flat_accumulate_forms(rt, pos, phi, reps=20):
     start = torch.rand(N ** 3, dtype=phi.dtype, device=dev) * 1e-12
     want = start.clone()
     rt._accumulate(want, lin, phi)
-    lib = fs._lib()
+    lib, probe = fs._lib(), flat_probe_lib()
 
     def kernel(grid):
         err = lib.flat_accumulate_f64(
@@ -3611,10 +3696,10 @@ def flat_accumulate_forms(rt, pos, phi, reps=20):
         fs._raise_on(lib, "flat_accumulate", err)
 
     def first_port(grid):
-        err = lib.flat_accumulate_probe(
+        err = probe.flat_accumulate_probe(
             kt.tabs, kt.dims, fs._vals(kt, 1.0), fs._ptr(pos_d),
             fs._ptr(phi), fs._ptr(grid), pos_d.shape[0], fs._stream(dev))
-        fs._raise_on(lib, "flat_accumulate_probe", err)
+        fs._raise_on(probe, "flat_accumulate_probe", err)
     errs = {}
     for name, fn in (("kernel", kernel), ("first port", first_port)):
         got = start.clone()
@@ -3634,6 +3719,335 @@ def flat_accumulate_forms(rt, pos, phi, reps=20):
         f"index_add_ of the batch {1e3 * ms['index_add']:.2f} us; the kernel "
         f"and the first port's bit-equal to the plain ordered index_add_")
     return ms
+
+
+def band_tables(rt, band):
+    """The engine ``rt``'s kernel tables with the gather's blocks of at most
+    ``band`` rows (ops/raytrace.py::gather_runs; the engine's own where
+    ``band`` is its GATHER_BAND)."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    from pyc2ray_torch.ops.raytrace import GATHER_BAND, gather_runs
+    kt = rt.kernel_tables()
+    if band == GATHER_BAND:
+        return kt
+    lo, side = kt.sizes["lo"], kt.sizes["side"]
+    blocks, runs, places, staged = gather_runs(rt.geom_np, lo,
+                                               lo + side - 1, band)
+    tensors = list(kt.tensors)
+    tensors[16:19] = [torch.from_numpy(blocks).cuda(),
+                      torch.from_numpy(runs).cuda(),
+                      torch.from_numpy(places.view(np.int16)).cuda()]
+    return fs.pack_tables(tensors, dict(kt.sizes, n_blk=blocks.shape[0],
+                                        g_cells=staged),
+                          kt.consts, kt.dtype, kt.heat)
+
+
+# the gather's design steps: (row, what it is, form of flat_gather_probe,
+# rows a block of the staged form)
+FLAT_GATHER_FORMS = (
+    ("a", "the grid-order form: a thread a cell in grid order, reads "
+          "along z, its "
+          "8-byte stores scattered over the shells", 0, None),
+    ("b", "a thread a cell in octahedral order reading the grid through "
+          "the offsets (torch.take's pattern without an index tensor)", 1,
+     None),
+    ("c0", "staged through shared memory, bands of 32 rows, one load in "
+           "flight a thread (each value's row by a division), the runs and "
+           "places read from global memory where a warp writes", 3, 32),
+    ("c16", "staged through shared memory, bands of 16 rows", 2, 16),
+    ("c", "staged through shared memory, bands of 32 rows, a warp a row, "
+          "4 loads in flight a lane, the runs and places staged too, at "
+          "least 6 blocks an SM (the engine's)", 2, 32),
+    ("c64", "staged through shared memory, bands of 64 rows", 2, 64),
+    ("c/8", "(c) with 8 loads in flight a lane", 4, 32),
+    ("c/16", "(c) with 16 loads in flight a lane", 5, 32),
+    ("c/4,1", "(c) not held to 6 blocks an SM", 6, 32),
+    ("c/4,8", "(c) held to 8 blocks an SM (32 registers)", 7, 32),
+    ("c/8,8", "(c/8) held to 8 blocks an SM (32 registers)", 8, 32),
+    ("c16/4,8", "(c/4,8) with bands of 16 rows", 7, 16))
+
+
+def flat_gather_steps(label, rt, nhi, pos, reps):
+    """The gather's design steps at one shape (FLAT_GATHER_FORMS, float64):
+    us a launch by CUDA events over ``reps`` launches back to back, each
+    form's output (made NaN first) against the plain gather (max_abs_err 0,
+    asserted), and one torch.take on precomputed indices beside them.
+    Returns {row: dict(us=, max_abs_err=)} with "torch.take"."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    lib = flat_probe_lib()
+    dev = nhi.device
+    lin, want = rt._gather(nhi, pos)
+    pos_d = fs.stage_positions(pos, rt.config.N, dev)
+    B = pos_d.shape[0]
+    out = {}
+    for row, text, form, band in FLAT_GATHER_FORMS:
+        kt = band_tables(rt, band or 32)
+        got = torch.full_like(want, float("nan"))
+
+        def call():
+            err = lib.flat_gather_probe(
+                kt.tabs, kt.dims, fs._vals(kt, 1.0), fs._ptr(nhi),
+                fs._ptr(pos_d), fs._ptr(got), B, form, fs._stream(dev))
+            fs._raise_on(lib, "flat_gather_probe", err, f" (form {row})")
+        call()
+        err = float((got - want).abs().max())
+        if err != 0.0 or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"3d {label} gather step ({row}): "
+                               f"max_abs_err {err}")
+        us = 1e3 * cuda_ms(call, reps)
+        out[row] = dict(us=us, max_abs_err=err)
+        log(f"  3d {label} gather step ({row}) {text}: {us:.2f} us a launch "
+            f"of {B} sources ({kt.sizes['n_blk']} blocks a source, "
+            f"{kt.sizes['g_cells']} values staged at most); max_abs_err "
+            f"{err:.1e}")
+        del got, call
+    us = 1e3 * cuda_ms(lambda: torch.take(nhi, lin), reps)
+    out["torch.take"] = dict(us=us)
+    log(f"  3d {label}: one torch.take on precomputed indices {us:.2f} us")
+    return out
+
+
+# the rate pass's design steps, one a form of csrc/flat_probe.cu's
+# FLAT_RATE_FORMS in its order (F | K << 4), and the engine's kernel
+FLAT_RATE_ROWS = (
+    ("a", "the first form: a thread a cell and source, nHI from the grid "
+          "at the "
+          "cell's image, every cell masked"),
+    ("b", "(a) with nHI from the gathered nhi_octa"),
+    ("c", "(b) over the rated cells' list"),
+    ("d2", "(c) with 2 sources a thread"),
+    ("d4", "(c) with 4 sources a thread"),
+    ("d8", "(c) with 8 sources a thread"),
+    ("e1", "(c) with each tau's place formed once for every table"),
+    ("e2", "(e1) with 2 sources a thread"),
+    ("e4", "(e1) with 4 sources a thread"),
+    ("e8", "(e1) with 8 sources a thread"))
+
+
+def flat_rate_forms():
+    """The forms of FLAT_RATE_FORMS (csrc/flat_probe.cu), one a row of
+    FLAT_RATE_ROWS."""
+    import ctypes
+    out = (ctypes.c_int * 64)()
+    n = flat_probe_lib().flat_rates_forms(out, 64)
+    if n != len(FLAT_RATE_ROWS):
+        raise RuntimeError(f"3d: {n} forms of the flat rate pass, "
+                           f"{len(FLAT_RATE_ROWS)} rows")
+    return list(out)[:n]
+
+
+def flat_rates_on(rt, cd, nhi_octa, flux, outs, form=None, nhi=None,
+                  pos=None):
+    """A closure that launches the rate kernel of engine ``rt`` (or the
+    probe's form ``form``, which reads the grid ``nhi`` at the positions
+    ``pos`` where it has no nhi_octa) on the sources' column densities
+    ``cd``, gathered nHI ``nhi_octa`` and fluxes ``flux`` into ``outs``
+    (phi, heat or None), leaving what it does not write."""
+    from pyc2ray_torch.ops import flat_sweep as fs
+    kt = rt.kernel_tables()
+    dev = cd.device
+    sdr3 = rt._s_over_dr3(rt._dr(DR, dev))
+    B = cd.shape[0]
+    if form is None:
+        lib = fs._lib()
+        fn = getattr(lib, "flat_rates_" + ("f32" if kt.dtype == torch.float32
+                                           else "f64"))
+
+        def call():
+            err = fn(kt.tabs, kt.dims, fs._vals(kt, DR), fs._ptr(nhi_octa),
+                     fs._ptr(flux), fs._ptr(sdr3), fs._ptr(cd),
+                     fs._ptr(outs[0]), fs._ptr(outs[1]), B, fs._stream(dev))
+            fs._raise_on(lib, "flat_rates", err)
+        return call
+    lib = flat_probe_lib()
+    pos_d = fs.stage_positions(pos, kt.sizes["N"], dev)
+
+    def call():
+        err = lib.flat_rates_probe(
+            kt.tabs, kt.dims, fs._vals(kt, DR), fs._ptr(nhi), fs._ptr(pos_d),
+            fs._ptr(nhi_octa), fs._ptr(flux), fs._ptr(sdr3), fs._ptr(cd),
+            fs._ptr(outs[0]), fs._ptr(outs[1]), B, form, fs._stream(dev))
+        fs._raise_on(lib, "flat_rates_probe", err, f" (form {form})")
+    return call
+
+
+def rated_check(rt, got, want, untouched):
+    """max_abs_err of the rates ``got`` (phi, heat) against the plain
+    pass's ``want``: at the rated cells, where ``untouched`` also inf if an
+    unrated cell is not NaN any more; at every cell otherwise. NaN where a
+    compared cell is NaN."""
+    rated = rt.tables.rated
+    errs = []
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        if not untouched:
+            errs.append(float((g - w).abs().max()))
+        elif not bool(g[:, ~rated].isnan().all()):
+            errs.append(float("inf"))
+        else:
+            errs.append(float((g - w)[:, rated].abs().max()))
+    return float(torch.tensor(errs).max())
+
+
+def flat_rate_steps(label, rt, nhi, pos, cd, nhi_octa, flux, reps):
+    """The rate pass's design steps at one shape (FLAT_RATE_ROWS and the
+    engine's kernel, float64, engine ``rt``'s channels): us a launch by CUDA
+    events over ``reps`` launches back to back, each form's outputs (made
+    NaN first: the list forms must leave the unrated cells) against the
+    plain rate pass on the same column densities (max_abs_err 0,
+    asserted). Returns {row: dict(us=, max_abs_err=)}."""
+    heat = rt.config.do_heating
+    want = rt._rates(cd, nhi_octa, flux, rt._dr(DR, "cuda"))
+    rows = [(r, t, f) for (r, t), f in zip(FLAT_RATE_ROWS, flat_rate_forms())]
+    rows.append(("engine", "the engine's flat_rates_kernel (rated cells, "
+                           "one source a thread, the shared lookups)", None))
+    out = {}
+    for row, text, form in rows:
+        outs = [torch.full_like(cd, float("nan")),
+                torch.full_like(cd, float("nan")) if heat else None]
+        call = flat_rates_on(rt, cd, nhi_octa, flux, outs, form, nhi, pos)
+        call()
+        listed = form is None or bool(form & 2)
+        err = rated_check(rt, outs, want, listed)
+        if err != 0.0:
+            raise RuntimeError(f"3d {label} rate step ({row}): max_abs_err "
+                               f"{err}")
+        us = 1e3 * cuda_ms(call, reps)
+        out[row] = dict(us=us, max_abs_err=err)
+        log(f"  3d {label} rate step ({row}) {text}: {us:.2f} us a launch "
+            f"of {cd.shape[0]} sources; max_abs_err {err:.1e}")
+        del outs, call
+    return out
+
+
+def kernel_sass_counts(ins):
+    """A kernel without loops over its work, from its SASS
+    (``sass_functions``): the fewest instructions from its first to its
+    last EXIT over forward branches (``_path_counts``: the shortest path, a
+    lower bound of one thread's) with its MUFU and float64 DADD/DMUL/DFMA,
+    and every instruction once ("static", an upper estimate: both sides of
+    every branch) with its float64 ones."""
+    at = {a: i for i, (a, _, _) in enumerate(ins)}
+    last_exit = max(i for i, x in enumerate(ins) if re.match(r"EXIT\b", x[1]))
+    path = _path_counts(ins, at)(0, last_exit)
+    return dict(path=path[0], path_mufu=path[1], path_dp=path[2],
+                static=len(ins), static_dp=n_dp(ins))
+
+
+def flat_rates_sass(rt, n_rated, B):
+    """The rate kernels' own SASS per cell and source (the engine's
+    flat_rates_kernel<double, tables, no heat> and the first form, a probe
+    form, both one source a thread): ``kernel_sass_counts``, and the time
+    of n_rated x B cells (the first form's: every cell) at the issue rate
+    (``sass_issue_s``) and of their float64 instructions on the float64
+    pipe (64 lanes a clock per SM). Returns
+    {"engine": {...}, "first": {...}}."""
+    from pyc2ray_torch.ops import _build
+    C = rt.kernel_tables().sizes["C"]
+    out = {}
+    for key, lib, want, per, cells in (
+            ("engine", "flat_sweep", "flat_rates_kernelIdLb0ELb0E", 1,
+             n_rated * B),
+            ("first", "flat_probe", "rates_form_kernelIdLb0ELi0ELi1E", 1,
+             C * B)):
+        funcs = sass_functions(_build._so_path(lib))
+        name = next(n for n in funcs if want in n)
+        c = kernel_sass_counts(funcs[name])
+        _, mhz, sms = issue_rate()
+        static = c["static"] / per
+        c.update(per_cell_static=static, per_cell_static_dp=c["static_dp"]
+                 / per, cells=cells,
+                 issue_ms_static=1e3 * sass_issue_s(cells, static, []),
+                 dp_pipe_ms_static=1e3 * cells * c["static_dp"] / per
+                 / (64 * sms * mhz * 1e6))
+        out[key] = c
+        log(f"  3d flat_rates SASS ({key}: {want}, {per} source(s) a "
+            f"thread): the shortest path {c['path']} instructions "
+            f"({c['path_dp']} float64, {c['path_mufu']} MUFU), "
+            f"{c['static']} in all ({c['static_dp']} float64): "
+            f"{static:.1f} a cell and source at most, over {cells} cells "
+            f"{c['issue_ms_static']:.5f} ms at the issue rate, their float64 "
+            f"{c['dp_pipe_ms_static']:.5f} ms on the float64 pipe")
+    return out
+
+
+def flat_kernel_check(label, rt, nhi, pos, flux):
+    """The gather and the rate kernel of engine ``rt`` on the sources at
+    ``pos`` with fluxes ``flux``, bit for bit against the plain gather and
+    rate pass: the gather's output from an allocator emptied and then
+    holding only blocks of NaN, the rate kernel's outputs made NaN (its
+    unrated cells must stay NaN) and through ``rates_batch`` (zeros there,
+    all cells compared). The rates read the sweep kernel's column
+    densities. Returns {"flat_gather": err, "flat_rates": err}."""
+    B, C = pos.shape[0], rt.geom_np.num_cells
+    dt = rt.config.dtype
+    want_g = rt._gather(nhi, pos)[1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ptrs = {t.data_ptr() for t in [torch.full((B * C,), float("nan"),
+                                              dtype=dt, device="cuda")
+                                   for _ in range(2)]}
+    got_g = rt.gather_batch(nhi, pos)
+    on_nan = got_g.data_ptr() in ptrs
+    errs = {"flat_gather": float((got_g - want_g).abs().max())}
+    cd = rt.sweep_batch(nhi, pos, DR)
+    want = rt._rates(cd, want_g, flux, rt._dr(DR, "cuda"))
+    outs = [torch.full_like(cd, float("nan")),
+            torch.full_like(cd, float("nan")) if rt.config.do_heating
+            else None]
+    flat_rates_on(rt, cd, got_g, flux, outs)()
+    errs["flat_rates"] = float(torch.tensor([
+        rated_check(rt, outs, want, True),
+        rated_check(rt, rt.rates_batch(cd, got_g, flux, DR), want,
+                    False)]).max())
+    mode = ("grey" if rt.config.grey_analytic else "heat"
+            if rt.config.do_heating else "tables")
+    log(f"  {label} {dt} {mode}: the gather (on a block of NaN: {on_nan}) "
+        f"max_abs_err={errs['flat_gather']:.1e}, the rates over "
+        f"{int(rt.tables.rated.sum())} of {C} rated cells "
+        f"max_abs_err={errs['flat_rates']:.1e} ({B} sources)")
+    if any(e != 0.0 for e in errs.values()):
+        raise RuntimeError(f"{label}: the flat kernels differ from their "
+                           f"plain versions: {errs}")
+    return errs
+
+
+def timed_tables(label, rt):
+    """``rt.kernel_tables()`` made anew and timed on the host (s, to a
+    synchronize of the card), with its gather's map alone
+    (``gather_runs``)."""
+    from pyc2ray_torch.ops.raytrace import gather_runs
+    torch.cuda.synchronize()
+    rt._kernel_tables = None
+    t0 = time.time()
+    kt = rt.kernel_tables()
+    torch.cuda.synchronize()
+    s = time.time() - t0
+    lo, side = kt.sizes["lo"], kt.sizes["side"]
+    t0 = time.time()
+    gather_runs(rt.geom_np, lo, lo + side - 1)
+    s_runs = time.time() - t0
+    log(f"  {label}: Raytracer.kernel_tables {s:.4f} s on the host "
+        f"({kt.sizes['C']} cells, {kt.sizes['n_blk']} gather blocks, "
+        f"{kt.tensors[17].shape[0]} runs, {kt.sizes['n_rated']} rated "
+        f"cells), of it the gather's map {s_runs:.4f} s")
+    return dict(s=s, s_gather_runs=s_runs)
+
+
+def flat_variants(N, R, B):
+    """Engines of the flat bench's or the golden's shape beside the
+    float64 tables one: float64 with heat, float32 with and without heat,
+    and the grey rates in both types."""
+    from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
+    tables = flat_tables()
+    for dt, mode in ((torch.float64, "heat"), (torch.float32, "tables"),
+                     (torch.float32, "heat"), (torch.float64, "grey"),
+                     (torch.float32, "grey")):
+        cfg = RaytraceConfig(N=N, R_max_LLS=R, sig=SIG, batch_size=B,
+                             dtype=dt, grey_analytic=mode == "grey",
+                             do_heating=mode == "heat")
+        yield Raytracer(cfg, *tables, device="cuda")
 
 
 def flat_bench(src_pos, tmp, barrier_us):
@@ -3658,6 +4072,7 @@ def flat_bench(src_pos, tmp, barrier_us):
     t0 = time.time()
     rt = flat_engine(tables, dt, False)
     t_build = time.time() - t0
+    t_tables = timed_tables("3d flat bench", rt)
     flux = np.ones(NS_BENCH)
     pos_b, flux_b = rt.prepare_sources(src_pos, flux)
     nbatch = pos_b.shape[0]
@@ -3765,7 +4180,7 @@ def flat_bench(src_pos, tmp, barrier_us):
     cd_plain = rt._sweep(nhi_octa, dr_t)
     cd = rt.sweep_batch(nhi, pos0, DR, cluster, shared)
     phi_plain = rt._rates(cd_plain, nhi_octa, flux0, dr_t)[0]
-    phi_k = rt.rates_batch(cd_plain, nhi, pos0, flux0, DR)[0]
+    phi_k = rt.rates_batch(cd_plain, nhi_octa, flux0, DR)[0]
     pos_a, phi_a, lin_a = pos0[:B_BENCH], phi_plain[:B_BENCH], lin[:B_BENCH]
     grid_p = torch.rand(N ** 3, dtype=dt, device="cuda") * 1e-12
     grid_k = grid_p.clone()
@@ -3790,9 +4205,8 @@ def flat_bench(src_pos, tmp, barrier_us):
                                               shared),
                        lambda: rt._sweep(rt._gather(nhi, pos0)[1], dr_t),
                        None),
-        "flat_rates": (lambda: rt.rates_batch(cd, nhi, pos0, flux0, DR),
-                       lambda: rt._rates(cd, rt._gather(nhi, pos0)[1],
-                                         flux0, dr_t),
+        "flat_rates": (lambda: rt.rates_batch(cd, nhi_octa, flux0, DR),
+                       lambda: rt._rates(cd, nhi_octa, flux0, dr_t),
                        None),
         "flat_accumulate": (
             lambda: rt.accumulate_batch(grid, None, pos_a, phi_a, None),
@@ -3839,7 +4253,33 @@ def flat_bench(src_pos, tmp, barrier_us):
     steps["golden"] = flat_design_steps(f"the golden's shape (N={N_GOLDEN}, "
                                         "whole box, B=1)", rt_g, nhi_g, pos_g,
                                         reps=5)
-    del rt_g, nhi_g
+    # the gather's and the rate pass's design steps at the bench shape (the
+    # loop's first device batch) and the golden's, the rate kernels' SASS
+    g_label = f"the golden's shape (N={N_GOLDEN}, whole box, B=1)"
+    g_steps = {"bench": flat_gather_steps("bench", rt, nhi, pos0, reps=20),
+               "golden": flat_gather_steps(g_label, rt_g, nhi_g, pos_g,
+                                           reps=20)}
+    flux_g = torch.tensor([10.0], dtype=dt, device="cuda")
+    no_g = rt_g._gather(nhi_g, pos_g)[1]
+    r_steps = {"bench": flat_rate_steps("bench", rt, nhi, pos0, cd,
+                                        nhi_octa, flux0, reps=20),
+               "golden": flat_rate_steps(g_label, rt_g, nhi_g, pos_g,
+                                         rt_g.sweep_batch(nhi_g, pos_g, DR),
+                                         no_g, flux_g, reps=20)}
+    sass = flat_rates_sass(rt, kt.sizes["n_rated"], dev_batch)
+    del rt_g, nhi_g, no_g
+    # every kept form against its plain version in both types, with and
+    # without heat, grey, on the loop's first device batch
+    kernel_errs = {}
+    for e in flat_variants(N, R_BENCH, B_BENCH):
+        errs_e = flat_kernel_check("3d the flat kernels at the bench shape",
+                                   e, nhi.to(e.config.dtype), pos0,
+                                   flux0.to(e.config.dtype))
+        key = f"{e.config.dtype}".replace("torch.", "") + (
+            " grey" if e.config.grey_analytic else " heat"
+            if e.config.do_heating else "")
+        kernel_errs[key] = errs_e
+        del e
     steps["device_batches"] = flat_device_batches(rt, nhi,
                                                   pos_b.reshape(-1, 3))
     acc_ms = flat_accumulate_forms(rt, pos_a, phi_a)
@@ -3847,6 +4287,17 @@ def flat_bench(src_pos, tmp, barrier_us):
         design_steps=steps, before_ms=1e-3 * steps["bench"]["a"]["us"],
         after_ms_back_to_back=1e-3 * steps["bench"]["e=f"]["us"],
         before="the first port's form (a), back to back by CUDA events")
+    res["flat_gather"].update(
+        design_steps=g_steps, before_ms=1e-3 * g_steps["bench"]["a"]["us"],
+        after_ms_back_to_back=1e-3 * g_steps["bench"]["c"]["us"],
+        before="the grid-order form (a), back to back by CUDA events",
+        variants=kernel_errs)
+    res["flat_rates"].update(
+        design_steps=r_steps, sass=sass,
+        before_ms=1e-3 * r_steps["bench"]["a"]["us"],
+        after_ms_back_to_back=1e-3 * r_steps["bench"]["engine"]["us"],
+        before="the first form (a), back to back by CUDA events",
+        variants=kernel_errs)
     res["flat_accumulate"].update(
         before_ms=acc_ms["first_port"], after_ms_alone=acc_ms["kernel"],
         index_add_ms=acc_ms["index_add"],
@@ -3862,7 +4313,8 @@ def flat_bench(src_pos, tmp, barrier_us):
         launches_per_batch_trace=per_batch_trace, idle_share=idle,
         idle_share_unprofiled=idle_trace,
         ns_per_cell=1e9 * t_ray / updates,
-        ns_per_cell_before=1e9 * t_plain / updates)
+        ns_per_cell_before=1e9 * t_plain / updates,
+        kernel_tables_s=t_tables)
     log(f"  3d flat_trace_sweep: {loop_ms:.3f} ms per trace of {nbatch} "
         f"batches by CUDA events ({loop_ms / nbatch:.5f} ms per batch), "
         f"the plain loop {1e3 * t_plain:.1f} ms (host clock, once); bound "
@@ -5102,7 +5554,7 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
     t0 = time.time()
-    _build.load()
+    _build.load(extra=_build.PROBES)
     log(f"build: {time.time() - t0:.2f} s")
     if "--nccl" in sys.argv[1:]:
         nccl_branch(smi)
@@ -5112,6 +5564,14 @@ def main():
     barrier_us = barrier_costs(B_BENCH)
     log(f"cluster barrier, {B_BENCH} clusters of 512 threads per block: "
         + ", ".join(f"C={C} {us:.4f} us" for C, us in barrier_us.items()))
+    if "--flat" in sys.argv[1:]:
+        src_pos = np.random.RandomState(100).randint(0, N_BENCH,
+                                                     size=(NS_BENCH, 3))
+        with tempfile.TemporaryDirectory() as tmp:
+            flat_bench(src_pos, tmp, barrier_us)
+        golden_phase()
+        log(f"chip_smoke --flat wall time: {time.time() - T_START:.1f} s")
+        return 0
 
     # ---- 2. kernel vs plain version on the card -------------------------
     k_bench = check_sweep(N_BENCH, R_BENCH, B_BENCH, torch.float32, seed=1,
@@ -5555,43 +6015,7 @@ def main():
                  ms_back_to_back=k_eor["ms"])
 
     # ---- 4f. the golden: examples/single_source_test at N=128 -------------
-    sweep.reset_launches()
-    g_traces = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        sim, stats, t_port, t_oracle = golden_run(
-            N_GOLDEN, 2, STEPS_GOLDEN, "cuda", tmp + "/", traces=g_traces)
-    g_counts = {k: v for k, v in sweep.launches.items() if v}
-    rt_g = sim.raytracer
-    log(f"golden examples/single_source_test N={N_GOLDEN}, 2 slices x "
-        f"{STEPS_GOLDEN} timesteps, engine {type(rt_g).__name__} on "
-        f"{rt_g.device} ({rt_g.config.dtype}, q_max "
-        f"{rt_g.geom_np.max_q}): the port {t_port:.2f} s, "
-        f"{g_traces['s']:.3f} s of it in {g_traces['n']} traces "
-        f"({1e3 * g_traces['s'] / max(g_traces['n'], 1):.3f} ms a trace; "
-        f"the first, which makes the kernels' tables, "
-        f"{1e3 * g_traces['each'][0]:.3f} ms, the median "
-        f"{1e3 * float(np.median(g_traces['each'])):.3f} ms), "
-        f"the C++ oracle {t_oracle:.2f} s; mean xh "
-        f"{float(np.mean(sim.xh)):.12e}; launches "
-        + ", ".join(f"{k} {v}" for k, v in g_counts.items()))
-    n_tr = g_counts.get("flat_trace_sweep", 0)
-    if n_tr != g_traces["n"] or n_tr < 1 or any(
-            g_counts.get(k, 0) != g_counts.get("flat_sweep", -1)
-            for k in ("flat_gather", "flat_rates", "flat_accumulate")) or \
-            g_counts.get("flat_sweep", 0) < n_tr:
-        raise RuntimeError(f"golden: the traces did not go through the "
-                           f"flat kernels: {g_traces['n']} traces, launches "
-                           f"{g_counts}")
-    failed = []
-    for name, (value, tol) in stats.items():
-        ok = bool(np.isfinite(value)) and abs(value) <= tol
-        log(f"  {name:16s}: {value: .7e}   (tolerance {tol:g}) "
-            f"{'PASSED' if ok else 'FAILED'}")
-        failed += [] if ok else [name]
-    if failed or type(rt_g).__name__ != "Raytracer" \
-            or rt_g.device.type != "cuda":
-        raise RuntimeError(f"golden: {', '.join(failed) or 'engine'} FAILED")
-    g_errs = golden_kernels(sim)
+    g_counts, g_errs = golden_phase()
 
     # ---- 4g. helium end to end ---------------------------------------------
     _, he_first, k_chem_he = helium_evolve(e_pos, e_flux, e_nd, bins_he,
@@ -5747,7 +6171,8 @@ def main():
         # 3d's profiled window, every other number per call on 3d's first
         # batch; the loop's per trace of 3d (CUDA events; the plain loop
         # once by the host clock)
-        *[dict(name=name, source=src + "flat_sweep.cu",
+        *[dict(name=name, source=src + "flat_sweep.cu" + (
+                   "" if name == "flat_trace_sweep" else "h"),
                replaces="pyc2ray_tpu/ops/raytrace.py:" + line,
                launches_golden=g_counts.get(name, 0),
                **({} if name not in g_errs else

@@ -6,6 +6,8 @@ shared library under ``build/torch_kernels/`` at the repository root
 (``PYC2RAY_TORCH_BUILD`` overrides the directory), and loaded with ctypes.
 A library's name carries a hash of its source, the shared header and the
 flags, so an edited source is rebuilt and a stale library never loads.
+``PROBES`` are sources of measurement-only forms that ``load`` builds only
+when they are named (chip_smoke.py's tables of design steps).
 """
 
 import ctypes
@@ -16,13 +18,15 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "NVCC_FLAGS", "SOURCES"]
+__all__ = ["load", "NVCC_FLAGS", "SOURCES", "PROBES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
            "chemistry", "thermal", "flat_sweep")        # csrc/<name>.cu
+PROBES = ("flat_probe",)      # csrc/<name>.cu, built only when named
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
-           "cheb_rates.cuh", "cheb_rates_he.cuh", "rounded.cuh")
+           "cheb_rates.cuh", "cheb_rates_he.cuh", "rounded.cuh",
+           "flat_sweep.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -83,20 +87,21 @@ _SIGNATURES = {
         + [ctypes.c_longlong, _I, _P, _P],
     },
     "flat_sweep": {
-        # tabs, dims, vals (the engine's tables, csrc/flat_sweep.cu's
+        # tabs, dims, vals (the engine's tables, csrc/flat_sweep.cuh's
         # make_geom), then each entry's own: nhi, pos, nhi_octa, cd; B,
         # cluster, shared; max_clusters, stream
         "flat_sweep": [_P] * 7 + [_I] * 3 + [_P, _P],
         # nhi, pos, out; B; stream
         "flat_gather": [_P] * 6 + [_I, _P],
-        # nhi, pos, flux, sdr3, cd, phi, heat; B; stream
-        "flat_rates": [_P] * 10 + [_I, _P],
+        # nhi_octa, flux, sdr3, cd, phi, heat; B; stream
+        "flat_rates": [_P] * 9 + [_I, _P],
         # pos, phi, heat, phi_grid, heat_grid; B; stream
         "flat_accumulate": [_P] * 8 + [_I, _P],
         # nhi, pos, flux, sdr3, nhi_octa, cd, phi, heat, phi_grid,
         # heat_grid; nb, B, chunk, cluster, shared; stream
         "flat_trace_sweep": [_P] * 13 + [_I] * 5 + [_P],
     },
+    "flat_probe": {},
 }
 
 _libs = {}
@@ -134,15 +139,22 @@ def _bind(name, lib):
             f = getattr(lib, f"{fn}_{sfx}")
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-    if name == "flat_sweep":
-        # tabs, dims, vals, nhi, pos, nhi_octa, cd; B, cluster, form; stream
+    if name == "flat_probe":
+        # tabs, dims, vals (flat_sweep.cuh's make_geom), then each entry's
+        # own: nhi, pos, nhi_octa, cd; B, cluster, form; stream
         lib.flat_sweep_probe.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-        lib.flat_sweep_probe.restype = ctypes.c_int
+        # nhi, pos, out; B, form; stream
+        lib.flat_gather_probe.argtypes = [_P] * 6 + [_I] * 2 + [_P]
+        # nhi, pos, nhi_octa, flux, sdr3, cd, phi, heat; B, form; stream
+        lib.flat_rates_probe.argtypes = [_P] * 11 + [_I] * 2 + [_P]
         lib.flat_sweep_forms.argtypes = [_P, _I]
-        lib.flat_sweep_forms.restype = ctypes.c_int
-        # tabs, dims, vals, pos, phi, phi_grid; B; stream
+        lib.flat_rates_forms.argtypes = [_P, _I]
+        # pos, phi, phi_grid; B; stream
         lib.flat_accumulate_probe.argtypes = [_P] * 6 + [_I, _P]
-        lib.flat_accumulate_probe.restype = ctypes.c_int
+        for f in ("flat_sweep_probe", "flat_gather_probe", "flat_rates_probe",
+                  "flat_sweep_forms", "flat_rates_forms",
+                  "flat_accumulate_probe"):
+            getattr(lib, f).restype = ctypes.c_int
     if name == "cheb_sweep":
         lib.cheb_cluster_barriers.argtypes = [_I] * 4 + [_P]
         lib.cheb_cluster_barriers.restype = ctypes.c_int
@@ -157,14 +169,14 @@ def _bind(name, lib):
     return lib
 
 
-def load(name=None):
-    """Return the library of ``csrc/<name>.cu`` (all of them, as a dict,
-    when ``name`` is None), compiling what is missing first, one nvcc
-    process per source, in parallel. ``build_log`` keeps nvcc's output,
-    with ptxas's report of registers, shared memory and spills per
-    kernel."""
+def load(name=None, extra=()):
+    """Return the library of ``csrc/<name>.cu`` (the engines' libraries
+    of ``SOURCES`` and those named in ``extra``, as a dict, when ``name``
+    is None), compiling what is missing first, one nvcc process per source,
+    in parallel. ``build_log`` keeps nvcc's output, with ptxas's report of
+    registers, shared memory and spills per kernel."""
     global build_log
-    names = SOURCES if name is None else (name,)
+    names = SOURCES + tuple(extra) if name is None else (name,)
     todo = {n: _so_path(n) for n in names if n not in _libs}
     procs = {}
     for n, so in todo.items():

@@ -7,14 +7,16 @@ its plain functions and its tables; on CUDA tensors it calls the bindings
 here, which take the tables it hands them (``KernelTables``, made by
 ``pack_tables``) and launch:
 
-* ``flat_trace_sweep``: one call of the loop in C, which issues per
-  device batch (consecutive sources, as many as the card holds the
-  clusters of) the gather of nHI from the flat grid in grid order, the
-  sweep kernel (one thread-block cluster per source, a cluster barrier per
+* ``flat_trace_sweep``: one call of the loop in C, which zeroes its rate
+  scratch once and issues per device batch (consecutive sources, as many
+  as the card holds the clusters of) the gather of nHI from the flat grid
+  (staged through shared memory, reads and writes contiguous), the sweep
+  kernel (one thread-block cluster per source, a cluster barrier per
   shell, the column densities of the last shells in a ring in the
   cluster's distributed shared memory or in global memory) and the rate
-  pass, then the ordered accumulate a batch at a time, on the current
-  stream with nothing synchronizing with the host;
+  pass over the rated cells (from the gathered nHI), then the ordered
+  accumulate a batch at a time, on the current stream with nothing
+  synchronizing with the host;
 * ``flat_gather``, ``flat_rates`` and ``flat_accumulate``: one kernel each;
   ``flat_sweep``: the gather and the sweep, a launch each.
 
@@ -39,15 +41,16 @@ __all__ = ["flat_trace_sweep", "flat_gather", "flat_sweep", "flat_rates",
 
 _plans = {}        # (B, device, dtype, ring's sizes) -> (cluster, shared,
                    # clusters held at once)
-CHUNKS = 16        # chunks of a shell (csrc/flat_sweep.cu's kChunks)
-KMAX_BATCH = 4096  # most sources a launch (csrc/flat_sweep.cu's kMaxBatch)
+CHUNKS = 16        # chunks of a shell (csrc/flat_sweep.cuh's kChunks)
+KMAX_BATCH = 4096  # most sources a launch (csrc/flat_sweep.cuh's kMaxBatch)
 
 
 class KernelTables(NamedTuple):
-    """A flat engine's tables as csrc/flat_sweep.cu's make_geom takes them."""
+    """A flat engine's tables as csrc/flat_sweep.cuh's make_geom takes
+    them."""
     tensors: tuple     # the tensors the pointers point into
-    tabs: object       # ctypes array of their 16 pointers
-    dims: object       # ctypes array of the 10 ints
+    tabs: object       # ctypes array of their 20 pointers
+    dims: object       # ctypes array of the 13 ints
     sizes: dict        # the same ints by name
     consts: tuple      # sig, minlogtau, dlogtau: make_geom's doubles after dr
     dtype: object      # the engine's dtype
@@ -55,10 +58,11 @@ class KernelTables(NamedTuple):
 
 
 def pack_tables(tensors, sizes, consts, dtype, heat):
-    """KernelTables of the 16 ``tensors`` (made contiguous; the pointers
-    stay valid while the result lives), the 10 ints ``sizes`` in
+    """KernelTables of the 20 ``tensors`` (made contiguous; the pointers
+    stay valid while the result lives), the 13 ints ``sizes`` in
     make_geom's order (C, n_shells, N, max_q, lo, side, num_tau, grey,
-    depth, max_u) and the three doubles ``consts``."""
+    depth, max_u, n_blk, g_cells, n_rated) and the three doubles
+    ``consts``."""
     tensors = tuple(t.contiguous() for t in tensors)
     return KernelTables(
         tensors,
@@ -193,7 +197,8 @@ def loop_plan(kt, nb, B, device):
 def flat_gather(kt, nhi_flat, pos):
     """The gather kernel, one launch: the (B, C) HI density in the
     octahedral layout of the sources at ``pos`` (B, 3) over the flat HI
-    density grid ``nhi_flat`` (N^3,)."""
+    density grid ``nhi_flat`` (N^3,), a block per gather block of the
+    tables and source."""
     dev = nhi_flat.device
     pos = stage_positions(pos, kt.sizes["N"], dev)
     sfx = _check("flat_gather", kt, dev, nhi=nhi_flat, pos=pos)
@@ -235,22 +240,29 @@ def flat_sweep(kt, nhi_flat, pos, dr, cluster=None, shared=None):
     return cd
 
 
-def flat_rates(kt, cdo, nhi_flat, pos, flux, sdr3, dr):
-    """Kernel (b), one launch: (phi, heat), the (B, C) rates per HI atom of
-    the sources at ``pos`` (B, 3) with fluxes ``flux`` (B,) from their
-    column densities ``cdo``, S*/dr^3 the 0-dim ``sdr3`` on the device;
-    heat None without the heat channel."""
+def flat_rates(kt, cdo, nhi_octa, flux, sdr3, dr):
+    """The rate kernel, one launch: (phi, heat), the (B, C) rates per HI
+    atom of B sources with fluxes ``flux`` (B,) from their column densities
+    ``cdo`` and their gathered HI densities ``nhi_octa`` (B, C), S*/dr^3
+    the 0-dim ``sdr3`` on the device; heat None without the heat channel.
+    The outputs start as zeros (one contiguous store each), and the kernel
+    writes the rated cells, a thread a cell for several sources."""
     dev = cdo.device
-    pos = stage_positions(pos, kt.sizes["N"], dev)
-    sfx = _check("flat_rates", kt, dev, cdo=cdo, nhi=nhi_flat, pos=pos,
+    sfx = _check("flat_rates", kt, dev, cdo=cdo, nhi_octa=nhi_octa,
                  flux=flux, sdr3=sdr3)
-    phi = torch.empty_like(cdo)
-    heat = torch.empty_like(cdo) if kt.heat else None
+    if nhi_octa.shape != cdo.shape or cdo.dim() != 2 or \
+            cdo.shape[1] != kt.sizes["C"] or flux.shape != cdo.shape[:1]:
+        raise ValueError(f"flat_rates: column densities {tuple(cdo.shape)}, "
+                         f"nHI {tuple(nhi_octa.shape)} and fluxes "
+                         f"{tuple(flux.shape)}, expected (B, "
+                         f"{kt.sizes['C']}) twice and (B,)")
+    phi = torch.zeros_like(cdo)
+    heat = torch.zeros_like(cdo) if kt.heat else None
     lib = _lib()
     err = getattr(lib, f"flat_rates_{sfx}")(
-        kt.tabs, kt.dims, _vals(kt, dr), _ptr(nhi_flat), _ptr(pos),
-        _ptr(flux), _ptr(sdr3), _ptr(cdo), _ptr(phi), _ptr(heat),
-        pos.shape[0], _stream(dev))
+        kt.tabs, kt.dims, _vals(kt, dr), _ptr(nhi_octa), _ptr(flux),
+        _ptr(sdr3), _ptr(cdo), _ptr(phi), _ptr(heat), cdo.shape[0],
+        _stream(dev))
     _raise_on(lib, "flat_rates", err)
     sweep.launches["flat_rates"] += 1
     return phi, heat
@@ -276,10 +288,11 @@ def flat_trace_sweep(kt, nhi_flat, pos_b, flux_b, sdr3, dr):
     """The trace of the batches ``pos_b`` (nb, B, 3), ``flux_b`` (nb, B)
     over the flat HI density grid ``nhi_flat`` (N^3,), S*/dr^3 the 0-dim
     ``sdr3`` on the device: one call of the loop of csrc/flat_sweep.cu, the
-    positions and fluxes on the device once, on the current stream per
-    device batch of consecutive sources (``loop_plan``: as many as the card
-    holds the clusters of) the gather, the sweep and the rate pass, then
-    the ordered accumulate a batch of B at a time. Returns (phi, heat) as
+    positions and fluxes on the device once, on the current stream the rate
+    scratch zeroed, then per device batch of consecutive sources
+    (``loop_plan``: as many as the card holds the clusters of) the gather,
+    the sweep and the rate pass, then the ordered accumulate a batch of B
+    at a time. Returns (phi, heat) as
     (N^3,) tensors, heat None without the heat channel."""
     dev = nhi_flat.device
     pos = stage_positions(pos_b, kt.sizes["N"], dev)

@@ -24,9 +24,10 @@ trace: on CPU tensors the plain loop of these functions
 (``flat_trace_sweep_ref``), on the card one call of the loop of
 hand-written kernels of csrc/flat_sweep.cu (ops/flat_sweep.py::
 flat_trace_sweep: sweep, rates and accumulate per batch, no host sync), bit
-for bit the plain loop's result. ``sweep_batch``, ``rates_batch`` and
-``accumulate_batch`` are the three steps alone, each one kernel launch on
-the card. The kernels read the engine's tables as ``kernel_tables`` makes
+for bit the plain loop's result. ``gather_batch``, ``sweep_batch``,
+``rates_batch`` and ``accumulate_batch`` are the steps alone, each one
+kernel launch on the card (the sweep's binding launches the gather
+first). The kernels read the engine's tables as ``kernel_tables`` makes
 them, once per engine. The engine has no Pallas kernel in the JAX package
 (its sweep is XLA code, run as one jit program).
 """
@@ -88,7 +89,7 @@ class FlatTables(NamedTuple):
     heat_thick: torch.Tensor
 
 
-CHUNKS = 16    # chunks of a shell in the corners' codes (csrc/flat_sweep.cu)
+CHUNKS = 16    # chunks of a shell in the corners' codes (csrc/flat_sweep.cuh)
 
 
 def corner_codes(g):
@@ -122,6 +123,72 @@ def corner_codes(g):
     assert depth <= 128 and max_u < 1 << 16, (depth, max_u)
     code = np.where(weighted, off | chunk << 16 | lag << 20, -1)
     return code.astype(np.int32), depth, max_u
+
+
+GATHER_BAND = 32         # rows d1 of a gather block (at most)
+GATHER_CELLS = 8192      # values a gather block stages (at most)
+
+
+def gather_runs(g, lo, hi, band=GATHER_BAND):
+    """The gather kernel's map of the geometry ``g``'s C cells (offsets in
+    the clip cube [lo, hi]^3): (blocks (n_blk, 10) int32, runs (n_run, 3)
+    int32, places (C,) uint16, the most values a block stages).
+
+    A block is one slab d0 and a band of at most ``band`` rows d1 (fewer
+    where a row of the slab is wide: at most GATHER_CELLS values a block):
+    d0, d1a, nd1, the rows' first d2 d2lo and their pitch (the slab's d2 in
+    the octahedron and the clip cube), its first run and its number of
+    runs, where its cells' places start and how many there are, 0. Within
+    shell q the cells of a block are one run of the
+    octahedral layout (lexicographic order inside a shell), listed as its
+    first cell, its cells and where their places start in ``places``: each
+    cell's place (d1 - d1a) pitch + d2 - d2lo among the values the block
+    stages, in the runs' order. Blocks go slab after slab, bands in
+    ascending d1, their runs by shell; every cell lies in exactly one run
+    (asserted)."""
+    C = g.num_cells
+    d = g.offsets[:, :C].astype(np.int64)
+    shell = np.abs(d).sum(axis=0)
+    rad = g.max_q - np.abs(np.arange(lo, hi + 1))          # per slab
+    d1lo, d1hi = np.maximum(lo, -rad), np.minimum(hi, rad)
+    d2lo = d1lo                      # the rows' d2 span the same interval
+    pitch = d1hi - d1lo + 1
+    w = np.maximum(1, np.minimum(band, GATHER_CELLS // pitch))
+    n_band = -(-(d1hi - d1lo + 1) // w)
+    first = np.concatenate([[0], np.cumsum(n_band)])
+    s = d[0] - lo                                         # each cell's slab
+    blk = first[s] + (d[1] - d1lo[s]) // w[s]
+    n_blk = int(first[-1])
+    slab = np.repeat(np.arange(hi - lo + 1), n_band)
+    d1a = d1lo[slab] + (np.arange(n_blk) - first[slab]) * w[slab]
+    nd1 = np.minimum(w[slab], d1hi[slab] - d1a + 1)
+    place = (d[1] - d1a[blk]) * pitch[s] + d[2] - d2lo[s]
+    # the cells block after block, in the layout's order inside a block
+    by = np.argsort(blk, kind="stable")
+    key_b, key_q = blk[by], shell[by]
+    new = np.ones(C, dtype=bool)
+    new[1:] = (key_b[1:] != key_b[:-1]) | (key_q[1:] != key_q[:-1])
+    starts = np.flatnonzero(new)
+    lengths = np.diff(np.concatenate([starts, [C]]))
+    cells = by[starts]
+    run_of = np.cumsum(new) - 1
+    assert np.array_equal(by, cells[run_of] + np.arange(C) - starts[run_of]), \
+        "a block's cells of one shell are not one run of the layout"
+    run_blk = key_b[starts]
+    run0 = np.searchsorted(run_blk, np.arange(n_blk))
+    nrun = np.bincount(run_blk, minlength=n_blk)
+    assert nrun.min() >= 1
+    cells_of = np.bincount(blk, minlength=n_blk)
+    place0 = np.cumsum(cells_of) - cells_of
+    blocks = np.stack([slab + lo, d1a, nd1, d2lo[slab], pitch[slab], run0,
+                       nrun, place0, cells_of,
+                       np.zeros(n_blk, dtype=np.int64)], axis=1)
+    runs = np.stack([cells, lengths, starts], axis=1)
+    staged = int((nd1 * pitch[slab]).max())
+    assert staged <= GATHER_CELLS or int(w.min()) == 1
+    assert staged < 1 << 16
+    return (blocks.astype(np.int32), runs.astype(np.int32),
+            place[by].astype(np.uint16), staged)
 
 
 class Raytracer:
@@ -201,8 +268,9 @@ class Raytracer:
         table of the clip cube (each offset's cell, -1 off the octahedron),
         the rate tables, the corners' codes (``corner_codes``), the cells
         in grid order (the inverse table's cells in its lexicographic order)
-        and their offsets packed 10 bits an axis (ops/flat_sweep.py::
-        KernelTables)."""
+        and their offsets packed 10 bits an axis, the gather's blocks, runs
+        and places (``gather_runs``; the places as int16 bits) and the
+        rated cells in ascending order (ops/flat_sweep.py::KernelTables)."""
         if self._kernel_tables is not None:
             return self._kernel_tables
         g, tb, cfg = self.geom_np, self.tables, self.config
@@ -225,6 +293,8 @@ class Raytracer:
         lex = g.offsets[:, order].astype(np.int64) - lo
         assert side <= 1024
         order_off = lex[0] | lex[1] << 10 | lex[2] << 20
+        blocks, runs, places, staged = gather_runs(g, lo, lo + side - 1)
+        rated = np.flatnonzero(tb.rated.cpu().numpy())
 
         def i32(a):
             return torch.from_numpy(np.ascontiguousarray(
@@ -234,11 +304,15 @@ class Raytracer:
                    i32(g.shell_start[:n_shells + 2]), i32(inv),
                    tb.photo_thin, tb.photo_thick, tb.heat_thin,
                    tb.heat_thick, i32(code), i32(order),
-                   i32(order_off))
+                   i32(order_off), i32(blocks), i32(runs),
+                   torch.from_numpy(places.view(np.int16)).to(self.device),
+                   i32(rated))
         grey = cfg.grey_analytic
         sizes = dict(C=C, n_shells=n_shells, N=N, max_q=max_q, lo=lo,
                      side=side, num_tau=0 if grey else self.num_tau,
-                     grey=int(grey), depth=depth, max_u=max_u)
+                     grey=int(grey), depth=depth, max_u=max_u,
+                     n_blk=blocks.shape[0], g_cells=staged,
+                     n_rated=rated.shape[0])
         consts = (cfg.sig, 0.0 if grey else self.minlogtau,
                   1.0 if grey else self.dlogtau)
         self._kernel_tables = fs.pack_tables(tensors, sizes, consts,
@@ -367,6 +441,14 @@ class Raytracer:
     # the steps of a batch: the plain functions on CPU tensors, one kernel
     # launch of csrc/flat_sweep.cu on CUDA tensors
     # ------------------------------------------------------------------
+    def gather_batch(self, nhi_flat, pos):
+        """The (B, C) HI density in the octahedral layout of the sources at
+        ``pos`` (B, 3) over the flat HI density grid ``nhi_flat`` (N^3,):
+        the plain gather, or the gather kernel."""
+        if nhi_flat.device.type == "cpu":
+            return self._gather(nhi_flat, pos)[1]
+        return fs.flat_gather(self.kernel_tables(), nhi_flat, pos)
+
     def sweep_batch(self, nhi_flat, pos, dr, cluster=None, shared=None):
         """The (B, C) outgoing column density of the sources at ``pos``
         (B, 3) over the flat HI density grid ``nhi_flat`` (N^3,): the plain
@@ -380,16 +462,16 @@ class Raytracer:
         return fs.flat_sweep(self.kernel_tables(), nhi_flat, pos, dr,
                              cluster, shared)
 
-    def rates_batch(self, cdo, nhi_flat, pos, flux, dr):
-        """(phi, heat), the (B, C) rates per HI atom of the sources at
-        ``pos`` (B, 3) with fluxes ``flux`` (B,) from their column densities
-        ``cdo``, heat None without do_heating: the plain gather and rate
-        pass, or the rate kernel."""
+    def rates_batch(self, cdo, nhi_octa, flux, dr):
+        """(phi, heat), the (B, C) rates per HI atom of B sources with
+        fluxes ``flux`` (B,) from their column densities ``cdo`` and their
+        HI densities in the octahedral layout ``nhi_octa`` (B, C), heat
+        None without do_heating: the plain rate pass, or the rate kernel
+        (over the rated cells; the others +0)."""
         dr_t = self._dr(dr, cdo.device)
         if cdo.device.type == "cpu":
-            return self._rates(cdo, self._gather(nhi_flat, pos)[1], flux,
-                               dr_t)
-        return fs.flat_rates(self.kernel_tables(), cdo, nhi_flat, pos, flux,
+            return self._rates(cdo, nhi_octa, flux, dr_t)
+        return fs.flat_rates(self.kernel_tables(), cdo, nhi_octa, flux,
                              self._s_over_dr3(dr_t), dr)
 
     def accumulate_batch(self, phi_grid, heat_grid, pos, phi, heat):

@@ -1,6 +1,7 @@
 // Runs the port's kernels on the host: k_loop.inc, k_chem.inc,
-// k_thermal.inc and k_flat.inc are the device parts of trace_loop.cu,
-// chemistry.cu, thermal.cu and flat_sweep.cu, cheb_sweep_kernels.cuh,
+// k_thermal.inc and k_flat_probe.inc are the device parts of trace_loop.cu,
+// chemistry.cu, thermal.cu and flat_probe.cu, flat_sweep.cuh those of the
+// flat engine's kernels, cheb_sweep_kernels.cuh,
 // cheb_sweep_rates.cuh, cheb_rates.cuh and cheb_rates_he.cuh those of the
 // headers of K1, K1f and K2, of K3, and of the dense rate passes, as
 // tests/rehearsal_host.py cuts them out,
@@ -12,9 +13,10 @@
 // blocks run one after the other (all but phase B's also in reverse
 // order), each as T std::threads; the accumulate's grid has a second
 // dimension, its boxes. The flat sweep runs as K1 does, a cluster a
-// source; the flat gather, rate pass and accumulate one thread after the
-// other (the accumulate's one barrier follows its block's first thread's
-// work, which needs no other thread).
+// source; the flat gather a block at a time, its threads as std::threads;
+// the rate pass and accumulate one thread after the other (the
+// accumulate's one barrier follows its block's first thread's work, which
+// needs no other thread).
 #include <thread>
 #include <type_traits>
 #include "cuda_runtime.h"
@@ -29,7 +31,8 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "k_loop.inc"
 #include "k_chem.inc"
 #include "k_thermal.inc"
-#include "k_flat.inc"
+#include "flat_sweep.cuh"
+#include "k_flat_probe.inc"
 using namespace cheb;
 
 template <class F>
@@ -424,44 +427,130 @@ void emu_serial(int blocks, int rows, int T_, F f, bool reverse) {
       }
 }
 
-// The flat engine's kernels of flat_sweep.cu over the engine's tables
-// (tabs, dims, vals as make_geom takes them): kind 0 the sweep of batch 0
-// (B clusters of `cluster` blocks of T_ threads) in the form `form` (with
-// the gather kernel first where the form reads nHI gathered and has no
-// prologue), 1 its rate pass, 2 its accumulate (ceil(C / T_) x B blocks of
-// T_ threads, run one after the other: the rate pass's threads never wait
-// for each other, the accumulate's wait once for their block's first
-// thread, which runs first), 3 the trace of nb batches, each the sweep,
-// the rates and the accumulate in turn; the clusters, the blocks of a row
-// and the rows in reverse order with `reverse`. `io` holds nhi, pos (int32
-// in [0, N)), flux, sdr3, cd, phi, heat, phi_grid, heat_grid (the heat
-// channel's null without it) and nhi_octa.
+// A grid of blocks x rows blocks of T_ threads whose threads wait for each
+// other (__syncthreads) in a block: each block in turn, its threads as
+// std::threads over `smem` bytes of shared memory (the bytes 0xee), the
+// blocks of a row and the rows in reverse order with `reverse`.
+template <class F>
+void emu_blocks(int blocks, int rows, int T_, size_t smem, F f,
+                bool reverse) {
+  for (int r = 0; r < rows; ++r)
+    for (int k = 0; k < blocks; ++k) {
+      EmuCluster cl;
+      cl.C = 1; cl.T = T_; cl.smem = smem;
+      std::barrier<> one(T_);
+      cl.block_bar.push_back(&one);
+      cl.bufs.emplace_back(smem + 16, 0xee);
+      std::vector<std::thread> th;
+      for (int t = 0; t < T_; ++t)
+        th.emplace_back([&, t] {
+          emu_cl = &cl;
+          emu_rank = 0;
+          blockIdx = {unsigned(reverse ? blocks - 1 - k : k),
+                      unsigned(reverse ? rows - 1 - r : r), 0};
+          threadIdx = {unsigned(t), 0, 0};
+          blockDim = {unsigned(T_), 1, 1};
+          gridDim = {unsigned(blocks), unsigned(rows), 1};
+          f();
+        });
+      for (auto& x : th) x.join();
+    }
+}
+
+// The flat engine's kernels of flat_sweep.cuh and the probe's forms of
+// flat_probe.cu over the engine's tables (tabs, dims, vals as make_geom
+// takes them). kind 0: the gather and the sweep of batch 0 (B clusters of
+// `cluster` blocks of T_ threads) in the engine's form `form` (kEngineRing
+// or kEngineGlobal) or a probe form (FLAT_PROBE_FORMS, with a gather first
+// where the form reads nHI gathered and has no prologue: the grid-order
+// form, thread after thread, the same values as the engine's, which kinds
+// 3 and 4 rehearse);
+// 1: the engine's rate pass of batch 0 (its rated cells, ceil(n_rated / T_)
+// x B blocks, thread after thread); 2: its accumulate
+// (ceil(C / T_) x B blocks of T_ threads, run one after the other: the
+// accumulate's threads wait once for their block's first thread, which
+// runs first); 3: the trace of nb batches, the rate scratch zeroed first as
+// the loop zeroes it, then each batch's gather and sweep, rates and
+// accumulate in turn; 4: the gather of batch 0 into nhi_octa, the engine's
+// (form 2: n_blk x B blocks of T_ threads) or the probe's (0: grid order, 1:
+// octahedral order, 3: the first staged form, 4 and 5: the engine's with 8
+// or 16 loads in flight a lane); 5: the probe's rate pass of form `form`
+// (F | K << 4) of batch 0. The clusters, the blocks of a row and the rows
+// in reverse order with `reverse`. `io` holds nhi, pos (int32 in [0, N)),
+// flux, sdr3, cd, phi, heat, phi_grid, heat_grid (the heat channel's null
+// without it) and nhi_octa.
+constexpr int kEngineRing = -1, kEngineGlobal = -2;
+
+template <class T>
+void emu_flat_gather(const flat::Geom<T>& g, const flat::Trace<T>& tr, int b,
+                     int T_, bool reverse, int form = 2) {
+  if (form >= 2 && form <= 5) {
+    emu_blocks(g.n_blk, tr.B, T_,
+               form != 3 ? flat::gather_smem(g) : size_t(g.g_cells) * sizeof(T),
+               [&] {
+      if (form == 2)
+        flat::flat_gather_kernel<T>(g, tr.nhi, tr.pos_of(b), tr.nhi_octa);
+      else if (form == 3)
+        flat_probe::gather_staged_first_kernel<T>(g, tr.nhi, tr.pos_of(b),
+                                                  tr.nhi_octa);
+      else if (form == 4)
+        flat::flat_gather_kernel<T, 8>(g, tr.nhi, tr.pos_of(b), tr.nhi_octa);
+      else
+        flat::flat_gather_kernel<T, 16>(g, tr.nhi, tr.pos_of(b),
+                                        tr.nhi_octa);
+    }, reverse);
+    return;
+  }
+  emu_serial((g.C + T_ - 1) / T_, tr.B, T_, [&] {
+    if (form == 0)
+      flat_probe::gather_grid_order_kernel<T>(g, tr.nhi, tr.pos_of(b),
+                                              tr.nhi_octa);
+    else
+      flat_probe::gather_octa_kernel<T>(g, tr.nhi, tr.pos_of(b),
+                                        tr.nhi_octa);
+  }, reverse);
+}
+
 template <class T, int F>
 void emu_flat_sweep(const flat::Geom<T>& g, const flat::Trace<T>& tr, int b,
-                    int cluster, int T_, bool reverse) {
+                    int cluster, int T_, bool reverse, int gather) {
   int lgC = 0;
   while ((1 << lgC) < cluster) ++lgC;
-  const size_t smem = ((F & flat::kRing) ? size_t(g.depth) *
+  const size_t smem = ((F & flat_probe::kRing) ? size_t(g.depth) *
       (flat::kChunks / cluster) * g.max_u * sizeof(T) : 0) +
-      ((F & flat::kStage) ? flat::stage_bytes<T>(T_) : 0);
-  if ((F & flat::kPre) && !(F & flat::kPrologue))
-    emu_serial((g.C + T_ - 1) / T_, tr.B, T_, [&] {
-      flat::flat_gather_kernel<T>(g, tr.nhi, tr.pos_of(b), tr.nhi_octa);
-    }, reverse);
+      ((F & flat_probe::kStage) ? flat_probe::stage_bytes<T>(T_) : 0);
+  if ((F & flat_probe::kPre) && !(F & flat_probe::kPrologue))
+    emu_flat_gather<T>(g, tr, b, 32, reverse, gather);
   emu_launch(tr.B, cluster, T_, smem, [&] {
-    flat::flat_sweep_kernel<T, F>(g, tr.nhi, tr.pos_of(b), tr.nhi_octa,
-                                  tr.cd, lgC);
+    flat_probe::sweep_form_kernel<T, F>(g, tr.nhi, tr.pos_of(b),
+                                        tr.nhi_octa, tr.cd, lgC);
   }, reverse);
 }
 
 template <class T>
 void emu_flat_sweep(int form, const flat::Geom<T>& g,
                     const flat::Trace<T>& tr, int b, int cluster, int T_,
-                    bool reverse) {
-  using namespace flat;
+                    bool reverse, int gather) {
+  using namespace flat_probe;
+  if (form == kEngineRing || form == kEngineGlobal) {
+    int lgC = 0;
+    while ((1 << lgC) < cluster) ++lgC;
+    const bool ring = form == kEngineRing;
+    emu_flat_gather<T>(g, tr, b, 32, reverse, gather);
+    const size_t smem = ring ? size_t(flat::ring_bytes(g, cluster)) : 0;
+    emu_launch(tr.B, cluster, T_, smem, [&] {
+      if (ring)
+        flat::flat_sweep_kernel<T, true>(g, tr.nhi, tr.pos_of(b),
+                                         tr.nhi_octa, tr.cd, lgC);
+      else
+        flat::flat_sweep_kernel<T, false>(g, tr.nhi, tr.pos_of(b),
+                                          tr.nhi_octa, tr.cd, lgC);
+    }, reverse);
+    return;
+  }
 #define FLAT_FORM(F)                                                           \
   case F:                                                                      \
-    emu_flat_sweep<T, F>(g, tr, b, cluster, T_, reverse);                      \
+    emu_flat_sweep<T, F>(g, tr, b, cluster, T_, reverse, gather);              \
     return;
   switch (form) {
     FLAT_PROBE_FORMS(FLAT_FORM)
@@ -469,6 +558,27 @@ void emu_flat_sweep(int form, const flat::Geom<T>& g,
       __builtin_trap();
   }
 #undef FLAT_FORM
+}
+
+template <class T>
+void emu_flat_rates_form(const flat::Geom<T>& g, const flat::RateIO<T>& a,
+                         const T* nhi, const int* pos, int T_, int form,
+                         bool reverse) {
+  using namespace flat_probe;
+#define FLAT_RATE_FORM(F, K)                                                   \
+  if (form == ((F) | (K) << 4)) {                                              \
+    const int n = (F) & kList ? g.n_rated : g.C;                               \
+    emu_serial((n + T_ - 1) / T_, (a.B + (K) - 1) / (K), T_, [&] {             \
+      if (a.heat)                                                              \
+        rates_form_kernel<T, true, F, K>(g, a, nhi, pos);                      \
+      else                                                                     \
+        rates_form_kernel<T, false, F, K>(g, a, nhi, pos);                     \
+    }, reverse);                                                               \
+    return;                                                                    \
+  }
+  FLAT_RATE_FORMS(FLAT_RATE_FORM)
+#undef FLAT_RATE_FORM
+  __builtin_trap();
 }
 
 template <class T>
@@ -481,12 +591,26 @@ void run_flat(int kind, void* const* tabs, const int* dims,
                           (T*)io[9], (T*)io[4], (T*)io[5], (T*)io[6],
                           (T*)io[7], (T*)io[8], B};
   const int blocks = (g.C + T_ - 1) / T_;
+  if (kind == 3) {
+    std::fill(tr.phi, tr.phi + size_t(B) * g.C, T(0));
+    if (tr.heat) std::fill(tr.heat, tr.heat + size_t(B) * g.C, T(0));
+  }
+  if (kind == 4) {
+    emu_flat_gather<T>(g, tr, 0, T_, reverse != 0, form);
+    return;
+  }
+  if (kind == 5) {
+    emu_flat_rates_form<T>(g, tr.rates(0), tr.nhi, tr.pos_of(0), T_, form,
+                           reverse != 0);
+    return;
+  }
   for (int b = 0; b < (kind == 3 ? nb : 1); ++b) {
     if (kind == 0 || kind == 3)
-      emu_flat_sweep<T>(form, g, tr, b, cluster, T_, reverse != 0);
+      emu_flat_sweep<T>(form, g, tr, b, cluster, T_, reverse != 0,
+                        kind == 3 ? 2 : 0);
     if (kind == 1 || kind == 3) {
       const flat::RateIO<T> a = tr.rates(b);
-      emu_serial(blocks, B, T_, [&] {
+      emu_serial((g.n_rated + T_ - 1) / T_, B, T_, [&] {
         if (g.grey)
           flat::flat_rates_kernel<T, true, false>(g, a);
         else if (a.heat)
@@ -527,15 +651,21 @@ void run_flat(int kind, void* const* tabs, const int* dims,
 REHEARSE_FLAT(rehearse_flat_f32, float)
 REHEARSE_FLAT(rehearse_flat_f64, double)
 
-// The forms of the flat sweep the engine runs, (shared, global), then the
-// probe's (FLAT_PROBE_FORMS) and -1.
-extern "C" void rehearse_flat_forms(int* out) {
-  using namespace flat;
+// The forms of the flat sweep the engine runs, (ring, global), then the
+// probe's (FLAT_PROBE_FORMS), then -100; the probe's rate forms
+// (FLAT_RATE_FORMS) and -100.
+extern "C" void rehearse_flat_forms(int* out, int* rates) {
+  using namespace flat_probe;
   int k = 0;
-  out[k++] = kShared;
-  out[k++] = kGlobal;
+  out[k++] = kEngineRing;
+  out[k++] = kEngineGlobal;
 #define FLAT_FORM_ITEM(F) out[k++] = F;
   FLAT_PROBE_FORMS(FLAT_FORM_ITEM)
 #undef FLAT_FORM_ITEM
-  out[k] = -1;
+  out[k] = -100;
+  k = 0;
+#define FLAT_RATE_ITEM(F, K) rates[k++] = (F) | (K) << 4;
+  FLAT_RATE_FORMS(FLAT_RATE_ITEM)
+#undef FLAT_RATE_ITEM
+  rates[k] = -100;
 }

@@ -1,7 +1,7 @@
 """What the host rehearsals of the flat engine's kernels share
 (tests/test_torch_rehearsal_flat.py, test_torch_rehearsal_flat_loop.py):
 the cases, the engines and fields, the card's arithmetic for the plain
-functions, and the call of csrc/flat_sweep.cu's kernels on the host
+functions, and the call of csrc/flat_sweep.cuh's kernels on the host
 (tests/rehearsal_host.py's library)."""
 
 import ctypes
@@ -106,13 +106,15 @@ def _card_arithmetic(monkeypatch, dt):
 
 
 def _forms(lib):
-    """The engine's forms of the sweep, {"ring": ..., "global_": ...}, and
-    the probe's (csrc/flat_sweep.cu's FLAT_PROBE_FORMS) under "probe"."""
-    out = (ctypes.c_int * 64)()
-    lib.rehearse_flat_forms(out)
-    forms = list(out)
+    """The engine's forms of the sweep, {"ring": ..., "global_": ...}, the
+    probe's (csrc/flat_probe.cu's FLAT_PROBE_FORMS) under "probe" and its
+    rate pass's (FLAT_RATE_FORMS, F | K << 4) under "rates"."""
+    out, rates = (ctypes.c_int * 64)(), (ctypes.c_int * 64)()
+    lib.rehearse_flat_forms(out, rates)
+    forms, rates = list(out), list(rates)
     return dict(ring=out[0], global_=out[1],
-                probe=forms[2:forms.index(-1)])
+                probe=forms[2:forms.index(-100)],
+                rates=rates[:rates.index(-100)])
 
 
 # the probe's forms that compute the sweep (FLAT_PROBE_FORMS' first twelve
@@ -125,16 +127,21 @@ PROBE_ROWS = [0, 2, 3, 4, 5, 8, 9, 10, 11]
 
 def _host(lib, rt, kind, io, pos, cluster=4, threads=9, reverse=0,
           form=None):
-    """Kernel ``kind`` of run_flat (0 sweep, 1 rates, 2 accumulate, 3 the
-    loop) on the host: ``io`` the dict of its tensors (rehearsal.cpp's
-    order; absent ones null; the gathered nHI's scratch made here), ``pos``
-    (B, 3) or, for the loop, (nb, B, 3), staged as the wrappers stage them;
-    the sweep in the form ``form`` (the engine's shared one where None)."""
+    """Kernel ``kind`` of run_flat (0 gather and sweep, 1 rates, 2
+    accumulate, 3 the loop, 4 gather, 5 the probe's rates) on the host:
+    ``io`` the dict of its tensors (rehearsal.cpp's order; absent ones
+    null; the gathered nHI's scratch made here as NaN where ``io`` has
+    none), ``pos`` (B, 3) or, for the loop, (nb, B, 3), staged as the
+    wrappers stage them; the sweep in the form ``form`` (the engine's
+    shared one where None), the gather in its form (the engine's, 2, where
+    None)."""
     kt = rt.kernel_tables()
     order = ("nhi", "pos", "flux", "sdr3", "cd", "phi", "heat", "phi_grid",
              "heat_grid", "nhi_octa")
-    io = dict(io, pos=fs.stage_positions(pos, rt.config.N, "cpu"),
-              nhi_octa=_nan(rt, pos.shape[-2]))
+    io = dict(dict(nhi_octa=_nan(rt, pos.shape[-2])), **io,
+              pos=fs.stage_positions(pos, rt.config.N, "cpu"))
+    if form is None:
+        form = 2 if kind == 4 else _forms(lib)["ring"]
     ptrs = (ctypes.c_void_p * len(order))(
         *[None if io.get(k) is None else io[k].data_ptr() for k in order])
     nb = pos.shape[0] if kind == 3 else 1
@@ -142,7 +149,7 @@ def _host(lib, rt, kind, io, pos, cluster=4, threads=9, reverse=0,
     fn = lib.rehearse_flat_f32 if rt.config.dtype == torch.float32 else \
         lib.rehearse_flat_f64
     fn(kind, kt.tabs, kt.dims, fs._vals(kt, DR), ptrs, nb, B, cluster,
-       threads, reverse, _forms(lib)["ring"] if form is None else form)
+       threads, reverse, form)
 
 
 def _nan(rt, B):

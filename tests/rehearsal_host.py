@@ -4,8 +4,8 @@
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
 ``cheb_sweep_kernels.cuh``, ``cheb_sweep_rates.cuh``, ``cheb_rates.cuh``,
 ``cheb_rates_he.cuh``, ``trace_loop.cu``, ``chemistry.cu``,
-``thermal.cu`` and ``flat_sweep.cu`` (everything before their launch
-code), with
+``thermal.cu``, ``flat_sweep.cuh`` and ``flat_probe.cu`` (everything before
+their launch code), with
 ``rounded.cuh``, are cut out of the sources and compiled with g++ against
 the stand-in headers of
 ``tests/kernel_host/`` (every thread of every block of a cluster is a
@@ -88,8 +88,10 @@ _PARTS = {
                    "}  // namespace chem\n"),
     "k_thermal.inc": ("thermal.cu", "// The launch of the thermal kernel",
                       "}  // namespace thermal\n"),
-    "k_flat.inc": ("flat_sweep.cu", "// The launches of the flat kernels",
-                   "}  // namespace flat\n"),
+    "flat_sweep.cuh": ("flat_sweep.cuh", None, ""),   # no launch code
+    "k_flat_probe.inc": ("flat_probe.cu",
+                         "// The launches of the probe's forms",
+                         "}  // namespace flat_probe\n"),
     "rounded.cuh": ("rounded.cuh", None, ""),      # no launch code
 }
 
@@ -183,7 +185,7 @@ def load_library():
         f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
             + [ctypes.c_int] * 6
         f.restype = None
-    lib.rehearse_flat_forms.argtypes = [ctypes.c_void_p]
+    lib.rehearse_flat_forms.argtypes = [ctypes.c_void_p] * 2
     lib.rehearse_flat_forms.restype = None
     for f in (lib.rehearse_thermal_f32, lib.rehearse_thermal_f64):
         f.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,

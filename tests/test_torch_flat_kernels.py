@@ -1,9 +1,12 @@
-"""The flat engine's steps and their kernels: Raytracer's sweep_batch,
-rates_batch, accumulate_batch and trace_batches on the CPU (the plain
-functions; a device other than the CPU or the card raises, nothing falls
-back), the bindings of ops/flat_sweep.py (they refuse CPU tensors), the
-kernels' tables, and, ``cuda``, every kernel and the loop on the card bit
-for bit against their plain versions. Imports nothing of JAX."""
+"""The flat engine's steps and their kernels: Raytracer's gather_batch,
+sweep_batch, rates_batch, accumulate_batch and trace_batches on the CPU
+(the plain functions; a device other than the CPU or the card raises,
+nothing falls back), the bindings of ops/flat_sweep.py (they refuse CPU
+tensors), the kernels' tables (the gather's runs and the rated cells with
+numpy emulations of the gather and the rate pass over them), and,
+``cuda``, every kernel and the loop on the card bit for bit against their
+plain versions. Only the emulated gather's one case against the JAX
+engine's nhi_flat[lin] imports JAX."""
 
 import numpy as np
 import pytest
@@ -64,10 +67,11 @@ def test_wrappers_on_cpu_are_the_plain_functions(mode):
     nhi = nd * (1.0 - xh)
     dr_t = torch.tensor(DR, dtype=torch.float64)
     lin, nhi_octa = rt._gather(nhi, pos_b[0])
+    assert torch.equal(rt.gather_batch(nhi, pos_b[0]), nhi_octa)
     cd = rt._sweep(nhi_octa, dr_t)
     assert torch.equal(rt.sweep_batch(nhi, pos_b[0], DR), cd)
     want = rt._rates(cd, nhi_octa, flux_b[0], dr_t)
-    got = rt.rates_batch(cd, nhi, pos_b[0], flux_b[0], DR)
+    got = rt.rates_batch(cd, nhi_octa, flux_b[0], DR)
     assert torch.equal(got[0], want[0])
     assert (got[1] is None) == (mode != "heat")
     if got[1] is not None:
@@ -98,11 +102,22 @@ def test_other_devices_raise():
         rt.trace_batches(*meta, DR)
     with pytest.raises(ValueError, match="unsupported device meta"):
         rt.sweep_batch(meta[0], meta[2][0], DR)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        rt.gather_batch(meta[0], meta[2][0])
+    C = rt.geom_np.num_cells
+    cd = torch.zeros((2, C), dtype=torch.float64)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        rt.rates_batch(cd.to("meta"), cd.to("meta"), meta[3][0], DR)
     kt = rt.kernel_tables()
+    sdr3 = nd[:1].reshape(())
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        fs.flat_gather(kt, nd, pos_b[0])
     with pytest.raises(ValueError, match="unsupported device cpu"):
         fs.flat_sweep(kt, nd, pos_b[0], DR)
     with pytest.raises(ValueError, match="unsupported device cpu"):
-        fs.flat_trace_sweep(kt, nd, pos_b, flux_b, nd[:1].reshape(()), DR)
+        fs.flat_rates(kt, cd, cd, flux_b[0], sdr3, DR)
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        fs.flat_trace_sweep(kt, nd, pos_b, flux_b, sdr3, DR)
 
 
 @pytest.mark.parametrize("N,R", [(12, 4.0), (13, 1e9), (16, 1e9),
@@ -162,6 +177,191 @@ def test_kernel_tables(N, R):
     cell = start[q2] + ((c >> 16) & 15) * u[q2] + (c & 0xffff)
     assert torch.equal(cell, nbr[weighted])
     assert torch.equal(c >> 20, lag)
+    # the gather's runs cover every cell once, each run one shell of its
+    # block's slab and band; the rated cells ascending
+    blocks, runs = kt.tensors[16].long(), kt.tensors[17].long()
+    assert sz["n_blk"] == blocks.shape[0] and runs.shape[1] == 3
+    assert torch.equal(runs[:, 2], torch.cumsum(runs[:, 1], 0) - runs[:, 1])
+    run_of = torch.repeat_interleave(torch.arange(runs.shape[0]), runs[:, 1])
+    cells = runs[run_of, 0] + torch.arange(C) - runs[run_of, 2]
+    assert torch.equal(torch.sort(cells).values, torch.arange(C))
+    assert torch.equal(blocks[:, 5], torch.cumsum(blocks[:, 6], 0)
+                       - blocks[:, 6])
+    assert torch.equal(blocks[:, 7], torch.cumsum(blocks[:, 8], 0)
+                       - blocks[:, 8])
+    assert torch.equal(blocks[:, 7], runs[blocks[:, 5], 2])
+    blk = torch.repeat_interleave(torch.arange(blocks.shape[0]),
+                                  blocks[:, 6])[run_of]
+    d0, d1a, nd1, d2lo, pitch = blocks[blk, :5].T
+    d = off[:, cells]
+    assert int((blocks[:, 2] * blocks[:, 4]).max()) == sz["g_cells"] < 1 << 16
+    assert torch.equal(d[0], d0)
+    assert bool(((d[1] >= d1a) & (d[1] < d1a + nd1)).all())
+    assert bool(((d[2] >= d2lo) & (d[2] < d2lo + pitch)).all())
+    shell_of = d.abs().sum(0)
+    assert torch.equal(shell_of, shell_of[runs[run_of, 2]])   # one shell
+    place = kt.tensors[18].numpy().view(np.uint16).astype(np.int64)
+    assert np.array_equal(place, ((d[1] - d1a) * pitch + d[2] - d2lo).numpy())
+    rated = kt.tensors[19].long()
+    assert sz["n_rated"] == rated.shape[0]
+    assert torch.equal(rated, torch.nonzero(rt.tables.rated)[:, 0])
+
+
+def _emulated_gather(rt, nhi, pos):
+    """The gather kernel emulated in numpy over the engine's tables: per
+    source and gather block the band's rows of the grid (the octahedron's
+    cells, at their periodic images) into a block of staged values that
+    starts as NaN, then each run's cells from their places there; the
+    output starts as NaN. Returns (B, C) float64."""
+    kt = rt.kernel_tables()
+    N, max_q, C = rt.config.N, kt.sizes["max_q"], kt.sizes["C"]
+    blocks, runs = kt.tensors[16].numpy(), kt.tensors[17].numpy()
+    places = kt.tensors[18].numpy().view(np.uint16)
+    nhi, pos = nhi.numpy(), np.asarray(pos)
+    out = np.full((pos.shape[0], C), np.nan)
+    for b, p in enumerate(pos):
+        for d0, d1a, nd1, d2lo, pitch, run0, nrun, _, _, _ in blocks:
+            e = np.arange(nd1 * pitch)
+            d1, d2 = d1a + e // pitch, d2lo + e % pitch
+            inside = np.abs(d1) + np.abs(d2) <= max_q - abs(d0)
+            staged = np.full(nd1 * pitch, np.nan)
+            staged[inside] = nhi[(((p[0] + d0) % N * N + (p[1] + d1[inside])
+                                   % N) * N + (p[2] + d2[inside]) % N)]
+            for first, n, at in runs[run0:run0 + nrun]:
+                out[b, first:first + n] = staged[places[at:at + n]]
+    return out
+
+
+# (N, R, sources): an octahedron inside the mesh, one clipped by it (side <
+# 2 max_q + 1, the golden's case), and an odd mesh's whole box; sources at
+# the corners and edges of the box, so their octahedra wrap on every axis
+GATHER_CASES = {
+    "N24_R4": (24, 4.0, [[0, 0, 0], [23, 23, 23], [1, 22, 12]]),
+    "N16_box": (16, 1e9, [[0, 15, 0], [15, 0, 15], [8, 8, 8]]),
+    "N13_box": (13, 1e9, [[12, 0, 6], [0, 12, 12], [6, 6, 0]]),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_emulated_gather_equals_plain(case):
+    """The staged gather emulated over the tables (``_emulated_gather``)
+    equals the plain gather bit for bit: every cell written, from the cell
+    of the grid the plain gather reads."""
+    N, R, pos = GATHER_CASES[case]
+    rt, _, _, _, _ = _setup(N, R, 3, torch.float64, "grey", "cpu")
+    nhi = torch.from_numpy(np.random.RandomState(N).uniform(0, 1, N ** 3))
+    got = _emulated_gather(rt, nhi, pos)
+    want = rt._gather(nhi, torch.tensor(pos))[1].numpy()
+    assert np.array_equal(got, want)
+    if case == "N16_box":
+        assert rt.kernel_tables().sizes["side"] < 2 * rt.geom_np.max_q + 1
+
+
+def test_emulated_gather_equals_jax():
+    """The emulated gather against the JAX engine's nhi_flat[lin]
+    (pyc2ray_tpu/ops/raytrace.py::Raytracer._trace_impl), on its C cells,
+    at a clipped octahedron with sources that wrap on every axis."""
+    import jax.numpy as jnp
+    from pyc2ray_tpu.ops import raytrace as j_raytrace
+    N, R, pos = GATHER_CASES["N16_box"]
+    rt, _, _, _, _ = _setup(N, R, 3, torch.float64, "grey", "cpu")
+    jr = j_raytrace.Raytracer(j_raytrace.RaytraceConfig(
+        N=N, R_max_LLS=R, sig=SIG, batch_size=3, dtype=jnp.float64,
+        grey_analytic=True))
+    nhi = np.random.RandomState(3).uniform(0, 1, N ** 3)
+    lin = jr._lin_idx(jr.tables, jnp.asarray(pos, dtype=jnp.int32))
+    want = np.asarray(jnp.asarray(nhi)[lin])[:, :rt.geom_np.num_cells]
+    assert np.array_equal(_emulated_gather(rt, torch.from_numpy(nhi), pos),
+                          want)
+
+
+def _emulated_rates(rt, cdo, nhi_octa, flux, dr_t):
+    """The rate kernel emulated over the engine's list of rated cells: the
+    outputs zeros, then at each rated cell (for every source) the rates from
+    its gathered nHI and column density, each tau's place in the tables
+    (log10, index, residual) formed once and read by every table that needs
+    it, the thick cells' out place only for them."""
+    cfg, tb = rt.config, rt.tables
+    cells = rt.kernel_tables().tensors[19].long()
+    heat = cfg.do_heating
+    phi_o = torch.zeros_like(cdo)
+    heat_o = torch.zeros_like(cdo) if heat else None
+    nhi, cd = nhi_octa[:, cells], cdo[:, cells]
+    dcol = nhi * (tb.path[cells] * dr_t)
+    cdin = cd - dcol
+    tau_in, tau_out, dtau = cdin * cfg.sig, cd * cfg.sig, dcol * cfg.sig
+    prefact = flux[:, None] * rt._s_over_dr3(dr_t) * tb.geom[cells]
+    thick = dtau > 1e-7
+
+    def place(tau):
+        logtau = torch.log10(torch.clamp(tau, min=1.0e-20))
+        real_i = torch.clamp(1.0 + (logtau - rt.minlogtau) / rt.dlogtau,
+                             0.0, float(rt.num_tau))
+        i0 = real_i.to(torch.int64)
+        return i0, torch.clamp(i0 + 1, max=rt.num_tau), \
+            real_i - i0.to(real_i.dtype)
+
+    def interp(table, at):
+        i0, i1, resid = at
+        return table[i0] + resid * (table[i1] - table[i0])
+    out = [torch.zeros_like(cd), torch.zeros_like(cd)]
+    if cfg.grey_analytic:
+        ein = torch.exp(-tau_in)
+        out[0] = torch.where(thick, prefact * (ein - torch.exp(-tau_out)),
+                             prefact * dtau * ein)
+    else:
+        at_in = place(tau_in)
+        at_out = tuple(x[thick] for x in place(tau_out))
+        at_in_k = tuple(x[thick] for x in at_in)
+        at_in_n = tuple(x[~thick] for x in at_in)
+        tabs = [(tb.photo_thin, tb.photo_thick)]
+        if heat:
+            tabs.append((tb.heat_thin, tb.heat_thick))
+        for k, (thin, thk) in enumerate(tabs):
+            out[k][thick] = prefact[thick] * (interp(thk, at_in_k)
+                                              - interp(thk, at_out))
+            out[k][~thick] = prefact[~thick] * dtau[~thick] * \
+                interp(thin, at_in_n)
+    mask = cdin <= 2.0e30
+    nhi_safe = torch.clamp(nhi, min=torch.finfo(cfg.dtype).tiny)
+    for k, o in enumerate((phi_o, heat_o)):
+        if o is not None:
+            o[:, cells] = torch.where(mask, out[k] / nhi_safe,
+                                      torch.zeros_like(cd))
+    return phi_o, heat_o
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("N,R", [(16, 4.0), (13, 1e9)])
+def test_emulated_rates_over_rated_cells_equal_plain(monkeypatch, N, R,
+                                                     mode):
+    """The rate pass emulated over the rated cells (``_emulated_rates``)
+    equals the plain rate pass bit for bit, with and without heat and grey:
+    the unrated cells' +0 (R inside the mesh), a cell past MAX_COLDENSH,
+    the zero-density cell and a zero flux, thin and thick cells; log10 and
+    exp elementwise (glibc's) in both, so the CPU's vector paths do not
+    decide a bit."""
+    from rehearsal_flat import _card_arithmetic
+    dt = torch.float64
+    rt, nd, xh, pos_b, flux_b = _setup(N, R, 3, dt, mode, "cpu")
+    nhi_octa = rt._gather(nd * (1.0 - xh), pos_b[0])[1]
+    dr_t = torch.tensor(DR, dtype=dt)
+    cd = rt._sweep(nhi_octa, dr_t)
+    cd[1, 5] = 1e31
+    _card_arithmetic(monkeypatch, dt)
+    want = rt._rates(cd, nhi_octa, flux_b[0], dr_t)
+    got = _emulated_rates(rt, cd, nhi_octa, flux_b[0], dr_t)
+    monkeypatch.undo()
+    rated = rt.tables.rated
+    assert bool(rated.all()) == (R > N)
+    assert float(want[0].max()) > 0.0 and float(want[0][1, 5]) == 0.0
+    dtau = nhi_octa * rt.tables.path * dr_t * SIG
+    assert bool((dtau > 1e-7).any()) and bool((dtau < 1e-7).any())
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g, w)
+            assert bool((torch.signbit(w[:, ~rated]) == 0).all())
 
 
 def _cuda():
@@ -193,8 +393,9 @@ def test_flat_kernels_equal_plain_on_cuda(N, R, mode, dt):
             assert torch.equal(rt.sweep_batch(nhi, pos_b[0], DR, C, shared),
                                cd), (C, shared)
     assert torch.equal(rt.sweep_batch(nhi, pos_b[0], DR), cd)
+    assert torch.equal(rt.gather_batch(nhi, pos_b[0]), nhi_octa)
     want = rt._rates(cd, nhi_octa, flux_b[0], dr_t)
-    got = rt.rates_batch(cd, nhi, pos_b[0], flux_b[0], DR)
+    got = rt.rates_batch(cd, nhi_octa, flux_b[0], DR)
     assert torch.equal(got[0], want[0])
     if mode == "heat":
         assert torch.equal(got[1], want[1])
@@ -217,9 +418,58 @@ def test_flat_kernels_equal_plain_on_cuda(N, R, mode, dt):
     loop = fs.loop_plan(rt.kernel_tables(), nb, 4, nd.device)[3]
     assert sweep.launches["flat_trace_sweep"] == 1
     for k in ("flat_gather", "flat_sweep"):
-        assert sweep.launches[k] == 2 * len(sweep.CLUSTERS) + 1 + loop[k]
+        assert sweep.launches[k] == 2 * len(sweep.CLUSTERS) + 1 + loop[k] \
+            + (k == "flat_gather")
     assert sweep.launches["flat_rates"] == 1 + loop["flat_rates"]
     assert sweep.launches["flat_accumulate"] == 1 + loop["flat_accumulate"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("N,R", [(24, 7.0), (16, 1e9)])
+def test_flat_gather_and_rates_write_their_cells_on_cuda(N, R, mode, dt):
+    """The gather kernel and the rate kernel on outputs made NaN first, bit
+    for bit against the plain gather and rate pass: the gather writes every
+    cell of every octahedron (R inside the mesh and the whole box; sources
+    at the box's corners, so the octahedra wrap on every axis), the rate
+    kernel every rated cell and no other (those stay NaN; the binding's
+    outputs start as zeros, the plain pass's +0)."""
+    _cuda()
+    rt, nd, xh, _, flux_b = _setup(N, R, 4, dt, mode, "cuda")
+    kt = rt.kernel_tables()
+    pos = torch.tensor([[0, 0, 0], [N - 1, N - 1, N - 1], [0, N - 1, 3],
+                        [N // 2, 1, N - 2]], device="cuda")
+    nhi = nd * (1.0 - xh)
+    want_g = rt._gather(nhi, pos)[1]
+    out = torch.full_like(want_g, float("nan"))
+    lib = fs._lib()
+    sfx = "f32" if dt == torch.float32 else "f64"
+    ps = fs.stage_positions(pos, N, nhi.device)
+    assert getattr(lib, f"flat_gather_{sfx}")(
+        kt.tabs, kt.dims, fs._vals(kt, 1.0), fs._ptr(nhi), fs._ptr(ps),
+        fs._ptr(out), 4, fs._stream(nhi.device)) == 0
+    assert torch.equal(out, want_g)
+    cd = rt.sweep_batch(nhi, pos, DR)
+    flux = flux_b[0]
+    want = rt._rates(cd, want_g, flux, rt._dr(DR, "cuda"))
+    outs = [torch.full_like(cd, float("nan")) for _ in range(2)]
+    sdr3 = rt._s_over_dr3(rt._dr(DR, "cuda"))
+    assert getattr(lib, f"flat_rates_{sfx}")(
+        kt.tabs, kt.dims, fs._vals(kt, DR), fs._ptr(want_g), fs._ptr(flux),
+        fs._ptr(sdr3), fs._ptr(cd), fs._ptr(outs[0]),
+        fs._ptr(outs[1] if mode == "heat" else None), 4,
+        fs._stream(nhi.device)) == 0
+    rated = rt.tables.rated
+    assert bool(rated.all()) == (R > N)
+    for got, ref in zip(outs, want):
+        if ref is None:
+            continue
+        assert torch.equal(got[:, rated], ref[:, rated])
+        assert bool(got[:, ~rated].isnan().all())
+    got = rt.rates_batch(cd, want_g, flux, DR)
+    assert all(g is None if w is None else torch.equal(g, w)
+               for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -280,7 +530,9 @@ def test_flat_sweep_at_the_golden_shape_on_cuda():
     """The sweep at the golden's shape (N = 128, the whole box, one source,
     float64): the plan is clusters of 16 with the ring in distributed
     shared memory, and the kernel in both placements, its output first
-    filled with NaN, equals the plain gather and sweep bit for bit."""
+    filled with NaN, equals the plain gather and sweep bit for bit; so do
+    the gather and the rate pass (over the rated cells, their outputs on
+    blocks of NaN)."""
     _cuda()
     dt = torch.float64
     cfg = RaytraceConfig(N=128, R_max_LLS=1e9, sig=SIG, batch_size=1,
@@ -300,3 +552,13 @@ def test_flat_sweep_at_the_golden_shape_on_cuda():
                    device="cuda")
         got = rt.sweep_batch(nhi, pos, DR, 16, shared)
         assert torch.equal(got, want), shared
+    rt_t = Raytracer(cfg._replace(grey_analytic=False, do_heating=True),
+                     *TABLES, device="cuda")
+    nhi_octa = rt._gather(nhi, pos)[1]
+    flux = torch.tensor([10.0], dtype=dt, device="cuda")
+    ref = rt_t._rates(want, nhi_octa, flux, rt._dr(DR, "cuda"))
+    torch.cuda.empty_cache()
+    torch.full((4 * want.numel(),), float("nan"), dtype=dt, device="cuda")
+    assert torch.equal(rt_t.gather_batch(nhi, pos), nhi_octa)
+    got = rt_t.rates_batch(want, nhi_octa, flux, DR)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

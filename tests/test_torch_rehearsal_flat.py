@@ -1,12 +1,13 @@
-"""The flat engine's kernels of csrc/flat_sweep.cu rehearsed on the host
-(tests/rehearsal_host.py): the sweep, the rate pass, the ordered
-accumulate and the trace loop, bit for bit (torch.equal) against the
-engine's plain functions (ops/raytrace.py's Raytracer: _gather, _sweep,
-_rates, _accumulate and the plain loop flat_trace_sweep_ref).
+"""The flat engine's kernels of csrc/flat_sweep.cuh rehearsed on the host
+(tests/rehearsal_host.py): the gather, the sweep, the rate pass, the
+ordered accumulate and the trace loop, bit for bit (torch.equal) against
+the engine's plain functions (ops/raytrace.py's Raytracer: _gather,
+_sweep, _rates, _accumulate and the plain loop flat_trace_sweep_ref), and
+the forms of csrc/flat_probe.cu that chip_smoke 3d's design steps time.
 
-The sweep (its column densities in the ring in distributed shared memory
-or in global memory, and the forms the probe measures) is held to the
-plain functions as it runs; the accumulate and the loop are in
+The gather and the sweep (its column densities in the ring in distributed
+shared memory or in global memory, and the forms the probe measures) are
+held to the plain functions as they run; the accumulate and the loop are in
 test_torch_rehearsal_flat_loop.py, the shared code in rehearsal_flat.py.
 The rate pass and the loop are held to them with the card's arithmetic
 where the CPU's differs from it: glibc's log10 and exp (the functions the
@@ -70,21 +71,57 @@ def test_flat_probe_forms_on_the_host_match_plain(lib, row):
         assert torch.equal(cd, want), (form, cluster)
 
 
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("case", list(CASES))
+def test_flat_gather_on_the_host_matches_plain(lib, case, dt):
+    """flat_gather_kernel (a block a slab and band of rows, staged through
+    shared memory, whole warps writing the runs; its blocks and rows in
+    either order) bit for bit against the plain gather: every cell of every
+    source's octahedron written (the output starts as NaN, the shared
+    memory as the bytes 0xee), clipped octahedra and whole boxes, sources
+    that wrap on every axis. The probe's forms (the grid-order one, a
+    thread a cell in octahedral order, the first staged form, 8 or 16 loads
+    in flight a lane) too."""
+    rt, nd, xh, pos, _ = _case(case, dt, "tables")
+    nhi = nd * (1.0 - xh)
+    for b in range(pos.shape[0]):
+        want = rt._gather(nhi, pos[b])[1]
+        # the engine's form in both batches; the probe's in float64, batch 0
+        forms = ((32, b, 2),) if b or dt != torch.float64 else (
+            (32, 0, 2), (64, 1, 4), (32, 0, 5), (32, 1, 3), (40, 1, 0),
+            (40, 0, 1))
+        for threads, reverse, form in forms:
+            out = _nan(rt, pos.shape[1])
+            _host(lib, rt, 4, dict(nhi=nhi, nhi_octa=out), pos[b],
+                  threads=threads, reverse=reverse, form=form)
+            assert torch.equal(out, want), (b, threads, form)
+
+
+def _rates_case(case, dt, mode):
+    """The plain rate pass's inputs of batch 0 (a cell past MAX_COLDENSH
+    among them) and its result under the card's arithmetic."""
+    rt, nd, xh, pos, flux = _case(case, dt, mode)
+    nhi = nd * (1.0 - xh)
+    nhi_octa = rt._gather(nhi, pos[0])[1]
+    cd = rt._sweep(nhi_octa, _dr(rt))
+    cd[1, 5] = 1e31
+    return rt, nhi, pos, flux, nhi_octa, cd
+
+
 @pytest.mark.parametrize("mode", ["grey", "tables", "heat"])
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("case", ["N16_R4", "N24_box"])
 def test_flat_rates_on_the_host_matches_plain(lib, monkeypatch, case, dt,
                                               mode):
-    """flat_rates_kernel (its rows and blocks in either order) bit for bit
-    against the plain rate pass on the plain sweep's column densities, with
-    a cell past MAX_COLDENSH, the zero-density cell and a zero flux: Gamma
-    and with ``heat`` the heating rate per HI atom; thin and thick cells,
-    rated and (R inside the mesh) unrated ones."""
-    rt, nd, xh, pos, flux = _case(case, dt, mode)
-    nhi = nd * (1.0 - xh)
-    lin, nhi_octa = rt._gather(nhi, pos[0])
-    cd = rt._sweep(nhi_octa, _dr(rt))
-    cd[1, 5] = 1e31
+    """flat_rates_kernel (its rows and blocks in either order) on the
+    gathered nHI bit for bit
+    against the plain rate pass on the plain sweep's column densities at
+    every rated cell, with a cell past MAX_COLDENSH, the zero-density cell
+    and a zero flux: Gamma and with ``heat`` the heating rate per HI atom;
+    thin and thick cells. Its outputs start as NaN and it writes the rated
+    cells alone: every other cell (R inside the mesh) is still NaN, where
+    the plain pass has +0."""
+    rt, nhi, pos, flux, nhi_octa, cd = _rates_case(case, dt, mode)
     _card_arithmetic(monkeypatch, dt)
     sdr3 = rt._s_over_dr3(_dr(rt))
     want = rt._rates(cd, nhi_octa, flux[0], _dr(rt))
@@ -92,22 +129,63 @@ def test_flat_rates_on_the_host_matches_plain(lib, monkeypatch, case, dt,
     dtau = nhi_octa * rt.tables.path * _dr(rt) * SIG
     assert bool((dtau > 1e-7).any()) and bool((dtau < 1e-7).any())
     assert (want[1] is not None) == (mode == "heat")
-    for reverse in (0, 1):
+    rated = rt.tables.rated
+    assert bool(rated.all()) == (case == "N24_box")
+    for threads, reverse in ((64, 0), (7, 1)):
         phi, heat = _nan(rt, pos.shape[1]), _nan(rt, pos.shape[1])
-        _host(lib, rt, 1, dict(nhi=nhi, flux=flux[0], sdr3=sdr3, cd=cd,
-                               phi=phi, heat=heat if mode == "heat" else None),
-              pos[0], threads=64, reverse=reverse)
-        assert torch.equal(phi, want[0]), reverse
-        if mode == "heat":
-            assert torch.equal(heat, want[1]), reverse
+        _host(lib, rt, 1, dict(nhi_octa=nhi_octa, flux=flux[0], sdr3=sdr3,
+                               cd=cd, phi=phi,
+                               heat=heat if mode == "heat" else None),
+              pos[0], threads=threads, reverse=reverse)
+        for got, ref in ((phi, want[0]), (heat, want[1])):
+            if ref is None:
+                continue
+            assert torch.equal(got[:, rated], ref[:, rated]), reverse
+            assert bool(got[:, ~rated].isnan().all())
+            assert bool((ref[:, ~rated] == 0.0).all())
     assert float(want[0][1, 5]) == 0.0 and float(want[0].max()) > 0.0
     assert not bool(want[0][-1].any())                  # zero flux
     zero = nhi_octa == 0.0
     assert bool(zero.any()) and not bool(want[0][zero].any())
 
 
+@pytest.mark.parametrize("heat", [False, True])
+def test_flat_rate_forms_on_the_host_match_plain(lib, monkeypatch, heat):
+    """The rate pass's forms that chip_smoke 3d's design steps time
+    (csrc/flat_probe.cu's FLAT_RATE_FORMS: the first form, nHI from the gathered
+    layout, the rated cells' list, K sources a thread, the shared lookups)
+    bit for bit against the plain rate pass, float64, R inside the mesh:
+    the forms over every cell write every cell, those over the list the
+    rated cells alone (the rest stays NaN)."""
+    dt = torch.float64
+    rt, nhi, pos, flux, nhi_octa, cd = _rates_case(
+        "N16_R4", dt, "heat" if heat else "tables")
+    _card_arithmetic(monkeypatch, dt)
+    sdr3 = rt._s_over_dr3(_dr(rt))
+    want = rt._rates(cd, nhi_octa, flux[0], _dr(rt))
+    monkeypatch.undo()
+    rated = rt.tables.rated
+    forms = _forms(lib)["rates"]
+    assert len(forms) == 10
+    for form in forms:
+        phi, hout = _nan(rt, pos.shape[1]), _nan(rt, pos.shape[1])
+        _host(lib, rt, 5, dict(nhi=nhi, nhi_octa=nhi_octa, flux=flux[0],
+                               sdr3=sdr3, cd=cd, phi=phi,
+                               heat=hout if heat else None),
+              pos[0], threads=32, form=form)
+        listed = bool(form & 2)
+        for got, ref in ((phi, want[0]), (hout, want[1])):
+            if ref is None:
+                continue
+            assert torch.equal(got[:, rated], ref[:, rated]), form
+            if listed:
+                assert bool(got[:, ~rated].isnan().all()), form
+            else:
+                assert torch.equal(got, ref), form
+
+
 def test_single_cell_shells_have_one_corner_weight():
-    """The premise of the sweep's corner order (csrc/flat_sweep.cu): the
+    """The premise of the sweep's corner order (csrc/flat_sweep.cuh): the
     only shell of one cell, the far corner (-n, -n, -n) of an even mesh's
     whole box, has a single corner of nonzero weight, for every even mesh
     up to 4096, so its sums have the same bits in any order."""

@@ -1,5 +1,5 @@
 """The flat engine's ordered accumulate and trace loop of
-csrc/flat_sweep.cu rehearsed on the host (tests/rehearsal_host.py), bit
+csrc/flat_sweep.cuh rehearsed on the host (tests/rehearsal_host.py), bit
 for bit (torch.equal) against the engine's plain functions (ops/
 raytrace.py's Raytracer: _accumulate and the plain loop
 flat_trace_sweep_ref), the loop also in device batches of several batches'
