@@ -89,7 +89,13 @@ Phases (any failure raises and the script exits non-zero):
    against update_temperature_ref (max_abs_err 0, asserted) in float32 and
    float64, with ms per update by CUDA events, the plain version's ms and
    the bound of its function (``thermal_check``: bytes, flops and the
-   transcendentals it needs on the MUFU pipe, THERMAL_OPS, THERMAL_MUFU);
+   transcendentals it needs on the MUFU pipe, THERMAL_OPS, THERMAL_MUFU)
+   beside the kernel's own SASS at the issue rate and on the float64 pipe
+   (``thermal_instructions``) and ptxas's registers; the design steps of
+   the redesign (THERMAL_FORMS of csrc/thermal_probe.cu, each bit-equal,
+   asserted, with its ms and its own SASS) and the pow pair against powf
+   and pow over every float32 base in [1e-4, 1e5] and 10^8 float64 bases
+   (``thermal_pair_check``, no result may differ);
    last the hydrogen chemistry check on phase 3's Gamma with the updated
    temperatures, a temperature of its own in every cell.
 4. One evolve3D timestep to convergence at N=64, R=8, 16 sources, float32,
@@ -418,26 +424,39 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def log_ptxas(word=""):
+def _template_arg(a):
+    """A mangled template argument of log_ptxas's kernels (b0, b1, i5, in1,
+    j7) as C++ writes it."""
+    if a[0] == "b":
+        return "true" if a == "b1" else "false"
+    if a[0] == "j":
+        return a[1:] + "u"
+    return ("-" + a[2:]) if a.startswith("in") else a[1:]
+
+
+def log_ptxas(word="", quiet=False):
     """ptxas's registers, spills and static shared memory of every kernel
     built in this process whose name holds ``word``, per kernel <element
-    type, template flags> (the sweeps' shared memory is dynamic, see the
-    plans)."""
+    type, template arguments> (the sweeps' shared memory is dynamic, see
+    the plans), logged unless ``quiet``. Returns {kernel: ptxas's
+    lines}."""
     from pyc2ray_torch.ops import _build
-    kernel = ""
+    kernel, out = "", {}
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)"
-                      r"(?:I([fd])((?:L(?:b[01]|i\d+)E)*))?", line)
+                      r"(?:I([fd])((?:L(?:b[01]|in?\d+|j\d+)E)*))?", line)
         if m:
             kernel = m.group(2) + (
                 f"<{'float' if m.group(3) == 'f' else 'double'}"
-                + "".join(", " + ({"b0": "false", "b1": "true"}.get(a)
-                                  or a[1:]) for a in
-                          re.findall(r"L(b[01]|i\d+)E", m.group(4))) + ">"
+                + "".join(", " + _template_arg(a) for a in re.findall(
+                    r"L(b[01]|in?\d+|j\d+)E", m.group(4))) + ">"
                 if m.group(3) else "")
         elif ("spill" in line or "registers" in line) and word in kernel:
-            log(f"  ptxas {kernel}: "
-                + line.replace("ptxas info    :", "").strip())
+            text = line.replace("ptxas info    :", "").strip()
+            out[kernel] = (out[kernel] + "; " if kernel in out else "") + text
+            if not quiet:
+                log(f"  ptxas {kernel}: {text}")
+    return out
 
 
 def make_bins():
@@ -1856,16 +1875,38 @@ def parse_sass(text):
                 for a, i, t in ins] for n, ins in funcs.items()}
 
 
-def _path_counts(ins, at):
+def _path_counts(ins, at, bodies=False):
     """``shortest(i0, i1)``: the fewest instructions from ins[i0] to
     ins[i1] inclusive over forward edges (a backward branch falls through),
-    as (instructions, MUFU, float64 DADD/DMUL/DFMA) of that path; the local
-    loads and stores of spilled registers (LDL, STL) are not counted. A
-    branch on the warp's divergence (BRA.DIV, BRA.CONV) may fall through."""
+    as (instructions, MUFU, float64 DADD/DMUL/DFMA, subroutine calls) of
+    that path; the local loads and stores of spilled registers (LDL, STL)
+    are not counted. A branch on the warp's divergence (BRA.DIV, BRA.CONV)
+    may fall through. With ``bodies`` a call of a subroutine of the listing
+    (CALL.REL to an address in it) also counts the shortest path through
+    the subroutine, from its address to its first RET, once per call (and
+    the call among the calls)."""
+    memo = {}
+
+    def body(i0):
+        if i0 not in memo:
+            memo[i0] = (0, 0, 0, 0)       # a recursive call counts 0
+            i1 = next((i for i in range(i0, len(ins))
+                       if re.match(r"RET\b", ins[i][1])), None)
+            memo[i0] = (0, 0, 0, 0) if i1 is None else shortest(i0, i1)
+        return memo[i0]
+
+    def cost(j):
+        one = ins[j:j + 1]
+        c = (1 - n_spill(one), n_mufu(one), n_dp(one), 0)
+        m = re.match(r"CALL\.REL\S*\s+0x([0-9a-f]+)", ins[j][1])
+        if bodies and m and int(m.group(1), 16) in at:
+            b = body(at[int(m.group(1), 16)])
+            c = (c[0] + b[0], c[1] + b[1], c[2] + b[2], b[3] + 1)
+        return c
+
     def shortest(i0, i1):
-        inf = (float("inf"), 0, 0)
-        head = ins[i0:i0 + 1]
-        dist = {i0: (1 - n_spill(head), n_mufu(head), n_dp(head))}
+        inf = (float("inf"), 0, 0, 0)
+        dist = {i0: cost(i0)}
         for i in range(i0, i1 + 1):
             d = dist.get(i, inf)
             if d[0] == inf[0] or i == i1:
@@ -1880,9 +1921,7 @@ def _path_counts(ins, at):
             if isinstance(t, int) and t > a and t in at and at[t] <= i1:
                 nxt.append(at[t])
             for j in nxt:
-                step = ins[j:j + 1]
-                cand = (d[0] + 1 - n_spill(step), d[1] + n_mufu(step),
-                        d[2] + n_dp(step))
+                cand = tuple(x + y for x, y in zip(d, cost(j)))
                 if cand[0] < dist.get(j, inf)[0]:
                     dist[j] = cand
         return dist.get(i1, inf)
@@ -1911,7 +1950,7 @@ def backward_loops(ins):
     return [(t, a) for a, _, t in ins if isinstance(t, int) and t < a]
 
 
-def loop_counts(ins, cells=1):
+def loop_counts(ins, cells=1, bodies=False):
     """Instructions of a chemistry kernel's loops from its SASS
     (``sass_functions``): the inner loop, the smallest region closed by a
     backward branch that holds a MUFU (transcendental) instruction, and the
@@ -1929,10 +1968,13 @@ def loop_counts(ins, cells=1):
     through it), with "mufu_iter"/"dp_iter" the MUFU and float64
     DADD/DMUL/DFMA instructions on the iteration's path; "iter_static",
     "cell_static": every instruction of each region once (an upper
-    estimate: a warp whose lanes part runs both sides of a branch)."""
+    estimate: a warp whose lanes part runs both sides of a branch). With
+    ``bodies`` the paths count the subroutines they call (``_path_counts``;
+    "calls_iter" the calls on the iteration's path; the static counts do
+    not)."""
     loops = backward_loops(ins)
     at = {a: i for i, (a, _, _) in enumerate(ins)}
-    shortest = _path_counts(ins, at)
+    shortest = _path_counts(ins, at, bodies)
 
     def region(lo, hi):
         return [x for x in ins if lo <= x[0] <= hi]
@@ -1945,7 +1987,7 @@ def loop_counts(ins, cells=1):
     r_in = region(*inner)
     h, l = at[inner[0]], at[inner[1]]
     it = shortest(h, l)
-    out = dict(iter=it[0], mufu_iter=it[1], dp_iter=it[2],
+    out = dict(iter=it[0], mufu_iter=it[1], dp_iter=it[2], calls_iter=it[3],
                iter_static=len(r_in), cell=0, cell_static=0)
     copies = sorted(lp for lp in with_mufu if not any(
         o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in with_mufu))
@@ -2067,6 +2109,69 @@ def chem_instructions(helium, dtype, heat=False, rec=False):
     # a hydrogen thread takes two cells at a time (csrc/chemistry.cu)
     cells = 1 if helium else 2
     return loop_counts(_SASS["funcs"][name], cells)
+
+
+# the thermal update's design steps (csrc/thermal.cuh's run_form, launched
+# by csrc/thermal_probe.cu's thermal_probe_f32/_f64 with its form's index):
+# (row, text, nsub, Compton, steps: kFold 1, kRcp 2, kPair 4, kZeroNum 16,
+# kSelect 32), nsub 0 and Compton -1 read at run time; the last the
+# engine's kernel
+THERMAL_FORMS = (
+    ("0", "the first port's body (nsub and Compton at run time, every "
+     "division, two pow)", 0, -1, 0),
+    ("a", "nsub and Compton fixed, the tangent's identities folded", 16, 1,
+     1),
+    ("b", "+ the reciprocals", 16, 1, 3),
+    ("c", "+ the pow pair", 16, 1, 7),
+    ("d", "+ zero numerators by a product", 16, 1, 23),
+    ("e", "+ phi1 by a select (the engine's kernel)", 16, 1, 55),
+)
+
+
+def thermal_instructions(dtype, form=None):
+    """The thermal kernel's own instructions from its SASS: the engine's
+    kernel that 3c's update launches (csrc/thermal.cu: nsub 16, Compton
+    on, every step) or the probe's design step ``form`` (THERMAL_FORMS).
+    ``loop_counts`` with each subroutine's body counted once per call
+    (libdevice's float64 pow is one, CALL.REL): per substep the shortest
+    path through the substep loop ("substep", with "mufu" and "dp": its
+    MUFU and float64 DADD/DMUL/DFMA, "calls" the subroutines it calls), per
+    cell the path around the loop ("cell"), "static" every instruction of
+    the loop once (the bodies not counted); cached."""
+    from pyc2ray_torch.ops import _build
+    lib = "thermal" if form is None else "thermal_probe"
+    if lib not in _SASS:
+        _SASS[lib] = sass_functions(_build._so_path(lib))
+    t = "f" if dtype == torch.float32 else "d"
+    if form is None:
+        pat = rf"thermal_kernelI{t}Li16ELi1ELj\d+E"
+    else:
+        _, _, nsub, comp, bits = THERMAL_FORMS[form]
+        pat = (rf"thermal_kernelI{t}Li{nsub}EL"
+               + ("in1" if comp < 0 else f"i{comp}") + rf"ELj{bits}E")
+    name = next(n for n in _SASS[lib] if re.search(pat, n))
+    lc = loop_counts(_SASS[lib][name], bodies=True)
+    return dict(substep=lc["iter"], mufu=lc["mufu_iter"], dp=lc["dp_iter"],
+                calls=lc["calls_iter"], static=lc["iter_static"],
+                cell=lc["cell"])
+
+
+def dp_s(n):
+    """The least time in s of ``n`` float64 DADD/DMUL/DFMA lane operations
+    on the float64 pipe: 64 lanes a clock per SM at the largest SM clock."""
+    _, mhz, sms = issue_rate()
+    return n / (64 * sms * mhz * 1e6)
+
+
+def thermal_sass_ms(n, nsub, sass):
+    """The ms of ``n`` cells' thermal update of ``nsub`` substeps in the
+    kernel's own SASS (``thermal_instructions``): at the issue rate
+    (``sass_issue_s``) and on the float64 pipe (``dp_s``, 0 in float32)."""
+    if sass["cell"] is None:
+        return None, 1e3 * dp_s(n * nsub * sass["dp"])
+    return (1e3 * sass_issue_s(n, sass["cell"], [(n * nsub,
+                                                   sass["substep"])]),
+            1e3 * dp_s(n * nsub * sass["dp"]))
 
 
 def rates_he_instructions(dtype, heat):
@@ -2283,9 +2388,11 @@ def thermal_check(label, args, kw, reps=10):
     update ``args``, ``kw``: bit for bit (max_abs_err 0, asserted), one
     kernel launch an update and no host synchronisation (the profiler;
     asserted); ms per update of the kernel (CUDA events) and of the plain
-    version, and the bound of the function (``function_bound``: its bytes,
+    version, the bound of the function (``function_bound``: its bytes,
     THERMAL_OPS at the peak of the type and THERMAL_MUFU on the MUFU
-    pipe). Returns the kernels line's numbers."""
+    pipe) and beside it the kernel's own SASS (``thermal_instructions``) at
+    the issue rate and on the float64 pipe. Returns the kernels line's
+    numbers and the plain version's result."""
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.thermal import (update_temperature,
                                            update_temperature_ref)
@@ -2318,6 +2425,8 @@ def thermal_check(label, args, kw, reps=10):
     mu = THERMAL_MUFU[temp.dtype]
     n_mufu = mu["cell"] * n + mu["substep"] * n * nsub
     b_ms, b_by, binds, parts = function_bound(nbytes, ops / peak, n_mufu)
+    sass = thermal_instructions(temp.dtype)
+    issue_ms, dp_ms = thermal_sass_ms(n, nsub, sass)
     log(f"  {label}: thermal_update bit-equal to update_temperature_ref "
         f"(max_abs_err {err:g}), {n_kern} kernel a call, {prof['syncs']} "
         f"host syncs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
@@ -2327,10 +2436,121 @@ def thermal_check(label, args, kw, reps=10):
         f"{parts['mufu']:.5f} ms ({n_mufu / 1e9:.4f} G)), the kernel at "
         f"{b_ms / ms:.3f} of it; T {float(got.min()):.1f}.."
         f"{float(got.max()):.1f} K")
+    log(f"    the kernel's own SASS (subroutines counted once a call): "
+        f"{sass['substep']:g} "
+        f"instructions a substep of a cell on the shortest path "
+        f"({sass['mufu']:g} MUFU, {sass['dp']:g} float64 DADD/DMUL/DFMA, "
+        f"{sass['calls']:g} calls; {sass['static']:g} in the loop), "
+        f"{sass['cell']} a cell around them: at the issue rate "
+        + ("not counted" if issue_ms is None else
+           f"{issue_ms:.5f} ms, the kernel at {issue_ms / ms:.3f} of it")
+        + (f"; on the float64 pipe {dp_ms:.5f} ms, the kernel at "
+           f"{dp_ms / ms:.3f} of it" if sass["dp"] else ""))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 bound_binds=binds, bound_share=b_ms / ms, max_abs_err=err,
                 launches_per_update=n_kern, byte_bound_ms=parts["bytes"],
-                flop_bound_ms=parts["flops"], mufu_bound_ms=parts["mufu"])
+                flop_bound_ms=parts["flops"], mufu_bound_ms=parts["mufu"],
+                issue_ms_at_own_sass=issue_ms, dp_pipe_ms=dp_ms,
+                sass_per_substep=sass["substep"],
+                mufu_per_substep=sass["mufu"], dp_per_substep=sass["dp"],
+                sass_per_cell=sass["cell"]), want
+
+
+# the exponents of the pow pair's check, each p with p - 1: the default
+# -0.7 and ATen's special ones (the thermal tests' ALBPOW but 0, whose
+# x^0 no pow computes)
+PAIR_EXPONENTS = (-0.7, 0.5, 1.5, -0.5, -1.0, 2.0, 3.0, 4.0, -2.0)
+
+
+def thermal_pair_check(n64=10 ** 8, seed=22):
+    """csrc/thermal.cuh's pow_pair against powf and pow bit for bit on the
+    card (csrc/thermal_probe.cu's thermal_pair_check): every float32 base in
+    [1e-4, 1e5] and ``n64`` float64 bases 10^U(-4, 5) (a seeded generator on
+    the card, 10^7 at a time), each at (p, p - 1) for every p of
+    PAIR_EXPONENTS rounded to the type. Returns {"f32", "f64": (bases,
+    results whose bits differ)}."""
+    import ctypes
+    from pyc2ray_torch.ops import _build
+    from pyc2ray_torch.ops.chemistry import _raise_on
+    lib = _build.load("thermal_probe")
+    ys = [v for p in PAIR_EXPONENTS for v in (p, p - 1.0)]
+    ys = (ctypes.c_double * len(ys))(*ys)
+    stream = torch.cuda.current_stream().cuda_stream
+    lo = np.float32(1e-4)
+    lo = lo if lo >= 1e-4 else np.nextafter(lo, np.float32(1))
+    hi = np.float32(1e5)
+    lo_bits = int(lo.view(np.uint32))
+    n32 = int(hi.view(np.uint32)) - lo_bits + 1
+    out = {}
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    _raise_on(lib, "thermal_pair_check_f32", lib.thermal_pair_check_f32(
+        None, n32, lo_bits, ys, len(ys), bad.data_ptr(), stream))
+    out["f32"] = (n32, int(bad))
+    bad.zero_()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    done = 0
+    while done < n64:
+        m = min(10 ** 7, n64 - done)
+        x = 10.0 ** (torch.rand(m, dtype=torch.float64, device="cuda",
+                                generator=gen) * 9.0 - 4.0)
+        _raise_on(lib, "thermal_pair_check_f64", lib.thermal_pair_check_f64(
+            x.data_ptr(), m, 0, ys, len(ys), bad.data_ptr(), stream))
+        done += m
+    out["f64"] = (n64, int(bad))
+    return out
+
+
+def thermal_design_steps(label, args, kw, want, reps):
+    """3c's design steps of the thermal update (THERMAL_FORMS, the forms of
+    csrc/thermal_probe.cu) on the update ``args``, ``kw`` (nsub 16, Compton
+    on): each form's output against the plain version's ``want``
+    (max_abs_err 0, asserted), ms per update by CUDA events over ``reps``
+    updates, and its own SASS (``thermal_instructions``) at the issue rate
+    and on the float64 pipe. Returns {row: dict(ms=, issue_ms=, dp_ms=,
+    substep=, mufu=, dp=, cell=)}."""
+    import ctypes
+    from pyc2ray_torch.ops import _build
+    from pyc2ray_torch.ops.chemistry import _dt_arg, _raise_on
+    from pyc2ray_torch.ops.thermal import _kernel_params
+    lib = _build.load("thermal_probe")
+    dt, temp, nd, xh, heat, p = args
+    nsub = kw.get("nsub", 16)
+    fn = getattr(lib, "thermal_probe_" + (
+        "f32" if temp.dtype == torch.float32 else "f64"))
+    par = _kernel_params(p, kw.get("z", 0.0))
+    par = (ctypes.c_double * len(par))(*par)
+    dt_ptr, dt_kind, dt_val = _dt_arg(dt, temp.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    got = torch.empty_like(temp)
+    out = {}
+    for form, (row, text, *_) in enumerate(THERMAL_FORMS):
+        def call():
+            _raise_on(lib, f"thermal form {row}", fn(
+                form, dt_ptr, dt_kind, dt_val, temp.data_ptr(),
+                nd.data_ptr(), xh.data_ptr(), heat.data_ptr(), got.data_ptr(),
+                temp.numel(), nsub, par, stream))
+        got.fill_(float("nan"))
+        call()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise RuntimeError(f"3c {label} design step ({row}): max_abs_err "
+                               f"{err}, {int((got != want).sum())} cells")
+        ms = cuda_ms(call, reps)
+        sass = thermal_instructions(temp.dtype, form)
+        issue_ms, dp_ms = thermal_sass_ms(temp.numel(), nsub, sass)
+        out[row] = dict(ms=ms, issue_ms=issue_ms, dp_ms=dp_ms,
+                        substep=sass["substep"], mufu=sass["mufu"],
+                        dp=sass["dp"], cell=sass["cell"])
+        log(f"  3c {label} step ({row}) {text}: {ms:.4f} ms an update, "
+            f"max_abs_err {err:g}; own SASS {sass['substep']:g} a substep "
+            f"({sass['mufu']:g} MUFU, {sass['dp']:g} float64), "
+            f"{sass['cell']} a cell: "
+            + ("not counted" if issue_ms is None else
+               f"{issue_ms:.5f} ms at the issue rate ({issue_ms / ms:.3f})")
+            + (f", {dp_ms:.5f} ms on the float64 pipe ({dp_ms / ms:.3f})"
+               if sass["dp"] else ""))
+    return out
 
 
 def doric_reference_form(xh, dt, temp, rhe, phi, p):
@@ -4588,6 +4808,9 @@ def heating_example(engine):
         t_sim = time.time() - t0
     n_iter = quiet_log.getvalue().count("Raytracing took")
     counts = dict(sweep.launches)
+    for line in quiet_log.getvalue().splitlines():
+        if "Thermal update took" in line:
+            log(f"  {engine}: {line.strip()}")
     temp_h, xh_h = np.asarray(sim.temp), np.asarray(sim.xh)
     if not (np.all(np.isfinite(temp_h)) and np.all(np.isfinite(xh_h))):
         raise RuntimeError(f"heating example ({engine}): non-finite temp or "
@@ -5888,13 +6111,31 @@ def main():
         f"{t_therm:.4f} s = {1e9 * t_therm / N ** 3:.3f} ns/cell (host "
         f"clock, one call), T range {t_lo:.1f}..{t_hi:.1f} K, "
         f"{int((t_new > 1e3).sum())} cells above 1e3 K")
-    k_thermal = thermal_check(
-        f"thermal update N={N} float32 from 100 K",
-        (dt_d, t_cold, ndens, xh, heat_f[True], thermal), dict(z=9.0))
-    k_thermal["f64"] = thermal_check(
-        f"thermal update N={N} float64 from 100 K",
-        (dt_d.double(), t_cold.double(), ndens.double(), xh.double(),
-         heat_f[True].double(), thermal), dict(z=9.0), reps=3)
+    regs = log_ptxas("thermal_kernel", quiet=True)   # logged at the start
+    pair = thermal_pair_check()
+    log(f"  the pow pair against powf and pow at (p, p - 1) for p in "
+        f"{PAIR_EXPONENTS}: " + "; ".join(
+            f"{k} {b} results differ over {n} bases"
+            for k, (n, b) in pair.items()))
+    if any(b for _, b in pair.values()):
+        raise RuntimeError(f"3c: the pow pair differs from pow: {pair}")
+    k_thermal = {}
+    for tag, cast, reps in (("f32", torch.float32, 10),
+                            ("f64", torch.float64, 3)):
+        args = (dt_d.to(cast), t_cold.to(cast), ndens.to(cast),
+                xh.to(cast), heat_f[True].to(cast), thermal)
+        k, want = thermal_check(f"thermal update N={N} {cast} from 100 K",
+                                args, dict(z=9.0), reps=reps)
+        k["design_steps"] = thermal_design_steps(tag, args, dict(z=9.0),
+                                                 want, max(reps, 5))
+        k["registers"] = {n: r for n, r in regs.items()
+                          if ("float" if tag == "f32" else "double") in n}
+        k["pow_pair_bases_differing"] = pair[tag]
+        del want, args
+        if tag == "f32":
+            k_thermal.update(k)
+        else:
+            k_thermal["f64"] = k
     # the hydrogen pass on phase 3's Gamma with these temperatures, one of
     # its own in every cell
     k_chem_3c, _ = chemistry_check(
@@ -5958,9 +6199,13 @@ def main():
                             device=devname, do_heating=True, fuse_fold=True)
         sweep.reset_launches()
         t0 = time.time()
-        out[devname] = evolve3D(DT, DR, e_flux, e_pos, rte, chem, e_cold,
-                                e_nd, e_xh, quiet=True, thermal=thermal,
-                                zred=9.0)
+        with tempfile.TemporaryDirectory() as tmp:
+            out[devname] = evolve3D(DT, DR, e_flux, e_pos, rte, chem, e_cold,
+                                    e_nd, e_xh, quiet=True, thermal=thermal,
+                                    zred=9.0, logfile=tmp + "/4b.log")
+            for line in open(tmp + "/4b.log"):
+                if "Thermal update took" in line:
+                    log(f"  {devname}: {line.strip()}")
         n_k3h = sweep.launches["cheb_sweep_rates_heat"]
         log(f"evolve3D(thermal) N={Ne} R={Re} {nse} sources fuse_fold on "
             f"{devname}: {time.time() - t0:.2f} s, K3h launches {n_k3h}")

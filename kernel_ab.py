@@ -62,10 +62,11 @@ through entry points that every checkout since the trace loop has:
 ``--chemistry-only`` measures the hydrogen pass alone (the sets above and
 phase 3's Gamma with a temperature of its own in every cell, random or
 from the thermal update below) and the
-thermal update (``update_temperature`` over 256^3 float32 cells from
-100 K, z = 9, heated by phase 3's Gamma times 5e-12 erg: ms per update by
-CUDA events, bit-equal to ``update_temperature_ref`` where the checkout
-has one, and its launches a call).
+thermal update (``update_temperature`` over 256^3 cells from 100 K,
+z = 9, heated by phase 3's Gamma times 5e-12 erg, in float32 and in
+float64: ms per update by CUDA events, bit-equal to
+``update_temperature_ref`` where the checkout has one, and its launches a
+call).
 
 ``--chunks`` measures the bench default and EoR-bucket traces again with
 the loop's extract forced to each chunk of batches K (a checkout with the
@@ -285,31 +286,41 @@ def he_chemistry(cs, state_path):
 
 def thermal(cs, dt_d, nd, xh, phi, reps=5):
     """ms per update_temperature over phase 3's fields from 100 K, heated
-    by its Gamma times 5e-12 erg (z = 9, 16 substeps; CUDA events), bit-equal
-    to update_temperature_ref where the checkout has one, and its kernel
-    launches a call; and the updated temperatures."""
+    by its Gamma times 5e-12 erg (z = 9, 16 substeps; CUDA events), in
+    float32 and in float64, each bit-equal to update_temperature_ref where
+    the checkout has one (asserted), and its kernel launches a call; and
+    the float32 update's temperatures."""
     from pyc2ray_torch.ops import sweep, thermal as th
     c = cs.chem_params()
     p = th.ThermalParams(bh00=c.bh00, albpow=c.albpow, colh0=c.colh0,
                          temph0=c.temph0, abu_c=c.abu_c)
-    t0, heat = torch.full_like(nd, 100.0), phi * 5e-12
-    sweep.reset_launches()
-    got = th.update_temperature(dt_d, t0, nd, xh, heat, p, z=9.0)
-    n_launch = sweep.launches.get("thermal_update", 0)
-    equal = None
-    if hasattr(th, "update_temperature_ref"):
-        want = th.update_temperature_ref(dt_d, t0, nd, xh, heat, p, z=9.0)
-        equal = bool(torch.equal(got, want))
-        if not equal:
-            raise RuntimeError("update_temperature differs from its plain "
-                               "version")
-    ms = cs.cuda_ms(lambda: th.update_temperature(dt_d, t0, nd, xh, heat, p,
-                                                  z=9.0), reps)
-    cs.log(f"update_temperature 256^3 float32 from 100 K: {ms:.4f} ms per "
-           f"update, {n_launch} thermal_update launch(es), bit-equal to the "
-           f"plain version: {equal}; T {float(got.min()):.1f}.."
-           f"{float(got.max()):.1f} K")
-    return {"thermal_ms": ms, "thermal_launches": n_launch}, got
+    out, updated = {}, None
+    for t, tag in ((torch.float32, ""), (torch.float64, "_f64")):
+        args = [a.to(t) for a in (dt_d, torch.full_like(nd, 100.0), nd, xh,
+                                  phi * 5e-12)]
+        sweep.reset_launches()
+        got = th.update_temperature(*args, p, z=9.0)
+        n_launch = sweep.launches.get("thermal_update", 0)
+        equal = None
+        if hasattr(th, "update_temperature_ref"):
+            want = th.update_temperature_ref(*args, p, z=9.0)
+            equal = bool(torch.equal(got, want))
+            if not equal:
+                raise RuntimeError(f"update_temperature {t} differs from its "
+                                   f"plain version")
+            del want
+        ms = cs.cuda_ms(lambda: th.update_temperature(*args, p, z=9.0),
+                        reps if tag == "" else max(2, reps // 2))
+        cs.log(f"update_temperature 256^3 {t} from 100 K: {ms:.4f} ms per "
+               f"update, {n_launch} thermal_update launch(es), bit-equal to "
+               f"the plain version: {equal}; T {float(got.min()):.1f}.."
+               f"{float(got.max()):.1f} K")
+        out[f"thermal{tag}_ms"] = ms
+        out[f"thermal{tag}_launches"] = n_launch
+        if tag == "":
+            updated = got
+        del args, got
+    return out, updated
 
 
 def chemistry(cs, bins, state_path, thermal_too=False):

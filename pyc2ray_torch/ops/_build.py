@@ -23,10 +23,10 @@ __all__ = ["load", "NVCC_FLAGS", "SOURCES", "PROBES"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
            "chemistry", "thermal", "flat_sweep")        # csrc/<name>.cu
-PROBES = ("flat_probe",)      # csrc/<name>.cu, built only when named
+PROBES = ("flat_probe", "thermal_probe")   # built only when named
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
            "cheb_rates.cuh", "cheb_rates_he.cuh", "rounded.cuh",
-           "flat_sweep.cuh")
+           "flat_sweep.cuh", "thermal.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -102,6 +102,15 @@ _SIGNATURES = {
         "flat_trace_sweep": [_P] * 13 + [_I] * 5 + [_P],
     },
     "flat_probe": {},
+    "thermal_probe": {
+        # form; thermal_update's arguments
+        "thermal_probe": [_I, _P, _I, _D] + [_P] * 5
+        + [ctypes.c_longlong, _I, _P, _P],
+        # bases (or None), n, first bits, exponents, their count, the
+        # count of differing results, stream
+        "thermal_pair_check": [_P, ctypes.c_longlong, ctypes.c_uint, _P, _I,
+                               _P, _P],
+    },
 }
 
 _libs = {}

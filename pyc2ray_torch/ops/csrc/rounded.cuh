@@ -1,10 +1,10 @@
 // Explicitly rounded arithmetic for the kernels that equal a plain PyTorch
-// version bit for bit (chemistry.cu, thermal.cu, flat_sweep.cu): each
+// version bit for bit (chemistry.cu, thermal.cuh, flat_sweep.cuh): each
 // operation in float and double as ATen's CUDA kernels compute it (no FMA
-// contraction; pow, exp, expm1, log10 and sqrt the same CUDA math
-// functions), ATen's NaN rules for clamp and maximum, and dt as the plain
-// versions read it. Included inside each kernel's namespace, so it has no
-// guard and includes nothing.
+// contraction; pow, exp, expm1, log10, sqrt and rsqrt the same CUDA math
+// functions; rcp the correctly rounded 1 / x), ATen's NaN rules for clamp
+// and maximum, and dt as the plain versions read it. Included inside each
+// kernel's namespace, so it has no guard and includes nothing.
 
 #define ROUNDED_OP2(NAME, F32, F64)                               \
   __device__ __forceinline__ float NAME(float a, float b) {       \
@@ -27,6 +27,8 @@ ROUNDED_OP1(exp_, expf, exp)
 ROUNDED_OP1(expm1_, expm1f, expm1)
 ROUNDED_OP1(log10_, log10f, log10)
 ROUNDED_OP1(sqrt_, sqrtf, sqrt)
+ROUNDED_OP1(rsqrt_, rsqrtf, rsqrt)
+ROUNDED_OP1(rcp, __frcp_rn, __drcp_rn)
 ROUNDED_OP1(abs_, fabsf, fabs)
 #undef ROUNDED_OP1
 #undef ROUNDED_OP2

@@ -42,8 +42,10 @@ operations above, the twin of the JAX function. On the card it launches
 the kernel of csrc/thermal.cu once: one thread per cell runs the ``nsub``
 substeps in registers with dLambda/dT written out as jvp's formulas issue
 it, bit for bit as the plain version, dt read on the device; the port's
-counterpart of the JAX package's fori_loop. Launches are counted in
-``sweep.launches["thermal_update"]``.
+counterpart of the JAX package's fori_loop. (T / 1e4)^albpow takes ATen's
+route for its exponent, and where both it and its derivative's exponent
+go to pow the two share one logarithm (csrc/thermal.cuh). Launches are
+counted in ``sweep.launches["thermal_update"]``.
 """
 
 import ctypes

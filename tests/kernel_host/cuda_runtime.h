@@ -111,3 +111,35 @@ template <class T> inline T __ldcg(const T* p) { return *(const volatile T*)p; }
 template <class T> inline void __stcg(T* p, T v) { *(volatile T*)p = v; }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+// the thermal update's intrinsics (csrc/thermal.cuh): fused multiply-adds,
+// correctly rounded reciprocals, bit casts and conversions; rsqrtf and
+// rsqrt as 1 / sqrt (the card's differ by an ulp here and there)
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline float __frcp_rn(float a) { return 1.0f / a; }
+inline double __drcp_rn(double a) { return 1.0 / a; }
+inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
+inline double rsqrt(double a) { return 1.0 / std::sqrt(a); }
+inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, 4); return f; }
+inline int __float_as_int(float f) { int v; std::memcpy(&v, &f, 4); return v; }
+inline double __longlong_as_double(long long v) {
+  double d; std::memcpy(&d, &v, 8); return d;
+}
+inline int __double2hiint(double d) {
+  uint64_t u; std::memcpy(&u, &d, 8); return int(uint32_t(u >> 32));
+}
+inline int __double2loint(double d) {
+  uint64_t u; std::memcpy(&u, &d, 8); return int(uint32_t(u));
+}
+inline double __hiloint2double(int hi, int lo) {
+  const uint64_t u = (uint64_t(uint32_t(hi)) << 32) | uint32_t(lo);
+  double d; std::memcpy(&d, &u, 8); return d;
+}
+inline float __int2float_rn(int v) { return float(v); }
+inline double __int2double_rn(int v) { return double(v); }
+inline int __float2int_rz(float f) { return int(f); }
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline double2 make_double2(double x, double y) { return {x, y}; }

@@ -1,7 +1,7 @@
-// Runs the port's kernels on the host: k_loop.inc, k_chem.inc,
-// k_thermal.inc and k_flat_probe.inc are the device parts of trace_loop.cu,
-// chemistry.cu, thermal.cu and flat_probe.cu, flat_sweep.cuh those of the
-// flat engine's kernels, cheb_sweep_kernels.cuh,
+// Runs the port's kernels on the host: k_loop.inc, k_chem.inc and
+// k_flat_probe.inc are the device parts of trace_loop.cu, chemistry.cu and
+// flat_probe.cu, thermal.cuh and flat_sweep.cuh those of the thermal
+// update's and the flat engine's kernels, cheb_sweep_kernels.cuh,
 // cheb_sweep_rates.cuh, cheb_rates.cuh and cheb_rates_he.cuh those of the
 // headers of K1, K1f and K2, of K3, and of the dense rate passes, as
 // tests/rehearsal_host.py cuts them out,
@@ -30,7 +30,7 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "cheb_rates_he.cuh"
 #include "k_loop.inc"
 #include "k_chem.inc"
-#include "k_thermal.inc"
+#include "thermal.cuh"
 #include "flat_sweep.cuh"
 #include "k_flat_probe.inc"
 using namespace cheb;
@@ -384,27 +384,43 @@ void run_chem(int helium, void* const* f, long long n, int cap,
 REHEARSE_CHEM(rehearse_chem_f32, float)
 REHEARSE_CHEM(rehearse_chem_f64, double)
 
-// The thermal update of thermal.cu over n cells, `blocks` blocks of T_
-// threads striding over them, in reverse block order with `reverse`. `f`
-// holds temp, ndens, xh, heat, out.
+// The thermal update of thermal.cuh over n cells, `blocks` blocks of T_
+// threads striding over them, in reverse block order with `reverse`: the
+// engine's kernel for its arguments (form -1, thermal::dispatch) or the
+// design step `form` (thermal::run_form). `f` holds temp, ndens, xh, heat,
+// out. Returns the launch's code (run_form's 1 for a form that does not
+// take the arguments).
+struct HostThermal {
+  int blocks, T_;
+  bool reverse;
+  template <int NSUB, int COMPTON, unsigned F, typename T>
+  int run(thermal::TArgs<T> a) const {
+    emu_launch(blocks, 1, T_, 0,
+               [&] { thermal::thermal_kernel<T, NSUB, COMPTON, F>(a); },
+               reverse);
+    return 0;
+  }
+};
+
 template <class T>
-void run_thermal(void* const* f, long long n, int nsub, const double* params,
-                 int dt_kind, const void* dt_ptr, double dt_value, int blocks,
-                 int T_, int reverse) {
+int run_thermal(void* const* f, long long n, int nsub, const double* params,
+                int dt_kind, const void* dt_ptr, double dt_value, int blocks,
+                int T_, int reverse, int form) {
   using P = const T*;
   const thermal::TArgs<T> a{(P)f[0], (P)f[1], (P)f[2], (P)f[3], (T*)f[4], n,
                             nsub, thermal::Dt{dt_ptr, dt_kind, dt_value},
                             thermal::t_const<T>(params, nsub)};
-  emu_launch(blocks, 1, T_, 0, [&] { thermal::thermal_kernel<T>(a); },
-             reverse != 0);
+  const HostThermal l{blocks, T_, reverse != 0};
+  return form < 0 ? thermal::dispatch(a, l) : thermal::run_form(form, a, l);
 }
 
 #define REHEARSE_THERMAL(NAME, TYPE)                                           \
-  extern "C" void NAME(void* const* f, long long n, int nsub,                  \
-                       const double* params, int dt_kind, const void* dt_ptr,  \
-                       double dt_value, int blocks, int T_, int reverse) {     \
-    run_thermal<TYPE>(f, n, nsub, params, dt_kind, dt_ptr, dt_value, blocks,   \
-                      T_, reverse);                                            \
+  extern "C" int NAME(void* const* f, long long n, int nsub,                   \
+                      const double* params, int dt_kind, const void* dt_ptr,   \
+                      double dt_value, int blocks, int T_, int reverse,        \
+                      int form) {                                              \
+    return run_thermal<TYPE>(f, n, nsub, params, dt_kind, dt_ptr, dt_value,    \
+                             blocks, T_, reverse, form);                       \
   }
 REHEARSE_THERMAL(rehearse_thermal_f32, float)
 REHEARSE_THERMAL(rehearse_thermal_f64, double)

@@ -4,7 +4,7 @@
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
 ``cheb_sweep_kernels.cuh``, ``cheb_sweep_rates.cuh``, ``cheb_rates.cuh``,
 ``cheb_rates_he.cuh``, ``trace_loop.cu``, ``chemistry.cu``,
-``thermal.cu``, ``flat_sweep.cuh`` and ``flat_probe.cu`` (everything before
+``thermal.cuh``, ``flat_sweep.cuh`` and ``flat_probe.cu`` (everything before
 their launch code), with
 ``rounded.cuh``, are cut out of the sources and compiled with g++ against
 the stand-in headers of
@@ -63,6 +63,8 @@ _SUBST = {
         "(void)d; std::memcpy(dst, src, B);",
     'asm volatile("cp.async.commit_group;\\n" ::: "memory");': "",
     'asm volatile("cp.async.wait_group 1;\\n" ::: "memory");': "",
+    'asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));': "r = 1.0f / x;",
+    'asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));': "r = 1.0 / x;",
 }
 
 # file written for the host build -> (source, the marker where its launch
@@ -86,8 +88,8 @@ _PARTS = {
                    "}  // namespace\n"),
     "k_chem.inc": ("chemistry.cu", "// The launches of the two kernels",
                    "}  // namespace chem\n"),
-    "k_thermal.inc": ("thermal.cu", "// The launch of the thermal kernel",
-                      "}  // namespace thermal\n"),
+    "thermal.cuh": ("thermal.cuh", "// The launch of the thermal kernel",
+                    "}  // namespace thermal\n"),
     "flat_sweep.cuh": ("flat_sweep.cuh", None, ""),   # no launch code
     "k_flat_probe.inc": ("flat_probe.cu",
                          "// The launches of the probe's forms",
@@ -190,8 +192,8 @@ def load_library():
     for f in (lib.rehearse_thermal_f32, lib.rehearse_thermal_f64):
         f.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_double] + [ctypes.c_int] * 3
-        f.restype = None
+                      ctypes.c_double] + [ctypes.c_int] * 4
+        f.restype = ctypes.c_int
     _lib = lib
     return lib
 

@@ -295,9 +295,11 @@ def _thermal_fields(seed, dt, n=3000):
 
 
 def _host_thermal(lib, t, p, z, dt_arg, nsub=16, blocks=5, threads=64,
-                  reverse=0):
-    """The thermal kernel on the host over the fields ``t``; ``dt_arg`` a
-    Python number or a 0-dim tensor (read through its pointer)."""
+                  reverse=0, form=-1):
+    """The thermal kernel on the host over the fields ``t``: the engine's
+    for these arguments (``form`` -1) or a design step of
+    thermal.cuh::run_form; ``dt_arg`` a Python number or a 0-dim tensor
+    (read through its pointer)."""
     from pyc2ray_torch.ops import thermal
     dtype = t["temp"].dtype
     out = torch.full_like(t["temp"], float("nan"))
@@ -311,9 +313,10 @@ def _host_thermal(lib, t, p, z, dt_arg, nsub=16, blocks=5, threads=64,
         kind, dtp, val = 0, None, float(dt_arg)
     fn = lib.rehearse_thermal_f32 if dtype == torch.float32 else \
         lib.rehearse_thermal_f64
-    fn((ctypes.c_void_p * 5)(*ptrs), out.numel(), nsub,
-       (ctypes.c_double * len(params))(*params), kind, dtp, val, blocks,
-       threads, reverse)
+    rc = fn((ctypes.c_void_p * 5)(*ptrs), out.numel(), nsub,
+            (ctypes.c_double * len(params))(*params), kind, dtp, val, blocks,
+            threads, reverse, form)
+    assert rc == 0, (form, rc)
     return out
 
 
@@ -351,3 +354,59 @@ def test_thermal_update_on_the_host_matches_plain(lib, dt, compton, z):
         (T,), (torch.ones_like(T),))
     ntot = t["ndens"][4:8] * (1.0 + t["xh"][4:8] + p.abu_c)
     assert float((dlam / (1.5 * KB * ntot) * 3e13 / 16).abs().max()) < 1e-8
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("compton", [False, True])
+@pytest.mark.parametrize("nsub", [1, 5, 16])
+def test_thermal_kept_form_on_the_host(lib, dt, compton, nsub):
+    """The engine's kernel (thermal.cuh::dispatch: the fixed kernel for
+    nsub 16, the general one else) within THERMAL_RTOL of
+    update_temperature_ref on an odd count of cells, and on the same fields
+    from their element 1 (an unaligned start) the same bits cell for cell:
+    the fields of
+    test_thermal_update_on_the_host_matches_plain, on which THERMAL_RTOL
+    was set, their first 2999 cells. In float32 with one substep of 3e13 s
+    the host's ulps (glibc's exp, expm1 and pow against torch's) grow past
+    THERMAL_RTOL in the first port's body as well (1.9e-5 here; the card
+    holds both bit-equal to the plain version), so there the reference is
+    that body (run_form's step 0) on the host."""
+    from pyc2ray_torch.ops.thermal import (ThermalParams,
+                                           update_temperature_ref)
+    p = ThermalParams(**THERMAL, compton=compton, t_floor=200.0, t_cap=1e5)
+    t = {k: v[:2999] for k, v in _thermal_fields(11, dt).items()}
+    got = _host_thermal(lib, t, p, 9.0, 3e13, nsub=nsub)
+    if dt == torch.float32 and nsub == 1:
+        want = _host_thermal(lib, t, p, 9.0, 3e13, nsub=nsub, form=0)
+    else:
+        want = update_temperature_ref(3e13, t["temp"], t["ndens"], t["xh"],
+                                      t["heat"], p, z=9.0, nsub=nsub)
+    torch.testing.assert_close(got, want, rtol=THERMAL_RTOL[dt], atol=0)
+    tail = {k: v[1:] for k, v in t.items()}
+    assert tail["temp"].data_ptr() % 16 != 0
+    assert torch.equal(_host_thermal(lib, tail, p, 9.0, 3e13, nsub=nsub),
+                       got[1:])
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_thermal_design_steps_on_the_host(lib, dt):
+    """Every design step of thermal.cuh::run_form (chip_smoke's
+    THERMAL_FORMS, six forms) within THERMAL_RTOL of
+    update_temperature_ref. On the host the steps with libdevice's pow (0,
+    a, b) call glibc's and give one set of bits, the steps with the pow
+    pair (c, d and e, the engine's kernel) another (the pair's rcp.approx
+    is an exact reciprocal here); a fixed step refuses 5 substeps."""
+    from pyc2ray_torch.ops.thermal import (ThermalParams,
+                                           update_temperature_ref)
+    p = ThermalParams(**THERMAL, compton=True, t_floor=200.0, t_cap=1e5)
+    t = _thermal_fields(11, dt)
+    want = update_temperature_ref(3e13, t["temp"], t["ndens"], t["xh"],
+                                  t["heat"], p, z=9.0)
+    steps = [_host_thermal(lib, t, p, 9.0, 3e13, form=f) for f in range(6)]
+    for got in steps:
+        torch.testing.assert_close(got, want, rtol=THERMAL_RTOL[dt], atol=0)
+    assert all(torch.equal(s, steps[0]) for s in steps[1:3])
+    engine = _host_thermal(lib, t, p, 9.0, 3e13)
+    assert all(torch.equal(s, engine) for s in steps[3:])
+    with pytest.raises(AssertionError, match="1"):
+        _host_thermal(lib, t, p, 9.0, 3e13, nsub=5, form=1)

@@ -242,8 +242,10 @@ def test_loss_fraction_warning(loss, bound, warns, tmp_path):
 def test_update_temperature_kernel_equals_plain_on_cuda(dtype, name):
     """One launch (csrc/thermal.cu), bit for bit against
     update_temperature_ref on the card, in every regime, with dt a device
-    tensor and a Python number, with 5 substeps (a reciprocal of nsub that
-    is not a power of two) and on a grid in Fortran order."""
+    tensor and a Python number, with the regime's substeps, 16 (the fixed
+    kernels), 5 (a reciprocal of nsub that is not a power of two) and 1, on
+    the fields from their element 1 (an unaligned start, an odd count of
+    cells where the regime's is even) and on a grid in Fortran order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the thermal kernel has no CPU mode)")
     from pyc2ray_torch.ops import sweep
@@ -252,12 +254,19 @@ def test_update_temperature_kernel_equals_plain_on_cuda(dtype, name):
             for a in (T0, nd, xh, heat)]
     p = P._replace(compton=compton)
     for dt_arg, ns in ((torch.tensor(dt, dtype=dtype, device="cuda"), nsub),
-                       (dt, nsub), (dt, 5)):
+                       (dt, nsub), (dt, 16), (dt, 5), (dt, 1)):
         sweep.reset_launches()
         got = update_temperature(dt_arg, *args, p, z=z, nsub=ns)
         assert sweep.launches["thermal_update"] == 1
         want = thermal.update_temperature_ref(dt_arg, *args, p, z=z, nsub=ns)
         assert torch.equal(got, want), (dt_arg, ns)
+    if T0.size > 1:
+        tail = [a[1:] for a in args]
+        assert tail[0].data_ptr() % 16 != 0
+        for ns in (nsub, 16):
+            got = update_temperature(dt, *tail, p, z=z, nsub=ns)
+            want = thermal.update_temperature_ref(dt, *tail, p, z=z, nsub=ns)
+            assert torch.equal(got, want), ("from element 1", ns)
     n = T0.size
     if n % 4 == 0:
         f3 = [a.reshape(n // 4, 2, 2).permute(2, 1, 0) for a in args]
@@ -265,3 +274,56 @@ def test_update_temperature_kernel_equals_plain_on_cuda(dtype, name):
         got = update_temperature(dt, *f3, p, z=z, nsub=nsub)
         want = thermal.update_temperature_ref(dt, *f3, p, z=z, nsub=nsub)
         assert torch.equal(got, want)
+
+
+# exponents that ATen's CUDA pow with a scalar exponent does not send to
+# pow: 0 and 1 never reach a kernel (fill, copy), 0.5, -0.5 and -1 go to
+# sqrt, rsqrt and the reciprocal, 2, 3 and -2 to products; the derivative
+# takes albpow - 1 the same way (1.5 -> sqrt, 4 -> the cube)
+ALBPOW = [-0.7, 0.0, 0.5, 1.5, -0.5, -1.0, 2.0, 3.0, 4.0, -2.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("albpow", ALBPOW)
+def test_update_temperature_kernel_equals_plain_at_every_exponent(dtype,
+                                                                  albpow):
+    """The recombination's exponent (and the derivative's albpow - 1) at
+    ATen's special values: one launch, bit for bit against
+    update_temperature_ref on the card, on the random regime's fields with
+    Compton on and off and with 16 and 5 substeps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the thermal kernel has no CPU mode)")
+    from pyc2ray_torch.ops import sweep
+    dt, T0, nd, xh, heat, _, z, _ = _regime("random")
+    args = [torch.from_numpy(a).to(device="cuda", dtype=dtype)
+            for a in (T0, nd, xh, heat)]
+    for compton, nsub in ((True, 16), (False, 16), (True, 5)):
+        p = P._replace(albpow=albpow, compton=compton)
+        sweep.reset_launches()
+        got = update_temperature(dt, *args, p, z=z, nsub=nsub)
+        assert sweep.launches["thermal_update"] == 1
+        want = thermal.update_temperature_ref(dt, *args, p, z=z, nsub=nsub)
+        assert torch.equal(got, want), (compton, nsub, int(
+            (got != want).sum()))
+
+
+@pytest.mark.cuda
+def test_pow_pair_equals_pow_on_cuda():
+    """csrc/thermal.cuh's pow_pair (the pow of x^p and x^(p - 1) from one
+    log stage) bit for bit against powf and pow on the card: every float32
+    base in [1e-4, 1e5] and 10^8 float64 bases, at (p, p - 1) for the
+    default exponent and ATen's special ones (chip_smoke's
+    thermal_pair_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the pow pair has no CPU mode)")
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_pair", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    got = cs.thermal_pair_check()
+    assert got["f32"][0] > 2.5e8 and got["f64"][0] == 10 ** 8
+    assert got["f32"][1] == 0 and got["f64"][1] == 0, got
