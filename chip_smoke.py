@@ -219,16 +219,26 @@ Phases (any failure raises and the script exits non-zero):
    helium-free field against the hydrogen engine at the same bins. The
    helium kernel on this trace's rates (256^3 float32), see "chemistry"
    below.
-3f. The octahedral sheet engine (BoxRaytracer, engine: box, plain PyTorch)
-   at the bench configuration in float32 with the compressed bins: ns per
-   cell-update (Ns cut only where 2048 sources would outrun
-   BOX_BUDGET_S), device launches per batch and per shell, the device idle
-   share and busy ms of 16 profiled batches, per-stage ms, the cost of the
-   box side's alignment to 8, the trace of the first 16 sources against the
-   CPU (1e-5 above 1e-6 of the peak); the grey spectrum in float64 at N=64
-   with 8 sources, R beyond the mesh, against the flat engine (rtol 2e-7).
-   It launches none of the five sweep kernels, and accumulate_boxes once
-   per batch (asserted; its frame bit-equal to the plain slice adds').
+3f. The octahedral sheet engine (BoxRaytracer, engine: box) at the bench
+   configuration in float32 with the compressed bins, its trace one
+   box_trace_sweep call (csrc/trace_loop.cu, kernels in
+   csrc/box_sweep.cuh): launch counts as the loop counts them (asserted
+   against box_plan), ns per cell-update of all 2048 sources after and
+   before (the plain loop box_trace_sweep_ref, with plain slice adds, cut
+   to the batches that fit BOX_BUDGET_S but not below one past the loop's
+   first device batch), the loop against the plain loop over those batches
+   and over 16 batches with and without heat (bit-equal); device launches
+   per batch (at most 3 over the whole trace, asserted), the idle share and
+   each kernel's launches (asserted against box_plan) and median device us
+   a launch of a profiled trace; box_gather,
+   box_sweep and box_rates against their plain versions (max_abs_err 0, on
+   NaN buffers) at the bench shape with and without heat and at the grey
+   float64 clipped shape (N=64, R beyond the mesh), with kernel, plain,
+   library (the gather: torch.take) ms and the bound of the function
+   (box_work, function_bound); the sweep at each block size; the trace of
+   the first 16 sources against the CPU (1e-5 above 1e-6 of the peak); the
+   grey spectrum in float64 at N=64 with 8 sources against the flat engine
+   (rtol 2e-7).
 3g. (after 3f) The trace loop's kernels against their plain versions, bit
    for bit (max_abs_err 0): extract_boxes and accumulate_boxes at the bench
    shape (B=8, Dc=64), the EoR run's (B=16, Dc=24) and on a non-cubic
@@ -267,7 +277,7 @@ Phases (any failure raises and the script exits non-zero):
    and state bit-equal, one chemistry_pass_he launch per iteration
    (asserted). Then the chemistry checks on its last state.
 4h. The heating example of 4c with Raytracing.engine box: its five checks,
-   no sweep kernel launched and one accumulate_boxes per iteration
+   one box_trace_sweep per raytrace iteration with its kernels' launches
    (asserted), xh and T against 4c's cheb run.
 5. The multi-GPU paths (pyc2ray_torch.parallel) as a world of 2 ranks
    spawned on the one card over gloo, both on cuda:0 (and again with one
@@ -329,15 +339,16 @@ Chemistry (in 3, 3e, 4e and 4g, where its fields arise): each chemistry
    thermal kernel thermal_update at 3c's float32 update with the heating
    example's launches, 4c, and the flat engine's flat_gather, flat_sweep,
    flat_rates, flat_accumulate and its loop flat_trace_sweep, 3d, with the
-   golden's
-   launches beside), then the result line
+   golden's launches beside, and the box engine's box_gather, box_sweep,
+   box_rates and its loop box_trace_sweep, 3f), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one CUDA card; exits non-zero without one. Imports nothing of JAX.
 ``python3 chip_smoke.py --kernels`` stops after phase 2d (the kernels
 against their plain versions and their times) and prints no result line;
 ``--flat`` runs after phase 1 only the flat engine's phases 3d and 4f and
-prints no result line.
+prints no result line; ``--box`` the box engine's 3f and 4h (with the
+heating example on cheb, 4h's reference) and prints no result line.
 ``python3 chip_smoke.py --nccl``, on a machine with two cards or more, runs
 after phase 1 only phase 5's nccl world with its single-rank references
 (``nccl_branch``) and prints no result line.
@@ -396,8 +407,8 @@ EOR_ZLIST = (21.062, 20.134, 19.284)         # run_test.py's first slices
 N_EOR, B_EOR = 250, 16                       # its mesh; parameters.yml's B
 ABU_HE = 0.074                               # parameters.yml's abu_he
 N_GOLDEN, STEPS_GOLDEN = 128, 10             # run_test.py --full
-BOX_BUDGET_S = 20.0          # 3f's timed trace: the batches of Ns = 2048
-                             # that fit at the pace of 16 unprofiled ones
+BOX_BUDGET_S = 20.0          # 3f's plain loop ("before"): the batches of
+                             # Ns = 2048 that fit at the pace of 16 of them
 N_BOX_GREY, NS_BOX_GREY = 64, 8              # 3f's grey check
 # the adaptive ladder of parameters.yml at N=250: R_max_LLS = 15 cMpc x
 # 250 / 244 cells and half of it (a quarter is below R_min = 4)
@@ -3703,15 +3714,16 @@ def flat_work(rt, pos_b):
     return out
 
 
-def flat_kernel_us(prof):
-    """Per flat kernel in the profile ``prof``: (median device us, median
-    idle gap before it us, count); and the profile's device launches."""
+def flat_kernel_us(prof, table=FLAT_KERNELS):
+    """Per kernel of ``table`` ((a part of its device name, its name)) in
+    the profile ``prof``: (median device us, median idle gap before it us,
+    count); and the profile's device launches."""
     from pyc2ray_torch.diagnostics import _trace_events
     ev = sorted((e for events in _trace_events(prof) for e in events
                  if e.get("cat") == "kernel"), key=lambda e: e["ts"])
     kinds = {}
     for prev, e in zip([None] + ev, ev):
-        name = next((k for part, k in FLAT_KERNELS if part in e["name"]),
+        name = next((k for part, k in table if part in e["name"]),
                     "other")
         gap = 0.0 if prev is None else e["ts"] - (prev["ts"] + prev["dur"])
         kinds.setdefault(name, []).append((e["dur"], gap))
@@ -4553,114 +4565,456 @@ def flat_bench(src_pos, tmp, barrier_us):
     return res
 
 
+# the box engine's operations (csrc/box_sweep.cuh), a transcendental counted
+# as one: per valid cell and source of the sweep beyond shell 0 (4 c*sig,
+# 4 max, 4 div, 4 c*w, 6 adds, diag*, /, path*dr, nHI*pdr, +; its five
+# divisions a reciprocal each on the MUFU pipe), one product in shell 0;
+# per rated cell and source of the rate pass (pdr, dcol, dtau, tau_in, 2
+# prefactor products, the mask, clamp, the result's product and division;
+# 2 more with heat) and per bin where the cell's cdin is below MAX_COLDENSH
+# (2 negated products, exp, expm1, its negation, core, w*core, the add; 2
+# more with heat; float32's exp and expm1 one MUFU instruction each, the
+# division's reciprocal one a channel)
+BOX_SWEEP_OPS = 27
+BOX_SWEEP_MUFU = 5
+BOX_RATE_OPS = 10
+BOX_BIN_OPS = 8
+BOX_KERNELS = (("sheet_gather_kernel", "box_gather"),
+               ("sheet_sweep_kernel", "box_sweep"),
+               ("sheet_rates_kernel", "box_rates"),
+               ("accumulate_boxes_kernel", "accumulate_boxes"))
+# 3f's design steps of the sweep: (column densities in the shared ring,
+# threads a block)
+BOX_SWEEP_FORMS = ((False, 64), (False, 128), (False, 256), (False, 512),
+                   (False, 1024), (True, 256), (True, 512), (True, 1024))
+
+
+def box_covered(rt, pos, frame):
+    """The padded frame's cells (a bool frame) that the octahedra of the
+    sources at box corners ``pos`` (n, 3) cover, marked 64 sources at a
+    time."""
+    kt = rt.kernel_tables()
+    voff = kt.tensors[1].long()
+    P = kt.sizes["P"]
+    cov = torch.zeros(frame.numel(), dtype=torch.bool, device="cuda")
+    pos = torch.as_tensor(pos).to("cuda", torch.int64).reshape(-1, 3)
+    for k in range(0, pos.shape[0], 64):
+        p = pos[k:k + 64]
+        base = (p[:, 0] * P + p[:, 1]) * P + p[:, 2]
+        cov[(base[:, None] + voff[None, :]).reshape(-1)] = True
+    return cov
+
+
+def box_work(rt, cov, n, cdin_b, B):
+    """{kernel: (bytes, operations s, MUFU instructions)} of box engine
+    ``rt``'s kernels as the functions need them: the gather and the sweep
+    of n sources, the gather reading the frame cells ``cov`` covers
+    (``box_covered``) once and writing n n_v values, the sweep its tables
+    once, n n_v nHI in and n n_v incoming column densities out (the
+    outgoing ones are the sweep's own state: the kernel's stores of them
+    are traffic the function does not need); the rate pass of B
+    sources whose incoming column densities are ``cdin_b`` (B, n_v): its
+    tables once, nHI and cdin at the rated cells in, 1 or 2 values out, the
+    bins' work at the rated cells below MAX_COLDENSH (what this data
+    needs). Operations in s at the peak of the engine's type."""
+    from pyc2ray_torch.constants import MAX_COLDENSH
+    kt = rt.kernel_tables()
+    sz, heat, dt = kt.sizes, rt.do_heating, rt.dtype
+    isz = torch.finfo(dt).bits // 8
+    peak = H100_F32_FLOPS if dt == torch.float32 else H100_F64_FLOPS
+    n_v, n_r, E = sz["n_v"], sz["n_r"], sz["E"]
+    shell0 = int(kt.tensors[0][1])
+    rv = kt.tensors[3].long()
+    needed = int((cdin_b[:, rv] <= MAX_COLDENSH).sum())
+    f32 = dt == torch.float32
+    return {
+        "box_gather": (isz * (int(cov.sum()) + n * n_v) + 4 * n_v + 12 * n,
+                       0.0, 0),
+        "box_sweep": (n_v * (16 + 6 * isz) + 4 * (sz["Q"] + 1)
+                      + 2 * isz * n * n_v,
+                      (BOX_SWEEP_OPS * n * (n_v - shell0) + n * shell0)
+                      / peak, BOX_SWEEP_MUFU * n * (n_v - shell0)),
+        "box_rates": (n_r * (8 + 2 * isz)
+                      + isz * ((2 + 1 + heat) * B * n_r + B + 1
+                               + (2 + heat) * E),
+                      (B * n_r * (BOX_RATE_OPS + 2 * heat)
+                       + needed * E * (BOX_BIN_OPS + 2 * heat)) / peak,
+                      needed * ((2 * E if f32 else 0) + 1 + heat))}
+
+
+def box_kernel_check(label, rt, frame, pos, flux, n_rates):
+    """Each box kernel of engine ``rt`` on the sources at box corners
+    ``pos`` (n, 3) of the padded frame ``frame``, bit for bit against its
+    plain version: the gather and the sweep over all n (their outputs from
+    an allocator emptied and then holding only blocks of NaN), the rate pass
+    over the first ``n_rates`` with fluxes ``flux`` on NaN boxes (its
+    unrated cells must stay NaN) and through the binding (zeros there, the
+    whole boxes compared against the plain pass's unsheared boxes).
+    Returns ({kernel: max_abs_err}, the plain inputs for timing)."""
+    from pyc2ray_torch.ops import box_sweep as bs
+    from pyc2ray_torch.ops.raytrace_box import build_kernel_tables
+    from pyc2ray_torch.ops.sweep import s_over_dr3
+    kt = rt.kernel_tables()
+    g, dt, n = rt.geom, rt.dtype, pos.shape[0]
+    t = build_kernel_tables(g, rt._tb_np)
+    stack = torch.from_numpy((t["vf"] * g.Q + t["vq"]) * g.Dc ** 2
+                             + t["vs"]).to("cuda")
+    pathdr = rt.tables.path * torch.tensor(DR, dtype=dt).to("cuda")
+    sdr3 = s_over_dr3(DR, dt).to("cuda")
+    H = rt._sheets(frame, pos)
+    cdin = rt._sweep(H, pathdr, DR)
+    want_n = H.reshape(n, -1)[:, stack]
+    want_c = cdin.reshape(n, -1)[:, stack]
+    m = n_rates
+    phi, heat = rt._rates(cdin[:m], H[:m], pathdr, flux[:m], sdr3)
+    want_r = [rt._unshear(phi)] + ([rt._unshear(heat)] if rt.do_heating
+                                   else [])
+    del H, cdin, phi, heat
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nv = kt.sizes["n_v"]
+    ptrs = {b.data_ptr() for b in [torch.full((n * nv,), float("nan"),
+                                              dtype=dt, device="cuda")
+                                   for _ in range(3)]}
+    nhi = bs.box_gather(kt, frame, pos)
+    got_c, _ = bs.box_sweep(kt, nhi, DR)
+    on_nan = {nhi.data_ptr(), got_c.data_ptr()} <= ptrs
+    errs = {"box_gather": float((nhi - want_n).abs().max()),
+            "box_sweep": float((got_c - want_c).abs().max())}
+    rated = torch.zeros(g.Dc ** 3, dtype=torch.bool, device="cuda")
+    rated[kt.tensors[4].long()] = True
+    nan = [torch.full_like(w, float("nan")) for w in want_r]
+    bs.box_rates(kt, got_c[:m], nhi[:m], flux[:m].contiguous(), sdr3, DR,
+                 out=(nan[0], nan[1] if rt.do_heating else None))
+    zeros = bs.box_rates(kt, got_c[:m], nhi[:m], flux[:m].contiguous(),
+                         sdr3, DR)
+    err, untouched = 0.0, True
+    for a, z, w in zip(nan, zeros, want_r):
+        a, w = a.reshape(m, -1), w.reshape(m, -1)
+        err = max(err, float((a[:, rated] - w[:, rated]).abs().max()),
+                  float((z.reshape(m, -1) - w).abs().max()))
+        untouched &= bool(torch.isnan(a[:, ~rated]).all())
+    errs["box_rates"] = err if untouched else float("nan")
+    spectrum = "grey" if rt.num_bins == 1 else f"{rt.num_bins} bins"
+    log(f"  3f {label} {dt} {spectrum}{' with heat' if rt.do_heating else ''}"
+        f" (Q {g.Q}, Dc {g.Dc}, {nv} valid sheet cells, {kt.sizes['n_r']} "
+        f"rated): the gather and the sweep of {n} sources (on blocks of NaN: "
+        f"{on_nan}) max_abs_err={errs['box_gather']:.1e} / "
+        f"{errs['box_sweep']:.1e}, the rates of {m} max_abs_err="
+        f"{err:.1e} (unrated cells untouched: {untouched})")
+    if any(e != 0.0 for e in errs.values()):
+        raise RuntimeError(f"3f {label}: the box kernels differ from their "
+                           f"plain versions: {errs}")
+    return errs, (nhi, got_c, sdr3)
+
+
+def box_loop_vs_plain(label, rt, nd, xh, pos_b, flux_b):
+    """The loop (one box_trace_sweep call) against the plain loop over the
+    batches ``pos_b``: Gamma (and heat) bit for bit; returns the
+    max_abs_err."""
+    got = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
+    want = rt.box_trace_sweep_ref(nd, xh, pos_b, flux_b, DR)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want)
+              if w is not None)
+    if err != 0.0 or not float(want[0].max()) > 0.0 or \
+            (want[1] is None) == rt.do_heating:
+        raise RuntimeError(f"3f {label}: the box loop differs from the "
+                           f"plain loop, max_abs_err {err}")
+    log(f"  3f {label}: the loop against the plain loop over "
+        f"{pos_b.shape[0]} batches: max_abs_err={err:.1e} (bit-equal"
+        f"{', Gamma and heat' if rt.do_heating else ''})")
+    return err
+
+
+def box_sweep_steps(label, rt, nhi, cdin):
+    """The sweep of the sources whose nHI is ``nhi`` (n, n_v) in each form
+    of BOX_SWEEP_FORMS whose ring fits (bit-equal to ``cdin``): device ms a
+    launch (CUDA events, back to back), us a source and the blocks the card
+    holds at once."""
+    from pyc2ray_torch.ops import box_sweep as bs
+    from pyc2ray_torch.ops.sweep import SMEM_MAX
+    kt = rt.kernel_tables()
+    out = {}
+    for ring, T in BOX_SWEEP_FORMS:
+        if ring and bs.ring_bytes(kt) > SMEM_MAX:
+            continue
+        got = bs.box_sweep(kt, nhi, DR, threads=T, ring=ring)[0]
+        if not torch.equal(got, cdin):
+            raise RuntimeError(f"3f: the sweep at {T} threads "
+                               f"({'ring' if ring else 'global'}) differs")
+        ms = cuda_ms(lambda: bs.box_sweep(kt, nhi, DR, threads=T,
+                                          ring=ring), 5)
+        key = f"{'ring' if ring else 'global'} {T}"
+        out[key] = dict(ms=ms, us_a_source=1e3 * ms / nhi.shape[0],
+                        held=bs._resident(kt, T, ring, nhi.device))
+    log(f"  {label}: the sweep's forms over a launch of {nhi.shape[0]} "
+        f"sources (bit-equal each; the ring {bs.ring_bytes(kt)} B a block): "
+        + ", ".join(f"{k} threads {v['ms']:.4f} ms ({v['us_a_source']:.3f} "
+                    f"us a source, {v['held']} blocks held)"
+                    for k, v in out.items()))
+    return out
+
+
 def box_bench(src_pos, bins, tmp):
-    """Phase 3f: the octahedral sheet engine (ops/raytrace_box.py, plain
-    PyTorch) at the bench configuration in float32 with the compressed
-    bins: ns per cell-update over the batches of the Ns = 2048 sources that
-    fit BOX_BUDGET_S at the pace of 16 unprofiled batches (all of them
-    unless the engine is slower than that), device launches per batch and
-    the device idle share of a profiled window of 16 batches, and the trace
-    of the first 16 sources against the CPU (relative 1e-5 above 1e-6 of
-    the peak); per batch the device's busy ms and each stage's ms, and the
-    cost of the box side's alignment to 8 (``unaligned_box``: the same 16
-    batches, Gamma bit-equal). Then the grey spectrum in float64 at N = 64,
-    8 sources, R beyond the mesh, on the card against the flat engine's
-    analytic grey rates at rtol 2e-7. None of the five sweep kernels runs;
-    the timed trace launches accumulate_boxes once per batch and nothing
-    else (asserted)."""
-    from pyc2ray_torch.diagnostics import (device_idle_share,
-                                           device_op_times, profile_trace)
+    """Phase 3f: the octahedral sheet engine at the bench configuration in
+    float32 with the compressed bins, its trace one box_trace_sweep call
+    (csrc/trace_loop.cu, kernels in csrc/box_sweep.cuh): launch counts of
+    the whole trace as the loop counts them (asserted against box_plan),
+    ns per cell-update after (all 2048 sources) and before (the plain loop,
+    over the batches that fit BOX_BUDGET_S at the pace of 16, and at least
+    one past the loop's first device batch), the loop against the plain
+    loop over those batches (bit-equal; all of them where the plain loop
+    fits the budget); the loop against the plain loop over 16 batches with
+    and without heat (bit-equal); device launches per batch (at most 3
+    over the whole trace, asserted) and the idle share of a profiled window
+    of 16 batches, each kernel's launches (asserted against box_plan and
+    the loop's count) and median device us a launch in the profiled whole
+    trace; each kernel against its plain version (bit-equal) at the bench
+    shape with and without heat and at the grey float64 clipped shape (N =
+    64, R beyond the mesh), with its time, the plain version's, the
+    library's (the gather: torch.take on precomputed indices) and the
+    bound; the sweep at each block size; the loop per trace (CUDA events)
+    against its bound (the covered frame cells of the trace read once, the
+    frame written once, the tables once; the sweep's and the rate pass's
+    operations over every source, as box_work counts them on the first
+    device batch and batch: every rated cell is below MAX_COLDENSH at the
+    bench's uniform fields; one add a rated cell and source); the trace of
+    the first 16 sources against the CPU; the grey case against the flat
+    engine. Returns the kernels line's entries."""
+    from pyc2ray_torch.diagnostics import device_idle_share, profile_trace
+    from pyc2ray_torch.ops import box_sweep as bs
     from pyc2ray_torch.ops import sweep
     from pyc2ray_torch.ops.raytrace import RaytraceConfig, Raytracer
     from pyc2ray_torch.ops.raytrace_box import BoxRaytracer, grey_bins
-    from pyc2ray_torch.ops.trace_loop import wrap_pad
+    from pyc2ray_torch.ops.trace_loop import stage_positions
     N, dt = N_BENCH, torch.float32
-    sweep.reset_launches()
+    t0 = time.time()
     rt = BoxRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH, dtype=dt)
-    g = rt.geom
+    kt = rt.kernel_tables()
+    t_build = time.time() - t0
+    g, sz = rt.geom, kt.sizes
     flux = np.ones(NS_BENCH)
     pos_b, flux_b = rt.prepare_sources(src_pos, flux)
+    nb = pos_b.shape[0]
     nd = torch.full((N ** 3,), 1e-3, dtype=dt, device="cuda")
     xh = torch.full((N ** 3,), 1.2e-3, dtype=dt, device="cuda")
-    rt.trace_batches(nd, xh, pos_b[:1], flux_b[:1], DR)          # warm-up
-    nwin = 16
+    # warm-up: a whole trace, so the timed one finds its scratch allocated
+    rt.trace_batches(nd, xh, pos_b, flux_b, DR)
     torch.cuda.synchronize()
-    t0 = time.time()
-    rt.trace_batches(nd, xh, pos_b[:nwin], flux_b[:nwin], DR)
-    torch.cuda.synchronize()
-    t_win = time.time() - t0
-    nb = min(pos_b.shape[0], max(nwin, int(BOX_BUDGET_S * nwin / t_win)))
     sweep.reset_launches()
     t0 = time.time()
-    phi, _ = rt.trace_batches(nd, xh, pos_b[:nb], flux_b[:nb], DR)
+    phi, _ = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
     torch.cuda.synchronize()
     t_ray = time.time() - t0
     counts = dict(sweep.launches)
+    threads, ring, dev_batch, launches = bs.box_plan(kt, NS_BENCH, B_BENCH,
+                                                     nd.device)
     want = {k: 0 for k in counts}
-    want["accumulate_boxes"] = nb
+    want.update(box_trace_sweep=1, **launches)
     if counts != want:
-        raise RuntimeError(f"box engine: launches {counts}, expected "
+        raise RuntimeError(f"3f box engine: launches {counts}, expected "
                            f"{want}")
     if not (bool(torch.isfinite(phi).all()) and float(phi.max()) > 0.0):
-        raise RuntimeError("box engine: Gamma not finite and positive")
+        raise RuntimeError("3f box engine: Gamma not finite and positive")
+    # before: the plain loop over the batches that fit BOX_BUDGET_S
+    nwin = 16
+    torch.cuda.synchronize()
     t0 = time.time()
-    with profile_trace(os.path.join(tmp, "box")) as p:
+    rt.box_trace_sweep_ref(nd, xh, pos_b[:nwin], flux_b[:nwin], DR)
+    torch.cuda.synchronize()
+    t_win = time.time() - t0
+    # (at least one batch past the loop's first device batch, so the check
+    # below reaches the second)
+    nb_plain = min(nb, max(nwin, dev_batch // B_BENCH + 1,
+                           int(BOX_BUDGET_S * nwin / t_win)))
+    t0 = time.time()
+    phi_plain, _ = rt.box_trace_sweep_ref(nd, xh, pos_b[:nb_plain],
+                                          flux_b[:nb_plain], DR)
+    torch.cuda.synchronize()
+    t_plain = time.time() - t0
+    # the loop against the plain loop over those batches, bit for bit
+    if nb_plain < nb:
+        phi = rt.trace_batches(nd, xh, pos_b[:nb_plain], flux_b[:nb_plain],
+                               DR)[0]
+    if nb_plain * B_BENCH <= dev_batch or not torch.equal(phi, phi_plain):
+        raise RuntimeError(
+            f"3f box engine: the loop over {nb_plain} batches ({dev_batch} "
+            f"sources a device batch) differs from the plain loop, max_abs_"
+            f"err {float((phi - phi_plain).abs().max())}")
+    err_plain = float((phi - phi_plain).abs().max())
+    del phi_plain
+    updates = cell_updates(NS_BENCH, R_BENCH)
+    upd_plain = cell_updates(nb_plain * B_BENCH, R_BENCH)
+    log(f"box engine N={N} R={R_BENCH} Ns={NS_BENCH} B={B_BENCH} float32 "
+        f"{rt.num_bins} bins (Q {g.Q}, Dc {g.Dc}, c {g.c}; {sz['n_v']} "
+        f"valid sheet cells a source, {sz['max_shell']} in the largest shell, "
+        f"{sz['n_r']} rated; tables {t_build:.2f} s; the sweep in blocks of "
+        f"{threads} threads, its column densities "
+        f"{'in the shared ring' if ring else 'in global memory'}, "
+        f"{dev_batch} sources a launch): {nb} batches in "
+        f"{t_ray:.4f} s = {1e9 * t_ray / updates:.4f} ns/cell-update, "
+        f"{1e3 * t_ray / nb:.4f} ms per batch (one box_trace_sweep call; "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f"); before (the plain loop, "
+        + (f"all {nb} batches" if nb_plain == nb else
+           f"cut to the first {nb_plain} batches by BOX_BUDGET_S")
+        + f"): {t_plain:.4f} s = {1e9 * t_plain / upd_plain:.4f} "
+        f"ns/cell-update, {1e3 * t_plain / nb_plain:.4f} ms per batch; the "
+        f"loop against it over those {nb_plain} batches "
+        f"({-(-nb_plain * B_BENCH // dev_batch)} device batches): "
+        f"max_abs_err={err_plain:.1e} (bit-equal)")
+    # the loop against the plain loop, 16 batches, heat or not
+    errs = {"float32": box_loop_vs_plain("float32", rt, nd, xh,
+                                         pos_b[:nwin], flux_b[:nwin])}
+    rt_h = BoxRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
+                        dtype=dt, do_heating=True)
+    errs["float32 with heat"] = box_loop_vs_plain(
+        "float32 with heat", rt_h, nd, xh, pos_b[:nwin], flux_b[:nwin])
+    # the device: launches per batch, idle share, each kernel's us
+    prof = os.path.join(tmp, "box")
+    t0 = time.time()
+    with profile_trace(prof) as p:
         p["sync"] = rt.trace_batches(nd, xh, pos_b[:nwin], flux_b[:nwin],
                                      DR)[0]
     t_prof = time.time() - t0
-    idle = device_idle_share(os.path.join(tmp, "box"))
-    per_batch = launches_in(os.path.join(tmp, "box")) / nwin
-    cut = ("" if nb == pos_b.shape[0] else
-           f" (cut to the first {nb} of {pos_b.shape[0]} batches, "
-           f"{nb * B_BENCH} sources: BOX_BUDGET_S)")
-    log(f"box engine N={N} R={R_BENCH} Ns={nb * B_BENCH} B={B_BENCH} "
-        f"float32 {rt.num_bins} bins (Q {g.Q}, Dc {g.Dc}, c {g.c}; sheet "
-        f"stacks of {B_BENCH * 2 * g.Q * g.Dc ** 2} cells){cut}: {nb} "
-        f"batches in {t_ray:.4f} s = "
-        f"{1e9 * t_ray / cell_updates(nb * B_BENCH, R_BENCH):.4f} "
-        f"ns/cell-update, {1e3 * t_ray / nb:.3f} ms per batch (16 "
-        f"unprofiled: {1e3 * t_win / nwin:.3f}); {per_batch:.1f} device "
-        f"launches per batch, device idle share {idle:.4f} of a profiled "
-        f"window of {nwin} batches ({t_prof:.2f} s)")
-    dev_ms = sum(device_op_times(os.path.join(tmp, "box")).values()) / nwin
-    stages = box_stages(rt, nd, xh, pos_b, flux_b, nwin)
-    # the sweep body's device launches per shell, from one batch's sweep
-    H = rt._sheets(wrap_pad(nd.reshape((N,) * 3), g.c, g.Dc),
-                   pos_b[0].to("cuda"))
+    idle = device_idle_share(prof)
+    per_batch = flat_kernel_us(prof, BOX_KERNELS)[1] / nwin
+    prof_all = os.path.join(tmp, "box_trace")
+    with profile_trace(prof_all) as p:
+        p["sync"] = rt.trace_batches(nd, xh, pos_b, flux_b, DR)[0]
+    per_k, n_launch = flat_kernel_us(prof_all, BOX_KERNELS)
+    per_batch_trace = n_launch / nb
+    idle_trace = device_idle_share(prof_all)
+    if per_batch_trace > 3.0:
+        raise RuntimeError(f"3f box engine: {per_batch_trace:.3f} device "
+                           f"launches per batch over the trace: more than 3")
+    # each kernel's launches in the profiled trace, as the profiler saw them
+    seen = {k: per_k.get(k, (0, 0, 0))[2] for _, k in BOX_KERNELS}
+    if seen != launches or any(counts[k] != v for k, v in seen.items()):
+        raise RuntimeError(f"3f box engine: the profiled trace's launches "
+                           f"{seen}, box_plan's {launches}, the loop's "
+                           f"count {counts}")
+    busy = 1e-3 * sum(per_k[k][0] * launches[k] / nb
+                      for _, k in BOX_KERNELS)
+    log(f"  3f box engine, a profiled window of {nwin} batches "
+        f"({t_prof:.2f} s): {per_batch:.4f} device launches per batch, idle "
+        f"share {idle:.4f}; the profiled trace of {nb}: {per_batch_trace:.4f}"
+        f" device launches per batch, idle share {idle_trace:.4f}; " +
+        "; ".join(f"{k} {d:.2f} us a launch after a gap of {gp:.2f} us "
+                  f"(median of {c})" for k, (d, gp, c) in per_k.items())
+        + f"; {busy:.5f} ms of kernels a batch against "
+        f"{1e3 * t_ray / nb:.5f} ms by the host clock; launches seen in the "
+        f"profiled trace " + ", ".join(f"{k} {v}" for k, v in seen.items())
+        + " (box_plan's and the loop's count)")
+    # each kernel against its plain version at the shapes the loop gives
+    # it: the gather and the sweep on its first device batch, the rates on
+    # its first batch of B
+    frame = rt.wrap_pad(nd, xh)
+    pos = stage_positions(pos_b, frame.shape, g.Dc, "cuda")
+    pos0 = pos.reshape(-1, 3)[:dev_batch]
+    flux0 = flux_b.reshape(-1)[:dev_batch]
+    variants = {}
+    variants["float32"], (nhi, cdin, sdr3) = box_kernel_check(
+        "bench", rt, frame, pos0, flux0, B_BENCH)
+    variants["float32 with heat"], _ = box_kernel_check(
+        "bench", rt_h, frame, pos0[:B_BENCH], flux0[:B_BENCH], B_BENCH)
+    del rt_h
+    Ng = N_BOX_GREY
+    rng = np.random.RandomState(64)
+    nd_g = torch.from_numpy(10 ** rng.uniform(-4, -2, Ng ** 3)).to("cuda")
+    xh_g = torch.from_numpy(rng.uniform(0.0, 0.9, Ng ** 3)).to("cuda")
+    box_g = BoxRaytracer(Ng, 1e9, SIG, grey_bins(), batch_size=B_BENCH,
+                         dtype=torch.float64)
+    frame_g = box_g.wrap_pad(nd_g, xh_g)
+    pos_g = torch.from_numpy(rng.randint(0, Ng, size=(NS_BOX_GREY,
+                                                      3))).to("cuda")
+    flux_g = torch.from_numpy(rng.uniform(0.5, 2.0, NS_BOX_GREY)).to("cuda")
+    variants["float64 grey clipped"], _ = box_kernel_check(
+        f"grey N={Ng} R=1e9", box_g, frame_g, pos_g, flux_g, NS_BOX_GREY)
+    del frame_g
+    # times, the library's, the bounds
+    cov = box_covered(rt, pos0, frame)
+    work = box_work(rt, cov, dev_batch, cdin[:B_BENCH], B_BENCH)
+    frame_flat = frame.reshape(-1)
+    P = sz["P"]
+    base = ((pos0[:, 0].long() * P + pos0[:, 1]) * P + pos0[:, 2])
+    idx = base[:, None] + kt.tensors[1].long()[None, :]
     pathdr = rt.tables.path * torch.tensor(DR, dtype=dt).to("cuda")
-    with profile_trace(os.path.join(tmp, "box_sweep")) as p:
-        p["sync"] = rt._sweep(H, pathdr, DR)
-    per_shell = launches_in(os.path.join(tmp, "box_sweep")) / (g.Q - 1)
-    del H
-    log(f"  box engine per batch: device busy {dev_ms:.3f} ms (profiled "
-        f"window); stages " + ", ".join(f"{k} {v:.3f}"
-                                        for k, v in stages.items())
-        + f" ms (CUDA events); the sweep {per_shell:.2f} device launches "
-        f"per shell over {g.Q - 1} shells")
-    # the cost of the box side's alignment: the same 16 batches on the
-    # unaligned geometry, in turns with the aligned one
-    rt_u = unaligned_box(rt)
-    if rt_u is not None:
-        ms, phis = {}, {}
-        for eng, tag in ((rt, "aligned"), (rt_u, "unaligned"),
-                         (rt_u, "unaligned"), (rt, "aligned")):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            phis[tag] = eng.trace_batches(nd, xh, pos_b[:nwin],
-                                          flux_b[:nwin], DR)[0]
-            torch.cuda.synchronize()
-            ms.setdefault(tag, []).append(1e3 * (time.time() - t0) / nwin)
-        if not torch.equal(phis["aligned"], phis["unaligned"]):
-            raise RuntimeError("box engine: the unaligned geometry's Gamma "
-                               "differs")
-        gu = rt_u.geom
-        log(f"  box side aligned Dc={g.Dc} against unaligned {gu.Dc} (Gamma "
-            f"bit-equal; sheet cells x{(g.Dc / gu.Dc) ** 2:.4f}, box cells "
-            f"x{(g.Dc / gu.Dc) ** 3:.4f}): ms per batch over {nwin} "
-            f"batches, in turns A U U A: "
-            + " / ".join(f"{v:.3f}" for v in ms["aligned"][:1]
-                         + ms["unaligned"] + ms["aligned"][1:]))
-        del rt_u
+    H8 = rt._sheets(frame, pos0[:B_BENCH])
+    cd8 = rt._sweep(H8, pathdr, DR)
+    f8 = flux0[:B_BENCH].contiguous()
+    timed = {
+        "box_gather": (lambda: bs.box_gather(kt, frame, pos0),
+                       lambda: rt._sheets(frame, pos0),
+                       lambda: torch.take(frame_flat, idx)),
+        "box_sweep": (lambda: bs.box_sweep(kt, nhi, DR),
+                      lambda: rt._sweep(rt._sheets(frame, pos0), pathdr, DR),
+                      None),
+        "box_rates": (lambda: bs.box_rates(kt, cdin[:B_BENCH],
+                                           nhi[:B_BENCH], f8, sdr3, DR),
+                      lambda: [rt._unshear(x) for x in rt._rates(
+                          cd8, H8, pathdr, f8, sdr3) if x is not None],
+                      None)}
+    res = {}
+    for name, (kern, plain, lib) in timed.items():
+        b_ms, b_by, binds, parts = function_bound(*work[name])
+        res[name] = dict(
+            max_abs_err=max(v[name] for v in variants.values()),
+            ms=per_k[name][0] * 1e-3, ms_wrapper=cuda_ms(kern, 5),
+            plain_ms=cuda_ms(plain, 1),
+            library_ms=None if lib is None else cuda_ms(lib, 5),
+            bound_ms=b_ms, bound_by=b_by, bound_part=binds,
+            bound_parts=parts, launches=seen[name],
+            sources_a_launch=B_BENCH if name == "box_rates" else dev_batch,
+            variants={k: v[name] for k, v in variants.items()})
+        r = res[name]
+        log(f"  3f {name}: max_abs_err={r['max_abs_err']:.1e}; device "
+            f"{r['ms']:.5f} ms per launch in the loop "
+            f"({r['sources_a_launch']} sources a launch; a wrapper call "
+            f"{r['ms_wrapper']:.5f} ms by CUDA events) against the plain "
+            f"version {r['plain_ms']:.4f} ms"
+            + ("" if lib is None else
+               f" and one torch.take {r['library_ms']:.5f} ms")
+            + f"; bound {b_ms:.5f} ms ({binds}: bytes {parts['bytes']:.5f}, "
+            f"flops {parts['flops']:.5f}, MUFU {parts['mufu']:.5f}); "
+            f"{r['launches']} launches in the trace")
+    del idx, H8, cd8
+    res["box_sweep"].update(
+        design_steps=box_sweep_steps("3f bench", rt, nhi, cdin),
+        threads=threads, ring=ring)
+    # the loop per trace, after and before
+    loop_ms = cuda_ms(lambda: rt.trace_batches(nd, xh, pos_b, flux_b, DR), 3)
+    cov_all = box_covered(rt, pos, frame)
+    isz = torch.finfo(dt).bits // 8
+    peak = H100_F32_FLOPS if dt == torch.float32 else H100_F64_FLOPS
+    scale = {"box_sweep": NS_BENCH / dev_batch, "box_rates": nb}
+    loop_ops = (sum(work[k][1] * v for k, v in scale.items())
+                + (1 + rt.do_heating) * sz["n_r"] * NS_BENCH / peak)
+    loop_mufu = sum(work[k][2] * v for k, v in scale.items())
+    loop_bytes = (isz * (int(cov_all.sum()) + frame.numel() + NS_BENCH)
+                  + sz["n_v"] * (20 + 6 * isz) + sz["n_r"] * (8 + 3 * isz)
+                  + 12 * NS_BENCH)
+    b_ms, b_by, binds, parts = function_bound(loop_bytes, loop_ops,
+                                              loop_mufu)
+    res["box_trace_sweep"] = dict(
+        max_abs_err=max(err_plain, *errs.values()), ms=loop_ms,
+        plain_ms=1e3 * t_plain, plain_batches=nb_plain, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, bound_part=binds, bound_parts=parts,
+        launches=counts["box_trace_sweep"], loop_vs_plain_16=errs,
+        loop_vs_plain_whole=err_plain,
+        launches_per_batch=per_batch,
+        launches_per_batch_trace=per_batch_trace, idle_share=idle,
+        idle_share_trace=idle_trace, ns_per_cell=1e9 * t_ray / updates,
+        ns_per_cell_before=1e9 * t_plain / upd_plain,
+        dev_batch=dev_batch, kernel_tables_s=t_build)
+    log(f"  3f box_trace_sweep: {loop_ms:.3f} ms per trace of {nb} batches "
+        f"by CUDA events ({loop_ms / nb:.5f} ms per batch), the plain loop "
+        f"{1e3 * t_plain:.1f} ms over {nb_plain} batches (host clock, once); "
+        f"bound {b_ms:.5f} ms ({binds}: bytes {parts['bytes']:.5f}, flops "
+        f"{parts['flops']:.5f}, MUFU {parts['mufu']:.5f})")
+    del nhi, cdin, cov, cov_all
+    # the first 16 sources against the CPU, and the grey case against the
+    # flat engine
     rt_cpu = BoxRaytracer(N, R_BENCH, SIG, bins, batch_size=B_BENCH,
                           dtype=dt, device="cpu")
     nd_np, xh_np = np.full((N,) * 3, 1e-3), np.full((N,) * 3, 1.2e-3)
@@ -4671,112 +5025,80 @@ def box_bench(src_pos, bins, tmp):
     log(f"  box engine, 16 sources, float32: GPU vs CPU max rel "
         f"{max_rel(phi_g, phi_c, 1e-6):.3e} (above 1e-6 of the peak; "
         f"bound 1e-5), max abs {float((phi_g - phi_c).abs().max()):.3e}")
-    # the grey spectrum against the flat engine on the card
-    Ng = N_BOX_GREY
-    rng = np.random.RandomState(64)
-    nd_g = 10 ** rng.uniform(-4, -2, (Ng,) * 3)
-    xh_g = rng.uniform(0.0, 0.9, (Ng,) * 3)
-    pos_g = rng.randint(0, Ng, size=(NS_BOX_GREY, 3))
-    flux_g = rng.uniform(0.5, 2.0, NS_BOX_GREY)
-    box = BoxRaytracer(Ng, 1e9, SIG, grey_bins(), batch_size=B_BENCH,
-                       dtype=torch.float64)
     flat = Raytracer(RaytraceConfig(N=Ng, R_max_LLS=1e9, sig=SIG,
                                     batch_size=B_BENCH, dtype=torch.float64,
                                     grey_analytic=True), device="cuda")
+    nd_gn, xh_gn = (a.cpu().numpy() for a in (nd_g, xh_g))
+    pos_gn, flux_gn = pos_g.cpu().numpy(), flux_g.cpu().numpy()
+    sweep.reset_launches()
     t0 = time.time()
-    phi_b = box.trace(nd_g, xh_g, pos_g, flux_g, DR)
+    phi_b = box_g.trace(nd_gn, xh_gn, pos_gn, flux_gn, DR)
     torch.cuda.synchronize()
     t_box = time.time() - t0
-    # the box engine's launches, before the flat engine (its reference)
-    # launches its own kernels
-    swept = {k: v for k, v in sweep.launches.items()
-             if k != "accumulate_boxes" and v}
-    phi_f = flat.trace(nd_g, xh_g, pos_g, flux_g, DR)
+    boxed = {k: v for k, v in sweep.launches.items() if v}
+    phi_f = flat.trace(nd_gn, xh_gn, pos_gn, flux_gn, DR)
     torch.testing.assert_close(phi_b, phi_f, rtol=2e-7, atol=0.0)
-    log(f"  box engine grey float64 N={Ng} R=1e9 (Q {box.geom.Q}, Dc "
-        f"{box.geom.Dc}), {NS_BOX_GREY} sources in {t_box:.3f} s: against "
-        f"the flat engine's analytic grey rates max rel "
-        f"{max_rel(phi_b, phi_f):.3e} (rtol 2e-7)")
-    if swept:
-        raise RuntimeError(f"box engine launched kernels {swept}")
-    log(f"  box engine: none of the five sweep kernels launched (no TPU "
-        f"kernel lies on this path); the timed trace's launches {counts}")
-    return dict(t_ray=t_ray, per_batch=per_batch, idle=idle)
+    log(f"  box engine grey float64 N={Ng} R=1e9 (Q {box_g.geom.Q}, Dc "
+        f"{box_g.geom.Dc}), {NS_BOX_GREY} sources in {t_box:.3f} s "
+        f"(launches {boxed}): against the flat engine's analytic grey rates "
+        f"max rel {max_rel(phi_b, phi_f):.3e} (rtol 2e-7)")
+    if boxed.get("box_trace_sweep") != 1:
+        raise RuntimeError(f"3f: the grey trace's launches {boxed}")
+    return res
 
 
-def box_stages(rt, nd, xh, pos_b, flux_b, nbatch):
-    """Per-batch ms of the box engine's stages over the first ``nbatch``
-    batches (CUDA events, a synchronize after each batch: the engine is
-    launch-bound, so a stage's time is mostly its host's enqueue): the
-    accumulate is the accumulate_boxes kernel, and beside it the plain slice
-    adds of the loop before ("accumulate_plain"); the two frames, and the
-    plain one folded against trace_batches over the same batches, are
-    asserted bit-equal."""
-    from pyc2ray_torch.ops.sweep import s_over_dr3
-    from pyc2ray_torch.ops.trace_loop import (accumulate_boxes, add_boxes,
-                                              fold_padding, stage_positions,
-                                              wrap_pad)
-    g, N = rt.geom, rt.N
-    nhi_pad = wrap_pad(nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3)),
-                       g.c, g.Dc)
-    pad, plain = torch.zeros_like(nhi_pad), torch.zeros_like(nhi_pad)
-    pathdr = rt.tables.path * torch.tensor(DR, dtype=rt.dtype).to("cuda")
-    s_dr3 = s_over_dr3(DR, rt.dtype).to("cuda")
-    pos = stage_positions(pos_b[:nbatch], nhi_pad.shape, g.Dc, "cuda")
-    tot = dict.fromkeys(("sheets", "sweep", "rates", "unshear",
-                         "accumulate", "accumulate_plain"), 0.0)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-    for k in range(nbatch):
-        ev[0].record()
-        H = rt._sheets(nhi_pad, pos[k])
-        ev[1].record()
-        cdin = rt._sweep(H, pathdr, DR)
-        ev[2].record()
-        phi, _ = rt._rates(cdin, H, pathdr, flux_b[k], s_dr3)
-        ev[3].record()
-        box = rt._unshear(phi)
-        ev[4].record()
-        accumulate_boxes(pad, box, pos, k)
-        ev[5].record()
-        add_boxes(plain, box, pos_b[k])
-        ev[6].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(tot):
-            tot[name] += ev[i].elapsed_time(ev[i + 1])
-    whole = rt.trace_batches(nd, xh, pos_b[:nbatch], flux_b[:nbatch], DR)[0]
-    if not (torch.equal(pad, plain) and torch.equal(
-            fold_padding(plain, g.c, g.Dc).reshape(-1), whole)):
-        raise RuntimeError("box engine: accumulate_boxes differs from the "
-                           "plain slice adds")
-    return {k: v / nbatch for k, v in tot.items()}
-
-
-def unaligned_box(rt):
-    """A copy of box engine ``rt`` on its sheet geometry with the box side
-    hi - lo + 1 instead of the next multiple of 8 (the JAX package's
-    alignment, which the port keeps for bit-equal tables): the same cells
-    in smaller stacks. None where the side is aligned already."""
-    import copy
-    from pyc2ray_torch.ops.raytrace_box import build_box_tables
-    g, N = rt.geom, rt.N
-    D = min(N // 2 - 1 + N % 2, g.max_q) + g.c + 1
-    if D == g.Dc:
-        return None
-    cut = {}
-    for name, a in g._asdict().items():
-        if name == "zidx":
-            cut[name] = np.minimum(a[:D, :D], D - 1)
-        elif name in ("qidx", "unshear_valid", "k_nonneg"):
-            cut[name] = a[:D, :D, :D]
-        elif isinstance(a, np.ndarray):
-            cut[name] = a[..., :D, :D]
-    u = copy.copy(rt)
-    u.geom = g._replace(Dc=D, **cut)
-    u.tables = rt.tables._replace(**{
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            "cuda", rt.dtype if v.dtype == np.float64 else None)
-        for k, v in build_box_tables(u.geom, N, rt.R_max_LLS).items()})
-    return u
+def heating_box(heat_4c):
+    """Phase 4h: the heating example of 4c on Raytracing.engine box: its
+    five checks (``heating_example``), one box_trace_sweep per raytrace
+    iteration and each of its kernels' launches as the loop counts them
+    where it issues them, asserted against box_plan's count, xh and T
+    against 4c's cheb run ``heat_4c`` (xh, T)."""
+    from pyc2ray_torch.ops import box_sweep as bs
+    sim, n_iter, counts, t_sim = heating_example("box")
+    rt = sim.raytracer
+    g_b = rt.geom
+    log(f"C2Ray_Test heating example N={N_HEATING} (float64, engine box, "
+        f"Q={g_b.Q}, Dc={g_b.Dc}, {rt.num_bins} bins): {STEPS_HEATING} "
+        f"timesteps, {n_iter} raytrace iterations, {t_sim:.2f} s with "
+        f"set-up; kernel launches {counts}")
+    if type(rt).__name__ != "BoxRaytracer":
+        raise RuntimeError(f"heating example (box): engine "
+                           f"{type(rt).__name__}")
+    kt = rt.kernel_tables()
+    threads, ring, _, per_trace = bs.box_plan(
+        kt, rt.batch_size, rt.batch_size, torch.device("cuda"))
+    want = {k: 0 for k in counts}
+    want.update({k: v * n_iter for k, v in per_trace.items()},
+                box_trace_sweep=n_iter, chemistry_pass=n_iter,
+                thermal_update=STEPS_HEATING)
+    if counts != want or n_iter == 0:
+        raise RuntimeError(f"heating example (box): launches {counts}, "
+                           f"expected {want}")
+    log(f"  box: one box_trace_sweep per raytrace iteration ({n_iter}), "
+        f"the loop's launches " + ", ".join(f"{k} {counts[k]}"
+                                            for k in per_trace)
+        + " (box_plan's, " + ", ".join(f"{k} {v}" for k, v in
+                                       per_trace.items())
+        + f" a trace); the sweep in blocks of {threads} threads, its column densities "
+        + (f"in the shared ring ({bs.ring_bytes(kt)} B)" if ring
+           else "in global memory")
+        + f", {kt.sizes['n_v']} valid sheet cells, {kt.sizes['max_shell']} "
+        f"in the largest shell")
+    for name, got, want_a in (("xh", sim.xh, heat_4c[0]),
+                              ("T", sim.temp, heat_4c[1])):
+        got = np.asarray(got)
+        log(f"  box against 4c's cheb run: {name} max rel "
+            f"{np.max(np.abs(got - want_a) / np.abs(want_a)):.3e}, mean "
+            f"{got.mean():.6e} against {want_a.mean():.6e}")
+    # the sweep's forms at this shape, its one source on the final fields
+    dev = torch.device("cuda")
+    frame = rt.wrap_pad(*(torch.as_tensor(np.asarray(a), dtype=rt.dtype,
+                                          device=dev)
+                          for a in (sim.ndens, sim.xh)))
+    nhi = bs.box_gather(kt, frame, torch.tensor([[N_HEATING // 2] * 3]))
+    box_sweep_steps(f"4h (N={N_HEATING}, float64, one source)", rt, nhi,
+                    bs.box_sweep(kt, nhi, DR)[0])
+    return counts
 
 
 def heating_example(engine):
@@ -5795,6 +6117,15 @@ def main():
         golden_phase()
         log(f"chip_smoke --flat wall time: {time.time() - T_START:.1f} s")
         return 0
+    if "--box" in sys.argv[1:]:
+        src_pos = np.random.RandomState(100).randint(0, N_BENCH,
+                                                     size=(NS_BENCH, 3))
+        with tempfile.TemporaryDirectory() as tmp:
+            box_bench(src_pos, make_bins(), tmp)
+        sim = heating_example("cheb")[0]
+        heating_box((np.asarray(sim.xh), np.asarray(sim.temp)))
+        log(f"chip_smoke --box wall time: {time.time() - T_START:.1f} s")
+        return 0
 
     # ---- 2. kernel vs plain version on the card -------------------------
     k_bench = check_sweep(N_BENCH, R_BENCH, B_BENCH, torch.float32, seed=1,
@@ -6153,7 +6484,7 @@ def main():
 
     # ---- 3f. the octahedral sheet engine at the bench configuration -------
     with tempfile.TemporaryDirectory() as tmp:
-        box_bench(src_pos, bins, tmp)
+        k_box = box_bench(src_pos, bins, tmp)
 
     # ---- 3g. the trace loop's kernels and the C++ loop vs plain ----------
     k_rated, k_chunks = check_trace_loop(bins, src_pos)
@@ -6267,28 +6598,7 @@ def main():
                                            chem)
 
     # ---- 4h. the heating example on the octahedral sheet engine -----------
-    sim, n_iter, counts, t_sim = heating_example("box")
-    g_b = sim.raytracer.geom
-    log(f"C2Ray_Test heating example N={N_HEATING} (float64, engine box, "
-        f"Q={g_b.Q}, Dc={g_b.Dc}, {sim.raytracer.num_bins} bins): "
-        f"{STEPS_HEATING} timesteps, {n_iter} raytrace iterations, "
-        f"{t_sim:.2f} s with set-up; kernel launches {counts}")
-    n_acc = counts.pop("accumulate_boxes")
-    n_chem = counts.pop("chemistry_pass")
-    n_thermal_box = counts.pop("thermal_update")
-    if type(sim.raytracer).__name__ != "BoxRaytracer" \
-            or n_acc != n_iter or n_chem != n_iter \
-            or n_thermal_box != STEPS_HEATING or any(counts.values()):
-        raise RuntimeError(f"heating example (box): engine "
-                           f"{type(sim.raytracer).__name__}, "
-                           f"accumulate_boxes {n_acc} for {n_iter} "
-                           f"iterations, other launches {counts}")
-    for name, got, want in (("xh", sim.xh, heat_4c[0]),
-                            ("T", sim.temp, heat_4c[1])):
-        got = np.asarray(got)
-        log(f"  box against 4c's cheb run: {name} max rel "
-            f"{np.max(np.abs(got - want) / np.abs(want)):.3e}, mean "
-            f"{got.mean():.6e} against {want.mean():.6e}")
+    heating_box(heat_4c)
 
     # ---- 5. the multi-GPU paths: a world of ranks ----------------------
     del sim
@@ -6424,7 +6734,23 @@ def main():
                   {"max_abs_err_golden": g_errs[name]}), **k_flat[name])
           for name, line in (("flat_gather", "299"), ("flat_sweep", "172"),
                              ("flat_rates", "224"), ("flat_accumulate", "288"),
-                             ("flat_trace_sweep", "153"))]]
+                             ("flat_trace_sweep", "153"))],
+        # the box engine's (no TPU kernel: the XLA code of the JAX engine's
+        # jit program, its shell fori_loop, _rates and batch scan): launches
+        # over phase 3f's bench trace (float32), the kernels' as its profiled
+        # trace shows them; each kernel's ms its median
+        # device time per launch in 3f's profiled trace, every other number
+        # per call on the loop's first device batch (the rates: its first
+        # batch); the loop's per trace of 3f (CUDA events; the plain loop
+        # once by the host clock over the batches BOX_BUDGET_S allows)
+        *[dict(name=name, source=src + ("trace_loop.cu"
+                                        if name == "box_trace_sweep"
+                                        else "box_sweep.cuh"),
+               replaces="pyc2ray_tpu/ops/raytrace_box.py:" + line,
+               **k_box[name])
+          for name, line in (("box_gather", "153"), ("box_sweep", "196"),
+                             ("box_rates", "280"),
+                             ("box_trace_sweep", "356"))]]
     kernels = [dict(name=k.pop("name"), route="cuda",
                     **{"library_ms": None, **k}) for k in kernels]
     log(f"chip_smoke wall time: {time.time() - T_START:.1f} s")

@@ -4,7 +4,7 @@ on one NVIDIA GPU, in a form two checkouts can be compared by.
 
     python3 kernel_ab.py [--root DIR] [--label NAME] [--traces]
                          [--chemistry [--state FILE]] [--chemistry-only]
-                         [--chunks K,K,...]
+                         [--chunks K,K,...] [--box]
 
 Imports ``pyc2ray_torch`` from DIR (default: the directory of this script;
 DIR may hold another checkout, the package builds its kernels under DIR)
@@ -67,6 +67,15 @@ z = 9, heated by phase 3's Gamma times 5e-12 erg, in float32 and in
 float64: ms per update by CUDA events, bit-equal to
 ``update_temperature_ref`` where the checkout has one, and its launches a
 call).
+
+``--box`` measures the box engine's bench trace alone (phase 3f's
+configuration and fields: ``BoxRaytracer``, float32, 14 compressed bins,
+256 batches of B = 8): ms per trace of ``rt.trace_batches`` (CUDA events,
+the least of 3) and its ns per cell-update; where the checkout has the
+plain loop ``box_trace_sweep_ref``, the trace bit-equal to it over the
+first 16 batches (asserted), and from one profiled trace each box kernel's
+median device us a launch, the gap before it and the device launches a
+batch (a checkout whose box trace is plain PyTorch is timed only).
 
 ``--chunks`` measures the bench default and EoR-bucket traces again with
 the loop's extract forced to each chunk of batches K (a checkout with the
@@ -449,6 +458,47 @@ def flat_bench(cs, src):
                 launches_per_batch=n_launch / nb)
 
 
+def box_bench(cs, src, bins):
+    """The box engine's bench trace (phase 3f's): bit for bit against the
+    plain loop over its first 16 batches where the checkout has one, ms per
+    trace of ``rt.trace_batches`` (least of 3 after a warm-up) and, where
+    the trace is the kernel loop, from one profiled trace each box kernel's
+    median device us, the gap before it and the device launches a batch."""
+    from pyc2ray_torch.diagnostics import profile_trace
+    from pyc2ray_torch.ops.raytrace_box import BoxRaytracer
+    N, dt = cs.N_BENCH, torch.float32
+    rt = BoxRaytracer(N, cs.R_BENCH, cs.SIG, bins, batch_size=cs.B_BENCH,
+                      dtype=dt)
+    pos_b, flux_b = rt.prepare_sources(src, np.ones(cs.NS_BENCH))
+    nd = torch.full((N ** 3,), 1e-3, dtype=dt, device="cuda")
+    xh = torch.full((N ** 3,), 1.2e-3, dtype=dt, device="cuda")
+    label = f"box bench N={N} B={cs.B_BENCH} float32"
+    loop = hasattr(rt, "box_trace_sweep_ref")
+    if loop:
+        cs.box_loop_vs_plain(label, rt, nd, xh, pos_b[:16], flux_b[:16])
+    ms = min(cs.cuda_ms(lambda: rt.trace_batches(nd, xh, pos_b, flux_b,
+                                                 cs.DR), 1)
+             for _ in range(3))
+    nb = pos_b.shape[0]
+    ns = 1e6 * ms / cs.cell_updates(cs.NS_BENCH, cs.R_BENCH)
+    out = dict(ms=ms, ns_per_cell=ns)
+    text = ""
+    if loop:
+        with tempfile.TemporaryDirectory() as tmp:
+            prof = os.path.join(tmp, "box")
+            with profile_trace(prof) as p:
+                p["sync"] = rt.trace_batches(nd, xh, pos_b, flux_b,
+                                             cs.DR)[0]
+            per_k, n_launch = cs.flat_kernel_us(prof, cs.BOX_KERNELS)
+        out.update(kernels=per_k, launches_per_batch=n_launch / nb)
+        text = f"; {n_launch / nb:.4f} device launches a batch; " + "; ".join(
+            f"{k} {d:.2f} us a launch after a gap of {g:.2f} us (median of "
+            f"{n})" for k, (d, g, n) in per_k.items())
+    cs.log(f"{label}: {ms:.3f} ms per trace of {nb} batches, {ns:.5f} "
+           f"ns/cell-update{text}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -464,6 +514,8 @@ def main():
                     help="the hydrogen pass and the thermal update alone")
     ap.add_argument("--chunks", default="",
                     help="chunks of batches the extract is forced to")
+    ap.add_argument("--box", action="store_true",
+                    help="the box engine's bench trace alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available; this script needs a GPU",
@@ -489,6 +541,12 @@ def main():
         cs.log_ptxas("hydrogen")
         cs.log_ptxas("thermal")
         out.update(chemistry(cs, bins, args.state, thermal_too=True))
+        cs.log(json.dumps(out))
+        return 0
+    if args.box:
+        src = np.random.RandomState(100).randint(0, cs.N_BENCH,
+                                                 size=(cs.NS_BENCH, 3))
+        out["box_bench"] = box_bench(cs, src, bins)
         cs.log(json.dumps(out))
         return 0
     cs.log_ptxas("rates_he")

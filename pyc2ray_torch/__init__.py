@@ -13,7 +13,8 @@ hand-written CUDA kernels (``ops/csrc``), on the flux-bucketed adaptive
 engine (``ops.adaptive``, ``engine: adaptive``) built from it, on the
 table-exact octahedral engine (``ops.raytrace``, ``engine: flat``, the
 YAML default) and on the octahedral sheet engine (``ops.raytrace_box``,
-``engine: box``, plain PyTorch); the three-species helium path
+``engine: box``, a loop of hand-written kernels on the card); the
+three-species helium path
 (``ops.raytrace_he``, ``ops.chemistry_he``, ``evolve.evolve3D_he``,
 ``engine: he``); the time-averaged chemistry pass (``ops.chemistry``), the
 convergence loop (``evolve.evolve3D``), the C2Ray binary and checkpoint IO

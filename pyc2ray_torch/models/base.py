@@ -469,15 +469,18 @@ class C2RaySimulation:
                                       10 * ev2fr * self.ethe1,
                                       panels=panels, nodes=nodes)
         if engine == "box":
-            # the octahedral sheet formulation, plain PyTorch on either
-            # device (no shard_trace: refused under a mesh, as in JAX)
+            # the octahedral sheet formulation: one box_trace_sweep call of
+            # hand-written kernels a trace on the card, the plain loop on
+            # the CPU (no shard_trace: refused under a mesh, as in JAX)
             from ..ops.raytrace_box import BoxRaytracer
             self.raytracer = BoxRaytracer(
                 self.N, float(self.R_max_LLS), float(self.sig), bins,
                 batch_size=batch, dtype=dtype,
                 do_heating=self.compute_heating_rates, device=self.device)
+            how = ("CUDA kernels" if self.device.type == "cuda"
+                   else "plain PyTorch")
             self.printlog(
-                f"Using PyTorch octahedral sheet raytracing on {self.device} "
+                f"Using octahedral sheet raytracing ({how}) on {self.device} "
                 f"({bins.num_bins} spectral bins, batch = {batch:n}, dtype "
                 f"= {dtype_name})")
             return

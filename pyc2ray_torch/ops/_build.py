@@ -26,7 +26,7 @@ SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
 PROBES = ("flat_probe", "thermal_probe")   # built only when named
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
            "cheb_rates.cuh", "cheb_rates_he.cuh", "rounded.cuh",
-           "flat_sweep.cuh", "thermal.cuh")
+           "flat_sweep.cuh", "thermal.cuh", "box_sweep.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -71,6 +71,18 @@ _SIGNATURES = {
         # rb0, Ds, n_valid, seg_S, seg_K, F0, F1, F2, nb, chunk
         "he_trace_sweep": [_P] * 24 + [_D, _D, _D] + [_I] * 10
         + _LAUNCH,
+        # the box engine's: tabs, dims, vals (csrc/box_sweep.cuh's
+        # make_geom), then each entry's own: threads, ring, held
+        "box_resident": [_P] * 3 + [_I, _I, ctypes.POINTER(_I)],
+        # frame, pos, out; n; stream
+        "box_gather": [_P] * 6 + [_I, _P],
+        # nhi, cd, cdin; n, threads, ring; stream
+        "box_sweep": [_P] * 6 + [_I] * 3 + [_P],
+        # nhi, cdin, flux, sdr3, phi, heat; n; stream
+        "box_rates": [_P] * 9 + [_I, _P],
+        # frame, pos, flux, sdr3, nhi, cd, cdin, phi, heat, phi_frame,
+        # heat_frame; nb, B, dev_batch, threads, ring; launches (4); stream
+        "box_trace_sweep": [_P] * 14 + [_I] * 5 + [_P] * 2,
     },
     "chemistry": {
         # dt (pointer, kind, value), the fields, mask, outputs, count and

@@ -41,6 +41,17 @@
 //                            HeRaytracer._trace_jit (jit + lax.fori_loop
 //                            over batches). Plain version: trace_loop.py::
 //                            he_trace_sweep_ref.
+//   box_trace                the box engine's trace (box_sweep.cuh's
+//                            kernels): the rate boxes zeroed once, then per
+//                            device batch of consecutive sources the gather
+//                            of nHI at the valid sheet cells and the sweep,
+//                            and per batch of B the rate pass into the rate
+//                            boxes and the accumulate over the rated cells;
+//                            the counterpart of pyc2ray_tpu/ops/
+//                            raytrace_box.py::BoxRaytracer._trace_jit (jit +
+//                            shell lax.fori_loop + batch lax.scan). Plain
+//                            version: ops/raytrace_box.py::BoxRaytracer.
+//                            box_trace_sweep_ref.
 //
 // Both kernels take the positions of the whole trace, (nb, B, 3) int32 on
 // the device, and a batch index, so a trace copies its positions to the card
@@ -121,6 +132,7 @@
 // out, so the frame is the same bit for bit. The box and frame bytes fall
 // with the rated share (10.7 MB of 25 MB at the bench shape).
 
+#include "box_sweep.cuh"
 #include "cheb_rates.cuh"
 #include "cheb_rates_he.cuh"
 #include "cheb_sweep_kernels.cuh"
@@ -868,6 +880,153 @@ int he_trace_sweep(const HeLoopBufs& a, const HeLoopArgs& s, const void* sw,
   return 0;
 }
 
+// The launches of the box engine's kernels (box_sweep.cuh) and its trace.
+
+// The sweep's shared memory in the ring placement (0 in the global one),
+// allowed for its kernel; -1 where the ring does not fit a block.
+template <typename T>
+int box_sweep_smem(const box::Geom<T>& g, bool ring) {
+  if (!ring) return 0;
+  const size_t smem = box::ring_bytes(g);
+  if (smem > 232448) return -1;
+  const cudaError_t err = allow(
+      reinterpret_cast<const void*>(box::sheet_sweep_kernel<T, true>),
+      int(smem), false);
+  return err == cudaSuccess ? int(smem) : -1;
+}
+
+// How many blocks of `threads` threads of the sweep in placement `ring` the
+// card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor times
+// the SMs).
+template <typename T>
+int box_resident(const box::Geom<T>& g, int threads, bool ring, int* held) {
+  const int smem = box_sweep_smem(g, ring);
+  if (threads < 32 || threads > box::kMaxSweepThreads || threads % 32 != 0 ||
+      smem < 0)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = ring ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &per_sm, box::sheet_sweep_kernel<T, true>, threads, smem)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &per_sm, box::sheet_sweep_kernel<T, false>, threads, 0);
+  *held = per_sm * sms;
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int launch_box_gather(const box::Geom<T>& g, const T* frame, const int* pos,
+                      T* out, int n, cudaStream_t st) {
+  const dim3 grid((g.n_v + box::kThreads - 1) / box::kThreads, n);
+  box::sheet_gather_kernel<T><<<grid, box::kThreads, 0, st>>>(g, frame, pos,
+                                                              out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n blocks of `threads` threads, a block a source, the column densities in
+// the ring (`ring`) or in global memory.
+template <typename T>
+int launch_box_sweep(const box::Geom<T>& g, const T* nhi, T* cd, T* cdin,
+                     int n, int threads, bool ring, cudaStream_t st) {
+  const int smem = box_sweep_smem(g, ring);
+  if (threads < 32 || threads > box::kMaxSweepThreads || threads % 32 != 0 ||
+      smem < 0)
+    return cudaErrorInvalidValue;
+  if (ring)
+    box::sheet_sweep_kernel<T, true><<<n, threads, smem, st>>>(g, nhi, cd,
+                                                               cdin);
+  else
+    box::sheet_sweep_kernel<T, false><<<n, threads, 0, st>>>(g, nhi, cd,
+                                                             cdin);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_box_rates(const box::Geom<T>& g, const box::RateIO<T>& a, int n,
+                     cudaStream_t st) {
+  const dim3 grid((g.n_r + box::kThreads - 1) / box::kThreads, n);
+  if (a.heat)
+    box::sheet_rates_kernel<T, true><<<grid, box::kThreads, 0, st>>>(g, a);
+  else
+    box::sheet_rates_kernel<T, false><<<grid, box::kThreads, 0, st>>>(g, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pointers of a box trace of nb batches of B sources.
+template <typename T>
+struct BoxTrace {
+  const T* frame;       // (P, P, P) the padded nHI frame
+  const int* pos;       // (nb, B, 3) box corners in the frame
+  const T* flux;        // (nb, B)
+  const T* sdr3;        // S* / dr^3, on the device
+  T* nhi;               // (dev_batch, n_v) scratch: the gathered nHI
+  T* cd;                // (dev_batch, n_v) scratch: outgoing and
+  T* cdin;              // incoming column densities
+  T* phi;               // (B, Dc^3) scratch: a batch's rate boxes
+  T* heat;              // (B, Dc^3), null without the heat channel
+  T* phi_frame;         // (P, P, P) accumulated into, zeroed by the caller
+  T* heat_frame;        // null without the heat channel
+};
+
+// The trace of nb batches of B sources, dev_batch sources (a multiple of
+// B) a device batch: the rate boxes zeroed once (the rate pass writes only
+// the rated cells), then per device batch the gather and the sweep (blocks
+// of `threads`, in placement `ring`), and per batch of B the rate pass and
+// the accumulate of its
+// rate boxes over the rated cells, batch after batch, so every frame cell
+// takes its adds in source order as the plain loop gives them. Each launch
+// that is issued adds one to its kernel's entry of `launches` (the gather,
+// the sweep, the rate pass, the accumulate). On `st`; returns the first
+// error; a refused launch never runs.
+template <typename T>
+int box_trace(const box::Geom<T>& g, const BoxTrace<T>& tr, int nb, int B,
+              int dev_batch, int threads, bool ring, int* launches,
+              cudaStream_t st) {
+  if (nb < 0 || B < 1 || dev_batch < B || dev_batch % B != 0 ||
+      !box::fits(g, dev_batch, tr.heat != nullptr) ||
+      (tr.heat == nullptr) != (tr.heat_frame == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t D3 = size_t(g.Dc) * g.Dc * g.Dc;
+  cudaError_t err = cudaMemsetAsync(tr.phi, 0, size_t(B) * D3 * sizeof(T), st);
+  if (err == cudaSuccess && tr.heat)
+    err = cudaMemsetAsync(tr.heat, 0, size_t(B) * D3 * sizeof(T), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* frames[2] = {tr.phi_frame, tr.heat_frame};
+  void* boxes[2] = {tr.phi, tr.heat};
+  const Channels<T> acc = channels<T>(frames, boxes, tr.heat ? 2 : 1);
+  const Visit<T> rated{g.rcell, g.visit, g.n_r};
+  const int ns = nb * B;
+  for (int s = 0; s < ns; s += dev_batch) {
+    const int n = min(dev_batch, ns - s);
+    int rc = launch_box_gather<T>(g, tr.frame, tr.pos + size_t(3) * s,
+                                  tr.nhi, n, st);
+    launches[0] += rc == 0;
+    if (rc == 0) {
+      rc = launch_box_sweep<T>(g, tr.nhi, tr.cd, tr.cdin, n, threads, ring,
+                               st);
+      launches[1] += rc == 0;
+    }
+    for (int a = 0; rc == 0 && a < n; a += B) {
+      const size_t at = size_t(a) * g.n_v;
+      const box::RateIO<T> io{tr.nhi + at, tr.cdin + at, tr.flux + s + a,
+                              tr.sdr3, tr.phi, tr.heat};
+      rc = launch_box_rates<T>(g, io, B, st);
+      launches[2] += rc == 0;
+      if (rc == 0) {
+        rc = launch_accumulate<T>(
+            acc, BoxSet{tr.pos, (s + a) / B, B, g.Dc, 0, g.P, g.P, g.P},
+            rated, st);
+        launches[3] += rc == 0;
+      }
+    }
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -976,6 +1135,93 @@ CHEB_TRACE_SWEEP_ENTRY(cheb_trace_sweep_f64, double)
 
 HE_TRACE_SWEEP_ENTRY(he_trace_sweep_f32, float)
 HE_TRACE_SWEEP_ENTRY(he_trace_sweep_f64, double)
+
+// The box engine's entry points take its tables as `tabs` (box::kTabs
+// pointers), `dims` (box::kDims ints) and `vals` (dr, sig) in make_geom's
+// order, and return the first cudaError_t that is not cudaSuccess (an
+// invalid size is cudaErrorInvalidValue, nothing launched).
+//
+// box_resident: how many of the sweep's blocks of `threads` threads in
+// the ring placement (`ring`) or the global one the card holds at once,
+// into `held`.
+// box_gather: nHI at the valid sheet cells of the n sources whose boxes
+// start at pos (n, 3), int32, in the padded frame (P^3) into out (n, n_v).
+// box_sweep: from nhi (n, n_v) the outgoing and incoming column densities
+// cd and cdin (n, n_v), a block of `threads` threads a source, the column
+// densities in the ring (`ring`) or in global memory.
+// box_rates: the rate pass of n sources from nhi and cdin (n, n_v), the
+// fluxes flux (n,) and S* / dr^3 at sdr3 (on the device), into the rated
+// cells of the rate boxes phi (and heat, where it is set) (n, Dc^3); their
+// other cells are left as they are.
+// box_trace_sweep: the trace of nb batches of B sources (pos (nb, B, 3),
+// flux (nb, B)) over the padded frame, dev_batch sources a device batch,
+// with nhi, cd and cdin (dev_batch, n_v) and phi and heat (B, Dc^3) as
+// scratch, into phi_frame (and heat_frame), zeroed by the caller; the
+// sweep as box_sweep's (box_plan's block and placement); each launch it
+// issues adds one to launches[4] (the gather, the sweep, the rate pass, the
+// accumulate).
+#define BOX_ENTRIES(SFX, TYPE)                                                 \
+  int box_resident_##SFX(void* const* tabs, const int* dims,                   \
+                         const double* vals, int threads, int ring,            \
+                         int* held) {                                          \
+    const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
+    if (!box::fits(g, 1, false)) return cudaErrorInvalidValue;                 \
+    return box_resident<TYPE>(g, threads, ring != 0, held);                    \
+  }                                                                            \
+  int box_gather_##SFX(void* const* tabs, const int* dims,                     \
+                       const double* vals, const void* frame, const int* pos,  \
+                       void* out, int n, void* stream) {                       \
+    const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
+    if (!box::fits(g, n, false)) return cudaErrorInvalidValue;                 \
+    return launch_box_gather<TYPE>(g, static_cast<const TYPE*>(frame), pos,    \
+                                   static_cast<TYPE*>(out), n,                 \
+                                   static_cast<cudaStream_t>(stream));         \
+  }                                                                            \
+  int box_sweep_##SFX(void* const* tabs, const int* dims, const double* vals,  \
+                      const void* nhi, void* cd, void* cdin, int n,            \
+                      int threads, int ring, void* stream) {                   \
+    const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
+    if (!box::fits(g, n, false)) return cudaErrorInvalidValue;                 \
+    return launch_box_sweep<TYPE>(g, static_cast<const TYPE*>(nhi),            \
+                                  static_cast<TYPE*>(cd),                      \
+                                  static_cast<TYPE*>(cdin), n, threads,        \
+                                  ring != 0,                                   \
+                                  static_cast<cudaStream_t>(stream));          \
+  }                                                                            \
+  int box_rates_##SFX(void* const* tabs, const int* dims, const double* vals,  \
+                      const void* nhi, const void* cdin, const void* flux,     \
+                      const void* sdr3, void* phi, void* heat, int n,          \
+                      void* stream) {                                          \
+    const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
+    if (!box::fits(g, n, heat != nullptr)) return cudaErrorInvalidValue;       \
+    using P = const TYPE*;                                                     \
+    const box::RateIO<TYPE> a{static_cast<P>(nhi), static_cast<P>(cdin),       \
+                              static_cast<P>(flux), static_cast<P>(sdr3),      \
+                              static_cast<TYPE*>(phi),                         \
+                              static_cast<TYPE*>(heat)};                       \
+    return launch_box_rates<TYPE>(g, a, n,                                     \
+                                  static_cast<cudaStream_t>(stream));          \
+  }                                                                            \
+  int box_trace_sweep_##SFX(                                                   \
+      void* const* tabs, const int* dims, const double* vals,                  \
+      const void* frame, const int* pos, const void* flux, const void* sdr3,   \
+      void* nhi, void* cd, void* cdin, void* phi, void* heat,                  \
+      void* phi_frame, void* heat_frame, int nb, int B, int dev_batch,         \
+      int threads, int ring, int* launches, void* stream) {                    \
+    const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
+    using P = const TYPE*;                                                     \
+    const BoxTrace<TYPE> tr{static_cast<P>(frame), pos, static_cast<P>(flux),  \
+                            static_cast<P>(sdr3), static_cast<TYPE*>(nhi),     \
+                            static_cast<TYPE*>(cd), static_cast<TYPE*>(cdin),  \
+                            static_cast<TYPE*>(phi), static_cast<TYPE*>(heat), \
+                            static_cast<TYPE*>(phi_frame),                     \
+                            static_cast<TYPE*>(heat_frame)};                   \
+    return box_trace<TYPE>(g, tr, nb, B, dev_batch, threads, ring != 0,        \
+                           launches, static_cast<cudaStream_t>(stream));       \
+  }
+
+BOX_ENTRIES(f32, float)
+BOX_ENTRIES(f64, double)
 
 const char* trace_loop_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -10,26 +10,30 @@ batch of B sources:
   1. extract and shear: one gather cuts every source's sheet stack
      (B, 2, Q, Dc, Dc) out of the padded grid (the box around the source,
      sheared along z by the tables' ``zidx``);
-  2. sweep: one Python iteration per shell q = 1 .. Q-1. The four
-     interpolation corners of every cell of the two sheets lie in shells
-     q-1 .. q-3 at (i, j) or one step toward the source axis; one gather
-     per shell fetches all four (``corner_idx``, built from the tables'
-     ``in_z``/``in_y`` selectors), then the reference's weights
-     s / max(0.6, c sigma). The shell's incoming column density is kept
-     for the rate pass;
-  3. rate pass: the spectral-bin sum over the whole stack, the photoheating
-     channel with ``do_heating``;
-  4. unshear (one gather by ``qidx``, the top sheet for z >= the source's
-     plane) and accumulate: each source's (Dc)^3 box is added into the
-     padded grid in batch order.
+  2. sweep: shell after shell, q = 1 .. Q-1. The four interpolation
+     corners of every cell of the two sheets lie in shells q-1 .. q-3 at
+     (i, j) or one step toward the source axis (``corner_idx``, built from
+     the tables' ``in_z``/``in_y`` selectors), then the reference's weights
+     s / max(0.6, c sigma), their two sums added in the JAX engine's order.
+     The shell's incoming column density is kept for the rate pass;
+  3. rate pass: the spectral-bin sum, the photoheating channel with
+     ``do_heating``;
+  4. unshear (the top sheet for z >= the source's plane) and accumulate:
+     each source's (Dc)^3 box is added into the padded grid in batch order.
 
 The padding is folded back once at the end of the trace. The frame and its
-helpers (``wrap_pad``, ``fold_padding``, and the accumulate
-``accumulate_boxes``, a kernel on the card) are those of the Chebyshev
-engine (ops/trace_loop.py); the positions go to the device once per trace.
-No TPU kernel lies on this path: apart from that accumulate the engine is
-plain PyTorch on the card as on the CPU: 12 small launches per shell in the
-sweep, a few hundred per batch.
+helpers (``wrap_pad``, ``fold_padding``, the ordered slice adds
+``add_boxes`` and the accumulate kernel that matches them) are those of the
+Chebyshev engine (ops/trace_loop.py).
+
+On the CPU ``trace_batches`` runs the plain loop ``box_trace_sweep_ref``
+(the functions ``_sheets``, ``_sweep``, ``_rates``, ``_unshear`` and the
+slice adds, batch after batch); on the card one call of
+ops/box_sweep.py::box_trace_sweep, the counterpart of the JAX engine's jit
+program: a loop in C of hand-written kernels that visit the octahedron's
+valid sheet cells only (``kernel_tables``), the gather, the sweep (a block a
+source, a barrier a shell), the rate pass over the rated cells straight
+into the rate boxes, and the accumulate over those cells.
 
 Two faults of the JAX engine are not copied. Its rate pass divides by the
 cell's nHI without a floor, so a zero-density cell inside the octahedron
@@ -55,11 +59,12 @@ from .geometry import max_q_for
 from .raytrace import RaytraceConfig
 from .raytrace_cheb import FOURPI
 from .sheet_geometry import SheetGeometry, build_sheet_geometry
+from . import box_sweep as bs
 from .sweep import s_over_dr3
-from .trace_loop import (accumulate_boxes, fold_padding, stage_positions,
-                         wrap_pad)
+from .trace_loop import add_boxes, fold_padding, stage_positions, wrap_pad
 
-__all__ = ["BoxRaytracer", "BoxTables", "build_box_tables", "grey_bins"]
+__all__ = ["BoxRaytracer", "BoxTables", "build_box_tables",
+           "build_kernel_tables", "grey_bins"]
 
 
 def grey_bins():
@@ -134,6 +139,53 @@ def build_box_tables(g: SheetGeometry, N, R_max_LLS):
         unshear_valid=g.unshear_valid.reshape(-1))
 
 
+def build_kernel_tables(g: SheetGeometry, tb):
+    """The kernels' index tables (numpy int64) over the octahedron's valid
+    sheet cells, from the sheet geometry and ``tb``, build_box_tables' dict:
+
+    * ``vq``, ``vf``, ``vs``: shell, sheet and cell (i Dc + j) of each valid
+      sheet cell, in the order (q, f, s); ``shell`` (Q + 1,): the first
+      valid cell of each shell;
+    * ``voff``: each valid cell's offset in the padded grid from its box
+      corner;
+    * ``corner`` (4, n_v): the valid cell of each corner of each valid cell
+      of shells q >= 1, -1 where the corner lies outside the octahedron
+      (the plain stack holds 0 there); -1 in shell 0;
+    * ``rv``: the rated valid cells, ``rcell``: their box cells, ascending
+      (each rated sheet cell is one box cell; checked against the unshear
+      map).
+    """
+    Dc, Q = g.Dc, g.Q
+    S = Dc * Dc
+    vq, vf, vs = np.nonzero(tb["valid"])                  # (Q, 2, S)
+    n_v = vq.size
+    cmap = np.full((2, Q * S), -1, dtype=np.int64)
+    cmap[vf, vq * S + vs] = np.arange(n_v)
+    corner = cmap[vf[None, :], tb["corner_idx"][vq, :, vs].T]
+    corner[:, vq == 0] = -1
+    # corner k lies in shell max(q - lag, 0), lag 3, 2, 2, 1 (the sweep's
+    # ring reads it there)
+    for k, lag in enumerate((3, 2, 2, 1)):
+        c = corner[k] >= 0
+        if np.any(vq[corner[k][c]] != np.maximum(vq[c] - lag, 0)):
+            raise AssertionError("box engine: a corner outside its shell")
+    shell = np.searchsorted(vq, np.arange(Q + 1))
+    stack = (vf * Q + vq) * S + vs
+    rv = np.flatnonzero(tb["rated"].reshape(-1)[stack])
+    i, j = vs[rv] // Dc, vs[rv] % Dc
+    z = g.zidx[i, j, vf[rv] * Q + vq[rv]].astype(np.int64)
+    box = (i * Dc + j) * Dc + z
+    order = np.argsort(box, kind="stable")
+    rv, rcell = rv[order], box[order]
+    if (np.any(np.diff(rcell) <= 0) or not tb["unshear_valid"][rcell].all()
+            or np.any(tb["unshear_idx"][rcell] != stack[rv])):
+        raise AssertionError("box engine: the rated sheet cells are not "
+                             "one box cell each")
+    return dict(vq=vq, vf=vf, vs=vs, shell=shell,
+                voff=tb["shear_idx"][stack], corner=corner, rv=rv,
+                rcell=rcell)
+
+
 class BoxRaytracer:
     """Batched multi-source raytracer, octahedral sheet formulation.
 
@@ -178,6 +230,44 @@ class BoxRaytracer:
                 t = t.to(dtype)
             return t.to(self.device)
         self.tables = BoxTables(**{k: dev(v) for k, v in tb.items()})
+        self._tb_np = tb
+        self._kernel_tables = None
+
+    def kernel_tables(self):
+        """The kernels' tables (ops/box_sweep.py's BoxKernelTables), made
+        once, on the engine's device: ``build_kernel_tables``' index tables
+        as int32 and, in the engine's dtype, each valid cell's corner
+        weights, path and diag and each rated cell's geominv (the engine's
+        own tables at those cells), the rated cells as the accumulate's
+        visit (a (Dc, Dc, Dc) 1 at each), and the bins."""
+        if self._kernel_tables is None:
+            g, tb = self.geom, self.tables
+            kt = build_kernel_tables(g, self._tb_np)
+            P = self.N + g.Dc - 1
+            if g.Dc * P * P >= 2 ** 31:
+                raise ValueError(f"box engine: a padded grid of {P}^3 cells "
+                                 "needs 64-bit offsets")
+            dev = self.device
+
+            def idx(k):
+                return torch.from_numpy(kt[k]).to(dev)
+            vq, vs, rv = idx("vq"), idx("vs"), idx("rv")
+            visit = torch.zeros(g.Dc ** 3, dtype=self.dtype, device=dev)
+            visit[idx("rcell")] = 1.0
+
+            def i32(k):
+                return idx(k).to(torch.int32)
+            self._kernel_tables = bs.pack_tables(
+                ints=(i32("shell"), i32("voff"), i32("corner"), i32("rv"),
+                      i32("rcell")),
+                floats=(tb.sw[vq, :, vs].T, tb.path[vq, vs], tb.diag[vq, vs],
+                        tb.geominv[vq[rv], vs[rv]], visit, tb.bins_s,
+                        tb.bins_w, tb.bins_wh),
+                sizes=dict(n_v=int(kt["vq"].size), Q=g.Q, Dc=g.Dc,
+                           n_r=int(kt["rv"].size), E=self.num_bins, P=P,
+                           max_shell=int(np.diff(kt["shell"]).max())),
+                sig=self.sig, dtype=self.dtype, heat=self.do_heating)
+        return self._kernel_tables
 
     # ------------------------------------------------------------------
     def prepare_sources(self, src_pos, src_flux):
@@ -229,8 +319,12 @@ class BoxRaytracer:
             w.clamp_(min=0.6)
             torch.div(tb.sw[q], w, out=w)
             cor.mul_(w)
-            num = torch.mul(tb.diag[q], cor.sum(2))
-            torch.div(num, w.sum(2), out=cdin[:, :, q])
+            # the two sums in the JAX engine's order, c1 w1 + .. + c4 w4
+            # and w1 + .. + w4 (a reduction's order is the library's)
+            num = torch.mul(tb.diag[q], cor[:, :, 0] + cor[:, :, 1]
+                            + cor[:, :, 2] + cor[:, :, 3])
+            torch.div(num, w[:, :, 0] + w[:, :, 1] + w[:, :, 2] + w[:, :, 3],
+                      out=cdin[:, :, q])
             cdout = cdin[:, :, q] + H_nhi[:, :, q] * pathdr[q]
             torch.where(tb.valid[q], cdout, zero, out=H_cd[:, :, q])
         return cdin
@@ -280,13 +374,22 @@ class BoxRaytracer:
         return (self._unshear(phi),
                 None if heat is None else self._unshear(heat))
 
-    def trace_batches(self, nd, xh, pos_b, flux_b, dr):
-        """Batched trace on prepared sources with flat-grid IO; returns
-        (phi, heat), heat None without ``do_heating``."""
+    def wrap_pad(self, nd, xh):
+        """The padded nHI frame of the density and ionized fraction grids
+        ((N^3,) or (N, N, N))."""
         g, N = self.geom, self.N
-        dr = float(dr)
         nhi3 = nd.reshape((N,) * 3) * (1.0 - xh.reshape((N,) * 3))
-        nhi_pad = wrap_pad(nhi3, g.c, g.Dc)
+        return wrap_pad(nhi3, g.c, g.Dc)
+
+    def box_trace_sweep_ref(self, nd, xh, pos_b, flux_b, dr):
+        """The plain loop: the trace of the batches ``pos_b`` (nb, B, 3),
+        ``flux_b`` (nb, B) over the grids ``nd``, ``xh``, batch after
+        batch the sheets, the sweep, the rate pass, the unshear and the
+        slice adds (``add_boxes``, on either device). Returns (phi, heat) as
+        (N^3,) tensors, heat None without ``do_heating``."""
+        g = self.geom
+        dr = float(dr)
+        nhi_pad = self.wrap_pad(nd, xh)
         pads = [torch.zeros_like(nhi_pad)
                 for _ in range(1 + self.do_heating)]
         dr_t = torch.tensor(dr, dtype=self.dtype).to(self.device)
@@ -296,9 +399,27 @@ class BoxRaytracer:
         for k in range(pos.shape[0]):
             boxes = self._batch_rates(nhi_pad, pos[k], flux_b[k], dr, pathdr,
                                       s_dr3)
-            accumulate_boxes(pads, boxes[:len(pads)], pos, k)
+            for pad, box in zip(pads, boxes):
+                add_boxes(pad, box, pos[k])
         out = [fold_padding(p, g.c, g.Dc).reshape(-1) for p in pads]
         return out[0], (out[1] if self.do_heating else None)
+
+    def trace_batches(self, nd, xh, pos_b, flux_b, dr):
+        """Batched trace on prepared sources with flat-grid IO; returns
+        (phi, heat) as (N^3,) tensors, heat None without ``do_heating``.
+        The plain loop ``box_trace_sweep_ref`` on the CPU; on the card one
+        call of ops/box_sweep.py::box_trace_sweep, the kernel loop, between
+        the padding and its fold."""
+        if nd.device.type == "cpu":
+            return self.box_trace_sweep_ref(nd, xh, pos_b, flux_b, dr)
+        g = self.geom
+        nhi_pad = self.wrap_pad(nd, xh)
+        sdr3 = s_over_dr3(float(dr), self.dtype).to(nd.device)
+        pads = bs.box_trace_sweep(self.kernel_tables(), nhi_pad, pos_b,
+                                  flux_b, sdr3, dr)
+        out = [None if p is None else fold_padding(p, g.c, g.Dc).reshape(-1)
+               for p in pads]
+        return out[0], out[1]
 
     def trace(self, ndens, xh_av, src_pos, src_flux, dr):
         """Public API (0-indexed positions, (NumSrc, 3)); returns the

@@ -71,7 +71,8 @@ def build_sheet_geometry(N: int, max_q: int) -> SheetGeometry:
     # pad the box side to a multiple of 8, unless that would make the wrap
     # padding exceed the mesh size: the JAX package's alignment for its
     # vector unit, kept so that the tables stay bit-equal to the JAX ones
-    # (the port sweeps the extra cells as invalid; ROADMAP.md P7)
+    # (the port's kernels visit the valid cells only, so the extra cells
+    # cost them nothing)
     Dc = -(-(hi - lo + 1) // 8) * 8
     if Dc - 1 - c > N:
         Dc = hi - lo + 1

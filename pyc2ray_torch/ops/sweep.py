@@ -84,7 +84,7 @@ MAX_THREADS = 768     # most threads per block of a kernel with rate threads
 # the trace loops (one per trace of every sweep mode, and of the helium
 # engine; the kernels they issue counted under their own names); the
 # thermal update (ops/thermal.py); the flat engine's kernels and its trace
-# loop (ops/flat_sweep.py)
+# loop (ops/flat_sweep.py); the box engine's (ops/box_sweep.py)
 launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "cheb_sweep_seg": 0, "cheb_sweep_rates": 0,
             "cheb_sweep_rates_heat": 0, "extract_boxes": 0,
@@ -92,7 +92,9 @@ launches = {"cheb_sweep": 0, "cheb_sweep_fused_rates": 0,
             "chemistry_pass_he": 0, "init_segments": 0, "rates_dense": 0,
             "cheb_trace_sweep": 0, "rates_he": 0, "he_trace_sweep": 0,
             "thermal_update": 0, "flat_gather": 0, "flat_sweep": 0,
-            "flat_rates": 0, "flat_accumulate": 0, "flat_trace_sweep": 0}
+            "flat_rates": 0, "flat_accumulate": 0, "flat_trace_sweep": 0,
+            "box_gather": 0, "box_sweep": 0, "box_rates": 0,
+            "box_trace_sweep": 0}
 
 
 # kernel name -> SweepPlan of its last launch

@@ -54,6 +54,10 @@ the device, staged once per trace by ``stage_positions``, which also checks
 that every box lies inside the frame (the kernels do not). Each wrapper runs
 the plain version for a CPU tensor and the kernel for a CUDA tensor, or
 raises; the launches are counted in ``sweep.launches``.
+
+The octahedral sheet engine's trace (ops/box_sweep.py::box_trace_sweep) is a
+loop of the same library too, over the kernels of csrc/box_sweep.cuh and the
+accumulate over the rated cells.
 """
 
 import ctypes

@@ -33,6 +33,7 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "thermal.cuh"
 #include "flat_sweep.cuh"
 #include "k_flat_probe.inc"
+#include "box_sweep.cuh"
 using namespace cheb;
 
 template <class F>
@@ -685,3 +686,93 @@ extern "C" void rehearse_flat_forms(int* out, int* rates) {
 #undef FLAT_RATE_ITEM
   rates[k] = -100;
 }
+
+// The box engine's kernels of box_sweep.cuh over the engine's tables (tabs,
+// dims, vals as make_geom takes them). kind 0: the gather of the n sources
+// at pos into nhi (ceil(n_v / T_) x n blocks, thread after thread); 1: the
+// sweep of n sources from nhi into cd and cdin (n blocks of T_ threads, the
+// column densities in the ring in shared memory with `ring`); 2:
+// the rate pass of n sources from nhi and cdin into the rated cells of the
+// boxes phi (and heat) (ceil(n_r / T_) x n blocks, thread after thread); 3:
+// the trace loop of nb batches of B sources (box_trace of trace_loop.cu):
+// the rate boxes zeroed, then per device batch of dev_batch sources the
+// gather and the sweep, per batch of B the rate pass and the accumulate
+// over the rated cells (blocks of T_ threads) into phi_frame (and
+// heat_frame). The blocks and rows in reverse order with `reverse`. `io`
+// holds frame, pos, flux, sdr3, nhi, cd, cdin, phi, heat, phi_frame,
+// heat_frame (the heat channel's null without it).
+template <class T>
+void run_box(int kind, void* const* tabs, const int* dims, const double* vals,
+             void* const* io, int n, int nb, int B, int dev_batch, int T_,
+             int ring, int reverse) {
+  using P = const T*;
+  const box::Geom<T> g = box::make_geom<T>(tabs, dims, vals);
+  const T* frame = (P)io[0];
+  const int* pos = (const int*)io[1];
+  const T* flux = (P)io[2];
+  const T* sdr3 = (P)io[3];
+  T* nhi = (T*)io[4];
+  T* cd = (T*)io[5];
+  T* cdin = (T*)io[6];
+  T* phi = (T*)io[7];
+  T* heat = (T*)io[8];
+  const bool rev = reverse != 0;
+  auto gather = [&](const int* p, int m) {
+    emu_serial((g.n_v + T_ - 1) / T_, m, T_, [&] {
+      box::sheet_gather_kernel<T>(g, frame, p, nhi);
+    }, rev);
+  };
+  auto sweep = [&](int m) {
+    emu_blocks(m, 1, T_, ring ? box::ring_bytes(g) : 0, [&] {
+      if (ring)
+        box::sheet_sweep_kernel<T, true>(g, nhi, cd, cdin);
+      else
+        box::sheet_sweep_kernel<T, false>(g, nhi, cd, cdin);
+    }, rev);
+  };
+  auto rates = [&](const box::RateIO<T>& a, int m) {
+    emu_serial((g.n_r + T_ - 1) / T_, m, T_, [&] {
+      if (a.heat)
+        box::sheet_rates_kernel<T, true>(g, a);
+      else
+        box::sheet_rates_kernel<T, false>(g, a);
+    }, rev);
+  };
+  if (kind == 0) {
+    gather(pos, n);
+  } else if (kind == 1) {
+    sweep(n);
+  } else if (kind == 2) {
+    rates(box::RateIO<T>{nhi, cdin, flux, sdr3, phi, heat}, n);
+  } else {
+    const size_t D3 = size_t(g.Dc) * g.Dc * g.Dc;
+    std::fill(phi, phi + size_t(B) * D3, T(0));
+    if (heat) std::fill(heat, heat + size_t(B) * D3, T(0));
+    void* frames[2] = {io[9], io[10]};
+    void* boxes[2] = {phi, heat};
+    const int ns = nb * B;
+    for (int s = 0; s < ns; s += dev_batch) {
+      const int m = std::min(dev_batch, ns - s);
+      gather(pos + size_t(3) * s, m);
+      sweep(m);
+      for (int a = 0; a < m; a += B) {
+        const size_t at = size_t(a) * g.n_v;
+        rates(box::RateIO<T>{nhi + at, cdin + at, flux + s + a, sdr3, phi,
+                             heat}, B);
+        run_boxes<T>(frames, boxes, heat ? 2 : 1, pos, (s + a) / B, B, g.Dc,
+                     0, g.P, g.P, g.P, g.rcell, g.visit, g.n_r, T_, reverse);
+      }
+    }
+  }
+}
+
+#define REHEARSE_BOX(NAME, TYPE)                                               \
+  extern "C" void NAME(int kind, void* const* tabs, const int* dims,          \
+                       const double* vals, void* const* io, int n, int nb,    \
+                       int B, int dev_batch, int T_, int ring,                \
+                       int reverse) {                                         \
+    run_box<TYPE>(kind, tabs, dims, vals, io, n, nb, B, dev_batch, T_, ring,  \
+                  reverse);                                                   \
+  }
+REHEARSE_BOX(rehearse_box_f32, float)
+REHEARSE_BOX(rehearse_box_f64, double)
