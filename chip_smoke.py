@@ -235,7 +235,15 @@ Phases (any failure raises and the script exits non-zero):
    NaN buffers) at the bench shape with and without heat and at the grey
    float64 clipped shape (N=64, R beyond the mesh), with kernel, plain,
    library (the gather: torch.take) ms and the bound of the function
-   (box_work, function_bound); the sweep at each block size; the trace of
+   (box_work, function_bound), each at the loop's launch (the rate pass:
+   a chunk of batches); the design steps: the sweep's forms
+   (BOX_SWEEP_STEPS: the engine's kernel in each block and placement, the
+   first port's kernels and the measured forms of csrc/box_probe.cu: S
+   sources a thread or a block, a persistent grid, parts of the step taken
+   out) and the rate pass's (BOX_RATE_FORMS, BOX_RATE_CHUNKS with the
+   bytes of each chunk's rate boxes), each bit-equal where it computes the
+   function, the kernels' own SASS at the issue rate, the accumulate at
+   this shape against its byte bound and one index_add_; the trace of
    the first 16 sources against the CPU (1e-5 above 1e-6 of the peak); the
    grey spectrum in float64 at N=64 with 8 sources against the flat engine
    (rtol 2e-7).
@@ -278,7 +286,9 @@ Phases (any failure raises and the script exits non-zero):
    (asserted). Then the chemistry checks on its last state.
 4h. The heating example of 4c with Raytracing.engine box: its five checks,
    one box_trace_sweep per raytrace iteration with its kernels' launches
-   (asserted), xh and T against 4c's cheb run.
+   (asserted), xh and T against 4c's cheb run; each box kernel against
+   its plain version (bit-equal) and the sweep's design steps for its one
+   source (float64).
 5. The multi-GPU paths (pyc2ray_torch.parallel) as a world of 2 ranks
    spawned on the one card over gloo, both on cuda:0 (and again with one
    rank per card over nccl where the machine has two cards or more; with
@@ -355,6 +365,7 @@ after phase 1 only phase 5's nccl world with its single-rank references
 """
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -4583,10 +4594,65 @@ BOX_KERNELS = (("sheet_gather_kernel", "box_gather"),
                ("sheet_sweep_kernel", "box_sweep"),
                ("sheet_rates_kernel", "box_rates"),
                ("accumulate_boxes_kernel", "accumulate_boxes"))
-# 3f's design steps of the sweep: (column densities in the shared ring,
-# threads a block)
-BOX_SWEEP_FORMS = ((False, 64), (False, 128), (False, 256), (False, 512),
-                   (False, 1024), (True, 256), (True, 512), (True, 1024))
+# 3f's design steps of the sweep (box_sweep_steps): (name, kind, threads,
+# group, shared, blocks, tag): "first" the first port's kernel (csrc/
+# box_probe.cu, shared: its ring form), "engine" the engine's kernel through
+# the binding, "group" box_probe.cu's group_sweep_kernel (S sources a
+# thread), "persistent" the engine's kernel through the probe (blocks: a
+# fraction of those the card holds), "lanes" S sources a block, a thread
+# each (box_probe.cu's lanes_sweep_kernel), "cg" / "hot" / "nodiv" / "two"
+# group_sweep_kernel with the corners read past L1 / the tables L1-hot / a
+# multiply for each division (these two timed only) / two cells a trip;
+# "one" marks the forms also run at 4h's one source
+BOX_SWEEP_STEPS = (
+    ("first global", "first", 256, 1, False, None, ""),
+    ("first global", "first", 1024, 1, False, None, "one"),
+    ("first ring", "first", 1024, 1, True, None, "one"),
+    ("(a) S=1 global", "engine", 128, 1, False, None, ""),
+    ("(a) S=1 global", "engine", 256, 1, False, None, "one"),
+    ("(a) S=1 global", "engine", 512, 1, False, None, ""),
+    ("(a) S=1 global", "engine", 1024, 1, False, None, "one"),
+    ("(a) S=1 global, the probe's kernel", "group", 256, 1, False, None, ""),
+    ("(a) S=1 global, corners past L1", "cg", 256, 1, False, None, ""),
+    ("(a) S=1 global, tables L1-hot", "hot", 256, 1, False, None, ""),
+    ("(a) S=1 global, no divisions", "nodiv", 256, 1, False, None, ""),
+    ("(a) S=1 global, two cells a trip", "two", 256, 1, False, None, ""),
+    ("(a) S=1 global, two cells a trip", "two", 512, 1, False, None, ""),
+    ("(b) S=2 a thread", "group", 256, 2, False, None, ""),
+    ("(b) S=2 a thread", "group", 512, 2, False, None, ""),
+    ("(b) S=4 a thread", "group", 128, 4, False, None, ""),
+    ("(b) S=4 a thread", "group", 256, 4, False, None, ""),
+    ("(b) S=8 a thread", "group", 128, 8, False, None, ""),
+    ("(b) S=8 a thread", "group", 256, 8, False, None, ""),
+    ("(b) S=4 a thread, corners past L1", "cg", 256, 4, False, None, ""),
+    ("(b) S=4 a thread, tables L1-hot", "hot", 256, 4, False, None, ""),
+    ("(b) S=4 a thread, no divisions", "nodiv", 256, 4, False, None, ""),
+    ("(b) S=2 a block", "lanes", 512, 2, False, None, ""),
+    ("(b) S=4 a block", "lanes", 1024, 4, False, None, ""),
+    ("(b) S=8 a block", "lanes", 1024, 8, False, None, ""),
+    ("(c) S=1 persistent 1/2", "persistent", 256, 1, False, 2, ""),
+    ("(c) S=2 a thread, persistent 1/2", "group", 512, 2, False, 2, ""),
+    ("(d) S=1 ring", "engine", 256, 1, True, None, "one"),
+    ("(d) S=1 ring", "engine", 512, 1, True, None, "one"),
+    ("(d) S=1 ring", "engine", 1024, 1, True, None, "one"),
+    ("(d) S=2 ring", "group", 512, 2, True, None, ""))
+# csrc/box_probe.cu's sweep forms by kind ("group": 7, its shared ring 8)
+BOX_PROBE_FORM = {"cg": 2, "hot": 3, "nodiv": 4, "lanes": 5, "two": 6,
+                  "group": 7, "persistent": 9}
+# the largest block of box_probe.cu's group_sweep_kernel for S sources
+BOX_GROUP_MAX_THREADS = {1: 1024, 2: 512, 4: 256, 8: 256}
+# 3f's design steps of the rate pass (box_rate_steps): csrc/box_probe.cu's
+# forms: 0 the first port's kernel, 1 to 4 the persistent grid with the bins
+# loaded (1, 2) or as parameters (3, 4), one (1, 3) or two (2, 4) a trip;
+# 5 the engine's kernel (a pair a thread, the bins as parameters, two a
+# trip), 6 a pair a thread, the bins as parameters, one a trip
+BOX_RATE_FORMS = ((0, "first port's grid"), (1, "(a) persistent"),
+                  (2, "(a)+(c) two bins a trip"),
+                  (3, "(a)+(b) bins as parameters"),
+                  (4, "(a)+(b)+(c)"), (6, "a pair a thread, (b)"),
+                  (5, "a pair a thread, (b)+(c): the engine's"))
+BOX_RATE_CHUNKS = (1, 2, 4, 8, 16)    # (d): batches a rate launch
+BOX_STEP_SOURCES = 1024   # 3f's kernel checks and design steps: sources
 
 
 def box_covered(rt, pos, frame):
@@ -4677,7 +4743,7 @@ def box_kernel_check(label, rt, frame, pos, flux, n_rates):
                                               dtype=dt, device="cuda")
                                    for _ in range(3)]}
     nhi = bs.box_gather(kt, frame, pos)
-    got_c, _ = bs.box_sweep(kt, nhi, DR)
+    got_c = bs.box_sweep(kt, nhi, DR)
     on_nan = {nhi.data_ptr(), got_c.data_ptr()} <= ptrs
     errs = {"box_gather": float((nhi - want_n).abs().max()),
             "box_sweep": float((got_c - want_c).abs().max())}
@@ -4696,16 +4762,59 @@ def box_kernel_check(label, rt, frame, pos, flux, n_rates):
         untouched &= bool(torch.isnan(a[:, ~rated]).all())
     errs["box_rates"] = err if untouched else float("nan")
     spectrum = "grey" if rt.num_bins == 1 else f"{rt.num_bins} bins"
-    log(f"  3f {label} {dt} {spectrum}{' with heat' if rt.do_heating else ''}"
+    log(f"  {label} {dt} {spectrum}{' with heat' if rt.do_heating else ''}"
         f" (Q {g.Q}, Dc {g.Dc}, {nv} valid sheet cells, {kt.sizes['n_r']} "
         f"rated): the gather and the sweep of {n} sources (on blocks of NaN: "
         f"{on_nan}) max_abs_err={errs['box_gather']:.1e} / "
         f"{errs['box_sweep']:.1e}, the rates of {m} max_abs_err="
         f"{err:.1e} (unrated cells untouched: {untouched})")
     if any(e != 0.0 for e in errs.values()):
-        raise RuntimeError(f"3f {label}: the box kernels differ from their "
+        raise RuntimeError(f"{label}: the box kernels differ from their "
                            f"plain versions: {errs}")
     return errs, (nhi, got_c, sdr3)
+
+
+def box_accumulate_check(rt, frame, pos, boxes):
+    """The accumulate at the box shape: one batch's rate boxes ``boxes``
+    (B, Dc, Dc, Dc), 0 outside the rated cells, into a zeroed frame at the
+    staged corners ``pos[0]`` over the rated cells (the loop's launch):
+    bit-equal to ``add_boxes`` (asserted), device ms a launch
+    (``device_ms``), the bound of the function (bytes: the boxes' values at
+    the rated cells and the list of them read once, the distinct frame
+    cells they cover read and written once) and one ``index_add_`` of the
+    batch's rated cells (unordered atomics; the port never calls it), its
+    device ms likewise."""
+    from pyc2ray_torch.ops import trace_loop
+    kt = rt.kernel_tables()
+    B, Dc, P = boxes.shape[0], kt.sizes["Dc"], kt.sizes["P"]
+    rcell, visit = kt.tensors[4], kt.tensors[9].view(Dc, Dc, Dc)
+    n_r, isz = kt.sizes["n_r"], boxes.element_size()
+    got, want = torch.zeros_like(frame), torch.zeros_like(frame)
+    trace_loop.accumulate_boxes(got, boxes, pos, 0, cells=rcell, valid=visit)
+    trace_loop.add_boxes(want, boxes, pos[0])
+    if not torch.equal(got, want):
+        raise RuntimeError("3f: the accumulate at the box shape differs from "
+                           "the slice adds")
+    ms = device_ms(lambda i: trace_loop.accumulate_boxes(
+        got, boxes, pos, 0, cells=rcell, valid=visit), 20)
+    r = rcell.long()
+    p = pos[0].long()
+    idx = (((p[:, 0, None] + r // (Dc * Dc)) * P + p[:, 1, None]
+            + (r // Dc) % Dc) * P + p[:, 2, None] + r % Dc).reshape(-1)
+    vals = boxes.reshape(B, -1)[:, r].reshape(-1)
+    flat = got.view(-1)
+    flat.index_add_(0, idx, vals)
+    lib_ms = device_ms(lambda i: flat.index_add_(0, idx, vals), 20)
+    distinct = int(torch.unique(idx).numel())
+    nbytes = isz * B * n_r + 4 * n_r + 2 * isz * distinct + 12 * B
+    b_ms, b_by, binds, parts = function_bound(nbytes, 0.0, 0)
+    log(f"  3f accumulate_boxes at the box shape (B {B}, Dc {Dc}, {n_r} rated "
+        f"cells a box, {distinct} distinct frame cells): device {ms:.5f} ms "
+        f"a launch (bit-equal to the slice adds) against one index_add_ of "
+        f"the batch's rated cells {lib_ms:.5f} ms; bound {b_ms:.5f} ms "
+        f"(bytes, {nbytes / 1e6:.3f} MB): {b_ms / ms:.3f} of it")
+    return dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                distinct_cells=distinct)
 
 
 def box_loop_vs_plain(label, rt, nd, xh, pos_b, flux_b):
@@ -4726,32 +4835,236 @@ def box_loop_vs_plain(label, rt, nd, xh, pos_b, flux_b):
     return err
 
 
-def box_sweep_steps(label, rt, nhi, cdin):
+def _box_probe_sweep(rt, form, nhi, cdin, scratch, threads, group, blocks):
+    """One launch of csrc/box_probe.cu's sweep form ``form`` (0, 1: the
+    first port's kernel in the global and shared placement, ``scratch`` its
+    (n, n_v) store; 2-9 on ``blocks`` blocks of ``group`` sources,
+    ``scratch`` their rings in the global placement)."""
+    from pyc2ray_torch.ops import _build
+    from pyc2ray_torch.ops import box_sweep as bs
+    kt, n = rt.kernel_tables(), nhi.shape[0]
+    lib = _build.load("box_probe")
+    sfx = "f32" if kt.dtype == torch.float32 else "f64"
+    err = getattr(lib, f"box_sweep_probe_{sfx}")(
+        form, kt.tabs, kt.dims, bs._vals(kt, DR), nhi.data_ptr(),
+        cdin.data_ptr(), None if scratch is None else scratch.data_ptr(), n,
+        threads, group, blocks, bs._stream(nhi.device))
+    if err:
+        raise RuntimeError(f"box_sweep_probe form {form}: CUDA error {err} "
+                           f"({lib.error_string(err)!r})")
+
+
+def _box_probe_held(rt, form, threads, group):
+    from pyc2ray_torch.ops import _build
+    from pyc2ray_torch.ops import box_sweep as bs
+    kt = rt.kernel_tables()
+    held = ctypes.c_int(0)
+    lib = _build.load("box_probe")
+    sfx = "f32" if kt.dtype == torch.float32 else "f64"
+    err = getattr(lib, f"box_probe_resident_{sfx}")(
+        form, kt.tabs, kt.dims, bs._vals(kt, DR), threads, group,
+        ctypes.byref(held))
+    if err:
+        raise RuntimeError(f"box_probe_resident form {form}: CUDA error "
+                           f"{err}")
+    return held.value
+
+
+def box_sweep_steps(label, rt, nhi, cdin, one=False):
     """The sweep of the sources whose nHI is ``nhi`` (n, n_v) in each form
-    of BOX_SWEEP_FORMS whose ring fits (bit-equal to ``cdin``): device ms a
-    launch (CUDA events, back to back), us a source and the blocks the card
-    holds at once."""
+    of BOX_SWEEP_STEPS (those marked "one" with ``one``) whose ring fits
+    and whose block the form allows: device ms a launch (CUDA events, back
+    to back), us a source and the blocks the card holds at once; every form
+    that computes the function bit-equal to ``cdin`` (asserted). The
+    persistent forms run on a fraction of the blocks the card holds of
+    their form."""
     from pyc2ray_torch.ops import box_sweep as bs
     from pyc2ray_torch.ops.sweep import SMEM_MAX
-    kt = rt.kernel_tables()
+    kt, dev, n = rt.kernel_tables(), nhi.device, nhi.shape[0]
     out = {}
-    for ring, T in BOX_SWEEP_FORMS:
-        if ring and bs.ring_bytes(kt) > SMEM_MAX:
+    for name, kind, T, S, shared, frac, tag in BOX_SWEEP_STEPS:
+        if (one and tag != "one") or (kind != "lanes" and T > (
+                BOX_GROUP_MAX_THREADS[S])) or (
+                shared and S * bs.ring_bytes(kt) > SMEM_MAX):
             continue
-        got = bs.box_sweep(kt, nhi, DR, threads=T, ring=ring)[0]
-        if not torch.equal(got, cdin):
-            raise RuntimeError(f"3f: the sweep at {T} threads "
-                               f"({'ring' if ring else 'global'}) differs")
-        ms = cuda_ms(lambda: bs.box_sweep(kt, nhi, DR, threads=T,
-                                          ring=ring), 5)
-        key = f"{'ring' if ring else 'global'} {T}"
-        out[key] = dict(ms=ms, us_a_source=1e3 * ms / nhi.shape[0],
-                        held=bs._resident(kt, T, ring, nhi.device))
-    log(f"  {label}: the sweep's forms over a launch of {nhi.shape[0]} "
-        f"sources (bit-equal each; the ring {bs.ring_bytes(kt)} B a block): "
-        + ", ".join(f"{k} threads {v['ms']:.4f} ms ({v['us_a_source']:.3f} "
-                    f"us a source, {v['held']} blocks held)"
+        got = torch.full_like(nhi, float("nan"))
+        scratch = None
+        if kind == "first":
+            held = _box_probe_held(rt, int(shared), T, 1)
+            scratch = torch.empty_like(nhi)
+
+            def call(o=got, f=int(shared), T=T, sc=scratch):
+                _box_probe_sweep(rt, f, nhi, o, sc, T, 1, n)
+        elif kind == "engine":
+            held = bs._resident(kt, T, shared, dev)
+
+            def call(o=got, T=T, sh=shared):
+                bs.box_sweep(kt, nhi, DR, threads=T, ring=sh, out=o)
+        else:
+            form = BOX_PROBE_FORM[kind] + (kind == "group" and shared)
+            held = _box_probe_held(rt, form, T, S)
+            blocks = min(-(-n // S), held)
+            blocks = max(1, blocks // frac) if frac else blocks
+            if not shared:
+                scratch = torch.empty(blocks * S * bs.ring_bytes(kt)
+                                      // kt.dtype.itemsize, dtype=kt.dtype,
+                                      device=dev)
+
+            def call(o=got, f=form, T=T, S=S, b=blocks, sc=scratch):
+                _box_probe_sweep(rt, f, nhi, o, sc, T, S, b)
+        call()
+        exact = kind not in ("hot", "nodiv")
+        if exact and not torch.equal(got, cdin):
+            raise RuntimeError(f"3f: the sweep's form {name} at {T} threads "
+                               f"differs from the plain sweep")
+        ms = cuda_ms(call, 5)
+        key = f"{name}, {T} threads"
+        out[key] = dict(ms=ms, us_a_source=1e3 * ms / n, held=held,
+                        bit_equal=exact)
+        del got, call
+        scratch = None
+    log(f"  {label}: the sweep's design steps over a launch of {n} sources "
+        f"(bit-equal each where it computes the function; the ring "
+        f"{bs.ring_bytes(kt)} B a source): "
+        + "; ".join(f"{k} {v['ms']:.4f} ms ({v['us_a_source']:.4f} us a "
+                    f"source, {v['held']} blocks held"
+                    f"{'' if v['bit_equal'] else ', timed only'})"
                     for k, v in out.items()))
+    return out
+
+
+def box_rate_steps(label, rt, nhi, cdin, flux, sdr3, B):
+    """The rate pass of B sources (the first of ``nhi``, ``cdin``, (n, n_v),
+    with fluxes ``flux``) in each form of BOX_RATE_FORMS (csrc/
+    box_probe.cu), each bit-equal to the engine's binding (asserted; the
+    binding is held to the plain pass by box_kernel_check), and the
+    engine's kernel over a chunk of k batches (BOX_RATE_CHUNKS), each
+    batch's boxes bit-equal to the binding's: device ms a launch
+    (``device_ms``: the kernels alone, not the Python call; the probe's
+    forms also by CUDA events, back to back) and us a batch;
+    for each chunk also the bytes of its rate boxes (the loop's scratch)
+    and the device ms of zeroing them, once a trace."""
+    from pyc2ray_torch.ops import _build
+    from pyc2ray_torch.ops import box_sweep as bs
+    kt, dev = rt.kernel_tables(), nhi.device
+    sfx = "f32" if kt.dtype == torch.float32 else "f64"
+    lib = _build.load("box_probe")
+    E = kt.sizes["E"]
+    want = bs.box_rates(kt, cdin[:B], nhi[:B], flux[:B].contiguous(), sdr3,
+                        DR)
+    out = {}
+    for form, name in BOX_RATE_FORMS:
+        if form >= 3 and E > 32:      # the bins as parameters
+            continue
+        got = [torch.full_like(w, float("nan")) if w is not None else None
+               for w in want]
+
+        def call(i=0, form=form, got=got):
+            err = getattr(lib, f"box_rates_probe_{sfx}")(
+                form, kt.tabs, kt.dims, bs._vals(kt, DR), kt.bins,
+                nhi.data_ptr(), cdin.data_ptr(), flux.data_ptr(),
+                sdr3.data_ptr(), got[0].data_ptr(),
+                None if got[1] is None else got[1].data_ptr(), B,
+                bs._stream(dev))
+            if err:
+                raise RuntimeError(f"box_rates_probe form {form}: CUDA error "
+                                   f"{err} ({lib.error_string(err)!r})")
+        for g in got:
+            if g is not None:
+                g.zero_()
+        call()
+        if not all(g is None or torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"3f: the rate pass's form {name} differs "
+                               f"from the engine's")
+        ms = device_ms(call, 20)
+        out[name] = dict(ms=ms, us_a_batch=1e3 * ms,
+                         ms_events=cuda_ms(call, 20))
+        del got
+    for k in BOX_RATE_CHUNKS:
+        m = k * B
+        if m > nhi.shape[0]:
+            break
+        fl = flux[:m].contiguous()
+        got = bs.box_rates(kt, cdin[:m], nhi[:m], fl, sdr3, DR)
+        for j in range(k):
+            each = bs.box_rates(kt, cdin[j * B:(j + 1) * B],
+                                nhi[j * B:(j + 1) * B],
+                                fl[j * B:(j + 1) * B].contiguous(), sdr3, DR)
+            if not all(g is None or torch.equal(g[j * B:(j + 1) * B], e)
+                       for g, e in zip(got, each)):
+                raise RuntimeError(f"3f: the rate pass over a chunk of {k} "
+                                   f"batches differs batch by batch")
+        ms = device_ms(lambda i: bs.box_rates(kt, cdin[:m], nhi[:m], fl, sdr3,
+                                              DR, out=got), 10)
+        boxes = [g for g in got if g is not None]
+        zero_ms = device_ms(lambda i: [g.zero_() for g in boxes], 5)
+        out[f"(d) engine, a chunk of {k}"] = dict(
+            ms=ms, us_a_batch=1e3 * ms / k, zero_ms=zero_ms,
+            scratch_bytes=sum(g.numel() * g.element_size() for g in boxes))
+        del got, boxes
+    log(f"  {label}: the rate pass's design steps, {B} sources a batch, "
+        f"{E} bins (bit-equal each; device time): "
+        + "; ".join(f"{k} {v['ms']:.5f} ms a launch ({v['us_a_batch']:.3f} "
+                    f"us a batch"
+                    + (f"; by CUDA events {v['ms_events']:.5f} ms"
+                       if 'ms_events' in v else "")
+                    + (f"; its rate boxes {v['scratch_bytes']} B, zeroed "
+                       f"in {v['zero_ms']:.5f} ms once a trace"
+                       if 'zero_ms' in v else "") + ")"
+                    for k, v in out.items()))
+    return out
+
+
+def box_sass(rt, plan):
+    """The box kernels' own SASS (``loop_counts``: the shortest path through
+    the innermost loop with a MUFU instruction and around it): the engine's
+    sweep in ``plan``'s form and the first port's, instructions a trip of
+    the cell loop and a cell and source; the engine's rate pass (no heat,
+    its bin form) and the first port's, instructions a bin (a trip covers
+    the bins of its MUFU.EX2 pairs: exp and expm1 one each) and around the
+    bins a pair; each at the issue rate (``sass_issue_s``) over a launch of
+    the bench's device batch (the sweep) and batch (the rates)."""
+    from pyc2ray_torch.ops import _build
+    kt = rt.kernel_tables()
+    sz = kt.sizes
+    dt = "f" if rt.dtype == torch.float32 else "d"
+    param = "1" if sz["E"] <= 32 else "0"
+    rows = (("box_sweep", "trace_loop",
+             f"sheet_sweep_kernelI{dt}Lb{int(plan.shared)}EE", 1),
+            ("box_sweep first", "box_probe", f"first_sweep_kernelI{dt}Lb0E",
+             1),
+            ("box_rates", "trace_loop",
+             f"sheet_rates_kernelI{dt}Lb0ELb{param}EE", None),
+            ("box_rates first", "box_probe", f"first_rates_kernelI{dt}Lb0E",
+             None))
+    out = {}
+    for key, lib, want, S in rows:
+        funcs = sass_functions(_build._so_path(lib))
+        name = next(n for n in funcs if want in n)
+        ins = funcs[name]
+        c = loop_counts(ins)
+        r = {"iter": c["iter"], "mufu_iter": c["mufu_iter"],
+             "cell": c["cell"], "iter_static": c["iter_static"]}
+        if S is not None:
+            r["per_cell_source"] = c["iter"] / S
+            cells = plan.dev_batch * sz["n_v"]
+            r["issue_ms"] = 1e3 * sass_issue_s(cells, r["per_cell_source"],
+                                               [])
+        else:
+            bins = max(1, c["mufu_iter"] // 2)
+            # around the bins: the loop around them, or where a thread
+            # takes one pair, the shortest path to the last EXIT
+            at = {a: i for i, (a, _, _) in enumerate(ins)}
+            last = max(i for i, x in enumerate(ins)
+                       if re.match(r"EXIT\b", x[1]))
+            around = c["cell"] or _path_counts(ins, at)(0, last)[0]
+            r.update(bins_a_trip=bins, per_bin=c["iter"] / bins,
+                     around=around)
+            pairs = B_BENCH * sz["n_r"]
+            r["issue_ms"] = 1e3 * sass_issue_s(
+                pairs, around, [(pairs * sz["E"] / bins, c["iter"])])
+        out[key] = r
+        log(f"  3f SASS {key} ({name[:60]}): {r}")
     return out
 
 
@@ -4769,15 +5082,20 @@ def box_bench(src_pos, bins, tmp):
     over the whole trace, asserted) and the idle share of a profiled window
     of 16 batches, each kernel's launches (asserted against box_plan and
     the loop's count) and median device us a launch in the profiled whole
-    trace; each kernel against its plain version (bit-equal) at the bench
-    shape with and without heat and at the grey float64 clipped shape (N =
-    64, R beyond the mesh), with its time, the plain version's, the
-    library's (the gather: torch.take on precomputed indices) and the
-    bound; the sweep at each block size; the loop per trace (CUDA events)
+    trace; each kernel against its plain version (bit-equal) over the
+    first BOX_STEP_SOURCES sources (the rates: the plan's chunk of
+    batches) with and without heat and at the grey float64 clipped shape
+    (N = 64, R beyond the mesh), with its time a launch in the loop, the
+    plain version's and the library's (the gather: torch.take on
+    precomputed indices) on the same sources and the bound of that work;
+    the design steps of the sweep (``box_sweep_steps``) and of the rate
+    pass (``box_rate_steps``), the kernels' own SASS (``box_sass``), the
+    accumulate at this shape (``box_accumulate_check``); the loop per
+    trace (CUDA events)
     against its bound (the covered frame cells of the trace read once, the
     frame written once, the tables once; the sweep's and the rate pass's
     operations over every source, as box_work counts them on the first
-    device batch and batch: every rated cell is below MAX_COLDENSH at the
+    device batch and rate launch: every rated cell is below MAX_COLDENSH at the
     bench's uniform fields; one add a rated cell and source); the trace of
     the first 16 sources against the CPU; the grey case against the flat
     engine. Returns the kernels line's entries."""
@@ -4807,8 +5125,8 @@ def box_bench(src_pos, bins, tmp):
     torch.cuda.synchronize()
     t_ray = time.time() - t0
     counts = dict(sweep.launches)
-    threads, ring, dev_batch, launches = bs.box_plan(kt, NS_BENCH, B_BENCH,
-                                                     nd.device)
+    plan = bs.box_plan(kt, NS_BENCH, B_BENCH, nd.device)
+    dev_batch, launches = plan.dev_batch, plan.launches
     want = {k: 0 for k in counts}
     want.update(box_trace_sweep=1, **launches)
     if counts != want:
@@ -4849,9 +5167,10 @@ def box_bench(src_pos, bins, tmp):
         f"{rt.num_bins} bins (Q {g.Q}, Dc {g.Dc}, c {g.c}; {sz['n_v']} "
         f"valid sheet cells a source, {sz['max_shell']} in the largest shell, "
         f"{sz['n_r']} rated; tables {t_build:.2f} s; the sweep in blocks of "
-        f"{threads} threads, its column densities "
-        f"{'in the shared ring' if ring else 'in global memory'}, "
-        f"{dev_batch} sources a launch): {nb} batches in "
+        f"{plan.threads} threads, a source a block, its ring "
+        f"{'in shared memory' if plan.shared else 'in global memory'}, "
+        f"{plan.blocks} blocks, {dev_batch} sources a launch; a rate launch "
+        f"a chunk of {plan.chunk} batches): {nb} batches in "
         f"{t_ray:.4f} s = {1e9 * t_ray / updates:.4f} ns/cell-update, "
         f"{1e3 * t_ray / nb:.4f} ms per batch (one box_trace_sweep call; "
         f"launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
@@ -4912,12 +5231,17 @@ def box_bench(src_pos, bins, tmp):
     frame = rt.wrap_pad(nd, xh)
     pos = stage_positions(pos_b, frame.shape, g.Dc, "cuda")
     pos0 = pos.reshape(-1, 3)[:dev_batch]
-    flux0 = flux_b.reshape(-1)[:dev_batch]
+    # the kernels' checks, wrapper timings and design steps over the
+    # first BOX_STEP_SOURCES sources, whatever the plan's device batch
+    n_steps = min(BOX_STEP_SOURCES, NS_BENCH)
+    flux0 = flux_b.reshape(-1)[:n_steps]
+    # the rate pass at the loop's launch: a chunk of batches
+    m_r = plan.chunk * B_BENCH
     variants = {}
     variants["float32"], (nhi, cdin, sdr3) = box_kernel_check(
-        "bench", rt, frame, pos0, flux0, B_BENCH)
+        "3f bench", rt, frame, pos.reshape(-1, 3)[:n_steps], flux0, m_r)
     variants["float32 with heat"], _ = box_kernel_check(
-        "bench", rt_h, frame, pos0[:B_BENCH], flux0[:B_BENCH], B_BENCH)
+        "3f bench", rt_h, frame, pos0[:m_r], flux0[:m_r], m_r)
     del rt_h
     Ng = N_BOX_GREY
     rng = np.random.RandomState(64)
@@ -4930,19 +5254,19 @@ def box_bench(src_pos, bins, tmp):
                                                       3))).to("cuda")
     flux_g = torch.from_numpy(rng.uniform(0.5, 2.0, NS_BOX_GREY)).to("cuda")
     variants["float64 grey clipped"], _ = box_kernel_check(
-        f"grey N={Ng} R=1e9", box_g, frame_g, pos_g, flux_g, NS_BOX_GREY)
+        f"3f grey N={Ng} R=1e9", box_g, frame_g, pos_g, flux_g, NS_BOX_GREY)
     del frame_g
     # times, the library's, the bounds
     cov = box_covered(rt, pos0, frame)
-    work = box_work(rt, cov, dev_batch, cdin[:B_BENCH], B_BENCH)
+    work = box_work(rt, cov, dev_batch, cdin[:m_r], m_r)
     frame_flat = frame.reshape(-1)
     P = sz["P"]
     base = ((pos0[:, 0].long() * P + pos0[:, 1]) * P + pos0[:, 2])
     idx = base[:, None] + kt.tensors[1].long()[None, :]
     pathdr = rt.tables.path * torch.tensor(DR, dtype=dt).to("cuda")
-    H8 = rt._sheets(frame, pos0[:B_BENCH])
-    cd8 = rt._sweep(H8, pathdr, DR)
-    f8 = flux0[:B_BENCH].contiguous()
+    Hm = rt._sheets(frame, pos0[:m_r])
+    cdm = rt._sweep(Hm, pathdr, DR)
+    fm = flux0[:m_r].contiguous()
     timed = {
         "box_gather": (lambda: bs.box_gather(kt, frame, pos0),
                        lambda: rt._sheets(frame, pos0),
@@ -4950,10 +5274,10 @@ def box_bench(src_pos, bins, tmp):
         "box_sweep": (lambda: bs.box_sweep(kt, nhi, DR),
                       lambda: rt._sweep(rt._sheets(frame, pos0), pathdr, DR),
                       None),
-        "box_rates": (lambda: bs.box_rates(kt, cdin[:B_BENCH],
-                                           nhi[:B_BENCH], f8, sdr3, DR),
+        "box_rates": (lambda: bs.box_rates(kt, cdin[:m_r], nhi[:m_r], fm,
+                                           sdr3, DR),
                       lambda: [rt._unshear(x) for x in rt._rates(
-                          cd8, H8, pathdr, f8, sdr3) if x is not None],
+                          cdm, Hm, pathdr, fm, sdr3) if x is not None],
                       None)}
     res = {}
     for name, (kern, plain, lib) in timed.items():
@@ -4965,12 +5289,13 @@ def box_bench(src_pos, bins, tmp):
             library_ms=None if lib is None else cuda_ms(lib, 5),
             bound_ms=b_ms, bound_by=b_by, bound_part=binds,
             bound_parts=parts, launches=seen[name],
-            sources_a_launch=B_BENCH if name == "box_rates" else dev_batch,
+            sources_a_launch=m_r if name == "box_rates" else dev_batch,
             variants={k: v[name] for k, v in variants.items()})
         r = res[name]
         log(f"  3f {name}: max_abs_err={r['max_abs_err']:.1e}; device "
             f"{r['ms']:.5f} ms per launch in the loop "
-            f"({r['sources_a_launch']} sources a launch; a wrapper call "
+            f"({r['sources_a_launch']} sources a launch; a wrapper call of "
+            f"{m_r if name == 'box_rates' else n_steps} sources "
             f"{r['ms_wrapper']:.5f} ms by CUDA events) against the plain "
             f"version {r['plain_ms']:.4f} ms"
             + ("" if lib is None else
@@ -4978,16 +5303,33 @@ def box_bench(src_pos, bins, tmp):
             + f"; bound {b_ms:.5f} ms ({binds}: bytes {parts['bytes']:.5f}, "
             f"flops {parts['flops']:.5f}, MUFU {parts['mufu']:.5f}); "
             f"{r['launches']} launches in the trace")
-    del idx, H8, cd8
+    del idx, Hm, cdm
+    res["accumulate_boxes_box_shape"] = box_accumulate_check(
+        rt, frame, pos, bs.box_rates(kt, cdin[:B_BENCH], nhi[:B_BENCH],
+                                     flux0[:B_BENCH].contiguous(), sdr3,
+                                     DR)[0])
     res["box_sweep"].update(
         design_steps=box_sweep_steps("3f bench", rt, nhi, cdin),
-        threads=threads, ring=ring)
+        plan=plan._asdict())
+    res["box_rates"].update(design_steps=box_rate_steps(
+        "3f bench", rt, nhi, cdin, flux0, sdr3, B_BENCH))
+    sass = box_sass(rt, plan)
+    for name in ("box_sweep", "box_rates"):
+        res[name].update(sass=sass[name], sass_first=sass[f"{name} first"])
+    log(f"  3f own SASS at the issue rate: the sweep "
+        f"{sass['box_sweep']['issue_ms']:.5f} ms a launch of {dev_batch} "
+        f"(the kernel {res['box_sweep']['ms']:.5f}), the first port's "
+        f"{sass['box_sweep first']['issue_ms']:.5f}; the rates "
+        f"{sass['box_rates']['issue_ms']:.5f} ms a batch (the kernel "
+        f"{res['box_rates']['ms'] / plan.chunk:.5f} a batch of its launch of "
+        f"{m_r}), the first port's "
+        f"{sass['box_rates first']['issue_ms']:.5f}")
     # the loop per trace, after and before
     loop_ms = cuda_ms(lambda: rt.trace_batches(nd, xh, pos_b, flux_b, DR), 3)
     cov_all = box_covered(rt, pos, frame)
     isz = torch.finfo(dt).bits // 8
     peak = H100_F32_FLOPS if dt == torch.float32 else H100_F64_FLOPS
-    scale = {"box_sweep": NS_BENCH / dev_batch, "box_rates": nb}
+    scale = {"box_sweep": NS_BENCH / dev_batch, "box_rates": NS_BENCH / m_r}
     loop_ops = (sum(work[k][1] * v for k, v in scale.items())
                 + (1 + rt.do_heating) * sz["n_r"] * NS_BENCH / peak)
     loop_mufu = sum(work[k][2] * v for k, v in scale.items())
@@ -5065,8 +5407,9 @@ def heating_box(heat_4c):
         raise RuntimeError(f"heating example (box): engine "
                            f"{type(rt).__name__}")
     kt = rt.kernel_tables()
-    threads, ring, _, per_trace = bs.box_plan(
-        kt, rt.batch_size, rt.batch_size, torch.device("cuda"))
+    plan = bs.box_plan(kt, rt.batch_size, rt.batch_size,
+                       torch.device("cuda"))
+    per_trace = plan.launches
     want = {k: 0 for k in counts}
     want.update({k: v * n_iter for k, v in per_trace.items()},
                 box_trace_sweep=n_iter, chemistry_pass=n_iter,
@@ -5079,9 +5422,10 @@ def heating_box(heat_4c):
                                             for k in per_trace)
         + " (box_plan's, " + ", ".join(f"{k} {v}" for k, v in
                                        per_trace.items())
-        + f" a trace); the sweep in blocks of {threads} threads, its column densities "
-        + (f"in the shared ring ({bs.ring_bytes(kt)} B)" if ring
-           else "in global memory")
+        + f" a trace); the sweep in blocks of {plan.threads} threads, "
+        f"a source a block, its ring "
+        + (f"in shared memory ({bs.ring_bytes(kt)} B)"
+           if plan.shared else "in global memory")
         + f", {kt.sizes['n_v']} valid sheet cells, {kt.sizes['max_shell']} "
         f"in the largest shell")
     for name, got, want_a in (("xh", sim.xh, heat_4c[0]),
@@ -5095,9 +5439,12 @@ def heating_box(heat_4c):
     frame = rt.wrap_pad(*(torch.as_tensor(np.asarray(a), dtype=rt.dtype,
                                           device=dev)
                           for a in (sim.ndens, sim.xh)))
-    nhi = bs.box_gather(kt, frame, torch.tensor([[N_HEATING // 2] * 3]))
+    pos = torch.tensor([[N_HEATING // 2] * 3], dtype=torch.int32, device=dev)
+    _, (nhi, cdin, _) = box_kernel_check(
+        f"4h N={N_HEATING}", rt, frame, pos,
+        torch.ones(1, dtype=rt.dtype, device=dev), 1)
     box_sweep_steps(f"4h (N={N_HEATING}, float64, one source)", rt, nhi,
-                    bs.box_sweep(kt, nhi, DR)[0])
+                    cdin, one=True)
     return counts
 
 

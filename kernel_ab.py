@@ -74,8 +74,9 @@ configuration and fields: ``BoxRaytracer``, float32, 14 compressed bins,
 the least of 3) and its ns per cell-update; where the checkout has the
 plain loop ``box_trace_sweep_ref``, the trace bit-equal to it over the
 first 16 batches (asserted), and from one profiled trace each box kernel's
-median device us a launch, the gap before it and the device launches a
-batch (a checkout whose box trace is plain PyTorch is timed only).
+median device us a launch, the gap before it, its us a batch and the device
+launches a batch (a checkout whose box trace is plain PyTorch is timed
+only).
 
 ``--chunks`` measures the bench default and EoR-bucket traces again with
 the loop's extract forced to each chunk of batches K (a checkout with the
@@ -463,7 +464,9 @@ def box_bench(cs, src, bins):
     plain loop over its first 16 batches where the checkout has one, ms per
     trace of ``rt.trace_batches`` (least of 3 after a warm-up) and, where
     the trace is the kernel loop, from one profiled trace each box kernel's
-    median device us, the gap before it and the device launches a batch."""
+    median device us a launch, the gap before it, its us a batch (the
+    median times its launches over the batches) and the device launches a
+    batch."""
     from pyc2ray_torch.diagnostics import profile_trace
     from pyc2ray_torch.ops.raytrace_box import BoxRaytracer
     N, dt = cs.N_BENCH, torch.float32
@@ -490,10 +493,13 @@ def box_bench(cs, src, bins):
                 p["sync"] = rt.trace_batches(nd, xh, pos_b, flux_b,
                                              cs.DR)[0]
             per_k, n_launch = cs.flat_kernel_us(prof, cs.BOX_KERNELS)
-        out.update(kernels=per_k, launches_per_batch=n_launch / nb)
+        per_batch = {k: d * n / nb for k, (d, g, n) in per_k.items()}
+        out.update(kernels=per_k, us_per_batch=per_batch,
+                   launches_per_batch=n_launch / nb)
         text = f"; {n_launch / nb:.4f} device launches a batch; " + "; ".join(
             f"{k} {d:.2f} us a launch after a gap of {g:.2f} us (median of "
-            f"{n})" for k, (d, g, n) in per_k.items())
+            f"{n}), {per_batch[k]:.2f} us a batch"
+            for k, (d, g, n) in per_k.items())
     cs.log(f"{label}: {ms:.3f} ms per trace of {nb} batches, {ns:.5f} "
            f"ns/cell-update{text}")
     return out

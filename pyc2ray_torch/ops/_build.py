@@ -23,7 +23,8 @@ __all__ = ["load", "NVCC_FLAGS", "SOURCES", "PROBES"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cheb_sweep", "cheb_sweep_rates", "cheb_rates", "trace_loop",
            "chemistry", "thermal", "flat_sweep")        # csrc/<name>.cu
-PROBES = ("flat_probe", "thermal_probe")   # built only when named
+PROBES = ("flat_probe", "thermal_probe", "box_probe")   # built only when
+                                                      # named
 HEADERS = ("cheb_sweep.cuh", "cheb_sweep_kernels.cuh", "cheb_sweep_rates.cuh",
            "cheb_rates.cuh", "cheb_rates_he.cuh", "rounded.cuh",
            "flat_sweep.cuh", "thermal.cuh", "box_sweep.cuh")
@@ -72,17 +73,18 @@ _SIGNATURES = {
         "he_trace_sweep": [_P] * 24 + [_D, _D, _D] + [_I] * 10
         + _LAUNCH,
         # the box engine's: tabs, dims, vals (csrc/box_sweep.cuh's
-        # make_geom), then each entry's own: threads, ring, held
-        "box_resident": [_P] * 3 + [_I, _I, ctypes.POINTER(_I)],
+        # make_geom), then each entry's own: threads, shared, held
+        "box_resident": [_P] * 3 + [_I] * 2 + [ctypes.POINTER(_I)],
         # frame, pos, out; n; stream
         "box_gather": [_P] * 6 + [_I, _P],
-        # nhi, cd, cdin; n, threads, ring; stream
-        "box_sweep": [_P] * 6 + [_I] * 3 + [_P],
-        # nhi, cdin, flux, sdr3, phi, heat; n; stream
-        "box_rates": [_P] * 9 + [_I, _P],
-        # frame, pos, flux, sdr3, nhi, cd, cdin, phi, heat, phi_frame,
-        # heat_frame; nb, B, dev_batch, threads, ring; launches (4); stream
-        "box_trace_sweep": [_P] * 14 + [_I] * 5 + [_P] * 2,
+        # nhi, cdin, ring; n, threads, shared, blocks; stream
+        "box_sweep": [_P] * 6 + [_I] * 4 + [_P],
+        # bins, nhi, cdin, flux, sdr3, phi, heat; n; stream
+        "box_rates": [_P] * 10 + [_I, _P],
+        # bins, frame, pos, flux, sdr3, nhi, cdin, ring, phi, heat,
+        # phi_frame, heat_frame; nb, B, dev_batch, chunk, threads, shared,
+        # blocks; launches (4); stream
+        "box_trace_sweep": [_P] * 15 + [_I] * 7 + [_P] * 2,
     },
     "chemistry": {
         # dt (pointer, kind, value), the fields, mask, outputs, count and
@@ -114,6 +116,16 @@ _SIGNATURES = {
         "flat_trace_sweep": [_P] * 13 + [_I] * 5 + [_P],
     },
     "flat_probe": {},
+    "box_probe": {
+        # form, tabs, dims, vals, nhi, cdin, scratch; n, threads, group,
+        # blocks; stream
+        "box_sweep_probe": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+        # form, tabs, dims, vals; threads, group; held
+        "box_probe_resident": [_I] + [_P] * 3 + [_I, _I, ctypes.POINTER(_I)],
+        # form, tabs, dims, vals, bins, nhi, cdin, flux, sdr3, phi, heat;
+        # n; stream
+        "box_rates_probe": [_I] + [_P] * 10 + [_I, _P],
+    },
     "thermal_probe": {
         # form; thermal_update's arguments
         "thermal_probe": [_I, _P, _I, _D] + [_P] * 5

@@ -42,11 +42,12 @@
 //                            over batches). Plain version: trace_loop.py::
 //                            he_trace_sweep_ref.
 //   box_trace                the box engine's trace (box_sweep.cuh's
-//                            kernels): the rate boxes zeroed once, then per
-//                            device batch of consecutive sources the gather
-//                            of nHI at the valid sheet cells and the sweep,
-//                            and per batch of B the rate pass into the rate
-//                            boxes and the accumulate over the rated cells;
+//                            kernels): a chunk's rate boxes zeroed once,
+//                            then per device batch of consecutive sources
+//                            the gather of nHI at the valid sheet cells and
+//                            the sweep, per chunk of batches the rate pass
+//                            into the chunk's rate boxes, and per batch of B
+//                            the accumulate over the rated cells;
 //                            the counterpart of pyc2ray_tpu/ops/
 //                            raytrace_box.py::BoxRaytracer._trace_jit (jit +
 //                            shell lax.fori_loop + batch lax.scan). Plain
@@ -882,39 +883,20 @@ int he_trace_sweep(const HeLoopBufs& a, const HeLoopArgs& s, const void* sw,
 
 // The launches of the box engine's kernels (box_sweep.cuh) and its trace.
 
-// The sweep's shared memory in the ring placement (0 in the global one),
-// allowed for its kernel; -1 where the ring does not fit a block.
-template <typename T>
-int box_sweep_smem(const box::Geom<T>& g, bool ring) {
-  if (!ring) return 0;
-  const size_t smem = box::ring_bytes(g);
-  if (smem > 232448) return -1;
-  const cudaError_t err = allow(
-      reinterpret_cast<const void*>(box::sheet_sweep_kernel<T, true>),
-      int(smem), false);
-  return err == cudaSuccess ? int(smem) : -1;
-}
+// The sweep's form: blocks of `threads` threads, the ring in shared memory
+// (`shared`) or in global memory, at most `blocks` blocks a launch (fewer
+// than the sources where the global rings' scratch bounds them: each block
+// sweeps source after source in its own ring).
+struct BoxSweepPlan {
+  int threads, shared, blocks;
+};
 
-// How many blocks of `threads` threads of the sweep in placement `ring` the
-// card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor times
-// the SMs).
+// How many of the sweep's blocks of form `p` (its blocks aside) the card
+// holds at once.
 template <typename T>
-int box_resident(const box::Geom<T>& g, int threads, bool ring, int* held) {
-  const int smem = box_sweep_smem(g, ring);
-  if (threads < 32 || threads > box::kMaxSweepThreads || threads % 32 != 0 ||
-      smem < 0)
-    return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = ring ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, box::sheet_sweep_kernel<T, true>, threads, smem)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, box::sheet_sweep_kernel<T, false>, threads, 0);
-  *held = per_sm * sms;
-  return static_cast<int>(err);
+int box_resident(const box::Geom<T>& g, const BoxSweepPlan& p, int* held) {
+  return p.shared ? box::sweep_resident<T, true>(g, p.threads, held)
+                  : box::sweep_resident<T, false>(g, p.threads, held);
 }
 
 template <typename T>
@@ -926,33 +908,14 @@ int launch_box_gather(const box::Geom<T>& g, const T* frame, const int* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// n blocks of `threads` threads, a block a source, the column densities in
-// the ring (`ring`) or in global memory.
+// The sweep of io.n sources in form `p` (at most as many blocks as
+// sources).
 template <typename T>
-int launch_box_sweep(const box::Geom<T>& g, const T* nhi, T* cd, T* cdin,
-                     int n, int threads, bool ring, cudaStream_t st) {
-  const int smem = box_sweep_smem(g, ring);
-  if (threads < 32 || threads > box::kMaxSweepThreads || threads % 32 != 0 ||
-      smem < 0)
-    return cudaErrorInvalidValue;
-  if (ring)
-    box::sheet_sweep_kernel<T, true><<<n, threads, smem, st>>>(g, nhi, cd,
-                                                               cdin);
-  else
-    box::sheet_sweep_kernel<T, false><<<n, threads, 0, st>>>(g, nhi, cd,
-                                                             cdin);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_box_rates(const box::Geom<T>& g, const box::RateIO<T>& a, int n,
-                     cudaStream_t st) {
-  const dim3 grid((g.n_r + box::kThreads - 1) / box::kThreads, n);
-  if (a.heat)
-    box::sheet_rates_kernel<T, true><<<grid, box::kThreads, 0, st>>>(g, a);
-  else
-    box::sheet_rates_kernel<T, false><<<grid, box::kThreads, 0, st>>>(g, a);
-  return static_cast<int>(cudaGetLastError());
+int launch_box_sweep(const box::Geom<T>& g, const box::SweepIO<T>& io,
+                     const BoxSweepPlan& p, cudaStream_t st) {
+  const int blocks = p.blocks < io.n ? p.blocks : io.n;
+  return p.shared ? box::launch_sweep<T, true>(g, io, p.threads, blocks, st)
+                  : box::launch_sweep<T, false>(g, io, p.threads, blocks, st);
 }
 
 // The pointers of a box trace of nb batches of B sources.
@@ -963,40 +926,44 @@ struct BoxTrace {
   const T* flux;        // (nb, B)
   const T* sdr3;        // S* / dr^3, on the device
   T* nhi;               // (dev_batch, n_v) scratch: the gathered nHI
-  T* cd;                // (dev_batch, n_v) scratch: outgoing and
-  T* cdin;              // incoming column densities
-  T* phi;               // (B, Dc^3) scratch: a batch's rate boxes
-  T* heat;              // (B, Dc^3), null without the heat channel
+  T* cdin;              // (dev_batch, n_v) scratch: incoming column
+                        // densities
+  T* ring;              // the sweep's rings in global memory (its plan's
+                        // blocks), null in the shared placement
+  T* phi;               // (chunk B, Dc^3) scratch: a chunk's rate boxes
+  T* heat;              // (chunk B, Dc^3), null without the heat channel
   T* phi_frame;         // (P, P, P) accumulated into, zeroed by the caller
   T* heat_frame;        // null without the heat channel
 };
 
 // The trace of nb batches of B sources, dev_batch sources (a multiple of
-// B) a device batch: the rate boxes zeroed once (the rate pass writes only
-// the rated cells), then per device batch the gather and the sweep (blocks
-// of `threads`, in placement `ring`), and per batch of B the rate pass and
-// the accumulate of its
-// rate boxes over the rated cells, batch after batch, so every frame cell
-// takes its adds in source order as the plain loop gives them. Each launch
-// that is issued adds one to its kernel's entry of `launches` (the gather,
-// the sweep, the rate pass, the accumulate). On `st`; returns the first
-// error; a refused launch never runs.
+// B) a device batch: the rate boxes of a chunk of `chunk` batches zeroed
+// once (the rate pass writes only the rated cells), then per device batch
+// the gather and the sweep (form `p`), per chunk of batches one rate pass
+// into the chunk's boxes, and per batch of B the accumulate of its boxes
+// over the rated cells, batch after batch, so every frame cell takes its
+// adds in source order as the plain loop gives them. `bins`: the tables'
+// bins (3 E doubles) for the rate pass's parameters. Each launch that is
+// issued adds one to its kernel's entry of `launches` (the gather, the
+// sweep, the rate pass, the accumulate). On `st`; returns the first error;
+// a refused launch never runs.
 template <typename T>
-int box_trace(const box::Geom<T>& g, const BoxTrace<T>& tr, int nb, int B,
-              int dev_batch, int threads, bool ring, int* launches,
-              cudaStream_t st) {
-  if (nb < 0 || B < 1 || dev_batch < B || dev_batch % B != 0 ||
+int box_trace(const box::Geom<T>& g, const BoxTrace<T>& tr,
+              const double* bins, int nb, int B, int dev_batch, int chunk,
+              const BoxSweepPlan& p, int* launches, cudaStream_t st) {
+  if (nb < 0 || B < 1 || dev_batch < B || dev_batch % B != 0 || chunk < 1 ||
       !box::fits(g, dev_batch, tr.heat != nullptr) ||
+      !box::rates_fit(g, chunk * B) ||
       (tr.heat == nullptr) != (tr.heat_frame == nullptr))
     return cudaErrorInvalidValue;
   const size_t D3 = size_t(g.Dc) * g.Dc * g.Dc;
-  cudaError_t err = cudaMemsetAsync(tr.phi, 0, size_t(B) * D3 * sizeof(T), st);
+  const size_t box_bytes = size_t(chunk) * B * D3 * sizeof(T);
+  cudaError_t err = cudaMemsetAsync(tr.phi, 0, box_bytes, st);
   if (err == cudaSuccess && tr.heat)
-    err = cudaMemsetAsync(tr.heat, 0, size_t(B) * D3 * sizeof(T), st);
+    err = cudaMemsetAsync(tr.heat, 0, box_bytes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const box::Bins<T> bp = box::make_bins<T>(bins, g.E);
   void* frames[2] = {tr.phi_frame, tr.heat_frame};
-  void* boxes[2] = {tr.phi, tr.heat};
-  const Channels<T> acc = channels<T>(frames, boxes, tr.heat ? 2 : 1);
   const Visit<T> rated{g.rcell, g.visit, g.n_r};
   const int ns = nb * B;
   for (int s = 0; s < ns; s += dev_batch) {
@@ -1005,20 +972,24 @@ int box_trace(const box::Geom<T>& g, const BoxTrace<T>& tr, int nb, int B,
                                   tr.nhi, n, st);
     launches[0] += rc == 0;
     if (rc == 0) {
-      rc = launch_box_sweep<T>(g, tr.nhi, tr.cd, tr.cdin, n, threads, ring,
-                               st);
+      rc = launch_box_sweep<T>(g, box::SweepIO<T>{tr.nhi, tr.cdin, tr.ring, n},
+                               p, st);
       launches[1] += rc == 0;
     }
-    for (int a = 0; rc == 0 && a < n; a += B) {
+    for (int a = 0; rc == 0 && a < n; a += chunk * B) {
+      const int m = min(chunk * B, n - a);
       const size_t at = size_t(a) * g.n_v;
       const box::RateIO<T> io{tr.nhi + at, tr.cdin + at, tr.flux + s + a,
                               tr.sdr3, tr.phi, tr.heat};
-      rc = launch_box_rates<T>(g, io, B, st);
+      rc = box::launch_rates<T>(g, io, bp, m, st);
       launches[2] += rc == 0;
-      if (rc == 0) {
+      for (int j = 0; rc == 0 && j < m / B; ++j) {
+        void* boxes[2] = {tr.phi + size_t(j) * B * D3,
+                          tr.heat ? tr.heat + size_t(j) * B * D3 : nullptr};
         rc = launch_accumulate<T>(
-            acc, BoxSet{tr.pos, (s + a) / B, B, g.Dc, 0, g.P, g.P, g.P},
-            rated, st);
+            channels<T>(frames, boxes, tr.heat ? 2 : 1),
+            BoxSet{tr.pos, (s + a) / B + j, B, g.Dc, 0, g.P, g.P, g.P}, rated,
+            st);
         launches[3] += rc == 0;
       }
     }
@@ -1141,32 +1112,34 @@ HE_TRACE_SWEEP_ENTRY(he_trace_sweep_f64, double)
 // order, and return the first cudaError_t that is not cudaSuccess (an
 // invalid size is cudaErrorInvalidValue, nothing launched).
 //
-// box_resident: how many of the sweep's blocks of `threads` threads in
-// the ring placement (`ring`) or the global one the card holds at once,
-// into `held`.
+// box_resident: how many of the sweep's blocks of `threads` threads, the
+// ring in shared memory (`shared`) or in global memory, the card holds at
+// once, into `held`.
 // box_gather: nHI at the valid sheet cells of the n sources whose boxes
 // start at pos (n, 3), int32, in the padded frame (P^3) into out (n, n_v).
-// box_sweep: from nhi (n, n_v) the outgoing and incoming column densities
-// cd and cdin (n, n_v), a block of `threads` threads a source, the column
-// densities in the ring (`ring`) or in global memory.
+// box_sweep: from nhi (n, n_v) the incoming column densities cdin (n,
+// n_v), a source a block of `threads` threads, at most `blocks` blocks, the
+// ring in shared memory (`shared`) or in `ring` (the blocks' rings,
+// box::ring_bytes each).
 // box_rates: the rate pass of n sources from nhi and cdin (n, n_v), the
-// fluxes flux (n,) and S* / dr^3 at sdr3 (on the device), into the rated
-// cells of the rate boxes phi (and heat, where it is set) (n, Dc^3); their
-// other cells are left as they are.
+// fluxes flux (n,) and S* / dr^3 at sdr3 (on the device), the tables' bins
+// (3 E doubles on the host), into the rated cells of the rate boxes phi
+// (and heat, where it is set) (n, Dc^3); their other cells are left as they
+// are.
 // box_trace_sweep: the trace of nb batches of B sources (pos (nb, B, 3),
 // flux (nb, B)) over the padded frame, dev_batch sources a device batch,
-// with nhi, cd and cdin (dev_batch, n_v) and phi and heat (B, Dc^3) as
-// scratch, into phi_frame (and heat_frame), zeroed by the caller; the
-// sweep as box_sweep's (box_plan's block and placement); each launch it
-// issues adds one to launches[4] (the gather, the sweep, the rate pass, the
-// accumulate).
+// with nhi and cdin (dev_batch, n_v), the sweep's rings and phi and heat
+// (chunk B, Dc^3) as scratch, into phi_frame (and heat_frame), zeroed by the
+// caller; the sweep as box_sweep's, a rate pass a chunk of `chunk` batches;
+// each launch it issues adds one to launches[4] (the gather, the sweep, the
+// rate pass, the accumulate).
 #define BOX_ENTRIES(SFX, TYPE)                                                 \
   int box_resident_##SFX(void* const* tabs, const int* dims,                   \
-                         const double* vals, int threads, int ring,            \
+                         const double* vals, int threads, int shared,          \
                          int* held) {                                          \
     const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
     if (!box::fits(g, 1, false)) return cudaErrorInvalidValue;                 \
-    return box_resident<TYPE>(g, threads, ring != 0, held);                    \
+    return box_resident<TYPE>(g, BoxSweepPlan{threads, shared, 1}, held);      \
   }                                                                            \
   int box_gather_##SFX(void* const* tabs, const int* dims,                     \
                        const double* vals, const void* frame, const int* pos,  \
@@ -1178,20 +1151,22 @@ HE_TRACE_SWEEP_ENTRY(he_trace_sweep_f64, double)
                                    static_cast<cudaStream_t>(stream));         \
   }                                                                            \
   int box_sweep_##SFX(void* const* tabs, const int* dims, const double* vals,  \
-                      const void* nhi, void* cd, void* cdin, int n,            \
-                      int threads, int ring, void* stream) {                   \
+                      const void* nhi, void* cdin, void* ring, int n,          \
+                      int threads, int shared, int blocks, void* stream) {     \
     const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
     if (!box::fits(g, n, false)) return cudaErrorInvalidValue;                 \
-    return launch_box_sweep<TYPE>(g, static_cast<const TYPE*>(nhi),            \
-                                  static_cast<TYPE*>(cd),                      \
-                                  static_cast<TYPE*>(cdin), n, threads,        \
-                                  ring != 0,                                   \
-                                  static_cast<cudaStream_t>(stream));          \
+    return launch_box_sweep<TYPE>(                                             \
+        g,                                                                     \
+        box::SweepIO<TYPE>{static_cast<const TYPE*>(nhi),                      \
+                           static_cast<TYPE*>(cdin), static_cast<TYPE*>(ring), \
+                           n},                                                 \
+        BoxSweepPlan{threads, shared, blocks},                                 \
+        static_cast<cudaStream_t>(stream));                                    \
   }                                                                            \
   int box_rates_##SFX(void* const* tabs, const int* dims, const double* vals,  \
-                      const void* nhi, const void* cdin, const void* flux,     \
-                      const void* sdr3, void* phi, void* heat, int n,          \
-                      void* stream) {                                          \
+                      const double* bins, const void* nhi, const void* cdin,   \
+                      const void* flux, const void* sdr3, void* phi,           \
+                      void* heat, int n, void* stream) {                       \
     const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
     if (!box::fits(g, n, heat != nullptr)) return cudaErrorInvalidValue;       \
     using P = const TYPE*;                                                     \
@@ -1199,24 +1174,26 @@ HE_TRACE_SWEEP_ENTRY(he_trace_sweep_f64, double)
                               static_cast<P>(flux), static_cast<P>(sdr3),      \
                               static_cast<TYPE*>(phi),                         \
                               static_cast<TYPE*>(heat)};                       \
-    return launch_box_rates<TYPE>(g, a, n,                                     \
-                                  static_cast<cudaStream_t>(stream));          \
+    return box::launch_rates<TYPE>(g, a, box::make_bins<TYPE>(bins, g.E), n,   \
+                                   static_cast<cudaStream_t>(stream));         \
   }                                                                            \
   int box_trace_sweep_##SFX(                                                   \
       void* const* tabs, const int* dims, const double* vals,                  \
-      const void* frame, const int* pos, const void* flux, const void* sdr3,   \
-      void* nhi, void* cd, void* cdin, void* phi, void* heat,                  \
-      void* phi_frame, void* heat_frame, int nb, int B, int dev_batch,         \
-      int threads, int ring, int* launches, void* stream) {                    \
+      const double* bins, const void* frame, const int* pos, const void* flux, \
+      const void* sdr3, void* nhi, void* cdin, void* ring, void* phi,          \
+      void* heat, void* phi_frame, void* heat_frame, int nb, int B,            \
+      int dev_batch, int chunk, int threads, int shared, int blocks,           \
+      int* launches, void* stream) {                                           \
     const box::Geom<TYPE> g = box::make_geom<TYPE>(tabs, dims, vals);          \
     using P = const TYPE*;                                                     \
     const BoxTrace<TYPE> tr{static_cast<P>(frame), pos, static_cast<P>(flux),  \
                             static_cast<P>(sdr3), static_cast<TYPE*>(nhi),     \
-                            static_cast<TYPE*>(cd), static_cast<TYPE*>(cdin),  \
+                            static_cast<TYPE*>(cdin), static_cast<TYPE*>(ring),\
                             static_cast<TYPE*>(phi), static_cast<TYPE*>(heat), \
                             static_cast<TYPE*>(phi_frame),                     \
                             static_cast<TYPE*>(heat_frame)};                   \
-    return box_trace<TYPE>(g, tr, nb, B, dev_batch, threads, ring != 0,        \
+    return box_trace<TYPE>(g, tr, bins, nb, B, dev_batch, chunk,               \
+                           BoxSweepPlan{threads, shared, blocks},              \
                            launches, static_cast<cudaStream_t>(stream));       \
   }
 

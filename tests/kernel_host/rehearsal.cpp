@@ -1,7 +1,8 @@
-// Runs the port's kernels on the host: k_loop.inc, k_chem.inc and
-// k_flat_probe.inc are the device parts of trace_loop.cu, chemistry.cu and
-// flat_probe.cu, thermal.cuh and flat_sweep.cuh those of the thermal
-// update's and the flat engine's kernels, cheb_sweep_kernels.cuh,
+// Runs the port's kernels on the host: k_loop.inc, k_chem.inc,
+// k_flat_probe.inc and k_box_probe.inc are the device parts of
+// trace_loop.cu, chemistry.cu, flat_probe.cu and box_probe.cu,
+// thermal.cuh and flat_sweep.cuh those of the thermal update's and the
+// flat engine's kernels, cheb_sweep_kernels.cuh,
 // cheb_sweep_rates.cuh, cheb_rates.cuh and cheb_rates_he.cuh those of the
 // headers of K1, K1f and K2, of K3, and of the dense rate passes, as
 // tests/rehearsal_host.py cuts them out,
@@ -34,6 +35,7 @@ thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 #include "flat_sweep.cuh"
 #include "k_flat_probe.inc"
 #include "box_sweep.cuh"
+#include "k_box_probe.inc"
 using namespace cheb;
 
 template <class F>
@@ -687,32 +689,50 @@ extern "C" void rehearse_flat_forms(int* out, int* rates) {
   rates[k] = -100;
 }
 
-// The box engine's kernels of box_sweep.cuh over the engine's tables (tabs,
-// dims, vals as make_geom takes them). kind 0: the gather of the n sources
-// at pos into nhi (ceil(n_v / T_) x n blocks, thread after thread); 1: the
-// sweep of n sources from nhi into cd and cdin (n blocks of T_ threads, the
-// column densities in the ring in shared memory with `ring`); 2:
-// the rate pass of n sources from nhi and cdin into the rated cells of the
-// boxes phi (and heat) (ceil(n_r / T_) x n blocks, thread after thread); 3:
-// the trace loop of nb batches of B sources (box_trace of trace_loop.cu):
-// the rate boxes zeroed, then per device batch of dev_batch sources the
-// gather and the sweep, per batch of B the rate pass and the accumulate
-// over the rated cells (blocks of T_ threads) into phi_frame (and
-// heat_frame). The blocks and rows in reverse order with `reverse`. `io`
-// holds frame, pos, flux, sdr3, nhi, cd, cdin, phi, heat, phi_frame,
-// heat_frame (the heat channel's null without it).
+// The box engine's kernels of box_sweep.cuh and the probe's forms of
+// box_probe.cu over the engine's tables (tabs, dims, vals as make_geom
+// takes them; bins, the 3 E doubles of the rate pass's parameters). kind
+// 0: the gather of the n sources at pos into nhi (ceil(n_v / T_) x n
+// blocks, thread after thread); 1: the engine's sweep of n sources from
+// nhi into cdin, the ring in shared memory with `shared`, on `blocks`
+// blocks of T_ threads (fewer than the sources: each block sweeps source
+// after source), its rings in global memory at `ring` where not shared; 2:
+// the engine's rate pass of n sources from nhi and cdin into the rated
+// cells of the boxes phi (and heat), a pair a thread (thread after
+// thread), the bins as parameters with `param`; 3: the trace loop of nb
+// batches of B sources (box_trace of trace_loop.cu): a chunk's rate boxes
+// zeroed, then per device batch of dev_batch sources the gather and the
+// engine's sweep, per chunk of `chunk` batches the engine's rate pass (the
+// bins as parameters where E <= kParamBins), per batch of B the
+// accumulate over the rated cells (blocks of T_ threads) into phi_frame
+// (and heat_frame); 4: the probe's sweep with `group` sources a thread
+// (group_sweep_kernel), as kind 1; 5: the probe's rate pass on a grid of
+// rate_blocks blocks (grid_rates_kernel), `unroll` bins a trip, as kind 2.
+// The blocks and rows in reverse order with `reverse`. `io` holds frame,
+// pos, flux, sdr3, nhi, ring, cdin, phi, heat, phi_frame, heat_frame (the
+// heat channel's null without it). Returns 1 where a form is not one of
+// the engine's or the probe's.
+template <class T, class K>
+void box_sweep_blocks(const box::Geom<T>& g, const box::SweepIO<T>& io,
+                      K kern, int blocks, int T_, size_t smem, bool rev) {
+  emu_blocks(blocks, 1, T_, smem, [&] { kern(g, io); }, rev);
+}
+
 template <class T>
-void run_box(int kind, void* const* tabs, const int* dims, const double* vals,
-             void* const* io, int n, int nb, int B, int dev_batch, int T_,
-             int ring, int reverse) {
+int run_box(int kind, void* const* tabs, const int* dims, const double* vals,
+            const double* bins, void* const* io, int n, int nb, int B,
+            int dev_batch, int chunk, int T_, int group, int shared,
+            int blocks, int param, int unroll, int rate_blocks,
+            int reverse) {
   using P = const T*;
   const box::Geom<T> g = box::make_geom<T>(tabs, dims, vals);
+  const box::Bins<T> bp = box::make_bins<T>(bins, g.E);
   const T* frame = (P)io[0];
   const int* pos = (const int*)io[1];
   const T* flux = (P)io[2];
   const T* sdr3 = (P)io[3];
   T* nhi = (T*)io[4];
-  T* cd = (T*)io[5];
+  T* ring = (T*)io[5];
   T* cdin = (T*)io[6];
   T* phi = (T*)io[7];
   T* heat = (T*)io[8];
@@ -722,57 +742,108 @@ void run_box(int kind, void* const* tabs, const int* dims, const double* vals,
       box::sheet_gather_kernel<T>(g, frame, p, nhi);
     }, rev);
   };
+  const size_t rb = box::ring_bytes(g);
   auto sweep = [&](int m) {
-    emu_blocks(m, 1, T_, ring ? box::ring_bytes(g) : 0, [&] {
-      if (ring)
-        box::sheet_sweep_kernel<T, true>(g, nhi, cd, cdin);
-      else
-        box::sheet_sweep_kernel<T, false>(g, nhi, cd, cdin);
-    }, rev);
+    const box::SweepIO<T> s{nhi, cdin, shared ? nullptr : ring, m};
+    const int nbk = std::min(blocks, m);
+    if (shared)
+      box_sweep_blocks(g, s, box::sheet_sweep_kernel<T, true>, nbk, T_, rb,
+                       rev);
+    else
+      box_sweep_blocks(g, s, box::sheet_sweep_kernel<T, false>, nbk, T_, 0,
+                       rev);
   };
-  auto rates = [&](const box::RateIO<T>& a, int m) {
-    emu_serial((g.n_r + T_ - 1) / T_, m, T_, [&] {
-      if (a.heat)
-        box::sheet_rates_kernel<T, true>(g, a);
-      else
-        box::sheet_rates_kernel<T, false>(g, a);
-    }, rev);
+  auto group_sweep = [&](int m) {
+    const box::SweepIO<T> s{nhi, cdin, shared ? nullptr : ring, m};
+    const int nbk = std::min(blocks, (m + group - 1) / group);
+    const size_t smem = shared ? rb * group : 0;
+    using namespace box_probe;
+#define BOX_GROUP(S, SH)                                                      \
+  if (group == S && shared == SH) {                                           \
+    box_sweep_blocks(g, s, group_sweep_kernel<T, S, SH, 0, 1>, nbk, T_, smem, \
+                     rev);                                                    \
+    return 0;                                                                 \
+  }
+    BOX_GROUP(1, false) BOX_GROUP(2, false) BOX_GROUP(4, false)
+    BOX_GROUP(8, false) BOX_GROUP(1, true) BOX_GROUP(2, true)
+#undef BOX_GROUP
+    return 1;
   };
-  if (kind == 0) {
-    gather(pos, n);
-  } else if (kind == 1) {
-    sweep(n);
-  } else if (kind == 2) {
-    rates(box::RateIO<T>{nhi, cdin, flux, sdr3, phi, heat}, n);
-  } else {
-    const size_t D3 = size_t(g.Dc) * g.Dc * g.Dc;
-    std::fill(phi, phi + size_t(B) * D3, T(0));
-    if (heat) std::fill(heat, heat + size_t(B) * D3, T(0));
-    void* frames[2] = {io[9], io[10]};
-    void* boxes[2] = {phi, heat};
-    const int ns = nb * B;
-    for (int s = 0; s < ns; s += dev_batch) {
-      const int m = std::min(dev_batch, ns - s);
-      gather(pos + size_t(3) * s, m);
-      sweep(m);
-      for (int a = 0; a < m; a += B) {
-        const size_t at = size_t(a) * g.n_v;
-        rates(box::RateIO<T>{nhi + at, cdin + at, flux + s + a, sdr3, phi,
-                             heat}, B);
-        run_boxes<T>(frames, boxes, heat ? 2 : 1, pos, (s + a) / B, B, g.Dc,
-                     0, g.P, g.P, g.P, g.rcell, g.visit, g.n_r, T_, reverse);
+  // the engine's rate pass, a pair a thread
+  auto rates = [&](const box::RateIO<T>& a, int m, bool par) {
+    const int nbk = int((size_t(m) * g.n_r + T_ - 1) / T_);
+    auto run = [&](auto kern) {
+      emu_serial(nbk, 1, T_, [&] { kern(g, a, bp, m); }, rev);
+    };
+    const bool h = a.heat != nullptr;
+    if (h && par) run(box::sheet_rates_kernel<T, true, true>);
+    else if (h) run(box::sheet_rates_kernel<T, true, false>);
+    else if (par) run(box::sheet_rates_kernel<T, false, true>);
+    else run(box::sheet_rates_kernel<T, false, false>);
+  };
+  auto grid_rates = [&](const box::RateIO<T>& a, int m) {
+    auto run = [&](auto kern) {
+      emu_serial(rate_blocks, 1, T_, [&] { kern(g, a, bp, m); }, rev);
+      return 0;
+    };
+    using namespace box_probe;
+    const bool h = a.heat != nullptr;
+    switch ((h ? 4 : 0) + (param ? 2 : 0) + (unroll == 2)) {
+      case 0: return run(grid_rates_kernel<T, false, false, 1>);
+      case 1: return run(grid_rates_kernel<T, false, false, 2>);
+      case 2: return run(grid_rates_kernel<T, false, true, 1>);
+      case 3: return run(grid_rates_kernel<T, false, true, 2>);
+      case 4: return run(grid_rates_kernel<T, true, false, 1>);
+      case 5: return run(grid_rates_kernel<T, true, false, 2>);
+      case 6: return run(grid_rates_kernel<T, true, true, 1>);
+      default: return run(grid_rates_kernel<T, true, true, 2>);
+    }
+  };
+  const box::RateIO<T> all{nhi, cdin, flux, sdr3, phi, heat};
+  switch (kind) {
+    case 0: gather(pos, n); return 0;
+    case 1: sweep(n); return 0;
+    case 2: rates(all, n, param != 0); return 0;
+    case 4: return group_sweep(n);
+    case 5: return grid_rates(all, n);
+    case 3: break;
+    default: return 1;
+  }
+  const size_t D3 = size_t(g.Dc) * g.Dc * g.Dc;
+  std::fill(phi, phi + size_t(chunk) * B * D3, T(0));
+  if (heat) std::fill(heat, heat + size_t(chunk) * B * D3, T(0));
+  void* frames[2] = {io[9], io[10]};
+  const int ns = nb * B;
+  for (int s = 0; s < ns; s += dev_batch) {
+    const int m = std::min(dev_batch, ns - s);
+    gather(pos + size_t(3) * s, m);
+    sweep(m);
+    for (int a = 0; a < m; a += chunk * B) {
+      const int k = std::min(chunk * B, m - a);
+      const size_t at = size_t(a) * g.n_v;
+      rates(box::RateIO<T>{nhi + at, cdin + at, flux + s + a, sdr3, phi,
+                           heat}, k, g.E <= box::kParamBins);
+      for (int j = 0; j < k / B; ++j) {
+        void* boxes[2] = {phi + size_t(j) * B * D3,
+                          heat ? heat + size_t(j) * B * D3 : nullptr};
+        run_boxes<T>(frames, boxes, heat ? 2 : 1, pos, (s + a) / B + j, B,
+                     g.Dc, 0, g.P, g.P, g.P, g.rcell, g.visit, g.n_r, T_,
+                     reverse);
       }
     }
   }
+  return 0;
 }
 
 #define REHEARSE_BOX(NAME, TYPE)                                               \
-  extern "C" void NAME(int kind, void* const* tabs, const int* dims,          \
-                       const double* vals, void* const* io, int n, int nb,    \
-                       int B, int dev_batch, int T_, int ring,                \
-                       int reverse) {                                         \
-    run_box<TYPE>(kind, tabs, dims, vals, io, n, nb, B, dev_batch, T_, ring,  \
-                  reverse);                                                   \
+  extern "C" int NAME(int kind, void* const* tabs, const int* dims,           \
+                      const double* vals, const double* bins,                 \
+                      void* const* io, int n, int nb, int B, int dev_batch,   \
+                      int chunk, int T_, int group, int shared, int blocks,   \
+                      int param, int unroll, int rate_blocks, int reverse) {  \
+    return run_box<TYPE>(kind, tabs, dims, vals, bins, io, n, nb, B,          \
+                         dev_batch, chunk, T_, group, shared, blocks, param,  \
+                         unroll, rate_blocks, reverse);                       \
   }
 REHEARSE_BOX(rehearse_box_f32, float)
 REHEARSE_BOX(rehearse_box_f64, double)

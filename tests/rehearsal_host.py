@@ -4,8 +4,8 @@
 The device parts of ``pyc2ray_torch/ops/csrc/cheb_sweep.cuh``,
 ``cheb_sweep_kernels.cuh``, ``cheb_sweep_rates.cuh``, ``cheb_rates.cuh``,
 ``cheb_rates_he.cuh``, ``trace_loop.cu``, ``chemistry.cu``,
-``thermal.cuh``, ``flat_sweep.cuh``, ``flat_probe.cu`` and ``box_sweep.cuh``
-(everything before their launch code), with
+``thermal.cuh``, ``flat_sweep.cuh``, ``flat_probe.cu``, ``box_sweep.cuh``
+and ``box_probe.cu`` (everything before their launch code), with
 ``rounded.cuh``, are cut out of the sources and compiled with g++ against
 the stand-in headers of
 ``tests/kernel_host/`` (every thread of every block of a cluster is a
@@ -95,7 +95,12 @@ _PARTS = {
                          "// The launches of the probe's forms",
                          "}  // namespace flat_probe\n"),
     "rounded.cuh": ("rounded.cuh", None, ""),      # no launch code
-    "box_sweep.cuh": ("box_sweep.cuh", None, ""),  # no launch code
+    "box_sweep.cuh": ("box_sweep.cuh",
+                      "// The launches of the box kernels (host code).",
+                      "}  // namespace box\n"),
+    "k_box_probe.inc": ("box_probe.cu",
+                        "// The launches of the probe's forms (host code).",
+                        "}  // namespace box_probe\n"),
 }
 
 
@@ -191,9 +196,9 @@ def load_library():
     lib.rehearse_flat_forms.argtypes = [ctypes.c_void_p] * 2
     lib.rehearse_flat_forms.restype = None
     for f in (lib.rehearse_box_f32, lib.rehearse_box_f64):
-        f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_int] * 7
-        f.restype = None
+        f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 13
+        f.restype = ctypes.c_int
     for f in (lib.rehearse_thermal_f32, lib.rehearse_thermal_f64):
         f.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

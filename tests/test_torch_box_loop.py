@@ -216,11 +216,12 @@ def _cuda():
 def test_box_kernels_equal_plain_on_cuda(N, R, spectrum, heat, dt):
     """Each kernel (one launch, counted) bit for bit against its plain
     version on the card on the first batch (the gather at the valid cells,
-    the sweep's incoming column densities there, with several block sizes
-    in both placements of its column densities, the rate boxes whole), and
-    the loop (one call) against the plain loop over three batches, through
-    the engine and through the binding, the loop's launches as box_plan
-    counts them."""
+    the sweep's incoming column densities there, the binding's only output,
+    with several block sizes in each of the engine's forms: the ring in
+    shared or global memory; the rate boxes whole), and the loop (one call)
+    against the plain loop over three batches, through the engine and
+    through the binding (a rate launch a chunk of the three batches), the
+    loop's launches as box_plan counts them."""
     _cuda()
     rt = BoxRaytracer(N, R, SIG, _bins(spectrum), batch_size=4, dtype=dt,
                       do_heating=heat, device="cuda")
@@ -243,10 +244,11 @@ def test_box_kernels_equal_plain_on_cuda(N, R, spectrum, heat, dt):
     sweep.reset_launches()
     nhi = bs.box_gather(kt, frame, pos[0])
     assert torch.equal(nhi, H.reshape(B, -1)[:, stack])
+    # (threads, ring)
     forms = [(None, None), (32, False), (128, False), (1024, False),
              (128, True), (1024, True)]
     for threads, ring in forms:
-        got = bs.box_sweep(kt, nhi, DR, threads=threads, ring=ring)[0]
+        got = bs.box_sweep(kt, nhi, DR, threads=threads, ring=ring)
         assert torch.equal(got, cdin.reshape(B, -1)[:, stack]), (threads,
                                                                   ring)
     got = bs.box_rates(kt, got, nhi, flux_b[0].contiguous(), sdr3, DR)
@@ -260,51 +262,66 @@ def test_box_kernels_equal_plain_on_cuda(N, R, spectrum, heat, dt):
         assert (a is None and b is None) or torch.equal(a, b)
     # the plain loop adds its boxes by slice adds: no launch of a kernel
     ns = pos_b.shape[0] * B
-    want = {k: v + bs.box_plan(kt, ns, B, nd.device)[3][k] for k, v in (
+    plan = bs.box_plan(kt, ns, B, nd.device)
+    want = {k: v + plan.launches[k] for k, v in (
         ("box_gather", 1), ("box_sweep", len(forms)), ("box_rates", 1),
         ("accumulate_boxes", 0))}
     assert sweep.launches["box_trace_sweep"] == 1
     assert all(sweep.launches[k] == v for k, v in want.items()), want
+    g = rt.geom
+    assert plan.chunk == 3 and plan.launches["box_rates"] == 1, plan
     sweep.reset_launches()
     pads = bs.box_trace_sweep(kt, frame, pos_b, flux_b, sdr3, DR)
-    g = rt.geom
-    for p, w in zip(pads, plain):
-        assert (p is None and w is None) or torch.equal(
-            fold_padding(p, g.c, g.Dc).reshape(-1), w)
-    plan = bs.box_plan(kt, ns, B, nd.device)[3]
+    for a, w in zip(pads, plain):
+        assert (a is None and w is None) or torch.equal(
+            fold_padding(a, g.c, g.Dc).reshape(-1), w)
     assert sweep.launches["box_trace_sweep"] == 1
-    assert all(sweep.launches[k] == v for k, v in plan.items()), plan
+    assert all(sweep.launches[k] == v for k, v in plan.launches.items()), \
+        plan
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32])
-def test_box_loop_over_device_batches_on_cuda(dt):
+@pytest.mark.parametrize("heat", [True, False])
+def test_box_loop_over_device_batches_on_cuda(dt, heat):
     """The loop bit for bit against the plain loop over more sources than
-    one of its device batches holds (two device batches, the second ragged
-    and not a whole number of batches of B), with heat, so the offsets of a
-    later device batch into the positions, the fluxes and the batches show;
-    each kernel's launches as the loop counts them are box_plan's."""
+    one of its device batches holds (box_plan's own plan: two device
+    batches, the second smaller, each of several rate chunks, the last
+    short), with and without heat, so the offsets of a later device batch
+    into the positions, the fluxes and the batches show; each kernel's
+    launches as the loop counts them are box_plan's."""
     _cuda()
     N, B = 24, 8
     rt = BoxRaytracer(N, 5.0, SIG, _bb_bins(), batch_size=B, dtype=dt,
-                      do_heating=True, device="cuda")
+                      do_heating=heat, device="cuda")
     kt = rt.kernel_tables()
     dev = torch.device("cuda")
-    dev_batch = bs.box_plan(kt, 1 << 20, B, dev)[2]
+    dev_batch = bs.box_plan(kt, 1 << 20, B, dev).dev_batch
     ns = dev_batch + 3 * B + 5
     nd, xh = (torch.from_numpy(a).to("cuda", dt) for a in _fields(N, 11))
     src, flux = _sources(N, ns, 12)
     pos_b, flux_b = rt.prepare_sources(src, flux)
-    _, _, got_batch, plan = bs.box_plan(kt, ns, B, dev)
-    assert got_batch == dev_batch and plan["box_gather"] == 2
+    plan = bs.box_plan(kt, ns, B, dev)
+    assert plan.launches["box_gather"] >= 2 and plan.dev_batch < ns, plan
+    assert plan.launches["box_rates"] > plan.launches["box_gather"], plan
     plain = rt.box_trace_sweep_ref(nd, xh, pos_b, flux_b, DR)
-    assert float(plain[0].max()) > 0.0
+    assert float(plain[0].max()) > 0.0 and (plain[1] is None) != heat
+    frame = rt.wrap_pad(nd, xh)
+    sdr3 = s_over_dr3(DR, dt).to("cuda")
+    sweep.reset_launches()
+    pads = bs.box_trace_sweep(kt, frame, pos_b, flux_b, sdr3, DR)
+    g = rt.geom
+    for a, b in zip(pads, plain):
+        assert (a is None and b is None) or torch.equal(
+            fold_padding(a, g.c, g.Dc).reshape(-1), b)
+    assert all(sweep.launches[k] == v for k, v in plan.launches.items()), \
+        plan
     sweep.reset_launches()
     loop = rt.trace_batches(nd, xh, pos_b, flux_b, DR)
     for a, b in zip(loop, plain):
-        assert torch.equal(a, b)
-    assert plan["box_rates"] == pos_b.shape[0]
-    assert all(sweep.launches[k] == v for k, v in plan.items()), plan
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert all(sweep.launches[k] == v for k, v in plan.launches.items()), \
+        plan
 
 
 @pytest.mark.cuda

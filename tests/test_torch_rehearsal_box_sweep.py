@@ -5,9 +5,14 @@ BoxRaytracer: _sheets, _sweep, _rates with _unshear, and the plain loop
 box_trace_sweep_ref) with the card's arithmetic (glibc's exp and expm1, the
 functions the host build calls). Every scratch buffer starts as NaN, so a
 read of a cell the kernels never wrote shows; the rate pass's unrated box
-cells must stay NaN. The sweep runs with 7 and 64 threads a block, its
-column densities in the ring in shared memory and in global memory, every
-grid in both block orders."""
+cells must stay NaN. The sweep runs in the engine's forms (a source a
+block, the ring in shared or global memory, fewer blocks than sources) and
+in the forms of csrc/box_probe.cu that chip_smoke's design steps time (a
+group of 1, 2, 4 or 8 of the 3 sources of a batch a thread, the last group
+short); the rate pass in the engine's form and in the probe's on a
+persistent grid whose threads do not divide the pairs of a source and a
+rated cell; the loop with chunks of rate boxes over several device
+batches; every grid in both block orders."""
 
 import ctypes
 
@@ -73,19 +78,30 @@ def _card_arithmetic(monkeypatch, dt):
     monkeypatch.setattr(torch, "expm1", _libm("expm1", dt))
 
 
-def _host(lib, rt, kind, io, n=0, nb=0, B=0, dev_batch=0, threads=7,
-          ring=0, reverse=0):
+def _host(lib, rt, kind, io, n=0, nb=0, B=0, dev_batch=0, chunk=1,
+          threads=7, group=1, shared=0, blocks=1 << 20, param=1, unroll=2,
+          rate_blocks=3, reverse=0):
     """Kind ``kind`` of rehearsal.cpp's run_box on the host with the
-    tensors ``io`` (absent ones null)."""
+    tensors ``io`` (absent ones null): the sweep (the probe's: ``group``
+    sources a thread) its ring in shared memory with ``shared``, on at most
+    ``blocks`` blocks, the rate pass with the bins as parameters
+    (``param``; the probe's: ``unroll`` bins a trip, on ``rate_blocks``
+    blocks)."""
     kt = rt.kernel_tables()
-    order = ("frame", "pos", "flux", "sdr3", "nhi", "cd", "cdin", "phi",
+    order = ("frame", "pos", "flux", "sdr3", "nhi", "ring", "cdin", "phi",
              "heat", "phi_frame", "heat_frame")
+    if not shared and io.get("ring") is None:
+        rings = min(blocks, -(-max(n, dev_batch) // group))
+        io = dict(io, ring=_nan(rings * group * bs.ring_bytes(kt)
+                                // rt.dtype.itemsize, dt=rt.dtype))
     ptrs = (ctypes.c_void_p * len(order))(
         *[None if io.get(k) is None else io[k].data_ptr() for k in order])
     fn = lib.rehearse_box_f32 if rt.dtype == torch.float32 else \
         lib.rehearse_box_f64
-    fn(kind, kt.tabs, kt.dims, bs._vals(kt, DR), ptrs, n, nb, B, dev_batch,
-       threads, ring, reverse)
+    rc = fn(kind, kt.tabs, kt.dims, bs._vals(kt, DR), kt.bins, ptrs, n, nb,
+            B, dev_batch, chunk, threads, group, shared, blocks, param,
+            unroll, rate_blocks, reverse)
+    assert rc == 0, "not one of the engine's or the probe's forms"
 
 
 def _nan(*shape, dt):
@@ -100,6 +116,42 @@ def _stack_of_valid(rt):
     return torch.from_numpy((t["vf"] * rt.geom.Q + t["vq"]) * S + t["vs"])
 
 
+def _first_batch(case, dt, spectrum):
+    """The engine, its tables, the padded frame, the first batch's staged
+    positions and fluxes, and the plain functions' results on it: the
+    gathered nHI and the incoming column densities at the valid cells (B,
+    n_v), the rate boxes unsheared (B, Dc^3 each) and the rated box cells
+    (a bool mask)."""
+    rt, nd, xh, pos, flux = _case(case, dt, spectrum)
+    g, B = rt.geom, pos.shape[1]
+    kt = rt.kernel_tables()
+    frame = rt.wrap_pad(nd, xh)
+    stage = stage_positions(pos, frame.shape, g.Dc, "cpu")
+    H = rt._sheets(frame, stage[0])
+    pathdr = rt.tables.path * torch.tensor(DR, dtype=dt)
+    sdr3 = s_over_dr3(DR, dt)
+    cdin = rt._sweep(H, pathdr, DR)
+    phi, heat_s = rt._rates(cdin, H, pathdr, flux[0], sdr3)
+    want = [rt._unshear(phi).reshape(B, -1)] + (
+        [rt._unshear(heat_s).reshape(B, -1)] if rt.do_heating else [])
+    stack = _stack_of_valid(rt)
+    rated = torch.zeros(g.Dc ** 3, dtype=torch.bool)
+    rated[kt.tensors[4].long()] = True
+    return dict(rt=rt, frame=frame, pos=stage[0].contiguous(),
+                flux=flux[0], sdr3=sdr3, nhi=H.reshape(B, -1)[:, stack],
+                cdin=cdin.reshape(B, -1)[:, stack], want=want, rated=rated)
+
+
+def _rates_match(io, f):
+    """The rate boxes of ``io`` equal the plain ones at the rated cells and
+    are NaN elsewhere."""
+    for got, w in zip((io["phi"], io["heat"]), f["want"]):
+        r = f["rated"]
+        assert torch.equal(got[:, r], w[:, r])
+        assert torch.isnan(got[:, ~r]).all()
+        assert not w[:, ~r].any()
+
+
 @pytest.mark.parametrize("spectrum,threads", [
     ("grey", 7), ("bins", 7), ("bins", 64), ("heat", 7), ("heat", 64)])
 @pytest.mark.parametrize("dt", DTYPES)
@@ -109,63 +161,114 @@ def test_box_kernels_on_the_host_match_plain(lib, monkeypatch, case, dt,
     """sheet_gather_kernel, sheet_sweep_kernel and sheet_rates_kernel on
     the first batch, in both block orders, on NaN outputs: the gather equal
     to the plain stack at the valid cells, the sweep's incoming column
-    densities (in both placements) to the plain sweep's there, and the rate
-    boxes to the plain pass's unsheared boxes at the rated cells, NaN at
-    every other cell."""
+    densities (a source a block, the ring in shared and in global memory)
+    to the plain sweep's there, and the rate boxes (the engine's forms: the
+    bins as parameters or, as for more than 32 bins, loaded; two a trip) to
+    the plain pass's unsheared boxes at the rated cells, NaN at every other
+    cell."""
     _card_arithmetic(monkeypatch, dt)
-    rt, nd, xh, pos, flux = _case(case, dt, spectrum)
-    g, B, heat = rt.geom, pos.shape[1], rt.do_heating
-    kt = rt.kernel_tables()
-    n_v, D3 = kt.sizes["n_v"], g.Dc ** 3
-    frame = rt.wrap_pad(nd, xh)
-    stage = stage_positions(pos, frame.shape, g.Dc, "cpu")
-    H = rt._sheets(frame, stage[0])
-    dr_t = torch.tensor(DR, dtype=dt)
-    pathdr = rt.tables.path * dr_t
-    sdr3 = s_over_dr3(DR, dt)
-    cdin = rt._sweep(H, pathdr, DR)
-    phi, heat_s = rt._rates(cdin, H, pathdr, flux[0], sdr3)
-    want = [rt._unshear(phi)] + ([rt._unshear(heat_s)] if heat else [])
-    stack = _stack_of_valid(rt)
-    rated = torch.zeros(D3, dtype=torch.bool)
-    rated[kt.tensors[4].long()] = True
+    f = _first_batch(case, dt, spectrum)
+    rt, B = f["rt"], f["pos"].shape[0]
+    n_v, D3 = rt.kernel_tables().sizes["n_v"], rt.geom.Dc ** 3
     for reverse in (0, 1):
-        io = dict(frame=frame, pos=stage[0].contiguous(), flux=flux[0],
-                  sdr3=sdr3, nhi=_nan(B, n_v, dt=dt), cd=_nan(B, n_v, dt=dt),
+        io = dict(frame=f["frame"], pos=f["pos"], flux=f["flux"],
+                  sdr3=f["sdr3"], nhi=_nan(B, n_v, dt=dt),
                   cdin=_nan(B, n_v, dt=dt), phi=_nan(B, D3, dt=dt),
-                  heat=_nan(B, D3, dt=dt) if heat else None)
+                  heat=_nan(B, D3, dt=dt) if rt.do_heating else None)
         _host(lib, rt, 0, io, n=B, threads=threads, reverse=reverse)
-        assert torch.equal(io["nhi"], H.reshape(B, -1)[:, stack]), reverse
-        for ring in (1, 0):
-            io.update(cd=_nan(B, n_v, dt=dt), cdin=_nan(B, n_v, dt=dt))
-            _host(lib, rt, 1, io, n=B, threads=threads, ring=ring,
+        assert torch.equal(io["nhi"], f["nhi"]), reverse
+        for shared in (1, 0):
+            io.update(cdin=_nan(B, n_v, dt=dt), ring=None)
+            _host(lib, rt, 1, io, n=B, threads=threads, shared=shared,
                   reverse=reverse)
-            assert torch.equal(io["cdin"], cdin.reshape(B, -1)[:, stack]), \
-                (ring, reverse)
-            assert not torch.isnan(io["cd"]).any()
-        _host(lib, rt, 2, io, n=B, threads=threads, reverse=reverse)
-        for got, w in zip((io["phi"], io["heat"]), want):
-            w = w.reshape(B, -1)
-            assert torch.equal(got[:, rated], w[:, rated]), reverse
-            assert torch.isnan(got[:, ~rated]).all()
-            assert not w[:, ~rated].any()
+            assert torch.equal(io["cdin"], f["cdin"]), (shared, reverse)
+        for param in (1, 0):
+            io.update(phi=_nan(B, D3, dt=dt),
+                      heat=_nan(B, D3, dt=dt) if rt.do_heating else None)
+            _host(lib, rt, 2, io, n=B, threads=threads, param=param,
+                  reverse=reverse)
+            _rates_match(io, f)
     # the pass visits every kind of rated cell: zero density, the source,
     # a cell behind MAX_COLDENSH, a zero flux
-    assert (want[0] == 0).any() and (want[0] > 0).any()
+    assert (f["want"][0] == 0).any() and (f["want"][0] > 0).any()
 
 
-@pytest.mark.parametrize("dev_batch,ring", [(3, 1), (6, 0)])
+# the sweep's forms (kind, group, shared, blocks, threads): the engine's
+# (kind 1) on one block over the 3 sources in each placement; the probe's
+# group_sweep_kernel (kind 4) with groups of 1, 2, 4 and 8 of the 3 sources
+# (the last group short; threads a multiple of the group, as on the card),
+# the shared ring of one and of two sources, and persistent grids of one
+# block over 3 and 2 groups
+SWEEP_FORMS = [(4, 2, 0, 1 << 20, 8), (4, 4, 0, 1 << 20, 8),
+               (4, 8, 0, 1 << 20, 16), (4, 2, 1, 1 << 20, 6),
+               (1, 1, 0, 1, 7), (4, 2, 0, 1, 6), (1, 1, 1, 1, 7),
+               (4, 1, 0, 1 << 20, 7), (4, 1, 1, 1, 7)]
+
+
+@pytest.mark.parametrize("form", SWEEP_FORMS)
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("case", list(CASES))
+def test_box_sweep_forms_on_the_host_match_plain(lib, case, dt, form):
+    """The engine's sheet_sweep_kernel and the probe's group_sweep_kernel in
+    each form of ``form`` on the first batch's gathered nHI, in both block
+    orders, on NaN outputs and rings: the incoming column densities equal
+    to the plain sweep's at the valid cells."""
+    kind, group, shared, blocks, threads = form
+    f = _first_batch(case, dt, "bins")
+    rt, B = f["rt"], f["pos"].shape[0]
+    n_v = rt.kernel_tables().sizes["n_v"]
+    for reverse in (0, 1):
+        io = dict(nhi=f["nhi"].contiguous(), cdin=_nan(B, n_v, dt=dt))
+        _host(lib, rt, kind, io, n=B, threads=threads, group=group,
+              shared=shared, blocks=blocks, reverse=reverse)
+        assert torch.equal(io["cdin"], f["cdin"]), reverse
+
+
+@pytest.mark.parametrize("param,unroll,rate_blocks", [
+    (0, 1, 2), (0, 2, 3), (1, 1, 5), (1, 2, 1)])
+@pytest.mark.parametrize("spectrum", ["grey", "bins", "heat"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("case", list(CASES))
+def test_box_rate_forms_on_the_host_match_plain(lib, monkeypatch, case, dt,
+                                                spectrum, param, unroll,
+                                                rate_blocks):
+    """csrc/box_probe.cu's grid_rates_kernel in each form (the bins loaded
+    or as parameters, one or two a trip) on a persistent grid of
+    ``rate_blocks`` blocks of 7 threads, whose threads do not divide the
+    pairs of a source and a rated cell (and are fewer than them), in both
+    block orders, on NaN boxes: the plain pass's unsheared boxes at the
+    rated cells, NaN elsewhere."""
+    _card_arithmetic(monkeypatch, dt)
+    f = _first_batch(case, dt, spectrum)
+    rt, B = f["rt"], f["pos"].shape[0]
+    n_r, D3 = rt.kernel_tables().sizes["n_r"], rt.geom.Dc ** 3
+    assert B * n_r % (7 * rate_blocks) != 0 and B * n_r > 7 * rate_blocks
+    for reverse in (0, 1):
+        io = dict(nhi=f["nhi"].contiguous(), cdin=f["cdin"].contiguous(),
+                  flux=f["flux"], sdr3=f["sdr3"], phi=_nan(B, D3, dt=dt),
+                  heat=_nan(B, D3, dt=dt) if rt.do_heating else None)
+        _host(lib, rt, 5, io, n=B, param=param, unroll=unroll,
+              rate_blocks=rate_blocks, reverse=reverse)
+        _rates_match(io, f)
+
+
+@pytest.mark.parametrize("dev_batch,shared,blocks,chunk", [
+    (3, 1, 1 << 20, 1), (6, 0, 1 << 20, 1), (6, 0, 2, 2), (6, 1, 4, 3),
+    (9, 0, 4, 2)])
 @pytest.mark.parametrize("spectrum", ["grey", "heat"])
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("case", list(CASES))
 def test_box_loop_on_the_host_matches_plain(lib, monkeypatch, case, dt,
-                                            spectrum, dev_batch, ring):
+                                            spectrum, dev_batch, shared,
+                                            blocks, chunk):
     """The trace loop (box_trace of csrc/trace_loop.cu, emulated kernel by
-    kernel: the rate boxes zeroed, per device batch of ``dev_batch``
-    sources the gather and the sweep (its column densities in the ring
-    with ``ring``), per batch of B the rate pass and the accumulate over the
-    rated cells) of three batches on NaN scratch, its frames folded, bit
-    for bit against the plain loop, in both block orders."""
+    kernel: a chunk's rate boxes zeroed, per device batch of ``dev_batch``
+    sources the gather and the sweep (its ring in shared memory with
+    ``shared``, on at most ``blocks`` blocks: fewer than the sources, each
+    block sweeps several), per chunk of ``chunk`` batches the rate pass and
+    per batch of B the accumulate over the rated cells) of three batches on
+    NaN scratch, its frames folded, bit for bit against the plain loop, in
+    both block orders."""
     _card_arithmetic(monkeypatch, dt)
     rt, nd, xh, pos, flux = _case(case, dt, spectrum)
     g, (nb, B), heat = rt.geom, pos.shape[:2], rt.do_heating
@@ -177,13 +280,13 @@ def test_box_loop_on_the_host_matches_plain(lib, monkeypatch, case, dt,
                   pos=stage_positions(pos, frame.shape, g.Dc, "cpu"),
                   flux=flux.contiguous(), sdr3=s_over_dr3(DR, dt),
                   nhi=_nan(dev_batch, n_v, dt=dt),
-                  cd=_nan(dev_batch, n_v, dt=dt),
-                  cdin=_nan(dev_batch, n_v, dt=dt), phi=_nan(B, D3, dt=dt),
-                  heat=_nan(B, D3, dt=dt) if heat else None,
+                  cdin=_nan(dev_batch, n_v, dt=dt),
+                  phi=_nan(chunk * B, D3, dt=dt),
+                  heat=_nan(chunk * B, D3, dt=dt) if heat else None,
                   phi_frame=torch.zeros_like(frame),
                   heat_frame=torch.zeros_like(frame) if heat else None)
-        _host(lib, rt, 3, io, nb=nb, B=B, dev_batch=dev_batch, threads=7,
-              ring=ring, reverse=reverse)
+        _host(lib, rt, 3, io, nb=nb, B=B, dev_batch=dev_batch, chunk=chunk,
+              threads=8, shared=shared, blocks=blocks, reverse=reverse)
         got = [fold_padding(io[k], g.c, g.Dc).reshape(-1)
                for k in ("phi_frame", "heat_frame")[:1 + heat]]
         for gt, w in zip(got, want):
